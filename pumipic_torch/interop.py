@@ -1,0 +1,74 @@
+"""Carry the JAX reference's setup across: numpy arrays in, the port's
+objects out.
+
+The parity tests build the reference's mesh, locator, gyro maps, band starts
+and particle state, convert them with ``np.asarray``, and hand them to
+:func:`from_reference`, so that both packages step from identical inputs.
+This module takes numpy only and imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pumipic_torch.mesh.core import Mesh2D
+from pumipic_torch.mesh.locator import LocatorGrid2D
+from pumipic_torch.models.pseudo_xgcm import DPModel, XGCmConfig
+from pumipic_torch.ops.push import BandRotation
+from pumipic_torch.ops.scatter import GyroMap
+
+# fields of the reference's Mesh2D / LocatorGrid2D that are carried across
+MESH_FIELDS = ("coords", "elem2verts", "elem2edges", "edge2verts",
+               "edge2elems", "side_is_exposed", "elem_area", "elem_v0",
+               "elem_inv_basis", "vert2elem_offsets", "vert2elem_vals",
+               "class_id", "walk_geom")
+LOCATOR_FIELDS = ("origin", "inv_h", "nx", "ny", "cell_elem", "cell_rows")
+STATE_FIELDS = ("x0", "x1", "cphi", "sphi", "b", "elem", "active")
+
+
+def locator_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
+                       ) -> LocatorGrid2D:
+    origin = np.asarray(arrays["origin"], np.float32)
+    inv_h = np.asarray(arrays["inv_h"], np.float32)
+    rows = arrays.get("cell_rows")
+    return LocatorGrid2D(
+        origin=(float(origin[0]), float(origin[1])),
+        inv_h=(float(inv_h[0]), float(inv_h[1])),
+        cell_elem=torch.as_tensor(
+            np.asarray(arrays["cell_elem"]).astype(np.int32), device=device),
+        nx=int(arrays["nx"]), ny=int(arrays["ny"]),
+        cell_rows=None if rows is None else torch.as_tensor(
+            np.array(rows, np.float32), device=device))
+
+
+def state_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
+                     ) -> Dict[str, torch.Tensor]:
+    out = {}
+    for k in STATE_FIELDS:
+        a = np.asarray(arrays[k])
+        dt = {"elem": np.int32, "active": bool}.get(k, np.float32)
+        out[k] = torch.as_tensor(a.astype(dt), device=device)
+    return out
+
+
+def from_reference(mesh: Dict[str, np.ndarray],
+                   locator: Optional[Dict[str, np.ndarray]],
+                   gyro_fwd: np.ndarray, gyro_bwd: Optional[np.ndarray],
+                   band_starts: Tuple[int, ...],
+                   state: Dict[str, np.ndarray],
+                   cfg: XGCmConfig, device="cpu"
+                   ) -> Tuple[DPModel, Dict[str, torch.Tensor]]:
+    """The port's (model, state) for the reference's setup.  ``gyro_bwd``
+    None (or the same array as ``gyro_fwd``) shares one map for both
+    directions, as the reference does when its projections coincide."""
+    m = Mesh2D.from_numpy({k: mesh[k] for k in MESH_FIELDS}, device)
+    R, P = cfg.gyro.num_rings, cfg.gyro.points_per_ring
+    fwd = GyroMap.from_flat(np.asarray(gyro_fwd), m.nverts, R, P, device)
+    bwd = fwd if gyro_bwd is None or gyro_bwd is gyro_fwd else \
+        GyroMap.from_flat(np.asarray(gyro_bwd), m.nverts, R, P, device)
+    grid = None if locator is None else locator_from_numpy(locator, device)
+    rot = BandRotation.build(tuple(int(s) for s in band_starts),
+                             cfg.deg_per_push, device)
+    return DPModel(m, grid, rot, fwd, bwd), state_from_numpy(state, device)

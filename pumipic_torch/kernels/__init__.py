@@ -1,0 +1,43 @@
+"""Hand-written CUDA kernels of the port and their launch counters.
+
+Each kernel has one wrapper in ``pumipic_torch.ops``.  A wrapper runs its
+plain PyTorch version only when its tensors lie on the CPU, launches the
+kernel when they lie on a CUDA device, and raises otherwise.  Where it
+launches, and nowhere else, it adds one to ``LAUNCHES[name]``.
+"""
+from __future__ import annotations
+
+import torch
+
+# kernel name -> launches since the last reset (a plain integer each)
+LAUNCHES = {"push": 0, "locate": 0, "histogram": 0, "deposit": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
+    """True when the wrapper ``name`` must launch its kernel (all tensors on
+    one CUDA device), False when it must run the plain version (all on the
+    CPU).  Anything else raises: there is no fallback."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        if dev.index is not None and dev.index != torch.cuda.current_device():
+            raise ValueError(f"{name}: tensors on {dev}, but the current "
+                             f"device is cuda:{torch.cuda.current_device()}")
+        for t in tensors:
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: the kernel takes contiguous tensors")
+        return True
+    raise ValueError(f"{name}: no kernel or plain version for device {dev}")
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream

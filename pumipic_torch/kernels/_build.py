@@ -1,0 +1,120 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+All ``csrc/*.cu`` files compile into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds).  The library is
+built on first use into ``kernels/_build/`` (ignored by git), named by a
+hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads the cached file.
+
+Flags: ``-fmad=false`` keeps every kernel equal to its plain PyTorch
+version element for element (a contracted a*b+c rounds once, the plain
+version twice, and a moved rounding moves a containment test at a shared
+side); ``-ftz=false -prec-div=true -prec-sqrt=true`` and no
+``--use_fast_math`` keep denormals and IEEE division.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17",
+    "-fmad=false", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signatures of the exported launchers (each returns cudaGetLastError())
+SIGNATURES = {
+    "pp_push_banded": [
+        _P, _P, _P, _P, _P, _P, _P,          # x0 x1 cphi sphi b elem active
+        _P, _I, _P, _P,                      # starts n_starts cd_tab sd_tab
+        _F, _F, _F,                          # h k d
+        _P, _P, _P, _P,                      # tx ty cphi_out sphi_out
+        _L, _P],                             # n stream
+    "pp_walk_locate": [
+        _P, _P, _P, _P,                      # dest_x dest_y elem_start active
+        _P, _I,                              # walk_geom n_elems
+        _P, _F, _F, _F, _F, _I, _I,          # cell_rows ox oy ihx ihy nx ny
+        _I, _I,                              # max_iters it0
+        _P, _P, _P,                          # elem_out active_out stats
+        _L, _P],                             # n stream
+    "pp_histogram": [_P, _P, _I, _P, _L, _P],
+    "pp_deposit_rings": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "pp_deposit_mapped": [_P, _P, _P, _I, _I, _P, _P],
+}
+
+_LIB = None
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libpumipic_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the library if it is not cached; returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), *map(str, sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr, flush=True)
+    os.replace(tmp, out)
+    return out
+
+
+def lib():
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = handle
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")

@@ -1,0 +1,198 @@
+// Kernel L: locate = cell-row peel + guess-walk BCC search with
+// remove-on-exit + the DPS rewrite, one thread per particle with the walk
+// loop inside the kernel.
+//
+// Replaces (JAX reference): LocatorGrid2D.cell_of
+// (pumipic_tpu/mesh/locator.py:85-101), the "rows" peel of
+// search_mesh_2d_accel (pumipic_tpu/ops/search.py:1199-1253), the walk step
+// _make_step/_row_core_2d (:595-707, :206-244) with remove_on_exit
+// (:110-121), the pyramid loop _run_walk (:710-950) and the DPS rewrite
+// (pumipic_tpu/models/pseudo_xgcm.py:658-667).  With rows == nullptr it is
+// the plain walk search_mesh_2d (:967-1000), which the setup runs over the
+// gyro ring points.  The TPU Pallas probes of the walk step
+// (perf/archive/walk_opt.py:219, walk_opt2.py:92, walk_opt4.py:101) compute
+// the same step.
+//
+// What bounds it on an H100: device-memory traffic of the random row loads.
+// Per particle: 13 bytes streamed in (dest x, y, previous elem, active), one
+// 56-byte cell row at a data-dependent address (the 27.5 MB table of the
+// 120k mesh fits the 50 MB L2), 5 bytes out; walkers the peel misses (a few
+// percent) add one 48-byte walk_geom row per step.
+//
+// Design: the TPU ran the walk as full-width vectorized steps with a
+// compaction pyramid (sorts, packed extraction, merge scatters) to shed
+// finished walkers.  On Hopper a thread simply keeps walking: finished
+// threads idle inside their warp, and there is no compaction at all.
+// The reference's iteration budget is kept exactly: the peel counts as
+// iteration it0 = 1, and each walker takes at most max_iters - it0 steps;
+// walkers unfinished at the limit are deleted.  iters = it0 + the most
+// steps any walker took, reduced per block and then with one atomicMax per
+// block; all_found counts unfinished walkers with one atomicAdd per block.
+// Built with -fmad=false so the containment tests round exactly as the
+// plain PyTorch version's separate ops do.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define BCC_REL_TOL 4.76837158203125e-07f  // 8 * 2^-24
+#define BCC_ABS_TOL 1e-7f
+#define WALK_THREADS 256
+
+struct Bary {
+  float l1, l2, w0;
+  bool inside;
+};
+
+// barycentric weights of (dx, dy) in the affine row a[0..5] and the
+// tolerance-relative containment test (search.py _row_core_2d)
+__device__ __forceinline__ Bary bary(float a0, float a1, float a2, float a3,
+                                     float a4, float a5, float dx, float dy) {
+  Bary r;
+  r.l1 = a0 * dx + a1 * dy + a2;
+  r.l2 = a3 * dx + a4 * dy + a5;
+  r.w0 = 1.0f - r.l1 - r.l2;
+  const float m1 = fabsf(a0 * dx) + fabsf(a1 * dy) + fabsf(a2);
+  const float m2 = fabsf(a3 * dx) + fabsf(a4 * dy) + fabsf(a5);
+  const float t1 = BCC_REL_TOL * m1 + BCC_ABS_TOL;
+  const float t2 = BCC_REL_TOL * m2 + BCC_ABS_TOL;
+  r.inside = (r.w0 >= -(t1 + t2)) && (r.l1 >= -t1) && (r.l2 >= -t2);
+  return r;
+}
+
+__global__ void __launch_bounds__(WALK_THREADS) walk_locate_kernel(
+    const float* __restrict__ dest_x, const float* __restrict__ dest_y,
+    const int* __restrict__ elem_start, const uint8_t* __restrict__ active,
+    const float* __restrict__ geom, int n_elems,
+    const float* __restrict__ rows, float ox, float oy, float ihx, float ihy,
+    int nx, int ny, int max_iters, int it0,
+    int* __restrict__ elem_out, uint8_t* __restrict__ active_out,
+    int* __restrict__ stats, long long n) {
+  int my_max = 0;
+  int my_unfinished = 0;
+  const int budget = max(max_iters - it0, 0);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float dx = dest_x[i], dy = dest_y[i];
+    int elem = -1;
+    int fbg = -2;  // >= 0: on a guess trajectory, value = element to retry from
+    bool done = true;
+    if (active[i]) {
+      const int start = min(max(elem_start[i], 0), n_elems - 1);
+      if (rows != nullptr) {
+        // cell id in f32 index arithmetic (LocatorGrid2D.cell_of)
+        const float rx = (dx - ox) * ihx;
+        const float ry = (dy - oy) * ihy;
+        const float fx = fminf(fmaxf(floorf(rx), 0.0f), (float)(nx - 1));
+        const float fy = fminf(fmaxf(floorf(ry), 0.0f), (float)(ny - 1));
+        const int c = min(max((int)(fx * (float)ny + fy), 0), nx * ny - 1);
+        // 56-byte row, 8-byte aligned: seven float2 loads
+        const float2* r2 = reinterpret_cast<const float2*>(rows + (size_t)c * 14);
+        float r[14];
+#pragma unroll
+        for (int j = 0; j < 7; ++j) {
+          const float2 v = __ldg(r2 + j);
+          r[2 * j] = v.x;
+          r[2 * j + 1] = v.y;
+        }
+        const bool in_a = bary(r[0], r[1], r[2], r[3], r[4], r[5], dx, dy).inside;
+        const bool in_b = bary(r[7], r[8], r[9], r[10], r[11], r[12], dx, dy).inside;
+        if (in_a || in_b) {
+          elem = in_a ? (int)r[6] : (int)r[13];
+        } else {
+          elem = (int)r[6];
+          fbg = start;
+          done = false;
+        }
+      } else {
+        elem = start;
+        done = false;
+      }
+    }
+    int steps = 0;
+    while (!done && steps < budget) {
+      ++steps;
+      // 48-byte walk_geom row, 16-byte aligned: three float4 loads
+      const float4* g4 = reinterpret_cast<const float4*>(geom + (size_t)elem * 12);
+      const float4 ga = __ldg(g4), gb = __ldg(g4 + 1), gc = __ldg(g4 + 2);
+      const Bary w = bary(ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, dx, dy);
+      if (w.inside) {
+        done = true;
+        break;
+      }
+      // most negative weight -> exit across the pre-permuted column 6+k
+      int kmin = (w.w0 <= w.l1) ? 0 : 1;
+      const float wmin = (isnan(w.w0) || isnan(w.l1)) ? NAN : fminf(w.w0, w.l1);
+      if (w.l2 < wmin) kmin = 2;
+      const float nf = kmin == 0 ? gb.z : (kmin == 1 ? gb.w : gc.x);
+      const int next = (int)nf;
+      if (next == -1) {          // exposed side
+        if (fbg >= 0) {          // guess trajectory: retry from the true start
+          elem = fbg;
+          fbg = -2;
+        } else {                 // real boundary exit: remove
+          elem = -1;
+          done = true;
+        }
+      } else {
+        elem = next;
+      }
+    }
+    if (!done) {                 // loop limit: delete the walker
+      elem = -1;
+      ++my_unfinished;
+    }
+    elem_out[i] = elem;
+    active_out[i] = elem >= 0 ? 1 : 0;
+    my_max = max(my_max, steps);
+  }
+  // block reduction, then one atomic per block
+  my_max = __reduce_max_sync(0xffffffffu, my_max);
+  my_unfinished = __reduce_add_sync(0xffffffffu, my_unfinished);
+  __shared__ int s_max[WALK_THREADS / 32];
+  __shared__ int s_unf[WALK_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_max[warp] = my_max;
+    s_unf[warp] = my_unfinished;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int bm = 0, bu = 0;
+    for (int w = 0; w < WALK_THREADS / 32; ++w) {
+      bm = max(bm, s_max[w]);
+      bu += s_unf[w];
+    }
+    if (bm > 0) atomicMax(&stats[0], bm);
+    if (bu > 0) atomicAdd(&stats[1], bu);
+  }
+}
+
+static int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
+
+// stats[0] <- max steps over walkers (atomicMax), stats[1] <- unfinished
+// walkers (atomicAdd); the caller zeroes both before the launch.
+extern "C" int pp_walk_locate(
+    const float* dest_x, const float* dest_y, const int* elem_start,
+    const uint8_t* active, const float* geom, int n_elems,
+    const float* rows, float ox, float oy, float ihx, float ihy, int nx,
+    int ny, int max_iters, int it0, int* elem_out, uint8_t* active_out,
+    int* stats, long long n, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  long long blocks = (n + WALK_THREADS - 1) / WALK_THREADS;
+  const long long cap = (long long)num_sms() * 8;
+  if (blocks > cap) blocks = cap;
+  walk_locate_kernel<<<(unsigned)blocks, WALK_THREADS, 0, stream>>>(
+      dest_x, dest_y, elem_start, active, geom, n_elems, rows, ox, oy, ihx,
+      ihy, nx, ny, max_iters, it0, elem_out, active_out, stats, n);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,130 @@
+"""Triangle mesh frozen into tensors (port of ``pumipic_tpu.mesh.core.Mesh2D``).
+
+Adjacencies are derived once on the host (:mod:`.adjacency`); the walk
+reads one packed (E, 12) float32 row per step, ``walk_geom``:
+
+    [a11 a12 c1, a21 a22 c2, xnbr0..2, xedge0..2]
+
+the barycentric weights as affine forms l_k(x) = A_k·x + c_k, then the
+neighbour and edge ids across the exit side of most-negative vertex k,
+stored as f32 (exact below 2^24) and pre-permuted by (k+1)%3.  The table is
+bit-equal to the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pumipic_torch.mesh import adjacency as adj
+from pumipic_torch.utils.types import LID_DTYPE, REAL_DTYPE
+
+F32_EXACT_ID_LIMIT = 1 << 24
+
+
+def check_f32_ids(n_elems: int, n_edges: int) -> None:
+    """Element and edge ids ride ``walk_geom`` as f32 values: exact only
+    below 2^24."""
+    if n_elems >= F32_EXACT_ID_LIMIT or n_edges >= F32_EXACT_ID_LIMIT:
+        raise ValueError("mesh too large for f32-packed walk ids (2^24)")
+
+
+def walk_geom_table(coords: np.ndarray, ev: np.ndarray, elem2edges: np.ndarray,
+                    edge2elems: np.ndarray):
+    """(E, 12) f32 walk table plus the f64 (v0, inverse basis) it is
+    rounded from."""
+    E = ev.shape[0]
+    p = coords[ev]                                               # (E, 3, 2) f64
+    basis = np.stack([p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]], axis=-1)
+    inv_basis = np.linalg.inv(basis)
+    geom = np.zeros((E, 12), np.float32)
+    c_aff = -np.einsum("eij,ej->ei", inv_basis, p[:, 0])         # (E, 2)
+    geom[:, 0:2] = inv_basis[:, 0, :].astype(np.float32)
+    geom[:, 2] = c_aff[:, 0].astype(np.float32)
+    geom[:, 3:5] = inv_basis[:, 1, :].astype(np.float32)
+    geom[:, 5] = c_aff[:, 1].astype(np.float32)
+    e2e = edge2elems[elem2edges]                                 # (E, 3, 2)
+    self_ids = np.arange(E)[:, None]
+    nbrs = np.where(e2e[:, :, 0] == self_ids, e2e[:, :, 1], e2e[:, :, 0])
+    perm = [1, 2, 0]        # exit side for most-negative vertex k: edge (k+1)%3
+    geom[:, 6:9] = nbrs[:, perm].astype(np.float32)
+    geom[:, 9:12] = elem2edges[:, perm].astype(np.float32)
+    return geom, p[:, 0], inv_basis
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """Immutable 2D triangle mesh.  Edge ``i`` of a triangle connects local
+    verts ``(i, (i+1)%3)``; triangles are CCW."""
+
+    coords: torch.Tensor             # (V, 2) f32
+    elem2verts: torch.Tensor         # (E, 3) i32
+    elem2edges: torch.Tensor         # (E, 3) i32
+    edge2verts: torch.Tensor         # (Ned, 2) i32
+    edge2elems: torch.Tensor         # (Ned, 2) i32, -1 where boundary
+    side_is_exposed: torch.Tensor    # (Ned,) bool
+    elem_area: torch.Tensor          # (E,) f32
+    elem_v0: torch.Tensor            # (E, 2) f32
+    elem_inv_basis: torch.Tensor     # (E, 2, 2) f32
+    vert2elem_offsets: torch.Tensor  # (V+1,) i32 CSR
+    vert2elem_vals: torch.Tensor     # (sum deg,) i32
+    class_id: torch.Tensor           # (E,) i32 geometric-model classification
+    walk_geom: torch.Tensor          # (E, 12) f32
+    nelems: int = 0
+    nverts: int = 0
+    nedges: int = 0
+
+    dim = 2
+
+    @property
+    def device(self) -> torch.device:
+        return self.walk_geom.device
+
+    def to(self, device) -> "Mesh2D":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    @staticmethod
+    def from_arrays(coords: np.ndarray, elem2verts: np.ndarray,
+                    class_id: Optional[np.ndarray] = None,
+                    device="cpu") -> "Mesh2D":
+        a = adj.build_tri_adjacency(coords, elem2verts)
+        ev = a["elem2verts"]
+        check_f32_ids(ev.shape[0], a["edge2verts"].shape[0])
+        geom, v0, inv_basis = walk_geom_table(
+            a["coords"], ev, a["elem2edges"], a["edge2elems"])
+        if class_id is None:
+            class_id = np.ones(ev.shape[0], dtype=np.int64)
+        return Mesh2D.from_numpy(dict(
+            coords=a["coords"], elem2verts=ev, elem2edges=a["elem2edges"],
+            edge2verts=a["edge2verts"], edge2elems=a["edge2elems"],
+            side_is_exposed=a["side_is_exposed"], elem_area=a["elem_area"],
+            elem_v0=v0, elem_inv_basis=inv_basis,
+            vert2elem_offsets=a["vert2elem_offsets"],
+            vert2elem_vals=a["vert2elem_vals"], class_id=class_id,
+            walk_geom=geom), device)
+
+    @staticmethod
+    def from_numpy(arrays: dict, device="cpu") -> "Mesh2D":
+        """Freeze host arrays (the field names above) into tensors on
+        ``device`` with the port's dtypes."""
+        ints = ("elem2verts", "elem2edges", "edge2verts", "edge2elems",
+                "vert2elem_offsets", "vert2elem_vals", "class_id")
+        reals = ("coords", "elem_area", "elem_v0", "elem_inv_basis",
+                 "walk_geom")
+        t = {k: torch.as_tensor(np.asarray(arrays[k]).astype(np.int32),
+                                device=device) for k in ints}
+        t.update({k: torch.as_tensor(np.asarray(arrays[k]).astype(np.float32),
+                                     device=device) for k in reals})
+        t["side_is_exposed"] = torch.as_tensor(
+            np.asarray(arrays["side_is_exposed"]).astype(bool), device=device)
+        assert t["walk_geom"].dtype == REAL_DTYPE
+        assert t["elem2verts"].dtype == LID_DTYPE
+        return Mesh2D(**t, nelems=int(t["elem2verts"].shape[0]),
+                      nverts=int(t["coords"].shape[0]),
+                      nedges=int(t["edge2verts"].shape[0]))

@@ -1,0 +1,347 @@
+"""pseudoXGCm FULL-mode particle-parallel step (port of
+``pumipic_tpu.models.pseudo_xgcm.make_dp_setup`` and what it needs).
+
+Reference: ``test/pseudoXGCm.cpp`` + ``ellipticalPush.hpp`` +
+``gyroScatter.hpp``.  Per step:
+
+1. banded trig-free elliptical push (kernel P);
+2. cell-row peel + guess-walk BCC search with remove-on-exit, and the DPS
+   rewrite of parent element and active mask (kernel L);
+3. per-element histogram (kernel H) and the gyro-ring expansion plus the
+   forward/backward mapped scatter (kernel D);
+4. the field sum over ranks (the identity on one GPU).
+
+Host setup draws from numpy Generators with the JAX package's seeds, so
+particle counts, positions and initial elements are bit-identical.
+
+Knobs that only the TPU build needed are accepted and mapped onto the one
+GPU path, whose results they do not change: ``peel`` variants, ``locator_cpe``
+and ``search_widths`` (the compaction pyramid), ``rot_aux_capture``,
+``rot_analytic`` (the banded rotation gives the table's values), and
+``band_locator="auto"``, which resolves to the cartesian grid as the JAX cost
+gate does below ~460k elements.  Not ported, and refused with
+``NotImplementedError``: the structured-annulus analytic locator (when its
+proof holds under ``analytic_locate="auto"/"force"``), ``band_locator="force"``,
+the per-particle gyro radius, and meshes whose classification is not
+band-ordered.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pumipic_torch.mesh.core import Mesh2D
+from pumipic_torch.mesh.locator import (
+    KNOWN_PEELS,
+    LocatorGrid2D,
+    build_locator_grid,
+    detect_annulus_structured,
+)
+from pumipic_torch.ops import push as push_ops
+from pumipic_torch.ops import scatter as scatter_ops
+from pumipic_torch.ops import search as search_ops
+from pumipic_torch.parallel import full_mode
+from pumipic_torch.utils.types import LID_DTYPE
+
+ELEMENT_SEED = 1024 * 1024
+PARTICLE_SEED = 512 * 512
+
+
+@dataclass(frozen=True)
+class GyroConfig:
+    """setGyroConfig analog (gyroScatter.hpp:6-18)."""
+
+    rmax: float = 0.038
+    num_rings: int = 3
+    points_per_ring: int = 8
+    theta: float = 0.0
+    per_particle_radius: bool = False
+
+
+@dataclass(frozen=True)
+class XGCmConfig:
+    """Same fields and defaults as the JAX package's XGCmConfig; see the
+    module docstring for the knobs the port maps or refuses."""
+
+    num_ptcls: int = 100_000
+    num_iterations: int = 10
+    mdl_face: int = 2            # seed particles where class_id <= mdl_face
+    deg_per_push: float = 30.0
+    structure: str = "scs"
+    max_search_iters: int = 128
+    use_locator: bool = True
+    peel: str = "auto"
+    locator_cpe: Optional[float] = None
+    search_widths: Optional[Tuple[int, ...]] = None
+    rot_aux_capture: bool = False
+    analytic_locate: str = "auto"
+    band_locator: str = "auto"
+    band_theta: Optional[int] = None
+    rot_analytic: bool = True
+    gyro: GyroConfig = GyroConfig()
+    h: float = 0.0
+    k: float = 0.0
+    d: float = 0.9
+
+
+def resolve_locator_policy(cfg: XGCmConfig, nelems: int, num_ptcls: int):
+    """(cells_per_elem, peel, search_widths) for a mesh size, as the JAX
+    package resolves them: cpe 16 while the cpe-16 rows table stays under
+    32 MB, cpe 4 beyond (with a wider first pyramid level, which the port
+    ignores)."""
+    cpe, peel, widths = cfg.locator_cpe, cfg.peel, cfg.search_widths
+    if cpe is None:
+        if nelems * 16 * 14 * 4 <= 32e6:
+            cpe = 16.0
+        else:
+            cpe = 4.0
+            if widths is None and num_ptcls >= 1 << 16:
+                widths = (max(num_ptcls // 8, 2048),
+                          max(num_ptcls // 128, 2048), 2048)
+    return cpe, peel, widths
+
+
+def seed_particles_per_element(mesh: Mesh2D, cfg: XGCmConfig,
+                               rng: np.random.Generator) -> np.ndarray:
+    """setSourceElements analog: Gaussian-random particle counts on elements
+    classified <= mdl_face, clipped to the total (vectorized sequential
+    fill)."""
+    cls = mesh.class_id.cpu().numpy()
+    on = cls <= cfg.mdl_face
+    num_marked = int(on.sum())
+    if num_marked == 0:
+        return np.zeros(mesh.nelems, np.int64)
+    nppe = cfg.num_ptcls // num_marked
+    ppe = np.zeros(mesh.nelems, np.int64)
+    draws = rng.normal(nppe, max(nppe / 4, 1), size=mesh.nelems)
+    midx = np.nonzero(on)[0]
+    c = np.maximum(np.round(draws[midx]).astype(np.int64), 0)
+    cum_before = np.cumsum(c) - c
+    take = np.clip(cfg.num_ptcls - cum_before, 0, None)
+    ppe[midx] = np.minimum(c, take)
+    total = int(ppe.sum())
+    open_budget = np.nonzero(cum_before < cfg.num_ptcls)[0]
+    last = midx[open_budget[-1]] if len(open_budget) else -1
+    if total < cfg.num_ptcls and last >= 0:
+        ppe[last] += cfg.num_ptcls - total
+    return ppe
+
+
+def uniform_points_in_elements(mesh: Mesh2D, ptcl_elems: np.ndarray,
+                               rng: np.random.Generator) -> np.ndarray:
+    """setInitialPtclCoords analog: uniform position inside each particle's
+    element via folded barycentric sampling (f64 from the f32 coords, as
+    the JAX package computes it)."""
+    ev = mesh.elem2verts.cpu().numpy()[ptcl_elems]
+    cz = mesh.coords.cpu().numpy()
+    r1 = rng.uniform(size=len(ptcl_elems))
+    r2 = rng.uniform(size=len(ptcl_elems))
+    over = r1 + r2 > 1
+    r1[over] = 1 - r1[over]
+    r2[over] = 1 - r2[over]
+    a, b, c = cz[ev[:, 0]], cz[ev[:, 1]], cz[ev[:, 2]]
+    return a + r1[:, None] * (b - a) + r2[:, None] * (c - a)
+
+
+# ---------------------------------------------------------------------------
+# gyro-ring mapping build (createGyroRingMappings, gyroScatter.hpp:96-166)
+# ---------------------------------------------------------------------------
+
+def gyro_ring_points(mesh: Mesh2D, gyro: GyroConfig):
+    """Ring points (px, py) f32 on the CPU and each point's start element
+    (the first element adjacent to its vertex), in the JAX package's f32
+    expression order."""
+    V = mesh.nverts
+    R, P = gyro.num_rings, gyro.points_per_ring
+    vid = torch.arange(V).repeat_interleave(R * P)
+    ring = torch.arange(R).repeat_interleave(P).repeat(V)
+    pt = torch.arange(P).repeat(V * R)
+    radius = gyro.rmax * (ring + 1) / R
+    deg = gyro.theta + pt / P * 360.0
+    rad = deg * (np.pi / 180.0)
+    coords = mesh.coords.cpu()
+    px = coords[vid, 0] + radius * torch.cos(rad)
+    py = coords[vid, 1] + radius * torch.sin(rad)
+    start = mesh.vert2elem_vals.cpu()[mesh.vert2elem_offsets.cpu()[vid].long()]
+    return px, py, start
+
+
+def build_gyro_mapping(mesh: Mesh2D, gyro: GyroConfig, project=None
+                       ) -> torch.Tensor:
+    """For every (vertex, ring, point): the ring point, located by the plain
+    walk (kernel L without the peel, 100 iterations) from the first element
+    adjacent to its vertex; records the 3 vertices of that element, -1 where
+    the point is outside the domain.  Returns (V·R·P·3,) int32 on the mesh's
+    device.  ``project`` (the reference's identity placeholder) maps
+    (px, py) to (px, py)."""
+    px, py, start = gyro_ring_points(mesh, gyro)
+    if project is not None:
+        px, py = project(px, py)
+    dev = mesh.device
+    px, py, start = px.to(dev), py.to(dev), start.to(dev)
+    active = torch.ones(px.shape[0], dtype=torch.bool, device=dev)
+    parent, _, _, _ = search_ops.walk_locate(
+        mesh.walk_geom, px, py, start, active, 100)
+    verts = mesh.elem2verts[torch.clamp(parent, min=0).long()]
+    verts = torch.where((parent >= 0)[:, None], verts, -1)
+    return verts.reshape(-1).to(LID_DTYPE)
+
+
+def build_gyro_mappings(mesh: Mesh2D, gyro: GyroConfig,
+                        project_fwd=None, project_bwd=None):
+    """Forward and backward maps; one search builds both when the
+    projections coincide (both are the identity placeholder)."""
+    fwd = build_gyro_mapping(mesh, gyro, project=project_fwd)
+    if project_fwd is project_bwd:
+        return fwd, fwd
+    return fwd, build_gyro_mapping(mesh, gyro, project=project_bwd)
+
+
+# ---------------------------------------------------------------------------
+# FULL-buffer particle-parallel model
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DPModel:
+    """Everything the step reads besides the particle state.
+    ``gyro_bwd is gyro_fwd`` when the maps coincide."""
+
+    mesh: Mesh2D
+    locator: Optional[LocatorGrid2D]
+    rot: push_ops.BandRotation
+    gyro_fwd: scatter_ops.GyroMap
+    gyro_bwd: scatter_ops.GyroMap
+
+
+def check_config(cfg: XGCmConfig) -> None:
+    """Refuse what the port does not run (see the module docstring)."""
+    if cfg.analytic_locate not in ("auto", "off", "force"):
+        raise ValueError(f"unknown analytic_locate {cfg.analytic_locate!r}")
+    if cfg.band_locator not in ("auto", "off", "force"):
+        raise ValueError(f"unknown band_locator {cfg.band_locator!r}")
+    if cfg.band_locator == "force":
+        raise NotImplementedError("the flux-band locator is not ported; "
+                                  "band_locator='auto' and 'off' use the "
+                                  "cartesian grid")
+    if cfg.peel not in KNOWN_PEELS:
+        raise ValueError(f"unknown peel {cfg.peel!r}")
+    if cfg.gyro.per_particle_radius:
+        raise NotImplementedError("per-particle gyro radius is not ported")
+
+
+def make_dp_step(model: DPModel, cfg: XGCmConfig):
+    """The step ``state -> (state, fields)``; fields hold the summed
+    ``fwd``/``bwd`` vertex fields and the search's ``iters``/``all_found``
+    as device scalars (no host synchronization).  ``step.model`` is
+    ``model``."""
+    mesh, gyro = model.mesh, cfg.gyro
+    R, P = gyro.num_rings, gyro.points_per_ring
+
+    def step(s: Dict[str, torch.Tensor]):
+        tx, ty, cphi, sphi = push_ops.push_banded(
+            s["x0"], s["x1"], s["cphi"], s["sphi"], s["b"], s["elem"],
+            s["active"], model.rot, cfg.h, cfg.k, cfg.d)
+        elem, active, iters, all_found = search_ops.walk_locate(
+            mesh.walk_geom, tx, ty, s["elem"], s["active"],
+            cfg.max_search_iters, grid=model.locator)
+        new_state = {"x0": tx, "x1": ty, "cphi": cphi, "sphi": sphi,
+                     "b": s["b"], "elem": elem, "active": active}
+        counts = scatter_ops.histogram(elem, active, mesh.nelems)
+        ring_accum = scatter_ops.deposit_rings(counts, mesh, R)
+        fwd = scatter_ops.scatter_to_mapped_verts(
+            ring_accum, model.gyro_fwd, mesh.nverts, R, P)
+        bwd = fwd if model.gyro_bwd is model.gyro_fwd else \
+            scatter_ops.scatter_to_mapped_verts(
+                ring_accum, model.gyro_bwd, mesh.nverts, R, P)
+        fields = full_mode.reduce_fields({"fwd": fwd, "bwd": bwd})
+        fields.update(iters=iters, all_found=all_found)
+        return new_state, fields
+
+    step.model = model
+    return step
+
+
+def initial_state(mesh: Mesh2D, cfg: XGCmConfig, seed: int = ELEMENT_SEED,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Seeded particle state: flat (N,) tensors x0 x1 cphi sphi b (f32),
+    elem (i32), active (bool)."""
+    device = mesh.device if device is None else device
+    rng = np.random.default_rng(seed)
+    ppe = seed_particles_per_element(mesh, cfg, rng)
+    ptcl_elems = np.repeat(np.arange(mesh.nelems), ppe)
+    prng = np.random.default_rng(PARTICLE_SEED)
+    pos = torch.as_tensor(uniform_points_in_elements(mesh, ptcl_elems, prng),
+                          dtype=torch.float32)
+    x, y = pos[:, 0].contiguous(), pos[:, 1].contiguous()
+    phi, b = push_ops.elliptical_setup(x, y, cfg.h, cfg.k, cfg.d)
+    state = {
+        "x0": x, "x1": y, "cphi": torch.cos(phi), "sphi": torch.sin(phi),
+        "b": b, "elem": torch.as_tensor(ptcl_elems, dtype=LID_DTYPE),
+        "active": torch.ones(len(ptcl_elems), dtype=torch.bool),
+    }
+    return {k: v.to(device) for k, v in state.items()}
+
+
+def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
+                  seed: int = ELEMENT_SEED,
+                  timings: Optional[Dict[str, float]] = None):
+    """Build the particle state and the step for Input::FULL mode on one
+    device (mesh replicated, fields summed over ranks when
+    ``torch.distributed`` is initialized).  Returns (state, step).
+
+    ``timings``, if given, receives the host seconds of the setup phases
+    ("particles", "gyro_map", "locator")."""
+    check_config(cfg)
+    device = torch.device(mesh.device if device is None else device)
+    mesh = mesh.to(device)
+    timings = {} if timings is None else timings
+
+    t0 = time.perf_counter()
+    state = initial_state(mesh, cfg, seed, device)
+    timings["particles"] = time.perf_counter() - t0
+
+    cls = mesh.class_id.cpu().numpy()
+    if cfg.analytic_locate in ("auto", "force"):
+        proof = detect_annulus_structured(
+            mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(), cls=cls)
+        if proof is not None:
+            raise NotImplementedError(
+                "the mesh is a proven structured annulus, where the JAX "
+                "package locates analytically; that locator is not ported "
+                "(analytic_locate='off' runs the walk)")
+        if cfg.analytic_locate == "force":
+            raise ValueError("analytic_locate='force' but the mesh is not "
+                             "a structured annulus")
+    banded = push_ops.detect_banded_class(cls)
+    if banded is None:
+        raise NotImplementedError("only band-ordered classifications are "
+                                  "ported (the per-element rotation table "
+                                  "is not)")
+    rot = push_ops.BandRotation.build(banded, cfg.deg_per_push, device)
+
+    t0 = time.perf_counter()
+    fwd, bwd = build_gyro_mappings(mesh, cfg.gyro)
+    R, P = cfg.gyro.num_rings, cfg.gyro.points_per_ring
+    gyro_fwd = scatter_ops.GyroMap.from_flat(fwd, mesh.nverts, R, P, device)
+    gyro_bwd = gyro_fwd if bwd is fwd else scatter_ops.GyroMap.from_flat(
+        bwd, mesh.nverts, R, P, device)
+    timings["gyro_map"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    locator = None
+    if cfg.use_locator:
+        cpe, peel, _widths = resolve_locator_policy(
+            cfg, mesh.nelems, state["elem"].shape[0])
+        locator = build_locator_grid(
+            mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(),
+            cells_per_elem=cpe, walk_geom=mesh.walk_geom.cpu(), peel=peel,
+            device=device)
+    timings["locator"] = time.perf_counter() - t0
+
+    state = full_mode.shard_particles(state)
+    model = DPModel(mesh, locator, rot, gyro_fwd, gyro_bwd)
+    return state, make_dp_step(model, cfg)

@@ -1,0 +1,151 @@
+"""Elliptical push (port of ``pumipic_tpu.ops.push``, the parts the
+FULL-mode step uses).
+
+Particles advance along ellipses centred at (h, k) with minor/major ratio d
+(``test/ellipticalPush.hpp``); the angle step per push is
+deg·(0.01 if class 1 else 1)/class.  The step carries (cos φ, sin φ) and
+rotates it by the per-class (cos Δ, sin Δ), with a Newton renormalization.
+On a band-ordered mesh the class id comes from the element id by counting
+band starts, so no per-particle table gather is needed.
+
+:func:`push_banded` is the wrapper of kernel P (``kernels/csrc/push.cu``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from pumipic_torch import kernels
+from pumipic_torch.kernels import _build
+
+
+def elliptical_setup(x: torch.Tensor, y: torch.Tensor, h: float, k: float,
+                     d: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each particle's polar angle ``phi`` and major axis ``b`` from its
+    position (``ellipticalPush::setup``)."""
+    phi = torch.atan2(d * (y - k), x - h)
+    sin_phi = torch.sin(phi)
+    safe = torch.where(sin_phi.abs() < 1e-12,
+                       torch.full_like(sin_phi, 1e-12), sin_phi)
+    b = (y - k) / safe
+    return phi, b
+
+
+def rot_vals_from_class(cid_int: torch.Tensor, deg: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos Δ, sin Δ) from integer class ids, in the JAX package's f32
+    expression order."""
+    cid = torch.clamp(cid_int, min=1).to(torch.float32)
+    center_factor = torch.where(cid_int == 1, 0.01, 1.0).to(torch.float32)
+    delta = deg * center_factor / cid * (math.pi / 180.0)
+    return torch.cos(delta), torch.sin(delta)
+
+
+def detect_banded_class(cls) -> Optional[Tuple[int, ...]]:
+    """Band starts iff the classification is BAND-ORDERED: nondecreasing in
+    the element id with consecutive integer values v0..v0+K-1.  Returns
+    ``(v0, start_1, ..., start_{K-1})`` (``starts[0]`` is v0 itself, the
+    rest are the first elements of bands v0+1..), or None."""
+    cls = np.asarray(cls).ravel()
+    if cls.size == 0 or not np.issubdtype(cls.dtype, np.integer):
+        return None
+    if np.any(np.diff(cls) < 0):
+        return None
+    v0 = int(cls[0])
+    vals = np.unique(cls)
+    if not np.array_equal(vals, np.arange(v0, v0 + vals.size)):
+        return None
+    starts = np.searchsorted(cls, vals[1:])
+    return (v0,) + tuple(int(s) for s in starts)
+
+
+def class_from_bands(elem: torch.Tensor, starts: Tuple[int, ...]) -> torch.Tensor:
+    """cid = v0 + #{band starts <= elem}."""
+    s = torch.as_tensor(starts[1:], dtype=elem.dtype, device=elem.device)
+    return starts[0] + torch.searchsorted(s, elem.contiguous(), right=True).to(torch.int32)
+
+
+def elliptical_push_rot_vals(cphi, sphi, b, cd, sd, h: float, k: float,
+                             d: float):
+    """Trig-free elliptical push on per-particle rotation values; returns
+    (x, y, new_cphi, new_sphi).  The Newton step f = 1.5 - 0.5·(c²+s²) keeps
+    the carried unit vector from drifting in f32."""
+    c2 = cphi * cd - sphi * sd
+    s2 = sphi * cd + cphi * sd
+    f = 1.5 - 0.5 * (c2 * c2 + s2 * s2)
+    c2 = c2 * f
+    s2 = s2 * f
+    return b * d * c2 + h, b * s2 + k, c2, s2
+
+
+@dataclass(frozen=True)
+class BandRotation:
+    """Per-class rotation table of a band-ordered mesh with classes
+    v0..v0+K-1: ``starts`` holds the first element of bands v0+1..v0+K-1
+    (i32), ``cd``/``sd`` the (K,) (cos Δ, sin Δ) of classes v0..v0+K-1, so
+    an element's row is the number of starts at or below it."""
+
+    starts: torch.Tensor
+    cd: torch.Tensor
+    sd: torch.Tensor
+
+    @staticmethod
+    def build(band_starts: Tuple[int, ...], deg: float, device="cpu"
+              ) -> "BandRotation":
+        v0, K = band_starts[0], len(band_starts)
+        cids = torch.arange(v0, v0 + K, dtype=torch.int32)
+        cd, sd = rot_vals_from_class(cids, deg)
+        return BandRotation(
+            torch.as_tensor(band_starts[1:], dtype=torch.int32, device=device),
+            cd.to(device), sd.to(device))
+
+
+# shared memory the kernel holds its band starts and tables in (48 KB)
+MAX_BANDS = 4096
+
+
+def push_banded_plain(x0, x1, cphi, sphi, b, elem, active,
+                      rot: BandRotation, h: float, k: float, d: float):
+    """Plain PyTorch version of kernel P."""
+    e = torch.clamp(elem, min=0).contiguous()
+    j = torch.searchsorted(rot.starts, e, right=True)
+    cd, sd = rot.cd[j], rot.sd[j]
+    tx, ty, c2, s2 = elliptical_push_rot_vals(cphi, sphi, b, cd, sd, h, k, d)
+    return (torch.where(active, tx, x0), torch.where(active, ty, x1),
+            torch.where(active, c2, cphi), torch.where(active, s2, sphi))
+
+
+def push_banded(x0, x1, cphi, sphi, b, elem, active, rot: BandRotation,
+                h: float, k: float, d: float):
+    """Banded trig-free push with the active mask applied: returns
+    (xtgt0, xtgt1, cphi', sphi').  Kernel P on CUDA tensors, the plain
+    version on CPU tensors."""
+    args = (x0, x1, cphi, sphi, b, elem, active, rot.starts, rot.cd, rot.sd)
+    if not kernels.use_kernel("push", *args):
+        return push_banded_plain(x0, x1, cphi, sphi, b, elem, active, rot,
+                                 h, k, d)
+    n = x0.shape[0]
+    for t in (x0, x1, cphi, sphi, b):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError("push: f32 (N,) positions and angles expected")
+    if elem.dtype != torch.int32 or active.dtype != torch.bool:
+        raise ValueError("push: i32 elem and bool active expected")
+    K = rot.cd.shape[0]
+    if K > MAX_BANDS:
+        raise ValueError(f"push: {K} bands exceed the kernel's {MAX_BANDS}")
+    outs = [torch.empty_like(x0) for _ in range(4)]
+    P = ctypes.c_void_p
+    err = _build.lib().pp_push_banded(
+        *(P(t.data_ptr()) for t in (x0, x1, cphi, sphi, b, elem, active,
+                                    rot.starts)),
+        K - 1, P(rot.cd.data_ptr()), P(rot.sd.data_ptr()),
+        h, k, d, *(P(t.data_ptr()) for t in outs), n,
+        P(kernels.stream_handle()))
+    _build.check(err, "push")
+    kernels.LAUNCHES["push"] += 1
+    return tuple(outs)

@@ -1,0 +1,194 @@
+"""Gyro-ring charge scatter (port of the uniform-radius parts of
+``pumipic_tpu.ops.scatter``; reference ``test/gyroScatter.hpp``).
+
+- ``accumulateToRings``: every particle deposits into the two gyro rings
+  bracketing its (uniform, placeholder) gyro radius at each vertex of its
+  element.  Counted per element first (kernel H), then expanded to the
+  vertices (kernel D, pass 1).
+- ``scatterToMappedVerts``: each (vertex, ring, point) slot's value / P goes
+  to the three vertices of the element containing the ring point, through
+  the static gyro-average map (kernel D, pass 2).
+
+Every deposit is a sum owned by one output and taken in a fixed order, so
+the fields are deterministic; on the main path they are integer counts and
+multiples of 1/P, exact in f32.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from pumipic_torch import kernels
+from pumipic_torch.kernels import _build
+from pumipic_torch.mesh.core import Mesh2D
+
+
+# ---------------------------------------------------------------------------
+# kernel H: per-element histogram
+# ---------------------------------------------------------------------------
+
+def histogram_plain(elem: torch.Tensor, active: torch.Tensor,
+                    num_keys: int) -> torch.Tensor:
+    """Plain version of kernel H: (num_keys,) int32 counts of key =
+    active ? elem : num_keys, keys outside [0, num_keys) dropped."""
+    key = torch.where(active, elem.to(torch.int64), num_keys)
+    key = torch.where((key >= 0) & (key < num_keys), key, num_keys)
+    return torch.bincount(key, minlength=num_keys + 1)[:num_keys].to(torch.int32)
+
+
+def histogram(elem: torch.Tensor, active: torch.Tensor,
+              num_keys: int) -> torch.Tensor:
+    """Particles per element (active particles only).  Kernel H on CUDA
+    tensors, :func:`histogram_plain` on CPU tensors."""
+    if not kernels.use_kernel("histogram", elem, active):
+        return histogram_plain(elem, active, num_keys)
+    if elem.dtype != torch.int32 or active.dtype != torch.bool:
+        raise ValueError("histogram: i32 elem and bool active expected")
+    counts = torch.zeros(num_keys, dtype=torch.int32, device=elem.device)
+    P = ctypes.c_void_p
+    err = _build.lib().pp_histogram(
+        P(elem.data_ptr()), P(active.data_ptr()), num_keys,
+        P(counts.data_ptr()), elem.shape[0], P(kernels.stream_handle()))
+    _build.check(err, "histogram")
+    kernels.LAUNCHES["histogram"] += 1
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# kernel D: ring expansion and mapped scatter
+# ---------------------------------------------------------------------------
+
+def ring_pair(num_rings: int):
+    """The two rings the uniform placeholder radius 1.125·ring-width
+    brackets (gyroScatter.hpp:185); both are ring 0 when R == 1, which
+    deposits each particle once."""
+    if num_rings == 1:
+        return 0, 0
+    rd = min(max(int(1.125) - 1, 0), num_rings - 2)
+    return rd, rd + 1
+
+
+@dataclass(frozen=True)
+class GyroMap:
+    """The gyro-average map and its transpose.  ``flat`` is the reference's
+    (V·R·P·3,) vertex ids laid out [vertex][ring][point][3], -1 where the
+    ring point is outside the domain.  ``offsets``/``src``: for each output
+    vertex u, the (v·R + r) ring slots of the entries that name u, in
+    increasing entry order (CSR, built once on the host)."""
+
+    flat: torch.Tensor
+    offsets: torch.Tensor
+    src: torch.Tensor
+
+    @staticmethod
+    def from_flat(flat, num_verts: int, num_rings: int, points_per_ring: int,
+                  device="cpu") -> "GyroMap":
+        m = (flat.cpu().numpy() if isinstance(flat, torch.Tensor)
+             else np.asarray(flat)).astype(np.int64)
+        if m.shape != (num_verts * num_rings * points_per_ring * 3,):
+            raise ValueError(f"gyro map shape {m.shape} does not match "
+                             f"V={num_verts} R={num_rings} P={points_per_ring}")
+        valid = m >= 0
+        u = m[valid]
+        slot = (np.arange(m.size) // (points_per_ring * 3))[valid]
+        order = np.argsort(u, kind="stable")
+        offsets = np.concatenate(
+            [[0], np.cumsum(np.bincount(u, minlength=num_verts))])
+        return GyroMap(
+            torch.as_tensor(m.astype(np.int32), device=device),
+            torch.as_tensor(offsets.astype(np.int32), device=device),
+            torch.as_tensor(slot[order].astype(np.int32), device=device))
+
+
+def ring_accum_plain(counts: torch.Tensor, mesh: Mesh2D,
+                     num_rings: int) -> torch.Tensor:
+    """Plain version of kernel D pass 1: (V, R) ring sums of the element
+    counts over each vertex's elements (index_add_, as the JAX package's
+    segment_sum over [element][vertex][ring] keys)."""
+    R = num_rings
+    E = mesh.nelems
+    rd, ru = ring_pair(R)
+    cf = counts.to(torch.float32)
+    elem_ring = torch.zeros(E, R, dtype=torch.float32, device=cf.device)
+    elem_ring[:, rd] += cf
+    if ru != rd:
+        elem_ring[:, ru] += cf
+    keys = (mesh.elem2verts.to(torch.int64)[:, :, None] * R
+            + torch.arange(R, device=cf.device)[None, None, :])   # (E, 3, R)
+    vals = elem_ring[:, None, :].expand(E, 3, R)
+    out = torch.zeros(mesh.nverts * R, dtype=torch.float32, device=cf.device)
+    out.index_add_(0, keys.reshape(-1), vals.reshape(-1))
+    return out.reshape(mesh.nverts, R)
+
+
+def deposit_rings(counts: torch.Tensor, mesh: Mesh2D,
+                  num_rings: int) -> torch.Tensor:
+    """(V, R) ring accumulation from per-element counts.  Kernel D pass 1 on
+    CUDA tensors, :func:`ring_accum_plain` on CPU tensors."""
+    args = (counts, mesh.vert2elem_offsets, mesh.vert2elem_vals)
+    if not kernels.use_kernel("deposit", *args):
+        return ring_accum_plain(counts, mesh, num_rings)
+    if counts.dtype != torch.int32 or counts.shape != (mesh.nelems,):
+        raise ValueError("deposit: (E,) i32 counts expected")
+    rd, ru = ring_pair(num_rings)
+    out = torch.empty(mesh.nverts, num_rings, dtype=torch.float32,
+                      device=counts.device)
+    P = ctypes.c_void_p
+    err = _build.lib().pp_deposit_rings(
+        *(P(t.data_ptr()) for t in args), mesh.nverts, num_rings, rd, ru,
+        P(out.data_ptr()), P(kernels.stream_handle()))
+    _build.check(err, "deposit")
+    kernels.LAUNCHES["deposit"] += 1
+    return out
+
+
+def mapped_plain(ring_accum: torch.Tensor, gyro_map: GyroMap, num_verts: int,
+                 num_rings: int, points_per_ring: int) -> torch.Tensor:
+    """Plain version of kernel D pass 2 (index_add_ over the flat map, as the
+    JAX package's segment_sum)."""
+    V, R, P = num_verts, num_rings, points_per_ring
+    vals = ring_accum / P
+    vals_exp = vals[:, :, None, None].expand(V, R, P, 3).reshape(-1)
+    idx = gyro_map.flat.to(torch.int64)
+    idx = torch.where(idx >= 0, idx, V)
+    out = torch.zeros(V + 1, dtype=torch.float32, device=ring_accum.device)
+    out.index_add_(0, idx, vals_exp)
+    return out[:V]
+
+
+def scatter_to_mapped_verts(ring_accum: torch.Tensor, gyro_map: GyroMap,
+                            num_verts: int, num_rings: int,
+                            points_per_ring: int) -> torch.Tensor:
+    """Apply the gyro-average map: (V, R) ring accumulation -> (V,).  Kernel
+    D pass 2 on CUDA tensors, :func:`mapped_plain` on CPU tensors."""
+    args = (ring_accum, gyro_map.offsets, gyro_map.src)
+    if not kernels.use_kernel("deposit", *args):
+        return mapped_plain(ring_accum, gyro_map, num_verts, num_rings,
+                            points_per_ring)
+    if ring_accum.dtype != torch.float32 or ring_accum.shape != (num_verts, num_rings):
+        raise ValueError("deposit: (V, R) f32 ring_accum expected")
+    out = torch.empty(num_verts, dtype=torch.float32, device=ring_accum.device)
+    P = ctypes.c_void_p
+    err = _build.lib().pp_deposit_mapped(
+        *(P(t.data_ptr()) for t in args), num_verts, points_per_ring,
+        P(out.data_ptr()), P(kernels.stream_handle()))
+    _build.check(err, "deposit")
+    kernels.LAUNCHES["deposit"] += 1
+    return out
+
+
+def accumulate_to_rings(elem: torch.Tensor, active: torch.Tensor, mesh: Mesh2D,
+                        num_rings: int, gyro_rmax: float,
+                        ptcl_radius=None) -> torch.Tensor:
+    """Deposit particles into the two rings bracketing the uniform gyro
+    radius at each vertex of their element; returns (V, R) f32.  Takes the
+    mesh (for its vertex->element incidence) where the JAX function takes
+    ``elem2verts`` and the vertex count.  A per-particle radius is not
+    ported."""
+    if ptcl_radius is not None:
+        raise NotImplementedError("per-particle gyro radius is not ported")
+    counts = histogram(elem, active, mesh.nelems)
+    return deposit_rings(counts, mesh, num_rings)

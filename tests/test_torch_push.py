@@ -1,0 +1,148 @@
+"""Parity of the port's push (pumipic_torch.ops.push, kernel P's module)
+with the JAX reference, plus the kernel wrappers' device rules.
+
+Push floats: rtol 1e-6, atol 1e-6 — XLA's CPU libm and fusion differ from
+torch's (the per-class cos/sin and the atan2 of the setup)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from pumipic_tpu.mesh import generate as j_gen
+from pumipic_tpu.ops import push as j_push
+from pumipic_torch import kernels
+from pumipic_torch.kernels import _build
+from pumipic_torch.mesh.core import Mesh2D
+from pumipic_torch.ops import push as t_push
+from pumipic_torch.ops import scatter as t_sc
+from pumipic_torch.ops import search as t_se
+
+RTOL = ATOL = 1e-6
+
+
+def test_elliptical_setup_matches_reference():
+    """phi everywhere; b = (y-k)/sin(phi) where |sin(phi)| >= 0.5, since
+    near phi = ±pi it divides phi's 1-ulp libm difference by |sin(phi)|.
+    Points exactly on the axis give phi = 0 or pi and b = 0 on both sides."""
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(-1.0, 1.0, size=(5000, 2))
+    pos[:8, 1] = -0.05                    # on the sin(phi) == 0 axis
+    phi_r, b_r = j_push.elliptical_setup(jnp.asarray(pos), 0.1, -0.05, 0.9)
+    phi_r, b_r = np.asarray(phi_r), np.asarray(b_r)
+    p32 = torch.as_tensor(pos, dtype=torch.float32)
+    phi, b = t_push.elliptical_setup(p32[:, 0], p32[:, 1], 0.1, -0.05, 0.9)
+    np.testing.assert_allclose(phi.numpy(), phi_r, rtol=RTOL, atol=ATOL)
+    ok = np.abs(np.sin(phi_r)) >= 0.5
+    ok[:8] = True
+    assert ok.sum() > 2500
+    np.testing.assert_allclose(b.numpy()[ok], b_r[ok], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["tokamak", "annulus", "shuffled", "gap"])
+def test_detect_banded_class_matches_reference(case):
+    if case == "tokamak":
+        cls = j_gen.tokamak_mesh(16, 96)[2]
+    elif case == "annulus":
+        cls = j_gen.annulus_mesh(6, 40, 0.3, 1.0)[2]
+    elif case == "shuffled":
+        cls = np.random.default_rng(1).permutation(j_gen.tokamak_mesh(16, 96)[2])
+    else:
+        cls = np.repeat([1, 2, 4], 5)
+    assert t_push.detect_banded_class(cls) == j_push.detect_banded_class(cls)
+
+
+def test_class_and_rotation_match_reference():
+    cls = j_gen.tokamak_mesh(16, 96)[2]
+    starts = j_push.detect_banded_class(cls)
+    elem = np.random.default_rng(2).integers(0, cls.size, 3000).astype(np.int32)
+    cid_r = np.asarray(j_push.class_from_bands(jnp.asarray(elem), starts))
+    cid = t_push.class_from_bands(torch.from_numpy(elem), starts)
+    np.testing.assert_array_equal(cid.numpy(), cid_r)
+    np.testing.assert_array_equal(cid_r, cls[elem])
+    cd_r, sd_r = j_push.rot_vals_from_class(jnp.asarray(cid_r), 15.0)
+    cd, sd = t_push.rot_vals_from_class(cid, 15.0)
+    np.testing.assert_allclose(cd.numpy(), np.asarray(cd_r), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(sd.numpy(), np.asarray(sd_r), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("hkd", [(0.0, 0.0, 0.9), (0.2, -0.15, 0.3)])
+def test_push_banded_matches_reference(hkd):
+    """Kernel P's plain version (what the wrapper runs on CPU tensors) equals
+    the JAX composite class_from_bands -> rot_vals_from_class ->
+    elliptical_push_rot_vals -> active mask."""
+    h, k, d = hkd
+    cls = j_gen.tokamak_mesh(16, 96)[2]
+    starts = j_push.detect_banded_class(cls)
+    rng = np.random.default_rng(4)
+    n = 6000
+    phi = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    x0 = rng.uniform(-1, 1, n).astype(np.float32)
+    x1 = rng.uniform(-1, 1, n).astype(np.float32)
+    b = rng.uniform(0.2, 1.0, n).astype(np.float32)
+    cphi, sphi = np.cos(phi), np.sin(phi)
+    elem = rng.integers(-1, cls.size, n).astype(np.int32)
+    active = rng.uniform(size=n) > 0.1
+    deg = 15.0
+
+    cd, sd = j_push.rot_vals_from_class(
+        j_push.class_from_bands(jnp.maximum(jnp.asarray(elem), 0), starts), deg)
+    tx, ty, c2, s2 = j_push.elliptical_push_rot_vals(
+        jnp.asarray(cphi), jnp.asarray(sphi), jnp.asarray(b), cd, sd, h, k, d)
+    ref = (np.where(active, tx, x0), np.where(active, ty, x1),
+           np.where(active, c2, cphi), np.where(active, s2, sphi))
+
+    rot = t_push.BandRotation.build(starts, deg)
+    got = t_push.push_banded(
+        *(torch.from_numpy(a) for a in (x0, x1, cphi, sphi, b, elem, active)),
+        rot, h, k, d)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), r, rtol=RTOL, atol=ATOL)
+    # inactive particles keep their position and angle exactly
+    np.testing.assert_array_equal(got[0].numpy()[~active], x0[~active])
+    np.testing.assert_array_equal(got[3].numpy()[~active], sphi[~active])
+
+
+def _wrapper_calls(dev):
+    """One call per kernel wrapper with small tensors on ``dev``."""
+    n = 4
+    f = torch.zeros(n, device=dev)
+    e = torch.zeros(n, dtype=torch.int32, device=dev)
+    a = torch.ones(n, dtype=torch.bool, device=dev)
+    rot = t_push.BandRotation(torch.zeros(0, dtype=torch.int32, device=dev),
+                              torch.ones(1, device=dev), torch.zeros(1, device=dev))
+    geom = torch.zeros(1, 12, device=dev)
+    coords, tris, cls = j_gen.annulus_mesh(2, 8, 0.5, 1.0)
+    mesh = Mesh2D.from_arrays(coords, tris, cls).to(dev)
+    gmap = t_sc.GyroMap.from_flat(np.full(mesh.nverts * 1 * 1 * 3, -1),
+                                  mesh.nverts, 1, 1, dev)
+    return {
+        "push": lambda: t_push.push_banded(f, f, f, f, f, e, a, rot, 0.0, 0.0, 0.9),
+        "locate": lambda: t_se.walk_locate(geom, f, f, e, a, 4),
+        "histogram": lambda: t_sc.histogram(e, a, 3),
+        "deposit": lambda: t_sc.scatter_to_mapped_verts(
+            torch.zeros(mesh.nverts, 1, device=dev), gmap, mesh.nverts, 1, 1),
+    }
+
+
+@pytest.mark.parametrize("name", ["push", "locate", "histogram", "deposit"])
+def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices(name):
+    """On CPU tensors a wrapper runs its plain version and counts no launch;
+    on a device that is neither CPU nor CUDA it raises (no fallback)."""
+    kernels.reset_launches()
+    _wrapper_calls("cpu")[name]()
+    assert kernels.LAUNCHES[name] == 0
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        _wrapper_calls("meta")[name]()
+
+
+def test_kernel_build_flags():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-fmad=false" in flags and "-ftz=false" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert sorted(p.name for p in _build.sources()) == [
+        "deposit.cu", "histogram.cu", "locate.cu", "push.cu"]
+    for name in _build.SIGNATURES:
+        assert any(f'extern "C" int {name}(' in p.read_text()
+                   for p in _build.sources()), name
