@@ -1,10 +1,11 @@
 """Carry the JAX reference's setup across: numpy arrays in, the port's
 objects out.
 
-The parity tests build the reference's mesh, locator, gyro maps, band starts
-and particle state, convert them with ``np.asarray``, and hand them to
-:func:`from_reference`, so that both packages step from identical inputs.
-This module takes numpy only and imports no JAX.
+The parity tests build the reference's mesh, locator (cartesian grid, band
+grid or annulus locator), gyro maps, band starts and particle state,
+convert them with ``np.asarray``, and hand them to :func:`from_reference`,
+so that both packages step from identical inputs.  This module takes numpy
+only and imports no JAX.
 """
 from __future__ import annotations
 
@@ -14,18 +15,31 @@ import numpy as np
 import torch
 
 from pumipic_torch.mesh.core import Mesh2D
-from pumipic_torch.mesh.locator import LocatorGrid2D
+from pumipic_torch.mesh.locator import (
+    AnnulusLocator2D,
+    BandGrid2D,
+    LocatorGrid2D,
+)
 from pumipic_torch.models.pseudo_xgcm import DPModel, XGCmConfig
 from pumipic_torch.ops.push import BandRotation
 from pumipic_torch.ops.scatter import GyroMap
 
-# fields of the reference's Mesh2D / LocatorGrid2D that are carried across
+# fields of the reference's Mesh2D / locators that are carried across
 MESH_FIELDS = ("coords", "elem2verts", "elem2edges", "edge2verts",
                "edge2elems", "side_is_exposed", "elem_area", "elem_v0",
                "elem_inv_basis", "vert2elem_offsets", "vert2elem_vals",
                "class_id", "walk_geom")
 LOCATOR_FIELDS = ("origin", "inv_h", "nx", "ny", "cell_elem", "cell_rows")
-STATE_FIELDS = ("x0", "x1", "cphi", "sphi", "b", "elem", "active")
+BAND_FIELDS = ("cx", "cy", "coef_u", "coef_v", "inv_coef", "cell_rows",
+               "cell_elem", "n_bands", "n_theta", "n_harm", "n_cheb", "rank",
+               "newton_iters")
+ANNULUS_FIELDS = ("cx", "cy", "r_in", "dr", "n_rings", "n_sectors",
+                  "ring_class", "theta0", "perm")
+STATE_FIELDS = ("x0", "x1", "cphi", "sphi", "b", "elem", "active", "rg")
+
+
+def _f32(v) -> float:
+    return float(np.float32(np.asarray(v)))
 
 
 def locator_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
@@ -43,10 +57,42 @@ def locator_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
             np.array(rows, np.float32), device=device))
 
 
+def band_grid_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
+                         ) -> BandGrid2D:
+    """The reference's ``BandGrid2D`` (fields of :data:`BAND_FIELDS`)."""
+    def f32(k):
+        return torch.as_tensor(np.array(arrays[k], np.float32), device=device)
+
+    return BandGrid2D(
+        cx=_f32(arrays["cx"]), cy=_f32(arrays["cy"]),
+        coef_u=f32("coef_u"), coef_v=f32("coef_v"), inv_coef=f32("inv_coef"),
+        cell_rows=f32("cell_rows"),
+        cell_elem=torch.as_tensor(
+            np.asarray(arrays["cell_elem"]).astype(np.int32), device=device),
+        **{k: int(arrays[k]) for k in ("n_bands", "n_theta", "n_harm",
+                                       "n_cheb", "rank", "newton_iters")})
+
+
+def annulus_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
+                       ) -> AnnulusLocator2D:
+    """The reference's ``AnnulusLocator2D`` (fields of
+    :data:`ANNULUS_FIELDS`; ``perm`` None for the generator's order)."""
+    perm = arrays.get("perm")
+    return AnnulusLocator2D(
+        cx=_f32(arrays["cx"]), cy=_f32(arrays["cy"]),
+        r_in=_f32(arrays["r_in"]), dr=_f32(arrays["dr"]),
+        n_rings=int(arrays["n_rings"]), n_sectors=int(arrays["n_sectors"]),
+        ring_class=bool(arrays["ring_class"]), theta0=_f32(arrays["theta0"]),
+        perm=None if perm is None else torch.as_tensor(
+            np.asarray(perm).astype(np.int32), device=device))
+
+
 def state_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
                      ) -> Dict[str, torch.Tensor]:
     out = {}
     for k in STATE_FIELDS:
+        if k not in arrays:
+            continue                      # rg: only with a per-particle radius
         a = np.asarray(arrays[k])
         dt = {"elem": np.int32, "active": bool}.get(k, np.float32)
         out[k] = torch.as_tensor(a.astype(dt), device=device)
@@ -58,17 +104,31 @@ def from_reference(mesh: Dict[str, np.ndarray],
                    gyro_fwd: np.ndarray, gyro_bwd: Optional[np.ndarray],
                    band_starts: Tuple[int, ...],
                    state: Dict[str, np.ndarray],
-                   cfg: XGCmConfig, device="cpu"
+                   cfg: XGCmConfig, device="cpu",
+                   band_grid: Optional[Dict[str, np.ndarray]] = None,
+                   annulus: Optional[Dict[str, np.ndarray]] = None,
                    ) -> Tuple[DPModel, Dict[str, torch.Tensor]]:
     """The port's (model, state) for the reference's setup.  ``gyro_bwd``
     None (or the same array as ``gyro_fwd``) shares one map for both
-    directions, as the reference does when its projections coincide."""
+    directions, as the reference does when its projections coincide.  The
+    search's accelerator is the cartesian ``locator``, the flux-band
+    ``band_grid`` or the ``annulus`` locator, whichever is given (at most
+    one)."""
+    if sum(x is not None for x in (locator, band_grid, annulus)) > 1:
+        raise ValueError("give at most one of locator, band_grid, annulus")
     m = Mesh2D.from_numpy({k: mesh[k] for k in MESH_FIELDS}, device)
     R, P = cfg.gyro.num_rings, cfg.gyro.points_per_ring
     fwd = GyroMap.from_flat(np.asarray(gyro_fwd), m.nverts, R, P, device)
     bwd = fwd if gyro_bwd is None or gyro_bwd is gyro_fwd else \
         GyroMap.from_flat(np.asarray(gyro_bwd), m.nverts, R, P, device)
-    grid = None if locator is None else locator_from_numpy(locator, device)
+    if band_grid is not None:
+        grid = band_grid_from_numpy(band_grid, device)
+    elif locator is not None:
+        grid = locator_from_numpy(locator, device)
+    else:
+        grid = None
+    analytic = None if annulus is None else annulus_from_numpy(annulus, device)
     rot = BandRotation.build(tuple(int(s) for s in band_starts),
                              cfg.deg_per_push, device)
-    return DPModel(m, grid, rot, fwd, bwd), state_from_numpy(state, device)
+    return (DPModel(m, grid, rot, fwd, bwd, analytic),
+            state_from_numpy(state, device))

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 # kernel name -> launches since the last reset (a plain integer each)
-LAUNCHES = {"push": 0, "locate": 0, "histogram": 0, "deposit": 0}
+LAUNCHES = {"push": 0, "band_cell": 0, "annulus_locate": 0, "locate": 0,
+            "histogram": 0, "deposit": 0}
 
 
 def reset_launches() -> None:

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 All ``csrc/*.cu`` files compile into ONE shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds).  The library is
-built on first use into ``kernels/_build/`` (ignored by git), named by a
-hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads the cached file.
+interface (no PyTorch headers, so a build takes seconds).  Each source
+compiles in its own nvcc process, all started together, and one more nvcc
+links the objects.  The library is built on first use into
+``kernels/_build/`` (ignored by git), named by a hash of the sources and
+flags, so a changed source rebuilds and an unchanged one loads the cached
+file.
 
 Flags: ``-fmad=false`` keeps every kernel equal to its plain PyTorch
 version element for element (a contracted a*b+c rounds once, the plain
@@ -24,11 +26,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
+# compile flags of every source; the link adds -shared
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17",
     "-fmad=false", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _P = ctypes.c_void_p
@@ -47,12 +50,24 @@ SIGNATURES = {
     "pp_walk_locate": [
         _P, _P, _P, _P,                      # dest_x dest_y elem_start active
         _P, _I,                              # walk_geom n_elems
-        _P, _F, _F, _F, _F, _I, _I,          # cell_rows ox oy ihx ihy nx ny
+        _P, _P,                              # cell_rows cells
+        _F, _F, _F, _F, _I, _I,              # ox oy ihx ihy nx ny
         _I, _I,                              # max_iters it0
         _P, _P, _P,                          # elem_out active_out stats
         _L, _P],                             # n stream
+    "pp_band_cell": [
+        _P, _P, _L, _F, _F,                  # px py n cx cy
+        _P, _I, _I, _I, _I, _I, _I, _I,      # coefs K T J P rank n_inv newton
+        _P, _P],                             # cells stream
+    "pp_annulus_locate": [
+        _P, _P, _P, _L,                      # px py active n
+        _F, _F, _F, _F, _F, _F,              # cx cy theta0 two_pi dth m
+        _F, _F, _F, _F, _I, _I,              # r_in dr lo hi n_rings n_sectors
+        _P, _P, _P, _P],                     # perm elem_out active_out stream
     "pp_histogram": [_P, _P, _I, _P, _L, _P],
+    "pp_histogram_rings": [_P, _P, _P, _F, _I, _I, _P, _L, _P],
     "pp_deposit_rings": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "pp_deposit_rings_er": [_P, _P, _P, _I, _I, _P, _P],
     "pp_deposit_mapped": [_P, _P, _P, _I, _I, _P, _P],
 }
 
@@ -82,22 +97,38 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the library if it is not cached; returns its path."""
+    """Compile the library if it is not cached; returns its path.  With
+    ``verbose``, prints ptxas's register and spill report of each source."""
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    obj_dir = BUILD_DIR / f"obj.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    extra = ["-Xptxas", "-v"] if verbose else []
+    jobs = []
+    for src in sources():
+        obj = obj_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in jobs:              # wait for every compiler
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+        elif verbose:
+            print(f"{src.name}:\n{err}", flush=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                          *(str(obj) for _, obj, _ in jobs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, flush=True)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     return out
 
 

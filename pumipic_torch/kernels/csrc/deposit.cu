@@ -16,8 +16,10 @@
 // sum owned by one thread, taken in a fixed order: no float atomics, and a
 // deterministic result that equals the plain version's.  Pass 1: one
 // thread per vertex, ring_accum[v, r] = sum of counts[e] over the incident
-// elements, for the two rings rd and ru that the uniform radius brackets.
-// Pass 2: one thread per output vertex, out[u] = sum of ring_accum[v, r] / P.
+// elements, for the two rings rd and ru that the uniform radius brackets;
+// with a per-particle radius the counts are (E, R), and each ring's sum
+// runs over its own column (deposit_rings_er_kernel).  Pass 2: one thread
+// per output vertex, out[u] = sum of ring_accum[v, r] / P.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,6 +34,22 @@ __global__ void deposit_rings_kernel(const int* __restrict__ counts,
   for (int j = v2e_off[v]; j < v2e_off[v + 1]; ++j) s += (float)counts[v2e_vals[j]];
   for (int r = 0; r < n_rings; ++r)
     ring_accum[(size_t)v * n_rings + r] = (r == rd || r == ru) ? s : 0.0f;
+}
+
+__global__ void deposit_rings_er_kernel(const int* __restrict__ counts,
+                                        const int* __restrict__ v2e_off,
+                                        const int* __restrict__ v2e_vals,
+                                        int n_verts, int n_rings,
+                                        float* __restrict__ ring_accum) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n_verts) return;
+  const int j0 = v2e_off[v], j1 = v2e_off[v + 1];
+  for (int r = 0; r < n_rings; ++r) {
+    float s = 0.0f;
+    for (int j = j0; j < j1; ++j)
+      s += (float)counts[(size_t)v2e_vals[j] * n_rings + r];
+    ring_accum[(size_t)v * n_rings + r] = s;
+  }
 }
 
 __global__ void deposit_mapped_kernel(const float* __restrict__ ring_accum,
@@ -55,6 +73,19 @@ extern "C" int pp_deposit_rings(const int* counts, const int* v2e_off,
   const int threads = 256;
   deposit_rings_kernel<<<(n_verts + threads - 1) / threads, threads, 0, stream>>>(
       counts, v2e_off, v2e_vals, n_verts, n_rings, rd, ru, ring_accum);
+  return (int)cudaGetLastError();
+}
+
+// counts: (E, R) per-(element, ring) counts
+extern "C" int pp_deposit_rings_er(const int* counts, const int* v2e_off,
+                                   const int* v2e_vals, int n_verts,
+                                   int n_rings, float* ring_accum,
+                                   cudaStream_t stream) {
+  if (n_verts <= 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  deposit_rings_er_kernel<<<(n_verts + threads - 1) / threads, threads, 0,
+                            stream>>>(counts, v2e_off, v2e_vals, n_verts,
+                                      n_rings, ring_accum);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,11 @@
 // (:110-121), the pyramid loop _run_walk (:710-950) and the DPS rewrite
 // (pumipic_tpu/models/pseudo_xgcm.py:658-667).  With rows == nullptr it is
 // the plain walk search_mesh_2d (:967-1000), which the setup runs over the
-// gyro ring points.  The TPU Pallas probes of the walk step
+// gyro ring points.  With cells != nullptr ("given cells" mode) the peel
+// reads each particle's cell id from that array instead of computing the
+// cartesian one: the flux-band grid's ids, which kernel B computes
+// (BandGrid2D.cell_of, pumipic_tpu/mesh/locator.py:747-755); the band table
+// is the same (K·T, 14) row layout, 27.5 MB on the 120k mesh.  The TPU Pallas probes of the walk step
 // (perf/archive/walk_opt.py:219, walk_opt2.py:92, walk_opt4.py:101) compute
 // the same step.
 //
@@ -63,8 +67,8 @@ __global__ void __launch_bounds__(WALK_THREADS) walk_locate_kernel(
     const float* __restrict__ dest_x, const float* __restrict__ dest_y,
     const int* __restrict__ elem_start, const uint8_t* __restrict__ active,
     const float* __restrict__ geom, int n_elems,
-    const float* __restrict__ rows, float ox, float oy, float ihx, float ihy,
-    int nx, int ny, int max_iters, int it0,
+    const float* __restrict__ rows, const int* __restrict__ cells, float ox,
+    float oy, float ihx, float ihy, int nx, int ny, int max_iters, int it0,
     int* __restrict__ elem_out, uint8_t* __restrict__ active_out,
     int* __restrict__ stats, long long n) {
   int my_max = 0;
@@ -80,12 +84,17 @@ __global__ void __launch_bounds__(WALK_THREADS) walk_locate_kernel(
     if (active[i]) {
       const int start = min(max(elem_start[i], 0), n_elems - 1);
       if (rows != nullptr) {
-        // cell id in f32 index arithmetic (LocatorGrid2D.cell_of)
-        const float rx = (dx - ox) * ihx;
-        const float ry = (dy - oy) * ihy;
-        const float fx = fminf(fmaxf(floorf(rx), 0.0f), (float)(nx - 1));
-        const float fy = fminf(fmaxf(floorf(ry), 0.0f), (float)(ny - 1));
-        const int c = min(max((int)(fx * (float)ny + fy), 0), nx * ny - 1);
+        int c;
+        if (cells != nullptr) {
+          c = cells[i];            // given cells (kernel B's band ids)
+        } else {
+          // cell id in f32 index arithmetic (LocatorGrid2D.cell_of)
+          const float rx = (dx - ox) * ihx;
+          const float ry = (dy - oy) * ihy;
+          const float fx = fminf(fmaxf(floorf(rx), 0.0f), (float)(nx - 1));
+          const float fy = fminf(fmaxf(floorf(ry), 0.0f), (float)(ny - 1));
+          c = min(max((int)(fx * (float)ny + fy), 0), nx * ny - 1);
+        }
         // 56-byte row, 8-byte aligned: seven float2 loads
         const float2* r2 = reinterpret_cast<const float2*>(rows + (size_t)c * 14);
         float r[14];
@@ -180,19 +189,21 @@ static int num_sms() {
 }
 
 // stats[0] <- max steps over walkers (atomicMax), stats[1] <- unfinished
-// walkers (atomicAdd); the caller zeroes both before the launch.
+// walkers (atomicAdd); the caller zeroes both before the launch.  cells:
+// per-particle cell ids in [0, rows' row count), or nullptr for the
+// cartesian cell of (ox, oy, ihx, ihy, nx, ny).
 extern "C" int pp_walk_locate(
     const float* dest_x, const float* dest_y, const int* elem_start,
     const uint8_t* active, const float* geom, int n_elems,
-    const float* rows, float ox, float oy, float ihx, float ihy, int nx,
-    int ny, int max_iters, int it0, int* elem_out, uint8_t* active_out,
-    int* stats, long long n, cudaStream_t stream) {
+    const float* rows, const int* cells, float ox, float oy, float ihx,
+    float ihy, int nx, int ny, int max_iters, int it0, int* elem_out,
+    uint8_t* active_out, int* stats, long long n, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
   long long blocks = (n + WALK_THREADS - 1) / WALK_THREADS;
   const long long cap = (long long)num_sms() * 8;
   if (blocks > cap) blocks = cap;
   walk_locate_kernel<<<(unsigned)blocks, WALK_THREADS, 0, stream>>>(
-      dest_x, dest_y, elem_start, active, geom, n_elems, rows, ox, oy, ihx,
-      ihy, nx, ny, max_iters, it0, elem_out, active_out, stats, n);
+      dest_x, dest_y, elem_start, active, geom, n_elems, rows, cells, ox, oy,
+      ihx, ihy, nx, ny, max_iters, it0, elem_out, active_out, stats, n);
   return (int)cudaGetLastError();
 }

@@ -5,42 +5,55 @@ Reference: ``test/pseudoXGCm.cpp`` + ``ellipticalPush.hpp`` +
 ``gyroScatter.hpp``.  Per step:
 
 1. banded trig-free elliptical push (kernel P);
-2. cell-row peel + guess-walk BCC search with remove-on-exit, and the DPS
-   rewrite of parent element and active mask (kernel L);
-3. per-element histogram (kernel H) and the gyro-ring expansion plus the
+2. the search with remove-on-exit and the DPS rewrite of parent element
+   and active mask, in one of three arms:
+   - cartesian cell-row peel + guess-walk BCC search (kernel L);
+   - ``band_locator="force"``: the flux-band cell of each destination
+     (kernel B), then the same peel + walk on the band grid's rows
+     (kernel L, "given cells");
+   - a mesh proven a structured annulus (``analytic_locate="auto"`` or
+     ``"force"``): analytic location, no walk (kernel A; ``iters`` 0);
+3. the gyro-ring histogram, per element or, with
+   ``GyroConfig(per_particle_radius=True)``, per (element, ring) of each
+   particle's radius ``rg`` (kernel H), and the ring expansion plus the
    forward/backward mapped scatter (kernel D);
 4. the field sum over ranks (the identity on one GPU).
 
 Host setup draws from numpy Generators with the JAX package's seeds, so
-particle counts, positions and initial elements are bit-identical.
+particle counts, positions, initial elements and radii are bit-identical.
 
 Knobs that only the TPU build needed are accepted and mapped onto the one
 GPU path, whose results they do not change: ``peel`` variants, ``locator_cpe``
-and ``search_widths`` (the compaction pyramid), ``rot_aux_capture``,
-``rot_analytic`` (the banded rotation gives the table's values), and
-``band_locator="auto"``, which resolves to the cartesian grid as the JAX cost
-gate does below ~460k elements.  Not ported, and refused with
-``NotImplementedError``: the structured-annulus analytic locator (when its
-proof holds under ``analytic_locate="auto"/"force"``), ``band_locator="force"``,
-the per-particle gyro radius, and meshes whose classification is not
-band-ordered.
+and ``search_widths`` (the compaction pyramid), ``rot_aux_capture``, and
+``rot_analytic`` (the banded rotation gives the table's values; on a
+``ring_class``-proven annulus it equals the analytic class, which setup
+checks).  ``band_locator="auto"`` resolves to the cartesian grid: the JAX
+package's TPU-measured cost gate makes the same choice below ~460k
+elements, and a gate measured on the GPU is later work.  Not ported, and
+refused with ``NotImplementedError``: meshes whose classification is not
+band-ordered (the per-element rotation-table push).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from pumipic_torch.mesh import generate as gen
 from pumipic_torch.mesh.core import Mesh2D
 from pumipic_torch.mesh.locator import (
     KNOWN_PEELS,
+    AnnulusLocator2D,
+    BandGrid2D,
     LocatorGrid2D,
     build_locator_grid,
     detect_annulus_structured,
+    detect_banded_locator,
 )
+from pumipic_torch.ops import locate as locate_ops
 from pumipic_torch.ops import push as push_ops
 from pumipic_torch.ops import scatter as scatter_ops
 from pumipic_torch.ops import search as search_ops
@@ -205,53 +218,69 @@ def build_gyro_mappings(mesh: Mesh2D, gyro: GyroConfig,
 # FULL-buffer particle-parallel model
 # ---------------------------------------------------------------------------
 
+def make_default_mesh(nelems_target: int = 25_000) -> Mesh2D:
+    """Tokamak-cross-section-like structured annulus of ~nelems_target
+    elements, sectors ≈ 4× rings (the JAX package's bench annulus)."""
+    n_rings = max(int(np.sqrt(nelems_target / 8)), 2)
+    n_sectors = nelems_target // (2 * n_rings)
+    coords, tris, cls = gen.annulus_mesh(n_rings, n_sectors, 0.3, 1.0)
+    return Mesh2D.from_arrays(coords, tris, cls)
+
+
 @dataclass(frozen=True)
 class DPModel:
     """Everything the step reads besides the particle state.
-    ``gyro_bwd is gyro_fwd`` when the maps coincide."""
+    ``gyro_bwd is gyro_fwd`` when the maps coincide.  ``analytic`` set:
+    the search is the annulus locate (``locator`` is then None)."""
 
     mesh: Mesh2D
-    locator: Optional[LocatorGrid2D]
+    locator: Optional[Union[LocatorGrid2D, BandGrid2D]]
     rot: push_ops.BandRotation
     gyro_fwd: scatter_ops.GyroMap
     gyro_bwd: scatter_ops.GyroMap
+    analytic: Optional[AnnulusLocator2D] = None
 
 
 def check_config(cfg: XGCmConfig) -> None:
-    """Refuse what the port does not run (see the module docstring)."""
+    """Refuse unknown knob values, as the JAX package does."""
     if cfg.analytic_locate not in ("auto", "off", "force"):
         raise ValueError(f"unknown analytic_locate {cfg.analytic_locate!r}")
     if cfg.band_locator not in ("auto", "off", "force"):
         raise ValueError(f"unknown band_locator {cfg.band_locator!r}")
-    if cfg.band_locator == "force":
-        raise NotImplementedError("the flux-band locator is not ported; "
-                                  "band_locator='auto' and 'off' use the "
-                                  "cartesian grid")
     if cfg.peel not in KNOWN_PEELS:
         raise ValueError(f"unknown peel {cfg.peel!r}")
-    if cfg.gyro.per_particle_radius:
-        raise NotImplementedError("per-particle gyro radius is not ported")
 
 
 def make_dp_step(model: DPModel, cfg: XGCmConfig):
     """The step ``state -> (state, fields)``; fields hold the summed
     ``fwd``/``bwd`` vertex fields and the search's ``iters``/``all_found``
-    as device scalars (no host synchronization).  ``step.model`` is
+    as device scalars (no host synchronization; 0 and True on the annulus
+    arm, as the JAX package's analytic search reports).  ``step.model`` is
     ``model``."""
     mesh, gyro = model.mesh, cfg.gyro
     R, P = gyro.num_rings, gyro.points_per_ring
+    no_iters = torch.zeros((), dtype=torch.int32, device=mesh.device)
+    found = torch.ones((), dtype=torch.bool, device=mesh.device)
 
     def step(s: Dict[str, torch.Tensor]):
         tx, ty, cphi, sphi = push_ops.push_banded(
             s["x0"], s["x1"], s["cphi"], s["sphi"], s["b"], s["elem"],
             s["active"], model.rot, cfg.h, cfg.k, cfg.d)
-        elem, active, iters, all_found = search_ops.walk_locate(
-            mesh.walk_geom, tx, ty, s["elem"], s["active"],
-            cfg.max_search_iters, grid=model.locator)
+        if model.analytic is not None:
+            elem, active = locate_ops.annulus_locate(
+                model.analytic, tx, ty, s["active"])
+            iters, all_found = no_iters, found
+        else:
+            elem, active, iters, all_found = search_ops.walk_locate(
+                mesh.walk_geom, tx, ty, s["elem"], s["active"],
+                cfg.max_search_iters, grid=model.locator)
         new_state = {"x0": tx, "x1": ty, "cphi": cphi, "sphi": sphi,
                      "b": s["b"], "elem": elem, "active": active}
-        counts = scatter_ops.histogram(elem, active, mesh.nelems)
-        ring_accum = scatter_ops.deposit_rings(counts, mesh, R)
+        if gyro.per_particle_radius:
+            new_state["rg"] = s["rg"]
+        ring_accum = scatter_ops.accumulate_to_rings(
+            elem, active, mesh, R, gyro.rmax,
+            ptcl_radius=s["rg"] if gyro.per_particle_radius else None)
         fwd = scatter_ops.scatter_to_mapped_verts(
             ring_accum, model.gyro_fwd, mesh.nverts, R, P)
         bwd = fwd if model.gyro_bwd is model.gyro_fwd else \
@@ -268,7 +297,8 @@ def make_dp_step(model: DPModel, cfg: XGCmConfig):
 def initial_state(mesh: Mesh2D, cfg: XGCmConfig, seed: int = ELEMENT_SEED,
                   device=None) -> Dict[str, torch.Tensor]:
     """Seeded particle state: flat (N,) tensors x0 x1 cphi sphi b (f32),
-    elem (i32), active (bool)."""
+    elem (i32), active (bool), and with a per-particle gyro radius ``rg``
+    (f32, uniform in [rmax/4, rmax) from its own seed)."""
     device = mesh.device if device is None else device
     rng = np.random.default_rng(seed)
     ppe = seed_particles_per_element(mesh, cfg, rng)
@@ -283,18 +313,26 @@ def initial_state(mesh: Mesh2D, cfg: XGCmConfig, seed: int = ELEMENT_SEED,
         "b": b, "elem": torch.as_tensor(ptcl_elems, dtype=LID_DTYPE),
         "active": torch.ones(len(ptcl_elems), dtype=torch.bool),
     }
+    if cfg.gyro.per_particle_radius:
+        rg = np.random.default_rng(PARTICLE_SEED + 1).uniform(
+            0.25 * cfg.gyro.rmax, cfg.gyro.rmax, len(ptcl_elems))
+        state["rg"] = torch.as_tensor(rg.astype(np.float32))
     return {k: v.to(device) for k, v in state.items()}
 
 
 def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
                   seed: int = ELEMENT_SEED,
-                  timings: Optional[Dict[str, float]] = None):
+                  timings: Optional[Dict[str, float]] = None,
+                  locator: Optional[Union[LocatorGrid2D, BandGrid2D]] = None):
     """Build the particle state and the step for Input::FULL mode on one
     device (mesh replicated, fields summed over ranks when
     ``torch.distributed`` is initialized).  Returns (state, step).
 
     ``timings``, if given, receives the host seconds of the setup phases
-    ("particles", "gyro_map", "locator")."""
+    ("particles", "gyro_map", "locator": the annulus proof and the band or
+    cartesian grid build).  ``locator``, if given, is a grid already built
+    for this mesh and ``cfg`` (e.g. by an earlier setup's
+    ``step.model.locator``) and is used instead of building one."""
     check_config(cfg)
     device = torch.device(mesh.device if device is None else device)
     mesh = mesh.to(device)
@@ -304,16 +342,14 @@ def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
     state = initial_state(mesh, cfg, seed, device)
     timings["particles"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    coords = mesh.coords.cpu().numpy()
+    ev = mesh.elem2verts.cpu().numpy()
     cls = mesh.class_id.cpu().numpy()
+    analytic = None
     if cfg.analytic_locate in ("auto", "force"):
-        proof = detect_annulus_structured(
-            mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(), cls=cls)
-        if proof is not None:
-            raise NotImplementedError(
-                "the mesh is a proven structured annulus, where the JAX "
-                "package locates analytically; that locator is not ported "
-                "(analytic_locate='off' runs the walk)")
-        if cfg.analytic_locate == "force":
+        analytic = detect_annulus_structured(coords, ev, cls=cls, device=device)
+        if analytic is None and cfg.analytic_locate == "force":
             raise ValueError("analytic_locate='force' but the mesh is not "
                              "a structured annulus")
     banded = push_ops.detect_banded_class(cls)
@@ -321,7 +357,33 @@ def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
         raise NotImplementedError("only band-ordered classifications are "
                                   "ported (the per-element rotation table "
                                   "is not)")
+    if analytic is not None and analytic.ring_class:
+        # the JAX push takes the class from analytic.class_of here; kernel
+        # P's banded class must give the same value on every element
+        e = torch.arange(mesh.nelems, dtype=torch.int32)
+        if not torch.equal(analytic.class_of(e),
+                           push_ops.class_from_bands(e, banded)):
+            raise RuntimeError("the annulus's analytic classification "
+                               "differs from its band-ordered one")
     rot = push_ops.BandRotation.build(banded, cfg.deg_per_push, device)
+
+    if cfg.use_locator and analytic is None and locator is None:
+        if cfg.band_locator == "force":
+            locator = detect_banded_locator(
+                coords, ev, cls, mesh.walk_geom, n_theta=cfg.band_theta,
+                device=device)
+            if locator is None:
+                raise ValueError("band_locator='force' but the mesh is not "
+                                 "a stitched flux-band structure")
+        else:
+            cpe, peel, _widths = resolve_locator_policy(
+                cfg, mesh.nelems, state["elem"].shape[0])
+            locator = build_locator_grid(
+                coords, ev, cells_per_elem=cpe,
+                walk_geom=mesh.walk_geom.cpu(), peel=peel, device=device)
+    if analytic is not None or not cfg.use_locator:
+        locator = None
+    timings["locator"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     fwd, bwd = build_gyro_mappings(mesh, cfg.gyro)
@@ -331,17 +393,6 @@ def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
         bwd, mesh.nverts, R, P, device)
     timings["gyro_map"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    locator = None
-    if cfg.use_locator:
-        cpe, peel, _widths = resolve_locator_policy(
-            cfg, mesh.nelems, state["elem"].shape[0])
-        locator = build_locator_grid(
-            mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(),
-            cells_per_elem=cpe, walk_geom=mesh.walk_geom.cpu(), peel=peel,
-            device=device)
-    timings["locator"] = time.perf_counter() - t0
-
     state = full_mode.shard_particles(state)
-    model = DPModel(mesh, locator, rot, gyro_fwd, gyro_bwd)
+    model = DPModel(mesh, locator, rot, gyro_fwd, gyro_bwd, analytic)
     return state, make_dp_step(model, cfg)

@@ -1,10 +1,13 @@
-"""Gyro-ring charge scatter (port of the uniform-radius parts of
+"""Gyro-ring charge scatter (port of the gyro-ring parts of
 ``pumipic_tpu.ops.scatter``; reference ``test/gyroScatter.hpp``).
 
 - ``accumulateToRings``: every particle deposits into the two gyro rings
-  bracketing its (uniform, placeholder) gyro radius at each vertex of its
-  element.  Counted per element first (kernel H), then expanded to the
-  vertices (kernel D, pass 1).
+  bracketing its gyro radius at each vertex of its element.  With the
+  reference's uniform placeholder radius the ring pair is the same for
+  every particle, so particles are counted per element (kernel H); with a
+  per-particle radius they are counted per (element, ring) key (kernel H's
+  key mode).  Either count is then expanded to the vertices (kernel D,
+  pass 1).
 - ``scatterToMappedVerts``: each (vertex, ring, point) slot's value / P goes
   to the three vertices of the element containing the ring point, through
   the static gyro-average map (kernel D, pass 2).
@@ -30,28 +33,72 @@ from pumipic_torch.mesh.core import Mesh2D
 # kernel H: per-element histogram
 # ---------------------------------------------------------------------------
 
-def histogram_plain(elem: torch.Tensor, active: torch.Tensor,
-                    num_keys: int) -> torch.Tensor:
+def _ring_width(gyro_rmax: float, num_rings: int) -> float:
+    """f32(rmax / R), as a Python float."""
+    return float(np.float32(gyro_rmax / num_rings))
+
+
+def ring_of_radius(ptcl_radius: torch.Tensor, gyro_rmax: float,
+                   num_rings: int) -> torch.Tensor:
+    """The lower of the two rings bracketing each radius, as f32:
+    clip(floor(rg / f32(rmax / R)) - 1, 0, R - 2), with an IEEE division
+    (a 0-d tensor divisor: torch's CUDA division by a Python scalar
+    multiplies by its reciprocal instead)."""
+    rw = ptcl_radius.new_full((), _ring_width(gyro_rmax, num_rings))
+    return torch.clamp(torch.floor(ptcl_radius / rw) - 1.0, 0.0,
+                       num_rings - 2.0)
+
+
+def histogram_plain(elem: torch.Tensor, active: torch.Tensor, num_keys: int,
+                    ptcl_radius=None, num_rings: int = 1,
+                    gyro_rmax: float = 0.0) -> torch.Tensor:
     """Plain version of kernel H: (num_keys,) int32 counts of key =
-    active ? elem : num_keys, keys outside [0, num_keys) dropped."""
-    key = torch.where(active, elem.to(torch.int64), num_keys)
-    key = torch.where((key >= 0) & (key < num_keys), key, num_keys)
-    return torch.bincount(key, minlength=num_keys + 1)[:num_keys].to(torch.int32)
+    active ? elem : num_keys, keys outside [0, num_keys) dropped.  With
+    ``ptcl_radius`` (key mode, ``num_keys`` elements): (num_keys·R,)
+    counts of the two keys elem·R + rd and elem·R + rd + 1 per active
+    particle, rd from :func:`ring_of_radius` (a NaN ring deposits
+    nothing)."""
+    if ptcl_radius is None:
+        key = torch.where(active, elem.to(torch.int64), num_keys)
+        key = torch.where((key >= 0) & (key < num_keys), key, num_keys)
+        return torch.bincount(key, minlength=num_keys + 1)[:num_keys].to(torch.int32)
+    R, ER = num_rings, num_keys * num_rings
+    rdf = ring_of_radius(ptcl_radius, gyro_rmax, R)
+    ok = active & (elem >= 0) & (elem < num_keys) & ~torch.isnan(rdf)
+    base = elem.to(torch.int64) * R + torch.where(ok, rdf, 0.0).to(torch.int64)
+    keys = torch.cat([torch.where(ok, base, ER), torch.where(ok, base + 1, ER)])
+    return torch.bincount(keys, minlength=ER + 1)[:ER].to(torch.int32)
 
 
-def histogram(elem: torch.Tensor, active: torch.Tensor,
-              num_keys: int) -> torch.Tensor:
-    """Particles per element (active particles only).  Kernel H on CUDA
-    tensors, :func:`histogram_plain` on CPU tensors."""
-    if not kernels.use_kernel("histogram", elem, active):
-        return histogram_plain(elem, active, num_keys)
+def histogram(elem: torch.Tensor, active: torch.Tensor, num_keys: int,
+              ptcl_radius=None, num_rings: int = 1,
+              gyro_rmax: float = 0.0) -> torch.Tensor:
+    """Particles per element (active particles only), or with
+    ``ptcl_radius`` per (element, ring) key (see :func:`histogram_plain`).
+    Kernel H on CUDA tensors, :func:`histogram_plain` on CPU tensors."""
+    tensors = (elem, active) + (() if ptcl_radius is None else (ptcl_radius,))
+    if not kernels.use_kernel("histogram", *tensors):
+        return histogram_plain(elem, active, num_keys, ptcl_radius,
+                               num_rings, gyro_rmax)
     if elem.dtype != torch.int32 or active.dtype != torch.bool:
         raise ValueError("histogram: i32 elem and bool active expected")
-    counts = torch.zeros(num_keys, dtype=torch.int32, device=elem.device)
     P = ctypes.c_void_p
-    err = _build.lib().pp_histogram(
-        P(elem.data_ptr()), P(active.data_ptr()), num_keys,
-        P(counts.data_ptr()), elem.shape[0], P(kernels.stream_handle()))
+    if ptcl_radius is None:
+        counts = torch.zeros(num_keys, dtype=torch.int32, device=elem.device)
+        err = _build.lib().pp_histogram(
+            P(elem.data_ptr()), P(active.data_ptr()), num_keys,
+            P(counts.data_ptr()), elem.shape[0], P(kernels.stream_handle()))
+    else:
+        if ptcl_radius.dtype != torch.float32 or ptcl_radius.shape != elem.shape:
+            raise ValueError("histogram: f32 radius of elem's shape expected")
+        if num_rings < 2 or num_keys * num_rings >= 1 << 31:
+            raise ValueError("histogram: key mode needs R >= 2 and E·R < 2^31")
+        counts = torch.zeros(num_keys * num_rings, dtype=torch.int32,
+                             device=elem.device)
+        err = _build.lib().pp_histogram_rings(
+            P(elem.data_ptr()), P(active.data_ptr()), P(ptcl_radius.data_ptr()),
+            _ring_width(gyro_rmax, num_rings), num_keys, num_rings,
+            P(counts.data_ptr()), elem.shape[0], P(kernels.stream_handle()))
     _build.check(err, "histogram")
     kernels.LAUNCHES["histogram"] += 1
     return counts
@@ -105,17 +152,22 @@ class GyroMap:
 
 def ring_accum_plain(counts: torch.Tensor, mesh: Mesh2D,
                      num_rings: int) -> torch.Tensor:
-    """Plain version of kernel D pass 1: (V, R) ring sums of the element
-    counts over each vertex's elements (index_add_, as the JAX package's
-    segment_sum over [element][vertex][ring] keys)."""
+    """Plain version of kernel D pass 1: (V, R) ring sums of the counts over
+    each vertex's elements (index_add_, as the JAX package's segment_sum
+    over [element][vertex][ring] keys).  ``counts`` is (E,) per element,
+    deposited into the uniform radius's ring pair, or (E, R) per
+    (element, ring)."""
     R = num_rings
     E = mesh.nelems
-    rd, ru = ring_pair(R)
     cf = counts.to(torch.float32)
-    elem_ring = torch.zeros(E, R, dtype=torch.float32, device=cf.device)
-    elem_ring[:, rd] += cf
-    if ru != rd:
-        elem_ring[:, ru] += cf
+    if cf.dim() == 2:
+        elem_ring = cf
+    else:
+        rd, ru = ring_pair(R)
+        elem_ring = torch.zeros(E, R, dtype=torch.float32, device=cf.device)
+        elem_ring[:, rd] += cf
+        if ru != rd:
+            elem_ring[:, ru] += cf
     keys = (mesh.elem2verts.to(torch.int64)[:, :, None] * R
             + torch.arange(R, device=cf.device)[None, None, :])   # (E, 3, R)
     vals = elem_ring[:, None, :].expand(E, 3, R)
@@ -126,20 +178,27 @@ def ring_accum_plain(counts: torch.Tensor, mesh: Mesh2D,
 
 def deposit_rings(counts: torch.Tensor, mesh: Mesh2D,
                   num_rings: int) -> torch.Tensor:
-    """(V, R) ring accumulation from per-element counts.  Kernel D pass 1 on
-    CUDA tensors, :func:`ring_accum_plain` on CPU tensors."""
+    """(V, R) ring accumulation from (E,) per-element or (E, R)
+    per-(element, ring) counts.  Kernel D pass 1 on CUDA tensors,
+    :func:`ring_accum_plain` on CPU tensors."""
     args = (counts, mesh.vert2elem_offsets, mesh.vert2elem_vals)
     if not kernels.use_kernel("deposit", *args):
         return ring_accum_plain(counts, mesh, num_rings)
-    if counts.dtype != torch.int32 or counts.shape != (mesh.nelems,):
-        raise ValueError("deposit: (E,) i32 counts expected")
-    rd, ru = ring_pair(num_rings)
+    if counts.dtype != torch.int32 or counts.shape not in (
+            (mesh.nelems,), (mesh.nelems, num_rings)):
+        raise ValueError("deposit: (E,) or (E, R) i32 counts expected")
     out = torch.empty(mesh.nverts, num_rings, dtype=torch.float32,
                       device=counts.device)
     P = ctypes.c_void_p
-    err = _build.lib().pp_deposit_rings(
-        *(P(t.data_ptr()) for t in args), mesh.nverts, num_rings, rd, ru,
-        P(out.data_ptr()), P(kernels.stream_handle()))
+    if counts.dim() == 2:
+        err = _build.lib().pp_deposit_rings_er(
+            *(P(t.data_ptr()) for t in args), mesh.nverts, num_rings,
+            P(out.data_ptr()), P(kernels.stream_handle()))
+    else:
+        rd, ru = ring_pair(num_rings)
+        err = _build.lib().pp_deposit_rings(
+            *(P(t.data_ptr()) for t in args), mesh.nverts, num_rings, rd, ru,
+            P(out.data_ptr()), P(kernels.stream_handle()))
     _build.check(err, "deposit")
     kernels.LAUNCHES["deposit"] += 1
     return out
@@ -150,7 +209,7 @@ def mapped_plain(ring_accum: torch.Tensor, gyro_map: GyroMap, num_verts: int,
     """Plain version of kernel D pass 2 (index_add_ over the flat map, as the
     JAX package's segment_sum)."""
     V, R, P = num_verts, num_rings, points_per_ring
-    vals = ring_accum / P
+    vals = ring_accum / ring_accum.new_full((), P)        # IEEE, as kernel D
     vals_exp = vals[:, :, None, None].expand(V, R, P, 3).reshape(-1)
     idx = gyro_map.flat.to(torch.int64)
     idx = torch.where(idx >= 0, idx, V)
@@ -183,12 +242,16 @@ def scatter_to_mapped_verts(ring_accum: torch.Tensor, gyro_map: GyroMap,
 def accumulate_to_rings(elem: torch.Tensor, active: torch.Tensor, mesh: Mesh2D,
                         num_rings: int, gyro_rmax: float,
                         ptcl_radius=None) -> torch.Tensor:
-    """Deposit particles into the two rings bracketing the uniform gyro
-    radius at each vertex of their element; returns (V, R) f32.  Takes the
-    mesh (for its vertex->element incidence) where the JAX function takes
-    ``elem2verts`` and the vertex count.  A per-particle radius is not
-    ported."""
-    if ptcl_radius is not None:
-        raise NotImplementedError("per-particle gyro radius is not ported")
-    counts = histogram(elem, active, mesh.nelems)
+    """Deposit particles into the two rings bracketing their gyro radius at
+    each vertex of their element; returns (V, R) f32.  ``ptcl_radius``:
+    per-particle radius ((N,) f32), or None for the reference's uniform
+    placeholder 1.125·ring-width; with one ring every particle deposits
+    once, whatever its radius.  Takes the mesh (for its vertex->element
+    incidence) where the JAX function takes ``elem2verts`` and the vertex
+    count."""
+    if ptcl_radius is None or num_rings == 1:
+        counts = histogram(elem, active, mesh.nelems)
+    else:
+        counts = histogram(elem, active, mesh.nelems, ptcl_radius, num_rings,
+                           gyro_rmax).view(mesh.nelems, num_rings)
     return deposit_rings(counts, mesh, num_rings)

@@ -12,24 +12,30 @@ are deleted, as the reference does at its loop limit.
 :func:`walk_locate` is the wrapper of kernel L (``kernels/csrc/locate.cu``):
 one thread per particle, with the whole walk inside the kernel.  Its plain
 version :func:`walk_locate_plain` steps the unfinished walkers as a batch.
+The peel takes a cartesian :class:`LocatorGrid2D`, whose cell id kernel L
+computes itself, or a flux-band :class:`BandGrid2D`, whose cell ids kernel
+B computes first and hands to kernel L ("given cells").
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
 from pumipic_torch.mesh.core import Mesh2D
-from pumipic_torch.mesh.locator import LocatorGrid2D
+from pumipic_torch.mesh.locator import BandGrid2D, LocatorGrid2D
+from pumipic_torch.ops.locate import band_cell_of, band_cell_of_plain
 
 INVALID = -1
 # Containment tolerance, relative to the accumulated |terms| of the affine
 # form l = A·x + c (its f32 evaluation error), with a small absolute floor.
 BCC_REL_TOL = 8.0 * 2.0 ** -24      # ~8 ulps of the largest term
 BCC_ABS_TOL = 1e-7
+
+Grid = Union[LocatorGrid2D, BandGrid2D]
 
 
 def remove_on_exit(elem: torch.Tensor):
@@ -68,10 +74,18 @@ def bary_inside(a0, a1, a2, a3, a4, a5, dx, dy):
     return l1, l2, w0, inside
 
 
-def _peel(grid: LocatorGrid2D, dx, dy):
+def _cells_plain(grid: Grid, dx, dy) -> torch.Tensor:
+    """The peel's cell id of each destination: the cartesian cell, or the
+    flux-band cell by kernel B's plain version."""
+    if isinstance(grid, BandGrid2D):
+        return band_cell_of_plain(grid, dx, dy)
+    return grid.cell_of(dx, dy)
+
+
+def _peel(grid: Grid, dx, dy):
     """(elem, inside): the cell's two candidate rows tested in order A, B;
     elem = B only when B alone contains the point."""
-    g = grid.cell_rows[grid.cell_of(dx, dy).long()]        # (N, 14)
+    g = grid.cell_rows[_cells_plain(grid, dx, dy).long()]   # (N, 14)
     in_a = bary_inside(*g[:, 0:6].unbind(1), dx, dy)[3]
     in_b = bary_inside(*g[:, 7:13].unbind(1), dx, dy)[3]
     inside = in_a | in_b
@@ -80,7 +94,7 @@ def _peel(grid: LocatorGrid2D, dx, dy):
 
 
 def walk_locate_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start,
-                      active, max_iters: int, grid: Optional[LocatorGrid2D] = None):
+                      active, max_iters: int, grid: Optional[Grid] = None):
     """Plain PyTorch version of kernel L; returns (elem, active, iters,
     all_found) with the kernel's semantics (see :func:`walk_locate`)."""
     n_elems = walk_geom.shape[0]
@@ -134,12 +148,13 @@ def walk_locate_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start,
 # ---------------------------------------------------------------------------
 
 def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
-                max_iters: int, grid: Optional[LocatorGrid2D] = None):
+                max_iters: int, grid: Optional[Grid] = None):
     """Locate every active particle's destination; returns (elem, active,
     iters, all_found).
 
     With ``grid`` (cell rows attached): the peel tests the destination
-    cell's two candidates (iteration 1); misses walk from candidate A on a
+    cell's two candidates (iteration 1; a :class:`BandGrid2D`'s cells come
+    from kernel B); misses walk from candidate A on a
     guess trajectory that, on hitting the boundary, retries once from the
     clamped ``elem_start``.  Without ``grid``: the plain walk from the
     clamped ``elem_start``.  Walkers left after ``max_iters`` iterations are
@@ -172,15 +187,19 @@ def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
     stats = torch.zeros(2, dtype=torch.int32, device=dev)
     it0 = 0 if grid is None else 1
     P = ctypes.c_void_p
-    if grid is None:
-        rows, ox, oy, ihx, ihy, nx, ny = None, 0.0, 0.0, 0.0, 0.0, 1, 1
-    else:
+    rows = cells = None
+    ox, oy, ihx, ihy, nx, ny = 0.0, 0.0, 0.0, 0.0, 1, 1
+    if isinstance(grid, BandGrid2D):
+        cells = band_cell_of(grid, dest_x, dest_y)          # kernel B
+        rows = grid.cell_rows.data_ptr()
+    elif grid is not None:
         rows = grid.cell_rows.data_ptr()
         (ox, oy), (ihx, ihy), nx, ny = grid.origin, grid.inv_h, grid.nx, grid.ny
     err = _build.lib().pp_walk_locate(
         P(dest_x.data_ptr()), P(dest_y.data_ptr()), P(elem_start.data_ptr()),
         P(active.data_ptr()), P(walk_geom.data_ptr()), walk_geom.shape[0],
-        P(rows), ox, oy, ihx, ihy, nx, ny, max_iters, it0,
+        P(rows), P(None if cells is None else cells.data_ptr()),
+        ox, oy, ihx, ihy, nx, ny, max_iters, it0,
         P(elem.data_ptr()), P(act.data_ptr()), P(stats.data_ptr()), n,
         P(kernels.stream_handle()))
     _build.check(err, "locate")
@@ -224,15 +243,16 @@ def search_mesh_2d(mesh: Mesh2D, x_orig, x_tgt, elem_init: torch.Tensor,
     return SearchResult(elem, (dx, dy), iters, all_found, act)
 
 
-def search_mesh_2d_accel(mesh: Mesh2D, grid: LocatorGrid2D, x_orig, x_tgt,
+def search_mesh_2d_accel(mesh: Mesh2D, grid: Grid, x_orig, x_tgt,
                          elem_prev: torch.Tensor, active: torch.Tensor,
                          max_iters: int = 200,
                          boundary_handler=remove_on_exit,
                          record_exit: bool = False, widths=None,
                          aux_capture=None, recover: str = "off") -> SearchResult:
-    """Grid-accelerated search through the cell-row peel ("rows" layout
-    only; the other layouts are not ported): results equal
-    :func:`search_mesh_2d`'s, with the peel counted as one iteration."""
+    """Grid-accelerated search through the cell-row peel ("rows" layout of
+    a cartesian or flux-band grid; the other layouts are not ported):
+    results equal :func:`search_mesh_2d`'s, with the peel counted as one
+    iteration."""
     _check_options(boundary_handler, record_exit, recover, aux_capture)
     if grid.cell_rows is None:
         raise NotImplementedError("only the cell-rows peel is ported")

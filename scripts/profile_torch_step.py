@@ -1,13 +1,15 @@
 """Where the time of the port's FULL-mode step goes, on one CUDA GPU.
 
-    python3 scripts/profile_torch_step.py [num_ptcls] [steps]
+    python3 scripts/profile_torch_step.py [num_ptcls] [steps] [arm ...]
 
-Sets up bench_torch's configuration (120k gmsh mesh, default 10M
-particles), runs one warm-up step, then ``steps`` steps (default 10)
-untraced for the host wall and enqueue time per step, then ``steps`` more under
-torch.profiler for the device time per step by kernel name.  Prints one
-JSON line with both, the device idle share (1 - device busy time / wall
-time), and the card's name and power limit.
+For each arm (default: ``cartesian``; also ``band``, ``annulus``,
+``pprad``, the arms of ``chip_smoke.py``), sets up bench_torch's
+configuration of that arm (default 10M particles), runs one warm-up step,
+then ``steps`` steps (default 10) untraced for the host wall and enqueue
+time per step, then ``steps`` more under torch.profiler for the device time
+per step by kernel name.  Prints one JSON line per arm with both, the
+device idle share (1 - device busy time / wall time), and the card's name
+and power limit.
 """
 from __future__ import annotations
 
@@ -22,24 +24,19 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-from pumipic_torch.mesh.core import Mesh2D  # noqa: E402
-from pumipic_torch.mesh.gmsh import read_msh  # noqa: E402
-from pumipic_torch.models.pseudo_xgcm import XGCmConfig, make_dp_setup  # noqa: E402
+import bench_torch  # noqa: E402
 
-MESH = os.path.join(os.path.dirname(HERE), "data", "xgc_like_120k.msh.gz")
+ARMS = {  # arm -> bench_torch.setup keywords
+    "cartesian": {},
+    "band": {"band_locator": "force"},
+    "annulus": {"mesh_path": "annulus"},
+    "pprad": {"gyro_ppr": True},
+}
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise RuntimeError("needs a CUDA device")
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 10_000_000
-    steps = int(sys.argv[2]) if len(sys.argv) > 2 else 10
+def profile(arm: str, n: int, steps: int, smi: str) -> dict:
     dev = torch.device("cuda")
-    coords, tris, cls = read_msh(MESH)
-    mesh = Mesh2D.from_arrays(coords, tris, cls, device=dev)
-    cfg = XGCmConfig(num_ptcls=n, mdl_face=max(int(cls.max()) // 2, 2),
-                     deg_per_push=15.0, max_search_iters=64)
-    state, step = make_dp_setup(mesh, cfg, dev)
+    _, state, step, info = bench_torch.setup(dev, n, **ARMS[arm])
     state, _ = step(state)
     torch.cuda.synchronize()
 
@@ -62,11 +59,9 @@ def main() -> None:
             continue                      # host ops; their kernels are listed
         by_kernel[ev.key.split("(")[0]] = ev.self_device_time_total / 1e3 / steps
     busy = sum(by_kernel.values())
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({
-        "card": smi, "num_ptcls": n, "steps": steps,
+    return {
+        "arm": arm, "tag": info["tag"], "card": smi, "num_ptcls": n,
+        "steps": steps, "setup_s": info["setup_s"],
         "wall_ms_per_step": wall * 1e3,
         "host_enqueue_ms_per_step": enqueue * 1e3,
         "device_busy_ms_per_step": busy,
@@ -74,7 +69,24 @@ def main() -> None:
         "device_ms_per_step_by_kernel": dict(
             sorted(by_kernel.items(), key=lambda kv: -kv[1])),
         "alive": int(state["active"].sum()),
-    }))
+    }
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 10_000_000
+    steps = int(sys.argv[2]) if len(sys.argv) > 2 else 10
+    arms = sys.argv[3:] or ["cartesian"]
+    unknown = set(arms) - set(ARMS)
+    if unknown:
+        raise ValueError(f"unknown arms {sorted(unknown)}; known: {sorted(ARMS)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    for arm in arms:
+        print(json.dumps(profile(arm, n, steps, smi)), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Card-only checks of the port's kernels: each kernel against its plain
-PyTorch version on the same CUDA tensors (exact), and its launch counter.
+"""Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D and
+their modes) against its plain PyTorch version on the same CUDA tensors
+(exact), and its launch counter.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no JAX, so it also runs where JAX is not installed, without the
@@ -13,9 +14,14 @@ import torch
 
 from pumipic_torch import kernels
 from pumipic_torch.mesh.core import Mesh2D
-from pumipic_torch.mesh.generate import tokamak_mesh
-from pumipic_torch.mesh.locator import build_locator_grid
+from pumipic_torch.mesh.generate import annulus_mesh, tokamak_mesh
+from pumipic_torch.mesh.locator import (
+    build_locator_grid,
+    detect_annulus_structured,
+    detect_banded_locator,
+)
 from pumipic_torch.models import pseudo_xgcm as px
+from pumipic_torch.ops import locate as lo
 from pumipic_torch.ops import push as push_ops
 from pumipic_torch.ops import scatter as sc
 from pumipic_torch.ops import search as se
@@ -93,3 +99,102 @@ def test_histogram_and_deposit_kernels_equal_plain(dev, mesh):
         assert torch.equal(ring, sc.ring_accum_plain(counts, mesh, R))
     out = sc.scatter_to_mapped_verts(ring, gmap, mesh.nverts, 3, 8)
     assert torch.equal(out, sc.mapped_plain(ring, gmap, mesh.nverts, 3, 8))
+
+
+def _moved(mesh, n=50_000, scale=0.05, seed=0):
+    """Seeded particles and destinations moved by a random displacement
+    (some leave the domain)."""
+    cfg, s = _state(mesh, n)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dx = s["x0"].cpu() + scale * torch.randn(s["x0"].shape, generator=g)
+    dy = s["x1"].cpu() + scale * torch.randn(s["x1"].shape, generator=g)
+    return s, dx.to(mesh.device), dy.to(mesh.device)
+
+
+def test_band_kernel_and_given_cells_locate_equal_plain(dev):
+    m = Mesh2D.from_arrays(*tokamak_mesh(24, 120), device=dev)
+    grid = detect_banded_locator(m.coords.cpu().numpy(), m.elem2verts.cpu().numpy(),
+                                 m.class_id.cpu().numpy(), m.walk_geom, device=dev)
+    s, dx, dy = _moved(m)
+    n0 = kernels.LAUNCHES["band_cell"]
+    cells = lo.band_cell_of(grid, dx, dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_cell"] == n0 + 1
+    assert torch.equal(cells, lo.band_cell_of_plain(grid, dx, dy))
+    # non-finite and far-away points are clamped into the table alike
+    odd = torch.tensor([float("nan"), float("inf"), 0.0, 1e30], device=dev)
+    assert torch.equal(lo.band_cell_of(grid, odd, odd.flip(0)),
+                       lo.band_cell_of_plain(grid, odd, odd.flip(0)))
+    for max_iters in (64, 2):
+        args = (m.walk_geom, dx, dy, s["elem"], s["active"], max_iters)
+        n0 = kernels.LAUNCHES["locate"]
+        got = se.walk_locate(*args, grid=grid)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["locate"] == n0 + 1
+        _equal(got, se.walk_locate_plain(*args, grid=grid))
+
+
+@pytest.mark.parametrize("permuted", [False, True])
+def test_annulus_kernel_equals_plain(dev, permuted):
+    coords, tris, cls = annulus_mesh(8, 48, 0.3, 1.0)
+    if permuted:
+        rng = np.random.default_rng(3)
+        pv = rng.permutation(len(coords))
+        c2 = np.empty_like(coords)
+        c2[pv] = coords @ np.array([[np.cos(0.37), np.sin(0.37)],
+                                    [-np.sin(0.37), np.cos(0.37)]])
+        coords, tris = c2, pv[tris][rng.permutation(len(tris))]
+    loc = detect_annulus_structured(coords, tris, cls=None, device=dev)
+    assert (loc.perm is not None) == permuted
+    m = Mesh2D.from_arrays(coords, tris, device=dev)
+    s, dx, dy = _moved(m, scale=0.1)
+    s["active"][::5] = False
+    n0 = kernels.LAUNCHES["annulus_locate"]
+    got = lo.annulus_locate(loc, dx, dy, s["active"])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["annulus_locate"] == n0 + 1
+    _equal(got, lo.annulus_locate_plain(loc, dx, dy, s["active"]))
+    assert (got[0][~s["active"]] == -1).all()
+
+
+def test_histogram_key_mode_and_deposit_er_equal_plain(dev, mesh):
+    rng = np.random.default_rng(2)
+    n = 100_000
+    elem = torch.as_tensor(rng.integers(-1, mesh.nelems, n), dtype=torch.int32,
+                           device=dev)
+    active = elem >= 0
+    rg = torch.as_tensor(rng.uniform(0.0, 0.05, n).astype(np.float32), device=dev)
+    rg[:3] = float("nan")
+    for R in (2, 3):
+        args = (elem, active, mesh.nelems, rg, R, 0.038)
+        n0 = kernels.LAUNCHES["histogram"]
+        counts = sc.histogram(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["histogram"] == n0 + 1
+        assert torch.equal(counts, sc.histogram_plain(*args))
+        er = counts.view(mesh.nelems, R)
+        assert torch.equal(sc.deposit_rings(er, mesh, R),
+                           sc.ring_accum_plain(er, mesh, R))
+
+
+def test_band_kernel_compiled_for_24_12_8_equals_plain(dev):
+    """(J, P, rank) = (24, 12, 8), the 120k mesh's values, runs the
+    kernel's compile-time instantiation: seeded coefficients, exact."""
+    from pumipic_torch.mesh.locator import BandGrid2D
+
+    rng = np.random.default_rng(4)
+
+    def f32(*shape, scale=1.0):
+        return torch.as_tensor((scale * rng.standard_normal(shape)).astype(np.float32),
+                               device=dev)
+
+    grid = BandGrid2D(0.01, -0.02, f32(13, 8, scale=0.1), f32(8, 49, scale=0.1),
+                      f32(11, scale=0.3), torch.zeros(120 * 4096, 14, device=dev),
+                      torch.zeros(120 * 4096, dtype=torch.int32, device=dev),
+                      n_bands=120, n_theta=4096, n_harm=24, n_cheb=12, rank=8)
+    px, py = f32(200_000), f32(200_000)
+    n0 = kernels.LAUNCHES["band_cell"]
+    got = lo.band_cell_of(grid, px, py)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_cell"] == n0 + 1
+    assert torch.equal(got, lo.band_cell_of_plain(grid, px, py))

@@ -1,8 +1,10 @@
 """Parity of the port's FULL-mode pseudoXGCm slice
-(pumipic_torch.models.pseudo_xgcm) with the JAX reference's make_dp_setup:
-setup (particle counts, positions, initial elements, gyro map) and three
-steps from a carried-over state.  Also: the port imports without JAX, its
-knobs, and the bench entry point on the CPU.
+(pumipic_torch.models.pseudo_xgcm) with the JAX reference's make_dp_setup
+on the cartesian main path: setup (particle counts, positions, initial
+elements, gyro map), three steps from a carried-over state, and the
+setup's own last-bit divergence pinned.  Also: the port imports without
+JAX, its knobs, and the bench entry point on the CPU.  The band, annulus
+and per-particle-radius arms are in tests/test_torch_arms.py.
 
 Tolerances: counts, positions' seeds and initial elements are equal; the
 f32 angles from the setup's atan2/sin/cos within rtol/atol 1e-6; element
@@ -28,6 +30,7 @@ from pumipic_torch import interop
 from pumipic_torch.mesh.core import Mesh2D
 from pumipic_torch.mesh.gmsh import write_msh2
 from pumipic_torch.models import pseudo_xgcm as tx
+from pumipic_torch.ops import search as t_se
 from pumipic_torch.parallel import full_mode
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -143,26 +146,91 @@ def test_knobs_mapped_or_refused():
         s, step = tx.make_dp_setup(m, dc.replace(base, **kw))
         s, f = step(s)
         assert torch.equal(s["elem"], s0["elem"]) and torch.equal(f["fwd"], f0["fwd"]), kw
-    with pytest.raises(NotImplementedError):
+    # the three further arms run: the band locator where the mesh is a
+    # stitched flux-band structure (this coarse one is not: the JAX
+    # package's ValueError), the per-particle radius, and the annulus
+    with pytest.raises(ValueError, match="flux-band"):
         tx.make_dp_setup(m, dc.replace(base, band_locator="force"))
-    with pytest.raises(NotImplementedError):
-        tx.make_dp_setup(m, dc.replace(base, gyro=tx.GyroConfig(per_particle_radius=True)))
+    bm = Mesh2D.from_arrays(*j_gen.tokamak_mesh(24, 120))
+    s, step = tx.make_dp_setup(bm, dc.replace(base, mdl_face=12, band_locator="force"))
+    assert type(step.model.locator).__name__ == "BandGrid2D"
+    s, f = step(s)
+    assert bool(f["all_found"]) and int(s["active"].sum()) >= 499
+    s, step = tx.make_dp_setup(m, dc.replace(base, gyro=tx.GyroConfig(per_particle_radius=True)))
+    s, f = step(s)
+    assert "rg" in s and torch.equal(s["elem"], s0["elem"])
+    assert float(f["fwd"].sum()) == float(f0["fwd"].sum())
     with pytest.raises(ValueError):
         tx.make_dp_setup(m, dc.replace(base, band_locator="banded"))
     with pytest.raises(ValueError):
         tx.make_dp_setup(m, dc.replace(base, analytic_locate="force"))
-    # a proven structured annulus is where the JAX package locates
-    # analytically, which the port does not
+    # a proven structured annulus is located analytically (no walk: iters
+    # 0); "off" walks, to the same elements
     ac, at, acl = j_gen.annulus_mesh(4, 24, 0.3, 1.0)
     am = Mesh2D.from_arrays(ac, at, acl)
-    with pytest.raises(NotImplementedError, match="annulus"):
-        tx.make_dp_setup(am, base)
-    s, step = tx.make_dp_setup(am, dc.replace(base, analytic_locate="off"))
-    step(s)
+    s, step = tx.make_dp_setup(am, base)
+    assert step.model.analytic is not None and step.model.locator is None
+    s, f = step(s)
+    assert int(f["iters"]) == 0 and bool(f["all_found"])
+    sw, stepw = tx.make_dp_setup(am, dc.replace(base, analytic_locate="off"))
+    assert stepw.model.analytic is None
+    sw, fw = stepw(sw)
+    assert int(fw["iters"]) >= 1
+    assert (s["elem"] != sw["elem"]).sum() <= 2
     # a classification that is not band-ordered
     cm = Mesh2D.from_arrays(coords, tris, cls[::-1].copy())
     with pytest.raises(NotImplementedError, match="band-ordered"):
         tx.make_dp_setup(cm, base)
+
+
+def test_setup_divergence_is_the_references_own_ill_conditioning(ref):
+    """From the port's own setup (not the carried state): torch's and
+    XLA's atan2/sin/cos differ in the last bits, so cphi/sphi differ by at
+    most one ulp of phi (2^-22 for |phi| in [2, pi]) on ~17% of the
+    particles, and b = (y-k)/sin(phi) turns that into larger differences
+    (up to ~1e-5 here).  Every element id that then differs from the JAX
+    package's after 3 steps belongs to a particle whose initial b differs,
+    or lies on a side shared by both elements; both counts are bounded.
+    (On this mesh and at 20k particles both are 0.)"""
+    coords, tris, cls = ref["raw"]
+    m = Mesh2D.from_arrays(coords, tris, cls)
+    state, step = tx.make_dp_setup(m, tx.XGCmConfig(**KW), "cpu")
+    js = {k: np.asarray(v) for k, v in ref["state"].items()}
+    for k in ("cphi", "sphi"):
+        d = np.abs(state[k].numpy().astype(np.float64) - js[k])
+        assert d.max() <= 2.0 ** -22, k
+        assert 0.05 < (d > 0).mean() < 0.4, k
+    b_differs = state["b"].numpy() != js["b"]
+    assert 0.05 < b_differs.mean() < 0.4
+    assert np.abs(state["b"].numpy() - js["b"]).max() < 1e-4
+    geom = m.walk_geom.numpy().astype(np.float64)
+    jstate, jstep = ref["state"], ref["step"]
+    for i in range(3):
+        jstate, _ = jstep(jstate)
+        state, _ = step(state)
+        je, te = np.asarray(jstate["elem"]), state["elem"].numpy()
+        bad = np.nonzero(je != te)[0]
+        from_b = b_differs[bad]
+        x, y = state["x0"].numpy(), state["x1"].numpy()
+        ties = [p for p in bad[~from_b]
+                if je[p] >= 0 and te[p] >= 0
+                and _near_both_side(geom, je[p], te[p], float(x[p]), float(y[p]))]
+        assert len(ties) == (~from_b).sum(), f"step {i}: unexplained mismatches"
+        assert from_b.sum() <= 0.005 * N and len(ties) <= 5, (i, from_b.sum(), len(ties))
+
+
+def _near_both_side(geom, e1, e2, x, y):
+    """(x, y) within a loose multiple of the walk's containment tolerance
+    of both elements."""
+    for e in (e1, e2):
+        r = geom[e]
+        l1 = r[0] * x + r[1] * y + r[2]
+        l2 = r[3] * x + r[4] * y + r[5]
+        mag = sum(abs(v) for v in (r[0] * x, r[1] * y, r[2], r[3] * x, r[4] * y, r[5]))
+        tol = 4 * (t_se.BCC_REL_TOL * mag + 2 * t_se.BCC_ABS_TOL)
+        if min(l1, l2, 1.0 - l1 - l2) < -tol:
+            return False
+    return True
 
 
 def test_full_mode_is_identity_on_one_process():

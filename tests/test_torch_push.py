@@ -13,6 +13,8 @@ from pumipic_tpu.ops import push as j_push
 from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
 from pumipic_torch.mesh.core import Mesh2D
+from pumipic_torch.mesh.locator import AnnulusLocator2D, BandGrid2D
+from pumipic_torch.ops import locate as t_lo
 from pumipic_torch.ops import push as t_push
 from pumipic_torch.ops import scatter as t_sc
 from pumipic_torch.ops import search as t_se
@@ -116,7 +118,16 @@ def _wrapper_calls(dev):
     mesh = Mesh2D.from_arrays(coords, tris, cls).to(dev)
     gmap = t_sc.GyroMap.from_flat(np.full(mesh.nverts * 1 * 1 * 3, -1),
                                   mesh.nverts, 1, 1, dev)
+    band = BandGrid2D(0.0, 0.0, torch.ones(3, 2, device=dev),
+                      torch.ones(2, 9, device=dev), torch.ones(4, device=dev),
+                      torch.zeros(16, 14, device=dev),
+                      torch.zeros(16, dtype=torch.int32, device=dev),
+                      n_bands=4, n_theta=4, n_harm=4, n_cheb=2, rank=2)
+    ann = AnnulusLocator2D(0.0, 0.0, 0.5, 0.25, 2, 8,
+                           perm=torch.arange(32, dtype=torch.int32, device=dev))
     return {
+        "band_cell": lambda: t_lo.band_cell_of(band, f, f),
+        "annulus_locate": lambda: t_lo.annulus_locate(ann, f, f, a),
         "push": lambda: t_push.push_banded(f, f, f, f, f, e, a, rot, 0.0, 0.0, 0.9),
         "locate": lambda: t_se.walk_locate(geom, f, f, e, a, 4),
         "histogram": lambda: t_sc.histogram(e, a, 3),
@@ -125,7 +136,8 @@ def _wrapper_calls(dev):
     }
 
 
-@pytest.mark.parametrize("name", ["push", "locate", "histogram", "deposit"])
+@pytest.mark.parametrize("name", ["push", "band_cell", "annulus_locate",
+                                  "locate", "histogram", "deposit"])
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices(name):
     """On CPU tensors a wrapper runs its plain version and counts no launch;
     on a device that is neither CPU nor CUDA it raises (no fallback)."""
@@ -142,7 +154,9 @@ def test_kernel_build_flags():
     assert "-fmad=false" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.sources()) == [
-        "deposit.cu", "histogram.cu", "locate.cu", "push.cu"]
+        "annulus.cu", "band.cu", "deposit.cu", "histogram.cu", "locate.cu",
+        "push.cu"]
+    assert "-shared" not in _build.NVCC_FLAGS      # compile flags; the link adds it
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()
                    for p in _build.sources()), name

@@ -1,6 +1,7 @@
 """Parity of the port's gyro scatter (pumipic_torch.ops.scatter, the
-module of kernels H and D) with the JAX reference.  Counts and fields are
-integer counts and multiples of 1/P here, so they must be equal."""
+module of kernels H and D) with the JAX reference, for the uniform and the
+per-particle gyro radius.  Counts and fields are integer counts and
+multiples of 1/P here, so they must be equal."""
 import numpy as np
 import pytest
 import torch
@@ -86,8 +87,68 @@ def test_gyro_map_transpose():
 
 
 def test_per_particle_radius_not_ported(meshes):
+    """The per-particle radius is ported now (its refusal is gone): a
+    radius per particle picks each particle's own ring pair; with one ring
+    the radius is ignored, as in the JAX package."""
     _, m = meshes
     e = torch.zeros(3, dtype=torch.int32)
     a = torch.ones(3, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        t_sc.accumulate_to_rings(e, a, m, 3, 0.038, ptcl_radius=torch.ones(3))
+    rg = torch.tensor([0.0, 0.02, 0.5])           # rings (0,1), (0,1), (1,2)
+    got = t_sc.accumulate_to_rings(e, a, m, 3, 0.038, ptcl_radius=rg)
+    v = m.elem2verts[0].long()
+    np.testing.assert_array_equal(got[v].numpy(), [[2.0, 3.0, 1.0]] * 3)
+    assert float(got.sum()) == 3 * 2 * 3
+    one = t_sc.accumulate_to_rings(e, a, m, 1, 0.038, ptcl_radius=rg)
+    assert torch.equal(one, t_sc.accumulate_to_rings(e, a, m, 1, 0.038))
+
+
+def _radii(n, rmax, R, rng):
+    """Radii as the model draws them, plus ring-width multiples, zero and
+    values past rmax."""
+    rg = rng.uniform(0.25 * rmax, rmax, n).astype(np.float32)
+    rw = np.float32(rmax / R)
+    rg[:8] = np.arange(8, dtype=np.float32) * rw
+    rg[8:11] = [0.0, 2 * rmax, 1e-9]
+    return rg
+
+
+@pytest.mark.parametrize("num_rings", [3, 2])
+def test_accumulate_to_rings_per_particle_radius_matches_reference(meshes, num_rings):
+    """Kernel H's (element, ring) key mode and D's pass 1 from (E, R)
+    counts (their plain versions) against the JAX package's f32-key
+    one-hot histograms: equal."""
+    jm, m = meshes
+    rmax = 0.038
+    elem, active = _particles(m.nelems, seed=10 + num_rings)
+    rg = _radii(len(elem), rmax, num_rings, np.random.default_rng(num_rings))
+    ref = np.asarray(j_sc.accumulate_to_rings(
+        jnp.asarray(elem), jnp.asarray(active), jm.elem2verts, jm.nverts,
+        num_rings, rmax, ptcl_radius=jnp.asarray(rg)))
+    got = t_sc.accumulate_to_rings(torch.from_numpy(elem), torch.from_numpy(active),
+                                   m, num_rings, rmax,
+                                   ptcl_radius=torch.from_numpy(rg))
+    assert got.shape == (m.nverts, num_rings) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert float(got.sum()) == 3 * 2 * int(active.sum())
+    # the keys: two per active particle, elem·R + rd and + 1
+    counts = t_sc.histogram(torch.from_numpy(elem), torch.from_numpy(active),
+                            m.nelems, torch.from_numpy(rg), num_rings, rmax)
+    assert counts.shape == (m.nelems * num_rings,) and counts.dtype == torch.int32
+    rd = t_sc.ring_of_radius(torch.from_numpy(rg), rmax, num_rings).numpy()
+    rw = jnp.float32(rmax / num_rings)
+    np.testing.assert_array_equal(
+        rd, np.asarray(jnp.clip(jnp.floor(jnp.asarray(rg) / rw) - 1.0, 0.0,
+                                num_rings - 2)))
+    want = np.zeros(m.nelems * num_rings, np.int64)
+    for k in (0, 1):
+        np.add.at(want, (elem * num_rings + rd.astype(np.int64) + k)[active], 1)
+    np.testing.assert_array_equal(counts.numpy(), want)
+
+
+def test_ring_of_radius_nan_deposits_nothing(meshes):
+    _, m = meshes
+    e = torch.zeros(2, dtype=torch.int32)
+    a = torch.ones(2, dtype=torch.bool)
+    counts = t_sc.histogram(e, a, m.nelems, torch.tensor([float("nan"), 0.02]),
+                            3, 0.038)
+    assert int(counts.sum()) == 2 and counts[0:2].tolist() == [1, 1]
