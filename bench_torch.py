@@ -97,7 +97,7 @@ def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
     seconds = {}
     t0 = time.perf_counter()
     if mesh_path in GENERATED_MESHES:
-        mesh = make_default_mesh(mesh_elems).to(device)
+        mesh = make_default_mesh(mesh_elems, device=device)
     else:
         coords, tris, cls = read_msh(mesh_path)
         mesh = Mesh2D.from_arrays(coords, tris, cls, device=device)

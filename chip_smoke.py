@@ -7,24 +7,41 @@ sources in this checkout.  Phases, each raising on failure:
 
 (a) require a CUDA device; print its name and power limit (nvidia-smi) and
     the torch / CUDA versions;
-(b) build the six kernels (P push, B band cell, A annulus locate, L
-    locate, H histogram, D deposit), one nvcc per source, all at once;
+(b) build the eight kernels (P push, B band cell, A annulus locate, L
+    locate, H histogram, D deposit, G row gather, S slot map), one nvcc per
+    source, all at once;
 (c) run each kernel and its plain PyTorch version on the card on the same
-    inputs at the shapes the four arms give it, require equal outputs, and
-    time both: on the 120k-element gmsh mesh at 10M particles P, L (peel +
-    walk), H and D, L's plain walk over the 1.48M gyro ring points, B and
-    L's given-cells mode on the flux-band grid, H's (element, ring) key
-    mode and D's pass 1 from (E, R) counts; A on the 23,976-element
-    annulus at 10M.  Then run a small slice of each arm on the card and on
-    the CPU for 3 steps and require equal states and fields;
-(d) run the four arms through their entry point, ``bench_torch.main()``,
-    at 10M particles, 1 warm-up + 20 timed steps each, with the launch
-    counters reset just before each: the cartesian main path, the
-    flux-band arm (``band_locator="force"``, reusing phase c's band
-    grid), the annulus arm and the per-particle gyro radius arm.  Require
-    each arm's kernels launched (and the annulus arm's steps launching no
-    L: its only L launch is the setup's gyro-map walk), finite positive
-    fields and > 90% of the particles alive;
+    inputs at the shapes the main paths give it, require equal outputs, and
+    time both; give each kernel its bound (bytes over 3.35 TB/s or f32
+    operations over 67 TFLOP/s, whichever is larger) and, where one
+    PyTorch call computes the same function, that call's time
+    (``torch.bincount`` for H, ``torch.index_select`` for G).  On the
+    120k-element gmsh mesh at 10M particles: P, L (peel + walk), H and D,
+    L's plain walk over the 1.48M gyro ring points, H's (element, ring) key
+    mode and D's pass 1 from (E, R) counts; G's rows form at the TPU row
+    gather probe's shape (24,576 x 14 f32 table, 10M indices); on a
+    Sell-C-σ structure of the 10M located particles, P's phi mode (band and
+    class forms), S in the scs and cabm modes and G's columns form at the
+    sorted rebuild's shapes; B and L's given-cells mode on the flux-band
+    grid; A on the 23,976-element annulus at 10M.  Then run a small slice of
+    each FULL-mode arm and of the PseudoXGCm app in each layout (scs, csr,
+    cabm, dps) on the card and on the CPU for 3 steps and require equal
+    states, structures and fields;
+(d) run the four FULL-mode arms through their entry point,
+    ``bench_torch.main()``, at 10M particles, 1 warm-up + 20 timed steps
+    each, with the launch counters reset just before each: the cartesian
+    main path, the flux-band arm (``band_locator="force"``, reusing phase
+    c's band grid), the annulus arm and the per-particle gyro radius arm.
+    Require each arm's kernels launched (and the annulus arm's steps
+    launching no L: its only L launch is the setup's gyro-map walk), finite
+    positive fields and > 90% of the particles alive.  Then the PseudoXGCm
+    app through its entry points (construction with phase c's cartesian
+    grid, then ``run``) at 10M particles on the 120k mesh: Sell-C-σ with 1
+    warm-up + 20 timed steps (ms per step from the port's timing registry),
+    then CSR, CabM and DPS with 1 + 3; require each layout's launch set
+    (DPS steps launch neither G nor S), ``num_ptcls`` equal to the active
+    count, no overflow, every active element in range and the active pids
+    equal to those the last search kept;
 (e) print the kernels' JSON line, the card's line, and the contract line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -63,7 +80,25 @@ KERNELS = {  # name -> (route, source, replaces)
                   "pumipic_tpu/ops/scatter.py:65"),
     "deposit": ("cuda", "pumipic_torch/kernels/csrc/deposit.cu",
                 "pumipic_tpu/ops/scatter.py:224"),
+    "row_gather": ("cuda", "pumipic_torch/kernels/csrc/gather.cu",
+                   "perf/pallas_gather_ab.py:72"),
+    "slot_map": ("cuda", "pumipic_torch/kernels/csrc/slotmap.cu",
+                 "pumipic_tpu/particles/structure.py:563"),
 }
+
+# the card's peaks for the bound of each kernel (H100 SXM data sheet):
+# device-memory bytes/s and f32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+# the app arms of phase d: structure -> kernels each run's steps must launch
+APP_ARMS = {
+    "scs": ("push", "locate", "histogram", "deposit", "row_gather", "slot_map"),
+    "csr": ("push", "locate", "histogram", "deposit", "row_gather"),
+    "cabm": ("push", "locate", "histogram", "deposit", "row_gather", "slot_map"),
+    "dps": ("push", "locate", "histogram", "deposit"),
+}
+APP_STEPS = {"scs": TIMED_STEPS, "csr": 3, "cabm": 3, "dps": 3}
 
 # the four arms of phase d: bench_torch.main keywords, and the kernels each
 # arm's run must launch (every other kernel must stay at 0)
@@ -132,6 +167,34 @@ def time_pair(kernel: str, what: str, fn, plain, results: dict, reps: int = 20,
         results[kernel].update(ms=ms, plain_ms=pms)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def record_bound(kernel: str, what: str, results: dict, bytes_moved: int,
+                 ops: float = 0.0) -> None:
+    """The least time the card could take for a timed call: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its f32 operations over the f32 peak.  Logged for every
+    mode; the first is the kernel's JSON entry (the call its ``ms`` is)."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[c] {' '.join(filter(None, (kernel, what)))} bound: "
+        f"{bytes_moved / 1e6:.1f} MB, {ops:.3g} f32 ops "
+        f"-> {bound_ms:.4f} ms ({bound_by})")
+    results[kernel].setdefault("bound_ms", bound_ms)
+    results[kernel].setdefault("bound_by", bound_by)
+
+
+def record_library(kernel: str, what: str, fn, results: dict, reps: int = 20) -> None:
+    """Time one PyTorch call computing the kernel's function (its
+    yardstick; the port never calls it)."""
+    ms = cuda_ms(fn, reps)
+    log(f"[c] {kernel} library yardstick {what}: {ms:.4f} ms")
+    results[kernel].setdefault("library_ms", ms)
+
+
 def phase_a() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
@@ -191,6 +254,9 @@ def check_cartesian(results: dict, dev, mesh):
     time_pair("push", "", lambda: push_ops.push_banded(*pargs),
               lambda: push_ops.push_banded_plain(*pargs), results)
     tx, ty = got[0], got[1]
+    # ~20 f32 operations per particle (rotation, Newton step, target)
+    record_bound("push", "", results, nbytes(*pargs[:7], model.rot.starts, model.rot.cd,
+                                         model.rot.sd, *got), 20.0 * n)
 
     # L: peel + guess walk at 10M
     largs = (mesh.walk_geom, tx, ty, s["elem"], s["active"], cfg.max_search_iters)
@@ -204,6 +270,10 @@ def check_cartesian(results: dict, dev, mesh):
               lambda: se.walk_locate_plain(*largs, grid=grid), results,
               plain_reps=3)
     elem, active = got[0], got[1]
+    # the peel's two containment tests (~40 f32 operations per particle);
+    # the few walk steps after it are not counted
+    record_bound("locate", "peel+walk", results, nbytes(*largs[:5], grid.cell_rows, elem, active),
+                 40.0 * n)
 
     # L: plain walk over the gyro ring points (the setup's gyro map search)
     gpx, gpy, gstart = (t.to(dev) for t in px.gyro_ring_points(mesh, cfg.gyro))
@@ -216,6 +286,7 @@ def check_cartesian(results: dict, dev, mesh):
     time_pair("locate", "plain walk", lambda: se.walk_locate(*gargs),
               lambda: se.walk_locate_plain(*gargs), results, reps=5,
               plain_reps=2)
+    record_bound("locate", "plain walk", results, nbytes(*gargs[:5], *got[:2]))
 
     # H: histogram of 10M keys into E bins
     E = mesh.nelems
@@ -225,6 +296,11 @@ def check_cartesian(results: dict, dev, mesh):
     time_pair("histogram", "", lambda: sc.histogram(elem, active, E),
               lambda: sc.histogram_plain(elem, active, E), results)
     counts = got
+    record_bound("histogram", "", results, nbytes(elem, active, counts))
+    key = torch.where(active, elem, E)
+    record_library("histogram", "torch.bincount", lambda: torch.bincount(key, minlength=E + 1),
+                   results)
+    del key
 
     # D: ring expansion + mapped scatter at V, R, P
     got_r = sc.deposit_rings(counts, mesh, R)
@@ -243,7 +319,10 @@ def check_cartesian(results: dict, dev, mesh):
         return sc.mapped_plain(r, model.gyro_fwd, mesh.nverts, R, P)
 
     time_pair("deposit", "both passes", dep, dep_plain, results, plain_reps=20)
-    return elem, active
+    record_bound("deposit", "both passes", results, nbytes(
+        counts, mesh.vert2elem_offsets, mesh.vert2elem_vals, model.gyro_fwd.offsets,
+        model.gyro_fwd.src, got_r, got_f))
+    return s, model, elem, active
 
 
 def check_band(results: dict, dev, mesh):
@@ -268,6 +347,9 @@ def check_band(results: dict, dev, mesh):
             lo.band_cell_of_plain(grid, tx, ty), results)
     time_pair("band_cell", "", lambda: lo.band_cell_of(grid, tx, ty),
               lambda: lo.band_cell_of_plain(grid, tx, ty), results, plain_reps=3)
+    # ~1,450 f32 operations per point (harmonics, Chebyshev Newton, θ-bin)
+    record_bound("band_cell", "", results, nbytes(tx, ty, grid.coef_u, grid.coef_v,
+                                              grid.inv_coef, got), 1450.0 * n)
 
     largs = (mesh.walk_geom, tx, ty, s["elem"], s["active"], cfg.max_search_iters)
     got = se.walk_locate(*largs, grid=grid)
@@ -278,6 +360,8 @@ def check_band(results: dict, dev, mesh):
     time_pair("locate", "B + given cells", lambda: se.walk_locate(*largs, grid=grid),
               lambda: se.walk_locate_plain(*largs, grid=grid), results,
               plain_reps=3, record=False)
+    record_bound("locate", "B + given cells (L's part)", results,
+                 nbytes(*largs[:5], grid.cell_rows, *got[:2]) + 4 * n)
     return grid, setup["locator"]
 
 
@@ -295,12 +379,16 @@ def check_pprad(results: dict, dev, mesh, elem, active) -> None:
             got, sc.histogram_plain(*args), results)
     time_pair("histogram", "key mode", lambda: sc.histogram(*args),
               lambda: sc.histogram_plain(*args), results, record=False)
+    record_bound("histogram", "key mode", results, nbytes(elem, active, rg, got))
     counts = got.view(E, R)
     compare("deposit", f"pass 1 from (E, R) = ({E}, {R}) counts",
             sc.deposit_rings(counts, mesh, R), sc.ring_accum_plain(counts, mesh, R),
             results)
     time_pair("deposit", "pass 1 from (E, R)", lambda: sc.deposit_rings(counts, mesh, R),
               lambda: sc.ring_accum_plain(counts, mesh, R), results, record=False)
+    record_bound("deposit", "pass 1 from (E, R)", results,
+                 nbytes(counts, mesh.vert2elem_offsets, mesh.vert2elem_vals) +
+                 4 * mesh.nverts * R)
 
 
 def check_annulus(results: dict, dev) -> None:
@@ -309,7 +397,7 @@ def check_annulus(results: dict, dev) -> None:
     from pumipic_torch.ops import locate as lo
     from pumipic_torch.ops import push as push_ops
 
-    mesh = px.make_default_mesh(ANNULUS_ELEMS).to(dev)
+    mesh = px.make_default_mesh(ANNULUS_ELEMS, device=dev)
     cfg = _cfg(px, mesh)
     s, step = px.make_dp_setup(mesh, cfg, dev)
     loc = step.model.analytic
@@ -324,6 +412,162 @@ def check_annulus(results: dict, dev) -> None:
     log(f"[c] annulus locate: alive={int(got[1].sum())} of {n}")
     time_pair("annulus_locate", "", lambda: lo.annulus_locate(*args),
               lambda: lo.annulus_locate_plain(*args), results)
+    # ~300 f32 operations per particle (seven libm calls and the tests)
+    record_bound("annulus_locate", "", results, nbytes(tx, ty, s["active"], *got), 300.0 * n)
+
+
+def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
+    """G's rows form at T2's probe shape; then, on a Sell-C-σ structure of
+    the 10M located particles, P's phi mode (band and class forms), S in the
+    scs and cabm modes and G's columns form at the sorted rebuild's shapes.
+    The structure's construction runs the rebuild too (not the main path)."""
+    import numpy as np
+
+    from pumipic_torch.models import pseudo_xgcm as px
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import rows
+    from pumipic_torch.ops import search as se
+    from pumipic_torch.ops.scatter import histogram
+    from pumipic_torch.particles import SCSInput, SellCSigma
+    from pumipic_torch.particles import structure as st
+
+    # G, rows form: perf/pallas_gather_ab.py's probe (C 24,576 x W 14 f32,
+    # N 10M indices, from default_rng(0) in its order)
+    rng = np.random.default_rng(0)
+    table = torch.as_tensor(rng.normal(size=(24_576, 14)).astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 24_576, NUM_PTCLS).astype(np.int32), device=dev)
+    got = rows.row_gather(table, idx)
+    compare("row_gather", f"rows form, T2 probe ({tuple(table.shape)} table, "
+            f"{idx.shape[0]} indices)", got.view(torch.int32),
+            rows.row_gather_plain(table, idx).view(torch.int32), results)
+    time_pair("row_gather", "rows form (T2 probe)", lambda: rows.row_gather(table, idx),
+              lambda: rows.row_gather_plain(table, idx), results)
+    record_bound("row_gather", "rows form (T2 probe)", results, nbytes(table, idx, got))
+    record_library("row_gather", "torch.index_select", lambda: torch.index_select(table, 0, idx),
+                   results)
+    del table, idx, got
+
+    cfg = _cfg(px, mesh)
+    E = mesh.nelems
+    n = s["x0"].shape[0]
+    x = torch.stack([s["x0"], s["x1"]], 1)
+    fields = {"x": x, "xtgt": torch.zeros_like(x),
+              "pid": torch.arange(n, dtype=torch.int32, device=dev), "b": s["b"],
+              "phi": torch.atan2(s["sphi"], s["cphi"])}
+    t0 = time.perf_counter()
+    ps = SellCSigma(E, torch.where(active, elem, -1), fields=fields,
+                    scs_input=SCSInput(chunk_size=8, sigma=None), device=dev)
+    torch.cuda.synchronize()
+    log(f"[c] SCS structure of {int(ps.num_ptcls)} particles: capacity {ps.capacity}, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+
+    # P, phi mode, both class forms, over the C slots
+    bands = push_ops.BandClasses.build(
+        push_ops.detect_banded_class(mesh.class_id.cpu().numpy()), dev)
+    cls = mesh.class_id[torch.clamp(ps.elem, min=0).long()]
+    base = (ps.get("x"), ps.get("phi"), ps.get("b"), ps.active)
+    tail = (cfg.deg_per_push, cfg.h, cfg.k, cfg.d)
+    for form, c, b in (("band form", ps.elem, bands), ("class form", cls, None)):
+        got = push_ops.push_phi(*base, c, *tail, bands=b)
+        compare("push", f"phi mode, {form} ({ps.capacity} slots)", got,
+                push_ops.push_phi_plain(*base, c, *tail, bands=b), results)
+        time_pair("push", f"phi mode, {form}",
+                  lambda: push_ops.push_phi(*base, c, *tail, bands=b),
+                  lambda: push_ops.push_phi_plain(*base, c, *tail, bands=b),
+                  results, record=False)
+        # ~25 f32 operations and two f64 libm calls per slot
+        record_bound("push", f"phi mode, {form}", results,
+                     nbytes(*base, c, *got, None if b is None else b.starts),
+                     25.0 * ps.capacity)
+    tx, ty = got[0], got[1]
+    new_elem = se.walk_locate(mesh.walk_geom, tx, ty, ps.elem, ps.active,
+                              cfg.max_search_iters, grid=model.locator)[0]
+
+    # the sorted rebuild's inputs, as _rebuild / _rebuild_sorted make them
+    el = torch.where(ps.active & (new_elem >= 0) & (new_elem < E), new_elem, -1)
+    act = el >= 0
+    key = torch.where(act, el, E)
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    counts = histogram(el, act, E)
+    start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
+    r2e, _, cw = st._scs_row_order(counts, ps.sigma, ps.chunk_size, E)
+    chunk_off = torch.cat([cw.new_zeros(1), torch.cumsum(ps.chunk_size * cw, 0,
+                                                         dtype=torch.int32)])
+    C, M = ps.capacity, el.shape[0]
+    seg = ((counts + 7) // 8) * 8
+    cabm_off = torch.cat([seg.new_zeros(1), torch.cumsum(seg, 0, dtype=torch.int32)])
+    modes = (("scs", chunk_off, r2e, ps.chunk_size), ("cabm", cabm_off, None, 1))
+    for layout, offsets, row_order, chunk in modes:
+        sargs = (layout, order, start, offsets, row_order, chunk, C, M)
+        got = rows.slot_map(*sargs)
+        compare("slot_map", f"{layout} ({C} slots, {M} rows, layout "
+                f"{int(offsets[-1])} slots)", got, rows.slot_map_plain(*sargs), results)
+        time_pair("slot_map", layout, lambda: rows.slot_map(*sargs),
+                  lambda: rows.slot_map_plain(*sargs), results)
+        record_bound("slot_map", layout, results, nbytes(order, start, offsets, row_order,
+                                                         *got))
+        if layout == "scs":
+            src = got[0]
+
+    # G, columns form: the rebuild's fields in place plus the key lane
+    cols = [ps.fields[k] for k in ("x", "xtgt", "pid", "b", "phi")] + [key]
+    got = rows.row_gather(cols, src)
+    bits = [t.view(torch.int32) if t.dtype == torch.float32 else t
+            for t in got]
+    want = [t.view(torch.int32) if t.dtype == torch.float32 else t
+            for t in rows.row_gather_plain(cols, src)]
+    compare("row_gather", f"columns form (x 2, xtgt 2, pid, b, phi, key; {C} slots)",
+            bits, want, results)
+    time_pair("row_gather", "columns form (rebuild)", lambda: rows.row_gather(cols, src),
+              lambda: rows.row_gather_plain(cols, src), results, record=False)
+    record_bound("row_gather", "columns form (rebuild)", results, nbytes(src, *cols, *got))
+    # the same columns at a random permutation of the slots: every 4-byte
+    # lane read then costs a whole 32-byte sector
+    perm = torch.randperm(C, device=dev, generator=torch.Generator(dev).manual_seed(0)
+                          ).to(torch.int32)
+    time_pair("row_gather", "columns form, random rows", lambda: rows.row_gather(cols, perm),
+              lambda: rows.row_gather_plain(cols, perm), results, record=False)
+    log(f"[c] row_gather columns form, random rows: 32-byte sectors read "
+        f"{32 * C * len(cols) / 1e6:.1f} MB + written {nbytes(*got) / 1e6:.1f} MB -> "
+        f"{(32 * C * len(cols) + nbytes(*got)) / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+    del perm
+
+
+def check_app_slices(dev) -> None:
+    """The PseudoXGCm app in each layout at a small size, 3 steps on the
+    card and on the CPU: every structure array and field, fwd, bwd and
+    iters equal bit for bit."""
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.mesh.generate import tokamak_mesh
+    from pumipic_torch.models import pseudo_xgcm as px
+
+    arrays = tokamak_mesh(16, 96)
+    for structure in APP_ARMS:
+        cfg = px.XGCmConfig(num_ptcls=20_000, mdl_face=max(int(arrays[2].max()) // 2, 2),
+                            deg_per_push=15.0, max_search_iters=64, structure=structure)
+        ag = px.PseudoXGCm(Mesh2D.from_arrays(*arrays, device=dev), cfg, device=dev)
+        ac = px.PseudoXGCm(Mesh2D.from_arrays(*arrays, device="cpu"), cfg, device="cpu")
+        for i in range(3):
+            pg, fg, bg, ig = ag.step_fn(ag.ptcls)
+            pc, fc, bc, ic = ac.step_fn(ac.ptcls)
+            ag.ptcls, ac.ptcls = pg, pc
+            for key in ("elem", "active", "num_ptcls", "overflowed", "elem_offsets",
+                        "row_to_elem", "elem_to_row", "seg_cap"):
+                a, c = getattr(pg, key), getattr(pc, key)
+                if (a is None) != (c is None) or (a is not None and max_err(a.cpu(), c)):
+                    raise AssertionError(f"app {structure} slice step {i}: {key} "
+                                         f"differs GPU vs CPU")
+            for key in pc.fields:
+                if max_err(pg.fields[key].cpu().view(torch.int32),
+                           pc.fields[key].view(torch.int32)):
+                    raise AssertionError(f"app {structure} slice step {i}: field "
+                                         f"{key} differs GPU vs CPU")
+            for key, a, c in (("fwd", fg, fc), ("bwd", bg, bc), ("iters", ig, ic)):
+                if max_err(a.cpu(), c):
+                    raise AssertionError(f"app {structure} slice step {i}: {key} "
+                                         f"differs GPU vs CPU")
+        log(f"[c] app {structure} slice (E={ac.mesh.nelems}, 20k particles, 3 steps, "
+            f"capacity {pc.capacity}, alive {int(pc.num_ptcls)}): card == CPU, bit for bit")
 
 
 def check_slices(dev) -> None:
@@ -345,7 +589,8 @@ def check_slices(dev) -> None:
         cfg = px.XGCmConfig(num_ptcls=20_000, mdl_face=mdl_face,
                             deg_per_push=15.0, max_search_iters=64, **kw)
         sg, stg = px.make_dp_setup(Mesh2D.from_arrays(*arrays, device=dev), cfg, dev)
-        sc_, stc = px.make_dp_setup(Mesh2D.from_arrays(*arrays), cfg, "cpu")
+        sc_, stc = px.make_dp_setup(Mesh2D.from_arrays(*arrays, device="cpu"), cfg,
+                                    "cpu")
         for i in range(3):
             sg, fg = stg(sg)
             sc_, fc = stc(sc_)
@@ -362,20 +607,24 @@ def check_slices(dev) -> None:
 
 
 def phase_c(results: dict, dev):
-    """Returns the band grid built here (phase d reuses it) and its build
-    seconds."""
+    """Returns the 120k mesh, its cartesian grid and the band grid built
+    here (phase d reuses them), and the band grid's build seconds."""
     from pumipic_torch.mesh.core import Mesh2D
     from pumipic_torch.mesh.gmsh import read_msh
 
     mesh = Mesh2D.from_arrays(*read_msh(MESH), device=dev)
-    elem, active = check_cartesian(results, dev, mesh)
+    s, model, elem, active = check_cartesian(results, dev, mesh)
     check_pprad(results, dev, mesh, elem, active)
-    del elem, active
+    check_rows(results, dev, mesh, s, model, elem, active)
+    grid = model.locator
+    del s, model, elem, active
+    torch.cuda.empty_cache()
     band_grid, band_s = check_band(results, dev, mesh)
     check_annulus(results, dev)
     check_slices(dev)
+    check_app_slices(dev)
     torch.cuda.empty_cache()
-    return band_grid, band_s
+    return mesh, grid, band_grid, band_s
 
 
 def phase_d(results: dict, dev, band_grid, band_s: float) -> None:
@@ -424,6 +673,82 @@ def phase_d(results: dict, dev, band_grid, band_s: float) -> None:
         del state, fields
 
 
+def run_app(results: dict, dev, mesh, grid, structure: str) -> None:
+    """The PseudoXGCm app at 10M particles on the 120k mesh through its
+    entry points (construction, then ``run``), with the counts reset just
+    before; ``grid`` is phase c's cartesian grid for this mesh.  The SCS
+    arm is the timed one; the others run 3 steps, with the counts reset
+    after construction so that they show what a step launches."""
+    from pumipic_torch import kernels
+    from pumipic_torch.models import pseudo_xgcm as px
+    from pumipic_torch.utils import timing
+
+    cfg = _cfg(px, mesh, structure=structure)
+    steps = APP_STEPS[structure]
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    app = px.PseudoXGCm(mesh, cfg, device=dev, locator=grid)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ps = app.ptcls
+    n0, cap = int(ps.num_ptcls), ps.capacity
+    if structure != "scs":
+        kernels.reset_launches()
+    app.run(1, verbose=False)                     # warm-up step
+    timing.get_registry().reset()
+    app.run(steps - 1, verbose=False)
+    prev = app.ptcls
+    app.run(1, verbose=False)
+    counts = dict(kernels.LAUNCHES)
+    st = timing.get_registry().ops["xgcm step"]
+    ms = st.total / st.count * 1e3
+    ps = app.ptcls
+    m = {k: (float(v) if "fraction" in k else int(v)) for k, v in ps.metrics().items()}
+    log(f"[d] app {structure}: setup {setup_s:.2f} s, {n0} particles, capacity {cap}")
+    log(f"[d] app {structure}: {ms:.4f} ms/step over {st.count} steps (timing "
+        f"registry; min {st.tmin * 1e3:.4f}, max {st.tmax * 1e3:.4f}), "
+        f"{n0 / (ms / 1e3):.6g} particle-steps/s, num_ptcls {int(ps.num_ptcls)}, "
+        f"metrics {m}")
+    log(f"[d] app {structure} kernel launches: {counts}")
+    launched = {k for k, v in counts.items() if v > 0}
+    if launched != set(APP_ARMS[structure]):
+        raise AssertionError(f"app {structure} launched {sorted(launched)}, "
+                             f"expected {sorted(APP_ARMS[structure])}")
+    for k, v in counts.items():
+        results[k]["launches"] = results[k].get("launches", 0) + v
+
+    # the structure's invariants
+    E = mesh.nelems
+    act = ps.active
+    if int(ps.num_ptcls) != int(act.sum()) or bool(ps.overflowed):
+        raise AssertionError(f"app {structure}: num_ptcls {int(ps.num_ptcls)}, "
+                             f"active {int(act.sum())}, overflowed {bool(ps.overflowed)}")
+    e = ps.elem[act]
+    if not bool(((e >= 0) & (e < E)).all()):
+        raise AssertionError(f"app {structure}: an active element id out of range")
+    # conservation: the active pids are exactly those the last search kept
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import search as se
+
+    cls = prev.elem if app.bands is not None else \
+        mesh.class_id[torch.clamp(prev.elem, min=0).long()]
+    tx, ty, _, _ = push_ops.push_phi(prev.get("x"), prev.get("phi"), prev.get("b"),
+                                     prev.active, cls, cfg.deg_per_push, cfg.h, cfg.k,
+                                     cfg.d, bands=app.bands)
+    kept = se.walk_locate(mesh.walk_geom, tx, ty, prev.elem, prev.active,
+                          cfg.max_search_iters, grid=app.locator)[1]
+    want = torch.sort(prev.get("pid")[kept]).values
+    got = torch.sort(ps.get("pid")[act]).values
+    if not torch.equal(want, got):
+        raise AssertionError(f"app {structure}: active pids differ from the "
+                             f"last search's survivors")
+    if not int(act.sum()) > 0.9 * NUM_PTCLS:
+        raise AssertionError(f"app {structure}: only {int(act.sum())} alive")
+    log(f"[d] app {structure}: invariants hold (num_ptcls == active, no overflow, "
+        f"ids in range, {got.shape[0]} active pids == the last search's survivors)")
+
+
 def main() -> int:
     import pumipic_torch
 
@@ -435,13 +760,18 @@ def main() -> int:
     phase_b()
     results = {name: {} for name in KERNELS}
     dev = torch.device("cuda")
-    band_grid, band_s = phase_c(results, dev)
+    mesh, grid, band_grid, band_s = phase_c(results, dev)
     phase_d(results, dev, band_grid, band_s)
+    for structure in APP_ARMS:
+        run_app(results, dev, mesh, grid, structure)
     line = {"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": results[name]["launches"],
          "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+         "bound_ms": results[name]["bound_ms"],
+         "bound_by": results[name]["bound_by"],
+         "library_ms": results[name].get("library_ms")}
         for name, (route, src, rep) in KERNELS.items()]}
     print(json.dumps(line))
     print(smi)

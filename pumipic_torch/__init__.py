@@ -7,13 +7,19 @@ Module names mirror the JAX package:
 - ``ops``       the elliptical push, the BCC adjacency walk and the gyro
                 scatter, each a wrapper over a hand-written CUDA kernel with
                 its plain PyTorch version beside it.
+- ``particles`` the four particle structures (Sell-C-σ, CSR, CabM, DPS)
+                with rebuild, reshuffle and overflow handling.
 - ``parallel``  the FULL-mode field sum over ranks.
-- ``models``    the pseudoXGCm FULL-mode particle-parallel step.
+- ``models``    the pseudoXGCm FULL-mode step and single-device app, and
+                the search2d driver.
+- ``io``        the VTK writer.
+- ``utils``     device resolution, timing, memory, logging, types.
 - ``kernels``   the CUDA sources and their build (nvcc + ctypes).
 - ``interop``   carries the JAX reference's arrays (as numpy) across.
 
 The package imports torch and numpy, never JAX.  A wrapper runs its plain
 PyTorch version for CPU tensors and launches its kernel for CUDA tensors.
+Entry points run on the CUDA card unless ``device="cpu"`` is passed.
 """
 
 __version__ = "0.1.0"

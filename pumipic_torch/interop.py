@@ -1,5 +1,5 @@
 """Carry the JAX reference's setup across: numpy arrays in, the port's
-objects out.
+objects out (and, for particle structures, back).
 
 The parity tests build the reference's mesh, locator (cartesian grid, band
 grid or annulus locator), gyro maps, band starts and particle state,
@@ -22,7 +22,9 @@ from pumipic_torch.mesh.locator import (
 )
 from pumipic_torch.models.pseudo_xgcm import DPModel, XGCmConfig
 from pumipic_torch.ops.push import BandRotation
+from pumipic_torch.particles.structure import ParticleStructure
 from pumipic_torch.ops.scatter import GyroMap
+from pumipic_torch.utils.device import resolve_device
 
 # fields of the reference's Mesh2D / locators that are carried across
 MESH_FIELDS = ("coords", "elem2verts", "elem2edges", "edge2verts",
@@ -36,14 +38,23 @@ BAND_FIELDS = ("cx", "cy", "coef_u", "coef_v", "inv_coef", "cell_rows",
 ANNULUS_FIELDS = ("cx", "cy", "r_in", "dr", "n_rings", "n_sectors",
                   "ring_class", "theta0", "perm")
 STATE_FIELDS = ("x0", "x1", "cphi", "sphi", "b", "elem", "active", "rg")
+# members of a ParticleStructure: arrays (None where the layout has none)
+# and static values; "fields" maps each member field to its array
+STRUCTURE_ARRAYS = ("elem", "active", "num_ptcls", "elem_offsets",
+                    "row_to_elem", "elem_to_row", "overflowed", "seg_cap")
+STRUCTURE_STATIC = ("num_elems", "capacity", "layout", "soa_width",
+                    "chunk_size", "sigma", "scs_extra_padding",
+                    "scs_pad_strategy", "cabm_extra_padding", "name")
+_STRUCTURE_DTYPES = {"active": bool, "overflowed": bool}
 
 
 def _f32(v) -> float:
     return float(np.float32(np.asarray(v)))
 
 
-def locator_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
+def locator_from_numpy(arrays: Dict[str, np.ndarray], device=None
                        ) -> LocatorGrid2D:
+    device = resolve_device(device)
     origin = np.asarray(arrays["origin"], np.float32)
     inv_h = np.asarray(arrays["inv_h"], np.float32)
     rows = arrays.get("cell_rows")
@@ -57,9 +68,10 @@ def locator_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
             np.array(rows, np.float32), device=device))
 
 
-def band_grid_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
+def band_grid_from_numpy(arrays: Dict[str, np.ndarray], device=None
                          ) -> BandGrid2D:
     """The reference's ``BandGrid2D`` (fields of :data:`BAND_FIELDS`)."""
+    device = resolve_device(device)
     def f32(k):
         return torch.as_tensor(np.array(arrays[k], np.float32), device=device)
 
@@ -73,10 +85,11 @@ def band_grid_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
                                        "n_cheb", "rank", "newton_iters")})
 
 
-def annulus_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
+def annulus_from_numpy(arrays: Dict[str, np.ndarray], device=None
                        ) -> AnnulusLocator2D:
     """The reference's ``AnnulusLocator2D`` (fields of
     :data:`ANNULUS_FIELDS`; ``perm`` None for the generator's order)."""
+    device = resolve_device(device)
     perm = arrays.get("perm")
     return AnnulusLocator2D(
         cx=_f32(arrays["cx"]), cy=_f32(arrays["cy"]),
@@ -87,8 +100,9 @@ def annulus_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
             np.asarray(perm).astype(np.int32), device=device))
 
 
-def state_from_numpy(arrays: Dict[str, np.ndarray], device="cpu"
+def state_from_numpy(arrays: Dict[str, np.ndarray], device=None
                      ) -> Dict[str, torch.Tensor]:
+    device = resolve_device(device)
     out = {}
     for k in STATE_FIELDS:
         if k not in arrays:
@@ -104,7 +118,7 @@ def from_reference(mesh: Dict[str, np.ndarray],
                    gyro_fwd: np.ndarray, gyro_bwd: Optional[np.ndarray],
                    band_starts: Tuple[int, ...],
                    state: Dict[str, np.ndarray],
-                   cfg: XGCmConfig, device="cpu",
+                   cfg: XGCmConfig, device=None,
                    band_grid: Optional[Dict[str, np.ndarray]] = None,
                    annulus: Optional[Dict[str, np.ndarray]] = None,
                    ) -> Tuple[DPModel, Dict[str, torch.Tensor]]:
@@ -116,6 +130,7 @@ def from_reference(mesh: Dict[str, np.ndarray],
     one)."""
     if sum(x is not None for x in (locator, band_grid, annulus)) > 1:
         raise ValueError("give at most one of locator, band_grid, annulus")
+    device = resolve_device(device)
     m = Mesh2D.from_numpy({k: mesh[k] for k in MESH_FIELDS}, device)
     R, P = cfg.gyro.num_rings, cfg.gyro.points_per_ring
     fwd = GyroMap.from_flat(np.asarray(gyro_fwd), m.nverts, R, P, device)
@@ -132,3 +147,35 @@ def from_reference(mesh: Dict[str, np.ndarray],
                              cfg.deg_per_push, device)
     return (DPModel(m, grid, rot, fwd, bwd, analytic),
             state_from_numpy(state, device))
+
+
+def structure_from_numpy(members: Dict[str, object], device=None
+                         ) -> ParticleStructure:
+    """The port's ``ParticleStructure`` from a structure's members: the
+    :data:`STRUCTURE_ARRAYS` as arrays (or None), the
+    :data:`STRUCTURE_STATIC` values, and ``fields`` ({name: array}, dtypes
+    kept).  Integer members become int32, the mask and flag bool."""
+    device = resolve_device(device)
+
+    def arr(k):
+        v = members[k]
+        if v is None:
+            return None
+        a = np.asarray(v).astype(_STRUCTURE_DTYPES.get(k, np.int32))
+        return torch.as_tensor(a, device=device)
+
+    fields = {k: torch.as_tensor(np.array(v), device=device)
+              for k, v in members["fields"].items()}
+    return ParticleStructure(
+        fields=fields, **{k: arr(k) for k in STRUCTURE_ARRAYS},
+        **{k: members[k] for k in STRUCTURE_STATIC})
+
+
+def structure_to_numpy(ps: ParticleStructure) -> Dict[str, object]:
+    """The members of ``ps`` in :func:`structure_from_numpy`'s format, as
+    numpy arrays."""
+    out = {k: (None if getattr(ps, k) is None else getattr(ps, k).cpu().numpy())
+           for k in STRUCTURE_ARRAYS}
+    out.update({k: getattr(ps, k) for k in STRUCTURE_STATIC})
+    out["fields"] = {k: v.cpu().numpy() for k, v in ps.fields.items()}
+    return out

@@ -11,7 +11,7 @@ import torch
 
 # kernel name -> launches since the last reset (a plain integer each)
 LAUNCHES = {"push": 0, "band_cell": 0, "annulus_locate": 0, "locate": 0,
-            "histogram": 0, "deposit": 0}
+            "histogram": 0, "deposit": 0, "row_gather": 0, "slot_map": 0}
 
 
 def reset_launches() -> None:

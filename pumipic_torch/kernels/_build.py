@@ -47,6 +47,12 @@ SIGNATURES = {
         _F, _F, _F,                          # h k d
         _P, _P, _P, _P,                      # tx ty cphi_out sphi_out
         _L, _P],                             # n stream
+    "pp_push_phi": [
+        _P, _P, _P, _P, _P,                  # xy phi b active cls
+        _P, _I, _I, _I,                      # starts n_starts v0 band_form
+        _F, _F, _F, _F,                      # deg h k d
+        _P, _P, _P, _P,                      # tx ty xy_out phi_out
+        _L, _P],                             # n stream
     "pp_walk_locate": [
         _P, _P, _P, _P,                      # dest_x dest_y elem_start active
         _P, _I,                              # walk_geom n_elems
@@ -69,6 +75,11 @@ SIGNATURES = {
     "pp_deposit_rings": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "pp_deposit_rings_er": [_P, _P, _P, _I, _I, _P, _P],
     "pp_deposit_mapped": [_P, _P, _P, _I, _I, _P, _P],
+    "pp_row_gather": [_P, _L, _I, _P, _P, _P, _P],  # idx n_rows n_arrays srcs dsts widths stream
+    "pp_slot_map": [
+        _I, _P, _P, _P, _I,                  # cabm order start offsets n_seg
+        _P, _I, _I, _I, _L, _I,              # row_to_elem n_rows chunk E C M
+        _P, _P, _P, _P],                     # src elem_c pre_valid stream
 }
 
 _LIB = None

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pumipic_torch.mesh import adjacency as adj
+from pumipic_torch.utils.device import resolve_device
 from pumipic_torch.utils.types import LID_DTYPE, REAL_DTYPE
 
 F32_EXACT_ID_LIMIT = 1 << 24
@@ -83,6 +84,11 @@ class Mesh2D:
     def device(self) -> torch.device:
         return self.walk_geom.device
 
+    @property
+    def elem_centroids(self) -> torch.Tensor:
+        """(E, 2) f32 vertex means."""
+        return self.coords[self.elem2verts.long()].mean(dim=1)
+
     def to(self, device) -> "Mesh2D":
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
@@ -92,7 +98,8 @@ class Mesh2D:
     @staticmethod
     def from_arrays(coords: np.ndarray, elem2verts: np.ndarray,
                     class_id: Optional[np.ndarray] = None,
-                    device="cpu") -> "Mesh2D":
+                    device=None) -> "Mesh2D":
+        device = resolve_device(device)
         a = adj.build_tri_adjacency(coords, elem2verts)
         ev = a["elem2verts"]
         check_f32_ids(ev.shape[0], a["edge2verts"].shape[0])
@@ -110,9 +117,10 @@ class Mesh2D:
             walk_geom=geom), device)
 
     @staticmethod
-    def from_numpy(arrays: dict, device="cpu") -> "Mesh2D":
+    def from_numpy(arrays: dict, device=None) -> "Mesh2D":
         """Freeze host arrays (the field names above) into tensors on
         ``device`` with the port's dtypes."""
+        device = resolve_device(device)
         ints = ("elem2verts", "elem2edges", "edge2verts", "edge2elems",
                 "vert2elem_offsets", "vert2elem_vals", "class_id")
         reals = ("coords", "elem_area", "elem_v0", "elem_inv_basis",

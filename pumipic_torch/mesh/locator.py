@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from pumipic_torch.mesh.core import F32_EXACT_ID_LIMIT
+from pumipic_torch.utils.device import resolve_device
 from pumipic_torch.utils.types import LID_DTYPE
 
 # peel layouts the JAX package knows; the 2D ones all map onto "rows"
@@ -181,7 +182,7 @@ def build_locator_grid(coords: np.ndarray, elem2verts: np.ndarray,
                        walk_geom=None, aux=None,
                        peel: str = "auto",
                        polar: object = "auto",
-                       device="cpu") -> LocatorGrid2D:
+                       device=None) -> LocatorGrid2D:
     """Host build: bucket element centroids into ~cells_per_elem*E cells and
     flood-fill empty cells from their neighbours; with ``walk_geom``, attach
     the 2-candidate cell rows.
@@ -191,6 +192,7 @@ def build_locator_grid(coords: np.ndarray, elem2verts: np.ndarray,
     raises.  ``peel``: every 2D layout maps onto "rows".  ``aux`` (the
     rotation capture channel) is not ported and raises.
     """
+    device = resolve_device(device)
     if peel not in KNOWN_PEELS:
         raise ValueError(f"unknown peel {peel!r}; expected one of "
                          f"{KNOWN_PEELS}")
@@ -377,7 +379,7 @@ def _detect_annulus_permuted(coords, tris, c, rad, n_rings, n_sectors,
 
 def detect_annulus_structured(coords: np.ndarray, tris: np.ndarray,
                               cls: Optional[np.ndarray] = None,
-                              device="cpu") -> Optional[AnnulusLocator2D]:
+                              device=None) -> Optional[AnnulusLocator2D]:
     """An :class:`AnnulusLocator2D` iff (coords, tris) IS a structured
     annulus mesh (vertices on a full ring × sector lattice, connectivity
     equal to ``annulus_mesh``'s up to rotation and reordering), else None.
@@ -386,6 +388,7 @@ def detect_annulus_structured(coords: np.ndarray, tris: np.ndarray,
     decision and values as the JAX package's ``detect_annulus_structured``."""
     from pumipic_torch.mesh.generate import annulus_mesh
 
+    device = resolve_device(device)
     coords = np.asarray(coords)
     tris = np.asarray(tris)
     if coords.shape[1] != 2 or tris.shape[1] != 3 or coords.shape[0] < 8:
@@ -544,7 +547,7 @@ def detect_banded_locator(
     resid_gate: float = 0.25,
     cost_gate_ms: Optional[float] = None,
     chunk: Optional[int] = 1 << 20,
-    device="cpu",
+    device=None,
 ) -> Optional[BandGrid2D]:
     """Build a :class:`BandGrid2D` iff the mesh is a stitched flux-band
     structure: band-ordered classification, star-shaped ring polygons, and
@@ -558,6 +561,7 @@ def detect_banded_locator(
     time (None: all at once); rows are independent, so the result does not
     depend on ``chunk``, and the host memory stays bounded (the 120k mesh
     has 7.8M samples)."""
+    device = resolve_device(device)
     coords = np.asarray(coords, np.float64)
     tris = np.asarray(tris, np.int64)
     if cls is None or coords.shape[1] != 2 or tris.shape[1] != 3:

@@ -1,8 +1,9 @@
-"""pseudoXGCm FULL-mode particle-parallel step (port of
-``pumipic_tpu.models.pseudo_xgcm.make_dp_setup`` and what it needs).
+"""pseudoXGCm (port of ``pumipic_tpu.models.pseudo_xgcm``): the FULL-mode
+particle-parallel step (``make_dp_setup``) and the single-device app on a
+particle structure (:class:`PseudoXGCm`, whose step is described there).
 
 Reference: ``test/pseudoXGCm.cpp`` + ``ellipticalPush.hpp`` +
-``gyroScatter.hpp``.  Per step:
+``gyroScatter.hpp``.  Per FULL-mode step:
 
 1. banded trig-free elliptical push (kernel P);
 2. the search with remove-on-exit and the DPS rewrite of parent element
@@ -27,11 +28,15 @@ GPU path, whose results they do not change: ``peel`` variants, ``locator_cpe``
 and ``search_widths`` (the compaction pyramid), ``rot_aux_capture``, and
 ``rot_analytic`` (the banded rotation gives the table's values; on a
 ``ring_class``-proven annulus it equals the analytic class, which setup
-checks).  ``band_locator="auto"`` resolves to the cartesian grid: the JAX
+checks; the app's push uses the same band classes).
+``band_locator="auto"`` resolves to the cartesian grid: the JAX
 package's TPU-measured cost gate makes the same choice below ~460k
 elements, and a gate measured on the GPU is later work.  Not ported, and
-refused with ``NotImplementedError``: meshes whose classification is not
-band-ordered (the per-element rotation-table push).
+refused by ``make_dp_setup`` with ``NotImplementedError``: meshes whose
+classification is not band-ordered (the per-element rotation-table push).
+:class:`PseudoXGCm` takes such meshes: its push gathers the class per
+particle.  Entry points run on the CUDA card unless ``device="cpu"`` is
+passed.
 """
 from __future__ import annotations
 
@@ -58,6 +63,8 @@ from pumipic_torch.ops import push as push_ops
 from pumipic_torch.ops import scatter as scatter_ops
 from pumipic_torch.ops import search as search_ops
 from pumipic_torch.parallel import full_mode
+from pumipic_torch.particles import CSR, DPS, CabM, SCSInput, SellCSigma
+from pumipic_torch.utils.device import resolve_device
 from pumipic_torch.utils.types import LID_DTYPE
 
 ELEMENT_SEED = 1024 * 1024
@@ -218,13 +225,14 @@ def build_gyro_mappings(mesh: Mesh2D, gyro: GyroConfig,
 # FULL-buffer particle-parallel model
 # ---------------------------------------------------------------------------
 
-def make_default_mesh(nelems_target: int = 25_000) -> Mesh2D:
+def make_default_mesh(nelems_target: int = 25_000, device=None) -> Mesh2D:
     """Tokamak-cross-section-like structured annulus of ~nelems_target
-    elements, sectors ≈ 4× rings (the JAX package's bench annulus)."""
+    elements, sectors ≈ 4× rings (the JAX package's bench annulus), on
+    ``device`` (default: the CUDA card)."""
     n_rings = max(int(np.sqrt(nelems_target / 8)), 2)
     n_sectors = nelems_target // (2 * n_rings)
     coords, tris, cls = gen.annulus_mesh(n_rings, n_sectors, 0.3, 1.0)
-    return Mesh2D.from_arrays(coords, tris, cls)
+    return Mesh2D.from_arrays(coords, tris, cls, device=device)
 
 
 @dataclass(frozen=True)
@@ -249,6 +257,53 @@ def check_config(cfg: XGCmConfig) -> None:
         raise ValueError(f"unknown band_locator {cfg.band_locator!r}")
     if cfg.peel not in KNOWN_PEELS:
         raise ValueError(f"unknown peel {cfg.peel!r}")
+
+
+def build_search(mesh: Mesh2D, cfg: XGCmConfig, num_ptcls: int,
+                 locator: Optional[Union[LocatorGrid2D, BandGrid2D]] = None):
+    """(analytic, locator) of the search on the mesh's device: the annulus
+    locator where ``analytic_locate`` proves the mesh a structured annulus
+    (then no grid), else the flux-band grid (``band_locator="force"``) or
+    the cartesian grid at the resolved policy, or ``locator`` when one is
+    given; no grid with ``use_locator`` off."""
+    device = mesh.device
+    coords = mesh.coords.cpu().numpy()
+    ev = mesh.elem2verts.cpu().numpy()
+    cls = mesh.class_id.cpu().numpy()
+    analytic = None
+    if cfg.analytic_locate in ("auto", "force"):
+        analytic = detect_annulus_structured(coords, ev, cls=cls, device=device)
+        if analytic is None and cfg.analytic_locate == "force":
+            raise ValueError("analytic_locate='force' but the mesh is not "
+                             "a structured annulus")
+    if analytic is not None or not cfg.use_locator:
+        return analytic, None
+    if locator is None:
+        if cfg.band_locator == "force":
+            locator = detect_banded_locator(
+                coords, ev, cls, mesh.walk_geom, n_theta=cfg.band_theta,
+                device=device)
+            if locator is None:
+                raise ValueError("band_locator='force' but the mesh is not "
+                                 "a stitched flux-band structure")
+        else:
+            cpe, peel, _widths = resolve_locator_policy(cfg, mesh.nelems,
+                                                        num_ptcls)
+            locator = build_locator_grid(
+                coords, ev, cells_per_elem=cpe,
+                walk_geom=mesh.walk_geom.cpu(), peel=peel, device=device)
+    return analytic, locator
+
+
+def gyro_maps(mesh: Mesh2D, gyro: GyroConfig):
+    """(forward, backward) :class:`GyroMap` on the mesh's device; one object
+    for both when the maps coincide."""
+    fwd, bwd = build_gyro_mappings(mesh, gyro)
+    R, P = gyro.num_rings, gyro.points_per_ring
+    gyro_fwd = scatter_ops.GyroMap.from_flat(fwd, mesh.nverts, R, P, mesh.device)
+    gyro_bwd = gyro_fwd if bwd is fwd else scatter_ops.GyroMap.from_flat(
+        bwd, mesh.nverts, R, P, mesh.device)
+    return gyro_fwd, gyro_bwd
 
 
 def make_dp_step(model: DPModel, cfg: XGCmConfig):
@@ -298,8 +353,9 @@ def initial_state(mesh: Mesh2D, cfg: XGCmConfig, seed: int = ELEMENT_SEED,
                   device=None) -> Dict[str, torch.Tensor]:
     """Seeded particle state: flat (N,) tensors x0 x1 cphi sphi b (f32),
     elem (i32), active (bool), and with a per-particle gyro radius ``rg``
-    (f32, uniform in [rmax/4, rmax) from its own seed)."""
-    device = mesh.device if device is None else device
+    (f32, uniform in [rmax/4, rmax) from its own seed), on ``device``
+    (default: the CUDA card)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     ppe = seed_particles_per_element(mesh, cfg, rng)
     ptcl_elems = np.repeat(np.arange(mesh.nelems), ppe)
@@ -334,7 +390,7 @@ def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
     for this mesh and ``cfg`` (e.g. by an earlier setup's
     ``step.model.locator``) and is used instead of building one."""
     check_config(cfg)
-    device = torch.device(mesh.device if device is None else device)
+    device = resolve_device(device)
     mesh = mesh.to(device)
     timings = {} if timings is None else timings
 
@@ -343,16 +399,8 @@ def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
     timings["particles"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    coords = mesh.coords.cpu().numpy()
-    ev = mesh.elem2verts.cpu().numpy()
-    cls = mesh.class_id.cpu().numpy()
-    analytic = None
-    if cfg.analytic_locate in ("auto", "force"):
-        analytic = detect_annulus_structured(coords, ev, cls=cls, device=device)
-        if analytic is None and cfg.analytic_locate == "force":
-            raise ValueError("analytic_locate='force' but the mesh is not "
-                             "a structured annulus")
-    banded = push_ops.detect_banded_class(cls)
+    analytic, locator = build_search(mesh, cfg, state["elem"].shape[0], locator)
+    banded = push_ops.detect_banded_class(mesh.class_id.cpu().numpy())
     if banded is None:
         raise NotImplementedError("only band-ordered classifications are "
                                   "ported (the per-element rotation table "
@@ -366,33 +414,180 @@ def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
             raise RuntimeError("the annulus's analytic classification "
                                "differs from its band-ordered one")
     rot = push_ops.BandRotation.build(banded, cfg.deg_per_push, device)
-
-    if cfg.use_locator and analytic is None and locator is None:
-        if cfg.band_locator == "force":
-            locator = detect_banded_locator(
-                coords, ev, cls, mesh.walk_geom, n_theta=cfg.band_theta,
-                device=device)
-            if locator is None:
-                raise ValueError("band_locator='force' but the mesh is not "
-                                 "a stitched flux-band structure")
-        else:
-            cpe, peel, _widths = resolve_locator_policy(
-                cfg, mesh.nelems, state["elem"].shape[0])
-            locator = build_locator_grid(
-                coords, ev, cells_per_elem=cpe,
-                walk_geom=mesh.walk_geom.cpu(), peel=peel, device=device)
-    if analytic is not None or not cfg.use_locator:
-        locator = None
     timings["locator"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    fwd, bwd = build_gyro_mappings(mesh, cfg.gyro)
-    R, P = cfg.gyro.num_rings, cfg.gyro.points_per_ring
-    gyro_fwd = scatter_ops.GyroMap.from_flat(fwd, mesh.nverts, R, P, device)
-    gyro_bwd = gyro_fwd if bwd is fwd else scatter_ops.GyroMap.from_flat(
-        bwd, mesh.nverts, R, P, device)
+    gyro_fwd, gyro_bwd = gyro_maps(mesh, cfg.gyro)
     timings["gyro_map"] = time.perf_counter() - t0
 
     state = full_mode.shard_particles(state)
     model = DPModel(mesh, locator, rot, gyro_fwd, gyro_bwd, analytic)
     return state, make_dp_step(model, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the single-device app on a particle structure
+# ---------------------------------------------------------------------------
+
+_BUILDERS = {
+    "scs": lambda E, elems, fields, device: SellCSigma(
+        E, elems, fields=fields, scs_input=SCSInput(chunk_size=8, sigma=None),
+        device=device),
+    "csr": lambda E, elems, fields, device: CSR(E, elems, fields=fields,
+                                                device=device),
+    "cabm": lambda E, elems, fields, device: CabM(E, elems, fields=fields,
+                                                  device=device),
+    "dps": lambda E, elems, fields, device: DPS(E, elems, fields=fields,
+                                                device=device),
+}
+
+
+class PseudoXGCm:
+    """Single-device pseudoXGCm driver on a particle structure
+    (``cfg.structure``: scs, csr, cabm or dps), with the JAX package's seeds,
+    fields and shapes: ``x`` and ``xtgt`` (N, 2) f32, ``pid`` i32, ``b``,
+    ``phi`` f32, and ``rg`` with a per-particle gyro radius.
+
+    Each step: the angle-form push (kernel P, phi mode; the class from the
+    band starts, or gathered from ``mesh.class_id`` where the
+    classification is not band-ordered), the search (kernel L; kernel A on
+    a proven annulus), ``set("x")`` and ``set("phi")``, the structure's
+    ``rebuild`` (sorted SCS/CabM: kernels H, S and G; CSR and sorted DPS:
+    H and G; DPS: in place), then the ring accumulation and the forward and
+    backward mapped scatter (kernels H and D).
+
+    ``device`` defaults to the CUDA card; ``locator``, if given, is a grid
+    already built for this mesh and ``cfg``."""
+
+    def __init__(self, mesh: Mesh2D, cfg: XGCmConfig, seed: int = ELEMENT_SEED,
+                 device=None, locator=None):
+        check_config(cfg)
+        if cfg.structure not in _BUILDERS:
+            raise ValueError(f"unknown structure {cfg.structure!r}")
+        self.device = resolve_device(device)
+        self.mesh = mesh = mesh.to(self.device)
+        self.cfg = cfg
+
+        rng = np.random.default_rng(seed)
+        ppe = seed_particles_per_element(mesh, cfg, rng)
+        ptcl_elems = np.repeat(np.arange(mesh.nelems), ppe)
+        prng = np.random.default_rng(PARTICLE_SEED)
+        pos = torch.as_tensor(uniform_points_in_elements(mesh, ptcl_elems, prng),
+                              dtype=torch.float32)
+        phi, b = push_ops.elliptical_setup(pos[:, 0], pos[:, 1], cfg.h, cfg.k,
+                                           cfg.d)
+        n = len(ptcl_elems)
+        fields = {
+            "x": pos,
+            "xtgt": torch.zeros(n, 2, dtype=torch.float32),
+            "pid": torch.arange(n, dtype=torch.int32),
+            "b": b,
+            "phi": phi,
+        }
+        if cfg.gyro.per_particle_radius:
+            rg = np.random.default_rng(PARTICLE_SEED + 1).uniform(
+                0.25 * cfg.gyro.rmax, cfg.gyro.rmax, n)
+            fields["rg"] = torch.as_tensor(rg.astype(np.float32))
+        self.ptcls = _BUILDERS[cfg.structure](mesh.nelems, ptcl_elems, fields,
+                                              self.device)
+
+        self.gyro_fwd, self.gyro_bwd = gyro_maps(mesh, cfg.gyro)
+        self.analytic, self.locator = build_search(mesh, cfg, n, locator)
+        banded = push_ops.detect_banded_class(mesh.class_id.cpu().numpy())
+        self.bands = (None if banded is None
+                      else push_ops.BandClasses.build(banded, self.device))
+        self.step_fn = self._make_step()
+
+    def _make_step(self):
+        mesh, cfg, gyro = self.mesh, self.cfg, self.cfg.gyro
+        R, P = gyro.num_rings, gyro.points_per_ring
+        no_iters = torch.zeros((), dtype=torch.int32, device=self.device)
+
+        def step(ptcls):
+            elem, active = ptcls.elem, ptcls.active
+            x = ptcls.get("x")
+            if self.bands is not None:
+                cls = elem
+            else:
+                cls = mesh.class_id[torch.clamp(elem, min=0).long()]
+            tx, ty, xtgt, phi_new = push_ops.push_phi(
+                x, ptcls.get("phi"), ptcls.get("b"), active, cls,
+                cfg.deg_per_push, cfg.h, cfg.k, cfg.d, bands=self.bands)
+            if self.analytic is not None:
+                elem_ids, _ = locate_ops.annulus_locate(self.analytic, tx, ty,
+                                                        active)
+                iters = no_iters
+            elif self.locator is not None:
+                res = search_ops.search_mesh_2d_accel(
+                    mesh, self.locator, x, (tx, ty), elem, active,
+                    cfg.max_search_iters)
+                elem_ids, iters = res.elem_ids, res.iters
+            else:
+                res = search_ops.search_mesh_2d(
+                    mesh, x, (tx, ty), elem, active, cfg.max_search_iters)
+                elem_ids, iters = res.elem_ids, res.iters
+
+            ptcls2 = ptcls.set("x", xtgt).set("phi", phi_new).rebuild(elem_ids)
+            ring_accum = scatter_ops.accumulate_to_rings(
+                ptcls2.elem, ptcls2.active, mesh, R, gyro.rmax,
+                ptcl_radius=(ptcls2.get("rg") if gyro.per_particle_radius
+                             else None))
+            fwd = scatter_ops.scatter_to_mapped_verts(
+                ring_accum, self.gyro_fwd, mesh.nverts, R, P)
+            bwd = fwd if self.gyro_bwd is self.gyro_fwd else \
+                scatter_ops.scatter_to_mapped_verts(
+                    ring_accum, self.gyro_bwd, mesh.nverts, R, P)
+            return ptcls2, fwd, bwd, iters
+
+        return step
+
+    def run(self, num_iterations: Optional[int] = None, verbose: bool = True,
+            render_prefix: Optional[str] = None):
+        """Step loop with the reference's telemetry: per-step time into the
+        timing registry as "xgcm step" (host clock around a step that ends
+        in a device synchronize, with the prebarrier wait before it),
+        particle and memory imbalance, and optional VTK rendering.  Returns
+        the last step's (fwd, bwd)."""
+        from pumipic_torch.utils.memory import memory_imbalance
+        from pumipic_torch.utils.plog import print_info
+        from pumipic_torch.utils.timing import (
+            prebarrier,
+            record_time,
+            synchronize_all,
+        )
+
+        iters = (num_iterations if num_iterations is not None
+                 else self.cfg.num_iterations)
+        fwd = bwd = None
+        for i in range(iters):
+            pre = prebarrier()
+            t0 = time.perf_counter()
+            self.ptcls, fwd, bwd, walk_iters = self.step_fn(self.ptcls)
+            synchronize_all()
+            record_time("xgcm step", time.perf_counter() - t0, prebarrier=pre)
+            if verbose:
+                mem = memory_imbalance()
+                print_info(
+                    "iter %d: ptcls %d walk_iters %d fwd_sum %.1f mem_imb %.2f",
+                    i, self.ptcls.n_ptcls(), int(walk_iters),
+                    float(fwd.sum()), mem["imbalance"])
+            if render_prefix is not None:
+                self.render(f"{render_prefix}_t{i}", fwd, bwd)
+        return fwd, bwd
+
+    def render(self, path: str, fwd=None, bwd=None) -> None:
+        """VTK dump of the mesh with particle counts and gyro tags."""
+        from pumipic_torch.io.vtk import write_vtk
+
+        elem_fields = {
+            "class_id": self.mesh.class_id.cpu().numpy(),
+            "has_particles": self.ptcls.ppe().cpu().numpy(),
+        }
+        vert_fields = {}
+        if fwd is not None:
+            vert_fields["gyro_fwd"] = fwd.cpu().numpy()
+        if bwd is not None:
+            vert_fields["gyro_bwd"] = bwd.cpu().numpy()
+        write_vtk(path, self.mesh.coords.cpu().numpy(),
+                  self.mesh.elem2verts.cpu().numpy(),
+                  elem_fields=elem_fields, vert_fields=vert_fields)

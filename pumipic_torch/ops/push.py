@@ -9,6 +9,9 @@ On a band-ordered mesh the class id comes from the element id by counting
 band starts, so no per-particle table gather is needed.
 
 :func:`push_banded` is the wrapper of kernel P (``kernels/csrc/push.cu``).
+:func:`push_phi` is the wrapper of P's "phi" mode, the angle form
+(:func:`elliptical_push_components` with the active mask) that the
+single-device ``PseudoXGCm`` app runs.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
+from pumipic_torch.utils.device import resolve_device
 
 
 def elliptical_setup(x: torch.Tensor, y: torch.Tensor, h: float, k: float,
@@ -34,6 +38,34 @@ def elliptical_setup(x: torch.Tensor, y: torch.Tensor, h: float, k: float,
                        torch.full_like(sin_phi, 1e-12), sin_phi)
     b = (y - k) / safe
     return phi, b
+
+
+def elliptical_push_components(phi, b, elem_class_id, deg: float, h: float,
+                               k: float, d: float):
+    """Advance along the ellipse by ``deg`` degrees scaled per class; returns
+    (x, y, new_phi) as (N,) tensors, in the JAX package's f32 expression
+    order.  The divisor 180 is a 0-d tensor (torch's CUDA division by a
+    Python scalar multiplies by its reciprocal).  cos and sin are taken in
+    f64 and rounded to f32, so the CPU and the card give the same values
+    (their f32 cos/sin differ in the last bit; the JAX package's f32 ones
+    are within an ulp of these)."""
+    cid = torch.clamp(elem_class_id, min=1).to(phi.dtype)
+    one = phi.new_ones(())
+    center_factor = torch.where(elem_class_id == 1, one * 0.01, one)
+    dist_by_class = center_factor / cid
+    deg_p = deg * dist_by_class
+    rad = phi + deg_p * math.pi / phi.new_full((), 180.0)
+    a = b * d
+    r64 = rad.double()
+    cos, sin = torch.cos(r64).to(rad.dtype), torch.sin(r64).to(rad.dtype)
+    return a * cos + h, b * sin + k, rad
+
+
+def elliptical_push(phi, b, elem_class_id, deg: float, h: float, k: float,
+                    d: float):
+    """(new_xy (N, 2), new_phi (N,)); see :func:`elliptical_push_components`."""
+    x, y, rad = elliptical_push_components(phi, b, elem_class_id, deg, h, k, d)
+    return torch.stack([x, y], dim=-1), rad
 
 
 def rot_vals_from_class(cid_int: torch.Tensor, deg: float
@@ -95,8 +127,9 @@ class BandRotation:
     sd: torch.Tensor
 
     @staticmethod
-    def build(band_starts: Tuple[int, ...], deg: float, device="cpu"
+    def build(band_starts: Tuple[int, ...], deg: float, device=None
               ) -> "BandRotation":
+        device = resolve_device(device)
         v0, K = band_starts[0], len(band_starts)
         cids = torch.arange(v0, v0 + K, dtype=torch.int32)
         cd, sd = rot_vals_from_class(cids, deg)
@@ -149,3 +182,71 @@ def push_banded(x0, x1, cphi, sphi, b, elem, active, rot: BandRotation,
     _build.check(err, "push")
     kernels.LAUNCHES["push"] += 1
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# kernel P, "phi" mode
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BandClasses:
+    """Class ids of a band-ordered mesh: class = v0 + #{starts <= elem},
+    ``starts`` (K-1,) i32 on the device (from :func:`detect_banded_class`)."""
+
+    v0: int
+    starts: torch.Tensor
+
+    @staticmethod
+    def build(band_starts: Tuple[int, ...], device=None) -> "BandClasses":
+        return BandClasses(int(band_starts[0]), torch.as_tensor(
+            band_starts[1:], dtype=torch.int32, device=resolve_device(device)))
+
+
+def push_phi_plain(x, phi, b, active, cls, deg: float, h: float, k: float,
+                   d: float, bands: Optional[BandClasses] = None):
+    """Plain version of kernel P's phi mode; see :func:`push_phi`."""
+    if bands is not None:
+        e = torch.clamp(cls, min=0).contiguous()
+        cid = bands.v0 + torch.searchsorted(bands.starts, e, right=True).to(torch.int32)
+    else:
+        cid = cls
+    tx, ty, rad = elliptical_push_components(phi, b, cid, deg, h, k, d)
+    tx = torch.where(active, tx, x[:, 0])
+    ty = torch.where(active, ty, x[:, 1])
+    return tx, ty, torch.stack([tx, ty], dim=-1), torch.where(active, rad, phi)
+
+
+def push_phi(x, phi, b, active, cls, deg: float, h: float, k: float, d: float,
+             bands: Optional[BandClasses] = None):
+    """Elliptical push in angle form with the active mask applied: returns
+    (xtgt0, xtgt1, xtgt (N, 2), phi').  ``x`` is the (N, 2) position (kept
+    where inactive).  With ``bands``, ``cls`` is each particle's element and
+    its class comes from the band starts; without, ``cls`` is the class id
+    per particle.  Kernel P (phi mode) on CUDA tensors, the plain version on
+    CPU tensors."""
+    args = (x, phi, b, active, cls) + (() if bands is None else (bands.starts,))
+    if not kernels.use_kernel("push", *args):
+        return push_phi_plain(x, phi, b, active, cls, deg, h, k, d, bands)
+    n = phi.shape[0]
+    if x.dtype != torch.float32 or x.shape != (n, 2):
+        raise ValueError("push_phi: (N, 2) f32 positions expected")
+    for t in (phi, b):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError("push_phi: f32 (N,) angles and axes expected")
+    if cls.dtype != torch.int32 or cls.shape != (n,) or active.dtype != torch.bool:
+        raise ValueError("push_phi: i32 (N,) elem or class ids and bool active expected")
+    n_starts = 0 if bands is None else bands.starts.shape[0]
+    if n_starts > MAX_BANDS:
+        raise ValueError(f"push_phi: {n_starts + 1} bands exceed the kernel's {MAX_BANDS}")
+    tx, ty, phi_out = (torch.empty_like(phi) for _ in range(3))
+    xy = torch.empty_like(x)
+    P = ctypes.c_void_p
+    err = _build.lib().pp_push_phi(
+        *(P(t.data_ptr()) for t in (x, phi, b, active, cls)),
+        P(None if bands is None else bands.starts.data_ptr()), n_starts,
+        0 if bands is None else bands.v0, int(bands is not None),
+        deg, h, k, d, *(P(t.data_ptr()) for t in (tx, ty, xy, phi_out)), n,
+        P(kernels.stream_handle()))
+    _build.check(err, "push")
+    kernels.LAUNCHES["push"] += 1
+    return tx, ty, xy, phi_out

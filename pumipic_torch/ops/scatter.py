@@ -27,6 +27,7 @@ import torch
 from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
 from pumipic_torch.mesh.core import Mesh2D
+from pumipic_torch.utils.device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +133,8 @@ class GyroMap:
 
     @staticmethod
     def from_flat(flat, num_verts: int, num_rings: int, points_per_ring: int,
-                  device="cpu") -> "GyroMap":
+                  device=None) -> "GyroMap":
+        device = resolve_device(device)
         m = (flat.cpu().numpy() if isinstance(flat, torch.Tensor)
              else np.asarray(flat)).astype(np.int64)
         if m.shape != (num_verts * num_rings * points_per_ring * 3,):

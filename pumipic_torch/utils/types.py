@@ -10,3 +10,8 @@ LID_DTYPE = torch.int32
 REAL_DTYPE = torch.float32
 
 INVALID = -1  # sentinel for "no element / removed particle"
+
+
+def round_up(x: int, m: int) -> int:
+    """Round ``x`` up to a multiple of ``m``."""
+    return ((x + m - 1) // m) * m

@@ -94,7 +94,7 @@ def arm(request):
 
 
 def test_arm_setup_builds_the_reference_structures(arm):
-    m = Mesh2D.from_arrays(*arm["raw"])
+    m = Mesh2D.from_arrays(*arm["raw"], device="cpu")
     state, step = tx.make_dp_setup(m, arm["tcfg"], "cpu")
     model = step.model
     js = {k: np.asarray(v) for k, v in arm["state"].items()}
@@ -102,12 +102,12 @@ def test_arm_setup_builds_the_reference_structures(arm):
     for k in ("x0", "x1", "elem", "active") + (("rg",) if "rg" in js else ()):
         np.testing.assert_array_equal(state[k].numpy(), js[k], err_msg=k)
     if arm["name"] == "band":
-        want = interop.band_grid_from_numpy(arm["carry"]["band_grid"])
+        want = interop.band_grid_from_numpy(arm["carry"]["band_grid"], device="cpu")
         assert model.analytic is None and model.locator.n_theta == want.n_theta
         for k in ("coef_u", "coef_v", "inv_coef", "cell_rows", "cell_elem"):
             assert torch.equal(getattr(model.locator, k), getattr(want, k)), k
     elif arm["name"] == "annulus":
-        want = interop.annulus_from_numpy(arm["carry"]["annulus"])
+        want = interop.annulus_from_numpy(arm["carry"]["annulus"], device="cpu")
         assert model.locator is None and model.analytic == want
         assert model.analytic.ring_class
     else:
@@ -123,7 +123,7 @@ def test_arm_three_step_slice_parity_from_carried_state(arm):
         arm["carry"].get("locator"), arm["gmap"], None, arm["bands"],
         {k: np.asarray(v) for k, v in arm["state"].items()}, cfg,
         band_grid=arm["carry"].get("band_grid"),
-        annulus=arm["carry"].get("annulus"))
+        annulus=arm["carry"].get("annulus"), device="cpu")
     step = tx.make_dp_step(model, cfg)
     geom = model.mesh.walk_geom.numpy().astype(np.float64)
     js, jstep = arm["state"], arm["step"]

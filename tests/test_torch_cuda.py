@@ -198,3 +198,174 @@ def test_band_kernel_compiled_for_24_12_8_equals_plain(dev):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["band_cell"] == n0 + 1
     assert torch.equal(got, lo.band_cell_of_plain(grid, px, py))
+
+
+# ---------------------------------------------------------------------------
+# kernels G (row gather), S (slot map) and P's phi mode
+# ---------------------------------------------------------------------------
+
+def _bits(rng, shape, dev):
+    """f32 tensor of random 32-bit patterns (NaNs, infinities and
+    denormals included): a gather must move them unchanged."""
+    return torch.as_tensor(rng.integers(-2**31, 2**31, size=shape, dtype=np.int64)
+                           .astype(np.int32), device=dev).view(torch.float32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 7])
+@pytest.mark.parametrize("w", [1, 8, 14])
+def test_row_gather_rows_form_equals_plain(dev, n, w):
+    from pumipic_torch.ops import rows
+
+    rng = np.random.default_rng(n + w)
+    M = 24_576
+    table = _bits(rng, (M, w), dev)
+    idx = torch.as_tensor(rng.integers(0, M, n).astype(np.int32), device=dev)
+    n0 = kernels.LAUNCHES["row_gather"]
+    got = rows.row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_gather"] == n0 + (1 if n else 0)
+    assert torch.equal(got.view(torch.int32),
+                       rows.row_gather_plain(table, idx).view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 7])
+@pytest.mark.parametrize("ncols", [1, 8, 14, 20])
+def test_row_gather_columns_form_equals_plain(dev, n, ncols):
+    from pumipic_torch.ops import rows
+
+    rng = np.random.default_rng(7 * n + ncols)
+    M = max(n, 1) + 5
+    shapes = [(M, 2), (M, 2), (M,), (M,), (M,), (M,), (M, 3), (M,)]
+    cols = []
+    for j in range(ncols):
+        shp = shapes[j % len(shapes)]
+        c = _bits(rng, shp, dev)
+        cols.append(c.view(torch.int32) if j % 3 == 2 else c)
+    cols.append(torch.as_tensor(rng.integers(0, 9, M), device=dev))  # int64: 2 lanes
+    idx = torch.as_tensor(rng.integers(0, M, n).astype(np.int32), device=dev)
+    n0 = kernels.LAUNCHES["row_gather"]
+    got = rows.row_gather(cols, idx)
+    torch.cuda.synchronize()
+    launches = 0 if n == 0 else -(-(ncols + 1) // rows.MAX_GATHER_ARRAYS)
+    assert kernels.LAUNCHES["row_gather"] == n0 + launches
+    for g, w in zip(got, rows.row_gather_plain(cols, idx)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           w.view(torch.int32) if w.dtype == torch.float32 else w)
+
+
+def _slot_inputs(layout, E, M, C, chunk, sigma, dev, seed=0):
+    from pumipic_torch.particles import structure as st
+
+    rng = np.random.default_rng(seed)
+    elem = rng.integers(-1, E, M).astype(np.int32)
+    elem[rng.uniform(size=M) < 0.3] = int(rng.integers(0, E))      # a skewed element
+    elem_t = torch.as_tensor(elem, device=dev)
+    key = torch.where(elem_t >= 0, elem_t, E)
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    counts = torch.as_tensor(np.bincount(elem[elem >= 0], minlength=E).astype(np.int32),
+                             device=dev)
+    start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
+    if layout == "cabm":
+        seg = ((counts + 7) // 8) * 8
+        offsets = torch.cat([seg.new_zeros(1), torch.cumsum(seg, 0, dtype=torch.int32)])
+        return order, start, offsets, None
+    r2e, _, cw = st._scs_row_order(counts, sigma, chunk, E)
+    offsets = torch.cat([cw.new_zeros(1), torch.cumsum(chunk * cw, 0, dtype=torch.int32)])
+    return order, start, offsets, r2e
+
+
+@pytest.mark.parametrize("layout,chunk,sigma", [("scs", 8, 2**30), ("scs", 4, 8),
+                                                ("scs", 3, 16), ("cabm", 1, 1)])
+@pytest.mark.parametrize("M,C", [(1, 1), (31, 40), (1000, 700), ((1 << 20) + 7, (1 << 20) + 4099)])
+def test_slot_map_kernel_equals_plain_on_every_slot(dev, layout, chunk, sigma, M, C):
+    from pumipic_torch.ops import rows
+
+    E = 97
+    order, start, offsets, r2e = _slot_inputs(layout, E, M, C, chunk, sigma, dev)
+    args = (layout, order, start, offsets, r2e, chunk, C, M)
+    n0 = kernels.LAUNCHES["slot_map"]
+    got = rows.slot_map(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["slot_map"] == n0 + 1
+    for g, w in zip(got, rows.slot_map_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 7])
+@pytest.mark.parametrize("form", ["bands", "class"])
+def test_push_phi_kernel_equals_plain(dev, mesh, n, form):
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32), device=dev)
+    phi = torch.as_tensor(rng.uniform(-3.2, 3.2, n).astype(np.float32), device=dev)
+    b = torch.as_tensor(rng.uniform(0.1, 1.2, n).astype(np.float32), device=dev)
+    active = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+    elem = torch.as_tensor(rng.integers(-1, mesh.nelems, n).astype(np.int32), device=dev)
+    if form == "bands":
+        bands = push_ops.BandClasses.build(
+            push_ops.detect_banded_class(mesh.class_id.cpu().numpy()), dev)
+        cls = elem
+    else:
+        bands = None
+        cls = mesh.class_id[torch.clamp(elem, min=0).long()]
+    args = (x, phi, b, active, cls, 15.0, 0.1, -0.05, 0.9)
+    n0 = kernels.LAUNCHES["push"]
+    got = push_ops.push_phi(*args, bands=bands)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["push"] == n0 + 1
+    _equal(got, push_ops.push_phi_plain(*args, bands=bands))
+
+
+@pytest.mark.parametrize("layout", ["scs", "csr", "cabm", "dps"])
+def test_structure_rebuilds_card_equal_cpu(dev, layout):
+    """Sort and auto (reshuffle or fallback) rebuilds with removals,
+    out-of-range ids and additions: every member equal on the card and on
+    the CPU."""
+    from pumipic_torch.particles import structure as st
+
+    E, n = 97, 5000
+    rng = np.random.default_rng(4)
+    elems = rng.integers(0, E, n)
+    fields = {"x": torch.as_tensor(rng.normal(size=(n, 2)).astype(np.float32)),
+              "pid": torch.arange(n, dtype=torch.int32),
+              "flag": torch.as_tensor(rng.uniform(size=n) < 0.5)}
+
+    def build(device):
+        f = {k: v.to(device) for k, v in fields.items()}
+        if layout == "scs":
+            return st.SellCSigma(E, elems, fields=f, device=device, scs_input=st.SCSInput(
+                chunk_size=8, sigma=16, extra_padding=0.3))
+        if layout == "cabm":
+            return st.CabM(E, elems, fields=f, soa_width=16, extra_padding=0.2,
+                           device=device)
+        return {"csr": st.CSR, "dps": st.DPS}[layout](E, elems, fields=f, device=device)
+
+    g, c = build(dev), build("cpu")
+    for i, mode in enumerate(("auto", "sort", "auto", "auto")):
+        cur = np.where(c.active.numpy(), c.elem.numpy(), -1)
+        ne = cur.copy()
+        mv = rng.uniform(size=ne.shape) < (0.05 if i != 2 else 0.5)
+        ne[mv & (cur >= 0)] = rng.integers(-1, E + 2, int((mv & (cur >= 0)).sum()))
+        add = None
+        if i == 1:
+            add = (rng.integers(-1, E, 64).astype(np.int32),
+                   {"x": np.zeros((64, 2), np.float32),
+                    "pid": np.arange(n, n + 64, dtype=np.int32),
+                    "flag": np.ones(64, bool)})
+        for ps, device in ((g, dev), (c, "cpu")):
+            args = [torch.as_tensor(ne.astype(np.int32), device=device)]
+            if add is not None:
+                args += [torch.as_tensor(add[0], device=device),
+                         {k: torch.as_tensor(v, device=device) for k, v in add[1].items()}]
+            out = ps.rebuild(*args, mode=mode if add is None else "sort")
+            if device == "cpu":
+                c = out
+            else:
+                g = out
+        for k in ("elem", "active", "num_ptcls", "overflowed", "elem_offsets",
+                  "row_to_elem", "elem_to_row", "seg_cap"):
+            a, b = getattr(g, k), getattr(c, k)
+            assert (a is None) == (b is None), k
+            assert a is None or torch.equal(a.cpu(), b), (i, k)
+        for k in c.fields:
+            assert torch.equal(g.fields[k].cpu(), c.fields[k]), (i, k)

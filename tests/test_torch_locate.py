@@ -40,12 +40,12 @@ def band():
     the JAX and the port's band grids."""
     coords, tris, cls = j_gen.tokamak_mesh(24, 120)
     jm = JMesh2D.from_arrays(coords, tris, cls)
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     jg = j_loc.detect_banded_locator(np.asarray(jm.coords), np.asarray(jm.elem2verts),
                                      np.asarray(jm.class_id), jm.walk_geom)
     args = (m.coords.numpy(), m.elem2verts.numpy(), m.class_id.numpy(), m.walk_geom)
     return dict(jm=jm, m=m, jg=jg, args=args,
-                tg=t_loc.detect_banded_locator(*args))
+                tg=t_loc.detect_banded_locator(*args, device="cpu"))
 
 
 def test_band_detection_matches_reference(band):
@@ -61,7 +61,7 @@ def test_band_detection_matches_reference(band):
         np.testing.assert_array_equal(a, b, err_msg=k)
     # the reference's fields carried across give the same grid
     carried = interop.band_grid_from_numpy(
-        {f: np.asarray(getattr(jg, f)) for f in interop.BAND_FIELDS})
+        {f: np.asarray(getattr(jg, f)) for f in interop.BAND_FIELDS}, device="cpu")
     for f in dc.fields(t_loc.BandGrid2D):
         a, b = getattr(carried, f.name), getattr(tg, f.name)
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
@@ -71,7 +71,7 @@ def test_band_detection_matches_reference(band):
 def test_band_calibration_chunking_is_exact(band, chunk):
     """The calibration's cells, evaluated all at once or 1,000 points at a
     time, give the default (2^20-point chunks) tables bit for bit."""
-    got = t_loc.detect_banded_locator(*band["args"], chunk=chunk)
+    got = t_loc.detect_banded_locator(*band["args"], chunk=chunk, device="cpu")
     for k in BAND_TABLES:
         assert torch.equal(getattr(got, k), getattr(band["tg"], k)), k
 
@@ -92,16 +92,16 @@ def test_band_detection_negatives(case):
         cls = np.asarray(cls).copy()
         cls[::7] = 1
     jm = JMesh2D.from_arrays(coords, tris, cls)
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     assert j_loc.detect_banded_locator(np.asarray(coords), np.asarray(tris),
                                        np.asarray(jm.class_id), jm.walk_geom) is None
     assert t_loc.detect_banded_locator(np.asarray(coords), np.asarray(tris),
-                                       m.class_id.numpy(), m.walk_geom) is None
+                                       m.class_id.numpy(), m.walk_geom, device="cpu") is None
 
 
 def test_band_n_theta_guard_and_sizing_rule(band):
     with pytest.raises(ValueError, match="2\\^24"):
-        t_loc.detect_banded_locator(*band["args"], n_theta=1 << 20)
+        t_loc.detect_banded_locator(*band["args"], n_theta=1 << 20, device="cpu")
     # the reference's TPU cost-model constants, kept as its sizing rule
     for rows in (100_000, 500_000, 2_000_000):
         for cols in (2, 14):
@@ -110,8 +110,8 @@ def test_band_n_theta_guard_and_sizing_rule(band):
     assert t_loc.BAND_ROWS_BYTES_BUDGET == j_loc.BAND_ROWS_BYTES_BUDGET
     assert t_loc._F32_EXACT_ID_LIMIT == j_loc._F32_EXACT_ID_LIMIT
     # a generous cost gate admits, a tight one rejects (API parity)
-    assert t_loc.detect_banded_locator(*band["args"], cost_gate_ms=1e9) is not None
-    assert t_loc.detect_banded_locator(*band["args"], cost_gate_ms=1.0) is None
+    assert t_loc.detect_banded_locator(*band["args"], cost_gate_ms=1e9, device="cpu") is not None
+    assert t_loc.detect_banded_locator(*band["args"], cost_gate_ms=1.0, device="cpu") is None
 
 
 def test_band_cell_of_matches_reference(band):
@@ -175,7 +175,7 @@ def _annulus(case):
 def test_annulus_locate_matches_reference(case):
     coords, tris, cls = _annulus(case)
     jl = j_loc.detect_annulus_structured(coords, tris, cls=cls)
-    tl = t_loc.detect_annulus_structured(coords, tris, cls=cls)
+    tl = t_loc.detect_annulus_structured(coords, tris, cls=cls, device="cpu")
     assert (tl.n_rings, tl.n_sectors, tl.ring_class) == (
         jl.n_rings, jl.n_sectors, jl.ring_class)
     assert tl.ring_class == (case == "identity")
@@ -186,7 +186,7 @@ def test_annulus_locate_matches_reference(case):
     else:
         assert jl.perm is None and tl.perm is None
     carried = interop.annulus_from_numpy(
-        {f: getattr(jl, f) for f in interop.ANNULUS_FIELDS})
+        {f: getattr(jl, f) for f in interop.ANNULUS_FIELDS}, device="cpu")
     assert dc.replace(carried, perm=None) == dc.replace(tl, perm=None)
 
     rng = np.random.default_rng(44)
@@ -220,13 +220,13 @@ def test_annulus_locate_matches_reference(case):
 def test_annulus_class_of_equals_banded_class():
     """On the bench annulus (make_default_mesh(24000)) the JAX push's
     analytic class equals kernel P's banded class on every element."""
-    m = tx.make_default_mesh(24_000)
+    m = tx.make_default_mesh(24_000, device="cpu")
     jm = jx.make_default_mesh(24_000)
     np.testing.assert_array_equal(np.asarray(jm.coords), m.coords.numpy())
     np.testing.assert_array_equal(np.asarray(jm.elem2verts), m.elem2verts.numpy())
     assert (m.nelems, m.nverts) == (23_976, 12_210)
     cls = m.class_id.numpy()
-    loc = t_loc.detect_annulus_structured(m.coords.numpy(), m.elem2verts.numpy(), cls=cls)
+    loc = t_loc.detect_annulus_structured(m.coords.numpy(), m.elem2verts.numpy(), cls=cls, device="cpu")
     assert loc.ring_class and (loc.n_rings, loc.n_sectors) == (54, 222)
     e = torch.arange(m.nelems, dtype=torch.int32)
     analytic = loc.class_of(e)

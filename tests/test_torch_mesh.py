@@ -64,7 +64,7 @@ def test_mesh2d_tables_bit_equal(meshes, name):
     bit for bit and in dtype."""
     coords, tris, cls = meshes[name]
     ref = JMesh2D.from_arrays(coords, tris, cls)
-    got = Mesh2D.from_arrays(coords, tris, cls)
+    got = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     for f in interop.MESH_FIELDS:
         a, b = np.asarray(getattr(ref, f)), getattr(got, f).numpy()
         assert a.dtype == b.dtype, f
@@ -85,13 +85,13 @@ def test_f32_id_guard():
 def test_locator_tables_bit_equal(meshes, name, cpe):
     coords, tris, cls = meshes[name]
     jm = JMesh2D.from_arrays(coords, tris, cls)
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     ref = j_loc.build_locator_grid(np.asarray(jm.coords), np.asarray(jm.elem2verts),
                                    cells_per_elem=cpe, walk_geom=jm.walk_geom,
                                    peel="rows")
     got = t_loc.build_locator_grid(m.coords.numpy(), m.elem2verts.numpy(),
                                    cells_per_elem=cpe, walk_geom=m.walk_geom,
-                                   peel="rows")
+                                   peel="rows", device="cpu")
     assert not ref.polar
     assert (got.nx, got.ny) == (int(ref.nx), int(ref.ny))
     assert got.origin == tuple(float(v) for v in np.asarray(ref.origin))
@@ -110,20 +110,20 @@ def test_locator_tables_bit_equal(meshes, name, cpe):
 
 def test_locator_knobs(meshes):
     coords, tris, cls = meshes["tokamak"]
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     args = (m.coords.numpy(), m.elem2verts.numpy())
-    rows = t_loc.build_locator_grid(*args, walk_geom=m.walk_geom, peel="rows")
+    rows = t_loc.build_locator_grid(*args, walk_geom=m.walk_geom, peel="rows", device="cpu")
     for peel in ("auto", "lines", "rows_split", "rows_ab"):
-        g = t_loc.build_locator_grid(*args, walk_geom=m.walk_geom, peel=peel)
+        g = t_loc.build_locator_grid(*args, walk_geom=m.walk_geom, peel=peel, device="cpu")
         assert torch.equal(g.cell_rows, rows.cell_rows), peel
     for peel in ("rows_abc", "ids", "bogus"):
         with pytest.raises(ValueError):
-            t_loc.build_locator_grid(*args, walk_geom=m.walk_geom, peel=peel)
+            t_loc.build_locator_grid(*args, walk_geom=m.walk_geom, peel=peel, device="cpu")
     with pytest.raises(NotImplementedError):
-        t_loc.build_locator_grid(*args, polar=True)
+        t_loc.build_locator_grid(*args, polar=True, device="cpu")
     with pytest.raises(NotImplementedError):
         t_loc.build_locator_grid(*args, walk_geom=m.walk_geom,
-                                 aux=np.zeros((m.nelems, 2), np.float32))
+                                 aux=np.zeros((m.nelems, 2), np.float32), device="cpu")
 
 
 @pytest.mark.parametrize("case", ["identity", "permuted", "tokamak"])
@@ -139,7 +139,7 @@ def test_detect_annulus_structured_matches_reference(case):
     elif case == "tokamak":
         coords, tris, cls = j_gen.tokamak_mesh(16, 96)
     ref = j_loc.detect_annulus_structured(coords, tris, cls=cls)
-    got = t_loc.detect_annulus_structured(coords, tris, cls=cls)
+    got = t_loc.detect_annulus_structured(coords, tris, cls=cls, device="cpu")
     if case == "tokamak":
         assert ref is None and got is None
         return

@@ -61,7 +61,7 @@ def ref():
 
 def test_setup_parity(ref):
     coords, tris, cls = ref["raw"]
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     cfg = tx.XGCmConfig(**KW)
     rng_j, rng_t = np.random.default_rng(tx.ELEMENT_SEED), np.random.default_rng(tx.ELEMENT_SEED)
     np.testing.assert_array_equal(
@@ -90,7 +90,7 @@ def test_three_step_slice_parity_from_carried_state(ref):
     cfg = tx.XGCmConfig(**KW)
     model, state = interop.from_reference(
         ref["mesh_np"], ref["grid_np"], ref["gmap"], None, ref["bands"],
-        {k: np.asarray(v) for k, v in ref["state"].items()}, cfg)
+        {k: np.asarray(v) for k, v in ref["state"].items()}, cfg, device="cpu")
     assert model.gyro_bwd is model.gyro_fwd
     step = tx.make_dp_step(model, cfg)
     js, jstep = ref["state"], ref["step"]
@@ -134,53 +134,53 @@ def test_config_fields_match_reference():
 
 def test_knobs_mapped_or_refused():
     coords, tris, cls = j_gen.tokamak_mesh(8, 32)
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     base = tx.XGCmConfig(num_ptcls=500, mdl_face=4, deg_per_push=15.0,
                          max_search_iters=64)
-    s0, step0 = tx.make_dp_setup(m, base)
+    s0, step0 = tx.make_dp_setup(m, base, device="cpu")
     s0, f0 = step0(s0)
     # TPU-only knobs map onto the one GPU path: same result
     for kw in (dict(peel="lines"), dict(rot_aux_capture=True),
                dict(search_widths=(64,)), dict(rot_analytic=False),
                dict(band_locator="off"), dict(analytic_locate="off")):
-        s, step = tx.make_dp_setup(m, dc.replace(base, **kw))
+        s, step = tx.make_dp_setup(m, dc.replace(base, **kw), device="cpu")
         s, f = step(s)
         assert torch.equal(s["elem"], s0["elem"]) and torch.equal(f["fwd"], f0["fwd"]), kw
     # the three further arms run: the band locator where the mesh is a
     # stitched flux-band structure (this coarse one is not: the JAX
     # package's ValueError), the per-particle radius, and the annulus
     with pytest.raises(ValueError, match="flux-band"):
-        tx.make_dp_setup(m, dc.replace(base, band_locator="force"))
-    bm = Mesh2D.from_arrays(*j_gen.tokamak_mesh(24, 120))
-    s, step = tx.make_dp_setup(bm, dc.replace(base, mdl_face=12, band_locator="force"))
+        tx.make_dp_setup(m, dc.replace(base, band_locator="force"), device="cpu")
+    bm = Mesh2D.from_arrays(*j_gen.tokamak_mesh(24, 120), device="cpu")
+    s, step = tx.make_dp_setup(bm, dc.replace(base, mdl_face=12, band_locator="force"), device="cpu")
     assert type(step.model.locator).__name__ == "BandGrid2D"
     s, f = step(s)
     assert bool(f["all_found"]) and int(s["active"].sum()) >= 499
-    s, step = tx.make_dp_setup(m, dc.replace(base, gyro=tx.GyroConfig(per_particle_radius=True)))
+    s, step = tx.make_dp_setup(m, dc.replace(base, gyro=tx.GyroConfig(per_particle_radius=True)), device="cpu")
     s, f = step(s)
     assert "rg" in s and torch.equal(s["elem"], s0["elem"])
     assert float(f["fwd"].sum()) == float(f0["fwd"].sum())
     with pytest.raises(ValueError):
-        tx.make_dp_setup(m, dc.replace(base, band_locator="banded"))
+        tx.make_dp_setup(m, dc.replace(base, band_locator="banded"), device="cpu")
     with pytest.raises(ValueError):
-        tx.make_dp_setup(m, dc.replace(base, analytic_locate="force"))
+        tx.make_dp_setup(m, dc.replace(base, analytic_locate="force"), device="cpu")
     # a proven structured annulus is located analytically (no walk: iters
     # 0); "off" walks, to the same elements
     ac, at, acl = j_gen.annulus_mesh(4, 24, 0.3, 1.0)
-    am = Mesh2D.from_arrays(ac, at, acl)
-    s, step = tx.make_dp_setup(am, base)
+    am = Mesh2D.from_arrays(ac, at, acl, device="cpu")
+    s, step = tx.make_dp_setup(am, base, device="cpu")
     assert step.model.analytic is not None and step.model.locator is None
     s, f = step(s)
     assert int(f["iters"]) == 0 and bool(f["all_found"])
-    sw, stepw = tx.make_dp_setup(am, dc.replace(base, analytic_locate="off"))
+    sw, stepw = tx.make_dp_setup(am, dc.replace(base, analytic_locate="off"), device="cpu")
     assert stepw.model.analytic is None
     sw, fw = stepw(sw)
     assert int(fw["iters"]) >= 1
     assert (s["elem"] != sw["elem"]).sum() <= 2
     # a classification that is not band-ordered
-    cm = Mesh2D.from_arrays(coords, tris, cls[::-1].copy())
+    cm = Mesh2D.from_arrays(coords, tris, cls[::-1].copy(), device="cpu")
     with pytest.raises(NotImplementedError, match="band-ordered"):
-        tx.make_dp_setup(cm, base)
+        tx.make_dp_setup(cm, base, device="cpu")
 
 
 def test_setup_divergence_is_the_references_own_ill_conditioning(ref):
@@ -193,7 +193,7 @@ def test_setup_divergence_is_the_references_own_ill_conditioning(ref):
     or lies on a side shared by both elements; both counts are bounded.
     (On this mesh and at 20k particles both are 0.)"""
     coords, tris, cls = ref["raw"]
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     state, step = tx.make_dp_setup(m, tx.XGCmConfig(**KW), "cpu")
     js = {k: np.asarray(v) for k, v in ref["state"].items()}
     for k in ("cphi", "sphi"):
@@ -249,8 +249,8 @@ from pumipic_torch.models.pseudo_xgcm import XGCmConfig, make_dp_setup
 port, rank, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         world_size=2, rank=rank)
-m = Mesh2D.from_arrays(*tokamak_mesh(8, 32))
-state, step = make_dp_setup(m, XGCmConfig(num_ptcls=601, mdl_face=4))
+m = Mesh2D.from_arrays(*tokamak_mesh(8, 32), device="cpu")
+state, step = make_dp_setup(m, XGCmConfig(num_ptcls=601, mdl_face=4), device="cpu")
 for _ in range(2):
     state, fields = step(state)
 torch.save({"fwd": fields["fwd"], "n": state["x0"].shape[0],
@@ -279,8 +279,8 @@ def test_full_mode_all_reduce_over_two_gloo_ranks(tmp_path):
         _, err = p.communicate(timeout=120)
         assert p.returncode == 0, err
     r0, r1 = (torch.load(tmp_path / f"r{r}.pt") for r in range(2))
-    m = Mesh2D.from_arrays(*j_gen.tokamak_mesh(8, 32))
-    state, step = tx.make_dp_setup(m, tx.XGCmConfig(num_ptcls=601, mdl_face=4))
+    m = Mesh2D.from_arrays(*j_gen.tokamak_mesh(8, 32), device="cpu")
+    state, step = tx.make_dp_setup(m, tx.XGCmConfig(num_ptcls=601, mdl_face=4), device="cpu")
     for _ in range(2):
         state, fields = step(state)
     assert r0["n"] == r1["n"] == 301
@@ -301,10 +301,14 @@ import bench_torch, chip_smoke
 from pumipic_torch.mesh.generate import tokamak_mesh
 from pumipic_torch.mesh.core import Mesh2D
 from pumipic_torch.models.pseudo_xgcm import XGCmConfig, make_dp_setup
-m = Mesh2D.from_arrays(*tokamak_mesh(8, 32))
-state, step = make_dp_setup(m, XGCmConfig(num_ptcls=300, mdl_face=4))
+m = Mesh2D.from_arrays(*tokamak_mesh(8, 32), device="cpu")
+state, step = make_dp_setup(m, XGCmConfig(num_ptcls=300, mdl_face=4), device="cpu")
 state, fields = step(state)
 assert fields["fwd"].shape == (m.nverts,)
+from pumipic_torch.models.pseudo_xgcm import PseudoXGCm
+app = PseudoXGCm(m, XGCmConfig(num_ptcls=300, mdl_face=4), device="cpu")
+fwd, bwd = app.run(1, verbose=False)
+assert fwd.shape == (m.nverts,) and int(app.ptcls.num_ptcls) > 0
 loaded = [k for k, v in sys.modules.items() if k.split(".")[0] in ("jax", "jaxlib", "pumipic_tpu") and v is not None]
 assert not loaded, loaded
 print("ok")

@@ -93,7 +93,7 @@ def test_push_banded_matches_reference(hkd):
     ref = (np.where(active, tx, x0), np.where(active, ty, x1),
            np.where(active, c2, cphi), np.where(active, s2, sphi))
 
-    rot = t_push.BandRotation.build(starts, deg)
+    rot = t_push.BandRotation.build(starts, deg, device="cpu")
     got = t_push.push_banded(
         *(torch.from_numpy(a) for a in (x0, x1, cphi, sphi, b, elem, active)),
         rot, h, k, d)
@@ -115,7 +115,7 @@ def _wrapper_calls(dev):
                               torch.ones(1, device=dev), torch.zeros(1, device=dev))
     geom = torch.zeros(1, 12, device=dev)
     coords, tris, cls = j_gen.annulus_mesh(2, 8, 0.5, 1.0)
-    mesh = Mesh2D.from_arrays(coords, tris, cls).to(dev)
+    mesh = Mesh2D.from_arrays(coords, tris, cls, device="cpu").to(dev)
     gmap = t_sc.GyroMap.from_flat(np.full(mesh.nverts * 1 * 1 * 3, -1),
                                   mesh.nverts, 1, 1, dev)
     band = BandGrid2D(0.0, 0.0, torch.ones(3, 2, device=dev),
@@ -154,8 +154,8 @@ def test_kernel_build_flags():
     assert "-fmad=false" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.sources()) == [
-        "annulus.cu", "band.cu", "deposit.cu", "histogram.cu", "locate.cu",
-        "push.cu"]
+        "annulus.cu", "band.cu", "deposit.cu", "gather.cu", "histogram.cu",
+        "locate.cu", "push.cu", "slotmap.cu"]
     assert "-shared" not in _build.NVCC_FLAGS      # compile flags; the link adds it
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()

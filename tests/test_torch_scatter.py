@@ -17,7 +17,7 @@ from pumipic_torch.ops import scatter as t_sc
 @pytest.fixture(scope="module")
 def meshes():
     coords, tris, cls = j_gen.tokamak_mesh(16, 96)
-    return JMesh2D.from_arrays(coords, tris, cls), Mesh2D.from_arrays(coords, tris, cls)
+    return JMesh2D.from_arrays(coords, tris, cls), Mesh2D.from_arrays(coords, tris, cls, device="cpu")
 
 
 def _particles(E, n=20000, seed=0):
@@ -65,7 +65,7 @@ def test_scatter_to_mapped_verts_matches_reference(meshes, P):
     ring = rng.integers(0, 50, (V, R)).astype(np.float32)
     ref = np.asarray(j_sc.scatter_to_mapped_verts(
         jnp.asarray(ring), jnp.asarray(gmap), V, R, P))
-    g = t_sc.GyroMap.from_flat(gmap, V, R, P)
+    g = t_sc.GyroMap.from_flat(gmap, V, R, P, device="cpu")
     got = t_sc.scatter_to_mapped_verts(torch.from_numpy(ring), g, V, R, P)
     np.testing.assert_array_equal(got.numpy(), ref)
 
@@ -76,14 +76,14 @@ def test_gyro_map_transpose():
     V, R, P = 5, 2, 2
     rng = np.random.default_rng(1)
     flat = rng.integers(-1, V, V * R * P * 3)
-    g = t_sc.GyroMap.from_flat(flat, V, R, P)
+    g = t_sc.GyroMap.from_flat(flat, V, R, P, device="cpu")
     off, src = g.offsets.numpy(), g.src.numpy()
     assert off[0] == 0 and off[-1] == (flat >= 0).sum()
     for u in range(V):
         want = [i // (P * 3) for i in range(flat.size) if flat[i] == u]
         assert src[off[u]:off[u + 1]].tolist() == want
     with pytest.raises(ValueError, match="gyro map shape"):
-        t_sc.GyroMap.from_flat(flat[:-1], V, R, P)
+        t_sc.GyroMap.from_flat(flat[:-1], V, R, P, device="cpu")
 
 
 def test_per_particle_radius_not_ported(meshes):

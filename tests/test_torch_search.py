@@ -31,11 +31,11 @@ MAX_MISMATCH_PER_10K = 5
 def setup():
     coords, tris, cls = j_gen.tokamak_mesh(16, 96)
     jm = JMesh2D.from_arrays(coords, tris, cls)
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     jg = j_build_grid(np.asarray(jm.coords), np.asarray(jm.elem2verts),
                       cells_per_elem=16.0, walk_geom=jm.walk_geom, peel="rows")
     g = build_locator_grid(m.coords.numpy(), m.elem2verts.numpy(),
-                           cells_per_elem=16.0, walk_geom=m.walk_geom, peel="rows")
+                           cells_per_elem=16.0, walk_geom=m.walk_geom, peel="rows", device="cpu")
     return jm, m, jg, g
 
 
@@ -224,11 +224,11 @@ def band_setup():
     JAX package's band grid and the same grid carried across."""
     coords, tris, cls = j_gen.tokamak_mesh(24, 120)
     jm = JMesh2D.from_arrays(coords, tris, cls)
-    m = Mesh2D.from_arrays(coords, tris, cls)
+    m = Mesh2D.from_arrays(coords, tris, cls, device="cpu")
     jg = j_loc.detect_banded_locator(np.asarray(jm.coords), np.asarray(jm.elem2verts),
                                      np.asarray(jm.class_id), jm.walk_geom)
     tg = interop.band_grid_from_numpy(
-        {f: np.asarray(getattr(jg, f)) for f in interop.BAND_FIELDS})
+        {f: np.asarray(getattr(jg, f)) for f in interop.BAND_FIELDS}, device="cpu")
     return jm, m, jg, tg
 
 
