@@ -15,18 +15,21 @@ sources in this checkout.  Phases, each raising on failure:
     time both; give each kernel its bound (bytes over 3.35 TB/s or f32
     operations over 67 TFLOP/s, whichever is larger) and, where one
     PyTorch call computes the same function, that call's time
-    (``torch.bincount`` for H, ``torch.index_select`` for G).  On the
-    120k-element gmsh mesh at 10M particles: P, L (peel + walk), H and D,
-    L's plain walk over the 1.48M gyro ring points, H's (element, ring) key
-    mode and D's pass 1 from (E, R) counts; G's rows form at the TPU row
-    gather probe's shape (24,576 x 14 f32 table, 10M indices); on a
-    Sell-C-σ structure of the 10M located particles, P's phi mode (band and
-    class forms), S in the scs and cabm modes and G's columns form at the
-    sorted rebuild's shapes; B and L's given-cells mode on the flux-band
-    grid; A on the 23,976-element annulus at 10M.  Then run a small slice of
-    each FULL-mode arm and of the PseudoXGCm app in each layout (scs, csr,
-    cabm, dps) on the card and on the CPU for 3 steps and require equal
-    states, structures and fields;
+    (``torch.bincount`` for H, of the two key streams in key mode;
+    ``torch.index_select`` for G's rows form, per-array indexing for its
+    columns form).  On the 120k-element gmsh mesh at 10M particles: P, L
+    (peel + walk), H in the main path's order and in a random order of the
+    same keys, D, L's plain walk over the 1.48M gyro ring points, H's
+    (element, ring) key mode and D's pass 1 from (E, R) counts; G's rows
+    form at the TPU row gather probe's shape (24,576 x 14 f32 table, 10M
+    indices); on a Sell-C-σ structure of the 10M located particles, P's
+    phi mode (band and class forms), S in the scs and cabm modes and G's
+    columns form at the sorted rebuild's shapes, at one step's locality and
+    at a random order of the slots; B and L's given-cells mode on the
+    flux-band grid; A on the 23,976-element annulus at 10M.  Then run a
+    small slice of each FULL-mode arm and of the PseudoXGCm app in each
+    layout (scs, csr, cabm, dps) on the card and on the CPU for 3 steps and
+    require equal states, structures and fields;
 (d) run the four FULL-mode arms through their entry point,
     ``bench_torch.main()``, at 10M particles, 1 warm-up + 20 timed steps
     each, with the launch counters reset just before each: the cartesian
@@ -41,8 +44,11 @@ sources in this checkout.  Phases, each raising on failure:
     then CSR, CabM and DPS with 1 + 3; require each layout's launch set
     (DPS steps launch neither G nor S), ``num_ptcls`` equal to the active
     count, no overflow, every active element in range and the active pids
-    equal to those the last search kept;
-(e) print the kernels' JSON line, the card's line, and the contract line
+    equal to those the last search kept.  After the Sell-C-σ run, G's
+    columns form is checked and timed as in (c) on the columns and source
+    rows its 20th timed step's rebuild gathered;
+(e) print the kernels' JSON line (each kernel's first case, and every case
+    under ``cases``), the card's line, and the contract line
     ``{"ok": true, "device": {...}}`` last.
 
 Tolerance: every comparison is exact (max |kernel - plain| must be 0, no
@@ -53,6 +59,7 @@ functions as the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -157,12 +164,19 @@ def compare(kernel: str, what: str, got, want, results: dict) -> None:
     results[kernel]["max_abs_err"] = max(results[kernel].get("max_abs_err", 0.0), err)
 
 
+def case_of(kernel: str, what: str, results: dict) -> dict:
+    """The record of one timed case of a kernel (listed under ``cases`` on
+    the kernels' JSON line)."""
+    return results[kernel].setdefault("cases", {}).setdefault(what, {})
+
+
 def time_pair(kernel: str, what: str, fn, plain, results: dict, reps: int = 20,
               plain_reps: int = 5, record: bool = True) -> None:
     """Time a kernel and its plain version; the first timing of a kernel
     is the one its JSON entry carries."""
     ms, pms = cuda_ms(fn, reps), cuda_ms(plain, plain_reps)
     log(f"[c] {kernel} {what}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    case_of(kernel, what, results).update(ms=ms, plain_ms=pms)
     if record and "ms" not in results[kernel]:
         results[kernel].update(ms=ms, plain_ms=pms)
 
@@ -183,16 +197,57 @@ def record_bound(kernel: str, what: str, results: dict, bytes_moved: int,
     log(f"[c] {' '.join(filter(None, (kernel, what)))} bound: "
         f"{bytes_moved / 1e6:.1f} MB, {ops:.3g} f32 ops "
         f"-> {bound_ms:.4f} ms ({bound_by})")
+    case_of(kernel, what, results).update(bound_ms=bound_ms, bound_by=bound_by)
     results[kernel].setdefault("bound_ms", bound_ms)
     results[kernel].setdefault("bound_by", bound_by)
 
 
-def record_library(kernel: str, what: str, fn, results: dict, reps: int = 20) -> None:
-    """Time one PyTorch call computing the kernel's function (its
-    yardstick; the port never calls it)."""
+def record_library(kernel: str, what: str, call: str, fn, results: dict,
+                   reps: int = 20) -> None:
+    """Time one PyTorch call (``call``) computing the kernel's function in
+    case ``what`` (its yardstick; the port never calls it)."""
     ms = cuda_ms(fn, reps)
-    log(f"[c] {kernel} library yardstick {what}: {ms:.4f} ms")
+    log(f"[c] {kernel} {what} library yardstick {call}: {ms:.4f} ms")
+    case_of(kernel, what, results).update(library=call, library_ms=ms)
     results[kernel].setdefault("library_ms", ms)
+
+
+def ring_key_streams(elem, active, rg, E: int, R: int, rmax: float):
+    """H key mode's two key streams as one (2N,) int64 tensor, E·R where a
+    particle deposits nothing (``torch.bincount``'s input)."""
+    from pumipic_torch.ops import scatter as sc
+
+    rdf = sc.ring_of_radius(rg, rmax, R)
+    ok = active & (elem >= 0) & (elem < E) & ~torch.isnan(rdf)
+    base = elem.to(torch.int64) * R + torch.where(ok, rdf, 0.0).to(torch.int64)
+    return torch.cat([torch.where(ok, base, E * R), torch.where(ok, base + 1, E * R)])
+
+
+@contextlib.contextmanager
+def gathers_at(calls: dict):
+    """Inside the block, capture the rebuild gathers
+    (``particles.structure._gather_fields``) whose call numbers, counted
+    from 1, are keys of ``calls``; yields {calls[k]: (columns, source
+    rows)}, the arrays kernel G moves.  Captures launch nothing."""
+    from pumipic_torch.ops import rows
+    from pumipic_torch.particles import structure as st
+
+    captured, count = {}, [0]
+    gather_fields = st._gather_fields
+
+    def spy(fields, take, extra=()):
+        count[0] += 1
+        if count[0] in calls:
+            captured[calls[count[0]]] = (
+                [c.contiguous() for c in [*fields.values(), *extra] if rows.lanes_of(c) > 0],
+                take.to(torch.int32))
+        return gather_fields(fields, take, extra)
+
+    st._gather_fields = spy
+    try:
+        yield captured
+    finally:
+        st._gather_fields = gather_fields
 
 
 def phase_a() -> str:
@@ -288,19 +343,24 @@ def check_cartesian(results: dict, dev, mesh):
               plain_reps=2)
     record_bound("locate", "plain walk", results, nbytes(*gargs[:5], *got[:2]))
 
-    # H: histogram of 10M keys into E bins
+    # H: histogram of 10M keys into E bins, in the main path's order (the
+    # particles' own, seeded element by element) and in a random order
     E = mesh.nelems
-    got = sc.histogram(elem, active, E)
-    compare("histogram", f"({n} keys, {E} bins)", got,
-            sc.histogram_plain(elem, active, E), results)
-    time_pair("histogram", "", lambda: sc.histogram(elem, active, E),
-              lambda: sc.histogram_plain(elem, active, E), results)
-    counts = got
-    record_bound("histogram", "", results, nbytes(elem, active, counts))
-    key = torch.where(active, elem, E)
-    record_library("histogram", "torch.bincount", lambda: torch.bincount(key, minlength=E + 1),
-                   results)
-    del key
+    perm = torch.randperm(n, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    for what, e, a in (("main-path order", elem, active),
+                       ("random order", elem[perm], active[perm])):
+        got = sc.histogram(e, a, E)
+        compare("histogram", f"{what} ({n} keys, {E} bins)", got,
+                sc.histogram_plain(e, a, E), results)
+        time_pair("histogram", what, lambda: sc.histogram(e, a, E),
+                  lambda: sc.histogram_plain(e, a, E), results)
+        record_bound("histogram", what, results, nbytes(e, a, got))
+        key = torch.where(a, e, E)
+        record_library("histogram", what, "torch.bincount",
+                       lambda: torch.bincount(key, minlength=E + 1), results)
+        if what == "main-path order":
+            counts = got
+    del perm, key, e, a
 
     # D: ring expansion + mapped scatter at V, R, P
     got_r = sc.deposit_rings(counts, mesh, R)
@@ -380,6 +440,11 @@ def check_pprad(results: dict, dev, mesh, elem, active) -> None:
     time_pair("histogram", "key mode", lambda: sc.histogram(*args),
               lambda: sc.histogram_plain(*args), results, record=False)
     record_bound("histogram", "key mode", results, nbytes(elem, active, rg, got))
+    # the yardstick: torch.bincount of the two key streams, made beforehand
+    keys = ring_key_streams(elem, active, rg, E, R, rmax)
+    record_library("histogram", "key mode", "torch.bincount of the two key streams",
+                   lambda: torch.bincount(keys, minlength=E * R + 1), results)
+    del keys
     counts = got.view(E, R)
     compare("deposit", f"pass 1 from (E, R) = ({E}, {R}) counts",
             sc.deposit_rings(counts, mesh, R), sc.ring_accum_plain(counts, mesh, R),
@@ -416,6 +481,34 @@ def check_annulus(results: dict, dev) -> None:
     record_bound("annulus_locate", "", results, nbytes(tx, ty, s["active"], *got), 300.0 * n)
 
 
+def scs_of_located(dev, E: int, s: dict, elem, active):
+    """Phase c's Sell-C-σ structure (chunks of 8 rows, no sorting window)
+    of the FULL-mode state ``s``'s particles in the located elements
+    ``elem``: fields x, xtgt, pid, b and phi, as the app carries them."""
+    from pumipic_torch.particles import SCSInput, SellCSigma
+
+    n = s["x0"].shape[0]
+    x = torch.stack([s["x0"], s["x1"]], 1)
+    fields = {"x": x, "xtgt": torch.zeros_like(x),
+              "pid": torch.arange(n, dtype=torch.int32, device=dev), "b": s["b"],
+              "phi": torch.atan2(s["sphi"], s["cphi"])}
+    return SellCSigma(E, torch.where(active, elem, -1), fields=fields,
+                      scs_input=SCSInput(chunk_size=8, sigma=None), device=dev)
+
+
+def located_after_push(mesh, ps, cfg, locator, bands):
+    """The elements of ``ps``'s particles after one phi-mode push from
+    their positions: the new elements a rebuild of ``ps`` takes."""
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import search as se
+
+    tx, ty, _, _ = push_ops.push_phi(ps.get("x"), ps.get("phi"), ps.get("b"), ps.active,
+                                     ps.elem, cfg.deg_per_push, cfg.h, cfg.k, cfg.d,
+                                     bands=bands)
+    return se.walk_locate(mesh.walk_geom, tx, ty, ps.elem, ps.active,
+                          cfg.max_search_iters, grid=locator)[0]
+
+
 def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
     """G's rows form at T2's probe shape; then, on a Sell-C-σ structure of
     the 10M located particles, P's phi mode (band and class forms), S in the
@@ -426,9 +519,7 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
     from pumipic_torch.models import pseudo_xgcm as px
     from pumipic_torch.ops import push as push_ops
     from pumipic_torch.ops import rows
-    from pumipic_torch.ops import search as se
     from pumipic_torch.ops.scatter import histogram
-    from pumipic_torch.particles import SCSInput, SellCSigma
     from pumipic_torch.particles import structure as st
 
     # G, rows form: perf/pallas_gather_ab.py's probe (C 24,576 x W 14 f32,
@@ -443,20 +534,14 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
     time_pair("row_gather", "rows form (T2 probe)", lambda: rows.row_gather(table, idx),
               lambda: rows.row_gather_plain(table, idx), results)
     record_bound("row_gather", "rows form (T2 probe)", results, nbytes(table, idx, got))
-    record_library("row_gather", "torch.index_select", lambda: torch.index_select(table, 0, idx),
-                   results)
+    record_library("row_gather", "rows form (T2 probe)", "torch.index_select",
+                   lambda: torch.index_select(table, 0, idx), results)
     del table, idx, got
 
     cfg = _cfg(px, mesh)
     E = mesh.nelems
-    n = s["x0"].shape[0]
-    x = torch.stack([s["x0"], s["x1"]], 1)
-    fields = {"x": x, "xtgt": torch.zeros_like(x),
-              "pid": torch.arange(n, dtype=torch.int32, device=dev), "b": s["b"],
-              "phi": torch.atan2(s["sphi"], s["cphi"])}
     t0 = time.perf_counter()
-    ps = SellCSigma(E, torch.where(active, elem, -1), fields=fields,
-                    scs_input=SCSInput(chunk_size=8, sigma=None), device=dev)
+    ps = scs_of_located(dev, E, s, elem, active)
     torch.cuda.synchronize()
     log(f"[c] SCS structure of {int(ps.num_ptcls)} particles: capacity {ps.capacity}, "
         f"built in {time.perf_counter() - t0:.2f} s")
@@ -479,9 +564,7 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
         record_bound("push", f"phi mode, {form}", results,
                      nbytes(*base, c, *got, None if b is None else b.starts),
                      25.0 * ps.capacity)
-    tx, ty = got[0], got[1]
-    new_elem = se.walk_locate(mesh.walk_geom, tx, ty, ps.elem, ps.active,
-                              cfg.max_search_iters, grid=model.locator)[0]
+    new_elem = located_after_push(mesh, ps, cfg, model.locator, bands)
 
     # the sorted rebuild's inputs, as _rebuild / _rebuild_sorted make them
     el = torch.where(ps.active & (new_elem >= 0) & (new_elem < E), new_elem, -1)
@@ -509,28 +592,39 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
         if layout == "scs":
             src = got[0]
 
-    # G, columns form: the rebuild's fields in place plus the key lane
+    # G, columns form: the rebuild's fields in place plus the key lane, at
+    # one step's locality and at a random permutation of the slots (the
+    # app's own order after 20 steps follows run_app)
     cols = [ps.fields[k] for k in ("x", "xtgt", "pid", "b", "phi")] + [key]
-    got = rows.row_gather(cols, src)
-    bits = [t.view(torch.int32) if t.dtype == torch.float32 else t
-            for t in got]
-    want = [t.view(torch.int32) if t.dtype == torch.float32 else t
-            for t in rows.row_gather_plain(cols, src)]
-    compare("row_gather", f"columns form (x 2, xtgt 2, pid, b, phi, key; {C} slots)",
-            bits, want, results)
-    time_pair("row_gather", "columns form (rebuild)", lambda: rows.row_gather(cols, src),
-              lambda: rows.row_gather_plain(cols, src), results, record=False)
-    record_bound("row_gather", "columns form (rebuild)", results, nbytes(src, *cols, *got))
-    # the same columns at a random permutation of the slots: every 4-byte
-    # lane read then costs a whole 32-byte sector
+    check_columns(results, "columns form, step-1 locality", cols, src)
     perm = torch.randperm(C, device=dev, generator=torch.Generator(dev).manual_seed(0)
                           ).to(torch.int32)
-    time_pair("row_gather", "columns form, random rows", lambda: rows.row_gather(cols, perm),
-              lambda: rows.row_gather_plain(cols, perm), results, record=False)
-    log(f"[c] row_gather columns form, random rows: 32-byte sectors read "
-        f"{32 * C * len(cols) / 1e6:.1f} MB + written {nbytes(*got) / 1e6:.1f} MB -> "
-        f"{(32 * C * len(cols) + nbytes(*got)) / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+    check_columns(results, "columns form, random order", cols, perm)
     del perm
+
+
+def check_columns(results: dict, what: str, cols, src) -> None:
+    """G's columns form on ``cols`` at source rows ``src``: equal to the
+    plain version bit for bit, timed beside it, its bound, the 32-byte
+    sectors it would read without reuse, and torch's per-array indexing."""
+    from pumipic_torch.ops import rows
+
+    def bits(ts):
+        return [t.view(torch.int32) if t.dtype == torch.float32 else t for t in ts]
+
+    got = rows.row_gather(cols, src)
+    lanes = sum(rows.lanes_of(c) for c in cols)
+    compare("row_gather", f"{what} ({len(cols)} arrays, {lanes} lanes; "
+            f"{src.shape[0]} slots)", bits(got), bits(rows.row_gather_plain(cols, src)),
+            results)
+    time_pair("row_gather", what, lambda: rows.row_gather(cols, src),
+              lambda: rows.row_gather_plain(cols, src), results, record=False)
+    record_bound("row_gather", what, results, nbytes(src, *cols, *got))
+    sectors = 32 * src.shape[0] * len(cols) + nbytes(src, *got)
+    log(f"[c] row_gather {what}: one 32-byte sector per array and slot, "
+        f"{sectors / 1e6:.1f} MB -> {sectors / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+    record_library("row_gather", what, "per-array indexing [c[idx.long()] for c in cols]",
+                   lambda: [c[src.long()] for c in cols], results)
 
 
 def check_app_slices(dev) -> None:
@@ -673,12 +767,15 @@ def phase_d(results: dict, dev, band_grid, band_s: float) -> None:
         del state, fields
 
 
-def run_app(results: dict, dev, mesh, grid, structure: str) -> None:
+def run_app(results: dict, dev, mesh, grid, structure: str):
     """The PseudoXGCm app at 10M particles on the 120k mesh through its
     entry points (construction, then ``run``), with the counts reset just
     before; ``grid`` is phase c's cartesian grid for this mesh.  The SCS
     arm is the timed one; the others run 3 steps, with the counts reset
-    after construction so that they show what a step launches."""
+    after construction so that they show what a step launches.  Returns
+    the columns and source rows of the SCS run's last rebuild gather, the
+    20th timed step's (None for the other layouts), read without launching
+    anything and held only after the timed steps."""
     from pumipic_torch import kernels
     from pumipic_torch.models import pseudo_xgcm as px
     from pumipic_torch.utils import timing
@@ -695,11 +792,17 @@ def run_app(results: dict, dev, mesh, grid, structure: str) -> None:
     n0, cap = int(ps.num_ptcls), ps.capacity
     if structure != "scs":
         kernels.reset_launches()
-    app.run(1, verbose=False)                     # warm-up step
-    timing.get_registry().reset()
-    app.run(steps - 1, verbose=False)
-    prev = app.ptcls
-    app.run(1, verbose=False)
+    # the warm-up is the first gather, so the 20th timed step's is the 21st
+    with gathers_at({steps + 1: "step 20"} if structure == "scs" else {}) as captured:
+        app.run(1, verbose=False)                 # warm-up step
+        timing.get_registry().reset()
+        mem0 = torch.cuda.memory_stats()
+        step_s = []                               # each timed step's seconds
+        for i in range(steps):
+            prev = app.ptcls
+            app.run(1, verbose=False)
+            step_s.append(timing.get_registry().ops["xgcm step"].total - sum(step_s))
+        mem1 = torch.cuda.memory_stats()
     counts = dict(kernels.LAUNCHES)
     st = timing.get_registry().ops["xgcm step"]
     ms = st.total / st.count * 1e3
@@ -710,6 +813,11 @@ def run_app(results: dict, dev, mesh, grid, structure: str) -> None:
         f"registry; min {st.tmin * 1e3:.4f}, max {st.tmax * 1e3:.4f}), "
         f"{n0 / (ms / 1e3):.6g} particle-steps/s, num_ptcls {int(ps.num_ptcls)}, "
         f"metrics {m}")
+    log(f"[d] app {structure}: step ms {[round(t * 1e3, 4) for t in step_s]}, median "
+        f"{sorted(step_s)[len(step_s) // 2] * 1e3:.4f}; the allocator in the timed steps: "
+        + ", ".join(f"{k} {mem1.get(k, 0) - mem0.get(k, 0)}" for k in (
+            "num_device_alloc", "num_device_free", "num_alloc_retries"))
+        + f", reserved {mem1.get('reserved_bytes.all.current', 0) / 2**30:.2f} GiB")
     log(f"[d] app {structure} kernel launches: {counts}")
     launched = {k for k, v in counts.items() if v > 0}
     if launched != set(APP_ARMS[structure]):
@@ -747,6 +855,7 @@ def run_app(results: dict, dev, mesh, grid, structure: str) -> None:
         raise AssertionError(f"app {structure}: only {int(act.sum())} alive")
     log(f"[d] app {structure}: invariants hold (num_ptcls == active, no overflow, "
         f"ids in range, {got.shape[0]} active pids == the last search's survivors)")
+    return captured.get("step 20")
 
 
 def main() -> int:
@@ -763,7 +872,10 @@ def main() -> int:
     mesh, grid, band_grid, band_s = phase_c(results, dev)
     phase_d(results, dev, band_grid, band_s)
     for structure in APP_ARMS:
-        run_app(results, dev, mesh, grid, structure)
+        step20 = run_app(results, dev, mesh, grid, structure)
+        if step20 is not None:      # G at the app's own order after 20 steps
+            check_columns(results, "columns form, app step-20 order", *step20)
+            del step20
     line = {"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": results[name]["launches"],
@@ -771,7 +883,9 @@ def main() -> int:
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"],
          "bound_by": results[name]["bound_by"],
-         "library_ms": results[name].get("library_ms")}
+         "library_ms": results[name].get("library_ms"),
+         "cases": [{"case": what, **rec}
+                   for what, rec in results[name].get("cases", {}).items()]}
         for name, (route, src, rep) in KERNELS.items()]}
     print(json.dumps(line))
     print(smi)

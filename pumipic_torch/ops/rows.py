@@ -55,8 +55,9 @@ def row_gather(src: Arrays, idx: torch.Tensor):
     """``out[i] = src[idx[i]]`` for one (M, ...) table (form (a), returns a
     tensor) or for each array of a list sharing the index (form (b),
     returns a list).  Arrays are moved as 4-byte words (f32, i32, and
-    8-byte types as two words); ``idx`` is i32 with values in [0, M).
-    Kernel G on CUDA tensors, :func:`row_gather_plain` on CPU tensors."""
+    8-byte types as two words), at any 4-byte alignment; ``idx`` is i32
+    with values in [0, M).  Kernel G on CUDA tensors,
+    :func:`row_gather_plain` on CPU tensors."""
     single = isinstance(src, torch.Tensor)
     cols: List[torch.Tensor] = [src] if single else list(src)
     if not kernels.use_kernel("row_gather", idx, *cols):

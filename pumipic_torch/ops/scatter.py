@@ -76,7 +76,9 @@ def histogram(elem: torch.Tensor, active: torch.Tensor, num_keys: int,
               gyro_rmax: float = 0.0) -> torch.Tensor:
     """Particles per element (active particles only), or with
     ``ptcl_radius`` per (element, ring) key (see :func:`histogram_plain`).
-    Kernel H on CUDA tensors, :func:`histogram_plain` on CPU tensors."""
+    Kernel H on CUDA tensors (at any alignment: its launcher finds where
+    the 16-byte loads may start), :func:`histogram_plain` on CPU
+    tensors."""
     tensors = (elem, active) + (() if ptcl_radius is None else (ptcl_radius,))
     if not kernels.use_kernel("histogram", *tensors):
         return histogram_plain(elem, active, num_keys, ptcl_radius,
@@ -84,11 +86,14 @@ def histogram(elem: torch.Tensor, active: torch.Tensor, num_keys: int,
     if elem.dtype != torch.int32 or active.dtype != torch.bool:
         raise ValueError("histogram: i32 elem and bool active expected")
     P = ctypes.c_void_p
+    n = elem.shape[0]
     if ptcl_radius is None:
         counts = torch.zeros(num_keys, dtype=torch.int32, device=elem.device)
+        if n == 0:
+            return counts
         err = _build.lib().pp_histogram(
             P(elem.data_ptr()), P(active.data_ptr()), num_keys,
-            P(counts.data_ptr()), elem.shape[0], P(kernels.stream_handle()))
+            P(counts.data_ptr()), n, P(kernels.stream_handle()))
     else:
         if ptcl_radius.dtype != torch.float32 or ptcl_radius.shape != elem.shape:
             raise ValueError("histogram: f32 radius of elem's shape expected")
@@ -96,10 +101,12 @@ def histogram(elem: torch.Tensor, active: torch.Tensor, num_keys: int,
             raise ValueError("histogram: key mode needs R >= 2 and E·R < 2^31")
         counts = torch.zeros(num_keys * num_rings, dtype=torch.int32,
                              device=elem.device)
+        if n == 0:
+            return counts
         err = _build.lib().pp_histogram_rings(
             P(elem.data_ptr()), P(active.data_ptr()), P(ptcl_radius.data_ptr()),
             _ring_width(gyro_rmax, num_rings), num_keys, num_rings,
-            P(counts.data_ptr()), elem.shape[0], P(kernels.stream_handle()))
+            P(counts.data_ptr()), n, P(kernels.stream_handle()))
     _build.check(err, "histogram")
     kernels.LAUNCHES["histogram"] += 1
     return counts

@@ -369,3 +369,101 @@ def test_structure_rebuilds_card_equal_cpu(dev, layout):
             assert a is None or torch.equal(a.cpu(), b), (i, k)
         for k in c.fields:
             assert torch.equal(g.fields[k].cpu(), c.fields[k]), (i, k)
+
+
+# ---------------------------------------------------------------------------
+# kernel H's vector loads, run merge and warp rounds; kernel G's edge cases
+# ---------------------------------------------------------------------------
+
+def _h_inputs(rng, n, order, E):
+    """(elem, active) numpy arrays for one H case."""
+    if order == "one element":
+        return np.full(n, 7, np.int32), np.ones(n, bool)
+    if order == "inactive":
+        return rng.integers(0, E, n).astype(np.int32), np.zeros(n, bool)
+    lo, hi = (-5, E + 5) if order == "out of range" else (0, E)
+    elem = rng.integers(lo, hi, n).astype(np.int32)
+    if order == "sorted":
+        elem.sort()
+    return elem, rng.uniform(size=n) < 0.9
+
+
+def _on_card(a, dev, view):
+    """``a`` on the card, at the start of its storage or (view) one element
+    in, so that the tensor's data_ptr is not 16-byte aligned."""
+    if not view:
+        return torch.as_tensor(a, device=dev)
+    pad = np.concatenate([a[:1] if len(a) else np.zeros(1, a.dtype), a])
+    return torch.as_tensor(pad, device=dev)[1:]
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 17, (1 << 20) + 7])
+@pytest.mark.parametrize("order", ["one element", "sorted", "random", "inactive",
+                                   "out of range"])
+@pytest.mark.parametrize("mode", ["elem", "3 rings", "5 rings"])
+@pytest.mark.parametrize("views", ["none", "all", "elem only"])
+def test_histogram_kernel_orders_and_alignments(dev, n, order, mode, views):
+    """H equals its plain version for ordered, random, inactive and
+    out-of-range keys, at sizes that leave heads and tails, on views whose
+    data_ptr is not 16-byte aligned (all inputs alike: the vector loads
+    start after a head; elem alone: no common start, every load scalar);
+    key mode with 3 and 5 rings and NaN radii."""
+    E = 1000
+    rng = np.random.default_rng(n)
+    e_np, a_np = _h_inputs(rng, n, order, E)
+    elem = _on_card(e_np, dev, views != "none")
+    active = _on_card(a_np, dev, views == "all")
+    args = (elem, active, E)
+    if mode != "elem":
+        rg_np = rng.uniform(0.0, 0.05, n).astype(np.float32)
+        rg_np[::13] = np.nan
+        args += (_on_card(rg_np, dev, views == "all"), int(mode[0]), 0.038)
+    n0 = kernels.LAUNCHES["histogram"]
+    got = sc.histogram(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["histogram"] == n0 + (1 if n else 0)
+    assert torch.equal(got, sc.histogram_plain(*args))
+
+
+def _g_cols(rng, M, dev, wide):
+    """Columns for G: an (M, 2) f32 view at an odd 4-byte offset (4-byte
+    units), aligned (M, 2) f32, i32, (M, 3) f32 and i64 columns (8-byte
+    units); ``wide`` adds (M, 14) and (M, 20) f32 columns (rows of 7 and 10
+    8-byte units)."""
+    odd = _bits(rng, (2 * M + 1,), dev)[1:].view(M, 2)
+    cols = [odd, _bits(rng, (M, 2), dev), _bits(rng, (M,), dev).view(torch.int32),
+            _bits(rng, (M, 3), dev), torch.as_tensor(rng.integers(-2**62, 2**62, M),
+                                                     device=dev)]
+    if wide:
+        cols += [_bits(rng, (M, 14), dev), _bits(rng, (M, 20), dev)]
+    return cols
+
+
+@pytest.mark.parametrize("n", [3, 1029, (1 << 20) + 7])
+@pytest.mark.parametrize("index", ["random", "all equal", "reversed", "view"])
+@pytest.mark.parametrize("wide", [False, True])
+def test_row_gather_columns_form_edge_cases(dev, n, index, wide):
+    """G equals the plain version on rows at an odd 4-byte offset (moved as
+    4-byte units), 8-byte types as two words, widths of 14 and 20 lanes,
+    all indices equal, a reversed permutation, and an index view whose
+    data_ptr is not 16-byte aligned."""
+    from pumipic_torch.ops import rows
+
+    rng = np.random.default_rng(n + 11 * wide)
+    M = n + 5
+    cols = _g_cols(rng, M, dev, wide)
+    if index == "all equal":
+        idx_np = np.full(n, M - 1, np.int32)
+    elif index == "reversed":
+        idx_np = np.arange(n - 1, -1, -1, dtype=np.int32)
+    else:
+        idx_np = rng.integers(0, M, n).astype(np.int32)
+    idx = _on_card(idx_np, dev, index == "view")
+    n0 = kernels.LAUNCHES["row_gather"]
+    got = rows.row_gather(cols, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_gather"] == n0 + 1
+    for g, w in zip(got, rows.row_gather_plain(cols, idx)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           w.view(torch.int32) if w.dtype == torch.float32 else w)
