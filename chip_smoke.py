@@ -9,15 +9,21 @@ sources in this checkout.  Phases, each raising on failure:
     the torch / CUDA versions;
 (b) build the eight kernels (P push, B band cell, A annulus locate, L
     locate, H histogram, D deposit, G row gather, S slot map), one nvcc per
-    source, all at once;
+    source, all at once, and keep ptxas's registers, shared memory and
+    spills of each source's entry functions for the kernels' JSON line;
 (c) run each kernel and its plain PyTorch version on the card on the same
     inputs at the shapes the main paths give it, require equal outputs, and
-    time both; give each kernel its bound (bytes over 3.35 TB/s or f32
-    operations over 67 TFLOP/s, whichever is larger) and, where one
-    PyTorch call computes the same function, that call's time
-    (``torch.bincount`` for H, of the two key streams in key mode;
-    ``torch.index_select`` for G's rows form, per-array indexing for its
-    columns form).  On the 120k-element gmsh mesh at 10M particles: P, L
+    time both on the device (CUDA events around runs enqueued while the
+    card sleeps, so a wrapper's host time is not in them, ``device_ms``);
+    give each kernel its bound (bytes over 3.35 TB/s or f32
+    operations over 67 TFLOP/s, whichever is larger; B also the floor of
+    its uncontracted instruction stream, one FMUL or FADD per operation at
+    the card's maximum SM clock) and, where one PyTorch call computes the
+    same function, that call's time (``torch.bincount`` for H, of the two
+    key streams in key mode; ``torch.index_select`` for G's rows form,
+    per-array indexing for its columns form; ``torch.mv`` of a CSR matrix
+    for D: the composite gyro map for both passes, the ring incidence for
+    pass 1 from (E, R)).  On the 120k-element gmsh mesh at 10M particles: P, L
     (peel + walk), H in the main path's order and in a random order of the
     same keys, D, L's plain walk over the 1.48M gyro ring points, H's
     (element, ring) key mode and D's pass 1 from (E, R) counts; G's rows
@@ -62,6 +68,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -124,11 +131,29 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
-    warm-up, timed with CUDA events."""
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
+    timed with CUDA events from the first run's enqueue: the host's share
+    where the host enqueues slower than the device runs."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
+    warm-up, without the host's share: the card sleeps while the host
+    enqueues the runs, so the CUDA events time them back to back on the
+    device (a call that waits for the device adds its wait)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -174,7 +199,7 @@ def time_pair(kernel: str, what: str, fn, plain, results: dict, reps: int = 20,
               plain_reps: int = 5, record: bool = True) -> None:
     """Time a kernel and its plain version; the first timing of a kernel
     is the one its JSON entry carries."""
-    ms, pms = cuda_ms(fn, reps), cuda_ms(plain, plain_reps)
+    ms, pms = device_ms(fn, reps), device_ms(plain, plain_reps)
     log(f"[c] {kernel} {what}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
     case_of(kernel, what, results).update(ms=ms, plain_ms=pms)
     if record and "ms" not in results[kernel]:
@@ -206,7 +231,7 @@ def record_library(kernel: str, what: str, call: str, fn, results: dict,
                    reps: int = 20) -> None:
     """Time one PyTorch call (``call``) computing the kernel's function in
     case ``what`` (its yardstick; the port never calls it)."""
-    ms = cuda_ms(fn, reps)
+    ms = device_ms(fn, reps)
     log(f"[c] {kernel} {what} library yardstick {call}: {ms:.4f} ms")
     case_of(kernel, what, results).update(library=call, library_ms=ms)
     results[kernel].setdefault("library_ms", ms)
@@ -221,6 +246,43 @@ def ring_key_streams(elem, active, rg, E: int, R: int, rmax: float):
     ok = active & (elem >= 0) & (elem < E) & ~torch.isnan(rdf)
     base = elem.to(torch.int64) * R + torch.where(ok, rdf, 0.0).to(torch.int64)
     return torch.cat([torch.where(ok, base, E * R), torch.where(ok, base + 1, E * R)])
+
+
+def gyro_composite(mesh, gyro_map, R: int, P: int, dev):
+    """D's yardstick for both passes from (E,) counts: the composite
+    (V x E) map M2·M1 / P as a CSR matrix on ``dev`` (built on the host),
+    where M1 (V·R x E) expands each element's count to the uniform
+    radius's ring pair at its three vertices and M2 (V x V·R) is the gyro
+    map.  With integer counts and P = 8 every entry, product and partial
+    sum is a multiple of 1/8 far below 2^24, so ``torch.mv`` with it gives
+    D's bits."""
+    from pumipic_torch.ops import scatter as sc
+
+    V, E = mesh.nverts, mesh.nelems
+    e = torch.arange(E).repeat_interleave(3)
+    v = mesh.elem2verts.cpu().to(torch.int64).reshape(-1)
+    rings = sorted(set(sc.ring_pair(R)))
+    m1 = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([v * R + r for r in rings]), e.repeat(len(rings))]),
+        torch.ones(v.numel() * len(rings)), (V * R, E))
+    flat = gyro_map.flat.cpu().to(torch.int64)
+    ok = flat >= 0
+    slot = torch.arange(flat.numel()) // (P * 3)
+    m2 = torch.sparse_coo_tensor(torch.stack([flat[ok], slot[ok]]),
+                                 torch.ones(int(ok.sum())), (V, V * R))
+    return (torch.sparse.mm(m2, m1).coalesce() / P).to_sparse_csr().to(dev)
+
+
+def ring_incidence(mesh, R: int, dev):
+    """D's yardstick for pass 1 from (E, R) counts: the (V·R x E·R)
+    incidence of each (vertex, ring) on its elements' same ring, as a CSR
+    matrix on ``dev`` (integer sums: exact)."""
+    V, E = mesh.nverts, mesh.nelems
+    e = torch.arange(E).repeat_interleave(3)[:, None] * R + torch.arange(R)
+    v = mesh.elem2verts.cpu().to(torch.int64).reshape(-1)[:, None] * R + torch.arange(R)
+    return torch.sparse_coo_tensor(torch.stack([v.reshape(-1), e.reshape(-1)]),
+                                   torch.ones(v.numel()), (V * R, E * R)
+                                   ).coalesce().to_sparse_csr().to(dev)
 
 
 @contextlib.contextmanager
@@ -250,19 +312,44 @@ def gathers_at(calls: dict):
         st._gather_fields = gather_fields
 
 
+def smi_query(fields: str, units: bool = True) -> str:
+    """The first card's ``nvidia-smi --query-gpu=fields`` as one line."""
+    fmt = "--format=csv,noheader" + ("" if units else ",nounits")
+    return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", fmt],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def phase_a() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = smi_query("name,power.limit")
     log(f"[a] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    log(f"[a] card: {smi}")
+    log(f"[a] card: {smi}; max SM clock {smi_query('clocks.max.sm')}")
     return smi
 
 
-def phase_b() -> None:
+def ptxas_functions(report: str) -> list:
+    """Each entry function of a ``ptxas -v`` report: its (mangled) name,
+    registers, shared memory and spilled bytes."""
+    funcs = []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            funcs.append({"function": m.group(1)})
+        elif funcs and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                       line)):
+            funcs[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif funcs and (m := re.search(r"Used (\d+) registers", line)):
+            s = re.search(r"(\d+) bytes smem", line)
+            funcs[-1].update(registers=int(m.group(1)), smem_bytes=int(s.group(1)) if s else 0)
+    return funcs
+
+
+def phase_b(results: dict) -> None:
+    """Build the library; each kernel's record gets ptxas's report of its
+    source's entry functions (registers, shared memory, spills)."""
     from pumipic_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -270,6 +357,10 @@ def phase_b() -> None:
     _build.lib()
     log(f"[b] kernels built in {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(path, HERE)}")
+    for name, (_, src, _) in KERNELS.items():
+        report = _build.REPORTS.get(os.path.basename(src))
+        results[name].setdefault("extra", {})["ptxas"] = (
+            ptxas_functions(report) if report is not None else "not reported (cached build)")
 
 
 def _cfg(px, mesh, **kw):
@@ -382,6 +473,13 @@ def check_cartesian(results: dict, dev, mesh):
     record_bound("deposit", "both passes", results, nbytes(
         counts, mesh.vert2elem_offsets, mesh.vert2elem_vals, model.gyro_fwd.offsets,
         model.gyro_fwd.src, got_r, got_f))
+    m = gyro_composite(mesh, model.gyro_fwd, R, P, dev)
+    cf = counts.to(torch.float32)
+    log(f"[c] deposit yardstick: composite map {tuple(m.shape)}, {m.values().numel()} "
+        f"entries; max |mv - kernel| = {max_err(torch.mv(m, cf), got_f)}")
+    record_library("deposit", "both passes", "torch.mv of the composite CSR map M2·M1/P",
+                   lambda: torch.mv(m, cf), results)
+    del m, cf
     return s, model, elem, active
 
 
@@ -410,6 +508,16 @@ def check_band(results: dict, dev, mesh):
     # ~1,450 f32 operations per point (harmonics, Chebyshev Newton, θ-bin)
     record_bound("band_cell", "", results, nbytes(tx, ty, grid.coef_u, grid.coef_v,
                                               grid.inv_coef, got), 1450.0 * n)
+    # the floor of B's uncontracted stream (-fmad=false): one FMUL or FADD
+    # per operation, one warp instruction per clock on each of an SM's 128
+    # f32 lanes, at the card's maximum SM clock
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi_query("clocks.max.sm", units=False))
+    floor_ms = 1450.0 * n / (sms * 128 * mhz * 1e6) * 1e3
+    log(f"[c] band_cell uncontracted floor: 1450 x {n} instructions over {sms} SMs "
+        f"x 128 lanes x {mhz:.0f} MHz -> {floor_ms:.4f} ms")
+    case_of("band_cell", "", results)["uncontracted_floor_ms"] = floor_ms
+    results["band_cell"]["extra"]["uncontracted_floor_ms"] = floor_ms
 
     largs = (mesh.walk_geom, tx, ty, s["elem"], s["active"], cfg.max_search_iters)
     got = se.walk_locate(*largs, grid=grid)
@@ -454,6 +562,12 @@ def check_pprad(results: dict, dev, mesh, elem, active) -> None:
     record_bound("deposit", "pass 1 from (E, R)", results,
                  nbytes(counts, mesh.vert2elem_offsets, mesh.vert2elem_vals) +
                  4 * mesh.nverts * R)
+    m = ring_incidence(mesh, R, dev)
+    cf = counts.reshape(-1).to(torch.float32)
+    log(f"[c] deposit pass 1 yardstick: max |mv - kernel| = "
+        f"{max_err(torch.mv(m, cf), sc.deposit_rings(counts, mesh, R).reshape(-1))}")
+    record_library("deposit", "pass 1 from (E, R)", "torch.mv of the CSR ring incidence",
+                   lambda: torch.mv(m, cf), results)
 
 
 def check_annulus(results: dict, dev) -> None:
@@ -866,8 +980,8 @@ def main() -> int:
         raise RuntimeError(f"pumipic_torch was imported from {pkg}, not from "
                            f"this checkout")
     smi = phase_a()
-    phase_b()
     results = {name: {} for name in KERNELS}
+    phase_b(results)
     dev = torch.device("cuda")
     mesh, grid, band_grid, band_s = phase_c(results, dev)
     phase_d(results, dev, band_grid, band_s)
@@ -884,6 +998,7 @@ def main() -> int:
          "bound_ms": results[name]["bound_ms"],
          "bound_by": results[name]["bound_by"],
          "library_ms": results[name].get("library_ms"),
+         **results[name]["extra"],
          "cases": [{"case": what, **rec}
                    for what, rec in results[name].get("cases", {}).items()]}
         for name, (route, src, rep) in KERNELS.items()]}

@@ -61,10 +61,7 @@ SIGNATURES = {
         _I, _I,                              # max_iters it0
         _P, _P, _P,                          # elem_out active_out stats
         _L, _P],                             # n stream
-    "pp_band_cell": [
-        _P, _P, _L, _F, _F,                  # px py n cx cy
-        _P, _I, _I, _I, _I, _I, _I, _I,      # coefs K T J P rank n_inv newton
-        _P, _P],                             # cells stream
+    "pp_band_cell": [_P, _P, _L, _P, _P, _P],  # px py n params(host) cells stream
     "pp_annulus_locate": [
         _P, _P, _P, _L,                      # px py active n
         _F, _F, _F, _F, _F, _F,              # cx cy theta0 two_pi dth m
@@ -83,6 +80,9 @@ SIGNATURES = {
 }
 
 _LIB = None
+# source file name -> ptxas's report (registers, shared memory, spills) of
+# the last verbose build in this process
+REPORTS = {}
 
 
 def nvcc_path() -> str:
@@ -109,7 +109,8 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> Path:
     """Compile the library if it is not cached; returns its path.  With
-    ``verbose``, prints ptxas's register and spill report of each source."""
+    ``verbose``, prints ptxas's register and spill report of each source
+    and keeps it in ``REPORTS``."""
     out = library_path()
     if out.exists():
         return out
@@ -129,6 +130,7 @@ def build(verbose: bool = False) -> Path:
         if proc.returncode != 0:
             failed.append(f"{src.name} ({proc.returncode}):\n{err}")
         elif verbose:
+            REPORTS[src.name] = err
             print(f"{src.name}:\n{err}", flush=True)
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))

@@ -27,6 +27,7 @@ never its result: ``polar="auto"`` resolves to cartesian cells here
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -510,6 +511,14 @@ class BandGrid2D:
         from pumipic_torch.ops.locate import band_cell_of
 
         return band_cell_of(self, px, py)
+
+    @cached_property
+    def launch_params(self) -> np.ndarray:
+        """Kernel B's launch parameters, packed on the host at the first
+        launch (:func:`pumipic_torch.ops.locate.band_params`)."""
+        from pumipic_torch.ops.locate import band_params
+
+        return band_params(self)
 
 
 def _ring_vertices_from_bands(tris: np.ndarray, cls: np.ndarray,

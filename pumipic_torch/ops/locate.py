@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from pumipic_torch import kernels
@@ -25,13 +26,36 @@ from pumipic_torch.kernels import _build
 from pumipic_torch.mesh.locator import AnnulusLocator2D, BandGrid2D
 
 INVALID = -1
-# kernel B keeps its accumulators in registers: bounds on the band model
+# kernel B keeps its accumulators in registers and its coefficients in its
+# launch parameters: bounds on the band model
 MAX_HARM, MAX_CHEB, MAX_RANK, MAX_INV_COEF = 24, 12, 8, 11
+MAX_COEF = MAX_RANK * (2 * MAX_HARM + 1) + (MAX_CHEB + 1) * MAX_RANK + MAX_INV_COEF
 
 
 # ---------------------------------------------------------------------------
 # kernel B: flux-band cell id
 # ---------------------------------------------------------------------------
+
+def band_params(grid: BandGrid2D) -> np.ndarray:
+    """Kernel B's launch parameters (``BandParams`` in ``band.cu``) as
+    int32 words: the coefficients as f32 bits, padded to ``MAX_COEF``
+    (coef_v's harmonic columns as (rank, J, (cos, sin)) pairs, which the
+    kernel fetches two at a time, then its constant column, coef_u and
+    inv_coef), then cx and cy (f32 bits), K, T, J, P, rank, the seed terms
+    and the Newton steps.  Read from the device once per grid
+    (:attr:`BandGrid2D.launch_params`)."""
+    J = grid.n_harm
+    cv, cu, ic = (c.detach().cpu().numpy().astype(np.float32)
+                  for c in (grid.coef_v, grid.coef_u, grid.inv_coef))
+    pairs = np.stack([cv[:, 1:1 + J], cv[:, 1 + J:]], axis=-1)
+    coefs = np.concatenate([pairs.reshape(-1), cv[:, 0], cu.reshape(-1), ic.reshape(-1)])
+    words = np.zeros(MAX_COEF + 9, np.int32)
+    words[:coefs.size] = coefs.view(np.int32)
+    words[MAX_COEF:MAX_COEF + 2] = np.array([grid.cx, grid.cy], np.float32).view(np.int32)
+    words[MAX_COEF + 2:] = [grid.n_bands, grid.n_theta, grid.n_harm, grid.n_cheb,
+                            grid.rank, grid.inv_coef.shape[0], grid.newton_iters]
+    return words
+
 
 def band_continuous_plain(grid: BandGrid2D, px: torch.Tensor,
                           py: torch.Tensor):
@@ -112,13 +136,13 @@ def band_cell_of(grid: BandGrid2D, px: torch.Tensor,
             f"{MAX_HARM}, {MAX_CHEB}, {MAX_RANK}, {MAX_INV_COEF}")
     if grid.n_bands * grid.n_theta >= 1 << 24:
         raise ValueError("band_cell: K*T must stay below 2^24")
-    packed = torch.cat([c.reshape(-1).to(torch.float32) for c in coefs])
     cells = torch.empty(n, dtype=torch.int32, device=px.device)
+    if n == 0:
+        return cells
+    params = grid.launch_params
     P = ctypes.c_void_p
     err = _build.lib().pp_band_cell(
-        P(px.data_ptr()), P(py.data_ptr()), n, grid.cx, grid.cy,
-        P(packed.data_ptr()), grid.n_bands, grid.n_theta, grid.n_harm,
-        grid.n_cheb, grid.rank, grid.inv_coef.shape[0], grid.newton_iters,
+        P(px.data_ptr()), P(py.data_ptr()), n, params.ctypes.data_as(P),
         P(cells.data_ptr()), P(kernels.stream_handle()))
     _build.check(err, "band_cell")
     kernels.LAUNCHES["band_cell"] += 1

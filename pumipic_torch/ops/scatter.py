@@ -231,7 +231,11 @@ def scatter_to_mapped_verts(ring_accum: torch.Tensor, gyro_map: GyroMap,
                             num_verts: int, num_rings: int,
                             points_per_ring: int) -> torch.Tensor:
     """Apply the gyro-average map: (V, R) ring accumulation -> (V,).  Kernel
-    D pass 2 on CUDA tensors, :func:`mapped_plain` on CPU tensors."""
+    D pass 2 on CUDA tensors, :func:`mapped_plain` on CPU tensors.  The
+    kernel adds each vertex's terms in its own fixed order (lanes, then a
+    tree: ``deposit.cu``), so it equals the plain version where the terms
+    and sums are exact (integer ring sums, P a power of 2, as on the main
+    path) and may differ in the last bits where a term c/P rounds."""
     args = (ring_accum, gyro_map.offsets, gyro_map.src)
     if not kernels.use_kernel("deposit", *args):
         return mapped_plain(ring_accum, gyro_map, num_verts, num_rings,

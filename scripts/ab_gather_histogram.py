@@ -129,26 +129,11 @@ def bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` calls, without the
-    host's share: the card sleeps while the host enqueues every call, so
-    the events time the calls back to back on the device."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def ab_case(name: str, variants: dict, plain, bound_bytes: int, library, extra=None):
     """Check each variant against the plain output, then time them in
     turns (order, then reversed), with the host's share (``ms``) and on
-    the device alone (``device_ms``); returns the case's record."""
+    the device alone (``device_ms``, as the library call); returns the
+    case's record."""
     want = bits(plain())
     for v, fn in variants.items():
         if cs.mismatches(bits(fn()), want):
@@ -158,13 +143,14 @@ def ab_case(name: str, variants: dict, plain, bound_bytes: int, library, extra=N
     dev_times = {v: [] for v in order}
     for v in order + order[::-1]:
         times[v].append(cs.cuda_ms(variants[v], REPS))
-        dev_times[v].append(device_ms(variants[v], REPS))
+        dev_times[v].append(cs.device_ms(variants[v], REPS))
     rec = {"case": name, "ms": {v: sum(t) / len(t) for v, t in times.items()},
            "device_ms": {v: sum(t) / len(t) for v, t in dev_times.items()},
            "ms_turns": times, "device_ms_turns": dev_times,
            "bound_ms": bound_bytes / cs.PEAK_BYTES_PER_S * 1e3,
            "bound_by": "bytes",
-           "library_ms": cs.cuda_ms(library, REPS) if library else None, **(extra or {})}
+           "library_ms": cs.device_ms(library, REPS) if library else None,
+           **(extra or {})}
     print(json.dumps(rec), flush=True)
     return rec
 

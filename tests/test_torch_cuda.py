@@ -201,6 +201,109 @@ def test_band_kernel_compiled_for_24_12_8_equals_plain(dev):
 
 
 # ---------------------------------------------------------------------------
+# kernel B's two instantiations and kernel D's passes
+# ---------------------------------------------------------------------------
+
+_ODD_POINTS = [(float("nan"), 0.5), (0.5, float("nan")), (float("inf"), 0.0),
+               (-float("inf"), 1.0), (0.0, float("inf")), (0.3, -float("inf")),
+               (1e30, -1e30), (-1e6, 2e6), (float("inf"), -float("inf"))]
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 7])
+@pytest.mark.parametrize("newton", [0, 1, 3, 5])
+@pytest.mark.parametrize("shape", [(7, 5, 3, 4), (24, 12, 8, 11)])
+def test_band_kernel_shapes_newton_steps_and_odd_points(dev, n, newton, shape):
+    """B equals its plain version in its compile-time instantiation
+    ((J, P, rank, seed terms) = (24, 12, 8, 11) with 3 Newton steps) and
+    in the runtime one (the other shapes and step counts), at sizes that
+    leave partial blocks, with points at the centre (r = 0), NaN and
+    infinite coordinates and points far outside the grid first."""
+    from pumipic_torch.mesh.locator import BandGrid2D
+
+    J, P, rank, n_inv = shape
+    K, T = (120, 4096) if J == 24 else (10, 64)
+    rng = np.random.default_rng(n + 7 * newton + J)
+
+    def f32(*dims, scale=1.0):
+        return torch.as_tensor((scale * rng.standard_normal(dims)).astype(np.float32),
+                               device=dev)
+
+    cx, cy = float(np.float32(0.01)), float(np.float32(-0.02))
+    grid = BandGrid2D(cx, cy, f32(P + 1, rank, scale=0.1), f32(rank, 2 * J + 1, scale=0.1),
+                      f32(n_inv, scale=0.3), torch.zeros(K * T, 14, device=dev),
+                      torch.zeros(K * T, dtype=torch.int32, device=dev), n_bands=K,
+                      n_theta=T, n_harm=J, n_cheb=P, rank=rank, newton_iters=newton)
+    xy = rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32)
+    odd = np.array([(cx, cy)] + _ODD_POINTS, np.float32)      # the centre: r = 0
+    m = min(n, len(odd))
+    xy[:m] = odd[:m]
+    px, py = (torch.as_tensor(np.ascontiguousarray(xy[:, k]), device=dev) for k in (0, 1))
+    n0 = kernels.LAUNCHES["band_cell"]
+    got = lo.band_cell_of(grid, px, py)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_cell"] == n0 + (1 if n else 0)
+    assert got.shape == (n,) and got.dtype == torch.int32
+    assert torch.equal(got, lo.band_cell_of_plain(grid, px, py))
+
+
+def _mapped_inputs(V, R, P, rng):
+    """A gyro map over V vertices in which vertex 0 is named by more than
+    1,024 entries (when the map has that many) and vertex V - 1 by none,
+    and integer ring sums."""
+    flat = rng.integers(-1, max(V - 1, 1), V * R * P * 3)
+    if flat.size > 2048:
+        flat[rng.choice(flat.size, 1100, replace=False)] = 0
+    ring = rng.integers(0, 50, (V, R)).astype(np.float32)
+    return flat, ring
+
+
+@pytest.mark.parametrize("V", [5, 40, 3000])
+@pytest.mark.parametrize("R", [1, 2, 3, 5])
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_deposit_mapped_kernel_group_order(dev, V, R, P):
+    """D's pass 2 equals the numpy model of its fixed order bit for bit
+    (P = 3: each term c/3 rounds, so this tests the per-term IEEE division
+    and the order), and the plain version bit for bit where the sums are
+    exact (P = 1, 8); with fewer vertices than a warp, a vertex with no
+    entries and one with more than 1,024."""
+    from deposit_order import mapped_group_order
+
+    rng = np.random.default_rng(V * 100 + R * 10 + P)
+    flat, ring_np = _mapped_inputs(V, R, P, rng)
+    gmap = sc.GyroMap.from_flat(flat, V, R, P, dev)
+    ring = torch.as_tensor(ring_np, device=dev)
+    n0 = kernels.LAUNCHES["deposit"]
+    got = sc.scatter_to_mapped_verts(ring, gmap, V, R, P)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deposit"] == n0 + 1
+    want = mapped_group_order(ring_np, gmap.offsets.cpu().numpy(), gmap.src.cpu().numpy(), P)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+    assert float(got[V - 1]) == 0.0
+    if P != 3:
+        assert torch.equal(got, sc.mapped_plain(ring, gmap, V, R, P))
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 5])
+@pytest.mark.parametrize("form", ["(E,)", "(E, R)"])
+@pytest.mark.parametrize("size", ["two triangles", "tokamak"])
+def test_deposit_rings_kernel_forms(dev, mesh, R, form, size):
+    """D's pass 1 equals its plain version from (E,) counts (the uniform
+    radius's ring pair) and from (E, R) counts, on a mesh of fewer
+    vertices than a warp and on the tokamak mesh."""
+    m = mesh if size == "tokamak" else Mesh2D.from_arrays(
+        np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]]),
+        np.array([[0, 1, 2], [0, 2, 3]]), device=dev)
+    rng = np.random.default_rng(R)
+    shape = (m.nelems,) if form == "(E,)" else (m.nelems, R)
+    counts = torch.as_tensor(rng.integers(0, 1000, shape).astype(np.int32), device=dev)
+    n0 = kernels.LAUNCHES["deposit"]
+    got = sc.deposit_rings(counts, m, R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deposit"] == n0 + 1
+    assert torch.equal(got, sc.ring_accum_plain(counts, m, R))
+
+
+# ---------------------------------------------------------------------------
 # kernels G (row gather), S (slot map) and P's phi mode
 # ---------------------------------------------------------------------------
 

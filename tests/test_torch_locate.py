@@ -48,6 +48,33 @@ def band():
                 tg=t_loc.detect_banded_locator(*args, device="cpu"))
 
 
+def test_band_launch_params_layout(band):
+    """Kernel B's parameter block (band.cu's BandParams) holds the JAX
+    package's coefficients: coef_v's harmonic columns as (cos, sin) pairs,
+    its constant column, coef_u, inv_coef, zero padding, then cx, cy and
+    the grid's shape; packed once per grid."""
+    jg, tg = band["jg"], band["tg"]
+    w = tg.launch_params
+    assert w is tg.launch_params and w.dtype == np.int32 and w.shape == (lo.MAX_COEF + 9,)
+    f = w.view(np.float32)
+    J, rank = tg.n_harm, tg.rank
+    cv, cu, ic = (np.asarray(c) for c in (jg.coef_v, jg.coef_u, jg.inv_coef))
+    pairs = f[:rank * J * 2].reshape(rank, J, 2)
+    np.testing.assert_array_equal(pairs[..., 0], cv[:, 1:1 + J])
+    np.testing.assert_array_equal(pairs[..., 1], cv[:, 1 + J:])
+    o = rank * J * 2
+    np.testing.assert_array_equal(f[o:o + rank], cv[:, 0])
+    o += rank
+    np.testing.assert_array_equal(f[o:o + cu.size], cu.reshape(-1))
+    o += cu.size
+    np.testing.assert_array_equal(f[o:o + ic.size], ic)
+    assert not w[o + ic.size:lo.MAX_COEF].any()
+    np.testing.assert_array_equal(f[lo.MAX_COEF:lo.MAX_COEF + 2],
+                                  np.float32([tg.cx, tg.cy]))
+    assert w[lo.MAX_COEF + 2:].tolist() == [tg.n_bands, tg.n_theta, J, tg.n_cheb, rank,
+                                            ic.size, tg.newton_iters]
+
+
 def test_band_detection_matches_reference(band):
     jg, tg = band["jg"], band["tg"]
     assert jg is not None and tg is not None

@@ -70,6 +70,63 @@ def test_scatter_to_mapped_verts_matches_reference(meshes, P):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def _gyro_map(m, kind, P, rng):
+    """The gyro map of the fixture mesh (the model's own, R = 3) or a
+    random one with 10% of its entries outside the domain."""
+    V, R = m.nverts, 3
+    if kind == "model":
+        from pumipic_torch.models import pseudo_xgcm as t_px
+
+        return np.asarray(t_px.build_gyro_mappings(
+            m, t_px.GyroConfig(points_per_ring=P))[0].cpu().numpy(), np.int64)
+    flat = rng.integers(0, V, V * R * P * 3)
+    flat[rng.uniform(size=flat.size) < 0.1] = -1
+    return flat
+
+
+@pytest.mark.parametrize("kind", ["model", "random"])
+@pytest.mark.parametrize("group", [8, 16, 32])
+@pytest.mark.parametrize("P", [8, 4, 1])
+def test_deposit_group_order_equals_plain_and_reference(meshes, P, group, kind):
+    """Kernel D's pass 2 adds in its own fixed order (lanes over each
+    vertex's entries, then a tree; its numpy model in deposit_order.py).
+    With integer ring sums and P a power of 2 every term c/P and every
+    partial sum is exact, so that order gives the plain version's and the
+    JAX package's bits."""
+    from deposit_order import mapped_group_order
+
+    jm, m = meshes
+    V, R = m.nverts, 3
+    rng = np.random.default_rng(10 * P + group)
+    flat = _gyro_map(m, kind, P, rng)
+    ring = rng.integers(0, 500, (V, R)).astype(np.float32)
+    g = t_sc.GyroMap.from_flat(flat, V, R, P, device="cpu")
+    got = mapped_group_order(ring, g.offsets.numpy(), g.src.numpy(), P, group)
+    plain = t_sc.mapped_plain(torch.from_numpy(ring), g, V, R, P).numpy()
+    ref = np.asarray(j_sc.scatter_to_mapped_verts(jnp.asarray(ring), jnp.asarray(flat),
+                                                  V, R, P))
+    np.testing.assert_array_equal(got.view(np.int32), plain.view(np.int32))
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+def test_deposit_group_order_rounds_per_term(meshes):
+    """With P = 3 each term c/3 rounds, so the order shows: the fixed
+    order agrees with the plain version (entry order) to the f32 rounding
+    of sums of ~72 terms (relative 1e-6)."""
+    from deposit_order import mapped_group_order
+
+    _, m = meshes
+    V, R, P = m.nverts, 3, 3
+    rng = np.random.default_rng(3)
+    flat = _gyro_map(m, "random", P, rng)
+    ring = rng.integers(1, 500, (V, R)).astype(np.float32)
+    g = t_sc.GyroMap.from_flat(flat, V, R, P, device="cpu")
+    got = mapped_group_order(ring, g.offsets.numpy(), g.src.numpy(), P)
+    plain = t_sc.mapped_plain(torch.from_numpy(ring), g, V, R, P).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-6)
+    assert not np.array_equal(got, plain)
+
+
 def test_gyro_map_transpose():
     """The CSR transpose lists, for each output vertex, the (v·R + r) slots
     of the entries naming it, in entry order."""
