@@ -32,7 +32,9 @@ sources in this checkout.  Phases, each raising on failure:
     phi mode (band and class forms), S in the scs and cabm modes and G's
     columns form at the sorted rebuild's shapes, at one step's locality and
     at a random order of the slots; B and L's given-cells mode on the
-    flux-band grid; A on the 23,976-element annulus at 10M.  Then run a
+    flux-band grid; A on the 23,976-element annulus at 10M, in the
+    generator's element order and through a random element permutation.
+    Then run a
     small slice of each FULL-mode arm and of the PseudoXGCm app in each
     layout (scs, csr, cabm, dps) on the card and on the CPU for 3 steps and
     require equal states, structures and fields;
@@ -52,16 +54,18 @@ sources in this checkout.  Phases, each raising on failure:
     count, no overflow, every active element in range and the active pids
     equal to those the last search kept.  After the Sell-C-σ run, G's
     columns form is checked and timed as in (c) on the columns and source
-    rows its 20th timed step's rebuild gathered;
+    rows its 20th timed step's rebuild gathered, and after the Sell-C-σ
+    and CabM runs S on the arguments of their last timed step's slot map;
 (e) print the kernels' JSON line (each kernel's first case, and every case
     under ``cases``), the card's line, and the contract line
     ``{"ok": true, "device": {...}}`` last.
 
 Tolerance: every comparison is exact (max |kernel - plain| must be 0, no
 mismatch).  The kernels are built with -fmad=false and follow the plain
-versions' operation order; where a plain version calls libm (A's
-atan2/cos/sin) it runs torch's CUDA ops, which call the same CUDA libm
-functions as the kernel.
+versions' operation order; where a plain version calls libm (A's atan2,
+cos and sin) it runs torch's CUDA ops, which call the same CUDA libm
+functions as the kernel (A reads its cos/sin from a per-sector table that
+the same torch ops fill on the card).
 """
 from __future__ import annotations
 
@@ -286,30 +290,46 @@ def ring_incidence(mesh, R: int, dev):
 
 
 @contextlib.contextmanager
+def calls_at(module, name: str, calls: dict, keep):
+    """Inside the block, capture ``keep(*args)`` of the calls of
+    ``module.name`` whose numbers, counted from 1, are keys of ``calls``;
+    yields {calls[k]: what keep returned}.  Captures launch nothing."""
+    captured, count = {}, [0]
+    fn = getattr(module, name)
+
+    def spy(*args, **kw):
+        count[0] += 1
+        if count[0] in calls:
+            captured[calls[count[0]]] = keep(*args, **kw)
+        return fn(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield captured
+    finally:
+        setattr(module, name, fn)
+
+
 def gathers_at(calls: dict):
     """Inside the block, capture the rebuild gathers
     (``particles.structure._gather_fields``) whose call numbers, counted
     from 1, are keys of ``calls``; yields {calls[k]: (columns, source
-    rows)}, the arrays kernel G moves.  Captures launch nothing."""
+    rows)}, the arrays kernel G moves."""
     from pumipic_torch.ops import rows
     from pumipic_torch.particles import structure as st
 
-    captured, count = {}, [0]
-    gather_fields = st._gather_fields
+    return calls_at(st, "_gather_fields", calls, lambda fields, take, extra=(): (
+        [c.contiguous() for c in [*fields.values(), *extra] if rows.lanes_of(c) > 0],
+        take.to(torch.int32)))
 
-    def spy(fields, take, extra=()):
-        count[0] += 1
-        if count[0] in calls:
-            captured[calls[count[0]]] = (
-                [c.contiguous() for c in [*fields.values(), *extra] if rows.lanes_of(c) > 0],
-                take.to(torch.int32))
-        return gather_fields(fields, take, extra)
 
-    st._gather_fields = spy
-    try:
-        yield captured
-    finally:
-        st._gather_fields = gather_fields
+def slot_maps_at(calls: dict):
+    """Inside the block, capture the arguments of the rebuilds' slot maps
+    (``ops.rows.slot_map``, kernel S) whose call numbers, counted from 1,
+    are keys of ``calls``; yields {calls[k]: the call's arguments}."""
+    from pumipic_torch.ops import rows
+
+    return calls_at(rows, "slot_map", calls, lambda *args: args)
 
 
 def smi_query(fields: str, units: bool = True) -> str:
@@ -570,10 +590,10 @@ def check_pprad(results: dict, dev, mesh, elem, active) -> None:
                    lambda: torch.mv(m, cf), results)
 
 
-def check_annulus(results: dict, dev) -> None:
-    """A at 10M on the annulus setup's pushed targets."""
+def annulus_targets(dev):
+    """The annulus arm's locator and pushed targets at 10M: (loc, tx, ty,
+    active) of ``make_dp_setup`` on ``make_default_mesh(ANNULUS_ELEMS)``."""
     from pumipic_torch.models import pseudo_xgcm as px
-    from pumipic_torch.ops import locate as lo
     from pumipic_torch.ops import push as push_ops
 
     mesh = px.make_default_mesh(ANNULUS_ELEMS, device=dev)
@@ -583,16 +603,36 @@ def check_annulus(results: dict, dev) -> None:
     if loc is None or not loc.ring_class:
         raise AssertionError("the bench annulus was not proven ring_class")
     tx, ty, _, _ = _push(push_ops, s, step.model, cfg)
-    n = tx.shape[0]
-    args = (loc, tx, ty, s["active"])
-    got = lo.annulus_locate(*args)
-    compare("annulus_locate", f"({n} particles, E={mesh.nelems})", got,
-            lo.annulus_locate_plain(*args), results)
-    log(f"[c] annulus locate: alive={int(got[1].sum())} of {n}")
-    time_pair("annulus_locate", "", lambda: lo.annulus_locate(*args),
-              lambda: lo.annulus_locate_plain(*args), results)
-    # ~300 f32 operations per particle (seven libm calls and the tests)
-    record_bound("annulus_locate", "", results, nbytes(tx, ty, s["active"], *got), 300.0 * n)
+    return loc, tx, ty, s["active"]
+
+
+def check_annulus(results: dict, dev) -> None:
+    """A at 10M on the annulus setup's pushed targets, in the generator's
+    element order (the arm's) and through a random element permutation
+    (an imported annulus's)."""
+    import dataclasses
+
+    from pumipic_torch.ops import locate as lo
+
+    loc, tx, ty, active = annulus_targets(dev)
+    n, E = tx.shape[0], 2 * loc.n_rings * loc.n_sectors
+    perm = torch.randperm(E, device=dev, generator=torch.Generator(dev).manual_seed(2))
+    for what, lc in (("", loc), ("permuted ids", dataclasses.replace(
+            loc, perm=perm.to(torch.int32)))):
+        args = (lc, tx, ty, active)
+        got = lo.annulus_locate(*args)
+        ids = what or "generator ids"
+        compare("annulus_locate", f"{ids} ({n} particles, E={E}, {loc.n_sectors} sectors)",
+                got, lo.annulus_locate_plain(*args), results)
+        log(f"[c] annulus locate, {ids}: alive={int(got[1].sum())} of {n}")
+        time_pair("annulus_locate", what, lambda: lo.annulus_locate(*args),
+                  lambda: lo.annulus_locate_plain(*args), results)
+        # the function's work: one atan2, three divisions and ~25 products,
+        # sums and tests per particle (~40 f32 operations), and the sector
+        # table's six cos/sin once per sector (~20 each)
+        record_bound("annulus_locate", what, results,
+                     nbytes(tx, ty, active, lc.sector_table(dev), lc.perm, *got),
+                     40.0 * n + 120.0 * loc.n_sectors)
 
 
 def scs_of_located(dev, E: int, s: dict, elem, active):
@@ -633,8 +673,6 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
     from pumipic_torch.models import pseudo_xgcm as px
     from pumipic_torch.ops import push as push_ops
     from pumipic_torch.ops import rows
-    from pumipic_torch.ops.scatter import histogram
-    from pumipic_torch.particles import structure as st
 
     # G, rows form: perf/pallas_gather_ab.py's probe (C 24,576 x W 14 f32,
     # N 10M indices, from default_rng(0) in its order)
@@ -679,8 +717,32 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
                      nbytes(*base, c, *got, None if b is None else b.starts),
                      25.0 * ps.capacity)
     new_elem = located_after_push(mesh, ps, cfg, model.locator, bands)
+    modes, key = slot_map_inputs(ps, new_elem, E)
+    for layout, sargs in modes.items():
+        got = check_slot_map(results, layout, sargs)
+        if layout == "scs":
+            src = got[0]
+    C = ps.capacity
 
-    # the sorted rebuild's inputs, as _rebuild / _rebuild_sorted make them
+    # G, columns form: the rebuild's fields in place plus the key lane, at
+    # one step's locality and at a random permutation of the slots (the
+    # app's own order after 20 steps follows run_app)
+    cols = [ps.fields[k] for k in ("x", "xtgt", "pid", "b", "phi")] + [key]
+    check_columns(results, "columns form, step-1 locality", cols, src)
+    perm = torch.randperm(C, device=dev, generator=torch.Generator(dev).manual_seed(0)
+                          ).to(torch.int32)
+    check_columns(results, "columns form, random order", cols, perm)
+    del perm
+
+
+def slot_map_inputs(ps, new_elem, E: int):
+    """Kernel S's arguments for a sorted rebuild of ``ps`` into
+    ``new_elem``, as ``_rebuild`` / ``_rebuild_sorted`` make them, in the
+    scs mode (``ps``'s chunks) and the cabm mode (segments of 8): {layout:
+    args of ``rows.slot_map``}, and the rebuild's key lane."""
+    from pumipic_torch.ops.scatter import histogram
+    from pumipic_torch.particles import structure as st
+
     el = torch.where(ps.active & (new_elem >= 0) & (new_elem < E), new_elem, -1)
     act = el >= 0
     key = torch.where(act, el, E)
@@ -693,28 +755,24 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
     C, M = ps.capacity, el.shape[0]
     seg = ((counts + 7) // 8) * 8
     cabm_off = torch.cat([seg.new_zeros(1), torch.cumsum(seg, 0, dtype=torch.int32)])
-    modes = (("scs", chunk_off, r2e, ps.chunk_size), ("cabm", cabm_off, None, 1))
-    for layout, offsets, row_order, chunk in modes:
-        sargs = (layout, order, start, offsets, row_order, chunk, C, M)
-        got = rows.slot_map(*sargs)
-        compare("slot_map", f"{layout} ({C} slots, {M} rows, layout "
-                f"{int(offsets[-1])} slots)", got, rows.slot_map_plain(*sargs), results)
-        time_pair("slot_map", layout, lambda: rows.slot_map(*sargs),
-                  lambda: rows.slot_map_plain(*sargs), results)
-        record_bound("slot_map", layout, results, nbytes(order, start, offsets, row_order,
-                                                         *got))
-        if layout == "scs":
-            src = got[0]
+    return {"scs": ("scs", order, start, chunk_off, r2e, ps.chunk_size, C, M),
+            "cabm": ("cabm", order, start, cabm_off, None, 1, C, M)}, key
 
-    # G, columns form: the rebuild's fields in place plus the key lane, at
-    # one step's locality and at a random permutation of the slots (the
-    # app's own order after 20 steps follows run_app)
-    cols = [ps.fields[k] for k in ("x", "xtgt", "pid", "b", "phi")] + [key]
-    check_columns(results, "columns form, step-1 locality", cols, src)
-    perm = torch.randperm(C, device=dev, generator=torch.Generator(dev).manual_seed(0)
-                          ).to(torch.int32)
-    check_columns(results, "columns form, random order", cols, perm)
-    del perm
+
+def check_slot_map(results: dict, what: str, sargs):
+    """S on ``sargs`` (the arguments of ``rows.slot_map``): equal to the
+    plain version on every slot, timed beside it, and its bound (each
+    input read once, each output written once).  Returns its outputs."""
+    from pumipic_torch.ops import rows
+
+    _, order, start, offsets, row_order, _, C, M = sargs
+    got = rows.slot_map(*sargs)
+    compare("slot_map", f"{what} ({C} slots, {M} rows, layout {int(offsets[-1])} slots)",
+            got, rows.slot_map_plain(*sargs), results)
+    time_pair("slot_map", what, lambda: rows.slot_map(*sargs),
+              lambda: rows.slot_map_plain(*sargs), results)
+    record_bound("slot_map", what, results, nbytes(order, start, offsets, row_order, *got))
+    return got
 
 
 def check_columns(results: dict, what: str, cols, src) -> None:
@@ -887,9 +945,10 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     before; ``grid`` is phase c's cartesian grid for this mesh.  The SCS
     arm is the timed one; the others run 3 steps, with the counts reset
     after construction so that they show what a step launches.  Returns
-    the columns and source rows of the SCS run's last rebuild gather, the
-    20th timed step's (None for the other layouts), read without launching
-    anything and held only after the timed steps."""
+    what the last timed step's rebuild moved, read without launching
+    anything and held only after the timed steps: the columns and source
+    rows of its gather (``"gather"``, SCS only) and the arguments of its
+    slot map (``"slot_map"``, the layouts that run kernel S)."""
     from pumipic_torch import kernels
     from pumipic_torch.models import pseudo_xgcm as px
     from pumipic_torch.utils import timing
@@ -906,8 +965,11 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     n0, cap = int(ps.num_ptcls), ps.capacity
     if structure != "scs":
         kernels.reset_launches()
-    # the warm-up is the first gather, so the 20th timed step's is the 21st
-    with gathers_at({steps + 1: "step 20"} if structure == "scs" else {}) as captured:
+    # the warm-up's rebuild is the first, so the last timed step's is the
+    # (steps + 1)th
+    last = {steps + 1: "last"}
+    with gathers_at(last if structure == "scs" else {}) as gathers, \
+            slot_maps_at(last if "slot_map" in APP_ARMS[structure] else {}) as maps:
         app.run(1, verbose=False)                 # warm-up step
         timing.get_registry().reset()
         mem0 = torch.cuda.memory_stats()
@@ -969,7 +1031,7 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
         raise AssertionError(f"app {structure}: only {int(act.sum())} alive")
     log(f"[d] app {structure}: invariants hold (num_ptcls == active, no overflow, "
         f"ids in range, {got.shape[0]} active pids == the last search's survivors)")
-    return captured.get("step 20")
+    return {k: c["last"] for k, c in (("gather", gathers), ("slot_map", maps)) if c}
 
 
 def main() -> int:
@@ -986,10 +1048,13 @@ def main() -> int:
     mesh, grid, band_grid, band_s = phase_c(results, dev)
     phase_d(results, dev, band_grid, band_s)
     for structure in APP_ARMS:
-        step20 = run_app(results, dev, mesh, grid, structure)
-        if step20 is not None:      # G at the app's own order after 20 steps
-            check_columns(results, "columns form, app step-20 order", *step20)
-            del step20
+        last = run_app(results, dev, mesh, grid, structure)
+        steps = APP_STEPS[structure]
+        if "gather" in last:        # G at the app's own order after 20 steps
+            check_columns(results, f"columns form, app step-{steps} order", *last["gather"])
+        if "slot_map" in last:      # S at the app's own order
+            check_slot_map(results, f"{structure}, app step-{steps} order", last["slot_map"])
+        del last
     line = {"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": results[name]["launches"],

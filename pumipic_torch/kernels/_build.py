@@ -66,7 +66,7 @@ SIGNATURES = {
         _P, _P, _P, _L,                      # px py active n
         _F, _F, _F, _F, _F, _F,              # cx cy theta0 two_pi dth m
         _F, _F, _F, _F, _I, _I,              # r_in dr lo hi n_rings n_sectors
-        _P, _P, _P, _P],                     # perm elem_out active_out stream
+        _P, _P, _P, _P, _P],                 # table perm elem_out active_out stream
     "pp_histogram": [_P, _P, _I, _P, _L, _P],
     "pp_histogram_rings": [_P, _P, _P, _F, _I, _I, _P, _L, _P],
     "pp_deposit_rings": [_P, _P, _P, _I, _I, _I, _I, _P, _P],

@@ -288,20 +288,52 @@ class AnnulusLocator2D:
     theta0: float = 0.0
     perm: Optional[torch.Tensor] = None   # (E,) i32 canonical -> actual id
 
+    @cached_property
+    def _memo(self) -> dict:
+        """What :meth:`scalars` (by ``eps``) and :meth:`sector_table` (by
+        device) computed, kept for the locator's later calls."""
+        return {}
+
     def scalars(self, eps: float = 1e-6) -> Dict[str, float]:
-        """The per-mesh f32 scalars of ``locate_parts``, computed once with
-        f32 torch ops in the JAX package's order: 2π, the sector angle
-        ``dth``, ``m = cos(dth/2)``, ``r_out`` and the inside bounds
-        ``r_in - tol``, ``r_out + tol`` with ``tol = eps·r_out``.  Kernel A
-        and its plain version both read these values."""
-        f = lambda v: torch.tensor(v, dtype=torch.float32)   # noqa: E731
-        two_pi = f(2.0 * np.pi)
-        dth = two_pi / self.n_sectors
-        m = torch.cos(0.5 * dth)
-        r_out = f(self.r_in) + f(self.dr) * self.n_rings
-        tol = eps * r_out
-        return {"two_pi": float(two_pi), "dth": float(dth), "m": float(m),
-                "lo": float(f(self.r_in) - tol), "hi": float(r_out + tol)}
+        """The per-mesh f32 scalars of ``locate_parts``, computed with f32
+        torch ops in the JAX package's order at the first call for ``eps``
+        and kept: 2π, the sector angle ``dth``, ``m = cos(dth/2)``, and the
+        inside bounds ``r_in - tol``, ``r_out + tol`` with ``tol =
+        eps·r_out``.  Kernel A and its plain version both read these
+        values."""
+        key = ("scalars", eps)
+        if key not in self._memo:
+            f = lambda v: torch.tensor(v, dtype=torch.float32)   # noqa: E731
+            two_pi = f(2.0 * np.pi)
+            dth = two_pi / self.n_sectors
+            m = torch.cos(0.5 * dth)
+            r_out = f(self.r_in) + f(self.dr) * self.n_rings
+            tol = eps * r_out
+            self._memo[key] = {"two_pi": float(two_pi), "dth": float(dth),
+                               "m": float(m), "lo": float(f(self.r_in) - tol),
+                               "hi": float(r_out + tol)}
+        return dict(self._memo[key])
+
+    def sector_table(self, device) -> torch.Tensor:
+        """(n_sectors, 6) f32 on ``device``: cos and sin of each sector's
+        bisector ``θ0 + (k + 0.5)·dth`` and of its two rays ``θa = θ0 +
+        k·dth`` and ``θa + dth``, by the expressions of kernel A's plain
+        version at ``kf = k`` with the same f32 torch ops on ``device``, so
+        row k equals that version's per-point values there bit for bit.
+        Kernel A reads it in place of six libm calls per point; built at
+        the first call for a device and kept."""
+        device = torch.device(device)
+        key = ("sector_table", device)
+        if key not in self._memo:
+            dth = self.scalars()["dth"]
+            kf = torch.arange(self.n_sectors, dtype=torch.float32, device=device)
+            phi = self.theta0 + (kf + 0.5) * dth
+            tha = self.theta0 + kf * dth
+            thd = tha + dth
+            self._memo[key] = torch.stack(
+                [torch.cos(phi), torch.sin(phi), torch.cos(tha), torch.sin(tha),
+                 torch.cos(thd), torch.sin(thd)], dim=1).contiguous()
+        return self._memo[key]
 
     def class_of(self, elem: torch.Tensor) -> torch.Tensor:
         """Classification from the element id on a ``ring_class``-proven

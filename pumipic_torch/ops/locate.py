@@ -30,6 +30,8 @@ INVALID = -1
 # launch parameters: bounds on the band model
 MAX_HARM, MAX_CHEB, MAX_RANK, MAX_INV_COEF = 24, 12, 8, 11
 MAX_COEF = MAX_RANK * (2 * MAX_HARM + 1) + (MAX_CHEB + 1) * MAX_RANK + MAX_INV_COEF
+# kernel A indexes its sector table by the f32 sector index kf
+MAX_SECTORS = 1 << 24
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +209,9 @@ def annulus_locate(loc: AnnulusLocator2D, px: torch.Tensor, py: torch.Tensor,
     """Locate every active point on the annulus and rewrite the DPS state:
     returns (elem, active') as the JAX step's masking does
     (``where(active, locate, INVALID)``, then ``elem >= 0``).  Kernel A on
-    CUDA tensors, :func:`annulus_locate_plain` on CPU tensors."""
+    CUDA tensors (reading the locator's :meth:`~AnnulusLocator2D.sector_table`
+    and :meth:`~AnnulusLocator2D.scalars`, each computed once), and
+    :func:`annulus_locate_plain` on CPU tensors."""
     tensors = [px, py, active] + ([] if loc.perm is None else [loc.perm])
     if not kernels.use_kernel("annulus_locate", *tensors):
         return annulus_locate_plain(loc, px, py, active)
@@ -220,15 +224,21 @@ def annulus_locate(loc: AnnulusLocator2D, px: torch.Tensor, py: torch.Tensor,
     if loc.perm is not None and (loc.perm.dtype != torch.int32 or
                                  loc.perm.shape != (2 * loc.n_rings * loc.n_sectors,)):
         raise ValueError("annulus_locate: perm must be (E,) i32")
-    sc = loc.scalars()
+    if not 1 <= loc.n_sectors < MAX_SECTORS:
+        raise ValueError(f"annulus_locate: {loc.n_sectors} sectors; the sector "
+                         f"index is exact in f32 below {MAX_SECTORS}")
     elem = torch.empty(n, dtype=torch.int32, device=px.device)
     act = torch.empty(n, dtype=torch.bool, device=px.device)
+    if n == 0:
+        return elem, act
+    table = loc.sector_table(px.device)
+    sc = loc.scalars()
     P = ctypes.c_void_p
     err = _build.lib().pp_annulus_locate(
         P(px.data_ptr()), P(py.data_ptr()), P(active.data_ptr()), n,
         loc.cx, loc.cy, loc.theta0, sc["two_pi"], sc["dth"], sc["m"],
         loc.r_in, loc.dr, sc["lo"], sc["hi"], loc.n_rings, loc.n_sectors,
-        P(None if loc.perm is None else loc.perm.data_ptr()),
+        P(table.data_ptr()), P(None if loc.perm is None else loc.perm.data_ptr()),
         P(elem.data_ptr()), P(act.data_ptr()), P(kernels.stream_handle()))
     _build.check(err, "annulus_locate")
     kernels.LAUNCHES["annulus_locate"] += 1

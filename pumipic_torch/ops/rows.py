@@ -186,6 +186,8 @@ def slot_map(layout: str, order: torch.Tensor, start: torch.Tensor,
     src = torch.empty(C, dtype=torch.int32, device=dev)
     elem_c = torch.empty(C, dtype=torch.int32, device=dev)
     pre_valid = torch.empty(C, dtype=torch.bool, device=dev)
+    if C == 0:
+        return src, elem_c, pre_valid
     cabm = layout == "cabm"
     P = ctypes.c_void_p
     err = _build.lib().pp_slot_map(

@@ -7,7 +7,8 @@ For each arm (default: ``cartesian``; also ``band``, ``annulus``,
 configuration of that arm (default 10M particles); the ``app`` arm builds
 the single-device ``PseudoXGCm`` app on a Sell-C-σ structure with the same
 mesh and settings (its step adds the sorted rebuild: the stable sort,
-kernels H, S and G).  Then it runs one warm-up step,
+kernels H, S and G), ``app-<structure>`` on another structure (``csr``,
+``cabm``, ``dps``).  Then it runs one warm-up step,
 then ``steps`` steps (default 10) untraced for the host wall and enqueue
 time per step, then ``steps`` more under torch.profiler for the device time
 per step by kernel name.  Prints one JSON line per arm with both, the
@@ -37,9 +38,9 @@ ARMS = {  # arm -> bench_torch.setup keywords
 }
 
 
-def app_setup(dev, n: int):
+def app_setup(dev, n: int, structure: str = "scs"):
     """(state, step, info) of the PseudoXGCm arm: bench_torch's mesh and
-    settings, structure "scs"; the state is the particle structure."""
+    settings on ``structure``; the state is the particle structure."""
     from pumipic_torch.mesh.core import Mesh2D
     from pumipic_torch.mesh.gmsh import read_msh
     from pumipic_torch.models import pseudo_xgcm as px
@@ -47,14 +48,14 @@ def app_setup(dev, n: int):
     t0 = time.perf_counter()
     mesh = Mesh2D.from_arrays(*read_msh(bench_torch.DEFAULT_MESH), device=dev)
     cfg = px.XGCmConfig(num_ptcls=n, mdl_face=max(int(mesh.class_id.max()) // 2, 2),
-                        deg_per_push=15.0, max_search_iters=64, structure="scs")
+                        deg_per_push=15.0, max_search_iters=64, structure=structure)
     app = px.PseudoXGCm(mesh, cfg, device=dev)
 
     def step(ptcls):
         ptcls, fwd, bwd, iters = app.step_fn(ptcls)
         return ptcls, {"fwd": fwd, "bwd": bwd, "iters": iters}
 
-    info = {"tag": "app-scs-xgc_like_120k",
+    info = {"tag": f"app-{structure}-xgc_like_120k",
             "setup_s": {"app": time.perf_counter() - t0},
             "capacity": app.ptcls.capacity}
     return app.ptcls, step, info
@@ -62,8 +63,8 @@ def app_setup(dev, n: int):
 
 def profile(arm: str, n: int, steps: int, smi: str) -> dict:
     dev = torch.device("cuda")
-    if arm == "app":
-        state, step, info = app_setup(dev, n)
+    if arm.startswith("app"):
+        state, step, info = app_setup(dev, n, arm[4:] or "scs")
     else:
         _, state, step, info = bench_torch.setup(dev, n, **ARMS[arm])
     state, _ = step(state)
@@ -88,7 +89,7 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
             continue                      # host ops; their kernels are listed
         by_kernel[ev.key.split("(")[0]] = ev.self_device_time_total / 1e3 / steps
     busy = sum(by_kernel.values())
-    alive = state.active if arm == "app" else state["active"]
+    alive = state.active if arm.startswith("app") else state["active"]
     return {
         "arm": arm, "tag": info["tag"], "card": smi, "num_ptcls": n,
         "steps": steps, "setup_s": info["setup_s"],
@@ -109,10 +110,10 @@ def main() -> None:
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 10_000_000
     steps = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     arms = sys.argv[3:] or ["cartesian"]
-    unknown = set(arms) - set(ARMS) - {"app"}
+    apps = ["app"] + [f"app-{s}" for s in ("csr", "cabm", "dps")]
+    unknown = set(arms) - set(ARMS) - set(apps)
     if unknown:
-        raise ValueError(f"unknown arms {sorted(unknown)}; known: "
-                         f"{sorted(ARMS) + ['app']}")
+        raise ValueError(f"unknown arms {sorted(unknown)}; known: {sorted(ARMS) + apps}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()

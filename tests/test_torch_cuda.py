@@ -26,6 +26,8 @@ from pumipic_torch.ops import push as push_ops
 from pumipic_torch.ops import scatter as sc
 from pumipic_torch.ops import search as se
 
+import slotmap_tiles
+
 pytestmark = pytest.mark.cuda
 
 
@@ -135,7 +137,11 @@ def test_band_kernel_and_given_cells_locate_equal_plain(dev):
 
 
 @pytest.mark.parametrize("permuted", [False, True])
-def test_annulus_kernel_equals_plain(dev, permuted):
+@pytest.mark.parametrize("n", [0, 1, 31, 50_000])
+def test_annulus_kernel_equals_plain(dev, permuted, n):
+    """A equals its plain version on a detected annulus, generator order or
+    imported (permuted and rotated), with inactive points, the centre,
+    NaN and infinite coordinates, at sizes that leave partial blocks."""
     coords, tris, cls = annulus_mesh(8, 48, 0.3, 1.0)
     if permuted:
         rng = np.random.default_rng(3)
@@ -148,13 +154,52 @@ def test_annulus_kernel_equals_plain(dev, permuted):
     assert (loc.perm is not None) == permuted
     m = Mesh2D.from_arrays(coords, tris, device=dev)
     s, dx, dy = _moved(m, scale=0.1)
-    s["active"][::5] = False
+    dx, dy, active = dx[:n].clone(), dy[:n].clone(), s["active"][:n].clone()
+    active[::5] = False
+    odd = torch.tensor([(loc.cx, loc.cy)] + _ODD_POINTS, device=dev)
+    k = max(min(n - 1, odd.shape[0]), 0)          # point 0 stays inactive
+    dx[1:1 + k], dy[1:1 + k] = odd[:k, 0], odd[:k, 1]
     n0 = kernels.LAUNCHES["annulus_locate"]
-    got = lo.annulus_locate(loc, dx, dy, s["active"])
+    got = lo.annulus_locate(loc, dx, dy, active)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["annulus_locate"] == n0 + (1 if n else 0)
+    _equal(got, lo.annulus_locate_plain(loc, dx, dy, active))
+    assert (got[0][~active] == -1).all()
+
+
+@pytest.mark.parametrize("n_sectors", [222, 2_100, 12_000])
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("views", [False, True])
+def test_annulus_kernel_sector_table_sizes(dev, n_sectors, permuted, views):
+    """A's sector table in shared memory (222 sectors: the bench annulus;
+    2,100: above 48 KB, the opt-in size) and read in place (12,000: above
+    the card's shared memory per block), with and without a permutation,
+    on points spread over and around the annulus, four to a thread (a
+    count that leaves a tail of 1) or, from views one element in (not
+    16-byte aligned), one at a time."""
+    from pumipic_torch.mesh.locator import AnnulusLocator2D
+
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    R = 5
+    perm = None
+    if permuted:
+        perm = torch.as_tensor(np.random.default_rng(n_sectors).permutation(
+            2 * R * n_sectors).astype(np.int32), device=dev)
+    loc = AnnulusLocator2D(f32(0.01), f32(-0.02), f32(0.3), f32(0.14), R, n_sectors,
+                           theta0=f32(0.1), perm=perm)
+    rng = np.random.default_rng(1)
+    r = rng.uniform(0.2, 1.1, 300_001)
+    t = rng.uniform(-np.pi, np.pi, r.size)
+    px = _on_card((0.01 + r * np.cos(t)).astype(np.float32), dev, views)
+    py = _on_card((-0.02 + r * np.sin(t)).astype(np.float32), dev, views)
+    active = _on_card(rng.uniform(size=r.size) < 0.9, dev, views)
+    n0 = kernels.LAUNCHES["annulus_locate"]
+    got = lo.annulus_locate(loc, px, py, active)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["annulus_locate"] == n0 + 1
-    _equal(got, lo.annulus_locate_plain(loc, dx, dy, s["active"]))
-    assert (got[0][~s["active"]] == -1).all()
+    _equal(got, lo.annulus_locate_plain(loc, px, py, active))
+    assert 0.5 < float(got[1].float().mean()) < 0.9
+    assert loc.sector_table(dev) is loc.sector_table(dev)
 
 
 def test_histogram_key_mode_and_deposit_er_equal_plain(dev, mesh):
@@ -387,6 +432,28 @@ def test_slot_map_kernel_equals_plain_on_every_slot(dev, layout, chunk, sigma, M
     E = 97
     order, start, offsets, r2e = _slot_inputs(layout, E, M, C, chunk, sigma, dev)
     args = (layout, order, start, offsets, r2e, chunk, C, M)
+    n0 = kernels.LAUNCHES["slot_map"]
+    got = rows.slot_map(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["slot_map"] == n0 + 1
+    for g, w in zip(got, rows.slot_map_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("layout,chunk", [("scs", 8), ("scs", 3), ("cabm", 8)])
+@pytest.mark.parametrize("case", slotmap_tiles.SLOT_CASES)
+@pytest.mark.parametrize("fill", slotmap_tiles.SLOT_FILLS)
+def test_slot_map_kernel_corner_cases(dev, layout, chunk, case, fill):
+    """S equals its plain version on every slot where its tiles meet the
+    corner cases of tests/slotmap_tiles.py: a segment wider than a tile,
+    empty segments and width-0 chunks, SCS pad rows, a window above the
+    shared-memory cap, C not a multiple of the tile, and needed below,
+    equal to and above C."""
+    from pumipic_torch.ops import rows
+
+    order, start, offsets, r2e, C, M = slotmap_tiles.slot_inputs(layout, case, fill, chunk,
+                                                                 device=dev)
+    args = (layout, order, start, offsets, r2e, chunk if layout == "scs" else 1, C, M)
     n0 = kernels.LAUNCHES["slot_map"]
     got = rows.slot_map(*args)
     torch.cuda.synchronize()

@@ -267,3 +267,55 @@ def test_annulus_class_of_equals_banded_class():
     with pytest.raises(ValueError, match="ring_class"):
         dc.replace(loc, ring_class=False).class_of(e)
 
+
+
+@pytest.mark.parametrize("case", ["identity", "permuted"])
+def test_annulus_sector_table_equals_per_point_trig(case, monkeypatch):
+    """Kernel A reads cos/sin of each point's sector bisector and rays from
+    ``AnnulusLocator2D.sector_table`` in place of computing them: the table
+    gathered at each point's kf equals, bit for bit, the six per-point
+    cos/sin values ``annulus_locate_parts_plain`` computes (captured from
+    its torch.cos/torch.sin calls), with and without an element
+    permutation."""
+    coords, tris, cls = _annulus(case)
+    loc = t_loc.detect_annulus_structured(coords, tris, cls=cls, device="cpu")
+    assert (loc.perm is not None) == (case == "permuted")
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-1.2, 1.2, (20_000, 2)).astype(np.float32)
+    pts[:3] = [[loc.cx, loc.cy], [np.nan, 0.5], [np.inf, -np.inf]]
+    px, py = torch.from_numpy(pts[:, 0].copy()), torch.from_numpy(pts[:, 1].copy())
+    table = loc.sector_table("cpu")
+    assert table is loc.sector_table(torch.device("cpu"))       # built once
+    assert table.shape == (loc.n_sectors, 6) and table.dtype == torch.float32
+    loc.scalars()
+    seen = []
+    for name in ("cos", "sin"):
+        fn = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda t, fn=fn: seen.append(fn(t)) or seen[-1])
+    kf = lo.annulus_locate_parts_plain(loc, px, py)[3]
+    monkeypatch.undo()
+    assert len(seen) == 6             # cos, sin of phi, tha and thd, in that order
+    finite = ~torch.isnan(kf)
+    rows_at = table[kf[finite].long()]
+    for col, per_point in enumerate(seen):
+        np.testing.assert_array_equal(rows_at[:, col].numpy().view(np.int32),
+                                      per_point[finite].numpy().view(np.int32))
+    # where kf is NaN (a NaN coordinate) the point is outside either way
+    assert (lo.annulus_locate_parts_plain(loc, px, py)[0][~finite] == -1).all()
+
+
+def test_annulus_scalars_are_kept_and_equal_a_fresh_computation():
+    """``scalars()`` is computed once per eps and kept on the locator; the
+    kept values equal a fresh locator's, and a caller's edit of the
+    returned dict does not reach the kept one."""
+    coords, tris, cls = _annulus("identity")
+    loc = t_loc.detect_annulus_structured(coords, tris, cls=cls, device="cpu")
+    first = loc.scalars()
+    first["dth"] = 0.0
+    kept = loc.scalars()
+    fresh = dc.replace(loc).scalars()
+    assert kept == fresh and kept["dth"] != 0.0
+    assert loc.scalars(eps=1e-3)["hi"] > fresh["hi"]      # another eps, its own entry
+    assert loc.scalars() == fresh
+    f = np.float32
+    assert fresh["two_pi"] == f(2 * np.pi) and fresh["dth"] == f(f(2 * np.pi) / f(loc.n_sectors))

@@ -4,7 +4,9 @@ package's ``_gather_fields`` and the slot arithmetic of its
 ``_rebuild_sorted``.
 
 Tolerance: none.  G moves 32-bit words and S is integer arithmetic, so
-every output is compared bit for bit, on every slot (valid or not).  The
+every output is compared bit for bit, on every slot (valid or not).  How
+kernel S splits the slots among its threads is modelled in numpy
+(tests/slotmap_tiles.py) and held to the plain version here.  The
 card-side comparisons of each kernel with its plain version are in
 tests/test_torch_cuda.py.
 """
@@ -20,6 +22,8 @@ from pumipic_tpu.particles import structure as JS
 from pumipic_torch import kernels
 from pumipic_torch.ops import rows
 from pumipic_torch.particles import structure as TS
+
+import slotmap_tiles
 
 
 def _bits(rng, shape):
@@ -167,3 +171,29 @@ def test_slot_map_equals_reference_on_every_slot(layout, chunk, sigma,
     s = np.searchsorted(off[1:-1], np.arange(C), side="right")
     if layout == "cabm":
         np.testing.assert_array_equal(elem_c.numpy(), np.minimum(s, E - 1))
+
+
+@pytest.mark.parametrize("layout,chunk", [("scs", 8), ("scs", 3), ("cabm", 8)])
+@pytest.mark.parametrize("case", slotmap_tiles.SLOT_CASES)
+@pytest.mark.parametrize("fill", slotmap_tiles.SLOT_FILLS)
+def test_slot_map_tiles_cover_every_slot_as_plain(layout, chunk, case, fill):
+    """Kernel S's partition (a tile of slots per block, the tile's segment
+    window searched once, each thread's slots stepped through it; numpy
+    model in tests/slotmap_tiles.py) writes every slot exactly once, with
+    the plain version's src, elem_c and pre_valid: segments wider than a
+    tile, empty segments and width-0 chunks, SCS pad rows, a window larger
+    than the kernel's shared-memory cap, C not a multiple of the tile, and
+    needed below, equal to and above C."""
+    order, start, offsets, r2e, C, M = slotmap_tiles.slot_inputs(layout, case, fill, chunk)
+    args = (layout, order, start, offsets, r2e, chunk if layout == "scs" else 1, C, M)
+    *got, stats = slotmap_tiles.slot_map_tiles(*args)
+    for g, w in zip(got, rows.slot_map_plain(*args)):
+        np.testing.assert_array_equal(g, w.numpy())
+    consts = slotmap_tiles.kernel_constants()
+    assert C % (consts["SLOT_THREADS"] * consts["SLOTS_PER_THREAD"]) != 0
+    if case == "wide segment":
+        assert stats["longest_segment_tiles"] >= 3
+    if case == "sparse window" and (layout == "cabm" or fill == "tail"):
+        assert stats["windows_over_cap"] >= 1
+    if case == "empty segments":
+        assert (torch.diff(offsets) == 0).any()

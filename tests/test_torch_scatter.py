@@ -143,10 +143,9 @@ def test_gyro_map_transpose():
         t_sc.GyroMap.from_flat(flat[:-1], V, R, P, device="cpu")
 
 
-def test_per_particle_radius_not_ported(meshes):
-    """The per-particle radius is ported now (its refusal is gone): a
-    radius per particle picks each particle's own ring pair; with one ring
-    the radius is ignored, as in the JAX package."""
+def test_per_particle_radius_is_ported(meshes):
+    """A radius per particle picks each particle's own ring pair; with one
+    ring the radius is ignored, as in the JAX package."""
     _, m = meshes
     e = torch.zeros(3, dtype=torch.int32)
     a = torch.ones(3, dtype=torch.bool)
