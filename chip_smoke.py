@@ -7,10 +7,13 @@ sources in this checkout.  Phases, each raising on failure:
 
 (a) require a CUDA device; print its name and power limit (nvidia-smi) and
     the torch / CUDA versions;
-(b) build the eight kernels (P push, B band cell, A annulus locate, L
-    locate, H histogram, D deposit, G row gather, S slot map), one nvcc per
-    source, all at once, and keep ptxas's registers, shared memory and
-    spills of each source's entry functions for the kernels' JSON line;
+(b) build the kernels of the ten sources (P push and its table mode
+    ``push_table``, B band cell, A annulus locate, L locate, H histogram, D
+    deposit, G row gather, S slot map, K Kuhn push + locate and its
+    push-only form ``push_wrap``, L3 tet locate), one nvcc per source, all
+    at once, and keep
+    ptxas's registers, shared memory and spills of each source's entry
+    functions for the kernels' JSON line;
 (c) run each kernel and its plain PyTorch version on the card on the same
     inputs at the shapes the main paths give it, require equal outputs, and
     time both on the device (CUDA events around runs enqueued while the
@@ -33,19 +36,35 @@ sources in this checkout.  Phases, each raising on failure:
     columns form at the sorted rebuild's shapes, at one step's locality and
     at a random order of the slots; B and L's given-cells mode on the
     flux-band grid; A on the 23,976-element annulus at 10M, in the
-    generator's element order and through a random element permutation.
+    generator's element order and through a random element permutation;
+    P's table mode at 10M over the (122,603, 2) rotation table; on
+    pseudoPushAndSearch's 16^3 Kuhn box (24,576 tets) at 10M particles, K
+    (push + wrap + locate), its push-only form (equal to K's positions too)
+    and L3 (peel + walk over the cpe-16 grid's
+    26-column rows, and the plain walk) on one step's targets, and the walk
+    arm's ids held against the Kuhn arm's (ties on shared faces counted).
     Then run a
-    small slice of each FULL-mode arm and of the PseudoXGCm app in each
-    layout (scs, csr, cabm, dps) on the card and on the CPU for 3 steps and
-    require equal states, structures and fields;
-(d) run the four FULL-mode arms through their entry point,
+    small slice of each FULL-mode arm (and the table push on a permuted
+    mesh), of the PseudoXGCm app in each layout (scs, csr, cabm, dps) and
+    of pseudoPushAndSearch (Kuhn and walk arms) on the card and on the CPU
+    for 3 steps and require equal states, structures and fields;
+(d) run the five FULL-mode arms through their entry point,
     ``bench_torch.main()``, at 10M particles, 1 warm-up + 20 timed steps
     each, with the launch counters reset just before each: the cartesian
     main path, the flux-band arm (``band_locator="force"``, reusing phase
-    c's band grid), the annulus arm and the per-particle gyro radius arm.
+    c's band grid), the annulus arm, the per-particle gyro radius arm and
+    the rotation-table arm (``rot_analytic=False``, P's table mode and
+    not its band mode).
     Require each arm's kernels launched (and the annulus arm's steps
     launching no L: its only L launch is the setup's gyro-map walk), finite
-    positive fields and > 90% of the particles alive.  Then the PseudoXGCm
+    positive fields and > 90% of the particles alive.  Then
+    pseudoPushAndSearch through ``bench_torch.main(mode="pps3d")`` at 10M
+    particles on the Kuhn box: the Kuhn arm (``pps3d-dps``, K and no L3 or
+    P) and the walk arm (``pps3d-dps-walk``, K's push-only form and L3, no
+    K locate) with 1 + 20
+    steps, then ``pps3d-scs`` with 1 + 3 (S and G on tets); require
+    ``num_ptcls`` equal to the active count, no overflow, and all 10M alive
+    in the Kuhn arm.  Then the PseudoXGCm
     app through its entry points (construction with phase c's cartesian
     grid, then ``run``) at 10M particles on the 120k mesh: Sell-C-σ with 1
     warm-up + 20 timed steps (ms per step from the port's timing registry),
@@ -88,6 +107,8 @@ ANNULUS_ELEMS = 24_000
 KERNELS = {  # name -> (route, source, replaces)
     "push": ("cuda", "pumipic_torch/kernels/csrc/push.cu",
              "pumipic_tpu/ops/push.py:82"),
+    "push_table": ("cuda", "pumipic_torch/kernels/csrc/push.cu",
+                   "pumipic_tpu/ops/push.py:166"),
     "band_cell": ("cuda", "pumipic_torch/kernels/csrc/band.cu",
                   "perf/pallas_smoke.py:98"),
     "annulus_locate": ("cuda", "pumipic_torch/kernels/csrc/annulus.cu",
@@ -102,6 +123,12 @@ KERNELS = {  # name -> (route, source, replaces)
                    "perf/pallas_gather_ab.py:72"),
     "slot_map": ("cuda", "pumipic_torch/kernels/csrc/slotmap.cu",
                  "pumipic_tpu/particles/structure.py:563"),
+    "kuhn_locate": ("cuda", "pumipic_torch/kernels/csrc/kuhn.cu",
+                    "pumipic_tpu/mesh/locator.py:190"),
+    "push_wrap": ("cuda", "pumipic_torch/kernels/csrc/kuhn.cu",
+                  "pumipic_tpu/ops/push.py:244"),
+    "locate3d": ("cuda", "pumipic_torch/kernels/csrc/locate3d.cu",
+                 "pumipic_tpu/ops/search.py:1268"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -127,6 +154,22 @@ ARMS = {
     "annulus": ({"mesh_path": "annulus", "mesh_elems": ANNULUS_ELEMS},
                 ("push", "annulus_locate", "locate", "histogram", "deposit")),
     "pprad": ({"gyro_ppr": True}, ("push", "locate", "histogram", "deposit")),
+    "rotgather": ({"rot_analytic": False},
+                  ("push_table", "locate", "histogram", "deposit")),
+}
+
+# pseudoPushAndSearch's arms of phase d: bench_torch.main keywords, steps,
+# the kernels each run must launch and those it must not
+PPS3D_ELEMS = 24_000              # box_tet_mesh(16, 16, 16): 24,576 tets
+_PUSHES_2D = ("push", "push_table")
+PPS3D_ARMS = {
+    "pps3d-dps": ({"kuhn": "auto"}, TIMED_STEPS, ("kuhn_locate",),
+                  ("locate3d", "push_wrap") + _PUSHES_2D),
+    "pps3d-dps-walk": ({"kuhn": "off"}, TIMED_STEPS, ("push_wrap", "locate3d"),
+                       ("kuhn_locate",) + _PUSHES_2D),
+    "pps3d-scs": ({"kuhn": "auto", "structure": "scs"}, 3,
+                  ("kuhn_locate", "slot_map", "row_gather"),
+                  ("locate3d", "push_wrap") + _PUSHES_2D),
 }
 
 
@@ -420,9 +463,27 @@ def check_cartesian(results: dict, dev, mesh):
     time_pair("push", "", lambda: push_ops.push_banded(*pargs),
               lambda: push_ops.push_banded_plain(*pargs), results)
     tx, ty = got[0], got[1]
+    # the function reads the old position only of an inactive particle (it
+    # is kept): 25 bytes in a particle, less those 8 where it is active
+    kept_bytes = 8 * int((~s["active"]).sum())
     # ~20 f32 operations per particle (rotation, Newton step, target)
-    record_bound("push", "", results, nbytes(*pargs[:7], model.rot.starts, model.rot.cd,
-                                         model.rot.sd, *got), 20.0 * n)
+    record_bound("push", "", results, nbytes(*pargs[2:7], model.rot.starts, model.rot.cd,
+                                         model.rot.sd, *got) + kept_bytes, 20.0 * n)
+
+    # P, table mode: the same particles over the per-element rotation table
+    rot_t = push_ops.RotTable.build(mesh.class_id.cpu().numpy(), cfg.deg_per_push, dev)
+    targs = pargs[:7] + (rot_t, cfg.h, cfg.k, cfg.d)
+    got_t = push_ops.push_table(*targs)
+    compare("push_table", f"({n} particles, {tuple(rot_t.table.shape)} table)", got_t,
+            push_ops.push_table_plain(*targs), results)
+    log(f"[c] push_table vs push (band mode): max |diff| = {max_err(got_t, got)} (the "
+        f"table's cos/sin are f64-rounded, the band rotation's f32)")
+    time_pair("push_table", "", lambda: push_ops.push_table(*targs),
+              lambda: push_ops.push_table_plain(*targs), results)
+    # 17 bytes in where active (the table counted once), 16 out a particle
+    record_bound("push_table", "", results,
+                 nbytes(*pargs[2:7], rot_t.table, *got_t) + kept_bytes, 20.0 * n)
+    del got_t, rot_t, targs
 
     # L: peel + guess walk at 10M
     largs = (mesh.walk_geom, tx, ty, s["elem"], s["active"], cfg.max_search_iters)
@@ -836,6 +897,18 @@ def check_app_slices(dev) -> None:
             f"capacity {pc.capacity}, alive {int(pc.num_ptcls)}): card == CPU, bit for bit")
 
 
+def permuted_tokamak(n_surfaces: int, base_points: int):
+    """tokamak_mesh with a seeded element permutation: its classification
+    is not band-ordered, so the FULL-mode step takes the rotation table."""
+    import numpy as np
+
+    from pumipic_torch.mesh.generate import tokamak_mesh
+
+    coords, tris, cls = tokamak_mesh(n_surfaces, base_points)
+    perm = np.random.default_rng(5).permutation(len(tris))
+    return coords, tris[perm], cls[perm]
+
+
 def check_slices(dev) -> None:
     """Each arm at a small size, 3 steps on the card and on the CPU (plain
     versions): states and fields must be equal bit for bit."""
@@ -849,6 +922,7 @@ def check_slices(dev) -> None:
         "annulus": (annulus_mesh(8, 48, 0.3, 1.0), {}),
         "pprad": (tokamak_mesh(16, 96),
                   {"gyro": px.GyroConfig(per_particle_radius=True)}),
+        "rotgather (permuted elements)": (permuted_tokamak(16, 96), {}),
     }
     for name, (arrays, kw) in slices.items():
         mdl_face = max(int(arrays[2].max()) // 2, 2)
@@ -872,6 +946,134 @@ def check_slices(dev) -> None:
             f"steps, alive {int(sc_['active'].sum())}): card == CPU, bit for bit")
 
 
+def pps3d_mesh(dev):
+    """pseudoPushAndSearch's bench mesh: box_tet_mesh(n, n, n) with
+    bench_torch's n for PPS3D_ELEMS (16: 24,576 tets)."""
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+
+    n = max(int(round((PPS3D_ELEMS / 6) ** (1.0 / 3.0))), 2)
+    return Mesh3D.from_arrays(*box_tet_mesh(n, n, n), device=dev)
+
+
+def check_pps3d(results: dict, dev):
+    """K and L3 at pseudoPushAndSearch's shapes: the walk arm's app (DPS, 10M
+    particles, periodic wall) on the Kuhn box; K on one step's push + wrap
+    + locate, L3 (peel + walk, and the plain walk) on the same targets, and
+    the two arms' ids compared.  Returns the cpe-16 grid (phase d's walk
+    arm reuses it)."""
+    from pumipic_torch.mesh.locator import detect_box_kuhn
+    from pumipic_torch.models import pseudo_push_and_search as pps
+    from pumipic_torch.ops import locate as lo
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import search as se
+
+    mesh = pps3d_mesh(dev)
+    cfg = pps.PushSearchConfig(num_ptcls=NUM_PTCLS, structure="dps", wall="periodic",
+                               max_search_iters=64, kuhn="off")
+    t0 = time.perf_counter()
+    app = pps.PseudoPushAndSearch(mesh, cfg, device=dev)
+    torch.cuda.synchronize()
+    grid = app.locator
+    kuhn = detect_box_kuhn(mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(),
+                           device=dev)
+    ps = app.ptcls
+    n = ps.capacity
+    log(f"[c] pps3d: {mesh.nelems} tets, {n} particles, grid {grid.nx}x{grid.ny}x{grid.nz}"
+        f" = {grid.cell_rows.shape[0]} cells, rows {grid.cell_rows.numel() * 4 / 1e6:.1f} MB;"
+        f" app built in {time.perf_counter() - t0:.2f} s (setup {app.setup_s})")
+
+    # K: push + wrap + analytic locate + mask, one step from the seeded state
+    kargs = (kuhn, ps.get("x"), ps.active, app.step_vector, app.wrap)
+    got_k = lo.kuhn_push_locate(*kargs)
+    compare("kuhn_locate", f"push + wrap + locate ({n} particles, {mesh.nelems} tets)",
+            got_k, lo.kuhn_push_locate_plain(*kargs), results)
+    time_pair("kuhn_locate", "", lambda: lo.kuhn_push_locate(*kargs),
+              lambda: lo.kuhn_push_locate_plain(*kargs), results)
+    # ~30 f32 operations per particle (push, three fmods, floors, id)
+    record_bound("kuhn_locate", "", results, nbytes(kargs[1], kargs[2], *got_k), 30.0 * n)
+
+    # K's push-only form (the walk arm's push) on the same positions: equal
+    # to its plain version and to K's pushed positions
+    wargs = (ps.get("x"), app.step_vector, app.wrap)
+    got_w = push_ops.push_and_wrap(*wargs)
+    compare("push_wrap", f"push + wrap ({n} particles)", got_w,
+            push_ops.push_and_wrap_plain(*wargs), results)
+    if not torch.equal(got_w, got_k[0]):
+        raise AssertionError("push_wrap's positions differ from kernel K's")
+    time_pair("push_wrap", "", lambda: push_ops.push_and_wrap(*wargs),
+              lambda: push_ops.push_and_wrap_plain(*wargs), results)
+    # 12 bytes in and 12 out a particle; an add, an fmod, the sign fix and
+    # an add per coordinate (~12 f32 operations a particle)
+    record_bound("push_wrap", "", results, nbytes(wargs[0], got_w), 12.0 * n)
+    del got_w, wargs
+
+    # L3 on the same targets: peel + walk (the walk arm's step), plain walk
+    dest = got_k[0]
+    largs = (mesh.walk_geom, dest, ps.elem, ps.active, cfg.max_search_iters)
+    for what, g in (("peel+walk", grid), ("plain walk", None)):
+        got = se.walk_locate_3d(*largs, grid=g)
+        compare("locate3d", f"{what} ({n} particles)", got,
+                se.walk_locate_3d_plain(*largs, grid=g), results)
+        log(f"[c] locate3d {what}: iters={int(got[2])} all_found={bool(got[3])} "
+            f"deleted at the 64-iteration limit: {int(got[4])}, alive {int(got[1].sum())}")
+        time_pair("locate3d", what, lambda: se.walk_locate_3d(*largs, grid=g),
+                  lambda: se.walk_locate_3d_plain(*largs, grid=g), results, plain_reps=3)
+        # the peel's two containment tests (~90 f32 operations per particle);
+        # each table (walk_geom is largs[0]) counted once
+        record_bound("locate3d", what, results,
+                     nbytes(*largs[:4], None if g is None else g.cell_rows,
+                            got[0], got[1]), 90.0 * n if g is not None else 0.0)
+        if g is not None:
+            walk = got
+    # the walk arm's ids against the Kuhn arm's: equal but where the
+    # destination lies in both tets within the walk's BCC tolerance
+    ek, ew = got_k[1], walk[0]
+    bad = torch.nonzero(ek != ew).flatten()
+    d = dest[bad]
+    ties = torch.ones(bad.shape[0], dtype=torch.bool, device=dev)
+    for e in (ek[bad], ew[bad]):
+        rows_ = mesh.walk_geom[torch.clamp(e, min=0).long()]
+        ties &= (e >= 0) & se.bary_inside_3d(rows_[:, :12].unbind(1), *d.unbind(1))[4]
+    log(f"[c] pps3d walk arm vs Kuhn arm, one step: {int(bad.shape[0])} ids differ, "
+        f"{int(ties.sum())} of them on a face both tets contain within the BCC "
+        f"tolerance")
+    if not bool(ties.all()):
+        raise AssertionError("the walk arm's ids differ from the Kuhn arm's away "
+                             "from shared faces")
+    del app, ps, kargs, got_k, largs, walk, dest
+    return mesh, grid
+
+
+def check_pps3d_slices(dev) -> None:
+    """pseudoPushAndSearch at a small size, the Kuhn and walk arms, on the
+    card and on the CPU for 3 steps: structures and fields equal."""
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.models import pseudo_push_and_search as pps
+
+    raw = box_tet_mesh(6, 6, 6)
+    for kuhn in ("auto", "off"):
+        cfg = pps.PushSearchConfig(num_ptcls=50_000, structure="cabm", wall="periodic",
+                                   kuhn=kuhn, max_search_iters=64)
+        ag = pps.PseudoPushAndSearch(Mesh3D.from_arrays(*raw, device=dev), cfg, device=dev)
+        ac = pps.PseudoPushAndSearch(Mesh3D.from_arrays(*raw, device="cpu"), cfg,
+                                     device="cpu")
+        for i in range(3):
+            ag.ptcls, ig = ag.step_fn(ag.ptcls)
+            ac.ptcls, ic = ac.step_fn(ac.ptcls)
+            for key in ("elem", "active", "num_ptcls", "elem_offsets", "overflowed"):
+                if max_err(getattr(ag.ptcls, key).cpu(), getattr(ac.ptcls, key)):
+                    raise AssertionError(f"pps3d {kuhn} slice step {i}: {key} differs")
+            for key in ("x", "pid"):
+                if max_err(ag.ptcls.fields[key].cpu(), ac.ptcls.fields[key]):
+                    raise AssertionError(f"pps3d {kuhn} slice step {i}: {key} differs")
+            if int(ig) != int(ic):
+                raise AssertionError(f"pps3d {kuhn} slice step {i}: iters differ")
+        log(f"[c] pps3d kuhn={kuhn} slice (216 cells x 6 tets, 50k particles, 3 steps, "
+            f"alive {int(ac.ptcls.num_ptcls)}): card == CPU, bit for bit")
+
+
 def phase_c(results: dict, dev):
     """Returns the 120k mesh, its cartesian grid and the band grid built
     here (phase d reuses them), and the band grid's build seconds."""
@@ -887,20 +1089,26 @@ def phase_c(results: dict, dev):
     torch.cuda.empty_cache()
     band_grid, band_s = check_band(results, dev, mesh)
     check_annulus(results, dev)
+    mesh3d, grid3d = check_pps3d(results, dev)
+    torch.cuda.empty_cache()
     check_slices(dev)
     check_app_slices(dev)
+    check_pps3d_slices(dev)
     torch.cuda.empty_cache()
-    return mesh, grid, band_grid, band_s
+    return mesh, grid, band_grid, band_s, grid3d
 
 
-def phase_d(results: dict, dev, band_grid, band_s: float) -> None:
+def phase_d(results: dict, dev, grid, band_grid, band_s: float, smi: str) -> None:
     import bench_torch
     from pumipic_torch import kernels
 
+    alive = {}
     for name, (kw, expected) in ARMS.items():
         kw = dict({"mesh_path": MESH}, **kw)
         if name == "band":
             kw["locator"] = band_grid
+        if name == "rotgather":
+            kw["locator"] = grid
         torch.cuda.empty_cache()
         kernels.reset_launches()
         record, state, fields = bench_torch.main(
@@ -915,7 +1123,13 @@ def phase_d(results: dict, dev, band_grid, band_s: float) -> None:
             + ", ".join(f"{k} {v:.2f}" for k, v in setup.items()))
         log(f"[d] {name}: {det['ms_per_step']:.4f} ms/step, {record['value']:.6g} "
             f"particle-steps/s, alive {det['alive']} of {det['num_ptcls']}, "
-            f"iters {det['iters']}, all_found {det['all_found']}")
+            f"iters {det['iters']}, all_found {det['all_found']} ({smi})")
+        alive[name] = det["alive"]
+        if name == "rotgather":
+            log(f"[d] rotgather arm: alive "
+                f"{det['alive']} against the cartesian arm's {alive['cartesian']} "
+                f"(difference {det['alive'] - alive['cartesian']}: the table's f64-rounded "
+                f"cos/sin against the band rotation's f32 ones move positions by an ulp)")
         log(f"[d] {name} kernel launches: {counts}")
         launched = {k for k, v in counts.items() if v > 0}
         if launched != set(expected):
@@ -937,6 +1151,54 @@ def phase_d(results: dict, dev, band_grid, band_s: float) -> None:
             raise AssertionError(f"{name}: only {det['alive']} of {NUM_PTCLS} "
                                  f"particles alive")
         del state, fields
+
+
+def run_pps3d(results: dict, dev, grid3d, smi: str) -> None:
+    """pseudoPushAndSearch's arms through ``bench_torch.main(mode="pps3d")``
+    at 10M particles on the Kuhn box, the counts reset just before each;
+    the walk arm reuses phase c's grid."""
+    import bench_torch
+    from pumipic_torch import kernels
+
+    for name, (kw, steps, must, must_not) in PPS3D_ARMS.items():
+        if kw["kuhn"] == "off":
+            kw = dict(kw, locator=grid3d)
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        record, ps, fields = bench_torch.main(device=dev, num_ptcls=NUM_PTCLS, iters=steps,
+                                              mode="pps3d", mesh_elems=PPS3D_ELEMS, **kw)
+        counts = dict(kernels.LAUNCHES)
+        det = record["detail"]
+        log(f"[d] {name} (tag {det['tag']}, {det['mesh_elems']} tets): "
+            f"{det['ms_per_step']:.4f} ms/step over {steps} steps, {record['value']:.6g} "
+            f"particle-steps/s, alive {det['alive']} of {det['num_ptcls']}, iters "
+            f"{det['iters']} ({smi})")
+        log(f"[d] {name} setup seconds: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in det["setup_s"].items()))
+        log(f"[d] {name} kernel launches: {counts}")
+        launched = {k for k, v in counts.items() if v > 0}
+        if not set(must) <= launched or launched & set(must_not):
+            raise AssertionError(f"{name} launched {sorted(launched)}: needs {must}, "
+                                 f"none of {must_not}")
+        for k, v in counts.items():
+            results[k]["launches"] = results[k].get("launches", 0) + v
+        act = ps.active
+        if int(ps.num_ptcls) != int(act.sum()) or bool(ps.overflowed):
+            raise AssertionError(f"{name}: num_ptcls {int(ps.num_ptcls)}, active "
+                                 f"{int(act.sum())}, overflowed {bool(ps.overflowed)}")
+        e = ps.elem[act]
+        if not bool(((e >= 0) & (e < det["mesh_elems"])).all()):
+            raise AssertionError(f"{name}: an active element id out of range")
+        x = ps.get("x")[act]
+        if not bool(((x >= 0) & (x <= 1)).all()):
+            raise AssertionError(f"{name}: a wrapped position outside the box")
+        if kw["kuhn"] == "auto" and det["alive"] != NUM_PTCLS:
+            raise AssertionError(f"{name}: {det['alive']} of {NUM_PTCLS} alive on the "
+                                 f"periodic box")
+        if kw["kuhn"] == "off":
+            log(f"[d] {name}: {NUM_PTCLS - det['alive']} walkers deleted over "
+                f"{1 + steps} steps (on the periodic box only at the 64-iteration limit)")
+        del ps, fields
 
 
 def run_app(results: dict, dev, mesh, grid, structure: str):
@@ -1045,8 +1307,10 @@ def main() -> int:
     results = {name: {} for name in KERNELS}
     phase_b(results)
     dev = torch.device("cuda")
-    mesh, grid, band_grid, band_s = phase_c(results, dev)
-    phase_d(results, dev, band_grid, band_s)
+    mesh, grid, band_grid, band_s, grid3d = phase_c(results, dev)
+    phase_d(results, dev, grid, band_grid, band_s, smi)
+    run_pps3d(results, dev, grid3d, smi)
+    del grid3d
     for structure in APP_ARMS:
         last = run_app(results, dev, mesh, grid, structure)
         steps = APP_STEPS[structure]

@@ -4,8 +4,10 @@ objects out (and, for particle structures, back).
 The parity tests build the reference's mesh, locator (cartesian grid, band
 grid or annulus locator), gyro maps, band starts and particle state,
 convert them with ``np.asarray``, and hand them to :func:`from_reference`,
-so that both packages step from identical inputs.  This module takes numpy
-only and imports no JAX.
+so that both packages step from identical inputs; for tet meshes,
+:func:`mesh3d_from_numpy`, :func:`locator3d_from_numpy` and
+:func:`kuhn_from_numpy` do the same.  This module takes numpy only and
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -14,11 +16,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from pumipic_torch.mesh.core import Mesh2D
+from pumipic_torch.mesh.core import Mesh2D, Mesh3D
 from pumipic_torch.mesh.locator import (
     AnnulusLocator2D,
     BandGrid2D,
+    KuhnLocator3D,
     LocatorGrid2D,
+    LocatorGrid3D,
 )
 from pumipic_torch.models.pseudo_xgcm import DPModel, XGCmConfig
 from pumipic_torch.ops.push import BandRotation
@@ -32,6 +36,12 @@ MESH_FIELDS = ("coords", "elem2verts", "elem2edges", "edge2verts",
                "elem_inv_basis", "vert2elem_offsets", "vert2elem_vals",
                "class_id", "walk_geom")
 LOCATOR_FIELDS = ("origin", "inv_h", "nx", "ny", "cell_elem", "cell_rows")
+MESH3D_FIELDS = ("coords", "elem2verts", "elem2faces", "face2verts",
+                 "face2elems", "side_is_exposed", "elem_volume", "elem_v0",
+                 "elem_inv_basis", "vert2elem_offsets", "vert2elem_vals",
+                 "class_id", "walk_geom", "walk_planes")
+LOCATOR3D_FIELDS = ("origin", "inv_h", "nx", "ny", "nz", "cell_elem", "cell_rows")
+KUHN_FIELDS = ("origin", "inv_h", "nx", "ny", "nz", "perm")
 BAND_FIELDS = ("cx", "cy", "coef_u", "coef_v", "inv_coef", "cell_rows",
                "cell_elem", "n_bands", "n_theta", "n_harm", "n_cheb", "rank",
                "newton_iters")
@@ -66,6 +76,43 @@ def locator_from_numpy(arrays: Dict[str, np.ndarray], device=None
         nx=int(arrays["nx"]), ny=int(arrays["ny"]),
         cell_rows=None if rows is None else torch.as_tensor(
             np.array(rows, np.float32), device=device))
+
+
+def mesh3d_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> Mesh3D:
+    """The reference's ``Mesh3D`` (fields of :data:`MESH3D_FIELDS`)."""
+    return Mesh3D.from_numpy({k: arrays[k] for k in MESH3D_FIELDS}, device)
+
+
+def _f32_triple(v) -> Tuple[float, float, float]:
+    a = np.asarray(v, np.float32)
+    return (float(a[0]), float(a[1]), float(a[2]))
+
+
+def locator3d_from_numpy(arrays: Dict[str, np.ndarray], device=None
+                         ) -> LocatorGrid3D:
+    """The reference's ``LocatorGrid3D`` (fields of
+    :data:`LOCATOR3D_FIELDS`; its default 26-column ``cell_rows``)."""
+    device = resolve_device(device)
+    rows = arrays.get("cell_rows")
+    return LocatorGrid3D(
+        origin=_f32_triple(arrays["origin"]), inv_h=_f32_triple(arrays["inv_h"]),
+        cell_elem=torch.as_tensor(
+            np.asarray(arrays["cell_elem"]).astype(np.int32), device=device),
+        nx=int(arrays["nx"]), ny=int(arrays["ny"]), nz=int(arrays["nz"]),
+        cell_rows=None if rows is None else torch.as_tensor(
+            np.array(rows, np.float32), device=device))
+
+
+def kuhn_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> KuhnLocator3D:
+    """The reference's ``KuhnLocator3D`` (fields of :data:`KUHN_FIELDS`;
+    ``perm`` None for the generator's order)."""
+    device = resolve_device(device)
+    perm = arrays.get("perm")
+    return KuhnLocator3D(
+        origin=_f32_triple(arrays["origin"]), inv_h=_f32_triple(arrays["inv_h"]),
+        nx=int(arrays["nx"]), ny=int(arrays["ny"]), nz=int(arrays["nz"]),
+        perm=None if perm is None else torch.as_tensor(
+            np.asarray(perm).astype(np.int32), device=device))
 
 
 def band_grid_from_numpy(arrays: Dict[str, np.ndarray], device=None

@@ -47,6 +47,11 @@ SIGNATURES = {
         _F, _F, _F,                          # h k d
         _P, _P, _P, _P,                      # tx ty cphi_out sphi_out
         _L, _P],                             # n stream
+    "pp_push_table": [
+        _P, _P, _P, _P, _P, _P, _P,          # x0 x1 cphi sphi b elem active
+        _P, _I, _F, _F, _F,                  # table n_rows h k d
+        _P, _P, _P, _P,                      # tx ty cphi_out sphi_out
+        _L, _P],                             # n stream
     "pp_push_phi": [
         _P, _P, _P, _P, _P,                  # xy phi b active cls
         _P, _I, _I, _I,                      # starts n_starts v0 band_form
@@ -58,6 +63,18 @@ SIGNATURES = {
         _P, _I,                              # walk_geom n_elems
         _P, _P,                              # cell_rows cells
         _F, _F, _F, _F, _I, _I,              # ox oy ihx ihy nx ny
+        _I, _I,                              # max_iters it0
+        _P, _P, _P,                          # elem_out active_out stats
+        _L, _P],                             # n stream
+    "pp_kuhn_push_locate": [
+        _P, _P, _L, _I, _I,                  # x active n push wrap
+        _P, _P, _I, _I, _I, _P,              # s|lo|ext origin|inv_h nx ny nz tol
+        _P, _P, _P, _P],                     # perm x_out elem_out stream
+    "pp_push_wrap": [_P, _L, _I, _I, _P, _P, _P],  # x n push wrap s|lo|ext x_out stream
+    "pp_walk_locate_3d": [
+        _P, _P, _P,                          # dest (N, 3) elem_start active
+        _P, _I,                              # walk_geom n_elems
+        _P, _P, _I, _I, _I,                  # cell_rows origin|inv_h nx ny nz
         _I, _I,                              # max_iters it0
         _P, _P, _P,                          # elem_out active_out stats
         _L, _P],                             # n stream

@@ -36,6 +36,18 @@
 // particle it reads 21 bytes and writes 20 (tx, ty, the (x, y) pair and
 // phi): ~410 MB at 10M, >= 0.12 ms at 3.35 TB/s; two libm calls and a few
 // divisions per particle stay below that.
+//
+// Table mode (push_table_kernel): the push of a classification that is not
+// band-ordered.  Replaces elliptical_push_rot (pumipic_tpu/ops/push.py:166-
+// 192) over the per-element table of elliptical_rot_table (:65-79), as the
+// FULL-mode step runs it (pumipic_tpu/models/pseudo_xgcm.py:629-633).  Each
+// particle gathers the 8-byte (cos d, sin d) row of element max(elem, 0)
+// from the (E, 2) f32 table (one float2 load; the 122,603-row table of the
+// 120k mesh is 1 MB and stays in L2), then rotates, renormalizes and forms
+// the target as the banded mode does.  Per particle: 25 bytes streamed in,
+// 8 gathered, 16 out: ~41 bytes, ~0.12 ms at 10M particles and 3.35 TB/s.
+// The table is built once on the host (cos and sin in f64, rounded), so the
+// kernel and the plain version read the same values.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +91,40 @@ __global__ void push_banded_kernel(
     s2 = s2 * f;
     const float bb = b[i];
     if (active[i]) {
+      tx[i] = bb * d * c2 + h;
+      ty[i] = bb * s2 + k;
+      cphi_out[i] = c2;
+      sphi_out[i] = s2;
+    } else {
+      tx[i] = x0[i];
+      ty[i] = x1[i];
+      cphi_out[i] = c;
+      sphi_out[i] = s;
+    }
+  }
+}
+
+__global__ void push_table_kernel(
+    const float* __restrict__ x0, const float* __restrict__ x1,
+    const float* __restrict__ cphi, const float* __restrict__ sphi,
+    const float* __restrict__ b, const int* __restrict__ elem,
+    const uint8_t* __restrict__ active, const float2* __restrict__ table,
+    int n_rows, float h, float k, float d, float* __restrict__ tx,
+    float* __restrict__ ty, float* __restrict__ cphi_out,
+    float* __restrict__ sphi_out, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float c = cphi[i], s = sphi[i];
+    if (active[i]) {
+      const int e = min(max(elem[i], 0), n_rows - 1);
+      const float2 r = __ldg(table + e);
+      float c2 = c * r.x - s * r.y;
+      float s2 = s * r.x + c * r.y;
+      const float f = 1.5f - 0.5f * (c2 * c2 + s2 * s2);
+      c2 = c2 * f;
+      s2 = s2 * f;
+      const float bb = b[i];
       tx[i] = bb * d * c2 + h;
       ty[i] = bb * s2 + k;
       cphi_out[i] = c2;
@@ -170,6 +216,25 @@ extern "C" int pp_push_banded(
   push_banded_kernel<<<(unsigned)blocks, threads, shmem, stream>>>(
       x0, x1, cphi, sphi, b, elem, active, starts, n_starts, cd_tab, sd_tab,
       h, k, d, tx, ty, cphi_out, sphi_out, n);
+  return (int)cudaGetLastError();
+}
+
+// table: the (n_rows, 2) f32 rotation table, 8-byte aligned
+extern "C" int pp_push_table(
+    const float* x0, const float* x1, const float* cphi, const float* sphi,
+    const float* b, const int* elem, const uint8_t* active,
+    const float* table, int n_rows, float h, float k, float d, float* tx,
+    float* ty, float* cphi_out, float* sphi_out, long long n,
+    cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  long long blocks = (n + threads - 1) / threads;
+  const long long cap = (long long)num_sms() * 16;
+  if (blocks > cap) blocks = cap;
+  push_table_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      x0, x1, cphi, sphi, b, elem, active,
+      reinterpret_cast<const float2*>(table), n_rows, h, k, d, tx, ty,
+      cphi_out, sphi_out, n);
   return (int)cudaGetLastError();
 }
 

@@ -4,6 +4,7 @@ without importing JAX.
 
 - :func:`annulus_mesh` — structured annulus with radial-band classification
 - :func:`tokamak_mesh` — XGC-style stitched flux-surface mesh
+- :func:`box_tet_mesh` — structured Kuhn tet mesh of a box (pseudoPushAndSearch)
 
 ``class_id`` is the 1-based radial band (innermost = 1), the geometric-model
 classification pseudoXGCm drives on.
@@ -132,3 +133,29 @@ def tokamak_mesh(
             ring_theta[k + 1], ring_start[k + 1],
         )
     return (coords, np.asarray(tris, np.int64), np.asarray(cls, np.int64))
+
+
+def box_tet_mesh(nx: int, ny: int, nz: int,
+                 lx: float = 1.0, ly: float = 1.0, lz: float = 1.0
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Structured tet mesh of a box: 6 tets per hex cell (Kuhn subdivision
+    along the vertex-permutation paths 000 -> 111), a conforming mesh (the
+    cube.msh analog of pseudoPushAndSearch)."""
+    xs = np.linspace(0, lx, nx + 1)
+    ys = np.linspace(0, ly, ny + 1)
+    zs = np.linspace(0, lz, nz + 1)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    # path order (x,y,z) (x,z,y) (y,x,z) (y,z,x) (z,x,y) (z,y,x), as bits
+    paths = [(1, 2, 4), (1, 4, 2), (2, 1, 4), (2, 4, 1), (4, 1, 2), (4, 2, 1)]
+    corner = {0: (0, 0, 0), 1: (1, 0, 0), 2: (0, 1, 0), 4: (0, 0, 1),
+              3: (1, 1, 0), 5: (1, 0, 1), 6: (0, 1, 1), 7: (1, 1, 1)}
+    # per path, the 4 corner offsets of its tet
+    offs = np.array([[corner[a] for a in np.cumsum((0,) + p)] for p in paths])
+    i, j, k = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                          indexing="ij")
+    base = np.stack([i.ravel(), j.ravel(), k.ravel()], axis=1)   # cells, (i,j,k) order
+    v = base[:, None, None, :] + offs[None]                      # (cells, 6, 4, 3)
+    tets = (v[..., 0] * (ny + 1) + v[..., 1]) * (nz + 1) + v[..., 2]
+    return coords, tets.reshape(-1, 4).astype(np.int64)

@@ -1,5 +1,4 @@
-"""Point-location accelerators (port of ``pumipic_tpu.mesh.locator``'s 2D
-locators).
+"""Point-location accelerators (port of ``pumipic_tpu.mesh.locator``).
 
 A background grid maps each cell to a nearby element; the search starts
 its walk from the grid's guess of the DESTINATION.  Each cell also carries
@@ -18,14 +17,20 @@ guess is only an accelerator: the walk still proves containment.
 - :class:`AnnulusLocator2D`: exact analytic location on a proven
   structured annulus (:func:`detect_annulus_structured`), kernel A; no
   table and no walk.
+- :class:`LocatorGrid3D`: the tet mesh's cartesian cells, whose 26-column
+  rows [A affine (12) | elemA | B affine (12) | elemB] kernel L3 peels.
+- :class:`KuhnLocator3D`: exact analytic location on a proven structured
+  Kuhn box (:func:`detect_box_kuhn`), kernel K.
 
 The JAX package's other layouts change which element a walk starts from,
 never its result: ``polar="auto"`` resolves to cartesian cells here
 (``polar=True`` raises), and the peel variants "lines", "rows_split" and
-"rows_ab" map onto "rows".
+"rows_ab" (and, on tets, also "rows_abc", "ids" and "ids4") map onto
+"rows".
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Dict, Optional, Tuple
@@ -814,3 +819,274 @@ def detect_banded_locator(
         cell_elem=torch.as_tensor(a.astype(np.int32), device=device),
         n_bands=K, n_theta=T, n_harm=J, n_cheb=P, rank=rank,
     )
+
+
+# ---------------------------------------------------------------------------
+# tet meshes: the locator grid and the structured Kuhn box
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LocatorGrid3D:
+    """Cartesian locator grid of a tet mesh, cell id (ix·ny + iy)·nz + iz.
+    ``origin``/``inv_h`` are host floats that are exact f32 values (the JAX
+    package stores them as f32 arrays).  ``cell_rows`` (n_cells, 26) f32:
+
+        [A affine (12) | elemA | B affine (12) | elemB]
+
+    the two sample-calibrated candidates of each cell (the "rows" layout,
+    onto which every other peel of the JAX package maps)."""
+
+    origin: Tuple[float, float, float]
+    inv_h: Tuple[float, float, float]
+    cell_elem: torch.Tensor               # (nx*ny*nz,) i32 nearest element
+    nx: int
+    ny: int
+    nz: int
+    cell_rows: Optional[torch.Tensor] = None   # (nx*ny*nz, 26) f32
+
+    def cell_of(self, px: torch.Tensor, py: torch.Tensor,
+                pz: torch.Tensor) -> torch.Tensor:
+        """Points -> (N,) clamped cell ids in the JAX package's f32 index
+        arithmetic (exact below 2^24 cells); the final integer clamp only
+        guards non-finite points."""
+        o, ih = self.origin, self.inv_h
+        ix = torch.clamp(torch.floor((px - o[0]) * ih[0]), 0.0, self.nx - 1.0)
+        iy = torch.clamp(torch.floor((py - o[1]) * ih[1]), 0.0, self.ny - 1.0)
+        iz = torch.clamp(torch.floor((pz - o[2]) * ih[2]), 0.0, self.nz - 1.0)
+        c = ((ix * float(self.ny) + iy) * float(self.nz) + iz).to(torch.int32)
+        return torch.clamp(c, 0, self.nx * self.ny * self.nz - 1)
+
+
+def _host_walk_3d(geom: np.ndarray, e0: np.ndarray, px, py, pz,
+                  iters: int = 24) -> np.ndarray:
+    """Vectorized host-side 3D BCC walk (build-time only): locate (px, py,
+    pz) from e0; -1 where the walk exits the domain or does not settle."""
+    e = np.asarray(e0, np.int64).copy()
+    done = e < 0
+
+    def bary(g):
+        l1 = g[:, 0] * px + g[:, 1] * py + g[:, 2] * pz + g[:, 3]
+        l2 = g[:, 4] * px + g[:, 5] * py + g[:, 6] * pz + g[:, 7]
+        l3 = g[:, 8] * px + g[:, 9] * py + g[:, 10] * pz + g[:, 11]
+        return l1, l2, l3, 1.0 - l1 - l2 - l3
+
+    for _ in range(iters):
+        g = geom[np.maximum(e, 0)]
+        l1, l2, l3, w0 = bary(g)
+        inside = np.minimum(np.minimum(l1, l2), np.minimum(l3, w0)) >= -1e-6
+        done_new = done | inside
+        wmin = w0.copy()
+        kmin = np.zeros(len(e), np.int64)
+        for k, lk in ((1, l1), (2, l2), (3, l3)):
+            take = lk < wmin
+            wmin = np.where(take, lk, wmin)
+            kmin = np.where(take, k, kmin)
+        nxt = np.take_along_axis(
+            g[:, 12:16], kmin[:, None], axis=1)[:, 0].astype(np.int64)
+        e = np.where(done_new, e, nxt)
+        done = done_new | (~done_new & (e < 0))
+        if done.all():
+            break
+    g = geom[np.maximum(e, 0)]
+    l1, l2, l3, w0 = bary(g)
+    ok = (e >= 0) & (np.minimum(np.minimum(l1, l2), np.minimum(l3, w0)) >= -1e-6)
+    return np.where(ok, e, -1)
+
+
+def attach_cell_rows_3d(grid: LocatorGrid3D, walk_geom,
+                        samples_per_cell: int = 8,
+                        seed: int = 1729) -> LocatorGrid3D:
+    """A copy of ``grid`` whose cells carry TWO candidate walk rows [A affine
+    (12) | elemA | B affine (12) | elemB]: the elements covering the most
+    and second-most of ``samples_per_cell`` stratified random samples per
+    cell, located on the host.  Same seed and draws as the JAX package's
+    ``attach_cell_rows_3d``, so the table is bit-equal to its default
+    layout."""
+    geom = (walk_geom.cpu().numpy() if isinstance(walk_geom, torch.Tensor)
+            else np.asarray(walk_geom))
+    _check_ids_f32_exact(geom)
+    ce = grid.cell_elem.cpu().numpy().astype(np.int64)
+    nx, ny, nz = grid.nx, grid.ny, grid.nz
+    n_grid = nx * ny * nz
+    o = np.asarray(grid.origin, np.float64)
+    h = 1.0 / np.asarray(grid.inv_h, np.float64)
+
+    K = samples_per_cell
+    rng = np.random.default_rng(seed)
+    cell = np.repeat(np.arange(n_grid, dtype=np.int64), K)
+    u = rng.uniform(size=(n_grid * K, 3))
+    iz = cell % nz
+    iy = (cell // nz) % ny
+    ix = cell // (ny * nz)
+    px = o[0] + (ix + u[:, 0]) * h[0]
+    py = o[1] + (iy + u[:, 1]) * h[1]
+    pz = o[2] + (iz + u[:, 2]) * h[2]
+    found = _host_walk_3d(geom, ce[cell], px, py, pz)
+    a, b = _top2_per_cell(cell, found, ce)
+    rows = np.concatenate(
+        [geom[a][:, 0:12], a[:, None].astype(np.float32),
+         geom[b][:, 0:12], b[:, None].astype(np.float32)],
+        axis=1).astype(np.float32)
+    return dataclasses.replace(
+        grid, cell_rows=torch.as_tensor(rows, device=grid.cell_elem.device))
+
+
+def build_locator_grid_3d(coords: np.ndarray, elem2verts: np.ndarray,
+                          cells_per_elem: float = 2.0,
+                          walk_geom=None,
+                          peel: str = "auto",
+                          device=None) -> LocatorGrid3D:
+    """Host build of a tet mesh's locator grid: bucket element centroids
+    into ~cells_per_elem·E cells (cell counts per axis in proportion to the
+    box) and flood-fill empty cells from their 6 neighbours; with
+    ``walk_geom``, attach the 2-candidate cell rows.  Every peel of the JAX
+    package ("auto" and its choice of "lines" above 32 MB, "lines",
+    "rows_split", "rows_ab", "rows_abc", "ids", "ids4") maps onto "rows":
+    they change which element a walk starts from, never its result."""
+    device = resolve_device(device)
+    if peel not in KNOWN_PEELS:
+        raise ValueError(f"unknown peel {peel!r}; expected one of "
+                         f"{KNOWN_PEELS}")
+    coords = np.asarray(coords, np.float64)
+    ev = np.asarray(elem2verts, np.int64)
+    E = ev.shape[0]
+    cent = coords[ev].mean(axis=1)
+
+    lo = coords.min(axis=0)
+    hi = coords.max(axis=0)
+    extent = np.maximum(hi - lo, 1e-30)
+    n_cells = max(int(E * cells_per_elem), 64)
+    scale = (n_cells / np.prod(extent)) ** (1.0 / 3.0)
+    nx, ny, nz = (max(int(e * scale), 1) for e in extent)
+    h = extent / np.array([nx, ny, nz])
+
+    ijk = np.clip(((cent - lo) / h).astype(np.int64),
+                  0, np.array([nx - 1, ny - 1, nz - 1]))
+    grid = np.full((nx, ny, nz), -1, np.int64)
+    grid[ijk[:, 0], ijk[:, 1], ijk[:, 2]] = np.arange(E)
+
+    while (grid < 0).any():
+        empty = grid < 0
+        filled_any = False
+        for ax in (0, 1, 2):
+            for s in (1, -1):
+                shifted = np.roll(grid, s, axis=ax)
+                idx = [slice(None)] * 3
+                idx[ax] = 0 if s == 1 else -1
+                shifted[tuple(idx)] = -1
+                newfill = empty & (grid < 0) & (shifted >= 0)
+                grid = np.where(empty & (grid < 0), shifted, grid)
+                filled_any = filled_any or bool(newfill.any())
+        if not filled_any:
+            raise ValueError("3d locator grid flood fill failed")
+
+    lo32 = lo.astype(np.float32)
+    ih32 = (1.0 / h).astype(np.float32)
+    out = LocatorGrid3D(
+        origin=tuple(float(v) for v in lo32),
+        inv_h=tuple(float(v) for v in ih32),
+        cell_elem=torch.as_tensor(grid.reshape(-1).astype(np.int32),
+                                  dtype=LID_DTYPE, device=device),
+        nx=int(nx), ny=int(ny), nz=int(nz),
+    )
+    if walk_geom is not None:
+        out = attach_cell_rows_3d(out, walk_geom)
+    return out
+
+
+@dataclass(frozen=True)
+class KuhnLocator3D:
+    """Analytic point location on a proven structured Kuhn box (6 tets per
+    hex cell along vertex-permutation paths, ``box_tet_mesh``'s layout):
+    the cell from a floor, the tet from the descending order of the
+    fractional coordinates, element id = cell·6 + path.  No table, no walk;
+    exact up to f32 ties on shared faces.  Points outside the box get
+    INVALID (on the convex box, destination outside ⟺ the path exits).
+
+    ``origin``/``inv_h`` are exact f32 values; ``perm`` maps canonical to
+    actual element ids for an imported (reordered) box, None for the
+    generator's order.  Locating is kernel K
+    (:func:`pumipic_torch.ops.locate.kuhn_push_locate`)."""
+
+    origin: Tuple[float, float, float]
+    inv_h: Tuple[float, float, float]
+    nx: int = 1
+    ny: int = 1
+    nz: int = 1
+    perm: Optional[torch.Tensor] = None   # (E,) i32 canonical -> actual id
+
+    def locate(self, px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor):
+        """Points -> (elem, inside): the containing tet, INVALID outside the
+        box.  Kernel K on CUDA tensors."""
+        from pumipic_torch.ops.locate import kuhn_push_locate
+
+        x = torch.stack([px, py, pz], dim=1)
+        active = torch.ones(px.shape, dtype=torch.bool, device=px.device)
+        _, elem = kuhn_push_locate(self, x, active)
+        return elem, elem >= 0
+
+
+def detect_box_kuhn(coords: np.ndarray, tets: np.ndarray,
+                    device=None) -> Optional[KuhnLocator3D]:
+    """A :class:`KuhnLocator3D` iff (coords, tets) IS a structured Kuhn box
+    mesh: vertices on a full uniform rectilinear lattice and connectivity
+    equal to ``box_tet_mesh``'s for the reconstructed (nx, ny, nz), in the
+    generator's order or, through a recovered permutation, in any other
+    (an imported box).  Same decision and values as the JAX package's
+    ``detect_box_kuhn``."""
+    from pumipic_torch.mesh.generate import box_tet_mesh
+
+    device = resolve_device(device)
+    coords = np.asarray(coords)
+    tets = np.asarray(tets)
+    if coords.shape[1] != 3 or tets.shape[1] != 4:
+        return None
+    xs = np.unique(coords[:, 0])
+    ys = np.unique(coords[:, 1])
+    zs = np.unique(coords[:, 2])
+    nx, ny, nz = len(xs) - 1, len(ys) - 1, len(zs) - 1
+    if min(nx, ny, nz) < 1:
+        return None
+    if coords.shape[0] != (nx + 1) * (ny + 1) * (nz + 1):
+        return None
+    if tets.shape[0] != 6 * nx * ny * nz or tets.shape[0] >= F32_EXACT_ID_LIMIT:
+        return None
+    # uniform lattice spacing per axis (the floor division assumes it)
+    if not all(np.allclose(np.diff(a), np.diff(a).mean(),
+                           rtol=1e-6, atol=1e-12) and np.diff(a).mean() > 0
+               for a in (xs, ys, zs)):
+        return None
+    h = np.array([xs[-1] - xs[0], ys[-1] - ys[0], zs[-1] - zs[0]])
+    h = h / np.array([nx, ny, nz])
+    base = dict(origin=tuple(_f32(v) for v in (xs[0], ys[0], zs[0])),
+                inv_h=tuple(_f32(v) for v in 1.0 / h), nx=nx, ny=ny, nz=nz)
+    ref_coords, ref_tets = box_tet_mesh(
+        nx, ny, nz, xs[-1] - xs[0], ys[-1] - ys[0], zs[-1] - zs[0])
+    if (np.allclose(ref_coords + np.array([xs[0], ys[0], zs[0]]), coords,
+                    rtol=1e-6, atol=1e-12)
+            # a tet as a point set is its vertex set (Mesh3D.from_arrays
+            # may swap two vertices to fix the orientation)
+            and np.array_equal(np.sort(ref_tets, axis=1), np.sort(tets, axis=1))):
+        return KuhnLocator3D(**base)
+    # an imported ordering: recover the vertex lattice from the snapped
+    # coordinates and match every tet to a canonical path simplex as a set
+    corner = np.array([xs[0], ys[0], zs[0]])
+    ijk = np.round((coords - corner) / h).astype(np.int64)
+    if not np.allclose(corner + ijk * h, coords, rtol=1e-6, atol=1e-12):
+        return None
+    lat = (ijk[:, 0] * (ny + 1) + ijk[:, 1]) * (nz + 1) + ijk[:, 2]
+    if (ijk.min() < 0 or (ijk.max(axis=0) != [nx, ny, nz]).any()
+            or len(np.unique(lat)) != coords.shape[0]):
+        return None
+    pv = np.empty(coords.shape[0], np.int64)
+    pv[lat] = np.arange(coords.shape[0])
+    cs = np.sort(pv[ref_tets], axis=1)             # canonical tets, actual ids
+    ts = np.sort(tets, axis=1)
+    oc = np.lexsort(cs.T)
+    ot = np.lexsort(ts.T)
+    if not np.array_equal(cs[oc], ts[ot]):
+        return None
+    sigma = np.empty(tets.shape[0], np.int64)
+    sigma[oc] = ot                                 # canonical id -> actual id
+    return KuhnLocator3D(**base, perm=torch.as_tensor(sigma.astype(np.int32),
+                                                      device=device))

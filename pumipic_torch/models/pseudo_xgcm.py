@@ -5,7 +5,10 @@ particle structure (:class:`PseudoXGCm`, whose step is described there).
 Reference: ``test/pseudoXGCm.cpp`` + ``ellipticalPush.hpp`` +
 ``gyroScatter.hpp``.  Per FULL-mode step:
 
-1. banded trig-free elliptical push (kernel P);
+1. trig-free elliptical push (kernel P): the class of a band-ordered
+   classification from the band starts, else (and with ``rot_analytic``
+   off, as the JAX package does) the per-element rotation table (P's
+   table mode);
 2. the search with remove-on-exit and the DPS rewrite of parent element
    and active mask, in one of three arms:
    - cartesian cell-row peel + guess-walk BCC search (kernel L);
@@ -25,17 +28,18 @@ particle counts, positions, initial elements and radii are bit-identical.
 
 Knobs that only the TPU build needed are accepted and mapped onto the one
 GPU path, whose results they do not change: ``peel`` variants, ``locator_cpe``
-and ``search_widths`` (the compaction pyramid), ``rot_aux_capture``, and
-``rot_analytic`` (the banded rotation gives the table's values; on a
-``ring_class``-proven annulus it equals the analytic class, which setup
-checks; the app's push uses the same band classes).
-``band_locator="auto"`` resolves to the cartesian grid: the JAX
-package's TPU-measured cost gate makes the same choice below ~460k
-elements, and a gate measured on the GPU is later work.  Not ported, and
-refused by ``make_dp_setup`` with ``NotImplementedError``: meshes whose
-classification is not band-ordered (the per-element rotation-table push).
-:class:`PseudoXGCm` takes such meshes: its push gathers the class per
-particle.  Entry points run on the CUDA card unless ``device="cpu"`` is
+and ``search_widths`` (the compaction pyramid), ``rot_aux_capture`` (the
+walk-captured rotation is the table's row of the final element: the
+table push), the module's ``ROT_TABLE_1D`` (the 1-D sin Δ table, mapped
+onto the (E, 2) table with the values it gives), and, on a
+``ring_class``-proven annulus, ``rot_analytic`` (the analytic class equals
+the band-ordered one, which setup checks).  ``rot_analytic=False`` takes
+the rotation table, as in the JAX package.  ``band_locator="auto"``
+resolves to the cartesian grid: the JAX package's TPU-measured cost gate
+makes the same choice below ~460k elements, and a gate measured on the
+GPU is later work.  Every classification is taken: a band-ordered one
+through the band starts, any other through the per-element rotation
+table.  Entry points run on the CUDA card unless ``device="cpu"`` is
 passed.
 """
 from __future__ import annotations
@@ -69,6 +73,9 @@ from pumipic_torch.utils.types import LID_DTYPE
 
 ELEMENT_SEED = 1024 * 1024
 PARTICLE_SEED = 512 * 512
+# the JAX package's TPU-only 1-D sin Δ rotation table; the table push maps
+# it onto the (E, 2) table (push_ops.rot_table_2d)
+ROT_TABLE_1D = False
 
 
 @dataclass(frozen=True)
@@ -239,11 +246,13 @@ def make_default_mesh(nelems_target: int = 25_000, device=None) -> Mesh2D:
 class DPModel:
     """Everything the step reads besides the particle state.
     ``gyro_bwd is gyro_fwd`` when the maps coincide.  ``analytic`` set:
-    the search is the annulus locate (``locator`` is then None)."""
+    the search is the annulus locate (``locator`` is then None).  ``rot``:
+    the band rotation (kernel P) or the per-element table (P's table
+    mode)."""
 
     mesh: Mesh2D
     locator: Optional[Union[LocatorGrid2D, BandGrid2D]]
-    rot: push_ops.BandRotation
+    rot: Union[push_ops.BandRotation, push_ops.RotTable]
     gyro_fwd: scatter_ops.GyroMap
     gyro_bwd: scatter_ops.GyroMap
     analytic: Optional[AnnulusLocator2D] = None
@@ -316,9 +325,11 @@ def make_dp_step(model: DPModel, cfg: XGCmConfig):
     R, P = gyro.num_rings, gyro.points_per_ring
     no_iters = torch.zeros((), dtype=torch.int32, device=mesh.device)
     found = torch.ones((), dtype=torch.bool, device=mesh.device)
+    push = (push_ops.push_table if isinstance(model.rot, push_ops.RotTable)
+            else push_ops.push_banded)
 
     def step(s: Dict[str, torch.Tensor]):
-        tx, ty, cphi, sphi = push_ops.push_banded(
+        tx, ty, cphi, sphi = push(
             s["x0"], s["x1"], s["cphi"], s["sphi"], s["b"], s["elem"],
             s["active"], model.rot, cfg.h, cfg.k, cfg.d)
         if model.analytic is not None:
@@ -400,20 +411,23 @@ def make_dp_setup(mesh: Mesh2D, cfg: XGCmConfig, device=None,
 
     t0 = time.perf_counter()
     analytic, locator = build_search(mesh, cfg, state["elem"].shape[0], locator)
-    banded = push_ops.detect_banded_class(mesh.class_id.cpu().numpy())
-    if banded is None:
-        raise NotImplementedError("only band-ordered classifications are "
-                                  "ported (the per-element rotation table "
-                                  "is not)")
-    if analytic is not None and analytic.ring_class:
-        # the JAX push takes the class from analytic.class_of here; kernel
-        # P's banded class must give the same value on every element
+    # the JAX package's choice: the band starts where the classification
+    # is band-ordered and rot_analytic is on (a ring_class annulus's
+    # analytic class takes precedence there, and equals the band class),
+    # else the rotation-table gather
+    cls = mesh.class_id.cpu().numpy()
+    banded = push_ops.detect_banded_class(cls) if cfg.rot_analytic else None
+    if banded is not None and analytic is not None and analytic.ring_class:
         e = torch.arange(mesh.nelems, dtype=torch.int32)
         if not torch.equal(analytic.class_of(e),
                            push_ops.class_from_bands(e, banded)):
             raise RuntimeError("the annulus's analytic classification "
                                "differs from its band-ordered one")
-    rot = push_ops.BandRotation.build(banded, cfg.deg_per_push, device)
+    if banded is not None:
+        rot = push_ops.BandRotation.build(banded, cfg.deg_per_push, device)
+    else:
+        rot = push_ops.RotTable.build(cls, cfg.deg_per_push, device,
+                                      one_dim=ROT_TABLE_1D)
     timings["locator"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

@@ -1,5 +1,6 @@
-"""Analytic point location: the flux-band cell id (kernel B) and the
-structured-annulus locate (kernel A), each with its plain PyTorch version.
+"""Analytic point location: the flux-band cell id (kernel B), the
+structured-annulus locate (kernel A) and the straight-line push with the
+structured Kuhn-box locate (kernel K), each with its plain PyTorch version.
 
 - :func:`band_cell_of` (kernel B, ``kernels/csrc/band.cu``) gives each point
   its :class:`~pumipic_torch.mesh.locator.BandGrid2D` cell; the search's
@@ -8,10 +9,15 @@ structured-annulus locate (kernel A), each with its plain PyTorch version.
   active point its containing triangle on a proven structured annulus,
   INVALID outside, and the rewritten active mask: the whole search of the
   annulus arm.
+- :func:`kuhn_push_locate` (kernel K, ``kernels/csrc/kuhn.cu``) pushes each
+  point along the straight line, wraps it into the box (periodic wall) and
+  gives each active point its containing tet on a proven Kuhn box, INVALID
+  outside: the whole push and search of pseudoPushAndSearch's Kuhn arm.
 
-Both plain versions follow the JAX package's f32 expression order term by
+The plain versions follow the JAX package's f32 expression order term by
 term (``BandGrid2D._band_continuous``/``cell_of``,
-``AnnulusLocator2D.locate_parts``), and the kernels follow the plain
+``AnnulusLocator2D.locate_parts``, ``straight_line_push``, the periodic
+wrap and ``KuhnLocator3D.locate``), and the kernels follow the plain
 versions, so a kernel equals its plain version bit for bit on the card.
 """
 from __future__ import annotations
@@ -23,7 +29,8 @@ import torch
 
 from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
-from pumipic_torch.mesh.locator import AnnulusLocator2D, BandGrid2D
+from pumipic_torch.mesh.locator import AnnulusLocator2D, BandGrid2D, KuhnLocator3D
+from pumipic_torch.ops.push import push_and_wrap_plain
 
 INVALID = -1
 # kernel B keeps its accumulators in registers and its coefficients in its
@@ -243,3 +250,87 @@ def annulus_locate(loc: AnnulusLocator2D, px: torch.Tensor, py: torch.Tensor,
     _build.check(err, "annulus_locate")
     kernels.LAUNCHES["annulus_locate"] += 1
     return elem, act
+
+
+# ---------------------------------------------------------------------------
+# kernel K: straight-line push + periodic wrap + Kuhn-box locate
+# ---------------------------------------------------------------------------
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def kuhn_locate_plain(loc: KuhnLocator3D, px, py, pz, eps: float = 1e-6):
+    """(elem, inside) of every point in ``KuhnLocator3D.locate``'s f32
+    order: INVALID outside the box (tolerance ``eps`` cells), the
+    canonical id mapped through ``perm`` where given."""
+    o, ih = loc.origin, loc.inv_h
+    n = (loc.nx, loc.ny, loc.nz)
+    r = [(p - o[j]) * ih[j] for j, p in enumerate((px, py, pz))]
+    inside = torch.ones_like(px, dtype=torch.bool)
+    for j in range(3):
+        inside = inside & (r[j] >= _f32(-eps)) & (r[j] <= _f32(n[j] + eps))
+    i = [torch.clamp(torch.floor(r[j]), 0.0, n[j] - 1.0) for j in range(3)]
+    fx, fy, fz = (r[j] - i[j] for j in range(3))
+    b1, b2, b3 = fx >= fy, fy >= fz, fx >= fz
+    # path order (x,y,z) (x,z,y) (y,x,z) (y,z,x) (z,x,y) (z,y,x): the
+    # descent ordering of (fx, fy, fz)
+    idx = torch.where(b1, torch.where(b2, 0.0, torch.where(b3, 1.0, 4.0)),
+                      torch.where(b2, torch.where(b3, 2.0, 3.0), 5.0))
+    elem = ((i[0] * float(loc.ny) + i[1]) * float(loc.nz) + i[2]) * 6.0 + idx
+    elem = torch.where(inside, elem, float(INVALID)).to(torch.int32)
+    if loc.perm is not None:
+        elem = torch.where(elem >= 0, loc.perm[torch.clamp(elem, min=0).long()], elem)
+    return elem, inside
+
+
+def kuhn_push_locate_plain(loc: KuhnLocator3D, x: torch.Tensor,
+                           active: torch.Tensor, step=None, wrap=None):
+    """Plain version of kernel K: (x', elem) with x' the pushed and wrapped
+    (N, 3) positions of every slot and elem the located tet of the active
+    ones (INVALID for inactive or outside points)."""
+    xn = push_and_wrap_plain(x, step, wrap)
+    elem, _ = kuhn_locate_plain(loc, xn[:, 0], xn[:, 1], xn[:, 2])
+    return xn, torch.where(active, elem, INVALID)
+
+
+def kuhn_push_locate(loc: KuhnLocator3D, x: torch.Tensor, active: torch.Tensor,
+                     step=None, wrap=None):
+    """Push every slot's (N, 3) f32 position by ``step`` (a (3,) f32
+    displacement, or None for none), wrap it into the box with ``wrap`` =
+    (lo, ext) (or None), and locate the active ones on the Kuhn box:
+    returns (x', elem), the JAX step's ``straight_line_push``, wrap and
+    ``where(active, kuhn.locate(x'), INVALID)``.  Kernel K on CUDA tensors,
+    :func:`kuhn_push_locate_plain` on CPU tensors."""
+    tensors = [x, active] + ([] if loc.perm is None else [loc.perm])
+    if not kernels.use_kernel("kuhn_locate", *tensors):
+        return kuhn_push_locate_plain(loc, x, active, step, wrap)
+    n = x.shape[0]
+    if x.dtype != torch.float32 or x.shape != (n, 3) or active.dtype != torch.bool \
+            or active.shape != (n,):
+        raise ValueError("kuhn_locate: (N, 3) f32 x and (N,) bool active expected")
+    E = 6 * loc.nx * loc.ny * loc.nz
+    if E >= 1 << 24:
+        raise ValueError("kuhn_locate: ids are computed in f32, exact below 2^24")
+    if loc.perm is not None and (loc.perm.dtype != torch.int32 or loc.perm.shape != (E,)):
+        raise ValueError("kuhn_locate: perm must be (E,) i32")
+    x_out = torch.empty_like(x)
+    elem = torch.empty(n, dtype=torch.int32, device=x.device)
+    if n == 0:
+        return x_out, elem
+    s = np.zeros(3, np.float32) if step is None else np.asarray(step, np.float32)
+    lo, ext = (np.zeros(3, np.float32),) * 2 if wrap is None else (
+        np.asarray(a, np.float32) for a in wrap)
+    eps = 1e-6
+    F = ctypes.c_float
+    consts = [_f32(-eps), _f32(loc.nx + eps), _f32(loc.ny + eps), _f32(loc.nz + eps)]
+    P = ctypes.c_void_p
+    err = _build.lib().pp_kuhn_push_locate(
+        P(x.data_ptr()), P(active.data_ptr()), n, int(step is not None),
+        int(wrap is not None), (F * 9)(*s, *lo, *ext),
+        (F * 6)(*loc.origin, *loc.inv_h), loc.nx, loc.ny, loc.nz, (F * 4)(*consts),
+        P(None if loc.perm is None else loc.perm.data_ptr()),
+        P(x_out.data_ptr()), P(elem.data_ptr()), P(kernels.stream_handle()))
+    _build.check(err, "kuhn_locate")
+    kernels.LAUNCHES["kuhn_locate"] += 1
+    return x_out, elem

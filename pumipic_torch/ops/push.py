@@ -1,17 +1,22 @@
-"""Elliptical push (port of ``pumipic_tpu.ops.push``, the parts the
-FULL-mode step uses).
+"""Particle pushes (port of ``pumipic_tpu.ops.push``: the elliptical push
+of pseudoXGCm and the straight-line push of pseudoPushAndSearch).
 
 Particles advance along ellipses centred at (h, k) with minor/major ratio d
 (``test/ellipticalPush.hpp``); the angle step per push is
 deg·(0.01 if class 1 else 1)/class.  The step carries (cos φ, sin φ) and
 rotates it by the per-class (cos Δ, sin Δ), with a Newton renormalization.
 On a band-ordered mesh the class id comes from the element id by counting
-band starts, so no per-particle table gather is needed.
+band starts, so no per-particle table gather is needed; on any other
+classification each particle gathers its element's row of the (E, 2)
+rotation table (:func:`elliptical_rot_table`).
 
-:func:`push_banded` is the wrapper of kernel P (``kernels/csrc/push.cu``).
-:func:`push_phi` is the wrapper of P's "phi" mode, the angle form
-(:func:`elliptical_push_components` with the active mask) that the
-single-device ``PseudoXGCm`` app runs.
+:func:`push_banded` is the wrapper of kernel P (``kernels/csrc/push.cu``),
+:func:`push_table` of P's table mode.  :func:`push_phi` is the wrapper of
+P's "phi" mode, the angle form (:func:`elliptical_push_components` with the
+active mask) that the single-device ``PseudoXGCm`` app runs.  The
+straight-line push and periodic wrap are fused into kernel K
+(:func:`pumipic_torch.ops.locate.kuhn_push_locate`); :func:`push_and_wrap`
+is the wrapper of K's push-only form.
 """
 from __future__ import annotations
 
@@ -66,6 +71,60 @@ def elliptical_push(phi, b, elem_class_id, deg: float, h: float, k: float,
     """(new_xy (N, 2), new_phi (N,)); see :func:`elliptical_push_components`."""
     x, y, rad = elliptical_push_components(phi, b, elem_class_id, deg, h, k, d)
     return torch.stack([x, y], dim=-1), rad
+
+
+def step_vector(direction, distance: float) -> np.ndarray:
+    """The straight-line push's (dim,) f32 displacement f32(distance) · d,
+    rounded once in f32 as the JAX package's ``distance * d`` is."""
+    return np.float32(distance) * np.asarray(direction, np.float32)
+
+
+def straight_line_push(x: torch.Tensor, direction, distance: float) -> torch.Tensor:
+    """x_tgt = x + distance · direction (pseudoPushAndSearch's push), on
+    (N, dim) f32 positions ((N, 3) on the card: :func:`push_and_wrap`)."""
+    return push_and_wrap(x, step_vector(direction, distance))
+
+
+def push_and_wrap_plain(x: torch.Tensor, step=None, wrap=None) -> torch.Tensor:
+    """Plain version of :func:`push_and_wrap` (and the push of kernel K's
+    plain version), on (N, dim) positions.  torch's remainder is fmod plus
+    the sign fix, as JAX's ``%``."""
+    if step is not None:
+        x = x + torch.as_tensor(np.asarray(step, np.float32), device=x.device)
+    if wrap is not None:
+        lo, ext = (torch.as_tensor(np.asarray(a, np.float32), device=x.device)
+                   for a in wrap)
+        x = torch.remainder(x - lo, ext) + lo
+    return x
+
+
+def push_and_wrap(x: torch.Tensor, step=None, wrap=None) -> torch.Tensor:
+    """x + step (a (dim,) f32 displacement, :func:`step_vector`; None for
+    none), then with ``wrap`` = (lo, ext) ((dim,) f32 each) the periodic
+    wrap (x - lo) % ext + lo into the box: the push of pseudoPushAndSearch's
+    walk arm (kernel K fuses both into the Kuhn arm's locate).  Kernel K's
+    push-only form on CUDA tensors ((N, 3) f32; the constants go by value,
+    so nothing is copied to the card), :func:`push_and_wrap_plain` on CPU
+    tensors."""
+    if not kernels.use_kernel("push_wrap", x):
+        return push_and_wrap_plain(x, step, wrap)
+    n = x.shape[0]
+    if x.dtype != torch.float32 or x.shape != (n, 3):
+        raise ValueError("push_wrap: (N, 3) f32 positions expected")
+    x_out = torch.empty_like(x)
+    if n == 0:
+        return x_out
+    s = np.zeros(3, np.float32) if step is None else np.asarray(step, np.float32)
+    lo, ext = (np.zeros(3, np.float32),) * 2 if wrap is None else (
+        np.asarray(a, np.float32) for a in wrap)
+    P = ctypes.c_void_p
+    err = _build.lib().pp_push_wrap(
+        P(x.data_ptr()), n, int(step is not None), int(wrap is not None),
+        (ctypes.c_float * 9)(*s, *lo, *ext), P(x_out.data_ptr()),
+        P(kernels.stream_handle()))
+    _build.check(err, "push_wrap")
+    kernels.LAUNCHES["push_wrap"] += 1
+    return x_out
 
 
 def rot_vals_from_class(cid_int: torch.Tensor, deg: float
@@ -181,6 +240,103 @@ def push_banded(x0, x1, cphi, sphi, b, elem, active, rot: BandRotation,
         P(kernels.stream_handle()))
     _build.check(err, "push")
     kernels.LAUNCHES["push"] += 1
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# kernel P, table mode: the per-element rotation table
+# ---------------------------------------------------------------------------
+
+def elliptical_rot_table(elem_class_id, deg: float) -> torch.Tensor:
+    """Per-ELEMENT rotation table (E, 2) f32 on the CPU: row e holds
+    (cos Δe, sin Δe), Δe = deg · center_factor / class_id · π/180.  Δ is
+    computed in the JAX package's f32 steps; cos and sin in f64, rounded to
+    f32 (the table is built once on the host, so the card and the CPU read
+    the same bits; XLA's f32 cos/sin are within an ulp of these)."""
+    cls = np.asarray(elem_class_id.cpu() if isinstance(elem_class_id, torch.Tensor)
+                     else elem_class_id).ravel()
+    cid = np.maximum(cls, 1).astype(np.float32)
+    center_factor = np.where(cls == 1, np.float32(0.01), np.float32(1.0))
+    delta = np.float32(deg) * center_factor / cid * np.float32(math.pi / 180.0)
+    d64 = delta.astype(np.float64)
+    return torch.as_tensor(np.stack([np.cos(d64), np.sin(d64)], axis=1)
+                           .astype(np.float32))
+
+
+def rot_table_2d(rot_table: torch.Tensor) -> torch.Tensor:
+    """The (E, 2) form of a rotation table.  The JAX package's 1-D sin Δ
+    table (its TPU-only ``ROT_TABLE_1D``) maps to the rows (cos Δ, sin Δ)
+    with cos Δ = √max(1 − sin²Δ, 0) in f32, the values its push recomputes
+    per particle."""
+    if rot_table.dim() == 2:
+        return rot_table
+    sd = rot_table
+    return torch.stack([torch.sqrt(torch.clamp(1.0 - sd * sd, min=0.0)), sd], dim=1)
+
+
+def elliptical_push_rot(cphi, sphi, b, elem, rot_table, h: float, k: float,
+                        d: float):
+    """Trig-free elliptical push gathering each particle's element row of
+    the (E, 2) or 1-D rotation table (:func:`rot_table_2d`); returns (x, y,
+    new_cphi, new_sphi), unmasked."""
+    r = rot_table_2d(rot_table)[torch.clamp(elem, min=0).long()]
+    return elliptical_push_rot_vals(cphi, sphi, b, r[:, 0], r[:, 1], h, k, d)
+
+
+@dataclass(frozen=True)
+class RotTable:
+    """The per-element rotation table (E, 2) f32 of kernel P's table mode,
+    on the device of the particles."""
+
+    table: torch.Tensor
+
+    @staticmethod
+    def build(elem_class_id, deg: float, device=None,
+              one_dim: bool = False) -> "RotTable":
+        """From the classification; ``one_dim`` builds the JAX package's
+        1-D sin Δ form first and maps it onto (E, 2)."""
+        t = elliptical_rot_table(elem_class_id, deg)
+        if one_dim:
+            t = rot_table_2d(t[:, 1].contiguous())
+        return RotTable(t.contiguous().to(resolve_device(device)))
+
+
+def push_table_plain(x0, x1, cphi, sphi, b, elem, active, rot: RotTable,
+                     h: float, k: float, d: float):
+    """Plain PyTorch version of kernel P's table mode."""
+    tx, ty, c2, s2 = elliptical_push_rot(cphi, sphi, b, elem, rot.table, h, k, d)
+    return (torch.where(active, tx, x0), torch.where(active, ty, x1),
+            torch.where(active, c2, cphi), torch.where(active, s2, sphi))
+
+
+def push_table(x0, x1, cphi, sphi, b, elem, active, rot: RotTable,
+               h: float, k: float, d: float):
+    """Table-mode trig-free push with the active mask applied: each
+    particle gathers the (cos Δ, sin Δ) row of its element ``max(elem,
+    0)``; returns (xtgt0, xtgt1, cphi', sphi').  Kernel P (table mode) on
+    CUDA tensors, :func:`push_table_plain` on CPU tensors."""
+    args = (x0, x1, cphi, sphi, b, elem, active, rot.table)
+    if not kernels.use_kernel("push_table", *args):
+        return push_table_plain(x0, x1, cphi, sphi, b, elem, active, rot, h, k, d)
+    n = x0.shape[0]
+    for t in (x0, x1, cphi, sphi, b):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError("push_table: f32 (N,) positions and angles expected")
+    if elem.dtype != torch.int32 or elem.shape != (n,) or active.dtype != torch.bool:
+        raise ValueError("push_table: i32 elem and bool active expected")
+    E = rot.table.shape[0]
+    if rot.table.dtype != torch.float32 or rot.table.shape != (E, 2) \
+            or rot.table.data_ptr() % 8:
+        raise ValueError("push_table: an 8-byte aligned (E, 2) f32 table expected")
+    outs = [torch.empty_like(x0) for _ in range(4)]
+    P = ctypes.c_void_p
+    err = _build.lib().pp_push_table(
+        *(P(t.data_ptr()) for t in (x0, x1, cphi, sphi, b, elem, active,
+                                    rot.table)),
+        E, h, k, d, *(P(t.data_ptr()) for t in outs), n,
+        P(kernels.stream_handle()))
+    _build.check(err, "push_table")
+    kernels.LAUNCHES["push_table"] += 1
     return tuple(outs)
 
 

@@ -3,8 +3,10 @@
     python3 scripts/profile_torch_step.py [num_ptcls] [steps] [arm ...]
 
 For each arm (default: ``cartesian``; also ``band``, ``annulus``,
-``pprad``, the arms of ``chip_smoke.py``), sets up bench_torch's
-configuration of that arm (default 10M particles); the ``app`` arm builds
+``pprad``, ``rotgather``, the arms of ``chip_smoke.py``), sets up
+bench_torch's configuration of that arm (default 10M particles); ``pps3d``
+and ``pps3d-walk`` are bench_torch's pseudoPushAndSearch arms (the Kuhn
+box, DPS, kernel K or kernel L3); the ``app`` arm builds
 the single-device ``PseudoXGCm`` app on a Sell-C-σ structure with the same
 mesh and settings (its step adds the sorted rebuild: the stable sort,
 kernels H, S and G), ``app-<structure>`` on another structure (``csr``,
@@ -35,6 +37,11 @@ ARMS = {  # arm -> bench_torch.setup keywords
     "band": {"band_locator": "force"},
     "annulus": {"mesh_path": "annulus"},
     "pprad": {"gyro_ppr": True},
+    "rotgather": {"rot_analytic": False},
+}
+PPS3D_ARMS = {  # arm -> bench_torch.setup_pps3d keywords
+    "pps3d": {"kuhn": "auto"},
+    "pps3d-walk": {"kuhn": "off"},
 }
 
 
@@ -65,6 +72,8 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
     dev = torch.device("cuda")
     if arm.startswith("app"):
         state, step, info = app_setup(dev, n, arm[4:] or "scs")
+    elif arm in PPS3D_ARMS:
+        _, state, step, info = bench_torch.setup_pps3d(dev, n, **PPS3D_ARMS[arm])
     else:
         _, state, step, info = bench_torch.setup(dev, n, **ARMS[arm])
     state, _ = step(state)
@@ -89,7 +98,7 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
             continue                      # host ops; their kernels are listed
         by_kernel[ev.key.split("(")[0]] = ev.self_device_time_total / 1e3 / steps
     busy = sum(by_kernel.values())
-    alive = state.active if arm.startswith("app") else state["active"]
+    alive = state["active"] if arm in ARMS else state.active
     return {
         "arm": arm, "tag": info["tag"], "card": smi, "num_ptcls": n,
         "steps": steps, "setup_s": info["setup_s"],
@@ -111,9 +120,10 @@ def main() -> None:
     steps = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     arms = sys.argv[3:] or ["cartesian"]
     apps = ["app"] + [f"app-{s}" for s in ("csr", "cabm", "dps")]
-    unknown = set(arms) - set(ARMS) - set(apps)
+    known = sorted(ARMS) + sorted(PPS3D_ARMS) + apps
+    unknown = set(arms) - set(known)
     if unknown:
-        raise ValueError(f"unknown arms {sorted(unknown)}; known: {sorted(ARMS) + apps}")
+        raise ValueError(f"unknown arms {sorted(unknown)}; known: {known}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()

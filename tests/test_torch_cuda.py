@@ -637,3 +637,154 @@ def test_row_gather_columns_form_edge_cases(dev, n, index, wide):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
                            w.view(torch.int32) if w.dtype == torch.float32 else w)
+
+
+# ---------------------------------------------------------------------------
+# P's table mode, K and L3
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 7])
+@pytest.mark.parametrize("one_dim", [False, True])
+def test_push_table_kernel_equals_plain(dev, mesh, n, one_dim):
+    rng = np.random.default_rng(n)
+    cls = rng.permutation(mesh.class_id.cpu().numpy())
+    rot = push_ops.RotTable.build(cls, 15.0, dev, one_dim=one_dim)
+    phi = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)   # noqa: E731
+    args = (f32(rng.uniform(-1, 1, n)), f32(rng.uniform(-1, 1, n)), f32(np.cos(phi)),
+            f32(np.sin(phi)), f32(rng.uniform(0.1, 1.0, n)),
+            torch.as_tensor(rng.integers(-1, mesh.nelems, n).astype(np.int32), device=dev),
+            torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev), rot, 0.1, -0.05, 0.7)
+    n0 = kernels.LAUNCHES["push_table"]
+    got = push_ops.push_table(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["push_table"] == n0 + 1
+    _equal(got, push_ops.push_table_plain(*args))
+
+
+def _kuhn_box(dev, nside, permuted):
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.mesh.locator import detect_box_kuhn
+
+    coords, tets = box_tet_mesh(nside, nside, nside)
+    if permuted:
+        tets = tets[np.random.default_rng(3).permutation(tets.shape[0])]
+    m = Mesh3D.from_arrays(coords, tets, device=dev)
+    loc = detect_box_kuhn(m.coords.cpu().numpy(), m.elem2verts.cpu().numpy(), device=dev)
+    assert loc is not None and (loc.perm is not None) == permuted
+    return m, loc
+
+
+def _points3(n, seed, dev, nside=4):
+    """Points in and around the unit box; a quarter on exact lattice
+    vertices, edges and faces, another quarter on the fx = fy face."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-0.2, 1.2, (n, 3))
+    k = n // 4
+    p[:k] = rng.integers(-1, 2 * nside + 2, (k, 3)) / (2.0 * nside)
+    p[k:2 * k, 0] = p[k:2 * k, 1]
+    return torch.as_tensor(p.astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 7])
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("mode", ["locate", "push", "push+wrap"])
+def test_kuhn_kernel_equals_plain(dev, n, permuted, mode):
+    """K inside and outside the box, at exact cell faces, with and without
+    the canonical-to-actual permutation, with the push and the wrap."""
+    _, loc = _kuhn_box(dev, 4, permuted)
+    x = _points3(n, n + 7, dev)
+    active = torch.as_tensor(np.random.default_rng(n).uniform(size=n) < 0.85, device=dev)
+    step = None if mode == "locate" else push_ops.step_vector(
+        np.array([0.6, -0.48, 0.64], np.float32), 0.3)
+    wrap = (np.zeros(3, np.float32), np.ones(3, np.float32)) if mode == "push+wrap" else None
+    n0 = kernels.LAUNCHES["kuhn_locate"]
+    got = lo.kuhn_push_locate(loc, x, active, step, wrap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["kuhn_locate"] == n0 + (1 if n else 0)
+    want = lo.kuhn_push_locate_plain(loc, x, active, step, wrap)
+    _equal(got, want)
+    if n > 1000:
+        e = got[1][active]
+        assert bool((e >= 0).any()) and (mode == "push+wrap") == bool((e >= 0).all())
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 128, (1 << 20) + 7])
+@pytest.mark.parametrize("mode", ["push", "wrap", "push+wrap", "push+wrap, row view"])
+def test_push_wrap_kernel_equals_plain(dev, n, mode):
+    """K's push-only form over n particles (3n coordinates: below, at and
+    past a block's 384 and a thread's 4-coordinate round), points inside
+    and outside the box and on its faces, and a view starting one row in."""
+    x = _points3(n + 1, n + 11, dev)
+    x = x[1:] if mode.endswith("row view") else x[:n]
+    step = None if mode == "wrap" else push_ops.step_vector(
+        np.array([0.6, -0.48, 0.64], np.float32), 0.3)
+    wrap = None if mode == "push" else (np.full(3, -0.25, np.float32),
+                                        np.full(3, 1.5, np.float32))
+    n0 = kernels.LAUNCHES["push_wrap"]
+    got = push_ops.push_and_wrap(x, step, wrap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["push_wrap"] == n0 + (1 if n else 0)
+    _equal(got, push_ops.push_and_wrap_plain(x, step, wrap))
+
+
+def _tet_walkers(dev, m, n, seed, scale=0.3):
+    rng = np.random.default_rng(seed)
+    e0 = torch.as_tensor(rng.integers(-1, m.nelems + 2, n).astype(np.int32), device=dev)
+    act = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+    cent = m.elem_centroids[torch.clamp(e0, 0, m.nelems - 1).long()]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dest = (cent.cpu() + scale * torch.randn(n, 3, generator=g)).to(dev)
+    dest[: n // 8] = torch.round(dest[: n // 8] * 8) / 8        # lattice faces
+    return e0, act, dest.contiguous()
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 7])
+@pytest.mark.parametrize("peel", [True, False])
+def test_locate3d_kernel_equals_plain(dev, n, peel):
+    """L3 with the peel and as the plain walk, with boundary exits (some
+    destinations leave the box), garbage starts, inactive particles and
+    the iteration limit (64, 3, 1)."""
+    from pumipic_torch.mesh.locator import build_locator_grid_3d
+
+    m, _ = _kuhn_box(dev, 6, False)
+    grid = build_locator_grid_3d(m.coords.cpu().numpy(), m.elem2verts.cpu().numpy(),
+                                 cells_per_elem=16.0, walk_geom=m.walk_geom,
+                                 device=dev) if peel else None
+    e0, act, dest = _tet_walkers(dev, m, n, n + 5)
+    for max_iters in (64, 3, 1):
+        n0 = kernels.LAUNCHES["locate3d"]
+        got = se.walk_locate_3d(m.walk_geom, dest, e0, act, max_iters, grid=grid)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["locate3d"] == n0 + 1
+        want = se.walk_locate_3d_plain(m.walk_geom, dest, e0, act, max_iters, grid=grid)
+        _equal(got, want)
+        if n > 1000 and max_iters == 64:
+            assert bool(got[3]) and bool((~got[1][act]).any())   # exits, none at the limit
+
+
+def test_pps3d_app_card_equals_cpu(dev):
+    """The pseudoPushAndSearch app at a small size, Kuhn and walk arms, on
+    the card and on the CPU for 3 steps: structures equal bit for bit."""
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.models import pseudo_push_and_search as pps
+
+    raw = box_tet_mesh(6, 6, 6)
+    for kuhn in ("auto", "off"):
+        for wall in ("periodic", "remove"):
+            cfg = pps.PushSearchConfig(num_ptcls=50_000, structure="cabm", wall=wall,
+                                       kuhn=kuhn, max_search_iters=64)
+            ag = pps.PseudoPushAndSearch(Mesh3D.from_arrays(*raw, device=dev), cfg,
+                                         device=dev)
+            ac = pps.PseudoPushAndSearch(Mesh3D.from_arrays(*raw, device="cpu"), cfg,
+                                         device="cpu")
+            for _ in range(3):
+                ag.ptcls, ig = ag.step_fn(ag.ptcls)
+                ac.ptcls, ic = ac.step_fn(ac.ptcls)
+                assert int(ig) == int(ic)
+                for k in ("elem", "active", "num_ptcls", "elem_offsets"):
+                    assert torch.equal(getattr(ag.ptcls, k).cpu(), getattr(ac.ptcls, k))
+                for k in ("x", "pid"):
+                    assert torch.equal(ag.ptcls.fields[k].cpu(), ac.ptcls.fields[k])

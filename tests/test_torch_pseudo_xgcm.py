@@ -2,9 +2,11 @@
 (pumipic_torch.models.pseudo_xgcm) with the JAX reference's make_dp_setup
 on the cartesian main path: setup (particle counts, positions, initial
 elements, gyro map), three steps from a carried-over state, and the
-setup's own last-bit divergence pinned.  Also: the port imports without
-JAX, its knobs, and the bench entry point on the CPU.  The band, annulus
-and per-particle-radius arms are in tests/test_torch_arms.py.
+setup's own last-bit divergence pinned; the per-element rotation-table
+push (a classification that is not band-ordered, and ``rot_analytic`` off)
+over three steps.  Also: the port imports without JAX, its knobs, and the
+bench entry point on the CPU.  The band, annulus and per-particle-radius
+arms are in tests/test_torch_arms.py.
 
 Tolerances: counts, positions' seeds and initial elements are equal; the
 f32 angles from the setup's atan2/sin/cos within rtol/atol 1e-6; element
@@ -30,6 +32,7 @@ from pumipic_torch import interop
 from pumipic_torch.mesh.core import Mesh2D
 from pumipic_torch.mesh.gmsh import write_msh2
 from pumipic_torch.models import pseudo_xgcm as tx
+from pumipic_torch.ops import push as t_push
 from pumipic_torch.ops import search as t_se
 from pumipic_torch.parallel import full_mode
 
@@ -177,10 +180,12 @@ def test_knobs_mapped_or_refused():
     sw, fw = stepw(sw)
     assert int(fw["iters"]) >= 1
     assert (s["elem"] != sw["elem"]).sum() <= 2
-    # a classification that is not band-ordered
+    # a classification that is not band-ordered takes the rotation table
     cm = Mesh2D.from_arrays(coords, tris, cls[::-1].copy(), device="cpu")
-    with pytest.raises(NotImplementedError, match="band-ordered"):
-        tx.make_dp_setup(cm, base, device="cpu")
+    s, step = tx.make_dp_setup(cm, base, device="cpu")
+    assert isinstance(step.model.rot, t_push.RotTable)
+    s, f = step(s)
+    assert bool(f["all_found"]) and int(s["active"].sum()) > 0
 
 
 def test_setup_divergence_is_the_references_own_ill_conditioning(ref):
@@ -231,6 +236,63 @@ def _near_both_side(geom, e1, e2, x, y):
         if min(l1, l2, 1.0 - l1 - l2) < -tol:
             return False
     return True
+
+
+def _permuted_tokamak():
+    """tokamak_mesh(16, 96) with a seeded element permutation: the same
+    mesh, its classification no longer band-ordered."""
+    coords, tris, cls = j_gen.tokamak_mesh(16, 96)
+    perm = np.random.default_rng(5).permutation(len(tris))
+    return coords, tris[perm], cls[perm]
+
+
+@pytest.mark.parametrize("case", ["permuted elements", "rot_analytic off",
+                                  "ROT_TABLE_1D"])
+def test_table_push_step_matches_reference(case, monkeypatch):
+    """make_dp_setup takes the rotation-table push (P's table mode) where
+    the JAX package does: on a classification that is not band-ordered and
+    with rot_analytic=False (and its 1-D table maps onto the same rows).
+    Three steps from the reference's carried state match its step."""
+    raw = _permuted_tokamak() if case == "permuted elements" else j_gen.tokamak_mesh(16, 96)
+    kw = dict(KW, rot_analytic=case != "rot_analytic off")
+    if case == "ROT_TABLE_1D":
+        kw["rot_analytic"] = False
+        monkeypatch.setattr(jx, "ROT_TABLE_1D", True)
+        monkeypatch.setattr(tx, "ROT_TABLE_1D", True)
+    jm = JMesh2D.from_arrays(*raw)
+    jcfg = jx.XGCmConfig(band_locator="off", **kw)
+    jstate, jstep = jx.make_dp_setup(jm, jcfg, make_device_mesh(1))
+    cpe, peel, _ = jx.resolve_locator_policy(jcfg, jm.nelems, N)
+    grid = j_build_grid(np.asarray(jm.coords), np.asarray(jm.elem2verts),
+                        walk_geom=jm.walk_geom, peel=peel, cells_per_elem=cpe)
+    gmap, _ = jx.build_gyro_mappings(jm, jcfg.gyro)
+    cfg = tx.XGCmConfig(**kw)
+    # the port's own setup picks the table
+    _, own = tx.make_dp_setup(Mesh2D.from_arrays(*raw, device="cpu"), cfg, "cpu")
+    assert isinstance(own.model.rot, t_push.RotTable)
+    model, state = interop.from_reference(
+        {f: np.asarray(getattr(jm, f)) for f in interop.MESH_FIELDS},
+        {f: np.asarray(getattr(grid, f)) for f in interop.LOCATOR_FIELDS},
+        np.asarray(gmap), None, (1,), {k: np.asarray(v) for k, v in jstate.items()},
+        cfg, device="cpu")
+    model = dc.replace(model, rot=own.model.rot)
+    step = tx.make_dp_step(model, cfg)
+    geom = model.mesh.walk_geom.numpy().astype(np.float64)
+    for i in range(3):
+        jstate, jf = jstep(jstate)
+        state, f = step(state)
+        je, te = np.asarray(jstate["elem"]), state["elem"].numpy()
+        bad = np.nonzero(je != te)[0]
+        x, y = state["x0"].numpy(), state["x1"].numpy()
+        assert all(je[p] >= 0 and te[p] >= 0 and _near_both_side(
+            geom, je[p], te[p], float(x[p]), float(y[p])) for p in bad), i
+        assert len(bad) <= 5, f"step {i}: {len(bad)} element-id mismatches"
+        for k in ("x0", "x1", "cphi", "sphi"):
+            np.testing.assert_allclose(state[k].numpy(), np.asarray(jstate[k]),
+                                       rtol=1e-6, atol=1e-6, err_msg=f"{i} {k}")
+        if len(bad) == 0:
+            np.testing.assert_array_equal(f["fwd"].numpy(), np.asarray(jf["fwd"]))
+        assert bool(f["all_found"])
 
 
 def test_full_mode_is_identity_on_one_process():
@@ -309,6 +371,15 @@ from pumipic_torch.models.pseudo_xgcm import PseudoXGCm
 app = PseudoXGCm(m, XGCmConfig(num_ptcls=300, mdl_face=4), device="cpu")
 fwd, bwd = app.run(1, verbose=False)
 assert fwd.shape == (m.nverts,) and int(app.ptcls.num_ptcls) > 0
+state, step = make_dp_setup(m, XGCmConfig(num_ptcls=300, mdl_face=4, rot_analytic=False), device="cpu")
+state, fields = step(state)
+from pumipic_torch.mesh.core import Mesh3D
+from pumipic_torch.mesh.generate import box_tet_mesh
+from pumipic_torch.models.pseudo_push_and_search import PseudoPushAndSearch, PushSearchConfig
+m3 = Mesh3D.from_arrays(*box_tet_mesh(2, 2, 2), device="cpu")
+for kuhn in ("auto", "off"):
+    pps = PseudoPushAndSearch(m3, PushSearchConfig(num_ptcls=300, wall="periodic", kuhn=kuhn), device="cpu")
+    assert pps.run(2) == [300, 300]
 loaded = [k for k, v in sys.modules.items() if k.split(".")[0] in ("jax", "jaxlib", "pumipic_tpu") and v is not None]
 assert not loaded, loaded
 print("ok")
@@ -342,3 +413,23 @@ def test_bench_torch_runs_on_cpu(tmp_path, capsys):
     assert set(d["setup_s"]) == {"mesh", "particles", "gyro_map", "locator"}
     assert 0 < d["alive"] <= 2000 and d["all_found"]
     assert set(os.listdir(REPO)) == before
+
+
+def test_bench_torch_rotgather_runs_on_cpu(tmp_path, monkeypatch):
+    """BENCH_ROT_ANALYTIC=0: the table push, tag ``...-rotgather``; the same
+    particles survive as with the band classes (the table's values are
+    within an ulp of the band rotation's)."""
+    sys.path.insert(0, REPO)
+    import bench_torch
+
+    path = str(tmp_path / "tok.msh")
+    write_msh2(path, *j_gen.tokamak_mesh(8, 32))
+    monkeypatch.setenv("BENCH_ROT_ANALYTIC", "0")
+    rec, state, _ = bench_torch.main(device="cpu", num_ptcls=2000, iters=2,
+                                     mesh_path=path, verbose=False)
+    assert rec["detail"]["tag"] == "dp-tok-rotgather-0M"
+    monkeypatch.delenv("BENCH_ROT_ANALYTIC")
+    rec2, state2, _ = bench_torch.main(device="cpu", num_ptcls=2000, iters=2,
+                                       mesh_path=path, verbose=False)
+    assert rec2["detail"]["tag"] == "dp-tok-0M"
+    assert abs(rec["detail"]["alive"] - rec2["detail"]["alive"]) <= 2

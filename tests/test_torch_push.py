@@ -2,7 +2,9 @@
 with the JAX reference, plus the kernel wrappers' device rules.
 
 Push floats: rtol 1e-6, atol 1e-6 — XLA's CPU libm and fusion differ from
-torch's (the per-class cos/sin and the atan2 of the setup)."""
+torch's (the per-class cos/sin and the atan2 of the setup).  The rotation
+table: within 1 ulp of XLA's f32 cos/sin (the port's are f64 rounded).  The
+straight-line push: equal (one f32 add of the same f32 displacement)."""
 import numpy as np
 import pytest
 import torch
@@ -13,7 +15,7 @@ from pumipic_tpu.ops import push as j_push
 from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
 from pumipic_torch.mesh.core import Mesh2D
-from pumipic_torch.mesh.locator import AnnulusLocator2D, BandGrid2D
+from pumipic_torch.mesh.locator import AnnulusLocator2D, BandGrid2D, KuhnLocator3D
 from pumipic_torch.ops import locate as t_lo
 from pumipic_torch.ops import push as t_push
 from pumipic_torch.ops import scatter as t_sc
@@ -105,6 +107,75 @@ def test_push_banded_matches_reference(hkd):
     np.testing.assert_array_equal(got[3].numpy()[~active], sphi[~active])
 
 
+@pytest.mark.parametrize("deg", [15.0, 30.0, 7.5])
+def test_elliptical_rot_table_within_one_ulp_of_reference(deg):
+    cls = np.random.default_rng(3).permutation(j_gen.tokamak_mesh(16, 96)[2])
+    want = np.asarray(j_push.elliptical_rot_table(jnp.asarray(cls), deg))
+    got = t_push.elliptical_rot_table(cls, deg)
+    assert got.dtype == torch.float32 and got.shape == (cls.size, 2)
+    ulps = np.abs(got.numpy().view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1
+    # the band rotation's per-class values are the same function of the class
+    cd, sd = t_push.rot_vals_from_class(torch.from_numpy(cls.astype(np.int32)), deg)
+    np.testing.assert_allclose(got.numpy(), np.stack([cd, sd], 1), rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("form", ["2d", "1d"])
+@pytest.mark.parametrize("hkd", [(0.0, 0.0, 0.9), (0.2, -0.15, 0.3)])
+def test_push_table_matches_reference(form, hkd):
+    """Kernel P's table mode (plain version on CPU tensors) equals the JAX
+    elliptical_push_rot on the per-element table (or its 1-D sin Δ form,
+    mapped onto (E, 2)) followed by the active mask."""
+    h, k, d = hkd
+    cls = np.random.default_rng(5).permutation(j_gen.tokamak_mesh(16, 96)[2])
+    rng = np.random.default_rng(6)
+    n = 6000
+    phi = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    x0, x1 = (rng.uniform(-1, 1, n).astype(np.float32) for _ in range(2))
+    b = rng.uniform(0.2, 1.0, n).astype(np.float32)
+    cphi, sphi = np.cos(phi), np.sin(phi)
+    elem = rng.integers(-1, cls.size, n).astype(np.int32)
+    active = rng.uniform(size=n) > 0.1
+    jt = j_push.elliptical_rot_table(jnp.asarray(cls), 15.0)
+    if form == "1d":
+        jt = jt[:, 1]
+    tx, ty, c2, s2 = j_push.elliptical_push_rot(
+        jnp.asarray(cphi), jnp.asarray(sphi), jnp.asarray(b), jnp.asarray(elem),
+        jt, h, k, d)
+    ref = (np.where(active, tx, x0), np.where(active, ty, x1),
+           np.where(active, c2, cphi), np.where(active, s2, sphi))
+    rot = t_push.RotTable.build(cls, 15.0, device="cpu", one_dim=form == "1d")
+    assert rot.table.shape == (cls.size, 2)
+    args = [torch.from_numpy(a) for a in (x0, x1, cphi, sphi, b, elem, active)]
+    got = t_push.push_table(*args, rot, h, k, d)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got[1].numpy()[~active], x1[~active])
+    np.testing.assert_array_equal(got[2].numpy()[~active], cphi[~active])
+    # the unmasked form, on the table or on its 1-D form
+    raw = t_push.elliptical_push_rot(args[2], args[3], args[4], args[5],
+                                     rot.table, h, k, d)
+    np.testing.assert_allclose(raw[0].numpy(), np.asarray(tx), rtol=RTOL, atol=ATOL)
+
+
+def test_straight_line_push_and_wrap_match_reference():
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-0.2, 1.2, (5000, 3)).astype(np.float32)
+    d = np.array([1.0, 1.0, 1.0]) / np.sqrt(3.0)
+    want = np.asarray(j_push.straight_line_push(jnp.asarray(x),
+                                                jnp.asarray(d, jnp.float32), 0.05))
+    got = t_push.straight_line_push(torch.from_numpy(x), d.astype(np.float32), 0.05)
+    np.testing.assert_array_equal(got.numpy(), want)
+    lo = np.zeros(3, np.float32)
+    ext = np.ones(3, np.float32)
+    wrapped = (jnp.asarray(want) - jnp.asarray(lo)) % jnp.asarray(ext) + jnp.asarray(lo)
+    got = t_push.push_and_wrap(torch.from_numpy(x), t_push.step_vector(d, 0.05),
+                               (lo, ext))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(wrapped))
+    assert got.min() >= 0.0 and got.max() <= 1.0
+
+
 def _wrapper_calls(dev):
     """One call per kernel wrapper with small tensors on ``dev``."""
     n = 4
@@ -125,7 +196,15 @@ def _wrapper_calls(dev):
                       n_bands=4, n_theta=4, n_harm=4, n_cheb=2, rank=2)
     ann = AnnulusLocator2D(0.0, 0.0, 0.5, 0.25, 2, 8,
                            perm=torch.arange(32, dtype=torch.int32, device=dev))
+    kuhn = KuhnLocator3D((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+                         perm=torch.arange(6, dtype=torch.int32, device=dev))
+    x3 = torch.zeros(n, 3, device=dev)
+    table = t_push.RotTable(torch.zeros(3, 2, device=dev))
     return {
+        "push table": lambda: t_push.push_table(f, f, f, f, f, e, a, table, 0.0, 0.0, 0.9),
+        "kuhn_locate": lambda: t_lo.kuhn_push_locate(kuhn, x3, a),
+        "push_wrap": lambda: t_push.push_and_wrap(x3, np.ones(3, np.float32)),
+        "locate3d": lambda: t_se.walk_locate_3d(torch.zeros(1, 16, device=dev), x3, e, a, 4),
         "band_cell": lambda: t_lo.band_cell_of(band, f, f),
         "annulus_locate": lambda: t_lo.annulus_locate(ann, f, f, a),
         "push": lambda: t_push.push_banded(f, f, f, f, f, e, a, rot, 0.0, 0.0, 0.9),
@@ -136,14 +215,15 @@ def _wrapper_calls(dev):
     }
 
 
-@pytest.mark.parametrize("name", ["push", "band_cell", "annulus_locate",
-                                  "locate", "histogram", "deposit"])
+@pytest.mark.parametrize("name", ["push", "push table", "band_cell", "annulus_locate",
+                                  "locate", "histogram", "deposit", "kuhn_locate",
+                                  "push_wrap", "locate3d"])
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices(name):
     """On CPU tensors a wrapper runs its plain version and counts no launch;
     on a device that is neither CPU nor CUDA it raises (no fallback)."""
     kernels.reset_launches()
     _wrapper_calls("cpu")[name]()
-    assert kernels.LAUNCHES[name] == 0
+    assert not any(kernels.LAUNCHES.values())
     with pytest.raises(ValueError, match="no kernel or plain version"):
         _wrapper_calls("meta")[name]()
 
@@ -155,7 +235,7 @@ def test_kernel_build_flags():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.sources()) == [
         "annulus.cu", "band.cu", "deposit.cu", "gather.cu", "histogram.cu",
-        "locate.cu", "push.cu", "slotmap.cu"]
+        "kuhn.cu", "locate.cu", "locate3d.cu", "push.cu", "slotmap.cu"]
     assert "-shared" not in _build.NVCC_FLAGS      # compile flags; the link adds it
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()
