@@ -41,7 +41,10 @@ sources in this checkout.  Phases, each raising on failure:
     pseudoPushAndSearch's 16^3 Kuhn box (24,576 tets) at 10M particles, K
     (push + wrap + locate), its push-only form (equal to K's positions too)
     and L3 (peel + walk over the cpe-16 grid's
-    26-column rows, and the plain walk) on one step's targets, and the walk
+    candidate id pair, and the plain walk) on one step's targets, on those
+    particles in a random order and on the step-20 targets (L3's bound
+    counted for the id pair it reads and, beside it, for the 26-column
+    rows the first L3 read; its resident blocks per SM), and the walk
     arm's ids held against the Kuhn arm's (ties on shared faces counted).
     Then run a
     small slice of each FULL-mode arm (and the table push on a permuted
@@ -1011,21 +1014,12 @@ def check_pps3d(results: dict, dev):
     # L3 on the same targets: peel + walk (the walk arm's step), plain walk
     dest = got_k[0]
     largs = (mesh.walk_geom, dest, ps.elem, ps.active, cfg.max_search_iters)
-    for what, g in (("peel+walk", grid), ("plain walk", None)):
-        got = se.walk_locate_3d(*largs, grid=g)
-        compare("locate3d", f"{what} ({n} particles)", got,
-                se.walk_locate_3d_plain(*largs, grid=g), results)
-        log(f"[c] locate3d {what}: iters={int(got[2])} all_found={bool(got[3])} "
-            f"deleted at the 64-iteration limit: {int(got[4])}, alive {int(got[1].sum())}")
-        time_pair("locate3d", what, lambda: se.walk_locate_3d(*largs, grid=g),
-                  lambda: se.walk_locate_3d_plain(*largs, grid=g), results, plain_reps=3)
-        # the peel's two containment tests (~90 f32 operations per particle);
-        # each table (walk_geom is largs[0]) counted once
-        record_bound("locate3d", what, results,
-                     nbytes(*largs[:4], None if g is None else g.cell_rows,
-                            got[0], got[1]), 90.0 * n if g is not None else 0.0)
-        if g is not None:
-            walk = got
+    from pumipic_torch.kernels import _build
+
+    blocks = _build.lib().pp_walk_locate_3d_blocks_per_sm()
+    results["locate3d"]["extra"]["resident_blocks_per_sm"] = blocks
+    log(f"[c] locate3d: {blocks} resident blocks of 256 threads per SM")
+    walk = check_locate3d(results, grid, largs, "")
     # the walk arm's ids against the Kuhn arm's: equal but where the
     # destination lies in both tets within the walk's BCC tolerance
     ek, ew = got_k[1], walk[0]
@@ -1041,8 +1035,73 @@ def check_pps3d(results: dict, dev):
     if not bool(ties.all()):
         raise AssertionError("the walk arm's ids differ from the Kuhn arm's away "
                              "from shared faces")
-    del app, ps, kargs, got_k, largs, walk, dest
+    del kargs, got_k, walk
+    # L3 where the cells and tets lose their locality: step 1's particles
+    # in a random order
+    perm = torch.randperm(n, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    check_locate3d(results, grid, (largs[0], *(a[perm].contiguous() for a in largs[1:4]),
+                                   largs[4]), ", random order")
+    del perm, largs, dest
+    # and at the walk arm's step-20 targets, from their step-19 tets
+    for _ in range(19):
+        app.ptcls, _ = app.step_fn(app.ptcls)
+    ps = app.ptcls
+    check_locate3d(results, grid, (mesh.walk_geom,
+                                   push_ops.push_and_wrap(ps.get("x"), app.step_vector,
+                                                          app.wrap),
+                                   ps.elem, ps.active, cfg.max_search_iters), ", step 20")
+    del app, ps
     return mesh, grid
+
+
+def locate3d_bytes(walk_geom, dest, elem_start, active, out, grid=None,
+                   table=None) -> int:
+    """The bytes L3's function needs on these inputs: the outputs ``out``
+    written once, ``walk_geom``, the active mask and ``table`` (the grid's
+    cell table) read once, and each active particle's destination.  The
+    previous tet is read for every active particle in the plain walk, and
+    behind the peel only for the active particles that it misses, whose
+    walk retries from it."""
+    from pumipic_torch.ops import search as se
+
+    starts = active if grid is None else active & ~se._peel_3d(grid, *dest.unbind(1))[1]
+    n_act = int(active.sum())
+    return (nbytes(walk_geom, active, table, *out) + n_act * 3 * dest.element_size()
+            + int(starts.sum()) * elem_start.element_size())
+
+
+def check_locate3d(results: dict, grid, largs, where: str):
+    """L3 peel + walk (over ``grid``) and plain walk on ``largs`` (walk_geom,
+    dest, previous tets, active, max_iters): exact against the plain
+    version, timed, with its bound counted for what the kernel reads (the
+    (n_cells, 2) id pair) and, beside it, for the 26-column rows the first
+    L3 read (:func:`locate3d_bytes`).  Returns the peel + walk's
+    outputs."""
+    from pumipic_torch.ops import search as se
+
+    n = largs[1].shape[0]
+    for what, g in (("peel+walk", grid), ("plain walk", None)):
+        what = what + where
+        got = se.walk_locate_3d(*largs, grid=g)
+        compare("locate3d", f"{what} ({n} particles)", got,
+                se.walk_locate_3d_plain(*largs, grid=g), results)
+        log(f"[c] locate3d {what}: iters={int(got[2])} all_found={bool(got[3])} "
+            f"deleted at the 64-iteration limit: {int(got[4])}, alive {int(got[1].sum())}")
+        time_pair("locate3d", what, lambda: se.walk_locate_3d(*largs, grid=g),
+                  lambda: se.walk_locate_3d_plain(*largs, grid=g), results, plain_reps=3)
+        # the peel's two containment tests (~90 f32 operations per particle)
+        table = None if g is None else g.candidate_ids(largs[0])
+        record_bound("locate3d", what, results,
+                     locate3d_bytes(*largs[:4], got[:2], g, table),
+                     90.0 * n if g is not None else 0.0)
+        if g is not None:
+            rows_ms = locate3d_bytes(*largs[:4], got[:2], g, g.cell_rows) \
+                / PEAK_BYTES_PER_S * 1e3
+            log(f"[c] locate3d {what} bound with the 26-column rows in place of the "
+                f"id pair: {rows_ms:.4f} ms")
+            case_of("locate3d", what, results)["bound_ms_rows"] = rows_ms
+            walk = got
+    return walk
 
 
 def check_pps3d_slices(dev) -> None:

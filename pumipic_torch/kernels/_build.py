@@ -74,10 +74,11 @@ SIGNATURES = {
     "pp_walk_locate_3d": [
         _P, _P, _P,                          # dest (N, 3) elem_start active
         _P, _I,                              # walk_geom n_elems
-        _P, _P, _I, _I, _I,                  # cell_rows origin|inv_h nx ny nz
+        _P, _P, _I, _I, _I,                  # cell_ids origin|inv_h nx ny nz
         _I, _I,                              # max_iters it0
         _P, _P, _P,                          # elem_out active_out stats
         _L, _P],                             # n stream
+    "pp_walk_locate_3d_blocks_per_sm": [],
     "pp_band_cell": [_P, _P, _L, _P, _P, _P],  # px py n params(host) cells stream
     "pp_annulus_locate": [
         _P, _P, _P, _L,                      # px py active n

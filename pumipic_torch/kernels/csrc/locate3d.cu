@@ -1,42 +1,73 @@
-// Kernel L3: the tet version of kernel L.  Locate = 26-column cell-row peel
-// + guess-walk BCC search with remove-on-exit + the DPS rewrite, one thread
-// per particle with the whole walk inside the kernel.
+// Kernel L3: the tet version of kernel L.  Locate = cell-candidate peel +
+// guess-walk BCC search with remove-on-exit + the DPS rewrite, with the
+// whole walk inside the kernel.
 //
 // Replaces (JAX reference): LocatorGrid3D.cell_of (pumipic_tpu/mesh/
 // locator.py:145-157), the 26-column "rows" peel of search_mesh_3d_accel
 // (pumipic_tpu/ops/search.py:1451-1500), the walk step _make_step with the
 // BCC core _core_3d_bcc (:595-707, :257-310) and remove_on_exit (:110-121),
 // and the pyramid loop _run_walk (:710-950) (queue item K10, its BCC core
-// and peel).  With rows == nullptr it is the plain walk search_mesh_3d
+// and peel).  With cell_ids == nullptr it is the plain walk search_mesh_3d
 // (:1006-1044).  The TPU Pallas probes of the 2D walk step
 // (perf/archive/walk_opt.py:219, walk_opt2.py:92, walk_opt4.py:101) are the
 // design's ancestors through kernel L.
 //
-// What bounds it on an H100: device-memory traffic of the random row loads.
-// Per particle: 17 bytes streamed in (dest x, y, z, previous elem, active),
-// one 104-byte cell row at a data-dependent address (the 40 MB table of the
-// 16^3 Kuhn box at 16 cells per tet fits the 50 MB L2), 5 bytes out; the
-// walkers the peel misses (about one in seven on tets) add one 64-byte
-// walk_geom row per step (1.6 MB table, in L2).
+// What bounds it on an H100: device-memory traffic and the latency of
+// dependent loads.  Per particle: 17 bytes streamed in (dest x, y, z,
+// previous elem, active) and 5 out; the peel reads the cell's candidate
+// pair (8 bytes from a 3.1 MB table at 389,017 cells) and candidate A's
+// 64-byte walk_geom row (1.6 MB, in L2), B's affine columns only where A
+// does not contain the point.  About one particle in seven misses both and
+// walks, each step a dependent 64-byte row load.  Measured
+// (scripts/ab_locate3d.py), the peel holds it: its chain of dependent
+// loads (destination, pair, A, B) and its unfused f32 arithmetic take 86%
+// of the kernel's time with the walkers counted and not walked.
 //
-// Design: as kernel L.  A thread keeps walking; finished threads idle in
-// their warp and nothing is compacted.  The iteration budget is the
-// reference's: the peel counts as iteration it0 = 1, each walker takes at
-// most max_iters - it0 steps, and walkers unfinished at the limit are
-// deleted.  iters = it0 + the most steps any walker took (a block max, then
-// one atomicMax per block); stats[1] counts the walkers deleted at the
-// limit (one atomicAdd per block).  A walk_geom row is four 16-byte loads; a
-// cell row, 8-byte aligned, thirteen 8-byte loads.  Built with -fmad=false
-// and summed left to right as _core_3d_bcc does, so every containment test
-// and every exit choice rounds as the plain PyTorch version's separate ops
-// do (a reassociated sum moves which tet wins at a shared face).
+// Design (scripts/ab_locate3d.py's probes of the first L3, one thread a
+// particle over a grid-stride loop, found its peel alone at 78% of its time,
+// the walkers in the peel's warps at 22%, and a second, partly empty wave
+// and the 104-byte rows at 4-16% each after that; a pool shared by the
+// whole block, walked between barriers, waited at each barrier for its
+// longest chain of dependent loads):
+// - A grid of one full wave: as many blocks as are resident at once
+//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), whose warps take
+//   tiles of 32 particles in turn.
+// - Walkers are compacted inside each warp, with no barrier between warps.
+//   A warp peels a tile and pushes the particles that still walk onto its
+//   pool in shared memory (index, element, retry element, steps and the
+//   destination), a stack of L3_POOL; whenever the pool holds 32 walkers
+//   (or the warp has no tile left) the top 32 take at most L3_ROUND steps
+//   each and those still walking are pushed back.  A warp thus walks with
+//   every lane a walker, whatever a tile's walker share, and a long walker
+//   (one wrapped across the periodic box) holds only its own lane.  A warp
+//   peels only while its pool has room for a whole tile, so the pool never
+//   overflows.  A particle's result does not depend on when it is walked,
+//   so the outputs are deterministic.
+// - The peel reads the pair and candidate A's row, B's affine columns only
+//   where A does not contain the point, and runs the first walk step on A's
+//   row where neither does: the plain version's first step recomputes the
+//   same weights (the pair's rows equal cell_rows' affine columns bit for
+//   bit, checked on the host).  The plain walk's first step is taken the
+//   same way, on the start tet's row.
+// - The iteration budget is the reference's: the peel counts as iteration
+//   it0 = 1, each walker takes at most max_iters - it0 steps, and walkers
+//   unfinished at the limit are deleted.  iters = it0 + the most steps any
+//   walker took (a block max, then one atomicMax per block); stats[1]
+//   counts the walkers deleted at the limit (one atomicAdd per block).
+// Built with -fmad=false and summed left to right as _core_3d_bcc does, so
+// every containment test and every exit choice rounds as the plain PyTorch
+// version's separate ops do (a reassociated sum moves which tet wins at a
+// shared face).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #define BCC_REL_TOL 4.76837158203125e-07f  // 8 * 2^-24
 #define BCC_ABS_TOL 1e-7f
-#define WALK_THREADS 256
+#define L3_THREADS 256                // a block
+#define L3_WARPS (L3_THREADS / 32)
+#define L3_POOL 64                    // walkers a warp holds between rounds
+#define L3_ROUND 4                    // steps a walker takes per round
 
 struct Bary3 {
   float l1, l2, l3, w0;
@@ -63,116 +94,214 @@ __device__ __forceinline__ Bary3 bary3(const float* a, float dx, float dy,
   return r;
 }
 
+// the first n4 float4s of element e's 64-byte walk_geom row (16-byte aligned)
+template <int n4>
+__device__ __forceinline__ void load_row(const float* geom, int e, float* g) {
+  const float4* g4 = reinterpret_cast<const float4*>(geom + (size_t)e * 16);
+#pragma unroll
+  for (int j = 0; j < n4; ++j) {
+    const float4 v = __ldg(g4 + j);
+    g[4 * j] = v.x;
+    g[4 * j + 1] = v.y;
+    g[4 * j + 2] = v.z;
+    g[4 * j + 3] = v.w;
+  }
+}
+
+struct Walker {
+  int i, elem, fbg, steps;   // fbg >= 0: on a guess trajectory, the retry element
+  float x, y, z;
+};
+
+// leave a tet that does not contain the point (weights w, neighbour ids
+// g[12..15]) across the face opposite the most negative weight, first in
+// the order w0, l1, l2, l3, strictly smaller to move (NaN never moves);
+// true when the walker is finished (a real boundary exit: removed)
+__device__ __forceinline__ bool exit_face(const Bary3& w, const float* g, Walker& k) {
+  float wmin = w.w0, nxt = g[12];
+  if (w.l1 < wmin) { wmin = w.l1; nxt = g[13]; }
+  if (w.l2 < wmin) { wmin = w.l2; nxt = g[14]; }
+  if (w.l3 < wmin) { wmin = w.l3; nxt = g[15]; }
+  const int next = (int)nxt;
+  if (next != -1) {
+    k.elem = next;
+    return false;
+  }
+  if (k.fbg >= 0) {          // guess trajectory: retry from the true start
+    k.elem = k.fbg;
+    k.fbg = -2;
+    return false;
+  }
+  k.elem = -1;               // exposed face: remove
+  return true;
+}
+
+// walk k until it is found, removed or has taken `limit` steps; true when
+// it is finished
+__device__ __forceinline__ bool walk(const float* __restrict__ geom, Walker& k,
+                                     int limit) {
+  while (k.steps < limit) {
+    ++k.steps;
+    float g[16];
+    load_row<4>(geom, k.elem, g);
+    const Bary3 w = bary3(g, k.x, k.y, k.z);
+    if (w.inside) return true;
+    if (exit_face(w, g, k)) return true;
+  }
+  return false;
+}
+
 struct Grid3 {
   float origin[3], inv_h[3];
   int n[3];
 };
 
-__global__ void __launch_bounds__(WALK_THREADS) walk_locate_3d_kernel(
+// the cell of (x, y, z) in f32 index arithmetic (LocatorGrid3D.cell_of): a
+// NaN coordinate gives cell 0, as the plain version's NaN -> int cast and
+// clamp do
+__device__ __forceinline__ int cell_of(const Grid3& grid, float x, float y, float z) {
+  const float p[3] = {x, y, z};
+  float c[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    c[j] = fminf(fmaxf(floorf((p[j] - grid.origin[j]) * grid.inv_h[j]), 0.0f),
+                 (float)(grid.n[j] - 1));
+  if (x != x || y != y || z != z) return 0;
+  const int n_cells = grid.n[0] * grid.n[1] * grid.n[2];
+  return min(max((int)((c[0] * (float)grid.n[1] + c[1]) * (float)grid.n[2] + c[2]), 0),
+             n_cells - 1);
+}
+
+// a warp's walkers between its rounds, kept as a stack
+struct WarpPool {
+  int i[L3_POOL], elem[L3_POOL], fbg[L3_POOL], steps[L3_POOL];
+  float x[L3_POOL], y[L3_POOL], z[L3_POOL];
+};
+
+// the lanes with `keep` push their walker onto the warp's pool of n
+// walkers (all lanes of the warp call it, n is the same in each)
+__device__ __forceinline__ void pool_push(WarpPool& p, int& n, bool keep,
+                                          const Walker& k) {
+  const unsigned m = __ballot_sync(0xffffffffu, keep);
+  if (keep) {
+    const int j = n + __popc(m & ((1u << (threadIdx.x & 31)) - 1u));
+    p.i[j] = k.i;
+    p.elem[j] = k.elem;
+    p.fbg[j] = k.fbg;
+    p.steps[j] = k.steps;
+    p.x[j] = k.x;
+    p.y[j] = k.y;
+    p.z[j] = k.z;
+  }
+  n += __popc(m);
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(L3_THREADS) walk_locate_3d_kernel(
     const float* __restrict__ dest, const int* __restrict__ elem_start,
     const uint8_t* __restrict__ active, const float* __restrict__ geom,
-    int n_elems, const float* __restrict__ rows, Grid3 grid, int max_iters,
-    int it0, int* __restrict__ elem_out, uint8_t* __restrict__ active_out,
-    int* __restrict__ stats, long long n) {
+    int n_elems, const int2* __restrict__ cell_ids, Grid3 grid, int budget,
+    int* __restrict__ elem_out, uint8_t* __restrict__ active_out,
+    int* __restrict__ stats, int n) {
+  __shared__ WarpPool pools[L3_WARPS];
+  __shared__ int s_max[L3_WARPS];
+  __shared__ int s_unf[L3_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  WarpPool& pool = pools[warp];
+  int pool_n = 0;                           // the same in every lane
   int my_max = 0;
   int my_unfinished = 0;
-  const int budget = max(max_iters - it0, 0);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float dx = dest[3 * i], dy = dest[3 * i + 1], dz = dest[3 * i + 2];
-    int elem = -1;
-    int fbg = -2;  // >= 0: on a guess trajectory, value = element to retry from
-    bool done = true;
-    if (active[i]) {
-      const int start = min(max(elem_start[i], 0), n_elems - 1);
-      if (rows != nullptr) {
-        // cell id in f32 index arithmetic (LocatorGrid3D.cell_of)
-        const float p[3] = {dx, dy, dz};
-        float c[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          c[j] = fminf(fmaxf(floorf((p[j] - grid.origin[j]) * grid.inv_h[j]), 0.0f),
-                       (float)(grid.n[j] - 1));
-        const int n_cells = grid.n[0] * grid.n[1] * grid.n[2];
-        const int cell = min(max((int)((c[0] * (float)grid.n[1] + c[1]) *
-                                       (float)grid.n[2] + c[2]), 0), n_cells - 1);
-        // 104-byte row, 8-byte aligned: thirteen float2 loads
-        const float2* r2 = reinterpret_cast<const float2*>(rows + (size_t)cell * 26);
-        float r[26];
-#pragma unroll
-        for (int j = 0; j < 13; ++j) {
-          const float2 v = __ldg(r2 + j);
-          r[2 * j] = v.x;
-          r[2 * j + 1] = v.y;
-        }
-        const bool in_a = bary3(r, dx, dy, dz).inside;
-        const bool in_b = bary3(r + 13, dx, dy, dz).inside;
-        if (in_a || in_b) {
-          elem = in_a ? (int)r[12] : (int)r[25];
-        } else {
-          elem = (int)r[12];
-          fbg = start;
-          done = false;
-        }
-      } else {
-        elem = start;
-        done = false;
-      }
+  // a finished particle: write its outputs (at_limit: deleted at the limit)
+  auto finish = [&](const Walker& k, bool at_limit) {
+    const int e = at_limit ? -1 : k.elem;
+    elem_out[k.i] = e;
+    active_out[k.i] = e >= 0 ? 1 : 0;
+    my_max = max(my_max, k.steps);
+    if (at_limit) ++my_unfinished;
+  };
+  // a walker that stopped without finishing: deleted at the limit, or
+  // pushed back (all lanes call)
+  auto keep_or_delete = [&](bool walking, const Walker& k) {
+    if (walking && k.steps >= budget) {
+      finish(k, true);
+      walking = false;
     }
-    int steps = 0;
-    while (!done && steps < budget) {
-      ++steps;
-      // 64-byte walk_geom row, 16-byte aligned: four float4 loads
-      const float4* g4 = reinterpret_cast<const float4*>(geom + (size_t)elem * 16);
-      float g[16];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 v = __ldg(g4 + j);
-        g[4 * j] = v.x;
-        g[4 * j + 1] = v.y;
-        g[4 * j + 2] = v.z;
-        g[4 * j + 3] = v.w;
+    pool_push(pool, pool_n, walking, k);
+  };
+  // the grid's warps take tiles of 32 particles in turn (int indices: the
+  // launcher takes n < 2^30)
+  const int n_tiles = (n + 31) / 32, stride = gridDim.x * L3_WARPS;
+  int tile = blockIdx.x * L3_WARPS + warp;
+  while (tile < n_tiles || pool_n > 0) {
+    if (tile < n_tiles && pool_n <= L3_POOL - 32) {
+      // peel this tile: candidate A (the start tet in the plain walk), then
+      // B; a particle neither contains takes its first step on A's row here
+      const int i = tile * 32 + lane;
+      Walker k{i, -1, -2, 0, 0.0f, 0.0f, 0.0f};
+      if (i < n) {
+        const float* d = dest + 3 * (size_t)i;
+        k.x = d[0];
+        k.y = d[1];
+        k.z = d[2];
       }
-      const Bary3 w = bary3(g, dx, dy, dz);
-      if (w.inside) {
-        done = true;
-        break;
-      }
-      // most negative weight, first in the order w0, l1, l2, l3, strictly
-      // smaller to move (NaN never moves) -> cross the face opposite it
-      float wmin = w.w0;
-      int kmin = 0;
-      if (w.l1 < wmin) { wmin = w.l1; kmin = 1; }
-      if (w.l2 < wmin) { wmin = w.l2; kmin = 2; }
-      if (w.l3 < wmin) { wmin = w.l3; kmin = 3; }
-      const int next = (int)g[12 + kmin];
-      if (next == -1) {          // exposed face
-        if (fbg >= 0) {          // guess trajectory: retry from the true start
-          elem = fbg;
-          fbg = -2;
-        } else {                 // real boundary exit: remove
-          elem = -1;
-          done = true;
+      bool walking = false;
+      if (i < n && active[i]) {
+        const bool plain = cell_ids == nullptr;
+        const int start = min(max(elem_start[i], 0), n_elems - 1);
+        const int2 ab = plain ? make_int2(start, start)
+                              : __ldg(cell_ids + cell_of(grid, k.x, k.y, k.z));
+        k.elem = ab.x;
+        walking = true;
+        if (!plain || budget > 0) {           // the plain walk's test is its step 1
+          float g[16];
+          load_row<4>(geom, k.elem, g);
+          const Bary3 wa = bary3(g, k.x, k.y, k.z);
+          if (plain) k.steps = 1;
+          walking = !wa.inside;
+          if (walking && !plain) {
+            float gb[12];
+            load_row<3>(geom, ab.y, gb);
+            if (bary3(gb, k.x, k.y, k.z).inside) {
+              k.elem = ab.y;
+              walking = false;
+            }
+          }
+          if (walking && budget > 0) {
+            if (!plain) {                     // a guess walk from A: step 1 here
+              k.fbg = start;
+              k.steps = 1;
+            }
+            if (exit_face(wa, g, k)) walking = false;   // removed at the boundary
+          }
         }
-      } else {
-        elem = next;
       }
+      if (i < n && !walking) finish(k, false);
+      keep_or_delete(walking, k);
+      tile += stride;
     }
-    if (!done) {                 // loop limit: delete the walker
-      elem = -1;
-      ++my_unfinished;
+    if (pool_n >= 32 || (tile >= n_tiles && pool_n > 0)) {
+      // a round: the top (up to) 32 walkers take at most L3_ROUND steps each
+      const int take = min(pool_n, 32);
+      pool_n -= take;
+      const bool walking = lane < take;
+      Walker k{};
+      if (walking) {
+        const int j = pool_n + lane;
+        k = Walker{pool.i[j], pool.elem[j], pool.fbg[j], pool.steps[j], pool.x[j],
+                   pool.y[j], pool.z[j]};
+      }
+      __syncwarp();
+      bool still = walking;
+      if (walking && walk(geom, k, min(k.steps + L3_ROUND, budget))) {
+        finish(k, false);
+        still = false;
+      }
+      keep_or_delete(still, k);
     }
-    elem_out[i] = elem;
-    active_out[i] = elem >= 0 ? 1 : 0;
-    my_max = max(my_max, steps);
   }
   // block reduction, then one atomic per block
   my_max = __reduce_max_sync(0xffffffffu, my_max);
   my_unfinished = __reduce_add_sync(0xffffffffu, my_unfinished);
-  __shared__ int s_max[WALK_THREADS / 32];
-  __shared__ int s_unf[WALK_THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
     s_max[warp] = my_max;
     s_unf[warp] = my_unfinished;
@@ -180,7 +309,7 @@ __global__ void __launch_bounds__(WALK_THREADS) walk_locate_3d_kernel(
   __syncthreads();
   if (threadIdx.x == 0) {
     int bm = 0, bu = 0;
-    for (int w = 0; w < WALK_THREADS / 32; ++w) {
+    for (int w = 0; w < L3_WARPS; ++w) {
       bm = max(bm, s_max[w]);
       bu += s_unf[w];
     }
@@ -200,16 +329,30 @@ static int num_sms() {
   return sms;
 }
 
-// dest: (n, 3) f32; geom: (n_elems, 16) f32, 16-byte aligned; rows:
-// (nx*ny*nz, 26) f32, 8-byte aligned, or nullptr for the plain walk; oh:
-// the grid's origin[3] and inv_h[3].  stats[0] <- max steps over walkers,
-// stats[1] <- walkers deleted at the limit; the caller zeroes both.
+// blocks of the kernel resident on one SM at once (its registers and
+// shared memory allow)
+extern "C" int pp_walk_locate_3d_blocks_per_sm(void) {
+  static int blocks = 0;
+  if (blocks == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, walk_locate_3d_kernel,
+                                                  L3_THREADS, 0);
+    if (blocks <= 0) blocks = 1;
+  }
+  return blocks;
+}
+
+// dest: (n, 3) f32; geom: (n_elems, 16) f32, 16-byte aligned; cell_ids:
+// (nx*ny*nz, 2) i32, each cell's candidates A and B (8-byte aligned), or
+// nullptr for the plain walk; oh: the grid's origin[3] and inv_h[3].
+// stats[0] <- max steps over walkers, stats[1] <- walkers deleted at the
+// limit; the caller zeroes both.  n < 2^30.
 extern "C" int pp_walk_locate_3d(
     const float* dest, const int* elem_start, const uint8_t* active,
-    const float* geom, int n_elems, const float* rows, const float* oh,
+    const float* geom, int n_elems, const int* cell_ids, const float* oh,
     int nx, int ny, int nz, int max_iters, int it0, int* elem_out,
     uint8_t* active_out, int* stats, long long n, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
+  if (n >= (1LL << 30)) return (int)cudaErrorInvalidValue;
   Grid3 grid;
   for (int j = 0; j < 3; ++j) {
     grid.origin[j] = oh[j];
@@ -218,11 +361,13 @@ extern "C" int pp_walk_locate_3d(
   grid.n[0] = nx;
   grid.n[1] = ny;
   grid.n[2] = nz;
-  long long blocks = (n + WALK_THREADS - 1) / WALK_THREADS;
-  const long long cap = (long long)num_sms() * 8;
-  if (blocks > cap) blocks = cap;
-  walk_locate_3d_kernel<<<(unsigned)blocks, WALK_THREADS, 0, stream>>>(
-      dest, elem_start, active, geom, n_elems, rows, grid, max_iters, it0,
-      elem_out, active_out, stats, n);
+  long long blocks = (n + L3_THREADS - 1) / L3_THREADS;
+  const long long wave = (long long)num_sms() * pp_walk_locate_3d_blocks_per_sm();
+  if (blocks > wave) blocks = wave;
+  const int budget = max_iters > it0 ? max_iters - it0 : 0;
+  walk_locate_3d_kernel<<<(unsigned)blocks, L3_THREADS, 0, stream>>>(
+      dest, elem_start, active, geom, n_elems,
+      reinterpret_cast<const int2*>(cell_ids), grid, budget, elem_out, active_out,
+      stats, (int)n);
   return (int)cudaGetLastError();
 }

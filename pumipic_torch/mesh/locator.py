@@ -17,8 +17,10 @@ guess is only an accelerator: the walk still proves containment.
 - :class:`AnnulusLocator2D`: exact analytic location on a proven
   structured annulus (:func:`detect_annulus_structured`), kernel A; no
   table and no walk.
-- :class:`LocatorGrid3D`: the tet mesh's cartesian cells, whose 26-column
-  rows [A affine (12) | elemA | B affine (12) | elemB] kernel L3 peels.
+- :class:`LocatorGrid3D`: the tet mesh's cartesian cells, with 26-column
+  rows [A affine (12) | elemA | B affine (12) | elemB] (the plain version's
+  peel) and their checked (n_cells, 2) id pair [elemA | elemB], through
+  which kernel L3 reads the same affine values from ``walk_geom``.
 - :class:`KuhnLocator3D`: exact analytic location on a proven structured
   Kuhn box (:func:`detect_box_kuhn`), kernel K.
 
@@ -31,7 +33,7 @@ never its result: ``polar="auto"`` resolves to cartesian cells here
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Dict, Optional, Tuple
 
@@ -834,7 +836,9 @@ class LocatorGrid3D:
         [A affine (12) | elemA | B affine (12) | elemB]
 
     the two sample-calibrated candidates of each cell (the "rows" layout,
-    onto which every other peel of the JAX package maps)."""
+    onto which every other peel of the JAX package maps).  Kernel L3 reads
+    their id columns (:meth:`candidate_ids`) and ``walk_geom`` in place of
+    the 104-byte rows."""
 
     origin: Tuple[float, float, float]
     inv_h: Tuple[float, float, float]
@@ -843,6 +847,10 @@ class LocatorGrid3D:
     ny: int
     nz: int
     cell_rows: Optional[torch.Tensor] = None   # (nx*ny*nz, 26) f32
+    # the pair candidate_ids last checked, with the tensors it was checked
+    # against; a grid from dataclasses.replace starts without one
+    _checked: dict = field(default_factory=dict, init=False, repr=False,
+                           compare=False)
 
     def cell_of(self, px: torch.Tensor, py: torch.Tensor,
                 pz: torch.Tensor) -> torch.Tensor:
@@ -855,6 +863,38 @@ class LocatorGrid3D:
         iz = torch.clamp(torch.floor((pz - o[2]) * ih[2]), 0.0, self.nz - 1.0)
         c = ((ix * float(self.ny) + iy) * float(self.nz) + iz).to(torch.int32)
         return torch.clamp(c, 0, self.nx * self.ny * self.nz - 1)
+
+    def candidate_ids(self, walk_geom: torch.Tensor) -> torch.Tensor:
+        """``cell_rows``' id columns 12 and 25 as an (n_cells, 2) i32 pair
+        [elemA | elemB], which kernel L3 reads in place of the rows.  Raises
+        ValueError unless each id is in range and ``walk_geom``'s row at it
+        equals the row's affine columns bit for bit, so that the kernel
+        tests what the plain version tests on the rows.  The pair is kept
+        for the ``cell_rows`` and ``walk_geom`` tensors it was checked
+        against; another tensor, or either written in place since, is
+        checked again."""
+        rows = self.cell_rows
+        seen = self._checked.get("against")
+        if (seen is not None and seen[0] is rows and seen[1] is walk_geom
+                and seen[2:] == (rows._version, walk_geom._version)):
+            return self._checked["ids"]
+        if rows is None or rows.shape != (self.nx * self.ny * self.nz, 26):
+            raise ValueError("candidate_ids: the grid needs (n_cells, 26) cell_rows")
+        geom = walk_geom.to(rows.device)
+        ids = torch.stack([rows[:, 12], rows[:, 25]], 1).to(torch.int32)
+        ok = bool((ids >= 0).all()) and bool((ids < geom.shape[0]).all()) \
+            and torch.equal(ids.to(rows.dtype), rows[:, [12, 25]])
+        if ok:
+            g = geom[ids.long()][..., 0:12].contiguous()           # (n_cells, 2, 12)
+            aff = torch.stack([rows[:, 0:12], rows[:, 13:25]], 1).contiguous()
+            ok = torch.equal(g.view(torch.int32), aff.view(torch.int32))
+        if not ok:
+            raise ValueError("candidate_ids: cell_rows' candidates do not equal "
+                             "walk_geom's rows at their ids bit for bit")
+        self._checked.update(
+            against=(rows, walk_geom, rows._version, walk_geom._version),
+            ids=ids.contiguous())
+        return self._checked["ids"]
 
 
 def _host_walk_3d(geom: np.ndarray, e0: np.ndarray, px, py, pz,

@@ -384,13 +384,12 @@ def walk_locate_3d(walk_geom: torch.Tensor, dest: torch.Tensor, elem_start,
     none); ``iters`` is the iteration count of a batch walk that stops when
     no walker is left.  Inactive particles get INVALID.
 
-    Kernel L3 on CUDA tensors, :func:`walk_locate_3d_plain` on CPU tensors."""
-    tensors = [walk_geom, dest, elem_start, active]
-    if grid is not None:
-        if grid.cell_rows is None:
-            raise ValueError("walk_locate_3d: the locator grid has no cell rows")
-        tensors.append(grid.cell_rows)
-    if not kernels.use_kernel("locate3d", *tensors):
+    Kernel L3 on CUDA tensors (which reads the grid's checked candidate id
+    pair, :meth:`LocatorGrid3D.candidate_ids`, and ``walk_geom`` in place of
+    the rows), :func:`walk_locate_3d_plain` on CPU tensors."""
+    if grid is not None and grid.cell_rows is None:
+        raise ValueError("walk_locate_3d: the locator grid has no cell rows")
+    if not kernels.use_kernel("locate3d", walk_geom, dest, elem_start, active):
         return walk_locate_3d_plain(walk_geom, dest, elem_start, active,
                                     max_iters, grid)
     n = dest.shape[0]
@@ -400,10 +399,14 @@ def walk_locate_3d(walk_geom: torch.Tensor, dest: torch.Tensor, elem_start,
             or elem_start.dtype != torch.int32 or active.dtype != torch.bool):
         raise ValueError("walk_locate_3d: (N, 3) f32 dest, (E, 16) f32 "
                          "walk_geom, i32 elem_start and bool active expected")
-    if walk_geom.data_ptr() % 16 or (grid is not None and (
-            grid.cell_rows.data_ptr() % 8 or grid.cell_rows.shape[1] != 26)):
-        raise ValueError("walk_locate_3d: walk_geom must be 16-byte aligned "
-                         "and cell_rows (n_cells, 26), 8-byte aligned")
+    ids = None
+    if grid is not None:
+        ids = grid.candidate_ids(walk_geom)
+        kernels.use_kernel("locate3d", walk_geom, ids)
+    if walk_geom.data_ptr() % 16:
+        raise ValueError("walk_locate_3d: walk_geom must be 16-byte aligned")
+    if n >= 1 << 30:
+        raise ValueError("walk_locate_3d: the kernel takes fewer than 2^30 particles")
     dev = dest.device
     elem = torch.empty(n, dtype=torch.int32, device=dev)
     act = torch.empty(n, dtype=torch.bool, device=dev)
@@ -416,7 +419,7 @@ def walk_locate_3d(walk_geom: torch.Tensor, dest: torch.Tensor, elem_start,
     err = _build.lib().pp_walk_locate_3d(
         P(dest.data_ptr()), P(elem_start.data_ptr()), P(active.data_ptr()),
         P(walk_geom.data_ptr()), E,
-        P(None if grid is None else grid.cell_rows.data_ptr()), oh, *nxyz,
+        P(None if ids is None else ids.data_ptr()), oh, *nxyz,
         max_iters, it0, P(elem.data_ptr()), P(act.data_ptr()),
         P(stats.data_ptr()), n, P(kernels.stream_handle()))
     _build.check(err, "locate3d")
@@ -469,10 +472,11 @@ def search_mesh_3d_accel(mesh: Mesh3D, grid: LocatorGrid3D, x_orig, x_tgt,
                          boundary_handler=remove_on_exit, method: str = "bcc",
                          record_exit: bool = False, widths=None,
                          recover: str = "off") -> SearchResult:
-    """Grid-accelerated tet search through the 26-column cell-row peel
-    (kernel L3): results equal :func:`search_mesh_3d`'s, with the peel
-    counted as one iteration and a guess walk that retries once from the
-    clamped ``elem_prev`` where it meets the boundary."""
+    """Grid-accelerated tet search through the cell-candidate peel (kernel
+    L3, which reads the grid's checked candidate id pair; its plain version
+    the 26-column rows): results equal :func:`search_mesh_3d`'s, with the peel counted as
+    one iteration and a guess walk that retries once from the clamped
+    ``elem_prev`` where it meets the boundary."""
     _check_options(boundary_handler, record_exit, recover)
     _check_method(method)
     if grid.cell_rows is None:

@@ -764,6 +764,113 @@ def test_locate3d_kernel_equals_plain(dev, n, peel):
             assert bool(got[3]) and bool((~got[1][act]).any())   # exits, none at the limit
 
 
+def _peel_hits(dev, grid, n, seed):
+    """``n`` destinations in the unit box that the peel finds (no walker)."""
+    rng = np.random.default_rng(seed)
+    p = torch.as_tensor(rng.uniform(0.01, 0.99, (8 * n + 64, 3)).astype(np.float32),
+                        device=dev)
+    p = p[se._peel_3d(grid, *p.unbind(1))[1]][:n]
+    assert p.shape[0] == n
+    return p
+
+
+@pytest.mark.parametrize("case", ["all walk", "no walker in a tile", "found at once",
+                                  "n 0", "n 1", "n 255", "n 257", "nan targets",
+                                  "random order"])
+def test_locate3d_kernel_walker_pool_cases(dev, case):
+    """L3's per-warp walker pools at their edges, against the plain version
+    with max_iters 64, 3 and 1: a grid whose candidates always miss (every
+    particle walks), a first 256 particles that the peel all finds (eight
+    tiles without a walker), every destination in its start tet (the plain
+    walk's iters is 1), sizes around a 256-thread block, NaN targets (one
+    coordinate and all three) and a random particle order; the peel and,
+    where the case allows, the plain walk."""
+    import dataclasses as dc
+
+    from pumipic_torch.mesh.locator import build_locator_grid_3d
+
+    m, _ = _kuhn_box(dev, 6, False)
+    grid = build_locator_grid_3d(m.coords.cpu().numpy(), m.elem2verts.cpu().numpy(),
+                                 cells_per_elem=16.0, walk_geom=m.walk_geom, device=dev)
+    n = {"n 0": 0, "n 1": 1, "n 255": 255, "n 257": 257}.get(case, 5000)
+    e0, act, dest = _tet_walkers(dev, m, n, n + 11)
+    grids = [grid, None]
+    if case == "all walk":
+        wg = m.walk_geom
+        one = torch.ones(1, device=dev)
+        row = torch.cat([wg[0, :12], 0 * one, wg[1, :12], one])
+        rows = row.expand(grid.cell_rows.shape[0], 26).contiguous()
+        grid = dc.replace(grid, cell_rows=rows)
+        grids = [grid]
+        inside = se._peel_3d(grid, *dest.unbind(1))[1]
+        assert float(inside[act].float().mean()) < 0.05
+    elif case == "no walker in a tile":
+        dest = torch.cat([_peel_hits(dev, grid, 256, 5), dest[256:]]).contiguous()
+        act[:256] = True
+        grids = [grid]
+    elif case == "found at once":         # each in its start tet: iters 1 either way
+        dest = m.elem_centroids[torch.clamp(e0, 0, m.nelems - 1).long()].contiguous()
+    elif case == "nan targets":
+        dest[::5, 0] = float("nan")
+        dest[1::7] = float("nan")
+    elif case == "random order":
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(dev).manual_seed(1))
+        e0, act, dest = e0[perm], act[perm], dest[perm].contiguous()
+    for g in grids:
+        for max_iters in (64, 3, 1):
+            n0 = kernels.LAUNCHES["locate3d"]
+            got = se.walk_locate_3d(m.walk_geom, dest, e0, act, max_iters, grid=g)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["locate3d"] == n0 + 1
+            _equal(got, se.walk_locate_3d_plain(m.walk_geom, dest, e0, act, max_iters,
+                                                grid=g))
+
+
+@pytest.mark.parametrize("change", ["another walk_geom", "walk_geom written",
+                                    "rows replaced", "an equal walk_geom"])
+def test_locate3d_kernel_rechecks_the_id_pair_against_its_tensors(dev, change):
+    """L3 reads the grid's candidate id pair in place of the rows.  A pair
+    checked against one walk_geom is checked again for another walk_geom,
+    for the same one written in place, and for a grid whose rows were
+    replaced: where the candidates no longer equal walk_geom's rows, the
+    wrapper raises before any launch; where they do, it launches and equals
+    the plain version."""
+    import dataclasses as dc
+
+    from pumipic_torch.mesh.locator import build_locator_grid_3d
+
+    m, _ = _kuhn_box(dev, 3, False)
+    wg = m.walk_geom.clone()
+    grid = build_locator_grid_3d(m.coords.cpu().numpy(), m.elem2verts.cpu().numpy(),
+                                 walk_geom=wg, device=dev)
+    e0, act, dest = _tet_walkers(dev, m, 100, 1)
+    ids = grid.candidate_ids(wg)
+    _equal(se.walk_locate_3d(wg, dest, e0, act, 64, grid=grid),
+           se.walk_locate_3d_plain(wg, dest, e0, act, 64, grid=grid))
+    c = int(ids[ids.shape[0] // 2, 0])
+    other = wg.clone()
+    other[c, 5] = torch.nextafter(other[c, 5], torch.tensor(np.inf, device=dev))
+    if change == "an equal walk_geom":
+        wg2 = wg.clone()
+        n0 = kernels.LAUNCHES["locate3d"]
+        _equal(se.walk_locate_3d(wg2, dest, e0, act, 64, grid=grid),
+               se.walk_locate_3d_plain(wg2, dest, e0, act, 64, grid=grid))
+        assert kernels.LAUNCHES["locate3d"] == n0 + 1
+        return
+    if change == "another walk_geom":
+        wg = other
+    elif change == "walk_geom written":
+        wg.copy_(other)
+    else:
+        rows = grid.cell_rows.clone()
+        rows[ids.shape[0] // 2, 5] = other[c, 5]
+        grid = dc.replace(grid, cell_rows=rows)
+    n0 = kernels.LAUNCHES["locate3d"]
+    with pytest.raises(ValueError, match="bit for bit"):
+        se.walk_locate_3d(wg, dest, e0, act, 64, grid=grid)
+    assert kernels.LAUNCHES["locate3d"] == n0
+
+
 def test_pps3d_app_card_equals_cpu(dev):
     """The pseudoPushAndSearch app at a small size, Kuhn and walk arms, on
     the card and on the CPU for 3 steps: structures equal bit for bit."""

@@ -304,3 +304,114 @@ def test_entry_points_raise_without_a_device_and_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         _entry_points_3d()[entry](mesh)
+
+
+# ---------------------------------------------------------------------------
+# what kernel L3's design relies on: order independence and the id pair
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("max_iters", [64, 3, 1])
+@pytest.mark.parametrize("accel", [True, False])
+def test_walk_plain_is_independent_of_particle_order(box, accel, max_iters):
+    """Kernel L3 walks a block's walkers in the order they fall into its
+    pool: the plain version on a permuted particle order returns the
+    permuted results with the same iters and num_unfinished."""
+    wg = box["tm"].walk_geom
+    args = (torch.from_numpy(box["xt"]), torch.from_numpy(box["e0"]),
+            torch.from_numpy(box["act"]))
+    grid = box["tg"] if accel else None
+    want = t_se.walk_locate_3d_plain(wg, *args, max_iters, grid)
+    perm = torch.from_numpy(np.random.default_rng(max_iters).permutation(len(box["e0"])))
+    got = t_se.walk_locate_3d_plain(wg, *(a[perm] for a in args), max_iters, grid)
+    assert torch.equal(got[0], want[0][perm]) and torch.equal(got[1], want[1][perm])
+    for k in (2, 3, 4):
+        assert int(got[k]) == int(want[k])
+    if max_iters == 1:
+        assert int(want[4]) > 0                      # walkers deleted at the limit
+
+
+def _assert_pair_matches_rows(grid, walk_geom):
+    rows = grid.cell_rows.numpy()
+    pair = grid.candidate_ids(torch.from_numpy(np.array(walk_geom, np.float32)))
+    ids = pair.numpy()
+    assert pair.dtype == torch.int32 and ids.shape == (rows.shape[0], 2)
+    np.testing.assert_array_equal(ids[:, 0], rows[:, 12].astype(np.int32))
+    np.testing.assert_array_equal(ids[:, 1], rows[:, 25].astype(np.int32))
+    geom = np.asarray(walk_geom, np.float32)
+    for c, (lo, hi) in enumerate(((0, 12), (13, 25))):
+        np.testing.assert_array_equal(geom[ids[:, c], 0:12].view(np.int32),
+                                      rows[:, lo:hi].view(np.int32))
+
+
+@pytest.mark.parametrize("source", ["port pps3d grid", "reference grid via interop"])
+def test_cell_id_pair_equals_rows_bit_for_bit(box, source):
+    """The (n_cells, 2) pair that kernel L3 reads equals the rows' id
+    columns 12 and 25, and walk_geom at those ids equals the rows' affine
+    columns bit for bit: for the port's own pps3d grid (the app's policy)
+    and for the JAX package's attach_cell_rows_3d grid carried across."""
+    if source == "port pps3d grid":
+        m = Mesh3D.from_arrays(*j_gen.box_tet_mesh(4, 4, 4), device="cpu")
+        app = tp.PseudoPushAndSearch(m, tp.PushSearchConfig(num_ptcls=1000, kuhn="off"),
+                                     device="cpu")
+        grid, wg = app.locator, m.walk_geom.numpy()
+    else:
+        wg = np.asarray(box["jm"].walk_geom)
+        grid = interop.locator3d_from_numpy(
+            {f: np.asarray(getattr(box["jg"], f)) for f in interop.LOCATOR3D_FIELDS},
+            device="cpu")
+        assert torch.equal(grid.cell_rows, box["tg"].cell_rows)
+    _assert_pair_matches_rows(grid, wg)
+
+
+def _tampered_rows(box, tamper):
+    rows = box["tg"].cell_rows.clone()
+    c = rows.shape[0] // 2
+    if tamper == "affine A":
+        rows[c, 5] = torch.nextafter(rows[c, 5], torch.tensor(np.inf))
+    elif tamper == "affine B":
+        rows[c, 20] = -rows[c, 20] if rows[c, 20] != 0 else 1.0
+    elif tamper == "id A":
+        rows[c, 12] = (rows[c, 12] + 1) % box["tm"].nelems
+    else:
+        rows[c, 25] = float(box["tm"].nelems)
+    return rows
+
+
+@pytest.mark.parametrize("tamper", ["affine A", "affine B", "id A", "id B out of range"])
+def test_cell_id_pair_check_raises_on_a_tampered_row(box, tamper):
+    rows = _tampered_rows(box, tamper)
+    box["tg"].candidate_ids(box["tm"].walk_geom)          # the untampered grid
+    with pytest.raises(ValueError, match="bit for bit"):
+        dc.replace(box["tg"], cell_rows=rows).candidate_ids(box["tm"].walk_geom)
+
+
+@pytest.mark.parametrize("change", ["same tensors", "rows replaced", "rows written",
+                                    "another walk_geom", "walk_geom written",
+                                    "an equal walk_geom"])
+def test_cell_id_pair_is_kept_only_for_the_tensors_it_was_checked_against(box, change):
+    """The checked pair is kept on the grid for its cell_rows and walk_geom
+    tensors as they were: a grid from dataclasses.replace, another
+    walk_geom, or either tensor written in place since, is checked again
+    (and raises where the candidates no longer match)."""
+    grid = dc.replace(box["tg"], cell_rows=box["tg"].cell_rows.clone())
+    wg = box["tm"].walk_geom.clone()
+    ids = grid.candidate_ids(wg)
+    c = int(ids[ids.shape[0] // 2, 0])
+    other = wg.clone()
+    other[c, 5] = torch.nextafter(other[c, 5], torch.tensor(np.inf))
+    if change == "same tensors":
+        assert grid.candidate_ids(wg) is ids
+    elif change == "an equal walk_geom":
+        got = grid.candidate_ids(wg.clone())
+        assert got is not ids and torch.equal(got, ids)
+    else:
+        if change == "rows replaced":
+            grid = dc.replace(grid, cell_rows=_tampered_rows(box, "affine A"))
+        elif change == "rows written":
+            grid.cell_rows[ids.shape[0] // 2, 5] += 1.0
+        elif change == "another walk_geom":
+            wg = other
+        else:
+            wg.copy_(other)
+        with pytest.raises(ValueError, match="bit for bit"):
+            grid.candidate_ids(wg)
