@@ -1,6 +1,7 @@
 """Benchmark of the PyTorch/CUDA port on one GPU: pseudoXGCm FULL-mode step
-throughput (``BENCH_MODE=dp``, the default) and pseudoPushAndSearch's 3D
-step (``BENCH_MODE=pps3d``).
+throughput (``BENCH_MODE=dp``, the default), pseudoPushAndSearch's 3D
+step (``BENCH_MODE=pps3d``) and the GITR-style impurity-transport step
+(``BENCH_MODE=gitr``).
 
 ``dp`` is the port's counterpart of ``bench.py``'s default mode, at the same
 settings: the imported 120k-element gmsh tokamak mesh
@@ -13,7 +14,18 @@ histogram (kernel H) -> gyro deposit (kernel D).
 round((BENCH_ELEMS / 6)^(1/3)) (16 for the default 24,000: 24,576 tets),
 10M particles, a periodic wall, 64 search iterations.  Each step is push +
 wrap + analytic Kuhn locate (kernel K) or, with ``BENCH_KUHN=off``, push +
-wrap + peel + BCC walk (kernel L3), then the structure's rebuild.
+wrap + peel + BCC walk (kernel L3), then the structure's rebuild; with
+``BENCH_WALL=reflect`` push (K's push-only form) + peel + BCC walk with the
+reflecting wall (kernel M), then the rebuild.
+
+``gitr`` is the port's own mode (``bench.py`` has none): the GITR-style app
+on ``box_tet_mesh(n, n, n)`` with n = round((BENCH_ELEMS / 6)^(1/3)) (32
+for the default 196,608 tets), 10M particles seeded by the app, amu 10,
+charge 1, dt = 2e-5 s, B = (0, 0, 1.3e-3) T, an (n+1, n+1, n+1, 3) E grid
+of N(0, 0.2) V/m components over the unit box (numpy seed 0), 100 search
+iterations and the wall tally.  Each step is kernel R (grid E + Boris
+push), kernel M (intersection walk, ``record_exit``, remove or reflect),
+the specular velocity (reflect) and kernel W (wall tally).
 
 Environment knobs, as in ``bench.py`` (each also a keyword of :func:`main`,
 which wins over the environment):
@@ -34,12 +46,16 @@ which wins over the environment):
   table push (kernel P's table mode) instead of the band classes;
 - pps3d: ``BENCH_ELEMS``, ``BENCH_STRUCT`` (``structure``, default
   ``dps``), ``BENCH_KUHN`` (``kuhn``, default ``auto``; ``off`` walks),
-  ``BENCH_DIST`` (``distance``, default 0.05) and ``BENCH_REBUILD``
-  (``rebuild``, default ``sort``).
+  ``BENCH_DIST`` (``distance``, default 0.05), ``BENCH_REBUILD``
+  (``rebuild``, default ``sort``) and ``BENCH_WALL`` (``wall``, default
+  ``periodic``; ``reflect`` walks with the reflecting wall);
+- gitr: ``BENCH_ELEMS`` (default 196,608) and ``BENCH_WALL`` (``wall``,
+  ``reflect`` by default, or ``absorb``).
 
 Prints ONE JSON line with bench.py's keys plus ``"impl": "torch"``, the GPU's
 name and bench.py's row ``tag`` (e.g. ``dp-xgc_like_120k-bandloc``, ``dp``,
-``dp-xgc_like_120k-rotgather``, ``pps3d-dps``, ``pps3d-dps-walk``) in
+``dp-xgc_like_120k-rotgather``, ``pps3d-dps``, ``pps3d-dps-walk``; the
+port's own ``pps3d-dps-reflect``, ``gitr-reflect`` and ``gitr-absorb``) in
 ``detail``.  It writes no file.
 
     python3 bench_torch.py
@@ -54,6 +70,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 PROXY_BASELINE_PTCLS_PER_SEC = 2.0e7
@@ -86,12 +103,16 @@ def bench_tag(num_ptcls: int, mesh_path: str, analytic_locate: str,
     return tag
 
 
-def pps3d_tag(num_ptcls: int, structure: str, rebuild: str, kuhn: str) -> str:
-    """``bench.py``'s row tag for its ``pps3d`` mode."""
+def pps3d_tag(num_ptcls: int, structure: str, rebuild: str, kuhn: str,
+              wall: str = "periodic") -> str:
+    """``bench.py``'s row tag for its ``pps3d`` mode (``-reflect`` for the
+    reflecting wall, which always walks, is the port's own)."""
     tag = f"pps3d-{structure}"
     if rebuild != "sort":
         tag += "-" + rebuild
-    if kuhn == "off":
+    if wall == "reflect":
+        tag += "-reflect"
+    elif kuhn == "off":
         tag += "-walk"
     if num_ptcls != 10_000_000:
         tag += f"-{num_ptcls // 1_000_000}M"
@@ -99,7 +120,7 @@ def pps3d_tag(num_ptcls: int, structure: str, rebuild: str, kuhn: str) -> str:
 
 
 def setup_pps3d(device, num_ptcls=None, mesh_elems=None, structure=None,
-                kuhn=None, distance=None, rebuild=None, locator=None):
+                kuhn=None, distance=None, rebuild=None, locator=None, wall=None):
     """Resolve the pps3d knobs (a keyword, else its environment variable,
     else ``bench.py``'s default) and build the app on ``device``.  Returns
     (mesh, state, step, info) as :func:`setup`; the state is the particle
@@ -117,6 +138,7 @@ def setup_pps3d(device, num_ptcls=None, mesh_elems=None, structure=None,
     kuhn = kuhn or env("BENCH_KUHN", "auto")
     distance = float(distance or env("BENCH_DIST", 0.05))
     rebuild = rebuild or env("BENCH_REBUILD", "sort")
+    wall = wall or env("BENCH_WALL", "periodic")
 
     seconds = {}
     t0 = time.perf_counter()
@@ -124,7 +146,7 @@ def setup_pps3d(device, num_ptcls=None, mesh_elems=None, structure=None,
     mesh = Mesh3D.from_arrays(*box_tet_mesh(n_side, n_side, n_side), device=device)
     seconds["mesh"] = time.perf_counter() - t0
     cfg = PushSearchConfig(num_ptcls=num_ptcls, structure=structure,
-                           wall="periodic", distance=distance,
+                           wall=wall, distance=distance,
                            max_search_iters=64, rebuild_mode=rebuild, kuhn=kuhn)
     app = PseudoPushAndSearch(mesh, cfg, device=device, locator=locator)
     seconds.update(app.setup_s)
@@ -134,8 +156,60 @@ def setup_pps3d(device, num_ptcls=None, mesh_elems=None, structure=None,
         return ptcls, {"iters": iters}
 
     info = {"num_ptcls": num_ptcls, "setup_s": seconds,
-            "tag": pps3d_tag(num_ptcls, structure, rebuild, kuhn)}
+            "tag": pps3d_tag(num_ptcls, structure, rebuild, kuhn, wall)}
     return mesh, app.ptcls, step, info
+
+
+GITR_DT = 2e-5                    # s: the mean step is about one tet edge
+GITR_B = (0.0, 0.0, 1.3e-3)       # T: q'|B| = 0.125, 0.25 rad of gyration a step
+GITR_E_SIGMA = 0.2                # V/m per E component
+
+
+def gitr_field(n_side: int, seed: int = 0):
+    """The gitr mode's E grid over the unit box: (n+1, n+1, n+1, 3) f32 of
+    N(0, GITR_E_SIGMA) components from numpy's Generator, with its origin
+    and cell spacing."""
+    rng = np.random.default_rng(seed)
+    grid = rng.normal(0.0, GITR_E_SIGMA, (n_side + 1,) * 3 + (3,)).astype(np.float32)
+    return grid, np.zeros(3, np.float32), np.full(3, 1.0 / n_side, np.float32)
+
+
+def setup_gitr(device, num_ptcls=None, mesh_elems=None, wall=None, mesh=None):
+    """Resolve the gitr knobs and build the GITR-style app on ``device``;
+    returns (mesh, state, step, info) as :func:`setup`.  The state is the
+    app's state dict; ``step`` returns (state, {"iters", "wall_hits"}).
+    ``mesh``: the box already built on ``device`` (its build is skipped)."""
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.models.gitr_like import GitrConfig, GitrLike
+
+    env = os.environ.get
+    num_ptcls = int(num_ptcls or env("BENCH_PTCLS", 10_000_000))
+    mesh_elems = int(mesh_elems or env("BENCH_ELEMS", 196_608))
+    wall = wall or env("BENCH_WALL", "reflect")
+    n_side = max(int(round((mesh_elems / 6) ** (1.0 / 3.0))), 2)
+
+    seconds = {}
+    t0 = time.perf_counter()
+    if mesh is None:
+        mesh = Mesh3D.from_arrays(*box_tet_mesh(n_side, n_side, n_side), device=device)
+    seconds["mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid, origin, spacing = gitr_field(n_side)
+    cfg = GitrConfig(num_ptcls=num_ptcls, dt=GITR_DT, b_field=GITR_B, wall=wall,
+                     count_wall_hits=True, max_search_iters=100)
+    app = GitrLike(mesh, cfg, grid, origin, spacing, seed=0, device=device)
+    seconds["app"] = time.perf_counter() - t0
+
+    def step(state):
+        state, app.wall_hits = app.step(state, app.wall_hits)
+        return state, {"iters": app.iters, "wall_hits": app.wall_hits}
+
+    tag = f"gitr-{wall}"
+    if num_ptcls != 10_000_000:
+        tag += f"-{num_ptcls // 1_000_000}M"
+    info = {"num_ptcls": num_ptcls, "setup_s": seconds, "tag": tag}
+    return mesh, app.state, step, info
 
 
 def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
@@ -196,8 +270,9 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
          mode=None, **knobs):
     """Run the benchmark; returns (record, state, fields): the JSON record
     (printed when ``verbose``), the final particle state (a structure in
-    pps3d mode) and the last step's fields.  ``knobs`` are :func:`setup`'s
-    (dp) or :func:`setup_pps3d`'s (pps3d) keywords.  ``detail`` also holds
+    pps3d mode, the app's state dict in gitr mode) and the last step's
+    fields.  ``knobs`` are :func:`setup`'s (dp), :func:`setup_pps3d`'s
+    (pps3d) or :func:`setup_gitr`'s (gitr) keywords.  ``detail`` also holds
     the setup seconds by phase, the last step's ``iters`` (and, in dp mode,
     ``all_found``), and the row ``tag``."""
     if device is None:
@@ -208,11 +283,11 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
     device = torch.device(device)
     iters = int(iters or os.environ.get("BENCH_ITERS", 20))
     mode = mode or os.environ.get("BENCH_MODE", "dp")
-    if mode not in ("dp", "pps3d"):
-        raise ValueError(f"unknown BENCH_MODE {mode!r}: dp or pps3d")
+    setups = {"dp": setup, "pps3d": setup_pps3d, "gitr": setup_gitr}
+    if mode not in setups:
+        raise ValueError(f"unknown BENCH_MODE {mode!r}: dp, pps3d or gitr")
     pps3d = mode == "pps3d"
-    mesh, state, step, info = (setup_pps3d if pps3d else setup)(
-        device, num_ptcls, **knobs)
+    mesh, state, step, info = setups[mode](device, num_ptcls, **knobs)
     num_ptcls = info["num_ptcls"]
     _sync(device)
 
@@ -242,11 +317,17 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
         "setup_s": info["setup_s"],
         "tag": info["tag"],
     }
-    if not pps3d:
+    if mode == "dp":
         detail["all_found"] = bool(fields["all_found"])
+    if mode == "gitr":
+        detail["wall_hits_total"] = float(fields["wall_hits"].sum())
+    metrics = {
+        "dp": "pseudoXGCm push+search+rebuild+gyroScatter throughput",
+        "pps3d": "pseudoPushAndSearch 3D push+search+rebuild throughput",
+        "gitr": "GITR-style Boris push+intersection walk+wall tally throughput",
+    }
     out = {
-        "metric": ("pseudoPushAndSearch 3D push+search+rebuild throughput" if pps3d
-                   else "pseudoXGCm push+search+rebuild+gyroScatter throughput"),
+        "metric": metrics[mode],
         "value": rate,
         "unit": "particle-steps/s/chip",
         "vs_baseline": rate / PROXY_BASELINE_PTCLS_PER_SEC,

@@ -7,11 +7,12 @@ sources in this checkout.  Phases, each raising on failure:
 
 (a) require a CUDA device; print its name and power limit (nvidia-smi) and
     the torch / CUDA versions;
-(b) build the kernels of the ten sources (P push and its table mode
-    ``push_table``, B band cell, A annulus locate, L locate, H histogram, D
-    deposit, G row gather, S slot map, K Kuhn push + locate and its
-    push-only form ``push_wrap``, L3 tet locate), one nvcc per source, all
-    at once, and keep
+(b) build the kernels of the twelve sources (P push and its table mode
+    ``push_table``, B band cell, A annulus locate, L locate, H histogram and
+    its weighted mode W ``wall_tally``, D deposit, G row gather, S slot map,
+    K Kuhn push + locate and its push-only form ``push_wrap``, L3 tet
+    locate, R ``boris`` grid field + Boris push, M ``trace3d`` 3D walk
+    modes), one nvcc per source, all at once, and keep
     ptxas's registers, shared memory and spills of each source's entry
     functions for the kernels' JSON line;
 (c) run each kernel and its plain PyTorch version on the card on the same
@@ -45,19 +46,28 @@ sources in this checkout.  Phases, each raising on failure:
     particles in a random order and on the step-20 targets (L3's bound
     counted for the id pair it reads and, beside it, for the 26-column
     rows the first L3 read; its resident blocks per SM), and the walk
-    arm's ids held against the Kuhn arm's (ties on shared faces counted).
-    Then run a
+    arm's ids held against the Kuhn arm's (ties on shared faces counted);
+    M's peel form (BCC core, reflecting wall) on the pps3d-dps-reflect
+    arm's first-step targets.  On the GITR-style app's 32^3 box (196,608
+    tets) at 10M particles: R on the seeded state, M on R's targets in each
+    core with remove and reflect and record_exit, on far targets (random
+    points of the box: walks of many hops), at a budget of 2 that leaves
+    survivors to recover, and W on the reflect walk's hit counts and the
+    absorb walk's lost particles (``torch.bincount`` with weights as W's
+    yardstick; R and M have none).  Then run a
     small slice of each FULL-mode arm (and the table push on a permuted
     mesh), of the PseudoXGCm app in each layout (scs, csr, cabm, dps) and
-    of pseudoPushAndSearch (Kuhn and walk arms) on the card and on the CPU
-    for 3 steps and require equal states, structures and fields;
+    of pseudoPushAndSearch (Kuhn, walk and reflect arms) and of the
+    GITR-style app (absorb and reflect) on the card and on the CPU for 3
+    steps and require equal states, structures and fields;
 (d) run the five FULL-mode arms through their entry point,
     ``bench_torch.main()``, at 10M particles, 1 warm-up + 20 timed steps
     each, with the launch counters reset just before each: the cartesian
     main path, the flux-band arm (``band_locator="force"``, reusing phase
     c's band grid), the annulus arm, the per-particle gyro radius arm and
     the rotation-table arm (``rot_analytic=False``, P's table mode and
-    not its band mode).
+    not its band mode); the cartesian, pprad and rotation-table arms reuse
+    phase c's cartesian grid.
     Require each arm's kernels launched (and the annulus arm's steps
     launching no L: its only L launch is the setup's gyro-map walk), finite
     positive fields and > 90% of the particles alive.  Then
@@ -65,9 +75,14 @@ sources in this checkout.  Phases, each raising on failure:
     particles on the Kuhn box: the Kuhn arm (``pps3d-dps``, K and no L3 or
     P) and the walk arm (``pps3d-dps-walk``, K's push-only form and L3, no
     K locate) with 1 + 20
-    steps, then ``pps3d-scs`` with 1 + 3 (S and G on tets); require
-    ``num_ptcls`` equal to the active count, no overflow, and all 10M alive
-    in the Kuhn arm.  Then the PseudoXGCm
+    steps, then ``pps3d-scs`` with 1 + 3 (S and G on tets) and
+    ``pps3d-dps-reflect`` with 1 + 3 (K's push-only form and M, no L3);
+    require ``num_ptcls`` equal to the active count, no overflow, and all
+    10M alive in the Kuhn arm.  Then the GITR-style app through
+    ``bench_torch.main(mode="gitr")`` at 10M particles on the 196,608-tet
+    box: ``gitr-reflect`` with 1 + 20 steps (all 10M alive throughout) and
+    ``gitr-absorb`` with 1 + 3 (``wall_hits`` summing to the particles
+    lost), each launching R, M and W and nothing else.  Then the PseudoXGCm
     app through its entry points (construction with phase c's cartesian
     grid, then ``run``) at 10M particles on the 120k mesh: Sell-C-σ with 1
     warm-up + 20 timed steps (ms per step from the port's timing registry),
@@ -132,6 +147,12 @@ KERNELS = {  # name -> (route, source, replaces)
                   "pumipic_tpu/ops/push.py:244"),
     "locate3d": ("cuda", "pumipic_torch/kernels/csrc/locate3d.cu",
                  "pumipic_tpu/ops/search.py:1268"),
+    "boris": ("cuda", "pumipic_torch/kernels/csrc/boris.cu",
+              "pumipic_tpu/ops/push.py:213"),
+    "trace3d": ("cuda", "pumipic_torch/kernels/csrc/trace3d.cu",
+                "pumipic_tpu/ops/search.py:1006"),
+    "wall_tally": ("cuda", "pumipic_torch/kernels/csrc/histogram.cu",
+                   "pumipic_tpu/models/gitr_like.py:147"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -173,7 +194,16 @@ PPS3D_ARMS = {
     "pps3d-scs": ({"kuhn": "auto", "structure": "scs"}, 3,
                   ("kuhn_locate", "slot_map", "row_gather"),
                   ("locate3d", "push_wrap") + _PUSHES_2D),
+    "pps3d-dps-reflect": ({"kuhn": "off", "wall": "reflect"}, 3,
+                          ("push_wrap", "trace3d"),
+                          ("kuhn_locate", "locate3d") + _PUSHES_2D),
 }
+
+# the GITR-style app's arms of phase d: bench_torch.main keywords and steps;
+# each run launches exactly R, M and W
+GITR_ELEMS = 196_608              # box_tet_mesh(32, 32, 32)
+GITR_ARMS = {"gitr-reflect": ("reflect", TIMED_STEPS), "gitr-absorb": ("absorb", 3)}
+GITR_KERNELS = ("boris", "trace3d", "wall_tally")
 
 
 def log(msg: str) -> None:
@@ -963,8 +993,9 @@ def check_pps3d(results: dict, dev):
     """K and L3 at pseudoPushAndSearch's shapes: the walk arm's app (DPS, 10M
     particles, periodic wall) on the Kuhn box; K on one step's push + wrap
     + locate, L3 (peel + walk, and the plain walk) on the same targets, and
-    the two arms' ids compared.  Returns the cpe-16 grid (phase d's walk
-    arm reuses it)."""
+    the two arms' ids compared.  Returns the mesh, the cpe-16 grid (phase
+    d's walk arm reuses it) and the seeded positions and tets (M's peel
+    form starts from them)."""
     from pumipic_torch.mesh.locator import detect_box_kuhn
     from pumipic_torch.models import pseudo_push_and_search as pps
     from pumipic_torch.ops import locate as lo
@@ -982,6 +1013,7 @@ def check_pps3d(results: dict, dev):
                            device=dev)
     ps = app.ptcls
     n = ps.capacity
+    seeded = (ps.get("x").clone(), ps.elem.clone())
     log(f"[c] pps3d: {mesh.nelems} tets, {n} particles, grid {grid.nx}x{grid.ny}x{grid.nz}"
         f" = {grid.cell_rows.shape[0]} cells, rows {grid.cell_rows.numel() * 4 / 1e6:.1f} MB;"
         f" app built in {time.perf_counter() - t0:.2f} s (setup {app.setup_s})")
@@ -1051,7 +1083,7 @@ def check_pps3d(results: dict, dev):
                                                           app.wrap),
                                    ps.elem, ps.active, cfg.max_search_iters), ", step 20")
     del app, ps
-    return mesh, grid
+    return mesh, grid, seeded
 
 
 def locate3d_bytes(walk_geom, dest, elem_start, active, out, grid=None,
@@ -1133,6 +1165,235 @@ def check_pps3d_slices(dev) -> None:
             f"alive {int(ac.ptcls.num_ptcls)}): card == CPU, bit for bit")
 
 
+def trace_fields(res) -> tuple:
+    """A kernel M result's tensors in field order (None fields left out),
+    for :func:`compare`."""
+    out = []
+    for v in res:
+        if isinstance(v, tuple):
+            out.extend(v)
+        elif v is not None:
+            out.append(v)
+    return tuple(out)
+
+
+def trace3d_bytes(mesh, method, handler, record, recover, grid, n_act, n) -> int:
+    """The bytes M's function needs: each table it reads once (the walk
+    table; the faces and coordinates the reflect handler and the exit
+    record read; the vertices recovery reads; the peel's walk_geom and
+    candidate pair), each active particle's destination (and origin where
+    the core or the crossing point reads it) and start tet, every
+    particle's mask, and the outputs written once."""
+    from pumipic_torch.ops import search as se
+
+    reflect = handler is se.reflect_on_exit_3d
+    core = se.core_of(method)
+    tables = [mesh.walk_planes if core == "intersection" else mesh.walk_geom]
+    if reflect or record:
+        tables.append(mesh.elem2faces)
+    if reflect:
+        tables += [mesh.face2verts, mesh.coords]
+    if recover == "project":
+        tables += [mesh.elem2verts, mesh.coords]
+    if grid is not None:
+        tables += [mesh.walk_geom, grid.candidate_ids(mesh.walk_geom)]
+    uniq = {t.data_ptr(): t for t in tables}
+    orig = core != "bcc" or reflect or record
+    per_act = 12 + (12 if orig else 0) + 4
+    per_out = 5 + (12 if reflect or recover == "project" else 0) + (20 if record else 0)
+    return nbytes(*uniq.values()) + n_act * per_act + n * (1 + per_out)
+
+
+def check_trace3d(results: dict, mesh, args, what: str, grid=None, plain_reps: int = 2):
+    """M on ``args`` (trace_3d's positional arguments after the mesh):
+    exact against its plain version, timed, with its bound.  Returns the
+    kernel's result."""
+    from pumipic_torch.ops import search as se
+
+    got = se.trace_3d(mesh, *args, grid=grid)
+    n = args[1].shape[0]
+    compare("trace3d", f"{what} ({n} particles)", trace_fields(got),
+            trace_fields(se.trace_3d_plain(mesh, *args, grid=grid)), results)
+    extra = "" if got.num_hits is None else \
+        f", walkers that hit the wall {int((got.num_hits > 0).sum())}"
+    if got.num_recovered is not None:
+        extra += f", recovered {int(got.num_recovered)}"
+    log(f"[c] trace3d {what}: iters={int(got.iters)} all_found={bool(got.all_found)} "
+        f"alive {int(got.active.sum())}{extra}")
+    time_pair("trace3d", what, lambda: se.trace_3d(mesh, *args, grid=grid),
+              lambda: se.trace_3d_plain(mesh, *args, grid=grid), results,
+              plain_reps=plain_reps)
+    method, handler, record, recover = args[5:9]
+    record_bound("trace3d", what, results, trace3d_bytes(
+        mesh, method, handler, record, recover, grid, int(args[3].sum()), n))
+    return got
+
+
+def check_trace3d_peel(results: dict, dev, mesh, grid, seeded) -> None:
+    """M's peel form (BCC core, reflecting wall) on pseudoPushAndSearch's
+    reflect arm: the 10M seeded particles' first pushed targets (no wrap)
+    from their tets (``seeded``, as the app seeds them), over phase c's
+    cpe-16 grid of the 16^3 box."""
+    import numpy as np
+
+    from pumipic_torch.models import pseudo_push_and_search as pps
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import search as se
+
+    cfg = pps.PushSearchConfig(num_ptcls=NUM_PTCLS, wall="reflect", max_search_iters=64)
+    x, e0 = seeded
+    d = np.asarray(cfg.push_dir, np.float64)
+    step = push_ops.step_vector((d / np.linalg.norm(d)).astype(np.float32), cfg.distance)
+    xt = push_ops.push_and_wrap(x, step)
+    act = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+    args = (x, xt, e0, act, cfg.max_search_iters, "bcc", se.reflect_on_exit_3d, False, "off")
+    check_trace3d(results, mesh, args, "peel + bcc reflect (pps3d-dps-reflect step 1)", grid)
+
+
+def check_gitr(results: dict, dev):
+    """R, M and W at the GITR-style app's full width: the 32^3 box, 10M
+    particles as the gitr arm seeds them, its E grid.  Returns the mesh
+    (phase d's gitr arms reuse it)."""
+    import bench_torch
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.models.gitr_like import GitrConfig, GitrLike
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import scatter as sc
+    from pumipic_torch.ops import search as se
+
+    n_side = int(round((GITR_ELEMS / 6) ** (1.0 / 3.0)))
+    t0 = time.perf_counter()
+    mesh = Mesh3D.from_arrays(*box_tet_mesh(n_side, n_side, n_side), device=dev)
+    mesh_s = time.perf_counter() - t0
+    grid, o, h = bench_torch.gitr_field(n_side)
+    cfg = GitrConfig(num_ptcls=NUM_PTCLS, dt=bench_torch.GITR_DT, b_field=bench_torch.GITR_B,
+                     wall="reflect", max_search_iters=100)
+    t0 = time.perf_counter()
+    app = GitrLike(mesh, cfg, grid, o, h, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"[c] gitr: {mesh.nelems} tets, {mesh.nfaces} faces, {mesh.nverts} verts "
+        f"(walk_planes {mesh.walk_planes.numel() * 4 / 1e6:.1f} MB, walk_geom "
+        f"{mesh.walk_geom.numel() * 4 / 1e6:.1f} MB), E grid {tuple(grid.shape)}; mesh "
+        f"{mesh_s:.2f} s, app (seeding {NUM_PTCLS}) {time.perf_counter() - t0:.2f} s")
+    s = app.state
+    n = s["x"].shape[0]
+
+    # R: the step's field and push
+    rargs = (s["x"], s["v"], app.e_grid, app.e_origin, app.e_spacing, app.b_field,
+             cfg.dt, cfg.charge, cfg.amu)
+    got_r = push_ops.boris_push_grid(*rargs)
+    compare("boris", f"grid E + Boris push ({n} particles, {tuple(grid.shape)} grid)",
+            got_r, push_ops.boris_push_grid_plain(*rargs), results)
+    time_pair("boris", "", lambda: push_ops.boris_push_grid(*rargs),
+              lambda: push_ops.boris_push_grid_plain(*rargs), results)
+    # 24 bytes in and 24 out a particle, the grid once; ~120 f32 operations
+    record_bound("boris", "", results, nbytes(s["x"], s["v"], app.e_grid, *got_r),
+                 120.0 * n)
+    x_new = got_r[0]
+
+    # M: the step's walk (intersection, reflect, record_exit) first, then
+    # the other cores and handlers
+    res = {}
+    for method in ("intersection", "bcc", "hybrid"):
+        for hname, handler in (("reflect", se.reflect_on_exit_3d),
+                               ("remove", se.remove_on_exit)):
+            args = (s["x"], x_new, s["elem"], s["active"], cfg.max_search_iters,
+                    method, handler, True, "off")
+            res[method, hname] = check_trace3d(
+                results, mesh, args, f"{method} {hname} record_exit (gitr step 1)")
+    # far targets: random points of the box from the seeded tets
+    g = torch.Generator(device=dev).manual_seed(5)
+    far = torch.rand(n, 3, device=dev, generator=g)
+    check_trace3d(results, mesh, (s["x"], far, s["elem"], s["active"], 200,
+                                  "intersection", se.reflect_on_exit_3d, True, "off"),
+                  "intersection reflect record_exit, far targets", plain_reps=1)
+    del far
+    # a budget of 2 leaves survivors to recover
+    check_trace3d(results, mesh, (s["x"], x_new, s["elem"], s["active"], 2,
+                                  "intersection", se.reflect_on_exit_3d, True, "project"),
+                  "intersection reflect record_exit recover, budget 2")
+
+    # W: the reflect step's hit counts, the absorb step's lost particles
+    F = mesh.nfaces
+    rr, ra = res["intersection", "reflect"], res["intersection", "remove"]
+    lost = s["active"] & (ra.elem_ids < 0)
+    for what, wargs in (("reflect: num_hits on the last face", (rr.exit_side, s["active"],
+                                                                 rr.num_hits, F)),
+                        ("absorb: lost particles on their exit face",
+                         (ra.exit_side, lost, None, F))):
+        got = sc.wall_tally(*wargs)
+        compare("wall_tally", f"{what} ({n} particles, {F} faces)", got,
+                sc.wall_tally_plain(*wargs), results)
+        log(f"[c] wall_tally {what}: total {int(got.sum())}, faces hit "
+            f"{int((got > 0).sum())}")
+        time_pair("wall_tally", what, lambda: sc.wall_tally(*wargs),
+                  lambda: sc.wall_tally_plain(*wargs), results)
+        record_bound("wall_tally", what, results,
+                     nbytes(*(t for t in wargs[:3] if t is not None), got))
+        side, mask, w = wargs[:3]
+        ok = mask & (side >= 0)
+        if w is not None:
+            ok &= w > 0
+        keys = torch.where(ok, side.to(torch.int64), F)
+        wf = torch.ones(n, device=dev) if w is None else w.float()
+        record_library("wall_tally", what, "torch.bincount(keys, weights)",
+                       lambda: torch.bincount(keys, weights=wf, minlength=F + 1), results)
+        del keys, wf
+    if int(sc.wall_tally(ra.exit_side, lost, None, F).sum()) != int(lost.sum()):
+        raise AssertionError("gitr absorb: the wall tally does not count every lost particle")
+    del res, rr, ra, lost, got_r, x_new, app, s
+    return mesh
+
+
+def check_gitr_slices(dev) -> None:
+    """The GITR-style app (absorb and reflect) and pseudoPushAndSearch's
+    reflecting wall at a small size, on the card and on the CPU for 3
+    steps: states, wall tallies and structures equal bit for bit."""
+    import bench_torch
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.models import gitr_like as gl
+    from pumipic_torch.models import pseudo_push_and_search as pps
+
+    raw = box_tet_mesh(6, 6, 6)
+    grid, o, h = bench_torch.gitr_field(6)
+    for wall in ("absorb", "reflect"):
+        cfg = gl.GitrConfig(num_ptcls=50_000, dt=bench_torch.GITR_DT,
+                            b_field=bench_torch.GITR_B, wall=wall)
+        apps = [gl.GitrLike(Mesh3D.from_arrays(*raw, device=d), cfg, grid, o, h, device=d)
+                for d in (dev, "cpu")]
+        for i in range(3):
+            hist = [a.run(1) for a in apps]
+            if hist[0] != hist[1]:
+                raise AssertionError(f"gitr {wall} slice step {i}: alive differs")
+            for key in ("x", "v", "elem", "active"):
+                if max_err(apps[0].state[key].cpu(), apps[1].state[key]):
+                    raise AssertionError(f"gitr {wall} slice step {i}: {key} differs")
+            if max_err(apps[0].wall_hits.cpu(), apps[1].wall_hits):
+                raise AssertionError(f"gitr {wall} slice step {i}: wall_hits differ")
+        log(f"[c] gitr {wall} slice (216 cells x 6 tets, 50k particles, 3 steps, alive "
+            f"{hist[1][0]}, wall hits {float(apps[1].wall_hits.sum())}): card == CPU, "
+            f"bit for bit")
+    cfg = pps.PushSearchConfig(num_ptcls=50_000, structure="cabm", wall="reflect",
+                               kuhn="off", max_search_iters=64)
+    ag = pps.PseudoPushAndSearch(Mesh3D.from_arrays(*raw, device=dev), cfg, device=dev)
+    ac = pps.PseudoPushAndSearch(Mesh3D.from_arrays(*raw, device="cpu"), cfg, device="cpu")
+    for i in range(3):
+        ag.ptcls, ig = ag.step_fn(ag.ptcls)
+        ac.ptcls, ic = ac.step_fn(ac.ptcls)
+        for key in ("elem", "active", "num_ptcls", "elem_offsets", "overflowed"):
+            if max_err(getattr(ag.ptcls, key).cpu(), getattr(ac.ptcls, key)):
+                raise AssertionError(f"pps3d reflect slice step {i}: {key} differs")
+        for key in ("x", "pid"):
+            if max_err(ag.ptcls.fields[key].cpu(), ac.ptcls.fields[key]):
+                raise AssertionError(f"pps3d reflect slice step {i}: {key} differs")
+        if int(ig) != int(ic):
+            raise AssertionError(f"pps3d reflect slice step {i}: iters differ")
+    log(f"[c] pps3d reflect slice (50k particles, 3 steps, alive "
+        f"{int(ac.ptcls.num_ptcls)}): card == CPU, bit for bit")
+
+
 def phase_c(results: dict, dev):
     """Returns the 120k mesh, its cartesian grid and the band grid built
     here (phase d reuses them), and the band grid's build seconds."""
@@ -1148,13 +1409,19 @@ def phase_c(results: dict, dev):
     torch.cuda.empty_cache()
     band_grid, band_s = check_band(results, dev, mesh)
     check_annulus(results, dev)
-    mesh3d, grid3d = check_pps3d(results, dev)
+    mesh3d, grid3d, seeded = check_pps3d(results, dev)
+    torch.cuda.empty_cache()
+    gitr_mesh = check_gitr(results, dev)
+    torch.cuda.empty_cache()
+    check_trace3d_peel(results, dev, mesh3d, grid3d, seeded)
+    del seeded
     torch.cuda.empty_cache()
     check_slices(dev)
     check_app_slices(dev)
     check_pps3d_slices(dev)
+    check_gitr_slices(dev)
     torch.cuda.empty_cache()
-    return mesh, grid, band_grid, band_s, grid3d
+    return mesh, grid, band_grid, band_s, grid3d, gitr_mesh
 
 
 def phase_d(results: dict, dev, grid, band_grid, band_s: float, smi: str) -> None:
@@ -1166,8 +1433,8 @@ def phase_d(results: dict, dev, grid, band_grid, band_s: float, smi: str) -> Non
         kw = dict({"mesh_path": MESH}, **kw)
         if name == "band":
             kw["locator"] = band_grid
-        if name == "rotgather":
-            kw["locator"] = grid
+        if name in ("cartesian", "pprad", "rotgather"):
+            kw["locator"] = grid          # phase c's cartesian grid of this mesh
         torch.cuda.empty_cache()
         kernels.reset_launches()
         record, state, fields = bench_torch.main(
@@ -1222,6 +1489,7 @@ def run_pps3d(results: dict, dev, grid3d, smi: str) -> None:
     for name, (kw, steps, must, must_not) in PPS3D_ARMS.items():
         if kw["kuhn"] == "off":
             kw = dict(kw, locator=grid3d)
+        reflect = kw.get("wall") == "reflect"
         torch.cuda.empty_cache()
         kernels.reset_launches()
         record, ps, fields = bench_torch.main(device=dev, num_ptcls=NUM_PTCLS, iters=steps,
@@ -1249,15 +1517,68 @@ def run_pps3d(results: dict, dev, grid3d, smi: str) -> None:
         if not bool(((e >= 0) & (e < det["mesh_elems"])).all()):
             raise AssertionError(f"{name}: an active element id out of range")
         x = ps.get("x")[act]
-        if not bool(((x >= 0) & (x <= 1)).all()):
-            raise AssertionError(f"{name}: a wrapped position outside the box")
+        slack = 1e-5 if reflect else 0.0       # a mirrored position rounds
+        if not bool(((x >= -slack) & (x <= 1 + slack)).all()):
+            raise AssertionError(f"{name}: a position outside the box")
         if kw["kuhn"] == "auto" and det["alive"] != NUM_PTCLS:
             raise AssertionError(f"{name}: {det['alive']} of {NUM_PTCLS} alive on the "
                                  f"periodic box")
         if kw["kuhn"] == "off":
             log(f"[d] {name}: {NUM_PTCLS - det['alive']} walkers deleted over "
-                f"{1 + steps} steps (on the periodic box only at the 64-iteration limit)")
+                f"{1 + steps} steps (on the periodic or reflecting box only at the "
+                f"64-iteration limit)")
+        if reflect and det["alive"] < 0.999 * NUM_PTCLS:
+            raise AssertionError(f"{name}: {det['alive']} of {NUM_PTCLS} alive in the "
+                                 f"reflecting box")
         del ps, fields
+
+
+def run_gitr(results: dict, dev, mesh, smi: str) -> None:
+    """The GITR-style app's arms through ``bench_torch.main(mode="gitr")``
+    at 10M particles on phase c's 196,608-tet box, the counts reset just
+    before each: exactly R, M and W launched; reflect keeps all 10M alive,
+    absorb's wall tally sums to the particles lost."""
+    import bench_torch
+    from pumipic_torch import kernels
+
+    for name, (wall, steps) in GITR_ARMS.items():
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        record, state, fields = bench_torch.main(device=dev, num_ptcls=NUM_PTCLS,
+                                                 iters=steps, mode="gitr", mesh=mesh,
+                                                 wall=wall)
+        counts = dict(kernels.LAUNCHES)
+        det = record["detail"]
+        log(f"[d] {name} (tag {det['tag']}, {det['mesh_elems']} tets): "
+            f"{det['ms_per_step']:.4f} ms/step over {steps} steps, {record['value']:.6g} "
+            f"particle-steps/s, alive {det['alive']} of {det['num_ptcls']}, iters "
+            f"{det['iters']}, wall hits {det['wall_hits_total']} ({smi})")
+        log(f"[d] {name} setup seconds: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in det["setup_s"].items()))
+        log(f"[d] {name} kernel launches: {counts}")
+        launched = {k for k, v in counts.items() if v > 0}
+        if launched != set(GITR_KERNELS):
+            raise AssertionError(f"{name} launched {sorted(launched)}, expected "
+                                 f"{sorted(GITR_KERNELS)}")
+        for k, v in counts.items():
+            results[k]["launches"] = results[k].get("launches", 0) + v
+        act = state["active"]
+        x, v = state["x"], state["v"]
+        if not bool(torch.isfinite(x).all()) or not bool(torch.isfinite(v[act]).all()):
+            raise AssertionError(f"{name}: a position or velocity is not finite")
+        e = state["elem"][act]
+        if not bool(((e >= 0) & (e < det["mesh_elems"])).all()):
+            raise AssertionError(f"{name}: an active element id out of range")
+        xa = x[act]
+        if not bool(((xa >= -1e-5) & (xa <= 1 + 1e-5)).all()):
+            raise AssertionError(f"{name}: an active particle outside the box")
+        if wall == "reflect" and det["alive"] != NUM_PTCLS:
+            raise AssertionError(f"{name}: {det['alive']} of {NUM_PTCLS} alive over "
+                                 f"{1 + steps} steps")
+        if wall == "absorb" and det["wall_hits_total"] != NUM_PTCLS - det["alive"]:
+            raise AssertionError(f"{name}: wall hits {det['wall_hits_total']} against "
+                                 f"{NUM_PTCLS - det['alive']} particles lost")
+        del state, fields
 
 
 def run_app(results: dict, dev, mesh, grid, structure: str):
@@ -1366,10 +1687,12 @@ def main() -> int:
     results = {name: {} for name in KERNELS}
     phase_b(results)
     dev = torch.device("cuda")
-    mesh, grid, band_grid, band_s, grid3d = phase_c(results, dev)
+    mesh, grid, band_grid, band_s, grid3d, gitr_mesh = phase_c(results, dev)
     phase_d(results, dev, grid, band_grid, band_s, smi)
     run_pps3d(results, dev, grid3d, smi)
     del grid3d
+    run_gitr(results, dev, gitr_mesh, smi)
+    del gitr_mesh
     for structure in APP_ARMS:
         last = run_app(results, dev, mesh, grid, structure)
         steps = APP_STEPS[structure]

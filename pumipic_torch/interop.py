@@ -6,8 +6,9 @@ grid or annulus locator), gyro maps, band starts and particle state,
 convert them with ``np.asarray``, and hand them to :func:`from_reference`,
 so that both packages step from identical inputs; for tet meshes,
 :func:`mesh3d_from_numpy`, :func:`locator3d_from_numpy` and
-:func:`kuhn_from_numpy` do the same.  This module takes numpy only and
-imports no JAX.
+:func:`kuhn_from_numpy` do the same, and :func:`gitr_from_numpy` builds the
+port's GITR-style app from the reference's mesh, E grid, state and
+``wall_hits``.  This module takes numpy only and imports no JAX.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from pumipic_torch.mesh.locator import (
     LocatorGrid2D,
     LocatorGrid3D,
 )
+from pumipic_torch.models.gitr_like import GitrConfig, GitrLike
 from pumipic_torch.models.pseudo_xgcm import DPModel, XGCmConfig
 from pumipic_torch.ops.push import BandRotation
 from pumipic_torch.particles.structure import ParticleStructure
@@ -48,6 +50,7 @@ BAND_FIELDS = ("cx", "cy", "coef_u", "coef_v", "inv_coef", "cell_rows",
 ANNULUS_FIELDS = ("cx", "cy", "r_in", "dr", "n_rings", "n_sectors",
                   "ring_class", "theta0", "perm")
 STATE_FIELDS = ("x0", "x1", "cphi", "sphi", "b", "elem", "active", "rg")
+GITR_STATE_FIELDS = ("x", "v", "elem", "active")
 # members of a ParticleStructure: arrays (None where the layout has none)
 # and static values; "fields" maps each member field to its array
 STRUCTURE_ARRAYS = ("elem", "active", "num_ptcls", "elem_offsets",
@@ -226,3 +229,28 @@ def structure_to_numpy(ps: ParticleStructure) -> Dict[str, object]:
     out.update({k: getattr(ps, k) for k in STRUCTURE_STATIC})
     out["fields"] = {k: v.cpu().numpy() for k, v in ps.fields.items()}
     return out
+
+
+def gitr_state_from_numpy(arrays: Dict[str, np.ndarray], device=None
+                          ) -> Dict[str, torch.Tensor]:
+    """The GITR-style app's state (fields of :data:`GITR_STATE_FIELDS`): f32
+    ``x`` and ``v``, i32 ``elem``, bool ``active``."""
+    device = resolve_device(device)
+    dt = {"x": np.float32, "v": np.float32, "elem": np.int32, "active": bool}
+    return {k: torch.as_tensor(np.asarray(arrays[k]).astype(dt[k]), device=device)
+            for k in GITR_STATE_FIELDS}
+
+
+def gitr_from_numpy(mesh: Dict[str, np.ndarray], cfg: GitrConfig, e_grid, e_origin,
+                    e_spacing, state: Dict[str, np.ndarray], wall_hits,
+                    device=None) -> GitrLike:
+    """The port's ``GitrLike`` for the reference's: its mesh (fields of
+    :data:`MESH3D_FIELDS`), E grid with origin and cell spacing, state and
+    ``wall_hits``, all as numpy arrays."""
+    device = resolve_device(device)
+    app = GitrLike(mesh3d_from_numpy(mesh, device), cfg, e_grid=np.asarray(e_grid),
+                   e_origin=np.asarray(e_origin), e_spacing=np.asarray(e_spacing),
+                   device=device)
+    app.state = gitr_state_from_numpy(state, device)
+    app.wall_hits = torch.as_tensor(np.asarray(wall_hits, np.float32), device=device)
+    return app

@@ -38,6 +38,16 @@
 // a run is one lower key, and its count goes to both keys.  Measured and
 // not kept (PERF.md): the two keys' counts packed per element, and a
 // per-block shared-memory table of the leaders' sums.
+//
+// Weighted mode, kernel W (launched as wall_tally): the GITR-style app's wall
+// flux tally, pumipic_tpu/models/gitr_like.py:147-164 (a segment_sum of f32
+// weights there).  Keys are the exit faces of the particles with the mask,
+// each adds its int32 weight (absorb: 1 per lost particle; reflect: its
+// num_hits), a weight <= 0 adds nothing.  Runs sum their weights in place of
+// their lengths.  Integer adds: exact in any order.  Bound on an H100: 9
+// bytes read per particle (side, mask, weight), ~90 MB at 10M, 0.027 ms;
+// the keys are the few hit particles' faces in random order, so nearly every
+// particle is dropped at its mask and the adds are few.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -77,13 +87,14 @@ __device__ __forceinline__ void warp_add(int* __restrict__ counts, bool have,
   if (have) add_run<RINGS>(counts, k, c);
 }
 
-// run key of particle (e, a, rg), false if it deposits nothing: elem mode
-// key = e, key mode key = e·R + rd, the lower of its two keys
+// run key of particle (e, a, rg, w), false if it deposits nothing: elem
+// mode key = e, key mode key = e·R + rd, the lower of its two keys; a
+// weight w <= 0 deposits nothing
 template <bool RINGS>
-__device__ __forceinline__ bool key_of(int e, bool a, float rg, float ring_width,
-                                       int n_elems, int n_rings, float rd_max,
-                                       int* key) {
-  if (!a || e < 0 || e >= n_elems) return false;
+__device__ __forceinline__ bool key_of(int e, bool a, float rg, int w,
+                                       float ring_width, int n_elems, int n_rings,
+                                       float rd_max, int* key) {
+  if (!a || e < 0 || e >= n_elems || w <= 0) return false;
   if (!RINGS) {
     *key = e;
     return true;
@@ -96,11 +107,12 @@ __device__ __forceinline__ bool key_of(int e, bool a, float rg, float ring_width
 
 // groups of 8 particles: group 0 is [0, head) when head > 0; the others
 // start at head + 8·k, where (with `vec`) the loads are aligned
-template <bool RINGS>
+template <bool RINGS, bool WEIGHTED>
 __global__ void __launch_bounds__(H_THREADS)
     histogram_kernel(const int* __restrict__ elem,
                      const uint8_t* __restrict__ active,
-                     const float* __restrict__ radius, float ring_width,
+                     const float* __restrict__ radius,
+                     const int* __restrict__ weight, float ring_width,
                      int n_elems, int n_rings, int* __restrict__ counts,
                      long long n, int head, int vec) {
   const float rd_max = (float)(n_rings - 2);
@@ -122,6 +134,7 @@ __global__ void __launch_bounds__(H_THREADS)
     }
     int key[H_PER_THREAD];
     bool ok[H_PER_THREAD];
+    int wt[H_PER_THREAD];
     if (vec && len == H_PER_THREAD && g >= skip) {
       const int4 e0 = __ldg(reinterpret_cast<const int4*>(elem + p0));
       const int4 e1 = __ldg(reinterpret_cast<const int4*>(elem + p0) + 1);
@@ -135,23 +148,35 @@ __global__ void __launch_bounds__(H_THREADS)
         r[4] = r1.x; r[5] = r1.y; r[6] = r1.z; r[7] = r1.w;
       }
 #pragma unroll
+      for (int i = 0; i < H_PER_THREAD; ++i) wt[i] = 1;
+      if (WEIGHTED) {
+        const int4 w0 = __ldg(reinterpret_cast<const int4*>(weight + p0));
+        const int4 w1 = __ldg(reinterpret_cast<const int4*>(weight + p0) + 1);
+        wt[0] = w0.x; wt[1] = w0.y; wt[2] = w0.z; wt[3] = w0.w;
+        wt[4] = w1.x; wt[5] = w1.y; wt[6] = w1.z; wt[7] = w1.w;
+      }
+#pragma unroll
       for (int i = 0; i < H_PER_THREAD; ++i) {
         const uint32_t word = i < 4 ? ab.x : ab.y;
         const bool a = ((word >> (8 * (i & 3))) & 0xffu) != 0;
-        ok[i] = key_of<RINGS>(e[i], a, r[i], ring_width, n_elems, n_rings, rd_max,
-                              &key[i]);
+        ok[i] = key_of<RINGS>(e[i], a, r[i], wt[i], ring_width, n_elems, n_rings,
+                              rd_max, &key[i]);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < H_PER_THREAD; ++i) {
         ok[i] = false;
-        if (i < len)
+        wt[i] = 1;
+        if (i < len) {
+          if (WEIGHTED) wt[i] = weight[p0 + i];
           ok[i] = key_of<RINGS>(elem[p0 + i], active[p0 + i] != 0,
-                                RINGS ? radius[p0 + i] : 0.0f, ring_width,
+                                RINGS ? radius[p0 + i] : 0.0f, wt[i], ring_width,
                                 n_elems, n_rings, rd_max, &key[i]);
+        }
       }
     }
-    // runs of equal keys; round i adds the run that ends before particle i
+    // runs of equal keys (a run's count is the sum of its weights); round i
+    // adds the run that ends before particle i
     int ck = 0, cc = 0;
 #pragma unroll
     for (int i = 0; i < H_PER_THREAD; ++i) {
@@ -159,9 +184,9 @@ __global__ void __launch_bounds__(H_THREADS)
       warp_add<RINGS>(counts, fresh && cc > 0, ck, cc);
       if (fresh) {
         ck = key[i];
-        cc = 1;
+        cc = wt[i];
       } else if (ok[i]) {
-        ++cc;
+        cc += wt[i];
       }
     }
     warp_add<RINGS>(counts, cc > 0, ck, cc);
@@ -180,17 +205,20 @@ static int num_sms() {
 }
 
 // the launcher's alignment check: the first particle h < 8 from which the
-// 8-particle loads of elem, active (and radius) are all aligned, if any
+// 8-particle loads of elem, active (and radius or weight) are all aligned,
+// if any
 static int launch(const int* elem, const uint8_t* active, const float* radius,
-                  float ring_width, int n_elems, int n_rings, int* counts,
-                  long long n, cudaStream_t stream) {
+                  const int* weight, float ring_width, int n_elems, int n_rings,
+                  int* counts, long long n, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
   int head = 0, vec = 0;
   for (int h = 0; h < H_PER_THREAD && h <= n && !vec; ++h) {
     const uintptr_t pe = reinterpret_cast<uintptr_t>(elem) + 4ull * h;
     const uintptr_t pa = reinterpret_cast<uintptr_t>(active) + h;
     const uintptr_t pr = reinterpret_cast<uintptr_t>(radius) + 4ull * h;
-    if (pe % 16 == 0 && pa % 8 == 0 && (radius == nullptr || pr % 16 == 0)) {
+    const uintptr_t pw = reinterpret_cast<uintptr_t>(weight) + 4ull * h;
+    if (pe % 16 == 0 && pa % 8 == 0 && (radius == nullptr || pr % 16 == 0) &&
+        (weight == nullptr || pw % 16 == 0)) {
       head = h;
       vec = 1;
     }
@@ -199,19 +227,33 @@ static int launch(const int* elem, const uint8_t* active, const float* radius,
   long long blocks = (groups + H_THREADS - 1) / H_THREADS;
   const long long cap = (long long)num_sms() * 16;
   if (blocks > cap) blocks = cap;
-  if (radius == nullptr)
-    histogram_kernel<false><<<(unsigned)blocks, H_THREADS, 0, stream>>>(
-        elem, active, radius, ring_width, n_elems, n_rings, counts, n, head, vec);
+  if (weight != nullptr)
+    histogram_kernel<false, true><<<(unsigned)blocks, H_THREADS, 0, stream>>>(
+        elem, active, radius, weight, ring_width, n_elems, n_rings, counts, n, head,
+        vec);
+  else if (radius == nullptr)
+    histogram_kernel<false, false><<<(unsigned)blocks, H_THREADS, 0, stream>>>(
+        elem, active, radius, weight, ring_width, n_elems, n_rings, counts, n, head,
+        vec);
   else
-    histogram_kernel<true><<<(unsigned)blocks, H_THREADS, 0, stream>>>(
-        elem, active, radius, ring_width, n_elems, n_rings, counts, n, head, vec);
+    histogram_kernel<true, false><<<(unsigned)blocks, H_THREADS, 0, stream>>>(
+        elem, active, radius, weight, ring_width, n_elems, n_rings, counts, n, head,
+        vec);
   return (int)cudaGetLastError();
 }
 
 // counts must be zeroed by the caller
 extern "C" int pp_histogram(const int* elem, const uint8_t* active, int n_keys,
                             int* counts, long long n, cudaStream_t stream) {
-  return launch(elem, active, nullptr, 1.0f, n_keys, 1, counts, n, stream);
+  return launch(elem, active, nullptr, nullptr, 1.0f, n_keys, 1, counts, n, stream);
+}
+
+// kernel W: counts[side] += weight (1 where weight is nullptr) over the
+// particles with mask; counts (n_faces,) zeroed by the caller
+extern "C" int pp_wall_tally(const int* side, const uint8_t* mask, const int* weight,
+                             int n_faces, int* counts, long long n,
+                             cudaStream_t stream) {
+  return launch(side, mask, nullptr, weight, 1.0f, n_faces, 1, counts, n, stream);
 }
 
 // (element, ring) key mode: counts (n_elems·n_rings,) zeroed by the caller;
@@ -221,6 +263,6 @@ extern "C" int pp_histogram_rings(const int* elem, const uint8_t* active,
                                   int n_elems, int n_rings, int* counts,
                                   long long n, cudaStream_t stream) {
   if (n_rings < 2) return (int)cudaErrorInvalidValue;
-  return launch(elem, active, radius, ring_width, n_elems, n_rings, counts, n,
+  return launch(elem, active, radius, nullptr, ring_width, n_elems, n_rings, counts, n,
                 stream);
 }

@@ -12,16 +12,18 @@ proves a structured Kuhn box (``kuhn="auto"`` or ``"force"``): kernel K
 pushes, wraps and locates analytically in one launch (no walk; ``iters``
 0).  Otherwise (``kuhn="off"`` or an unstructured mesh): the push and wrap
 (K's push-only form), then kernel L3 (the 26-column peel of the locator grid
-and the BCC walk; the plain walk with ``use_locator`` off).  Then ``set("x")`` and the structure's
+and the BCC walk; the plain walk with ``use_locator`` off).  With wall
+"reflect" (specular, which the analytic locate cannot serve, so it always
+walks) the walk is kernel M with :func:`~pumipic_torch.ops.search.reflect_on_exit_3d`
+(M's peel form with the locator), and the particle moves to the mirrored
+destination.  Then ``set("x")`` and the structure's
 ``rebuild`` (``rebuild_mode`` "sort" or "auto").
 
 Host seeding makes the JAX package's numpy Generator calls in its order, so
 particle elements, positions and pids are bit-identical.  Knobs that only
 the TPU build needed are accepted and mapped onto the one GPU path:
 ``widths`` (the compaction pyramid) and every 3D ``peel`` (onto the
-26-column rows).  Refused with ``NotImplementedError``: ``wall="reflect"``
-(``reflect_on_exit_3d`` is the next 3D slice's).  ``make_picparts_setup_3d``
-waits for distribution.  Entry points run on the CUDA card unless
+26-column rows).  ``make_picparts_setup_3d`` waits for distribution.  Entry points run on the CUDA card unless
 ``device="cpu"`` is passed.
 """
 from __future__ import annotations
@@ -137,9 +139,6 @@ def check_config(cfg: PushSearchConfig) -> None:
         raise ValueError(
             f"kuhn='force' is incompatible with wall={cfg.wall!r} "
             f"(the analytic locate supports 'periodic'/'remove' only)")
-    if cfg.wall == "reflect":
-        raise NotImplementedError("wall='reflect' (reflect_on_exit_3d) is "
-                                  "not ported")
 
 
 class PseudoPushAndSearch:
@@ -191,7 +190,7 @@ class PseudoPushAndSearch:
         t0 = time.perf_counter()
         coords = mesh.coords.cpu().numpy()
         self.kuhn = None
-        if cfg.kuhn in ("auto", "force"):
+        if cfg.kuhn in ("auto", "force") and cfg.wall in ("periodic", "remove"):
             self.kuhn = detect_box_kuhn(coords, mesh.elem2verts.cpu().numpy(),
                                         device=self.device)
             if self.kuhn is None and cfg.kuhn == "force":
@@ -217,6 +216,9 @@ class PseudoPushAndSearch:
         mesh, cfg = self.mesh, self.cfg
         kuhn, locator, s, wrap = self.kuhn, self.locator, self.step_vector, self.wrap
         no_iters = torch.zeros((), dtype=torch.int32, device=self.device)
+        reflect = cfg.wall == "reflect"
+        handler = (search_ops.reflect_on_exit_3d if reflect
+                   else search_ops.remove_on_exit)
 
         def step(ptcls):
             x = ptcls.get("x")
@@ -226,17 +228,19 @@ class PseudoPushAndSearch:
                                                            s, wrap)
                 iters = no_iters
             else:
-                # K's push-only form, then kernel L3
+                # K's push-only form, then kernel L3 (M for the reflect wall)
                 xt = push_ops.push_and_wrap(x, s, wrap)
                 if locator is not None:
                     res = search_ops.search_mesh_3d_accel(
                         mesh, locator, x, xt, ptcls.elem, ptcls.active,
-                        cfg.max_search_iters)
+                        cfg.max_search_iters, boundary_handler=handler)
                 else:
                     res = search_ops.search_mesh_3d(
                         mesh, x, xt, ptcls.elem, ptcls.active,
-                        cfg.max_search_iters)
+                        cfg.max_search_iters, boundary_handler=handler)
                 elem_ids, iters = res.elem_ids, res.iters
+                if reflect:
+                    xt = res.dest
             return ptcls.set("x", xt).rebuild(elem_ids, mode=cfg.rebuild_mode), iters
 
         return step

@@ -30,6 +30,7 @@ import torch
 
 from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
+from pumipic_torch.ops.geometry import cross, sqrt_rn
 from pumipic_torch.utils.device import resolve_device
 
 
@@ -406,3 +407,100 @@ def push_phi(x, phi, b, active, cls, deg: float, h: float, k: float, d: float,
     _build.check(err, "push")
     kernels.LAUNCHES["push"] += 1
     return tx, ty, xy, phi_out
+
+
+# ---------------------------------------------------------------------------
+# Boris push (the GITR-style app): kernel R fuses the 3D grid E field with it
+# ---------------------------------------------------------------------------
+
+ELEMENTARY_CHARGE = 1.60217662e-19
+PROTON_MASS = 1.6737236e-27
+
+
+def boris_factors(dt: float, charge: float, amu: float) -> Tuple[float, float]:
+    """(q', 2q') rounded to f32, where q' = q·e/(amu·m_p)·dt/2 is taken in
+    f64 as the JAX package's Python floats take it; its weak-typed f32
+    arithmetic then rounds each once (2q' doubles exactly)."""
+    q = charge * ELEMENTARY_CHARGE / (amu * PROTON_MASS) * dt * 0.5
+    return float(np.float32(q)), float(np.float32(2.0 * q))
+
+
+def boris_push(x: torch.Tensor, v: torch.Tensor, e_field: torch.Tensor,
+               b_field: torch.Tensor, dt: float, charge: float = 1.0,
+               amu: float = 10.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Boris rotation velocity update and position step on (N, 3) tensors
+    (``pushBoris``, pumipic_push.hpp:17-74): with q' = q·e/(amu·m_p)·dt/2
+    and coeff = 2q'/(1+(q'|B|)²), v⁻ = v - q'E; v' = v⁻ + q'(v⁻×B);
+    v⁺ = v⁻ + coeff(v'×B) + q'E; x ← x + v⁺ dt.  The reference subtracts the
+    first half kick and adds it back after the rotation; so does this.
+    Every scalar is a 0-d f32 tensor (torch's division by a Python scalar
+    multiplies by its reciprocal), in the JAX package's operation order;
+    |B| is the correctly rounded sqrt (:func:`~pumipic_torch.ops.geometry.sqrt_rn`)."""
+    qp, two_qp = boris_factors(dt, charge, amu)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    qp_t, two_qp_t = torch.tensor(qp, **f32), torch.tensor(two_qp, **f32)
+    b = b_field
+    b_mag = sqrt_rn(b[:, 0] * b[:, 0] + b[:, 1] * b[:, 1] + b[:, 2] * b[:, 2])[:, None]
+    s = qp_t * b_mag
+    coeff = two_qp_t / (1.0 + s * s)
+    qp_e = qp_t * e_field
+    v_minus = v - qp_e
+    v_prime = v_minus + qp_t * cross(v_minus, b)
+    v_new = v_minus + coeff * cross(v_prime, b) + qp_e
+    return x + v_new * torch.tensor(float(np.float32(dt)), **f32), v_new
+
+
+def _vec3(a) -> np.ndarray:
+    """Three f32 values from a tensor, an array or a sequence."""
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a, np.float32).reshape(3)
+
+
+def boris_push_grid_plain(x, v, e_grid, origin, spacing, b, dt: float,
+                          charge: float = 1.0, amu: float = 10.0):
+    """Plain PyTorch version of kernel R: E by
+    :func:`~pumipic_torch.ops.interpolate.interpolate_3d_grid` at ``x``, a
+    uniform B, then :func:`boris_push`."""
+    from pumipic_torch.ops.interpolate import interpolate_3d_grid
+
+    o, h, bv = (torch.as_tensor(_vec3(a), device=x.device) for a in (origin, spacing, b))
+    e = interpolate_3d_grid(e_grid, o, h, x)
+    return boris_push(x, v, e, bv.expand(x.shape[0], 3), dt, charge, amu)
+
+
+def boris_push_grid(x: torch.Tensor, v: torch.Tensor, e_grid: torch.Tensor,
+                    origin, spacing, b, dt: float, charge: float = 1.0,
+                    amu: float = 10.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x_new, v_new): the GITR-style step's field and push in one pass.
+    E is interpolated trilinearly at ``x`` (N, 3) from ``e_grid`` (nx, ny,
+    nz, 3) f32 with the grid's ``origin`` and cell ``spacing`` (3 values
+    each); B is uniform (3 values); then the Boris push over ``dt``.
+    Kernel R (``kernels/csrc/boris.cu``) on CUDA tensors,
+    :func:`boris_push_grid_plain` on CPU tensors."""
+    if not kernels.use_kernel("boris", x, v, e_grid):
+        return boris_push_grid_plain(x, v, e_grid, origin, spacing, b, dt, charge, amu)
+    n = x.shape[0]
+    g = e_grid.shape
+    if (x.dtype != torch.float32 or v.dtype != torch.float32 or x.shape != (n, 3)
+            or v.shape != (n, 3) or e_grid.dtype != torch.float32 or e_grid.ndim != 4
+            or g[3] != 3 or min(g[:3]) < 2):
+        raise ValueError("boris_push_grid: (N, 3) f32 x and v and an (nx, ny, nz, 3) "
+                         "f32 grid with every n >= 2 expected")
+    if n >= 1 << 31 or g[0] * g[1] * g[2] * 3 >= 1 << 31:
+        raise ValueError("boris_push_grid: the kernel takes fewer than 2^31 "
+                         "particles and grid values")
+    x_out, v_out = torch.empty_like(x), torch.empty_like(v)
+    if n == 0:
+        return x_out, v_out
+    qp, two_qp = boris_factors(dt, charge, amu)
+    o, h, bv = (_vec3(a) for a in (origin, spacing, b))
+    params = (ctypes.c_float * 12)(*o, *h, *bv, qp, two_qp, float(np.float32(dt)))
+    P = ctypes.c_void_p
+    err = _build.lib().pp_boris_grid(
+        P(x.data_ptr()), P(v.data_ptr()), P(e_grid.data_ptr()), g[0], g[1], g[2],
+        params, P(x_out.data_ptr()), P(v_out.data_ptr()), n,
+        P(kernels.stream_handle()))
+    _build.check(err, "boris")
+    kernels.LAUNCHES["boris"] += 1
+    return x_out, v_out

@@ -113,6 +113,54 @@ def histogram(elem: torch.Tensor, active: torch.Tensor, num_keys: int,
 
 
 # ---------------------------------------------------------------------------
+# kernel W: the GITR-style wall tally (H's weighted mode)
+# ---------------------------------------------------------------------------
+
+def wall_tally_plain(side: torch.Tensor, mask: torch.Tensor, weight, n_faces: int
+                     ) -> torch.Tensor:
+    """Plain version of kernel W: (n_faces,) int32 sums of ``weight`` (1
+    where None) over the particles with ``mask`` whose ``side`` lies in
+    [0, n_faces); a weight <= 0 adds nothing."""
+    w = torch.ones_like(side) if weight is None else weight.to(torch.int32)
+    ok = mask & (side >= 0) & (side < n_faces) & (w > 0)
+    key = torch.where(ok, side.to(torch.int64), n_faces)
+    counts = torch.zeros(n_faces + 1, dtype=torch.int32, device=side.device)
+    return counts.index_add_(0, key, torch.where(ok, w, 0))[:n_faces]
+
+
+def wall_tally(side: torch.Tensor, mask: torch.Tensor, weight, n_faces: int
+               ) -> torch.Tensor:
+    """The wall flux of one step, per boundary face: each particle with
+    ``mask`` adds its int32 ``weight`` (1 where None) to the count of face
+    ``side`` (i32; sides outside [0, n_faces) add nothing).  The GITR-style
+    app counts its lost particles on their exit faces (absorb) or its
+    reflections, ``num_hits``, on the last face hit (reflect).  Integer
+    adds, so the result is exact in any order.  Kernel W (H's weighted mode,
+    ``kernels/csrc/histogram.cu``) on CUDA tensors, :func:`wall_tally_plain`
+    on CPU tensors."""
+    tensors = (side, mask) + (() if weight is None else (weight,))
+    if not kernels.use_kernel("wall_tally", *tensors):
+        return wall_tally_plain(side, mask, weight, n_faces)
+    n = side.shape[0]
+    if (side.dtype != torch.int32 or mask.dtype != torch.bool or mask.shape != (n,)
+            or (weight is not None and (weight.dtype != torch.int32
+                                        or weight.shape != (n,)))):
+        raise ValueError("wall_tally: i32 sides, bool mask and i32 weights of one "
+                         "length expected")
+    counts = torch.zeros(n_faces, dtype=torch.int32, device=side.device)
+    if n == 0:
+        return counts
+    P = ctypes.c_void_p
+    err = _build.lib().pp_wall_tally(
+        P(side.data_ptr()), P(mask.data_ptr()),
+        P(None if weight is None else weight.data_ptr()), n_faces,
+        P(counts.data_ptr()), n, P(kernels.stream_handle()))
+    _build.check(err, "wall_tally")
+    kernels.LAUNCHES["wall_tally"] += 1
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # kernel D: ring expansion and mapped scatter
 # ---------------------------------------------------------------------------
 

@@ -1,30 +1,39 @@
 """Adjacency-walk particle search (port of ``pumipic_tpu.ops.search``: the
-2D search the FULL-mode step runs and the 3D BCC search of
-pseudoPushAndSearch).
+2D search the FULL-mode step runs and the 3D searches of pseudoPushAndSearch
+and the GITR-style app).
 
 Each active particle walks from a start element toward the element that
 contains its destination: test containment with the barycentric affine
-forms of ``Mesh2D.walk_geom``; if outside, cross the side opposite the most
-negative weight.  A walk that crosses an exposed side is handed to the
-boundary handler; the only handler ported is :func:`remove_on_exit`, which
-deletes the particle.  Walkers still unfinished after the iteration budget
-are deleted, as the reference does at its loop limit.
+forms of ``Mesh2D.walk_geom`` / ``Mesh3D.walk_geom``; if outside, cross the
+side opposite the most negative weight.  A walk that crosses an exposed
+side is handed to the boundary handler (the JAX package's protocol:
+``handler(BoundaryCtx) -> BoundaryResult``): :func:`remove_on_exit`
+deletes the particle, :func:`reflect_on_exit_3d` mirrors its destination
+across the face and walks on from the crossing point.  Walkers still
+unfinished after the iteration budget are deleted, as the reference does at
+its loop limit.
 
 :func:`walk_locate` is the wrapper of kernel L (``kernels/csrc/locate.cu``):
 one thread per particle, with the whole walk inside the kernel.  Its plain
 version :func:`walk_locate_plain` steps the unfinished walkers as a batch.
 The peel takes a cartesian :class:`LocatorGrid2D`, whose cell id kernel L
 computes itself, or a flux-band :class:`BandGrid2D`, whose cell ids kernel
-B computes first and hands to kernel L ("given cells").
+B computes first and hands to kernel L ("given cells").  In 2D the port
+refuses ``record_exit``, ``recover="project"`` and every handler but
+:func:`remove_on_exit` with ``NotImplementedError``.
 
-:func:`walk_locate_3d` is the wrapper of kernel L3
-(``kernels/csrc/locate3d.cu``), the tet version of L: the 26-column peel of
-a :class:`LocatorGrid3D` and the BCC walk over ``Mesh3D.walk_geom``, or the
-plain walk; :func:`walk_locate_3d_plain` is its plain version.  Refused
-with ``NotImplementedError`` (the next 3D slice): the hybrid and
-intersection cores, boundary handlers other than :func:`remove_on_exit`
-(``reflect_on_exit_3d``), ``record_exit``, ``recover="project"``,
-:func:`check_initial_parents` and :func:`trace_particle_through_mesh`.
+Tets: :func:`walk_locate_3d` is the wrapper of kernel L3
+(``kernels/csrc/locate3d.cu``), the tet version of L for the fast case (the
+BCC core, :func:`remove_on_exit`, no exit record, no recovery), and
+:func:`walk_locate_3d_plain` its plain version.  :func:`trace_3d` is the
+wrapper of kernel M (``kernels/csrc/trace3d.cu``) for every other case: the
+BCC, hybrid and intersection (Möller–Trumbore) cores, remove or reflect,
+``record_exit`` (exit face, hit count, crossing point) and
+``recover="project"``, from the plain start or the locator peel;
+:func:`trace_3d_plain` is its plain version and runs any handler of the
+protocol on the CPU.  The TPU build recovers loop-limit survivors only on
+its deepest compaction level (``search.py:860-887``); the port recovers
+every survivor (see ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
 from pumipic_torch.mesh.core import Mesh2D, Mesh3D
 from pumipic_torch.mesh.locator import BandGrid2D, LocatorGrid2D, LocatorGrid3D
+from pumipic_torch.ops.geometry import closest_point_on_triangle, sqrt_rn
 from pumipic_torch.ops.locate import band_cell_of, band_cell_of_plain
 
 INVALID = -1
@@ -44,17 +54,73 @@ INVALID = -1
 # form l = A·x + c (its f32 evaluation error), with a small absolute floor.
 BCC_REL_TOL = 8.0 * 2.0 ** -24      # ~8 ulps of the largest term
 BCC_ABS_TOL = 1e-7
+# the intersection core's plane slack, scaled by |plane offset|
+MT_TOL = 1e-6
+# recover="project": a loop-limit survivor is accepted on its current tet
+# when its destination lies within this fraction of the tet's longest edge
+# of the tet's closure, and the projected point moves this fraction toward
+# the centroid so that later containment tests strictly hold
+RECOVER_REL_TOL = 1e-3
+RECOVER_NUDGE = 1e-5
 
 Grid = Union[LocatorGrid2D, BandGrid2D]
 
 
-def remove_on_exit(elem: torch.Tensor):
-    """The boundary handler: walkers that cross an exposed side leave the
-    domain and are deleted (``RemoveParticleOnGeometricModelExit``).
-    Returns (element to continue in = INVALID, done = True) per walker, with
-    the destination unchanged.  Kernel L applies it inline; other handlers
-    are not ported."""
-    return torch.full_like(elem, INVALID), torch.ones_like(elem, dtype=torch.bool)
+class BoundaryCtx(NamedTuple):
+    """What a boundary handler sees for the walkers of a step."""
+
+    elem: torch.Tensor                    # (w,) element the walker is leaving
+    side: Optional[torch.Tensor]          # (w,) mesh face crossed
+    orig: Optional[Tuple[torch.Tensor, ...]]  # per-component (w,) segment origin
+    dest: Optional[Tuple[torch.Tensor, ...]]  # per-component (w,) destination
+    mesh: object
+    # the crossing point and its segment parameter (``find_exit_face``); None
+    # unless the handler needs them or the search records exits
+    hit: Optional[Tuple[torch.Tensor, ...]] = None
+    t: Optional[torch.Tensor] = None
+
+
+class BoundaryResult(NamedTuple):
+    dest: Optional[Tuple[torch.Tensor, ...]]  # None: destination unchanged
+    elem: torch.Tensor                    # element to continue in (INVALID: removed)
+    done: torch.Tensor                    # True: the walker stops
+
+
+def remove_on_exit(ctx: BoundaryCtx) -> BoundaryResult:
+    """The default handler: a walker that crosses an exposed side leaves the
+    domain and is deleted (``RemoveParticleOnGeometricModelExit``); its
+    destination is unchanged.  Kernels L, L3 and M apply it inline."""
+    return BoundaryResult(None, torch.full_like(ctx.elem, INVALID),
+                          torch.ones_like(ctx.elem, dtype=torch.bool))
+
+
+remove_on_exit.modifies_dest = False
+
+
+def reflect_on_exit_3d(ctx: BoundaryCtx) -> BoundaryResult:
+    """Specular reflection off the exposed face (the GITR-style wall): the
+    destination is mirrored across the face's plane and the walker goes on
+    from its element (the walk restarts the segment at the crossing point).
+    Kernel M applies it inline, in this order of f32 operations (the
+    normal's length a correctly rounded sqrt)."""
+    m = ctx.mesh
+    fv = m.face2verts[torch.clamp(ctx.side, min=0).long()].long()
+    a, b, c = (m.coords[fv[:, j]] for j in range(3))
+    ax, ay, az = a.unbind(1)
+    ux, uy, uz = (b - a).unbind(1)
+    vx, vy, vz = (c - a).unbind(1)
+    nx = uy * vz - uz * vy
+    ny = uz * vx - ux * vz
+    nz = ux * vy - uy * vx
+    inv = 1.0 / torch.clamp(sqrt_rn(nx * nx + ny * ny + nz * nz), min=1e-30)
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    dx, dy, dz = ctx.dest
+    s = (dx - ax) * nx + (dy - ay) * ny + (dz - az) * nz
+    return BoundaryResult((dx - 2 * s * nx, dy - 2 * s * ny, dz - 2 * s * nz),
+                          ctx.elem, torch.zeros_like(ctx.elem, dtype=torch.bool))
+
+
+reflect_on_exit_3d.modifies_dest = True
 
 
 class SearchResult(NamedTuple):
@@ -63,6 +129,14 @@ class SearchResult(NamedTuple):
     iters: torch.Tensor                   # () i32 walk iterations taken
     all_found: torch.Tensor               # () bool: everyone finished in budget
     active: Optional[torch.Tensor] = None  # (N,) bool, elem_ids >= 0
+    # with record_exit: the face of the last real boundary hit (-1: none),
+    # the crossing point there (the initial destination where none) and the
+    # number of real hits
+    exit_side: Optional[torch.Tensor] = None
+    hit_c: Optional[Tuple[torch.Tensor, ...]] = None
+    num_hits: Optional[torch.Tensor] = None
+    # with recover="project": loop-limit survivors accepted by projection
+    num_recovered: Optional[torch.Tensor] = None
 
     @property
     def dest(self) -> torch.Tensor:
@@ -141,12 +215,12 @@ def walk_locate_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start,
         exposed = nxt == INVALID
         retry = ~inside & exposed & (f >= 0)
         hit = ~inside & exposed & (f < 0)
-        out_e, out_done = remove_on_exit(e)
+        out = remove_on_exit(BoundaryCtx(e, None, None, None, None))
         new_e = torch.where(inside, e, torch.where(
-            retry, f, torch.where(hit, out_e, nxt)))
+            retry, f, torch.where(hit, out.elem, nxt)))
         elem[idx] = new_e
         fbg[idx] = torch.where(retry, -2, f)
-        fin = inside | (hit & out_done)
+        fin = inside | (hit & out.done)
         done[idx] = fin
         idx = idx[~fin]
     unfinished = idx.numel()
@@ -350,11 +424,11 @@ def walk_locate_3d_plain(walk_geom: torch.Tensor, dest: torch.Tensor,
         exposed = nxt == INVALID
         retry = ~inside & exposed & (f >= 0)
         hit = ~inside & exposed & (f < 0)
-        out_e, out_done = remove_on_exit(e)
+        out = remove_on_exit(BoundaryCtx(e, None, None, None, None))
         elem[idx] = torch.where(inside, e, torch.where(
-            retry, f, torch.where(hit, out_e, nxt)))
+            retry, f, torch.where(hit, out.elem, nxt)))
         fbg[idx] = torch.where(retry, -2, f)
-        fin = inside | (hit & out_done)
+        fin = inside | (hit & out.done)
         idx = idx[~fin]
     unfinished = idx.numel()
     if unfinished:
@@ -428,16 +502,391 @@ def walk_locate_3d(walk_geom: torch.Tensor, dest: torch.Tensor, elem_start,
 
 
 # ---------------------------------------------------------------------------
-# public API, tets
+# tets, every other case: plain PyTorch version of kernel M
 # ---------------------------------------------------------------------------
 
-def _check_method(method: str) -> None:
-    """The BCC core is ported; the JAX package's other cores are refused
-    (an unknown name is its BCC default)."""
-    if method in ("hybrid", "intersection"):
-        raise NotImplementedError(f"the {method!r} 3D walk core is not ported "
-                                  f"(the BCC core is)")
+# kernel M's walk cores: search method -> core id ("bcc" for any other name,
+# as the JAX package's default)
+CORES = {"bcc": 0, "hybrid": 1, "intersection": 2}
 
+
+def core_of(method: str) -> str:
+    return method if method in CORES else "bcc"
+
+
+def _affine3(g, c: int, x, y, z):
+    """l(x) = A·x + c of the affine row at column c, summed left to right."""
+    return g[:, c] * x + g[:, c + 1] * y + g[:, c + 2] * z + g[:, c + 3]
+
+
+def _pick4(k, vals):
+    """vals[k] per walker, k in 0..3."""
+    return torch.where(k == 0, vals[0], torch.where(
+        k == 1, vals[1], torch.where(k == 2, vals[2], vals[3])))
+
+
+def _most_negative(ws):
+    """(wmin, k): the most negative of w0..w3, the first on ties (strictly
+    smaller moves; NaN never does)."""
+    wmin, k = ws[0], torch.zeros_like(ws[0], dtype=torch.int64)
+    for j in (1, 2, 3):
+        take = ws[j] < wmin
+        wmin = torch.where(take, ws[j], wmin)
+        k = torch.where(take, j, k)
+    return wmin, k
+
+
+def _core_bcc(g, dest, orig, need_t):
+    """(inside, exit k, t) of ``_core_3d_bcc`` on walk_geom rows: the face
+    opposite the most negative destination weight; t = w_o / (w_o - w_d)
+    of that weight along orig -> dest."""
+    dx, dy, dz = dest
+    l1, l2, l3, w0, inside = bary_inside_3d(g[:, :12].unbind(1), dx, dy, dz)
+    wmin, k = _most_negative((w0, l1, l2, l3))
+    t = None
+    if need_t:
+        ox, oy, oz = orig
+        lo = [_affine3(g, 4 * j, ox, oy, oz) for j in range(3)]
+        wo = _pick4(k, (1.0 - lo[0] - lo[1] - lo[2], *lo))
+        den = wo - wmin
+        t = wo / torch.where(den == 0, torch.ones_like(den), den)
+    return inside, k, t
+
+
+def _core_hybrid(g, dest, orig, need_t):
+    """``_core_3d_hybrid``: the earliest crossing among the faces whose
+    weight falls along orig -> dest (the rate is the directional derivative
+    -A_k·v, exactly 0 for a stationary walker), else the BCC choice."""
+    dx, dy, dz = dest
+    ox, oy, oz = orig
+    l1, l2, l3, w0, inside = bary_inside_3d(g[:, :12].unbind(1), dx, dy, dz)
+    _, k_bcc = _most_negative((w0, l1, l2, l3))
+    lo = [_affine3(g, 4 * j, ox, oy, oz) for j in range(3)]
+    lo = [1.0 - lo[0] - lo[1] - lo[2]] + lo
+    vx, vy, vz = dx - ox, dy - oy, dz - oz
+    lv = [g[:, 4 * j] * vx + g[:, 4 * j + 1] * vy + g[:, 4 * j + 2] * vz
+          for j in range(3)]
+    lv = [-lv[0] - lv[1] - lv[2]] + lv
+    t_exit = torch.full_like(dx, torch.inf)
+    k_seg = torch.zeros_like(k_bcc)
+    for j in range(4):
+        den = -lv[j]
+        tj = lo[j] / torch.where(den == 0, torch.ones_like(den), den)
+        valid = (den > 0) & (tj < t_exit)
+        t_exit = torch.where(valid, tj, t_exit)
+        k_seg = torch.where(valid, j, k_seg)
+    seg_ok = torch.isfinite(t_exit)
+    k = torch.where(seg_ok, k_seg, k_bcc)
+    t = torch.where(seg_ok, t_exit, 1.0) if need_t else None
+    return inside, k, t
+
+
+def _core_mt(g, dest, orig, need_t):
+    """``_core_3d_mt`` on walk_planes rows: clip orig -> dest against the
+    tet's outward unit face planes and cross the exit face.  A moving
+    segment that exits no face is at its parent; a stationary walker is
+    never declared inside by that rule and descends across the most
+    violated plane."""
+    dx, dy, dz = dest
+    ox, oy, oz = orig
+    vx, vy, vz = dx - ox, dy - oy, dz - oz
+    inside = torch.ones_like(dx, dtype=torch.bool)
+    t_exit = torch.full_like(dx, torch.inf)
+    k_exit = torch.zeros_like(dx, dtype=torch.int64)
+    viol_best = torch.full_like(dx, -torch.inf)
+    k_viol = torch.zeros_like(k_exit)
+    for i in range(4):
+        nx, ny, nz, off = (g[:, 4 * i + j] for j in range(4))
+        s_dest = nx * dx + ny * dy + nz * dz
+        inside = inside & (s_dest <= off + MT_TOL * (1.0 + off.abs()))
+        viol = s_dest - off
+        take = viol > viol_best
+        viol_best = torch.where(take, viol, viol_best)
+        k_viol = torch.where(take, i, k_viol)
+        ndd = nx * vx + ny * vy + nz * vz
+        s_orig = nx * ox + ny * oy + nz * oz
+        ti = (off - s_orig) / torch.where(ndd == 0, torch.ones_like(ndd), ndd)
+        valid = (ndd > 0) & (ti < t_exit)
+        t_exit = torch.where(valid, ti, t_exit)
+        k_exit = torch.where(valid, i, k_exit)
+    moving = (vx != 0.0) | (vy != 0.0) | (vz != 0.0)
+    fin = torch.isfinite(t_exit)
+    k = torch.where(fin, k_exit, k_viol)
+    inside = inside | (moving & ~fin)
+    t = torch.where(fin, t_exit, 1.0) if need_t else None
+    return inside, k, t
+
+
+_CORE_FNS = {"bcc": (_core_bcc, 12), "hybrid": (_core_hybrid, 12),
+             "intersection": (_core_mt, 16)}   # core -> (fn, neighbour column)
+
+
+def _walk_table(mesh: Mesh3D, core: str) -> torch.Tensor:
+    return mesh.walk_planes if core == "intersection" else mesh.walk_geom
+
+
+def _sq3(a, b):
+    """|a - b|² of per-component triples, summed left to right."""
+    d = [x - y for x, y in zip(a, b)]
+    return d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+
+
+def _det3(a, b, c):
+    return (a[0] * (b[1] * c[2] - b[2] * c[1]) - a[1] * (b[0] * c[2] - b[2] * c[0])
+            + a[2] * (b[0] * c[1] - b[1] * c[0]))
+
+
+def recover_project(mesh: Mesh3D, e: torch.Tensor, dest):
+    """``_make_recover`` (3D): (ok, q) for loop-limit survivors in tets
+    ``e`` with destinations ``dest`` (per-component): q is the closest point
+    of the tet's closure (the destination itself where the tet contains it
+    within its volume tolerance, else the nearest of its four faces'
+    closest points), nudged toward the centroid; ok where that distance is
+    within RECOVER_REL_TOL of the tet's longest edge."""
+    ev = mesh.elem2verts[torch.clamp(e, min=0).long()].long()
+    vs = [tuple(mesh.coords[ev[:, i]].unbind(1)) for i in range(4)]
+    p = tuple(dest)
+    p3 = torch.stack(p, dim=1)
+    best = d2 = None
+    for (i, j, k) in ((1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)):
+        q = closest_point_on_triangle(p3, *(torch.stack(vs[m], 1) for m in (i, j, k)))
+        qd = _sq3(q.unbind(1), p)
+        if best is None:
+            best, d2 = q, qd
+        else:
+            take = qd < d2
+            best = torch.where(take[:, None], q, best)
+            d2 = torch.minimum(qd, d2)
+    sub = [tuple(x - y for x, y in zip(vs[m], vs[0])) for m in (1, 2, 3)]
+    vol = _det3(*sub)
+    sgn = torch.sign(torch.where(vol == 0, torch.ones_like(vol), vol))
+    tolv = 1e-6 * vol.abs()
+    contained = torch.ones_like(vol, dtype=torch.bool)
+    for k in range(4):
+        reps = [p if m == k else vs[m] for m in range(4)]
+        wk = _det3(*(tuple(x - y for x, y in zip(reps[m], reps[0])) for m in (1, 2, 3)))
+        contained = contained & (wk * sgn >= -tolv)
+    d2 = torch.where(contained, 0.0, d2)
+    best = torch.where(contained[:, None], p3, best)
+    scale2 = torch.zeros_like(vol)
+    for i in range(4):
+        for j in range(i + 1, 4):
+            scale2 = torch.maximum(scale2, _sq3(vs[i], vs[j]))
+    ok = d2 <= (RECOVER_REL_TOL ** 2) * scale2
+    four = torch.tensor(4.0, dtype=vol.dtype, device=vol.device)
+    q = tuple(best.unbind(1))
+    cent = [(((vs[0][c] + vs[1][c]) + vs[2][c]) + vs[3][c]) / four for c in range(3)]
+    return ok, tuple(qc + (cc - qc) * RECOVER_NUDGE for qc, cc in zip(q, cent))
+
+
+def _needs_hit(boundary_handler, record_exit: bool) -> bool:
+    """Whether the walk forms each crossing point: for the exit record, and
+    for a handler that moves the destination (the continuation segment
+    restarts at the wall) or asks for it."""
+    return bool(record_exit or getattr(boundary_handler, "modifies_dest", True)
+                or getattr(boundary_handler, "needs_hit", False))
+
+
+def _check_walk_options(boundary_handler, recover: str) -> None:
+    if not callable(boundary_handler):
+        raise ValueError("boundary_handler must be callable")
+    if recover not in ("off", "project"):
+        raise ValueError(f"unknown recover mode {recover!r}; expected 'off' or "
+                         f"'project'")
+
+
+def trace_3d_plain(mesh: Mesh3D, orig: torch.Tensor, dest: torch.Tensor,
+                   elem_start, active, max_iters: int, method: str = "bcc",
+                   boundary_handler=remove_on_exit, record_exit: bool = False,
+                   recover: str = "off", grid: Optional[LocatorGrid3D] = None
+                   ) -> SearchResult:
+    """Plain PyTorch version of kernel M (a batch walk over the unfinished
+    walkers, :func:`trace_3d`'s semantics), with any handler of the
+    protocol."""
+    _check_walk_options(boundary_handler, recover)
+    core = core_of(method)
+    core_fn, nb = _CORE_FNS[core]
+    table = _walk_table(mesh, core)
+    n_elems = table.shape[0]
+    needs_hit = _needs_hit(boundary_handler, record_exit)
+    d = [c.clone() for c in dest.unbind(1)]
+    o = [c.clone() for c in orig.unbind(1)]
+    start = torch.clamp(elem_start.to(torch.int32), 0, n_elems - 1)
+    elem = torch.where(active, start, INVALID)
+    fbg = torch.full_like(elem, -2)
+    done = ~active
+    it0 = 0
+    if grid is not None:
+        it0 = 1
+        e0, inside = _peel_3d(grid, *d)
+        elem = torch.where(active, e0, INVALID)
+        fbg = torch.where(active & ~inside, start, -2)
+        done = ~active | inside
+    side_rec = torch.full_like(elem, INVALID)
+    nhits = torch.zeros_like(elem)
+    hit_rec = [c.clone() for c in d]
+    idx = torch.nonzero(~done).flatten()
+    steps = 0
+    for _ in range(max(max_iters - it0, 0)):
+        if idx.numel() == 0:
+            break
+        steps += 1
+        e, f = elem[idx], fbg[idx]
+        dw, ow = tuple(c[idx] for c in d), tuple(c[idx] for c in o)
+        g = table[e.long()]
+        inside, k, t = core_fn(g, dw, ow, needs_hit)
+        nxt = torch.gather(g[:, nb:nb + 4], 1, k[:, None])[:, 0].to(torch.int32)
+        side = torch.gather(mesh.elem2faces[e.long()], 1, k[:, None])[:, 0]
+        exposed = nxt == INVALID
+        retry = ~inside & exposed & (f >= 0)
+        real = ~inside & exposed & (f < 0)
+        hit = None
+        if needs_hit:
+            tc = torch.clamp(t, 0.0, 1.0)
+            hit = tuple(oc + tc * (dc - oc) for oc, dc in zip(ow, dw))
+        bres = boundary_handler(BoundaryCtx(e, side, ow, dw, mesh, hit, t))
+        elem[idx] = torch.where(inside, e, torch.where(
+            retry, f, torch.where(exposed, bres.elem.to(e.dtype), nxt)))
+        fbg[idx] = torch.where((f >= 0) & ~retry & ~inside, f, -2)
+        if bres.dest is not None:
+            for c in range(3):
+                d[c][idx] = torch.where(real, bres.dest[c], dw[c])
+                o[c][idx] = torch.where(real, hit[c], ow[c])
+        if record_exit:
+            side_rec[idx] = torch.where(real, side, side_rec[idx])
+            nhits[idx] += real.to(nhits.dtype)
+            for c in range(3):
+                hit_rec[c][idx] = torch.where(real, hit[c], hit_rec[c][idx])
+        idx = idx[~(inside | (real & bres.done))]
+    dev = elem.device
+    num_rec = None
+    if recover == "project":
+        n_ok = 0
+        if idx.numel():
+            e = elem[idx]
+            ok, q = recover_project(mesh, e, tuple(c[idx] for c in d))
+            ok = ok & (e >= 0)
+            for c in range(3):
+                d[c][idx] = torch.where(ok, q[c], d[c][idx])
+            n_ok = int(ok.sum())
+            idx = idx[~ok]
+        num_rec = torch.tensor(n_ok, dtype=torch.int32, device=dev)
+    elem[idx] = INVALID
+    rec = {}
+    if record_exit:
+        rec = dict(exit_side=side_rec, hit_c=tuple(hit_rec), num_hits=nhits)
+    return SearchResult(
+        elem, tuple(d), torch.tensor(it0 + steps, dtype=torch.int32, device=dev),
+        torch.tensor(idx.numel() == 0, device=dev), elem >= 0,
+        num_recovered=num_rec, **rec)
+
+
+# ---------------------------------------------------------------------------
+# kernel M wrapper
+# ---------------------------------------------------------------------------
+
+def trace_3d(mesh: Mesh3D, orig: Optional[torch.Tensor], dest: torch.Tensor,
+             elem_start, active, max_iters: int, method: str = "bcc",
+             boundary_handler=remove_on_exit, record_exit: bool = False,
+             recover: str = "off", grid: Optional[LocatorGrid3D] = None
+             ) -> SearchResult:
+    """The tet walk of every active particle from ``elem_start`` (clamped;
+    or, with ``grid``, the peel of the destination cell's two candidates,
+    counted as one iteration, then a guess walk that retries once from the
+    clamped start where it meets the boundary) to the tet containing its
+    (N, 3) ``dest``, along the segment from ``orig`` (N, 3; unused, and may
+    be None, for the BCC core without a hit point).
+
+    ``method``: "bcc" (greedy barycentric descent), "hybrid" (segment clip
+    off the same rows, greedy fallback) or "intersection" (clip against the
+    outward face planes of ``walk_planes``).  ``boundary_handler``:
+    :func:`remove_on_exit` or :func:`reflect_on_exit_3d` (mirror the
+    destination, walk on from the crossing point).  ``record_exit``: the
+    exit face, crossing point and count of real boundary hits.
+    ``recover="project"``: loop-limit survivors whose destination lies at
+    the closure of their tet are accepted there, at the projected point.
+
+    Kernel M (``kernels/csrc/trace3d.cu``) on CUDA tensors, which knows the
+    two handlers above and raises NotImplementedError for any other;
+    :func:`trace_3d_plain` on CPU tensors."""
+    _check_walk_options(boundary_handler, recover)
+    core = core_of(method)
+    needs_orig = _needs_hit(boundary_handler, record_exit) or core != "bcc"
+    if orig is None:
+        if needs_orig:
+            raise ValueError("trace_3d: this walk needs the segment origins")
+        orig = dest
+    if grid is not None and grid.cell_rows is None:
+        raise ValueError("trace_3d: the locator grid has no cell rows")
+    table = _walk_table(mesh, core)
+    if not kernels.use_kernel("trace3d", dest, orig, elem_start, active, table,
+                              mesh.walk_geom):
+        return trace_3d_plain(mesh, orig, dest, elem_start, active, max_iters, method,
+                              boundary_handler, record_exit, recover, grid)
+    if boundary_handler is remove_on_exit:
+        reflect = 0
+    elif boundary_handler is reflect_on_exit_3d:
+        reflect = 1
+    else:
+        raise NotImplementedError("kernel M knows remove_on_exit and "
+                                  "reflect_on_exit_3d; other handlers run on the CPU")
+    n, E = dest.shape[0], mesh.nelems
+    if (dest.dtype != torch.float32 or dest.shape != (n, 3) or orig.shape != (n, 3)
+            or orig.dtype != torch.float32 or elem_start.dtype != torch.int32
+            or active.dtype != torch.bool or elem_start.shape != (n,)
+            or active.shape != (n,)):
+        raise ValueError("trace_3d: (N, 3) f32 orig and dest, i32 elem_start and "
+                         "bool active expected")
+    if n >= 1 << 31:
+        raise ValueError("trace_3d: the kernel takes fewer than 2^31 particles")
+    for t in (mesh.walk_geom, mesh.walk_planes):
+        if t.data_ptr() % 16:
+            raise ValueError("trace_3d: walk tables must be 16-byte aligned")
+    ids = None
+    if grid is not None:
+        ids = grid.candidate_ids(mesh.walk_geom)
+    mesh_t = (mesh.elem2faces, mesh.face2verts, mesh.coords, mesh.elem2verts)
+    kernels.use_kernel("trace3d", dest, *mesh_t, *(() if ids is None else (ids,)))
+    dev = dest.device
+    elem = torch.empty(n, dtype=torch.int32, device=dev)
+    act = torch.empty(n, dtype=torch.bool, device=dev)
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    new_dest = torch.empty_like(dest) if (reflect or recover == "project") else None
+    rec = None
+    if record_exit:
+        rec = (torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev), torch.empty_like(dest))
+    it0 = 0 if grid is None else 1
+    oh = (ctypes.c_float * 6)(*((0.0,) * 6 if grid is None
+                                else (*grid.origin, *grid.inv_h)))
+    nxyz = (1, 1, 1) if grid is None else (grid.nx, grid.ny, grid.nz)
+    P = ctypes.c_void_p
+
+    def ptr(t):
+        return P(None if t is None else t.data_ptr())
+
+    err = _build.lib().pp_trace_3d(
+        ptr(orig), ptr(dest), ptr(elem_start), ptr(active), ptr(table),
+        ptr(mesh.walk_geom), *(ptr(t) for t in mesh_t), E, ptr(ids), oh, *nxyz,
+        max_iters, it0, CORES[core], reflect, int(record_exit),
+        int(recover == "project"), ptr(elem), ptr(act), ptr(new_dest),
+        *(ptr(t) for t in (rec or (None,) * 3)), ptr(stats), n,
+        P(kernels.stream_handle()))
+    _build.check(err, "trace3d")
+    kernels.LAUNCHES["trace3d"] += 1
+    out = dest if new_dest is None else new_dest
+    extra = {}
+    if record_exit:
+        extra = dict(exit_side=rec[0], num_hits=rec[1], hit_c=tuple(rec[2].unbind(1)))
+    if recover == "project":
+        extra["num_recovered"] = stats[2]
+    return SearchResult(elem, tuple(out.unbind(1)), stats[0] + it0, stats[1] == 0,
+                        act, **extra)
+
+
+# ---------------------------------------------------------------------------
+# public API, tets
+# ---------------------------------------------------------------------------
 
 def _dest3(x_tgt) -> torch.Tensor:
     """(N, 3) contiguous f32 destinations from an array or a tuple of
@@ -447,23 +896,35 @@ def _dest3(x_tgt) -> torch.Tensor:
     return x_tgt.contiguous()
 
 
+def _fast_case(method: str, boundary_handler, record_exit: bool, recover: str) -> bool:
+    """The case kernel L3 runs: the BCC core, remove-on-exit, no exit record
+    and no recovery."""
+    return (core_of(method) == "bcc" and boundary_handler is remove_on_exit
+            and not record_exit and recover == "off")
+
+
 def search_mesh_3d(mesh: Mesh3D, x_orig, x_tgt, elem_init: torch.Tensor,
                    active: torch.Tensor, max_iters: int = 200,
                    boundary_handler=remove_on_exit, method: str = "bcc",
                    record_exit: bool = False, widths=None,
                    recover: str = "off") -> SearchResult:
-    """Tet-mesh BCC walk of every active particle from ``elem_init``
-    (clamped into range) to the tet containing ``x_tgt`` (kernel L3's plain
-    walk): greedy descent across the face opposite the most negative vertex
-    weight; a walker crossing an exposed face is deleted; walkers left at
-    the iteration limit are deleted.  Inactive particles get INVALID.
-    ``widths`` (the TPU compaction pyramid) is accepted and ignored."""
-    _check_options(boundary_handler, record_exit, recover)
-    _check_method(method)
+    """Tet-mesh walk of every active particle from ``elem_init`` (clamped
+    into range) to the tet containing ``x_tgt``; inactive particles get
+    INVALID; walkers left at the iteration limit are deleted (or, with
+    ``recover="project"``, recovered where they are stranded at their
+    tet's closure).  The BCC core with :func:`remove_on_exit` and neither
+    ``record_exit`` nor ``recover`` runs kernel L3's plain walk; every other
+    case :func:`trace_3d` (kernel M).  ``widths`` (the TPU compaction
+    pyramid) is accepted and ignored."""
+    _check_walk_options(boundary_handler, recover)
     dest = _dest3(x_tgt)
-    elem, act, iters, all_found, _ = walk_locate_3d(
-        mesh.walk_geom, dest, elem_init.to(torch.int32), active, max_iters)
-    return SearchResult(elem, dest.unbind(1), iters, all_found, act)
+    if _fast_case(method, boundary_handler, record_exit, recover):
+        elem, act, iters, all_found, _ = walk_locate_3d(
+            mesh.walk_geom, dest, elem_init.to(torch.int32), active, max_iters)
+        return SearchResult(elem, dest.unbind(1), iters, all_found, act)
+    orig = None if x_orig is None else _dest3(x_orig)
+    return trace_3d(mesh, orig, dest, elem_init.to(torch.int32), active, max_iters,
+                    method, boundary_handler, record_exit, recover)
 
 
 def search_mesh_3d_accel(mesh: Mesh3D, grid: LocatorGrid3D, x_orig, x_tgt,
@@ -472,27 +933,79 @@ def search_mesh_3d_accel(mesh: Mesh3D, grid: LocatorGrid3D, x_orig, x_tgt,
                          boundary_handler=remove_on_exit, method: str = "bcc",
                          record_exit: bool = False, widths=None,
                          recover: str = "off") -> SearchResult:
-    """Grid-accelerated tet search through the cell-candidate peel (kernel
-    L3, which reads the grid's checked candidate id pair; its plain version
-    the 26-column rows): results equal :func:`search_mesh_3d`'s, with the peel counted as
-    one iteration and a guess walk that retries once from the clamped
-    ``elem_prev`` where it meets the boundary."""
-    _check_options(boundary_handler, record_exit, recover)
-    _check_method(method)
+    """Grid-accelerated tet search through the cell-candidate peel: results
+    equal :func:`search_mesh_3d`'s, with the peel counted as one iteration
+    and a guess walk that retries once from the clamped ``elem_prev`` where
+    it meets the boundary (a guess walk's boundary hit is never a real
+    hit).  Kernel L3 in the fast case, kernel M in every other."""
+    _check_walk_options(boundary_handler, recover)
     if grid.cell_rows is None:
         raise NotImplementedError("only the cell-rows peel is ported")
     dest = _dest3(x_tgt)
-    elem, act, iters, all_found, _ = walk_locate_3d(
-        mesh.walk_geom, dest, elem_prev.to(torch.int32), active, max_iters,
-        grid=grid)
-    return SearchResult(elem, dest.unbind(1), iters, all_found, act)
+    if _fast_case(method, boundary_handler, record_exit, recover):
+        elem, act, iters, all_found, _ = walk_locate_3d(
+            mesh.walk_geom, dest, elem_prev.to(torch.int32), active, max_iters,
+            grid=grid)
+        return SearchResult(elem, dest.unbind(1), iters, all_found, act)
+    orig = None if x_orig is None else _dest3(x_orig)
+    return trace_3d(mesh, orig, dest, elem_prev.to(torch.int32), active, max_iters,
+                    method, boundary_handler, record_exit, recover, grid=grid)
 
 
-def check_initial_parents(*args, **kwargs):
-    """Not ported yet (the next 3D slice): raises."""
-    raise NotImplementedError("check_initial_parents is not ported")
+def check_initial_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.Tensor,
+                          mode: str = "repair", max_iters: int = 32, locator=None):
+    """Validate, and with ``mode="repair"`` repair, the claimed parents on
+    walk entry (``check_initial_parents``, adjacency.tpp:72-151): a particle
+    whose origin its parent does not contain (BCC test with the walk's
+    tolerance), or whose parent id is out of range, is bad.  "delete" gives
+    bad particles INVALID; "repair" walks each from its clamped parent (or
+    ``locator``'s guess of its origin) to its origin and deletes only those
+    that walk off the mesh.  Returns (elem i32, num_bad, num_repaired), with
+    INVALID where inactive or deleted."""
+    if mode not in ("delete", "repair"):
+        raise ValueError(f"unknown mode {mode!r}; expected 'delete' or 'repair'")
+    orig = _components(x_orig)
+    e_raw = elem_init.to(torch.int32)
+    in_table = (e_raw >= 0) & (e_raw < mesh.nelems)
+    e_safe = torch.clamp(e_raw, 0, mesh.nelems - 1)
+    g = mesh.walk_geom[e_safe.long()]
+    if mesh.dim == 2:
+        inside = bary_inside(*g[:, 0:6].unbind(1), *orig)[3]
+    else:
+        inside = bary_inside_3d(g[:, 0:12].unbind(1), *orig)[4]
+    bad = active & (~inside | ~in_table)
+    num_bad = bad.sum().to(torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=e_raw.device)
+    if mode == "delete":
+        return torch.where(active & ~bad, e_safe, INVALID), num_bad, zero
+    start = e_safe
+    if locator is not None:
+        start = locator.cell_elem[locator.cell_of(*orig).long()]
+    x = torch.stack(orig, dim=1).contiguous()
+    search = search_mesh_2d if mesh.dim == 2 else search_mesh_3d
+    res = search(mesh, x, x, start.to(torch.int32), bad, max_iters)
+    repaired = bad & (res.elem_ids >= 0)
+    elem = torch.where(bad, res.elem_ids, torch.where(active, e_safe, INVALID))
+    return elem, num_bad, repaired.sum().to(torch.int32)
 
 
-def trace_particle_through_mesh(*args, **kwargs):
-    """Not ported yet (the next 3D slice): raises."""
-    raise NotImplementedError("trace_particle_through_mesh is not ported")
+def trace_particle_through_mesh(mesh, x_orig, x_tgt, elem_init: torch.Tensor,
+                                active: torch.Tensor, max_iters: int = 200,
+                                boundary_handler=remove_on_exit,
+                                record_exit: bool = False,
+                                validate_parents: str = "off",
+                                recover: str = "off") -> SearchResult:
+    """The unified 2D/3D driver (``trace_particle_through_mesh``,
+    adjacency.tpp:460-615): with ``validate_parents`` "delete" or "repair",
+    :func:`check_initial_parents` first; then :func:`search_mesh_2d` (which
+    refuses the 2D reflect, ``record_exit`` and ``recover``) or
+    :func:`search_mesh_3d`."""
+    if validate_parents != "off":
+        elem_init, _, _ = check_initial_parents(mesh, x_orig, elem_init, active,
+                                                mode=validate_parents)
+        active = active & (elem_init >= 0)
+    if mesh.dim == 2:
+        return search_mesh_2d(mesh, x_orig, x_tgt, elem_init, active, max_iters,
+                              boundary_handler, record_exit, recover=recover)
+    return search_mesh_3d(mesh, x_orig, x_tgt, elem_init, active, max_iters,
+                          boundary_handler, record_exit=record_exit, recover=recover)

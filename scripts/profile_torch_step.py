@@ -6,7 +6,10 @@ For each arm (default: ``cartesian``; also ``band``, ``annulus``,
 ``pprad``, ``rotgather``, the arms of ``chip_smoke.py``), sets up
 bench_torch's configuration of that arm (default 10M particles); ``pps3d``
 and ``pps3d-walk`` are bench_torch's pseudoPushAndSearch arms (the Kuhn
-box, DPS, kernel K or kernel L3); the ``app`` arm builds
+box, DPS, kernel K or kernel L3), ``pps3d-reflect`` its reflecting-wall
+arm (K's push-only form and kernel M's peel form); ``gitr-reflect`` and
+``gitr-absorb`` are bench_torch's GITR-style arms (kernels R, M and W on
+the 196,608-tet box); the ``app`` arm builds
 the single-device ``PseudoXGCm`` app on a Sell-C-σ structure with the same
 mesh and settings (its step adds the sorted rebuild: the stable sort,
 kernels H, S and G), ``app-<structure>`` on another structure (``csr``,
@@ -42,6 +45,11 @@ ARMS = {  # arm -> bench_torch.setup keywords
 PPS3D_ARMS = {  # arm -> bench_torch.setup_pps3d keywords
     "pps3d": {"kuhn": "auto"},
     "pps3d-walk": {"kuhn": "off"},
+    "pps3d-reflect": {"kuhn": "off", "wall": "reflect"},
+}
+GITR_ARMS = {  # arm -> bench_torch.setup_gitr keywords
+    "gitr-reflect": {"wall": "reflect"},
+    "gitr-absorb": {"wall": "absorb"},
 }
 
 
@@ -74,6 +82,8 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
         state, step, info = app_setup(dev, n, arm[4:] or "scs")
     elif arm in PPS3D_ARMS:
         _, state, step, info = bench_torch.setup_pps3d(dev, n, **PPS3D_ARMS[arm])
+    elif arm in GITR_ARMS:
+        _, state, step, info = bench_torch.setup_gitr(dev, n, **GITR_ARMS[arm])
     else:
         _, state, step, info = bench_torch.setup(dev, n, **ARMS[arm])
     state, _ = step(state)
@@ -98,7 +108,7 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
             continue                      # host ops; their kernels are listed
         by_kernel[ev.key.split("(")[0]] = ev.self_device_time_total / 1e3 / steps
     busy = sum(by_kernel.values())
-    alive = state["active"] if arm in ARMS else state.active
+    alive = state["active"] if isinstance(state, dict) else state.active
     return {
         "arm": arm, "tag": info["tag"], "card": smi, "num_ptcls": n,
         "steps": steps, "setup_s": info["setup_s"],
@@ -120,7 +130,7 @@ def main() -> None:
     steps = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     arms = sys.argv[3:] or ["cartesian"]
     apps = ["app"] + [f"app-{s}" for s in ("csr", "cabm", "dps")]
-    known = sorted(ARMS) + sorted(PPS3D_ARMS) + apps
+    known = sorted(ARMS) + sorted(PPS3D_ARMS) + sorted(GITR_ARMS) + apps
     unknown = set(arms) - set(known)
     if unknown:
         raise ValueError(f"unknown arms {sorted(unknown)}; known: {known}")

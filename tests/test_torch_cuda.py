@@ -1,6 +1,7 @@
-"""Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D and
-their modes) against its plain PyTorch version on the same CUDA tensors
-(exact), and its launch counter.
+"""Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D, G,
+S, K, L3, and the GITR-style app's R, M and W, with their modes) against its
+plain PyTorch version on the same CUDA tensors (exact), and its launch
+counter.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no JAX, so it also runs where JAX is not installed, without the
@@ -895,3 +896,161 @@ def test_pps3d_app_card_equals_cpu(dev):
                     assert torch.equal(getattr(ag.ptcls, k).cpu(), getattr(ac.ptcls, k))
                 for k in ("x", "pid"):
                     assert torch.equal(ag.ptcls.fields[k].cpu(), ac.ptcls.fields[k])
+
+
+# ---------------------------------------------------------------------------
+# the GITR-style app's kernels: R (field + Boris push), M (3D walk modes), W
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 7])
+@pytest.mark.parametrize("b", [(0.0, 0.0, 1.3e-3), (0.3, -0.2, 0.5)])
+def test_boris_kernel_equals_plain(dev, n, b):
+    """R over points inside and outside a (5, 6, 7, 3) grid (the index and
+    fraction clamps), N(0, 1e3) velocities, a uniform B."""
+    rng = np.random.default_rng(n + 3)
+    x = torch.as_tensor(rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32), device=dev)
+    v = torch.as_tensor(rng.normal(0, 1e3, (n, 3)).astype(np.float32), device=dev)
+    grid = torch.as_tensor(rng.normal(0, 0.2, (5, 6, 7, 3)).astype(np.float32), device=dev)
+    o, h = np.zeros(3, np.float32), np.array([0.25, 0.2, 1 / 6], np.float32)
+    n0 = kernels.LAUNCHES["boris"]
+    got = push_ops.boris_push_grid(x, v, grid, o, h, np.asarray(b, np.float32), 2e-5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["boris"] == n0 + (1 if n else 0)
+    _equal(got, push_ops.boris_push_grid_plain(x, v, grid, o, h, np.asarray(b), 2e-5))
+
+
+def _tet_mesh(dev, n_side=6):
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.mesh.locator import build_locator_grid_3d
+
+    m = Mesh3D.from_arrays(*box_tet_mesh(n_side, n_side, n_side), device=dev)
+    grid = build_locator_grid_3d(m.coords.cpu().numpy(), m.elem2verts.cpu().numpy(),
+                                 cells_per_elem=16.0, walk_geom=m.walk_geom, device=dev)
+    return m, grid
+
+
+def _same(a, b):
+    """Equal values, NaN where the other is NaN."""
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+    return torch.equal(a, b)
+
+
+def _trace_equal(got, want):
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        for x, y in (zip(a, b) if isinstance(a, tuple) else ((a, b),) if a is not None
+                     else ()):
+            assert _same(x, y), f
+
+
+@pytest.mark.parametrize("peel", [False, True])
+@pytest.mark.parametrize("recover", ["off", "project"])
+@pytest.mark.parametrize("record_exit", [False, True])
+@pytest.mark.parametrize("handler", ["remove", "reflect"])
+@pytest.mark.parametrize("method", ["bcc", "hybrid", "intersection"])
+def test_trace3d_kernel_equals_plain(dev, method, handler, record_exit, recover, peel):
+    """M in every template (core, handler, record) and with the run-time
+    recovery and peel, over walkers that leave the box, garbage starts,
+    inactive particles, stationary walkers and lattice points, at budgets
+    that leave survivors (3) and that do not (64).  The hybrid core with the
+    reflecting wall leaves one walker at any budget (index 310, whose
+    restarted segment runs in a shared face and cycles; the JAX reference
+    loses it too)."""
+    m, grid = _tet_mesh(dev)
+    n = 20_011
+    e0, act, dest = _tet_walkers(dev, m, n, 7)
+    orig = m.elem_centroids[torch.clamp(e0, 0, m.nelems - 1).long()].contiguous()
+    dest[n // 8: n // 8 + 500] = orig[n // 8: n // 8 + 500]
+    h = se.reflect_on_exit_3d if handler == "reflect" else se.remove_on_exit
+    for max_iters in (64, 3):
+        args = (m, orig, dest, e0, act, max_iters, method, h, record_exit, recover,
+                grid if peel else None)
+        n0 = kernels.LAUNCHES["trace3d"]
+        got = se.trace_3d(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["trace3d"] == n0 + 1
+        _trace_equal(got, se.trace_3d_plain(*args))
+        if max_iters == 64:
+            assert bool(got.all_found) == ((method, handler) != ("hybrid", "reflect"))
+
+
+def test_trace3d_kernel_far_targets_and_nan(dev):
+    """Long walks (targets across the box from their start) and NaN targets
+    (no hang; deleted at the limit, but for the intersection core, whose
+    rule for a moving walker that exits no face accepts them, as the
+    reference's does)."""
+    m, grid = _tet_mesh(dev, 8)
+    n = 50_000
+    rng = np.random.default_rng(9)
+    e0 = torch.as_tensor(rng.integers(0, m.nelems, n).astype(np.int32), device=dev)
+    orig = m.elem_centroids[e0.long()].contiguous()
+    dest = torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32), device=dev)
+    dest[:7] = float("nan")
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    for method in ("bcc", "hybrid", "intersection"):
+        args = (m, orig, dest, e0, act, 200, method, se.reflect_on_exit_3d, True, "project")
+        got = se.trace_3d(*args)
+        _trace_equal(got, se.trace_3d_plain(*args))
+        assert int(got.iters) > 20
+        assert bool(got.active[:7].all()) == (method == "intersection")
+
+
+def test_trace3d_kernel_refuses_other_handlers(dev):
+    m, _ = _tet_mesh(dev, 2)
+    x = torch.full((4, 3), 0.5, device=dev)
+    e = torch.zeros(4, dtype=torch.int32, device=dev)
+    a = torch.ones(4, dtype=torch.bool, device=dev)
+
+    def my_handler(ctx):
+        return se.remove_on_exit(ctx)
+
+    n0 = kernels.LAUNCHES["trace3d"]
+    with pytest.raises(NotImplementedError):
+        se.search_mesh_3d(m, x, x, e, a, 8, boundary_handler=my_handler)
+    assert kernels.LAUNCHES["trace3d"] == n0
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 17, (1 << 20) + 7])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("view", [False, True])
+def test_wall_tally_kernel_equals_plain(dev, n, weighted, view):
+    """W: sides in and out of range, masked particles, weights <= 0, a view
+    that starts one particle in (the scalar head of H's loads)."""
+    rng = np.random.default_rng(n + 1)
+    side = torch.as_tensor(rng.integers(-2, 400, n + 1).astype(np.int32), device=dev)
+    mask = torch.as_tensor(rng.uniform(size=n + 1) < 0.3, device=dev)
+    w = torch.as_tensor(rng.integers(-1, 5, n + 1).astype(np.int32), device=dev)
+    sl = slice(1, None) if view else slice(0, n)
+    args = (side[sl], mask[sl], w[sl] if weighted else None, 390)
+    n0 = kernels.LAUNCHES["wall_tally"]
+    got = sc.wall_tally(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wall_tally"] == n0 + (1 if n else 0)
+    assert torch.equal(got, sc.wall_tally_plain(*args))
+
+
+@pytest.mark.parametrize("wall", ["absorb", "reflect"])
+def test_gitr_app_card_equals_cpu(dev, wall):
+    """The GITR-style app at a small size on the card and on the CPU for 3
+    steps: state and wall_hits equal bit for bit."""
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.models import gitr_like as gl
+
+    raw = box_tet_mesh(6, 6, 6)
+    rng = np.random.default_rng(1)
+    grid = rng.normal(0, 0.2, (7, 7, 7, 3)).astype(np.float32)
+    o, h = np.zeros(3, np.float32), np.full(3, 1 / 6, np.float32)
+    cfg = gl.GitrConfig(num_ptcls=50_000, dt=2e-5, b_field=(0.0, 0.0, 1.3e-3), wall=wall)
+    apps = [gl.GitrLike(Mesh3D.from_arrays(*raw, device=d), cfg, grid, o, h, device=d)
+            for d in (dev, "cpu")]
+    for _ in range(3):
+        hist = [a.run(1) for a in apps]
+        assert hist[0] == hist[1]
+        for k in ("x", "v", "elem", "active"):
+            assert torch.equal(apps[0].state[k].cpu(), apps[1].state[k]), k
+        assert torch.equal(apps[0].wall_hits.cpu(), apps[1].wall_hits)

@@ -24,7 +24,7 @@ from pumipic_tpu.mesh.core import Mesh3D as JMesh3D
 from pumipic_tpu.models import pseudo_push_and_search as jp
 from pumipic_tpu.ops import search as j_se
 from pumipic_torch import interop
-from pumipic_torch.mesh.core import Mesh3D
+from pumipic_torch.mesh.core import Mesh2D, Mesh3D
 from pumipic_torch.models import pseudo_push_and_search as tp
 from pumipic_torch.ops import search as t_se
 
@@ -99,26 +99,50 @@ def test_search_accepts_component_tuples_and_widths(box):
                                   "recover", "check_initial_parents", "trace",
                                   "no rows", "wall reflect"])
 def test_refused_options_raise_not_implemented(box, what):
+    """What the port still refuses raises NotImplementedError: the 3D peel
+    without cell rows ("no rows"), and in 2D the reflect, record_exit and
+    recovery (modes of kernel L that are not ported).  The 3D options this
+    test once refused run now (their parity with the reference is in
+    tests/test_torch_trace3d.py and tests/test_torch_gitr.py): each returns
+    its result here, and its 2D counterpart, where it has one, still
+    raises."""
     t = torch.from_numpy(box["xt"][:10])
-    args = (None, t, torch.zeros(10, dtype=torch.int32), torch.ones(10, dtype=torch.bool))
-    calls = {
+    e = torch.zeros(10, dtype=torch.int32)
+    a = torch.ones(10, dtype=torch.bool)
+    args = (t, t, e, a)
+    m2 = Mesh2D.from_arrays(*j_gen.disk_mesh(2, 8), device="cpu")
+    x2 = torch.full((10, 2), 0.1)
+    args2 = (x2, x2, e, a)
+    runs = {
         "hybrid": lambda: t_se.search_mesh_3d(box["tm"], *args, method="hybrid"),
         "intersection": lambda: t_se.search_mesh_3d_accel(
             box["tm"], box["tg"], *args, method="intersection"),
         "reflect": lambda: t_se.search_mesh_3d(
-            box["tm"], *args, boundary_handler=j_se.reflect_on_exit_3d),
+            box["tm"], *args, boundary_handler=t_se.reflect_on_exit_3d),
         "record_exit": lambda: t_se.search_mesh_3d(box["tm"], *args, record_exit=True),
         "recover": lambda: t_se.search_mesh_3d_accel(box["tm"], box["tg"], *args,
                                                      recover="project"),
-        "check_initial_parents": lambda: t_se.check_initial_parents(box["tm"]),
-        "trace": lambda: t_se.trace_particle_through_mesh(box["tm"]),
-        "no rows": lambda: t_se.search_mesh_3d_accel(
-            box["tm"], dc.replace(box["tg"], cell_rows=None), *args),
+        "check_initial_parents": lambda: t_se.check_initial_parents(box["tm"], t, e, a),
+        "trace": lambda: t_se.trace_particle_through_mesh(box["tm"], *args),
         "wall reflect": lambda: tp.PseudoPushAndSearch(
             box["tm"], tp.PushSearchConfig(num_ptcls=10, wall="reflect"), device="cpu"),
     }
-    with pytest.raises(NotImplementedError):
-        calls[what]()
+    still_refused = {
+        "reflect": lambda: t_se.search_mesh_2d(
+            m2, *args2, boundary_handler=t_se.reflect_on_exit_3d),
+        "record_exit": lambda: t_se.search_mesh_2d(m2, *args2, record_exit=True),
+        "recover": lambda: t_se.search_mesh_2d(m2, *args2, recover="project"),
+        "trace": lambda: t_se.trace_particle_through_mesh(m2, *args2, record_exit=True),
+        "no rows": lambda: t_se.search_mesh_3d_accel(
+            box["tm"], dc.replace(box["tg"], cell_rows=None), *args),
+    }
+    if what in runs:
+        out = runs[what]()
+        if isinstance(out, t_se.SearchResult):
+            assert out.elem_ids.shape == (10,) and bool(out.all_found)
+    if what in still_refused:
+        with pytest.raises(NotImplementedError):
+            still_refused[what]()
 
 
 def test_config_fields_and_policy_match_reference():

@@ -4,18 +4,25 @@ with the JAX reference, plus the kernel wrappers' device rules.
 Push floats: rtol 1e-6, atol 1e-6 — XLA's CPU libm and fusion differ from
 torch's (the per-class cos/sin and the atan2 of the setup).  The rotation
 table: within 1 ulp of XLA's f32 cos/sin (the port's are f64 rounded).  The
-straight-line push: equal (one f32 add of the same f32 displacement)."""
+straight-line push: equal (one f32 add of the same f32 displacement).  The
+Boris push: rtol 1e-6 on velocities and positions (XLA contracts some of the
+trilinear sum's and the rotation's products into FMAs, torch rounds each
+product; the difference is an ulp or two), and boris_push_grid's plain
+version equals interpolate_3d_grid followed by boris_push bit for bit."""
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 from pumipic_tpu.mesh import generate as j_gen
+from pumipic_tpu.ops import interpolate as j_interp
 from pumipic_tpu.ops import push as j_push
 from pumipic_torch import kernels
 from pumipic_torch.kernels import _build
-from pumipic_torch.mesh.core import Mesh2D
+from pumipic_torch.mesh.core import Mesh2D, Mesh3D
+from pumipic_torch.mesh.generate import box_tet_mesh
 from pumipic_torch.mesh.locator import AnnulusLocator2D, BandGrid2D, KuhnLocator3D
+from pumipic_torch.ops import interpolate as t_interp
 from pumipic_torch.ops import locate as t_lo
 from pumipic_torch.ops import push as t_push
 from pumipic_torch.ops import scatter as t_sc
@@ -198,6 +205,8 @@ def _wrapper_calls(dev):
                            perm=torch.arange(32, dtype=torch.int32, device=dev))
     kuhn = KuhnLocator3D((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
                          perm=torch.arange(6, dtype=torch.int32, device=dev))
+    mesh3 = Mesh3D.from_arrays(*box_tet_mesh(1, 1, 1), device="cpu").to(dev)
+    grid3 = torch.zeros(2, 2, 2, 3, device=dev)
     x3 = torch.zeros(n, 3, device=dev)
     table = t_push.RotTable(torch.zeros(3, 2, device=dev))
     return {
@@ -212,12 +221,17 @@ def _wrapper_calls(dev):
         "histogram": lambda: t_sc.histogram(e, a, 3),
         "deposit": lambda: t_sc.scatter_to_mapped_verts(
             torch.zeros(mesh.nverts, 1, device=dev), gmap, mesh.nverts, 1, 1),
+        "boris": lambda: t_push.boris_push_grid(x3, x3, grid3, np.zeros(3), np.ones(3),
+                                                np.zeros(3), 1e-8),
+        "trace3d": lambda: t_se.trace_3d(mesh3, x3, x3, e, a, 4, method="intersection"),
+        "wall_tally": lambda: t_sc.wall_tally(e, a, e, 3),
     }
 
 
 @pytest.mark.parametrize("name", ["push", "push table", "band_cell", "annulus_locate",
                                   "locate", "histogram", "deposit", "kuhn_locate",
-                                  "push_wrap", "locate3d"])
+                                  "push_wrap", "locate3d", "boris", "trace3d",
+                                  "wall_tally"])
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices(name):
     """On CPU tensors a wrapper runs its plain version and counts no launch;
     on a device that is neither CPU nor CUDA it raises (no fallback)."""
@@ -234,9 +248,82 @@ def test_kernel_build_flags():
     assert "-fmad=false" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.sources()) == [
-        "annulus.cu", "band.cu", "deposit.cu", "gather.cu", "histogram.cu",
-        "kuhn.cu", "locate.cu", "locate3d.cu", "push.cu", "slotmap.cu"]
+        "annulus.cu", "band.cu", "boris.cu", "deposit.cu", "gather.cu", "histogram.cu",
+        "kuhn.cu", "locate.cu", "locate3d.cu", "push.cu", "slotmap.cu", "trace3d.cu"]
     assert "-shared" not in _build.NVCC_FLAGS      # compile flags; the link adds it
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()
                    for p in _build.sources()), name
+
+
+# ---------------------------------------------------------------------------
+# the Boris push and kernel R's plain version
+# ---------------------------------------------------------------------------
+
+def _boris_inputs(n=20_000, b=(0.0, 0.0, 1.3e-3)):
+    """Positions over (and a little outside) a (5, 6, 7, 3) E grid of cell
+    spacing (0.25, 0.2, 1/6) from the origin, N(0, 1e3) velocities, N(0,
+    0.2) V/m field values, a uniform B."""
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    v = rng.normal(0, 1e3, (n, 3)).astype(np.float32)
+    grid = rng.normal(0, 0.2, (5, 6, 7, 3)).astype(np.float32)
+    o = np.zeros(3, np.float32)
+    h = np.array([0.25, 0.2, 1 / 6], np.float32)
+    return x, v, grid, o, h, np.asarray(b, np.float32)
+
+
+@pytest.mark.parametrize("b", [(0.0, 0.0, 1.3e-3), (0.3, -0.2, 0.5), (0.0, 0.0, 0.0)])
+@pytest.mark.parametrize("dt", [2e-5, 1e-8])
+def test_boris_push_matches_reference(b, dt):
+    x, v, grid, o, h, bv = _boris_inputs(b=b)
+    rng = np.random.default_rng(5)
+    e = rng.normal(0, 0.2, x.shape).astype(np.float32)
+    B = np.ascontiguousarray(np.broadcast_to(bv, x.shape))
+    xr, vr = j_push.boris_push(jnp.asarray(x), jnp.asarray(v), jnp.asarray(e),
+                               jnp.asarray(B), dt, 1.0, 10.0)
+    xt, vt = t_push.boris_push(torch.from_numpy(x), torch.from_numpy(v),
+                               torch.from_numpy(e), torch.from_numpy(B), dt, 1.0, 10.0)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vr), rtol=RTOL, atol=1e-3)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xr), rtol=RTOL, atol=ATOL)
+    # the f32 rounding of q' and 2q' is the JAX package's weak-type rounding
+    qp, two_qp = t_push.boris_factors(dt, 1.0, 10.0)
+    assert two_qp == 2 * qp and qp == float(np.float32(
+        1.0 * t_push.ELEMENTARY_CHARGE / (10.0 * t_push.PROTON_MASS) * dt * 0.5))
+
+
+@pytest.mark.parametrize("b", [(0.0, 0.0, 1.3e-3), (0.3, -0.2, 0.5)])
+def test_boris_push_grid_matches_reference(b):
+    """The fused wrapper on the CPU (its plain version) against the JAX
+    package's interpolate_3d_grid + boris_push, and bit for bit against the
+    port's two steps."""
+    x, v, grid, o, h, bv = _boris_inputs(b=b)
+    e_r = j_interp.interpolate_3d_grid(jnp.asarray(grid), jnp.asarray(o), jnp.asarray(h),
+                                       jnp.asarray(x))
+    xr, vr = j_push.boris_push(jnp.asarray(x), jnp.asarray(v), e_r,
+                               jnp.broadcast_to(jnp.asarray(bv), x.shape), 2e-5, 1.0, 10.0)
+    kernels.reset_launches()
+    xt, vt = t_push.boris_push_grid(torch.from_numpy(x), torch.from_numpy(v),
+                                    torch.from_numpy(grid), o, h, bv, 2e-5)
+    assert not any(kernels.LAUNCHES.values())
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vr), rtol=RTOL, atol=1e-3)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xr), rtol=RTOL, atol=ATOL)
+    e_t = t_interp.interpolate_3d_grid(torch.from_numpy(grid), torch.from_numpy(o),
+                                       torch.from_numpy(h), torch.from_numpy(x))
+    x2, v2 = t_push.boris_push(torch.from_numpy(x), torch.from_numpy(v), e_t,
+                               torch.from_numpy(np.ascontiguousarray(
+                                   np.broadcast_to(bv, x.shape))), 2e-5, 1.0, 10.0)
+    assert torch.equal(xt, x2) and torch.equal(vt, v2)
+
+
+def test_boris_push_conserves_speed_without_e():
+    """With E = 0 the Boris rotation conserves |v| to f32 rounding, and a
+    zero B leaves v unchanged."""
+    x, v, grid, o, h, bv = _boris_inputs(b=(0.2, 0.1, 0.9))
+    zero = np.zeros_like(grid)
+    _, vt = t_push.boris_push_grid(torch.from_numpy(x), torch.from_numpy(v),
+                                   torch.from_numpy(zero), o, h, bv, 1e-6)
+    np.testing.assert_allclose(vt.norm(dim=1).numpy(), np.linalg.norm(v, axis=1), rtol=1e-5)
+    _, v0 = t_push.boris_push_grid(torch.from_numpy(x), torch.from_numpy(v),
+                                   torch.from_numpy(zero), o, h, np.zeros(3), 1e-6)
+    assert torch.equal(v0, torch.from_numpy(v))
