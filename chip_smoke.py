@@ -428,7 +428,7 @@ def phase_a() -> str:
 
 def ptxas_functions(report: str) -> list:
     """Each entry function of a ``ptxas -v`` report: its (mangled) name,
-    registers, shared memory and spilled bytes."""
+    registers, stack frame, shared memory and spilled bytes."""
     funcs = []
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -437,6 +437,8 @@ def ptxas_functions(report: str) -> list:
         elif funcs and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                        line)):
             funcs[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            if st := re.search(r"(\d+) bytes stack frame", line):
+                funcs[-1]["stack_bytes"] = int(st.group(1))
         elif funcs and (m := re.search(r"Used (\d+) registers", line)):
             s = re.search(r"(\d+) bytes smem", line)
             funcs[-1].update(registers=int(m.group(1)), smem_bytes=int(s.group(1)) if s else 0)
@@ -1279,13 +1281,13 @@ def check_gitr(results: dict, dev):
     s = app.state
     n = s["x"].shape[0]
 
-    # R: the step's field and push
-    rargs = (s["x"], s["v"], app.e_grid, app.e_origin, app.e_spacing, app.b_field,
-             cfg.dt, cfg.charge, cfg.amu)
-    got_r = push_ops.boris_push_grid(*rargs)
+    # R: the step's field and push, as the app's step calls it (the corner
+    # rows it built, the field's vectors on the host)
+    rargs = (s["x"], s["v"], app.e_grid, *app.field_host, cfg.dt, cfg.charge, cfg.amu)
+    got_r = push_ops.boris_push_grid(*rargs, corners=app.e_corners)
     compare("boris", f"grid E + Boris push ({n} particles, {tuple(grid.shape)} grid)",
             got_r, push_ops.boris_push_grid_plain(*rargs), results)
-    time_pair("boris", "", lambda: push_ops.boris_push_grid(*rargs),
+    time_pair("boris", "", lambda: push_ops.boris_push_grid(*rargs, corners=app.e_corners),
               lambda: push_ops.boris_push_grid_plain(*rargs), results)
     # 24 bytes in and 24 out a particle, the grid once; ~120 f32 operations
     record_bound("boris", "", results, nbytes(s["x"], s["v"], app.e_grid, *got_r),
@@ -1293,7 +1295,13 @@ def check_gitr(results: dict, dev):
     x_new = got_r[0]
 
     # M: the step's walk (intersection, reflect, record_exit) first, then
-    # the other cores and handlers
+    # the other cores and handlers; each template's resident blocks per SM
+    from pumipic_torch.kernels import _build
+
+    results["trace3d"].setdefault("extra", {})["resident_blocks_per_sm"] = {
+        f"{method} {'reflect' if r else 'remove'}{' record' if d else ''}":
+            _build.lib().pp_trace_3d_blocks_per_sm(se.CORES[method], r, d)
+        for method in ("intersection", "bcc", "hybrid") for r in (1, 0) for d in (1, 0)}
     res = {}
     for method in ("intersection", "bcc", "hybrid"):
         for hname, handler in (("reflect", se.reflect_on_exit_3d),

@@ -82,14 +82,15 @@ SIGNATURES = {
     "pp_trace_3d": [
         _P, _P, _P, _P,                      # orig dest elem_start active
         _P, _P,                              # walk table (geom|planes) walk_geom
-        _P, _P, _P, _P, _I,                  # elem2faces face2verts coords elem2verts n_elems
+        _P, _P, _P, _P, _I,                  # elem2faces normals coords elem2verts n_elems
         _P, _P, _I, _I, _I,                  # cell_ids origin|inv_h nx ny nz
         _I, _I, _I, _I, _I, _I,              # max_iters it0 core reflect record recover
         _P, _P, _P,                          # elem_out active_out dest_out
         _P, _P, _P, _P,                      # exit_side num_hits hit_out stats
         _L, _P],                             # n stream
+    "pp_trace_3d_blocks_per_sm": [_I, _I, _I],   # core reflect record
     "pp_boris_grid": [
-        _P, _P, _P, _I, _I, _I,              # x v e_grid nx ny nz
+        _P, _P, _P, _I, _I, _I,              # x v corner_rows nx ny nz
         _P, _P, _P, _L, _P],                 # params(host) x_out v_out n stream
     "pp_band_cell": [_P, _P, _L, _P, _P, _P],  # px py n params(host) cells stream
     "pp_annulus_locate": [

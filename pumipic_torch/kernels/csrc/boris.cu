@@ -8,29 +8,45 @@
 //
 // What bounds it on an H100: device-memory traffic.  Per particle 24 bytes
 // in (x, v) and 24 out (x', v'), 480 MB at 10M, 0.143 ms at 3.35 TB/s; the
-// (33, 33, 33, 3) f32 grid (431 KB) stays in L1/L2, and its 8 corner loads
-// of 12 bytes are L2 hits.  About 120 f32 operations a particle, far below
-// the card's f32 rate.
+// field stays in L2.  About 120 f32 operations a particle, far below the
+// card's f32 rate.
 //
-// Design: one thread per particle, no shared memory.  The arithmetic is the
-// plain version's, in its order: rel = (x - origin) / spacing as an IEEE
-// division, the floored index clamped to [0, n - 2], the fraction clamped to
-// [0, 1] (NaN stays NaN, as torch.clamp), the eight corners summed from 0.0
-// in the order di, dj, dk with each weight a left-to-right product; then
-// |B| = sqrt(b0² + b1² + b2²), coeff = 2q' / (1 + (q'|B|)²) and the Boris
-// steps with jnp.cross's component formula.  q', 2q' and dt come rounded to
-// f32 from the host (the JAX package's weak-typed Python floats round them
-// so).  Built with -fmad=false, so each product and sum rounds as the plain
-// version's separate ops do.
+// Design (scripts/ab_boris_trace3d.py's probes of the first R, one thread a
+// particle reading the (nx, ny, nz, 3) grid's 8 corners as 24 scalar loads
+// and x, v one component an instruction: the corner rows alone took it from
+// 0.49 to 0.30 ms, x and v staged through shared memory alone gained
+// nothing; PERF.md):
+// - The corners as whole rows: a cell-major table (grid_corner_rows), one
+//   128-byte row a cell holding its 8 corners x 3 components in the order
+//   the sum takes them (di, dj, dk; x, y, z), 24 floats and 8 of padding
+//   (4.2 MB at 32^3 cells, in L2), in place of 24 scalar gathers at
+//   unrelated cells.
+// - The warp loads its 32 rows together: each lane reads 16-byte parts of
+//   its neighbours' rows, so a load instruction touches about 6 rows' lines
+//   in place of 32 (the gather is bound by the lines each load touches,
+//   not by the bytes), and the parts meet in shared memory.
+// - Per-launch constants from the host: the coefficient 2q'/(1 + (q'|B|)²)
+//   in numpy f32 scalars, each operation rounded once as the plain
+//   version's tensors round it.
+// The arithmetic is the plain version's, in its order: rel = (x - origin)
+// / spacing as an IEEE division, the floored index clamped to [0, n - 2],
+// the fraction clamped to [0, 1] (NaN stays NaN, as torch.clamp), the eight
+// corners summed from 0.0 in the order di, dj, dk with each weight a
+// left-to-right product; then the Boris steps with jnp.cross's component
+// formula.  q' and dt come rounded to f32 from the host (the JAX package's
+// weak-typed Python floats round them so).  Built with -fmad=false, so each
+// product and sum rounds as the plain version's separate ops do.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #define R_THREADS 256
+#define R_ROW4 7                      // float4s between two rows in shared memory
+#define FULL_MASK 0xffffffffu
 
 struct BorisParams {
   float origin[3], spacing[3], b[3];
-  float qp, two_qp, dt;
+  float qp, coeff, dt;
 };
 
 __device__ __forceinline__ float clamp01(float t) {
@@ -45,15 +61,17 @@ __device__ __forceinline__ void cross3(const float a[3], const float b[3], float
 
 __global__ void __launch_bounds__(R_THREADS) boris_grid_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
-    const float* __restrict__ grid, int nx, int ny, int nz, BorisParams p,
+    const float4* __restrict__ corners, int nx, int ny, int nz, BorisParams p,
     float* __restrict__ x_out, float* __restrict__ v_out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float xi[3], vi[3];
+  const bool live = i < n;
+  float xi[3] = {0.0f, 0.0f, 0.0f}, vi[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    xi[c] = x[3 * i + c];
-    vi[c] = v[3 * i + c];
+    for (int c = 0; c < 3; ++c) {
+      xi[c] = x[3 * i + c];
+      vi[c] = v[3 * i + c];
+    }
   }
   // the cell and fractions on each axis
   const int nn[3] = {nx, ny, nz};
@@ -65,24 +83,42 @@ __global__ void __launch_bounds__(R_THREADS) boris_grid_kernel(
     idx[c] = min(max((int)floorf(rel), 0), nn[c] - 2);
     f[c] = clamp01(rel - (float)idx[c]);
   }
+  // the cell's row: corner m = 4 di + 2 dj + dk at floats 3m .. 3m + 2
+  const int cell = live ? (idx[0] * (ny - 1) + idx[1]) * (nz - 1) + idx[2] : -1;
+  float g[24];
+  // the warp's 32 rows: load j's lane reads 16-byte part (32 j + lane) of
+  // the rows laid end to end (about 6 rows' lines a load, in place of 32),
+  // and the parts meet in the warp's shared rows (an odd stride of R_ROW4
+  // float4s: no bank conflict)
+  __shared__ float4 rows[R_THREADS / 32][32 * R_ROW4];
+  float4* wr = rows[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int c = 32 * j + lane, r = c / 6, part = c - 6 * r;
+    const int cr = __shfl_sync(FULL_MASK, cell, r);
+    if (cr >= 0) wr[R_ROW4 * r + part] = __ldg(corners + 8 * (size_t)cr + part);
+  }
+  __syncwarp();
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const float4 q = wr[R_ROW4 * lane + j];
+    g[4 * j] = q.x;
+    g[4 * j + 1] = q.y;
+    g[4 * j + 2] = q.z;
+    g[4 * j + 3] = q.w;
+  }
   float e[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int di = 0; di < 2; ++di)
+  for (int m = 0; m < 8; ++m) {
+    const int di = m >> 2, dj = (m >> 1) & 1, dk = m & 1;
+    const float w = (di ? f[0] : 1.0f - f[0]) * (dj ? f[1] : 1.0f - f[1]) *
+                    (dk ? f[2] : 1.0f - f[2]);
 #pragma unroll
-    for (int dj = 0; dj < 2; ++dj)
-#pragma unroll
-      for (int dk = 0; dk < 2; ++dk) {
-        const float w = (di ? f[0] : 1.0f - f[0]) * (dj ? f[1] : 1.0f - f[1]) *
-                        (dk ? f[2] : 1.0f - f[2]);
-        const float* g = grid + 3 * ((size_t)((idx[0] + di) * ny + idx[1] + dj) * nz +
-                                     idx[2] + dk);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) e[c] = e[c] + __ldg(g + c) * w;
-      }
+    for (int c = 0; c < 3; ++c) e[c] = e[c] + g[3 * m + c] * w;
+  }
   // Boris: v- = v - q'E; v' = v- + q'(v- x B); v+ = v- + coeff(v' x B) + q'E
-  const float b_mag = sqrtf(p.b[0] * p.b[0] + p.b[1] * p.b[1] + p.b[2] * p.b[2]);
-  const float s = p.qp * b_mag;
-  const float coeff = p.two_qp / (1.0f + s * s);
   float qe[3], vm[3], vp[3], cr[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -95,20 +131,23 @@ __global__ void __launch_bounds__(R_THREADS) boris_grid_kernel(
   cross3(vp, p.b, cr);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float vn = vm[c] + coeff * cr[c] + qe[c];
+    const float vn = vm[c] + p.coeff * cr[c] + qe[c];
     v_out[3 * i + c] = vn;
     x_out[3 * i + c] = xi[c] + vn * p.dt;
   }
 }
 
-// x, v, x_out, v_out: (n, 3) f32; grid: (nx, ny, nz, 3) f32, every n >= 2;
-// params (host): origin[3], spacing[3], b[3], q', 2q', dt as f32
-extern "C" int pp_boris_grid(const float* x, const float* v, const float* grid,
+// x, v, x_out, v_out: (n, 3) f32; corners: the grid's cell-major corner rows,
+// ((nx-1)(ny-1)(nz-1), 32) f32, 16-byte aligned, every n >= 2; params
+// (host): origin[3], spacing[3], b[3], q', 2q', dt, coeff = 2q'/(1 + (q'|B|)²)
+// as f32
+extern "C" int pp_boris_grid(const float* x, const float* v, const float* corners,
                              int nx, int ny, int nz, const float* params,
                              float* x_out, float* v_out, long long n,
                              cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (nx < 2 || ny < 2 || nz < 2) return (int)cudaErrorInvalidValue;
+  if (nx < 2 || ny < 2 || nz < 2 || (reinterpret_cast<uintptr_t>(corners) & 15))
+    return (int)cudaErrorInvalidValue;
   BorisParams p;
   for (int c = 0; c < 3; ++c) {
     p.origin[c] = params[c];
@@ -116,10 +155,10 @@ extern "C" int pp_boris_grid(const float* x, const float* v, const float* grid,
     p.b[c] = params[6 + c];
   }
   p.qp = params[9];
-  p.two_qp = params[10];
   p.dt = params[11];
+  p.coeff = params[12];
   const long long blocks = (n + R_THREADS - 1) / R_THREADS;
-  boris_grid_kernel<<<(unsigned)blocks, R_THREADS, 0, stream>>>(x, v, grid, nx, ny, nz,
-                                                                 p, x_out, v_out, n);
+  boris_grid_kernel<<<(unsigned)blocks, R_THREADS, 0, stream>>>(
+      x, v, reinterpret_cast<const float4*>(corners), nx, ny, nz, p, x_out, v_out, n);
   return (int)cudaGetLastError();
 }

@@ -97,7 +97,7 @@ class _MeshBase:
 
         return dataclasses.replace(self, **{
             f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), (torch.Tensor, dict))})
+            if f.init and isinstance(getattr(self, f.name), (torch.Tensor, dict))})
 
     @classmethod
     def _freeze(cls, arrays: dict, ints, reals, device, **sizes):
@@ -229,6 +229,11 @@ class Mesh3D(_MeshBase):
     nfaces: int = 0
     elem_tags: Dict[str, torch.Tensor] = field(default_factory=dict)
     vert_tags: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # tables the kernels derive from the mesh, with the tensors they were
+    # derived from (ops.search.reflect_normals); a mesh from
+    # dataclasses.replace starts without them
+    _derived: dict = field(default_factory=dict, init=False, repr=False,
+                           compare=False)
 
     dim = 3
 

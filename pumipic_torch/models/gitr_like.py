@@ -8,7 +8,8 @@ interpolated from grids, and wall interactions at exposed faces.  Each step
 of :class:`GitrLike`:
 
 1. kernel R (:func:`~pumipic_torch.ops.push.boris_push_grid`): E trilinear
-   from the (nx, ny, nz, 3) grid at each position, a uniform B, the Boris
+   from the (nx, ny, nz, 3) grid at each position (read as the grid's
+   corner rows, built once in ``__init__``), a uniform B, the Boris
    velocity update and the position step;
 2. kernel M (:func:`~pumipic_torch.ops.search.search_mesh_3d` with
    ``method="intersection"`` and ``record_exit``): the Möller–Trumbore walk
@@ -89,7 +90,8 @@ class GitrLike:
     ``e_spacing`` is the grid's CELL spacing; without ``e_grid`` the field
     is zero on a 2x2x2 grid over the mesh's box.  ``state`` holds ``x``
     (N, 3) f32, ``v`` (N, 3) f32, ``elem`` (N,) i32 and ``active`` (N,)
-    bool; ``wall_hits`` (n_faces,) f32 (or (1,) without the tally)."""
+    bool; ``wall_hits`` (n_faces,) f32 (or (1,) without the tally);
+    ``field_host`` the grid's origin and spacing and B as host f32 arrays."""
 
     def __init__(self, mesh: Mesh3D, cfg: GitrConfig, e_grid=None, e_origin=None,
                  e_spacing=None, seed: int = 0, device=None):
@@ -114,9 +116,16 @@ class GitrLike:
         elif e_spacing is None:
             raise ValueError("e_grid without e_spacing (the cell spacing)")
         self.e_grid = _f32(e_grid, dev)
+        # kernel R's corner table of the grid, built once
+        self.e_corners = push_ops.grid_corner_rows(self.e_grid)
         self.e_origin = _f32(e_origin, dev)
         self.e_spacing = _f32(e_spacing, dev)
         self.b_field = _f32(cfg.b_field, dev)
+        # the same three vectors on the host, for kernel R's launch
+        # parameters (read from device tensors, each step would wait for
+        # the card)
+        self.field_host = tuple(t.cpu().numpy() for t in
+                                 (self.e_origin, self.e_spacing, self.b_field))
         self.wall_hits = torch.zeros(mesh.nfaces if cfg.count_wall_hits else 1,
                                      dtype=torch.float32, device=dev)
         # the last step's walk iterations (a 0-d i32 tensor)
@@ -127,8 +136,8 @@ class GitrLike:
         mesh, cfg = self.mesh, self.cfg
         x, v, elem, active = state["x"], state["v"], state["elem"], state["active"]
         x_new, v_new = push_ops.boris_push_grid(
-            x, v, self.e_grid, self.e_origin, self.e_spacing, self.b_field,
-            cfg.dt, cfg.charge, cfg.amu)
+            x, v, self.e_grid, *self.field_host, cfg.dt, cfg.charge, cfg.amu,
+            corners=self.e_corners)
         reflect = cfg.wall == "reflect"
         res = search_ops.search_mesh_3d(
             mesh, x, x_new, elem, active, cfg.max_search_iters,
@@ -137,12 +146,12 @@ class GitrLike:
             method="intersection", record_exit=cfg.count_wall_hits or reflect)
         self.iters = res.iters
         lost = active & (res.elem_ids < 0)
-        dest = res.dest
+        dest = res.dest                 # on the card, kernel M's own (N, 3) output
         if reflect:
             # specular wall: the walk mirrored the destination across each
             # hit face; the velocity follows, |v| along the last leg (from
             # the last hit point to the mirrored destination)
-            leg = dest - torch.stack(res.hit_c, dim=1)
+            leg = dest - res.hit
             leg_n = _norm(leg)
             v_spec = _norm(v_new) * leg / torch.clamp(leg_n, min=1e-30)
             bounced = (active & (res.elem_ids >= 0) & (res.num_hits > 0)

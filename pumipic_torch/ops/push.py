@@ -469,14 +469,42 @@ def boris_push_grid_plain(x, v, e_grid, origin, spacing, b, dt: float,
     return boris_push(x, v, e, bv.expand(x.shape[0], 3), dt, charge, amu)
 
 
+def grid_corner_rows(e_grid: torch.Tensor) -> torch.Tensor:
+    """The corner table kernel R reads in place of ``e_grid`` (nx, ny, nz,
+    3): ((nx-1)(ny-1)(nz-1), 32) f32, cell (i, j, k) at row
+    (i·(ny-1) + j)·(nz-1) + k, holding its 8 corners m = 4·di + 2·dj + dk
+    as e_grid[i+di, j+dj, k+dk, 0:3] at floats 3m .. 3m+2 and 8 zeros: one
+    128-byte row a cell, in the order the trilinear sum takes them."""
+    nx, ny, nz = e_grid.shape[:3]
+    parts = [e_grid[di:nx - 1 + di, dj:ny - 1 + dj, dk:nz - 1 + dk]
+             for di in (0, 1) for dj in (0, 1) for dk in (0, 1)]
+    parts.append(e_grid.new_zeros((nx - 1, ny - 1, nz - 1, 8)))
+    return torch.cat(parts, dim=3).reshape(-1, 32).contiguous()
+
+
+def boris_coeff(b: np.ndarray, qp: float, two_qp: float) -> float:
+    """2q'/(1 + (q'|B|)²) for a uniform B (3 f32 values) in numpy f32
+    scalars, each operation rounded once in the plain version's order, so
+    it equals what :func:`boris_push` computes per particle (|B| a
+    correctly rounded sqrt)."""
+    f = np.float32
+    b = np.asarray(b, np.float32)
+    b_mag = np.sqrt(b[0] * b[0] + b[1] * b[1] + b[2] * b[2])
+    s = f(qp) * b_mag
+    return float(f(two_qp) / (f(1.0) + s * s))
+
+
 def boris_push_grid(x: torch.Tensor, v: torch.Tensor, e_grid: torch.Tensor,
                     origin, spacing, b, dt: float, charge: float = 1.0,
-                    amu: float = 10.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                    amu: float = 10.0, corners: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x_new, v_new): the GITR-style step's field and push in one pass.
     E is interpolated trilinearly at ``x`` (N, 3) from ``e_grid`` (nx, ny,
     nz, 3) f32 with the grid's ``origin`` and cell ``spacing`` (3 values
     each); B is uniform (3 values); then the Boris push over ``dt``.
-    Kernel R (``kernels/csrc/boris.cu``) on CUDA tensors,
+    Kernel R (``kernels/csrc/boris.cu``) on CUDA tensors, reading
+    ``corners``, the grid's :func:`grid_corner_rows` (built here when None;
+    a caller that steps many times builds it once);
     :func:`boris_push_grid_plain` on CPU tensors."""
     if not kernels.use_kernel("boris", x, v, e_grid):
         return boris_push_grid_plain(x, v, e_grid, origin, spacing, b, dt, charge, amu)
@@ -487,18 +515,27 @@ def boris_push_grid(x: torch.Tensor, v: torch.Tensor, e_grid: torch.Tensor,
             or g[3] != 3 or min(g[:3]) < 2):
         raise ValueError("boris_push_grid: (N, 3) f32 x and v and an (nx, ny, nz, 3) "
                          "f32 grid with every n >= 2 expected")
-    if n >= 1 << 31 or g[0] * g[1] * g[2] * 3 >= 1 << 31:
+    n_cells = (g[0] - 1) * (g[1] - 1) * (g[2] - 1)
+    if n >= 1 << 31 or n_cells * 32 >= 1 << 31:
         raise ValueError("boris_push_grid: the kernel takes fewer than 2^31 "
-                         "particles and grid values")
+                         "particles and corner-table values")
+    if corners is None:
+        corners = grid_corner_rows(e_grid)
+    kernels.use_kernel("boris", x, corners)
+    if (corners.dtype != torch.float32 or corners.shape != (n_cells, 32)
+            or corners.data_ptr() % 16):
+        raise ValueError("boris_push_grid: corners must be the grid's "
+                         "((nx-1)(ny-1)(nz-1), 32) f32 grid_corner_rows, 16-byte aligned")
     x_out, v_out = torch.empty_like(x), torch.empty_like(v)
     if n == 0:
         return x_out, v_out
     qp, two_qp = boris_factors(dt, charge, amu)
     o, h, bv = (_vec3(a) for a in (origin, spacing, b))
-    params = (ctypes.c_float * 12)(*o, *h, *bv, qp, two_qp, float(np.float32(dt)))
+    params = (ctypes.c_float * 13)(*o, *h, *bv, qp, two_qp, float(np.float32(dt)),
+                                   boris_coeff(bv, qp, two_qp))
     P = ctypes.c_void_p
     err = _build.lib().pp_boris_grid(
-        P(x.data_ptr()), P(v.data_ptr()), P(e_grid.data_ptr()), g[0], g[1], g[2],
+        P(x.data_ptr()), P(v.data_ptr()), P(corners.data_ptr()), g[0], g[1], g[2],
         params, P(x_out.data_ptr()), P(v_out.data_ptr()), n,
         P(kernels.stream_handle()))
     _build.check(err, "boris")

@@ -123,6 +123,35 @@ def reflect_on_exit_3d(ctx: BoundaryCtx) -> BoundaryResult:
 reflect_on_exit_3d.modifies_dest = True
 
 
+def reflect_normals(mesh: Mesh3D) -> torch.Tensor:
+    """(n_faces, 8) f32, each face's unit normal [n_x n_y n_z 0] and its
+    first vertex [a_x a_y a_z 0]: what kernel M's reflect handler reads in
+    place of ``face2verts`` and ``coords``.  Formed with
+    :func:`reflect_on_exit_3d`'s f32 operations in its order, so a mirror
+    through a row equals that handler's bit for bit.  Kept on the mesh for
+    the ``face2verts`` and ``coords`` tensors it was built from; another
+    tensor, or either written in place since, builds it again."""
+    fv_t, cz = mesh.face2verts, mesh.coords
+    seen = mesh._derived.get("normals")
+    if (seen is not None and seen[0] is fv_t and seen[1] is cz
+            and seen[2:4] == (fv_t._version, cz._version)):
+        return seen[4]
+    fv = fv_t.long()
+    a, b, c = (cz[fv[:, j]] for j in range(3))
+    ax, ay, az = a.unbind(1)
+    ux, uy, uz = (b - a).unbind(1)
+    vx, vy, vz = (c - a).unbind(1)
+    nx = uy * vz - uz * vy
+    ny = uz * vx - ux * vz
+    nz = ux * vy - uy * vx
+    inv = 1.0 / torch.clamp(sqrt_rn(nx * nx + ny * ny + nz * nz), min=1e-30)
+    zero = torch.zeros_like(nx)
+    table = torch.stack([nx * inv, ny * inv, nz * inv, zero, ax, ay, az, zero],
+                        1).contiguous()
+    mesh._derived["normals"] = (fv_t, cz, fv_t._version, cz._version, table)
+    return table
+
+
 class SearchResult(NamedTuple):
     elem_ids: torch.Tensor                # (N,) i32 parent element; INVALID if removed
     dest_c: Tuple[torch.Tensor, ...]      # per-component (N,) final destination
@@ -140,8 +169,30 @@ class SearchResult(NamedTuple):
 
     @property
     def dest(self) -> torch.Tensor:
-        """(N, dim) stacked destination."""
-        return torch.stack(self.dest_c, dim=-1)
+        """(N, dim) destination: the walk's own (N, dim) output where the
+        components are its columns (no copy; kernel M's results), else the
+        components stacked."""
+        return _joined(self.dest_c)
+
+    @property
+    def hit(self) -> Optional[torch.Tensor]:
+        """(N, dim) crossing points of the exit record (None without it),
+        as :attr:`dest` joins them."""
+        return None if self.hit_c is None else _joined(self.hit_c)
+
+
+def _joined(parts: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """(N, k) rows of k per-component (N,) tensors: a view of the (N, k)
+    block they lie in, without a copy, where they are its columns in order
+    (split off one contiguous (N, k) tensor); else their stack."""
+    p0, k = parts[0], len(parts)
+    store = p0.untyped_storage().data_ptr()
+    if all(p.dim() == 1 and p.shape == p0.shape and p.stride() == (k,)
+           and p.dtype == p0.dtype and p.untyped_storage().data_ptr() == store
+           and p.storage_offset() == p0.storage_offset() + j
+           for j, p in enumerate(parts)):
+        return p0.as_strided((p0.shape[0], k), (k, 1))
+    return torch.stack(parts, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -807,8 +858,10 @@ def trace_3d(mesh: Mesh3D, orig: Optional[torch.Tensor], dest: torch.Tensor,
     the closure of their tet are accepted there, at the projected point.
 
     Kernel M (``kernels/csrc/trace3d.cu``) on CUDA tensors, which knows the
-    two handlers above and raises NotImplementedError for any other;
-    :func:`trace_3d_plain` on CPU tensors."""
+    two handlers above (reflect through the mesh's :func:`reflect_normals`)
+    and raises NotImplementedError for any other; :func:`trace_3d_plain` on
+    CPU tensors.  The result's (N, 3) ``dest`` and ``hit`` are then the
+    kernel's own outputs, not copies."""
     _check_walk_options(boundary_handler, recover)
     core = core_of(method)
     needs_orig = _needs_hit(boundary_handler, record_exit) or core != "bcc"
@@ -837,16 +890,17 @@ def trace_3d(mesh: Mesh3D, orig: Optional[torch.Tensor], dest: torch.Tensor,
             or active.shape != (n,)):
         raise ValueError("trace_3d: (N, 3) f32 orig and dest, i32 elem_start and "
                          "bool active expected")
-    if n >= 1 << 31:
-        raise ValueError("trace_3d: the kernel takes fewer than 2^31 particles")
+    if n >= 1 << 30:
+        raise ValueError("trace_3d: the kernel takes fewer than 2^30 particles")
     for t in (mesh.walk_geom, mesh.walk_planes):
         if t.data_ptr() % 16:
             raise ValueError("trace_3d: walk tables must be 16-byte aligned")
     ids = None
     if grid is not None:
         ids = grid.candidate_ids(mesh.walk_geom)
-    mesh_t = (mesh.elem2faces, mesh.face2verts, mesh.coords, mesh.elem2verts)
-    kernels.use_kernel("trace3d", dest, *mesh_t, *(() if ids is None else (ids,)))
+    normals = reflect_normals(mesh) if reflect else None
+    mesh_t = (mesh.elem2faces, normals, mesh.coords, mesh.elem2verts)
+    kernels.use_kernel("trace3d", dest, *(t for t in (*mesh_t, ids) if t is not None))
     dev = dest.device
     elem = torch.empty(n, dtype=torch.int32, device=dev)
     act = torch.empty(n, dtype=torch.bool, device=dev)
@@ -865,15 +919,16 @@ def trace_3d(mesh: Mesh3D, orig: Optional[torch.Tensor], dest: torch.Tensor,
     def ptr(t):
         return P(None if t is None else t.data_ptr())
 
-    err = _build.lib().pp_trace_3d(
-        ptr(orig), ptr(dest), ptr(elem_start), ptr(active), ptr(table),
-        ptr(mesh.walk_geom), *(ptr(t) for t in mesh_t), E, ptr(ids), oh, *nxyz,
-        max_iters, it0, CORES[core], reflect, int(record_exit),
-        int(recover == "project"), ptr(elem), ptr(act), ptr(new_dest),
-        *(ptr(t) for t in (rec or (None,) * 3)), ptr(stats), n,
-        P(kernels.stream_handle()))
-    _build.check(err, "trace3d")
-    kernels.LAUNCHES["trace3d"] += 1
+    if n:
+        err = _build.lib().pp_trace_3d(
+            ptr(orig), ptr(dest), ptr(elem_start), ptr(active), ptr(table),
+            ptr(mesh.walk_geom), *(ptr(t) for t in mesh_t), E, ptr(ids), oh, *nxyz,
+            max_iters, it0, CORES[core], reflect, int(record_exit),
+            int(recover == "project"), ptr(elem), ptr(act), ptr(new_dest),
+            *(ptr(t) for t in (rec or (None,) * 3)), ptr(stats), n,
+            P(kernels.stream_handle()))
+        _build.check(err, "trace3d")
+        kernels.LAUNCHES["trace3d"] += 1
     out = dest if new_dest is None else new_dest
     extra = {}
     if record_exit:

@@ -106,7 +106,10 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue                      # host ops; their kernels are listed
-        by_kernel[ev.key.split("(")[0]] = ev.self_device_time_total / 1e3 / steps
+        # the name up to its argument list; kernels whose names differ only
+        # there are summed
+        name = ev.key.replace("(anonymous namespace)", "{anonymous}").split("(")[0]
+        by_kernel[name] = by_kernel.get(name, 0.0) + ev.self_device_time_total / 1e3 / steps
     busy = sum(by_kernel.values())
     alive = state["active"] if isinstance(state, dict) else state.active
     return {

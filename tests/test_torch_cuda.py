@@ -1,7 +1,7 @@
 """Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D, G,
 S, K, L3, and the GITR-style app's R, M and W, with their modes) against its
 plain PyTorch version on the same CUDA tensors (exact), and its launch
-counter.
+counter; M's mixed walk lengths and R's corner rows at their edges.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no JAX, so it also runs where JAX is not installed, without the
@@ -997,6 +997,101 @@ def test_trace3d_kernel_far_targets_and_nan(dev):
         _trace_equal(got, se.trace_3d_plain(*args))
         assert int(got.iters) > 20
         assert bool(got.active[:7].all()) == (method == "intersection")
+
+
+def _mixed_walks(dev, m, n, seed):
+    """``n`` walkers from their tets' centroids: every third to a far point
+    of the box (many hops), the rest a short push (a step or two), so that
+    walks of very different lengths share each warp; every eleventh
+    inactive."""
+    rng = np.random.default_rng(seed)
+    e0 = torch.as_tensor(rng.integers(0, m.nelems, n).astype(np.int32), device=dev)
+    orig = m.elem_centroids[e0.long()].contiguous()
+    near = orig + torch.as_tensor(rng.normal(0, 0.03, (n, 3)).astype(np.float32), device=dev)
+    far = torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32), device=dev)
+    pick = torch.arange(n, device=dev) % 3 == 0
+    dest = torch.where(pick[:, None], far, near).contiguous()
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    act[5::11] = False
+    return orig, dest, e0, act
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000])
+@pytest.mark.parametrize("record_exit", [False, True])
+@pytest.mark.parametrize("handler", ["remove", "reflect"])
+@pytest.mark.parametrize("method", ["bcc", "hybrid", "intersection"])
+def test_trace3d_kernel_mixed_walk_lengths(dev, method, handler, record_exit, n):
+    """M with near and far targets mixed inside each warp, n around the
+    32-lane warp, from the plain start and through the peel, at budgets 200
+    and 3 (with recovery after the walk); equal to the plain version, and a
+    second run equal to the first."""
+    m, grid = _tet_mesh(dev)
+    orig, dest, e0, act = _mixed_walks(dev, m, n, n + 19)
+    h = se.reflect_on_exit_3d if handler == "reflect" else se.remove_on_exit
+    for g in (None, grid):
+        for max_iters, recover in ((200, "off"), (3, "project")):
+            args = (m, orig, dest, e0, act, max_iters, method, h, record_exit, recover, g)
+            n0 = kernels.LAUNCHES["trace3d"]
+            got = se.trace_3d(*args)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["trace3d"] == n0 + (1 if n else 0)
+            _trace_equal(got, se.trace_3d_plain(*args))
+            _trace_equal(got, se.trace_3d(*args))
+
+
+@pytest.mark.parametrize("method", ["bcc", "hybrid", "intersection"])
+def test_trace3d_kernel_every_particle_inactive(dev, method):
+    """No lane ever walks: every tet -1, the destinations and the exit
+    record's points unchanged, no hit, iters as the plain version's."""
+    m, grid = _tet_mesh(dev)
+    orig, dest, e0, _ = _mixed_walks(dev, m, 1000, 4)
+    act = torch.zeros(1000, dtype=torch.bool, device=dev)
+    for g in (None, grid):
+        args = (m, orig, dest, e0, act, 64, method, se.reflect_on_exit_3d, True,
+                "project", g)
+        got = se.trace_3d(*args)
+        _trace_equal(got, se.trace_3d_plain(*args))
+        assert bool((got.elem_ids == -1).all()) and torch.equal(got.dest, dest)
+        assert torch.equal(got.hit, dest) and int(got.num_hits.sum()) == 0
+
+
+def test_trace3d_results_join_without_a_copy(dev):
+    """SearchResult.dest and .hit give M's own (N, 3) outputs, not a copy."""
+    m, _ = _tet_mesh(dev)
+    orig, dest, e0, act = _mixed_walks(dev, m, 100, 2)
+    res = se.trace_3d(m, orig, dest, e0, act, 64, "intersection", se.reflect_on_exit_3d,
+                      True)
+    assert res.dest.data_ptr() == res.dest_c[0].data_ptr()
+    assert res.hit.data_ptr() == res.hit_c[0].data_ptr()
+    assert torch.equal(res.dest, torch.stack(res.dest_c, 1))
+    assert torch.equal(res.hit, torch.stack(res.hit_c, 1))
+
+
+@pytest.mark.parametrize("n", [0, 1, 33])
+@pytest.mark.parametrize("order", ["as made", "random", "view"])
+def test_boris_kernel_corner_rows_orders_and_sizes(dev, n, order):
+    """R on its corner rows, given and built by the wrapper, at n around a
+    warp, in a random particle order (unrelated cells side by side) and on
+    views that start one particle in (not 16-byte aligned: the scalar
+    staging path)."""
+    rng = np.random.default_rng(n + 11)
+    x = torch.as_tensor(rng.uniform(-0.1, 1.1, (n + 1, 3)).astype(np.float32), device=dev)
+    v = torch.as_tensor(rng.normal(0, 1e3, (n + 1, 3)).astype(np.float32), device=dev)
+    if order == "random":
+        perm = torch.as_tensor(rng.permutation(n + 1), device=dev)
+        x, v = x[perm].contiguous(), v[perm].contiguous()
+    x, v = (x[1:], v[1:]) if order == "view" else (x[:n].contiguous(), v[:n].contiguous())
+    grid = torch.as_tensor(rng.normal(0, 0.2, (9, 8, 7, 3)).astype(np.float32), device=dev)
+    o, h = np.zeros(3, np.float32), np.array([1 / 8, 1 / 7, 1 / 6], np.float32)
+    b = np.asarray((0.3, -0.2, 0.5), np.float32)
+    rows = push_ops.grid_corner_rows(grid)
+    want = push_ops.boris_push_grid_plain(x, v, grid, o, h, b, 2e-5)
+    for corners in (rows, None):
+        n0 = kernels.LAUNCHES["boris"]
+        got = push_ops.boris_push_grid(x, v, grid, o, h, b, 2e-5, corners=corners)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["boris"] == n0 + (1 if n else 0)
+        _equal(got, want)
 
 
 def test_trace3d_kernel_refuses_other_handlers(dev):
