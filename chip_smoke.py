@@ -7,12 +7,13 @@ sources in this checkout.  Phases, each raising on failure:
 
 (a) require a CUDA device; print its name and power limit (nvidia-smi) and
     the torch / CUDA versions;
-(b) build the kernels of the twelve sources (P push and its table mode
+(b) build the kernels of the fourteen sources (P push and its table mode
     ``push_table``, B band cell, A annulus locate, L locate, H histogram and
     its weighted mode W ``wall_tally``, D deposit, G row gather, S slot map,
     K Kuhn push + locate and its push-only form ``push_wrap``, L3 tet
     locate, R ``boris`` grid field + Boris push, M ``trace3d`` 3D walk
-    modes), one nvcc per source, all at once, and keep
+    modes, M2 ``trace2d`` 2D walk modes, V ``vdeposit`` deterministic
+    weighted deposit), one nvcc per source, all at once, and keep
     ptxas's registers, shared memory and spills of each source's entry
     functions for the kernels' JSON line;
 (c) run each kernel and its plain PyTorch version on the card on the same
@@ -54,7 +55,23 @@ sources in this checkout.  Phases, each raising on failure:
     points of the box: walks of many hops), at a budget of 2 that leaves
     survivors to recover, and W on the reflect walk's hit counts and the
     absorb walk's lost particles (``torch.bincount`` with weights as W's
-    yardstick; R and M have none).  Then run a
+    yardstick; R and M have none).  On the 120k mesh's 10M located
+    particles (each pushed 3 element sizes, 5% of them beyond the wall), M2
+    with reflect and record_exit from the plain start and through the
+    cartesian peel, remove and record_exit, a budget of 2 with recovery,
+    far targets, and ``trace_particle_through_mesh`` with 1% wrong parents
+    repaired; V as ``scatter_to_verts_bcc`` (barycentric weights in each
+    final parent, a random charge) and as the weighted
+    ``particles_per_element`` (an f32 ``index_add_`` as its yardstick),
+    run twice for equal bits; require 2-10% of the walkers to hit the wall,
+    no walker lost with reflect but at the loop limit (counted), the
+    removed walkers to be those with a real hit, the deposit to conserve
+    the charge within V's bound and H's count to equal the active
+    particles.  Then drive the 2D path end to end five times through its
+    entry points (``trace_particle_through_mesh`` with parent repair,
+    reflect and record, ``search_mesh_2d_accel`` with recovery, the
+    deposits), each call from the last one's end, with the counts reset
+    (kernels G, L, M2, V and H, and no other).  Then run a
     small slice of each FULL-mode arm (and the table push on a permuted
     mesh), of the PseudoXGCm app in each layout (scs, csr, cabm, dps) and
     of pseudoPushAndSearch (Kuhn, walk and reflect arms) and of the
@@ -153,6 +170,10 @@ KERNELS = {  # name -> (route, source, replaces)
                 "pumipic_tpu/ops/search.py:1006"),
     "wall_tally": ("cuda", "pumipic_torch/kernels/csrc/histogram.cu",
                    "pumipic_tpu/models/gitr_like.py:147"),
+    "trace2d": ("cuda", "pumipic_torch/kernels/csrc/trace2d.cu",
+                "pumipic_tpu/ops/search.py:967"),
+    "vdeposit": ("cuda", "pumipic_torch/kernels/csrc/vdeposit.cu",
+                 "pumipic_tpu/ops/scatter.py:278"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -204,6 +225,16 @@ PPS3D_ARMS = {
 GITR_ELEMS = 196_608              # box_tet_mesh(32, 32, 32)
 GITR_ARMS = {"gitr-reflect": ("reflect", TIMED_STEPS), "gitr-absorb": ("absorb", 3)}
 GITR_KERNELS = ("boris", "trace3d", "wall_tally")
+
+# the 2D walk modes' and the deposit's cases (phase c) and path (its end):
+# the near targets' budget (no walker comes near it), the far targets',
+# the share of particles pushed beyond the wall, the path's calls and the
+# kernels each path call launches
+TRACE2D_ITERS = 1000
+TRACE2D_FAR_ITERS = 200
+WALL_SHARE = 0.05
+PATH_CALLS = 5
+PATH_KERNELS = ("row_gather", "locate", "trace2d", "vdeposit", "histogram")
 
 
 def log(msg: str) -> None:
@@ -596,7 +627,269 @@ def check_cartesian(results: dict, dev, mesh):
     record_library("deposit", "both passes", "torch.mv of the composite CSR map M2·M1/P",
                    lambda: torch.mv(m, cf), results)
     del m, cf
-    return s, model, elem, active
+    return s, model, elem, active, torch.stack([tx, ty], 1)
+
+
+def walker_targets(mesh, x, gen):
+    """The 2D phase's destinations: each position plus a normal displacement
+    of 3 element sizes a component, and for WALL_SHARE of the particles,
+    chosen at random, a radial push to 1.2 times the largest elliptic
+    radius sqrt((x/a)^2 + (y/b)^2) of the mesh's vertices (a, b its
+    half-widths): beyond the outer wall, which lies inside that radius (the
+    particles sit in the inner half of the flux bands, where the model
+    seeds them, so the short pushes alone reach no wall)."""
+    h = float(mesh.elem_area.abs().sqrt().mean())
+    d = x + 3.0 * h * torch.randn(x.shape, generator=gen, device=x.device)
+    pick = torch.rand(x.shape[0], generator=gen, device=x.device) < WALL_SHARE
+    half = mesh.coords.abs().amax(0)
+    rho_max = (mesh.coords / half).norm(dim=1).max()
+    rho = torch.clamp((d / half).norm(dim=1, keepdim=True), min=1e-6)
+    return torch.where(pick[:, None], d * (1.2 * rho_max / rho), d).contiguous()
+
+
+def barycentric_2d(mesh, elem, x):
+    """(N, 3) f32 barycentric weights of the points ``x`` in the triangles
+    ``elem`` (clamped), in elem2verts order, from walk_geom's affine rows
+    (gathered by kernel G)."""
+    from pumipic_torch.ops.rows import row_gather
+
+    g = row_gather(mesh.walk_geom, torch.clamp(elem, min=0))
+    l1 = g[:, 0] * x[:, 0] + g[:, 1] * x[:, 1] + g[:, 2]
+    l2 = g[:, 3] * x[:, 0] + g[:, 4] * x[:, 1] + g[:, 5]
+    return torch.stack([1.0 - l1 - l2, l1, l2], 1).contiguous()
+
+
+def trace2d_bytes(mesh, handler, record, recover, grid, n_act, n) -> int:
+    """The bytes M2's function needs: each table it reads once (walk_geom;
+    the edges and coordinates the reflect handler reads; the vertices
+    recovery reads; the peel's cell rows), each active particle's
+    destination (and origin where the crossing point is needed) and start
+    triangle, every particle's mask, and the outputs written once."""
+    from pumipic_torch.ops import search as se
+
+    reflect = handler is se.reflect_on_exit_2d
+    tables = [mesh.walk_geom]
+    if reflect:
+        tables += [mesh.edge2verts, mesh.coords]
+    if recover == "project":
+        tables += [mesh.elem2verts, mesh.coords]
+    if grid is not None:
+        tables.append(grid.cell_rows)
+    uniq = {t.data_ptr(): t for t in tables}
+    per_act = 8 + (8 if reflect or record else 0) + 4
+    per_out = 5 + (8 if reflect or recover == "project" else 0) + (16 if record else 0)
+    return nbytes(*uniq.values()) + n_act * per_act + n * (1 + per_out)
+
+
+def check_trace2d_case(results: dict, mesh, args, what: str, plain_reps: int = 2):
+    """M2 on ``args`` (trace_2d's positional arguments after the mesh):
+    exact against its plain version, timed, with its bound.  Returns the
+    kernel's result."""
+    from pumipic_torch.ops import search as se
+
+    got = se.trace_2d(mesh, *args)
+    n = args[1].shape[0]
+    compare("trace2d", f"{what} ({n} particles)", trace_fields(got),
+            trace_fields(se.trace_2d_plain(mesh, *args)), results)
+    extra = "" if got.num_hits is None else \
+        f", walkers that hit the wall {int((got.num_hits > 0).sum())}"
+    if got.num_recovered is not None:
+        extra += f", recovered {int(got.num_recovered)}"
+    log(f"[c] trace2d {what}: iters={int(got.iters)} all_found={bool(got.all_found)} "
+        f"alive {int(got.active.sum())}{extra}")
+    time_pair("trace2d", what, lambda: se.trace_2d(mesh, *args),
+              lambda: se.trace_2d_plain(mesh, *args), results, plain_reps=plain_reps)
+    handler, record, recover, grid = args[5:9]
+    record_bound("trace2d", what, results, trace2d_bytes(
+        mesh, handler, record, recover, grid, int(args[3].sum()), n))
+    return got
+
+
+def check_vdeposit_case(results: dict, what: str, fn, plain, inputs, out, terms,
+                        keys, n_out: int) -> None:
+    """V through ``fn`` against ``plain`` (bit for bit), timed, its bound
+    (``inputs`` read once, ``out`` written once) and its yardstick, an f32
+    ``index_add_`` of the same ``terms`` at ``keys`` (n_out where dropped)."""
+    got = fn()
+    compare("vdeposit", what, got.view(torch.int32), plain().view(torch.int32), results)
+    if not torch.equal(fn().view(torch.int32), got.view(torch.int32)):
+        raise AssertionError(f"vdeposit {what}: a second run gave other bits")
+    time_pair("vdeposit", what, fn, plain, results, plain_reps=3)
+    record_bound("vdeposit", what, results, nbytes(*inputs, out))
+    record_library("vdeposit", what, "torch.Tensor.index_add_ (f32)",
+                   lambda: torch.zeros(n_out + 1, device=terms.device).index_add_(
+                       0, keys, terms), results)
+
+
+def check_trace2d(results: dict, dev, mesh, grid, x, elem, active) -> None:
+    """M2 and V at the 2D path's full width: the 120k mesh, its cartesian
+    grid and phase c's 10M located particles (``x``, ``elem``, ``active``),
+    each case exact against its plain version on the card, timed, with its
+    bound; then the path's surface checks."""
+    from pumipic_torch.ops import scatter as sc
+    from pumipic_torch.ops import search as se
+
+    gen = torch.Generator(dev).manual_seed(7)
+    n = x.shape[0]
+    dest = walker_targets(mesh, x, gen)
+    n_act = int(active.sum())
+    reflect, remove = se.reflect_on_exit_2d, se.remove_on_exit
+    it = TRACE2D_ITERS
+    # 1, 2: reflect + record_exit, from the plain start and through the peel
+    r1 = check_trace2d_case(results, mesh, (x, dest, elem, active, it, reflect, True,
+                                            "off", None), "reflect+record, plain start")
+    share = int((r1.num_hits > 0).sum()) / n_act
+    log(f"[c] trace2d: share of walkers that cross the outer wall {share:.4f} "
+        f"(target {WALL_SHARE} pushed beyond it)")
+    if not 0.02 <= share <= 0.10:
+        raise AssertionError(f"trace2d: {share:.4f} of the walkers hit the wall, "
+                             f"not 2-10%")
+    lost = int((active & ~r1.active).sum())
+    log(f"[c] trace2d reflect: {lost} walkers lost (all_found {bool(r1.all_found)})")
+    if lost and bool(r1.all_found):
+        raise AssertionError("trace2d reflect: walkers lost but none at the limit")
+    if lost > n // 100_000:
+        raise AssertionError(f"trace2d reflect: {lost} walkers lost at the loop limit")
+    rp = check_trace2d_case(results, mesh, (x, dest, elem, active, it, reflect, True,
+                                            "off", grid), "reflect+record, peel")
+    if int((active & ~rp.active).sum()) > n // 100_000:
+        raise AssertionError("trace2d reflect (peel): walkers lost")
+    del rp
+    # 3: remove + record_exit: the lost walkers are those with a real hit
+    rr = check_trace2d_case(results, mesh, (x, dest, elem, active, it, remove, True,
+                                            "off", None), "remove+record, plain start")
+    if not torch.equal(active & ~rr.active, rr.num_hits >= 1) or not bool(rr.all_found):
+        raise AssertionError("trace2d remove: lost walkers != walkers with a real hit")
+    del rr
+    # 4: reflect with a budget of 2 and recovery
+    check_trace2d_case(results, mesh, (x, dest, elem, active, 2, reflect, False,
+                                       "project", None), "reflect, budget 2 + recover")
+    # 5: far targets, random points of the mesh's box
+    lo, hi = mesh.coords.amin(0), mesh.coords.amax(0)
+    far = (lo + (hi - lo) * torch.rand(x.shape, generator=gen, device=dev)).contiguous()
+    check_trace2d_case(results, mesh, (x, far, elem, active, TRACE2D_FAR_ITERS, reflect,
+                                       True, "off", None), "far targets, reflect+record",
+                       plain_reps=1)
+    del far
+    # 6: the unified driver with parent repair, 1% of the claimed parents wrong
+    claim = elem.clone()
+    bad = torch.rand(n, generator=gen, device=dev) < 0.01
+    claim[bad] = torch.randint(0, mesh.nelems, (int(bad.sum()),), generator=gen,
+                               device=dev, dtype=torch.int32)
+    got = se.trace_particle_through_mesh(mesh, x, dest, claim, active, it, reflect,
+                                         record_exit=True, validate_parents="repair")
+    fixed, n_bad, n_rep = se.check_initial_parents(mesh, x, claim, active)
+    want = se.trace_2d_plain(mesh, x, dest, fixed, active & (fixed >= 0), it, reflect, True)
+    compare("trace2d", f"trace_particle_through_mesh, repair + reflect + record ({n} "
+            f"particles, {int(n_bad)} bad parents, {int(n_rep)} repaired)",
+            trace_fields(got), trace_fields(want), results)
+    del got, want, claim, bad, fixed
+    # 7, 8: V as the charge deposit and as the weighted count
+    q = (0.5 + torch.rand(n, generator=gen, device=dev)).contiguous()
+    e1, a1 = r1.elem_ids, r1.active
+    bcc = barycentric_2d(mesh, e1, r1.dest)
+    V, E = mesh.nverts, mesh.nelems
+    terms = (bcc * q[:, None]).reshape(-1)
+    keys = torch.where(a1[:, None], mesh.elem2verts[torch.clamp(e1, min=0).long()],
+                       V).reshape(-1).long()
+    fn = lambda: sc.scatter_to_verts_bcc(e1, a1, bcc, mesh.elem2verts, V, q)  # noqa: E731
+    rho = fn()
+    check_vdeposit_case(results, f"scatter_to_verts_bcc ({n} particles, V={V})", fn,
+                        lambda: sc.vertex_deposit_plain(bcc, q, e1, a1, mesh.elem2verts, V),
+                        (e1, a1, bcc, q, mesh.elem2verts), rho, terms, keys, V)
+    # the deposit conserves charge: each output is within half an ulp (and
+    # the fixed point's 2^-(K+1) per term) of its exact sum
+    exact = torch.zeros(V + 1, dtype=torch.float64, device=dev).index_add_(
+        0, keys, terms.double())[:V]
+    m = torch.bincount(keys, minlength=V + 1)[:V].double()
+    L = max(terms.numel() - 1, 0).bit_length()
+    e_max = max((int(terms.abs().max().view(torch.int32)) >> 23), 1) - 126
+    step = 2.0 ** (L + e_max - sc.FIXED_BITS)
+    err = float((rho.double() - exact).abs().sum())
+    bound = float((torch.finfo(torch.float32).eps * rho.double().abs() + m * step).sum())
+    tot_q = float(q.double()[a1].sum())
+    log(f"[c] vdeposit: sum of the deposit {float(rho.double().sum()):.9g}, of its "
+        f"terms {float(exact.sum()):.9g}, of the active charge {tot_q:.9g}; "
+        f"sum |deposit - exact| {err:.3g} <= {bound:.3g}")
+    if not err <= bound or not abs(float(exact.sum()) - tot_q) <= 1e-5 * tot_q:
+        raise AssertionError("vdeposit: the deposit does not conserve the charge")
+    del terms, keys, exact, m, rho
+    keys_e = torch.where(a1 & (e1 >= 0), e1, E).long()
+    fn = lambda: sc.particles_per_element(e1, a1, E, q)  # noqa: E731
+    check_vdeposit_case(results, f"weighted particles_per_element ({n} particles, E={E})",
+                        fn, lambda: sc.vertex_deposit_plain(q, None, e1, a1, None, E),
+                        (e1, a1, q), fn(), q, keys_e, E)
+    cnt = sc.particles_per_element(e1, a1, E)
+    if int(cnt.sum()) != int(a1.sum()):
+        raise AssertionError("particles_per_element (H): counts != active particles")
+    log(f"[c] unweighted particles_per_element (H): {int(cnt.sum())} == active")
+
+
+def trace2d_path_call(mesh, grid, x, elem, active, q, gen):
+    """One call of the 2D path through its entry points:
+    trace_particle_through_mesh (parent repair, reflecting wall, exit
+    record) from ``x`` to :func:`walker_targets`, search_mesh_2d_accel
+    (reflect, record, recovery) one more push of 3 element sizes on, then
+    the charge deposit at the final positions (scatter_to_verts_bcc with
+    the charge ``q``), the weighted and the unweighted
+    particles_per_element.  Returns (first walk, second walk, deposit,
+    weighted count, count)."""
+    from pumipic_torch.ops import scatter as sc
+    from pumipic_torch.ops import search as se
+
+    h = float(mesh.elem_area.abs().sqrt().mean())
+    reflect = se.reflect_on_exit_2d
+    d1 = walker_targets(mesh, x, gen)
+    r1 = se.trace_particle_through_mesh(mesh, x, d1, elem, active, TRACE2D_ITERS, reflect,
+                                        record_exit=True, validate_parents="repair")
+    d2 = r1.dest + 3.0 * h * torch.randn(x.shape, generator=gen, device=x.device)
+    r2 = se.search_mesh_2d_accel(mesh, grid, r1.dest, d2, r1.elem_ids, r1.active,
+                                 TRACE2D_ITERS, reflect, record_exit=True,
+                                 recover="project")
+    bcc = barycentric_2d(mesh, r2.elem_ids, r2.dest)
+    rho = sc.scatter_to_verts_bcc(r2.elem_ids, r2.active, bcc, mesh.elem2verts,
+                                  mesh.nverts, q)
+    w = sc.particles_per_element(r2.elem_ids, r2.active, mesh.nelems, q)
+    cnt = sc.particles_per_element(r2.elem_ids, r2.active, mesh.nelems)
+    return r1, r2, rho, w, cnt
+
+
+def run_trace2d_path(results: dict, dev, mesh, grid, x, elem, active, smi: str) -> None:
+    """The 2D path end to end (:func:`trace2d_path_call`), PATH_CALLS
+    times, each call starting where the last ended.  The counts are reset
+    just before and read just after; every kernel of PATH_KERNELS must
+    have launched, and no other."""
+    from pumipic_torch import kernels
+
+    gen = torch.Generator(dev).manual_seed(17)
+    n = x.shape[0]
+    q = (0.5 + torch.rand(n, generator=gen, device=dev)).contiguous()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    times = []
+    for k in range(PATH_CALLS):
+        t0 = time.perf_counter()
+        r1, r2, rho, w, cnt = trace2d_path_call(mesh, grid, x, elem, active, q, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        x, elem, active = r2.dest.contiguous(), r2.elem_ids, r2.active
+        hits = int(((r1.num_hits > 0) | (r2.num_hits > 0)).sum())
+        log(f"[d] 2d path call {k}: {times[-1]:.3f} ms, alive {int(active.sum())}, "
+            f"walkers that hit the wall {hits}, iters {int(r1.iters)}/{int(r2.iters)}, "
+            f"recovered {int(r2.num_recovered)}")
+        if not (bool(torch.isfinite(rho).all()) and bool(torch.isfinite(w).all())
+                and int(cnt.sum()) == int(active.sum())):
+            raise AssertionError("2d path: deposit not finite or counts off")
+    counts = dict(kernels.LAUNCHES)
+    log(f"[d] 2d path ({n} particles, {PATH_CALLS} calls): ms per call "
+        + ", ".join(f"{t:.3f}" for t in times) + f" ({smi})")
+    log(f"[d] 2d path kernel launches: {counts}")
+    launched = {k for k, v in counts.items() if v > 0}
+    if launched != set(PATH_KERNELS):
+        raise AssertionError(f"2d path launched {sorted(launched)}, expected "
+                             f"{sorted(PATH_KERNELS)}")
+    for k, v in counts.items():
+        results[k]["launches"] = results[k].get("launches", 0) + v
 
 
 def check_band(results: dict, dev, mesh):
@@ -1402,18 +1695,23 @@ def check_gitr_slices(dev) -> None:
         f"{int(ac.ptcls.num_ptcls)}): card == CPU, bit for bit")
 
 
-def phase_c(results: dict, dev):
+def phase_c(results: dict, dev, smi: str):
     """Returns the 120k mesh, its cartesian grid and the band grid built
     here (phase d reuses them), and the band grid's build seconds."""
     from pumipic_torch.mesh.core import Mesh2D
     from pumipic_torch.mesh.gmsh import read_msh
 
     mesh = Mesh2D.from_arrays(*read_msh(MESH), device=dev)
-    s, model, elem, active = check_cartesian(results, dev, mesh)
+    s, model, elem, active, x = check_cartesian(results, dev, mesh)
     check_pprad(results, dev, mesh, elem, active)
     check_rows(results, dev, mesh, s, model, elem, active)
     grid = model.locator
-    del s, model, elem, active
+    del s, model
+    torch.cuda.empty_cache()
+    check_trace2d(results, dev, mesh, grid, x, elem, active)
+    torch.cuda.empty_cache()
+    run_trace2d_path(results, dev, mesh, grid, x, elem, active, smi)
+    del x, elem, active
     torch.cuda.empty_cache()
     band_grid, band_s = check_band(results, dev, mesh)
     check_annulus(results, dev)
@@ -1695,7 +1993,7 @@ def main() -> int:
     results = {name: {} for name in KERNELS}
     phase_b(results)
     dev = torch.device("cuda")
-    mesh, grid, band_grid, band_s, grid3d, gitr_mesh = phase_c(results, dev)
+    mesh, grid, band_grid, band_s, grid3d, gitr_mesh = phase_c(results, dev, smi)
     phase_d(results, dev, grid, band_grid, band_s, smi)
     run_pps3d(results, dev, grid3d, smi)
     del grid3d

@@ -89,6 +89,21 @@ SIGNATURES = {
         _P, _P, _P, _P,                      # exit_side num_hits hit_out stats
         _L, _P],                             # n stream
     "pp_trace_3d_blocks_per_sm": [_I, _I, _I],   # core reflect record
+    "pp_trace_2d": [
+        _P, _P, _P, _P,                      # orig dest elem_start active
+        _P, _I,                              # walk_geom n_elems
+        _P, _P, _P,                          # tangents coords elem2verts
+        _P, _P, _F, _F, _F, _F, _I, _I,      # cell_rows cells ox oy ihx ihy nx ny
+        _I, _I, _I, _I, _I,                  # max_iters it0 reflect record recover
+        _P, _P, _P,                          # elem_out active_out dest_out
+        _P, _P, _P, _P,                      # exit_side num_hits hit_out stats
+        _L, _P],                             # n stream
+    "pp_trace_2d_blocks_per_sm": [_I, _I],       # reflect record
+    "pp_vdeposit": [
+        _P, _P, _P, _P, _P,                  # w q elem active elem2verts
+        _I, _I, _I, _I,                      # k n_elems n_out log2_terms
+        _P, _P, _P,                          # acc max_bits out
+        _L, _P],                             # n stream
     "pp_boris_grid": [
         _P, _P, _P, _I, _I, _I,              # x v corner_rows nx ny nz
         _P, _P, _P, _L, _P],                 # params(host) x_out v_out n stream

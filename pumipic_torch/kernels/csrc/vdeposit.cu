@@ -1,0 +1,200 @@
+// Kernel V: the deterministic weighted deposit, a sum of f32 terms per
+// output with no float atomics.
+//
+// Replaces (JAX reference): the segment_sums of particles_per_element with
+// weights (pumipic_tpu/ops/scatter.py:132-143; one term a particle, its
+// weight, keyed by its element) and of scatter_to_verts_bcc (:278-295; k
+// terms a particle, bcc_j · q, keyed by its parent's vertices).  The TPU
+// ran them as XLA scatter-adds; no Pallas kernel.
+//
+// What bounds it on an H100: the particle streams, read once: 4 bytes of
+// element and 1 of mask, 4 of weight, or 12 of barycentric coordinates and
+// 4 of charge (21 bytes a particle for the bcc deposit), and the (E, 3)
+// vertex table and the f32 output once (a few MB).  The 16-byte integer
+// accumulator of each output (1 MB at 60k vertices) stays in L2.
+//
+// Design: a sum in fixed point, so that the result does not depend on the
+// order of the adds (integer addition is associative) and equals its plain
+// version bit for bit.
+// - Scale (vmax_kernel): the largest |term| as an unsigned atomicMax on its
+//   f32 bits (one per warp), which also zeroes the accumulators.  From its
+//   exponent e (|term| < 2^e) and L = ceil(log2(terms)), each kernel picks
+//   K = 94 - L - e on the device: no host sync.
+// - Sum (vsum_kernel): each term, converted exactly to f64 and scaled by
+//   2^K, is rounded to the nearest integer (ties to even), X, |X| <= 2^(94-L),
+//   split exactly into X = H·2^32 + Lo with 0 <= Lo < 2^32, and added with two
+//   64-bit integer atomicAdds into the output's (H, Lo) pair in L2.  The
+//   sums cannot overflow: |ΣH| <= 2^62 and ΣLo < 2^63 for fewer than 2^31
+//   terms.
+// - Convert (vconvert_kernel): the exact 96-bit sum ΣH·2^32 + ΣLo is
+//   rounded once to f32 (a double-double from TwoSum, rounded to odd in
+//   f64, then to nearest in f32) and scaled by 2^-K in two exact steps
+//   (only a result in the subnormal range rounds again).
+// Each output is then the f32 rounding of the exact sum of its terms, each
+// term rounded to a multiple of 2^-K = 2^(L+e-94): every term whose binade
+// lies within 70 - L binades of the largest's (45 at 30M terms) is exact,
+// and a smaller one is off by at most 2^-(K+1).  A non-finite term has no fixed-point image: every output is then
+// NaN (ROADMAP queue 3; the reference makes NaN or inf only the outputs
+// that sum one).
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define V_THREADS 256
+#define FULL_MASK 0xffffffffu
+#define NONFINITE_BITS 0x7f800000u
+
+struct DepArgs {
+  const float* w;            // (n, k) terms, or (n,) weights (k = 1)
+  const float* q;            // (n,) charge multiplying each term, or nullptr
+  const int* elem;           // (n,) parent element
+  const uint8_t* active;     // (n,)
+  const int* elem2verts;     // (n_elems, k) output keys, or nullptr: key = elem
+  int k;
+  int n_elems;
+  int n_out;
+  int log2_terms;            // L = ceil(log2(n·k))
+  unsigned long long* acc;   // (n_out, 2) ΣH, ΣLo
+  unsigned int* max_bits;    // max |term| as f32 bits
+  float* out;                // (n_out,)
+  long long n;
+};
+
+// term j of particle i and its output key; false where the term is dropped
+// (an inactive particle, a key outside [0, n_out))
+__device__ __forceinline__ bool term_of(const DepArgs& a, long long i, int j, float* t,
+                                        int* key) {
+  if (!a.active[i]) return false;
+  float v = a.w[i * a.k + j];
+  if (a.q != nullptr) v = v * a.q[i];
+  int kk;
+  if (a.elem2verts != nullptr) {
+    const int e = min(max(a.elem[i], 0), a.n_elems - 1);
+    kk = a.elem2verts[(size_t)e * a.k + j];
+  } else {
+    kk = a.elem[i];
+  }
+  if (kk < 0 || kk >= a.n_out) return false;
+  *t = v;
+  *key = kk;
+  return true;
+}
+
+// K = 94 - L - e with e the exponent bound of the largest |term| (bits mb):
+// |term| < 2^e, e = max(biased exponent, 1) - 126
+__device__ __forceinline__ int scale_of(unsigned mb, int log2_terms) {
+  const int f = (int)(mb >> 23);
+  return 94 - log2_terms - ((f > 1 ? f : 1) - 126);
+}
+
+__device__ __forceinline__ float pow2f(int e) {   // 2^e, -126 <= e <= 127
+  return __int_as_float((e + 127) << 23);
+}
+
+__global__ void __launch_bounds__(V_THREADS) vmax_kernel(DepArgs a) {
+  const long long stride = (long long)gridDim.x * V_THREADS;
+  const long long first = (long long)blockIdx.x * V_THREADS + threadIdx.x;
+  for (long long o = first; o < 2LL * a.n_out; o += stride) a.acc[o] = 0ull;
+  unsigned my = 0u;
+  for (long long i = first; i < a.n; i += stride) {
+    for (int j = 0; j < a.k; ++j) {
+      float t;
+      int key;
+      if (term_of(a, i, j, &t, &key)) my = max(my, __float_as_uint(fabsf(t)));
+    }
+  }
+  my = __reduce_max_sync(FULL_MASK, my);
+  if ((threadIdx.x & 31) == 0 && my != 0u) atomicMax(a.max_bits, my);
+}
+
+__global__ void __launch_bounds__(V_THREADS) vsum_kernel(DepArgs a) {
+  const unsigned mb = *a.max_bits;
+  if (mb >= NONFINITE_BITS) return;           // every output is NaN
+  const double s = __longlong_as_double((long long)(scale_of(mb, a.log2_terms) + 1023)
+                                        << 52);   // 2^K, exact
+  const long long stride = (long long)gridDim.x * V_THREADS;
+  for (long long i = (long long)blockIdx.x * V_THREADS + threadIdx.x; i < a.n;
+       i += stride) {
+    for (int j = 0; j < a.k; ++j) {
+      float t;
+      int key;
+      if (!term_of(a, i, j, &t, &key)) continue;
+      const double y = rint((double)t * s);              // X, exact in f64
+      const double hd = floor(y * 0x1p-32);           // H = floor(X / 2^32)
+      const long long h = (long long)hd;
+      const long long lo = (long long)(y - hd * 0x1p32);   // X - H·2^32
+      atomicAdd(a.acc + 2 * (size_t)key, (unsigned long long)h);
+      atomicAdd(a.acc + 2 * (size_t)key + 1, (unsigned long long)lo);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(V_THREADS) vconvert_kernel(DepArgs a) {
+  const unsigned mb = *a.max_bits;
+  const int K = scale_of(mb, a.log2_terms);
+  const int e1 = (-K) >> 1, e2 = -K - e1;    // 2^-K in two exact steps
+  const long long stride = (long long)gridDim.x * V_THREADS;
+  for (long long o = (long long)blockIdx.x * V_THREADS + threadIdx.x; o < a.n_out;
+       o += stride) {
+    if (mb >= NONFINITE_BITS) {
+      a.out[o] = __int_as_float(0x7fc00000);
+      continue;
+    }
+    long long H = (long long)a.acc[2 * o];
+    long long Ls = (long long)a.acc[2 * o + 1];
+    H += Ls >> 32;                            // the sum is H·2^32 + Ls exactly
+    Ls &= 0xffffffffLL;
+    const double a1 = (double)H;              // rounded to nearest
+    const long long t1 = H - (long long)a1;   // |t1| <= 2^9
+    const double A = a1 * 0x1p32;             // exact
+    const double C = (double)(t1 * 4294967296LL + Ls);   // exact, < 2^42
+    double s = A + C;                         // TwoSum: s + err == A + C
+    const double bb = s - A;
+    const double err = (A - (s - bb)) + (C - bb);
+    const long long bits = __double_as_longlong(s);
+    if (err != 0.0 && (bits & 1LL) == 0)      // round to odd: one ulp toward err
+      s = __longlong_as_double(bits + ((err > 0.0) == (s > 0.0) ? 1 : -1));
+    float f = (float)s;                       // one rounding to nearest
+    f = f * pow2f(e1);
+    a.out[o] = f * pow2f(e2);
+  }
+}
+
+static int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
+
+// w: (n, k) f32 terms (k = 1: weights); q: (n,) f32 or nullptr; elem (n,)
+// i32; active (n,) bool; elem2verts: (n_elems, k) i32 keys or nullptr (key =
+// elem); log2_terms = ceil(log2(n·k)), n·k < 2^31; acc: (n_out, 2) int64
+// scratch; max_bits: one u32 the caller zeroes; out: (n_out,) f32.
+extern "C" int pp_vdeposit(const float* w, const float* q, const int* elem,
+                           const uint8_t* active, const int* elem2verts, int k,
+                           int n_elems, int n_out, int log2_terms,
+                           unsigned long long* acc, unsigned int* max_bits, float* out,
+                           long long n, cudaStream_t stream) {
+  if (k < 1 || n < 0 || n * k >= (1LL << 31) || n_out < 0 || log2_terms < 0 ||
+      log2_terms > 31)
+    return (int)cudaErrorInvalidValue;
+  if (n_out == 0) return (int)cudaGetLastError();
+  DepArgs a{w, q, elem, active, elem2verts, k, n_elems, n_out, log2_terms,
+            acc, max_bits, out, n};
+  const long long cap = (long long)num_sms() * 8;
+  long long bp = (n + V_THREADS - 1) / V_THREADS, bo = (2LL * n_out + V_THREADS - 1) / V_THREADS;
+  long long b1 = bp > bo ? bp : bo;
+  if (b1 > cap) b1 = cap;
+  if (b1 < 1) b1 = 1;
+  vmax_kernel<<<(unsigned)b1, V_THREADS, 0, stream>>>(a);
+  if (bp > cap) bp = cap;
+  if (bp > 0) vsum_kernel<<<(unsigned)bp, V_THREADS, 0, stream>>>(a);
+  if (bo > cap) bo = cap;
+  vconvert_kernel<<<(unsigned)bo, V_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -140,6 +140,11 @@ class Mesh2D(_MeshBase):
     nedges: int = 0
     elem_tags: Dict[str, torch.Tensor] = field(default_factory=dict)
     vert_tags: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # tables the kernels derive from the mesh, with the tensors they were
+    # derived from (ops.search.reflect_tangents); a mesh from
+    # dataclasses.replace starts without them
+    _derived: dict = field(default_factory=dict, init=False, repr=False,
+                           compare=False)
 
     dim = 2
 

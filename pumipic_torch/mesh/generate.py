@@ -2,6 +2,8 @@
 ``pumipic_tpu.mesh.generate`` so that the port builds the same meshes
 without importing JAX.
 
+- :func:`rectangle_mesh` — structured triangle grid of a rectangle
+- :func:`disk_mesh` — disk of concentric rings with radial-band classification
 - :func:`annulus_mesh` — structured annulus with radial-band classification
 - :func:`tokamak_mesh` — XGC-style stitched flux-surface mesh
 - :func:`box_tet_mesh` — structured Kuhn tet mesh of a box (pseudoPushAndSearch)
@@ -14,6 +16,69 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+
+def rectangle_mesh(nx: int, ny: int, lx: float = 1.0, ly: float = 1.0,
+                   x0: float = 0.0, y0: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Structured triangle mesh of a rectangle: 2*nx*ny triangles."""
+    xs = np.linspace(x0, x0 + lx, nx + 1)
+    ys = np.linspace(y0, y0 + ly, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    tris = []
+    for i in range(nx):
+        for j in range(ny):
+            a, b, c, d = vid(i, j), vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)
+            tris.append([a, b, c])
+            tris.append([a, c, d])
+    return coords, np.asarray(tris, dtype=np.int64)
+
+
+def disk_mesh(n_rings: int, n_sectors0: int = 8, radius: float = 1.0,
+              cx: float = 0.0, cy: float = 0.0
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Triangle mesh of a disk built from concentric rings: ring ``r``
+    (1-based) has ``n_sectors0 * r`` vertices, so triangles are of near
+    uniform size.  Returns (coords, tris, class_id), class_id the 1-based
+    radial band of each triangle (innermost = 1)."""
+    coords = [(cx, cy)]
+    ring_start = [None]  # ring_start[r] = index of first vertex of ring r
+    for r in range(1, n_rings + 1):
+        ring_start.append(len(coords))
+        n = n_sectors0 * r
+        rad = radius * r / n_rings
+        for k in range(n):
+            th = 2 * np.pi * k / n
+            coords.append((cx + rad * np.cos(th), cy + rad * np.sin(th)))
+    coords = np.asarray(coords, dtype=np.float64)
+
+    tris, cls = [], []
+    n1 = n_sectors0                     # innermost fan
+    s1 = ring_start[1]
+    for k in range(n1):
+        tris.append([0, s1 + k, s1 + (k + 1) % n1])
+        cls.append(1)
+    # band between ring r-1 (inner) and r (outer): merge walk by angle
+    for r in range(2, n_rings + 1):
+        ni = n_sectors0 * (r - 1)
+        no = n_sectors0 * r
+        si, so = ring_start[r - 1], ring_start[r]
+        i = j = 0  # inner / outer cursor
+        while i < ni or j < no:
+            ai = (i + 0.5) / ni if i < ni else np.inf
+            aj = (j + 0.5) / no if j < no else np.inf
+            if aj <= ai:                # advance outer
+                tris.append([so + j % no, so + (j + 1) % no, si + i % ni])
+                j += 1
+            else:                       # advance inner
+                tris.append([si + (i + 1) % ni, si + i % ni, so + j % no])
+                i += 1
+            cls.append(r)
+    return coords, np.asarray(tris, dtype=np.int64), np.asarray(cls, dtype=np.int64)
 
 
 def annulus_mesh(n_rings: int, n_sectors: int, r_in: float, r_out: float,

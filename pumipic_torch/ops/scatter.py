@@ -1,5 +1,5 @@
-"""Gyro-ring charge scatter (port of the gyro-ring parts of
-``pumipic_tpu.ops.scatter``; reference ``test/gyroScatter.hpp``).
+"""Charge scatter and deposition (port of ``pumipic_tpu.ops.scatter``;
+reference ``test/gyroScatter.hpp``).
 
 - ``accumulateToRings``: every particle deposits into the two gyro rings
   bracketing its gyro radius at each vertex of its element.  With the
@@ -15,10 +15,20 @@
 Every deposit is a sum owned by one output and taken in a fixed order, so
 the fields are deterministic; on the main path they are integer counts and
 multiples of 1/P, exact in f32.
+
+The standard PIC charge deposit, :func:`scatter_to_verts_bcc` (each
+particle's charge times its barycentric weights, to its parent's vertices),
+and the weighted :func:`particles_per_element` run kernel V
+(``kernels/csrc/vdeposit.cu``): a fixed-point sum with integer atomics,
+so the result is the same on every run and independent of the order of
+the adds (:func:`vertex_deposit_plain` says how).  Counts
+(:func:`count_per_key`, :func:`count_per_key_matmul`, the unweighted
+:func:`particles_per_element`) run kernel H.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -316,3 +326,171 @@ def accumulate_to_rings(elem: torch.Tensor, active: torch.Tensor, mesh: Mesh2D,
         counts = histogram(elem, active, mesh.nelems, ptcl_radius, num_rings,
                            gyro_rmax).view(mesh.nelems, num_rings)
     return deposit_rings(counts, mesh, num_rings)
+
+
+def gyro_scatter(elem: torch.Tensor, active: torch.Tensor, mesh: Mesh2D,
+                 gyro_map: GyroMap, num_rings: int, points_per_ring: int,
+                 gyro_rmax: float) -> torch.Tensor:
+    """Full gyroScatter (gyroScatter.hpp:169-232): ring accumulation, then
+    the mapped scatter; returns the (V,) vertex field.  Takes the mesh and
+    a :class:`GyroMap` where the JAX function takes ``elem2verts``, the
+    flat map and the vertex count."""
+    ring = accumulate_to_rings(elem, active, mesh, num_rings, gyro_rmax)
+    return scatter_to_mapped_verts(ring, gyro_map, mesh.nverts, num_rings,
+                                   points_per_ring)
+
+
+# ---------------------------------------------------------------------------
+# counts onto kernel H, under the JAX package's names
+# ---------------------------------------------------------------------------
+
+def count_per_key(key: torch.Tensor, num_keys: int) -> torch.Tensor:
+    """(num_keys,) i32 histogram of int keys in [0, num_keys) (others
+    ignored): kernel H with every key active."""
+    return histogram(key.to(torch.int32),
+                     torch.ones(key.shape, dtype=torch.bool, device=key.device),
+                     num_keys)
+
+
+def count_per_key_matmul(key: torch.Tensor, num_keys: int, lo_width=None,
+                         onehot_dtype=None) -> torch.Tensor:
+    """:func:`count_per_key` as f32, the JAX function's result type (its
+    one-hot matrix product is how the TPU histogrammed; ``lo_width`` and
+    ``onehot_dtype`` tune that product and are accepted and ignored)."""
+    return count_per_key(key, num_keys).to(torch.float32)
+
+
+def particles_per_element(elem: torch.Tensor, active: torch.Tensor, num_elems: int,
+                          weights=None) -> torch.Tensor:
+    """(num_elems,) f32 count (kernel H) or, with ``weights`` ((N,) f32), sum
+    of weights (kernel V) of the active particles of each element; elements
+    outside [0, num_elems) are dropped."""
+    if weights is None:
+        return histogram(elem, active, num_elems).to(torch.float32)
+    return vertex_deposit(weights, None, elem, active, None, num_elems)
+
+
+def scatter_to_verts_bcc(elem: torch.Tensor, active: torch.Tensor, bcc: torch.Tensor,
+                         elem2verts: torch.Tensor, num_verts: int,
+                         charge=None) -> torch.Tensor:
+    """Standard PIC charge deposition: each active particle's ``charge`` (1
+    where None) times its (N, k) barycentric weights ``bcc``, to the k
+    vertices of its parent element (clamped into range); returns (V,) f32.
+    Kernel V on CUDA tensors, :func:`vertex_deposit_plain` on CPU tensors."""
+    return vertex_deposit(bcc, charge, elem, active, elem2verts, num_verts)
+
+
+# ---------------------------------------------------------------------------
+# kernel V: the deterministic weighted deposit
+# ---------------------------------------------------------------------------
+
+FIXED_BITS = 94            # K = FIXED_BITS - L - e (see vertex_deposit_plain)
+_NONFINITE_BITS = 0x7F800000
+
+
+def _log2_terms(n_terms: int) -> int:
+    """ceil(log2(n_terms)), 0 for none or one."""
+    return max(n_terms - 1, 0).bit_length()
+
+
+def _terms_and_keys(w, q, elem, active, elem2verts, n_out):
+    """The (N·k,) f32 terms and their (N·k,) int64 output keys, ``n_out``
+    where a term is dropped (inactive, or a key outside [0, n_out))."""
+    k = 1 if w.dim() == 1 else w.shape[1]
+    t = w.reshape(w.shape[0], k)
+    if q is not None:
+        t = t * q[:, None]
+    if elem2verts is None:
+        keys = elem.to(torch.int64)[:, None]
+    else:
+        e = torch.clamp(elem.to(torch.int64), 0, elem2verts.shape[0] - 1)
+        keys = elem2verts[e].to(torch.int64)
+    ok = active[:, None] & (keys >= 0) & (keys < n_out)
+    return t.reshape(-1), torch.where(ok, keys, n_out).reshape(-1)
+
+
+def vertex_deposit_plain(w: torch.Tensor, q, elem: torch.Tensor, active: torch.Tensor,
+                         elem2verts, n_out: int) -> torch.Tensor:
+    """Plain version of kernel V: (n_out,) f32 sums of the terms w[i, j]·q[i]
+    (w[i, j] where ``q`` is None; ``w`` (N, k), or (N,) for k = 1) of the
+    active particles, term j keyed by ``elem2verts[elem[i], j]`` (the
+    element clamped into range), or by ``elem[i]`` where ``elem2verts`` is
+    None; keys outside [0, n_out) are dropped.
+
+    The sum is taken in fixed point.  With e the exponent bound of the
+    largest |term| (|term| < 2^e, e = max(biased exponent, 1) - 126) and
+    L = ceil(log2(N·k)), each term is scaled by 2^K, K = 94 - L - e, and
+    rounded to the nearest integer (ties to even); the integers are summed
+    exactly as (H, Lo) int64 pairs (``index_add_``), and the exact sum is
+    rounded once to f32 (a TwoSum double-double, rounded to odd in f64,
+    then to nearest in f32) and scaled back by 2^-K in two exact steps.  So
+    the result is the f32 rounding of the exact sum of the terms, each
+    within 2^-(K+1) (terms within 70 - L binades of the largest are
+    exact), whatever the order.  Where any term is not finite, every output
+    is NaN."""
+    t, key = _terms_and_keys(w, q, elem, active, elem2verts, n_out)
+    dev = t.device
+    ok = key < n_out
+    bits = torch.where(ok, t.abs().view(torch.int32), 0)
+    mb = int(bits.max()) if bits.numel() else 0
+    if mb >= _NONFINITE_BITS:
+        return torch.full((n_out,), math.nan, dtype=torch.float32, device=dev)
+    K = FIXED_BITS - _log2_terms(t.numel()) - (max(mb >> 23, 1) - 126)
+    y = torch.round(t.double() * 2.0 ** K)             # exact product, then X
+    hd = torch.floor(y * 2.0 ** -32)
+    acc = torch.zeros(2, n_out + 1, dtype=torch.int64, device=dev)
+    acc[0].index_add_(0, key, hd.to(torch.int64))
+    acc[1].index_add_(0, key, (y - hd * 2.0 ** 32).to(torch.int64))
+    H, Ls = acc[0, :n_out], acc[1, :n_out]
+    H = H + (Ls >> 32)
+    Ls = Ls & 0xFFFFFFFF
+    a1 = H.double()
+    A = a1 * 2.0 ** 32
+    C = ((H - a1.to(torch.int64)) * 2 ** 32 + Ls).double()
+    s = A + C
+    bb = s - A
+    err = (A - (s - bb)) + (C - bb)
+    bits = s.view(torch.int64)                # round to odd: one ulp toward err
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    s = torch.where((err != 0) & ((bits & 1) == 0), (bits + step).view(torch.float64), s)
+    e1 = (-K) >> 1
+    return s.to(torch.float32) * 2.0 ** e1 * 2.0 ** (-K - e1)
+
+
+def vertex_deposit(w: torch.Tensor, q, elem: torch.Tensor, active: torch.Tensor,
+                   elem2verts, n_out: int) -> torch.Tensor:
+    """The deterministic weighted deposit (see :func:`vertex_deposit_plain`):
+    kernel V on CUDA tensors, the plain version on CPU tensors."""
+    tensors = [t for t in (w, q, elem, active, elem2verts) if t is not None]
+    if not kernels.use_kernel("vdeposit", *tensors):
+        return vertex_deposit_plain(w, q, elem, active, elem2verts, n_out)
+    n = elem.shape[0]
+    k = 1 if w.dim() == 1 else w.shape[1]
+    if (w.dtype != torch.float32 or w.shape[0] != n or elem.dtype != torch.int32
+            or active.dtype != torch.bool or active.shape != (n,)
+            or (q is not None and (q.dtype != torch.float32 or q.shape != (n,)))
+            or (elem2verts is not None and (elem2verts.dtype != torch.int32
+                                            or elem2verts.shape[1:] != (k,)))):
+        raise ValueError("vdeposit: (N, k) f32 terms, (N,) f32 charge, i32 elem, "
+                         "bool active and (E, k) i32 keys expected")
+    if n * k >= 1 << 31:
+        raise ValueError("vdeposit: the kernel takes fewer than 2^31 terms")
+    dev = w.device
+    out = torch.empty(n_out, dtype=torch.float32, device=dev)
+    if n_out == 0:
+        return out
+    acc = torch.empty(n_out, 2, dtype=torch.int64, device=dev)
+    max_bits = torch.zeros(1, dtype=torch.int32, device=dev)
+    P = ctypes.c_void_p
+
+    def ptr(t):
+        return P(None if t is None else t.data_ptr())
+
+    err = _build.lib().pp_vdeposit(
+        ptr(w), ptr(q), ptr(elem), ptr(active), ptr(elem2verts), k,
+        0 if elem2verts is None else elem2verts.shape[0], n_out,
+        _log2_terms(n * k), ptr(acc), ptr(max_bits), ptr(out), n,
+        P(kernels.stream_handle()))
+    _build.check(err, "vdeposit")
+    kernels.LAUNCHES["vdeposit"] += 1
+    return out

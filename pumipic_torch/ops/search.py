@@ -18,9 +18,11 @@ one thread per particle, with the whole walk inside the kernel.  Its plain
 version :func:`walk_locate_plain` steps the unfinished walkers as a batch.
 The peel takes a cartesian :class:`LocatorGrid2D`, whose cell id kernel L
 computes itself, or a flux-band :class:`BandGrid2D`, whose cell ids kernel
-B computes first and hands to kernel L ("given cells").  In 2D the port
-refuses ``record_exit``, ``recover="project"`` and every handler but
-:func:`remove_on_exit` with ``NotImplementedError``.
+B computes first and hands to kernel L ("given cells").  Every other 2D
+case (:func:`reflect_on_exit_2d`, ``record_exit``, ``recover="project"``)
+runs kernel M2 (``kernels/csrc/trace2d.cu``) through :func:`trace_2d`, from
+the plain start or either peel; :func:`trace_2d_plain` is its plain version
+and runs any handler of the protocol on the CPU.
 
 Tets: :func:`walk_locate_3d` is the wrapper of kernel L3
 (``kernels/csrc/locate3d.cu``), the tet version of L for the fast case (the
@@ -48,6 +50,7 @@ from pumipic_torch.mesh.core import Mesh2D, Mesh3D
 from pumipic_torch.mesh.locator import BandGrid2D, LocatorGrid2D, LocatorGrid3D
 from pumipic_torch.ops.geometry import closest_point_on_triangle, sqrt_rn
 from pumipic_torch.ops.locate import band_cell_of, band_cell_of_plain
+from pumipic_torch.ops.rows import row_gather
 
 INVALID = -1
 # Containment tolerance, relative to the accumulated |terms| of the affine
@@ -97,6 +100,61 @@ def remove_on_exit(ctx: BoundaryCtx) -> BoundaryResult:
 remove_on_exit.modifies_dest = False
 
 
+def reflect_on_exit_2d(ctx: BoundaryCtx) -> BoundaryResult:
+    """Specular reflection off the exposed edge: the destination is mirrored
+    across the edge's line and the walker goes on from its element (the
+    walk restarts the segment at the crossing point).  Kernel M2 applies it
+    inline through :func:`reflect_tangents`, in this order of f32
+    operations (the edge's length a correctly rounded sqrt)."""
+    m = ctx.mesh
+    tx, ty, ax, ay = _edge_frames(m, m.edge2verts[torch.clamp(ctx.side, min=0).long()])
+    dx, dy = ctx.dest
+    adx, ady = dx - ax, dy - ay
+    along = adx * tx + ady * ty
+    return BoundaryResult((ax + 2 * along * tx - adx, ay + 2 * along * ty - ady),
+                          ctx.elem, torch.zeros_like(ctx.elem, dtype=torch.bool))
+
+
+reflect_on_exit_2d.modifies_dest = True
+
+
+def _edge_frames(mesh: Mesh2D, ev: torch.Tensor):
+    """(t_x, t_y, a_x, a_y) of the edges ``ev`` ((k, 2) vertex ids): the
+    unit tangent from the first vertex a, the reference's f32 operations in
+    its order (the length a correctly rounded sqrt)."""
+    ev = ev.long()
+    ax, ay = mesh.coords[ev[:, 0]].unbind(1)
+    bx, by = mesh.coords[ev[:, 1]].unbind(1)
+    tx, ty = bx - ax, by - ay
+    inv = 1.0 / torch.clamp(sqrt_rn(tx * tx + ty * ty), min=1e-30)
+    return tx * inv, ty * inv, ax, ay
+
+
+def _cached(mesh, key: str, sources, build):
+    """``build()``, kept on the mesh for the tensors ``sources`` it reads
+    (another tensor, or one written in place since, builds it again)."""
+    seen = mesh._derived.get(key)
+    if (seen is not None and len(seen[0]) == len(sources)
+            and all(a is b for a, b in zip(seen[0], sources))
+            and seen[1] == tuple(t._version for t in sources)):
+        return seen[2]
+    table = build()
+    mesh._derived[key] = (tuple(sources), tuple(t._version for t in sources), table)
+    return table
+
+
+def reflect_tangents(mesh: Mesh2D) -> torch.Tensor:
+    """(n_edges, 4) f32, each edge's unit tangent [t_x t_y] and first vertex
+    [a_x a_y]: what kernel M2's reflect handler reads in place of
+    ``edge2verts`` and ``coords``.  Formed with :func:`reflect_on_exit_2d`'s
+    f32 operations in its order, so a mirror through a row equals that
+    handler's bit for bit.  Kept on the mesh for the ``edge2verts`` and
+    ``coords`` tensors it was built from (another tensor, or either
+    written in place since, builds it again)."""
+    return _cached(mesh, "tangents", (mesh.edge2verts, mesh.coords),
+                   lambda: torch.stack(_edge_frames(mesh, mesh.edge2verts), 1).contiguous())
+
+
 def reflect_on_exit_3d(ctx: BoundaryCtx) -> BoundaryResult:
     """Specular reflection off the exposed face (the GITR-style wall): the
     destination is mirrored across the face's plane and the walker goes on
@@ -131,25 +189,21 @@ def reflect_normals(mesh: Mesh3D) -> torch.Tensor:
     through a row equals that handler's bit for bit.  Kept on the mesh for
     the ``face2verts`` and ``coords`` tensors it was built from; another
     tensor, or either written in place since, builds it again."""
-    fv_t, cz = mesh.face2verts, mesh.coords
-    seen = mesh._derived.get("normals")
-    if (seen is not None and seen[0] is fv_t and seen[1] is cz
-            and seen[2:4] == (fv_t._version, cz._version)):
-        return seen[4]
-    fv = fv_t.long()
-    a, b, c = (cz[fv[:, j]] for j in range(3))
-    ax, ay, az = a.unbind(1)
-    ux, uy, uz = (b - a).unbind(1)
-    vx, vy, vz = (c - a).unbind(1)
-    nx = uy * vz - uz * vy
-    ny = uz * vx - ux * vz
-    nz = ux * vy - uy * vx
-    inv = 1.0 / torch.clamp(sqrt_rn(nx * nx + ny * ny + nz * nz), min=1e-30)
-    zero = torch.zeros_like(nx)
-    table = torch.stack([nx * inv, ny * inv, nz * inv, zero, ax, ay, az, zero],
-                        1).contiguous()
-    mesh._derived["normals"] = (fv_t, cz, fv_t._version, cz._version, table)
-    return table
+    def build():
+        fv = mesh.face2verts.long()
+        a, b, c = (mesh.coords[fv[:, j]] for j in range(3))
+        ax, ay, az = a.unbind(1)
+        ux, uy, uz = (b - a).unbind(1)
+        vx, vy, vz = (c - a).unbind(1)
+        nx = uy * vz - uz * vy
+        ny = uz * vx - ux * vz
+        nz = ux * vy - uy * vx
+        inv = 1.0 / torch.clamp(sqrt_rn(nx * nx + ny * ny + nz * nz), min=1e-30)
+        zero = torch.zeros_like(nx)
+        return torch.stack([nx * inv, ny * inv, nz * inv, zero, ax, ay, az, zero],
+                           1).contiguous()
+
+    return _cached(mesh, "normals", (mesh.face2verts, mesh.coords), build)
 
 
 class SearchResult(NamedTuple):
@@ -357,15 +411,18 @@ def _components(x):
     return tuple(x[:, i].contiguous() for i in range(x.shape[1]))
 
 
-def _check_options(boundary_handler, record_exit, recover, aux_capture=None):
-    if boundary_handler is not remove_on_exit:
-        raise NotImplementedError("only remove_on_exit is ported")
-    if record_exit:
-        raise NotImplementedError("record_exit is not ported")
-    if recover != "off":
-        raise NotImplementedError("recover='project' is not ported")
-    if aux_capture is not None:
-        raise NotImplementedError("aux_capture is not ported")
+def _rows_of(x) -> torch.Tensor:
+    """(N, dim) contiguous f32 points from an array or a tuple of
+    components."""
+    if isinstance(x, tuple):
+        return torch.stack(x, dim=1)
+    return x.contiguous()
+
+
+def _fast_case_2d(boundary_handler, record_exit: bool, recover: str) -> bool:
+    """The case kernel L runs: remove-on-exit, no exit record and no
+    recovery."""
+    return boundary_handler is remove_on_exit and not record_exit and recover == "off"
 
 
 def search_mesh_2d(mesh: Mesh2D, x_orig, x_tgt, elem_init: torch.Tensor,
@@ -373,14 +430,23 @@ def search_mesh_2d(mesh: Mesh2D, x_orig, x_tgt, elem_init: torch.Tensor,
                    boundary_handler=remove_on_exit, record_exit: bool = False,
                    widths=None, recover: str = "off") -> SearchResult:
     """Walk every active particle from ``elem_init`` (clamped into range) to
-    the element containing ``x_tgt``.  Inactive particles get INVALID.
-    ``widths`` (the TPU compaction pyramid) is accepted and ignored: the
-    kernel keeps finished walkers idle instead of compacting."""
-    _check_options(boundary_handler, record_exit, recover)
-    dx, dy = _components(x_tgt)
-    elem, act, iters, all_found = walk_locate(
-        mesh.walk_geom, dx, dy, elem_init.to(torch.int32), active, max_iters)
-    return SearchResult(elem, (dx, dy), iters, all_found, act)
+    the element containing ``x_tgt``.  Inactive particles get INVALID;
+    walkers left at the iteration limit are deleted (or, with
+    ``recover="project"``, recovered where they are stranded at their
+    triangle's closure).  :func:`remove_on_exit` with neither
+    ``record_exit`` nor ``recover`` runs kernel L's plain walk; every other
+    case :func:`trace_2d` (kernel M2).  ``widths`` (the TPU compaction
+    pyramid) is accepted and ignored: the kernels keep finished walkers
+    idle instead of compacting."""
+    _check_walk_options(boundary_handler, recover)
+    if _fast_case_2d(boundary_handler, record_exit, recover):
+        dx, dy = _components(x_tgt)
+        elem, act, iters, all_found = walk_locate(
+            mesh.walk_geom, dx, dy, elem_init.to(torch.int32), active, max_iters)
+        return SearchResult(elem, (dx, dy), iters, all_found, act)
+    orig = None if x_orig is None else _rows_of(x_orig)
+    return trace_2d(mesh, orig, _rows_of(x_tgt), elem_init.to(torch.int32), active,
+                    max_iters, boundary_handler, record_exit, recover)
 
 
 def search_mesh_2d_accel(mesh: Mesh2D, grid: Grid, x_orig, x_tgt,
@@ -392,15 +458,36 @@ def search_mesh_2d_accel(mesh: Mesh2D, grid: Grid, x_orig, x_tgt,
     """Grid-accelerated search through the cell-row peel ("rows" layout of
     a cartesian or flux-band grid; the other layouts are not ported):
     results equal :func:`search_mesh_2d`'s, with the peel counted as one
-    iteration."""
-    _check_options(boundary_handler, record_exit, recover, aux_capture)
+    iteration and a guess walk that retries once from the clamped
+    ``elem_prev`` where it meets the boundary (a guess walk's boundary hit
+    is never a real hit).  Kernel L in the fast case, kernel M2 in every
+    other.  ``aux_capture`` (a TPU gather-saving knob) is not ported."""
+    _check_walk_options(boundary_handler, recover)
+    if aux_capture is not None:
+        raise NotImplementedError("aux_capture is not ported")
     if grid.cell_rows is None:
         raise NotImplementedError("only the cell-rows peel is ported")
-    dx, dy = _components(x_tgt)
-    elem, act, iters, all_found = walk_locate(
-        mesh.walk_geom, dx, dy, elem_prev.to(torch.int32), active, max_iters,
-        grid=grid)
-    return SearchResult(elem, (dx, dy), iters, all_found, act)
+    if _fast_case_2d(boundary_handler, record_exit, recover):
+        dx, dy = _components(x_tgt)
+        elem, act, iters, all_found = walk_locate(
+            mesh.walk_geom, dx, dy, elem_prev.to(torch.int32), active, max_iters,
+            grid=grid)
+        return SearchResult(elem, (dx, dy), iters, all_found, act)
+    orig = None if x_orig is None else _rows_of(x_orig)
+    return trace_2d(mesh, orig, _rows_of(x_tgt), elem_prev.to(torch.int32), active,
+                    max_iters, boundary_handler, record_exit, recover, grid=grid)
+
+
+def search_mesh_2d_pt(mesh: Mesh2D, pt, elem_init, max_iters: int = 100) -> torch.Tensor:
+    """Single-point location (``search_mesh_2d_pt``, adjacency.hpp:1160-1252):
+    the () i32 id of the element containing ``pt``, walked from
+    ``elem_init``, or -1."""
+    dev = mesh.device
+    p = torch.as_tensor(pt, dtype=torch.float32, device=dev).reshape(1, 2)
+    e = torch.as_tensor(elem_init, dtype=torch.int32, device=dev).reshape(1)
+    res = search_mesh_2d(mesh, p, p, e, torch.ones(1, dtype=torch.bool, device=dev),
+                         max_iters)
+    return res.elem_ids[0]
 
 
 # ---------------------------------------------------------------------------
@@ -940,16 +1027,244 @@ def trace_3d(mesh: Mesh3D, orig: Optional[torch.Tensor], dest: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# public API, tets
+# triangles, every other case: plain PyTorch version of kernel M2
 # ---------------------------------------------------------------------------
 
-def _dest3(x_tgt) -> torch.Tensor:
-    """(N, 3) contiguous f32 destinations from an array or a tuple of
-    components."""
-    if isinstance(x_tgt, tuple):
-        return torch.stack(x_tgt, dim=1)
-    return x_tgt.contiguous()
+def _core_2d(g, dest, orig, need_t):
+    """(inside, exit k, t) of ``_row_core_2d`` on walk_geom rows: the side
+    opposite the most negative destination weight; t = w_o / (w_o - w_min)
+    of that weight along orig -> dest."""
+    dx, dy = dest
+    l1, l2, w0, inside = bary_inside(*g[:, 0:6].unbind(1), dx, dy)
+    wmin = torch.minimum(w0, l1)
+    k = torch.where(w0 <= l1, 0, 1)
+    k = torch.where(l2 < wmin, 2, k)
+    t = None
+    if need_t:
+        wmin = torch.minimum(wmin, l2)
+        ox, oy = orig
+        l1o = g[:, 0] * ox + g[:, 1] * oy + g[:, 2]
+        l2o = g[:, 3] * ox + g[:, 4] * oy + g[:, 5]
+        w0o = 1.0 - l1o - l2o
+        wo = torch.where(k == 0, w0o, torch.where(k == 1, l1o, l2o))
+        den = wo - wmin
+        t = wo / torch.where(den == 0, torch.ones_like(den), den)
+    return inside, k, t
 
+
+def recover_project_2d(mesh: Mesh2D, e: torch.Tensor, dest):
+    """``_make_recover`` (2D): (ok, q) for loop-limit survivors in triangles
+    ``e`` with destinations ``dest`` (per-component): q is the triangle's
+    closest point to the destination (``closest_point_on_triangle`` at
+    z = 0), nudged toward the centroid; ok where that distance is within
+    RECOVER_REL_TOL of the triangle's longest edge."""
+    ev = mesh.elem2verts[torch.clamp(e, min=0).long()].long()
+    vs = [mesh.coords[ev[:, i]] for i in range(3)]                # (w, 2) each
+    zero = torch.zeros_like(dest[0])
+    p3 = torch.stack([dest[0], dest[1], zero], dim=1)
+    q3 = closest_point_on_triangle(p3, *(torch.cat([v, zero[:, None]], 1) for v in vs))
+    d2 = _sq3(q3.unbind(1), p3.unbind(1))
+    scale2 = torch.zeros_like(zero)
+    for i in range(3):
+        for j in range(i + 1, 3):
+            d = vs[i] - vs[j]
+            scale2 = torch.maximum(scale2, d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+    ok = d2 <= (RECOVER_REL_TOL ** 2) * scale2
+    three = torch.tensor(3.0, dtype=zero.dtype, device=zero.device)
+    cent = [((vs[0][:, c] + vs[1][:, c]) + vs[2][:, c]) / three for c in range(2)]
+    return ok, tuple(q3[:, c] + (cent[c] - q3[:, c]) * RECOVER_NUDGE for c in range(2))
+
+
+def trace_2d_plain(mesh: Mesh2D, orig: torch.Tensor, dest: torch.Tensor,
+                   elem_start, active, max_iters: int,
+                   boundary_handler=remove_on_exit, record_exit: bool = False,
+                   recover: str = "off", grid: Optional[Grid] = None) -> SearchResult:
+    """Plain PyTorch version of kernel M2 (a batch walk over the unfinished
+    walkers, :func:`trace_2d`'s semantics), with any handler of the
+    protocol."""
+    _check_walk_options(boundary_handler, recover)
+    n_elems = mesh.walk_geom.shape[0]
+    needs_hit = _needs_hit(boundary_handler, record_exit)
+    d = [c.clone() for c in dest.unbind(1)]
+    o = [c.clone() for c in orig.unbind(1)]
+    start = torch.clamp(elem_start.to(torch.int32), 0, n_elems - 1)
+    elem = torch.where(active, start, INVALID)
+    fbg = torch.full_like(elem, -2)
+    done = ~active
+    it0 = 0
+    if grid is not None:
+        it0 = 1
+        e0, inside = _peel(grid, *d)
+        elem = torch.where(active, e0, INVALID)
+        fbg = torch.where(active & ~inside, start, -2)
+        done = ~active | inside
+    side_rec = torch.full_like(elem, INVALID)
+    nhits = torch.zeros_like(elem)
+    hit_rec = [c.clone() for c in d]
+    idx = torch.nonzero(~done).flatten()
+    steps = 0
+    for _ in range(max(max_iters - it0, 0)):
+        if idx.numel() == 0:
+            break
+        steps += 1
+        e, f = elem[idx], fbg[idx]
+        dw, ow = tuple(c[idx] for c in d), tuple(c[idx] for c in o)
+        g = mesh.walk_geom[e.long()]                             # (w, 12)
+        inside, k, t = _core_2d(g, dw, ow, needs_hit)
+        nxt = torch.gather(g[:, 6:9], 1, k[:, None])[:, 0].to(torch.int32)
+        side = torch.gather(g[:, 9:12], 1, k[:, None])[:, 0].to(torch.int32)
+        exposed = nxt == INVALID
+        retry = ~inside & exposed & (f >= 0)
+        real = ~inside & exposed & (f < 0)
+        hit = None
+        if needs_hit:
+            tc = torch.clamp(t, 0.0, 1.0)
+            hit = tuple(oc + tc * (dc - oc) for oc, dc in zip(ow, dw))
+        bres = boundary_handler(BoundaryCtx(e, side, ow, dw, mesh, hit, t))
+        elem[idx] = torch.where(inside, e, torch.where(
+            retry, f, torch.where(exposed, bres.elem.to(e.dtype), nxt)))
+        fbg[idx] = torch.where((f >= 0) & ~retry & ~inside, f, -2)
+        if bres.dest is not None:
+            for c in range(2):
+                d[c][idx] = torch.where(real, bres.dest[c], dw[c])
+                o[c][idx] = torch.where(real, hit[c], ow[c])
+        if record_exit:
+            side_rec[idx] = torch.where(real, side, side_rec[idx])
+            nhits[idx] += real.to(nhits.dtype)
+            for c in range(2):
+                hit_rec[c][idx] = torch.where(real, hit[c], hit_rec[c][idx])
+        idx = idx[~(inside | (real & bres.done))]
+    dev = elem.device
+    num_rec = None
+    if recover == "project":
+        n_ok = 0
+        if idx.numel():
+            e = elem[idx]
+            ok, q = recover_project_2d(mesh, e, tuple(c[idx] for c in d))
+            ok = ok & (e >= 0)
+            for c in range(2):
+                d[c][idx] = torch.where(ok, q[c], d[c][idx])
+            n_ok = int(ok.sum())
+            idx = idx[~ok]
+        num_rec = torch.tensor(n_ok, dtype=torch.int32, device=dev)
+    elem[idx] = INVALID
+    rec = {}
+    if record_exit:
+        rec = dict(exit_side=side_rec, hit_c=tuple(hit_rec), num_hits=nhits)
+    return SearchResult(
+        elem, tuple(d), torch.tensor(it0 + steps, dtype=torch.int32, device=dev),
+        torch.tensor(idx.numel() == 0, device=dev), elem >= 0,
+        num_recovered=num_rec, **rec)
+
+
+# ---------------------------------------------------------------------------
+# kernel M2 wrapper
+# ---------------------------------------------------------------------------
+
+def trace_2d(mesh: Mesh2D, orig: Optional[torch.Tensor], dest: torch.Tensor,
+             elem_start, active, max_iters: int, boundary_handler=remove_on_exit,
+             record_exit: bool = False, recover: str = "off",
+             grid: Optional[Grid] = None) -> SearchResult:
+    """The triangle walk of every active particle from ``elem_start``
+    (clamped; or, with ``grid``, the peel of the destination cell's two
+    candidate rows, counted as one iteration, then a guess walk that retries
+    once from the clamped start where it meets the boundary) to the
+    triangle containing its (N, 2) ``dest``, along the segment from
+    ``orig`` (N, 2; unused, and may be None, without a hit point).
+
+    ``boundary_handler``: :func:`remove_on_exit` or :func:`reflect_on_exit_2d`
+    (mirror the destination, walk on from the crossing point).
+    ``record_exit``: the exit edge, crossing point and count of real
+    boundary hits.  ``recover="project"``: loop-limit survivors whose
+    destination lies at the closure of their triangle are accepted there,
+    at the projected point.  ``grid``: a cartesian :class:`LocatorGrid2D`
+    (the kernel computes each cell) or a :class:`BandGrid2D` (kernel B
+    computes the cells first), both with cell rows.
+
+    Kernel M2 (``kernels/csrc/trace2d.cu``) on CUDA tensors, which knows the
+    two handlers above (reflect through the mesh's :func:`reflect_tangents`)
+    and raises NotImplementedError for any other; :func:`trace_2d_plain` on
+    CPU tensors.  The result's (N, 2) ``dest`` and ``hit`` are then the
+    kernel's own outputs, not copies."""
+    _check_walk_options(boundary_handler, recover)
+    if orig is None:
+        if _needs_hit(boundary_handler, record_exit):
+            raise ValueError("trace_2d: this walk needs the segment origins")
+        orig = dest
+    if grid is not None and grid.cell_rows is None:
+        raise ValueError("trace_2d: the locator grid has no cell rows")
+    if not kernels.use_kernel("trace2d", dest, orig, elem_start, active,
+                              mesh.walk_geom):
+        return trace_2d_plain(mesh, orig, dest, elem_start, active, max_iters,
+                              boundary_handler, record_exit, recover, grid)
+    if boundary_handler is remove_on_exit:
+        reflect = 0
+    elif boundary_handler is reflect_on_exit_2d:
+        reflect = 1
+    else:
+        raise NotImplementedError("kernel M2 knows remove_on_exit and "
+                                  "reflect_on_exit_2d; other handlers run on the CPU")
+    n, E = dest.shape[0], mesh.nelems
+    if (dest.dtype != torch.float32 or dest.shape != (n, 2) or orig.shape != (n, 2)
+            or orig.dtype != torch.float32 or elem_start.dtype != torch.int32
+            or active.dtype != torch.bool or elem_start.shape != (n,)
+            or active.shape != (n,)):
+        raise ValueError("trace_2d: (N, 2) f32 orig and dest, i32 elem_start and "
+                         "bool active expected")
+    if n >= 1 << 30:
+        raise ValueError("trace_2d: the kernel takes fewer than 2^30 particles")
+    if mesh.walk_geom.data_ptr() % 16 or (grid is not None
+                                          and grid.cell_rows.data_ptr() % 8):
+        raise ValueError("trace_2d: walk_geom must be 16-byte and cell_rows "
+                         "8-byte aligned")
+    tangents = reflect_tangents(mesh) if reflect else None
+    cells = None
+    ox, oy, ihx, ihy, nx, ny = 0.0, 0.0, 0.0, 0.0, 1, 1
+    if isinstance(grid, BandGrid2D):
+        cells = band_cell_of(grid, dest[:, 0].contiguous(), dest[:, 1].contiguous())
+    elif grid is not None:
+        (ox, oy), (ihx, ihy), nx, ny = grid.origin, grid.inv_h, grid.nx, grid.ny
+    rows = None if grid is None else grid.cell_rows
+    kernels.use_kernel("trace2d", dest, *(t for t in (
+        tangents, mesh.coords, mesh.elem2verts, rows, cells) if t is not None))
+    dev = dest.device
+    elem = torch.empty(n, dtype=torch.int32, device=dev)
+    act = torch.empty(n, dtype=torch.bool, device=dev)
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    new_dest = torch.empty_like(dest) if (reflect or recover == "project") else None
+    rec = None
+    if record_exit:
+        rec = (torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev), torch.empty_like(dest))
+    it0 = 0 if grid is None else 1
+    P = ctypes.c_void_p
+
+    def ptr(t):
+        return P(None if t is None else t.data_ptr())
+
+    if n:
+        err = _build.lib().pp_trace_2d(
+            ptr(orig), ptr(dest), ptr(elem_start), ptr(active), ptr(mesh.walk_geom), E,
+            ptr(tangents), ptr(mesh.coords), ptr(mesh.elem2verts), ptr(rows),
+            ptr(cells), ox, oy, ihx, ihy, nx, ny, max_iters, it0, reflect,
+            int(record_exit), int(recover == "project"), ptr(elem), ptr(act),
+            ptr(new_dest), *(ptr(t) for t in (rec or (None,) * 3)), ptr(stats), n,
+            P(kernels.stream_handle()))
+        _build.check(err, "trace2d")
+        kernels.LAUNCHES["trace2d"] += 1
+    out = dest if new_dest is None else new_dest
+    extra = {}
+    if record_exit:
+        extra = dict(exit_side=rec[0], num_hits=rec[1], hit_c=tuple(rec[2].unbind(1)))
+    if recover == "project":
+        extra["num_recovered"] = stats[2]
+    return SearchResult(elem, tuple(out.unbind(1)), stats[0] + it0, stats[1] == 0,
+                        act, **extra)
+
+
+# ---------------------------------------------------------------------------
+# public API, tets
+# ---------------------------------------------------------------------------
 
 def _fast_case(method: str, boundary_handler, record_exit: bool, recover: str) -> bool:
     """The case kernel L3 runs: the BCC core, remove-on-exit, no exit record
@@ -972,12 +1287,12 @@ def search_mesh_3d(mesh: Mesh3D, x_orig, x_tgt, elem_init: torch.Tensor,
     case :func:`trace_3d` (kernel M).  ``widths`` (the TPU compaction
     pyramid) is accepted and ignored."""
     _check_walk_options(boundary_handler, recover)
-    dest = _dest3(x_tgt)
+    dest = _rows_of(x_tgt)
     if _fast_case(method, boundary_handler, record_exit, recover):
         elem, act, iters, all_found, _ = walk_locate_3d(
             mesh.walk_geom, dest, elem_init.to(torch.int32), active, max_iters)
         return SearchResult(elem, dest.unbind(1), iters, all_found, act)
-    orig = None if x_orig is None else _dest3(x_orig)
+    orig = None if x_orig is None else _rows_of(x_orig)
     return trace_3d(mesh, orig, dest, elem_init.to(torch.int32), active, max_iters,
                     method, boundary_handler, record_exit, recover)
 
@@ -996,13 +1311,13 @@ def search_mesh_3d_accel(mesh: Mesh3D, grid: LocatorGrid3D, x_orig, x_tgt,
     _check_walk_options(boundary_handler, recover)
     if grid.cell_rows is None:
         raise NotImplementedError("only the cell-rows peel is ported")
-    dest = _dest3(x_tgt)
+    dest = _rows_of(x_tgt)
     if _fast_case(method, boundary_handler, record_exit, recover):
         elem, act, iters, all_found, _ = walk_locate_3d(
             mesh.walk_geom, dest, elem_prev.to(torch.int32), active, max_iters,
             grid=grid)
         return SearchResult(elem, dest.unbind(1), iters, all_found, act)
-    orig = None if x_orig is None else _dest3(x_orig)
+    orig = None if x_orig is None else _rows_of(x_orig)
     return trace_3d(mesh, orig, dest, elem_prev.to(torch.int32), active, max_iters,
                     method, boundary_handler, record_exit, recover, grid=grid)
 
@@ -1023,7 +1338,7 @@ def check_initial_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.T
     e_raw = elem_init.to(torch.int32)
     in_table = (e_raw >= 0) & (e_raw < mesh.nelems)
     e_safe = torch.clamp(e_raw, 0, mesh.nelems - 1)
-    g = mesh.walk_geom[e_safe.long()]
+    g = row_gather(mesh.walk_geom, e_safe)          # kernel G on the card
     if mesh.dim == 2:
         inside = bary_inside(*g[:, 0:6].unbind(1), *orig)[3]
     else:
@@ -1036,7 +1351,7 @@ def check_initial_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.T
     start = e_safe
     if locator is not None:
         start = locator.cell_elem[locator.cell_of(*orig).long()]
-    x = torch.stack(orig, dim=1).contiguous()
+    x = _rows_of(x_orig)
     search = search_mesh_2d if mesh.dim == 2 else search_mesh_3d
     res = search(mesh, x, x, start.to(torch.int32), bad, max_iters)
     repaired = bad & (res.elem_ids >= 0)
@@ -1052,9 +1367,9 @@ def trace_particle_through_mesh(mesh, x_orig, x_tgt, elem_init: torch.Tensor,
                                 recover: str = "off") -> SearchResult:
     """The unified 2D/3D driver (``trace_particle_through_mesh``,
     adjacency.tpp:460-615): with ``validate_parents`` "delete" or "repair",
-    :func:`check_initial_parents` first; then :func:`search_mesh_2d` (which
-    refuses the 2D reflect, ``record_exit`` and ``recover``) or
-    :func:`search_mesh_3d`."""
+    :func:`check_initial_parents` first; then :func:`search_mesh_2d` or
+    :func:`search_mesh_3d`, with every handler, exit record and recovery
+    mode they take."""
     if validate_parents != "off":
         elem_init, _, _ = check_initial_parents(mesh, x_orig, elem_init, active,
                                                 mode=validate_parents)

@@ -9,7 +9,9 @@ and ``pps3d-walk`` are bench_torch's pseudoPushAndSearch arms (the Kuhn
 box, DPS, kernel K or kernel L3), ``pps3d-reflect`` its reflecting-wall
 arm (K's push-only form and kernel M's peel form); ``gitr-reflect`` and
 ``gitr-absorb`` are bench_torch's GITR-style arms (kernels R, M and W on
-the 196,608-tet box); the ``app`` arm builds
+the 196,608-tet box); ``2d-path`` is ``chip_smoke.py``'s 2D path (one call
+of ``trace2d_path_call`` a step: kernels L, M2, V and H from the seeded
+particles of bench_torch's mesh); the ``app`` arm builds
 the single-device ``PseudoXGCm`` app on a Sell-C-σ structure with the same
 mesh and settings (its step adds the sorted rebuild: the stable sort,
 kernels H, S and G), ``app-<structure>`` on another structure (``csr``,
@@ -76,9 +78,41 @@ def app_setup(dev, n: int, structure: str = "scs"):
     return app.ptcls, step, info
 
 
+def path_2d_setup(dev, n: int):
+    """(state, step, info) of the 2D path arm: bench_torch's mesh, its
+    seeded particles and cartesian grid; a step is one call of
+    ``chip_smoke.trace2d_path_call``."""
+    import chip_smoke
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.mesh.gmsh import read_msh
+    from pumipic_torch.models import pseudo_xgcm as px
+
+    t0 = time.perf_counter()
+    mesh = Mesh2D.from_arrays(*read_msh(bench_torch.DEFAULT_MESH), device=dev)
+    cfg = px.XGCmConfig(num_ptcls=n, mdl_face=max(int(mesh.class_id.max()) // 2, 2),
+                        deg_per_push=15.0, max_search_iters=64)
+    s, dp = px.make_dp_setup(mesh, cfg, dev)
+    grid = dp.model.locator
+    gen = torch.Generator(dev).manual_seed(17)
+    q = (0.5 + torch.rand(n, generator=gen, device=dev)).contiguous()
+
+    def step(st):
+        r1, r2, rho, w, cnt = chip_smoke.trace2d_path_call(
+            mesh, grid, st["x"], st["elem"], st["active"], q, gen)
+        return ({"x": r2.dest.contiguous(), "elem": r2.elem_ids, "active": r2.active},
+                {"rho": rho, "w": w, "cnt": cnt})
+
+    state = {"x": torch.stack([s["x0"], s["x1"]], 1).contiguous(), "elem": s["elem"],
+             "active": s["active"]}
+    return state, step, {"tag": "2d-path-xgc_like_120k",
+                         "setup_s": {"setup": time.perf_counter() - t0}}
+
+
 def profile(arm: str, n: int, steps: int, smi: str) -> dict:
     dev = torch.device("cuda")
-    if arm.startswith("app"):
+    if arm == "2d-path":
+        state, step, info = path_2d_setup(dev, n)
+    elif arm.startswith("app"):
         state, step, info = app_setup(dev, n, arm[4:] or "scs")
     elif arm in PPS3D_ARMS:
         _, state, step, info = bench_torch.setup_pps3d(dev, n, **PPS3D_ARMS[arm])
@@ -133,7 +167,7 @@ def main() -> None:
     steps = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     arms = sys.argv[3:] or ["cartesian"]
     apps = ["app"] + [f"app-{s}" for s in ("csr", "cabm", "dps")]
-    known = sorted(ARMS) + sorted(PPS3D_ARMS) + sorted(GITR_ARMS) + apps
+    known = sorted(ARMS) + sorted(PPS3D_ARMS) + sorted(GITR_ARMS) + apps + ["2d-path"]
     unknown = set(arms) - set(known)
     if unknown:
         raise ValueError(f"unknown arms {sorted(unknown)}; known: {known}")

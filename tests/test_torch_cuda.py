@@ -1,7 +1,8 @@
 """Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D, G,
-S, K, L3, and the GITR-style app's R, M and W, with their modes) against its
-plain PyTorch version on the same CUDA tensors (exact), and its launch
-counter; M's mixed walk lengths and R's corner rows at their edges.
+S, K, L3, the GITR-style app's R, M and W, the 2D walk modes' M2 and the
+deposit V, with their modes) against its plain PyTorch version on the same
+CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
+lengths and R's corner rows at their edges.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no JAX, so it also runs where JAX is not installed, without the
@@ -1149,3 +1150,162 @@ def test_gitr_app_card_equals_cpu(dev, wall):
         for k in ("x", "v", "elem", "active"):
             assert torch.equal(apps[0].state[k].cpu(), apps[1].state[k]), k
         assert torch.equal(apps[0].wall_hits.cpu(), apps[1].wall_hits)
+
+
+# ---------------------------------------------------------------------------
+# kernel M2 (2D walk modes) and kernel V (deterministic deposit)
+# ---------------------------------------------------------------------------
+
+def _tri_walkers(dev, mesh, n, seed, scale=3.0):
+    """``n`` walkers from their triangles' centroids: displacements of
+    ``scale`` element sizes (some leave the domain), garbage starts,
+    stationary walkers, every eleventh inactive, far targets for a tenth."""
+    rng = np.random.default_rng(seed)
+    E = mesh.nelems
+    e0 = rng.integers(0, E, n).astype(np.int32)
+    e0[:17] = rng.integers(-4, 0, min(17, n))
+    cent = mesh.elem_centroids.cpu().numpy()[np.clip(e0, 0, E - 1)]
+    h = float(np.sqrt(np.abs(mesh.elem_area.cpu().numpy())).mean())
+    dest = cent + rng.normal(0, scale * h, (n, 2))
+    dest[17:60] = cent[17:60]
+    far = rng.uniform(size=n) < 0.1
+    dest[far] = rng.uniform(-1.3, 1.3, (int(far.sum()), 2))
+    act = np.ones(n, bool)
+    act[5::11] = False
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    return (t(cent.astype(np.float32)), t(dest.astype(np.float32)), t(e0), t(act))
+
+
+@pytest.fixture(scope="module")
+def tri2d(dev):
+    """tokamak_mesh(24, 120) on the card with its cartesian cell-row grid
+    and its flux-band grid."""
+    m = Mesh2D.from_arrays(*tokamak_mesh(24, 120), device=dev)
+    args = (m.coords.cpu().numpy(), m.elem2verts.cpu().numpy())
+    cart = build_locator_grid(*args, walk_geom=m.walk_geom, peel="rows", device=dev)
+    band = detect_banded_locator(*args, m.class_id.cpu().numpy(), m.walk_geom, device=dev)
+    assert band is not None
+    return m, {"plain": None, "cartesian": cart, "band": band}
+
+
+@pytest.mark.parametrize("grid_kind", ["plain", "cartesian", "band"])
+@pytest.mark.parametrize("recover", ["off", "project"])
+@pytest.mark.parametrize("record_exit", [False, True])
+@pytest.mark.parametrize("handler", ["remove", "reflect"])
+def test_trace2d_kernel_equals_plain(dev, tri2d, handler, record_exit, recover, grid_kind):
+    """M2 in every template (handler, record) with the run-time recovery and
+    the peel (the cartesian cell computed in the kernel, the band grid's
+    given cells from kernel B), at budgets that leave survivors (2) and that
+    do not (200)."""
+    mesh, grids = tri2d
+    grid = grids[grid_kind]
+    orig, dest, e0, act = _tri_walkers(dev, mesh, 20_011, 3)
+    h = se.reflect_on_exit_2d if handler == "reflect" else se.remove_on_exit
+    for max_iters in (200, 2):
+        args = (mesh, orig, dest, e0, act, max_iters, h, record_exit, recover, grid)
+        n0 = kernels.LAUNCHES["trace2d"]
+        got = se.trace_2d(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["trace2d"] == n0 + 1
+        _trace_equal(got, se.trace_2d_plain(*args))
+        if max_iters == 200 and recover == "off":
+            # far targets in the hole or beyond the wall can bounce between
+            # reflecting walls for the whole budget: a few per 10^4
+            if h is se.reflect_on_exit_2d:
+                assert int((act & ~got.active).sum()) <= act.numel() // 1000
+            else:
+                assert bool(got.all_found)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000])
+@pytest.mark.parametrize("record_exit", [False, True])
+@pytest.mark.parametrize("handler", ["remove", "reflect"])
+def test_trace2d_kernel_mixed_walk_lengths(dev, tri2d, handler, record_exit, n):
+    """M2 with near and far targets mixed inside each warp, n around the
+    32-lane warp; a second run equal to the first; the search entry points
+    route the case to M2 (and the fast case to L)."""
+    mesh = tri2d[0]
+    orig, dest, e0, act = _tri_walkers(dev, mesh, n, n + 5, scale=1.0)
+    h = se.reflect_on_exit_2d if handler == "reflect" else se.remove_on_exit
+    for max_iters, recover in ((200, "off"), (3, "project")):
+        args = (mesh, orig, dest, e0, act, max_iters, h, record_exit, recover, None)
+        got = se.trace_2d(*args)
+        _trace_equal(got, se.trace_2d_plain(*args))
+        _trace_equal(got, se.trace_2d(*args))
+        n0, l0 = kernels.LAUNCHES["trace2d"], kernels.LAUNCHES["locate"]
+        via = se.search_mesh_2d(mesh, orig, dest, e0, act, max_iters, h, record_exit,
+                                recover=recover)
+        fast = h is se.remove_on_exit and not record_exit and recover == "off"
+        # M2 launches nothing for no particle; L's wrapper counts its
+        # (empty) launch all the same
+        assert kernels.LAUNCHES["trace2d"] == n0 + (0 if fast or not n else 1)
+        assert kernels.LAUNCHES["locate"] == l0 + (1 if fast else 0)
+        assert torch.equal(via.elem_ids, got.elem_ids)
+
+
+def test_trace2d_kernel_refuses_other_handlers(dev, tri2d):
+    mesh = tri2d[0]
+    x = mesh.elem_centroids[:4].contiguous()
+    e = torch.zeros(4, dtype=torch.int32, device=dev)
+    a = torch.ones(4, dtype=torch.bool, device=dev)
+
+    def my_handler(ctx):
+        return se.remove_on_exit(ctx)
+
+    n0 = kernels.LAUNCHES["trace2d"]
+    with pytest.raises(NotImplementedError):
+        se.search_mesh_2d(mesh, x, x, e, a, 8, boundary_handler=my_handler)
+    assert kernels.LAUNCHES["trace2d"] == n0
+    res = se.trace_2d(mesh, x, x, e, a, 8, se.reflect_on_exit_2d, True)
+    assert res.dest.data_ptr() == res.dest_c[0].data_ptr()
+    assert res.hit.data_ptr() == res.hit_c[0].data_ptr()
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 100_003])
+@pytest.mark.parametrize("kind", ["bcc", "bcc+charge", "weights"])
+def test_vdeposit_kernel_equals_plain(dev, mesh, kind, n):
+    """V as scatter_to_verts_bcc (with and without charge) and as the
+    weighted particles_per_element: equal to the plain version bit for bit,
+    the same bits in a random order of the particles and on a second run."""
+    rng = np.random.default_rng(n)
+    elem = torch.as_tensor(rng.integers(-2, mesh.nelems + 2, n).astype(np.int32), device=dev)
+    act = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+    bcc = torch.as_tensor(rng.dirichlet([1, 1, 1], n).astype(np.float32), device=dev)
+    q = torch.as_tensor(rng.uniform(-1, 2, n).astype(np.float32), device=dev)
+    perm = torch.as_tensor(rng.permutation(n), device=dev)
+
+    def run(p):
+        if kind == "weights":
+            return sc.particles_per_element(elem[p], act[p], mesh.nelems, q[p])
+        return sc.scatter_to_verts_bcc(elem[p], act[p], bcc[p].contiguous(), mesh.elem2verts,
+                                       mesh.nverts, q[p] if kind == "bcc+charge" else None)
+
+    ident = torch.arange(n, device=dev)
+    n0 = kernels.LAUNCHES["vdeposit"]
+    got = run(ident)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["vdeposit"] == n0 + 1
+    if kind == "weights":
+        want = sc.vertex_deposit_plain(q, None, elem, act, None, mesh.nelems)
+    else:
+        want = sc.vertex_deposit_plain(bcc, q if kind == "bcc+charge" else None, elem, act,
+                                       mesh.elem2verts, mesh.nverts)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(run(perm).view(torch.int32), got.view(torch.int32))
+    assert torch.equal(run(ident).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("scale", [1e-42, 1e-20, 1.0, 1e30])
+def test_vdeposit_kernel_across_the_f32_range(dev, mesh, scale):
+    """Subnormal to large weights, and a NaN term (every output NaN, as the
+    plain version)."""
+    rng = np.random.default_rng(1)
+    n = 50_000
+    elem = torch.as_tensor(rng.integers(0, mesh.nelems, n).astype(np.int32), device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    w = torch.as_tensor((rng.normal(0, 1, n) * scale).astype(np.float32), device=dev)
+    for wt in (w, torch.where(torch.arange(n, device=dev) == 77, float("nan"), w)):
+        got = sc.particles_per_element(elem, act, mesh.nelems, wt)
+        want = sc.vertex_deposit_plain(wt, None, elem, act, None, mesh.nelems)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isnan(got).all())

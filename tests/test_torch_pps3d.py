@@ -100,12 +100,11 @@ def test_search_accepts_component_tuples_and_widths(box):
                                   "no rows", "wall reflect"])
 def test_refused_options_raise_not_implemented(box, what):
     """What the port still refuses raises NotImplementedError: the 3D peel
-    without cell rows ("no rows"), and in 2D the reflect, record_exit and
-    recovery (modes of kernel L that are not ported).  The 3D options this
-    test once refused run now (their parity with the reference is in
-    tests/test_torch_trace3d.py and tests/test_torch_gitr.py): each returns
-    its result here, and its 2D counterpart, where it has one, still
-    raises."""
+    without cell rows ("no rows").  The options this test once refused run
+    now, in 3D (their parity with the reference is in
+    tests/test_torch_trace3d.py and tests/test_torch_gitr.py) and in 2D
+    (the reflect, record_exit, recovery and the unified driver with them:
+    tests/test_torch_trace2d.py): each returns a valid result here."""
     t = torch.from_numpy(box["xt"][:10])
     e = torch.zeros(10, dtype=torch.int32)
     a = torch.ones(10, dtype=torch.bool)
@@ -127,12 +126,14 @@ def test_refused_options_raise_not_implemented(box, what):
         "wall reflect": lambda: tp.PseudoPushAndSearch(
             box["tm"], tp.PushSearchConfig(num_ptcls=10, wall="reflect"), device="cpu"),
     }
-    still_refused = {
+    runs_2d = {
         "reflect": lambda: t_se.search_mesh_2d(
-            m2, *args2, boundary_handler=t_se.reflect_on_exit_3d),
+            m2, *args2, boundary_handler=t_se.reflect_on_exit_2d),
         "record_exit": lambda: t_se.search_mesh_2d(m2, *args2, record_exit=True),
         "recover": lambda: t_se.search_mesh_2d(m2, *args2, recover="project"),
         "trace": lambda: t_se.trace_particle_through_mesh(m2, *args2, record_exit=True),
+    }
+    still_refused = {
         "no rows": lambda: t_se.search_mesh_3d_accel(
             box["tm"], dc.replace(box["tg"], cell_rows=None), *args),
     }
@@ -140,6 +141,13 @@ def test_refused_options_raise_not_implemented(box, what):
         out = runs[what]()
         if isinstance(out, t_se.SearchResult):
             assert out.elem_ids.shape == (10,) and bool(out.all_found)
+    if what in runs_2d:
+        out = runs_2d[what]()
+        assert out.elem_ids.shape == (10,) and bool(out.all_found)
+        assert bool((out.elem_ids >= 0).all())          # (0.1, 0.1) is in the disk
+        assert out.dest.shape == (10, 2)
+        if what in ("record_exit", "trace"):
+            assert int(out.num_hits.sum()) == 0 and bool((out.exit_side == -1).all())
     if what in still_refused:
         with pytest.raises(NotImplementedError):
             still_refused[what]()

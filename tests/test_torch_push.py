@@ -208,6 +208,7 @@ def _wrapper_calls(dev):
     mesh3 = Mesh3D.from_arrays(*box_tet_mesh(1, 1, 1), device="cpu").to(dev)
     grid3 = torch.zeros(2, 2, 2, 3, device=dev)
     x3 = torch.zeros(n, 3, device=dev)
+    x2 = torch.zeros(n, 2, device=dev)
     table = t_push.RotTable(torch.zeros(3, 2, device=dev))
     return {
         "push table": lambda: t_push.push_table(f, f, f, f, f, e, a, table, 0.0, 0.0, 0.9),
@@ -225,13 +226,17 @@ def _wrapper_calls(dev):
                                                 np.zeros(3), 1e-8),
         "trace3d": lambda: t_se.trace_3d(mesh3, x3, x3, e, a, 4, method="intersection"),
         "wall_tally": lambda: t_sc.wall_tally(e, a, e, 3),
+        "trace2d": lambda: t_se.trace_2d(mesh, x2, x2, e, a, 4, t_se.reflect_on_exit_2d,
+                                         True),
+        "vdeposit": lambda: t_sc.scatter_to_verts_bcc(e, a, x3, mesh.elem2verts,
+                                                      mesh.nverts),
     }
 
 
 @pytest.mark.parametrize("name", ["push", "push table", "band_cell", "annulus_locate",
                                   "locate", "histogram", "deposit", "kuhn_locate",
                                   "push_wrap", "locate3d", "boris", "trace3d",
-                                  "wall_tally"])
+                                  "wall_tally", "trace2d", "vdeposit"])
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices(name):
     """On CPU tensors a wrapper runs its plain version and counts no launch;
     on a device that is neither CPU nor CUDA it raises (no fallback)."""
@@ -249,7 +254,8 @@ def test_kernel_build_flags():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.sources()) == [
         "annulus.cu", "band.cu", "boris.cu", "deposit.cu", "gather.cu", "histogram.cu",
-        "kuhn.cu", "locate.cu", "locate3d.cu", "push.cu", "slotmap.cu", "trace3d.cu"]
+        "kuhn.cu", "locate.cu", "locate3d.cu", "push.cu", "slotmap.cu", "trace2d.cu",
+        "trace3d.cu", "vdeposit.cu"]
     assert "-shared" not in _build.NVCC_FLAGS      # compile flags; the link adds it
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()

@@ -200,16 +200,30 @@ def test_boundary_exits_are_removed(setup):
 
 
 def test_unported_options_raise(setup):
+    """What the 2D search once refused runs now (the exit record, recovery,
+    the reflecting wall and any handler of the protocol on the CPU: parity
+    in tests/test_torch_trace2d.py); the TPU-only ``aux_capture`` still
+    raises."""
     _, m, _, g = setup
-    x = torch.zeros(4, 2)
+    x = m.elem_centroids[:4].contiguous()
     e = torch.zeros(4, dtype=torch.int32)
     a = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        t_se.search_mesh_2d(m, x, x, e, a, record_exit=True)
-    with pytest.raises(NotImplementedError):
-        t_se.search_mesh_2d(m, x, x, e, a, recover="project")
-    with pytest.raises(NotImplementedError):
-        t_se.search_mesh_2d(m, x, x, e, a, boundary_handler=lambda ctx: ctx)
+
+    def remove_too(ctx):
+        return t_se.remove_on_exit(ctx)
+
+    remove_too.modifies_dest = False
+    runs = [t_se.search_mesh_2d(m, x, x, e, a, record_exit=True),
+            t_se.search_mesh_2d(m, x, x, e, a, recover="project"),
+            t_se.search_mesh_2d(m, x, x, e, a, boundary_handler=remove_too),
+            t_se.search_mesh_2d(m, x, x, e, a, boundary_handler=t_se.reflect_on_exit_2d),
+            t_se.search_mesh_2d_accel(m, g, x, x, e, a, record_exit=True,
+                                      boundary_handler=t_se.reflect_on_exit_2d,
+                                      recover="project")]
+    for r in runs:
+        assert bool(r.all_found) and torch.equal(r.elem_ids, runs[0].elem_ids)
+        assert bool((r.elem_ids >= 0).all())
+    assert int(runs[0].num_hits.sum()) == 0 and int(runs[1].num_recovered) == 0
     with pytest.raises(NotImplementedError):
         t_se.search_mesh_2d_accel(m, g, x, x, e, a, aux_capture=torch.zeros(1, 2))
     # the TPU pyramid widths are accepted and change nothing

@@ -407,9 +407,21 @@ def test_trace_particle_through_mesh_matches_reference(meshes, dim, validate):
         np.testing.assert_array_equal(tr3.elem_ids.numpy(), np.asarray(jr3.elem_ids))
         np.testing.assert_array_equal(tr3.num_hits.numpy(), np.asarray(jr3.num_hits))
     else:
-        # the 2D reflect, record_exit and recovery stay refused (modes of L)
+        # the 2D reflect, record_exit and recovery run (kernel M2's plain
+        # version) and match the reference
         for kw in (dict(record_exit=True), dict(recover="project")):
-            with pytest.raises(NotImplementedError):
-                t_se.trace_particle_through_mesh(
-                    tm, torch.from_numpy(pts), torch.from_numpy(tgt),
-                    torch.from_numpy(claim), torch.from_numpy(act), 100, **kw)
+            tr2 = t_se.trace_particle_through_mesh(
+                tm, torch.from_numpy(pts), torch.from_numpy(tgt),
+                torch.from_numpy(claim), torch.from_numpy(act), 100,
+                boundary_handler=t_se.reflect_on_exit_2d, validate_parents=validate, **kw)
+            jr2 = j_se.trace_particle_through_mesh(
+                jm, jnp.asarray(pts), jnp.asarray(tgt), jnp.asarray(claim),
+                jnp.asarray(act), 100, boundary_handler=j_se.reflect_on_exit_2d,
+                validate_parents=validate, **kw)
+            np.testing.assert_array_equal(tr2.elem_ids.numpy(), np.asarray(jr2.elem_ids))
+            np.testing.assert_allclose(tr2.dest.numpy(), np.asarray(jr2.dest), atol=ATOL)
+            if "record_exit" in kw:
+                np.testing.assert_array_equal(tr2.num_hits.numpy(),
+                                              np.asarray(jr2.num_hits))
+            else:
+                assert int(tr2.num_recovered) == int(jr2.num_recovered)
