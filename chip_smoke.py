@@ -63,7 +63,8 @@ sources in this checkout.  Phases, each raising on failure:
     repaired; V as ``scatter_to_verts_bcc`` (barycentric weights in each
     final parent, a random charge) and as the weighted
     ``particles_per_element`` (an f32 ``index_add_`` as its yardstick),
-    run twice for equal bits; require 2-10% of the walkers to hit the wall,
+    each in the particles' own order and in a random order of them, run
+    twice for equal bits; require 2-10% of the walkers to hit the wall,
     no walker lost with reflect but at the loop limit (counted), the
     removed walkers to be those with a real hit, the deposit to conserve
     the charge within V's bound and H's count to equal the active
@@ -819,6 +820,25 @@ def check_trace2d(results: dict, dev, mesh, grid, x, elem, active) -> None:
     check_vdeposit_case(results, f"weighted particles_per_element ({n} particles, E={E})",
                         fn, lambda: sc.vertex_deposit_plain(q, None, e1, a1, None, E),
                         (e1, a1, q), fn(), q, keys_e, E)
+    # 9, 10: both in a random order of the same particles (the path's own
+    # order groups them by element: V sums a block tile's equal keys first)
+    perm = torch.randperm(n, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    pe, pa, pq, pb = (t[perm].contiguous() for t in (e1, a1, q, bcc))
+    keys = torch.where(pa[:, None], mesh.elem2verts[torch.clamp(pe, min=0).long()],
+                       V).reshape(-1).long()
+    fn = lambda: sc.scatter_to_verts_bcc(pe, pa, pb, mesh.elem2verts, V, pq)  # noqa: E731
+    check_vdeposit_case(results, f"scatter_to_verts_bcc, random order ({n} particles, "
+                        f"V={V})", fn,
+                        lambda: sc.vertex_deposit_plain(pb, pq, pe, pa, mesh.elem2verts, V),
+                        (pe, pa, pb, pq, mesh.elem2verts), fn(),
+                        (pb * pq[:, None]).reshape(-1), keys, V)
+    keys_e = torch.where(pa & (pe >= 0), pe, E).long()
+    fn = lambda: sc.particles_per_element(pe, pa, E, pq)  # noqa: E731
+    check_vdeposit_case(results, f"weighted particles_per_element, random order ({n} "
+                        f"particles, E={E})", fn,
+                        lambda: sc.vertex_deposit_plain(pq, None, pe, pa, None, E),
+                        (pe, pa, pq), fn(), pq, keys_e, E)
+    del perm, pe, pa, pq, pb, keys, keys_e
     cnt = sc.particles_per_element(e1, a1, E)
     if int(cnt.sum()) != int(a1.sum()):
         raise AssertionError("particles_per_element (H): counts != active particles")

@@ -16,14 +16,47 @@
 // destination, 8 of origin (where the crossing point is needed), 5 of start
 // triangle and mask in, 5 of triangle and mask out, 8 of destination out
 // where the walk moves it (reflect, recover) and 16 of exit record with
-// record_exit: ~50 bytes a particle with reflect and the record.  The rows
-// it reads (48 bytes of walk_geom a step, 5.8 MB at 120k triangles; the
-// peel's 56-byte cell rows) stay in the 50 MB L2.
+// record_exit: ~50 bytes a particle with reflect and the record, 0.15 ms at
+// 10M.  Above that, the rows the walk reads from L2 (48 bytes of walk_geom
+// a step, 5.9 MB at 120k triangles; the peel's 56-byte cell rows): on the
+// 2D path's first walk (10M particles pushed 3 triangle sizes, 5.5% beyond
+// the wall and back) 23.5 rows a particle, 11.3 GB, 2.35 ms at the 4.8 TB/s
+// kernel M's walk reached from L2; through the peel 18.6 rows, 1.86 ms
+// (counted by scripts/count_walk_steps.py and scripts/ab_trace2d_vdeposit.py
+// with the plain version).  Far targets read 171 rows a particle, faster
+// than that rate allows: L1 serves a share of them, so the floor is soft.
 //
-// Design: kernel M's (trace3d.cu, PR 10) for triangles.
-// - One thread walks one particle's whole segment, over a grid of one
-//   resident wave whose threads stride over the particles; the statistics
-//   take one atomic per warp of that wave.
+// Design (scripts/ab_trace2d_vdeposit.py timed probes of the first M2, one
+// thread walking a particle's whole segment over a grid-stride loop, and
+// candidates against it; PERF.md §6): the first M2's lanes walked 7.9% of
+// its warp steps, each warp waiting on its longest walker (every walker
+// stopped after one step: 0.19 ms of its 13.3), so this M2 is kernel L3's
+// warp pool (locate3d.cu) for triangles.
+// - A grid of one resident wave whose warps take tiles of 32 particles in
+//   turn.  A tile's lanes load their streams coalesced, peel and walk at
+//   most M2_R0 steps, which ends most walks; the outputs of those walks
+//   are written by the warp together.  A walker still walking goes with its
+//   whole state (index, triangle, retry triangle, steps, destination,
+//   origin, exit record: 48 bytes) onto the warp's pool in shared memory, a
+//   stack of M2_POOL; a warp peels only while its pool has room for a tile,
+//   and otherwise (or with no tile left) the top 32 walkers take at most
+//   M2_R steps each, write their own outputs where they stop, and those
+//   still walking go back.  So the 5% of walkers that cross the wall and
+//   back walk 32 to a warp.  The budget max_iters - it0 counts each
+//   walker's steps across rounds; a particle's result does not depend on
+//   when it is walked, so the outputs are deterministic.  The statistics
+//   take one atomic per warp.
+// - Measured and left out: lanes refilled from the warp's tiles as their
+//   walkers stop (no pool: no faster on the path's first walk, slower
+//   through the peel and on far targets); registers capped for 10-16 blocks per SM
+//   (slower: spills, or more instructions); the pool's counters kept in
+//   shared memory (fewer registers, slower).  The pool costs registers (46
+//   against 40 in the reflect + record template, 45 against 32 in reflect
+//   alone: 10 blocks per SM against 12 and 16): where nearly every walk is
+//   long (far targets) or none is (a budget of 2) the first M2 stays
+//   faster (PERF.md §6).
+// - The crossing parameter t is computed only where a walker meets the
+//   boundary (the first M2 computed it, and its division, every step).
 // - No dynamically indexed array on the hot path: the neighbour and the
 //   edge across the exit side are selects over the row's columns, so the
 //   row stays in registers and the kernel has no stack frame.
@@ -33,8 +66,6 @@
 //   edge2verts, coords, a sqrt and a division); a walker left at the loop
 //   limit with recover is written out marked (triangle -2 - e) and
 //   recover_2d_kernel recovers the marked particles after the walk.
-// - A particle's outputs are written once its walk has stopped, the warp's
-//   threads together, so the stores coalesce.
 // - Templated over the handler and record_exit; the peel (cell_rows !=
 //   nullptr: the cartesian cell computed here, or kernel B's band cells
 //   given) and recovery are run-time branches.  The peel is kernel L's: the
@@ -58,6 +89,16 @@
 #define RECOVER_TOL2 ((float)(1e-3 * 1e-3))
 #define RECOVER_NUDGE 1e-5f
 #define M2_THREADS 128                // a block
+#define M2_WARPS (M2_THREADS / 32)
+#ifndef M2_R0
+#define M2_R0 8                       // steps a walker takes in its tile's round
+#endif
+#ifndef M2_R
+#define M2_R 64                       // steps a pool walker takes in a round
+#endif
+#ifndef M2_POOL
+#define M2_POOL 64                    // walkers a warp holds (at least a round's and a tile's)
+#endif
 #define FULL_MASK 0xffffffffu
 
 // internal linkage: kernel M (trace3d.cu) has helpers and kernels of the
@@ -96,29 +137,29 @@ __device__ __forceinline__ Bary bary(float a0, float a1, float a2, float a3,
 }
 
 struct CoreOut {
-  bool inside;
+  Bary w;
   int k;      // local exit side (across from the most negative weight)
-  float t;    // segment parameter of the crossing (NEED_T)
 };
 
 // _row_core_2d on a walk_geom row [a11 a12 c1 a21 | a22 c2 nbr0 nbr1 |
-// nbr2 edge0 edge1 edge2]
-template <bool NEED_T>
-__device__ __forceinline__ CoreOut core_2d(const float4* r, const float* d, const float* o) {
+// nbr2 edge0 edge1 edge2]: the weights and the exit side
+__device__ __forceinline__ CoreOut core_2d(const float4* r, const float* d) {
   const Bary w = bary(r[0].x, r[0].y, r[0].z, r[0].w, r[1].x, r[1].y, d[0], d[1]);
-  CoreOut c{w.inside, w.w0 <= w.l1 ? 0 : 1, 0.0f};
-  float wmin = nan_min(w.w0, w.l1);
-  if (w.l2 < wmin) c.k = 2;
-  if (NEED_T) {
-    wmin = nan_min(wmin, w.l2);
-    const float l1o = r[0].x * o[0] + r[0].y * o[1] + r[0].z;
-    const float l2o = r[0].w * o[0] + r[1].x * o[1] + r[1].y;
-    const float w0o = 1.0f - l1o - l2o;
-    const float wo = c.k == 0 ? w0o : c.k == 1 ? l1o : l2o;
-    const float den = wo - wmin;
-    c.t = wo / (den == 0.0f ? 1.0f : den);
-  }
+  CoreOut c{w, w.w0 <= w.l1 ? 0 : 1};
+  if (w.l2 < nan_min(w.w0, w.l1)) c.k = 2;
   return c;
+}
+
+// _row_core_2d's segment parameter of the crossing of side c.k from the
+// origin o, taken only where a walker meets the boundary
+__device__ __forceinline__ float crossing_t(const float4* r, const CoreOut& c, const float* o) {
+  const float wmin = nan_min(nan_min(c.w.w0, c.w.l1), c.w.l2);
+  const float l1o = r[0].x * o[0] + r[0].y * o[1] + r[0].z;
+  const float l2o = r[0].w * o[0] + r[1].x * o[1] + r[1].y;
+  const float w0o = 1.0f - l1o - l2o;
+  const float wo = c.k == 0 ? w0o : c.k == 1 ? l1o : l2o;
+  const float den = wo - wmin;
+  return wo / (den == 0.0f ? 1.0f : den);
 }
 
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
@@ -348,8 +389,8 @@ __device__ __forceinline__ void step(const Trace2Args& a, Walker2& w, const floa
                                      int& my_unf) {
   constexpr bool NEED_HIT = REFLECT || RECORD;
   ++w.steps;
-  const CoreOut c = core_2d<NEED_HIT>(r, w.d, w.o);
-  if (c.inside) {
+  const CoreOut c = core_2d(r, w.d);
+  if (c.w.inside) {
     stop(w, w.elem);
     return;
   }
@@ -364,7 +405,7 @@ __device__ __forceinline__ void step(const Trace2Args& a, Walker2& w, const floa
     float hit[2];
     int side = 0;
     if (NEED_HIT) {
-      const float tc = clamp01(c.t);
+      const float tc = clamp01(crossing_t(r, c, w.o));
       hit[0] = w.o[0] + tc * (w.d[0] - w.o[0]);
       hit[1] = w.o[1] + tc * (w.d[1] - w.o[1]);
       side = (int)(c.k == 0 ? r[2].y : c.k == 1 ? r[2].z : r[2].w);
@@ -391,27 +432,129 @@ __device__ __forceinline__ void step(const Trace2Args& a, Walker2& w, const floa
   if (w.steps >= a.budget) at_limit(a, w, my_unf);
 }
 
+// walk w until it stops or has taken `limit` steps
+template <bool REFLECT, bool RECORD>
+__device__ __forceinline__ void walk(const Trace2Args& a, Walker2& w, int limit,
+                                     int& my_unf) {
+  const float4* g4 = reinterpret_cast<const float4*>(a.geom);
+  while (w.walking && w.steps < limit) {
+    // 48-byte walk_geom row, 16-byte aligned: three float4 loads
+    const float4 r[3] = {__ldg(g4 + (size_t)w.elem * 3), __ldg(g4 + (size_t)w.elem * 3 + 1),
+                         __ldg(g4 + (size_t)w.elem * 3 + 2)};
+    step<REFLECT, RECORD>(a, w, r, my_unf);
+  }
+}
+
+// a warp's walkers between its rounds, kept as a stack: the particle index
+// and the whole walk state (48 bytes)
+struct Pool2 {
+  int i[M2_POOL], elem[M2_POOL], fbg[M2_POOL], steps[M2_POOL];
+  float dx[M2_POOL], dy[M2_POOL], ox[M2_POOL], oy[M2_POOL];
+  int side[M2_POOL], nhits[M2_POOL];
+  float hx[M2_POOL], hy[M2_POOL];
+};
+
+// the lanes with `keep` push their walker onto the warp's pool of n walkers
+// (every lane calls it; n is the same in each).  Without the crossing point
+// (remove, no record) the origin and the exit record are not kept.
+template <bool NEED_ORIG>
+__device__ __forceinline__ void pool_push(Pool2& p, int& n, bool keep, const Walker2& w,
+                                          int i) {
+  const unsigned m = __ballot_sync(FULL_MASK, keep);
+  if (keep) {
+    const int j = n + __popc(m & ((1u << (threadIdx.x & 31)) - 1u));
+    p.i[j] = i;
+    p.elem[j] = w.elem;
+    p.fbg[j] = w.fbg;
+    p.steps[j] = w.steps;
+    p.dx[j] = w.d[0];
+    p.dy[j] = w.d[1];
+    if (NEED_ORIG) {
+      p.ox[j] = w.o[0];
+      p.oy[j] = w.o[1];
+      p.side[j] = w.side;
+      p.nhits[j] = w.nhits;
+      p.hx[j] = w.hit[0];
+      p.hy[j] = w.hit[1];
+    }
+  }
+  n += __popc(m);
+  __syncwarp();
+}
+
+template <bool NEED_ORIG>
+__device__ __forceinline__ void pool_pop(const Pool2& p, int j, Walker2& w, int& i) {
+  i = p.i[j];
+  w.elem = p.elem[j];
+  w.fbg = p.fbg[j];
+  w.steps = p.steps[j];
+  w.d[0] = p.dx[j];
+  w.d[1] = p.dy[j];
+  if (NEED_ORIG) {
+    w.o[0] = p.ox[j];
+    w.o[1] = p.oy[j];
+    w.side = p.side[j];
+    w.nhits = p.nhits[j];
+    w.hit[0] = p.hx[j];
+    w.hit[1] = p.hy[j];
+  } else {
+    w.o[0] = w.d[0];
+    w.o[1] = w.d[1];
+    w.side = -1;
+    w.nhits = 0;
+    w.hit[0] = w.d[0];
+    w.hit[1] = w.d[1];
+  }
+  w.walking = true;
+}
+
+// The grid's warps take tiles of 32 particles in turn.  A tile's lanes load
+// their streams, peel and walk at most M2_R0 steps; walkers still walking
+// go onto the warp's pool.  A warp peels only while its pool has room for a
+// tile (so it fills the pool exactly, never past it); otherwise, or when it
+// has no tile left, the top 32 take at most M2_R steps each and those still
+// walking go back.  Both kinds of round share one walk loop.
 template <bool REFLECT, bool RECORD>
 __global__ void __launch_bounds__(M2_THREADS) trace_2d_kernel(Trace2Args a) {
   constexpr bool NEED_ORIG = REFLECT || RECORD;
-  const float4* g4 = reinterpret_cast<const float4*>(a.geom);
+  __shared__ Pool2 pools[M2_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Pool2& pool = pools[warp];
+  int pool_n = 0;                           // the same in every lane
   int my_steps = 0, my_unf = 0;
-  for (int i = blockIdx.x * M2_THREADS + threadIdx.x; i < a.n; i += gridDim.x * M2_THREADS) {
+  const int n_tiles = (a.n + 31) / 32, stride = gridDim.x * M2_WARPS;
+  int tile = blockIdx.x * M2_WARPS + warp;
+  while (tile < n_tiles || pool_n > 0) {
     Walker2 w;
-    start<NEED_ORIG>(a, w, i, my_unf);
-    while (w.walking) {
-      // 48-byte walk_geom row, 16-byte aligned: three float4 loads
-      const float4 r[3] = {__ldg(g4 + (size_t)w.elem * 3), __ldg(g4 + (size_t)w.elem * 3 + 1),
-                           __ldg(g4 + (size_t)w.elem * 3 + 2)};
-      step<REFLECT, RECORD>(a, w, r, my_unf);
+    w.walking = false;
+    w.steps = 0;
+    int i = 0, limit;
+    bool mine;
+    if (pool_n > M2_POOL - 32 || tile >= n_tiles) {   // a pool round
+      const int take = min(pool_n, 32);
+      pool_n -= take;
+      mine = lane < take;
+      if (mine) pool_pop<NEED_ORIG>(pool, pool_n + lane, w, i);
+      __syncwarp();
+      limit = w.steps + M2_R;
+    } else {                                // a tile: the lanes write together
+      i = tile * 32 + lane;
+      mine = i < a.n;
+      if (mine) start<NEED_ORIG>(a, w, i, my_unf);
+      tile += stride;
+      limit = M2_R0;
     }
-    write_out<RECORD>(a, w, i);
-    my_steps = max(my_steps, w.steps);
+    walk<REFLECT, RECORD>(a, w, limit, my_unf);
+    if (mine && !w.walking) {
+      write_out<RECORD>(a, w, i);
+      my_steps = max(my_steps, w.steps);
+    }
+    pool_push<NEED_ORIG>(pool, pool_n, w.walking, w, i);
   }
   // one atomic per warp and statistic
   my_steps = __reduce_max_sync(FULL_MASK, my_steps);
   my_unf = __reduce_add_sync(FULL_MASK, my_unf);
-  if ((threadIdx.x & 31) == 0) {
+  if (lane == 0) {
     if (my_steps > 0) atomicMax(&a.stats[0], my_steps);
     if (my_unf > 0) atomicAdd(&a.stats[1], my_unf);
   }
@@ -472,7 +615,7 @@ template <bool REFLECT, bool RECORD>
 static int launch(const Trace2Args& a, bool query, cudaStream_t stream) {
   const int per_sm = resident_blocks<REFLECT, RECORD>();
   if (query) return per_sm;
-  long long blocks = ((long long)a.n + M2_THREADS - 1) / M2_THREADS;
+  long long blocks = ((long long)a.n + M2_THREADS - 1) / M2_THREADS;   // a tile a warp
   const long long wave = (long long)num_sms() * per_sm;
   if (blocks > wave) blocks = wave;
   trace_2d_kernel<REFLECT, RECORD><<<(unsigned)blocks, M2_THREADS, 0, stream>>>(a);

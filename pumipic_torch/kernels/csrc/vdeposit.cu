@@ -10,8 +10,23 @@
 // What bounds it on an H100: the particle streams, read once: 4 bytes of
 // element and 1 of mask, 4 of weight, or 12 of barycentric coordinates and
 // 4 of charge (21 bytes a particle for the bcc deposit), and the (E, 3)
-// vertex table and the f32 output once (a few MB).  The 16-byte integer
-// accumulator of each output (1 MB at 60k vertices) stays in L2.
+// vertex table and the f32 output once (a few MB): 0.063 ms for the charge
+// deposit at 10M.  The 16-byte integer accumulator of each output (1 MB at
+// 60k vertices) stays in L2.  Above that, the adds into L2: the first V
+// made every term two 64-bit atomics (60M for the charge deposit at 10M);
+// its probes (scripts/ab_trace2d_vdeposit.py) found each term's own L2
+// transaction, more than same-address serialisation, to be its cost (the
+// atomics as plain stores: 0.70 of its 1.10 ms; on distinct addresses:
+// 0.81).  After one walk of the 2D path (the particles seeded element by
+// element, then pushed 3 triangle sizes) a warp's 32 particles hold 23
+// distinct vertices per term column, but a block tile's 1,024 particles
+// only 145 among their 3,072 terms (166 elements among 1,024 for the
+// weighted count), so summing a tile's terms in shared memory first leaves
+// 1.4M pairs of L2 atomics in place of 30M.  What remains: the max pass
+// (0.19 ms: it reads every stream and key) and the sum's reads and
+// shared-memory adds.  Keys in random order (2,875 distinct in a tile) keep
+// a pair of atomics a term, and the particles drift apart over the path's
+// calls (its profile: the sum pass 1.35 -> 0.93 ms a call, both deposits).
 //
 // Design: a sum in fixed point, so that the result does not depend on the
 // order of the adds (integer addition is associative) and equals its plain
@@ -22,10 +37,18 @@
 //   K = 94 - L - e on the device: no host sync.
 // - Sum (vsum_kernel): each term, converted exactly to f64 and scaled by
 //   2^K, is rounded to the nearest integer (ties to even), X, |X| <= 2^(94-L),
-//   split exactly into X = H·2^32 + Lo with 0 <= Lo < 2^32, and added with two
-//   64-bit integer atomicAdds into the output's (H, Lo) pair in L2.  The
-//   sums cannot overflow: |ΣH| <= 2^62 and ΣLo < 2^63 for fewer than 2^31
-//   terms.
+//   split exactly into X = H·2^32 + Lo with 0 <= Lo < 2^32, and added into
+//   the output's (H, Lo) pair of 64-bit integers.  A block takes tiles of
+//   V_TILE·V_THREADS consecutive particles and adds each term into a slot of
+//   a shared-memory table keyed by output (open addressing from key mod
+//   V_TABLE, at most V_PROBES slots, 64-bit shared atomics), then flushes
+//   the table with two L2 atomics a key; a term that finds no slot, or a
+//   table already holding V_FULL keys (keys in random order fill it at
+//   once), adds its pair into L2 itself.  Every partial sum is a sub-sum of
+//   an output's exact sums, so none can overflow: |ΣH| <= 2^62 and ΣLo <
+//   2^63 for fewer than 2^31 terms.  Measured and left out: equal keys
+//   summed inside each warp (__match_any_sync and a shuffle tree) before its
+//   atomics, 7% faster in the path's order and 8% slower in a random order.
 // - Convert (vconvert_kernel): the exact 96-bit sum ΣH·2^32 + ΣLo is
 //   rounded once to f32 (a double-double from TwoSum, rounded to odd in
 //   f64, then to nearest in f32) and scaled by 2^-K in two exact steps
@@ -33,14 +56,26 @@
 // Each output is then the f32 rounding of the exact sum of its terms, each
 // term rounded to a multiple of 2^-K = 2^(L+e-94): every term whose binade
 // lies within 70 - L binades of the largest's (45 at 30M terms) is exact,
-// and a smaller one is off by at most 2^-(K+1).  A non-finite term has no fixed-point image: every output is then
-// NaN (ROADMAP queue 3; the reference makes NaN or inf only the outputs
-// that sum one).
+// and a smaller one is off by at most 2^-(K+1).  A non-finite term has no
+// fixed-point image: every output is then NaN (ROADMAP queue 3; the
+// reference makes NaN or inf only the outputs that sum one).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #define V_THREADS 256
+#ifndef V_TABLE
+#define V_TABLE 1024   // slots of the block's table of keys (a power of 2)
+#endif
+#ifndef V_FULL
+#define V_FULL (V_TABLE * 3 / 4)   // keys at which the table takes no more
+#endif
+#ifndef V_PROBES
+#define V_PROBES 4     // slots a term tries
+#endif
+#ifndef V_TILE
+#define V_TILE 4       // particles a thread takes between flushes
+#endif
 #define FULL_MASK 0xffffffffu
 #define NONFINITE_BITS 0x7f800000u
 
@@ -107,25 +142,86 @@ __global__ void __launch_bounds__(V_THREADS) vmax_kernel(DepArgs a) {
   if ((threadIdx.x & 31) == 0 && my != 0u) atomicMax(a.max_bits, my);
 }
 
+// term j of particle i as its fixed-point pair (H, Lo) at scale s, and its
+// key; key = -1 where the term is dropped (or i >= n)
+__device__ __forceinline__ int fixed_term(const DepArgs& a, long long i, int j, double s,
+                                          long long* h, long long* lo) {
+  float t;
+  int key;
+  if (i >= a.n || !term_of(a, i, j, &t, &key)) return -1;
+  const double y = rint((double)t * s);              // X, exact in f64
+  const double hd = floor(y * 0x1p-32);           // H = floor(X / 2^32)
+  *h = (long long)hd;
+  *lo = (long long)(y - hd * 0x1p32);               // X - H·2^32
+  return key;
+}
+
+__device__ __forceinline__ void add_pair(const DepArgs& a, int key, long long h,
+                                         long long lo) {
+  atomicAdd(a.acc + 2 * (size_t)key, (unsigned long long)h);
+  atomicAdd(a.acc + 2 * (size_t)key + 1, (unsigned long long)lo);
+}
+
+// Equal keys summed inside the block: the block takes V_TILE·V_THREADS
+// consecutive particles a round and adds each term into a shared-memory
+// table keyed by output (open addressing from slot key mod V_TABLE, at most
+// V_PROBES slots), then flushes the table with one pair of atomics a key.
+// A term that finds no slot, or meets a table holding V_FULL keys (keys in
+// random order fill it at once), adds its pair into L2 itself.
 __global__ void __launch_bounds__(V_THREADS) vsum_kernel(DepArgs a) {
+  __shared__ int tkey[V_TABLE];
+  __shared__ unsigned long long th[V_TABLE], tl[V_TABLE];
+  __shared__ int t_used;
   const unsigned mb = *a.max_bits;
   if (mb >= NONFINITE_BITS) return;           // every output is NaN
   const double s = __longlong_as_double((long long)(scale_of(mb, a.log2_terms) + 1023)
                                         << 52);   // 2^K, exact
-  const long long stride = (long long)gridDim.x * V_THREADS;
-  for (long long i = (long long)blockIdx.x * V_THREADS + threadIdx.x; i < a.n;
-       i += stride) {
-    for (int j = 0; j < a.k; ++j) {
-      float t;
-      int key;
-      if (!term_of(a, i, j, &t, &key)) continue;
-      const double y = rint((double)t * s);              // X, exact in f64
-      const double hd = floor(y * 0x1p-32);           // H = floor(X / 2^32)
-      const long long h = (long long)hd;
-      const long long lo = (long long)(y - hd * 0x1p32);   // X - H·2^32
-      atomicAdd(a.acc + 2 * (size_t)key, (unsigned long long)h);
-      atomicAdd(a.acc + 2 * (size_t)key + 1, (unsigned long long)lo);
+  for (int t = threadIdx.x; t < V_TABLE; t += V_THREADS) {
+    tkey[t] = -1;
+    th[t] = 0ull;
+    tl[t] = 0ull;
+  }
+  if (threadIdx.x == 0) t_used = 0;
+  __syncthreads();
+  const long long tile = (long long)V_TILE * V_THREADS;
+  for (long long base = (long long)blockIdx.x * tile; base < a.n;
+       base += (long long)gridDim.x * tile) {      // block-uniform loop
+    for (int u = 0; u < V_TILE; ++u) {
+      const long long i = base + u * V_THREADS + threadIdx.x;
+      for (int j = 0; j < a.k; ++j) {
+        long long h = 0, lo = 0;
+        const int key = fixed_term(a, i, j, s, &h, &lo);
+        if (key < 0) continue;
+        bool placed = false;
+        if (*(volatile int*)&t_used < V_FULL) {
+          int slot = key & (V_TABLE - 1);
+          for (int p = 0; p < V_PROBES; ++p) {
+            const int old = atomicCAS(&tkey[slot], -1, key);
+            if (old == -1) atomicAdd(&t_used, 1);
+            if (old == -1 || old == key) {
+              atomicAdd(&th[slot], (unsigned long long)h);
+              atomicAdd(&tl[slot], (unsigned long long)lo);
+              placed = true;
+              break;
+            }
+            slot = (slot + 1) & (V_TABLE - 1);
+          }
+        }
+        if (!placed) add_pair(a, key, h, lo);
+      }
     }
+    __syncthreads();
+    for (int t = threadIdx.x; t < V_TABLE; t += V_THREADS) {
+      const int key = tkey[t];
+      if (key >= 0) {
+        add_pair(a, key, (long long)th[t], (long long)tl[t]);
+        tkey[t] = -1;
+        th[t] = 0ull;
+        tl[t] = 0ull;
+      }
+    }
+    if (threadIdx.x == 0) t_used = 0;
+    __syncthreads();
   }
 }
 

@@ -1,14 +1,36 @@
-"""Walk steps a particle takes in kernel M's cases: the rows its walk reads.
+"""Walk steps a particle takes in kernel M's and kernel M2's cases: the rows
+its walk reads, and for M2 the warp steps of its schedules.
 
     python3 scripts/count_walk_steps.py [num_ptcls] [device]
+    python3 scripts/count_walk_steps.py 2d [num_ptcls] [device]
 
-Counts, with M's plain version (``trace_3d_plain``, the same walk as the
-kernel's), the tet rows the walk reads per particle: on the GITR-style
+3D (M): counts, with M's plain version (``trace_3d_plain``, the same walk as
+the kernel's), the tet rows the walk reads per particle: on the GITR-style
 app's seeded state (the 32^3 box, seeded as ``scripts/ab_boris_trace3d.py``
 seeds it, default 200,000 particles) toward R's targets in the
 intersection and BCC cores with the reflecting wall and ``record_exit``,
-and toward far targets (random points of the box, 200 steps).  A count,
-not a time: the default device is the CPU.  Prints one JSON line per case.
+and toward far targets (random points of the box, 200 steps).
+
+2D (M2, ``2d``): the cases of ``chip_smoke.py``'s phase c on the 120k mesh
+(default 1,000,000 particles: bench_torch's setup, one push and the peel +
+walk, then :func:`chip_smoke.walker_targets`): reflect + record from the
+plain start and through the peel, remove + record, far targets.  With
+``trace_2d_plain`` it counts each particle's walk steps (one 48-byte
+``walk_geom`` row each; the peel's cell row is not counted) and from them:
+
+- ``lane_steps``: the steps of all particles, the rows the walk reads;
+- ``warp_steps_first``: the first M2's schedule, one thread a particle over
+  a grid-stride loop whose stride is a multiple of 32, so that each warp
+  takes aligned tiles of 32 particles and waits for its longest walk: the
+  sum over tiles of the tile's most steps (exact for that schedule);
+- ``warp_steps_pool``: an estimate of the warp pool's schedule (M2_R0
+  steps in the tile's round, then rounds of 32 pool walkers of at most
+  M2_R steps each, one pool shared by the whole grid and taken in index
+  order; the kernel keeps a pool per warp), for each (R0, R) of ``POOLS``.
+
+``lane_steps / (32 · warp_steps)`` is the share of lanes that walk.  A
+count, not a time: the default device is the CPU.  Prints one JSON line per
+case.
 """
 from __future__ import annotations
 
@@ -16,9 +38,11 @@ import json
 import os
 import sys
 
+import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import bench_torch  # noqa: E402
 from pumipic_torch.mesh.core import Mesh3D  # noqa: E402
@@ -26,6 +50,9 @@ from pumipic_torch.mesh.generate import box_tet_mesh  # noqa: E402
 from pumipic_torch.models.gitr_like import GitrConfig, GitrLike  # noqa: E402
 from pumipic_torch.ops import push as push_ops  # noqa: E402
 from pumipic_torch.ops import search as se  # noqa: E402
+
+# (M2_R0, M2_R) of the pool estimate
+POOLS = ((4, 16), (8, 16), (16, 16), (8, 32), (16, 32), (32, 32), (8, 64))
 
 
 def counted(cores: dict) -> dict:
@@ -40,9 +67,7 @@ def counted(cores: dict) -> dict:
     return rows
 
 
-def main() -> None:
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 200_000
-    dev = sys.argv[2] if len(sys.argv) > 2 else "cpu"
+def main_3d(n: int, dev: str) -> None:
     mesh = Mesh3D.from_arrays(*box_tet_mesh(32, 32, 32), device=dev)
     grid, o, h = bench_torch.gitr_field(32)
     cfg = GitrConfig(num_ptcls=n, dt=bench_torch.GITR_DT, b_field=bench_torch.GITR_B,
@@ -64,6 +89,97 @@ def main() -> None:
                           "rows_per_particle": sum(rows.values()) / n,
                           "iters": int(r.iters),
                           "hit_share": int((r.num_hits > 0).sum()) / n}), flush=True)
+
+
+def located_2d(dev, n: int):
+    """Phase c's ``n`` located particles on the 120k mesh (bench_torch's
+    configuration, one push, the peel + walk, all through the wrappers):
+    returns (mesh, cartesian grid, x (N, 2), elem, active)."""
+    import chip_smoke as cs
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.mesh.gmsh import read_msh
+    from pumipic_torch.models import pseudo_xgcm as px
+
+    mesh = Mesh2D.from_arrays(*read_msh(cs.MESH), device=dev)
+    cfg = px.XGCmConfig(num_ptcls=n, mdl_face=max(int(mesh.class_id.max()) // 2, 2),
+                        deg_per_push=15.0, max_search_iters=64)
+    s, step = px.make_dp_setup(mesh, cfg, dev)
+    grid = step.model.locator
+    tx, ty = cs._push(push_ops, s, step.model, cfg)[:2]
+    elem, active = se.walk_locate(mesh.walk_geom, tx, ty, s["elem"], s["active"],
+                                  cfg.max_search_iters, grid=grid)[:2]
+    return mesh, grid, torch.stack([tx, ty], 1).contiguous(), elem, active
+
+
+def walk_steps_2d(mesh, *args) -> torch.Tensor:
+    """Each particle's walk steps in ``trace_2d_plain(mesh, *args)``: the
+    plain walk's core is wrapped to count the walkers it is given (the
+    loop's ``idx``, read from the caller's frame)."""
+    n = args[1].shape[0]
+    steps = torch.zeros(n, dtype=torch.int32, device=args[1].device)
+    core = se._core_2d
+
+    def count(*a, **kw):
+        steps[sys._getframe(1).f_locals["idx"]] += 1
+        return core(*a, **kw)
+
+    se._core_2d = count
+    try:
+        se.trace_2d_plain(mesh, *args)
+    finally:
+        se._core_2d = core
+    return steps
+
+
+def warp_steps(steps: torch.Tensor) -> dict:
+    """The counts of the module docstring from per-particle ``steps``."""
+    s = steps.to(torch.int64).cpu().numpy()
+    n = s.size
+    tiles = np.pad(s, (0, -n % 32)).reshape(-1, 32)
+    out = {"particles": n, "lane_steps": int(s.sum()),
+           "rows_per_particle": float(s.mean()), "max_steps": int(s.max(initial=0)),
+           "warp_steps_first": int(tiles.max(1).sum())}
+    out["lanes_walking_first"] = out["lane_steps"] / (32 * out["warp_steps_first"])
+    for r0, r in POOLS:
+        first = int(np.minimum(tiles, r0).max(1).sum())
+        rest = s[s > r0] - r0
+        rounds = 0
+        while rest.size:                  # rounds of 32 in index order
+            g = np.pad(rest, (0, -rest.size % 32)).reshape(-1, 32)
+            rounds += int(np.minimum(g, r).max(1).sum())
+            rest = rest[rest > r] - r
+        out[f"warp_steps_pool_r0_{r0}_r_{r}"] = first + rounds
+    return out
+
+
+def main_2d(n: int, dev: str) -> None:
+    import chip_smoke as cs
+
+    dev = torch.device(dev)
+    mesh, grid, x, elem, active = located_2d(dev, n)
+    gen = torch.Generator(dev).manual_seed(7)       # phase c's draws
+    dest = cs.walker_targets(mesh, x, gen)
+    lo, hi = mesh.coords.amin(0), mesh.coords.amax(0)
+    far = (lo + (hi - lo) * torch.rand(x.shape, generator=gen, device=dev)).contiguous()
+    it, far_it = cs.TRACE2D_ITERS, cs.TRACE2D_FAR_ITERS
+    reflect, remove = se.reflect_on_exit_2d, se.remove_on_exit
+    for name, args in (
+            ("reflect+record, plain start", (x, dest, elem, active, it, reflect, True)),
+            ("reflect+record, peel", (x, dest, elem, active, it, reflect, True, "off", grid)),
+            ("remove+record, plain start", (x, dest, elem, active, it, remove, True)),
+            ("far targets, reflect+record", (x, far, elem, active, far_it, reflect, True))):
+        steps = walk_steps_2d(mesh, *args)
+        print(json.dumps({"case": name, **warp_steps(steps)}), flush=True)
+
+
+def main() -> None:
+    argv = sys.argv[1:]
+    if argv[:1] == ["2d"]:
+        n = int(argv[1]) if len(argv) > 1 else 1_000_000
+        main_2d(n, argv[2] if len(argv) > 2 else "cpu")
+    else:
+        n = int(argv[0]) if argv else 200_000
+        main_3d(n, argv[1] if len(argv) > 1 else "cpu")
 
 
 if __name__ == "__main__":

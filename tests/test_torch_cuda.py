@@ -1243,6 +1243,98 @@ def test_trace2d_kernel_mixed_walk_lengths(dev, tri2d, handler, record_exit, n):
         assert torch.equal(via.elem_ids, got.elem_ids)
 
 
+def _pool_walkers(dev, mesh, n, long_mask, active_mask, seed):
+    """``n`` walkers from their triangles' centroids: those of ``long_mask``
+    to the centroid of a random triangle (walks of many rows, across the
+    mesh or off its walls), the others a push of 0.3 element sizes (a row
+    or two); ``active_mask`` active."""
+    rng = np.random.default_rng(seed)
+    E = mesh.nelems
+    cents = mesh.elem_centroids.cpu().numpy()
+    e0 = rng.integers(0, E, n).astype(np.int32)
+    h = float(np.sqrt(np.abs(mesh.elem_area.cpu().numpy())).mean())
+    dest = cents[e0] + rng.normal(0, 0.3 * h, (n, 2))
+    far = cents[rng.integers(0, E, n)] * rng.uniform(0.5, 1.6, (n, 1))
+    dest = np.where(long_mask[:, None], far, dest)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    return (t(cents[e0].astype(np.float32)), t(dest.astype(np.float32)), t(e0),
+            t(active_mask))
+
+
+# case -> (n, long walkers, active particles) for _pool_walkers
+POOL_CASES = {
+    "n below a warp": (20, lambda i: i % 2 == 0, lambda i: i >= 0),
+    "n not a multiple of 32": (32 * 97 + 13, lambda i: i % 7 == 0, lambda i: i >= 0),
+    "a tile of long walkers": (32 * 40, lambda i: i // 32 == 5, lambda i: i >= 0),
+    "every walker long: full pools": ((1 << 20) + 7, lambda i: i >= 0, lambda i: i >= 0),
+    "inactive between long walkers": (32 * 300 + 5, lambda i: i >= 0, lambda i: i % 2 == 0),
+}
+
+
+@pytest.mark.parametrize("handler", ["remove", "reflect"])
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_trace2d_kernel_walker_pool_cases(dev, tri2d, case, handler):
+    """M2's warp pool at its edges, each case bit-equal to the plain version
+    with the exit record, from the plain start and through the cartesian
+    peel: fewer particles than a warp, a ragged last tile, one tile whose 32
+    walkers all walk long, every walker long (at 2^20 particles each warp
+    takes several tiles, so its pool fills exactly to its size and drains at
+    the end), inactive particles between long walkers."""
+    mesh, grids = tri2d
+    n, long_of, act_of = POOL_CASES[case]
+    i = np.arange(n)
+    args = _pool_walkers(dev, mesh, n, long_of(i), act_of(i), n)
+    h = se.reflect_on_exit_2d if handler == "reflect" else se.remove_on_exit
+    for grid in (None, grids["cartesian"]):
+        full = (mesh, *args, 400, h, True, "off", grid)
+        got = se.trace_2d(*full)
+        _trace_equal(got, se.trace_2d_plain(*full))
+        assert bool(got.all_found)
+        _trace_equal(got, se.trace_2d(*full))
+
+
+@pytest.mark.parametrize("recover", ["off", "project"])
+@pytest.mark.parametrize("max_iters", [5, 9, 17, 41, 77, 137])
+def test_trace2d_kernel_budget_inside_a_pool_round(dev, tri2d, max_iters, recover):
+    """Long walkers reach the budget in their tile's round (M2_R0 = 8 steps)
+    or inside the first, second or third pool round (M2_R = 64 steps each:
+    the budget counts each walker's steps across rounds): deleted, or
+    marked and recovered after the walk, as the plain version does."""
+    mesh = tri2d[0]
+    n = 32 * 200 + 9
+    i = np.arange(n)
+    args = _pool_walkers(dev, mesh, n, i % 3 != 0, i % 13 != 0, 31)
+    full = (mesh, *args, max_iters, se.reflect_on_exit_2d, True, recover, None)
+    got = se.trace_2d(*full)
+    _trace_equal(got, se.trace_2d_plain(*full))
+    assert not bool(got.all_found) or recover == "project"
+
+
+def test_trace2d_kernel_peel_retries_in_the_pool(dev, tri2d):
+    """The peel on a coarse cartesian grid (a cell spans many triangles, so
+    a guess walk from candidate A takes many rows) toward destinations
+    beyond the outer wall: guess walks meet the wall in pool rounds and
+    retry once from the start triangle there.  Bit-equal to the plain
+    version, remove and reflect, with the exit record."""
+    mesh = tri2d[0]
+    coarse = build_locator_grid(mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(),
+                                cells_per_elem=0.02, walk_geom=mesh.walk_geom, peel="rows",
+                                device=dev)
+    n = 32 * 500
+    rng = np.random.default_rng(41)
+    e0 = rng.integers(0, mesh.nelems, n).astype(np.int32)
+    cents = mesh.elem_centroids.cpu().numpy()
+    dest = cents[e0] * rng.uniform(1.0, 1.5, (n, 1))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    args = (t(cents[e0].astype(np.float32)), t(dest.astype(np.float32)), t(e0),
+            t(np.ones(n, bool)))
+    for h in (se.remove_on_exit, se.reflect_on_exit_2d):
+        full = (mesh, *args, 400, h, True, "off", coarse)
+        got = se.trace_2d(*full)
+        _trace_equal(got, se.trace_2d_plain(*full))
+        assert int((got.num_hits > 0).sum()) > n // 10
+
+
 def test_trace2d_kernel_refuses_other_handlers(dev, tri2d):
     mesh = tri2d[0]
     x = mesh.elem_centroids[:4].contiguous()
@@ -1293,6 +1385,43 @@ def test_vdeposit_kernel_equals_plain(dev, mesh, kind, n):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(run(perm).view(torch.int32), got.view(torch.int32))
     assert torch.equal(run(ident).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [31, 1000, 100_003])
+@pytest.mark.parametrize("kind", ["bcc+charge", "weights"])
+@pytest.mark.parametrize("order", ["all terms on one key", "element order", "random order"])
+def test_vdeposit_kernel_key_orders(dev, mesh, order, kind, n):
+    """V where a block tile's terms share keys (every term on one output,
+    so one slot of the block's table takes them all; the particles in
+    element order, as the 2D path seeds them) and where they do not (a
+    random order: the table fills and terms go to L2 directly), with terms
+    over 40 binades: bit-equal to the plain version, and a second run equal
+    to the first."""
+    rng = np.random.default_rng(n + 3)
+    E = mesh.nelems
+    elem = rng.integers(0, E, n).astype(np.int32)
+    e2v = mesh.elem2verts
+    if order == "all terms on one key":
+        elem[:] = 7
+        e2v = torch.full_like(mesh.elem2verts, 11)
+    elif order == "element order":
+        elem.sort()
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    elem = t(elem)
+    act = t(rng.uniform(size=n) < 0.95)
+    bcc = t(rng.dirichlet([1, 1, 1], n).astype(np.float32))
+    # charges over 40 binades: the small terms' fixed-point images have low
+    # words (Lo) that are not 0
+    q = t((rng.uniform(-1, 2, n) * 2.0 ** rng.integers(-40, 1, n)).astype(np.float32))
+    if kind == "weights":
+        run = lambda: sc.particles_per_element(elem, act, E, q)  # noqa: E731
+        want = sc.vertex_deposit_plain(q, None, elem, act, None, E)
+    else:
+        run = lambda: sc.scatter_to_verts_bcc(elem, act, bcc, e2v, mesh.nverts, q)  # noqa: E731
+        want = sc.vertex_deposit_plain(bcc, q, elem, act, e2v, mesh.nverts)
+    got = run()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(run().view(torch.int32), got.view(torch.int32))
 
 
 @pytest.mark.parametrize("scale", [1e-42, 1e-20, 1.0, 1e30])

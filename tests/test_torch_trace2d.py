@@ -170,6 +170,44 @@ def test_search_mesh_2d_accel_matches_reference(meshes, handler, record_exit, re
     _checks(s, tr, handler, record_exit, recover)
 
 
+def _permuted(jr, perm):
+    """The JAX result's per-particle fields in the order ``perm``."""
+    def p(a):
+        return None if a is None else (tuple(c[perm] for c in a) if isinstance(a, tuple)
+                                       else a[perm])
+    return jr._replace(elem_ids=jr.elem_ids[perm], dest_c=p(jr.dest_c),
+                       exit_side=p(jr.exit_side), hit_c=p(jr.hit_c), num_hits=p(jr.num_hits))
+
+
+@pytest.mark.parametrize("case", ["reflect+record", "remove+record", "recover", "peel"])
+def test_walk_result_does_not_depend_on_the_particle_order(meshes, case):
+    """The port's walk of the particles in a random order gives the JAX
+    package's result of the original order, permuted: a particle's walk
+    depends on its own state alone, so kernel M2 may walk it whenever a
+    warp's pool round takes it.  Reflect and remove with the exit record
+    from the plain start, reflect with a budget of 3 and recovery, and the
+    peel (reflect + record) on the tokamak mesh's cartesian grid."""
+    s = meshes["tokamak" if case == "peel" else "disk"]
+    perm = np.random.default_rng(23).permutation(len(s["e0"]))
+    ja, _ = _args(s)
+    _, ta = _args(s, *(s[k][perm] for k in ("x0", "xt", "e0", "act")))
+    handler = "remove" if case == "remove+record" else "reflect"
+    jh, th = HANDLERS[handler]
+    record_exit = case != "recover"
+    recover = "project" if case == "recover" else "off"
+    mi = 3 if case == "recover" else 200
+    kw = dict(record_exit=record_exit, recover=recover)
+    if case == "peel":
+        jr = j_se.search_mesh_2d_accel(s["jm"], s["jg"], *ja, mi, boundary_handler=jh,
+                                       widths=None, **kw)
+        tr = t_se.search_mesh_2d_accel(s["tm"], s["tg"], *ta, mi, boundary_handler=th, **kw)
+    else:
+        jr = j_se.search_mesh_2d(s["jm"], *ja, mi, boundary_handler=jh, **kw)
+        tr = t_se.search_mesh_2d(s["tm"], *ta, mi, boundary_handler=th, **kw)
+    _compare(s, _permuted(jr, perm), tr, record_exit, recover)
+    _checks({**s, "act": s["act"][perm]}, tr, handler, record_exit, recover)
+
+
 @pytest.fixture(scope="module")
 def band():
     """tests/test_search.py's band mesh (tokamak_mesh(24, 120)) with the JAX
