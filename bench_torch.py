@@ -1,7 +1,18 @@
 """Benchmark of the PyTorch/CUDA port on one GPU: pseudoXGCm FULL-mode step
 throughput (``BENCH_MODE=dp``, the default), pseudoPushAndSearch's 3D
-step (``BENCH_MODE=pps3d``) and the GITR-style impurity-transport step
-(``BENCH_MODE=gitr``).
+step (``BENCH_MODE=pps3d``), the GITR-style impurity-transport step
+(``BENCH_MODE=gitr``) and pseudoXGCm over BFS-buffered picparts as ranks of
+a ``torch.distributed`` group (``BENCH_MODE=picparts``).
+
+``picparts`` is ``bench.py``'s picparts mode (:func:`setup_picparts`): the
+generated annulus (or ``BENCH_MESH``), 10M particles in all, the balancer,
+safe-zone migration and the owner reduction of the field each step.  Ranks
+come from ``torchrun --nproc-per-node N`` (``BENCH_BACKEND``, default
+nccl) or from ``BENCH_RANKS=N`` processes started on this machine
+(``BENCH_BACKEND``, default gloo, so that several ranks may share one
+card); rank 0 prints the record, whose ``detail`` adds the ranks, the
+backend and the per-step split of rank 0's CUDA stream into compute,
+collectives and the exchange's torch glue (``split_ms_per_step``).
 
 ``dp`` is the port's counterpart of ``bench.py``'s default mode, at the same
 settings: the imported 120k-element gmsh tokamak mesh
@@ -30,7 +41,7 @@ the specular velocity (reflect) and kernel W (wall tally).
 Environment knobs, as in ``bench.py`` (each also a keyword of :func:`main`,
 which wins over the environment):
 
-- ``BENCH_MODE`` (``mode``): ``dp`` or ``pps3d``;
+- ``BENCH_MODE`` (``mode``): ``dp``, ``pps3d``, ``gitr`` or ``picparts``;
 - ``BENCH_PTCLS`` (particles, default 10M), ``BENCH_ITERS`` (timed steps,
   default 20);
 - ``BENCH_MESH``: a .msh or .msh.gz path, or ``annulus`` for the generated
@@ -266,6 +277,145 @@ def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
     return mesh, state, step, info
 
 
+def picparts_tag(num_ptcls: int, mesh_path: str, cap_factor: float, adapt: bool,
+                 analytic_locate: str, route: str, buffer_layers: int = 3) -> str:
+    """``bench.py``'s row tag for its ``picparts`` mode (the port's
+    ``-buf<N>`` where the BFS buffer is not the default 3 layers)."""
+    tag = "picparts"
+    if mesh_path not in GENERATED_MESHES:
+        tag += "-" + os.path.basename(mesh_path).split(".")[0]
+    tag += f"-capf{cap_factor:g}"
+    if adapt:
+        tag += "-adapt"
+    if analytic_locate == "off":
+        tag += "-walk"
+    if route == "gather":
+        tag += "-gatherroute"
+    if num_ptcls != 10_000_000:
+        tag += f"-{num_ptcls // 1_000_000}M"
+    if buffer_layers != 3:
+        tag += f"-buf{buffer_layers}"
+    return tag
+
+
+def setup_picparts(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
+                   analytic_locate=None, cap_factor=None, route=None, adapt=None,
+                   neighbor_migration=True, buffer_layers=None):
+    """Resolve the picparts knobs (a keyword, else its environment variable,
+    else ``bench.py``'s default) and build this rank's part of the run on
+    ``device``.  Returns (mesh info, state, step, info) as :func:`setup`;
+    ``step`` returns (state, {"fwd", "stats"}).  ``bench.py``'s picparts
+    knobs: ``BENCH_MESH`` (default: the generated annulus of
+    ``BENCH_ELEMS`` elements), ``BENCH_CAPF`` (``cap_factor``, default
+    1.05), ``BENCH_ROUTE`` (``route``: ``gather`` keeps the [g2l | route]
+    row where the banded route holds), ``BENCH_ANALYTIC`` and
+    ``BENCH_ADAPT=1`` (3 observed steps, then the capacity monitor's
+    resize); the port's ``BENCH_BUFFER`` (``buffer_layers``: the BFS
+    buffer's vertex layers, default 3 as ``bench.py``'s; a push that
+    outruns the buffer loses particles off the picparts, ``stats["lost"]``).
+    The balancer is on."""
+    from pumipic_torch.mesh.generate import annulus_mesh
+    from pumipic_torch.mesh.gmsh import read_msh
+    from pumipic_torch.models.pseudo_xgcm import (
+        GyroConfig, XGCmConfig, make_picparts_setup)
+    from pumipic_torch.parallel.capacity import CapacityMonitor
+    from pumipic_torch.parallel.picparts import PicPartsInput
+
+    env = os.environ.get
+    num_ptcls = int(num_ptcls or env("BENCH_PTCLS", 10_000_000))
+    mesh_path = mesh_path or env("BENCH_MESH") or "annulus"
+    mesh_elems = int(mesh_elems or env("BENCH_ELEMS", 24_000))
+    analytic_locate = analytic_locate or env("BENCH_ANALYTIC", "auto")
+    cap_factor = float(cap_factor or env("BENCH_CAPF", 1.05))
+    route = route or env("BENCH_ROUTE", "auto")
+    buffer_layers = int(buffer_layers or env("BENCH_BUFFER", 3))
+    if adapt is None:
+        adapt = env("BENCH_ADAPT", "0") != "0"
+    seconds = {}
+    t0 = time.perf_counter()
+    if mesh_path in GENERATED_MESHES:
+        n_rings = max(int(np.sqrt(mesh_elems / 8)), 2)
+        coords, tris, cls = annulus_mesh(n_rings, mesh_elems // (2 * n_rings), 0.3, 1.0)
+    else:
+        coords, tris, cls = read_msh(mesh_path)
+    seconds["mesh"] = time.perf_counter() - t0
+    cfg = XGCmConfig(num_ptcls=num_ptcls, mdl_face=max(int(cls.max()) // 2, 2),
+                     deg_per_push=15.0, max_search_iters=64, gyro=GyroConfig(),
+                     analytic_locate=analytic_locate)
+    lpp, state, _, pstep = make_picparts_setup(
+        coords, tris, cls, cfg, PicPartsInput(buffer_layers=buffer_layers),
+        use_lb=True, cap_factor=cap_factor,
+        banded_route="off" if route == "gather" else "auto",
+        neighbor_migration=neighbor_migration, device=device, timings=seconds)
+
+    def step(s):
+        s, fwd, stats = pstep(s)
+        return s, {"fwd": fwd, "stats": stats}
+
+    if adapt:
+        mon = CapacityMonitor()
+        for _ in range(3):
+            state, f = step(state)
+            mon.observe(f["stats"])
+        state = mon.apply(state)
+    info = {"num_ptcls": num_ptcls, "setup_s": seconds, "picpart": lpp,
+            "step": pstep, "mesh_elems": len(tris), "mesh_verts": len(coords),
+            "tag": picparts_tag(num_ptcls, mesh_path, cap_factor, adapt,
+                                analytic_locate, route, buffer_layers)}
+    return None, state, step, info
+
+
+def picparts_rank(**knobs) -> dict:
+    """One rank of ``BENCH_MODE=picparts`` (run by :func:`pumipic_torch.
+    parallel.group.launch` or under ``torchrun``): the record, this rank's
+    kernel launches (counted from the setup on), the warm-up step's and
+    each timed step's stats, reduced field and deposit before the
+    reduction (``history``), and the picpart's vertex gids and owners."""
+    from pumipic_torch import kernels, native
+    from pumipic_torch.parallel import group
+
+    kernels.reset_launches()
+    record, state, fields = main(device=group.device(), mode="picparts",
+                                 verbose=False, **knobs)
+    lpp = fields.pop("picpart")
+    return {"record": record, "launches": dict(kernels.LAUNCHES),
+            "history": fields["history"], "vert_gid": lpp.vert_gid,
+            "vert_owner": lpp.vert_owner, "native": native.path(),
+            "alive_local": int(state["active"].sum())}
+
+
+def picparts_runs(runs) -> list:
+    """One rank's :func:`picparts_rank` for each knob dict of ``runs``, in
+    order (the launch counts reset before each)."""
+    return [picparts_rank(**knobs) for knobs in runs]
+
+
+def dp_rank(locator=None, steps: int = 1, **knobs) -> dict:
+    """One rank of the FULL mode over the group: :func:`setup` (``locator``:
+    a grid built elsewhere for this mesh, moved to the rank's device), then
+    ``steps`` steps; returns the summed fields, the rank's kernel launches
+    (from the setup on) and its active count."""
+    import dataclasses
+
+    from pumipic_torch import kernels
+    from pumipic_torch.parallel import group
+
+    kernels.reset_launches()
+    dev = group.device()
+    if locator is not None:
+        locator = dataclasses.replace(locator, **{
+            f.name: getattr(locator, f.name).to(dev)
+            for f in dataclasses.fields(locator)
+            if isinstance(getattr(locator, f.name), torch.Tensor)})
+    _, state, step, info = setup(dev, locator=locator, **knobs)
+    for _ in range(steps):
+        state, fields = step(state)
+    _sync(dev)
+    return {"fwd": fields["fwd"], "bwd": fields["bwd"],
+            "alive_local": int(state["active"].sum()),
+            "launches": dict(kernels.LAUNCHES), "setup_s": info["setup_s"]}
+
+
 def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
          mode=None, **knobs):
     """Run the benchmark; returns (record, state, fields): the JSON record
@@ -283,40 +433,76 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
     device = torch.device(device)
     iters = int(iters or os.environ.get("BENCH_ITERS", 20))
     mode = mode or os.environ.get("BENCH_MODE", "dp")
-    setups = {"dp": setup, "pps3d": setup_pps3d, "gitr": setup_gitr}
+    setups = {"dp": setup, "pps3d": setup_pps3d, "gitr": setup_gitr,
+              "picparts": setup_picparts}
     if mode not in setups:
-        raise ValueError(f"unknown BENCH_MODE {mode!r}: dp, pps3d or gitr")
-    pps3d = mode == "pps3d"
+        raise ValueError(f"unknown BENCH_MODE {mode!r}: dp, pps3d, gitr or picparts")
+    pps3d, picparts = mode == "pps3d", mode == "picparts"
     mesh, state, step, info = setups[mode](device, num_ptcls, **knobs)
     num_ptcls = info["num_ptcls"]
     _sync(device)
 
     # warm-up step
+    t0 = time.perf_counter()
     state, fields = step(state)
     _sync(device)
+    if picparts:
+        info["setup_s"]["first step"] = time.perf_counter() - t0
 
+    history, timer, marks = [], None, []
+    if picparts:
+        history.append((fields["stats"], fields["fwd"], info["step"].last_deposit))
+    if picparts and device.type == "cuda":
+        from pumipic_torch.parallel import group
+
+        timer = group.SplitTimer()
+        group.set_split_timer(timer)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+        marks[0].record()
     t0 = time.perf_counter()
-    for _ in range(iters):
+    for i in range(iters):
         state, fields = step(state)
+        if picparts:
+            history.append((fields["stats"], fields["fwd"],
+                            info["step"].last_deposit))
+        if marks:
+            marks[i + 1].record()
     _sync(device)
     dt = (time.perf_counter() - t0) / iters
+    if timer is not None:
+        group.set_split_timer(None)
 
     rate = num_ptcls / dt
     detail = {
         "num_ptcls": num_ptcls,
-        "mesh_elems": mesh.nelems,
-        "mesh_verts": mesh.nverts,
+        "mesh_elems": info["mesh_elems"] if picparts else mesh.nelems,
+        "mesh_verts": info["mesh_verts"] if picparts else mesh.nverts,
         "ms_per_step": dt * 1e3,
         "chips": 1,
-        "alive": int((state.active if pps3d else state["active"]).sum()),
+        "alive": int(state.active.sum() if pps3d else
+                     fields["stats"]["alive"] if picparts else state["active"].sum()),
         "impl": "torch",
         "device": device.type,
         "gpu": (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else None),
-        "iters": int(fields["iters"]),
+        "iters": 0 if picparts else int(fields["iters"]),
         "setup_s": info["setup_s"],
         "tag": info["tag"],
     }
+    if picparts:
+        from pumipic_torch.parallel import group
+
+        detail["ranks"] = group.num_ranks()
+        detail["backend"] = (torch.distributed.get_backend()
+                             if group.initialized() else None)
+        if device.type == "cuda":
+            detail["chips"] = min(group.num_ranks(), torch.cuda.device_count())
+        detail["split_ms_per_step"] = (None if timer is None else
+                                       {k: v / iters for k, v in timer.totals().items()})
+        detail["step_ms"] = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        fields["history"] = [({k: v.cpu() for k, v in st.items()}, f.cpu(), d.cpu())
+                             for st, f, d in history]
+        fields["picpart"] = info["picpart"]
     if mode == "dp":
         detail["all_found"] = bool(fields["all_found"])
     if mode == "gitr":
@@ -325,6 +511,8 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
         "dp": "pseudoXGCm push+search+rebuild+gyroScatter throughput",
         "pps3d": "pseudoPushAndSearch 3D push+search+rebuild throughput",
         "gitr": "GITR-style Boris push+intersection walk+wall tally throughput",
+        "picparts": "pseudoXGCm picparts push+search+migrate+gyroScatter+"
+                    "reduce throughput",
     }
     out = {
         "metric": metrics[mode],
@@ -338,5 +526,38 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
     return out, state, fields
 
 
+def _picparts_cli() -> None:
+    """``BENCH_MODE=picparts``: under ``torchrun`` every process is a rank
+    (``BENCH_BACKEND``, default nccl); otherwise ``BENCH_RANKS`` (default
+    1) rank processes are started on this machine (``BENCH_BACKEND``,
+    default gloo: several ranks may share one card).  Rank 0's record is
+    printed."""
+    from pumipic_torch.parallel import group
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        group.init(os.environ.get("BENCH_BACKEND", "nccl"))
+        try:
+            out = picparts_rank()
+        finally:
+            group.finalize()
+        if int(os.environ["RANK"]) == 0:
+            print(json.dumps(out["record"]), flush=True)
+        return
+    n = int(os.environ.get("BENCH_RANKS", 1))
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_torch measures on a CUDA device and none is "
+                           "available")
+    from pumipic_torch.kernels import _build
+
+    _build.build()
+    ranks = group.launch("bench_torch:picparts_rank", n, {},
+                         backend=os.environ.get("BENCH_BACKEND", "gloo"),
+                         device="cuda", timeout=3000)
+    print(json.dumps(ranks[0]["record"]), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if os.environ.get("BENCH_MODE") == "picparts":
+        _picparts_cli()
+    else:
+        main()

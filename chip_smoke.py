@@ -111,7 +111,33 @@ sources in this checkout.  Phases, each raising on failure:
     columns form is checked and timed as in (c) on the columns and source
     rows its 20th timed step's rebuild gathered, and after the Sell-C-σ
     and CabM runs S on the arguments of their last timed step's slot map;
-(e) print the kernels' JSON line (each kernel's first case, and every case
+(e) the distributed runtime as ranks of ``torch.distributed`` groups on
+    this card (``pumipic_torch.parallel.group.launch``; the kernels and
+    ``libmeshcore`` built here first; every rank's failure or a passed
+    deadline fails the phase): (1) ``bench_torch``'s picparts mode on the
+    120k mesh at 10M particles over 4 gloo ranks (RCB, the balancer, the
+    neighbour exchange, cap factor 1.5, a 12-layer BFS buffer, 1 + 5
+    steps); (2) the same on 1
+    NCCL rank; (3) the 23,976-triangle annulus at 10M over 4 gloo ranks:
+    the analytic locate with the banded route and the neighbour exchange,
+    the same with the world exchange (equal bit for bit: alive, sent and
+    every rank's field) and with the walk (alive and sent within 1e-5 of
+    the particles each step: the two locates part at ulp ties, as the JAX
+    package's do); (4) FULL mode over 4 gloo ranks against one process
+    (``bench_torch.setup``, one step: fwd and bwd bit for bit); (5)
+    ``dryrun_multirank(4, "cuda", "gloo")``, 3D mode included.  Each rank
+    reports its kernel launches (checked by name, and L's count: on a walk
+    arm each rank launches L in every step, on an analytic arm only in the
+    setup's gyro-map walk), every step's stats, reduced field and deposit:
+    on every step no overflow, unresolved arrival, illegal destination or
+    particle lost off its picpart (stats ``lost``), alive =
+    the previous alive less the step's boundary exits, the field equal on
+    every copy of each vertex and its owned-vertex sum equal to the
+    deposited charge.  Printed per arm: setup seconds by phase, the median
+    ms/step and rank 0's per-step split (CUDA events: compute, collectives,
+    the exchange's torch glue), labelled "4 processes sharing one H100
+    over gloo (host-staged)";
+(f) print the kernels' JSON line (each kernel's first case, and every case
     under ``cases``), the card's line, and the contract line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -125,6 +151,7 @@ the same torch ops fill on the card).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -2002,6 +2029,233 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     return {k: c["last"] for k, c in (("gather", gathers), ("slot_map", maps)) if c}
 
 
+# ---------------------------------------------------------------------------
+# phase e: the distributed runtime as ranks of a torch.distributed group
+# ---------------------------------------------------------------------------
+
+E_RANKS = 4
+E_STEPS = 5
+E_LABEL = f"{E_RANKS} processes sharing one H100 over gloo (host-staged)"
+E_CAPF = 1.5
+# BFS buffer layers: the 15° push outruns bench.py's 3 (scripts/
+# picparts_buffer_cpu.py, 4 CPU ranks, 200k particles: 3 layers lose 0.03%
+# (120k) and 0.2% (annulus) a step off the picparts, 8 layers none)
+E_BUFFER = 12
+# kernels each rank of an arm launches (from its setup on), by name
+E_WALK = ("push", "locate", "histogram", "deposit")
+E_ANALYTIC = ("push", "annulus_locate", "locate", "histogram", "deposit")
+E_DEVICE = "cuda"        # "cpu" rehearses the phase with the plain versions
+E_WALK_TOL = 1e-5        # analytic against walk: |alive|, |sent| differences
+
+
+def e_launch(target: str, n: int, kwargs: dict, backend: str = "gloo",
+             timeout: float = 600.0) -> list:
+    from pumipic_torch.parallel import group
+
+    backend = backend if E_DEVICE == "cuda" else "gloo"
+    return group.launch(target, n, kwargs, backend=backend, device=E_DEVICE,
+                        timeout=timeout)
+
+
+def e_tally(results: dict, name: str, ranks: list, expected, walk_steps: int) -> None:
+    """Require each rank's launch set to be ``expected`` and its L launches
+    to be the setup's gyro-map walk plus, on a walk arm (``walk_steps`` >
+    0), at least one local search in each of ``walk_steps`` steps; add the
+    counts to the kernels' launches."""
+    for r, out in enumerate(ranks):
+        counts = out["launches"]
+        launched = {k for k, v in counts.items() if v > 0}
+        log(f"[e] {name} rank {r} kernel launches: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if E_DEVICE == "cuda":
+            if launched != set(expected):
+                raise AssertionError(f"{name} rank {r} launched {sorted(launched)}, "
+                                     f"expected {sorted(expected)}")
+            n_l = counts.get("locate", 0)
+            if (n_l < 1 + walk_steps) if walk_steps else (n_l != 1):
+                raise AssertionError(
+                    f"{name} rank {r}: {n_l} L launches; want the setup's 1 "
+                    + (f"and one or more in each of {walk_steps} steps" if walk_steps
+                       else "only (the analytic arm's steps launch no L)"))
+        for k, v in counts.items():
+            results[k]["launches"] = results[k].get("launches", 0) + v
+
+
+def e_report(name: str, ranks: list, smi: str) -> dict:
+    """Print an arm's setup seconds, median ms/step and per-step split."""
+    import statistics
+
+    det = ranks[0]["record"]["detail"]
+    setup = {k: max(r["record"]["detail"]["setup_s"][k] for r in ranks)
+             for k in det["setup_s"]}
+    med = statistics.median(det["step_ms"]) if det["step_ms"] else det["ms_per_step"]
+    split = det["split_ms_per_step"] or {}
+    log(f"[e] {name} ({det['tag']}, {det['ranks']} rank(s), {det['backend']}, "
+        f"E={det['mesh_elems']}): setup seconds (slowest rank): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in setup.items()))
+    log(f"[e] {name}: median {med:.3f} ms/step of {det['step_ms']} "
+        f"(mean {det['ms_per_step']:.3f}); rank 0's split per step: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(split.items()))
+        + f" [{E_LABEL if det['ranks'] > 1 else 'one process, one H100'}; {smi}]")
+    log(f"[e] {name}: native host path: {ranks[0]['native']}")
+    return {"median_ms": med, "setup_s": setup, "split": split}
+
+
+def e_check_run(name: str, ranks: list, num_ptcls: int) -> None:
+    """Every step: no overflow, unresolved arrival, illegal destination or
+    particle lost off its picpart (a destination in the domain that the
+    rank's buffer does not hold); alive = the previous alive less the
+    step's boundary exits; the reduced
+    field equal on every copy of each vertex and its owned-vertex sum equal
+    to the charge the ranks deposited (exact: multiples of 1/8).  Particles
+    migrate over the run."""
+    import numpy as np
+
+    prev, sent = num_ptcls, 0
+    gids = [r["vert_gid"].numpy() for r in ranks]
+    owned = [r["vert_owner"].numpy() == i for i, r in enumerate(ranks)]
+    for i in range(len(ranks[0]["history"])):
+        st = ranks[0]["history"][i][0]
+        for r in ranks[1:]:
+            if any(not torch.equal(st[k], r["history"][i][0][k]) for k in st):
+                raise AssertionError(f"{name} step {i}: the ranks' stats differ")
+        for k in ("overflow", "unresolved", "illegal_dest", "lost"):
+            if int(st[k]) != 0:
+                raise AssertionError(f"{name} step {i}: {k} = {int(st[k])}")
+        alive, exits = int(st["alive"]), int(st["exits"])
+        if alive != prev - exits:
+            raise AssertionError(f"{name} step {i}: alive {alive} != {prev} - {exits} exits")
+        prev = alive
+        sent += int(st["sent"])
+        g = np.concatenate(gids)
+        v = np.concatenate([r["history"][i][1].numpy() for r in ranks])
+        order = np.lexsort((v, g))
+        g, v = g[order], v[order]
+        same = g[1:] == g[:-1]
+        if (v[1:][same] != v[:-1][same]).any():
+            raise AssertionError(f"{name} step {i}: a vertex's copies differ")
+        owned_sum = sum(float(r["history"][i][1].numpy()[o].astype(np.float64).sum())
+                        for r, o in zip(ranks, owned))
+        deposited = sum(float(r["history"][i][2].numpy().astype(np.float64).sum())
+                        for r in ranks)
+        if owned_sum != deposited:
+            raise AssertionError(f"{name} step {i}: owned sum {owned_sum} != "
+                                 f"deposited {deposited}")
+    if len(ranks) > 1 and sent == 0:
+        raise AssertionError(f"{name}: no particle migrated")
+    log(f"[e] {name}: {len(ranks[0]['history'])} steps checked: alive "
+        f"{num_ptcls} -> {prev}, {sent} migrated, field copies equal and the "
+        f"owned sum equal to the deposit (exact)")
+
+
+def e_series(ranks: list):
+    return [(int(st["alive"]), int(st["sent"])) for st, _, _ in ranks[0]["history"]]
+
+
+def phase_e(results: dict, dev, grid, smi: str) -> None:
+    """The distributed runtime: the kernels and libmeshcore built here
+    first, then five arms, each a group of rank processes on this card."""
+    import bench_torch
+    from pumipic_torch import native
+    from pumipic_torch.kernels import _build
+    from pumipic_torch.parallel.dryrun import dryrun_multirank
+
+    t0 = time.perf_counter()
+    if E_DEVICE == "cuda":
+        _build.build()
+    log(f"[e] kernels and libmeshcore ready in {time.perf_counter() - t0:.2f} s; "
+        f"host preprocessing path: {native.path()}")
+    base = dict(mesh_path=MESH, num_ptcls=NUM_PTCLS, iters=E_STEPS, cap_factor=E_CAPF,
+                buffer_layers=E_BUFFER)
+
+    # 1: the 2D picparts step at full width, 4 ranks over gloo
+    ranks = e_launch("bench_torch:picparts_rank", E_RANKS, base)
+    e_tally(results, "arm 1 (120k picparts)", ranks, E_WALK, 1 + E_STEPS)
+    e_check_run("arm 1 (120k picparts)", ranks, NUM_PTCLS)
+    e_report("arm 1 (120k picparts)", ranks, smi)
+    del ranks
+
+    # 2: world size 1 over NCCL
+    ranks = e_launch("bench_torch:picparts_rank", 1, base, backend="nccl")
+    e_tally(results, "arm 2 (120k, 1 rank, nccl)", ranks, E_WALK, 1 + E_STEPS)
+    e_check_run("arm 2 (120k, 1 rank, nccl)", ranks, NUM_PTCLS)
+    e_report("arm 2 (120k, 1 rank, nccl)", ranks, smi)
+    del ranks
+
+    # 3: the annulus: analytic with the banded route, neighbour against
+    # world exchange, and against the walk
+    ann = dict(base, mesh_path="annulus", mesh_elems=ANNULUS_ELEMS)
+    runs = [ann, dict(ann, neighbor_migration=False), dict(ann, analytic_locate="off")]
+    out = e_launch("bench_torch:picparts_runs", E_RANKS, {"runs": runs})
+    arms = {}
+    for i, (name, expected, walks) in enumerate((("neighbour", E_ANALYTIC, 0),
+                                                 ("world", E_ANALYTIC, 0),
+                                                 ("walk", E_WALK, 1 + E_STEPS))):
+        ranks = [o[i] for o in out]
+        arms[name] = ranks
+        e_tally(results, f"arm 3 (annulus, {name})", ranks, expected, walks)
+        e_check_run(f"arm 3 (annulus, {name})", ranks, NUM_PTCLS)
+        e_report(f"arm 3 (annulus, {name})", ranks, smi)
+    for r in range(E_RANKS):
+        for (_, fa, _), (_, fb, _) in zip(arms["neighbour"][r]["history"],
+                                          arms["world"][r]["history"]):
+            if not torch.equal(fa, fb):
+                raise AssertionError(f"arm 3: rank {r}'s field differs between the "
+                                     f"neighbour and the world exchange")
+    a, w, k = (e_series(arms[n]) for n in ("neighbour", "world", "walk"))
+    log(f"[e] arm 3 (alive, sent) per step: neighbour {a}, world {w}, walk {k}")
+    if a != w:
+        raise AssertionError("arm 3: alive/sent differ between the neighbour and "
+                             "the world exchange")
+    # the analytic locate and the walk disagree on a few particles within
+    # an ulp of a side (the JAX package's own two arms give the port's
+    # counts at 1M particles, scripts/annulus_arms_cpu.py): held to
+    # E_WALK_TOL of the particles per step, the differences printed
+    diff = [(x[0] - y[0], x[1] - y[1]) for x, y in zip(a, k)]
+    log(f"[e] arm 3 analytic - walk (alive, sent) per step: {diff} "
+        f"(bound {E_WALK_TOL * NUM_PTCLS:g} each)")
+    if any(max(abs(d[0]), abs(d[1])) > E_WALK_TOL * NUM_PTCLS for d in diff):
+        raise AssertionError("arm 3: the walk arm strays from the analytic arm")
+    del out, arms, ranks
+
+    # 4: FULL mode over 4 ranks against the one-process step, bit for bit
+    dp = dict(mesh_path=MESH, num_ptcls=NUM_PTCLS)
+    cpu_grid = dataclasses.replace(grid, **{
+        f.name: getattr(grid, f.name).cpu() for f in dataclasses.fields(grid)
+        if isinstance(getattr(grid, f.name), torch.Tensor)})
+    t0 = time.perf_counter()
+    ranks = e_launch("bench_torch:dp_rank", E_RANKS, dict(dp, locator=cpu_grid))
+    log(f"[e] arm 4 (FULL mode, {E_RANKS} ranks): {time.perf_counter() - t0:.2f} s "
+        f"with setup; setup seconds rank 0: {ranks[0]['setup_s']}")
+    e_tally(results, "arm 4 (FULL mode)", ranks, ("push", "locate", "histogram", "deposit"), 1)
+    from pumipic_torch import kernels
+
+    _, state, step, _ = bench_torch.setup(dev, locator=grid, **dp)
+    kernels.reset_launches()
+    state, fields = step(state)
+    alive = int(state["active"].sum())
+    if sum(r["alive_local"] for r in ranks) != alive:
+        raise AssertionError("arm 4: alive differs from the one-process step")
+    for key in ("fwd", "bwd"):
+        for r, out in enumerate(ranks):
+            if not torch.equal(out[key], fields[key].cpu()):
+                raise AssertionError(f"arm 4: rank {r}'s {key} differs from the "
+                                     f"one-process step's")
+    log(f"[e] arm 4: the {E_RANKS} ranks' summed fwd and bwd equal the one-process "
+        f"step's bit for bit; alive {alive}")
+    del state, fields, ranks
+    torch.cuda.empty_cache()
+
+    # 5: the dry run, 3D mode included
+    counts = dryrun_multirank(E_RANKS, E_DEVICE, "gloo")
+    for mode in ("picparts", "picparts-walk", "full-dp", "picparts-3d"):
+        for r, out in enumerate(counts["ranks"]):
+            got = {k: v for k, v in out[mode]["launches"].items() if v}
+            log(f"[e] dryrun {mode} rank {r} kernel launches: {got}")
+    log(f"[e] arm 5 dryrun_multirank({E_RANKS}, {E_DEVICE}, gloo): {counts['seconds']:.1f} s")
+
+
+
 def main() -> int:
     import pumipic_torch
 
@@ -2027,6 +2281,8 @@ def main() -> int:
         if "slot_map" in last:      # S at the app's own order
             check_slot_map(results, f"{structure}, app step-{steps} order", last["slot_map"])
         del last
+    torch.cuda.empty_cache()
+    phase_e(results, dev, grid, smi)
     line = {"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": results[name]["launches"],

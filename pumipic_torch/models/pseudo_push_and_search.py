@@ -23,7 +23,8 @@ Host seeding makes the JAX package's numpy Generator calls in its order, so
 particle elements, positions and pids are bit-identical.  Knobs that only
 the TPU build needed are accepted and mapped onto the one GPU path:
 ``widths`` (the compaction pyramid) and every 3D ``peel`` (onto the
-26-column rows).  ``make_picparts_setup_3d`` waits for distribution.  Entry points run on the CUDA card unless
+26-column rows).  :func:`make_picparts_setup_3d` is the distributed
+version over 3D picparts.  Entry points run on the CUDA card unless
 ``device="cpu"`` is passed.
 """
 from __future__ import annotations
@@ -261,3 +262,146 @@ class PseudoPushAndSearch:
             if history[-1] == 0:
                 break
         return history
+
+
+# ---------------------------------------------------------------------------
+# distributed BFS-buffered 3D picparts (the reference runs this app at 2
+# ranks with migrate_lb_ptcls, test/pseudoPushAndSearch.cpp:204-206, 524)
+# ---------------------------------------------------------------------------
+
+def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
+                           cfg: PushSearchConfig, inp=None,
+                           migrate_cap: Optional[int] = None, seed: int = 0,
+                           use_lb: bool = True, lb_tol: float = 1.05,
+                           neighbor_migration: bool = True, device=None,
+                           hier: bool = False):
+    """This rank's part of pseudoPushAndSearch over 3D picparts: per step
+    the straight-line push, the tet search from the previous element (the
+    walk, kernel L3's plain walk; on a proven Kuhn box with the remove wall
+    the global analytic locate, kernel K, and one [g2l | route] row per
+    particle), the safe-zone migration with the balancer where ``use_lb``,
+    and the layout's rebuild on arrival (``migrate_structure``: scs, csr,
+    cabm and dps all ride the exchange).  Every rank builds the same host
+    picparts (RCB) and keeps its own on ``device`` (default: the group's).
+
+    Returns (local picpart, structure, step) with ``step(ps) -> (ps,
+    stats)``; ``stats`` as the 2D step's (overflow also covers the
+    layout)."""
+    from pumipic_torch.models.pseudo_xgcm import step_stats
+    from pumipic_torch.parallel import balancer as lbm
+    from pumipic_torch.parallel import distributor as dstm
+    from pumipic_torch.parallel import group
+    from pumipic_torch.parallel import migrate as mig
+    from pumipic_torch.parallel import picparts as ppm
+
+    check_config(cfg)
+    group.check_flat(hier)
+    R, me = group.num_ranks(), group.rank()
+    device = group.device() if device is None else resolve_device(device)
+    inp = ppm.PicPartsInput() if inp is None else inp
+    coords, tets = np.asarray(coords), np.asarray(tets)
+    owners = ppm.partition_rcb(coords, tets, R)
+    pp = ppm.build_picparts(coords, tets, owners, R, inp)
+    bt = lbm.build_balancer(pp, R) if use_lb else None
+    nplan = (mig.build_neighbor_plan(dstm.from_picparts(pp))
+             if neighbor_migration else None)
+    lpp = pp.local_view(me, device)
+    lmesh = lpp.mesh
+
+    gmesh = Mesh3D.from_numpy(ppm.mesh_arrays(3, coords, tets,
+                                              np.ones(len(tets), np.int64)), "cpu")
+    g_elems, pos = seed_particles(gmesh, cfg.num_ptcls, seed)
+    own_of_ptcl = owners[g_elems]
+    n_cap = max(int(np.bincount(own_of_ptcl, minlength=R).max() * 2.0) + 16, 64)
+    E_l = pp.nelems
+
+    kuhn = None
+    if cfg.kuhn in ("auto", "force") and cfg.wall == "remove":
+        kuhn = detect_box_kuhn(coords, tets, device=device)
+        if kuhn is None and cfg.kuhn == "force":
+            raise ValueError("kuhn='force' but the mesh is not a structured Kuhn box")
+    eg = pp.elem_gid[me]
+    g2l = np.full(gmesh.nelems, -1, np.int64)
+    g2l[eg[eg >= 0]] = np.nonzero(eg >= 0)[0]
+    sel = np.nonzero(own_of_ptcl == me)[0]
+    fields = {"x": torch.as_tensor(pos[sel].astype(np.float32)),
+              "pid": torch.as_tensor(sel.astype(np.int32))}
+    ps = _BUILDERS[cfg.structure](E_l, g2l[g_elems[sel]], fields, device)
+    cap = max(int(group.all_gather(torch.tensor(ps.capacity, device=device)).max()),
+              n_cap)
+    if ps.capacity != cap:
+        h = ps.copy_to_host()
+        ps = _BUILDERS_CAP[cfg.structure](
+            E_l, np.where(h["active"], h["elem"], -1),
+            {"x": torch.as_tensor(h["x"]), "pid": torch.as_tensor(h["pid"])},
+            cap, device)
+
+    E_r = lmesh.nelems
+    sbar_local = (None if bt is None else
+                  torch.as_tensor(bt.sbar_of_elem[me][:E_r], device=device))
+    g2l_tbl = None
+    if kuhn is not None:
+        n_sbars = bt.num_sbars if bt is not None else 0
+        if not mig.route_pack_bound_ok(n_sbars, R):
+            raise ValueError(f"route pack exceeds f32 exactness: S={n_sbars} R={R}")
+        route = mig.pack_route(lpp.elem_safe, lpp.elem_owner, sbar_local, R)
+        fused = np.zeros((gmesh.nelems, 2), np.int32)
+        fused[:, 0] = g2l
+        valid = g2l >= 0
+        fused[valid, 1] = route.cpu().numpy().astype(np.int64)[g2l[valid]]
+        g2l_tbl = torch.as_tensor(fused, device=device)
+    d = np.asarray(cfg.push_dir, np.float64)
+    svec = push_ops.step_vector((d / np.linalg.norm(d)).astype(np.float32),
+                                cfg.distance)
+    if migrate_cap is None:
+        migrate_cap = max(cap // 4, 64)
+    g_walk = gmesh.walk_geom.to(device) if kuhn is None else None
+
+    def step(ps):
+        x = ps.get("x")
+        sbar_p = noncore_p = None
+        with group.split("compute"):
+            if kuhn is not None:
+                dest_x, e_gl = locate_ops.kuhn_push_locate(kuhn, x, ps.active, svec,
+                                                          None)
+            else:
+                xt = push_ops.push_and_wrap(x, svec, None)
+                res = search_ops.search_mesh_3d(lmesh, x, xt, ps.elem, ps.active,
+                                                cfg.max_search_iters)
+                elem_ids, dest_x = res.elem_ids, res.dest
+                # as the 2D walk arm: the removed particles walked again on
+                # the global mesh; found there, they are lost off the picpart
+                removed = ps.active & (elem_ids < 0)
+                g_start = lpp.elem_gid[torch.clamp(ps.elem, min=0).long()]
+                g_ids, _, _, g_all, _ = search_ops.walk_locate_3d(
+                    g_walk, dest_x, g_start, removed, gmesh.nelems)
+                lost = (g_ids >= 0).sum(dtype=torch.int32) + (~g_all).to(torch.int32)
+        with group.split("glue"):
+            ok_in = None
+            if kuhn is not None:
+                g_row = g2l_tbl[torch.clamp(e_gl, min=0).long()]
+                elem_ids = torch.where(e_gl >= 0, g_row[:, 0], -1)
+                ok_in = ps.active & (elem_ids >= 0)
+                dest, sbar_p, noncore_p = mig.route_decode(
+                    g_row[:, 1].to(torch.float32), ok_in, me, R)
+            else:
+                dest = mig.set_unsafe_procs(lpp.elem_safe, lpp.elem_owner, elem_ids,
+                                            ps.active, me)
+            ps1 = ps.set("x", dest_x)
+            ok = ps.active & (elem_ids >= 0)
+        if bt is not None:
+            dest = lbm.repartition(bt, sbar_local, elem_ids, ok, dest, me, lb_tol,
+                                   elem_owner=lpp.elem_owner, sbar_of_ptcl=sbar_p,
+                                   noncore=noncore_p, num_ranks=R)
+        ps2, mres = mig.migrate_structure(ps1, elem_ids, dest, lpp.elem_gid,
+                                          lpp.elem_gid_sorted, lpp.elem_gid_perm,
+                                          me, R, migrate_cap, plan=nplan)
+        with group.split("glue"):
+            nloc = ps2.active.sum(dtype=torch.int32)
+            if kuhn is not None:
+                lost = (ps.active & (e_gl >= 0) & (elem_ids < 0)).sum(dtype=torch.int32)
+            exits = (ps.active & (elem_ids < 0)).sum(dtype=torch.int32) - lost
+        mres = mres._replace(overflow=mres.overflow | ps2.overflowed)
+        return ps2, step_stats(nloc, mres, exits, lost)
+
+    return lpp, ps, step

@@ -69,7 +69,7 @@ from pumipic_torch.ops import search as search_ops
 from pumipic_torch.parallel import full_mode
 from pumipic_torch.particles import CSR, DPS, CabM, SCSInput, SellCSigma
 from pumipic_torch.utils.device import resolve_device
-from pumipic_torch.utils.types import LID_DTYPE
+from pumipic_torch.utils.types import INVALID, LID_DTYPE
 
 ELEMENT_SEED = 1024 * 1024
 PARTICLE_SEED = 512 * 512
@@ -328,7 +328,7 @@ def make_dp_step(model: DPModel, cfg: XGCmConfig):
     push = (push_ops.push_table if isinstance(model.rot, push_ops.RotTable)
             else push_ops.push_banded)
 
-    def step(s: Dict[str, torch.Tensor]):
+    def rank_step(s: Dict[str, torch.Tensor]):
         tx, ty, cphi, sphi = push(
             s["x0"], s["x1"], s["cphi"], s["sphi"], s["b"], s["elem"],
             s["active"], model.rot, cfg.h, cfg.k, cfg.d)
@@ -352,10 +352,10 @@ def make_dp_step(model: DPModel, cfg: XGCmConfig):
         bwd = fwd if model.gyro_bwd is model.gyro_fwd else \
             scatter_ops.scatter_to_mapped_verts(
                 ring_accum, model.gyro_bwd, mesh.nverts, R, P)
-        fields = full_mode.reduce_fields({"fwd": fwd, "bwd": bwd})
-        fields.update(iters=iters, all_found=all_found)
-        return new_state, fields
+        return new_state, {"fwd": fwd, "bwd": bwd, "iters": iters,
+                           "all_found": all_found}
 
+    step = full_mode.make_dp_step(rank_step, keep=("iters", "all_found"))
     step.model = model
     return step
 
@@ -605,3 +605,314 @@ class PseudoXGCm:
         write_vtk(path, self.mesh.coords.cpu().numpy(),
                   self.mesh.elem2verts.cpu().numpy(),
                   elem_fields=elem_fields, vert_fields=vert_fields)
+
+
+# ---------------------------------------------------------------------------
+# distributed BFS-buffered picparts (the full reference pipeline)
+# ---------------------------------------------------------------------------
+
+STAT_KEYS = ("alive", "sent", "kept_home", "overflow", "unresolved",
+             "illegal_dest", "exits", "lost")
+
+
+def step_stats(nloc, mres, exits, lost) -> Dict[str, torch.Tensor]:
+    """The step's ``stats`` from one ``all_gather`` of this rank's
+    [alive, sent, kept home, overflow, unresolved, illegal, exits, lost]
+    counts: sums (overflow: the max) over ranks, the imbalance max/avg of
+    the alive counts (f32), and the per-rank alive and sent counts.  The
+    port's own keys: ``exits``, particles the search removed whose
+    destination lies outside the domain (they crossed a model-boundary
+    face), and ``lost``, particles it removed whose destination lies in the
+    domain but outside this rank's picpart (a buffer too thin for the
+    step's push)."""
+    from pumipic_torch.parallel import group
+
+    mine = torch.stack([nloc, mres.num_sent, mres.num_kept_home,
+                        mres.overflow.to(torch.int32), mres.num_recv_unresolved,
+                        mres.num_illegal_dest, exits, lost]).to(torch.int32)
+    g = group.all_gather(mine)
+    with group.split("glue"):
+        stats = {k: g[:, i].sum(dtype=torch.int32) for i, k in enumerate(STAT_KEYS)}
+        stats["overflow"] = g[:, 3].max()
+        n = g[:, 0].to(torch.float32)
+        mx, total = n.max(), n.sum()
+        avg = total / total.new_full((), float(g.shape[0]))
+        stats["imbalance"] = torch.where(avg > 0, mx / avg, total.new_full((), 1.0))
+        stats["alive_per_rank"] = g[:, 0]
+        stats["sent_per_rank"] = g[:, 1]
+    return stats
+
+
+def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
+                        class_id: np.ndarray, cfg: XGCmConfig, inp=None,
+                        migrate_cap: Optional[int] = None,
+                        seed: int = ELEMENT_SEED, use_lb: bool = False,
+                        lb_tol: float = 1.05, neighbor_migration: bool = True,
+                        cap_factor: float = 1.5, partition: str = "auto",
+                        banded_route: str = "auto", device=None,
+                        hier: bool = False,
+                        timings: Optional[Dict[str, float]] = None):
+    """This rank's part of pseudoXGCm over BFS-buffered picparts: per step
+    push → local search → safe-zone migration (with the balancer where
+    ``use_lb``) → gyro scatter → owner SUM reduction of the field
+    (pseudoXGCm.cpp:504-534).  Call it on every rank of the group (or in
+    one process: one rank).
+
+    Every rank builds the same host picparts and keeps its own view on
+    ``device`` (default: the group's device).  Knobs as in the JAX
+    package: ``partition`` ("auto": sector bands on a proven annulus in
+    the generator's order, else RCB; "bands"; "rcb"), ``banded_route``
+    ("auto"/"off"), ``neighbor_migration`` (the neighbour exchange; False:
+    the world exchange, equal bit for bit), ``cap_factor`` (slots per rank
+    over the largest initial share), ``migrate_cap`` (bucket rows per
+    destination, default slots/8), and the config's ``analytic_locate``:
+    on a proven annulus ("auto"/"force") the search is the global analytic
+    locate (kernel A) with the banded route or one [g2l | route] row per
+    particle; otherwise each rank's cartesian grid and walk (kernel L).
+    ``hier`` raises.
+
+    Returns (local picpart, state, gyro map, step) with ``step(state) ->
+    (state, fwd, stats)``; ``fwd`` is the (V_local,) reduced field and
+    ``stats`` holds alive, sent, kept_home, overflow, unresolved,
+    illegal_dest, imbalance, alive_per_rank, sent_per_rank and the
+    port's ``exits`` and ``lost`` (device tensors, see :func:`step_stats`);
+    ``step.last_deposit`` is the last step's field before the reduction.
+    ``timings``, if given, receives host seconds by phase ("host build",
+    "seeding", "locator", "gyro map")."""
+    from pumipic_torch.parallel import balancer as lbm
+    from pumipic_torch.parallel import banded_route as brm
+    from pumipic_torch.parallel import distributor as dstm
+    from pumipic_torch.parallel import group
+    from pumipic_torch.parallel import migrate as mig
+    from pumipic_torch.parallel import picparts as ppm
+    from pumipic_torch.parallel import reduce as red
+
+    check_config(cfg)
+    group.check_flat(hier)
+    if banded_route not in ("auto", "off"):
+        raise ValueError(f"unknown banded_route {banded_route!r}")
+    timings = {} if timings is None else timings
+    R, me = group.num_ranks(), group.rank()
+    device = group.device() if device is None else resolve_device(device)
+    inp = ppm.PicPartsInput() if inp is None else inp
+    coords = np.asarray(coords)
+    elem2verts = np.asarray(elem2verts)
+    class_id = np.asarray(class_id)
+
+    t0 = time.perf_counter()
+    detected = detect_annulus_structured(coords, elem2verts, cls=class_id,
+                                         device=device)
+    if partition == "auto":
+        partition = "bands" if detected is not None and detected.perm is None else "rcb"
+    if partition == "bands":
+        if detected is None:
+            raise ValueError("partition='bands' needs a detection-proven "
+                             "structured annulus")
+        owners = brm.sector_band_owners(detected.n_rings, detected.n_sectors, R)
+    elif partition == "rcb":
+        owners = ppm.partition_rcb(coords, elem2verts, R)
+    else:
+        raise ValueError(f"unknown partition {partition!r}")
+    pp = ppm.build_picparts(coords, elem2verts, owners, R, inp, class_id)
+    bt = lbm.build_balancer(pp, R) if use_lb else None
+    nplan = (mig.build_neighbor_plan(dstm.from_picparts(pp))
+             if neighbor_migration else None)
+    lpp = pp.local_view(me, device)
+    lmesh = lpp.mesh
+    timings["host build"] = time.perf_counter() - t0
+
+    # --- seeding on the global mesh (every rank the same), kept by owner
+    t0 = time.perf_counter()
+    gmesh = Mesh2D.from_numpy(ppm.mesh_arrays(2, coords, elem2verts, class_id), "cpu")
+    ppe = seed_particles_per_element(gmesh, cfg, np.random.default_rng(seed))
+    g_elems = np.repeat(np.arange(gmesh.nelems), ppe)
+    pos = uniform_points_in_elements(gmesh, g_elems, np.random.default_rng(PARTICLE_SEED))
+    pos32 = torch.as_tensor(pos, dtype=torch.float32)
+    phi, b = push_ops.elliptical_setup(pos32[:, 0].contiguous(),
+                                       pos32[:, 1].contiguous(), cfg.h, cfg.k, cfg.d)
+    phi, b = phi.numpy(), b.numpy()
+    own_of_ptcl = owners[g_elems]
+    n_cap = max(int(np.bincount(own_of_ptcl, minlength=R).max() * cap_factor) + 8, 64)
+
+    analytic = None
+    if cfg.analytic_locate in ("auto", "force"):
+        analytic = detected
+        if analytic is None and cfg.analytic_locate == "force":
+            raise ValueError("analytic_locate='force' but the mesh is not "
+                             "a structured annulus")
+    br = None
+    if analytic is not None and banded_route == "auto" and analytic.perm is None:
+        br = brm.derive_banded_route(pp, owners, analytic, bt, R)
+
+    sel = np.nonzero(own_of_ptcl == me)[0]
+    n = len(sel)
+    eg = pp.elem_gid[me]
+    g2l = np.full(gmesh.nelems, -1, np.int64)
+    g2l[eg[eg >= 0]] = np.nonzero(eg >= 0)[0]
+
+    def slots(vals, fill, dtype):
+        out = np.full(n_cap, fill, dtype)
+        out[:n] = vals
+        return torch.as_tensor(out, device=device)
+
+    state = {
+        "x0": slots(pos[sel, 0], 0, np.float32),
+        "x1": slots(pos[sel, 1], 0, np.float32),
+        "cphi": slots(np.cos(phi[sel]), 0, np.float32),
+        "sphi": slots(np.sin(phi[sel]), 0, np.float32),
+        "b": slots(b[sel], 0, np.float32),
+        "pid": slots(sel, -1, np.int32),
+        "elem": slots(g2l[g_elems[sel]], -1, np.int32),
+        "active": slots(True, False, bool),
+    }
+    if analytic is not None:
+        state["gelem"] = slots(g_elems[sel], -1, np.int32)
+    if cfg.gyro.per_particle_radius:
+        rg_all = np.random.default_rng(PARTICLE_SEED + 1).uniform(
+            0.25 * cfg.gyro.rmax, cfg.gyro.rmax, cfg.num_ptcls)
+        state["rg"] = slots(rg_all[sel], 0, np.float32)
+    timings["seeding"] = time.perf_counter() - t0
+
+    # --- this rank's gyro map, rotation and locator
+    t0 = time.perf_counter()
+    gyro = cfg.gyro
+    gmap = scatter_ops.GyroMap.from_flat(build_gyro_mapping(lmesh, gyro),
+                                         lmesh.nverts, gyro.num_rings,
+                                         gyro.points_per_ring, device)
+    timings["gyro map"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    # the port's rotation rule (as make_dp_setup's): a band-ordered local
+    # classification through its band starts (kernel P), any other, or
+    # rot_analytic off, through the per-element table (P's table mode)
+    cls_local = lmesh.class_id.cpu().numpy()
+    bands = push_ops.detect_banded_class(cls_local) if cfg.rot_analytic else None
+    if bands is not None:
+        rot = push_ops.BandRotation.build(bands, cfg.deg_per_push, device)
+    else:
+        rot = push_ops.RotTable.build(cls_local, cfg.deg_per_push, device)
+    push = (push_ops.push_banded if bands is not None else push_ops.push_table)
+    locator = None
+    if cfg.use_locator and analytic is None:
+        cpe, peel, _ = resolve_locator_policy(cfg, pp.nelems, n_cap)
+        lc, lev = lmesh.coords.cpu().numpy(), lmesh.elem2verts.cpu().numpy()
+        if cfg.band_locator == "force":
+            locator = detect_banded_locator(lc, lev, cls_local, lmesh.walk_geom,
+                                            n_theta=cfg.band_theta, device=device)
+            ok = group.all_gather(torch.tensor(locator is not None, device=device))
+            if not bool(ok.all()):
+                raise ValueError("band_locator='force' but a picpart is not a "
+                                 "stitched flux-band structure")
+        else:
+            locator = build_locator_grid(lc, lev, cells_per_elem=cpe,
+                                         walk_geom=lmesh.walk_geom.cpu(), peel=peel,
+                                         polar=False, device=device)
+    if migrate_cap is None:
+        migrate_cap = max(n_cap // 8, 64)
+    n_sbars = bt.num_sbars if bt is not None else 0
+    if not mig.route_pack_bound_ok(n_sbars, R):
+        raise ValueError(f"route pack exceeds f32 exactness: S={n_sbars} R={R}")
+    E_l = lmesh.nelems
+    sbar_local = (None if bt is None else
+                  torch.as_tensor(bt.sbar_of_elem[me][:E_l], device=device))
+    route = mig.pack_route(lpp.elem_safe, lpp.elem_owner, sbar_local, R)
+    g2l_tbl = None
+    if analytic is not None and br is None:
+        fused = np.zeros((gmesh.nelems, 2), np.int32)
+        fused[:, 0] = g2l
+        valid = g2l >= 0
+        fused[valid, 1] = route.cpu().numpy().astype(np.int64)[g2l[valid]]
+        g2l_tbl = torch.as_tensor(fused, device=device)
+    br_scalars = br.scalars(me) if br is not None else None
+    timings["locator"] = time.perf_counter() - t0
+
+    Ns = analytic.n_sectors if analytic is not None else 1
+    R_g, P_g = gyro.num_rings, gyro.points_per_ring
+    # the walk arm tells an exit from a particle lost off the picpart by a
+    # plain walk on the global mesh (no walk this long is cut short unless
+    # it cycles; a cut one counts as lost)
+    g_walk = gmesh.walk_geom.to(device) if analytic is None else None
+    g_walk_iters = gmesh.nelems
+
+    def step(s: Dict[str, torch.Tensor]):
+        elem, active = s["elem"], s["active"]
+        with group.split("compute"):
+            tx, ty, cphi, sphi = push(s["x0"], s["x1"], s["cphi"], s["sphi"], s["b"],
+                                      elem, active, rot, cfg.h, cfg.k, cfg.d)
+            if analytic is not None:
+                e_gl, _ = locate_ops.annulus_locate(analytic, tx, ty, active)
+            else:
+                elem_ids, _, _, _ = search_ops.walk_locate(
+                    lmesh.walk_geom, tx, ty, elem, active, cfg.max_search_iters,
+                    grid=locator)
+                # the particles the local walk removed, walked again on the
+                # global mesh from their previous element: found there, the
+                # destination lies in the domain but off this picpart
+                removed = active & (elem_ids < 0)
+                g_start = lpp.elem_gid[torch.clamp(elem, min=0).long()]
+                g_ids, _, _, g_all = search_ops.walk_locate(
+                    g_walk, tx, ty, g_start, removed, g_walk_iters)
+                lost = (g_ids >= 0).sum(dtype=torch.int32) + (~g_all).to(torch.int32)
+        with group.split("glue"):
+            route_v = None
+            if analytic is not None and br is not None:
+                e = torch.clamp(e_gl, min=0)
+                lid, dest, sbar_p, noncore_p = brm.banded_decode(
+                    br, (e // (2 * Ns)).to(torch.float32),
+                    ((e // 2) % Ns).to(torch.float32), (e % 2).to(torch.float32),
+                    e_gl >= 0, active, me, *br_scalars)
+                elem_ids = lid
+            elif analytic is not None:
+                g_row = g2l_tbl[torch.clamp(e_gl, min=0).long()]
+                elem_ids = torch.where(e_gl >= 0, g_row[:, 0], INVALID)
+                route_v = g_row[:, 1].to(torch.float32)
+            mid = {"x0": tx, "x1": ty, "cphi": cphi, "sphi": sphi, "b": s["b"],
+                   "pid": s["pid"], "elem": elem_ids,
+                   "active": active & (elem_ids >= 0)}
+            if gyro.per_particle_radius:
+                mid["rg"] = s["rg"]
+            if analytic is not None:
+                mid["gelem"] = torch.where(elem_ids >= 0, e_gl, INVALID)
+            if analytic is not None and br is None:
+                dest, sbar_p, noncore_p = mig.route_decode(route_v, mid["active"], me, R)
+            elif analytic is None:
+                dest, sbar_p, noncore_p = mig.route_particles(
+                    route, elem_ids, mid["active"], me, R)
+        if bt is not None:
+            dest = lbm.repartition(bt, sbar_local, elem_ids, mid["active"], dest, me,
+                                   lb_tol, sbar_of_ptcl=sbar_p, noncore=noncore_p,
+                                   num_ranks=R)
+        mres = mig.migrate(mid, elem_ids, dest, lpp.elem_gid, lpp.elem_gid_sorted,
+                           lpp.elem_gid_perm, me, R, migrate_cap, plan=nplan)
+        s2 = mres.state
+        with group.split("compute"):
+            if gyro.per_particle_radius:
+                ring = scatter_ops.accumulate_to_rings(
+                    s2["elem"], s2["active"], lmesh, R_g, gyro.rmax,
+                    ptcl_radius=s2["rg"])
+                fwd = scatter_ops.scatter_to_mapped_verts(ring, gmap, lmesh.nverts,
+                                                          R_g, P_g)
+            else:
+                fwd = scatter_ops.gyro_scatter(s2["elem"], s2["active"], lmesh, gmap,
+                                               R_g, P_g, gyro.rmax)
+        step.last_deposit = fwd
+        fwd = red.reduce_comm_array(lpp.vert_send_ids, lpp.vert_recv_ids, fwd,
+                                    red.Op.SUM)
+        with group.split("glue"):
+            nloc = s2["active"].sum(dtype=torch.int32)
+            if analytic is not None:
+                lost = (active & (e_gl >= 0) & (elem_ids < 0)).sum(dtype=torch.int32)
+            exits = (active & (elem_ids < 0)).sum(dtype=torch.int32) - lost
+        return s2, fwd, step_stats(nloc, mres, exits, lost)
+
+    step.last_deposit = None    # the last step's field before the reduction
+    return lpp, state, gmap, step
+
+
+def shrink_picparts_capacity(state: Dict[str, torch.Tensor], new_cap: int):
+    """This rank's picparts state at ``new_cap`` slots, live particles
+    compacted to a slot prefix first (every rank calls it); prefer
+    :class:`pumipic_torch.parallel.capacity.CapacityMonitor` in loops."""
+    from pumipic_torch.parallel.capacity import resize_capacity
+
+    return resize_capacity(state, new_cap)

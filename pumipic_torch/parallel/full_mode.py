@@ -9,21 +9,19 @@ src/pumipic_comm.cpp:233-247).  The JAX package's ``psum`` inside
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 import torch.distributed as dist
 
-
-def _initialized() -> bool:
-    return dist.is_available() and dist.is_initialized()
+from pumipic_torch.parallel import group
 
 
 def shard_particles(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """This rank's contiguous share of the flat (N,) particle arrays, padded
     to a multiple of the world size with zeros (inactive slots); the whole
     state on one process."""
-    if not _initialized():
+    if not group.initialized():
         return state
     ws, rank = dist.get_world_size(), dist.get_rank()
     out = {}
@@ -37,10 +35,11 @@ def shard_particles(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def reduce_vertex_field(field: torch.Tensor) -> torch.Tensor:
-    """reduceCommArray(FULL, SUM): in-place all_reduce over ranks, or the
-    field itself on one process."""
-    if _initialized():
-        dist.all_reduce(field, op=dist.ReduceOp.SUM)
+    """reduceCommArray(FULL, SUM): in-place all_reduce over ranks (a
+    collective of the group's split), or the field itself on one process."""
+    if group.initialized():
+        with group.split("collective"):
+            dist.all_reduce(field, op=dist.ReduceOp.SUM)
     return field
 
 
@@ -55,3 +54,18 @@ def reduce_fields(fields: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             done[key] = reduce_vertex_field(f)
         out[name] = done[key]
     return out
+
+
+def make_dp_step(per_rank_step, keep: Sequence[str] = ()):
+    """Wrap a one-rank step ``state -> (state, fields)`` into the FULL-mode
+    step whose per-vertex ``fields`` are summed over the group (the JAX
+    package's ``shard_map`` + ``psum``); the fields named in ``keep`` (a
+    rank's own diagnostics) pass unreduced."""
+
+    def step(local_state):
+        new_state, fields = per_rank_step(local_state)
+        out = reduce_fields({k: v for k, v in fields.items() if k not in keep})
+        out.update({k: fields[k] for k in keep})
+        return new_state, out
+
+    return step
