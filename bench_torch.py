@@ -278,9 +278,11 @@ def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
 
 
 def picparts_tag(num_ptcls: int, mesh_path: str, cap_factor: float, adapt: bool,
-                 analytic_locate: str, route: str, buffer_layers: int = 3) -> str:
+                 analytic_locate: str, route: str, buffer_layers: int = 3,
+                 slices: int = 1) -> str:
     """``bench.py``'s row tag for its ``picparts`` mode (the port's
-    ``-buf<N>`` where the BFS buffer is not the default 3 layers)."""
+    ``-buf<N>`` where the BFS buffer is not the default 3 layers, and
+    ``-<S>slices`` over a group of S slices)."""
     tag = "picparts"
     if mesh_path not in GENERATED_MESHES:
         tag += "-" + os.path.basename(mesh_path).split(".")[0]
@@ -295,12 +297,14 @@ def picparts_tag(num_ptcls: int, mesh_path: str, cap_factor: float, adapt: bool,
         tag += f"-{num_ptcls // 1_000_000}M"
     if buffer_layers != 3:
         tag += f"-buf{buffer_layers}"
+    if slices != 1:
+        tag += f"-{slices}slices"
     return tag
 
 
 def setup_picparts(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
                    analytic_locate=None, cap_factor=None, route=None, adapt=None,
-                   neighbor_migration=True, buffer_layers=None):
+                   neighbor_migration=True, buffer_layers=None, slices=None):
     """Resolve the picparts knobs (a keyword, else its environment variable,
     else ``bench.py``'s default) and build this rank's part of the run on
     ``device``.  Returns (mesh info, state, step, info) as :func:`setup`;
@@ -312,8 +316,10 @@ def setup_picparts(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
     ``BENCH_ADAPT=1`` (3 observed steps, then the capacity monitor's
     resize); the port's ``BENCH_BUFFER`` (``buffer_layers``: the BFS
     buffer's vertex layers, default 3 as ``bench.py``'s; a push that
-    outruns the buffer loses particles off the picparts, ``stats["lost"]``).
-    The balancer is on."""
+    outruns the buffer loses particles off the picparts, ``stats["lost"]``)
+    and ``BENCH_SLICES`` (``slices``: the group split into that many
+    slices, the exchanges on the two-stage route; default 1).  The balancer
+    is on."""
     from pumipic_torch.mesh.generate import annulus_mesh
     from pumipic_torch.mesh.gmsh import read_msh
     from pumipic_torch.models.pseudo_xgcm import (
@@ -329,6 +335,7 @@ def setup_picparts(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
     cap_factor = float(cap_factor or env("BENCH_CAPF", 1.05))
     route = route or env("BENCH_ROUTE", "auto")
     buffer_layers = int(buffer_layers or env("BENCH_BUFFER", 3))
+    slices = int(slices or env("BENCH_SLICES", 1))
     if adapt is None:
         adapt = env("BENCH_ADAPT", "0") != "0"
     seconds = {}
@@ -342,6 +349,9 @@ def setup_picparts(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
     cfg = XGCmConfig(num_ptcls=num_ptcls, mdl_face=max(int(cls.max()) // 2, 2),
                      deg_per_push=15.0, max_search_iters=64, gyro=GyroConfig(),
                      analytic_locate=analytic_locate)
+    from pumipic_torch.parallel import group
+
+    group.set_slices(slices)
     lpp, state, _, pstep = make_picparts_setup(
         coords, tris, cls, cfg, PicPartsInput(buffer_layers=buffer_layers),
         use_lb=True, cap_factor=cap_factor,
@@ -361,7 +371,7 @@ def setup_picparts(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
     info = {"num_ptcls": num_ptcls, "setup_s": seconds, "picpart": lpp,
             "step": pstep, "mesh_elems": len(tris), "mesh_verts": len(coords),
             "tag": picparts_tag(num_ptcls, mesh_path, cap_factor, adapt,
-                                analytic_locate, route, buffer_layers)}
+                                analytic_locate, route, buffer_layers, slices)}
     return None, state, step, info
 
 
@@ -493,6 +503,7 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
         from pumipic_torch.parallel import group
 
         detail["ranks"] = group.num_ranks()
+        detail["slices"] = group.slices()
         detail["backend"] = (torch.distributed.get_backend()
                              if group.initialized() else None)
         if device.type == "cuda":

@@ -7,13 +7,15 @@ sources in this checkout.  Phases, each raising on failure:
 
 (a) require a CUDA device; print its name and power limit (nvidia-smi) and
     the torch / CUDA versions;
-(b) build the kernels of the fourteen sources (P push and its table mode
+(b) build the kernels of the sixteen sources (P push and its table mode
     ``push_table``, B band cell, A annulus locate, L locate, H histogram and
     its weighted mode W ``wall_tally``, D deposit, G row gather, S slot map,
     K Kuhn push + locate and its push-only form ``push_wrap``, L3 tet
     locate, R ``boris`` grid field + Boris push, M ``trace3d`` 3D walk
     modes, M2 ``trace2d`` 2D walk modes, V ``vdeposit`` deterministic
-    weighted deposit), one nvcc per source, all at once, and keep
+    weighted deposit, the distributed step's X1 ``rank_in_key``, X2
+    ``pack_send``, X3 ``place_arrivals`` and O ``owner_reduce``), one nvcc
+    per source, all at once, and keep
     ptxas's registers, shared memory and spills of each source's entry
     functions for the kernels' JSON line;
 (c) run each kernel and its plain PyTorch version on the card on the same
@@ -117,20 +119,24 @@ sources in this checkout.  Phases, each raising on failure:
     deadline fails the phase): (1) ``bench_torch``'s picparts mode on the
     120k mesh at 10M particles over 4 gloo ranks (RCB, the balancer, the
     neighbour exchange, cap factor 1.5, a 12-layer BFS buffer, 1 + 5
-    steps); (2) the same on 1
+    steps), then rank 0 of it profiled (5 steps more: device busy ms and
+    the stream's split beside the torch-op exchange's); (2) the same on 1
     NCCL rank; (3) the 23,976-triangle annulus at 10M over 4 gloo ranks:
     the analytic locate with the banded route and the neighbour exchange,
-    the same with the world exchange (equal bit for bit: alive, sent and
-    every rank's field) and with the walk (alive and sent within 1e-5 of
-    the particles each step: the two locates part at ulp ties, as the JAX
-    package's do); (4) FULL mode over 4 gloo ranks against one process
-    (``bench_torch.setup``, one step: fwd and bwd bit for bit); (5)
-    ``dryrun_multirank(4, "cuda", "gloo")``, 3D mode included.  Each rank
-    reports its kernel launches (checked by name, and L's count: on a walk
-    arm each rank launches L in every step, on an analytic arm only in the
-    setup's gyro-map walk), every step's stats, reduced field and deposit:
-    on every step no overflow, unresolved arrival, illegal destination or
-    particle lost off its picpart (stats ``lost``), alive =
+    the same with the world exchange and over 2 slices of 2 ranks
+    (``BENCH_SLICES=2``: the two-stage route; both equal bit for bit:
+    alive, sent and every rank's field) and with the walk (alive and sent
+    within 1e-5 of the particles each step: the two locates part at ulp
+    ties, as the JAX package's do); (4) FULL mode over 4 gloo ranks
+    against one process (``bench_torch.setup``, one step: fwd and bwd bit
+    for bit); (5) ``dryrun_multirank(4, "cuda", "gloo")``, 3D mode and
+    mode 4 (2 x 2 slices) included.  Each rank reports its kernel launches
+    (checked by name, and L's count: on a walk arm each rank launches L in
+    every step, on an analytic arm only in the setup's gyro-map walk; X1 5
+    times a step, X2 and X3 once, O 3 times on every rank of a 4-rank arm,
+    O alone on the 1-rank arm), every step's stats, reduced field and
+    deposit: on every step no overflow, unresolved arrival, illegal
+    destination or particle lost off its picpart (stats ``lost``), alive =
     the previous alive less the step's boundary exits, the field equal on
     every copy of each vertex and its owned-vertex sum equal to the
     deposited charge.  Printed per arm: setup seconds by phase, the median
@@ -202,6 +208,14 @@ KERNELS = {  # name -> (route, source, replaces)
                 "pumipic_tpu/ops/search.py:967"),
     "vdeposit": ("cuda", "pumipic_torch/kernels/csrc/vdeposit.cu",
                  "pumipic_tpu/ops/scatter.py:278"),
+    "rank_in_key": ("cuda", "pumipic_torch/kernels/csrc/exchange.cu",
+                    "pumipic_tpu/parallel/migrate.py:302"),
+    "pack_send": ("cuda", "pumipic_torch/kernels/csrc/exchange.cu",
+                  "pumipic_tpu/parallel/migrate.py:319"),
+    "place_arrivals": ("cuda", "pumipic_torch/kernels/csrc/exchange.cu",
+                       "pumipic_tpu/parallel/migrate.py:386"),
+    "owner_reduce": ("cuda", "pumipic_torch/kernels/csrc/owner.cu",
+                     "pumipic_tpu/parallel/reduce.py:52"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -1742,6 +1756,365 @@ def check_gitr_slices(dev) -> None:
         f"{int(ac.ptcls.num_ptcls)}): card == CPU, bit for bit")
 
 
+# ---------------------------------------------------------------------------
+# phase c: the distributed step's exchange (X1, X2, X3) and owner reduction
+# (O) at the 4-rank 120k arm's per-rank size
+# ---------------------------------------------------------------------------
+
+X_RANKS = 4
+X_SLOTS = 3_750_000      # one rank's slots: 10M / 4 ranks x cap factor 1.5
+X_ACTIVE = 2 / 3         # 2.5M of them hold a particle
+# leavers per active particle and step: phase e's arm 1 sends 587,255
+# particles over its 6 steps of 10M (PERF.md §6)
+X_LEAVER_SHARE = 587_255 / 6 / 10_000_000
+X_SEED = 11
+
+
+def compare_bits(kernel: str, what: str, got, want, results: dict,
+                 nan_positions: bool = False) -> None:
+    """compare() on the bits: f32 tensors as int32 (NaN payloads, -0.0 and
+    subnormals count); with ``nan_positions`` a NaN is compared by position
+    only (the card's adds return one NaN pattern, torch's max keeps the
+    input's)."""
+    def bits(t):
+        if isinstance(t, dict):
+            return tuple(bits(t[k]) for k in sorted(t))
+        if isinstance(t, (tuple, list)):
+            return tuple(bits(x) for x in t)
+        if t.dtype == torch.float32:
+            return t.view(torch.int32)
+        return t
+
+    if nan_positions:
+        def strip(a, b):
+            if isinstance(a, (tuple, list)):
+                return tuple(zip(*(strip(x, y) for x, y in zip(a, b))))
+            if a.dtype == torch.float32:
+                if not torch.equal(torch.isnan(a), torch.isnan(b)):
+                    raise AssertionError(f"{kernel} {what}: NaN positions differ")
+                return torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)
+            return a, b
+        got, want = strip(got, want)
+    compare(kernel, what, bits(got), bits(want), results)
+
+
+def exchange_picpart(dev):
+    """Rank 0's picpart of the 120k arm (RCB over 4 ranks, the 12-layer
+    buffer of phase e) and the mesh's host arrays."""
+    from pumipic_torch.mesh.gmsh import read_msh
+    from pumipic_torch.parallel import picparts as ppm
+
+    coords, tris, cls = read_msh(MESH)
+    owners = ppm.partition_rcb(coords, tris, X_RANKS)
+    pp = ppm.build_picparts(coords, tris, owners, X_RANKS,
+                            ppm.PicPartsInput(buffer_layers=E_BUFFER), cls)
+    return pp.local_view(0, dev)
+
+
+def odd_floats(n: int, gen, dev):
+    """n f32 values: normal ones with NaNs (a signalling payload among
+    them), infinities, -0.0 and subnormals mixed in."""
+    x = torch.randn(n, generator=gen, device=dev)
+    special = torch.tensor([float("nan"), -0.0, 0.0, float("inf"), float("-inf"),
+                            1e-40, -3e-39], device=dev)
+    pick = torch.rand(n, generator=gen, device=dev) < 0.2
+    x = torch.where(pick, special[torch.randint(0, 7, (n,), generator=gen, device=dev)], x)
+    bits = x.view(torch.int32)
+    snan = torch.rand(n, generator=gen, device=dev) < 0.02
+    return torch.where(snan, torch.full_like(bits, 0x7FA00001), bits).view(torch.float32)
+
+
+def exchange_state(n: int, gen, dev, E: int, odd: bool = False):
+    """The 120k arm's particle state (x0 x1 cphi sphi b f32, pid i32, elem,
+    active) of n slots, 2/3 of them active; ``odd``: the floats carry
+    NaN, -0.0, infinities and subnormals."""
+    f = (lambda: odd_floats(n, gen, dev)) if odd else \
+        (lambda: torch.rand(n, generator=gen, device=dev))
+    active = torch.rand(n, generator=gen, device=dev) < X_ACTIVE
+    elem = torch.randint(0, E, (n,), generator=gen, device=dev, dtype=torch.int32)
+    return {"x0": f(), "x1": f(), "cphi": f(), "sphi": f(), "b": f(),
+            "pid": torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32),
+            "elem": torch.where(active, elem, -1), "active": active}
+
+
+def exchange_keys(state, share: float, D: int, gen):
+    """Bucket keys: each active particle leaves with probability ``share``
+    for one of D destinations; D for the others."""
+    dev = state["active"].device
+    n = state["active"].shape[0]
+    go = state["active"] & (torch.rand(n, generator=gen, device=dev) < share)
+    b = torch.randint(0, D, (n,), generator=gen, device=dev, dtype=torch.int32)
+    return torch.where(go, b, D).to(torch.int32)
+
+
+def check_rank_in_key(results: dict, dev, gen, D: int) -> None:
+    from pumipic_torch.kernels import _build
+    from pumipic_torch.ops import exchange as ex
+
+    n = X_SLOTS
+    st = exchange_state(n, gen, dev, 10)
+    cases = [
+        ("buckets, 3.75M slots (main)", exchange_keys(st, X_LEAVER_SHARE, D, gen), D),
+        ("free slots (2 keys)", st["active"].to(torch.int32), 1),
+        ("balancer candidates, 33 keys (2S+1, S=16 at 8 ranks)",
+         torch.randint(0, 34, (n,), generator=gen, device=dev, dtype=torch.int32), 33),
+        ("all one key", torch.zeros(n, dtype=torch.int32, device=dev), 3),
+        ("no leaver", torch.full((n,), D, dtype=torch.int32, device=dev), D),
+        ("every slot leaving",
+         torch.randint(0, D, (n,), generator=gen, device=dev, dtype=torch.int32), D),
+        ("N = 1", torch.zeros(1, dtype=torch.int32, device=dev), 1),
+        ("N = 1023 (one ragged tile)",
+         torch.randint(0, 3, (1023,), generator=gen, device=dev, dtype=torch.int32), 2),
+    ]
+    for what, key, K in cases:
+        compare_bits("rank_in_key", what, ex.rank_in_key(key, K),
+                     ex.rank_in_key_plain(key, K), results)
+        compare_bits("rank_in_key", what + ", counts only",
+                     ex.rank_in_key(key, K, ranks=False)[1],
+                     ex.rank_in_key_plain(key, K, ranks=False)[1], results)
+    for bad in (torch.tensor([0, D + 1], dtype=torch.int32, device=dev),
+                torch.tensor([-1], dtype=torch.int32, device=dev)):
+        try:
+            ex.rank_in_key(bad, D)
+        except ValueError as e:
+            log(f"[c] rank_in_key refuses a key outside [0, {D}]: {e}")
+        else:
+            raise AssertionError("rank_in_key took a key outside its range")
+    lib = _build.lib()
+    for what, key, K in cases[:3]:
+        tiles = lib.pp_rank_in_key_tiles(n)
+        rank = torch.empty(n, dtype=torch.int32, device=dev)
+        counts = torch.empty(K + 2, dtype=torch.int32, device=dev)
+        scratch = torch.empty((K + 2) * tiles, dtype=torch.int32, device=dev)
+        args = [ex._ptr(key), n, K + 1, ex._ptr(rank), ex._ptr(counts), ex._ptr(scratch)]
+        time_pair("rank_in_key", what,
+                  lambda: lib.pp_rank_in_key(*args, ex._stream()),
+                  lambda: ex.rank_in_key_plain(key, K), results)
+        # the keys read, the ranks written (the tile pass and the rank pass
+        # read the keys twice: counted once)
+        record_bound("rank_in_key", what, results, nbytes(key, rank, counts))
+    results["rank_in_key"]["extra"]["library"] = "none: no one PyTorch call ranks within a key"
+
+
+def check_pack_send(results: dict, dev, gen, lpp, D: int, cap: int) -> None:
+    import numpy as np
+
+    from pumipic_torch.kernels import _build
+    from pumipic_torch.ops import exchange as ex
+
+    E = int(lpp.elem_gid.shape[0])
+    lib = _build.lib()
+    cases = []
+    st = exchange_state(X_SLOTS, gen, dev, E)
+    cases.append(("leavers of the 120k arm's step (main)", st,
+                  exchange_keys(st, X_LEAVER_SHARE, D, gen), cap))
+    odd = exchange_state(X_SLOTS, gen, dev, E, odd=True)
+    cases.append(("NaN, -0.0, subnormal payloads", odd,
+                  exchange_keys(odd, X_LEAVER_SHARE, D, gen), cap))
+    cases.append(("no leaver", st, torch.full((X_SLOTS,), D, dtype=torch.int32, device=dev),
+                  cap))
+    cases.append(("every slot leaving", st, torch.randint(
+        0, D, (X_SLOTS,), generator=gen, device=dev, dtype=torch.int32), X_SLOTS))
+    cases.append(("a bucket over cap", st, exchange_keys(st, 0.5, D, gen), cap))
+    for what, s, key, c in cases:
+        rank, counts = ex.rank_in_key(key, D)
+        quota = torch.clamp(counts[:D], max=c)
+        rows = quota.tolist()
+        new_elem = torch.where(s["active"], s["elem"], -1)
+        args = (s, key, rank, counts, quota, rows, c, new_elem, lpp.elem_gid)
+        got, want = ex.pack_send(*args), ex.pack_send_plain(*args)
+        compare_bits("pack_send", what, got[:4], want[:4], results)
+        if what.endswith("(main)"):
+            fs, width = ex.payload_layout(s)
+            offsets = torch.as_tensor(np.cumsum([0] + rows[:-1]), device=dev)
+            send = torch.empty((sum(rows), width), dtype=torch.int32, device=dev)
+            kept, leaving = (torch.empty(X_SLOTS, dtype=torch.bool, device=dev)
+                             for _ in range(2))
+            over = torch.empty((), dtype=torch.bool, device=dev)
+            m, srcs, _, lanes, is_bool, _ = ex._fields(s, fs)
+            time_pair("pack_send", what, lambda: lib.pp_pack_send(
+                ex._ptr(key), ex._ptr(rank), X_SLOTS, D, ex._ptr(quota), c,
+                ex._ptr(offsets), ex._ptr(new_elem), ex._ptr(lpp.elem_gid), m, srcs, lanes,
+                is_bool, width, ex._ptr(send), ex._ptr(kept), ex._ptr(leaving),
+                ex._ptr(counts), ex._ptr(over), ex._stream()),
+                lambda: ex.pack_send_plain(*args), results)
+            L = sum(rows)
+            # keys and ranks read, kept and leaving written; each admitted
+            # leaver's element, gid and fields read and its row written
+            record_bound("pack_send", what, results,
+                         nbytes(key, rank, kept, leaving) + L * (4 + 4 + 4 * (width - 1))
+                         + nbytes(send))
+            log(f"[c] pack_send {what}: {L} admitted leavers of {X_SLOTS} slots, "
+                f"{width} lanes a row")
+    results["pack_send"]["extra"]["library"] = "none: no one PyTorch call packs the rows"
+
+
+def check_place_arrivals(results: dict, dev, gen, lpp, D: int, cap: int) -> None:
+    from pumipic_torch.kernels import _build
+    from pumipic_torch.ops import exchange as ex
+
+    E = int(lpp.elem_gid.shape[0])
+    lib = _build.lib()
+    gs, gp = lpp.elem_gid_sorted, lpp.elem_gid_perm
+
+    def arrivals(s, share):
+        key = exchange_keys(s, share, D, gen)
+        rank, counts = ex.rank_in_key(key, D)
+        quota = torch.clamp(counts[:D], max=cap)
+        new_elem = torch.where(s["active"], s["elem"], -1)
+        send, _, leaving, _, fs = ex.pack_send(s, key, rank, counts, quota, quota.tolist(),
+                                               cap, new_elem, lpp.elem_gid)
+        return send, leaving, new_elem, fs
+
+    st = exchange_state(X_SLOTS, gen, dev, E)
+    recv, leaving, new_elem, fs = arrivals(st, X_LEAVER_SHARE)
+    staying = st["active"] & ~leaving
+    odd = exchange_state(X_SLOTS, gen, dev, E, odd=True)
+    orecv, oleaving, onew, _ = arrivals(odd, X_LEAVER_SHARE)
+    n_free = int((~staying).sum())
+    over = recv[torch.randint(0, recv.shape[0], (n_free + n_free // 3,), generator=gen,
+                              device=dev)]
+    unres = recv.clone()
+    unres[:, 0] = 10**9 + torch.arange(recv.shape[0], dtype=torch.int32, device=dev)
+    mixed = recv.clone()
+    pick = torch.rand(recv.shape[0], generator=gen, device=dev)
+    mixed[:, 0] = torch.where(pick < 0.02, -1, torch.where(pick < 0.04, 10**9, recv[:, 0]))
+    cases = [("the 120k arm's arrivals (main)", st, staying, new_elem, recv),
+             ("NaN, -0.0, subnormal payloads", odd, odd["active"] & ~oleaving, onew, orecv),
+             ("arrivals beyond the free slots", st, staying, new_elem, over),
+             ("absent and unresolved gids among them", st, staying, new_elem, mixed),
+             ("all unresolved", st, staying, new_elem, unres),
+             ("no arrival", st, staying, new_elem, recv[:0]),
+             ("every slot free", st, torch.zeros_like(staying), new_elem, recv)]
+    for what, s, stay, ne, rv in cases:
+        args = (s, stay, ne, rv, fs, gs, gp)
+        got, want = ex.place_arrivals(*args), ex.place_arrivals_plain(*args)
+        compare_bits("place_arrivals", what, got, want, results)
+        log(f"[c] place_arrivals {what}: {rv.shape[0]} rows, num_recv {int(got[1])}, "
+            f"unresolved {int(got[2])}, recv overflow {bool(got[3])}")
+        if what.endswith("(main)"):
+            free_rank, free_counts = ex.rank_in_key(stay.to(torch.int32), 1)
+            m, width = rv.shape
+            outs = {k: torch.empty_like(s[k]) for k in fs}
+            elem = torch.empty(X_SLOTS, dtype=torch.int32, device=dev)
+            active = torch.empty(X_SLOTS, dtype=torch.bool, device=dev)
+            stats = torch.empty(2, dtype=torch.int32, device=dev)
+            ovf = torch.empty((), dtype=torch.bool, device=dev)
+            scratch = torch.empty(2 * m, dtype=torch.int32, device=dev)
+            k, srcs, dsts, lanes, is_bool, offs = ex._fields(s, fs, outs)
+            time_pair("place_arrivals", what, lambda: lib.pp_place_arrivals(
+                ex._ptr(stay), ex._ptr(ne), ex._ptr(free_rank), ex._ptr(free_counts),
+                X_SLOTS, ex._ptr(rv), m, width, ex._ptr(gs), ex._ptr(gp), gs.shape[0], k,
+                srcs, dsts, lanes, is_bool, offs, ex._ptr(scratch), ex._ptr(stats),
+                ex._ptr(ovf), ex._ptr(elem), ex._ptr(active), ex._stream()),
+                lambda: ex.place_arrivals_plain(*args), results)
+            n_stay = int(stay.sum())
+            # the masks, elements and free ranks read, the stayers' fields
+            # and the arrival rows read, the gid table once; every output
+            # written
+            record_bound("place_arrivals", what, results,
+                         nbytes(stay, ne, free_rank, rv, gs, gp, elem, active)
+                         + n_stay * 4 * (width - 1) + sum(nbytes(o) for o in outs.values()))
+            slots = torch.nonzero(~stay).flatten()[:m]
+            buf = torch.zeros((X_SLOTS, width), dtype=torch.int32, device=dev)
+            record_library("place_arrivals", what, "index_copy_ of the arrival rows",
+                           lambda: buf.index_copy_(0, slots, rv[:slots.shape[0]]), results)
+
+
+def check_owner_reduce(results: dict, dev, gen, lpp) -> None:
+    from pumipic_torch.kernels import _build
+    from pumipic_torch.ops import exchange as ex
+
+    send_ids, recv_ids = lpp.vert_send_ids, lpp.vert_recv_ids
+    V = int(lpp.vert_gid.shape[0])
+    R, K = send_ids.shape
+    lib = _build.lib()
+
+    def halves(shape, nan=False, negzero=False):
+        v = torch.randint(-40, 40, shape, generator=gen, device=dev).to(torch.float32) / 2
+        if negzero:
+            v = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.1, -0.0, v)
+        if nan:
+            v = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.03,
+                            float("nan"), v)
+        return v
+
+    def ints(shape):
+        return torch.randint(-1000, 1000, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    cases = [("sum, the field of the 120k arm (main)", "sum", halves((V,), negzero=True),
+              halves((R, K), negzero=True)),
+             ("sum with NaN", "sum", halves((V,), nan=True), halves((R, K), nan=True)),
+             ("max with NaN", "max", halves((V,), nan=True), halves((R, K), nan=True)),
+             ("min", "min", halves((V,)), halves((R, K))),
+             ("sum i32", "sum", ints((V,)), ints((R, K))),
+             ("max i32", "max", ints((V,)), ints((R, K))),
+             ("sum (V, 3)", "sum", halves((V, 3), negzero=True), halves((R, K, 3),
+                                                                         negzero=True))]
+    for what, op, f, rv in cases:
+        nan = "NaN" in what
+        fill = ex.neutral(op, f.dtype)
+        compare_bits("owner_reduce", "gather, " + what, ex.owner_gather(f, send_ids, fill),
+                     ex.owner_gather_plain(f, send_ids, fill), results, nan)
+        compare_bits("owner_reduce", "fan-in, " + what, ex.owner_fan_in(f, rv, recv_ids, op),
+                     ex.owner_fan_in_plain(f, rv, recv_ids, op), results, nan)
+        compare_bits("owner_reduce", "fan-out, " + what, ex.owner_fan_out(f, rv, send_ids),
+                     ex.owner_fan_out_plain(f, rv, send_ids), results, nan)
+    _, _, f, rv = cases[0]
+    offsets, rows = ex._cached_map(recv_ids, V, ex.fan_in_csr)
+    row_of = ex._cached_map(send_ids, V, ex.fan_out_rows)
+    out, back = torch.empty_like(f), torch.zeros_like(rv)
+    what = cases[0][0]
+    time_pair("owner_reduce", "fan-in, " + what, lambda: lib.pp_owner_fan_in(
+        ex._ptr(f), ex._ptr(rv), 1, V, ex._ptr(offsets), ex._ptr(rows), 0, 0, 0,
+        ex._ptr(out), ex._ptr(back), ex._stream()),
+        lambda: ex.owner_fan_in_plain(f, rv, recv_ids, "sum"), results)
+    # the received rows, the field and the CSR read; the field and the
+    # rows sent back written
+    record_bound("owner_reduce", "fan-in, " + what, results,
+                 nbytes(rv, f, offsets, rows, out, back))
+    keys = torch.where(recv_ids >= 0, recv_ids, V).reshape(-1).long()
+    contrib = torch.zeros(V + 1, device=dev)
+    record_library("owner_reduce", "fan-in, " + what, "index_add_ of the R·K rows",
+                   lambda: contrib.index_add_(0, keys, rv.reshape(-1)), results)
+    gathered = torch.empty((R, K), device=dev)
+    time_pair("owner_reduce", "gather, " + what, lambda: lib.pp_owner_gather(
+        ex._ptr(f), 1, ex._ptr(send_ids), R * K, 0, ex._ptr(gathered), ex._stream()),
+        lambda: ex.owner_gather_plain(f, send_ids, 0.0), results)
+    record_bound("owner_reduce", "gather, " + what, results,
+                 nbytes(send_ids, gathered) + int((send_ids >= 0).sum()) * 4)
+    fout = torch.empty_like(f)
+    time_pair("owner_reduce", "fan-out, " + what, lambda: lib.pp_owner_fan_out(
+        ex._ptr(f), ex._ptr(rv), 1, V, ex._ptr(row_of), ex._ptr(fout), ex._stream()),
+        lambda: ex.owner_fan_out_plain(f, rv, send_ids), results)
+    record_bound("owner_reduce", "fan-out, " + what, results,
+                 nbytes(f, row_of, fout) + int((send_ids >= 0).sum()) * 4)
+    log(f"[c] owner_reduce: V {V}, (R, K) = ({R}, {K}), {int((recv_ids >= 0).sum())} "
+        f"received and {int((send_ids >= 0).sum())} sent rows")
+
+
+def check_exchange(results: dict, dev) -> None:
+    """X1, X2, X3 and O against their plain versions at the 4-rank 120k
+    arm's per-rank size (3.75M slots, 2.5M particles, its leaver share; rank
+    0's picpart, its gid table and vertex exchange tables, 12-layer
+    buffer) and on the adversarial inputs, then timed on the device alone
+    (the launchers called directly: the wrappers' checks read the device)."""
+    t0 = time.perf_counter()
+    lpp = exchange_picpart(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(X_SEED)
+    D, cap = X_RANKS - 1, X_SLOTS // 8
+    for name in ("rank_in_key", "pack_send", "place_arrivals", "owner_reduce"):
+        results[name].setdefault("extra", {})
+    check_rank_in_key(results, dev, gen, D)
+    check_pack_send(results, dev, gen, lpp, D, cap)
+    check_place_arrivals(results, dev, gen, lpp, D, cap)
+    check_owner_reduce(results, dev, gen, lpp)
+    log(f"[c] exchange kernels checked in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+
 def phase_c(results: dict, dev, smi: str):
     """Returns the 120k mesh, its cartesian grid and the band grid built
     here (phase d reuses them), and the band grid's build seconds."""
@@ -1774,6 +2147,7 @@ def phase_c(results: dict, dev, smi: str):
     check_pps3d_slices(dev)
     check_gitr_slices(dev)
     torch.cuda.empty_cache()
+    check_exchange(results, dev)
     return mesh, grid, band_grid, band_s, grid3d, gitr_mesh
 
 
@@ -2044,6 +2418,17 @@ E_BUFFER = 12
 # kernels each rank of an arm launches (from its setup on), by name
 E_WALK = ("push", "locate", "histogram", "deposit")
 E_ANALYTIC = ("push", "annulus_locate", "locate", "histogram", "deposit")
+# launches a step of each rank, by name, of the exchange kernels: X1 for
+# the buckets, the free slots, the balancer's two weight counts and its
+# candidates; X2 and X3 once; O's gather, fan-in and fan-out.  One rank
+# migrates nothing (the comm-size-1 path) and has no balancer.
+E_EXCHANGE = {"rank_in_key": 5, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 3}
+E_ONE_RANK = {"owner_reduce": 3}
+# rank 0 of the 4-rank 120k arm with the exchange and the reduction as
+# torch ops (PERF.md §5, 3-layer buffer): device busy and the stream's
+# split, ms a step
+E_TORCH_OPS = {"busy": 10.76, "compute": 1.43, "collective": 18.20, "glue": 30.70,
+          "other": 1.50}
 E_DEVICE = "cuda"        # "cpu" rehearses the phase with the plain versions
 E_WALK_TOL = 1e-5        # analytic against walk: |alive|, |sent| differences
 
@@ -2057,20 +2442,28 @@ def e_launch(target: str, n: int, kwargs: dict, backend: str = "gloo",
                         timeout=timeout)
 
 
-def e_tally(results: dict, name: str, ranks: list, expected, walk_steps: int) -> None:
-    """Require each rank's launch set to be ``expected`` and its L launches
-    to be the setup's gyro-map walk plus, on a walk arm (``walk_steps`` >
-    0), at least one local search in each of ``walk_steps`` steps; add the
-    counts to the kernels' launches."""
+def e_tally(results: dict, name: str, ranks: list, expected, walk_steps: int,
+            exchange=None, steps: int = 1 + E_STEPS) -> None:
+    """Require each rank's launch set to be ``expected`` and the exchange
+    kernels (``exchange``: launches a step, default :data:`E_EXCHANGE`),
+    those to be launched ``steps`` times their count a step, and its L
+    launches to be the setup's gyro-map walk plus, on a walk arm
+    (``walk_steps`` > 0), at least one local search in each of
+    ``walk_steps`` steps; add the counts to the kernels' launches."""
+    exchange = E_EXCHANGE if exchange is None else exchange
     for r, out in enumerate(ranks):
         counts = out["launches"]
         launched = {k for k, v in counts.items() if v > 0}
         log(f"[e] {name} rank {r} kernel launches: "
             f"{ {k: v for k, v in counts.items() if v} }")
         if E_DEVICE == "cuda":
-            if launched != set(expected):
+            if launched != set(expected) | set(exchange):
                 raise AssertionError(f"{name} rank {r} launched {sorted(launched)}, "
-                                     f"expected {sorted(expected)}")
+                                     f"expected {sorted(set(expected) | set(exchange))}")
+            for k, per_step in exchange.items():
+                if counts[k] != per_step * steps:
+                    raise AssertionError(f"{name} rank {r}: {counts[k]} {k} launches, "
+                                         f"want {per_step} in each of {steps} steps")
             n_l = counts.get("locate", 0)
             if (n_l < 1 + walk_steps) if walk_steps else (n_l != 1):
                 raise AssertionError(
@@ -2148,6 +2541,41 @@ def e_check_run(name: str, ranks: list, num_ptcls: int) -> None:
         f"owned sum equal to the deposit (exact)")
 
 
+def e_profile_rank(knobs: dict, steps: int) -> dict:
+    """One rank of a picparts arm (``bench_torch.setup_picparts`` with
+    ``knobs``): a warm-up step, ``steps`` steps for the wall time and the
+    stream's split (``group.SplitTimer``), then ``steps`` more under
+    torch.profiler: device busy ms a step and the kernels' device ms."""
+    import bench_torch
+    from pumipic_torch.parallel import group
+
+    dev = group.device()
+    _, state, step, _ = bench_torch.setup_picparts(dev, **knobs)
+    state, _ = step(state)
+    torch.cuda.synchronize()
+    timer = group.SplitTimer()
+    group.set_split_timer(timer)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    split = {k: v / steps for k, v in timer.totals().items()}
+    group.set_split_timer(None)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+    kern = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key.split("(")[0]
+            kern[name] = kern.get(name, 0.0) + ev.self_device_time_total / 1e3 / steps
+    return {"wall_ms": wall, "split": split, "busy_ms": sum(kern.values()),
+            "kernels": dict(sorted(kern.items(), key=lambda kv: -kv[1])[:14])}
+
+
 def e_series(ranks: list):
     return [(int(st["alive"]), int(st["sent"])) for st, _, _ in ranks[0]["history"]]
 
@@ -2174,39 +2602,60 @@ def phase_e(results: dict, dev, grid, smi: str) -> None:
     e_check_run("arm 1 (120k picparts)", ranks, NUM_PTCLS)
     e_report("arm 1 (120k picparts)", ranks, smi)
     del ranks
+    if E_DEVICE == "cuda":
+        # rank 0's device busy and stream split on arm 1's knobs, beside the
+        # torch-op exchange's
+        knobs = {k: v for k, v in base.items() if k != "iters"}
+        prof = e_launch("chip_smoke:e_profile_rank", E_RANKS,
+                        {"knobs": knobs, "steps": E_STEPS})[0]
+        log(f"[e] arm 1 rank 0 profiled ({E_STEPS} steps): wall {prof['wall_ms']:.3f} ms, "
+            f"device busy {prof['busy_ms']:.3f} ms a step (torch ops: {E_TORCH_OPS['busy']}, "
+            f"3-layer buffer); split "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(prof["split"].items()))
+            + f" (torch ops: {E_TORCH_OPS}) [{E_LABEL}; {smi}]")
+        log(f"[e] arm 1 rank 0 kernels, device ms a step: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in prof["kernels"].items()))
 
     # 2: world size 1 over NCCL
     ranks = e_launch("bench_torch:picparts_rank", 1, base, backend="nccl")
-    e_tally(results, "arm 2 (120k, 1 rank, nccl)", ranks, E_WALK, 1 + E_STEPS)
+    e_tally(results, "arm 2 (120k, 1 rank, nccl)", ranks, E_WALK, 1 + E_STEPS,
+            exchange=E_ONE_RANK)
     e_check_run("arm 2 (120k, 1 rank, nccl)", ranks, NUM_PTCLS)
     e_report("arm 2 (120k, 1 rank, nccl)", ranks, smi)
     del ranks
 
     # 3: the annulus: analytic with the banded route, neighbour against
-    # world exchange, and against the walk
+    # world exchange, against the walk, and over 2 slices of 2 ranks (the
+    # two-stage route for the payload and the reduction)
     ann = dict(base, mesh_path="annulus", mesh_elems=ANNULUS_ELEMS)
-    runs = [ann, dict(ann, neighbor_migration=False), dict(ann, analytic_locate="off")]
+    runs = [ann, dict(ann, neighbor_migration=False), dict(ann, analytic_locate="off"),
+            dict(ann, slices=2)]
     out = e_launch("bench_torch:picparts_runs", E_RANKS, {"runs": runs})
     arms = {}
     for i, (name, expected, walks) in enumerate((("neighbour", E_ANALYTIC, 0),
                                                  ("world", E_ANALYTIC, 0),
-                                                 ("walk", E_WALK, 1 + E_STEPS))):
+                                                 ("walk", E_WALK, 1 + E_STEPS),
+                                                 ("2 x 2 slices", E_ANALYTIC, 0))):
         ranks = [o[i] for o in out]
         arms[name] = ranks
         e_tally(results, f"arm 3 (annulus, {name})", ranks, expected, walks)
         e_check_run(f"arm 3 (annulus, {name})", ranks, NUM_PTCLS)
         e_report(f"arm 3 (annulus, {name})", ranks, smi)
-    for r in range(E_RANKS):
-        for (_, fa, _), (_, fb, _) in zip(arms["neighbour"][r]["history"],
-                                          arms["world"][r]["history"]):
-            if not torch.equal(fa, fb):
-                raise AssertionError(f"arm 3: rank {r}'s field differs between the "
-                                     f"neighbour and the world exchange")
-    a, w, k = (e_series(arms[n]) for n in ("neighbour", "world", "walk"))
-    log(f"[e] arm 3 (alive, sent) per step: neighbour {a}, world {w}, walk {k}")
-    if a != w:
-        raise AssertionError("arm 3: alive/sent differ between the neighbour and "
-                             "the world exchange")
+    for other in ("world", "2 x 2 slices"):
+        for r in range(E_RANKS):
+            for (_, fa, _), (_, fb, _) in zip(arms["neighbour"][r]["history"],
+                                              arms[other][r]["history"]):
+                if not torch.equal(fa.view(torch.int32), fb.view(torch.int32)):
+                    raise AssertionError(f"arm 3: rank {r}'s field differs between the "
+                                         f"neighbour arm and the {other} arm")
+    a, w, k, h = (e_series(arms[n]) for n in ("neighbour", "world", "walk", "2 x 2 slices"))
+    log(f"[e] arm 3 (alive, sent) per step: neighbour {a}, world {w}, walk {k}, "
+        f"2 x 2 slices {h}")
+    if a != w or a != h:
+        raise AssertionError("arm 3: alive/sent differ between the neighbour, the world "
+                             "and the sliced exchange")
+    log("[e] arm 3: the world exchange and the 2 x 2 slices (hier) equal the neighbour "
+        "exchange bit for bit: every rank's field every step, alive, sent")
     # the analytic locate and the walk disagree on a few particles within
     # an ulp of a side (the JAX package's own two arms give the port's
     # counts at 1M particles, scripts/annulus_arms_cpu.py): held to
@@ -2227,7 +2676,8 @@ def phase_e(results: dict, dev, grid, smi: str) -> None:
     ranks = e_launch("bench_torch:dp_rank", E_RANKS, dict(dp, locator=cpu_grid))
     log(f"[e] arm 4 (FULL mode, {E_RANKS} ranks): {time.perf_counter() - t0:.2f} s "
         f"with setup; setup seconds rank 0: {ranks[0]['setup_s']}")
-    e_tally(results, "arm 4 (FULL mode)", ranks, ("push", "locate", "histogram", "deposit"), 1)
+    e_tally(results, "arm 4 (FULL mode)", ranks, ("push", "locate", "histogram", "deposit"), 1,
+            exchange={})
     from pumipic_torch import kernels
 
     _, state, step, _ = bench_torch.setup(dev, locator=grid, **dp)

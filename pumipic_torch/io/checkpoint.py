@@ -1,5 +1,5 @@
-"""Checkpoint / resume of particle state (port of the particle and structure
-parts of ``pumipic_tpu.io.checkpoint``).
+"""Checkpoint / resume of picparts and particle state (port of
+``pumipic_tpu.io.checkpoint``).
 
 Reference parity: ``pumipic::write/read`` (``src/pumipic_file.cpp:46-207``)
 persists picparts; particle state is not checkpointed by the reference
@@ -8,15 +8,16 @@ package's format, one compressed ``.npz`` per artifact: the state arrays
 as ``f.<name>`` and a JSON sidecar ``__meta__`` (format version, step,
 field names) as uint8, so that a file written by either package is read by
 the other.  A particle structure adds its layout and padding settings as
-the ``__layout__`` entry and is rebuilt in that layout on read.
-
-Picparts (``write_picparts``/``read_picparts``) wait for the port's
-picparts.
+the ``__layout__`` entry and is rebuilt in that layout on read.  Picparts
+go to ``<prefix>_<R>.ppm.npz`` (the reference's ``.ppm`` name) as the JAX
+package stacks them: its (R, ...) tables as ``pp.<name>``, every rank's
+mesh padded to the largest as ``mesh.<field>`` (padded walk rows inert, as
+its ``_pad_stack_meshes`` pads them) and the sizes in ``__meta__``.
 """
 from __future__ import annotations
 
 import json
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +32,105 @@ def _host(v) -> np.ndarray:
 def _json_bytes(obj) -> np.ndarray:
     return np.frombuffer(json.dumps(obj).encode(), dtype=np.uint8)
 
+
+# ---------------------------------------------------------------------------
+# picparts
+# ---------------------------------------------------------------------------
+
+# each mesh field's row count ("elem", "vert", "side", "v2e" or "offsets")
+# and pad value, as the JAX package's _pad_stack_meshes pads them
+_MESH_PAD = {
+    "coords": ("vert", 0), "elem2verts": ("elem", 0), "side_is_exposed": ("side", True),
+    "elem_v0": ("elem", 0), "elem_inv_basis": ("elem", 0),
+    "vert2elem_offsets": ("offsets", None), "vert2elem_vals": ("v2e", 0),
+    "class_id": ("elem", -1), "walk_geom": ("elem", None),
+    "elem2edges": ("elem", 0), "edge2verts": ("side", 0), "edge2elems": ("side", -1),
+    "elem_area": ("elem", 0), "elem2faces": ("elem", 0), "face2verts": ("side", 0),
+    "face2elems": ("side", -1), "elem_volume": ("elem", 0), "walk_planes": ("elem", None),
+}
+# inert padded walk rows: never "inside", every neighbour -1
+_WALK_PAD = {("walk_geom", 2): [0, 0, -1, 0, 0, -1] + [-1] * 6,
+             ("walk_geom", 3): [0, 0, 0, -1] * 3 + [-1] * 4,
+             ("walk_planes", 3): [1, 0, 0, -1e30, -1, 0, 0, -1e30,
+                                  0, 0, 0, -1e30, 0, 0, 0, -1e30] + [-1] * 4}
+
+
+def _rank_sizes(tables: Dict[str, np.ndarray], r: int, offsets=None) -> Dict[str, int]:
+    n = {k: int((tables[f"{k}_gid"][r] >= 0).sum()) for k in ("elem", "vert", "side")}
+    n["offsets"] = n["vert"] + 1
+    if offsets is not None:
+        n["v2e"] = int(offsets[r][n["vert"]])
+    return n
+
+
+def write_picparts(prefix: str, pp) -> str:
+    """Persist a :class:`~pumipic_torch.parallel.picparts.PicParts` to
+    ``<prefix>_<R>.ppm.npz`` in the JAX package's layout (it reads the file
+    with its ``read_picparts``); returns the path."""
+    from pumipic_torch.mesh.core import Mesh2D, Mesh3D
+
+    R = pp.num_ranks
+    path = f"{prefix}_{R}.ppm.npz"
+    cls = Mesh2D if pp.dim == 2 else Mesh3D
+    meshes = [cls.from_numpy(a, "cpu") for a in pp.mesh_arrays]
+    arrays = {f"pp.{k}": v for k, v in pp.tables.items()}
+    arrays["pp.elem_safe"] = np.asarray(pp.elem_safe, bool)
+    E = max(int(m.nelems) for m in meshes)
+    V = max(int(m.nverts) for m in meshes)
+    S = max(int(m.nedges if pp.dim == 2 else m.nfaces) for m in meshes)
+    rows = {"elem": E, "vert": V, "side": S, "offsets": V + 1,
+            "v2e": max(int(m.vert2elem_vals.shape[0]) for m in meshes)}
+    for name, (kind, fill) in _MESH_PAD.items():
+        if not hasattr(meshes[0], name):
+            continue
+        stack = []
+        for m in meshes:
+            a = getattr(m, name).numpy()
+            if fill is None and kind == "offsets":
+                pad = np.full((rows[kind] - a.shape[0],), a[-1], a.dtype)
+            elif fill is None:
+                row = np.asarray(_WALK_PAD[name, pp.dim], a.dtype)
+                pad = np.broadcast_to(row, (rows[kind] - a.shape[0], row.shape[0]))
+            else:
+                pad = np.full((rows[kind] - a.shape[0],) + a.shape[1:], fill, a.dtype)
+            stack.append(np.concatenate([a, pad]))
+        arrays[f"mesh.{name}"] = np.stack(stack)
+    meta = {"version": FORMAT_VERSION, "num_ranks": R, "num_core_elems": pp.num_core_elems,
+            "dim": pp.dim, "nelems": E, "nverts": V, "nsides": S}
+    arrays["__meta__"] = _json_bytes(meta)
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def read_picparts(path: str):
+    """The :class:`~pumipic_torch.parallel.picparts.PicParts` of a file
+    ``write_picparts`` (of either package) wrote: its tables, ``elem_safe``
+    and each rank's mesh arrays, the padding cut off."""
+    from pumipic_torch.parallel.picparts import PicParts
+
+    data = np.load(path)
+    meta = json.loads(bytes(data["__meta__"]).decode())
+    if meta["version"] > FORMAT_VERSION:
+        raise ValueError(f"checkpoint version {meta['version']} newer than "
+                         f"supported {FORMAT_VERSION}")
+    tables = {k[3:]: np.ascontiguousarray(data[k], np.int32) for k in data.files
+              if k.startswith("pp.") and k != "pp.elem_safe"}
+    mesh = {k[5:]: data[k] for k in data.files if k.startswith("mesh.")}
+    R = meta["num_ranks"]
+    mesh_arrays: List[dict] = []
+    for r in range(R):
+        n = _rank_sizes(tables, r, mesh["vert2elem_offsets"])
+        mesh_arrays.append({name: np.ascontiguousarray(a[r][:n[_MESH_PAD[name][0]]])
+                            for name, a in mesh.items()})
+    return PicParts(num_ranks=R, dim=meta["dim"], tables=tables,
+                    elem_safe=np.asarray(data["pp.elem_safe"], bool),
+                    mesh_arrays=mesh_arrays, nelems=meta["nelems"], nverts=meta["nverts"],
+                    num_core_elems=meta["num_core_elems"])
+
+
+# ---------------------------------------------------------------------------
+# particle state
+# ---------------------------------------------------------------------------
 
 def write_particles(path: str, state: Dict[str, object], step: int = 0) -> str:
     """Persist a flat particle-state dict (tensors or arrays; a particle

@@ -120,6 +120,22 @@ SIGNATURES = {
     "pp_deposit_rings_er": [_P, _P, _P, _I, _I, _P, _P],
     "pp_deposit_mapped": [_P, _P, _P, _I, _I, _P, _P],
     "pp_row_gather": [_P, _L, _I, _P, _P, _P, _P],  # idx n_rows n_arrays srcs dsts widths stream
+    "pp_rank_in_key": [_P, _L, _I, _P, _P, _P, _P],  # key n n_keys rank counts scratch stream
+    "pp_rank_in_key_tiles": [_L],
+    "pp_pack_send": [
+        _P, _P, _L, _I, _P, _I, _P,          # key rank n n_buckets quota cap offsets
+        _P, _P, _I, _P, _P, _P,              # new_elem elem_gid n_fields srcs lanes is_bool
+        _I, _P, _P, _P, _P, _P, _P],         # width send kept leaving counts overflow stream
+    "pp_place_arrivals": [
+        _P, _P, _P, _P, _L,                  # staying new_elem free_rank free_counts n
+        _P, _L, _I, _P, _P, _I,              # recv m width gid_sorted gid_perm E
+        _I, _P, _P, _P, _P, _P,              # n_fields srcs dsts lanes is_bool offs
+        _P, _P, _P, _P, _P, _P],             # scratch stats overflow elem active stream
+    "pp_owner_gather": [_P, _I, _P, _L, ctypes.c_uint, _P, _P],  # field w ids n fill out stream
+    "pp_owner_fan_in": [
+        _P, _P, _I, _I, _P, _P, _I, _I,      # field recv w V offsets rows op is_int
+        ctypes.c_uint, _P, _P, _P],          # neutral out back stream
+    "pp_owner_fan_out": [_P, _P, _I, _L, _P, _P, _P],  # field back w V row_of out stream
     "pp_slot_map": [
         _I, _P, _P, _P, _I,                  # cabm order start offsets n_seg
         _P, _I, _I, _I, _L, _I,              # row_to_elem n_rows chunk E C M

@@ -274,7 +274,7 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
                            migrate_cap: Optional[int] = None, seed: int = 0,
                            use_lb: bool = True, lb_tol: float = 1.05,
                            neighbor_migration: bool = True, device=None,
-                           hier: bool = False):
+                           hier: Optional[bool] = None):
     """This rank's part of pseudoPushAndSearch over 3D picparts: per step
     the straight-line push, the tet search from the previous element (the
     walk, kernel L3's plain walk; on a proven Kuhn box with the remove wall
@@ -286,7 +286,9 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
 
     Returns (local picpart, structure, step) with ``step(ps) -> (ps,
     stats)``; ``stats`` as the 2D step's (overflow also covers the
-    layout)."""
+    layout).  ``hier`` (default: whether the group has slices) routes the
+    migration's payload through the two-stage exchange, equal bit for
+    bit."""
     from pumipic_torch.models.pseudo_xgcm import step_stats
     from pumipic_torch.parallel import balancer as lbm
     from pumipic_torch.parallel import distributor as dstm
@@ -295,7 +297,8 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
     from pumipic_torch.parallel import picparts as ppm
 
     check_config(cfg)
-    group.check_flat(hier)
+    if hier is None:
+        hier = group.slices() > 1
     R, me = group.num_ranks(), group.rank()
     device = group.device() if device is None else resolve_device(device)
     inp = ppm.PicPartsInput() if inp is None else inp
@@ -303,7 +306,11 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
     owners = ppm.partition_rcb(coords, tets, R)
     pp = ppm.build_picparts(coords, tets, owners, R, inp)
     bt = lbm.build_balancer(pp, R) if use_lb else None
-    nplan = (mig.build_neighbor_plan(dstm.from_picparts(pp))
+    # the JAX package's multi-slice schedule colours the edges within a
+    # slice first; the exchange reads only each rank's peers
+    slice_of_rank = (np.repeat(np.arange(group.slices()), R // group.slices())
+                     if hier else None)
+    nplan = (mig.build_neighbor_plan(dstm.from_picparts(pp), slice_of_rank)
              if neighbor_migration else None)
     lpp = pp.local_view(me, device)
     lmesh = lpp.mesh
@@ -395,7 +402,8 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
                                    noncore=noncore_p, num_ranks=R)
         ps2, mres = mig.migrate_structure(ps1, elem_ids, dest, lpp.elem_gid,
                                           lpp.elem_gid_sorted, lpp.elem_gid_perm,
-                                          me, R, migrate_cap, plan=nplan)
+                                          me, R, migrate_cap, plan=nplan,
+                                          hier=hier)
         with group.split("glue"):
             nloc = ps2.active.sum(dtype=torch.int32)
             if kuhn is not None:

@@ -650,7 +650,7 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
                         lb_tol: float = 1.05, neighbor_migration: bool = True,
                         cap_factor: float = 1.5, partition: str = "auto",
                         banded_route: str = "auto", device=None,
-                        hier: bool = False,
+                        hier: Optional[bool] = None,
                         timings: Optional[Dict[str, float]] = None):
     """This rank's part of pseudoXGCm over BFS-buffered picparts: per step
     push → local search → safe-zone migration (with the balancer where
@@ -669,7 +669,9 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
     on a proven annulus ("auto"/"force") the search is the global analytic
     locate (kernel A) with the banded route or one [g2l | route] row per
     particle; otherwise each rank's cartesian grid and walk (kernel L).
-    ``hier`` raises.
+    ``hier`` (default: whether the group has slices, ``group.set_slices``)
+    routes the migration's payload and the field's reduction through the
+    two-stage exchange, equal bit for bit.
 
     Returns (local picpart, state, gyro map, step) with ``step(state) ->
     (state, fwd, stats)``; ``fwd`` is the (V_local,) reduced field and
@@ -688,7 +690,8 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
     from pumipic_torch.parallel import reduce as red
 
     check_config(cfg)
-    group.check_flat(hier)
+    if hier is None:
+        hier = group.slices() > 1
     if banded_route not in ("auto", "off"):
         raise ValueError(f"unknown banded_route {banded_route!r}")
     timings = {} if timings is None else timings
@@ -715,7 +718,11 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
         raise ValueError(f"unknown partition {partition!r}")
     pp = ppm.build_picparts(coords, elem2verts, owners, R, inp, class_id)
     bt = lbm.build_balancer(pp, R) if use_lb else None
-    nplan = (mig.build_neighbor_plan(dstm.from_picparts(pp))
+    # the JAX package's multi-slice schedule colours the edges within a
+    # slice first; the exchange reads only each rank's peers
+    slice_of_rank = (np.repeat(np.arange(group.slices()), R // group.slices())
+                     if hier else None)
+    nplan = (mig.build_neighbor_plan(dstm.from_picparts(pp), slice_of_rank)
              if neighbor_migration else None)
     lpp = pp.local_view(me, device)
     lmesh = lpp.mesh
@@ -883,7 +890,8 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
                                    lb_tol, sbar_of_ptcl=sbar_p, noncore=noncore_p,
                                    num_ranks=R)
         mres = mig.migrate(mid, elem_ids, dest, lpp.elem_gid, lpp.elem_gid_sorted,
-                           lpp.elem_gid_perm, me, R, migrate_cap, plan=nplan)
+                           lpp.elem_gid_perm, me, R, migrate_cap, plan=nplan,
+                           hier=hier)
         s2 = mres.state
         with group.split("compute"):
             if gyro.per_particle_radius:
@@ -897,7 +905,7 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
                                                R_g, P_g, gyro.rmax)
         step.last_deposit = fwd
         fwd = red.reduce_comm_array(lpp.vert_send_ids, lpp.vert_recv_ids, fwd,
-                                    red.Op.SUM)
+                                    red.Op.SUM, hier=hier)
         with group.split("glue"):
             nloc = s2["active"].sum(dtype=torch.int32)
             if analytic is not None:

@@ -22,7 +22,8 @@ import torch
 
 from pumipic_torch import native
 from pumipic_torch.parallel import group
-from pumipic_torch.parallel.migrate import key_counts, key_starts
+from pumipic_torch.ops import exchange as ex
+from pumipic_torch.ops.exchange import key_counts
 
 
 @dataclass(frozen=True)
@@ -159,16 +160,8 @@ def _edge_intervals(bt: BalancerTables, flows: torch.Tensor, me: int, device):
 
 def rank_within_key(key: torch.Tensor, num_keys: int) -> torch.Tensor:
     """Stable rank of each item among the items of its key (key
-    ``num_keys``: ignored)."""
-    N = key.shape[0]
-    order = torch.argsort(key, stable=True)
-    sorted_key = key[order]
-    starts = key_starts(sorted_key, num_keys)
-    rank_sorted = (torch.arange(N, dtype=torch.int64, device=key.device)
-                   - starts[torch.clamp(sorted_key, max=num_keys).long()]).to(torch.int32)
-    out = torch.empty(N, dtype=torch.int32, device=key.device)
-    out[order] = rank_sorted
-    return out
+    ``num_keys``: ignored), kernel X1's."""
+    return ex.rank_in_key(key, num_keys)[0]
 
 
 def select_particles(bt: BalancerTables, flows: torch.Tensor, sbar, candidate,
@@ -184,8 +177,8 @@ def select_particles(bt: BalancerTables, flows: torch.Tensor, sbar, candidate,
         rank_in_sbar = rank_within_key(torch.where(is_cand, sbar, S), S)
     else:
         key2 = torch.where(is_cand, sbar * 2 + (~noncore).to(sbar.dtype), 2 * S)
-        rank2 = rank_within_key(key2, 2 * S)
-        n_noncore = key_counts(torch.where(is_cand & noncore, sbar, S), S)
+        rank2, counts2 = ex.rank_in_key(key2, 2 * S)
+        n_noncore = counts2[0:2 * S:2]     # key 2s: sbar s's non-core-bound
         sb_c = torch.clamp(sbar, min=0).long()
         rank_in_sbar = torch.where(is_cand & ~noncore, rank2 + n_noncore[sb_c], rank2)
     sb_c = torch.clamp(sbar, min=0).long()

@@ -15,20 +15,25 @@ format:
    alive and migrated equal to mode 1;
 2. FULL-mode particle parallelism (``make_dp_setup`` with its particles
    shared out over the group, fields summed), 1 step;
-3. 3D picparts (pseudoPushAndSearch, CSR, the balancer), 3 steps.
+3. 3D picparts (pseudoPushAndSearch, CSR, the balancer), 3 steps;
+4. mode 1 again over a ``("slice", "ranks")`` group of ``slices`` slices
+   (by default 2 where the ranks are 4 or more and even, as the JAX dry run
+   runs it): the migration's payload and the reduction take the two-stage
+   route, and alive, migrated and every rank's field equal mode 1's bit
+   for bit.
 
-Mode 4 (the multi-slice topology) waits for the hierarchical all_to_all
-(ROADMAP.md, queue 1).  With ``--device cuda`` the kernels are built once
-before the ranks start, and rank r takes card ``r % cards``.
+With ``--device cuda`` the kernels are built once before the ranks start,
+and rank r takes card ``r % cards``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 
 def _configs(n: int):
@@ -53,7 +58,12 @@ def _launches() -> Dict[str, int]:
     return out
 
 
-def _rank(n: int) -> dict:
+def default_slices(n: int) -> int:
+    """Mode 4's slices: 2 where the JAX dry run runs its mode 4, else none."""
+    return 2 if n >= 4 and n % 2 == 0 else 1
+
+
+def _rank(n: int, slices: int = 1) -> dict:
     """One rank's share of the dry run: each mode's stats, fields and
     kernel launches."""
     from pumipic_torch import kernels
@@ -87,6 +97,15 @@ def _rank(n: int) -> dict:
         ps3, st3 = step3(ps3)
         stats3.append({k: v.cpu() for k, v in st3.items()})
     out["picparts-3d"] = dict(stats=stats3, launches=_launches())
+    if slices > 1:
+        group.set_slices(slices)
+        _, state, _, step = px.make_picparts_setup(coords, tris, cls, cfg, use_lb=True)
+        stats = []
+        for _ in range(3):
+            state, fwd, st = step(state)
+            stats.append({k: v.cpu() for k, v in st.items()})
+        group.set_slices(1)
+        out["picparts-slices"] = dict(stats=stats, fwd=fwd, launches=_launches())
     return out
 
 
@@ -95,7 +114,7 @@ def _check(name: str, cond: bool, msg: str) -> None:
         raise AssertionError(f"{name}: {msg}")
 
 
-def summarize(n: int, ranks: list) -> dict:
+def summarize(n: int, ranks: list, slices: int = 1) -> dict:
     """Check the ranks' results as the JAX dry run does, print its lines
     and return the counts.  Beyond the JAX dry run's checks: every step's
     alive is the previous alive less its boundary exits and its particles
@@ -165,15 +184,34 @@ def summarize(n: int, ranks: list) -> dict:
     _check("picparts-3d", alive3 > 0 and sent3 > 0, "nothing alive or migrated")
     counts["picparts-3d"] = dict(alive=alive3, migrated=sent3)
     print(f"dryrun_multirank({n}) picparts-3d: alive={alive3}, migrated={sent3} OK")
+    if "picparts-slices" in ranks[0]:
+        mode = f"picparts-{slices}x{n // slices}-slices"
+        stats = ranks[0]["picparts-slices"]["stats"]
+        for st in stats:
+            for k in ("overflow", "unresolved", "illegal_dest"):
+                _check(mode, int(st[k]) == 0, f"{k} = {int(st[k])}")
+        alive = int(stats[-1]["alive"])
+        sent = sum(int(st["sent"]) for st in stats)
+        _check(mode, (alive, sent) == (counts["picparts"]["alive"],
+                                        counts["picparts"]["migrated"]),
+               "alive or migrated diverged from the flat group")
+        for r, out in enumerate(ranks):
+            _check(mode, torch.equal(out["picparts-slices"]["fwd"], out["picparts"]["fwd"]),
+                   f"rank {r}'s field diverged from the flat group")
+        counts[mode] = dict(alive=alive, migrated=sent)
+        print(f"dryrun_multirank({n}) {mode}: alive={alive}, migrated={sent}, "
+              f"bit-identical to flat OK")
     return counts
 
 
 def dryrun_multirank(n: int, device: str = "cuda", backend: str = "nccl",
-                     timeout: float = 900.0, workdir=None) -> dict:
+                     timeout: float = 900.0, workdir=None,
+                     slices: Optional[int] = None) -> dict:
     """Run the dry run as ``n`` rank processes; returns the counts of each
     mode and, under ``"ranks"``, each rank's results (its kernel launches
-    per mode under ``[mode]["launches"]``).  Raises when a rank fails, a
-    check fails or the run passes ``timeout`` seconds."""
+    per mode under ``[mode]["launches"]``).  ``slices``: mode 4's
+    (:func:`default_slices` by default; 1 skips it).  Raises when a rank
+    fails, a check fails or the run passes ``timeout`` seconds."""
     from pumipic_torch.parallel import group
 
     if device == "cuda":
@@ -181,10 +219,11 @@ def dryrun_multirank(n: int, device: str = "cuda", backend: str = "nccl",
 
         _build.build()
     t0 = time.perf_counter()
-    ranks = group.launch("pumipic_torch.parallel.dryrun:_rank", n, {"n": n},
-                         backend=backend, device=device, timeout=timeout,
-                         workdir=workdir)
-    counts = summarize(n, ranks)
+    slices = default_slices(n) if slices is None else slices
+    ranks = group.launch("pumipic_torch.parallel.dryrun:_rank", n,
+                         {"n": n, "slices": slices}, backend=backend, device=device,
+                         timeout=timeout, workdir=workdir)
+    counts = summarize(n, ranks, slices)
     counts["seconds"] = time.perf_counter() - t0
     counts["ranks"] = ranks
     return counts

@@ -6,9 +6,16 @@ own picpart and particles on its own device.  ``psum``/``pmax`` become
 ``all_reduce`` (or one ``all_gather`` reduced in rank order),
 ``all_gather`` stays ``all_gather``, and ``lax.all_to_all``/``ppermute``
 become ``all_to_all_single``: the three collectives that both NCCL and gloo
-take for CUDA tensors.  The backend is the caller's explicit choice
-(``nccl`` on the card, ``gloo`` for the CPU and for several ranks sharing
-one card); nothing switches backend or device after an error.
+take for CUDA tensors.  A group of ``slices`` slices (``init(slices=)`` or
+:func:`set_slices`: the JAX package's ``("slice", "ranks")`` mesh, flat
+rank ``slice · ranks_per_slice + r``) adds one sub-group per slice and one
+per rank coordinate, over which :func:`hier_all_to_all` and
+:func:`hier_ragged_all_to_all` route an exchange in two stages (within
+the slice by destination rank coordinate, then one exchange across the
+slices), equal to the flat exchange bit for bit.  The backend is the
+caller's explicit choice (``nccl`` on the card, ``gloo`` for the CPU and
+for several ranks sharing one card); nothing switches backend or device
+after an error.
 
 Without an initialized group the process is rank 0 of 1 and every
 collective is the identity.  :func:`launch` starts ``n`` rank processes
@@ -30,9 +37,10 @@ import torch
 import torch.distributed as dist
 
 _DEVICE: Optional[torch.device] = None
-_HIER_REFUSAL = ("the two-stage hierarchical all_to_all and the "
-                 "(\"slice\", \"ranks\") topology are not ported yet "
-                 "(ROADMAP.md, queue 1)")
+# the ("slice", "ranks") topology: slices, and per slice count the
+# sub-groups (this rank's slice, its rank coordinate across the slices)
+_SLICES = 1
+_SUBGROUPS: Dict[int, tuple] = {}
 
 
 def initialized() -> bool:
@@ -49,10 +57,26 @@ def num_ranks() -> int:
     return dist.get_world_size() if initialized() else 1
 
 
-def check_flat(hier: bool = False, slices: int = 1) -> None:
-    """Refuse the multi-slice topology and the hierarchical route."""
-    if hier or slices != 1:
-        raise NotImplementedError(_HIER_REFUSAL)
+def slices() -> int:
+    """Slices of the ``("slice", "ranks")`` topology (1: flat)."""
+    return _SLICES
+
+
+def set_slices(n: int) -> None:
+    """Split the group into ``n`` slices of consecutive ranks (every rank
+    calls it: the first call for an ``n`` creates the sub-groups); 1 makes
+    it flat again."""
+    global _SLICES
+    R = num_ranks()
+    if n < 1 or R % n:
+        raise ValueError(f"{R} ranks do not split into {n} slices")
+    if n > 1 and n not in _SUBGROUPS:
+        rs = R // n
+        me_slice, me_coord = divmod(rank(), rs)
+        by_slice = [dist.new_group(list(range(a * rs, (a + 1) * rs))) for a in range(n)]
+        by_coord = [dist.new_group(list(range(c, R, rs))) for c in range(rs)]
+        _SUBGROUPS[n] = (by_slice[me_slice], by_coord[me_coord])
+    _SLICES = n
 
 
 def init(backend: str, rank: Optional[int] = None,
@@ -64,9 +88,9 @@ def init(backend: str, rank: Optional[int] = None,
     ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``env://``).
     ``device``: ``"cpu"`` for the CPU, else ``cuda:<local rank % cards>``
     (``LOCAL_RANK``, or the rank) made the current CUDA device; without a
-    card that raises.  Returns the device (also :func:`device`)."""
+    card that raises.  ``slices``: :func:`set_slices`.  Returns the device
+    (also :func:`device`)."""
     global _DEVICE
-    check_flat(slices=slices)
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
     if rank is None:
@@ -88,6 +112,7 @@ def init(backend: str, rank: Optional[int] = None,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
     _DEVICE = dev
+    set_slices(slices)
     return dev
 
 
@@ -101,10 +126,12 @@ def device() -> torch.device:
 
 
 def finalize() -> None:
-    global _DEVICE
+    global _DEVICE, _SLICES
     if initialized():
         dist.destroy_process_group()
     _DEVICE = None
+    _SLICES = 1
+    _SUBGROUPS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +163,78 @@ def ragged_all_to_all(send: torch.Tensor, send_rows: List[int],
     with split("collective"):
         out = send.new_empty((sum(recv_rows),) + tuple(send.shape[1:]))
         dist.all_to_all_single(out, send.contiguous(), recv_rows, send_rows)
+    return out
+
+
+def hier_all_to_all(rows: torch.Tensor) -> torch.Tensor:
+    """:func:`world_all_to_all` routed in two stages over the slices
+    (``mesh_axis.hier_all_to_all``): stage A within the slice sends each
+    rank coordinate the rows bound for it in every slice, stage B is one
+    exchange across the slices; row q of the output came from flat rank
+    q, as from the flat exchange.  Flat without slices."""
+    if _SLICES == 1 or num_ranks() == 1:
+        return world_all_to_all(rows)
+    R, S = num_ranks(), _SLICES
+    rs = R // S
+    if rows.shape[0] != R:
+        raise ValueError(f"hier_all_to_all: {rows.shape[0]} rows for {R} ranks")
+    in_slice, across = _SUBGROUPS[S]
+    rest = tuple(rows.shape[1:])
+    with split("collective"):
+        # stage A: chunk j (rows for coordinate j of every slice) to rank j
+        a_in = rows.reshape((S, rs) + rest).transpose(0, 1).contiguous()
+        a_out = torch.empty_like(a_in)
+        dist.all_to_all_single(a_out, a_in, group=in_slice)
+        # a_out[i, s2]: from coordinate i of my slice, bound for (s2, mine);
+        # stage B: chunk s2 to slice s2
+        b_in = a_out.transpose(0, 1).contiguous()
+        b_out = torch.empty_like(b_in)
+        dist.all_to_all_single(b_out, b_in, group=across)
+    return b_out.reshape(rows.shape)
+
+
+def hier_ragged_all_to_all(send: torch.Tensor, send_rows: List[int],
+                           recv_rows: List[int]) -> torch.Tensor:
+    """:func:`ragged_all_to_all` routed in two stages over the slices.  A
+    stage-A receiver does not know how many rows each rank of its slice
+    holds for each slice, so the ranks first exchange those counts (one
+    (ranks_per_slice, slices) exchange within the slice).  The output
+    holds ``recv_rows[q]`` rows from each flat rank q in rank order, as the
+    flat exchange's.  Flat without slices."""
+    if _SLICES == 1 or num_ranks() == 1:
+        return ragged_all_to_all(send, send_rows, recv_rows)
+    R, S = num_ranks(), _SLICES
+    rs = R // S
+    in_slice, across = _SUBGROUPS[S]
+    rest = tuple(send.shape[1:])
+    off = [0]
+    for n in send_rows:
+        off.append(off[-1] + n)
+    with split("collective"):
+        # stage A: coordinate j gets my rows for (s2, j), s2 = 0..S-1
+        cnt = torch.tensor([[send_rows[s2 * rs + j] for s2 in range(S)] for j in range(rs)],
+                           dtype=torch.int64, device=send.device)
+        got = torch.empty_like(cnt)
+        dist.all_to_all_single(got, cnt, group=in_slice)
+        got = got.tolist()              # got[i][s2]: from (mine, i) for (s2, mine)
+        a_in = torch.cat([send[off[s2 * rs + j]:off[s2 * rs + j + 1]]
+                          for j in range(rs) for s2 in range(S)])
+        a_out = send.new_empty((sum(map(sum, got)),) + rest)
+        dist.all_to_all_single(a_out, a_in.contiguous(), [sum(g) for g in got],
+                               [sum(send_rows[s2 * rs + j] for s2 in range(S))
+                                for j in range(rs)], group=in_slice)
+        # stage B: slice s2 gets the blocks (i, s2), i = 0..rs-1
+        aoff, pos = {}, 0
+        for i in range(rs):
+            for s2 in range(S):
+                aoff[i, s2] = (pos, pos + got[i][s2])
+                pos += got[i][s2]
+        b_in = torch.cat([a_out[slice(*aoff[i, s2])] for s2 in range(S) for i in range(rs)])
+        out = send.new_empty((sum(recv_rows),) + rest)
+        dist.all_to_all_single(out, b_in.contiguous(),
+                               [sum(recv_rows[s1 * rs:(s1 + 1) * rs]) for s1 in range(S)],
+                               [sum(got[i][s2] for i in range(rs)) for s2 in range(S)],
+                               group=across)
     return out
 
 
@@ -252,10 +351,9 @@ def launch(target: str, n: int, kwargs: Optional[dict] = None,
     Each process joins the group through a file in ``workdir`` (a new
     temporary directory by default), with ``backend`` and ``device``
     (``"cuda"``: rank r takes card ``r % cards``, and fails without one;
-    or ``"cpu"`` when asked; several ranks on one card need ``"gloo"``), runs
-    with one CPU thread, calls ``function(**kwargs)`` and returns what it
-    returned (tensors moved to the CPU).  ``extra_paths`` are put in front
-    of the ranks' module path.  A rank that exits with an error or a run
+    or ``"cpu"`` when asked; several ranks on one card need ``"gloo"``),
+    runs with one CPU thread, calls ``function(**kwargs)`` and returns
+    what it returned (tensors moved to the CPU).  ``extra_paths`` are put in front of the ranks' module path.  A rank that exits with an error or a run
     that passes ``timeout`` seconds kills every rank and raises, with the
     failing ranks' logs."""
     own = workdir is None

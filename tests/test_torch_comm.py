@@ -5,10 +5,13 @@ conftest's 8 virtual devices: ``world_all_to_all`` against
 ``lax.all_to_all``, ``all_gather``, ``all_sum`` against ``psum``, the
 ragged ``all_to_all_single`` against a ``ppermute`` ring,
 ``reduce_comm_array`` on the JAX test's synthetic tables, ``gid_to_lid``,
-the payload lanes, the neighbour plan; the launcher's failure and
-deadline; and the dry run at CPU scale against
-``__graft_entry__.dryrun_multichip(8)``.  Every value is an integer or an
-exact small float: all compared equal."""
+the payload lanes, the neighbour plan; the same ranks split into 2 slices
+of 4 (the JAX package's ``("slice", "ranks")`` mesh): the two-stage
+exchanges, reduction and migration against the flat ones and the JAX
+package's; the launcher's failure and deadline; and the dry run at CPU
+scale, its mode 4 included, against ``__graft_entry__.dryrun_multichip(8)``.
+Every value is an integer, an exact small float or moved bits: all
+compared equal."""
 import contextlib
 import io
 import os
@@ -29,6 +32,7 @@ from pumipic_tpu.parallel import reduce as jred
 from pumipic_tpu.parallel.mesh_axis import RANK_AXIS, make_device_mesh
 from pumipic_torch.parallel import distributor as tdst
 from pumipic_torch.parallel import group
+from pumipic_torch.ops import exchange as tex
 from pumipic_torch.parallel import migrate as tmig
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -95,6 +99,68 @@ def test_reduce_comm_array_synthetic_matches_jax(ranks, op):
         np.testing.assert_array_equal(want[0], [15.0, 22.0])
 
 
+def _same(a, b, what):
+    if isinstance(a, dict):
+        assert set(a) == set(b), what
+        for k in a:
+            _same(a[k], b[k], f"{what}.{k}")
+    elif a.dtype == torch.float32:
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    else:
+        assert torch.equal(a, b), what
+
+
+def test_hier_all_to_all_matches_jax(ranks):
+    """The two-stage exchange over 2 slices of 4 ranks equals the JAX
+    package's flat all_to_all over its ("slice", "ranks") mesh
+    (tests/test_comm.py's hier test), and the port's flat exchange."""
+    mesh2 = make_device_mesh(R, slices=2)
+    AX = ("slice", "ranks")
+    flat = jax.jit(jax.shard_map(
+        lambda x: jax.lax.all_to_all(x, AX, split_axis=0, concat_axis=0, tiled=False),
+        mesh=mesh2, in_specs=P(AX), out_specs=P(AX)))
+    want = np.asarray(flat(jnp.asarray(tr.hier_rows(R)))).reshape(R, R, 5)
+    for me, out in enumerate(ranks):
+        np.testing.assert_array_equal(out["hier"]["sliced"]["a2a"].numpy(), want[me])
+        np.testing.assert_array_equal(out["hier"]["flat"]["a2a"].numpy(), want[me])
+
+
+def test_hier_ragged_all_to_all_equals_flat(ranks):
+    """Random row counts (empty blocks among them): the rows arrive in
+    flat source order, as from the flat exchange."""
+    rows = 0
+    for me, out in enumerate(ranks):
+        got, flat = out["hier"]["sliced"]["ragged"], out["hier"]["flat"]["ragged"]
+        _same(got, flat, f"rank {me}")
+        rows += got.shape[0]
+    assert rows > 0
+
+
+@pytest.mark.parametrize("op", tr.REDUCE_OPS)
+def test_reduce_comm_array_hier_equals_flat_and_jax(ranks, op):
+    s, r, f = tr.hier_tables(R)
+    mesh2 = make_device_mesh(R, slices=2)
+    AX = ("slice", "ranks")
+    run = jax.jit(jax.shard_map(
+        lambda a, b, c: jred.reduce_comm_array(a[0], b[0], c[0], jred.Op[op],
+                                               axis_name=AX, hier=True)[None],
+        mesh=mesh2, in_specs=(P(AX),) * 3, out_specs=P(AX), check_vma=False))
+    want = np.asarray(run(*(jnp.asarray(a) for a in (s, r, f))))
+    for me, out in enumerate(ranks):
+        _same(out["hier"]["sliced"][op], out["hier"]["flat"][op], f"{op} rank {me}")
+        np.testing.assert_array_equal(out["hier"]["sliced"][op].numpy(), want[me])
+
+
+@pytest.mark.parametrize("plan", ["world", "neighbor"])
+def test_migrate_hier_equals_flat(ranks, plan):
+    sent = 0
+    for me, out in enumerate(ranks):
+        got, flat = (out["hier"][k][f"migrate-{plan}"] for k in ("sliced", "flat"))
+        _same(got, flat, f"{plan} rank {me}")
+        sent += int(flat["num_sent"])
+    assert sent > 0
+
+
 def test_gid_to_lid_matches_jax():
     gids = np.asarray([40, 10, 30, 20], np.int32)
     perm = np.argsort(gids).astype(np.int32)
@@ -116,7 +182,7 @@ def test_payload_lanes_match_jax():
           "vec": np.arange(8, dtype=np.float32).reshape(4, 2),
           "J": np.arange(16, dtype=np.float32).reshape(4, 2, 2)}
     gid = np.asarray([3, 1, 0, 2], np.int32)
-    tp, ts = tmig._pack_payload({k: torch.as_tensor(v) for k, v in st.items()},
+    tp, ts = tex.pack_payload({k: torch.as_tensor(v) for k, v in st.items()},
                                 torch.as_tensor(gid))
     jp, js = jmig._pack_payload({k: jnp.asarray(v) for k, v in st.items()},
                                 jnp.ones(4, bool), jnp.asarray(gid))
@@ -125,7 +191,7 @@ def test_payload_lanes_match_jax():
     assert {k: v[:2] + (v[3],) for k, v in ts.items()} == \
         {k: v[:2] + (tuple(v[3]),) for k, v in js.items()}
     staying = torch.zeros(4, dtype=torch.bool)
-    state, n, unres, over = tmig._place_arrivals(
+    state, n, unres, over = tex.place_arrivals(
         {k: torch.as_tensor(v) for k, v in st.items()}, staying,
         torch.zeros(4, dtype=torch.int32), tp, ts, torch.arange(4, dtype=torch.int32),
         torch.arange(4, dtype=torch.int32))
@@ -178,7 +244,7 @@ def _parse(text):
 
 def test_dryrun_matches_jax():
     """dryrun_multirank(8, cpu, gloo) prints the counts of a fresh JAX
-    dryrun_multichip(8) (its multi-slice mode 4 is not ported)."""
+    dryrun_multichip(8), its multi-slice mode 4 (2 x 4 ranks) included."""
     import __graft_entry__
     from pumipic_torch.parallel.dryrun import dryrun_multirank
 
@@ -190,7 +256,7 @@ def test_dryrun_matches_jax():
     with contextlib.redirect_stdout(buf):
         counts = dryrun_multirank(8, "cpu", "gloo", timeout=300)
     got = _parse(buf.getvalue())
-    assert set(want) - set(got) == {"picparts-2x4-slices"}
+    assert set(want) == set(got)
     for mode, vals in got.items():
         assert vals == want[mode], mode
     # the removals the port splits into boundary exits and particles lost

@@ -1,7 +1,8 @@
 """Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D, G,
 S, K, L3, the GITR-style app's R, M and W, the 2D walk modes' M2 and the
-deposit V, with their modes) against its plain PyTorch version on the same
-CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
+deposit V, with their modes, and the distributed step's X1, X2, X3 and O
+on tests/torch_ranks.py's adversarial cases) against its plain PyTorch
+version on the same CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
 lengths and R's corner rows at their edges.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
@@ -23,12 +24,14 @@ from pumipic_torch.mesh.locator import (
     detect_banded_locator,
 )
 from pumipic_torch.models import pseudo_xgcm as px
+from pumipic_torch.ops import exchange as ex
 from pumipic_torch.ops import locate as lo
 from pumipic_torch.ops import push as push_ops
 from pumipic_torch.ops import scatter as sc
 from pumipic_torch.ops import search as se
 
 import slotmap_tiles
+import torch_ranks as tr
 
 pytestmark = pytest.mark.cuda
 
@@ -1438,3 +1441,102 @@ def test_vdeposit_kernel_across_the_f32_range(dev, mesh, scale):
         want = sc.vertex_deposit_plain(wt, None, elem, act, None, mesh.nelems)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert bool(torch.isnan(got).all())
+
+
+# ---------------------------------------------------------------------------
+# X1, X2, X3, O: the distributed step's exchange and owner reduction
+# ---------------------------------------------------------------------------
+
+def _dev_tensor(a, dev):
+    return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+
+def _same_bits(got, want, nan_positions=False):
+    if isinstance(got, dict):
+        assert set(got) == set(want)
+        for k in got:
+            _same_bits(got[k], want[k], nan_positions)
+        return
+    if isinstance(got, (tuple, list)):
+        for x, y in zip(got, want):
+            _same_bits(x, y, nan_positions)
+        return
+    if got is None:
+        assert want is None
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        if nan_positions:
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            got, want = torch.nan_to_num(got, nan=0.0), torch.nan_to_num(want, nan=0.0)
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", tr.RANK_CASES + ("large, 33 keys",))
+def test_rank_in_key_kernel_equals_plain(dev, case):
+    if case == "large, 33 keys":
+        key, K = np.random.default_rng(2).integers(0, 34, (1 << 20) + 7).astype(np.int32), 33
+    else:
+        key, K = tr.rank_case(case)
+    k = _dev_tensor(key, dev)
+    n0 = kernels.LAUNCHES["rank_in_key"]
+    got = ex.rank_in_key(k, K)
+    assert kernels.LAUNCHES["rank_in_key"] == n0 + 1
+    _same_bits(got, ex.rank_in_key_plain(k, K))
+    _same_bits(ex.rank_in_key(k, K, ranks=False), ex.rank_in_key_plain(k, K, ranks=False))
+
+
+def test_rank_in_key_kernel_refuses_keys_outside(dev):
+    for bad in ([0, 4, 1], [-1]):
+        with pytest.raises(ValueError, match="outside"):
+            ex.rank_in_key(_dev_tensor(np.asarray(bad, np.int32), dev), 3)
+    with pytest.raises(ValueError, match="table holds"):
+        ex.rank_in_key(_dev_tensor(np.zeros(4, np.int32), dev), ex.X1_MAX_KEYS)
+    key = np.random.default_rng(3).integers(0, ex.X1_MAX_KEYS, 100_000).astype(np.int32)
+    k = _dev_tensor(key, dev)
+    _same_bits(ex.rank_in_key(k, ex.X1_MAX_KEYS - 1),
+               ex.rank_in_key_plain(k, ex.X1_MAX_KEYS - 1))
+
+
+@pytest.mark.parametrize("case", tr.SEND_CASES)
+def test_pack_send_kernel_equals_plain(dev, case):
+    st, key, quota, rows, cap, ne, eg = tr.send_case(case)
+    st = {n: _dev_tensor(v, dev) for n, v in st.items()}
+    k = _dev_tensor(key, dev)
+    rank, counts = ex.rank_in_key(k, len(rows))
+    args = (st, k, rank, counts, _dev_tensor(quota, dev), rows, cap, _dev_tensor(ne, dev),
+            _dev_tensor(eg, dev))
+    n0 = kernels.LAUNCHES["pack_send"]
+    got = ex.pack_send(*args)
+    assert kernels.LAUNCHES["pack_send"] == n0 + 1
+    want = ex.pack_send_plain(*args)
+    _same_bits(got[:4], want[:4])
+    assert got[4] == want[4]
+
+
+@pytest.mark.parametrize("case", tr.PLACE_CASES)
+def test_place_arrivals_kernel_equals_plain(dev, case):
+    st, staying, ne, recv, gs, gp = tr.place_case(case)
+    st = {n: _dev_tensor(v, dev) for n, v in st.items()}
+    fs, _ = ex.payload_layout(st)
+    args = (st, _dev_tensor(staying, dev), _dev_tensor(ne, dev), _dev_tensor(recv, dev), fs,
+            _dev_tensor(gs, dev), _dev_tensor(gp, dev))
+    n0 = (kernels.LAUNCHES["place_arrivals"], kernels.LAUNCHES["rank_in_key"])
+    got = ex.place_arrivals(*args)
+    assert (kernels.LAUNCHES["place_arrivals"], kernels.LAUNCHES["rank_in_key"]) == \
+        (n0[0] + 1, n0[1] + 1)
+    _same_bits(got, ex.place_arrivals_plain(*args))
+
+
+@pytest.mark.parametrize("case", tr.OWNER_CASES)
+def test_owner_kernels_equal_plain(dev, case):
+    f, rid, rv, sid, back, op = (_dev_tensor(a, dev) if isinstance(a, np.ndarray) else a
+                                 for a in tr.owner_case(case))
+    nan = "nan" in case
+    n0 = kernels.LAUNCHES["owner_reduce"]
+    fill = ex.neutral(op, f.dtype)
+    _same_bits(ex.owner_gather(f, sid, fill), ex.owner_gather_plain(f, sid, fill), nan)
+    _same_bits(ex.owner_fan_in(f, rv, rid, op), ex.owner_fan_in_plain(f, rv, rid, op), nan)
+    _same_bits(ex.owner_fan_out(f, back, sid), ex.owner_fan_out_plain(f, back, sid), nan)
+    assert kernels.LAUNCHES["owner_reduce"] == n0 + 3

@@ -1,6 +1,7 @@
-"""The port's I/O and utilities that need no distribution, against the JAX
-package: particle and structure checkpoints read across both packages
-(the same ``.npz`` format), the ``.osh`` mesh files (the same bytes) and
+"""The port's I/O and utilities, against the JAX package: picparts,
+particle and structure checkpoints read across both packages (the same
+``.npz`` format; a port-written picparts file equals the JAX package's
+key for key, bit for bit), the ``.osh`` mesh files (the same bytes) and
 ``load_mesh``, the live-tensor audit, and the timing additions
 (``DeviceFence``, ``summarize_across_devices``, ``profiling_region``).
 
@@ -19,6 +20,8 @@ from pumipic_tpu.io import checkpoint as j_ck
 from pumipic_tpu.io import osh as j_osh
 from pumipic_tpu.mesh import generate as j_gen
 from pumipic_tpu.mesh.core import Mesh2D as JMesh2D
+from pumipic_tpu.mesh.core import Mesh3D as JMesh3D
+from pumipic_tpu.parallel import picparts as j_pp
 from pumipic_tpu.utils import timing as j_tm
 from pumipic_torch import interop
 from pumipic_torch import particles as T
@@ -26,6 +29,7 @@ from pumipic_torch.io import checkpoint as t_ck
 from pumipic_torch.io import osh as t_osh
 from pumipic_torch.mesh.core import Mesh2D, Mesh3D
 from pumipic_torch.mesh.gmsh import write_msh2
+from pumipic_torch.parallel import picparts as t_pp
 from pumipic_torch.utils import memaudit
 from pumipic_torch.utils import timing as t_tm
 
@@ -89,6 +93,57 @@ def test_structure_checkpoints_cross_both_ways(tmp_path, layout):
     j2, step = j_ck.read_particle_structure(p)
     assert step == 9
     _same(j2, t)
+
+
+def _picparts_pair(dim):
+    if dim == 2:
+        coords, cells, cls = j_gen.annulus_mesh(4, 32, 0.3, 1.0)
+    else:
+        (coords, cells), cls = j_gen.box_tet_mesh(3, 3, 3), None
+    owners = t_pp.partition_rcb(coords, cells, 4)
+    tp = t_pp.build_picparts(coords, cells, owners, 4, t_pp.PicPartsInput(), cls)
+    jp = j_pp.build_picparts(coords, cells, owners, 4, j_pp.PicPartsInput(), cls,
+                             mesh_cls=JMesh2D if dim == 2 else JMesh3D)
+    return tp, jp
+
+
+def _same_picparts(a, b):
+    assert (a.num_ranks, a.dim, a.nelems, a.nverts, a.num_core_elems) == \
+        (b.num_ranks, b.dim, b.nelems, b.nverts, b.num_core_elems)
+    assert set(a.tables) == set(b.tables)
+    for k in a.tables:
+        np.testing.assert_array_equal(a.tables[k], b.tables[k], err_msg=k)
+    np.testing.assert_array_equal(a.elem_safe, b.elem_safe)
+    for r in range(a.num_ranks):
+        ma, mb = a.local_mesh(r, "cpu"), b.local_mesh(r, "cpu")
+        for f in dataclasses.fields(ma):
+            x, y = getattr(ma, f.name), getattr(mb, f.name)
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), (r, f.name)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_picparts_checkpoints_cross_both_ways(tmp_path, dim):
+    """Each package reads the other's ``<prefix>_<R>.ppm.npz`` with equal
+    tables and meshes, and the port writes the JAX package's file."""
+    tp, jp = _picparts_pair(dim)
+    t_path = t_ck.write_picparts(str(tmp_path / "t"), tp)
+    j_path = j_ck.write_picparts(str(tmp_path / "j"), jp)
+    assert t_path.endswith("t_4.ppm.npz") and j_path.endswith("j_4.ppm.npz")
+    t_file, j_file = np.load(t_path), np.load(j_path)
+    assert set(t_file.files) == set(j_file.files)
+    for k in j_file.files:
+        a, b = t_file[k], j_file[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert a.tobytes() == b.tobytes(), k
+    _same_picparts(t_ck.read_picparts(j_path), tp)
+    _same_picparts(t_ck.read_picparts(t_path), tp)
+    back = j_ck.read_picparts(t_path)
+    for name in t_pp.TABLES + (t_pp.TABLES_3D if dim == 3 else ()):
+        np.testing.assert_array_equal(np.asarray(getattr(back, name)), tp.tables[name],
+                                      err_msg=name)
+    np.testing.assert_array_equal(np.asarray(back.mesh.walk_geom),
+                                  np.asarray(jp.mesh.walk_geom))
 
 
 def test_particle_state_checkpoints_cross_both_ways(tmp_path):

@@ -39,7 +39,6 @@ from pumipic_torch.parallel import distributor as tdst
 from pumipic_torch.parallel import group
 from pumipic_torch.parallel import migrate as tmig
 from pumipic_torch.parallel import picparts as tpp
-from pumipic_torch.parallel import reduce as tred
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_ranks as tr  # noqa: E402
@@ -628,11 +627,56 @@ def test_step_3d_loses_no_particle_off_the_picparts(ranks, jsteps3d, arm):
         prev = alive
 
 
-def test_hierarchical_route_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        group.check_flat(hier=True)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tred.reduce_comm_array(torch.full((1, 1), -1), torch.full((1, 1), -1),
-                               torch.zeros(2), hier=True)
-    with pytest.raises(NotImplementedError):
-        tmig.build_neighbor_plan(tdst.world_distributor(2), slice_of_rank=[0, 1])
+def _equal_tree(a, b, what):
+    if isinstance(a, dict):
+        assert set(a) == set(b), what
+        for k in a:
+            _equal_tree(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal_tree(x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        x, y = (a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 \
+            else (a, b)
+        assert torch.equal(x, y), what
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+@pytest.mark.parametrize("arm", list(STEP_ARMS))
+def test_step_2d_over_slices_equals_flat(ranks, arm):
+    """The 2D step over 2 slices of 2 ranks (the two-stage route for the
+    migration's payload and the field's reduction) equals the flat step
+    bit for bit: every step's stats and field, and the final state."""
+    i = list(STEP_ARMS).index(arm)
+    for r, out in enumerate(ranks):
+        got, want = out["step_sliced"][i], out["step"][i]
+        _equal_tree(got["hist"], want["hist"], f"{arm} rank {r}")
+        _equal_tree(got["state"], want["state"], f"{arm} rank {r} state")
+    assert sum(int(h[0]["sent"]) for h in ranks[0]["step"][i]["hist"]) > 0
+
+
+@pytest.mark.parametrize("arm", list(STEP3D_ARMS))
+def test_step_3d_over_slices_equals_flat(ranks, arm):
+    i = list(STEP3D_ARMS).index(arm)
+    for r, out in enumerate(ranks):
+        got, want = out["step3d_sliced"][i], out["step3d"][i]
+        _equal_tree(got["hist"], want["hist"], f"{arm} rank {r}")
+        _equal_tree(got["h"], want["h"], f"{arm} rank {r} state")
+
+
+def test_neighbor_plan_slice_split_matches_jax():
+    """The multi-slice schedule colours the edges within a slice first, as
+    the JAX package's does."""
+    nb = np.zeros((8, 8), bool)
+    for r in range(8):
+        nb[r, [r, (r + 1) % 8, (r - 1) % 8, (r + 4) % 8]] = True
+    sl = np.repeat(np.arange(2), 4)
+    tp = tmig.build_neighbor_plan(tdst.Distributor(nb, 8), slice_of_rank=sl)
+    jp = jmig.build_neighbor_plan(jdst.Distributor(is_neighbor=jnp.asarray(nb),
+                                                   num_ranks=8), slice_of_rank=sl)
+    np.testing.assert_array_equal(tp.round_of_dest, np.asarray(jp.round_of_dest))
+    np.testing.assert_array_equal(tp.src_of_round, np.asarray(jp.src_of_round))
+    assert (tp.num_rounds, tp.num_intra_rounds, tp.perms) == \
+        (jp.num_rounds, jp.num_intra_rounds, jp.perms)
+    assert tp.num_intra_rounds < tp.num_rounds

@@ -97,6 +97,165 @@ def structure_inputs(elem_gid, elem_safe, R: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the exchange kernels' inputs (X1, X2, X3, O): seeded, with the adversarial
+# cases (one key, no leaver, every slot leaving, a ragged last tile,
+# arrivals beyond the free slots, NaN, -0.0 and subnormal payloads)
+# ---------------------------------------------------------------------------
+
+RANK_CASES = ("random", "sorted", "one key", "ignored only", "ragged tile",
+              "many keys", "single", "empty")
+
+
+def rank_case(case: str, seed: int = 0):
+    """(keys (N,) int32 in [0, num_keys], num_keys) of a rank_in_key case."""
+    rng = np.random.default_rng(seed)
+    if case == "random":
+        return rng.integers(0, 5, 5000).astype(np.int32), 4
+    if case == "sorted":
+        return np.sort(rng.integers(0, 5, 5000)).astype(np.int32), 4
+    if case == "one key":
+        return np.zeros(3000, np.int32), 3
+    if case == "ignored only":
+        return np.full(2500, 3, np.int32), 3
+    if case == "ragged tile":
+        return rng.integers(0, 3, 3 * 1024 + 17).astype(np.int32), 2
+    if case == "many keys":
+        return rng.integers(0, 41, 9000).astype(np.int32), 40
+    if case == "single":
+        return np.asarray([1], np.int32), 1
+    return np.zeros(0, np.int32), 2
+
+
+def odd_floats(rng, n: int) -> np.ndarray:
+    """n f32 values with NaNs (a payload among them), infinities, -0.0 and
+    subnormals mixed into normal ones."""
+    x = rng.normal(size=n).astype(np.float32)
+    special = np.asarray([np.nan, -0.0, 0.0, np.inf, -np.inf, 1e-40, -3e-39],
+                         np.float32)
+    pick = rng.random(n) < 0.2
+    x[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+    bits = x.view(np.int32)
+    bits[rng.random(n) < 0.02] = 0x7FA00001          # a signalling NaN payload
+    return x
+
+
+def exchange_state(n: int, rng):
+    """A particle state of n slots with an f32, an i32, a bool and an
+    (n, 2, 2) f32 field (odd floats among them), plus elem and active."""
+    return {"x": odd_floats(rng, n),
+            "pid": rng.integers(-2**31, 2**31 - 1, n).astype(np.int32),
+            "flag": rng.random(n) < 0.5,
+            "J": odd_floats(rng, 4 * n).reshape(n, 2, 2),
+            "elem": rng.integers(-1, 50, n).astype(np.int32),
+            "active": rng.random(n) < 0.8}
+
+
+SEND_CASES = ("random", "no leaver", "every slot leaving", "over cap", "ragged tile")
+
+
+def send_case(case: str, seed: int = 0):
+    """Inputs of pack_send: (state, key (bucket, or D to stay), quota (D,),
+    rows_of_bucket (host ints: the admitted counts), cap, new_elem,
+    elem_gid).  Each quota is at most min(count, cap), as the negotiation
+    grants; the ranks come from rank_in_key."""
+    rng = np.random.default_rng(seed)
+    n = 3 * 1024 + 17 if case == "ragged tile" else 4000
+    D, cap = 3, 1000
+    if case == "no leaver":
+        key = np.full(n, D, np.int32)
+    elif case == "every slot leaving":
+        key = rng.integers(0, D, n).astype(np.int32)
+        cap = n
+    else:
+        key = np.where(rng.random(n) < 0.3, rng.integers(0, D, n), D).astype(np.int32)
+    if case == "over cap":
+        cap = 200
+    counts = np.bincount(key, minlength=D + 1)[:D]
+    if case == "every slot leaving":
+        quota = counts.copy()
+    else:
+        quota = np.minimum(rng.integers(0, counts + 1), cap)
+    E = 60
+    new_elem = rng.integers(0, E, n).astype(np.int32)
+    elem_gid = rng.permutation(10 * E)[:E].astype(np.int32)
+    return (exchange_state(n, rng), key, quota.astype(np.int32),
+            [int(q) for q in quota], cap, new_elem, elem_gid)
+
+
+PLACE_CASES = ("random", "beyond the free slots", "no arrival", "all unresolved",
+               "every slot free", "ragged tile")
+
+
+def place_case(case: str, seed: int = 0):
+    """Inputs of place_arrivals: (state, staying, new_elem, recv (M, F)
+    int32 rows in the state's payload layout, gid_sorted, gid_perm).  Rows
+    carry absent gids (-1) and gids the picpart lacks (unresolved)."""
+    rng = np.random.default_rng(seed)
+    n = 3 * 1024 + 17 if case == "ragged tile" else 4000
+    st = exchange_state(n, rng)
+    staying = st["active"] & (rng.random(n) < 0.7)
+    if case == "every slot free":
+        staying[:] = False
+    E = 80
+    gids = rng.permutation(1000)[:E].astype(np.int32)
+    perm = np.argsort(gids, kind="stable").astype(np.int32)
+    m = {"no arrival": 0, "beyond the free slots": 3 * n}.get(case, 900)
+    src = exchange_state(m, rng)
+    g = gids[rng.integers(0, E, m)]
+    g = np.where(rng.random(m) < 0.05, -1, g)                   # absent
+    g = np.where(rng.random(m) < 0.05, 1000 + rng.integers(0, 50, m), g)  # unresolved
+    if case == "all unresolved":
+        g = 2000 + np.arange(m, dtype=np.int32)
+    lanes = [g.astype(np.int32)[:, None]]
+    for name in sorted(src):
+        if name in ("elem", "active"):
+            continue
+        v = src[name].reshape(m, int(np.prod(src[name].shape[1:])))
+        lanes.append(v.view(np.int32) if v.dtype == np.float32 else v.astype(np.int32))
+    recv = np.ascontiguousarray(np.concatenate(lanes, axis=1).astype(np.int32))
+    new_elem = rng.integers(0, E, n).astype(np.int32)
+    return st, staying, new_elem, recv, gids[perm], perm
+
+
+OWNER_CASES = ("sum f32", "sum f32 vec", "sum i32", "max f32", "min f32", "max i32",
+               "min i32", "sum f32 nan", "max f32 nan")
+
+
+def owner_case(case: str, seed: int = 0, V: int = 700, R: int = 4, K: int = 90):
+    """One rank's owner reduction inputs: (field (V[, 3]), recv_ids (R, K),
+    recv_vals (R, K[, 3]), send_ids (R, K), back (R, K[, 3]), op).  Each
+    source row names an owned entity at most once, each copy is named
+    once in send_ids; values are small integers and halves (sums exact in
+    any order), with -0.0 among them for SUM; ``nan`` cases add NaNs."""
+    rng = np.random.default_rng(seed)
+    op = case.split()[0]
+    dt = np.int32 if "i32" in case else np.float32
+    inner = (3,) if "vec" in case else ()
+    recv_ids = np.full((R, K), -1, np.int32)
+    owned = rng.permutation(V)[:V // 2]
+    for s in range(R):
+        k = int(rng.integers(0, K + 1))
+        recv_ids[s, :k] = rng.choice(owned, k, replace=False)
+    send_ids = np.full((R, K), -1, np.int32)
+    copies = rng.permutation(np.setdiff1d(np.arange(V), owned))
+    pos = rng.permutation(R * K)[:min(len(copies), R * K * 3 // 4)]
+    send_ids.reshape(-1)[pos] = copies[:len(pos)]
+
+    def vals(shape):
+        if dt == np.int32:
+            return rng.integers(-1000, 1000, shape).astype(np.int32)
+        v = (rng.integers(-40, 40, shape) / 2.0).astype(np.float32)
+        if op == "sum":        # max/min ties of +0.0 and -0.0 are not pinned
+            v[rng.random(shape) < 0.1] = -0.0
+        if "nan" in case:
+            v[rng.random(shape) < 0.03] = np.nan
+        return v
+
+    return (vals((V,) + inner), recv_ids, vals((R, K) + inner), send_ids,
+            vals((R, K) + inner), op)
+
+
 STRUCT_CAP = {"dps": 64, "csr": 64, "cabm": 256, "scs": 64}
 
 
@@ -130,6 +289,75 @@ def comm_rank() -> dict:
     for op in REDUCE_OPS:
         out[op] = red.reduce_comm_array(torch.as_tensor(s[me]), torch.as_tensor(r[me]),
                                         torch.as_tensor(f[me]), red.Op[op])
+    if R % 2 == 0 and R >= 4:
+        out["hier"] = hier_cases(me, R)
+    return out
+
+
+def hier_rows(R: int):
+    """The JAX hier test's payload: (R·R, 5) f32, rank r's rows [r·R, (r+1)·R)."""
+    return np.random.default_rng(0).normal(size=(R * R, 5)).astype(np.float32)
+
+
+def hier_tables(R: int, K: int = 3, V: int = 12):
+    """The JAX hier reduction test's tables: entity g owned by rank g % R,
+    copies on about half the other ranks; (send, recv, field) each (R, ...)."""
+    rng = np.random.default_rng(1)
+    send = np.full((R, R, K), -1, np.int32)
+    recv = np.full((R, R, K), -1, np.int32)
+    for r in range(R):
+        for g in range(V):
+            o = g % R
+            if o != r and rng.random() < 0.5:
+                k = int((send[r, o] >= 0).sum())
+                if k < K:
+                    send[r, o, k] = g
+                    recv[o, r, int((recv[o, r] >= 0).sum())] = g
+    return send, recv, rng.normal(size=(R, V)).astype(np.float32)
+
+
+def hier_cases(me: int, R: int) -> dict:
+    """Each exchange flat and over 2 slices of R/2 ranks: the fixed
+    all_to_all (the JAX test's payload), a ragged one (random row counts,
+    empty blocks among them), the owner reduction (every op, the JAX
+    test's tables) and the migration of a picpart's particles (world and
+    neighbour plan)."""
+    from pumipic_torch.mesh.generate import annulus_mesh
+    from pumipic_torch.parallel import distributor as dstm
+    from pumipic_torch.parallel import group
+    from pumipic_torch.parallel import migrate as mig
+    from pumipic_torch.parallel import reduce as red
+
+    x = torch.as_tensor(hier_rows(R)[me * R:(me + 1) * R])
+    rng = np.random.default_rng(7)
+    rows = rng.integers(0, 4, (R, R))                 # rows[p, q]: p sends q
+    rows[rng.random((R, R)) < 0.3] = 0
+    send = torch.arange(int(rows[me].sum()) * 2, dtype=torch.int32).reshape(-1, 2) + 1000 * me
+    send_rows, recv_rows = rows[me].tolist(), rows[:, me].tolist()
+    s, r, f = hier_tables(R)
+    sid, rid, fld = (torch.as_tensor(a[me]) for a in (s, r, f))
+    coords, tris, cls = annulus_mesh(4, 8 * R, 0.3, 1.0)
+    _, pp = _picparts(coords, tris, cls, R)
+    lpp = pp.local_view(me, "cpu")
+    plan = mig.build_neighbor_plan(dstm.from_picparts(pp))
+    st, ne, de = migrate_inputs(pp.elem_gid, pp.elem_safe, pp.elem_owner, n=48, seed=3)
+    out = {}
+    for n_slices in (1, 2):
+        group.set_slices(n_slices)
+        hier = n_slices > 1
+        o = {"a2a": group.hier_all_to_all(x),
+             "ragged": group.hier_ragged_all_to_all(send, send_rows, recv_rows)}
+        for op in REDUCE_OPS:
+            o[op] = red.reduce_comm_array(sid, rid, fld, red.Op[op], hier=hier)
+        for name, p in (("world", None), ("neighbor", plan)):
+            res = mig.migrate({k: torch.as_tensor(v[me]) for k, v in st.items()},
+                              torch.as_tensor(ne[me]), torch.as_tensor(de[me]), lpp.elem_gid,
+                              lpp.elem_gid_sorted, lpp.elem_gid_perm, me, R, 16, plan=p,
+                              hier=hier)
+            o[f"migrate-{name}"] = {"state": res.state,
+                                    **{k: getattr(res, k) for k in res._fields if k != "state"}}
+        out["sliced" if hier else "flat"] = o
+    group.set_slices(1)
     return out
 
 
@@ -156,7 +384,8 @@ def picparts_rank(coords, tris, cls, fields, mig_cases, struct_layouts,
     """Reductions on every dimension, migrations (world and neighbour,
     tight caps, illegal destinations, tensor fields), the structures'
     migration in each layout, the capacity shrink, and the 2D and 3D
-    steps; every result of this rank."""
+    steps, each step also over the group split into 2 slices (the
+    two-stage route); every result of this rank."""
     from pumipic_torch.models import pseudo_push_and_search as pps
     from pumipic_torch.models import pseudo_xgcm as px
     from pumipic_torch.parallel import distributor as dstm
@@ -222,27 +451,33 @@ def picparts_rank(coords, tris, cls, fields, mig_cases, struct_layouts,
     out["shrink"] = shrink_picparts_capacity(state, shrink_cap)
     out["grow"] = shrink_picparts_capacity(state, st["x"].shape[1] + 8)
 
-    for kw in step_cfgs:
-        cfg = px.XGCmConfig(**kw["cfg"], gyro=px.GyroConfig(**kw["gyro"]))
-        lp, s, _, step = px.make_picparts_setup(coords, tris, cls, cfg, device="cpu",
-                                                **kw["setup"])
-        hist = []
-        mon = CapacityMonitor()
-        for _ in range(3):
-            s, fwd, stats = step(s)
-            mon.observe(stats)
-            hist.append((stats, fwd))
-        out["step"].append(dict(hist=hist, state=s, vert_gid=lp.vert_gid,
-                                recommend=mon.recommend(s["active"].shape[0])))
-    for kw in cfg3s:
-        cfg3 = pps.PushSearchConfig(**kw["cfg"])
-        _, ps3, step3 = pps.make_picparts_setup_3d(coords3, tets, cfg3, device="cpu",
-                                                   **kw["setup"])
-        hist = []
-        for _ in range(3):
-            ps3, stats = step3(ps3)
-            hist.append(stats)
-        out["step3d"].append(dict(hist=hist, h=ps3.copy_to_host()))
+    from pumipic_torch.parallel import group
+
+    for n_slices, key2, key3 in ((1, "step", "step3d"), (2, "step_sliced", "step3d_sliced")):
+        group.set_slices(n_slices)
+        out[key2], out[key3] = [], []
+        for kw in step_cfgs:
+            cfg = px.XGCmConfig(**kw["cfg"], gyro=px.GyroConfig(**kw["gyro"]))
+            lp, s, _, step = px.make_picparts_setup(coords, tris, cls, cfg, device="cpu",
+                                                    **kw["setup"])
+            hist = []
+            mon = CapacityMonitor()
+            for _ in range(3):
+                s, fwd, stats = step(s)
+                mon.observe(stats)
+                hist.append((stats, fwd))
+            out[key2].append(dict(hist=hist, state=s, vert_gid=lp.vert_gid,
+                                  recommend=mon.recommend(s["active"].shape[0])))
+        for kw in cfg3s:
+            cfg3 = pps.PushSearchConfig(**kw["cfg"])
+            _, ps3, step3 = pps.make_picparts_setup_3d(coords3, tets, cfg3, device="cpu",
+                                                       **kw["setup"])
+            hist = []
+            for _ in range(3):
+                ps3, stats = step3(ps3)
+                hist.append(stats)
+            out[key3].append(dict(hist=hist, h=ps3.copy_to_host()))
+    group.set_slices(1)
     return out
 
 
@@ -266,6 +501,24 @@ def balancer_rank(coords, tris, cls, new_elem, dest, ppe, num_ptcls) -> dict:
            "partition": lbm.partition(bt, sbar, torch.as_tensor(ppe[me][:E]),
                                       num_ptcls, me),
            "imb": lbm.ptcl_imbalance(act.sum(dtype=torch.int32))}
+    return out
+
+
+def library_rank() -> dict:
+    """A Library in a rank of a group it did not make: it joins it, refuses
+    another size, and leaves the group to its owner at finalize."""
+    from pumipic_torch.library import Library
+    from pumipic_torch.parallel import group
+
+    lib = Library(num_ranks=group.num_ranks())
+    out = {"world_size": lib.world_size, "rank": group.rank()}
+    try:
+        Library(num_ranks=group.num_ranks() + 1)
+        out["refused"] = False
+    except ValueError:
+        out["refused"] = True
+    lib.finalize()
+    out["still_initialized"] = group.initialized()
     return out
 
 
