@@ -25,7 +25,8 @@ histogram (kernel H) -> gyro deposit (kernel D).
 round((BENCH_ELEMS / 6)^(1/3)) (16 for the default 24,000: 24,576 tets),
 10M particles, a periodic wall, 64 search iterations.  Each step is push +
 wrap + analytic Kuhn locate (kernel K) or, with ``BENCH_KUHN=off``, push +
-wrap + peel + BCC walk (kernel L3), then the structure's rebuild; with
+wrap + peel + BCC walk (kernel L3), then the structure's rebuild (DPS:
+kernel Q; a sorted layout: kernels C, H, S, G and Q); with
 ``BENCH_WALL=reflect`` push (K's push-only form) + peel + BCC walk with the
 reflecting wall (kernel M), then the rebuild.
 
@@ -36,7 +37,8 @@ charge 1, dt = 2e-5 s, B = (0, 0, 1.3e-3) T, an (n+1, n+1, n+1, 3) E grid
 of N(0, 0.2) V/m components over the unit box (numpy seed 0), 100 search
 iterations and the wall tally.  Each step is kernel R (grid E + Boris
 push), kernel M (intersection walk, ``record_exit``, remove or reflect),
-the specular velocity (reflect) and kernel W (wall tally).
+kernel F (the specular velocity with the reflecting wall, the state
+update) and kernel W (wall tally).
 
 Environment knobs, as in ``bench.py`` (each also a keyword of :func:`main`,
 which wins over the environment):

@@ -7,13 +7,16 @@ sources in this checkout.  Phases, each raising on failure:
 
 (a) require a CUDA device; print its name and power limit (nvidia-smi) and
     the torch / CUDA versions;
-(b) build the kernels of the sixteen sources (P push and its table mode
+(b) build the kernels of the eighteen sources (P push and its table mode
     ``push_table``, B band cell, A annulus locate, L locate, H histogram and
     its weighted mode W ``wall_tally``, D deposit, G row gather, S slot map,
     K Kuhn push + locate and its push-only form ``push_wrap``, L3 tet
     locate, R ``boris`` grid field + Boris push, M ``trace3d`` 3D walk
     modes, M2 ``trace2d`` 2D walk modes, V ``vdeposit`` deterministic
-    weighted deposit, the distributed step's X1 ``rank_in_key``, X2
+    weighted deposit, F ``gitr_update`` the GITR step's specular velocity
+    and state update, Q ``rebuild_mask`` the rebuild's mask rewrite and
+    count, C ``key_sort`` the rebuild's stable element sort, the
+    distributed step's X1 ``rank_in_key``, X2
     ``pack_send``, X3 ``place_arrivals`` and O ``owner_reduce``), one nvcc
     per source, all at once, and keep
     ptxas's registers, shared memory and spills of each source's entry
@@ -30,20 +33,24 @@ sources in this checkout.  Phases, each raising on failure:
     key streams in key mode; ``torch.index_select`` for G's rows form,
     per-array indexing for its columns form; ``torch.mv`` of a CSR matrix
     for D: the composite gyro map for both passes, the ring incidence for
-    pass 1 from (E, R)).  On the 120k-element gmsh mesh at 10M particles: P, L
-    (peel + walk), H in the main path's order and in a random order of the
-    same keys, D, L's plain walk over the 1.48M gyro ring points, H's
-    (element, ring) key mode and D's pass 1 from (E, R) counts; G's rows
-    form at the TPU row gather probe's shape (24,576 x 14 f32 table, 10M
-    indices); on a Sell-C-σ structure of the 10M located particles, P's
-    phi mode (band and class forms), S in the scs and cabm modes and G's
-    columns form at the sorted rebuild's shapes, at one step's locality and
-    at a random order of the slots; B and L's given-cells mode on the
-    flux-band grid; A on the 23,976-element annulus at 10M, in the
+    pass 1 from (E, R); ``torch.sort(key, stable=True)`` for C).  On the
+    120k-element gmsh mesh at 10M particles: P, L (peel + walk), H in the
+    main path's order and in a random order of the same keys, D, L's plain
+    walk over the 1.48M gyro ring points, H's (element, ring) key mode and
+    D's pass 1 from (E, R) counts; G's rows form at the TPU row gather
+    probe's shape (24,576 x 14 f32 table, 10M indices); on a Sell-C-σ
+    structure of the 10M located particles, P's phi mode (band and class
+    forms), S in the scs and cabm modes and G's columns form at the sorted
+    rebuild's shapes, at one step's locality and at a random order of the
+    slots, Q's three modes (the destinations' check, the scs epilogue on
+    S's outputs, the csr prefix) and C on the rebuild's keys (one step's
+    order, a random order, K = 2 and the 0/1 partition); B and L's
+    given-cells mode on the flux-band grid; A on the 23,976-element annulus at 10M, in the
     generator's element order and through a random element permutation;
     P's table mode at 10M over the (122,603, 2) rotation table; on
     pseudoPushAndSearch's 16^3 Kuhn box (24,576 tets) at 10M particles, K
-    (push + wrap + locate), its push-only form (equal to K's positions too)
+    (push + wrap + locate), Q's DPS mode on K's ids, its push-only form
+    (equal to K's positions too)
     and L3 (peel + walk over the cpe-16 grid's
     candidate id pair, and the plain walk) on one step's targets, on those
     particles in a random order and on the step-20 targets (L3's bound
@@ -55,8 +62,9 @@ sources in this checkout.  Phases, each raising on failure:
     tets) at 10M particles: R on the seeded state, M on R's targets in each
     core with remove and reflect and record_exit, on far targets (random
     points of the box: walks of many hops), at a budget of 2 that leaves
-    survivors to recover, and W on the reflect walk's hit counts and the
-    absorb walk's lost particles (``torch.bincount`` with weights as W's
+    survivors to recover, F after the reflect and the absorb walks, and W
+    on the reflect walk's hit counts and the absorb walk's lost particles
+    (``torch.bincount`` with weights as W's
     yardstick; R and M have none).  On the 120k mesh's 10M located
     particles (each pushed 3 element sizes, 5% of them beyond the wall), M2
     with reflect and record_exit from the plain start and through the
@@ -92,27 +100,29 @@ sources in this checkout.  Phases, each raising on failure:
     launching no L: its only L launch is the setup's gyro-map walk), finite
     positive fields and > 90% of the particles alive.  Then
     pseudoPushAndSearch through ``bench_torch.main(mode="pps3d")`` at 10M
-    particles on the Kuhn box: the Kuhn arm (``pps3d-dps``, K and no L3 or
-    P) and the walk arm (``pps3d-dps-walk``, K's push-only form and L3, no
-    K locate) with 1 + 20
-    steps, then ``pps3d-scs`` with 1 + 3 (S and G on tets) and
-    ``pps3d-dps-reflect`` with 1 + 3 (K's push-only form and M, no L3);
+    particles on the Kuhn box: the Kuhn arm (``pps3d-dps``, K and Q and no
+    L3 or P) and the walk arm (``pps3d-dps-walk``, K's push-only form, L3
+    and Q, no K locate) with 1 + 20
+    steps, then ``pps3d-scs`` with 1 + 3 (C, Q, S and G on tets) and
+    ``pps3d-dps-reflect`` with 1 + 3 (K's push-only form, M and Q, no L3);
     require ``num_ptcls`` equal to the active count, no overflow, and all
     10M alive in the Kuhn arm.  Then the GITR-style app through
     ``bench_torch.main(mode="gitr")`` at 10M particles on the 196,608-tet
     box: ``gitr-reflect`` with 1 + 20 steps (all 10M alive throughout) and
     ``gitr-absorb`` with 1 + 3 (``wall_hits`` summing to the particles
-    lost), each launching R, M and W and nothing else.  Then the PseudoXGCm
+    lost), each launching R, M, F and W and nothing else.  Then the PseudoXGCm
     app through its entry points (construction with phase c's cartesian
     grid, then ``run``) at 10M particles on the 120k mesh: Sell-C-σ with 1
     warm-up + 20 timed steps (ms per step from the port's timing registry),
     then CSR, CabM and DPS with 1 + 3; require each layout's launch set
-    (DPS steps launch neither G nor S), ``num_ptcls`` equal to the active
+    (the sorted layouts C, Q and G, SCS and CabM S too; DPS steps Q alone
+    of them), ``num_ptcls`` equal to the active
     count, no overflow, every active element in range and the active pids
     equal to those the last search kept.  After the Sell-C-σ run, G's
     columns form is checked and timed as in (c) on the columns and source
-    rows its 20th timed step's rebuild gathered, and after the Sell-C-σ
-    and CabM runs S on the arguments of their last timed step's slot map;
+    rows its 20th timed step's rebuild gathered, C on the keys it sorted,
+    and after the Sell-C-σ and CabM runs S on the arguments of their last
+    timed step's slot map;
 (e) the distributed runtime as ranks of ``torch.distributed`` groups on
     this card (``pumipic_torch.parallel.group.launch``; the kernels and
     ``libmeshcore`` built here first; every rank's failure or a passed
@@ -130,7 +140,8 @@ sources in this checkout.  Phases, each raising on failure:
     ties, as the JAX package's do); (4) FULL mode over 4 gloo ranks
     against one process (``bench_torch.setup``, one step: fwd and bwd bit
     for bit); (5) ``dryrun_multirank(4, "cuda", "gloo")``, 3D mode and
-    mode 4 (2 x 2 slices) included.  Each rank reports its kernel launches
+    mode 4 (2 x 2 slices) included (its 3D picparts launch C and Q on every
+    rank: the CSR rebuild on arrival).  Each rank reports its kernel launches
     (checked by name, and L's count: on a walk arm each rank launches L in
     every step, on an analytic arm only in the setup's gyro-map walk; X1 5
     times a step, X2 and X3 once, O 3 times on every rank of a 4-rank arm,
@@ -216,6 +227,12 @@ KERNELS = {  # name -> (route, source, replaces)
                        "pumipic_tpu/parallel/migrate.py:386"),
     "owner_reduce": ("cuda", "pumipic_torch/kernels/csrc/owner.cu",
                      "pumipic_tpu/parallel/reduce.py:52"),
+    "gitr_update": ("cuda", "pumipic_torch/kernels/csrc/gitr.cu",
+                    "pumipic_tpu/models/gitr_like.py:119"),
+    "rebuild_mask": ("cuda", "pumipic_torch/kernels/csrc/rebuild.cu",
+                     "pumipic_tpu/particles/structure.py:436"),
+    "key_sort": ("cuda", "pumipic_torch/kernels/csrc/rebuild.cu",
+                 "pumipic_tpu/particles/structure.py:557"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -224,11 +241,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 # the app arms of phase d: structure -> kernels each run's steps must launch
+_SORTED = ("key_sort", "rebuild_mask", "row_gather")
 APP_ARMS = {
-    "scs": ("push", "locate", "histogram", "deposit", "row_gather", "slot_map"),
-    "csr": ("push", "locate", "histogram", "deposit", "row_gather"),
-    "cabm": ("push", "locate", "histogram", "deposit", "row_gather", "slot_map"),
-    "dps": ("push", "locate", "histogram", "deposit"),
+    "scs": ("push", "locate", "histogram", "deposit", "slot_map") + _SORTED,
+    "csr": ("push", "locate", "histogram", "deposit") + _SORTED,
+    "cabm": ("push", "locate", "histogram", "deposit", "slot_map") + _SORTED,
+    "dps": ("push", "locate", "histogram", "deposit", "rebuild_mask"),
 }
 APP_STEPS = {"scs": TIMED_STEPS, "csr": 3, "cabm": 3, "dps": 3}
 
@@ -250,23 +268,24 @@ ARMS = {
 PPS3D_ELEMS = 24_000              # box_tet_mesh(16, 16, 16): 24,576 tets
 _PUSHES_2D = ("push", "push_table")
 PPS3D_ARMS = {
-    "pps3d-dps": ({"kuhn": "auto"}, TIMED_STEPS, ("kuhn_locate",),
+    "pps3d-dps": ({"kuhn": "auto"}, TIMED_STEPS, ("kuhn_locate", "rebuild_mask"),
                   ("locate3d", "push_wrap") + _PUSHES_2D),
-    "pps3d-dps-walk": ({"kuhn": "off"}, TIMED_STEPS, ("push_wrap", "locate3d"),
+    "pps3d-dps-walk": ({"kuhn": "off"}, TIMED_STEPS,
+                       ("push_wrap", "locate3d", "rebuild_mask"),
                        ("kuhn_locate",) + _PUSHES_2D),
     "pps3d-scs": ({"kuhn": "auto", "structure": "scs"}, 3,
-                  ("kuhn_locate", "slot_map", "row_gather"),
+                  ("kuhn_locate", "slot_map", "row_gather", "key_sort", "rebuild_mask"),
                   ("locate3d", "push_wrap") + _PUSHES_2D),
     "pps3d-dps-reflect": ({"kuhn": "off", "wall": "reflect"}, 3,
-                          ("push_wrap", "trace3d"),
+                          ("push_wrap", "trace3d", "rebuild_mask"),
                           ("kuhn_locate", "locate3d") + _PUSHES_2D),
 }
 
 # the GITR-style app's arms of phase d: bench_torch.main keywords and steps;
-# each run launches exactly R, M and W
+# each run launches exactly R, M, F and W
 GITR_ELEMS = 196_608              # box_tet_mesh(32, 32, 32)
 GITR_ARMS = {"gitr-reflect": ("reflect", TIMED_STEPS), "gitr-absorb": ("absorb", 3)}
-GITR_KERNELS = ("boris", "trace3d", "wall_tally")
+GITR_KERNELS = ("boris", "trace3d", "gitr_update", "wall_tally")
 
 # the 2D walk modes' and the deposit's cases (phase c) and path (its end):
 # the near targets' budget (no walker comes near it), the far targets',
@@ -479,6 +498,15 @@ def slot_maps_at(calls: dict):
     from pumipic_torch.ops import rows
 
     return calls_at(rows, "slot_map", calls, lambda *args: args)
+
+
+def key_sorts_at(calls: dict):
+    """Inside the block, capture the keys of the rebuilds' sorts
+    (``ops.rebuild.key_sort``, kernel C) whose call numbers, counted from
+    1, are keys of ``calls``; yields {calls[k]: (keys, max_key)}."""
+    from pumipic_torch.ops import rebuild as rb
+
+    return calls_at(rb, "key_sort", calls, lambda key, max_key: (key, max_key))
 
 
 def smi_query(fields: str, units: bool = True) -> str:
@@ -1167,12 +1195,33 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
                      nbytes(*base, c, *got, None if b is None else b.starts),
                      25.0 * ps.capacity)
     new_elem = located_after_push(mesh, ps, cfg, model.locator, bands)
+    C = ps.capacity
+    # Q's DPS mode: the rebuild's destination check
+    check_rebuild_mask(results, f"dps mode, the rebuild's destinations ({C} slots)",
+                       "rebuild_mask_dps", (new_elem, ps.active, E))
     modes, key = slot_map_inputs(ps, new_elem, E)
+    # C: the rebuild's element sort, at one step's order, in a random
+    # order, with 3 keys and as the DPS add path's 0/1 partition
+    check_key_sort(results, "app step-1 order", key, E)
+    g = torch.Generator(dev).manual_seed(1)
+    check_key_sort(results, "random order", key[torch.randperm(C, device=dev, generator=g)], E)
+    check_key_sort(results, "K = 2", torch.randint(0, 3, (C,), device=dev, generator=g,
+                                                   dtype=torch.int32), 2)
+    check_key_sort(results, "0/1 partition (K = 1)", (key == E).to(torch.int32), 1)
     for layout, sargs in modes.items():
         got = check_slot_map(results, layout, sargs)
         if layout == "scs":
             src = got[0]
-    C = ps.capacity
+            # Q's epilogue mode on the scs slot map and the gathered keys
+            # (each read where its slot is pre-valid)
+            check_rebuild_mask(results, f"epilogue mode, scs ({C} slots)",
+                               "rebuild_mask_epilogue", (got[2], key[src.long()], got[1]),
+                               skip=4 * int((~got[2]).sum()))
+    # Q's prefix mode: a CSR rebuild's first `needed` slots
+    order, start = modes["scs"][1], modes["scs"][2]
+    check_rebuild_mask(results, f"prefix mode, csr ({C} slots)", "rebuild_mask_prefix",
+                       (key[order[:C].long()], start[E]))
+    results["rebuild_mask"]["extra"]["library"] = "none: no one PyTorch call makes the mask"
 
     # G, columns form: the rebuild's fields in place plus the key lane, at
     # one step's locality and at a random permutation of the slots (the
@@ -1223,6 +1272,40 @@ def check_slot_map(results: dict, what: str, sargs):
               lambda: rows.slot_map_plain(*sargs), results)
     record_bound("slot_map", what, results, nbytes(order, start, offsets, row_order, *got))
     return got
+
+
+def check_key_sort(results: dict, what: str, key, max_key: int) -> None:
+    """C on ``key``: equal to the plain version (the stable order), timed
+    beside it and beside torch's stable sort, and its bound (the keys read
+    once, the order written once)."""
+    from pumipic_torch.ops import rebuild as rb
+
+    got = rb.key_sort(key, max_key)
+    passes = rb.key_sort_passes(max_key)
+    compare("key_sort", f"{what} ({key.shape[0]} keys in [0, {max_key}], {len(passes)} "
+            f"passes of {[w for _, w in passes]} bits)", got,
+            rb.key_sort_plain(key, max_key), results)
+    time_pair("key_sort", what, lambda: rb.key_sort(key, max_key),
+              lambda: rb.key_sort_plain(key, max_key), results)
+    record_bound("key_sort", what, results, nbytes(key, got))
+    record_library("key_sort", what, "torch.sort(key, stable=True)",
+                   lambda: torch.sort(key, stable=True), results)
+
+
+def check_rebuild_mask(results: dict, what: str, wrapper: str, args, skip: int = 0) -> None:
+    """Q's mode ``wrapper`` (an ``ops.rebuild`` function) on ``args``: equal
+    to its plain version, timed beside it, and its bound (each input read
+    once, each output written once, less the ``skip`` bytes this data does
+    not need)."""
+    from pumipic_torch.ops import rebuild as rb
+
+    fn, plain = getattr(rb, wrapper), getattr(rb, wrapper + "_plain")
+    got = fn(*args)
+    compare("rebuild_mask", what, got, plain(*args), results)
+    log(f"[c] rebuild_mask {what}: {int(got[2])} slots hold a particle")
+    time_pair("rebuild_mask", what, lambda: fn(*args), lambda: plain(*args), results)
+    record_bound("rebuild_mask", what, results,
+                 nbytes(*(a for a in args if isinstance(a, torch.Tensor)), *got) - skip)
 
 
 def check_columns(results: dict, what: str, cols, src) -> None:
@@ -1383,6 +1466,9 @@ def check_pps3d(results: dict, dev):
               lambda: lo.kuhn_push_locate_plain(*kargs), results)
     # ~30 f32 operations per particle (push, three fmods, floors, id)
     record_bound("kuhn_locate", "", results, nbytes(kargs[1], kargs[2], *got_k), 30.0 * n)
+    # Q's DPS mode: the DPS arm's rebuild of K's ids
+    check_rebuild_mask(results, f"dps mode, pps3d-dps step ({n} slots, {mesh.nelems} tets)",
+                       "rebuild_mask_dps", (got_k[1], ps.active, mesh.nelems))
 
     # K's push-only form (the walk arm's push) on the same positions: equal
     # to its plain version and to K's pushed positions
@@ -1676,9 +1762,36 @@ def check_gitr(results: dict, dev):
                                   "intersection", se.reflect_on_exit_3d, True, "project"),
                   "intersection reflect record_exit recover, budget 2")
 
+    # F: the step's update after the walk, with the reflecting wall (the
+    # specular velocity) and the absorbing one
+    rr, ra = res["intersection", "reflect"], res["intersection", "remove"]
+    for what, r, reflect in (("reflect (gitr step 1)", rr, True), ("absorb", ra, False)):
+        fargs = (s["x"], s["v"], got_r[1], r.dest, r.hit, r.elem_ids, r.num_hits,
+                 s["active"], reflect)
+        got = push_ops.gitr_update(*fargs)
+        compare_bits("gitr_update", f"{what} ({n} particles)", got,
+                     push_ops.gitr_update_plain(*fargs), results)
+        moved = int((got[1] != got_r[1]).any(1)[s["active"]].sum())
+        # the rows this data needs: x where lost, v where inactive, the hit
+        # count where kept and the hit point where it is positive (the
+        # kernel reads no other), v' and dest everywhere
+        n_lost, n_idle = int(got[3].sum()), int((~s["active"]).sum())
+        n_kept = int(got[2].sum()) if reflect else 0
+        n_hit = int((got[2] & (r.num_hits > 0)).sum()) if reflect else 0
+        log(f"[c] gitr_update {what}: {moved} active particles took the specular "
+            f"velocity, {n_lost} lost, {n_idle} inactive, {n_hit} with a hit")
+        time_pair("gitr_update", what, lambda: push_ops.gitr_update(*fargs),
+                  lambda: push_ops.gitr_update_plain(*fargs), results)
+        # ~25 f32 operations a particle
+        record_bound("gitr_update", what, results, nbytes(
+            got_r[1], r.dest, r.elem_ids, s["active"], *got)
+            + 12 * (n_lost + n_idle + n_hit) + 4 * n_kept, 25.0 * n)
+        del got
+    results["gitr_update"].setdefault("extra", {})["library"] = \
+        "none: no one PyTorch call makes the update"
+
     # W: the reflect step's hit counts, the absorb step's lost particles
     F = mesh.nfaces
-    rr, ra = res["intersection", "reflect"], res["intersection", "remove"]
     lost = s["active"] & (ra.elem_ids < 0)
     for what, wargs in (("reflect: num_hits on the last face", (rr.exit_side, s["active"],
                                                                  rr.num_hits, F)),
@@ -2316,8 +2429,9 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     after construction so that they show what a step launches.  Returns
     what the last timed step's rebuild moved, read without launching
     anything and held only after the timed steps: the columns and source
-    rows of its gather (``"gather"``, SCS only) and the arguments of its
-    slot map (``"slot_map"``, the layouts that run kernel S)."""
+    rows of its gather (``"gather"``, SCS only), the arguments of its
+    slot map (``"slot_map"``, the layouts that run kernel S) and the keys
+    of its sort (``"key_sort"``, SCS only)."""
     from pumipic_torch import kernels
     from pumipic_torch.models import pseudo_xgcm as px
     from pumipic_torch.utils import timing
@@ -2338,7 +2452,8 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     # (steps + 1)th
     last = {steps + 1: "last"}
     with gathers_at(last if structure == "scs" else {}) as gathers, \
-            slot_maps_at(last if "slot_map" in APP_ARMS[structure] else {}) as maps:
+            slot_maps_at(last if "slot_map" in APP_ARMS[structure] else {}) as maps, \
+            key_sorts_at(last if structure == "scs" else {}) as sorts:
         app.run(1, verbose=False)                 # warm-up step
         timing.get_registry().reset()
         mem0 = torch.cuda.memory_stats()
@@ -2400,7 +2515,8 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
         raise AssertionError(f"app {structure}: only {int(act.sum())} alive")
     log(f"[d] app {structure}: invariants hold (num_ptcls == active, no overflow, "
         f"ids in range, {got.shape[0]} active pids == the last search's survivors)")
-    return {k: c["last"] for k, c in (("gather", gathers), ("slot_map", maps)) if c}
+    return {k: c["last"] for k, c in (("gather", gathers), ("slot_map", maps),
+                                       ("key_sort", sorts)) if c}
 
 
 # ---------------------------------------------------------------------------
@@ -2702,6 +2818,12 @@ def phase_e(results: dict, dev, grid, smi: str) -> None:
         for r, out in enumerate(counts["ranks"]):
             got = {k: v for k, v in out[mode]["launches"].items() if v}
             log(f"[e] dryrun {mode} rank {r} kernel launches: {got}")
+            # the 3D picparts step rebuilds its CSR structure on arrival
+            # (migrate_structure): kernels C and Q
+            if mode == "picparts-3d" and E_DEVICE == "cuda" and not (
+                    got.get("key_sort") and got.get("rebuild_mask")):
+                raise AssertionError(f"dryrun picparts-3d rank {r}: no key_sort or "
+                                     f"rebuild_mask launch")
     log(f"[e] arm 5 dryrun_multirank({E_RANKS}, {E_DEVICE}, gloo): {counts['seconds']:.1f} s")
 
 
@@ -2730,6 +2852,8 @@ def main() -> int:
             check_columns(results, f"columns form, app step-{steps} order", *last["gather"])
         if "slot_map" in last:      # S at the app's own order
             check_slot_map(results, f"{structure}, app step-{steps} order", last["slot_map"])
+        if "key_sort" in last:      # C at the app's own order after 20 steps
+            check_key_sort(results, f"app step-{steps} order", *last["key_sort"])
         del last
     torch.cuda.empty_cache()
     phase_e(results, dev, grid, smi)

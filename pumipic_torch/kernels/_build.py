@@ -136,6 +136,17 @@ SIGNATURES = {
         _P, _P, _I, _I, _P, _P, _I, _I,      # field recv w V offsets rows op is_int
         ctypes.c_uint, _P, _P, _P],          # neutral out back stream
     "pp_owner_fan_out": [_P, _P, _I, _L, _P, _P, _P],  # field back w V row_of out stream
+    "pp_gitr_update": [
+        _P, _P, _P, _P, _P, _P, _P, _P,      # x v v_new dest hit elem num_hits active
+        _I, _F, _P, _P, _P, _P,              # reflect tiny x_out v_out active_out lost
+        _L, _P],                             # n stream
+    "pp_rebuild_mask": [
+        _I, _P, _P, _P, _I, _P,              # mode a m b n_elems needed
+        _P, _P, _P, _L, _P],                 # elem_out active_out num n stream
+    "pp_key_sort": [
+        _P, _L, _I, _P, _P, _P,              # key n bits order tile_counts totals
+        _P, _P, _P, _P, _P],                 # ka ia kb ib stream
+    "pp_key_sort_tiles": [_L],
     "pp_slot_map": [
         _I, _P, _P, _P, _I,                  # cabm order start offsets n_seg
         _P, _I, _I, _I, _L, _I,              # row_to_elem n_rows chunk E C M

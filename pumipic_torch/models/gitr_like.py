@@ -15,10 +15,11 @@ of :class:`GitrLike`:
    ``method="intersection"`` and ``record_exit``): the Möller–Trumbore walk
    from each particle's tet to its new position, removing it at the wall
    (``wall="absorb"``) or mirroring it there (``wall="reflect"``);
-3. reflect: the specular velocity, |v| along the last leg from the last hit
-   point to the mirrored destination;
-4. the state update (a lost particle keeps its position);
-5. kernel W (:func:`~pumipic_torch.ops.scatter.wall_tally`): each lost
+3. kernel F (:func:`~pumipic_torch.ops.push.gitr_update`): with the
+   reflecting wall the specular velocity, |v| along the last leg from the
+   last hit point to the mirrored destination; the state update (a lost
+   particle keeps its position) and the lost mask;
+4. kernel W (:func:`~pumipic_torch.ops.scatter.wall_tally`): each lost
    particle counts once on its exit face (absorb), each reflecting particle
    its ``num_hits`` on its last face hit (reflect), added to ``wall_hits``
    as f32.
@@ -37,7 +38,6 @@ import torch
 
 from pumipic_torch.mesh.core import Mesh3D
 from pumipic_torch.ops import push as push_ops
-from pumipic_torch.ops.geometry import sqrt_rn
 from pumipic_torch.ops import scatter as scatter_ops
 from pumipic_torch.ops import search as search_ops
 from pumipic_torch.utils.device import resolve_device
@@ -145,24 +145,12 @@ class GitrLike:
                               else search_ops.remove_on_exit),
             method="intersection", record_exit=cfg.count_wall_hits or reflect)
         self.iters = res.iters
-        lost = active & (res.elem_ids < 0)
-        dest = res.dest                 # on the card, kernel M's own (N, 3) output
-        if reflect:
-            # specular wall: the walk mirrored the destination across each
-            # hit face; the velocity follows, |v| along the last leg (from
-            # the last hit point to the mirrored destination)
-            leg = dest - res.hit
-            leg_n = _norm(leg)
-            v_spec = _norm(v_new) * leg / torch.clamp(leg_n, min=1e-30)
-            bounced = (active & (res.elem_ids >= 0) & (res.num_hits > 0)
-                       & (leg_n[:, 0] > 1e-30))
-            v_new = torch.where(bounced[:, None], v_spec, v_new)
-        state = {
-            "x": torch.where(lost[:, None], x, dest),
-            "v": torch.where(active[:, None], v_new, v),
-            "elem": res.elem_ids,
-            "active": active & (res.elem_ids >= 0),
-        }
+        # kernel F: the specular velocity (reflect), the lost mask and the
+        # state update; on the card dest and hit are kernel M's own (N, 3)
+        # outputs
+        x, v, active_new, lost = push_ops.gitr_update(
+            x, v, v_new, res.dest, res.hit, res.elem_ids, res.num_hits, active, reflect)
+        state = {"x": x, "v": v, "elem": res.elem_ids, "active": active_new}
         if cfg.count_wall_hits:
             if reflect:
                 counts = scatter_ops.wall_tally(res.exit_side, active, res.num_hits,
@@ -182,8 +170,3 @@ class GitrLike:
             history.append(int(self.state["active"].sum()))
         return history
 
-
-def _norm(a: torch.Tensor) -> torch.Tensor:
-    """(N, 1) Euclidean norms of (N, 3) rows, the squares summed left to
-    right, the sqrt correctly rounded (the same on the card and the CPU)."""
-    return sqrt_rn(a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1] + a[:, 2] * a[:, 2])[:, None]

@@ -541,3 +541,74 @@ def boris_push_grid(x: torch.Tensor, v: torch.Tensor, e_grid: torch.Tensor,
     _build.check(err, "boris")
     kernels.LAUNCHES["boris"] += 1
     return x_out, v_out
+
+
+# the f32 rounding of the specular update's 1e-30: torch, like JAX, clamps
+# and compares an f32 tensor with a Python scalar in f32
+GITR_TINY = float(np.float32(1e-30))
+
+
+def gitr_update_plain(x, v, v_new, dest, hit, elem, num_hits, active, reflect: bool):
+    """Plain version of kernel F: the GITR-style step's state update after
+    the walk (``pumipic_tpu/models/gitr_like.py:119-141``), the norms'
+    squares summed left to right and their sqrt correctly rounded."""
+    lost = active & (elem < 0)
+    if reflect:
+        # specular wall: |v'| along the last leg, from the last hit point
+        # to the mirrored destination
+        leg = dest - hit
+        leg_n = _norm(leg)
+        v_spec = _norm(v_new) * leg / torch.clamp(leg_n, min=1e-30)
+        bounced = active & (elem >= 0) & (num_hits > 0) & (leg_n[:, 0] > 1e-30)
+        v_new = torch.where(bounced[:, None], v_spec, v_new)
+    return (torch.where(lost[:, None], x, dest), torch.where(active[:, None], v_new, v),
+            active & (elem >= 0), lost)
+
+
+def _norm(a: torch.Tensor) -> torch.Tensor:
+    """(N, 1) Euclidean norms of (N, 3) rows, the squares summed left to
+    right, the sqrt correctly rounded (the same on the card and the CPU)."""
+    return sqrt_rn(a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1] + a[:, 2] * a[:, 2])[:, None]
+
+
+def gitr_update(x: torch.Tensor, v: torch.Tensor, v_new: torch.Tensor,
+                dest: torch.Tensor, hit: Optional[torch.Tensor], elem: torch.Tensor,
+                num_hits: Optional[torch.Tensor], active: torch.Tensor, reflect: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x, v, active, lost) after the GITR-style step's walk: from the step's
+    positions ``x``, velocities ``v`` and pushed velocities ``v_new`` ((N,
+    3) f32 each), the walk's destinations ``dest``, last hit points ``hit``
+    ((N, 3) f32; read with ``reflect`` only), new elements ``elem`` and hit
+    counts ``num_hits`` ((N,) i32) and the step's ``active`` mask.  With
+    ``reflect`` a particle that bounced (active, kept, hit the wall and
+    moved past its last hit point) takes the specular velocity |v'|·(dest
+    - hit)/|dest - hit|; a particle lost keeps its position, every other
+    one moves to ``dest``; an active particle takes its new velocity.
+    ``lost`` = active and removed.  Kernel F (``kernels/csrc/gitr.cu``) on
+    CUDA tensors, :func:`gitr_update_plain` on CPU tensors."""
+    tensors = [x, v, v_new, dest, elem, active] + ([hit, num_hits] if reflect else [])
+    if not kernels.use_kernel("gitr_update", *tensors):
+        return gitr_update_plain(x, v, v_new, dest, hit, elem, num_hits, active, reflect)
+    n = x.shape[0]
+    if (any(t.dtype != torch.float32 or t.shape != (n, 3)
+            for t in (x, v, v_new, dest) + ((hit,) if reflect else ()))
+            or elem.dtype != torch.int32 or elem.shape != (n,)
+            or active.dtype != torch.bool or active.shape != (n,)
+            or (reflect and (num_hits.dtype != torch.int32 or num_hits.shape != (n,)))):
+        raise ValueError("gitr_update: (N, 3) f32 x, v, v_new, dest (and hit), (N,) i32 "
+                         "elem (and num_hits) and an (N,) bool active expected")
+    x_out, v_out = torch.empty_like(x), torch.empty_like(v)
+    active_out = torch.empty_like(active)
+    lost = torch.empty_like(active)
+    if n == 0:
+        return x_out, v_out, active_out, lost
+    P = ctypes.c_void_p
+    hit_p, nh_p = (P(hit.data_ptr()), P(num_hits.data_ptr())) if reflect else (P(0), P(0))
+    err = _build.lib().pp_gitr_update(
+        P(x.data_ptr()), P(v.data_ptr()), P(v_new.data_ptr()), P(dest.data_ptr()),
+        hit_p, P(elem.data_ptr()), nh_p, P(active.data_ptr()), int(reflect),
+        GITR_TINY, P(x_out.data_ptr()), P(v_out.data_ptr()), P(active_out.data_ptr()),
+        P(lost.data_ptr()), n, P(kernels.stream_handle()))
+    _build.check(err, "gitr_update")
+    kernels.LAUNCHES["gitr_update"] += 1
+    return x_out, v_out, active_out, lost

@@ -16,11 +16,14 @@ new structure.  ``num_ptcls`` and ``overflowed`` stay 0-d device tensors, so
 a ``rebuild`` never waits for the host (``mode="auto"`` does: it reads the
 fits check to pick reshuffle or sort).
 
-Kernels on the card: the slot map of the sorted SCS/CabM rebuild is kernel
+Kernels on the card: the stable element sort of every sorted rebuild and
+of ``get_pids`` is kernel C, the destinations' check and count of every
+rebuild and the output mask and count of the sorted ones are kernel Q
+(``ops/rebuild.py``), the slot map of the sorted SCS/CabM rebuild is kernel
 S, every field move is kernel G (columns form: the fields in place plus the
-key lane), particles per element is kernel H.  The stable element sort, the
-cumsums and ``searchsorted`` are torch calls, as the JAX package leaves them
-to XLA.
+key lane), particles per element is kernel H.  The cumsums, the σ-window
+sort of the SCS row order and the reshuffle's ``searchsorted`` and mover
+sort are torch calls, as the JAX package leaves them to XLA.
 
 Knobs the JAX package needs only on the TPU are accepted and mapped onto the
 one GPU path: ``PACKED_REBUILD_GATHER`` and ``PACKED_REBUILD_BYTES_LIMIT``
@@ -46,6 +49,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from pumipic_torch.ops import rebuild as rebuild_ops
 from pumipic_torch.ops import rows as rows_ops
 from pumipic_torch.utils.device import resolve_device
 from pumipic_torch.utils.types import LID_DTYPE, round_up
@@ -163,7 +167,7 @@ class ParticleStructure:
         """getPIDs analog (ps_for.hpp:63-85): element-sorted slot ids +
         per-element offsets (inactive slots sorted to the tail)."""
         key = torch.where(self.active, self.elem, self.num_elems)
-        order = torch.sort(key, stable=True).indices.to(LID)
+        order = rebuild_ops.key_sort(key, self.num_elems)
         counts = self.ppe()
         offsets = torch.cat([counts.new_zeros(1),
                              torch.cumsum(counts, 0, dtype=counts.dtype)])
@@ -355,17 +359,14 @@ def _rebuild(ps: ParticleStructure, new_elem: torch.Tensor,
     dev = ps.device
     # out-of-range destinations (>= num_elems) are removals, exactly like
     # negatives, in every layout
-    ne = torch.as_tensor(new_elem, device=dev).to(LID)
-    elem = torch.where(ps.active & (ne >= 0) & (ne < ps.num_elems), ne, -1)
-    active = elem >= 0
+    ne = torch.as_tensor(new_elem, device=dev).to(LID).contiguous()
+    elem, active, n_kept = rebuild_ops.rebuild_mask_dps(ne, ps.active, ps.num_elems)
     fields = ps.fields
 
     if ps.layout == "dps" and new_ptcl_elems is None:
         # DPS rebuild (dps_rebuild.hpp): rewrite parent element and
         # activity in place; no sorting, no field movement
-        return dataclasses.replace(
-            ps, elem=elem, active=active,
-            num_ptcls=torch.sum(active, dtype=torch.int32))
+        return dataclasses.replace(ps, elem=elem, active=active, num_ptcls=n_kept)
 
     if new_ptcl_elems is not None:
         ape = torch.as_tensor(new_ptcl_elems, device=dev).to(LID)
@@ -380,7 +381,7 @@ def _rebuild(ps: ParticleStructure, new_elem: torch.Tensor,
         E = ps.num_elems
         if ps.layout == "csr":
             key = torch.where(active, elem, E)
-            order = torch.sort(key, stable=True).indices
+            order = rebuild_ops.key_sort(key, E)
             counts = histogram(elem, active, E)
             start = torch.cat([counts.new_zeros(1),
                                torch.cumsum(counts, 0, dtype=LID)])
@@ -388,19 +389,16 @@ def _rebuild(ps: ParticleStructure, new_elem: torch.Tensor,
             needed = start[E]
         else:
             key = elem
-            order = torch.sort(torch.where(active, 0, 1).to(LID), stable=True).indices
+            order = rebuild_ops.key_sort(torch.where(active, 0, 1).to(LID), 1)
             elem_offsets = None
             needed = torch.sum(active, dtype=LID)
         take = order[:C]
-        j = torch.arange(C, dtype=LID, device=dev)
-        out_active = j < needed
         out_fields, (sk,) = _gather_fields(fields, take, extra=(key,))
-        out_elem = torch.where(out_active, sk, -1)
         # count the OUTPUT mask: under overflow the input count exceeds the
         # placed survivors
+        out_elem, out_active, n = rebuild_ops.rebuild_mask_prefix(sk, needed)
         return dataclasses.replace(
-            ps, fields=out_fields, elem=out_elem, active=out_active,
-            num_ptcls=torch.sum(out_active, dtype=torch.int32),
+            ps, fields=out_fields, elem=out_elem, active=out_active, num_ptcls=n,
             elem_offsets=elem_offsets, row_to_elem=None, elem_to_row=None,
             overflowed=ps.overflowed | (needed > C))
 
@@ -423,7 +421,7 @@ def _rebuild_sorted(ps: ParticleStructure, elem: torch.Tensor,
     dev = ps.device
     E, M = ps.num_elems, elem.shape[0]
     key = torch.where(active, elem, E)
-    order = torch.sort(key, stable=True).indices.to(LID)
+    order = rebuild_ops.key_sort(key, E)
     counts = histogram(elem, active, E)
     start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=LID)])
 
@@ -460,10 +458,9 @@ def _rebuild_sorted(ps: ParticleStructure, elem: torch.Tensor,
     # are key-sorted, so a rank past the element's count lands on a larger
     # key (or the E sentinel)
     out_fields, (key_src,) = _gather_fields(fields, src, extra=(key,))
-    valid = pre_valid & (key_src == elem_c)
+    out_elem, valid, n = rebuild_ops.rebuild_mask_epilogue(pre_valid, key_src, elem_c)
     return dataclasses.replace(
-        ps, fields=out_fields, elem=torch.where(valid, elem_c, -1).to(LID),
-        active=valid, num_ptcls=torch.sum(valid, dtype=torch.int32),
+        ps, fields=out_fields, elem=out_elem, active=valid, num_ptcls=n,
         elem_offsets=elem_offsets, row_to_elem=row_to_elem,
         elem_to_row=elem_to_row, seg_cap=seg_cap,
         overflowed=ps.overflowed | (needed > C))

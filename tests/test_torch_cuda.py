@@ -1,7 +1,7 @@
 """Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D, G,
-S, K, L3, the GITR-style app's R, M and W, the 2D walk modes' M2 and the
-deposit V, with their modes, and the distributed step's X1, X2, X3 and O
-on tests/torch_ranks.py's adversarial cases) against its plain PyTorch
+S, K, L3, the GITR-style app's R, M, F and W, the 2D walk modes' M2 and the
+deposit V, with their modes, the rebuild's Q and C, and the distributed
+step's X1, X2, X3 and O on tests/torch_ranks.py's adversarial cases) against its plain PyTorch
 version on the same CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
 lengths and R's corner rows at their edges.
 
@@ -27,6 +27,7 @@ from pumipic_torch.models import pseudo_xgcm as px
 from pumipic_torch.ops import exchange as ex
 from pumipic_torch.ops import locate as lo
 from pumipic_torch.ops import push as push_ops
+from pumipic_torch.ops import rebuild as rb
 from pumipic_torch.ops import scatter as sc
 from pumipic_torch.ops import search as se
 
@@ -1540,3 +1541,125 @@ def test_owner_kernels_equal_plain(dev, case):
     _same_bits(ex.owner_fan_in(f, rv, rid, op), ex.owner_fan_in_plain(f, rv, rid, op), nan)
     _same_bits(ex.owner_fan_out(f, back, sid), ex.owner_fan_out_plain(f, back, sid), nan)
     assert kernels.LAUNCHES["owner_reduce"] == n0 + 3
+
+
+# ---------------------------------------------------------------------------
+# F (the GITR step's update), Q (the rebuild's mask) and C (its sort)
+# ---------------------------------------------------------------------------
+
+def _gitr_update_case(n, dev, seed):
+    """Kernel F's inputs: active and inactive, lost, hit counts 0 to 3,
+    last legs of zero, of ~1e-21 (subnormal squares: |leg| just above 0)
+    and of ~1e-2, NaN destinations, N(0, 1e3) velocities."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = rng.uniform(0, 1, (n, 3)).astype(f)
+    v, v_new = (rng.normal(0, 1e3, (n, 3)).astype(f) for _ in range(2))
+    dest = rng.uniform(0, 1, (n, 3)).astype(f)
+    pick = rng.random(n)[:, None]
+    leg = np.where(pick < 0.1, 0.0, np.where(pick < 0.2, 1e-21, 1e-2)) * rng.normal(size=(n, 3))
+    hit = (dest - leg.astype(f)).astype(f)
+    tiny = pick[:, 0] < 0.2                # near the origin, so the legs stay exact
+    hit[tiny] = 0.0
+    dest[tiny] = leg[tiny].astype(f)
+    dest[rng.random(n) < 0.01] = np.nan
+    elem = np.where(rng.random(n) < 0.1, -1, rng.integers(0, 50, n)).astype(np.int32)
+    num_hits = np.where(rng.random(n) < 0.3, 0, rng.integers(1, 4, n)).astype(np.int32)
+    active = rng.random(n) < 0.8
+    return [_dev_tensor(a, dev) for a in (x, v, v_new, dest, hit, elem, num_hits, active)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 1_000_003])
+@pytest.mark.parametrize("reflect", [False, True])
+def test_gitr_update_kernel_equals_plain(dev, reflect, n):
+    args = _gitr_update_case(n, dev, n + reflect)
+    n0 = kernels.LAUNCHES["gitr_update"]
+    got = push_ops.gitr_update(*args, reflect)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gitr_update"] == n0 + (1 if n else 0)
+    _same_bits(got, push_ops.gitr_update_plain(*args, reflect))
+    if reflect and n > 1000:        # ~45% bounce, the subnormal legs among them
+        assert int((got[1] != args[2]).any(1)[args[7]].sum()) > n // 3
+
+
+def _mask_case(mode, n, dev, seed):
+    rng = np.random.default_rng(seed)
+    E = 1000
+    a = _dev_tensor(np.where(rng.random(n) < 0.2, rng.integers(-3, E + 3, n),
+                             rng.integers(0, E, n)).astype(np.int32), dev)
+    m = _dev_tensor(rng.random(n) < 0.8, dev)
+    if mode == "dps":
+        return rb.rebuild_mask_dps, rb.rebuild_mask_dps_plain, (a, m, E)
+    if mode == "epilogue":
+        b = torch.where(_dev_tensor(rng.random(n) < 0.7, dev), a,
+                        _dev_tensor(rng.integers(0, E, n).astype(np.int32), dev))
+        return rb.rebuild_mask_epilogue, rb.rebuild_mask_epilogue_plain, (m, b, a)
+    needed = torch.tensor(int(rng.integers(0, n + 2)) if n else 0, dtype=torch.int32,
+                          device=dev)
+    return rb.rebuild_mask_prefix, rb.rebuild_mask_prefix_plain, (a, needed)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 1_000_003, 11_999_376])
+@pytest.mark.parametrize("mode", ["dps", "epilogue", "prefix"])
+def test_rebuild_mask_kernel_equals_plain(dev, mode, n):
+    fn, plain, args = _mask_case(mode, n, dev, n)
+    n0 = kernels.LAUNCHES["rebuild_mask"]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rebuild_mask"] == n0 + (1 if n else 0)
+    _same_bits(got, plain(*args))
+
+
+def _sort_case(case, dev):
+    """(keys, max_key) on the card."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+
+    def randint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=torch.int32)
+
+    E = 122_603
+    if case.startswith("app"):
+        n = 11_999_376
+        k = torch.sort(randint(0, E, n)).values
+        k = torch.where(torch.rand(n, generator=g, device=dev) < 0.05, E, k)
+        if case.endswith("random order"):
+            k = k[torch.randperm(n, generator=g, device=dev)]
+        else:                              # nearly sorted: a few moves
+            sel = torch.randperm(n, generator=g, device=dev)[:n // 100]
+            k[sel] = randint(0, E + 1, sel.shape[0])
+        return k, E
+    n = {"K = 2, 10M": 10_000_000, "0/1 partition, 10M": 10_000_000,
+         "pps3d, 24,576 tets": 10_000_000}.get(case, 1_000_003)
+    if case == "K = 2, 10M":
+        return randint(0, 3, n), 2
+    if case == "0/1 partition, 10M":
+        return (torch.rand(n, generator=g, device=dev) < 0.3).to(torch.int32), 1
+    if case == "pps3d, 24,576 tets":
+        return randint(0, 24_577, n), 24_576
+    if case == "K = 2^31 - 1 (4 passes)":
+        return randint(0, 2**31 - 1, n), 2**31 - 1
+    if case == "K = 2^18 (3 passes)":
+        return randint(0, 2**18 + 1, n), 2**18
+    if case == "all equal":
+        return torch.full((n,), 7, dtype=torch.int32, device=dev), 9
+    if case == "all sentinel":
+        return torch.full((n,), E, dtype=torch.int32, device=dev), E
+    size = int(case.split()[-1])
+    return randint(0, 300, size), 299
+
+
+SORT_CASES = ["app, nearly sorted", "app, random order", "K = 2, 10M", "0/1 partition, 10M",
+              "pps3d, 24,576 tets", "K = 2^31 - 1 (4 passes)", "K = 2^18 (3 passes)",
+              "all equal", "all sentinel", "n = 0", "n = 1", "n = 4095", "n = 4096",
+              "n = 4097"]
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_key_sort_kernel_equals_plain(dev, case):
+    key, K = _sort_case(case, dev)
+    n0 = kernels.LAUNCHES["key_sort"]
+    got = rb.key_sort(key, K)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["key_sort"] == n0 + (1 if key.numel() else 0)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, rb.key_sort_plain(key, K))

@@ -9,8 +9,10 @@ equal (ids but for counted shared-face ties); positions atol 1e-5 and
 velocities rtol 1e-4 of |v|, because XLA contracts some of the field sum's
 and the push's products into FMAs (an ulp) and the specular velocity
 divides by the last leg's length, which turns a position ulp into a larger
-velocity one.  pseudoPushAndSearch with the reflecting wall: every
-structure array, position and pid equal.
+velocity one.  Kernel F's plain version (the step's update after the
+walk) against the JAX step's expressions: positions, masks and which
+particles bounce equal, velocities within V_RTOL.  pseudoPushAndSearch
+with the reflecting wall: every structure array, position and pid equal.
 """
 import dataclasses as dc
 
@@ -27,6 +29,7 @@ from pumipic_torch import interop
 from pumipic_torch.mesh.core import Mesh3D
 from pumipic_torch.models import gitr_like as tg
 from pumipic_torch.models import pseudo_push_and_search as tp
+from pumipic_torch.ops import push as t_push
 from pumipic_torch.ops import search as t_se
 
 X_ATOL, V_RTOL = 1e-5, 1e-4
@@ -169,6 +172,95 @@ def test_gitr_reflect_reflects_velocity():
     assert float(app.wall_hits.sum()) == 4.0 and bool(mesh.side_is_exposed[hit].all())
     fx = mesh.coords[mesh.face2verts[hit].long()][..., 0]
     assert bool((fx == 1.0).all())
+
+
+# ---------------------------------------------------------------------------
+# kernel F's plain version (the step's update after the walk)
+# ---------------------------------------------------------------------------
+
+def _jax_update(x, v, v_new, dest, hit, elem, num_hits, active, reflect):
+    """The JAX package's step between the walk and the tally
+    (``pumipic_tpu/models/gitr_like.py:119-141``), on jnp arrays."""
+    x, v, v_new, dest, hit = (jnp.asarray(a) for a in (x, v, v_new, dest, hit))
+    elem, num_hits, active = (jnp.asarray(a) for a in (elem, num_hits, active))
+    lost = active & (elem < 0)
+    if reflect:
+        leg = jnp.stack([d - h for d, h in zip(dest.T, hit.T)], axis=-1)
+        leg_n = jnp.linalg.norm(leg, axis=-1, keepdims=True)
+        v_spec = (jnp.linalg.norm(v_new, axis=-1, keepdims=True)
+                  * leg / jnp.maximum(leg_n, 1e-30))
+        bounced = (active & (elem >= 0) & (num_hits > 0) & (leg_n[:, 0] > 1e-30))
+        v_new = jnp.where(bounced[:, None], v_spec, v_new)
+    return (jnp.where(lost[:, None], x, dest), jnp.where(active[:, None], v_new, v),
+            active & (elem >= 0), lost)
+
+
+def _update_inputs(n, seed):
+    """Active and inactive particles, lost ones (element -1), hit counts 0
+    to 3, last legs of zero (the destination on the hit point), of 1e-12
+    and of ~1e-2, N(0, 1e3) velocities."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = rng.uniform(0, 1, (n, 3)).astype(f)
+    v = rng.normal(0, 1e3, (n, 3)).astype(f)
+    v_new = rng.normal(0, 1e3, (n, 3)).astype(f)
+    dest = rng.uniform(0, 1, (n, 3)).astype(f)
+    pick = rng.random(n)[:, None]
+    leg = np.where(pick < 0.1, 0.0, np.where(pick < 0.2, 1e-12, 1e-2)) * rng.normal(
+        size=(n, 3))
+    hit = (dest - leg.astype(f)).astype(f)
+    elem = np.where(rng.random(n) < 0.1, -1, rng.integers(0, 50, n)).astype(np.int32)
+    num_hits = np.where(rng.random(n) < 0.3, 0, rng.integers(1, 4, n)).astype(np.int32)
+    active = rng.random(n) < 0.8
+    return x, v, v_new, dest, hit, elem, num_hits, active
+
+
+@pytest.mark.parametrize("reflect", [False, True])
+def test_gitr_update_plain_matches_reference(reflect):
+    """Kernel F's plain version against the JAX step's expressions: x,
+    active and lost equal; v within V_RTOL of |v| (XLA's norm may round its
+    sum otherwise), the particles that bounced the same."""
+    args = _update_inputs(5000, 9 + reflect)
+    want = _jax_update(*args, reflect)
+    got = t_push.gitr_update(*(torch.as_tensor(a) for a in args), reflect)
+    for g, w in zip(got, want):
+        assert g.dtype == {np.dtype(np.float32): torch.float32,
+                           np.dtype(bool): torch.bool}[np.asarray(w).dtype]
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    vj = np.asarray(want[1])
+    vmag = np.linalg.norm(vj, axis=1, keepdims=True)
+    assert (np.abs(got[1].numpy() - vj) <= V_RTOL * vmag).all()
+    # which particles took the specular velocity
+    vn = args[2]
+    np.testing.assert_array_equal((got[1].numpy() != vn).any(1), (vj != vn).any(1))
+    if reflect:
+        kept = args[7] & (args[5] >= 0)
+        moved = kept & (args[6] > 0) & (np.abs(args[3] - args[4]).max(1) > 0)
+        act = args[7]
+        assert ((vj != vn).any(1)[act] == moved[act]).all() and moved.sum() > 1000
+        # speed conserved where reflected
+        np.testing.assert_allclose(np.linalg.norm(got[1].numpy()[moved], axis=1),
+                                   np.linalg.norm(vn[moved], axis=1), rtol=1e-5)
+    else:
+        assert not (vj[args[7]] != vn[args[7]]).any()
+
+
+def test_gitr_update_threshold_is_the_f32_rounding_of_1e_30():
+    """The specular update clamps and compares |leg| with 1e-30: torch and
+    JAX both take its f32 rounding on an f32 array, so f32(1e-30) itself is
+    not above it (the f64 constant would be below it) and the next f32 up
+    is; kernel F is given that constant."""
+    f = np.float32
+    t = f(1e-30)
+    vals = np.array([np.nextafter(t, f(0)), t, np.nextafter(t, f(1))], f)
+    want = [False, False, True]
+    assert (torch.as_tensor(vals) > 1e-30).tolist() == want
+    assert np.asarray(jnp.asarray(vals) > 1e-30).tolist() == want
+    assert t_push.GITR_TINY == float(t) and float(t) > 1e-30
+    np.testing.assert_array_equal(torch.clamp(torch.as_tensor(vals), min=1e-30).numpy(),
+                                  np.asarray(jnp.maximum(jnp.asarray(vals), 1e-30)))
 
 
 # ---------------------------------------------------------------------------

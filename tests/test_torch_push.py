@@ -254,8 +254,8 @@ def test_kernel_build_flags():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.sources()) == [
         "annulus.cu", "band.cu", "boris.cu", "deposit.cu", "exchange.cu", "gather.cu",
-        "histogram.cu", "kuhn.cu", "locate.cu", "locate3d.cu", "owner.cu", "push.cu",
-        "slotmap.cu", "trace2d.cu", "trace3d.cu", "vdeposit.cu"]
+        "gitr.cu", "histogram.cu", "kuhn.cu", "locate.cu", "locate3d.cu", "owner.cu",
+        "push.cu", "rebuild.cu", "slotmap.cu", "trace2d.cu", "trace3d.cu", "vdeposit.cu"]
     assert "-shared" not in _build.NVCC_FLAGS      # compile flags; the link adds it
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()
