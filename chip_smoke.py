@@ -44,7 +44,11 @@ sources in this checkout.  Phases, each raising on failure:
     rebuild's shapes, at one step's locality and at a random order of the
     slots, Q's three modes (the destinations' check, the scs epilogue on
     S's outputs, the csr prefix) and C on the rebuild's keys (one step's
-    order, a random order, K = 2 and the 0/1 partition); B and L's
+    order, a random order, K = 2 and the 0/1 partition; its fused mode on
+    the rebuild's (elem, active, E) keeping the key and on the 0/1
+    partition's mask; keys outside [0, K]: 100 among the app's, keys in
+    [-K, K], every int32; each bit-equal to ``torch.sort(stable=True)``,
+    with its design floor beside its bound); B and L's
     given-cells mode on the flux-band grid; A on the 23,976-element annulus at 10M, in the
     generator's element order and through a random element permutation;
     P's table mode at 10M over the (122,603, 2) rotation table; on
@@ -74,7 +78,9 @@ sources in this checkout.  Phases, each raising on failure:
     final parent, a random charge) and as the weighted
     ``particles_per_element`` (an f32 ``index_add_`` as its yardstick),
     each in the particles' own order and in a random order of them, run
-    twice for equal bits; require 2-10% of the walkers to hit the wall,
+    twice for equal bits, and with non-finite charges among them (the
+    reference's NaN and inf pattern, every other output the deposit
+    without the bad particles); require 2-10% of the walkers to hit the wall,
     no walker lost with reflect but at the loop limit (counted), the
     removed walkers to be those with a real hit, the deposit to conserve
     the charge within V's bound and H's count to equal the active
@@ -143,7 +149,7 @@ sources in this checkout.  Phases, each raising on failure:
     mode 4 (2 x 2 slices) included (its 3D picparts launch C and Q on every
     rank: the CSR rebuild on arrival).  Each rank reports its kernel launches
     (checked by name, and L's count: on a walk arm each rank launches L in
-    every step, on an analytic arm only in the setup's gyro-map walk; X1 5
+    every step, on an analytic arm only in the setup's gyro-map walk; X1 4
     times a step, X2 and X3 once, O 3 times on every rank of a 4-rank arm,
     O alone on the 1-rank arm), every step's stats, reduced field and
     deposit: on every step no overflow, unresolved arrival, illegal
@@ -170,6 +176,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -501,12 +508,14 @@ def slot_maps_at(calls: dict):
 
 
 def key_sorts_at(calls: dict):
-    """Inside the block, capture the keys of the rebuilds' sorts
-    (``ops.rebuild.key_sort``, kernel C) whose call numbers, counted from
-    1, are keys of ``calls``; yields {calls[k]: (keys, max_key)}."""
+    """Inside the block, capture the rebuilds' sorts (``ops.rebuild.
+    masked_key_sort``, kernel C's fused mode) whose call numbers, counted
+    from 1, are keys of ``calls``; yields {calls[k]: (elem, active,
+    fill)}."""
     from pumipic_torch.ops import rebuild as rb
 
-    return calls_at(rb, "key_sort", calls, lambda key, max_key: (key, max_key))
+    return calls_at(rb, "masked_key_sort", calls,
+                    lambda elem, active, fill, keep_key=False: (elem, active, fill))
 
 
 def smi_query(fields: str, units: bool = True) -> str:
@@ -791,6 +800,50 @@ def check_vdeposit_case(results: dict, what: str, fn, plain, inputs, out, terms,
                        0, keys, terms), results)
 
 
+def check_vdeposit_non_finite(results: dict, mesh, e1, a1, bcc, q) -> None:
+    """V with non-finite charges among the path's particles (a NaN, a
+    +inf, a -inf, a +inf and a -inf in one element, an inactive NaN):
+    equal to the plain version bit for bit (NaN only where an active term
+    is NaN or both infinities meet, the infinity where only it does), and
+    every other output the finite deposit of the same particles with the
+    bad ones dropped, bit for bit."""
+    from pumipic_torch.ops import scatter as sc
+
+    act = torch.nonzero(a1).flatten()
+    k = act.shape[0]
+    pair = act[e1[act] == e1[act[0]]][:2]       # two in one element, then three apart
+    bad = torch.cat([act[[k // 4, k // 2, 3 * k // 4]], pair])
+    bq = q.clone()
+    bq[bad] = torch.tensor([math.nan, math.inf, -math.inf, math.inf, -math.inf],
+                           device=q.device)
+    inact = torch.nonzero(~a1).flatten()[:1]
+    bq[inact] = math.nan
+    kept = a1.clone()
+    kept[bad] = False
+    V, E = mesh.nverts, mesh.nelems
+    for what, fn, plain in (
+            ("scatter_to_verts_bcc",
+             lambda a, c: sc.scatter_to_verts_bcc(e1, a, bcc, mesh.elem2verts, V, c),
+             lambda a, c: sc.vertex_deposit_plain(bcc, c, e1, a, mesh.elem2verts, V)),
+            ("weighted particles_per_element",
+             lambda a, c: sc.particles_per_element(e1, a, E, c),
+             lambda a, c: sc.vertex_deposit_plain(c, None, e1, a, None, E))):
+        got = fn(a1, bq)
+        compare("vdeposit", f"{what}, non-finite charges", got.view(torch.int32),
+                plain(a1, bq).view(torch.int32), results)
+        ok = torch.isfinite(got)
+        if not torch.equal(got[ok].view(torch.int32), fn(kept, q)[ok].view(torch.int32)):
+            raise AssertionError(f"vdeposit {what}: a finite output moved with the "
+                                 f"non-finite terms")
+        nan, pos, neg = (int(t.sum()) for t in (torch.isnan(got), torch.isposinf(got),
+                                                torch.isneginf(got)))
+        log(f"[c] vdeposit {what}, non-finite charges: {nan} NaN, {pos} +inf, {neg} -inf "
+            f"outputs of {got.numel()}, the other {int(ok.sum())} equal to the deposit "
+            f"without the bad particles")
+        if not (nan and pos and neg):
+            raise AssertionError(f"vdeposit {what}: the non-finite pattern is missing")
+
+
 def check_trace2d(results: dict, dev, mesh, grid, x, elem, active) -> None:
     """M2 and V at the 2D path's full width: the 120k mesh, its cartesian
     grid and phase c's 10M located particles (``x``, ``elem``, ``active``),
@@ -908,6 +961,7 @@ def check_trace2d(results: dict, dev, mesh, grid, x, elem, active) -> None:
                         lambda: sc.vertex_deposit_plain(pq, None, pe, pa, None, E),
                         (pe, pa, pq), fn(), pq, keys_e, E)
     del perm, pe, pa, pq, pb, keys, keys_e
+    check_vdeposit_non_finite(results, mesh, e1, a1, bcc, q)
     cnt = sc.particles_per_element(e1, a1, E)
     if int(cnt.sum()) != int(a1.sum()):
         raise AssertionError("particles_per_element (H): counts != active particles")
@@ -1201,13 +1255,29 @@ def check_rows(results: dict, dev, mesh, s, model, elem, active) -> None:
                        "rebuild_mask_dps", (new_elem, ps.active, E))
     modes, key = slot_map_inputs(ps, new_elem, E)
     # C: the rebuild's element sort, at one step's order, in a random
-    # order, with 3 keys and as the DPS add path's 0/1 partition
+    # order, with 3 keys and as the DPS add path's 0/1 partition; its fused
+    # mode on the rebuild's (elem, active, E) and the 0/1 partition's
+    # (active, 1); keys outside [0, K] (a few among the app's, negative
+    # ones, every int32) through the high passes
     check_key_sort(results, "app step-1 order", key, E)
     g = torch.Generator(dev).manual_seed(1)
     check_key_sort(results, "random order", key[torch.randperm(C, device=dev, generator=g)], E)
     check_key_sort(results, "K = 2", torch.randint(0, 3, (C,), device=dev, generator=g,
                                                    dtype=torch.int32), 2)
     check_key_sort(results, "0/1 partition (K = 1)", (key == E).to(torch.int32), 1)
+    act = key < E
+    check_masked_key_sort(results, "fused mode, app step-1 order",
+                          torch.where(act, key, -1), act, E)
+    check_masked_key_sort(results, "fused mode, 0/1 partition (K = 1)", None, act, 1)
+    few = key.clone()
+    few[torch.randperm(C, device=dev, generator=g)[:100]] = torch.randint(
+        -2**31, 2**31 - 1, (100,), device=dev, generator=g, dtype=torch.int32)
+    check_key_sort(results, "app step-1 order, 100 keys outside [0, K]", few, E)
+    check_key_sort(results, "keys in [-K, K]", torch.randint(
+        -E, E + 1, (C,), device=dev, generator=g, dtype=torch.int32), E)
+    check_key_sort(results, "every int32", torch.randint(
+        -2**31, 2**31 - 1, (C,), device=dev, generator=g, dtype=torch.int32), E)
+    del few, act
     for layout, sargs in modes.items():
         got = check_slot_map(results, layout, sargs)
         if layout == "scs":
@@ -1274,21 +1344,59 @@ def check_slot_map(results: dict, what: str, sargs):
     return got
 
 
+def key_sort_floor(results: dict, what: str, n: int, passes: int, fused: bool,
+                   keep_key: bool) -> None:
+    """C's design floor for a timed case, beside its bound: the bytes its
+    launches must move (the histogram reads the keys, or elem and active,
+    and writes the kept key; the first pass reads them again, each low pass
+    writes a key and an index, each later one reads them, the last writes
+    the order alone) over the memory rate."""
+    src = 5 * n if fused else 4 * n
+    b = 2 * src + 4 * n * keep_key + 8 * n * (passes - 1) * 2 + 4 * n
+    floor_ms = b / PEAK_BYTES_PER_S * 1e3
+    log(f"[c] key_sort {what} design floor: {b / 1e6:.1f} MB -> {floor_ms:.4f} ms")
+    case_of("key_sort", what, results).update(floor_ms=floor_ms)
+
+
 def check_key_sort(results: dict, what: str, key, max_key: int) -> None:
     """C on ``key``: equal to the plain version (the stable order), timed
     beside it and beside torch's stable sort, and its bound (the keys read
-    once, the order written once)."""
+    once, the order written once) and design floor."""
     from pumipic_torch.ops import rebuild as rb
 
     got = rb.key_sort(key, max_key)
     passes = rb.key_sort_passes(max_key)
-    compare("key_sort", f"{what} ({key.shape[0]} keys in [0, {max_key}], {len(passes)} "
-            f"passes of {[w for _, w in passes]} bits)", got,
+    outside = int(((key < 0) | (key > max_key)).sum())
+    high = rb.key_sort_high_passes(max_key) if outside else []
+    compare("key_sort", f"{what} ({key.shape[0]} keys, K {max_key}, {outside} outside "
+            f"[0, K]; passes of {[w for _, w in passes + high]} bits)", got,
             rb.key_sort_plain(key, max_key), results)
     time_pair("key_sort", what, lambda: rb.key_sort(key, max_key),
               lambda: rb.key_sort_plain(key, max_key), results)
     record_bound("key_sort", what, results, nbytes(key, got))
+    key_sort_floor(results, what, key.shape[0], len(passes), False, False)
     record_library("key_sort", what, "torch.sort(key, stable=True)",
+                   lambda: torch.sort(key, stable=True), results)
+
+
+def check_masked_key_sort(results: dict, what: str, elem, active, fill: int) -> None:
+    """C's fused mode on (elem, active, fill), keeping the key as the
+    rebuilds do: order and key equal to the plain version's where and
+    stable sort, timed beside it and beside torch's stable sort of the
+    formed key (the where not counted), its bound (elem and active read
+    once, the order and the key written once) and design floor."""
+    from pumipic_torch.ops import rebuild as rb
+
+    got = rb.masked_key_sort(elem, active, fill, keep_key=True)
+    want = rb.masked_key_sort_plain(elem, active, fill)
+    compare("key_sort", f"{what} ({active.shape[0]} keys, fill {fill})", got, want, results)
+    time_pair("key_sort", what, lambda: rb.masked_key_sort(elem, active, fill, keep_key=True),
+              lambda: rb.masked_key_sort_plain(elem, active, fill), results)
+    record_bound("key_sort", what, results, nbytes(elem, active, *got))
+    key_sort_floor(results, what, active.shape[0], len(rb.key_sort_passes(fill)),
+                   elem is not None, True)
+    key = want[1]
+    record_library("key_sort", what, "torch.sort(key, stable=True) of the formed key",
                    lambda: torch.sort(key, stable=True), results)
 
 
@@ -2093,7 +2201,16 @@ def check_place_arrivals(results: dict, dev, gen, lpp, D: int, cap: int) -> None
     mixed = recv.clone()
     pick = torch.rand(recv.shape[0], generator=gen, device=dev)
     mixed[:, 0] = torch.where(pick < 0.02, -1, torch.where(pick < 0.04, 10**9, recv[:, 0]))
+    # the arm's own layout: the particles in a prefix of the slots (the
+    # arrivals fill the leavers' holes first, in ascending slot order), so
+    # the free slots are those holes and the tail
+    tail = exchange_state(X_SLOTS, gen, dev, E)
+    tail["active"] = torch.arange(X_SLOTS, device=dev) < int(X_ACTIVE * X_SLOTS)
+    tail["elem"] = torch.where(tail["active"], tail["elem"].clamp(min=0), -1)
+    trecv, tleaving, tnew, _ = arrivals(tail, X_LEAVER_SHARE)
     cases = [("the 120k arm's arrivals (main)", st, staying, new_elem, recv),
+             ("the arm's layout: particles in a slot prefix", tail,
+              tail["active"] & ~tleaving, tnew, trecv),
              ("NaN, -0.0, subnormal payloads", odd, odd["active"] & ~oleaving, onew, orecv),
              ("arrivals beyond the free slots", st, staying, new_elem, over),
              ("absent and unresolved gids among them", st, staying, new_elem, mixed),
@@ -2102,37 +2219,61 @@ def check_place_arrivals(results: dict, dev, gen, lpp, D: int, cap: int) -> None
              ("every slot free", st, torch.zeros_like(staying), new_elem, recv)]
     for what, s, stay, ne, rv in cases:
         args = (s, stay, ne, rv, fs, gs, gp)
+        before = {f: s[f].clone() for f in fs}
         got, want = ex.place_arrivals(*args), ex.place_arrivals_plain(*args)
         compare_bits("place_arrivals", what, got, want, results)
+        for f in fs:        # in place: the state's own tensors, stayers untouched
+            keep = stay.reshape((-1,) + (1,) * (s[f].dim() - 1))
+            if got[0][f].data_ptr() != s[f].data_ptr() or not torch.equal(
+                    torch.where(keep, s[f], before[f]).view(torch.int8),
+                    before[f].view(torch.int8)):
+                raise AssertionError(f"place_arrivals {what}: field {f} not written in "
+                                     f"place at the free slots alone")
+        del before
         log(f"[c] place_arrivals {what}: {rv.shape[0]} rows, num_recv {int(got[1])}, "
             f"unresolved {int(got[2])}, recv overflow {bool(got[3])}")
-        if what.endswith("(main)"):
-            free_rank, free_counts = ex.rank_in_key(stay.to(torch.int32), 1)
+        if what.endswith("(main)") or what.startswith("the arm's layout"):
             m, width = rv.shape
-            outs = {k: torch.empty_like(s[k]) for k in fs}
             elem = torch.empty(X_SLOTS, dtype=torch.int32, device=dev)
             active = torch.empty(X_SLOTS, dtype=torch.bool, device=dev)
             stats = torch.empty(2, dtype=torch.int32, device=dev)
             ovf = torch.empty((), dtype=torch.bool, device=dev)
-            scratch = torch.empty(2 * m, dtype=torch.int32, device=dev)
-            k, srcs, dsts, lanes, is_bool, offs = ex._fields(s, fs, outs)
+            scratch = torch.empty(lib.pp_place_arrivals_scratch(X_SLOTS, m),
+                                  dtype=torch.int32, device=dev)
+            # in place, as the wrapper: the state's own fields (the free
+            # slots rewritten each run, the same bits)
+            k, _, dsts, lanes, is_bool, offs = ex._fields(s, fs, s)
             time_pair("place_arrivals", what, lambda: lib.pp_place_arrivals(
-                ex._ptr(stay), ex._ptr(ne), ex._ptr(free_rank), ex._ptr(free_counts),
-                X_SLOTS, ex._ptr(rv), m, width, ex._ptr(gs), ex._ptr(gp), gs.shape[0], k,
-                srcs, dsts, lanes, is_bool, offs, ex._ptr(scratch), ex._ptr(stats),
-                ex._ptr(ovf), ex._ptr(elem), ex._ptr(active), ex._stream()),
-                lambda: ex.place_arrivals_plain(*args), results)
-            n_stay = int(stay.sum())
-            # the masks, elements and free ranks read, the stayers' fields
-            # and the arrival rows read, the gid table once; every output
-            # written
+                ex._ptr(stay), ex._ptr(ne), X_SLOTS, ex._ptr(rv), m, width, ex._ptr(gs),
+                ex._ptr(gp), gs.shape[0], k, dsts, lanes, is_bool, offs, ex._ptr(scratch),
+                ex._ptr(stats), ex._ptr(ovf), ex._ptr(elem), ex._ptr(active),
+                ex._stream()), lambda: ex.place_arrivals_plain(*args), results,
+                record=what.endswith("(main)"))
+            n_stay, n_free = int(stay.sum()), X_SLOTS - int(stay.sum())
+            slot_bytes = sum(nbytes(s[f]) for f in fs) // X_SLOTS
+            # the function in place: the mask read, the stayers' new
+            # elements, every slot's elem and active written, the free
+            # slots' fields written, the arrival rows and the gid table read
             record_bound("place_arrivals", what, results,
-                         nbytes(stay, ne, free_rank, rv, gs, gp, elem, active)
-                         + n_stay * 4 * (width - 1) + sum(nbytes(o) for o in outs.values()))
+                         nbytes(stay, rv, gs, gp, elem, active) + 4 * n_stay
+                         + n_free * slot_bytes)
+            # out of place, as the first X3: every slot's fields read (the
+            # stayers') or written
+            out_ms = (nbytes(stay, ne, rv, gs, gp, elem, active) + n_stay * slot_bytes
+                      + X_SLOTS * slot_bytes) / PEAK_BYTES_PER_S * 1e3
             slots = torch.nonzero(~stay).flatten()[:m]
             buf = torch.zeros((X_SLOTS, width), dtype=torch.int32, device=dev)
-            record_library("place_arrivals", what, "index_copy_ of the arrival rows",
-                           lambda: buf.index_copy_(0, slots, rv[:slots.shape[0]]), results)
+            copy_ms = device_ms(lambda: buf.index_copy_(0, slots, rv[:slots.shape[0]]), 20)
+            log(f"[c] place_arrivals {what}: {n_free} free slots, {slot_bytes} field bytes "
+                f"a slot; the out-of-place bound {out_ms:.4f} ms; index_copy_ of the "
+                f"arrival rows alone {copy_ms:.4f} ms (a part of the function, no "
+                f"yardstick)")
+            case_of("place_arrivals", what, results).update(
+                out_of_place_bound_ms=out_ms, index_copy_ms=copy_ms)
+            del buf
+    results["place_arrivals"]["extra"]["library"] = (
+        "none: no one PyTorch call places the arrivals (index_copy_ of the arrival rows "
+        "is a part of it, timed as a note)")
 
 
 def check_owner_reduce(results: dict, dev, gen, lpp) -> None:
@@ -2212,7 +2353,9 @@ def check_exchange(results: dict, dev) -> None:
     arm's per-rank size (3.75M slots, 2.5M particles, its leaver share; rank
     0's picpart, its gid table and vertex exchange tables, 12-layer
     buffer) and on the adversarial inputs, then timed on the device alone
-    (the launchers called directly: the wrappers' checks read the device)."""
+    (the launchers called directly: the wrappers' checks read the device).
+    X3 writes the member fields in place: each case also checks that the
+    state's own tensors hold the result and the staying slots their bits."""
     t0 = time.perf_counter()
     lpp = exchange_picpart(dev)
     gen = torch.Generator(device=dev)
@@ -2538,7 +2681,7 @@ E_ANALYTIC = ("push", "annulus_locate", "locate", "histogram", "deposit")
 # the buckets, the free slots, the balancer's two weight counts and its
 # candidates; X2 and X3 once; O's gather, fan-in and fan-out.  One rank
 # migrates nothing (the comm-size-1 path) and has no balancer.
-E_EXCHANGE = {"rank_in_key": 5, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 3}
+E_EXCHANGE = {"rank_in_key": 4, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 3}
 E_ONE_RANK = {"owner_reduce": 3}
 # rank 0 of the 4-rank 120k arm with the exchange and the reduction as
 # torch ops (PERF.md §5, 3-layer buffer): device busy and the stream's
@@ -2853,7 +2996,11 @@ def main() -> int:
         if "slot_map" in last:      # S at the app's own order
             check_slot_map(results, f"{structure}, app step-{steps} order", last["slot_map"])
         if "key_sort" in last:      # C at the app's own order after 20 steps
-            check_key_sort(results, f"app step-{steps} order", *last["key_sort"])
+            elem, active, fill = last["key_sort"]
+            check_key_sort(results, f"app step-{steps} order",
+                           torch.where(active, elem, fill).to(torch.int32), fill)
+            check_masked_key_sort(results, f"fused mode, app step-{steps} order", elem,
+                                  active, fill)
         del last
     torch.cuda.empty_cache()
     phase_e(results, dev, grid, smi)

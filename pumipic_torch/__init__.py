@@ -11,7 +11,10 @@ Module names mirror the JAX package:
                 beside it.
 - ``particles`` the four particle structures (Sell-C-σ, CSR, CabM, DPS)
                 with rebuild, reshuffle and overflow handling.
-- ``parallel``  the FULL-mode field sum over ranks.
+- ``parallel``  the distributed runtime over a ``torch.distributed`` group
+                (``group``, the JAX package's ``mesh_axis``): picparts,
+                migration, owner reductions, the load balancer and the
+                FULL-mode field sum over ranks.
 - ``models``    the pseudoXGCm FULL-mode step and single-device app, and
                 the search2d driver.
 - ``io``        the VTK writer, particle and structure checkpoints (the
@@ -27,3 +30,5 @@ Entry points run on the CUDA card unless ``device="cpu"`` is passed.
 """
 
 __version__ = "0.1.0"
+
+from pumipic_torch.utils import timing, plog  # noqa: F401

@@ -1,0 +1,1 @@
+from pumipic_torch.io import checkpoint  # noqa: F401

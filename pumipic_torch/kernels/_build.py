@@ -102,7 +102,7 @@ SIGNATURES = {
     "pp_vdeposit": [
         _P, _P, _P, _P, _P,                  # w q elem active elem2verts
         _I, _I, _I, _I,                      # k n_elems n_out log2_terms
-        _P, _P, _P,                          # acc max_bits out
+        _P, _P, _P, _P,                      # acc flags max_bits out
         _L, _P],                             # n stream
     "pp_boris_grid": [
         _P, _P, _P, _I, _I, _I,              # x v corner_rows nx ny nz
@@ -127,10 +127,11 @@ SIGNATURES = {
         _P, _P, _I, _P, _P, _P,              # new_elem elem_gid n_fields srcs lanes is_bool
         _I, _P, _P, _P, _P, _P, _P],         # width send kept leaving counts overflow stream
     "pp_place_arrivals": [
-        _P, _P, _P, _P, _L,                  # staying new_elem free_rank free_counts n
+        _P, _P, _L,                          # staying new_elem n
         _P, _L, _I, _P, _P, _I,              # recv m width gid_sorted gid_perm E
-        _I, _P, _P, _P, _P, _P,              # n_fields srcs dsts lanes is_bool offs
+        _I, _P, _P, _P, _P,                  # n_fields dsts lanes is_bool offs
         _P, _P, _P, _P, _P, _P],             # scratch stats overflow elem active stream
+    "pp_place_arrivals_scratch": [_L, _L],
     "pp_owner_gather": [_P, _I, _P, _L, ctypes.c_uint, _P, _P],  # field w ids n fill out stream
     "pp_owner_fan_in": [
         _P, _P, _I, _I, _P, _P, _I, _I,      # field recv w V offsets rows op is_int
@@ -144,9 +145,10 @@ SIGNATURES = {
         _I, _P, _P, _P, _I, _P,              # mode a m b n_elems needed
         _P, _P, _P, _L, _P],                 # elem_out active_out num n stream
     "pp_key_sort": [
-        _P, _L, _I, _P, _P, _P,              # key n bits order tile_counts totals
-        _P, _P, _P, _P, _P],                 # ka ia kb ib stream
-    "pp_key_sort_tiles": [_L],
+        _P, _P, _P, _I, _L, _I,              # key elem active fill n bits
+        _P, _P, _P,                          # key_out order scratch
+        _P, _P, _P, _P, _P, _P],             # ka ia kb ib spare stream
+    "pp_key_sort_scratch": [_L],
     "pp_slot_map": [
         _I, _P, _P, _P, _I,                  # cabm order start offsets n_seg
         _P, _I, _I, _I, _L, _I,              # row_to_elem n_rows chunk E C M

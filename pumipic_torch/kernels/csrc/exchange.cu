@@ -17,7 +17,8 @@
 //  X3 place_arrivals gid_to_lid (:153-160) and _place_arrivals (:386-438):
 //                   arrivals resolve their global element ids by binary
 //                   search and fill the free slots in ascending slot order,
-//                   in arrival order; one pass writes every output field.
+//                   in arrival order; stayers keep their slots, the other
+//                   free slots are cleared.
 //
 // What bounds them on an H100: bytes.  Each reads its (N,) inputs once and
 // writes its outputs once (X1's rank pass reads its keys a second time);
@@ -25,20 +26,20 @@
 // integer or a moved bit pattern, so each equals its plain version bit for
 // bit.
 //
-// X1's design: a tile of X1_TILE items per block of X1_WARPS warps, warp w
-// holding items [w·128, (w+1)·128) of the tile in four chunks of 32 lanes.
-// Launch 1 ranks the items inside the tile: the warps take turns in index
-// order (a __syncthreads between turns), and in its turn a warp ranks each
-// chunk by __match_any_sync (lanes of one key) and the popcount of the
-// lower lanes of its key, on top of a per-key counter in shared memory that
-// the highest lane of each key then advances; it writes the in-tile ranks
-// and the tile's count of each key, key-major (key·n_tiles + tile).
-// Launch 2 scans each key's row of tile counts (one block a key): the
-// exclusive prefix is the rank base of that key in each tile, the total the
-// key's count.  Launch 3 adds the base to each item's in-tile rank.  Keys
-// outside [0, n_keys) are counted in one more row (the wrapper refuses
-// them) and get rank -1.  The counts-only form skips the ordered turns and
-// launch 3.
+// X3's design (three launches, no host read): the first takes a tile a
+// block, X_THREADS arrivals (one a thread: a binary search in the sorted
+// gids, L2-resident, and the block's scan, which compacts the tile's valid
+// arrivals' rows and elements in arrival order) and X3_TILE slots (the
+// count of the free ones); a one-block launch scans the tiles' counts into
+// prefixes and writes the counts and the overflow; the placement takes a
+// tile of X3_TILE slots a block: a ballot of the free slots a warp and
+// chunk and the block's scan of the 64 counts, on top of the tile's prefix,
+// give each free slot its rank (no separate ranking kernel, no chain of
+// tiles waiting on each other), and a free slot of rank r < num_recv takes
+// the r-th valid arrival, another is cleared.  It writes the member fields
+// in place, into the state's own tensors, and only at the free slots: the
+// staying slots' fields are neither read nor written (the caller gives the
+// old state up); elem and active are new arrays, written at every slot.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,7 +51,11 @@
 #define X1_MAX_KEYS (48 * 1024 / 4 - 1)   // keys a tile's shared table holds
 #define X_THREADS 256
 #define X_MAX_FIELDS 16
-#define X3_THREADS 1024
+// X3's placement tile: X3_CHUNKS slots a thread, a chunk of X_THREADS
+// consecutive slots at a time
+#define X3_CHUNKS 8
+#define X3_TILE (X3_CHUNKS * X_THREADS)
+#define X3_SCAN_THREADS 1024
 
 // ---------------------------------------------------------------------------
 // X1: rank within key
@@ -300,88 +305,207 @@ __device__ __forceinline__ int gid_to_lid(const int* __restrict__ sorted,
   return (g >= 0 && sorted[p] == g) ? perm[p] : -1;
 }
 
-// one block: each arrival's local id, the valid arrivals' rows in arrival
-// order, num_recv, num_unresolved and the recv overflow
-__global__ void __launch_bounds__(X3_THREADS)
-    x3_arrivals(const int* __restrict__ recv, long long m, int width,
-                const int* __restrict__ gid_sorted, const int* __restrict__ gid_perm, int E,
-                int* __restrict__ arr_lid, int* __restrict__ row_of_valid,
-                const int* __restrict__ free_counts, int* __restrict__ stats,
-                uint8_t* __restrict__ overflow) {
-  __shared__ int smem[32];
-  const long long per = (m + blockDim.x - 1) / blockDim.x;
-  const long long lo = threadIdx.x * per;
-  const long long hi = min(lo + per, m);
-  int valid = 0, unres = 0;
-  for (long long j = lo; j < hi; ++j) {
-    const int g = recv[j * width];
-    const int lid = gid_to_lid(gid_sorted, gid_perm, E, g);
-    arr_lid[j] = lid;
-    valid += (g >= 0) & (lid >= 0);
-    unres += (g >= 0) & (lid < 0);
-  }
-  int n_valid, n_unres;
-  int pos = block_inclusive_scan(valid, smem, &n_valid) - valid;
-  block_inclusive_scan(unres, smem, &n_unres);
-  for (long long j = lo; j < hi; ++j)
-    if (recv[j * width] >= 0 && arr_lid[j] >= 0) row_of_valid[pos++] = (int)j;
-  if (threadIdx.x == 0) {
-    stats[0] = n_valid;
-    stats[1] = n_unres;
-    *overflow = (uint8_t)(n_valid > free_counts[0]);
-  }
+// the sum of v over the block (X_THREADS threads); smem holds 32 ints
+__device__ __forceinline__ int x3_block_sum(int v, int* smem) {
+  int total;
+  block_inclusive_scan(v, smem, &total);
+  return total;
 }
 
-// one thread a slot: a staying slot keeps its values, the free slot of
-// rank r < num_recv takes the r-th valid arrival, another free slot is
-// cleared (elem -1, active 0, fields 0)
+// launch 1, a block a tile: block b counts the free slots of placement
+// tile b (X3_TILE slots), and, for b < tiles_a, takes arrivals [b·X_THREADS,
+// (b+1)·X_THREADS), one a thread: its local element by binary search in
+// the sorted gids (L2-resident), the tile's valid arrivals' rows and
+// elements compacted in arrival order at the tile's X_THREADS entries, the
+// tile's valid and unresolved counts
 __global__ void __launch_bounds__(X_THREADS)
-    x3_place(const uint8_t* __restrict__ staying, const int* __restrict__ new_elem,
-             const int* __restrict__ free_rank, long long n, const int* __restrict__ recv,
-             int width, const int* __restrict__ arr_lid, const int* __restrict__ row_of_valid,
-             const int* __restrict__ stats, XFields f, int* __restrict__ elem_out, uint8_t* __restrict__ active_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  long long row = -1;                        // the arrival this slot takes
-  const int stay = staying[i] != 0;
-  if (!stay) {
-    const int r = free_rank[i];
-    if (r < stats[0]) row = row_of_valid[r];
+    x3_tiles(const int* __restrict__ recv, long long m, int width,
+             const int* __restrict__ gid_sorted, const int* __restrict__ gid_perm, int E,
+             int tiles_a, const uint8_t* __restrict__ staying, long long n, int tiles_p,
+             int* __restrict__ arr_row, int* __restrict__ arr_lid,
+             int* __restrict__ tile_valid, int* __restrict__ tile_unres,
+             int* __restrict__ tile_free) {
+  __shared__ int smem[32];
+  const int b = blockIdx.x;
+  if (b < tiles_p) {                              // block-uniform
+    int free = 0;
+    const long long base = (long long)b * X3_TILE;
+#pragma unroll
+    for (int c = 0; c < X3_CHUNKS; ++c) {
+      const long long i = base + c * X_THREADS + threadIdx.x;
+      free += i < n && staying[i] == 0;
+    }
+    free = x3_block_sum(free, smem);
+    if (threadIdx.x == 0) tile_free[b] = free;
   }
-  elem_out[i] = stay ? new_elem[i] : (row >= 0 ? arr_lid[row] : -1);
-  active_out[i] = (uint8_t)(stay || row >= 0);
-  for (int j = 0; j < f.n; ++j) {
-    const int w = f.lanes[j];
-    for (int l = 0; l < w; ++l) {
-      int v = 0;
-      if (stay) v = lane_of(f, j, i, l);
-      else if (row >= 0) v = recv[row * width + f.off[j] + l];
-      if (f.is_bool[j])
-        static_cast<uint8_t*>(f.dst[j])[i * w + l] = (uint8_t)(v != 0);
-      else
-        static_cast<int*>(f.dst[j])[i * w + l] = v;
+  if (b < tiles_a) {
+    const long long j = (long long)b * X_THREADS + threadIdx.x;
+    const int g = j < m ? recv[j * width] : -1;
+    const int lid = g >= 0 ? gid_to_lid(gid_sorted, gid_perm, E, g) : -1;
+    const int valid = g >= 0 && lid >= 0, unres = g >= 0 && lid < 0;
+    int n_valid;
+    const int pos = block_inclusive_scan(valid, smem, &n_valid) - valid;
+    const int n_unres = x3_block_sum(unres, smem);
+    if (valid) {
+      arr_row[(long long)b * X_THREADS + pos] = (int)j;
+      arr_lid[(long long)b * X_THREADS + pos] = lid;
+    }
+    if (threadIdx.x == 0) {
+      tile_valid[b] = n_valid;
+      tile_unres[b] = n_unres;
     }
   }
 }
 
-// scratch: 2·m ints (m = arrivals); offs: each field's first lane in a
-// payload row (host ints)
-extern "C" int pp_place_arrivals(const uint8_t* staying, const int* new_elem,
-                                 const int* free_rank, const int* free_counts, long long n,
+// launch 2, one block: the tiles' counts turned into exclusive prefixes in
+// place (valid arrivals, free slots); num_recv, num_unresolved and the
+// recv overflow (num_recv > free slots)
+__global__ void __launch_bounds__(X3_SCAN_THREADS)
+    x3_scan(int* __restrict__ tile_valid, const int* __restrict__ tile_unres, int tiles_a,
+            int* __restrict__ tile_free, int tiles_p, int* __restrict__ stats,
+            uint8_t* __restrict__ overflow) {
+  __shared__ int smem[32];
+  long long totals[2];
+  int* rows[2] = {tile_valid, tile_free};
+  const int lens[2] = {tiles_a, tiles_p};
+  for (int k = 0; k < 2; ++k) {
+    long long carry = 0;
+    for (int base = 0; base < lens[k]; base += blockDim.x) {
+      const int t = base + threadIdx.x;
+      const int v = t < lens[k] ? rows[k][t] : 0;
+      int total;
+      const int incl = block_inclusive_scan(v, smem, &total);
+      if (t < lens[k]) rows[k][t] = (int)(carry + incl - v);
+      carry += total;
+    }
+    totals[k] = carry;
+  }
+  long long unres = 0;
+  for (int base = 0; base < tiles_a; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    unres += x3_block_sum(t < tiles_a ? tile_unres[t] : 0, smem);
+  }
+  if (threadIdx.x == 0) {
+    stats[0] = (int)totals[0];
+    stats[1] = (int)unres;
+    *overflow = (uint8_t)(totals[0] > totals[1]);
+  }
+}
+
+// launch 3, X3_TILE slots a block: each free slot's rank (the tile's
+// prefix from launch 2, a ballot a warp and chunk, the block's scan of the
+// 64 counts); a staying slot keeps its member fields (not read or
+// written) and takes its new element, the free slot of rank r < num_recv
+// takes the r-th valid arrival (its arrival tile by a binary search over
+// the tiles' prefixes), another free slot is cleared (elem -1, active 0,
+// member fields 0), the fields written in place
+__global__ void __launch_bounds__(X_THREADS)
+    x3_place(const uint8_t* __restrict__ staying, const int* __restrict__ new_elem,
+             long long n, const int* __restrict__ recv, int width,
+             const int* __restrict__ arr_row, const int* __restrict__ arr_lid,
+             const int* __restrict__ valid_pre, int tiles_a,
+             const int* __restrict__ free_pre, const int* __restrict__ stats, XFields f,
+             int* __restrict__ elem_out, uint8_t* __restrict__ active_out) {
+  __shared__ int s_pre[X3_CHUNKS * X_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  const long long base = (long long)blockIdx.x * X3_TILE;
+  unsigned mask[X3_CHUNKS];
+  bool stay[X3_CHUNKS];
+#pragma unroll
+  for (int c = 0; c < X3_CHUNKS; ++c) {
+    const long long i = base + c * X_THREADS + threadIdx.x;
+    stay[c] = i >= n || staying[i] != 0;
+    mask[c] = __ballot_sync(0xffffffffu, !stay[c]);
+    if (lane == 0) s_pre[c * (X_THREADS / 32) + warp] = __popc(mask[c]);
+  }
+  __syncthreads();
+  if (warp == 0) {   // the exclusive scan of the 64 (chunk, warp) counts
+    const int a = s_pre[2 * lane], b = s_pre[2 * lane + 1];
+    int x = a + b;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    s_pre[2 * lane] = x - a - b;
+    s_pre[2 * lane + 1] = x - b;
+  }
+  __syncthreads();
+  const long long first = free_pre[blockIdx.x];
+  const long long num_recv = stats[0];
+#pragma unroll
+  for (int c = 0; c < X3_CHUNKS; ++c) {
+    const long long i = base + c * X_THREADS + threadIdx.x;
+    if (i >= n) continue;
+    if (stay[c]) {
+      elem_out[i] = new_elem[i];
+      active_out[i] = 1;
+      continue;
+    }
+    const long long r = first + s_pre[c * (X_THREADS / 32) + warp] + __popc(mask[c] & lower);
+    long long row = -1;
+    int lid = -1;
+    if (r < num_recv) {      // the last arrival tile whose prefix is <= r
+      int lo = 0, hi = tiles_a - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (valid_pre[mid] <= r) lo = mid; else hi = mid - 1;
+      }
+      const long long at = (long long)lo * X_THREADS + (r - valid_pre[lo]);
+      row = arr_row[at];
+      lid = arr_lid[at];
+    }
+    elem_out[i] = lid;
+    active_out[i] = (uint8_t)(row >= 0);
+    for (int jf = 0; jf < f.n; ++jf) {
+      const int w = f.lanes[jf];
+      for (int l = 0; l < w; ++l) {
+        const int v = row >= 0 ? recv[row * width + f.off[jf] + l] : 0;
+        if (f.is_bool[jf])
+          static_cast<uint8_t*>(f.dst[jf])[i * w + l] = (uint8_t)(v != 0);
+        else
+          static_cast<int*>(f.dst[jf])[i * w + l] = v;
+      }
+    }
+  }
+}
+
+// ints of X3's scratch: the arrivals' rows and elements compacted per tile
+// (X_THREADS each a tile) and the tiles' counts
+extern "C" int pp_place_arrivals_scratch(long long n, long long m) {
+  const long long tiles_a = (m + X_THREADS - 1) / X_THREADS + (m == 0);
+  const long long tiles_p = (n + X3_TILE - 1) / X3_TILE + (n == 0);
+  return (int)(2 * tiles_a * X_THREADS + 2 * tiles_a + tiles_p);
+}
+
+// n slots (staying, new_elem; member fields written in place, dsts), m
+// arrivals (recv rows of width int32 lanes; offs: each field's first lane
+// in a row, host ints); scratch: pp_place_arrivals_scratch(n, m) ints
+extern "C" int pp_place_arrivals(const uint8_t* staying, const int* new_elem, long long n,
                                  const int* recv, long long m, int width,
                                  const int* gid_sorted, const int* gid_perm, int E,
-                                 int n_fields, const void* const* srcs, void* const* dsts,
-                                 const int* lanes, const int* is_bool, const int* offs,
-                                 int* scratch, int* stats, uint8_t* overflow,
-                                 int* elem_out, uint8_t* active_out, cudaStream_t stream) {
+                                 int n_fields, void* const* dsts, const int* lanes,
+                                 const int* is_bool, const int* offs, int* scratch,
+                                 int* stats, uint8_t* overflow, int* elem_out,
+                                 uint8_t* active_out, cudaStream_t stream) {
   XFields f;
-  if (!fill_fields(&f, n_fields, srcs, dsts, lanes, is_bool, offs) || E < 1)
+  if (!fill_fields(&f, n_fields, dsts, dsts, lanes, is_bool, offs) || E < 1 || n < 0 ||
+      m < 0 || n >= (1LL << 31) || m >= (1LL << 31) / X_THREADS * X_THREADS)
     return (int)cudaErrorInvalidValue;
-  x3_arrivals<<<1, X3_THREADS, 0, stream>>>(recv, m, width, gid_sorted, gid_perm, E, scratch,
-                                            scratch + m, free_counts, stats, overflow);
-  if (n > 0)
-    x3_place<<<(unsigned)((n + X_THREADS - 1) / X_THREADS), X_THREADS, 0, stream>>>(
-        staying, new_elem, free_rank, n, recv, width, scratch, scratch + m, stats, f, elem_out,
-        active_out);
+  const int tiles_a = (int)((m + X_THREADS - 1) / X_THREADS) + (m == 0);
+  const int tiles_p = (int)((n + X3_TILE - 1) / X3_TILE) + (n == 0);
+  int* arr_row = scratch;
+  int* arr_lid = arr_row + (long long)tiles_a * X_THREADS;
+  int* tile_valid = arr_lid + (long long)tiles_a * X_THREADS;
+  int* tile_unres = tile_valid + tiles_a;
+  int* tile_free = tile_unres + tiles_a;
+  x3_tiles<<<tiles_a > tiles_p ? tiles_a : tiles_p, X_THREADS, 0, stream>>>(
+      recv, m, width, gid_sorted, gid_perm, E, tiles_a, staying, n, tiles_p, arr_row,
+      arr_lid, tile_valid, tile_unres, tile_free);
+  x3_scan<<<1, X3_SCAN_THREADS, 0, stream>>>(tile_valid, tile_unres, tiles_a, tile_free,
+                                             tiles_p, stats, overflow);
+  x3_place<<<tiles_p, X_THREADS, 0, stream>>>(staying, new_elem, n, recv, width, arr_row,
+                                              arr_lid, tile_valid, tiles_a, tile_free, stats,
+                                              f, elem_out, active_out);
   return (int)cudaGetLastError();
 }

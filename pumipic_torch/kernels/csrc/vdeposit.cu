@@ -56,9 +56,14 @@
 // Each output is then the f32 rounding of the exact sum of its terms, each
 // term rounded to a multiple of 2^-K = 2^(L+e-94): every term whose binade
 // lies within 70 - L binades of the largest's (45 at 30M terms) is exact,
-// and a smaller one is off by at most 2^-(K+1).  A non-finite term has no
-// fixed-point image: every output is then NaN (ROADMAP queue 3; the
-// reference makes NaN or inf only the outputs that sum one).
+// and a smaller one is off by at most 2^-(K+1).
+// - Non-finite terms, as the reference's f32 segment_sum sums them: they
+//   have no fixed-point image, so the scale pass skips them and the sum
+//   pass sets a bit of their output's flag word (+inf, -inf, NaN; one
+//   atomicOr each, no shared table) in place of adding them.  The
+//   conversion makes an output NaN where it has a NaN term or both
+//   infinities, +inf or -inf where it has only that one, and otherwise the
+//   finite sum above, bit for bit what it is with no non-finite term.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -78,6 +83,10 @@
 #endif
 #define FULL_MASK 0xffffffffu
 #define NONFINITE_BITS 0x7f800000u
+// bits of an output's flag word: the non-finite terms it sums
+#define V_POS_INF 1u
+#define V_NEG_INF 2u
+#define V_NAN 4u
 
 struct DepArgs {
   const float* w;            // (n, k) terms, or (n,) weights (k = 1)
@@ -90,7 +99,8 @@ struct DepArgs {
   int n_out;
   int log2_terms;            // L = ceil(log2(n·k))
   unsigned long long* acc;   // (n_out, 2) ΣH, ΣLo
-  unsigned int* max_bits;    // max |term| as f32 bits
+  unsigned int* flags;       // (n_out,) the non-finite terms summed (V_* bits)
+  unsigned int* max_bits;    // max finite |term| as f32 bits
   float* out;                // (n_out,)
   long long n;
 };
@@ -130,12 +140,16 @@ __global__ void __launch_bounds__(V_THREADS) vmax_kernel(DepArgs a) {
   const long long stride = (long long)gridDim.x * V_THREADS;
   const long long first = (long long)blockIdx.x * V_THREADS + threadIdx.x;
   for (long long o = first; o < 2LL * a.n_out; o += stride) a.acc[o] = 0ull;
+  for (long long o = first; o < a.n_out; o += stride) a.flags[o] = 0u;
   unsigned my = 0u;
   for (long long i = first; i < a.n; i += stride) {
     for (int j = 0; j < a.k; ++j) {
       float t;
       int key;
-      if (term_of(a, i, j, &t, &key)) my = max(my, __float_as_uint(fabsf(t)));
+      if (term_of(a, i, j, &t, &key)) {
+        const unsigned b = __float_as_uint(fabsf(t));
+        if (b < NONFINITE_BITS) my = max(my, b);
+      }
     }
   }
   my = __reduce_max_sync(FULL_MASK, my);
@@ -143,12 +157,17 @@ __global__ void __launch_bounds__(V_THREADS) vmax_kernel(DepArgs a) {
 }
 
 // term j of particle i as its fixed-point pair (H, Lo) at scale s, and its
-// key; key = -1 where the term is dropped (or i >= n)
+// key; key = -1 where the term is dropped (or i >= n) or is not finite (its
+// bit then set in its output's flag word)
 __device__ __forceinline__ int fixed_term(const DepArgs& a, long long i, int j, double s,
                                           long long* h, long long* lo) {
   float t;
   int key;
   if (i >= a.n || !term_of(a, i, j, &t, &key)) return -1;
+  if (__float_as_uint(fabsf(t)) >= NONFINITE_BITS) {
+    atomicOr(a.flags + key, t != t ? V_NAN : (t > 0.0f ? V_POS_INF : V_NEG_INF));
+    return -1;
+  }
   const double y = rint((double)t * s);              // X, exact in f64
   const double hd = floor(y * 0x1p-32);           // H = floor(X / 2^32)
   *h = (long long)hd;
@@ -173,7 +192,6 @@ __global__ void __launch_bounds__(V_THREADS) vsum_kernel(DepArgs a) {
   __shared__ unsigned long long th[V_TABLE], tl[V_TABLE];
   __shared__ int t_used;
   const unsigned mb = *a.max_bits;
-  if (mb >= NONFINITE_BITS) return;           // every output is NaN
   const double s = __longlong_as_double((long long)(scale_of(mb, a.log2_terms) + 1023)
                                         << 52);   // 2^K, exact
   for (int t = threadIdx.x; t < V_TABLE; t += V_THREADS) {
@@ -232,8 +250,11 @@ __global__ void __launch_bounds__(V_THREADS) vconvert_kernel(DepArgs a) {
   const long long stride = (long long)gridDim.x * V_THREADS;
   for (long long o = (long long)blockIdx.x * V_THREADS + threadIdx.x; o < a.n_out;
        o += stride) {
-    if (mb >= NONFINITE_BITS) {
-      a.out[o] = __int_as_float(0x7fc00000);
+    const unsigned fl = a.flags[o];
+    if (fl != 0u) {                           // the f32 sum of its infinities
+      a.out[o] = (fl & V_NAN) || fl == (V_POS_INF | V_NEG_INF)
+                     ? __int_as_float(0x7fc00000)
+                     : __int_as_float(fl == V_POS_INF ? 0x7f800000 : 0xff800000);
       continue;
     }
     long long H = (long long)a.acc[2 * o];
@@ -270,18 +291,20 @@ static int num_sms() {
 // w: (n, k) f32 terms (k = 1: weights); q: (n,) f32 or nullptr; elem (n,)
 // i32; active (n,) bool; elem2verts: (n_elems, k) i32 keys or nullptr (key =
 // elem); log2_terms = ceil(log2(n·k)), n·k < 2^31; acc: (n_out, 2) int64
-// scratch; max_bits: one u32 the caller zeroes; out: (n_out,) f32.
+// scratch; flags: (n_out,) u32 scratch; max_bits: one u32 the caller
+// zeroes; out: (n_out,) f32.
 extern "C" int pp_vdeposit(const float* w, const float* q, const int* elem,
                            const uint8_t* active, const int* elem2verts, int k,
                            int n_elems, int n_out, int log2_terms,
-                           unsigned long long* acc, unsigned int* max_bits, float* out,
-                           long long n, cudaStream_t stream) {
+                           unsigned long long* acc, unsigned int* flags,
+                           unsigned int* max_bits, float* out, long long n,
+                           cudaStream_t stream) {
   if (k < 1 || n < 0 || n * k >= (1LL << 31) || n_out < 0 || log2_terms < 0 ||
       log2_terms > 31)
     return (int)cudaErrorInvalidValue;
   if (n_out == 0) return (int)cudaGetLastError();
   DepArgs a{w, q, elem, active, elem2verts, k, n_elems, n_out, log2_terms,
-            acc, max_bits, out, n};
+            acc, flags, max_bits, out, n};
   const long long cap = (long long)num_sms() * 8;
   long long bp = (n + V_THREADS - 1) / V_THREADS, bo = (2LL * n_out + V_THREADS - 1) / V_THREADS;
   long long b1 = bp > bo ? bp : bo;

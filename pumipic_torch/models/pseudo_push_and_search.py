@@ -285,7 +285,8 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
     picparts (RCB) and keeps its own on ``device`` (default: the group's).
 
     Returns (local picpart, structure, step) with ``step(ps) -> (ps,
-    stats)``; ``stats`` as the 2D step's (overflow also covers the
+    stats)`` (the step gives its input structure up, as the 2D step its
+    state); ``stats`` as the 2D step's (overflow also covers the
     layout).  ``hier`` (default: whether the group has slices) routes the
     migration's payload through the two-stage exchange, equal bit for
     bit."""

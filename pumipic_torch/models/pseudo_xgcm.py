@@ -674,7 +674,9 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
     two-stage exchange, equal bit for bit.
 
     Returns (local picpart, state, gyro map, step) with ``step(state) ->
-    (state, fwd, stats)``; ``fwd`` is the (V_local,) reduced field and
+    (state, fwd, stats)`` (the step gives its input state up: on the card
+    the migration writes into its member fields in place); ``fwd`` is the
+    (V_local,) reduced field and
     ``stats`` holds alive, sent, kept_home, overflow, unresolved,
     illegal_dest, imbalance, alive_per_rank, sent_per_rank and the
     port's ``exits`` and ``lost`` (device tensors, see :func:`step_stats`);

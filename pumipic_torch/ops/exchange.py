@@ -8,7 +8,7 @@ and O (``kernels/csrc/exchange.cu``, ``kernels/csrc/owner.cu``).
 - :func:`pack_send` (X2): the admitted leavers' rows of the send buffer
   (gid, then every member field as int32 lanes).
 - :func:`place_arrivals` (X3): the arrivals' local elements and their
-  placement into the free slots, one pass over every output field.
+  placement into the free slots, the member fields written in place.
 - :func:`owner_gather`, :func:`owner_fan_in`, :func:`owner_fan_out` (O):
   the owner reduction's three steps around its two collectives.
 
@@ -325,33 +325,43 @@ def place_arrivals(state, staying, new_elem, recv, field_slices, gid_sorted, gid
     place the arrivals into the free slots (``~staying``) in ascending slot
     order, in arrival order; stayers keep their slots, other free slots
     are cleared (elem -1, active False, fields 0).  Returns (new state,
-    num_recv, num_unresolved, recv_overflow); the old state is not
-    written.  On CUDA tensors: the free slots' ranks from kernel X1 (one
-    launch), then kernel X3."""
+    num_recv, num_unresolved, recv_overflow).
+
+    The caller gives ``state``'s member fields up, on every device: they
+    are written in place and the new state holds those same tensors, with
+    a new ``elem`` and ``active``.  On CUDA tensors kernel X3 writes the
+    arrivals and the cleared slots alone (the staying slots are neither
+    read nor written); on CPU tensors the plain version's fields are
+    copied into them (the staying slots keep their values).  A caller
+    that still needs the old fields passes copies.  X3 ranks the free
+    slots itself (no kernel X1)."""
     if not kernels.use_kernel("place_arrivals", staying, new_elem, recv, gid_sorted,
                               gid_perm, *(state[k] for k in field_slices)):
-        return place_arrivals_plain(state, staying, new_elem, recv, field_slices,
-                                    gid_sorted, gid_perm)
+        new_state, num_recv, num_unres, overflow = place_arrivals_plain(
+            state, staying, new_elem, recv, field_slices, gid_sorted, gid_perm)
+        for name in field_slices:
+            new_state[name] = state[name].copy_(new_state[name])
+        return new_state, num_recv, num_unres, overflow
     n, dev = new_elem.shape[0], new_elem.device
-    free_rank, free_counts = rank_in_key(staying.to(torch.int32), 1)
     m, width = recv.shape
     if width != 1 + sum(hi - lo for lo, hi, _, _ in field_slices.values()):
         raise ValueError("place_arrivals: payload rows do not match the layout")
-    outs = {name: torch.empty_like(state[name]) for name in field_slices}
+    lib = _build.lib()
     elem = torch.empty(n, dtype=torch.int32, device=dev)
     active = torch.empty(n, dtype=torch.bool, device=dev)
     stats = torch.empty(2, dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
-    scratch = torch.empty(max(2 * m, 1), dtype=torch.int32, device=dev)
-    k, srcs, dsts, lanes, is_bool, offs = _fields(state, field_slices, outs)
-    err = _build.lib().pp_place_arrivals(
-        _ptr(staying), _ptr(new_elem), _ptr(free_rank), _ptr(free_counts), n, _ptr(recv),
-        m, width, _ptr(gid_sorted), _ptr(gid_perm), gid_sorted.shape[0], k, srcs, dsts,
-        lanes, is_bool, offs, _ptr(scratch), _ptr(stats), _ptr(overflow), _ptr(elem),
-        _ptr(active), _stream())
+    scratch = torch.empty(lib.pp_place_arrivals_scratch(n, m), dtype=torch.int32,
+                          device=dev)
+    fields = {name: state[name] for name in field_slices}
+    k, _, dsts, lanes, is_bool, offs = _fields(state, field_slices, fields)
+    err = lib.pp_place_arrivals(
+        _ptr(staying), _ptr(new_elem), n, _ptr(recv), m, width, _ptr(gid_sorted),
+        _ptr(gid_perm), gid_sorted.shape[0], k, dsts, lanes, is_bool, offs, _ptr(scratch),
+        _ptr(stats), _ptr(overflow), _ptr(elem), _ptr(active), _stream())
     _build.check(err, "place_arrivals")
     kernels.LAUNCHES["place_arrivals"] += 1
-    new_state = {"elem": elem, "active": active, **outs}
+    new_state = {"elem": elem, "active": active, **fields}
     return new_state, stats[0], stats[1], overflow
 
 

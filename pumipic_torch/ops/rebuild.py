@@ -9,7 +9,8 @@ gather: kernels Q and C (``kernels/csrc/rebuild.cu``).
   rebuilds' "first ``needed`` slots" form.
 - :func:`key_sort` is the wrapper of kernel C, the stable sort of the
   rebuilds' element keys: the int32 order that ``torch.sort(key,
-  stable=True)`` gives.
+  stable=True)`` gives, for every int32 key; :func:`masked_key_sort` is its
+  fused mode, which forms the key ``where(active, elem, fill)`` itself.
 
 Each runs its plain PyTorch version (``*_plain``: the JAX package's
 arithmetic, ``pumipic_tpu/particles/structure.py``) on CPU tensors and
@@ -138,50 +139,99 @@ def key_sort_passes(max_key: int) -> List[Tuple[int, int]]:
     """Kernel C's digit passes for keys in [0, max_key]: (shift, width) of
     each, least significant first: ceil(bits / 9) passes of equal width
     (the last narrower where bits do not divide), bits the bit length of
-    ``max_key`` (at least 1)."""
+    ``max_key`` (at least 1).  Keys outside [0, 2^bits) take
+    :func:`key_sort_high_passes` after them."""
     bits = max(int(max_key).bit_length(), 1)
     passes = -(-bits // KS_MAX_BITS)
     width = -(-bits // passes)
     return [(s, min(width, bits - s)) for s in range(0, bits, width)]
 
 
+def key_sort_high_passes(max_key: int) -> List[Tuple[int, int]]:
+    """The passes over bits [bits, 32) of the keys' order-preserving
+    unsigned image (the sign bit flipped) that kernel C runs only when a
+    key lies outside [0, 2^bits)."""
+    bits = max(int(max_key).bit_length(), 1)
+    passes = -(-(32 - bits) // KS_MAX_BITS)
+    width = -(-(32 - bits) // passes)
+    return [(s, min(width, 32 - s)) for s in range(bits, 32, width)]
+
+
 def key_sort_plain(key: torch.Tensor, max_key: int) -> torch.Tensor:
     """Plain version of kernel C: torch's stable sort, its indices as
-    int32."""
+    int32 (any int32 keys; ``max_key`` only picks the kernel's passes)."""
     return torch.sort(key, stable=True).indices.to(I32)
 
 
+def masked_key_sort_plain(elem: Optional[torch.Tensor], active: torch.Tensor, fill: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel C's fused mode: the rebuilds' element key
+    (``elem``, 0 where None, where ``active``; ``fill`` elsewhere; int32)
+    and its stable order."""
+    key = torch.where(active, elem if elem is not None else 0, fill).to(I32)
+    return key_sort_plain(key, fill), key
+
+
+def _key_sort(n: int, dev, max_key: int, key=None, elem=None, active=None, fill: int = 0,
+              keep_key: bool = False):
+    """Launch kernel C (the caller has checked the device): the order and,
+    with ``keep_key``, the keys as the histogram read or formed them."""
+    if not 0 <= max_key < 2**31:
+        raise ValueError(f"key_sort: max_key {max_key} outside [0, 2^31)")
+    if n >= 1 << 30:
+        raise ValueError("key_sort: the kernel sorts fewer than 2^30 keys")
+    order = torch.empty(n, dtype=I32, device=dev)
+    key_out = torch.empty(n, dtype=I32, device=dev) if keep_key else None
+    if n == 0:
+        return order, key_out
+    lib = _build.lib()
+    scratch = torch.empty(lib.pp_key_sort_scratch(n), dtype=I32, device=dev)
+    n_low = len(key_sort_passes(max_key))
+    bufs = [torch.empty(n, dtype=I32, device=dev) for _ in range(2 * min(n_low - 1, 2))]
+    bufs += [None] * (4 - len(bufs))
+    spare = torch.empty(n, dtype=I32, device=dev)
+    bits = max(int(max_key).bit_length(), 1)
+    err = lib.pp_key_sort(_ptr(key), _ptr(elem), _ptr(active), int(fill), n, bits,
+                          _ptr(key_out), _ptr(order), _ptr(scratch),
+                          *(_ptr(b) for b in bufs), _ptr(spare),
+                          _P(kernels.stream_handle()))
+    _build.check(err, "key_sort")
+    kernels.LAUNCHES["key_sort"] += 1
+    return order, key_out
+
+
 def key_sort(key: torch.Tensor, max_key: int) -> torch.Tensor:
-    """The (N,) int32 order of (N,) int32 ``key`` in [0, max_key] that a
-    stable argsort gives: ``key[order]`` ascending, equal keys in index
-    order.  Kernel C on CUDA tensors (a key outside [0, max_key] still gets
-    a position of its own, but the order is then not sorted),
-    :func:`key_sort_plain` on CPU tensors (which refuses such keys)."""
+    """The (N,) int32 order of (N,) int32 ``key`` that a stable argsort
+    gives: ``key[order]`` ascending, equal keys in index order, for every
+    int32 key.  ``max_key`` is the largest key the caller expects: kernel C
+    (on CUDA tensors) sorts keys in [0, max_key] in its low passes and takes
+    passes over the high bits only when a key lies outside [0, 2^bits).
+    :func:`key_sort_plain` on CPU tensors."""
     if key.dtype != I32 or key.dim() != 1:
         raise ValueError("key_sort: (N,) int32 keys expected")
     if not 0 <= max_key < 2**31:
         raise ValueError(f"key_sort: max_key {max_key} outside [0, 2^31)")
-    n = key.shape[0]
     if not kernels.use_kernel("key_sort", key):
-        if n and (int(key.min()) < 0 or int(key.max()) > max_key):
-            raise ValueError(f"key_sort: a key outside [0, {max_key}]")
         return key_sort_plain(key, max_key)
-    order = torch.empty(n, dtype=I32, device=key.device)
-    if n == 0:
-        return order
-    passes = key_sort_passes(max_key)
-    lib = _build.lib()
-    tiles = lib.pp_key_sort_tiles(n)
-    tile_counts = torch.empty((1 << KS_MAX_BITS) * tiles, dtype=I32, device=key.device)
-    totals = torch.empty(1 << KS_MAX_BITS, dtype=I32, device=key.device)
-    bufs = [torch.empty(n, dtype=I32, device=key.device)
-            for _ in range(2 * min(len(passes) - 1, 2))]
-    bufs += [None] * (4 - len(bufs))
-    bits = passes[-1][0] + passes[-1][1]
-    err = lib.pp_key_sort(_ptr(key), n, bits, _ptr(order), _ptr(tile_counts),
-                          _ptr(totals), *(_ptr(b) for b in bufs),
-                          _P(kernels.stream_handle()))
-    _build.check(err, "key_sort")
-    kernels.LAUNCHES["key_sort"] += 1
-    return order
+    return _key_sort(key.shape[0], key.device, max_key, key=key)[0]
 
+
+def masked_key_sort(elem: Optional[torch.Tensor], active: torch.Tensor, fill: int,
+                    keep_key: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`key_sort` of the rebuilds' element key (``elem`` where
+    ``active``, ``fill`` elsewhere; 0 for ``elem`` None) with ``max_key =
+    fill``, the
+    key formed inside kernel C's histogram and first pass (no separate
+    pass).  Returns (order, the key where ``keep_key``, else None).  The
+    plain version on CPU tensors."""
+    if (active.dtype != torch.bool or active.dim() != 1 or (elem is not None and (
+            elem.dtype != I32 or elem.shape != active.shape))):
+        raise ValueError("masked_key_sort: (N,) int32 elements and an (N,) bool mask "
+                         "expected")
+    tensors = [t for t in (elem, active) if t is not None]
+    if not kernels.use_kernel("key_sort", *tensors):
+        order, key = masked_key_sort_plain(elem, active, fill)
+        return order, key if keep_key else None
+    return _key_sort(active.shape[0], active.device, fill, elem=elem, active=active,
+                     fill=fill, keep_key=keep_key)

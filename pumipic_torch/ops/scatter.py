@@ -426,15 +426,24 @@ def vertex_deposit_plain(w: torch.Tensor, q, elem: torch.Tensor, active: torch.T
     then to nearest in f32) and scaled back by 2^-K in two exact steps.  So
     the result is the f32 rounding of the exact sum of the terms, each
     within 2^-(K+1) (terms within 70 - L binades of the largest are
-    exact), whatever the order.  Where any term is not finite, every output
-    is NaN."""
+    exact), whatever the order.
+
+    Non-finite terms are summed as the reference's f32 ``segment_sum`` sums
+    them and take no part in the scale or the fixed-point sum: an output
+    is NaN where it has a NaN term or both infinities, +inf or -inf where
+    it has only that one, and otherwise the finite sum above."""
     t, key = _terms_and_keys(w, q, elem, active, elem2verts, n_out)
     dev = t.device
+    bits = t.abs().view(torch.int32)
+    finite = bits < _NONFINITE_BITS
     ok = key < n_out
-    bits = torch.where(ok, t.abs().view(torch.int32), 0)
+    # the non-finite terms' classes per output: +inf, -inf, NaN
+    flags = torch.zeros(3, n_out + 1, dtype=torch.bool, device=dev)
+    for c, hit in enumerate((t == math.inf, t == -math.inf, torch.isnan(t))):
+        flags[c, torch.where(ok & hit, key, n_out)] = True
+    key = torch.where(finite, key, n_out)
+    bits = torch.where(ok & finite, bits, 0)
     mb = int(bits.max()) if bits.numel() else 0
-    if mb >= _NONFINITE_BITS:
-        return torch.full((n_out,), math.nan, dtype=torch.float32, device=dev)
     K = FIXED_BITS - _log2_terms(t.numel()) - (max(mb >> 23, 1) - 126)
     y = torch.round(t.double() * 2.0 ** K)             # exact product, then X
     hd = torch.floor(y * 2.0 ** -32)
@@ -454,7 +463,10 @@ def vertex_deposit_plain(w: torch.Tensor, q, elem: torch.Tensor, active: torch.T
     step = torch.where((err > 0) == (s > 0), 1, -1)
     s = torch.where((err != 0) & ((bits & 1) == 0), (bits + step).view(torch.float64), s)
     e1 = (-K) >> 1
-    return s.to(torch.float32) * 2.0 ** e1 * 2.0 ** (-K - e1)
+    out = s.to(torch.float32) * 2.0 ** e1 * 2.0 ** (-K - e1)
+    pos, neg, nan = flags[:, :n_out]
+    out = torch.where(pos, math.inf, torch.where(neg, -math.inf, out))
+    return torch.where(nan | (pos & neg), math.nan, out)
 
 
 def vertex_deposit(w: torch.Tensor, q, elem: torch.Tensor, active: torch.Tensor,
@@ -480,6 +492,7 @@ def vertex_deposit(w: torch.Tensor, q, elem: torch.Tensor, active: torch.Tensor,
     if n_out == 0:
         return out
     acc = torch.empty(n_out, 2, dtype=torch.int64, device=dev)
+    flags = torch.empty(n_out, dtype=torch.int32, device=dev)
     max_bits = torch.zeros(1, dtype=torch.int32, device=dev)
     P = ctypes.c_void_p
 
@@ -489,7 +502,7 @@ def vertex_deposit(w: torch.Tensor, q, elem: torch.Tensor, active: torch.Tensor,
     err = _build.lib().pp_vdeposit(
         ptr(w), ptr(q), ptr(elem), ptr(active), ptr(elem2verts), k,
         0 if elem2verts is None else elem2verts.shape[0], n_out,
-        _log2_terms(n * k), ptr(acc), ptr(max_bits), ptr(out), n,
+        _log2_terms(n * k), ptr(acc), ptr(flags), ptr(max_bits), ptr(out), n,
         P(kernels.stream_handle()))
     _build.check(err, "vdeposit")
     kernels.LAUNCHES["vdeposit"] += 1

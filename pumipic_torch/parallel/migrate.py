@@ -197,7 +197,10 @@ def migrate(state: Dict[str, torch.Tensor], new_elem, dest_rank, elem_gid,
     it, every rank.  ``hier`` routes the payload through the two-stage
     exchange of a ``("slice", "ranks")`` group
     (:func:`~pumipic_torch.parallel.group.hier_ragged_all_to_all`): the
-    arrivals and every result are the flat exchange's, bit for bit."""
+    arrivals and every result are the flat exchange's, bit for bit.  The
+    caller gives ``state`` up: on the card the arrivals are written into
+    its member field tensors in place (:func:`~pumipic_torch.ops.exchange.
+    place_arrivals`); read the result from the returned state."""
     dev = new_elem.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
     if num_ranks == 1:
@@ -239,7 +242,7 @@ def migrate(state: Dict[str, torch.Tensor], new_elem, dest_rank, elem_gid,
     exchange = group.hier_ragged_all_to_all if hier else group.ragged_all_to_all
     recv = exchange(send, send_rows, recv_rows)
     with group.split("glue"):
-        # the free slots' ranks (X1), the arrivals' placement (X3)
+        # the arrivals into the free slots, in place (X3)
         new_state, num_recv, num_unres, recv_over = ex.place_arrivals(
             state, staying, new_elem, recv, field_slices, gid_sorted, gid_perm)
     return MigrateResult(new_state, leaving.sum(dtype=torch.int32), num_recv,
@@ -256,7 +259,8 @@ def migrate_structure(ps, new_elem, dest_rank, elem_gid, gid_sorted, gid_perm,
     dps): its member fields ride the exchange, arrivals take free slots,
     then ``rebuild`` restores the layout on the merged population.
     Returns (structure, result); the structure's ``overflowed`` covers
-    the layout, ``result.overflow`` the exchange."""
+    the layout, ``result.overflow`` the exchange.  ``ps`` is given up (its
+    member fields may hold the arrivals, see :func:`migrate`)."""
     state = dict(ps.fields)
     state["elem"] = ps.elem
     state["active"] = ps.active

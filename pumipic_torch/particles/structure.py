@@ -166,8 +166,7 @@ class ParticleStructure:
     def get_pids(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """getPIDs analog (ps_for.hpp:63-85): element-sorted slot ids +
         per-element offsets (inactive slots sorted to the tail)."""
-        key = torch.where(self.active, self.elem, self.num_elems)
-        order = rebuild_ops.key_sort(key, self.num_elems)
+        order, _ = rebuild_ops.masked_key_sort(self.elem, self.active, self.num_elems)
         counts = self.ppe()
         offsets = torch.cat([counts.new_zeros(1),
                              torch.cumsum(counts, 0, dtype=counts.dtype)])
@@ -380,8 +379,7 @@ def _rebuild(ps: ParticleStructure, new_elem: torch.Tensor,
         # gather formulation: the stable sorted order IS the slot order
         E = ps.num_elems
         if ps.layout == "csr":
-            key = torch.where(active, elem, E)
-            order = rebuild_ops.key_sort(key, E)
+            order, key = rebuild_ops.masked_key_sort(elem, active, E, keep_key=True)
             counts = histogram(elem, active, E)
             start = torch.cat([counts.new_zeros(1),
                                torch.cumsum(counts, 0, dtype=LID)])
@@ -389,7 +387,7 @@ def _rebuild(ps: ParticleStructure, new_elem: torch.Tensor,
             needed = start[E]
         else:
             key = elem
-            order = rebuild_ops.key_sort(torch.where(active, 0, 1).to(LID), 1)
+            order, _ = rebuild_ops.masked_key_sort(None, active, 1)
             elem_offsets = None
             needed = torch.sum(active, dtype=LID)
         take = order[:C]
@@ -420,8 +418,7 @@ def _rebuild_sorted(ps: ParticleStructure, elem: torch.Tensor,
     C = ps.capacity
     dev = ps.device
     E, M = ps.num_elems, elem.shape[0]
-    key = torch.where(active, elem, E)
-    order = rebuild_ops.key_sort(key, E)
+    order, key = rebuild_ops.masked_key_sort(elem, active, E, keep_key=True)
     counts = histogram(elem, active, E)
     start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=LID)])
 

@@ -147,12 +147,20 @@ def build_all(versions) -> None:
                  else []) + (["pp_vdeposit"] if v.has("vdeposit.cu") else [])
         for name in names:
             fn = getattr(v.lib, name)
-            fn.argtypes = _build.SIGNATURES[name]
+            argtypes = list(_build.SIGNATURES[name])
+            if name == "pp_vdeposit" and not _v_flags(v):
+                argtypes.pop(10)        # a V before its flag words: no flags
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
 
 
 def ptr(t):
     return P(None if t is None else t.data_ptr())
+
+
+def _v_flags(v: Version) -> bool:
+    """Whether ``v``'s V takes the non-finite terms' flag words."""
+    return "unsigned int* flags" in v.texts["vdeposit.cu"]
 
 
 def launch_m2(v: Version, mesh, orig, dest, e0, act, max_iters, handler, record,
@@ -216,10 +224,11 @@ def launch_v(v: Version, w, q, elem, active, elem2verts, n_out):
     out = torch.empty(n_out, dtype=torch.float32, device=dev)
     acc = torch.empty(n_out, 2, dtype=torch.int64, device=dev)
     max_bits = torch.zeros(1, dtype=torch.int32, device=dev)
+    flags = [ptr(torch.empty(n_out, dtype=torch.int32, device=dev))] if _v_flags(v) else []
     err = v.lib.pp_vdeposit(
         ptr(w), ptr(q), ptr(elem), ptr(active), ptr(elem2verts), k,
         0 if elem2verts is None else elem2verts.shape[0], n_out, sc._log2_terms(n * k),
-        ptr(acc), ptr(max_bits), ptr(out), n, P(stream_handle()))
+        ptr(acc), *flags, ptr(max_bits), ptr(out), n, P(stream_handle()))
     if err:
         raise RuntimeError(f"{v.name} pp_vdeposit: cudaError {err}")
     return (out.view(torch.int32),)

@@ -7,7 +7,9 @@ For each arm (default: ``cartesian``; also ``band``, ``annulus``,
 bench_torch's configuration of that arm (default 10M particles); ``pps3d``
 and ``pps3d-walk`` are bench_torch's pseudoPushAndSearch arms (the Kuhn
 box, DPS, kernel K or kernel L3), ``pps3d-reflect`` its reflecting-wall
-arm (K's push-only form and kernel M's peel form); ``gitr-reflect`` and
+arm (K's push-only form and kernel M's peel form), ``pps3d-scs`` its Kuhn
+arm on a Sell-C-σ structure (the sorted rebuild on tets: kernels C, Q, S
+and G); ``gitr-reflect`` and
 ``gitr-absorb`` are bench_torch's GITR-style arms (kernels R, M and W on
 the 196,608-tet box); ``2d-path`` is ``chip_smoke.py``'s 2D path (one call
 of ``trace2d_path_call`` a step: kernels L, M2, V and H from the seeded
@@ -48,6 +50,7 @@ PPS3D_ARMS = {  # arm -> bench_torch.setup_pps3d keywords
     "pps3d": {"kuhn": "auto"},
     "pps3d-walk": {"kuhn": "off"},
     "pps3d-reflect": {"kuhn": "off", "wall": "reflect"},
+    "pps3d-scs": {"kuhn": "auto", "structure": "scs"},
 }
 GITR_ARMS = {  # arm -> bench_torch.setup_gitr keywords
     "gitr-reflect": {"wall": "reflect"},

@@ -192,7 +192,7 @@ def test_payload_lanes_match_jax():
         {k: v[:2] + (tuple(v[3]),) for k, v in js.items()}
     staying = torch.zeros(4, dtype=torch.bool)
     state, n, unres, over = tex.place_arrivals(
-        {k: torch.as_tensor(v) for k, v in st.items()}, staying,
+        {k: torch.tensor(v) for k, v in st.items()}, staying,
         torch.zeros(4, dtype=torch.int32), tp, ts, torch.arange(4, dtype=torch.int32),
         torch.arange(4, dtype=torch.int32))
     assert int(n) == 4 and int(unres) == 0 and not bool(over)

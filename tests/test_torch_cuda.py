@@ -1430,8 +1430,8 @@ def test_vdeposit_kernel_key_orders(dev, mesh, order, kind, n):
 
 @pytest.mark.parametrize("scale", [1e-42, 1e-20, 1.0, 1e30])
 def test_vdeposit_kernel_across_the_f32_range(dev, mesh, scale):
-    """Subnormal to large weights, and a NaN term (every output NaN, as the
-    plain version)."""
+    """Subnormal to large weights, and a NaN term (NaN in its own output
+    alone, as the plain version)."""
     rng = np.random.default_rng(1)
     n = 50_000
     elem = torch.as_tensor(rng.integers(0, mesh.nelems, n).astype(np.int32), device=dev)
@@ -1441,7 +1441,52 @@ def test_vdeposit_kernel_across_the_f32_range(dev, mesh, scale):
         got = sc.particles_per_element(elem, act, mesh.nelems, wt)
         want = sc.vertex_deposit_plain(wt, None, elem, act, None, mesh.nelems)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert bool(torch.isnan(got).all())
+    assert torch.equal(torch.nonzero(torch.isnan(got)).flatten(), elem[77:78].long())
+
+
+V_NON_FINITE = {"nan": (float("nan"),), "+inf": (float("inf"),), "-inf": (-float("inf"),),
+                "+inf and -inf in one output": (float("inf"), -float("inf")),
+                "inactive nan": (float("nan"),)}
+
+
+@pytest.mark.parametrize("n", [1000, 1_000_003])
+@pytest.mark.parametrize("kind", ["bcc+charge", "weights"])
+@pytest.mark.parametrize("case", list(V_NON_FINITE))
+def test_vdeposit_kernel_non_finite_terms(dev, mesh, case, kind, n):
+    """NaN and infinite terms: V equals its plain version bit for bit (NaN
+    where an active term is NaN or both infinities meet, the infinity where
+    only it does), and every other output is the finite sum the same
+    particles give with the bad ones dropped."""
+    rng = np.random.default_rng(n + len(case))
+    E = mesh.nelems
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    elem = rng.integers(0, E, n).astype(np.int32)
+    act = rng.uniform(size=n) < 0.9
+    pool = np.nonzero(~act if case == "inactive nan" else act)[0][:len(V_NON_FINITE[case])]
+    elem[pool] = elem[pool[0]]
+    q = rng.uniform(-1, 2, n).astype(np.float32)
+    q[pool] = V_NON_FINITE[case]
+    bcc = t(rng.dirichlet([1, 1, 1], n).astype(np.float32) + np.float32(0.01))
+    elem, act, q = t(elem), t(act), t(q)
+    dropped = act.clone()
+    dropped[t(pool).long()] = False
+    if kind == "weights":
+        got = sc.particles_per_element(elem, act, E, q)
+        want = sc.vertex_deposit_plain(q, None, elem, act, None, E)
+        finite = sc.vertex_deposit_plain(q, None, elem, dropped, None, E)
+    else:
+        got = sc.scatter_to_verts_bcc(elem, act, bcc, mesh.elem2verts, mesh.nverts, q)
+        want = sc.vertex_deposit_plain(bcc, q, elem, act, mesh.elem2verts, mesh.nverts)
+        finite = sc.vertex_deposit_plain(bcc, q, elem, dropped, mesh.elem2verts,
+                                         mesh.nverts)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ok = torch.isfinite(got)
+    assert torch.equal(got[ok].view(torch.int32), finite[ok].view(torch.int32))
+    if case == "inactive nan":
+        assert bool(ok.all())
+    else:
+        assert not bool(ok.all())
+        assert bool(torch.isnan(got).any()) == (case in ("nan", "+inf and -inf in one output"))
 
 
 # ---------------------------------------------------------------------------
@@ -1523,11 +1568,21 @@ def test_place_arrivals_kernel_equals_plain(dev, case):
     fs, _ = ex.payload_layout(st)
     args = (st, _dev_tensor(staying, dev), _dev_tensor(ne, dev), _dev_tensor(recv, dev), fs,
             _dev_tensor(gs, dev), _dev_tensor(gp, dev))
+    before = {k: v.clone() for k, v in st.items()}
     n0 = (kernels.LAUNCHES["place_arrivals"], kernels.LAUNCHES["rank_in_key"])
     got = ex.place_arrivals(*args)
     assert (kernels.LAUNCHES["place_arrivals"], kernels.LAUNCHES["rank_in_key"]) == \
-        (n0[0] + 1, n0[1] + 1)
+        (n0[0] + 1, n0[1])
     _same_bits(got, ex.place_arrivals_plain(*args))
+    _same_bits(got, ex.place_arrivals_plain(before, *args[1:]))
+    stay = args[1]
+    for k in fs:        # in place: the state's own tensors, stayers untouched
+        assert got[0][k].data_ptr() == st[k].data_ptr()
+        keep = stay.reshape((-1,) + (1,) * (st[k].dim() - 1))
+        _same_bits(torch.where(keep, st[k], before[k]), before[k])
+    assert got[0]["elem"].data_ptr() != st["elem"].data_ptr()
+    again = ex.place_arrivals(*args)        # idempotent: the free slots rewritten
+    _same_bits(again, got)
 
 
 @pytest.mark.parametrize("case", tr.OWNER_CASES)
@@ -1644,6 +1699,17 @@ def _sort_case(case, dev):
         return torch.full((n,), 7, dtype=torch.int32, device=dev), 9
     if case == "all sentinel":
         return torch.full((n,), E, dtype=torch.int32, device=dev), E
+    if case == "negative keys":
+        return randint(-300, 300, n), 300
+    if case == "keys above K":
+        return randint(0, 5000, n), 300
+    if case == "every int32":
+        return randint(-(2**31), 2**31 - 1, n), E
+    if case == "app keys, a few outside":
+        k = randint(0, E + 1, 11_999_376)
+        k[torch.randperm(k.shape[0], generator=g, device=dev)[:50]] = randint(
+            -(2**31), 2**31 - 1, 50)
+        return k, E
     size = int(case.split()[-1])
     return randint(0, 300, size), 299
 
@@ -1651,7 +1717,8 @@ def _sort_case(case, dev):
 SORT_CASES = ["app, nearly sorted", "app, random order", "K = 2, 10M", "0/1 partition, 10M",
               "pps3d, 24,576 tets", "K = 2^31 - 1 (4 passes)", "K = 2^18 (3 passes)",
               "all equal", "all sentinel", "n = 0", "n = 1", "n = 4095", "n = 4096",
-              "n = 4097"]
+              "n = 4097", "negative keys", "keys above K", "every int32",
+              "app keys, a few outside"]
 
 
 @pytest.mark.parametrize("case", SORT_CASES)
@@ -1663,3 +1730,32 @@ def test_key_sort_kernel_equals_plain(dev, case):
     assert kernels.LAUNCHES["key_sort"] == n0 + (1 if key.numel() else 0)
     assert got.dtype == torch.int32
     assert torch.equal(got, rb.key_sort_plain(key, K))
+    assert torch.equal(rb.key_sort(key, K), got)
+
+
+@pytest.mark.parametrize("case", ["app's rebuild", "inactive slots hold -1",
+                                  "0/1 partition", "elements outside [0, E]", "n = 4097"])
+def test_masked_key_sort_kernel_equals_plain(dev, case):
+    """C's fused mode: the key formed from (elem, active, fill) in the
+    histogram and the first pass, kept where asked, equal to the plain
+    version's where and stable sort."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    E = 122_603
+    n = 4097 if case == "n = 4097" else 11_999_376
+    elem = torch.sort(torch.randint(0, E, (n,), generator=g, device=dev,
+                                    dtype=torch.int32)).values
+    active = torch.rand(n, generator=g, device=dev) < 0.95
+    if case == "inactive slots hold -1":
+        elem = torch.where(active, elem, -1)
+    if case == "elements outside [0, E]":
+        elem[torch.randperm(n, generator=g, device=dev)[:100]] = -7
+        elem[torch.randperm(n, generator=g, device=dev)[:100]] = 5 * E
+    e, fill = (None, 1) if case == "0/1 partition" else (elem, E)
+    n0 = kernels.LAUNCHES["key_sort"]
+    order, key = rb.masked_key_sort(e, active, fill, keep_key=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["key_sort"] == n0 + 1
+    want_order, want_key = rb.masked_key_sort_plain(e, active, fill)
+    assert torch.equal(key, want_key) and torch.equal(order, want_order)
+    assert rb.masked_key_sort(e, active, fill)[1] is None
+    assert torch.equal(rb.masked_key_sort(e, active, fill)[0], want_order)

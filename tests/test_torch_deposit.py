@@ -181,31 +181,61 @@ def test_deposit_is_independent_of_the_particle_order(mesh, order):
     _check_bound(b.numpy(), ref, terms, 3 * len(elem))
 
 
-def test_non_finite_terms_make_every_output_nan(mesh):
-    """A divergence from the reference, pinned: a non-finite term has no
-    fixed-point image, so the port's deposit is NaN in every output, where
-    the reference's is NaN (or inf) only in the outputs that sum one.  An
-    inactive particle's NaN is dropped by both."""
+NON_FINITE = {"nan": (np.nan,), "+inf": (np.inf,), "-inf": (-np.inf,),
+              "+inf and -inf in one output": (np.inf, -np.inf),
+              "inactive nan": (np.nan,)}
+
+
+def _same_pattern(got, ref):
+    """NaN where the reference is NaN, the same infinity where it is
+    infinite, and every finite output equal."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(ref))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref))
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(got[fin].view(np.int32), ref[fin].view(np.int32))
+
+
+@pytest.mark.parametrize("case", list(NON_FINITE))
+def test_non_finite_terms_match_the_reference(mesh, case):
+    """NaN and infinite terms give the reference's ``segment_sum`` pattern:
+    NaN only in the outputs that sum a NaN or both infinities, an infinity
+    in those that sum only it, and every other output its finite sum (the
+    terms are multiples of 1/16, so every order sums them exactly and the
+    finite outputs are equal bit for bit).  An inactive particle's term is
+    dropped by both."""
     jm, tm = mesh
     rng, elem, active, _, _ = _particles(tm.nelems, 1000, 5)
     elem = np.clip(elem, 0, tm.nelems - 1)
-    wts = rng.normal(0.0, 1.0, len(elem)).astype(np.float32)
-    i = int(np.nonzero(active)[0][0])
-    for bad in (np.nan, np.inf):
-        w = wts.copy()
-        w[i] = bad
-        got = t_sc.particles_per_element(torch.from_numpy(elem), torch.from_numpy(active),
-                                         tm.nelems, torch.from_numpy(w)).numpy()
-        ref = np.asarray(j_sc.particles_per_element(
-            jnp.asarray(elem), jnp.asarray(active), jm.nelems, jnp.asarray(w)))
-        assert np.isnan(got).all()
-        assert not np.isfinite(ref[elem[i]]) and np.isfinite(np.delete(ref, elem[i])).all()
-    w = wts.copy()
-    j = int(np.nonzero(~active)[0][0])
-    w[j] = np.nan
+    wts = (rng.integers(-32, 33, len(elem)) / 4).astype(np.float32)
+    bcc = (rng.integers(1, 5, (len(elem), 3)) / 4).astype(np.float32)
+    charge = (rng.integers(-8, 9, len(elem)) / 4).astype(np.float32)
+    pool = np.nonzero(~active if case == "inactive nan" else active)[0]
+    # the bad particles share one element (the same output and vertices)
+    first = pool[0]
+    bad = [first] + [i for i in pool[1:] if elem[i] == elem[first]][:1]
+    if len(bad) < len(NON_FINITE[case]):
+        bad.append(pool[1])
+        elem[pool[1]] = elem[first]
+    for i, v in zip(bad, NON_FINITE[case]):
+        wts[i] = v
+        charge[i] = v
     got = t_sc.particles_per_element(torch.from_numpy(elem), torch.from_numpy(active),
-                                     tm.nelems, torch.from_numpy(w))
-    assert bool(torch.isfinite(got).all())
+                                     tm.nelems, torch.from_numpy(wts)).numpy()
+    ref = np.asarray(j_sc.particles_per_element(
+        jnp.asarray(elem), jnp.asarray(active), jm.nelems, jnp.asarray(wts)))
+    _same_pattern(got, ref)
+    got = t_sc.scatter_to_verts_bcc(torch.from_numpy(elem), torch.from_numpy(active),
+                                    torch.from_numpy(bcc), tm.elem2verts, tm.nverts,
+                                    torch.from_numpy(charge)).numpy()
+    ref = np.asarray(j_sc.scatter_to_verts_bcc(
+        jnp.asarray(elem), jnp.asarray(active), jnp.asarray(bcc), jm.elem2verts,
+        jm.nverts, jnp.asarray(charge)))
+    _same_pattern(got, ref)
+    if case == "inactive nan":
+        assert np.isfinite(got).all()
+    else:
+        assert not np.isfinite(got).all() and np.isfinite(got).any()
 
 
 def test_counts_match_reference(mesh):

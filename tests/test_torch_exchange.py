@@ -153,6 +153,111 @@ def test_place_arrivals_matches_jax(case):
         assert int(n_recv) == 0 and int(n_unres) == recv.shape[0]
 
 
+X_THREADS, X3_CHUNKS = 256, 8
+X3_TILE = X3_CHUNKS * X_THREADS
+
+
+def place_arrivals_emulated(state, staying, new_elem, recv, fs, gs, gp):
+    """Kernel X3's design in numpy, step for step: launch 1 takes a tile a
+    block (X_THREADS arrivals: binary search, the tile's scan compacting
+    its valid arrivals' rows and elements at its own X_THREADS entries, its
+    valid and unresolved counts; X3_TILE slots: the count of the free
+    ones); launch 2 scans the tiles' counts into exclusive prefixes and
+    writes the counts and the overflow; launch 3 takes X3_TILE slots a
+    block (a ballot a warp and chunk, the scan of the 64 counts on the
+    tile's prefix: each free slot's rank r; the r-th valid arrival's tile
+    by a binary search over the prefixes) and writes the member fields IN
+    PLACE, only at the free slots, and elem and active anew.  Returns (new
+    state, num_recv, num_unresolved, overflow); ``state``'s member arrays
+    are the new state's."""
+    m, n, E = recv.shape[0], staying.shape[0], gs.shape[0]
+    tiles_a = -(-m // X_THREADS) + (m == 0)
+    tiles_p = -(-n // X3_TILE) + (n == 0)
+    arr_row = np.full(tiles_a * X_THREADS, -5, np.int64)
+    arr_lid = np.full(tiles_a * X_THREADS, -5, np.int64)
+    tile_valid, tile_unres = np.zeros(tiles_a, np.int64), np.zeros(tiles_a, np.int64)
+    tile_free = np.zeros(tiles_p, np.int64)
+    for b in range(max(tiles_a, tiles_p)):                  # launch 1
+        if b < tiles_p:
+            i = np.arange(b * X3_TILE, (b + 1) * X3_TILE)
+            tile_free[b] = int(((i < n) & ~staying[np.minimum(i, max(n - 1, 0))]).sum()) \
+                if n else 0
+        if b < tiles_a:
+            j = np.arange(b * X_THREADS, (b + 1) * X_THREADS)
+            g = np.where(j < m, recv[np.minimum(j, max(m - 1, 0)), 0] if m else -1, -1)
+            pos = np.clip(np.searchsorted(gs, g), 0, E - 1)
+            lid = np.where((g >= 0) & (gs[pos] == g), gp[pos], -1)
+            valid, unres = (g >= 0) & (lid >= 0), (g >= 0) & (lid < 0)
+            k = np.cumsum(valid) - valid
+            arr_row[b * X_THREADS + k[valid]] = j[valid]
+            arr_lid[b * X_THREADS + k[valid]] = lid[valid]
+            tile_valid[b], tile_unres[b] = valid.sum(), unres.sum()
+    valid_pre = np.cumsum(tile_valid) - tile_valid              # launch 2
+    free_pre = np.cumsum(tile_free) - tile_free
+    num_recv, num_unres = int(tile_valid.sum()), int(tile_unres.sum())
+    overflow = num_recv > int(tile_free.sum())
+    elem = np.full(n, -7, np.int32)
+    active = np.zeros(n, bool)
+    lane = np.arange(32)
+    for b in range(tiles_p):                                    # launch 3
+        i = b * X3_TILE + np.arange(X3_TILE).reshape(X3_CHUNKS, X_THREADS // 32, 32)
+        free = ((i < n) & ~staying[np.minimum(i, max(n - 1, 0))]) if n else i < 0
+        cnt = free.sum(axis=2).reshape(-1)                      # (chunk, warp) in slot order
+        pre = (np.cumsum(cnt) - cnt).reshape(X3_CHUNKS, -1)
+        lower = (free[:, :, None, :] & (lane[None, None, None, :] < lane[None, None, :, None])
+                 ).sum(axis=3)
+        r = free_pre[b] + pre[:, :, None] + lower
+        for s_, f, rank in zip(i.reshape(-1), free.reshape(-1), r.reshape(-1)):
+            if s_ >= n:
+                continue
+            if not f:
+                elem[s_], active[s_] = new_elem[s_], True
+                continue
+            row, lid = -1, -1
+            if rank < num_recv:
+                a = int(np.searchsorted(valid_pre, rank, side="right")) - 1
+                row = arr_row[a * X_THREADS + rank - valid_pre[a]]
+                lid = arr_lid[a * X_THREADS + rank - valid_pre[a]]
+            elem[s_], active[s_] = lid, row >= 0
+            for name, (lo, hi, dtype, inner) in fs.items():
+                vals = recv[row, lo:hi] if row >= 0 else np.zeros(hi - lo, np.int32)
+                tgt = state[name].reshape(n, -1)
+                tgt[s_] = (vals != 0) if dtype == torch.bool else vals.view(
+                    np.float32 if dtype == torch.float32 else np.int32)
+    new = {"elem": elem, "active": active, **{k: state[k] for k in fs}}
+    return new, num_recv, num_unres, overflow
+
+
+@pytest.mark.parametrize("case", tr.PLACE_CASES)
+def test_place_arrivals_design_equals_plain_in_place(case):
+    """Kernel X3's tile counts, scan and in-place placement (numpy) equal the plain
+    version (which equals ``_place_arrivals``): the member fields are
+    written into the state's own arrays at the free slots alone (the
+    staying slots keep their bits), elem and active are new.  The CPU
+    wrapper keeps the same contract: the new state's member fields are
+    the state's own tensors, holding the result, and elem and active are
+    not written."""
+    st, staying, ne, recv, gs, gp = tr.place_case(case)
+    tst = {n: T(v.copy()) for n, v in st.items()}
+    fs, _ = tex.payload_layout(tst)
+    before = {k: v.clone() for k, v in tst.items()}
+    want = tex.place_arrivals(tst, T(staying), T(ne), T(recv), fs, T(gs), T(gp))
+    for k in fs:
+        assert want[0][k] is tst[k], f"{k} not written in place by the CPU wrapper"
+    for k in ("elem", "active"):
+        _bits_equal(tst[k], before[k].numpy(), f"{k} written by the CPU wrapper")
+    arrays = {k: v.copy() for k, v in st.items()}
+    got = place_arrivals_emulated(arrays, staying, ne, recv, fs, gs, gp)
+    for name in want[0]:
+        _bits_equal(want[0][name], got[0][name], name)
+    assert (int(want[1]), int(want[2]), bool(want[3])) == (int(got[1]), int(got[2]),
+                                                          bool(got[3]))
+    for name in fs:        # in place: the same arrays, stayers untouched
+        assert got[0][name] is arrays[name]
+        keep = staying.reshape((-1,) + (1,) * (st[name].ndim - 1))
+        _bits_equal(T(np.where(keep, arrays[name], st[name])), st[name], name)
+
+
 # ---------------------------------------------------------------------------
 # O
 # ---------------------------------------------------------------------------

@@ -557,6 +557,19 @@ def test_step_2d_matches_jax(ranks, jsteps, arm):
 
 
 @pytest.mark.parametrize("arm", list(STEP_ARMS))
+def test_step_2d_gives_up_the_input_states_member_fields(ranks, arm):
+    """The 2D step's migration writes the arrivals into the input state's
+    member field tensors on the CPU as kernel X3 does on the card: after a
+    step the input state's ``b``, ``pid`` (and ``rg``) are the new state's
+    tensors, so a caller reads the result only from the new state."""
+    i = list(STEP_ARMS).index(arm)
+    for r, out in enumerate(ranks):
+        for t, fields in enumerate(out["step"][i]["given_up"]):
+            assert fields and all(same and equal for same, equal in fields.values()), \
+                (r, t, fields)
+
+
+@pytest.mark.parametrize("arm", list(STEP_ARMS))
 def test_step_2d_exits_and_lost_add_up_to_the_jax_removals(ranks, jsteps, arm):
     """The port's own stats keys split each step's removals (the JAX step's
     alive counts give them) into boundary exits and particles lost off the

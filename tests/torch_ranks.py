@@ -184,7 +184,7 @@ def send_case(case: str, seed: int = 0):
 
 
 PLACE_CASES = ("random", "beyond the free slots", "no arrival", "all unresolved",
-               "every slot free", "ragged tile")
+               "every slot free", "ragged tile", "-1 padding rows")
 
 
 def place_case(case: str, seed: int = 0):
@@ -214,6 +214,8 @@ def place_case(case: str, seed: int = 0):
         v = src[name].reshape(m, int(np.prod(src[name].shape[1:])))
         lanes.append(v.view(np.int32) if v.dtype == np.float32 else v.astype(np.int32))
     recv = np.ascontiguousarray(np.concatenate(lanes, axis=1).astype(np.int32))
+    if case == "-1 padding rows":       # a padded receive: whole rows of -1
+        recv[rng.random(m) < 0.3] = -1
     new_elem = rng.integers(0, E, n).astype(np.int32)
     return st, staying, new_elem, recv, gids[perm], perm
 
@@ -350,7 +352,7 @@ def hier_cases(me: int, R: int) -> dict:
         for op in REDUCE_OPS:
             o[op] = red.reduce_comm_array(sid, rid, fld, red.Op[op], hier=hier)
         for name, p in (("world", None), ("neighbor", plan)):
-            res = mig.migrate({k: torch.as_tensor(v[me]) for k, v in st.items()},
+            res = mig.migrate({k: torch.tensor(v[me]) for k, v in st.items()},
                               torch.as_tensor(ne[me]), torch.as_tensor(de[me]), lpp.elem_gid,
                               lpp.elem_gid_sorted, lpp.elem_gid_perm, me, R, 16, plan=p,
                               hier=hier)
@@ -372,7 +374,7 @@ def _picparts(coords, tris, cls, R, dim=2):
 def _migrate_case(lpp, st, new_elem, dest, cap, plan, me, R):
     from pumipic_torch.parallel import migrate as mig
 
-    state = {k: torch.as_tensor(v[me]) for k, v in st.items()}
+    state = {k: torch.tensor(v[me]) for k, v in st.items()}   # migrate writes in place
     res = mig.migrate(state, torch.as_tensor(new_elem[me]), torch.as_tensor(dest[me]),
                       lpp.elem_gid, lpp.elem_gid_sorted, lpp.elem_gid_perm, me, R,
                       cap, plan=plan)
@@ -460,14 +462,20 @@ def picparts_rank(coords, tris, cls, fields, mig_cases, struct_layouts,
             cfg = px.XGCmConfig(**kw["cfg"], gyro=px.GyroConfig(**kw["gyro"]))
             lp, s, _, step = px.make_picparts_setup(coords, tris, cls, cfg, device="cpu",
                                                     **kw["setup"])
-            hist = []
+            hist, given_up = [], []
             mon = CapacityMonitor()
             for _ in range(3):
+                prev = s
                 s, fwd, stats = step(s)
                 mon.observe(stats)
                 hist.append((stats, fwd))
+                # the migrated member fields the step passed on: the input
+                # state's own tensors, holding the new state's values
+                given_up.append({k: (prev[k] is s[k], torch.equal(prev[k], s[k]))
+                                 for k in ("b", "pid", "rg") if k in prev})
             out[key2].append(dict(hist=hist, state=s, vert_gid=lp.vert_gid,
-                                  recommend=mon.recommend(s["active"].shape[0])))
+                                  recommend=mon.recommend(s["active"].shape[0]),
+                                  given_up=given_up))
         for kw in cfg3s:
             cfg3 = pps.PushSearchConfig(**kw["cfg"])
             _, ps3, step3 = pps.make_picparts_setup_3d(coords3, tets, cfg3, device="cpu",
