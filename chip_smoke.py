@@ -407,13 +407,37 @@ def record_bound(kernel: str, what: str, results: dict, bytes_moved: int,
 
 
 def record_library(kernel: str, what: str, call: str, fn, results: dict,
-                   reps: int = 20) -> None:
+                   reps: int = 20, entry: bool = True) -> None:
     """Time one PyTorch call (``call``) computing the kernel's function in
-    case ``what`` (its yardstick; the port never calls it)."""
+    case ``what`` (its yardstick; the port never calls it); ``entry``: the
+    kernel's JSON entry takes it (a case of another function than the
+    entry's: not)."""
     ms = device_ms(fn, reps)
     log(f"[c] {kernel} {what} library yardstick {call}: {ms:.4f} ms")
     case_of(kernel, what, results).update(library=call, library_ms=ms)
-    results[kernel].setdefault("library_ms", ms)
+    if entry:
+        results[kernel].setdefault("library_ms", ms)
+
+
+def record_launches(kernel: str, what: str, fn, results: dict) -> None:
+    """The device activities (kernels and memsets) one call of ``fn``
+    enqueues, counted by torch.profiler, in case ``what``'s record."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    names = {}
+    for _ in range(2):          # a process's first trace can miss the device's events
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                names[ev.key.split("(")[0][:40]] = ev.count
+        if names:
+            break
+    log(f"[c] {kernel} {what}: {sum(names.values())} CUDA launches a call {names}")
+    case_of(kernel, what, results).update(cuda_launches=sum(names.values()),
+                                          cuda_launch_names=names)
 
 
 def ring_key_streams(elem, active, rg, E: int, R: int, rmax: float):
@@ -2080,6 +2104,8 @@ def check_rank_in_key(results: dict, dev, gen, D: int) -> None:
         ("free slots (2 keys)", st["active"].to(torch.int32), 1),
         ("balancer candidates, 33 keys (2S+1, S=16 at 8 ranks)",
          torch.randint(0, 34, (n,), generator=gen, device=dev, dtype=torch.int32), 33),
+        ("buckets at 101 ranks, 101 keys (the wide mode)",
+         torch.randint(0, 101, (n,), generator=gen, device=dev, dtype=torch.int32), 100),
         ("all one key", torch.zeros(n, dtype=torch.int32, device=dev), 3),
         ("no leaver", torch.full((n,), D, dtype=torch.int32, device=dev), D),
         ("every slot leaving",
@@ -2103,19 +2129,39 @@ def check_rank_in_key(results: dict, dev, gen, D: int) -> None:
         else:
             raise AssertionError("rank_in_key took a key outside its range")
     lib = _build.lib()
-    for what, key, K in cases[:3]:
-        tiles = lib.pp_rank_in_key_tiles(n)
+    max_k = ex.X1_MAX_KEYS - 1
+    wide = torch.randint(0, max_k + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    what = f"K + 1 = X1_MAX_KEYS ({max_k + 1} keys: four warps a tile)"
+    compare_bits("rank_in_key", what, ex.rank_in_key(wide, max_k),
+                 ex.rank_in_key_plain(wide, max_k), results)
+    for what, key, K in cases[:4]:
         rank = torch.empty(n, dtype=torch.int32, device=dev)
         counts = torch.empty(K + 2, dtype=torch.int32, device=dev)
-        scratch = torch.empty((K + 2) * tiles, dtype=torch.int32, device=dev)
-        args = [ex._ptr(key), n, K + 1, ex._ptr(rank), ex._ptr(counts), ex._ptr(scratch)]
-        time_pair("rank_in_key", what,
-                  lambda: lib.pp_rank_in_key(*args, ex._stream()),
-                  lambda: ex.rank_in_key_plain(key, K), results)
-        # the keys read, the ranks written (the tile pass and the rank pass
-        # read the keys twice: counted once)
+        scratch = [torch.empty(lib.pp_rank_in_key_scratch(n, K + 1, r), dtype=torch.int32,
+                               device=dev) for r in (0, 1)]     # counts only, ranked
+
+        def ranked(key=key, K=K, rank=rank, counts=counts, scratch=scratch[1]):
+            return lib.pp_rank_in_key(ex._ptr(key), n, K + 1, ex._ptr(rank), ex._ptr(counts),
+                                      ex._ptr(scratch), ex._stream())
+
+        def counts_only(key=key, K=K, counts=counts, scratch=scratch[0]):
+            return lib.pp_rank_in_key(ex._ptr(key), n, K + 1, None, ex._ptr(counts),
+                                      ex._ptr(scratch), ex._stream())
+
+        time_pair("rank_in_key", what, ranked, lambda: ex.rank_in_key_plain(key, K), results)
+        record_launches("rank_in_key", what, ranked, results)
+        # the keys read, the ranks and counts written
         record_bound("rank_in_key", what, results, nbytes(key, rank, counts))
-    results["rank_in_key"]["extra"]["library"] = "none: no one PyTorch call ranks within a key"
+        only = what + ", counts only"
+        time_pair("rank_in_key", only, counts_only,
+                  lambda: ex.rank_in_key_plain(key, K, ranks=False), results)
+        record_launches("rank_in_key", only, counts_only, results)
+        record_bound("rank_in_key", only, results, nbytes(key, counts))
+        record_library("rank_in_key", only, "torch.bincount(key, minlength=K + 1)",
+                       lambda: torch.bincount(key, minlength=K + 1), results, entry=False)
+    results["rank_in_key"]["extra"]["library"] = (
+        "none for the ranks (no one PyTorch call ranks within a key); the counts only: "
+        "torch.bincount, in their cases")
 
 
 def check_pack_send(results: dict, dev, gen, lpp, D: int, cap: int) -> None:
@@ -2161,11 +2207,18 @@ def check_pack_send(results: dict, dev, gen, lpp, D: int, cap: int) -> None:
                 ex._ptr(counts), ex._ptr(over), ex._stream()),
                 lambda: ex.pack_send_plain(*args), results)
             L = sum(rows)
-            # keys and ranks read, kept and leaving written; each admitted
+            record_launches("pack_send", what, lambda: lib.pp_pack_send(
+                ex._ptr(key), ex._ptr(rank), X_SLOTS, D, ex._ptr(quota), c,
+                ex._ptr(offsets), ex._ptr(new_elem), ex._ptr(lpp.elem_gid), m, srcs, lanes,
+                is_bool, width, ex._ptr(send), ex._ptr(kept), ex._ptr(leaving),
+                ex._ptr(counts), ex._ptr(over), ex._stream()), results)
+            # keys read, kept and leaving written; the ranks of the bucket
+            # keys alone read (the others decide nothing); each admitted
             # leaver's element, gid and fields read and its row written
+            n_bucket = int((key < D).sum())
             record_bound("pack_send", what, results,
-                         nbytes(key, rank, kept, leaving) + L * (4 + 4 + 4 * (width - 1))
-                         + nbytes(send))
+                         nbytes(key, kept, leaving) + 4 * n_bucket
+                         + L * (4 + 4 + 4 * (width - 1)) + nbytes(send))
             log(f"[c] pack_send {what}: {L} admitted leavers of {X_SLOTS} slots, "
                 f"{width} lanes a row")
     results["pack_send"]["extra"]["library"] = "none: no one PyTorch call packs the rows"
@@ -2678,9 +2731,9 @@ E_BUFFER = 12
 E_WALK = ("push", "locate", "histogram", "deposit")
 E_ANALYTIC = ("push", "annulus_locate", "locate", "histogram", "deposit")
 # launches a step of each rank, by name, of the exchange kernels: X1 for
-# the buckets, the free slots, the balancer's two weight counts and its
-# candidates; X2 and X3 once; O's gather, fan-in and fan-out.  One rank
-# migrates nothing (the comm-size-1 path) and has no balancer.
+# the buckets, the balancer's two weight counts and its candidates; X2 and
+# X3 once; O's gather, fan-in and fan-out.  One rank migrates nothing (the
+# comm-size-1 path) and has no balancer.
 E_EXCHANGE = {"rank_in_key": 4, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 3}
 E_ONE_RANK = {"owner_reduce": 3}
 # rank 0 of the 4-rank 120k arm with the exchange and the reduction as

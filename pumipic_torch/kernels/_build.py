@@ -121,7 +121,7 @@ SIGNATURES = {
     "pp_deposit_mapped": [_P, _P, _P, _I, _I, _P, _P],
     "pp_row_gather": [_P, _L, _I, _P, _P, _P, _P],  # idx n_rows n_arrays srcs dsts widths stream
     "pp_rank_in_key": [_P, _L, _I, _P, _P, _P, _P],  # key n n_keys rank counts scratch stream
-    "pp_rank_in_key_tiles": [_L],
+    "pp_rank_in_key_scratch": [_L, _I, _I],   # n n_keys ranked
     "pp_pack_send": [
         _P, _P, _L, _I, _P, _I, _P,          # key rank n n_buckets quota cap offsets
         _P, _P, _I, _P, _P, _P,              # new_elem elem_gid n_fields srcs lanes is_bool

@@ -3,8 +3,8 @@ and O (``kernels/csrc/exchange.cu``, ``kernels/csrc/owner.cu``).
 
 - :func:`rank_in_key` (X1): each item's stable rank among the items of its
   key (the rank in index order a stable argsort gives) and every key's
-  count; the migration's buckets, its free slots, the balancer's
-  candidates and weights.
+  count; the migration's buckets, the balancer's candidates and
+  weights.
 - :func:`pack_send` (X2): the admitted leavers' rows of the send buffer
   (gid, then every member field as int32 lanes).
 - :func:`place_arrivals` (X3): the arrivals' local elements and their
@@ -33,6 +33,8 @@ INVALID = -1
 # keys a tile's shared-memory table of kernel X1 holds (48 KB of counters,
 # one row for keys out of range): num_keys + 1 must not exceed it
 X1_MAX_KEYS = 48 * 1024 // 4 - 1
+# keys kernel X1 takes at most: a status word's 30-bit count
+X1_MAX_ITEMS = 1 << 30
 # member fields one launch of X2 or X3 moves
 X_MAX_FIELDS = 16
 
@@ -80,24 +82,30 @@ def rank_in_key(key: torch.Tensor, num_keys: int, ranks: bool = True):
     number of items j < i with ``key[j] == key[i]`` (None with ``ranks``
     False), ``counts`` the (num_keys + 1,) int32 count of each key, key
     ``num_keys`` (the callers' "ignored") included.  Raises on a key
-    outside [0, num_keys] and where num_keys + 1 exceeds ``X1_MAX_KEYS``,
-    on every device.  Kernel X1 on CUDA tensors (one launch counted),
+    outside [0, num_keys], where num_keys + 1 exceeds ``X1_MAX_KEYS`` and
+    where N reaches ``X1_MAX_ITEMS``, on every device.  Kernel X1 on CUDA
+    tensors (one launch counted: a memset of its scratch and one kernel),
     :func:`rank_in_key_plain` on CPU tensors."""
     if key.dtype != torch.int32 or key.dim() != 1:
         raise ValueError("rank_in_key: (N,) int32 keys expected")
     if num_keys < 0 or num_keys + 1 > X1_MAX_KEYS:
         raise ValueError(f"rank_in_key: {num_keys + 1} keys; a tile's table holds "
                          f"at most {X1_MAX_KEYS}")
+    if key.shape[0] >= X1_MAX_ITEMS:
+        raise ValueError(f"rank_in_key: {key.shape[0]} keys; a status word counts "
+                         f"fewer than {X1_MAX_ITEMS}")
     if not kernels.use_kernel("rank_in_key", key):
         if key.numel() and (int(key.min()) < 0 or int(key.max()) > num_keys):
             raise ValueError(f"rank_in_key: a key outside [0, {num_keys}]")
         return rank_in_key_plain(key, num_keys, ranks)
     n = key.shape[0]
     lib = _build.lib()
-    tiles = lib.pp_rank_in_key_tiles(n)
     counts = torch.empty(num_keys + 2, dtype=torch.int32, device=key.device)
-    scratch = torch.empty(max((num_keys + 2) * tiles, 1), dtype=torch.int32,
-                          device=key.device)
+    words = lib.pp_rank_in_key_scratch(n, num_keys + 1, int(ranks))
+    if words < 0:
+        raise ValueError(f"rank_in_key: {n} keys of {num_keys + 1}: status words "
+                         f"beyond an int32 count")
+    scratch = torch.empty(words, dtype=torch.int32, device=key.device)
     rank = torch.empty(n, dtype=torch.int32, device=key.device) if ranks else None
     err = lib.pp_rank_in_key(_ptr(key), n, num_keys + 1, _ptr(rank), _ptr(counts),
                              _ptr(scratch), _stream())

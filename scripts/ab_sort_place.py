@@ -1,9 +1,11 @@
-"""A/B of kernels C (the rebuild's stable sort) and X3 (the arrivals'
-placement) on one CUDA GPU: this checkout's ``rebuild.cu`` and
-``exchange.cu`` against other versions', in turns.
+"""A/B of kernels C (the rebuild's stable sort), X3 (the arrivals'
+placement), X1 (rank within key) and X2 (the send buffer's rows) on one
+CUDA GPU: this checkout's ``rebuild.cu`` and ``exchange.cu`` against other
+versions', in turns.
 
     python3 scripts/ab_sort_place.py OTHER[,OTHER...] [OUT_JSON]
         [--variants NAME=DEFINE:VALUE[,DEFINE:VALUE...][;NAME=...]] [--profile]
+        [--kernels C,X3,X1,X2]
 
 Each ``OTHER`` is a directory holding another version's ``rebuild.cu``
 and ``exchange.cu`` (either may be missing), for example a parent
@@ -19,7 +21,9 @@ first C (four launches a pass, keys in [0, K] only): its fused cases run
 ``torch.where`` first, as its callers did.  A version
 whose ``pp_place_arrivals`` takes ``free_rank`` is the first X3 (out of
 place, the free slots' ranks from kernel X1): it is timed with X1's launch
-and alone.
+and alone.  A version without ``pp_rank_in_key_scratch`` is the first X1
+(a tile pass, a scan and an add; scratch of (K + 2) words a tile).
+``--kernels`` picks the kernels timed (default all four).
 
 Inputs: C at the app's width (11,999,376 keys in [0, 122,603], 5% of them
 the sentinel): elements sorted with 1% of the keys moved (the app's
@@ -27,8 +31,11 @@ locality), the same keys in a random order, K = 2, the 0/1 partition, the
 fused mode on (elem, active, E) and on (active, 1) keeping the key, and
 100 keys outside [0, K]; X3 at phase c's shape (``chip_smoke.
 check_place_arrivals``'s main case: 3.75M slots, rank 0's picpart of the
-4-rank 120k arm, its arrivals).  Every version must equal the plain
-version bit for bit.  Each is timed on the device alone
+4-rank 120k arm, its arrivals); X1 at ``chip_smoke.check_rank_in_key``'s
+four timed cases (the buckets, 2 keys, 33 keys, 101 keys: the wide mode),
+each ranked and counts only, beside ``torch.bincount`` for the counts; X2
+at ``chip_smoke.check_pack_send``'s main case.  Every version must equal the
+plain version bit for bit.  Each is timed on the device alone
 (``chip_smoke.device_ms``, the mean of ``REPS`` calls) in turns, in the
 order built and then reversed, beside ``torch.sort``'s time for C;
 ``--profile`` adds each version's kernels by name (torch.profiler).
@@ -68,6 +75,7 @@ OLD_SIGNATURES = {
     "pp_key_sort_tiles": [L],
     "pp_place_arrivals": [P, P, P, P, L, P, L, I, P, P, I, I, P, P, P, P, P, P, P, P, P,
                           P, P],
+    "pp_rank_in_key_tiles": [L],
 }
 
 
@@ -83,6 +91,9 @@ class Version:
 
     def old_place(self) -> bool:
         return "free_rank" in self.texts["exchange.cu"]
+
+    def old_rank(self) -> bool:
+        return "pp_rank_in_key_scratch" not in self.texts["exchange.cu"]
 
 
 def build_all(versions) -> None:
@@ -116,14 +127,15 @@ def build_all(versions) -> None:
         v.lib = ctypes.CDLL(str(lib_path))
         names = {"pp_key_sort", "pp_key_sort_scratch", "pp_key_sort_tiles",
                  "pp_place_arrivals", "pp_place_arrivals_scratch", "pp_rank_in_key",
-                 "pp_rank_in_key_tiles"}
+                 "pp_rank_in_key_tiles", "pp_rank_in_key_scratch", "pp_pack_send"}
         for name in names:
             if not hasattr(v.lib, name):
                 continue
             fn = getattr(v.lib, name)
             old = (name.startswith("pp_key_sort") and v.old_sort()) or (
                 name == "pp_place_arrivals" and v.old_place())
-            fn.argtypes = OLD_SIGNATURES[name] if old else _build.SIGNATURES[name]
+            fn.argtypes = (OLD_SIGNATURES[name] if old or name not in _build.SIGNATURES
+                           else _build.SIGNATURES[name])
             fn.restype = ctypes.c_int
 
 
@@ -355,6 +367,101 @@ def place_case(versions, dev) -> list:
         "out_of_place_bound_ms": out_of_place / cs.PEAK_BYTES_PER_S * 1e3})]
 
 
+def rank_fn(v: Version, key, K: int, ranks: bool):
+    """``v``'s kernel X1 on its scratch, allocated once; returns a function
+    giving (rank, counts) or (counts,)."""
+    n, dev = key.shape[0], key.device
+    rank = torch.empty(n, dtype=torch.int32, device=dev) if ranks else None
+    counts = torch.empty(K + 2, dtype=torch.int32, device=dev)
+    if v.old_rank():
+        words = (K + 2) * v.lib.pp_rank_in_key_tiles(n)
+    else:
+        words = v.lib.pp_rank_in_key_scratch(n, K + 1, int(ranks))
+    scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+
+    def run():
+        err = v.lib.pp_rank_in_key(ptr(key), n, K + 1, ptr(rank), ptr(counts),
+                                   ptr(scratch), stream())
+        if err:
+            raise RuntimeError(f"{v.name} pp_rank_in_key: cudaError {err}")
+        return (rank, counts[:-1]) if ranks else (counts[:-1],)
+    return run
+
+
+def rank_cases(versions, dev) -> list:
+    from pumipic_torch.ops import exchange as ex
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.X_SEED)
+    n, D = cs.X_SLOTS, cs.X_RANKS - 1
+    st = cs.exchange_state(n, gen, dev, 10)
+    cases = [("buckets", cs.exchange_keys(st, cs.X_LEAVER_SHARE, D, gen), D),
+             ("2 keys", st["active"].to(torch.int32), 1),
+             ("33 keys", torch.randint(0, 34, (n,), generator=gen, device=dev,
+                                       dtype=torch.int32), 33),
+             ("101 keys", torch.randint(0, 101, (n,), generator=gen, device=dev,
+                                        dtype=torch.int32), 100)]
+    out = []
+    for name, key, K in cases:
+        for ranks in (True, False):
+            rank, counts = ex.rank_in_key_plain(key, K, ranks)
+            want = (rank, counts) if ranks else (counts,)
+            fns = {v.name: rank_fn(v, key, K, ranks) for v in versions}
+            extra = {"keys": K + 1, "bound_ms": cs.nbytes(key, rank, counts)
+                     / cs.PEAK_BYTES_PER_S * 1e3}
+            if not ranks:
+                extra.update(library="torch.bincount(key, minlength=K + 1)",
+                             library_ms=cs.device_ms(
+                                 lambda: torch.bincount(key, minlength=K + 1), REPS))
+            out.append(timed_case(f"X1 {name}, {'ranked' if ranks else 'counts only'}",
+                                  fns, want, extra))
+    return out
+
+
+def pack_case(versions, dev) -> list:
+    import numpy as np
+
+    from pumipic_torch.ops import exchange as ex
+
+    lpp = cs.exchange_picpart(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.X_SEED)
+    D, cap, n = cs.X_RANKS - 1, cs.X_SLOTS // 8, cs.X_SLOTS
+    st = cs.exchange_state(n, gen, dev, int(lpp.elem_gid.shape[0]))
+    ne = torch.where(st["active"], st["elem"], -1)
+    fs, width = ex.payload_layout(st)
+    m, srcs, _, lanes, is_bool, _ = ex._fields(st, fs)
+    key = cs.exchange_keys(st, cs.X_LEAVER_SHARE, D, gen)
+    rank, counts = ex.rank_in_key_plain(key, D)
+    quota = torch.clamp(counts[:D], max=cap)
+    rows = quota.tolist()
+    args = (st, key, rank, counts, quota, rows, cap, ne, lpp.elem_gid)
+    want = ex.pack_send_plain(*args)[:4]
+    offsets = torch.as_tensor(np.cumsum([0] + rows[:-1]), device=dev)
+    fns = {}
+    for v in versions:
+        send = torch.empty((sum(rows), width), dtype=torch.int32, device=dev)
+        kept, leaving = (torch.empty(n, dtype=torch.bool, device=dev) for _ in range(2))
+        over = torch.empty((), dtype=torch.bool, device=dev)
+
+        def run(v=v, send=send, kept=kept, leaving=leaving, over=over, key=key, rank=rank,
+                quota=quota, offsets=offsets, counts=counts):
+            err = v.lib.pp_pack_send(
+                ptr(key), ptr(rank), n, D, ptr(quota), cap, ptr(offsets), ptr(ne),
+                ptr(lpp.elem_gid), m, srcs, lanes, is_bool, width, ptr(send), ptr(kept),
+                ptr(leaving), ptr(counts), ptr(over), stream())
+            if err:
+                raise RuntimeError(f"{v.name} pp_pack_send: cudaError {err}")
+            return send, kept, leaving, over
+        fns[v.name] = run
+    L = sum(rows)
+    n_bucket = int((key < D).sum())
+    bound = (cs.nbytes(key, want[1], want[2]) + 4 * n_bucket + L * (4 + 4 + 4 * (width - 1))
+             + cs.nbytes(want[0])) / cs.PEAK_BYTES_PER_S * 1e3
+    return [timed_case("X2 phase c main case", fns, want, {
+        "slots": n, "admitted": L, "width": width, "bound_ms": bound})]
+
+
 def make_versions(others, variants: str) -> list:
     def read(d):
         return {f: open(os.path.join(d, f)).read() for f in SOURCES
@@ -386,6 +493,8 @@ def main() -> None:
                          "changed: NAME=DEFINE:VALUE[,DEFINE:VALUE...][;NAME=...]")
     ap.add_argument("--profile", action="store_true",
                     help="each version's kernels by name (torch.profiler)")
+    ap.add_argument("--kernels", default="C,X3,X1,X2",
+                    help="the kernels timed, comma-separated (C, X3, X1, X2)")
     args = ap.parse_args()
     global PROFILE
     PROFILE = args.profile
@@ -398,7 +507,12 @@ def main() -> None:
     for v in versions:
         print(v.report, flush=True)
     dev = torch.device("cuda")
-    cases = sort_cases(versions, dev) + place_case(versions, dev)
+    picked = set(args.kernels.split(","))
+    cases = []
+    for name, run in (("C", sort_cases), ("X3", place_case), ("X1", rank_cases),
+                      ("X2", pack_case)):
+        if name in picked:
+            cases += run(versions, dev)
     for c in cases:
         print(f"{c['case']}: bound {c['bound_ms']:.4f} ms"
               + (f", design floor {c['design_floor_ms']:.4f} ms" if "design_floor_ms" in c

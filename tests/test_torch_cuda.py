@@ -1519,10 +1519,11 @@ def _same_bits(got, want, nan_positions=False):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("case", tr.RANK_CASES + ("large, 33 keys",))
+@pytest.mark.parametrize("case", tr.RANK_CASES + ("large, 33 keys", "large, 100 keys"))
 def test_rank_in_key_kernel_equals_plain(dev, case):
-    if case == "large, 33 keys":
-        key, K = np.random.default_rng(2).integers(0, 34, (1 << 20) + 7).astype(np.int32), 33
+    if case.startswith("large"):
+        K = int(case.split()[1])            # 100 keys: the wide mode (more than 62)
+        key = np.random.default_rng(2).integers(0, K + 1, (1 << 20) + 7).astype(np.int32)
     else:
         key, K = tr.rank_case(case)
     k = _dev_tensor(key, dev)
@@ -1559,6 +1560,41 @@ def test_pack_send_kernel_equals_plain(dev, case):
     want = ex.pack_send_plain(*args)
     _same_bits(got[:4], want[:4])
     assert got[4] == want[4]
+
+
+@pytest.mark.parametrize("case", ["misaligned views", "wide rows"])
+def test_pack_send_kernel_one_by_one_and_wide_rows(dev, case):
+    """X2's items one by one (keys and ranks one item into their storage:
+    no 16-byte groups) and rows wider than a warp (a (5, 8) f32 field)."""
+    st, key, quota, rows, cap, ne, eg = tr.send_case("random")
+    if case == "wide rows":
+        st["W"] = tr.odd_floats(np.random.default_rng(9), 40 * len(key)).reshape(-1, 5, 8)
+    st = {n: _dev_tensor(v, dev) for n, v in st.items()}
+    k = _dev_tensor(key, dev)
+    ne = _dev_tensor(ne, dev)
+    if case == "misaligned views":
+        st = {n: v[1:].contiguous() for n, v in st.items()}
+        k, ne = k[1:], ne[1:]
+    rank, counts = ex.rank_in_key(k, len(rows))
+    if case == "misaligned views":
+        rank = torch.cat([rank[:1], rank])[1:]
+        assert rank.data_ptr() % 16 and k.data_ptr() % 16
+    q = torch.minimum(_dev_tensor(quota, dev), counts[:len(rows)])
+    args = (st, k, rank, counts, q, q.tolist(), cap, ne, _dev_tensor(eg, dev))
+    got = ex.pack_send(*args)
+    _same_bits(got[:4], ex.pack_send_plain(*args)[:4])
+
+
+def test_rank_in_key_kernel_counts_only_one_launch(dev):
+    """X1's counts only is one counted launch, as the ranks are; no key
+    gives zero counts."""
+    k = _dev_tensor(np.random.default_rng(6).integers(0, 5, 300_000).astype(np.int32), dev)
+    n0 = kernels.LAUNCHES["rank_in_key"]
+    got = ex.key_counts(k, 4)
+    assert kernels.LAUNCHES["rank_in_key"] == n0 + 1
+    _same_bits(got, ex.rank_in_key_plain(k, 4, ranks=False)[1][:4])
+    empty = ex.rank_in_key(k[:0], 4, ranks=False)
+    _same_bits(empty, ex.rank_in_key_plain(k[:0], 4, ranks=False))
 
 
 @pytest.mark.parametrize("case", tr.PLACE_CASES)

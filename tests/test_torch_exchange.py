@@ -92,6 +92,281 @@ def test_rank_in_key_ranks_the_ignored_key_and_refuses_others():
         tex.rank_in_key(T(key.astype(np.int64)), 3)
 
 
+# kernel X1's constants (kernels/csrc/exchange.cu)
+X1_WARPS, X1_ITEMS, X1_PRIVATE_ROWS, X1_STAGE_TILES, X1_GROUP = 8, 8, 64, 8, 32
+X1_CHUNKS, X1_SMEM, X1_LOOKBACK, X1_COUNT_UNROLL = 8, 224 * 1024, 8, 4
+X1_THREADS = 32 * X1_WARPS
+X1_AGGREGATE, X1_INCLUSIVE = 1 << 30, 2 << 30
+X1_VALUE = X1_AGGREGATE - 1
+LANE = np.arange(32)
+
+
+def _warp_groups(kc):
+    """``__match_any_sync`` over one chunk of 32 keys: each lane's count of
+    the lanes below it with its key, and each key's group size."""
+    eq = kc[None, :] == kc[:, None]
+    return (eq & (LANE[None, :] < LANE[:, None])).sum(axis=1), eq.sum(axis=1)
+
+
+def _x1_window(status, rows, j, excl, live, width):
+    """One read of the wide mode's look-back for the keys ``live``, a
+    thread's ``width`` words of the tiles j, j - 1, ... at once: the words before the first one not yet published are summed,
+    up to the nearest inclusive prefix; returns the keys that are done."""
+    keys = np.arange(rows)
+    s = np.stack([np.where(j - q >= 0, status[np.maximum(j - q, 0), keys], X1_INCLUSIVE)
+                  for q in range(width)])
+    waiting, incl = s < X1_AGGREGATE, s >= X1_INCLUSIVE
+    wait_at = np.where(waiting.any(axis=0), waiting.argmax(axis=0), width)
+    incl_at = np.where(incl.any(axis=0), incl.argmax(axis=0), width)
+    at = np.arange(width)[:, None]
+    done = live & (incl_at < wait_at)
+    to_incl = np.where(at <= incl_at, s & X1_VALUE, 0).sum(axis=0)
+    to_wait = np.where(at < wait_at, s & X1_VALUE, 0).sum(axis=0)
+    excl += np.where(live, np.where(done, to_incl, to_wait), 0)
+    j -= np.where(live & ~done, wait_at, 0)
+    return done
+
+
+def _x1_keys(k_all, n, first, count):
+    """``count`` keys from ``first``, -1 past the end."""
+    i = first + np.arange(count)
+    return i, np.where(i < n, k_all[np.minimum(i, max(n - 1, 0))] if n else -1, -1)
+
+
+def _x1_tile_private(k_all, n, t):
+    """A tile of the private mode: thread u's X1_ITEMS consecutive keys, its
+    count of each before each key, the exclusive prefixes over the threads
+    and the tile's count of each key."""
+    i, kt = _x1_keys(k_all, n, t * X1_THREADS * X1_ITEMS, X1_THREADS * X1_ITEMS)
+    kt = kt.reshape(X1_THREADS, X1_ITEMS)
+    r = np.zeros_like(kt)
+    for q in range(1, X1_ITEMS):
+        r[:, q] = (kt[:, :q] == kt[:, q:q + 1]).sum(axis=1)
+    return i.reshape(kt.shape), kt, r
+
+
+def _x1_tile_wide(k_all, n, t, n_warps, rows):
+    """A tile of the wide mode: each warp's chunks ranked by its groups
+    (the count before the group from the warp's table), the warps' tables."""
+    i = np.zeros((n_warps, X1_CHUNKS, 32), np.int64)
+    kt = np.zeros_like(i)
+    r = np.zeros_like(i)
+    tab = np.zeros((n_warps, rows), np.int64)
+    for w in range(n_warps):
+        for c in range(X1_CHUNKS):
+            i[w, c], kt[w, c] = _x1_keys(k_all, n, (t * n_warps + w) * 32 * X1_CHUNKS + c * 32, 32)
+            below, size = _warp_groups(kt[w, c])
+            r[w, c] = np.where(kt[w, c] >= 0, tab[w, np.maximum(kt[w, c], 0)], 0) + below
+            lead = (kt[w, c] >= 0) & (below == size - 1)          # the group's highest lane
+            tab[w, kt[w, c][lead]] += size[lead]
+    return i, kt, r, tab
+
+
+def _x1_columns(kt, rows):
+    """Each thread's (or warp's) count of each key: a (rows, threads) table."""
+    cols = np.zeros((rows, kt.shape[0]), np.int64)
+    for u in range(kt.shape[0]):
+        ok = kt[u] >= 0
+        np.add.at(cols[:, u], kt[u][ok], 1)
+    return cols
+
+
+def _x1_chunk_private(k_all, n, tiles, rows):
+    """A chunk of the private mode: its tiles ranked in turn (a thread's
+    count before each of its keys, a key's row scanned over the threads on
+    top of the key's items in the chunk's earlier tiles), staged as (items,
+    keys, rank in the chunk); and the chunk's count of each key."""
+    staged, base = [], np.zeros(rows, np.int64)
+    for t in tiles:
+        i, kt, r = _x1_tile_private(k_all, n, t)
+        cols = _x1_columns(kt, rows)
+        before = np.cumsum(cols, axis=1) - cols + base[:, None]
+        staged.append((i, kt, r + before[np.maximum(kt, 0), np.arange(X1_THREADS)[:, None]]))
+        base += cols.sum(axis=1)
+    return staged, base
+
+
+def rank_in_key_emulated(key, num_keys, ranks=True, blocks=3, seed=0):
+    """Kernel X1's design in numpy, step for step, on ``blocks`` resident
+    blocks.  rows = num_keys + 2 (the last: keys out of range).
+
+    The private mode (rows <= X1_PRIVATE_ROWS), ranked: the blocks take
+    chunks of ``per`` (<= X1_STAGE_TILES) tiles by tickets in index order.
+    A block's turn (picked at random, so chunks complete in a shuffled
+    order) either ranks its chunk and publishes the
+    chunk's count of each key, the last chunk of a group of X1_GROUP to
+    publish (a ticket a group) publishing the group's; or reads the words
+    before its chunk (the earlier groups' counts, the earlier chunks' of
+    its group), and finds one of them not yet published (it reads them
+    again on its next turn); or, all published, writes its ranks (the key's
+    items before the chunk added) and, the last chunk, the counts.  Counts
+    only: each block's counts over a grid stride, added into the copies of
+    the counts in any order; the last block sums the copies.
+
+    The wide mode, ranked: tiles by tickets in order, each warp's chunks
+    ranked by their groups into the warp's table (fewer warps where eight
+    tables do not fit), a thread a key looking back X1_LOOKBACK status
+    words at a time; counts only: each block's counts over a grid stride
+    added into the counts in a shuffled order.  Returns (rank or None,
+    counts) as ``rank_in_key_plain``."""
+    rng = np.random.default_rng(seed)
+    n, n_keys = key.shape[0], num_keys + 1
+    rows = n_keys + 1
+    private = rows <= X1_PRIVATE_ROWS
+    k_all = np.where((key < 0) | (key >= n_keys), n_keys, key).astype(np.int64)
+    if not ranks:
+        per_block = X1_THREADS * (X1_ITEMS if private else X1_COUNT_UNROLL)
+        grid = max(min(-(-n // per_block), blocks), 1)
+        tables = []
+        for b in range(grid):
+            cnt = np.zeros(rows, np.int64)
+            for first in range(b * per_block, n, grid * per_block):
+                _, kc = _x1_keys(k_all, n, first, per_block)
+                np.add.at(cnt, kc[kc >= 0], 1)
+            tables.append(cnt)
+        counts = np.zeros(rows, np.int64)
+        for b in rng.permutation(grid):            # the atomics, in any order
+            counts += tables[b]
+        return None, torch.as_tensor(counts[:-1].astype(np.int32))
+    n_warps = min(X1_WARPS, X1_SMEM // (rows * 4))
+    tile_n = X1_THREADS * X1_ITEMS if private else n_warps * 32 * X1_CHUNKS
+    n_tiles = -(-n // tile_n)
+    per = min(-(-n_tiles // blocks), X1_STAGE_TILES) if private and n_tiles else 1
+    n_chunks = -(-n_tiles // per) if n_tiles else 0
+    n_groups = -(-n_chunks // X1_GROUP)
+    agg = np.full((max(n_chunks, 1), rows), -1, np.int64)     # -1: not published
+    gtot = np.full((max(n_groups, 1), rows), -1, np.int64)
+    gdone = np.zeros(max(n_groups, 1), np.int64)
+    status = np.zeros((max(n_chunks, 1), rows), np.int64)     # the wide mode's
+    rank = np.full(n, -7, np.int64)
+    counts = np.zeros(rows, np.int64) if n == 0 else np.full(rows, -7, np.int64)
+    tickets = iter(range(1 << 62))
+    held = {b: {"chunk": next(tickets), "phase": "rank"} for b in range(blocks)}
+    while True:
+        live_blocks = [b for b in held if held[b]["chunk"] < n_chunks]
+        if not live_blocks:
+            break
+        b = int(rng.choice(live_blocks))
+        st = held[b]
+        c = st["chunk"]
+        g = c // X1_GROUP
+        if st["phase"] == "rank" and private:
+            tiles = range(c * per, min((c + 1) * per, n_tiles))
+            st["staged"], st["total"] = _x1_chunk_private(k_all, n, tiles, rows)
+            agg[c] = st["total"]
+            gdone[g] += 1
+            if gdone[g] == min(X1_GROUP, n_chunks - g * X1_GROUP):   # the group's last
+                gtot[g] = agg[g * X1_GROUP:(g + 1) * X1_GROUP].sum(axis=0)
+            st["phase"] = "prefix"
+        elif st["phase"] == "prefix":
+            words = np.concatenate([gtot[:g], agg[g * X1_GROUP:c]])
+            if (words < 0).any():
+                continue                            # a word not yet published: spin
+            st["excl"], st["phase"] = words.sum(axis=0), "write"
+        elif st["phase"] == "rank":                 # the wide mode: a tile
+            i, kt, r, tab = _x1_tile_wide(k_all, n, c, n_warps, rows)
+            before = (np.cumsum(tab, axis=0) - tab).T                # (rows, warps)
+            st.update(staged=[(i, kt, r + before[np.maximum(kt, 0),
+                                                 np.arange(n_warps)[:, None, None]])],
+                      total=tab.sum(axis=0), excl=np.zeros(rows, np.int64),
+                      j=np.full(rows, c - 1, np.int64), live=np.full(rows, c > 0),
+                      phase="look")
+            status[c] = (X1_INCLUSIVE if c == 0 else X1_AGGREGATE) | st["total"]
+        elif st["phase"] == "look":
+            st["live"] &= ~_x1_window(status, rows, st["j"], st["excl"], st["live"],
+                                      X1_LOOKBACK)
+            if not st["live"].any():
+                status[c] = X1_INCLUSIVE | (st["excl"] + st["total"])
+                st["phase"] = "write"
+        if st["phase"] == "write":
+            excl = st["excl"]
+            if c == n_chunks - 1:
+                counts = excl + st["total"]
+            for i, kt, in_chunk in st["staged"]:
+                val = np.where(kt < n_keys, in_chunk + excl[np.maximum(kt, 0)], -1)
+                ok = (i < n) & (kt >= 0)
+                rank[i[ok]] = val[ok]
+            st["phase"] = "done"
+        if st["phase"] == "done":
+            held[b] = {"chunk": next(tickets), "phase": "rank"}
+    if private:
+        assert (agg[:n_chunks] >= 0).all() and (gtot[:n_groups] >= 0).all()
+    else:
+        assert (status[:n_chunks] >= X1_INCLUSIVE).all()
+    return (torch.as_tensor(rank.astype(np.int32)),
+            torch.as_tensor(counts[:-1].astype(np.int32)))
+
+
+X1_DESIGN_CASES = ("N = 0", "N = 1", "N = 1023", "one key", "33 keys, many tiles",
+                   "ignored only", "buckets, many tiles", "63 keys, 40 chunks",
+                   "buckets, chunks of tiles",
+                   "100 keys (wide mode)", "K + 1 = X1_MAX_KEYS")
+
+
+def _x1_design_case(case):
+    rng = np.random.default_rng(4)
+    if case == "N = 0":
+        return np.zeros(0, np.int32), 3
+    if case == "N = 1":
+        return np.asarray([2], np.int32), 3
+    if case == "N = 1023":
+        return rng.integers(0, 3, 1023).astype(np.int32), 2
+    if case == "one key":
+        return np.zeros(5000, np.int32), 3
+    if case == "33 keys, many tiles":
+        return rng.integers(0, 34, 20_000).astype(np.int32), 33
+    if case == "ignored only":
+        return np.full(7000, 3, np.int32), 3
+    if case == "buckets, many tiles":          # 1% leavers for 3 buckets, 3 the stayers
+        return np.where(rng.random(30_000) < 0.01, rng.integers(0, 3, 30_000),
+                        3).astype(np.int32), 3
+    if case == "63 keys, 40 chunks":          # two groups of chunks
+        return rng.integers(0, 63, 40 * 2048 - 5).astype(np.int32), 62
+    if case == "buckets, chunks of tiles":    # chunks of 8 tiles, more than the blocks
+        return np.where(rng.random(70_000) < 0.01, rng.integers(0, 3, 70_000),
+                        3).astype(np.int32), 3
+    if case == "100 keys (wide mode)":
+        return rng.integers(0, 101, 12_000).astype(np.int32), 100
+    K = tex.X1_MAX_KEYS - 1
+    return rng.integers(0, K + 1, 5000).astype(np.int32), K
+
+
+@pytest.mark.parametrize("ranks", [True, False], ids=["ranked", "counts only"])
+@pytest.mark.parametrize("case", X1_DESIGN_CASES)
+def test_rank_in_key_design_equals_plain_and_jax(case, ranks):
+    """Kernel X1's design (numpy, tiles completing in a shuffled order
+    behind tickets in order) equals ``rank_in_key_plain`` and the JAX
+    ``rank_within_key`` / ``_bucket_ranks`` bit for bit, ranked and counts
+    only, at the keys' edges: no key, one, a ragged tile, one key, every
+    item the ignored key, chunks in two groups, chunks of several tiles, 100
+    keys (the wide mode) and a key count whose eight warp tables do not fit
+    (four warps a tile)."""
+    key, K = _x1_design_case(case)
+    want = tex.rank_in_key_plain(T(key), K, ranks)
+    blocks = 40 if "chunks" in case else 3
+    for seed in range(3):
+        got = rank_in_key_emulated(key, K, ranks, blocks=blocks, seed=seed)
+        _bits_equal(got[1], want[1].numpy(), f"counts, seed {seed}")
+        if ranks:
+            _bits_equal(got[0], want[0].numpy(), f"ranks, seed {seed}")
+    np.testing.assert_array_equal(want[1].numpy(), np.bincount(key, minlength=K + 1))
+    if ranks and len(key):
+        np.testing.assert_array_equal(want[0].numpy(), np.asarray(jlb.rank_within_key(
+            jnp.asarray(key), K)))
+        order, _, rank_in_bucket, jcounts = jmig._bucket_ranks(jnp.asarray(key), K)
+        np.testing.assert_array_equal(want[0].numpy()[np.asarray(order)],
+                                      np.asarray(rank_in_bucket))
+        np.testing.assert_array_equal(want[1].numpy()[:K], np.asarray(jcounts))
+
+
+def test_rank_in_key_refuses_more_items_than_a_status_word_counts():
+    """X1's status word holds a 30-bit count: 2^30 keys are refused on
+    every device (a view of one key, nothing allocated)."""
+    key = torch.zeros(1, dtype=torch.int32).expand(tex.X1_MAX_ITEMS)
+    with pytest.raises(ValueError, match="status word"):
+        tex.rank_in_key(key, 3)
+
+
 # ---------------------------------------------------------------------------
 # X2
 # ---------------------------------------------------------------------------
@@ -125,6 +400,99 @@ def test_pack_send_matches_jax_fill_send(case):
         np.testing.assert_array_equal(send.numpy()[off[b]:off[b + 1]],
                                       jsend[b * cap:b * cap + rows[b]], err_msg=f"bucket {b}")
     assert int(leaving.sum()) == sum(rows)
+
+
+# kernel X2's block size (kernels/csrc/exchange.cu: X_THREADS)
+X2_THREADS = 256
+
+
+def pack_send_emulated(state, key, rank, counts, quota, rows, cap, new_elem, elem_gid,
+                       reverse=False):
+    """Kernel X2's design in numpy, step for step: a thread an item, in
+    blocks of X2_THREADS (run in reverse block order with ``reverse``: no
+    block depends on another); the item's bucket key, its rank against
+    min(quota, cap), and, for an admitted leaver, its row written word by
+    word (the gid, then each field's lanes in the layout's order); every
+    item writes kept and leaving; the grid's first thread sets the overflow
+    flag.  Returns (send, kept, leaving, overflow, layout) as
+    ``pack_send_plain``."""
+    n, D = key.shape[0], len(rows)
+    fs, width = tex.payload_layout({k: T(v) for k, v in state.items()})
+    lanes = {name: tex._to_lanes(T(state[name])).numpy() for name in fs}
+    offsets = np.cumsum([0] + list(rows[:-1]), dtype=np.int64) if D else np.zeros(1, np.int64)
+    send = np.full((sum(rows), width), tex.INVALID, np.int32)
+    kept = np.full(n, 7, np.uint8)
+    leaving = np.full(n, 7, np.uint8)
+    overflow = None
+    blocks = range(max(-(-n // X2_THREADS), 1))
+    for blk in reversed(blocks) if reverse else blocks:
+        for i in range(blk * X2_THREADS, (blk + 1) * X2_THREADS):
+            if i == 0:
+                overflow = any(int(counts[b]) > cap for b in range(D))
+            if i >= n:
+                continue
+            k = int(key[i])
+            go = stay = False
+            if k < D:
+                r = int(rank[i])
+                go = r < min(int(quota[k]), cap)
+                stay = not go
+                if go:
+                    row = send[offsets[k] + r]
+                    row[0] = elem_gid[max(int(new_elem[i]), 0)]
+                    col = 1
+                    for name in fs:
+                        for lane in range(lanes[name].shape[1]):
+                            row[col] = lanes[name][i, lane]
+                            col += 1
+            kept[i], leaving[i] = stay, go
+    return (T(send), T(kept.astype(bool)), T(leaving.astype(bool)), torch.tensor(overflow),
+            fs)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["blocks in order", "blocks reversed"])
+@pytest.mark.parametrize("case", tr.SEND_CASES + ("wide rows", "clustered runs"))
+def test_pack_send_design_equals_plain_and_jax(case, reverse):
+    """Kernel X2's design (numpy: a thread an item, each admitted leaver
+    writing its own row, blocks in either order) equals ``pack_send_plain``
+    and the JAX ``_fill_send`` bit for bit, a bool field and NaN, -0.0 and
+    subnormal lanes among the payloads; "wide rows" adds a (5, 8) f32
+    field, 40 lanes more than a warp; "clustered runs" puts the leavers in
+    runs of slots, as the step does, across block edges."""
+    base = case if case in tr.SEND_CASES else "random"
+    st, key, quota, rows, cap, ne, eg = tr.send_case(base)
+    if case == "wide rows":
+        st["W"] = tr.odd_floats(np.random.default_rng(9), 40 * len(key)).reshape(-1, 5, 8)
+    if case == "clustered runs":                  # 3 runs of 300 slots, all leaving
+        rng = np.random.default_rng(10)
+        key = np.full(len(key), len(rows), np.int32)
+        for start in (100, 1500, 3000):
+            key[start:start + 300] = rng.integers(0, len(rows), 300)
+        counts = np.bincount(key, minlength=len(rows) + 1)[:len(rows)]
+        quota = np.minimum(counts, cap).astype(np.int32)
+        rows = [int(q) for q in quota]
+    D = len(rows)
+    rank, counts = tex.rank_in_key_plain(T(key), D)
+    args = ({n: T(v) for n, v in st.items()}, T(key), rank, counts, T(quota), rows, cap,
+            T(ne), T(eg))
+    want = tex.pack_send_plain(*args)
+    got = pack_send_emulated(st, key, rank.numpy(), counts.numpy(), quota, rows, cap, ne, eg,
+                             reverse)
+    for x, y, what in zip(got[:4], want[:4], ("send", "kept", "leaving", "overflow")):
+        _bits_equal(x, y.numpy(), what)
+    assert got[4] == want[4]
+    order, sorted_key, rib, jcounts = jmig._bucket_ranks(jnp.asarray(key), D)
+    slot, _, jkept = jmig._slots_from_ranks(order, sorted_key, rib, jcounts, D, cap,
+                                            jnp.asarray(quota))
+    jleave = (jnp.asarray(key) < D) & ~jkept
+    gid = jnp.where(jleave, jnp.asarray(eg)[jnp.maximum(jnp.asarray(ne), 0)], -1)
+    payload, _ = jmig._pack_payload(_jax_state(st), jleave, gid)
+    jsend = np.asarray(jmig._fill_send(payload, slot, D, cap))
+    off = np.cumsum([0] + rows)
+    for b in range(D):
+        np.testing.assert_array_equal(got[0].numpy()[off[b]:off[b + 1]],
+                                      jsend[b * cap:b * cap + rows[b]], err_msg=f"bucket {b}")
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jleave))
 
 
 # ---------------------------------------------------------------------------
