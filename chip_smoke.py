@@ -150,8 +150,9 @@ sources in this checkout.  Phases, each raising on failure:
     rank: the CSR rebuild on arrival).  Each rank reports its kernel launches
     (checked by name, and L's count: on a walk arm each rank launches L in
     every step, on an analytic arm only in the setup's gyro-map walk; X1 4
-    times a step, X2 and X3 once, O 3 times on every rank of a 4-rank arm,
-    O alone on the 1-rank arm), every step's stats, reduced field and
+    times a step, X2 and X3 once, O twice (fan-in, fan-out: D writes the
+    fan-in's send rows) on every rank of a 4-rank arm, O alone on the
+    1-rank arm), every step's stats, reduced field and
     deposit: on every step no overflow, unresolved arrival, illegal
     destination or particle lost off its picpart (stats ``lost``), alive =
     the previous alive less the step's boundary exits, the field equal on
@@ -2043,17 +2044,153 @@ def compare_bits(kernel: str, what: str, got, want, results: dict,
     compare(kernel, what, bits(got), bits(want), results)
 
 
-def exchange_picpart(dev):
-    """Rank 0's picpart of the 120k arm (RCB over 4 ranks, the 12-layer
-    buffer of phase e) and the mesh's host arrays."""
+def exchange_mesh():
+    """The 120k mesh's host arrays and its RCB owners over the 4 ranks."""
     from pumipic_torch.mesh.gmsh import read_msh
     from pumipic_torch.parallel import picparts as ppm
 
     coords, tris, cls = read_msh(MESH)
-    owners = ppm.partition_rcb(coords, tris, X_RANKS)
+    return coords, tris, cls, ppm.partition_rcb(coords, tris, X_RANKS)
+
+
+def exchange_picpart(dev, mesh=None):
+    """Rank 0's picpart of the 120k arm (RCB over 4 ranks, the 12-layer
+    buffer of phase e); ``mesh``: :func:`exchange_mesh`'s arrays, if read."""
+    from pumipic_torch.parallel import picparts as ppm
+
+    coords, tris, cls, owners = exchange_mesh() if mesh is None else mesh
     pp = ppm.build_picparts(coords, tris, owners, X_RANKS,
                             ppm.PicPartsInput(buffer_layers=E_BUFFER), cls)
     return pp.local_view(0, dev)
+
+
+def x2_step_case(dev, lpp, mesh=None):
+    """Kernel X2's inputs at the picparts step's own leaver layout, rank 0
+    of the 4-rank 120k arm at 10M particles, from ``X_SEED`` alone: rank
+    0's particles seeded as ``make_picparts_setup`` seeds them (its
+    elements' Gaussian counts, uniform points) in a prefix of the
+    ``X_SLOTS`` slots in global element order, pushed once (15°, kernel P)
+    and located on the picpart (kernel L's walk from the previous
+    element); a particle whose new element lies outside the safe zone
+    leaves for the element's owner (``set_unsafe_procs``), bucket owner -
+    1.  Returns (state after the push, bucket keys, new elements)."""
+    import numpy as np
+
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.models import pseudo_xgcm as px
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import search as search_ops
+    from pumipic_torch.parallel import migrate as mig
+    from pumipic_torch.parallel import picparts as ppm
+
+    coords, tris, cls, owners = exchange_mesh() if mesh is None else mesh
+    cfg = px.XGCmConfig(num_ptcls=NUM_PTCLS, mdl_face=max(int(cls.max()) // 2, 2),
+                        deg_per_push=15.0, max_search_iters=64, gyro=px.GyroConfig())
+    gmesh = Mesh2D.from_numpy(ppm.mesh_arrays(2, coords, tris, cls), "cpu")
+    rng = np.random.default_rng(X_SEED)
+    ppe = np.where(owners == 0, px.seed_particles_per_element(gmesh, cfg, rng), 0)
+    g_elems = np.repeat(np.arange(gmesh.nelems), ppe)
+    m, n = len(g_elems), X_SLOTS
+    if m > n:
+        raise AssertionError(f"rank 0 seeds {m} particles, more than its {n} slots")
+    pos = torch.as_tensor(px.uniform_points_in_elements(gmesh, g_elems, rng),
+                          dtype=torch.float32)
+    phi, b = push_ops.elliptical_setup(pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                                       cfg.h, cfg.k, cfg.d)
+    eg = lpp.elem_gid.cpu().numpy()
+    g2l = np.full(gmesh.nelems, -1, np.int64)
+    g2l[eg[eg >= 0]] = np.nonzero(eg >= 0)[0]
+
+    def slots(vals, fill, dtype):
+        out = np.full(n, fill, dtype)
+        out[:m] = vals
+        return torch.as_tensor(out, device=dev)
+
+    phi = phi.numpy()
+    s = {"x0": slots(pos[:, 0].numpy(), 0, np.float32),
+         "x1": slots(pos[:, 1].numpy(), 0, np.float32),
+         "cphi": slots(np.cos(phi), 0, np.float32), "sphi": slots(np.sin(phi), 0, np.float32),
+         "b": slots(b.numpy(), 0, np.float32), "pid": slots(np.arange(m), -1, np.int32),
+         "elem": slots(g2l[g_elems], -1, np.int32), "active": slots(True, False, bool)}
+    lmesh = lpp.mesh
+    cls_local = lmesh.class_id.cpu().numpy()
+    bands = push_ops.detect_banded_class(cls_local)
+    if bands is not None:
+        rot, push = push_ops.BandRotation.build(bands, cfg.deg_per_push, dev), \
+            push_ops.push_banded
+    else:
+        rot, push = push_ops.RotTable.build(cls_local, cfg.deg_per_push, dev), \
+            push_ops.push_table
+    tx, ty, cphi, sphi = push(s["x0"], s["x1"], s["cphi"], s["sphi"], s["b"], s["elem"],
+                              s["active"], rot, cfg.h, cfg.k, cfg.d)
+    new_elem, _, _, _ = search_ops.walk_locate(lmesh.walk_geom, tx, ty, s["elem"],
+                                               s["active"], lmesh.nelems)
+    active = s["active"] & (new_elem >= 0)
+    dest = mig.set_unsafe_procs(lpp.elem_safe, lpp.elem_owner, new_elem, active, 0)
+    D = X_RANKS - 1
+    key = torch.where(active & (dest != 0), dest - 1, D).to(torch.int32)
+    state = {"x0": tx, "x1": ty, "cphi": cphi, "sphi": sphi, "b": s["b"], "pid": s["pid"],
+             "elem": new_elem, "active": active}
+    return state, key, new_elem
+
+
+def leaver_layout(leaving) -> dict:
+    """How the admitted leavers lie in the slots: their count, the share
+    of warps (32 consecutive slots) holding one, and the mean length of a
+    run of consecutive leavers."""
+    n = leaving.shape[0]
+    pad = torch.zeros((-n) % 32, dtype=torch.bool, device=leaving.device)
+    warps = torch.cat([leaving, pad]).view(-1, 32).any(1)
+    starts = leaving & ~torch.cat([leaving.new_zeros(1), leaving[:-1]])
+    n_leave, n_runs = int(leaving.sum()), int(starts.sum())
+    return {"leavers": n_leave, "warp_share": float(warps.float().mean()),
+            "mean_run": n_leave / max(n_runs, 1)}
+
+
+def x2_launcher(lib, ex, state, key, rank, counts, quota, rows, cap, new_elem, elem_gid,
+                fill: bool = False):
+    """A function launching kernel X2 on buffers allocated once (the
+    wrapper's host work out of the timing; its -1 fill of the buffer in it
+    with ``fill``, else out: every row of the cases timed holds an admitted
+    leaver); returns (send, kept, leaving, overflow).  ``lib``: a library
+    with the package's ``pp_pack_send``."""
+    import numpy as np
+
+    dev = key.device
+    n, D = key.shape[0], len(rows)
+    fs, width = ex.payload_layout(state)
+    offsets = torch.as_tensor(np.cumsum([0] + list(rows[:-1])), device=dev)
+    send = torch.empty((sum(rows), width), dtype=torch.int32, device=dev)
+    kept, leaving = (torch.empty(n, dtype=torch.bool, device=dev) for _ in range(2))
+    over = torch.empty((), dtype=torch.bool, device=dev)
+    m, srcs, _, lanes, is_bool, _ = ex._fields(state, fs)
+    q = quota.to(torch.int32).contiguous()
+
+    send.fill_(ex.INVALID)
+
+    def run():
+        if fill:
+            send.fill_(ex.INVALID)
+        err = lib.pp_pack_send(
+            ex._ptr(key), ex._ptr(rank), n, D, ex._ptr(q), cap, ex._ptr(offsets),
+            ex._ptr(new_elem), ex._ptr(elem_gid), m, srcs, lanes, is_bool, width,
+            ex._ptr(send), ex._ptr(kept), ex._ptr(leaving), ex._ptr(counts), ex._ptr(over),
+            ex._stream())
+        if err:
+            raise RuntimeError(f"pp_pack_send: cudaError {err}")
+        return send, kept, leaving, over
+    return run
+
+
+def x2_bound_bytes(key, kept, leaving, send, D: int) -> int:
+    """X2's bytes: the keys read, kept and leaving written; the ranks of
+    the bucket keys alone read (the others decide nothing); each admitted
+    leaver's element, gid and fields read and its row written (the row's
+    width in words)."""
+    L, width = send.shape
+    n_bucket = int((key < D).sum())
+    return (nbytes(key, kept, leaving) + 4 * n_bucket + L * (4 + 4 + 4 * (width - 1))
+            + nbytes(send))
 
 
 def odd_floats(n: int, gen, dev):
@@ -2164,63 +2301,49 @@ def check_rank_in_key(results: dict, dev, gen, D: int) -> None:
         "torch.bincount, in their cases")
 
 
-def check_pack_send(results: dict, dev, gen, lpp, D: int, cap: int) -> None:
-    import numpy as np
-
+def check_pack_send(results: dict, dev, gen, lpp, D: int, cap: int, mesh=None) -> None:
     from pumipic_torch.kernels import _build
     from pumipic_torch.ops import exchange as ex
 
     E = int(lpp.elem_gid.shape[0])
     lib = _build.lib()
     cases = []
+    t0 = time.perf_counter()
+    step_state, step_key, step_elem = x2_step_case(dev, lpp, mesh)
+    log(f"[c] pack_send: the step's layout built in {time.perf_counter() - t0:.2f} s")
+    cases.append(("the picparts step's leaver layout (main)", step_state, step_key, cap,
+                  step_elem))
     st = exchange_state(X_SLOTS, gen, dev, E)
-    cases.append(("leavers of the 120k arm's step (main)", st,
-                  exchange_keys(st, X_LEAVER_SHARE, D, gen), cap))
+    cases.append(("leavers of the 120k arm's step at random", st,
+                  exchange_keys(st, X_LEAVER_SHARE, D, gen), cap, None))
     odd = exchange_state(X_SLOTS, gen, dev, E, odd=True)
     cases.append(("NaN, -0.0, subnormal payloads", odd,
-                  exchange_keys(odd, X_LEAVER_SHARE, D, gen), cap))
+                  exchange_keys(odd, X_LEAVER_SHARE, D, gen), cap, None))
     cases.append(("no leaver", st, torch.full((X_SLOTS,), D, dtype=torch.int32, device=dev),
-                  cap))
+                  cap, None))
     cases.append(("every slot leaving", st, torch.randint(
-        0, D, (X_SLOTS,), generator=gen, device=dev, dtype=torch.int32), X_SLOTS))
-    cases.append(("a bucket over cap", st, exchange_keys(st, 0.5, D, gen), cap))
-    for what, s, key, c in cases:
+        0, D, (X_SLOTS,), generator=gen, device=dev, dtype=torch.int32), X_SLOTS, None))
+    cases.append(("a bucket over cap", st, exchange_keys(st, 0.5, D, gen), cap, None))
+    for what, s, key, c, ne in cases:
         rank, counts = ex.rank_in_key(key, D)
         quota = torch.clamp(counts[:D], max=c)
         rows = quota.tolist()
-        new_elem = torch.where(s["active"], s["elem"], -1)
+        new_elem = torch.where(s["active"], s["elem"], -1) if ne is None else ne
         args = (s, key, rank, counts, quota, rows, c, new_elem, lpp.elem_gid)
         got, want = ex.pack_send(*args), ex.pack_send_plain(*args)
         compare_bits("pack_send", what, got[:4], want[:4], results)
-        if what.endswith("(main)"):
-            fs, width = ex.payload_layout(s)
-            offsets = torch.as_tensor(np.cumsum([0] + rows[:-1]), device=dev)
-            send = torch.empty((sum(rows), width), dtype=torch.int32, device=dev)
-            kept, leaving = (torch.empty(X_SLOTS, dtype=torch.bool, device=dev)
-                             for _ in range(2))
-            over = torch.empty((), dtype=torch.bool, device=dev)
-            m, srcs, _, lanes, is_bool, _ = ex._fields(s, fs)
-            time_pair("pack_send", what, lambda: lib.pp_pack_send(
-                ex._ptr(key), ex._ptr(rank), X_SLOTS, D, ex._ptr(quota), c,
-                ex._ptr(offsets), ex._ptr(new_elem), ex._ptr(lpp.elem_gid), m, srcs, lanes,
-                is_bool, width, ex._ptr(send), ex._ptr(kept), ex._ptr(leaving),
-                ex._ptr(counts), ex._ptr(over), ex._stream()),
-                lambda: ex.pack_send_plain(*args), results)
-            L = sum(rows)
-            record_launches("pack_send", what, lambda: lib.pp_pack_send(
-                ex._ptr(key), ex._ptr(rank), X_SLOTS, D, ex._ptr(quota), c,
-                ex._ptr(offsets), ex._ptr(new_elem), ex._ptr(lpp.elem_gid), m, srcs, lanes,
-                is_bool, width, ex._ptr(send), ex._ptr(kept), ex._ptr(leaving),
-                ex._ptr(counts), ex._ptr(over), ex._stream()), results)
-            # keys read, kept and leaving written; the ranks of the bucket
-            # keys alone read (the others decide nothing); each admitted
-            # leaver's element, gid and fields read and its row written
-            n_bucket = int((key < D).sum())
+        if ne is not None or what.endswith("at random"):
+            run = x2_launcher(lib, ex, *args)
+            compare_bits("pack_send", what + ", launched alone", run(), want[:4], results)
+            time_pair("pack_send", what, run, lambda: ex.pack_send_plain(*args), results)
+            record_launches("pack_send", what, run, results)
             record_bound("pack_send", what, results,
-                         nbytes(key, kept, leaving) + 4 * n_bucket
-                         + L * (4 + 4 + 4 * (width - 1)) + nbytes(send))
-            log(f"[c] pack_send {what}: {L} admitted leavers of {X_SLOTS} slots, "
-                f"{width} lanes a row")
+                         x2_bound_bytes(key, want[1], want[2], want[0], D))
+            lay = leaver_layout(want[2])
+            case_of("pack_send", what, results).update(layout=lay)
+            log(f"[c] pack_send {what}: {lay['leavers']} admitted leavers of {X_SLOTS} "
+                f"slots, {want[0].shape[1]} lanes a row; warps holding a leaver "
+                f"{lay['warp_share']:.4f}, mean run {lay['mean_run']:.2f} slots")
     results["pack_send"]["extra"]["library"] = "none: no one PyTorch call packs the rows"
 
 
@@ -2366,11 +2489,19 @@ def check_owner_reduce(results: dict, dev, gen, lpp) -> None:
                      ex.owner_gather_plain(f, send_ids, fill), results, nan)
         compare_bits("owner_reduce", "fan-in, " + what, ex.owner_fan_in(f, rv, recv_ids, op),
                      ex.owner_fan_in_plain(f, rv, recv_ids, op), results, nan)
+        before = f.clone()
         compare_bits("owner_reduce", "fan-out, " + what, ex.owner_fan_out(f, rv, send_ids),
                      ex.owner_fan_out_plain(f, rv, send_ids), results, nan)
+        mine = f.clone()
+        got = ex.owner_fan_out_(mine, rv, send_ids)
+        if got.data_ptr() != mine.data_ptr():
+            raise AssertionError(f"owner_reduce {what}: the fan-out did not write in place")
+        compare_bits("owner_reduce", "fan-out in place, " + what, mine,
+                     ex.owner_fan_out_plain(f, rv, send_ids), results, nan)
+        compare_bits("owner_reduce", "fan-out's input untouched, " + what, f, before,
+                     results, nan)
     _, _, f, rv = cases[0]
     offsets, rows = ex._cached_map(recv_ids, V, ex.fan_in_csr)
-    row_of = ex._cached_map(send_ids, V, ex.fan_out_rows)
     out, back = torch.empty_like(f), torch.zeros_like(rv)
     what = cases[0][0]
     time_pair("owner_reduce", "fan-in, " + what, lambda: lib.pp_owner_fan_in(
@@ -2386,19 +2517,64 @@ def check_owner_reduce(results: dict, dev, gen, lpp) -> None:
     record_library("owner_reduce", "fan-in, " + what, "index_add_ of the R·K rows",
                    lambda: contrib.index_add_(0, keys, rv.reshape(-1)), results)
     gathered = torch.empty((R, K), device=dev)
-    time_pair("owner_reduce", "gather, " + what, lambda: lib.pp_owner_gather(
-        ex._ptr(f), 1, ex._ptr(send_ids), R * K, 0, ex._ptr(gathered), ex._stream()),
-        lambda: ex.owner_gather_plain(f, send_ids, 0.0), results)
-    record_bound("owner_reduce", "gather, " + what, results,
-                 nbytes(send_ids, gathered) + int((send_ids >= 0).sum()) * 4)
-    fout = torch.empty_like(f)
-    time_pair("owner_reduce", "fan-out, " + what, lambda: lib.pp_owner_fan_out(
-        ex._ptr(f), ex._ptr(rv), 1, V, ex._ptr(row_of), ex._ptr(fout), ex._stream()),
+    time_pair("owner_reduce", "gather (off the picparts step), " + what,
+              lambda: lib.pp_owner_gather(ex._ptr(f), 1, ex._ptr(send_ids), R * K, 0,
+                                          ex._ptr(gathered), ex._stream()),
+              lambda: ex.owner_gather_plain(f, send_ids, 0.0), results)
+    n_sent = int((send_ids >= 0).sum())
+    record_bound("owner_reduce", "gather (off the picparts step), " + what, results,
+                 nbytes(send_ids, gathered) + n_sent * 4)
+    # in place over the R·K rows, as the step runs it (each run writes the
+    # same rows over the same copies)
+    fout = f.clone()
+    time_pair("owner_reduce", "fan-out in place, " + what, lambda: lib.pp_owner_fan_out(
+        ex._ptr(rv), 1, ex._ptr(send_ids), R * K, ex._ptr(fout), ex._stream()),
         lambda: ex.owner_fan_out_plain(f, rv, send_ids), results)
-    record_bound("owner_reduce", "fan-out, " + what, results,
-                 nbytes(f, row_of, fout) + int((send_ids >= 0).sum()) * 4)
+    # the rows' ids read, the named rows read and their copies written
+    record_bound("owner_reduce", "fan-out in place, " + what, results,
+                 nbytes(send_ids) + 2 * 4 * n_sent)
     log(f"[c] owner_reduce: V {V}, (R, K) = ({R}, {K}), {int((recv_ids >= 0).sum())} "
-        f"received and {int((send_ids >= 0).sum())} sent rows")
+        f"received and {n_sent} sent rows")
+    check_deposit_send_rows(results, dev, gen, lpp)
+
+
+def check_deposit_send_rows(results: dict, dev, gen, lpp) -> None:
+    """Kernel D's pass 2 with the owner SUM's send rows (the picparts
+    step's) against D alone followed by O's gather, on rank 0's picpart and
+    its gyro map: the field and the rows bit for bit; D's time with and
+    without the rows."""
+    from pumipic_torch.models import pseudo_xgcm as px
+    from pumipic_torch.ops import exchange as ex
+    from pumipic_torch.ops import scatter as sc
+    from pumipic_torch.parallel import reduce as red
+
+    lmesh = lpp.mesh
+    gyro = px.GyroConfig()
+    R, P, V = gyro.num_rings, gyro.points_per_ring, lmesh.nverts
+    gmap = sc.GyroMap.from_flat(px.build_gyro_mapping(lmesh, gyro), V, R, P, dev)
+    ring = torch.randint(0, 50, (V, R), generator=gen, device=dev).to(torch.float32)
+    row_of, send = red.sum_send_rows(lpp.vert_send_ids, V)
+    got = sc.scatter_to_mapped_verts(ring, gmap, V, R, P, (row_of, send))
+    alone = sc.scatter_to_mapped_verts(ring, gmap, V, R, P)
+    what = f"with the send rows (rank 0's picpart, V={V}, R={R}, P={P})"
+    compare_bits("deposit", what + ": the field", got, alone, results)
+    compare_bits("deposit", what + ": the rows against O's gather", send,
+                 ex.owner_gather(alone, lpp.vert_send_ids, 0.0), results)
+    plain_send = torch.zeros_like(send)
+    want = sc.mapped_plain(ring, gmap, V, R, P)
+    sc.write_send_rows(want, (row_of, plain_send))
+    compare_bits("deposit", what + ": against the plain version", (got, send),
+                 (want, plain_send), results)
+    time_pair("deposit", "pass 2 " + what,
+              lambda: sc.scatter_to_mapped_verts(ring, gmap, V, R, P, (row_of, send)),
+              lambda: sc.mapped_plain(ring, gmap, V, R, P), results, reps=50)
+    time_pair("deposit", f"pass 2 alone (rank 0's picpart, V={V}, R={R}, P={P})",
+              lambda: sc.scatter_to_mapped_verts(ring, gmap, V, R, P),
+              lambda: sc.mapped_plain(ring, gmap, V, R, P), results, reps=50)
+    n_rows = int((row_of >= 0).sum())
+    record_bound("deposit", "pass 2 " + what, results,
+                 nbytes(ring, gmap.offsets, gmap.src, got, row_of) + 4 * n_rows)
+    log(f"[c] deposit {what}: {n_rows} send rows written by D")
 
 
 def check_exchange(results: dict, dev) -> None:
@@ -2407,17 +2583,23 @@ def check_exchange(results: dict, dev) -> None:
     0's picpart, its gid table and vertex exchange tables, 12-layer
     buffer) and on the adversarial inputs, then timed on the device alone
     (the launchers called directly: the wrappers' checks read the device).
+    X2's main case is the picparts step's own leaver layout
+    (:func:`x2_step_case`), its second timed case leavers at random; each
+    prints its leavers, the share of warps holding one and the mean run.
     X3 writes the member fields in place: each case also checks that the
-    state's own tensors hold the result and the staying slots their bits."""
+    state's own tensors hold the result and the staying slots their bits.
+    O's fan-out in place against its plain version, its input untouched;
+    D's pass 2 with the send rows against D followed by O's gather."""
     t0 = time.perf_counter()
-    lpp = exchange_picpart(dev)
+    mesh = exchange_mesh()
+    lpp = exchange_picpart(dev, mesh)
     gen = torch.Generator(device=dev)
     gen.manual_seed(X_SEED)
     D, cap = X_RANKS - 1, X_SLOTS // 8
     for name in ("rank_in_key", "pack_send", "place_arrivals", "owner_reduce"):
         results[name].setdefault("extra", {})
     check_rank_in_key(results, dev, gen, D)
-    check_pack_send(results, dev, gen, lpp, D, cap)
+    check_pack_send(results, dev, gen, lpp, D, cap, mesh)
     check_place_arrivals(results, dev, gen, lpp, D, cap)
     check_owner_reduce(results, dev, gen, lpp)
     log(f"[c] exchange kernels checked in {time.perf_counter() - t0:.2f} s")
@@ -2732,10 +2914,11 @@ E_WALK = ("push", "locate", "histogram", "deposit")
 E_ANALYTIC = ("push", "annulus_locate", "locate", "histogram", "deposit")
 # launches a step of each rank, by name, of the exchange kernels: X1 for
 # the buckets, the balancer's two weight counts and its candidates; X2 and
-# X3 once; O's gather, fan-in and fan-out.  One rank migrates nothing (the
-# comm-size-1 path) and has no balancer.
-E_EXCHANGE = {"rank_in_key": 4, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 3}
-E_ONE_RANK = {"owner_reduce": 3}
+# X3 once; O's fan-in and fan-out (kernel D writes the fan-in's send rows:
+# O's gather is not launched).  One rank migrates nothing (the comm-size-1
+# path) and has no balancer.
+E_EXCHANGE = {"rank_in_key": 4, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 2}
+E_ONE_RANK = {"owner_reduce": 2}
 # rank 0 of the 4-rank 120k arm with the exchange and the reduction as
 # torch ops (PERF.md §5, 3-layer buffer): device busy and the stream's
 # split, ms a step

@@ -118,7 +118,7 @@ SIGNATURES = {
     "pp_histogram_rings": [_P, _P, _P, _F, _I, _I, _P, _L, _P],
     "pp_deposit_rings": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "pp_deposit_rings_er": [_P, _P, _P, _I, _I, _P, _P],
-    "pp_deposit_mapped": [_P, _P, _P, _I, _I, _P, _P],
+    "pp_deposit_mapped": [_P, _P, _P, _I, _I, _P, _P, _P, _P],  # ... out send_row_of send stream
     "pp_row_gather": [_P, _L, _I, _P, _P, _P, _P],  # idx n_rows n_arrays srcs dsts widths stream
     "pp_rank_in_key": [_P, _L, _I, _P, _P, _P, _P],  # key n n_keys rank counts scratch stream
     "pp_rank_in_key_scratch": [_L, _I, _I],   # n n_keys ranked
@@ -136,7 +136,7 @@ SIGNATURES = {
     "pp_owner_fan_in": [
         _P, _P, _I, _I, _P, _P, _I, _I,      # field recv w V offsets rows op is_int
         ctypes.c_uint, _P, _P, _P],          # neutral out back stream
-    "pp_owner_fan_out": [_P, _P, _I, _L, _P, _P, _P],  # field back w V row_of out stream
+    "pp_owner_fan_out": [_P, _I, _P, _L, _P, _P],  # back w send_ids n_rows field stream
     "pp_gitr_update": [
         _P, _P, _P, _P, _P, _P, _P, _P,      # x v v_new dest hit elem num_hits active
         _I, _F, _P, _P, _P, _P,              # reflect tiny x_out v_out active_out lost

@@ -30,6 +30,10 @@
 //   loads of DEP_ROUND2 entries, then of the values they name, issued
 //   before the adds), each divided by P (IEEE), and a fixed shuffle tree
 //   adds the lanes: lane l += lane l + d for d = G/2, ..., 1.
+//   Where the owner reduction's send rows are given (the picparts step's
+//   SUM), the lane that writes a vertex's sum also writes it to the
+//   vertex's send row: a store of the value already computed, no
+//   arithmetic, so the field's bits are those without it.
 // Group and round sizes are those that measured fastest at the 120k mesh's
 // maps (PERF.md).  The plain versions (index_add_) add in another order.
 // On the main path the sums are integer counts (pass 1) and multiples of
@@ -94,11 +98,15 @@ __global__ void __launch_bounds__(DEP_THREADS) deposit_rings_er_kernel(
                                (int)(t - (long long)v * n_rings));
 }
 
+// send_row_of (optional, with send): the owner reduction's send row of
+// each vertex (-1 for none); the lane that writes out[u] writes the same
+// value to send[send_row_of[u]] (kernel O's gather, fused: owner.cu)
 template <int G>
 __global__ void __launch_bounds__(DEP_THREADS) deposit_mapped_kernel(
     const float* __restrict__ ring_accum, const int* __restrict__ off,
     const int* __restrict__ src, int n_verts, int points_per_ring,
-    float* __restrict__ out) {
+    float* __restrict__ out, const int* __restrict__ send_row_of,
+    float* __restrict__ send) {
   const long long gid = (long long)blockIdx.x * DEP_THREADS + threadIdx.x;
   const int u = (int)(gid / G);
   const int lane = threadIdx.x % G;
@@ -121,7 +129,13 @@ __global__ void __launch_bounds__(DEP_THREADS) deposit_mapped_kernel(
   }
 #pragma unroll
   for (int d = G / 2; d >= 1; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d, G);
-  if (lane == 0 && u < n_verts) out[u] = s;
+  if (lane == 0 && u < n_verts) {
+    out[u] = s;
+    if (send_row_of != nullptr) {
+      const int row = send_row_of[u];
+      if (row >= 0) send[row] = s;
+    }
+  }
 }
 
 extern "C" int pp_deposit_rings(const int* counts, const int* v2e_off,
@@ -148,14 +162,16 @@ extern "C" int pp_deposit_rings_er(const int* counts, const int* v2e_off,
   return (int)cudaGetLastError();
 }
 
+// send_row_of, send: null, or the (V,) send rows and the buffer they index
 extern "C" int pp_deposit_mapped(const float* ring_accum, const int* off,
                                  const int* src, int n_verts,
                                  int points_per_ring, float* out,
+                                 const int* send_row_of, float* send,
                                  cudaStream_t stream) {
   if (n_verts <= 0) return (int)cudaGetLastError();
   const long long blocks =
       ((long long)n_verts * DEPOSIT_GROUP + DEP_THREADS - 1) / DEP_THREADS;
   deposit_mapped_kernel<DEPOSIT_GROUP><<<(unsigned)blocks, DEP_THREADS, 0, stream>>>(
-      ring_accum, off, src, n_verts, points_per_ring, out);
+      ring_accum, off, src, n_verts, points_per_ring, out, send_row_of, send);
   return (int)cudaGetLastError();
 }

@@ -5,12 +5,14 @@
 // (pumipic_tpu/parallel/reduce.py:52-107: the row gathers, segment_sum /
 // segment_max / segment_min over the R·K received rows, the fan-out's
 // .at[].set), which the port ran as torch gathers, one index_add_ per
-// source rank and an index_put.  Three launches, with a collective between
-// each two:
+// source rank and an index_put.  Three functions, with a collective
+// between each two:
 //
 //  gather   out[j] = field[ids[j]], or fill where ids[j] is -1 (the send
 //           side's copies before the fan-in, the owner's rows before the
-//           fan-out of BCAST);
+//           fan-out of BCAST).  The picparts step's SUM takes no gather:
+//           kernel D writes those rows as it writes the field
+//           (deposit.cu's send rows), so the step launches O twice;
 //  fan_in   one thread per owned entity and lane: it folds the copies the
 //           other ranks sent in source-rank order (a CSR built once per
 //           picpart from recv_ids: entity -> received rows), starting from
@@ -18,9 +20,11 @@
 //           (SUM: field + sum; MAX/MIN: the NaN-propagating max/min), and
 //           writes the reduced value both to the output field and to every
 //           row that the fan-out sends back (the fan-out's gather, fused);
-//  fan_out  one thread per entity and lane: a copy owned elsewhere takes
-//           the row its owner sent back (a map built once per picpart from
-//           send_ids), every other entity keeps its value.
+//  fan_out  in place, one thread per (row, lane) of the R·K rows: a row
+//           that names a copy owned elsewhere (send_ids) writes the value
+//           its owner sent back over the copy; the other entities keep
+//           theirs.  The caller gives it a field it owns (the fan-in's
+//           output), never one it was handed.
 //
 // Values are f32 or i32 moved as 32-bit words; only fan_in does
 // arithmetic, in the plain version's order (0 + c_0 + c_1 + ..., then
@@ -29,7 +33,7 @@
 // torch.maximum / scatter_reduce(amax)'s rule that a NaN wins (fmaxf would
 // drop it).  What bounds them: bytes (each row read once, each output
 // written once; a few hundred kB at the picparts' sizes), so at these sizes
-// the launch itself.
+// the launch itself: the step's gain is the launch it no longer makes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -86,13 +90,13 @@ __global__ void __launch_bounds__(O_THREADS)
 }
 
 __global__ void __launch_bounds__(O_THREADS)
-    o_fan_out(const uint32_t* __restrict__ field, const uint32_t* __restrict__ back, int width,
-              long long n_ent, const int* __restrict__ row_of, uint32_t* __restrict__ out) {
+    o_fan_out(const uint32_t* __restrict__ back, int width, const int* __restrict__ send_ids,
+              long long n_rows, uint32_t* __restrict__ field) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_ent * width) return;
-  const long long v = p / width;
-  const int r = row_of[v];
-  out[p] = r >= 0 ? back[(long long)r * width + (p - v * width)] : field[p];
+  if (p >= n_rows * width) return;
+  const long long j = p / width;
+  const int e = send_ids[j];
+  if (e >= 0) field[(long long)e * width + (p - j * width)] = back[p];
 }
 
 static unsigned o_blocks(long long n) {
@@ -132,12 +136,14 @@ extern "C" int pp_owner_fan_in(const void* field, const void* recv, int width, i
   return (int)cudaGetLastError();
 }
 
-extern "C" int pp_owner_fan_out(const void* field, const void* back, int width, long long n_ent,
-                                const int* row_of, void* out, cudaStream_t stream) {
+// in place: field's copies named in send_ids (n_rows) take their rows of
+// back; each entity is named at most once
+extern "C" int pp_owner_fan_out(const void* back, int width, const int* send_ids,
+                                long long n_rows, void* field, cudaStream_t stream) {
   if (width < 1) return (int)cudaErrorInvalidValue;
-  if (n_ent > 0)
-    o_fan_out<<<o_blocks(n_ent * width), O_THREADS, 0, stream>>>(
-        static_cast<const uint32_t*>(field), static_cast<const uint32_t*>(back), width, n_ent,
-        row_of, static_cast<uint32_t*>(out));
+  if (n_rows > 0)
+    o_fan_out<<<o_blocks(n_rows * width), O_THREADS, 0, stream>>>(
+        static_cast<const uint32_t*>(back), width, send_ids, n_rows,
+        static_cast<uint32_t*>(field));
   return (int)cudaGetLastError();
 }

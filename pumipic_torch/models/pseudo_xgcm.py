@@ -842,6 +842,9 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
     # it cycles; a cut one counts as lost)
     g_walk = gmesh.walk_geom.to(device) if analytic is None else None
     g_walk_iters = gmesh.nelems
+    # the owner SUM's send rows, written by the deposit as it writes the
+    # field (its gather fused into kernel D): one buffer for every step
+    send_rows = red.sum_send_rows(lpp.vert_send_ids, lmesh.nverts)
 
     def step(s: Dict[str, torch.Tensor]):
         elem, active = s["elem"], s["active"]
@@ -901,13 +904,13 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
                     s2["elem"], s2["active"], lmesh, R_g, gyro.rmax,
                     ptcl_radius=s2["rg"])
                 fwd = scatter_ops.scatter_to_mapped_verts(ring, gmap, lmesh.nverts,
-                                                          R_g, P_g)
+                                                          R_g, P_g, send_rows)
             else:
                 fwd = scatter_ops.gyro_scatter(s2["elem"], s2["active"], lmesh, gmap,
-                                               R_g, P_g, gyro.rmax)
+                                               R_g, P_g, gyro.rmax, send_rows)
         step.last_deposit = fwd
         fwd = red.reduce_comm_array(lpp.vert_send_ids, lpp.vert_recv_ids, fwd,
-                                    red.Op.SUM, hier=hier)
+                                    red.Op.SUM, hier=hier, send_vals=send_rows[1])
         with group.split("glue"):
             nloc = s2["active"].sum(dtype=torch.int32)
             if analytic is not None:

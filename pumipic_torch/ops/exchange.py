@@ -9,8 +9,10 @@ and O (``kernels/csrc/exchange.cu``, ``kernels/csrc/owner.cu``).
   (gid, then every member field as int32 lanes).
 - :func:`place_arrivals` (X3): the arrivals' local elements and their
   placement into the free slots, the member fields written in place.
-- :func:`owner_gather`, :func:`owner_fan_in`, :func:`owner_fan_out` (O):
-  the owner reduction's three steps around its two collectives.
+- :func:`owner_gather`, :func:`owner_fan_in`, :func:`owner_fan_out_` (O):
+  the owner reduction's three steps around its two collectives (the
+  picparts step's SUM takes its send rows from kernel D instead of the
+  gather: ``ops/scatter.py``'s ``send_rows``).
 
 Each wrapper runs its plain PyTorch version (``*_plain``: the JAX
 package's arithmetic, ``pumipic_tpu/parallel/migrate.py``, ``balancer.py``
@@ -522,26 +524,39 @@ def owner_fan_in(field: torch.Tensor, recv_vals: torch.Tensor, recv_ids: torch.T
 
 def owner_fan_out_plain(field: torch.Tensor, back: torch.Tensor, send_ids: torch.Tensor):
     """Plain version of O's fan-out: the returned rows written over the
-    copies ``send_ids`` names (dropped writes for -1)."""
+    copies ``send_ids`` names (dropped writes for -1), in a new field."""
     V = field.shape[0]
     R, K = send_ids.shape
     tgt = torch.where(send_ids >= 0, send_ids, V).reshape(-1)
     return set_drop(field, tgt, back.reshape((R * K,) + tuple(field.shape[1:])))
 
 
-def owner_fan_out(field: torch.Tensor, back: torch.Tensor, send_ids: torch.Tensor):
-    """A new field: each copy named in ``send_ids`` (R, K) takes the row its
-    owner returned (``back`` (R, K[, k])), every other entity keeps its
-    value.  Kernel O's fan-out on CUDA tensors (the copy -> row map built
-    once per ``send_ids`` tensor)."""
-    if not kernels.use_kernel("owner_reduce", field, back, send_ids):
-        return owner_fan_out_plain(field, back, send_ids)
-    w = _words(field, "owner_fan_out")
+def owner_fan_out_(field: torch.Tensor, back: torch.Tensor, send_ids: torch.Tensor):
+    """In place: each copy named in ``send_ids`` (R, K) takes the row its
+    owner returned (``back`` (R, K[, k])), every other entity of ``field``
+    keeps its value; returns ``field``.  Give it a field the caller owns
+    (the fan-in's output), not one it was handed.  Kernel O's fan-out on
+    CUDA tensors: a thread a (row, lane) of the R·K rows (the tables are
+    checked once per ``send_ids`` tensor: each copy named once)."""
     V = field.shape[0]
-    row_of = _cached_map(send_ids, V, fan_out_rows)
-    out = torch.empty_like(field)
-    err = _build.lib().pp_owner_fan_out(_ptr(field), _ptr(back), w, V, _ptr(row_of),
-                                        _ptr(out), _stream())
+    if not kernels.use_kernel("owner_reduce", field, back, send_ids):
+        named = send_ids >= 0
+        field[send_ids[named].long()] = back[named]
+        return field
+    w = _words(field, "owner_fan_out")
+    if not field.is_contiguous():
+        raise ValueError("owner_fan_out_: the field must be contiguous")
+    _cached_map(send_ids, V, fan_out_rows)
+    back = back.contiguous()
+    err = _build.lib().pp_owner_fan_out(_ptr(back), w, _ptr(send_ids), send_ids.numel(),
+                                        _ptr(field), _stream())
     _build.check(err, "owner_reduce")
     kernels.LAUNCHES["owner_reduce"] += 1
-    return out
+    return field
+
+
+def owner_fan_out(field: torch.Tensor, back: torch.Tensor, send_ids: torch.Tensor):
+    """A new field: :func:`owner_fan_out_` on a copy of ``field``."""
+    if not kernels.use_kernel("owner_reduce", field, back, send_ids):
+        return owner_fan_out_plain(field, back, send_ids)
+    return owner_fan_out_(field.clone(), back, send_ids)

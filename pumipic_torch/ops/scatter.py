@@ -285,26 +285,50 @@ def mapped_plain(ring_accum: torch.Tensor, gyro_map: GyroMap, num_verts: int,
     return out[:V]
 
 
+def write_send_rows(field: torch.Tensor, send_rows) -> None:
+    """Plain version of kernel D's epilogue: ``send_rows`` = (row_of (V,)
+    int32, send (R, K) f32): ``send.view(-1)[row_of[u]] = field[u]`` where
+    ``row_of[u] >= 0``; the other rows of ``send`` keep their values."""
+    row_of, send = send_rows
+    named = row_of >= 0
+    send.view(-1)[row_of[named].long()] = field[named]
+
+
 def scatter_to_mapped_verts(ring_accum: torch.Tensor, gyro_map: GyroMap,
                             num_verts: int, num_rings: int,
-                            points_per_ring: int) -> torch.Tensor:
+                            points_per_ring: int, send_rows=None) -> torch.Tensor:
     """Apply the gyro-average map: (V, R) ring accumulation -> (V,).  Kernel
     D pass 2 on CUDA tensors, :func:`mapped_plain` on CPU tensors.  The
     kernel adds each vertex's terms in its own fixed order (lanes, then a
     tree: ``deposit.cu``), so it equals the plain version where the terms
     and sums are exact (integer ring sums, P a power of 2, as on the main
-    path) and may differ in the last bits where a term c/P rounds."""
+    path) and may differ in the last bits where a term c/P rounds.
+    ``send_rows`` (optional): (row_of (V,) int32, send (R, K) f32 contiguous)
+    from :func:`pumipic_torch.parallel.reduce.sum_send_rows`; each vertex's
+    value is also written to its row of ``send`` (the owner reduction's
+    send rows, which kernel O's gather would otherwise gather), the other
+    rows are left as they are."""
     args = (ring_accum, gyro_map.offsets, gyro_map.src)
-    if not kernels.use_kernel("deposit", *args):
-        return mapped_plain(ring_accum, gyro_map, num_verts, num_rings,
-                            points_per_ring)
+    extra = () if send_rows is None else tuple(send_rows)
+    if not kernels.use_kernel("deposit", *args, *extra):
+        out = mapped_plain(ring_accum, gyro_map, num_verts, num_rings, points_per_ring)
+        if send_rows is not None:
+            write_send_rows(out, send_rows)
+        return out
     if ring_accum.dtype != torch.float32 or ring_accum.shape != (num_verts, num_rings):
         raise ValueError("deposit: (V, R) f32 ring_accum expected")
+    row_of, send = extra if extra else (None, None)
+    if send_rows is not None and (
+            row_of.dtype != torch.int32 or row_of.shape != (num_verts,)
+            or send.dtype != torch.float32 or not send.is_contiguous()):
+        raise ValueError("deposit: send rows need (V,) int32 rows and a contiguous f32 "
+                         "buffer")
     out = torch.empty(num_verts, dtype=torch.float32, device=ring_accum.device)
     P = ctypes.c_void_p
     err = _build.lib().pp_deposit_mapped(
         *(P(t.data_ptr()) for t in args), num_verts, points_per_ring,
-        P(out.data_ptr()), P(kernels.stream_handle()))
+        P(out.data_ptr()), P(row_of.data_ptr() if row_of is not None else None),
+        P(send.data_ptr() if send is not None else None), P(kernels.stream_handle()))
     _build.check(err, "deposit")
     kernels.LAUNCHES["deposit"] += 1
     return out
@@ -330,14 +354,15 @@ def accumulate_to_rings(elem: torch.Tensor, active: torch.Tensor, mesh: Mesh2D,
 
 def gyro_scatter(elem: torch.Tensor, active: torch.Tensor, mesh: Mesh2D,
                  gyro_map: GyroMap, num_rings: int, points_per_ring: int,
-                 gyro_rmax: float) -> torch.Tensor:
+                 gyro_rmax: float, send_rows=None) -> torch.Tensor:
     """Full gyroScatter (gyroScatter.hpp:169-232): ring accumulation, then
     the mapped scatter; returns the (V,) vertex field.  Takes the mesh and
     a :class:`GyroMap` where the JAX function takes ``elem2verts``, the
-    flat map and the vertex count."""
+    flat map and the vertex count; ``send_rows``: as
+    :func:`scatter_to_mapped_verts`'s."""
     ring = accumulate_to_rings(elem, active, mesh, num_rings, gyro_rmax)
     return scatter_to_mapped_verts(ring, gyro_map, mesh.nverts, num_rings,
-                                   points_per_ring)
+                                   points_per_ring, send_rows)
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,8 @@ _I, _L, _F = ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # the earlier kernel B interface: px py n cx cy coefs(device) K T J P rank
 # n_inv newton cells stream
 BAND_DEVICE_COEFS = [P, P, _L, _F, _F, P, _I, _I, _I, _I, _I, _I, _I, P, P]
+# the deposit's pass 2 before the owner reduction's send rows
+MAPPED_NO_SEND = [P, P, P, _I, _I, P, P]
 SOURCES = ("band.cu", "deposit.cu")
 SASS_CLASSES = {"FADD": "FADD/FMUL", "FMUL": "FADD/FMUL", "FFMA": "FFMA", "LDS": "LDS",
                 "LDC": "LDC", "ULDC": "LDC", "MUFU": "MUFU"}
@@ -75,6 +77,7 @@ class Version:
     band_host_params: Optional[bool]   # band.cu's interface (None: no band.cu)
     report: str
     sass: dict
+    mapped_send: bool = False          # pp_deposit_mapped takes the send rows
 
 
 def sass_counts(text: str) -> dict:
@@ -120,7 +123,7 @@ def build(csrc: str, name: str) -> Version:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.nvcc_path()
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    objs, report, sass, band_host = [], [], {}, None
+    objs, report, sass, band_host, mapped_send = [], [], {}, None, False
     for src in SOURCES:
         path = os.path.join(csrc, src)
         if not os.path.exists(path):
@@ -132,6 +135,8 @@ def build(csrc: str, name: str) -> Version:
             raise RuntimeError(f"nvcc {name} {src}:\n{res.stderr}")
         objs.append(obj)
         report.append(f"{name} {src}:\n{res.stderr}")
+        if src == "deposit.cu":
+            mapped_send = "send_row_of" in open(path).read()
         if src == "band.cu":
             band_host = "BandParams" in open(path).read()
             sass = sass_counts(subprocess.run([cuobjdump, "-sass", obj], capture_output=True,
@@ -146,8 +151,10 @@ def build(csrc: str, name: str) -> Version:
         if fn is not None:
             fn.argtypes = argtypes if fn_name != "pp_band_cell" or band_host \
                 else BAND_DEVICE_COEFS
+            if fn_name == "pp_deposit_mapped" and not mapped_send:
+                fn.argtypes = MAPPED_NO_SEND
             fn.restype = ctypes.c_int
-    return Version(name, lib, band_host, "\n".join(report), sass)
+    return Version(name, lib, band_host, "\n".join(report), sass, mapped_send)
 
 
 def check(err: int, what: str) -> None:
@@ -198,9 +205,10 @@ def deposit_mapped(v: Version, ring, gmap, Pr: int):
     from pumipic_torch.kernels import stream_handle
 
     out = torch.empty(ring.shape[0], dtype=torch.float32, device=ring.device)
+    rows = (P(None), P(None)) if v.mapped_send else ()
     check(v.lib.pp_deposit_mapped(P(ring.data_ptr()), P(gmap.offsets.data_ptr()),
                                   P(gmap.src.data_ptr()), ring.shape[0], Pr,
-                                  P(out.data_ptr()), P(stream_handle())),
+                                  P(out.data_ptr()), *rows, P(stream_handle())),
           f"{v.name} pp_deposit_mapped")
     return out
 

@@ -5,7 +5,7 @@ versions', in turns.
 
     python3 scripts/ab_sort_place.py OTHER[,OTHER...] [OUT_JSON]
         [--variants NAME=DEFINE:VALUE[,DEFINE:VALUE...][;NAME=...]] [--profile]
-        [--kernels C,X3,X1,X2]
+        [--kernels C,X3,X1,X2] [--x2-saved PATH]
 
 Each ``OTHER`` is a directory holding another version's ``rebuild.cu``
 and ``exchange.cu`` (either may be missing), for example a parent
@@ -34,7 +34,13 @@ check_place_arrivals``'s main case: 3.75M slots, rank 0's picpart of the
 4-rank 120k arm, its arrivals); X1 at ``chip_smoke.check_rank_in_key``'s
 four timed cases (the buckets, 2 keys, 33 keys, 101 keys: the wide mode),
 each ranked and counts only, beside ``torch.bincount`` for the counts; X2
-at ``chip_smoke.check_pack_send``'s main case.  Every version must equal the
+at ``chip_smoke.check_pack_send``'s two timed cases (the picparts step's
+own leaver layout, ``chip_smoke.x2_step_case``, and leavers at random),
+each with its leavers, the share of warps holding one and the mean run,
+and on the inputs of a step saved by ``scripts/profile_picparts.py
+--save-x2`` where ``--x2-saved PATH`` names them; each version is timed
+behind the -1 fill of the buffer its wrapper makes and alone.  Every
+version must equal the
 plain version bit for bit.  Each is timed on the device alone
 (``chip_smoke.device_ms``, the mean of ``REPS`` calls) in turns, in the
 order built and then reversed, beside ``torch.sort``'s time for C;
@@ -418,48 +424,59 @@ def rank_cases(versions, dev) -> list:
     return out
 
 
-def pack_case(versions, dev) -> list:
-    import numpy as np
-
+def pack_inputs(dev, saved: str = "") -> list:
+    """X2's cases: phase c's main case (the picparts step's own leaver
+    layout, ``chip_smoke.x2_step_case``), leavers at random (phase c's
+    second case) and, with ``saved``, the inputs
+    ``scripts/profile_picparts.py --save-x2`` saved from a step."""
     from pumipic_torch.ops import exchange as ex
 
-    lpp = cs.exchange_picpart(dev)
+    mesh = cs.exchange_mesh()
+    lpp = cs.exchange_picpart(dev, mesh)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.X_SEED)
     D, cap, n = cs.X_RANKS - 1, cs.X_SLOTS // 8, cs.X_SLOTS
+    step_state, step_key, step_elem = cs.x2_step_case(dev, lpp, mesh)
     st = cs.exchange_state(n, gen, dev, int(lpp.elem_gid.shape[0]))
-    ne = torch.where(st["active"], st["elem"], -1)
-    fs, width = ex.payload_layout(st)
-    m, srcs, _, lanes, is_bool, _ = ex._fields(st, fs)
     key = cs.exchange_keys(st, cs.X_LEAVER_SHARE, D, gen)
-    rank, counts = ex.rank_in_key_plain(key, D)
-    quota = torch.clamp(counts[:D], max=cap)
-    rows = quota.tolist()
-    args = (st, key, rank, counts, quota, rows, cap, ne, lpp.elem_gid)
-    want = ex.pack_send_plain(*args)[:4]
-    offsets = torch.as_tensor(np.cumsum([0] + rows[:-1]), device=dev)
-    fns = {}
-    for v in versions:
-        send = torch.empty((sum(rows), width), dtype=torch.int32, device=dev)
-        kept, leaving = (torch.empty(n, dtype=torch.bool, device=dev) for _ in range(2))
-        over = torch.empty((), dtype=torch.bool, device=dev)
+    out = []
+    for name, s, k, ne in (("X2 the picparts step's leaver layout", step_state, step_key,
+                            step_elem),
+                           ("X2 leavers at random", st, key,
+                            torch.where(st["active"], st["elem"], -1))):
+        rank, counts = ex.rank_in_key_plain(k, D)
+        quota = torch.clamp(counts[:D], max=cap)
+        out.append((name, (s, k, rank, counts, quota, quota.tolist(), cap, ne, lpp.elem_gid)))
+    if saved:
+        a = torch.load(saved)
+        to = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in a.items()}
+        st = {f: t.to(dev) for f, t in a["state"].items()}
+        out.append((f"X2 saved step inputs ({os.path.basename(saved)})",
+                    (st, to["key"], to["rank"], to["counts"], to["quota"], a["rows"], a["cap"],
+                     to["new_elem"], to["elem_gid"])))
+    return out
 
-        def run(v=v, send=send, kept=kept, leaving=leaving, over=over, key=key, rank=rank,
-                quota=quota, offsets=offsets, counts=counts):
-            err = v.lib.pp_pack_send(
-                ptr(key), ptr(rank), n, D, ptr(quota), cap, ptr(offsets), ptr(ne),
-                ptr(lpp.elem_gid), m, srcs, lanes, is_bool, width, ptr(send), ptr(kept),
-                ptr(leaving), ptr(counts), ptr(over), stream())
-            if err:
-                raise RuntimeError(f"{v.name} pp_pack_send: cudaError {err}")
-            return send, kept, leaving, over
-        fns[v.name] = run
-    L = sum(rows)
-    n_bucket = int((key < D).sum())
-    bound = (cs.nbytes(key, want[1], want[2]) + 4 * n_bucket + L * (4 + 4 + 4 * (width - 1))
-             + cs.nbytes(want[0])) / cs.PEAK_BYTES_PER_S * 1e3
-    return [timed_case("X2 phase c main case", fns, want, {
-        "slots": n, "admitted": L, "width": width, "bound_ms": bound})]
+
+def pack_case(versions, dev, saved: str = "") -> list:
+    from pumipic_torch.ops import exchange as ex
+
+    recs = []
+    for name, args in pack_inputs(dev, saved):
+        want = ex.pack_send_plain(*args)[:4]
+        fns = {}
+        for v in versions:
+            fns[f"{v.name} (fill + X2)"] = cs.x2_launcher(v.lib, ex, *args, fill=True)
+            fns[f"{v.name} (X2 alone)"] = cs.x2_launcher(v.lib, ex, *args)
+        D = len(args[5])
+        lay = cs.leaver_layout(want[2])
+        print(f"{name}: {lay['leavers']} admitted leavers, warps holding one "
+              f"{lay['warp_share']:.4f}, mean run {lay['mean_run']:.2f}", flush=True)
+        recs.append(timed_case(name, fns, want, {
+            "slots": args[1].shape[0], "admitted": int(want[0].shape[0]),
+            "width": int(want[0].shape[1]), "layout": lay,
+            "bound_ms": cs.x2_bound_bytes(args[1], want[1], want[2], want[0], D)
+            / cs.PEAK_BYTES_PER_S * 1e3}))
+    return recs
 
 
 def make_versions(others, variants: str) -> list:
@@ -495,6 +512,9 @@ def main() -> None:
                     help="each version's kernels by name (torch.profiler)")
     ap.add_argument("--kernels", default="C,X3,X1,X2",
                     help="the kernels timed, comma-separated (C, X3, X1, X2)")
+    ap.add_argument("--x2-saved", default="",
+                    help="X2 also on the inputs scripts/profile_picparts.py --save-x2 "
+                         "saved (a .pt file)")
     args = ap.parse_args()
     global PROFILE
     PROFILE = args.profile
@@ -510,7 +530,7 @@ def main() -> None:
     picked = set(args.kernels.split(","))
     cases = []
     for name, run in (("C", sort_cases), ("X3", place_case), ("X1", rank_cases),
-                      ("X2", pack_case)):
+                      ("X2", lambda vs, d: pack_case(vs, d, args.x2_saved))):
         if name in picked:
             cases += run(versions, dev)
     for c in cases:

@@ -1,6 +1,7 @@
 """Where the time of the distributed picparts step goes, on one card.
 
     python3 scripts/profile_picparts.py [num_ptcls] [steps] [arm ...]
+        [--buffer LAYERS] [--save-x2 [PATH]]
 
 Each arm runs ``bench_torch``'s picparts mode (the balancer, the
 neighbour exchange, cap factor 1.5) as rank processes on this card:
@@ -14,6 +15,18 @@ range.  Prints one JSON line per arm from rank 0: wall ms/step, device
 busy ms/step (kernels and copies), the device ms of each range and of
 each kernel, and host ms of each range; writes rank 0's Chrome trace of
 the profiled steps to ``chiprun_out/picparts_trace_<arm>.json.gz``.
+``--buffer`` sets the picparts' BFS buffer layers (default ``bench_torch``'s).
+
+``--save-x2`` (the 120k arm) saves rank 0's kernel X2 inputs of step
+``--x2-step`` (default 1, the warm-up's: the layout right after seeding)
+to PATH (default
+``chip_tree/x2_step_inputs.pt``, git-ignored; ``scripts/ab_sort_place.py
+--x2-saved PATH`` times them), prints how each step's admitted leavers lie
+in the slots (their count, the share of warps holding one, the mean run:
+``chip_smoke.leaver_layout``) and the same for phase c's synthetic case
+(``chip_smoke.x2_step_case``, which takes the 12-layer buffer: give
+``--buffer 12`` to compare like with like), and whether they agree within
+25%.  Its step times include those reads: time with a run without it.
 """
 from __future__ import annotations
 
@@ -40,13 +53,39 @@ ARMS = {  # arm -> (ranks, backend, bench_torch.setup_picparts keywords)
 }
 
 
-def rank(arm: str, n: int, steps: int, trace_dir: str) -> dict:
+def watch_x2(path: str, layouts: list, save_call: int = 1) -> None:
+    """Wrap kernel X2's wrapper: save the inputs of its ``save_call``-th
+    call to ``path`` (host tensors) and append each call's leaver layout
+    to ``layouts``."""
+    import chip_smoke as cs
+    from pumipic_torch.ops import exchange as ex
+
+    wrapped = ex.pack_send
+
+    def pack_send(state, key, rank, counts, quota, rows, cap, new_elem, elem_gid):
+        out = wrapped(state, key, rank, counts, quota, rows, cap, new_elem, elem_gid)
+        if len(layouts) + 1 == save_call:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            torch.save({"state": {k: v.cpu() for k, v in state.items()}, "key": key.cpu(),
+                        "rank": rank.cpu(), "counts": counts.cpu(), "quota": quota.cpu(),
+                        "rows": list(rows), "cap": cap, "new_elem": new_elem.cpu(),
+                        "elem_gid": elem_gid.cpu()}, path)
+        layouts.append(cs.leaver_layout(out[2]))
+        return out
+    ex.pack_send = pack_send
+
+
+def rank(arm: str, n: int, steps: int, trace_dir: str, buffer: int = 0,
+         save_x2: str = "", x2_step: int = 1) -> dict:
     import bench_torch
     from pumipic_torch.parallel import group
 
     dev = group.device()
+    layouts = []
+    if save_x2 and group.rank() == 0:
+        watch_x2(save_x2, layouts, x2_step)
     _, state, step, info = bench_torch.setup_picparts(
-        dev, n, cap_factor=1.5, **ARMS[arm][2])
+        dev, n, cap_factor=1.5, buffer_layers=buffer or None, **ARMS[arm][2])
     state, _ = step(state)
     torch.cuda.synchronize()
     timer = group.SplitTimer()
@@ -81,18 +120,46 @@ def rank(arm: str, n: int, steps: int, trace_dir: str) -> dict:
             "device_busy_ms_per_step": sum(kernels.values()),
             "range_device_ms_per_step": ranges, "range_host_ms_per_step": host,
             "kernel_device_ms_per_step": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:40]),
-            "alive": int(f["stats"]["alive"])}
+            "alive": int(f["stats"]["alive"]), "x2_layouts": layouts}
+
+
+def synthetic_layout(dev, buffer: int) -> dict:
+    """Phase c's X2 case at the step's layout (``chip_smoke.x2_step_case``),
+    its admitted leavers' layout."""
+    import chip_smoke as cs
+    from pumipic_torch.ops import exchange as ex
+
+    lpp = cs.exchange_picpart(dev)
+    state, key, new_elem = cs.x2_step_case(dev, lpp)
+    D = cs.X_RANKS - 1
+    rank, counts = ex.rank_in_key(key, D)
+    quota = torch.clamp(counts[:D], max=cs.X_SLOTS // 8)
+    out = ex.pack_send(state, key, rank, counts, quota, quota.tolist(), cs.X_SLOTS // 8,
+                       new_elem, lpp.elem_gid)
+    return dict(cs.leaver_layout(out[2]), buffer_layers=cs.E_BUFFER, asked_buffer=buffer)
 
 
 def main() -> None:
+    import argparse
+
     from pumipic_torch.kernels import _build
     from pumipic_torch.parallel import group
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("num_ptcls", nargs="?", type=int, default=10_000_000)
+    ap.add_argument("steps", nargs="?", type=int, default=5)
+    ap.add_argument("arms", nargs="*")
+    ap.add_argument("--buffer", type=int, default=0, help="BFS buffer layers")
+    ap.add_argument("--save-x2", nargs="?", const=os.path.join(ROOT, "chip_tree",
+                                                                "x2_step_inputs.pt"),
+                    default="", help="save rank 0's X2 inputs of a step")
+    ap.add_argument("--x2-step", type=int, default=1,
+                    help="the step whose X2 inputs --save-x2 saves (1: the warm-up)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 10_000_000
-    steps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
-    arms = sys.argv[3:] or list(ARMS)
+    n, steps = args.num_ptcls, args.steps
+    arms = args.arms or list(ARMS)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -102,8 +169,11 @@ def main() -> None:
     for arm in arms:
         ranks, backend, _ = ARMS[arm]
         tmp = tempfile.mkdtemp()
+        save = args.save_x2 if arm == "120k" else ""
         res = group.launch("profile_picparts:rank", ranks,
-                           {"arm": arm, "n": n, "steps": steps, "trace_dir": tmp},
+                           {"arm": arm, "n": n, "steps": steps, "trace_dir": tmp,
+                            "buffer": args.buffer, "save_x2": save,
+                            "x2_step": args.x2_step},
                            backend=backend, device="cuda", timeout=900,
                            extra_paths=[HERE])
         src = os.path.join(tmp, f"picparts_trace_{arm}.json")
@@ -112,6 +182,15 @@ def main() -> None:
             shutil.copyfileobj(fi, fo)
         shutil.rmtree(tmp, ignore_errors=True)
         print(json.dumps(dict(res[0], card=smi)), flush=True)
+        if save:
+            step = res[0]["x2_layouts"][args.x2_step - 1]
+            synth = synthetic_layout(torch.device("cuda"), args.buffer)
+            agree = all(abs(synth[k] - step[k]) <= 0.25 * step[k]
+                        for k in ("leavers", "warp_share", "mean_run"))
+            print(json.dumps({"x2_step": args.x2_step, "x2_layout_step": step,
+                              "x2_layout_steps": res[0]["x2_layouts"],
+                              "x2_layout_synthetic": synth, "within_25_percent": agree,
+                              "saved": save, "card": smi}), flush=True)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ package's collectives and comm code, on 8 gloo CPU ranks against
 conftest's 8 virtual devices: ``world_all_to_all`` against
 ``lax.all_to_all``, ``all_gather``, ``all_sum`` against ``psum``, the
 ragged ``all_to_all_single`` against a ``ppermute`` ring,
-``reduce_comm_array`` on the JAX test's synthetic tables, ``gid_to_lid``,
+``reduce_comm_array`` on the JAX test's synthetic tables (also fed the
+send rows kernel D writes, flat and over slices), ``gid_to_lid``,
 the payload lanes, the neighbour plan; the same ranks split into 2 slices
 of 4 (the JAX package's ``("slice", "ranks")`` mesh): the two-stage
 exchanges, reduction and migration against the flat ones and the JAX
@@ -99,6 +100,23 @@ def test_reduce_comm_array_synthetic_matches_jax(ranks, op):
         np.testing.assert_array_equal(want[0], [15.0, 22.0])
 
 
+def test_reduce_comm_array_with_send_rows_matches_jax(ranks):
+    """SUM fed the send rows kernel D writes beside the field (the picparts
+    step's path: ``send_vals``, no gather) equals the JAX package's
+    ``reduce_comm_array``; no op writes into the field it is given."""
+    s, r, f = tr.synthetic_tables(R)
+    run = jax.jit(jax.shard_map(
+        lambda a, b, c: jred.reduce_comm_array(a[0], b[0], c[0], jred.Op.SUM)[None],
+        mesh=make_device_mesh(R), in_specs=(P(RANK_AXIS),) * 3, out_specs=P(RANK_AXIS),
+        check_vma=False))
+    want = np.asarray(run(*(jnp.asarray(a) for a in (s, r, f))))
+    for me, out in enumerate(ranks):
+        np.testing.assert_array_equal(out["SUM_send_vals"].numpy(), want[me])
+        _same(out["SUM_send_vals"], out["SUM"], f"rank {me}")
+        assert all(out["untouched"].values()), (me, out["untouched"])
+    np.testing.assert_array_equal(want[0], [15.0, 22.0])
+
+
 def _same(a, b, what):
     if isinstance(a, dict):
         assert set(a) == set(b), what
@@ -149,6 +167,25 @@ def test_reduce_comm_array_hier_equals_flat_and_jax(ranks, op):
     for me, out in enumerate(ranks):
         _same(out["hier"]["sliced"][op], out["hier"]["flat"][op], f"{op} rank {me}")
         np.testing.assert_array_equal(out["hier"]["sliced"][op].numpy(), want[me])
+
+
+def test_reduce_comm_array_hier_with_send_rows_equals_flat_and_jax(ranks):
+    """SUM fed D's send rows over 2 slices of 4 ranks (the two-stage route
+    takes the same rows) equals the flat reduction and the JAX package's
+    hier SUM."""
+    s, r, f = tr.hier_tables(R)
+    AX = ("slice", "ranks")
+    run = jax.jit(jax.shard_map(
+        lambda a, b, c: jred.reduce_comm_array(a[0], b[0], c[0], jred.Op.SUM,
+                                               axis_name=AX, hier=True)[None],
+        mesh=make_device_mesh(R, slices=2), in_specs=(P(AX),) * 3, out_specs=P(AX),
+        check_vma=False))
+    want = np.asarray(run(*(jnp.asarray(a) for a in (s, r, f))))
+    for me, out in enumerate(ranks):
+        got = out["hier"]["sliced"]["SUM_send_vals"]
+        _same(got, out["hier"]["flat"]["SUM_send_vals"], f"rank {me}")
+        _same(got, out["hier"]["sliced"]["SUM"], f"rank {me}")
+        np.testing.assert_array_equal(got.numpy(), want[me])
 
 
 @pytest.mark.parametrize("plan", ["world", "neighbor"])

@@ -1630,8 +1630,43 @@ def test_owner_kernels_equal_plain(dev, case):
     fill = ex.neutral(op, f.dtype)
     _same_bits(ex.owner_gather(f, sid, fill), ex.owner_gather_plain(f, sid, fill), nan)
     _same_bits(ex.owner_fan_in(f, rv, rid, op), ex.owner_fan_in_plain(f, rv, rid, op), nan)
+    before = f.clone()
     _same_bits(ex.owner_fan_out(f, back, sid), ex.owner_fan_out_plain(f, back, sid), nan)
-    assert kernels.LAUNCHES["owner_reduce"] == n0 + 3
+    _same_bits(f, before, nan)
+    mine = f.clone()
+    assert ex.owner_fan_out_(mine, back, sid) is mine
+    _same_bits(mine, ex.owner_fan_out_plain(f, back, sid), nan)
+    assert kernels.LAUNCHES["owner_reduce"] == n0 + 4
+
+
+@pytest.mark.parametrize("V", [40, 3000])
+def test_deposit_send_rows_equal_the_gather(dev, V):
+    """D's pass 2 with the owner SUM's send rows: the field's bits as
+    without them, the rows equal to O's gather of that field, rows naming
+    no vertex untouched; one D launch, no O launch."""
+    from pumipic_torch.parallel import reduce as red
+
+    R, P = 3, 8
+    rng = np.random.default_rng(V)
+    flat, ring_np = _mapped_inputs(V, R, P, rng)
+    gmap = sc.GyroMap.from_flat(flat, V, R, P, dev)
+    ring = torch.as_tensor(ring_np, device=dev)
+    send_ids = np.full((4, V // 3 + 1), -1, np.int32)
+    pick = rng.permutation(V)[:V // 2]
+    send_ids.reshape(-1)[rng.permutation(send_ids.size)[:len(pick)]] = pick
+    sid = _dev_tensor(send_ids, dev)
+    row_of, buf = red.sum_send_rows(sid, V)
+    buf.fill_(7.0)
+    n0 = (kernels.LAUNCHES["deposit"], kernels.LAUNCHES["owner_reduce"])
+    got = sc.scatter_to_mapped_verts(ring, gmap, V, R, P, (row_of, buf))
+    assert (kernels.LAUNCHES["deposit"], kernels.LAUNCHES["owner_reduce"]) == (n0[0] + 1, n0[1])
+    alone = sc.scatter_to_mapped_verts(ring, gmap, V, R, P)
+    _same_bits(got, alone)
+    _same_bits(buf, torch.where(sid >= 0, ex.owner_gather(alone, sid, 0.0), 7.0))
+    want = sc.mapped_plain(ring, gmap, V, R, P)
+    plain_buf = torch.full_like(buf, 7.0)
+    sc.write_send_rows(want, (row_of, plain_buf))
+    _same_bits((got, buf), (want, plain_buf))
 
 
 # ---------------------------------------------------------------------------

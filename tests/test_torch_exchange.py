@@ -458,7 +458,8 @@ def test_pack_send_design_equals_plain_and_jax(case, reverse):
     and the JAX ``_fill_send`` bit for bit, a bool field and NaN, -0.0 and
     subnormal lanes among the payloads; "wide rows" adds a (5, 8) f32
     field, 40 lanes more than a warp; "clustered runs" puts the leavers in
-    runs of slots, as the step does, across block edges."""
+    runs of slots across block edges; "step layout" is the picparts step's
+    (a slot prefix in element order, leavers in runs by element)."""
     base = case if case in tr.SEND_CASES else "random"
     st, key, quota, rows, cap, ne, eg = tr.send_case(base)
     if case == "wide rows":
@@ -654,30 +655,44 @@ def _fields(case, V, rng):
     return f
 
 
-def _port_reduce(send, recv, f, op):
-    """The owner reduction of every rank in one process: O's gather, the
-    all_to_all as a transpose, O's fan-in, the transpose back, O's fan-out."""
+def _port_reduce(send, recv, f, op, rows_from_d=False):
+    """The owner reduction of every rank in one process: O's gather (or,
+    with ``rows_from_d``, the send rows kernel D's epilogue writes beside
+    the field, as the picparts step's SUM takes them), the all_to_all as a
+    transpose, O's fan-in, the transpose back, O's fan-out (in place on the
+    fan-in's output, as ``reduce_comm_array``)."""
+    from pumipic_torch.ops import scatter as tsc
+    from pumipic_torch.parallel import reduce as tred
+
     f = [T(x) for x in f]
     if op != "bcast":
-        sv = [tex.owner_gather(f[r], T(send[r]), tex.neutral(op, f[r].dtype))
-              for r in range(R_O)]
+        if rows_from_d:
+            sv = []
+            for r in range(R_O):
+                rows = tred.sum_send_rows(T(send[r]), f[r].shape[0])
+                tsc.write_send_rows(f[r], rows)
+                sv.append(rows[1])
+        else:
+            sv = [tex.owner_gather(f[r], T(send[r]), tex.neutral(op, f[r].dtype))
+                  for r in range(R_O)]
         red = [tex.owner_fan_in(f[r], torch.stack([sv[q][r] for q in range(R_O)]),
                                 T(recv[r]), op) for r in range(R_O)]
         f, ov = [x[0] for x in red], [x[1] for x in red]
-    else:
-        ov = [tex.owner_gather(f[r], T(recv[r]), 0) for r in range(R_O)]
+        return [tex.owner_fan_out_(f[r], torch.stack([ov[q][r] for q in range(R_O)]),
+                                   T(send[r])) for r in range(R_O)]
+    ov = [tex.owner_gather(f[r], T(recv[r]), 0) for r in range(R_O)]
     return [tex.owner_fan_out(f[r], torch.stack([ov[q][r] for q in range(R_O)]),
                               T(send[r])) for r in range(R_O)]
 
 
 @pytest.mark.parametrize("case", ["sum f32", "sum f32 vec", "sum i32", "sum f32 nan",
                                   "max f32", "max f32 nan", "min f32", "max i32",
-                                  "min i32", "bcast f32", "bcast i32"])
+                                  "min i32", "bcast f32", "bcast i32", "sum f32 rows from D"])
 def test_owner_reduction_matches_jax(owner_tables, case):
     send, recv, V = owner_tables
     op = case.split()[0]
     f = _fields(case, V, np.random.default_rng(5))
-    got = _port_reduce(send, recv, f, op)
+    got = _port_reduce(send, recv, f, op, rows_from_d=case.endswith("from D"))
     run = jax.jit(jax.shard_map(
         lambda a, b, c: jred.reduce_comm_array(a[0], b[0], c[0], jred.Op[op.upper()])[None],
         mesh=make_device_mesh(R_O), in_specs=(P(RANK_AXIS),) * 3, out_specs=P(RANK_AXIS),
@@ -688,6 +703,23 @@ def test_owner_reduction_matches_jax(owner_tables, case):
     # every copy of a vertex holds its owner's value
     changed = sum(int((got[r].numpy() != f[r]).sum()) for r in range(R_O))
     assert changed > 0
+
+
+@pytest.mark.parametrize("case", tr.OWNER_CASES)
+def test_owner_fan_out_writes_in_place_and_its_copy_does_not(case):
+    """``owner_fan_out_`` writes the returned rows into the field it is
+    given and returns it; ``owner_fan_out`` leaves its input as it was;
+    both equal the plain version bit for bit."""
+    f, rid, rv, sid, back, op = (T(a) if isinstance(a, np.ndarray) else a
+                                 for a in tr.owner_case(case))
+    want = tex.owner_fan_out_plain(f, back, sid)
+    before = f.clone()
+    _bits_equal(tex.owner_fan_out(f, back, sid), want.numpy(), case,
+                nan_positions="nan" in case)
+    _bits_equal(f, before.numpy(), case + ": input untouched", nan_positions="nan" in case)
+    mine = f.clone()
+    assert tex.owner_fan_out_(mine, back, sid) is mine
+    _bits_equal(mine, want.numpy(), case + ": in place", nan_positions="nan" in case)
 
 
 def test_owner_maps_refuse_inconsistent_tables():

@@ -557,6 +557,25 @@ def test_step_2d_matches_jax(ranks, jsteps, arm):
 
 
 @pytest.mark.parametrize("arm", list(STEP_ARMS))
+def test_step_2d_last_deposit_is_the_field_before_the_reduction(ranks, arm):
+    """``step.last_deposit`` is the deposit as it was before the owner SUM
+    (whose fan-out writes in place into its own output, never into the
+    deposit): a tensor apart from the reduced field, and the ranks'
+    deposits add up to the reduced field's owned vertices, exactly (every
+    value a multiple of 1/P)."""
+    i = list(STEP_ARMS).index(arm)
+    for t in range(3):
+        deposited = owned = 0.0
+        for r, out in enumerate(ranks):
+            dep, apart = out["step"][i]["deposits"][t]
+            fwd = out["step"][i]["hist"][t][1]
+            assert apart, (r, t)
+            deposited += float(dep.double().sum())
+            owned += float(fwd[out["step"][i]["vert_owner"][:len(fwd)] == r].double().sum())
+        assert deposited == owned > 0, (t, deposited, owned)
+
+
+@pytest.mark.parametrize("arm", list(STEP_ARMS))
 def test_step_2d_gives_up_the_input_states_member_fields(ranks, arm):
     """The 2D step's migration writes the arrivals into the input state's
     member field tensors on the CPU as kernel X3 does on the card: after a

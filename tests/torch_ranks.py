@@ -151,36 +151,53 @@ def exchange_state(n: int, rng):
             "active": rng.random(n) < 0.8}
 
 
-SEND_CASES = ("random", "no leaver", "every slot leaving", "over cap", "ragged tile")
+SEND_CASES = ("random", "no leaver", "every slot leaving", "over cap", "ragged tile",
+              "step layout")
 
 
 def send_case(case: str, seed: int = 0):
     """Inputs of pack_send: (state, key (bucket, or D to stay), quota (D,),
     rows_of_bucket (host ints: the admitted counts), cap, new_elem,
     elem_gid).  Each quota is at most min(count, cap), as the negotiation
-    grants; the ranks come from rank_in_key."""
+    grants; the ranks come from rank_in_key.  "step layout" is the
+    picparts step's: the particles in a slot prefix in element order (as
+    ``make_picparts_setup`` seeds them) and the leavers whole runs, every
+    particle of an element owned elsewhere, bucketed by that owner, each
+    admitted (the quota its count)."""
     rng = np.random.default_rng(seed)
     n = 3 * 1024 + 17 if case == "ragged tile" else 4000
     D, cap = 3, 1000
+    E = 60
+    elem = None
     if case == "no leaver":
         key = np.full(n, D, np.int32)
     elif case == "every slot leaving":
         key = rng.integers(0, D, n).astype(np.int32)
         cap = n
+    elif case == "step layout":
+        elem = np.repeat(np.arange(E), rng.integers(20, 70, E))[:n].astype(np.int32)
+        owner = np.where(rng.random(E) < 0.3, rng.integers(0, D, E), D)
+        key = np.full(n, D, np.int32)
+        key[:len(elem)] = owner[elem]
     else:
         key = np.where(rng.random(n) < 0.3, rng.integers(0, D, n), D).astype(np.int32)
     if case == "over cap":
         cap = 200
     counts = np.bincount(key, minlength=D + 1)[:D]
-    if case == "every slot leaving":
+    if case in ("every slot leaving", "step layout"):
         quota = counts.copy()
     else:
         quota = np.minimum(rng.integers(0, counts + 1), cap)
-    E = 60
     new_elem = rng.integers(0, E, n).astype(np.int32)
     elem_gid = rng.permutation(10 * E)[:E].astype(np.int32)
-    return (exchange_state(n, rng), key, quota.astype(np.int32),
-            [int(q) for q in quota], cap, new_elem, elem_gid)
+    state = exchange_state(n, rng)
+    if elem is not None:
+        m = len(elem)
+        state["active"] = np.arange(n) < m
+        state["elem"] = np.full(n, -1, np.int32)
+        state["elem"][:m] = new_elem[:m] = elem
+    return (state, key, quota.astype(np.int32), [int(q) for q in quota], cap, new_elem,
+            elem_gid)
 
 
 PLACE_CASES = ("random", "beyond the free slots", "no arrival", "all unresolved",
@@ -288,12 +305,28 @@ def comm_rank() -> dict:
         send, [1 if p == nxt else 0 for p in range(R)],
         [1 if p == prv else 0 for p in range(R)])
     s, r, f = synthetic_tables(R)
+    sid, rid = torch.as_tensor(s[me]), torch.as_tensor(r[me])
+    out["untouched"] = {}
     for op in REDUCE_OPS:
-        out[op] = red.reduce_comm_array(torch.as_tensor(s[me]), torch.as_tensor(r[me]),
-                                        torch.as_tensor(f[me]), red.Op[op])
+        fld = torch.as_tensor(f[me])
+        out[op] = red.reduce_comm_array(sid, rid, fld, red.Op[op])
+        out["untouched"][op] = torch.equal(fld, torch.as_tensor(f[me])) and out[op] is not fld
+    out["SUM_send_vals"] = reduce_with_send_rows(sid, rid, torch.as_tensor(f[me]), False)
     if R % 2 == 0 and R >= 4:
         out["hier"] = hier_cases(me, R)
     return out
+
+
+def reduce_with_send_rows(sid, rid, fld, hier: bool):
+    """The picparts step's SUM: the send rows written beside the field by
+    kernel D's epilogue (its plain version on the CPU), then
+    ``reduce_comm_array(..., send_vals=)``."""
+    from pumipic_torch.ops import scatter as sc
+    from pumipic_torch.parallel import reduce as red
+
+    rows = red.sum_send_rows(sid, fld.shape[0])
+    sc.write_send_rows(fld, rows)
+    return red.reduce_comm_array(sid, rid, fld, red.Op.SUM, hier=hier, send_vals=rows[1])
 
 
 def hier_rows(R: int):
@@ -351,6 +384,7 @@ def hier_cases(me: int, R: int) -> dict:
              "ragged": group.hier_ragged_all_to_all(send, send_rows, recv_rows)}
         for op in REDUCE_OPS:
             o[op] = red.reduce_comm_array(sid, rid, fld, red.Op[op], hier=hier)
+        o["SUM_send_vals"] = reduce_with_send_rows(sid, rid, fld, hier)
         for name, p in (("world", None), ("neighbor", plan)):
             res = mig.migrate({k: torch.tensor(v[me]) for k, v in st.items()},
                               torch.as_tensor(ne[me]), torch.as_tensor(de[me]), lpp.elem_gid,
@@ -462,18 +496,20 @@ def picparts_rank(coords, tris, cls, fields, mig_cases, struct_layouts,
             cfg = px.XGCmConfig(**kw["cfg"], gyro=px.GyroConfig(**kw["gyro"]))
             lp, s, _, step = px.make_picparts_setup(coords, tris, cls, cfg, device="cpu",
                                                     **kw["setup"])
-            hist, given_up = [], []
+            hist, given_up, deposits = [], [], []
             mon = CapacityMonitor()
             for _ in range(3):
                 prev = s
                 s, fwd, stats = step(s)
                 mon.observe(stats)
                 hist.append((stats, fwd))
+                deposits.append((step.last_deposit.clone(), step.last_deposit is not fwd))
                 # the migrated member fields the step passed on: the input
                 # state's own tensors, holding the new state's values
                 given_up.append({k: (prev[k] is s[k], torch.equal(prev[k], s[k]))
                                  for k in ("b", "pid", "rg") if k in prev})
             out[key2].append(dict(hist=hist, state=s, vert_gid=lp.vert_gid,
+                                  vert_owner=lp.vert_owner, deposits=deposits,
                                   recommend=mon.recommend(s["active"].shape[0]),
                                   given_up=given_up))
         for kw in cfg3s:
