@@ -241,6 +241,8 @@ KERNELS = {  # name -> (route, source, replaces)
                      "pumipic_tpu/particles/structure.py:436"),
     "key_sort": ("cuda", "pumipic_torch/kernels/csrc/rebuild.cu",
                  "pumipic_tpu/particles/structure.py:557"),
+    "check_parents": ("cuda", "pumipic_torch/kernels/csrc/parents.cu",
+                      "pumipic_tpu/ops/search.py:1527"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -303,7 +305,15 @@ TRACE2D_ITERS = 1000
 TRACE2D_FAR_ITERS = 200
 WALL_SHARE = 0.05
 PATH_CALLS = 5
-PATH_KERNELS = ("row_gather", "locate", "trace2d", "vdeposit", "histogram")
+# (G: the harness's barycentric_2d; L: the parent repair's walk, in place)
+PATH_KERNELS = ("check_parents", "row_gather", "locate", "trace2d", "vdeposit",
+                "histogram")
+# the record_function ranges of one path call (trace2d_path_call); the
+# profile also ranges check_initial_parents inside the first entry point
+PATH_RANGES = ("harness:walker_targets", "port:trace_particle_through_mesh",
+               "harness:d2_noise", "port:search_mesh_2d_accel", "harness:barycentric_2d",
+               "port:scatter_to_verts_bcc", "port:particles_per_element, weighted",
+               "port:particles_per_element")
 
 
 def log(msg: str) -> None:
@@ -683,7 +693,9 @@ def check_cartesian(results: dict, dev, mesh):
     time_pair("locate", "plain walk", lambda: se.walk_locate(*gargs),
               lambda: se.walk_locate_plain(*gargs), results, reps=5,
               plain_reps=2)
-    record_bound("locate", "plain walk", results, nbytes(*gargs[:5], *got[:2]))
+    # the ring points, the outputs and the rows the walk reads
+    record_bound("locate", "plain walk", results,
+                 nbytes(*gargs[1:5], *got[:2]) + walk_rows("plain walk", gargs, results))
 
     # H: histogram of 10M keys into E bins, in the main path's order (the
     # particles' own, seeded element by element) and in a random order
@@ -732,6 +744,145 @@ def check_cartesian(results: dict, dev, mesh):
                    lambda: torch.mv(m, cf), results)
     del m, cf
     return s, model, elem, active, torch.stack([tx, ty], 1)
+
+
+def plain_walk_rows(walk_geom, dest_x, dest_y, start, walkers,
+                    max_iters: int):
+    """Each slot's steps in kernel L's plain walk, the walk_geom rows it
+    reads (0 where no walker), and the number of distinct rows the walk
+    reads, counted on the plain version's batch walk."""
+    from pumipic_torch.ops import search as se
+
+    steps = torch.zeros(walkers.shape[0], dtype=torch.int64, device=walkers.device)
+    read = torch.zeros(walk_geom.shape[0], dtype=torch.bool, device=walkers.device)
+    se._walk_batch(walk_geom, dest_x, dest_y, start, walkers, max_iters,
+                   steps_of=steps, rows_read=read)
+    return steps, int(read.sum())
+
+
+def walk_rows(what: str, args, results: dict) -> int:
+    """Kernel L's rows in a plain-walk case (its walkers, the rows they
+    read and the distinct rows among them, in the case's record); returns
+    the distinct rows' bytes, the table's part of the case's bound."""
+    steps, distinct = plain_walk_rows(*args)
+    rows, w = int(steps.sum()), int(args[4].sum())
+    log(f"[c] locate {what}: {w} walkers, {rows} rows ({rows / max(w, 1):.2f} a walker), "
+        f"{distinct} distinct")
+    case_of("locate", what, results).update(walkers=w, rows=rows, distinct_rows=distinct)
+    return distinct * args[0].shape[1] * args[0].element_size()
+
+
+def parent_claims(mesh, x, elem, gen):
+    """Phase c's wrong parents: 1% of the claims random elements, the first
+    100 at E + 3 (out of range), and a copy of the origins whose next 100
+    are NaN."""
+    n = elem.shape[0]
+    claim = elem.clone()
+    bad = torch.rand(n, generator=gen, device=elem.device) < 0.01
+    claim[bad] = torch.randint(0, mesh.nelems, (int(bad.sum()),), generator=gen,
+                               device=elem.device, dtype=torch.int32)
+    claim[:100] = mesh.nelems + 3
+    xb = x.clone()
+    xb[100:200] = float("nan")
+    return claim, xb
+
+
+def check_parents_case(results: dict, mesh, x, claim, active, what: str) -> None:
+    """Kernel J (with L's or L3's repair walk) against its plain version in
+    both modes; J alone ("delete": no other launch) timed with its bound."""
+    from pumipic_torch.ops import search as se
+
+    n = claim.shape[0]
+    for mode in ("delete", "repair"):
+        got = se.check_initial_parents(mesh, x, claim, active, mode)
+        compare("check_parents", f"{mode}, {what}", got,
+                se.check_parents_plain(mesh, x, claim, active, mode), results)
+        log(f"[c] check_parents {mode}, {what}: {int(got[1])} bad, {int(got[2])} repaired")
+    time_pair("check_parents", what, lambda: se.check_initial_parents(mesh, x, claim, active,
+                                                                       "delete"),
+              lambda: se.check_parents_plain(mesh, x, claim, active, "delete"), results,
+              plain_reps=3)
+    act = int(active.sum())
+    dim = mesh.dim
+    # claim, active and elem per slot; the origin and the row's affine part
+    # where active; ~12 f32 operations a dimension and active particle
+    record_bound("check_parents", what, results,
+                 n * 9 + act * 4 * dim + mesh.nelems * 4 * dim * (dim + 1),
+                 12.0 * dim * act)
+
+
+def check_parents_and_walk(results: dict, dev, mesh, x, elem, active) -> None:
+    """Kernel J at the 2D path's full width (the 120k mesh, phase c's 10M
+    located particles): 0% bad (the path's steady state) and 1% bad with
+    ids out of range and NaN origins, against its plain version; the repair
+    walk alone over J's bad parents (kernel L's plain walk in place, case
+    (a)) at both shares."""
+    from pumipic_torch.ops import search as se
+
+    gen = torch.Generator(dev).manual_seed(19)
+    claim, xb = parent_claims(mesh, x, elem, gen)
+    check_parents_case(results, mesh, x, elem, active, f"2D, 0% bad ({x.shape[0]} particles)")
+    check_parents_case(results, mesh, xb, claim, active,
+                       f"2D, 1% bad, ids out of range, NaN origins ({x.shape[0]} particles)")
+    record_launches("check_parents", f"2D, 0% bad ({x.shape[0]} particles)",
+                    lambda: se.check_initial_parents(mesh, x, elem, active), results)
+    for share, c, xx in (("0%", elem, x), ("1%", claim, xb)):
+        _, bad, _ = se.check_parents(mesh, xx, c, active, True)
+        what = f"repair walk in place, {share} bad ({x.shape[0]} slots)"
+        wargs = (mesh.walk_geom, *xx.unbind(1), c, bad, 32)
+        base = torch.where(bad, -1, c)
+        e_k, s_k = base.clone(), torch.zeros(4, dtype=torch.int32, device=dev)
+        e_p, s_p = base.clone(), torch.zeros(4, dtype=torch.int32, device=dev)
+        se.walk_locate_into(*wargs, e_k, s_k)
+        se.walk_locate_into_plain(*wargs, e_p, s_p)
+        compare("locate", what, (e_k, s_k), (e_p, s_p), results)
+        time_pair("locate", what, lambda: se.walk_locate_into(*wargs, e_k, s_k),
+                  lambda: se.walk_locate_into_plain(*wargs, e_p, s_p), results, plain_reps=2)
+        # the mask; a walker's destination, start and result; the rows it reads
+        record_bound("locate", what, results,
+                     nbytes(bad) + int(bad.sum()) * 16 + walk_rows(what, wargs, results))
+    del claim, xb
+
+
+def check_parents_3d(results: dict, dev, mesh, seeded) -> None:
+    """Kernel J in 3D (its L3 repair walk) on the 16^3 box's seeded
+    particles, 1% bad with ids out of range and NaN origins."""
+    x, elem = seeded
+    active = elem >= 0
+    gen = torch.Generator(dev).manual_seed(23)
+    claim, xb = parent_claims(mesh, x, elem, gen)
+    check_parents_case(results, mesh, xb, claim, active,
+                       f"3D, 1% bad, ids out of range, NaN origins ({x.shape[0]} particles)")
+
+
+def check_lost_walk(results: dict, dev, lpp, mesh, step) -> None:
+    """Kernel L's plain walk at the picparts step's lost check (rank 0 of
+    the 4-rank 120k arm, after the push and the local walk of
+    :func:`x2_step_case`): the particles the local walk removed, walked on
+    the global mesh from their previous element, budget its element count,
+    for the counts alone as the step runs it (and once every slot
+    written)."""
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.ops import search as se
+    from pumipic_torch.parallel import picparts as ppm
+
+    state, _, new_elem, prev_elem, prev_active = step
+    coords, tris, cls, _ = mesh
+    gmesh = Mesh2D.from_numpy(ppm.mesh_arrays(2, coords, tris, cls), "cpu").to(dev)
+    removed = prev_active & (new_elem < 0)
+    g_start = lpp.elem_gid[torch.clamp(prev_elem, min=0).long()].to(torch.int32)
+    largs = (gmesh.walk_geom, state["x0"], state["x1"], g_start, removed, gmesh.nelems)
+    what = f"picparts lost check, counts only ({removed.shape[0]} slots)"
+    got = se.walk_locate_count(*largs)
+    want = se.walk_locate_plain(*largs)
+    compare("locate", what, got, ((want[0] >= 0).sum(dtype=torch.int32), want[3]), results)
+    compare("locate", f"picparts lost check, every slot ({removed.shape[0]} slots)",
+            se.walk_locate(*largs), want, results)
+    time_pair("locate", what, lambda: se.walk_locate_count(*largs),
+              lambda: se.walk_locate_plain(*largs), results, plain_reps=2)
+    # the mask; a walker's destination and start; the rows it reads
+    record_bound("locate", what, results, nbytes(removed) + int(removed.sum()) * 12
+                 + walk_rows(what, largs, results))
 
 
 def walker_targets(mesh, x, gen):
@@ -1000,25 +1151,38 @@ def trace2d_path_call(mesh, grid, x, elem, active, q, gen):
     (reflect, record, recovery) one more push of 3 element sizes on, then
     the charge deposit at the final positions (scatter_to_verts_bcc with
     the charge ``q``), the weighted and the unweighted
-    particles_per_element.  Returns (first walk, second walk, deposit,
-    weighted count, count)."""
+    particles_per_element.  Each part runs in a ``record_function`` range
+    (PATH_RANGES: ``harness:`` the harness's own inputs, ``port:`` the
+    port's entry points) that a profile attributes device time to.
+    Returns (first walk, second walk, deposit, weighted count, count)."""
+    from torch.profiler import record_function
+
     from pumipic_torch.ops import scatter as sc
     from pumipic_torch.ops import search as se
 
     h = float(mesh.elem_area.abs().sqrt().mean())
     reflect = se.reflect_on_exit_2d
-    d1 = walker_targets(mesh, x, gen)
-    r1 = se.trace_particle_through_mesh(mesh, x, d1, elem, active, TRACE2D_ITERS, reflect,
-                                        record_exit=True, validate_parents="repair")
-    d2 = r1.dest + 3.0 * h * torch.randn(x.shape, generator=gen, device=x.device)
-    r2 = se.search_mesh_2d_accel(mesh, grid, r1.dest, d2, r1.elem_ids, r1.active,
-                                 TRACE2D_ITERS, reflect, record_exit=True,
-                                 recover="project")
-    bcc = barycentric_2d(mesh, r2.elem_ids, r2.dest)
-    rho = sc.scatter_to_verts_bcc(r2.elem_ids, r2.active, bcc, mesh.elem2verts,
-                                  mesh.nverts, q)
-    w = sc.particles_per_element(r2.elem_ids, r2.active, mesh.nelems, q)
-    cnt = sc.particles_per_element(r2.elem_ids, r2.active, mesh.nelems)
+    with record_function("harness:walker_targets"):
+        d1 = walker_targets(mesh, x, gen)
+    with record_function("port:trace_particle_through_mesh"):
+        r1 = se.trace_particle_through_mesh(mesh, x, d1, elem, active, TRACE2D_ITERS,
+                                            reflect, record_exit=True,
+                                            validate_parents="repair")
+    with record_function("harness:d2_noise"):
+        d2 = r1.dest + 3.0 * h * torch.randn(x.shape, generator=gen, device=x.device)
+    with record_function("port:search_mesh_2d_accel"):
+        r2 = se.search_mesh_2d_accel(mesh, grid, r1.dest, d2, r1.elem_ids, r1.active,
+                                     TRACE2D_ITERS, reflect, record_exit=True,
+                                     recover="project")
+    with record_function("harness:barycentric_2d"):
+        bcc = barycentric_2d(mesh, r2.elem_ids, r2.dest)
+    with record_function("port:scatter_to_verts_bcc"):
+        rho = sc.scatter_to_verts_bcc(r2.elem_ids, r2.active, bcc, mesh.elem2verts,
+                                      mesh.nverts, q)
+    with record_function("port:particles_per_element, weighted"):
+        w = sc.particles_per_element(r2.elem_ids, r2.active, mesh.nelems, q)
+    with record_function("port:particles_per_element"):
+        cnt = sc.particles_per_element(r2.elem_ids, r2.active, mesh.nelems)
     return r1, r2, rho, w, cnt
 
 
@@ -2064,7 +2228,7 @@ def exchange_picpart(dev, mesh=None):
     return pp.local_view(0, dev)
 
 
-def x2_step_case(dev, lpp, mesh=None):
+def x2_step_case(dev, lpp, mesh=None, prev: bool = False):
     """Kernel X2's inputs at the picparts step's own leaver layout, rank 0
     of the 4-rank 120k arm at 10M particles, from ``X_SEED`` alone: rank
     0's particles seeded as ``make_picparts_setup`` seeds them (its
@@ -2073,7 +2237,8 @@ def x2_step_case(dev, lpp, mesh=None):
     and located on the picpart (kernel L's walk from the previous
     element); a particle whose new element lies outside the safe zone
     leaves for the element's owner (``set_unsafe_procs``), bucket owner -
-    1.  Returns (state after the push, bucket keys, new elements)."""
+    1.  Returns (state after the push, bucket keys, new elements), and with
+    ``prev`` the elements and active mask before the walk too."""
     import numpy as np
 
     from pumipic_torch.mesh.core import Mesh2D
@@ -2131,6 +2296,8 @@ def x2_step_case(dev, lpp, mesh=None):
     key = torch.where(active & (dest != 0), dest - 1, D).to(torch.int32)
     state = {"x0": tx, "x1": ty, "cphi": cphi, "sphi": sphi, "b": s["b"], "pid": s["pid"],
              "elem": new_elem, "active": active}
+    if prev:
+        return state, key, new_elem, s["elem"], s["active"]
     return state, key, new_elem
 
 
@@ -2301,7 +2468,8 @@ def check_rank_in_key(results: dict, dev, gen, D: int) -> None:
         "torch.bincount, in their cases")
 
 
-def check_pack_send(results: dict, dev, gen, lpp, D: int, cap: int, mesh=None) -> None:
+def check_pack_send(results: dict, dev, gen, lpp, D: int, cap: int, mesh=None,
+                    step=None) -> None:
     from pumipic_torch.kernels import _build
     from pumipic_torch.ops import exchange as ex
 
@@ -2309,7 +2477,8 @@ def check_pack_send(results: dict, dev, gen, lpp, D: int, cap: int, mesh=None) -
     lib = _build.lib()
     cases = []
     t0 = time.perf_counter()
-    step_state, step_key, step_elem = x2_step_case(dev, lpp, mesh)
+    step_state, step_key, step_elem = (x2_step_case(dev, lpp, mesh) if step is None
+                                       else step[:3])
     log(f"[c] pack_send: the step's layout built in {time.perf_counter() - t0:.2f} s")
     cases.append(("the picparts step's leaver layout (main)", step_state, step_key, cap,
                   step_elem))
@@ -2599,7 +2768,10 @@ def check_exchange(results: dict, dev) -> None:
     for name in ("rank_in_key", "pack_send", "place_arrivals", "owner_reduce"):
         results[name].setdefault("extra", {})
     check_rank_in_key(results, dev, gen, D)
-    check_pack_send(results, dev, gen, lpp, D, cap, mesh)
+    step = x2_step_case(dev, lpp, mesh, prev=True)
+    check_lost_walk(results, dev, lpp, mesh, step)
+    check_pack_send(results, dev, gen, lpp, D, cap, mesh, step)
+    del step
     check_place_arrivals(results, dev, gen, lpp, D, cap)
     check_owner_reduce(results, dev, gen, lpp)
     log(f"[c] exchange kernels checked in {time.perf_counter() - t0:.2f} s")
@@ -2621,12 +2793,15 @@ def phase_c(results: dict, dev, smi: str):
     torch.cuda.empty_cache()
     check_trace2d(results, dev, mesh, grid, x, elem, active)
     torch.cuda.empty_cache()
+    check_parents_and_walk(results, dev, mesh, x, elem, active)
+    torch.cuda.empty_cache()
     run_trace2d_path(results, dev, mesh, grid, x, elem, active, smi)
     del x, elem, active
     torch.cuda.empty_cache()
     band_grid, band_s = check_band(results, dev, mesh)
     check_annulus(results, dev)
     mesh3d, grid3d, seeded = check_pps3d(results, dev)
+    check_parents_3d(results, dev, mesh3d, seeded)
     torch.cuda.empty_cache()
     gitr_mesh = check_gitr(results, dev)
     torch.cuda.empty_cache()

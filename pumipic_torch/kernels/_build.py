@@ -66,6 +66,14 @@ SIGNATURES = {
         _I, _I,                              # max_iters it0
         _P, _P, _P,                          # elem_out active_out stats
         _L, _P],                             # n stream
+    "pp_walk_plain": [
+        _P, _L, _P, _L,                      # dest_x stride_x dest_y stride_y
+        _P, _P, _P, _I, _I,                  # elem_start walkers walk_geom n_elems max_iters
+        _P, _P, _I, _L, _P],                 # elem_out stats zero_stats n stream
+    "pp_check_parents": [
+        _I, _P, _P, _P, _P,                  # dim elem_init active origin[3] strides[3]
+        _P, _I, _I,                          # walk_geom row_w n_elems
+        _P, _P, _P, _L, _P],                 # elem_out bad_out stats n stream
     "pp_kuhn_push_locate": [
         _P, _P, _L, _I, _I,                  # x active n push wrap
         _P, _P, _I, _I, _I, _P,              # s|lo|ext origin|inv_h nx ny nz tol

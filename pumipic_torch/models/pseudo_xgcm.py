@@ -862,9 +862,9 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
                 # destination lies in the domain but off this picpart
                 removed = active & (elem_ids < 0)
                 g_start = lpp.elem_gid[torch.clamp(elem, min=0).long()]
-                g_ids, _, _, g_all = search_ops.walk_locate(
+                found, g_all = search_ops.walk_locate_count(
                     g_walk, tx, ty, g_start, removed, g_walk_iters)
-                lost = (g_ids >= 0).sum(dtype=torch.int32) + (~g_all).to(torch.int32)
+                lost = found + (~g_all).to(torch.int32)
         with group.split("glue"):
             route_v = None
             if analytic is not None and br is not None:

@@ -16,6 +16,12 @@ its loop limit.
 :func:`walk_locate` is the wrapper of kernel L (``kernels/csrc/locate.cu``):
 one thread per particle, with the whole walk inside the kernel.  Its plain
 version :func:`walk_locate_plain` steps the unfinished walkers as a batch.
+Where few slots walk and nothing is written for the rest, L's sparse plain
+walk runs instead: :func:`walk_locate_into` (in place, the parent repair)
+and :func:`walk_locate_count` (the counts alone, the picparts lost check).
+:func:`check_initial_parents` is kernel J (``kernels/csrc/parents.cu``,
+:func:`check_parents`) and the repair walk; :func:`check_parents_plain` is
+its plain version.
 The peel takes a cartesian :class:`LocatorGrid2D`, whose cell id kernel L
 computes itself, or a flux-band :class:`BandGrid2D`, whose cell ids kernel
 B computes first and hands to kernel L ("given cells").  Every other 2D
@@ -50,7 +56,7 @@ from pumipic_torch.mesh.core import Mesh2D, Mesh3D
 from pumipic_torch.mesh.locator import BandGrid2D, LocatorGrid2D, LocatorGrid3D
 from pumipic_torch.ops.geometry import closest_point_on_triangle, sqrt_rn
 from pumipic_torch.ops.locate import band_cell_of, band_cell_of_plain
-from pumipic_torch.ops.rows import row_gather
+from pumipic_torch.ops.rows import row_gather_plain
 
 INVALID = -1
 # Containment tolerance, relative to the accumulated |terms| of the affine
@@ -287,10 +293,15 @@ def _peel(grid: Grid, dx, dy):
     return elem, inside
 
 
-def walk_locate_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start,
-                      active, max_iters: int, grid: Optional[Grid] = None):
-    """Plain PyTorch version of kernel L; returns (elem, active, iters,
-    all_found) with the kernel's semantics (see :func:`walk_locate`)."""
+def _walk_batch(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
+                max_iters: int, grid: Optional[Grid] = None,
+                steps_of: Optional[torch.Tensor] = None,
+                rows_read: Optional[torch.Tensor] = None):
+    """The batch walk of :func:`walk_locate_plain`: (elem, iterations,
+    walkers deleted at the limit), the last two as Python ints.  Where
+    given, ``steps_of`` ((N,) integers) gains each walker's steps, the
+    ``walk_geom`` rows it reads, and ``rows_read`` ((E,) bool) is set at
+    each row read."""
     n_elems = walk_geom.shape[0]
     start = torch.clamp(elem_start.to(torch.int32), 0, n_elems - 1)
     elem = torch.where(active, start, INVALID)
@@ -310,6 +321,10 @@ def walk_locate_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start,
             break
         steps += 1
         e, f = elem[idx], fbg[idx]
+        if steps_of is not None:
+            steps_of[idx] += 1
+        if rows_read is not None:
+            rows_read[e.long()] = True
         g = walk_geom[e.long()]                             # (w, 12)
         dx, dy = dest_x[idx], dest_y[idx]
         l1, l2, w0, inside = bary_inside(*g[:, 0:6].unbind(1), dx, dy)
@@ -331,15 +346,76 @@ def walk_locate_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start,
     unfinished = idx.numel()
     if unfinished:
         elem[idx] = INVALID
+    return elem, it0 + steps, unfinished
+
+
+def walk_locate_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start,
+                      active, max_iters: int, grid: Optional[Grid] = None):
+    """Plain PyTorch version of kernel L; returns (elem, active, iters,
+    all_found) with the kernel's semantics (see :func:`walk_locate`)."""
+    elem, iters, unfinished = _walk_batch(walk_geom, dest_x, dest_y, elem_start,
+                                          active, max_iters, grid)
     dev = elem.device
-    return (elem, elem >= 0,
-            torch.tensor(it0 + steps, dtype=torch.int32, device=dev),
+    return (elem, elem >= 0, torch.tensor(iters, dtype=torch.int32, device=dev),
             torch.tensor(unfinished == 0, device=dev))
+
+
+def walk_locate_into_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start,
+                           walkers, max_iters: int, elem: torch.Tensor,
+                           stats: torch.Tensor) -> None:
+    """Plain PyTorch version of :func:`walk_locate_into`."""
+    e, iters, unfinished = _walk_batch(walk_geom, dest_x, dest_y, elem_start,
+                                       walkers, max_iters)
+    elem.copy_(torch.where(walkers, e, elem))
+    stats[0:1].clamp_(min=iters)
+    stats[1] += unfinished
+    stats[2] += (walkers & (e >= 0)).sum(dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # kernel L wrapper
 # ---------------------------------------------------------------------------
+
+def _column(t: torch.Tensor, n: int, dev, name: str):
+    """(pointer, stride) of an (n,) f32 column of any stride on ``dev``."""
+    if t.dtype != torch.float32 or t.shape != (n,) or t.device != dev:
+        raise ValueError(f"{name}: ({n},) f32 destination columns on {dev} expected")
+    return t.data_ptr(), t.stride(0)
+
+
+def _walk_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, walkers,
+                max_iters: int, elem=None, stats=None) -> torch.Tensor:
+    """Launch kernel L's sparse plain walk (``pp_walk_plain``): the
+    walkers' slots of ``elem`` in place, or with no ``elem`` the counts
+    alone (a given ``stats`` holds kernel J's zeroed counts, else the launch
+    zeroes its own).  Returns the stats, [max steps, walkers deleted at the
+    limit, walkers found]."""
+    n = walkers.shape[0]
+    dev = walkers.device
+    if (walk_geom.dtype != torch.float32 or walk_geom.dim() != 2
+            or walk_geom.shape[1] != 12 or elem_start.dtype != torch.int32
+            or walkers.dtype != torch.bool or elem_start.shape != (n,)):
+        raise ValueError("walk_locate: f32 (E, 12) walk_geom, i32 elem_start "
+                         "and bool walkers expected")
+    if walk_geom.data_ptr() % 16:
+        raise ValueError("walk_locate: walk_geom must be 16-byte aligned")
+    if n >= 1 << 31:
+        raise ValueError("walk_locate: the plain walk takes fewer than 2^31 particles")
+    px, sx = _column(dest_x, n, dev, "walk_locate")
+    py, sy = _column(dest_y, n, dev, "walk_locate")
+    zero = stats is None
+    if zero:
+        stats = torch.empty(3, dtype=torch.int32, device=dev)
+    P = ctypes.c_void_p
+    err = _build.lib().pp_walk_plain(
+        P(px), sx, P(py), sy, P(elem_start.data_ptr()), P(walkers.data_ptr()),
+        P(walk_geom.data_ptr()), walk_geom.shape[0], max_iters,
+        P(None if elem is None else elem.data_ptr()), P(stats.data_ptr()), int(zero), n,
+        P(kernels.stream_handle()))
+    _build.check(err, "locate")
+    kernels.LAUNCHES["locate"] += 1
+    return stats
+
 
 def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
                 max_iters: int, grid: Optional[Grid] = None):
@@ -356,7 +432,10 @@ def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
     no walker is left, and ``all_found`` says no walker was deleted at the
     limit.  Inactive particles get INVALID.
 
-    Kernel L on CUDA tensors, :func:`walk_locate_plain` on CPU tensors."""
+    Kernel L on CUDA tensors (its first version, one thread a particle, for
+    the plain walk too: its lockstep tiles suit a dense walk, see
+    :func:`walk_locate_into` for the sparse ones), :func:`walk_locate_plain`
+    on CPU tensors."""
     tensors = [walk_geom, dest_x, dest_y, elem_start, active]
     if grid is not None:
         if grid.cell_rows is None:
@@ -401,6 +480,42 @@ def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
     return elem, act, stats[0] + it0, stats[1] == 0
 
 
+def walk_locate_count(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, walkers,
+                      max_iters: int):
+    """The plain walk of the ``walkers`` (bool mask) for its counts alone:
+    (found, all_found), the walkers that end in an element (i32 0-d) and
+    whether none was deleted at the limit, as :func:`walk_locate`'s
+    ``(elem >= 0).sum()`` and ``all_found`` give them.  Kernel L's sparse
+    plain walk with no output but its counts on CUDA tensors (the
+    destination columns of any stride), :func:`walk_locate_plain` on CPU
+    tensors."""
+    if not kernels.use_kernel("locate", walk_geom, elem_start, walkers):
+        elem, _, _, all_found = walk_locate_plain(walk_geom, dest_x, dest_y, elem_start,
+                                                  walkers, max_iters)
+        return (elem >= 0).sum(dtype=torch.int32), all_found
+    stats = _walk_plain(walk_geom, dest_x, dest_y, elem_start, walkers, max_iters)
+    return stats[2], stats[1] == 0
+
+
+def walk_locate_into(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, walkers,
+                     max_iters: int, elem: torch.Tensor, stats: torch.Tensor) -> None:
+    """The plain walk of the ``walkers`` (bool mask) in place: each walker's
+    element (INVALID where it leaves the mesh or meets the limit) into
+    ``elem`` (i32; other slots are not touched), and into ``stats`` (i32,
+    zeroed by the caller): [0] the most steps a walker took, [1] the
+    walkers deleted at the limit, [2] the walkers found.  Kernel L's sparse
+    plain walk on CUDA tensors (the destination columns of any stride; a
+    slot that does not walk costs its mask byte), its plain version
+    :func:`walk_locate_into_plain` on CPU tensors."""
+    if not kernels.use_kernel("locate", walk_geom, elem_start, walkers, elem, stats):
+        return walk_locate_into_plain(walk_geom, dest_x, dest_y, elem_start, walkers,
+                                      max_iters, elem, stats)
+    if elem.dtype != torch.int32 or elem.shape != walkers.shape or stats.dtype != torch.int32:
+        raise ValueError("walk_locate_into: i32 elem and stats expected")
+    _walk_plain(walk_geom, dest_x, dest_y, elem_start, walkers, max_iters, elem,
+                stats=stats)
+
+
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
@@ -409,6 +524,14 @@ def _components(x):
     if isinstance(x, tuple):
         return x
     return tuple(x[:, i].contiguous() for i in range(x.shape[1]))
+
+
+def _columns(x):
+    """The per-component (N,) tensors of an (N, dim) array, as views (no
+    copy), or the tuple as given."""
+    if isinstance(x, tuple):
+        return x
+    return x.unbind(1)
 
 
 def _rows_of(x) -> torch.Tensor:
@@ -1322,23 +1445,16 @@ def search_mesh_3d_accel(mesh: Mesh3D, grid: LocatorGrid3D, x_orig, x_tgt,
                     method, boundary_handler, record_exit, recover, grid=grid)
 
 
-def check_initial_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.Tensor,
-                          mode: str = "repair", max_iters: int = 32, locator=None):
-    """Validate, and with ``mode="repair"`` repair, the claimed parents on
-    walk entry (``check_initial_parents``, adjacency.tpp:72-151): a particle
-    whose origin its parent does not contain (BCC test with the walk's
-    tolerance), or whose parent id is out of range, is bad.  "delete" gives
-    bad particles INVALID; "repair" walks each from its clamped parent (or
-    ``locator``'s guess of its origin) to its origin and deletes only those
-    that walk off the mesh.  Returns (elem i32, num_bad, num_repaired), with
-    INVALID where inactive or deleted."""
-    if mode not in ("delete", "repair"):
-        raise ValueError(f"unknown mode {mode!r}; expected 'delete' or 'repair'")
+def check_parents_plain(mesh, x_orig, elem_init: torch.Tensor, active: torch.Tensor,
+                        mode: str = "repair", max_iters: int = 32, locator=None):
+    """Plain PyTorch version of :func:`check_initial_parents` (kernel J and
+    the repair walk): the containment test on gathered ``walk_geom`` rows,
+    then the repair as the plain walk of the bad particles."""
     orig = _components(x_orig)
     e_raw = elem_init.to(torch.int32)
     in_table = (e_raw >= 0) & (e_raw < mesh.nelems)
     e_safe = torch.clamp(e_raw, 0, mesh.nelems - 1)
-    g = row_gather(mesh.walk_geom, e_safe)          # kernel G on the card
+    g = row_gather_plain(mesh.walk_geom, e_safe)
     if mesh.dim == 2:
         inside = bary_inside(*g[:, 0:6].unbind(1), *orig)[3]
     else:
@@ -1351,12 +1467,90 @@ def check_initial_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.T
     start = e_safe
     if locator is not None:
         start = locator.cell_elem[locator.cell_of(*orig).long()]
-    x = _rows_of(x_orig)
-    search = search_mesh_2d if mesh.dim == 2 else search_mesh_3d
-    res = search(mesh, x, x, start.to(torch.int32), bad, max_iters)
-    repaired = bad & (res.elem_ids >= 0)
-    elem = torch.where(bad, res.elem_ids, torch.where(active, e_safe, INVALID))
+    if mesh.dim == 2:
+        found = walk_locate_plain(mesh.walk_geom, *orig, start.to(torch.int32), bad,
+                                  max_iters)[0]
+    else:
+        found = walk_locate_3d_plain(mesh.walk_geom, _rows_of(x_orig),
+                                     start.to(torch.int32), bad, max_iters)[0]
+    repaired = bad & (found >= 0)
+    elem = torch.where(bad, found, torch.where(active, e_safe, INVALID))
     return elem, num_bad, repaired.sum().to(torch.int32)
+
+
+def check_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.Tensor,
+                  mask: bool):
+    """Kernel J (``kernels/csrc/parents.cu``) on CUDA tensors: the parent
+    check in one pass, reading the origin where it lies (an (N, dim)
+    tensor or a tuple of columns of any stride).  Returns (elem, bad,
+    stats): ``elem`` i32 (the clamped parent where active and good, else
+    INVALID), ``bad`` the bool mask of bad parents (None unless ``mask``),
+    ``stats`` four i32 counters, zeroed by the launch, with ``stats[3]``
+    the number of bad parents and ``stats[0:3]`` free for the repair walk
+    (:func:`walk_locate_into`)."""
+    geom = mesh.walk_geom
+    e = elem_init.to(torch.int32)
+    if not kernels.use_kernel("check_parents", geom, e, active):
+        raise ValueError("check_parents: the kernel takes CUDA tensors; "
+                         "check_parents_plain is its plain version")
+    n, dim = e.shape[0], mesh.dim
+    dev = e.device
+    cols = _columns(x_orig)
+    if len(cols) != dim or active.dtype != torch.bool or active.shape != (n,):
+        raise ValueError(f"check_parents: {dim} origin components and a bool "
+                         f"({n},) active mask expected")
+    ptrs = [_column(c, n, dev, "check_parents") for c in cols]
+    if geom.dtype != torch.float32 or geom.data_ptr() % 16:
+        raise ValueError("check_parents: f32 walk_geom, 16-byte aligned, expected")
+    elem = torch.empty(n, dtype=torch.int32, device=dev)
+    bad = torch.empty(n, dtype=torch.bool, device=dev) if mask else None
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    P = ctypes.c_void_p
+    origin = (P * 3)(*(p for p, _ in ptrs), *([None] * (3 - dim)))
+    strides = (ctypes.c_longlong * 3)(*(st for _, st in ptrs), *([0] * (3 - dim)))
+    err = _build.lib().pp_check_parents(
+        dim, P(e.data_ptr()), P(active.data_ptr()), origin, strides,
+        P(geom.data_ptr()), geom.shape[1], geom.shape[0], P(elem.data_ptr()),
+        P(None if bad is None else bad.data_ptr()), P(stats.data_ptr()), n,
+        P(kernels.stream_handle()))
+    _build.check(err, "check_parents")
+    kernels.LAUNCHES["check_parents"] += 1
+    return elem, bad, stats
+
+
+def check_initial_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.Tensor,
+                          mode: str = "repair", max_iters: int = 32, locator=None):
+    """Validate, and with ``mode="repair"`` repair, the claimed parents on
+    walk entry (``check_initial_parents``, adjacency.tpp:72-151): a particle
+    whose origin its parent does not contain (BCC test with the walk's
+    tolerance), or whose parent id is out of range, is bad.  "delete" gives
+    bad particles INVALID; "repair" walks each from its clamped parent (or
+    ``locator``'s guess of its origin) to its origin and deletes only those
+    that walk off the mesh.  Returns (elem i32, num_bad, num_repaired), with
+    INVALID where inactive or deleted; the counts stay on the device.
+
+    On CUDA tensors: kernel J, then in 2D kernel L's plain walk of J's bad
+    particles in place into J's output (no other launch without a
+    locator), in 3D kernel L3's plain walk over J's mask.  On CPU tensors:
+    :func:`check_parents_plain`."""
+    if mode not in ("delete", "repair"):
+        raise ValueError(f"unknown mode {mode!r}; expected 'delete' or 'repair'")
+    if not kernels.use_kernel("check_parents", mesh.walk_geom, elem_init, active):
+        return check_parents_plain(mesh, x_orig, elem_init, active, mode, max_iters,
+                                   locator)
+    elem, bad, stats = check_parents(mesh, x_orig, elem_init, active, mode == "repair")
+    if mode == "delete":
+        return elem, stats[3], stats[2]
+    start = elem_init.to(torch.int32)                  # the walks clamp it
+    if locator is not None:
+        start = locator.cell_elem[locator.cell_of(*_columns(x_orig)).long()]
+    if mesh.dim == 2:
+        walk_locate_into(mesh.walk_geom, *_columns(x_orig), start, bad, max_iters,
+                         elem, stats)
+        return elem, stats[3], stats[2]
+    found, act, _, _, _ = walk_locate_3d(mesh.walk_geom, _rows_of(x_orig),
+                                         start.to(torch.int32), bad, max_iters)
+    return torch.where(bad, found, elem), stats[3], act.sum(dtype=torch.int32)
 
 
 def trace_particle_through_mesh(mesh, x_orig, x_tgt, elem_init: torch.Tensor,

@@ -3,6 +3,7 @@ its walk reads, and for M2 the warp steps of its schedules.
 
     python3 scripts/count_walk_steps.py [num_ptcls] [device]
     python3 scripts/count_walk_steps.py 2d [num_ptcls] [device]
+    python3 scripts/count_walk_steps.py L [num_ptcls] [device]
 
 3D (M): counts, with M's plain version (``trace_3d_plain``, the same walk as
 the kernel's), the tet rows the walk reads per particle: on the GITR-style
@@ -28,9 +29,25 @@ plain start and through the peel, remove + record, far targets.  With
   M2_R steps each, one pool shared by the whole grid and taken in index
   order; the kernel keeps a pool per warp), for each (R0, R) of ``POOLS``.
 
-``lane_steps / (32 · warp_steps)`` is the share of lanes that walk.  A
-count, not a time: the default device is the CPU.  Prints one JSON line per
-case.
+``lane_steps / (32 · warp_steps)`` is the share of lanes that walk.
+
+L (``L``): kernel L's plain walk at its step uses (``chip_smoke.py``'s
+cases; default 10,000,000 particles): (a) the parent repair's walk over
+the bad parents of phase c's located particles, 0% and 1% bad
+(``chip_smoke.parent_claims``), budget 32; (b) the picparts lost check
+(rank 0 of the 4-rank 120k arm after one push and the local walk,
+``chip_smoke.x2_step_case``, at 3/8 of the particles' slots), budget the
+global mesh's element count; (c) the gyro map's ring points, budget 100.
+Each case's walkers, the rows they read (``chip_smoke.plain_walk_rows``,
+a 48-byte row a step) and the distinct rows among them (the table's part
+of ``chip_smoke.py``'s bound) give L's L2-row estimate, the rows' bytes
+over ``L2_BYTES_PER_S``: an estimate, not a floor, since a warp's lanes
+that read one row share its L1 line; ``warp_steps_first`` is the first
+plain walk's schedule (one thread a slot, a warp waiting for its longest
+walk).
+
+A count, not a time: the default device is the CPU.  Prints one JSON line
+per case.
 """
 from __future__ import annotations
 
@@ -53,6 +70,9 @@ from pumipic_torch.ops import search as se  # noqa: E402
 
 # (M2_R0, M2_R) of the pool estimate
 POOLS = ((4, 16), (8, 16), (16, 16), (8, 32), (16, 32), (32, 32), (8, 64))
+# an L2 read rate the card has reached: kernel M's far-target walk, its
+# rows' bytes over its time (PERF.md, "L2-row")
+L2_BYTES_PER_S = 4.8e12
 
 
 def counted(cores: dict) -> dict:
@@ -172,9 +192,57 @@ def main_2d(n: int, dev: str) -> None:
         print(json.dumps({"case": name, **warp_steps(steps)}), flush=True)
 
 
+def main_l(n: int, dev: str) -> None:
+    import chip_smoke as cs
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.models import pseudo_xgcm as px
+    from pumipic_torch.parallel import picparts as ppm
+
+    dev = torch.device(dev)
+    mesh, grid, x, elem, active = located_2d(dev, n)
+    claim, xb = cs.parent_claims(mesh, x, elem, torch.Generator(dev).manual_seed(19))
+    cases = []
+    for share, c, xx in (("0%", elem, x), ("1%", claim, xb)):
+        bad = active & (se.check_parents_plain(mesh, xx, c, active, "delete")[0] < 0)
+        cases.append((f"(a) repair walk, {share} bad", mesh.walk_geom, *xx.unbind(1), c,
+                      bad, 32))
+    del claim, xb
+    cfg = px.XGCmConfig(num_ptcls=n, mdl_face=max(int(mesh.class_id.max()) // 2, 2),
+                        deg_per_push=15.0, max_search_iters=64)
+    gpx, gpy, gstart = (t.to(dev) for t in px.gyro_ring_points(mesh, cfg.gyro))
+    cases.append(("(c) ring points", mesh.walk_geom, gpx, gpy, gstart.to(torch.int32),
+                  torch.ones(gpx.shape[0], dtype=torch.bool, device=dev), 100))
+    cs.NUM_PTCLS, cs.X_SLOTS = n, n * 3 // 8
+    gm = cs.exchange_mesh()
+    lpp = cs.exchange_picpart(dev, gm)
+    state, _, new_elem, prev_elem, prev_active = cs.x2_step_case(dev, lpp, gm, prev=True)
+    gmesh = Mesh2D.from_numpy(ppm.mesh_arrays(2, *gm[:3]), "cpu").to(dev)
+    cases.append(("(b) picparts lost check", gmesh.walk_geom, state["x0"], state["x1"],
+                  lpp.elem_gid[torch.clamp(prev_elem, min=0).long()].to(torch.int32),
+                  prev_active & (new_elem < 0), gmesh.nelems))
+    for name, *args in cases:
+        steps, distinct = cs.plain_walk_rows(*args)
+        w, rows = int(args[4].sum()), int(steps.sum())
+        s = steps.to(torch.int64).cpu().numpy()
+        tiles = np.pad(s, (0, -s.size % 32)).reshape(-1, 32)
+        first = int(tiles.max(1).sum())
+        print(json.dumps({"case": name, "slots": s.size, "walkers": w, "rows": rows,
+                          "distinct_rows": distinct,
+                          "rows_per_walker": rows / max(w, 1), "max_steps": int(s.max(initial=0)),
+                          "walks_of_at_most": {k: int(((s > 0) & (s <= k)).sum())
+                                           for k in (1, 8, 30, 63)},
+                          "warp_steps_first": first,
+                          "lanes_walking_first": rows / max(32 * first, 1),
+                          "l2_row_estimate_ms": rows * 48 / L2_BYTES_PER_S * 1e3}),
+              flush=True)
+
+
 def main() -> None:
     argv = sys.argv[1:]
-    if argv[:1] == ["2d"]:
+    if argv[:1] == ["L"]:
+        n = int(argv[1]) if len(argv) > 1 else 10_000_000
+        main_l(n, argv[2] if len(argv) > 2 else "cpu")
+    elif argv[:1] == ["2d"]:
         n = int(argv[1]) if len(argv) > 1 else 1_000_000
         main_2d(n, argv[2] if len(argv) > 2 else "cpu")
     else:

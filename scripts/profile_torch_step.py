@@ -13,7 +13,10 @@ and G); ``gitr-reflect`` and
 ``gitr-absorb`` are bench_torch's GITR-style arms (kernels R, M and W on
 the 196,608-tet box); ``2d-path`` is ``chip_smoke.py``'s 2D path (one call
 of ``trace2d_path_call`` a step: kernels L, M2, V and H from the seeded
-particles of bench_torch's mesh); the ``app`` arm builds
+particles of bench_torch's mesh; its JSON line adds ``ranges``: the device
+ms a step of each of ``chip_smoke.PATH_RANGES`` and of
+``port:check_initial_parents`` inside the first entry point, with the
+kernels each range launched by name); the ``app`` arm builds
 the single-device ``PseudoXGCm`` app on a Sell-C-σ structure with the same
 mesh and settings (its step adds the sorted rebuild: the stable sort,
 kernels H, S and G), ``app-<structure>`` on another structure (``csr``,
@@ -111,10 +114,60 @@ def path_2d_setup(dev, n: int):
                          "setup_s": {"setup": time.perf_counter() - t0}}
 
 
+CHECK_RANGE = "port:check_initial_parents"
+
+
+def ranged(fn, name: str):
+    """``fn`` inside a ``record_function`` range of ``name``."""
+    def call(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+    return call
+
+
+def range_device_ms(prof, names, steps: int) -> dict:
+    """Device ms a step of each named ``record_function`` range, with its
+    device activities (kernels, memsets, copies) by name.  The profiler
+    spans each range on the device too (its GPU annotation: the activities
+    the range's host code launched, ctypes launches included); an activity
+    counts toward every range whose device span holds its start (nested
+    ranges both count it)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in evs if e.name in names]
+    acts = [e for e in evs if e.name not in names]
+    out = {name: {"ms": 0.0, "launches": 0, "spans": 0, "kernels": {}} for name in names}
+    for name, t0, t1 in spans:
+        rec = out[name]
+        rec["spans"] += 1
+        for a in acts:
+            if t0 <= a.time_range.start < t1:
+                key = a.name.replace("(anonymous namespace)", "{anonymous}").split("(")[0][:80]
+                ms = a.time_range.elapsed_us() / 1e3 / steps
+                rec["kernels"][key] = rec["kernels"].get(key, 0.0) + ms
+                rec["ms"] += ms
+                rec["launches"] += 1
+    # the host side's tree sees only the activities of torch's own ops
+    for e in prof.events():
+        if e.name in names and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name]["torch_ops_ms"] = (out[e.name].get("torch_ops_ms", 0.0)
+                                           + e.device_time_total / 1e3 / steps)
+    for rec in out.values():
+        rec["launches"] /= steps
+        rec["kernels"] = dict(sorted(rec["kernels"].items(), key=lambda kv: -kv[1]))
+    return out
+
+
 def profile(arm: str, n: int, steps: int, smi: str) -> dict:
     dev = torch.device("cuda")
+    ranges = ()
     if arm == "2d-path":
+        import chip_smoke
+        from pumipic_torch.ops import search as se
+
         state, step, info = path_2d_setup(dev, n)
+        ranges = chip_smoke.PATH_RANGES + (CHECK_RANGE,)
+        se.check_initial_parents = ranged(se.check_initial_parents, CHECK_RANGE)
     elif arm.startswith("app"):
         state, step, info = app_setup(dev, n, arm[4:] or "scs")
     elif arm in PPS3D_ARMS:
@@ -141,8 +194,8 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
         torch.cuda.synchronize()
     by_kernel = {}
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue                      # host ops; their kernels are listed
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in ranges:
+            continue                      # host ops and ranges; their kernels are listed
         # the name up to its argument list; kernels whose names differ only
         # there are summed
         name = ev.key.replace("(anonymous namespace)", "{anonymous}").split("(")[0]
@@ -159,6 +212,7 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
         "device_ms_per_step_by_kernel": dict(
             sorted(by_kernel.items(), key=lambda kv: -kv[1])),
         "alive": int(alive.sum()),
+        **({"ranges": range_device_ms(prof, ranges, steps)} if ranges else {}),
         **({"capacity": info["capacity"]} if "capacity" in info else {}),
     }
 

@@ -1,7 +1,8 @@
 """Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D, G,
 S, K, L3, the GITR-style app's R, M, F and W, the 2D walk modes' M2 and the
 deposit V, with their modes, the rebuild's Q and C, and the distributed
-step's X1, X2, X3 and O on tests/torch_ranks.py's adversarial cases) against its plain PyTorch
+step's X1, X2, X3 and O on tests/torch_ranks.py's adversarial cases, the parent
+check J and L's plain walk in place) against its plain PyTorch
 version on the same CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
 lengths and R's corner rows at their edges.
 
@@ -1830,3 +1831,93 @@ def test_masked_key_sort_kernel_equals_plain(dev, case):
     assert torch.equal(key, want_key) and torch.equal(order, want_order)
     assert rb.masked_key_sort(e, active, fill)[1] is None
     assert torch.equal(rb.masked_key_sort(e, active, fill)[0], want_order)
+
+
+# ---------------------------------------------------------------------------
+# kernel J (check_parents) and kernel L's plain walk, sparse and in place
+# ---------------------------------------------------------------------------
+
+def _parent_claims(m, n, seed, dev):
+    """Origins in random elements of ``m`` (2D or 3D) with claims right,
+    random, below 0 and at E or above, NaN and infinite origins, points off
+    the mesh; a tenth inactive."""
+    rng = np.random.default_rng(seed)
+    ev, cz = m.elem2verts.cpu().numpy(), m.coords.cpu().numpy()
+    dim = cz.shape[1]
+    e = rng.integers(0, m.nelems, n)
+    w = rng.dirichlet(np.ones(dim + 1), n)
+    pts = np.einsum("nk,nkd->nd", w, cz[ev[e]]).astype(np.float32)
+    claim = e.copy()
+    k = n // 100
+    claim[:k] = rng.integers(0, m.nelems, k)
+    claim[k:k + 20] = -3
+    claim[k + 20:k + 40] = m.nelems + 1
+    pts[k + 40:k + 50] = np.nan
+    pts[k + 50:k + 55, 0] = np.inf
+    pts[k + 55:k + 60] = 5.0
+    act = rng.uniform(size=n) < 0.9
+    return (torch.from_numpy(pts).to(dev), torch.from_numpy(claim.astype(np.int32)).to(dev),
+            torch.from_numpy(act).to(dev))
+
+
+@pytest.mark.parametrize("n", [0, 1000, 300_001])
+@pytest.mark.parametrize("form", ["rows", "columns"])
+@pytest.mark.parametrize("locator", [False, True])
+@pytest.mark.parametrize("mode", ["delete", "repair"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_check_parents_kernel_equals_plain(dev, mesh, dim, mode, locator, form, n):
+    """Kernel J and the repair walk against the plain version, with the
+    walks started from the clamped parent or from the locator's guess."""
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+    from pumipic_torch.mesh.locator import build_locator_grid_3d
+
+    m = mesh if dim == 2 else Mesh3D.from_arrays(*box_tet_mesh(6, 6, 6), device=dev)
+    grid = None
+    if locator:
+        build = build_locator_grid if dim == 2 else build_locator_grid_3d
+        grid = build(m.coords.cpu().numpy(), m.elem2verts.cpu().numpy(), device=dev)
+    x, claim, act = _parent_claims(m, n, 5 + dim, dev)
+    xo = x if form == "rows" else tuple(x.unbind(1))     # strided views, no copy
+    n0 = kernels.LAUNCHES["check_parents"]
+    got = se.check_initial_parents(m, xo, claim, act, mode, locator=grid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["check_parents"] == n0 + 1
+    want = se.check_parents_plain(m, xo, claim, act, mode, locator=grid)
+    _equal(got, want)
+    if n:
+        assert int(got[1]) > 0 and (mode == "delete") == (int(got[2]) == 0)
+
+
+@pytest.mark.parametrize("max_iters", [64, 3, 0])
+@pytest.mark.parametrize("share", [0.0, 0.001, 0.3, 1.0])
+@pytest.mark.parametrize("n", [1, 4097, 400_000])
+def test_plain_walk_kernel_sparse_and_in_place_equal_plain(dev, mesh, n, share, max_iters):
+    """Kernel L's plain walk: every slot written (the first version, on
+    contiguous columns), and the sparse kernel in place and for its counts
+    alone on column views of an (N, 2) tensor, at walker shares from none
+    to all."""
+    g = torch.Generator(device=dev).manual_seed(n + int(share * 1000))
+    x = mesh.coords.amin(0) + (mesh.coords.amax(0) - mesh.coords.amin(0)) * torch.rand(
+        n, 2, generator=g, device=dev)
+    x[:5] = float("nan")
+    start = torch.randint(-2, mesh.nelems + 2, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    walkers = torch.rand(n, generator=g, device=dev) < share
+    dx, dy = x.unbind(1)
+    n0 = kernels.LAUNCHES["locate"]
+    cx, cy = dx.contiguous(), dy.contiguous()     # the first version's walk
+    got = se.walk_locate(mesh.walk_geom, cx, cy, start, walkers, max_iters)
+    _equal(got, se.walk_locate_plain(mesh.walk_geom, dx, dy, start, walkers, max_iters))
+    base = torch.randint(-1, mesh.nelems, (n,), generator=g, device=dev, dtype=torch.int32)
+    e_k, s_k = base.clone(), torch.zeros(4, dtype=torch.int32, device=dev)
+    e_p, s_p = base.clone(), torch.zeros(4, dtype=torch.int32, device=dev)
+    se.walk_locate_into(mesh.walk_geom, dx, dy, start, walkers, max_iters, e_k, s_k)
+    found, all_found = se.walk_locate_count(mesh.walk_geom, dx, dy, start, walkers,
+                                            max_iters)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["locate"] == n0 + 3
+    assert int(found) == int((got[0] >= 0).sum()) and bool(all_found) == bool(got[3])
+    se.walk_locate_into_plain(mesh.walk_geom, dx, dy, start, walkers, max_iters, e_p, s_p)
+    assert torch.equal(e_k, e_p) and torch.equal(s_k, s_p)
+    assert torch.equal(e_k[~walkers], base[~walkers])

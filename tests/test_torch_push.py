@@ -230,13 +230,14 @@ def _wrapper_calls(dev):
                                          True),
         "vdeposit": lambda: t_sc.scatter_to_verts_bcc(e, a, x3, mesh.elem2verts,
                                                       mesh.nverts),
+        "check_parents": lambda: t_se.check_initial_parents(mesh, x2, e, a),
     }
 
 
 @pytest.mark.parametrize("name", ["push", "push table", "band_cell", "annulus_locate",
                                   "locate", "histogram", "deposit", "kuhn_locate",
                                   "push_wrap", "locate3d", "boris", "trace3d",
-                                  "wall_tally", "trace2d", "vdeposit"])
+                                  "wall_tally", "trace2d", "vdeposit", "check_parents"])
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices(name):
     """On CPU tensors a wrapper runs its plain version and counts no launch;
     on a device that is neither CPU nor CUDA it raises (no fallback)."""
@@ -255,7 +256,7 @@ def test_kernel_build_flags():
     assert sorted(p.name for p in _build.sources()) == [
         "annulus.cu", "band.cu", "boris.cu", "deposit.cu", "exchange.cu", "gather.cu",
         "gitr.cu", "histogram.cu", "kuhn.cu", "locate.cu", "locate3d.cu", "owner.cu",
-        "push.cu", "rebuild.cu", "slotmap.cu", "trace2d.cu", "trace3d.cu", "vdeposit.cu"]
+        "parents.cu", "push.cu", "rebuild.cu", "slotmap.cu", "trace2d.cu", "trace3d.cu", "vdeposit.cu"]
     assert "-shared" not in _build.NVCC_FLAGS      # compile flags; the link adds it
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()
