@@ -183,6 +183,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -430,25 +431,71 @@ def record_library(kernel: str, what: str, call: str, fn, results: dict,
         results[kernel].setdefault("library_ms", ms)
 
 
-def record_launches(kernel: str, what: str, fn, results: dict) -> None:
-    """The device activities (kernels and memsets) one call of ``fn``
-    enqueues, counted by torch.profiler, in case ``what``'s record."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+# libcuda's CUgraphNodeType values of the nodes a captured call can hold
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+                    5: "empty", 6: "wait_event", 7: "event_record", 10: "mem_alloc",
+                    11: "mem_free"}
+
+
+def graph_nodes(fn) -> dict:
+    """The device work one call of ``fn`` enqueues, by kind ({"kernel": n,
+    "memset": m, ...}): the nodes of a CUDA graph captured from the call
+    (never replayed), typed by libcuda.  Exact, where a profiler trace
+    can miss events."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()                              # launchers' one-time queries outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = {}
+    for node in nodes[:count.value]:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kind = GRAPH_NODE_KINDS.get(t.value, f"type {t.value}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    g.reset()
+    torch.cuda.synchronize()
+    return kinds
+
+
+def record_launches(kernel: str, what: str, fn, results: dict,
+                    expected: Optional[dict] = None) -> None:
+    """The device work (kernels, memsets, copies) one call of ``fn``
+    enqueues (:func:`graph_nodes`), in case ``what``'s record; raises where
+    ``expected`` ({kind: count}) is given and differs."""
+    kinds = graph_nodes(fn)
+    log(f"[c] {kernel} {what}: {sum(kinds.values())} CUDA launches a call {kinds}")
+    if expected is not None and kinds != expected:
+        raise AssertionError(f"{kernel} {what}: launched {kinds}, expected {expected}")
+    case_of(kernel, what, results).update(cuda_launches=sum(kinds.values()),
+                                          cuda_launch_kinds=kinds)
+
+
+def check_repair_launches(what: str, fn, walk: str, results: dict) -> None:
+    """The parent repair is a memset, kernel J and one walk (``walk``: L in
+    2D, L3 in 3D) and nothing else: by the wrappers' counts, J and the walk
+    once each; by the captured call's nodes, one memset and two kernels."""
+    from pumipic_torch import kernels
+
+    before = dict(kernels.LAUNCHES)
     fn()
     torch.cuda.synchronize()
-    names = {}
-    for _ in range(2):          # a process's first trace can miss the device's events
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                names[ev.key.split("(")[0][:40]] = ev.count
-        if names:
-            break
-    log(f"[c] {kernel} {what}: {sum(names.values())} CUDA launches a call {names}")
-    case_of(kernel, what, results).update(cuda_launches=sum(names.values()),
-                                          cuda_launch_names=names)
+    grown = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    if grown != {"check_parents": 1, walk: 1}:
+        raise AssertionError(f"check_initial_parents {what} launched {grown}, expected "
+                             f"J and {walk} once each")
+    record_launches("check_parents", what, fn, results, {"memset": 1, "kernel": 2})
 
 
 def ring_key_streams(elem, active, rg, E: int, R: int, rmax: float):
@@ -787,12 +834,38 @@ def parent_claims(mesh, x, elem, gen):
     return claim, xb
 
 
+def parent_check_bytes(mesh, claim, active):
+    """(bytes, f32 operations) kernel J's function needs: claim, active and
+    elem per slot; the origin and the row's affine part where active; ~12
+    f32 operations a dimension and active particle."""
+    n, act, dim = claim.shape[0], int(active.sum()), mesh.dim
+    return (n * 9 + act * 4 * dim + mesh.nelems * 4 * dim * (dim + 1),
+            12.0 * dim * act)
+
+
+def parent_sectors(claim, active, n_elems: int, row_bytes: int, affine_bytes: int):
+    """The 32-byte L2 sectors kernel J's row loads touch at this order, for
+    rows of ``row_bytes`` whose first ``affine_bytes`` the test reads:
+    (sectors a particle, distinct sectors a particle within each warp's
+    32 consecutive slots).  Every active slot reads its clamped parent's
+    row."""
+    idx = torch.nonzero(active).flatten()
+    e = torch.clamp(claim[idx].long(), 0, n_elems - 1)
+    first, last = e * row_bytes // 32, (e * row_bytes + affine_bytes - 1) // 32
+    per = int((last - first + 1).sum())
+    span = n_elems * row_bytes // 32 + 2
+    group = (idx // 32) * span
+    warp = int(torch.unique(torch.cat([group + first, group + last])).numel())
+    m = max(idx.numel(), 1)
+    return per / m, warp / m
+
+
 def check_parents_case(results: dict, mesh, x, claim, active, what: str) -> None:
     """Kernel J (with L's or L3's repair walk) against its plain version in
-    both modes; J alone ("delete": no other launch) timed with its bound."""
+    both modes; J alone ("delete": no other launch) timed with its bound
+    and the L2 sectors its row loads touch."""
     from pumipic_torch.ops import search as se
 
-    n = claim.shape[0]
     for mode in ("delete", "repair"):
         got = se.check_initial_parents(mesh, x, claim, active, mode)
         compare("check_parents", f"{mode}, {what}", got,
@@ -802,13 +875,14 @@ def check_parents_case(results: dict, mesh, x, claim, active, what: str) -> None
                                                                        "delete"),
               lambda: se.check_parents_plain(mesh, x, claim, active, "delete"), results,
               plain_reps=3)
-    act = int(active.sum())
-    dim = mesh.dim
-    # claim, active and elem per slot; the origin and the row's affine part
-    # where active; ~12 f32 operations a dimension and active particle
-    record_bound("check_parents", what, results,
-                 n * 9 + act * 4 * dim + mesh.nelems * 4 * dim * (dim + 1),
-                 12.0 * dim * act)
+    record_bound("check_parents", what, results, *parent_check_bytes(mesh, claim, active))
+    rows = se.parent_rows(mesh) if mesh.dim == 2 else mesh.walk_geom
+    per, warp = parent_sectors(claim, active, mesh.nelems, rows.shape[1] * 4,
+                               4 * mesh.dim * (mesh.dim + 1))
+    log(f"[c] check_parents {what}: {per:.3f} L2 sectors a particle, {warp:.3f} distinct "
+        f"in its warp's slots")
+    case_of("check_parents", what, results).update(
+        l2_sectors_per_particle=per, l2_warp_sectors_per_particle=warp)
 
 
 def check_parents_and_walk(results: dict, dev, mesh, x, elem, active) -> None:
@@ -824,8 +898,9 @@ def check_parents_and_walk(results: dict, dev, mesh, x, elem, active) -> None:
     check_parents_case(results, mesh, x, elem, active, f"2D, 0% bad ({x.shape[0]} particles)")
     check_parents_case(results, mesh, xb, claim, active,
                        f"2D, 1% bad, ids out of range, NaN origins ({x.shape[0]} particles)")
-    record_launches("check_parents", f"2D, 0% bad ({x.shape[0]} particles)",
-                    lambda: se.check_initial_parents(mesh, x, elem, active), results)
+    # the repair: a memset, J and L's walk
+    repair = lambda: se.check_initial_parents(mesh, x, elem, active)  # noqa: E731
+    check_repair_launches(f"2D, 0% bad ({x.shape[0]} particles)", repair, "locate", results)
     for share, c, xx in (("0%", elem, x), ("1%", claim, xb)):
         _, bad, _ = se.check_parents(mesh, xx, c, active, True)
         what = f"repair walk in place, {share} bad ({x.shape[0]} slots)"
@@ -845,14 +920,61 @@ def check_parents_and_walk(results: dict, dev, mesh, x, elem, active) -> None:
 
 
 def check_parents_3d(results: dict, dev, mesh, seeded) -> None:
-    """Kernel J in 3D (its L3 repair walk) on the 16^3 box's seeded
-    particles, 1% bad with ids out of range and NaN origins."""
+    """Kernel J in 3D and its repair (L3's plain walk in place) on the 16^3
+    box's seeded particles: 0% bad and 1% bad with ids out of range and NaN
+    origins, against the plain version; the repair's launches (a memset, J
+    and the walk); the walk alone over J's bad parents."""
+    from pumipic_torch.ops import search as se
+
     x, elem = seeded
     active = elem >= 0
+    n = x.shape[0]
     gen = torch.Generator(dev).manual_seed(23)
     claim, xb = parent_claims(mesh, x, elem, gen)
+    check_parents_case(results, mesh, x, elem, active, f"3D, 0% bad ({n} particles)")
     check_parents_case(results, mesh, xb, claim, active,
-                       f"3D, 1% bad, ids out of range, NaN origins ({x.shape[0]} particles)")
+                       f"3D, 1% bad, ids out of range, NaN origins ({n} particles)")
+    # the repair: a memset, J and L3's walk
+    repair = lambda: se.check_initial_parents(mesh, xb, claim, active)  # noqa: E731
+    check_repair_launches(f"3D, 1% bad, ids out of range, NaN origins ({n} particles)",
+                          repair, "locate3d", results)
+    for share, c, xx in (("0%", elem, x), ("1%", claim, xb)):
+        _, bad, _ = se.check_parents(mesh, xx, c, active, True)
+        what = f"repair walk in place, {share} bad ({n} slots)"
+        wargs = (mesh.walk_geom, *xx.unbind(1), c, bad, 32)
+        base = torch.where(bad, -1, c)
+        e_k, s_k = base.clone(), torch.zeros(4, dtype=torch.int32, device=dev)
+        e_p, s_p = base.clone(), torch.zeros(4, dtype=torch.int32, device=dev)
+        se.walk_locate_3d_into(*wargs, e_k, s_k)
+        se.walk_locate_3d_into_plain(*wargs, e_p, s_p)
+        compare("locate3d", what, (e_k, s_k), (e_p, s_p), results)
+        read = torch.zeros(mesh.nelems, dtype=torch.bool, device=dev)
+        se._walk_batch_3d(*wargs, rows_read=read)
+        w, distinct = int(bad.sum()), int(read.sum())
+        log(f"[c] locate3d {what}: {w} walkers, {int(s_p[2])} found, at most "
+            f"{int(s_p[0])} steps, {distinct} distinct rows")
+        case_of("locate3d", what, results).update(walkers=w, distinct_rows=distinct)
+        time_pair("locate3d", what, lambda: se.walk_locate_3d_into(*wargs, e_k, s_k),
+                  lambda: se.walk_locate_3d_into_plain(*wargs, e_p, s_p), results,
+                  plain_reps=2, record=False)
+        # the mask; a walker's destination, start and result; the distinct
+        # 64-byte rows the walk reads
+        record_bound("locate3d", what, results, nbytes(bad) + w * 20 + distinct * 64)
+    del claim, xb
+
+
+def check_parents_at_path(results: dict, mesh, x, elem, active) -> None:
+    """Kernel J at the 2D path's own order: the parents and origins one
+    path call leaves (the next call's inputs), against its plain version
+    in both modes, J alone timed with its bound and its L2 sectors; the
+    same sectors in walk_geom's 48-byte rows for comparison."""
+    what = f"2D, the 2d path's order ({x.shape[0]} particles)"
+    check_parents_case(results, mesh, x, elem, active, what)
+    per, warp = parent_sectors(elem, active, mesh.nelems, 48, 24)
+    log(f"[d] check_parents {what} in walk_geom's 48-byte rows: {per:.3f} L2 sectors "
+        f"a particle, {warp:.3f} distinct in its warp's slots")
+    case_of("check_parents", what, results).update(
+        walk_geom_l2_sectors_per_particle=per, walk_geom_l2_warp_sectors_per_particle=warp)
 
 
 def check_lost_walk(results: dict, dev, lpp, mesh, step) -> None:
@@ -1222,6 +1344,7 @@ def run_trace2d_path(results: dict, dev, mesh, grid, x, elem, active, smi: str) 
                              f"{sorted(PATH_KERNELS)}")
     for k, v in counts.items():
         results[k]["launches"] = results[k].get("launches", 0) + v
+    check_parents_at_path(results, mesh, x, elem, active)
 
 
 def check_band(results: dict, dev, mesh):

@@ -1,12 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 All ``csrc/*.cu`` files compile into ONE shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds).  Each source
-compiles in its own nvcc process, all started together, and one more nvcc
-links the objects.  The library is built on first use into
-``kernels/_build/`` (ignored by git), named by a hash of the sources and
-flags, so a changed source rebuilds and an unchanged one loads the cached
-file.
+interface (no PyTorch headers, so a build takes seconds); ``csrc/*.cuh``
+holds device code that two sources share.  Each source compiles in its
+own nvcc process, all started together, and one more nvcc links the
+objects.  The library is built on first use into ``kernels/_build/``
+(ignored by git), named by a hash of the sources, headers and flags, so a
+changed source rebuilds and an unchanged one loads the cached file.
 
 Flags: ``-fmad=false`` keeps every kernel equal to its plain PyTorch
 version element for element (a contracted a*b+c rounds once, the plain
@@ -87,6 +87,10 @@ SIGNATURES = {
         _P, _P, _P,                          # elem_out active_out stats
         _L, _P],                             # n stream
     "pp_walk_locate_3d_blocks_per_sm": [],
+    "pp_walk_plain_3d": [
+        _P, _L, _P, _L, _P, _L,              # dest x|y|z and their strides
+        _P, _P, _P, _I, _I,                  # elem_start walkers walk_geom n_elems max_iters
+        _P, _P, _L, _P],                     # elem_out stats n stream
     "pp_trace_3d": [
         _P, _P, _P, _P,                      # orig dest elem_start active
         _P, _P,                              # walk table (geom|planes) walk_geom
@@ -182,9 +186,13 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

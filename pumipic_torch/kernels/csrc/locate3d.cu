@@ -8,7 +8,9 @@
 // BCC core _core_3d_bcc (:595-707, :257-310) and remove_on_exit (:110-121),
 // and the pyramid loop _run_walk (:710-950) (queue item K10, its BCC core
 // and peel).  With cell_ids == nullptr it is the plain walk search_mesh_3d
-// (:1006-1044).  The TPU Pallas probes of the 2D walk step
+// (:1006-1044); on walk_plain.cuh's sparse schedule (PlainStep3D) it is
+// that walk over a sparse mask in place, the parent repair of check_initial_parents (:1527-1595) behind
+// kernel J.  The TPU Pallas probes of the 2D walk step
 // (perf/archive/walk_opt.py:219, walk_opt2.py:92, walk_opt4.py:101) are the
 // design's ancestors through kernel L.
 //
@@ -61,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "walk_plain.cuh"
 
 #define BCC_REL_TOL 4.76837158203125e-07f  // 8 * 2^-24
 #define BCC_ABS_TOL 1e-7f
@@ -318,6 +322,31 @@ __global__ void __launch_bounds__(L3_THREADS) walk_locate_3d_kernel(
   }
 }
 
+// one step of the plain walk from elem toward (x, y, z), walk()'s step with
+// no guess trajectory: true when the walker stops (inside: elem kept; an
+// exposed face: elem = -1)
+__device__ __forceinline__ bool plain_step_3d(const float* __restrict__ geom, int& elem,
+                                              float x, float y, float z) {
+  float g[16];
+  load_row<4>(geom, elem, g);
+  const Bary3 w = bary3(g, x, y, z);
+  if (w.inside) return true;
+  Walker k{0, elem, -2, 0, x, y, z};
+  const bool removed = exit_face(w, g, k);
+  elem = k.elem;
+  return removed;
+}
+
+// the 3D step of walk_plain.cuh's schedule: this file's plain-walk step,
+// so the sparse walk's results equal walk_locate_3d_kernel's with no cell
+// ids bit for bit
+struct PlainStep3D {
+  static __device__ __forceinline__ bool run(const float* __restrict__ geom, int& elem,
+                                             const float* x) {
+    return plain_step_3d(geom, elem, x[0], x[1], x[2]);
+  }
+};
+
 static int num_sms() {
   static int sms = 0;
   if (sms == 0) {
@@ -370,4 +399,20 @@ extern "C" int pp_walk_locate_3d(
       reinterpret_cast<const int2*>(cell_ids), grid, budget, elem_out, active_out,
       stats, (int)n);
   return (int)cudaGetLastError();
+}
+
+// The sparse plain walk in place (walk_plain.cuh): the walkers' results
+// into elem_out, the other slots untouched.  Destination component c of
+// particle i at d{x,y,z}[i * s{x,y,z}].  stats[0] <- max steps
+// (atomicMax), stats[1] <- walkers deleted at the limit, stats[2] <- walkers
+// found (atomicAdd), added to what the caller holds there (kernel J zeroes
+// them for the parent repair).  n < 2^31.
+extern "C" int pp_walk_plain_3d(
+    const float* dx, long long sx, const float* dy, long long sy, const float* dz,
+    long long sz, const int* elem_start, const uint8_t* walkers, const float* geom,
+    int n_elems, int max_iters, int* elem_out, int* stats, long long n,
+    cudaStream_t stream) {
+  return walk_plain_launch<3, PlainStep3D>({{dx, dy, dz}, {sx, sy, sz}}, elem_start,
+                                           walkers, geom, n_elems, max_iters, elem_out,
+                                           stats, n, stream);
 }

@@ -14,22 +14,30 @@
 // Per particle, in one thread:
 //   in_table = 0 <= e < E,  e_safe = clamp(e, 0, E-1),
 //   inside   = the tolerance-relative BCC test of the origin in e_safe's
-//              affine rows (2D: the row's first 6 floats, 3D: its first 12),
+//              affine rows (2D: the 6 floats of its 32-byte parent row,
+//              3D: the first 12 of its 64-byte walk_geom row),
 //              in bary_inside's / bary_inside_3d's order of f32 operations
 //              (3D sums left to right),
 //   bad      = active && (!inside || !in_table),
 //   elem     = active && !bad ? e_safe : -1,
 // and bad_out[i] = bad where the caller asks for the mask (the repair walk's
-// walkers, kernel L's plain walk in place).  num_bad is summed per block and
+// walkers: kernel L's or L3's plain walk in place).  num_bad is summed per block and
 // added with one atomic per block into stats[3] (the repair walk adds its
 // own counts into stats[0..2]); the launcher zeroes all four first.
 //
 // What bounds it on an H100: device-memory bytes.  Per particle 13 bytes in
 // (the claimed parent, the active byte, the 2D origin; 17 in 3D) and 5 out
-// (4 without the mask); the walk_geom rows (5.9 MB on the 120k mesh) are
-// read from L2.  Inactive particles read neither origin nor row.  The
-// origin is read where it lies: (N, dim) rows or per-component columns of
-// any stride, so no copy precedes the launch.
+// (4 without the mask); the rows are read from L2.  Inactive particles read
+// neither origin nor row.  The origin is read where it lies: (N, dim) rows
+// or per-component columns of any stride, so no copy precedes the launch.
+// In 2D the rows are search.parent_rows: walk_geom's 6 affine floats and 2
+// pads, 32 bytes a row (3.9 MB on the 120k mesh), so a particle's test
+// reads one L2 sector; in walk_geom's 48-byte rows every odd row's 24
+// affine bytes span two.  Measured (PERF.md §6): no change at the
+// seeding's order or after one 2D path call, 23% less time at the order
+// five path calls leave (parents scattered against slots) and in the
+// path; why the sectors bind at that order only is open.  3D reads 48
+// bytes of its aligned 64-byte walk_geom rows (two sectors).
 //
 // Design: a grid of as many blocks as the SMs hold at once, each thread
 // taking J_ITEMS particles a sweep (their loads issued before the dependent
@@ -157,8 +165,9 @@ int resident_blocks(const void* fn) {
 }  // namespace
 
 // dim 2 or 3; origin: dim component pointers and strides (in floats);
-// geom: (E, row_w) walk_geom rows, 16-byte aligned; bad_out may be
-// nullptr ("delete" mode).  stats: four ints, zeroed here; stats[3] <-
+// geom: (E, row_w) rows whose affine part comes first, 16-byte aligned (2D:
+// parent_rows, row_w 8, 32-byte rows; 3D: walk_geom, row_w 16); bad_out may
+// be nullptr ("delete" mode).  stats: four ints, zeroed here; stats[3] <-
 // num_bad.
 extern "C" int pp_check_parents(
     int dim, const int* elem_init, const uint8_t* active, const float* const* origin,

@@ -20,8 +20,9 @@ Where few slots walk and nothing is written for the rest, L's sparse plain
 walk runs instead: :func:`walk_locate_into` (in place, the parent repair)
 and :func:`walk_locate_count` (the counts alone, the picparts lost check).
 :func:`check_initial_parents` is kernel J (``kernels/csrc/parents.cu``,
-:func:`check_parents`) and the repair walk; :func:`check_parents_plain` is
-its plain version.
+:func:`check_parents`) and the repair walk in place (L's sparse plain walk
+in 2D, L3's, :func:`walk_locate_3d_into`, in 3D); :func:`check_parents_plain`
+is its plain version.
 The peel takes a cartesian :class:`LocatorGrid2D`, whose cell id kernel L
 computes itself, or a flux-band :class:`BandGrid2D`, whose cell ids kernel
 B computes first and hands to kernel L ("given cells").  Every other 2D
@@ -159,6 +160,20 @@ def reflect_tangents(mesh: Mesh2D) -> torch.Tensor:
     written in place since, builds it again)."""
     return _cached(mesh, "tangents", (mesh.edge2verts, mesh.coords),
                    lambda: torch.stack(_edge_frames(mesh, mesh.edge2verts), 1).contiguous())
+
+
+def parent_rows(mesh: Mesh2D) -> torch.Tensor:
+    """(E, 8) f32, each triangle's affine rows ``walk_geom[:, 0:6]`` bit for
+    bit and two zero pads: what kernel J's 2D test reads, one 32-byte
+    sector a row (a 48-byte ``walk_geom`` row puts every odd row's first 24
+    bytes across two).  Measured (PERF.md §6): J on these rows is as fast
+    as on ``walk_geom`` at the seeding's order and after one 2D path call,
+    and 23% faster at the order five path calls leave and in the path; why
+    the sectors bind at that order only is open.  Kept on the mesh for its
+    ``walk_geom`` tensor (another tensor, or one written in place since,
+    builds it again)."""
+    return _cached(mesh, "parent_rows", (mesh.walk_geom,),
+                   lambda: torch.nn.functional.pad(mesh.walk_geom[:, 0:6], (0, 2)))
 
 
 def reflect_on_exit_3d(ctx: BoundaryCtx) -> BoundaryResult:
@@ -646,14 +661,14 @@ def _peel_3d(grid: LocatorGrid3D, dx, dy, dz):
     return elem, inside
 
 
-def walk_locate_3d_plain(walk_geom: torch.Tensor, dest: torch.Tensor,
-                         elem_start, active, max_iters: int,
-                         grid: Optional[LocatorGrid3D] = None):
-    """Plain PyTorch version of kernel L3 (a batch walk over the unfinished
-    walkers); returns (elem, active, iters, all_found, num_unfinished) with
-    the kernel's semantics (see :func:`walk_locate_3d`)."""
+def _walk_batch_3d(walk_geom: torch.Tensor, dx, dy, dz, elem_start, active,
+                   max_iters: int, grid: Optional[LocatorGrid3D] = None,
+                   rows_read: Optional[torch.Tensor] = None):
+    """The batch walk of :func:`walk_locate_3d_plain` over the unfinished
+    walkers: (elem, iterations, walkers deleted at the limit), the last two
+    as Python ints.  Where given, ``rows_read`` ((E,) bool) is set at each
+    ``walk_geom`` row a walk step reads."""
     n_elems = walk_geom.shape[0]
-    dx, dy, dz = dest.unbind(1)
     start = torch.clamp(elem_start.to(torch.int32), 0, n_elems - 1)
     elem = torch.where(active, start, INVALID)
     fbg = torch.full_like(elem, -2)
@@ -672,6 +687,8 @@ def walk_locate_3d_plain(walk_geom: torch.Tensor, dest: torch.Tensor,
             break
         steps += 1
         e, f = elem[idx], fbg[idx]
+        if rows_read is not None:
+            rows_read[e.long()] = True
         g = walk_geom[e.long()]                                  # (w, 16)
         l1, l2, l3, w0, inside = bary_inside_3d(
             g[:, 0:12].unbind(1), dx[idx], dy[idx], dz[idx])
@@ -694,11 +711,34 @@ def walk_locate_3d_plain(walk_geom: torch.Tensor, dest: torch.Tensor,
     unfinished = idx.numel()
     if unfinished:
         elem[idx] = INVALID
+    return elem, it0 + steps, unfinished
+
+
+def walk_locate_3d_plain(walk_geom: torch.Tensor, dest: torch.Tensor,
+                         elem_start, active, max_iters: int,
+                         grid: Optional[LocatorGrid3D] = None):
+    """Plain PyTorch version of kernel L3 (a batch walk over the unfinished
+    walkers); returns (elem, active, iters, all_found, num_unfinished) with
+    the kernel's semantics (see :func:`walk_locate_3d`)."""
+    elem, iters, unfinished = _walk_batch_3d(walk_geom, *dest.unbind(1), elem_start,
+                                             active, max_iters, grid)
     dev = elem.device
     return (elem, elem >= 0,
-            torch.tensor(it0 + steps, dtype=torch.int32, device=dev),
+            torch.tensor(iters, dtype=torch.int32, device=dev),
             torch.tensor(unfinished == 0, device=dev),
             torch.tensor(unfinished, dtype=torch.int32, device=dev))
+
+
+def walk_locate_3d_into_plain(walk_geom: torch.Tensor, dest_x, dest_y, dest_z,
+                              elem_start, walkers, max_iters: int, elem: torch.Tensor,
+                              stats: torch.Tensor) -> None:
+    """Plain PyTorch version of :func:`walk_locate_3d_into`."""
+    e, iters, unfinished = _walk_batch_3d(walk_geom, dest_x, dest_y, dest_z, elem_start,
+                                          walkers, max_iters)
+    elem.copy_(torch.where(walkers, e, elem))
+    stats[0:1].clamp_(min=iters)
+    stats[1] += unfinished
+    stats[2] += (walkers & (e >= 0)).sum(dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -760,6 +800,40 @@ def walk_locate_3d(walk_geom: torch.Tensor, dest: torch.Tensor, elem_start,
     _build.check(err, "locate3d")
     kernels.LAUNCHES["locate3d"] += 1
     return elem, act, stats[0] + it0, stats[1] == 0, stats[1]
+
+
+def walk_locate_3d_into(walk_geom: torch.Tensor, dest_x, dest_y, dest_z, elem_start,
+                        walkers, max_iters: int, elem: torch.Tensor,
+                        stats: torch.Tensor) -> None:
+    """The plain walk of the ``walkers`` (bool mask) in a tet mesh, in place:
+    :func:`walk_locate_into`'s contract with (N,) destination columns x, y
+    and z (views of any stride).  Kernel L3's sparse plain walk on CUDA
+    tensors (L3's plain-walk steps and budget on kernel L's sparse
+    schedule), :func:`walk_locate_3d_into_plain` on CPU tensors."""
+    if not kernels.use_kernel("locate3d", walk_geom, elem_start, walkers, elem, stats):
+        return walk_locate_3d_into_plain(walk_geom, dest_x, dest_y, dest_z, elem_start,
+                                         walkers, max_iters, elem, stats)
+    n = walkers.shape[0]
+    dev = walkers.device
+    if (walk_geom.dtype != torch.float32 or walk_geom.dim() != 2
+            or walk_geom.shape[1] != 16 or elem_start.dtype != torch.int32
+            or walkers.dtype != torch.bool or elem_start.shape != (n,)
+            or elem.dtype != torch.int32 or elem.shape != (n,)
+            or stats.dtype != torch.int32):
+        raise ValueError("walk_locate_3d_into: f32 (E, 16) walk_geom, i32 elem_start, "
+                         "bool walkers, i32 elem and stats expected")
+    if walk_geom.data_ptr() % 16:
+        raise ValueError("walk_locate_3d_into: walk_geom must be 16-byte aligned")
+    if n >= 1 << 31:
+        raise ValueError("walk_locate_3d_into: fewer than 2^31 particles expected")
+    cols = [_column(c, n, dev, "walk_locate_3d_into") for c in (dest_x, dest_y, dest_z)]
+    P = ctypes.c_void_p
+    err = _build.lib().pp_walk_plain_3d(
+        *(a for p, st in cols for a in (P(p), st)), P(elem_start.data_ptr()),
+        P(walkers.data_ptr()), P(walk_geom.data_ptr()), walk_geom.shape[0], max_iters,
+        P(elem.data_ptr()), P(stats.data_ptr()), n, P(kernels.stream_handle()))
+    _build.check(err, "locate3d")
+    kernels.LAUNCHES["locate3d"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -1449,7 +1523,8 @@ def check_parents_plain(mesh, x_orig, elem_init: torch.Tensor, active: torch.Ten
                         mode: str = "repair", max_iters: int = 32, locator=None):
     """Plain PyTorch version of :func:`check_initial_parents` (kernel J and
     the repair walk): the containment test on gathered ``walk_geom`` rows,
-    then the repair as the plain walk of the bad particles."""
+    then the repair as the plain walk of the bad particles in place
+    (:func:`walk_locate_into_plain`, :func:`walk_locate_3d_into_plain`)."""
     orig = _components(x_orig)
     e_raw = elem_init.to(torch.int32)
     in_table = (e_raw >= 0) & (e_raw < mesh.nelems)
@@ -1460,39 +1535,36 @@ def check_parents_plain(mesh, x_orig, elem_init: torch.Tensor, active: torch.Ten
     else:
         inside = bary_inside_3d(g[:, 0:12].unbind(1), *orig)[4]
     bad = active & (~inside | ~in_table)
-    num_bad = bad.sum().to(torch.int32)
-    zero = torch.zeros((), dtype=torch.int32, device=e_raw.device)
+    elem = torch.where(active & ~bad, e_safe, INVALID)
+    stats = torch.zeros(4, dtype=torch.int32, device=e_raw.device)
+    stats[3] = bad.sum()
     if mode == "delete":
-        return torch.where(active & ~bad, e_safe, INVALID), num_bad, zero
+        return elem, stats[3], stats[2]
     start = e_safe
     if locator is not None:
         start = locator.cell_elem[locator.cell_of(*orig).long()]
-    if mesh.dim == 2:
-        found = walk_locate_plain(mesh.walk_geom, *orig, start.to(torch.int32), bad,
-                                  max_iters)[0]
-    else:
-        found = walk_locate_3d_plain(mesh.walk_geom, _rows_of(x_orig),
-                                     start.to(torch.int32), bad, max_iters)[0]
-    repaired = bad & (found >= 0)
-    elem = torch.where(bad, found, torch.where(active, e_safe, INVALID))
-    return elem, num_bad, repaired.sum().to(torch.int32)
+    walk = walk_locate_into_plain if mesh.dim == 2 else walk_locate_3d_into_plain
+    walk(mesh.walk_geom, *orig, start.to(torch.int32), bad, max_iters, elem, stats)
+    return elem, stats[3], stats[2]
 
 
 def check_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.Tensor,
                   mask: bool):
     """Kernel J (``kernels/csrc/parents.cu``) on CUDA tensors: the parent
     check in one pass, reading the origin where it lies (an (N, dim)
-    tensor or a tuple of columns of any stride).  Returns (elem, bad,
+    tensor or a tuple of columns of any stride) and each parent's affine
+    rows (2D: :func:`parent_rows`, one 32-byte sector a row; 3D:
+    ``walk_geom``'s 64-byte rows).  Returns (elem, bad,
     stats): ``elem`` i32 (the clamped parent where active and good, else
     INVALID), ``bad`` the bool mask of bad parents (None unless ``mask``),
     ``stats`` four i32 counters, zeroed by the launch, with ``stats[3]``
     the number of bad parents and ``stats[0:3]`` free for the repair walk
-    (:func:`walk_locate_into`)."""
-    geom = mesh.walk_geom
+    (:func:`walk_locate_into`, :func:`walk_locate_3d_into`)."""
     e = elem_init.to(torch.int32)
-    if not kernels.use_kernel("check_parents", geom, e, active):
+    if not kernels.use_kernel("check_parents", mesh.walk_geom, e, active):
         raise ValueError("check_parents: the kernel takes CUDA tensors; "
                          "check_parents_plain is its plain version")
+    geom = parent_rows(mesh) if mesh.dim == 2 else mesh.walk_geom
     n, dim = e.shape[0], mesh.dim
     dev = e.device
     cols = _columns(x_orig)
@@ -1501,7 +1573,7 @@ def check_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.Tensor,
                          f"({n},) active mask expected")
     ptrs = [_column(c, n, dev, "check_parents") for c in cols]
     if geom.dtype != torch.float32 or geom.data_ptr() % 16:
-        raise ValueError("check_parents: f32 walk_geom, 16-byte aligned, expected")
+        raise ValueError("check_parents: f32 rows, 16-byte aligned, expected")
     elem = torch.empty(n, dtype=torch.int32, device=dev)
     bad = torch.empty(n, dtype=torch.bool, device=dev) if mask else None
     stats = torch.empty(4, dtype=torch.int32, device=dev)
@@ -1529,9 +1601,9 @@ def check_initial_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.T
     that walk off the mesh.  Returns (elem i32, num_bad, num_repaired), with
     INVALID where inactive or deleted; the counts stay on the device.
 
-    On CUDA tensors: kernel J, then in 2D kernel L's plain walk of J's bad
-    particles in place into J's output (no other launch without a
-    locator), in 3D kernel L3's plain walk over J's mask.  On CPU tensors:
+    On CUDA tensors: kernel J, then the plain walk of J's bad particles in
+    place into J's output, kernel L's in 2D and L3's in 3D (a memset, J and
+    the walk; no other launch without a locator).  On CPU tensors:
     :func:`check_parents_plain`."""
     if mode not in ("delete", "repair"):
         raise ValueError(f"unknown mode {mode!r}; expected 'delete' or 'repair'")
@@ -1544,13 +1616,9 @@ def check_initial_parents(mesh, x_orig, elem_init: torch.Tensor, active: torch.T
     start = elem_init.to(torch.int32)                  # the walks clamp it
     if locator is not None:
         start = locator.cell_elem[locator.cell_of(*_columns(x_orig)).long()]
-    if mesh.dim == 2:
-        walk_locate_into(mesh.walk_geom, *_columns(x_orig), start, bad, max_iters,
-                         elem, stats)
-        return elem, stats[3], stats[2]
-    found, act, _, _, _ = walk_locate_3d(mesh.walk_geom, _rows_of(x_orig),
-                                         start.to(torch.int32), bad, max_iters)
-    return torch.where(bad, found, elem), stats[3], act.sum(dtype=torch.int32)
+    walk = walk_locate_into if mesh.dim == 2 else walk_locate_3d_into
+    walk(mesh.walk_geom, *_columns(x_orig), start, bad, max_iters, elem, stats)
+    return elem, stats[3], stats[2]
 
 
 def trace_particle_through_mesh(mesh, x_orig, x_tgt, elem_init: torch.Tensor,

@@ -1860,14 +1860,19 @@ def _parent_claims(m, n, seed, dev):
             torch.from_numpy(act).to(dev))
 
 
+@pytest.mark.parametrize("order", ["grouped", "scattered"])
 @pytest.mark.parametrize("n", [0, 1000, 300_001])
 @pytest.mark.parametrize("form", ["rows", "columns"])
 @pytest.mark.parametrize("locator", [False, True])
 @pytest.mark.parametrize("mode", ["delete", "repair"])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_check_parents_kernel_equals_plain(dev, mesh, dim, mode, locator, form, n):
-    """Kernel J and the repair walk against the plain version, with the
-    walks started from the clamped parent or from the locator's guess."""
+def test_check_parents_kernel_equals_plain(dev, mesh, dim, mode, locator, form, n, order):
+    """Kernel J and the repair walk in place (L's in 2D, L3's in 3D)
+    against the plain version, with the walks started from the clamped
+    parent or from the locator's guess; the slots grouped by claimed
+    parent (neighbouring slots share rows) or scattered against slot order
+    (the 2D path's order after a walk).  The repair launches J and one
+    walk, the delete mode J alone."""
     from pumipic_torch.mesh.core import Mesh3D
     from pumipic_torch.mesh.generate import box_tet_mesh
     from pumipic_torch.mesh.locator import build_locator_grid_3d
@@ -1878,15 +1883,59 @@ def test_check_parents_kernel_equals_plain(dev, mesh, dim, mode, locator, form, 
         build = build_locator_grid if dim == 2 else build_locator_grid_3d
         grid = build(m.coords.cpu().numpy(), m.elem2verts.cpu().numpy(), device=dev)
     x, claim, act = _parent_claims(m, n, 5 + dim, dev)
+    if order == "grouped":
+        perm = torch.argsort(claim, stable=True)
+    else:
+        perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(n),
+                              device=dev)
+    x, claim, act = x[perm].contiguous(), claim[perm], act[perm]
     xo = x if form == "rows" else tuple(x.unbind(1))     # strided views, no copy
-    n0 = kernels.LAUNCHES["check_parents"]
+    walk = "locate" if dim == 2 else "locate3d"
+    n0 = dict(kernels.LAUNCHES)
     got = se.check_initial_parents(m, xo, claim, act, mode, locator=grid)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["check_parents"] == n0 + 1
+    grown = {k: v - n0[k] for k, v in kernels.LAUNCHES.items() if v != n0[k]}
+    assert grown == ({"check_parents": 1} if mode == "delete"
+                     else {"check_parents": 1, walk: 1})
     want = se.check_parents_plain(m, xo, claim, act, mode, locator=grid)
     _equal(got, want)
     if n:
         assert int(got[1]) > 0 and (mode == "delete") == (int(got[2]) == 0)
+
+
+@pytest.mark.parametrize("max_iters", [64, 3, 0])
+@pytest.mark.parametrize("share", [0.0, 0.001, 0.3, 1.0])
+@pytest.mark.parametrize("n", [1, 4097, 400_000])
+def test_plain_walk_3d_kernel_in_place_equals_plain(dev, n, share, max_iters):
+    """Kernel L3's sparse plain walk in place on column views of an (N, 3)
+    tensor against its plain version, at walker shares from none to all:
+    the walkers' slots and the counts added to the stats; the other slots
+    untouched."""
+    from pumipic_torch.mesh.core import Mesh3D
+    from pumipic_torch.mesh.generate import box_tet_mesh
+
+    m = Mesh3D.from_arrays(*box_tet_mesh(6, 6, 6), device=dev)
+    g = torch.Generator(device=dev).manual_seed(n + int(share * 1000))
+    lo_, hi = m.coords.amin(0), m.coords.amax(0)
+    x = lo_ - 0.1 + (hi - lo_ + 0.2) * torch.rand(n, 3, generator=g, device=dev)
+    x[:5] = float("nan")
+    start = torch.randint(-2, m.nelems + 2, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    walkers = torch.rand(n, generator=g, device=dev) < share
+    base = torch.randint(-1, m.nelems, (n,), generator=g, device=dev, dtype=torch.int32)
+    e_k, e_p = base.clone(), base.clone()
+    s_k = torch.tensor([0, 0, 0, 5], dtype=torch.int32, device=dev)
+    s_p = s_k.clone()
+    args = (m.walk_geom, *x.unbind(1), start, walkers, max_iters)
+    n0 = kernels.LAUNCHES["locate3d"]
+    se.walk_locate_3d_into(*args, e_k, s_k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["locate3d"] == n0 + 1
+    se.walk_locate_3d_into_plain(*args, e_p, s_p)
+    assert torch.equal(e_k, e_p) and torch.equal(s_k, s_p)
+    assert torch.equal(e_k[~walkers], base[~walkers])
+    full = se.walk_locate_3d_plain(m.walk_geom, x, start, walkers, max_iters)
+    assert torch.equal(e_k[walkers], full[0][walkers])
 
 
 @pytest.mark.parametrize("max_iters", [64, 3, 0])

@@ -1,8 +1,10 @@
 """Parity of the port's parent check (kernel J's plain version,
 ``check_parents_plain``, behind ``check_initial_parents`` and
-``trace_particle_through_mesh(validate_parents=...)``) and of kernel L's
-plain walk in its sparse and in-place forms (``walk_locate`` on column
-views, ``walk_locate_into``) with the JAX reference.
+``trace_particle_through_mesh(validate_parents=...)``) and of the plain
+walks in their sparse and in-place forms (kernel L's ``walk_locate`` on
+column views and ``walk_locate_into``, kernel L3's ``walk_locate_3d_into``)
+with the JAX reference; and of J's 2D table, ``parent_rows``, with the
+``walk_geom`` rows it is cut from.
 
 Inputs are made from a seed with numpy and handed to both packages: a disk
 mesh (2D) and ``box_tet_mesh(4, 4, 4)`` (3D); claimed parents right, a
@@ -231,3 +233,117 @@ def test_walk_locate_refuses_other_devices():
     with pytest.raises(ValueError, match="no kernel or plain version"):
         t_se.walk_locate_into(geom, f, f, e, a, 4, e, torch.zeros(4, dtype=torch.int32,
                                                                    device="meta"))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("form", ["rows", "columns"])
+@pytest.mark.parametrize("share", [0.0, 0.01, 1.0])
+def test_check_parents_3d_repair_in_place_matches_reference(meshes, share, form, dtype):
+    """The 3D repair as J's plain version and the plain walk in place
+    (``walk_locate_3d_into_plain``), origins as (N, 3) rows or as column
+    views: every particle good, 1% bad, every one bad; ids and counts equal
+    the JAX function's, and a good particle keeps its parent."""
+    jm = meshes[3][0]
+    pts, claim, act = _claims(jm, 3, 3000, 90)
+    act[:] = True
+    pts[190:216] = pts[300:326]                   # no NaN, inf or off-mesh origin
+    claim[:190] = np.arange(190) % jm.nelems      # every claim in range, ...
+    jr0 = np.asarray(j_se.check_initial_parents(jm, jnp.asarray(pts),
+                                                jnp.asarray(claim.astype(np.int32)),
+                                                jnp.asarray(act), mode="delete")[0])
+    claim[jr0 < 0] = np.asarray(j_se.search_mesh_3d(
+        jm, jnp.asarray(pts), jnp.asarray(pts), jnp.zeros(claim.size, jnp.int32),
+        jnp.asarray(jr0 < 0), 200).elem_ids)[jr0 < 0]          # ... and right
+    rng = np.random.default_rng(11)
+    pick = rng.uniform(size=claim.size) < share
+    claim[pick] = (claim[pick] + 1 + rng.integers(0, jm.nelems - 1, int(pick.sum()))) \
+        % jm.nelems
+    jr, tr, pr = _both(meshes, 3, pts, claim, act, "repair", False, dtype,
+                       columns=form == "columns")
+    want = np.asarray(jr[0])
+    for got in (tr, pr):
+        np.testing.assert_array_equal(got[0].numpy(), want)
+        assert int(got[1]) == int(jr[1]) and int(got[2]) == int(jr[2])
+    if share == 0.0:
+        assert int(jr[1]) == 0 and (want == claim).all()
+    else:
+        assert int(jr[1]) >= int(pick.sum()) * 9 // 10 and int(jr[2]) > 0
+    if share == 1.0:
+        assert int(jr[1]) > 2900
+
+
+def test_check_parents_3d_repair_no_particles(meshes):
+    """N = 0 with the origin given as columns: no walk, no count."""
+    _, tm, _, _ = meshes[3]
+    for x in (torch.zeros(0, 3), tuple(torch.zeros(0, 3).unbind(1))):
+        for fn in (t_se.check_initial_parents, t_se.check_parents_plain):
+            elem, nb, nr = fn(tm, x, torch.zeros(0, dtype=torch.int64),
+                              torch.zeros(0, dtype=torch.bool), "repair")
+            assert elem.shape == (0,) and elem.dtype == torch.int32
+            assert int(nb) == 0 and int(nr) == 0
+
+
+@pytest.mark.parametrize("max_iters", [200, 6, 1, 0])
+def test_sparse_plain_walk_3d_in_place_matches_reference(meshes, max_iters):
+    """Kernel L3's plain walk in place (``walk_locate_3d_into``, its plain
+    version on the CPU) on column views: 300 walkers among 10^5 slots, some
+    destinations off the mesh or NaN, some starts out of range; the
+    walkers' slots equal JAX ``search_mesh_3d``'s ids on the same walkers,
+    the other slots keep their values, and the counts add to what the
+    stats held."""
+    jm, tm, _, _ = meshes[3]
+    n, w = 100_000, 300
+    rng = np.random.default_rng(13)
+    ev, cz = np.asarray(jm.elem2verts), np.asarray(jm.coords)
+    e = rng.integers(0, jm.nelems, n)
+    dest = np.einsum("nk,nkd->nd", rng.dirichlet(np.ones(4), n), cz[ev[e]]).astype(np.float32)
+    idx = rng.choice(n, w, replace=False)
+    act = np.zeros(n, bool)
+    act[idx] = True
+    dest[idx[:20]] = rng.uniform(1.2, 2.0, (20, 3))          # off the box
+    dest[idx[20:25]] = np.nan
+    start = rng.integers(0, jm.nelems, n).astype(np.int32)
+    start[idx[25:35]] = rng.integers(-4, 0, 10)
+    start[idx[35:45]] = jm.nelems + 2
+    jr = j_se.search_mesh_3d(jm, jnp.asarray(dest), jnp.asarray(dest), jnp.asarray(start),
+                             jnp.asarray(act), max_iters)
+    want = np.asarray(jr.elem_ids)
+    before = torch.from_numpy(rng.integers(-1, jm.nelems, n).astype(np.int32))
+    elem = before.clone()
+    stats = torch.tensor([0, 0, 0, 7], dtype=torch.int32)
+    walkers = torch.from_numpy(act)
+    t_se.walk_locate_3d_into(tm.walk_geom, *torch.from_numpy(dest).unbind(1),
+                             torch.from_numpy(start), walkers, max_iters, elem, stats)
+    np.testing.assert_array_equal(elem.numpy()[act], want[act])
+    assert torch.equal(elem[~walkers], before[~walkers])
+    found = int((want[act] >= 0).sum())
+    assert int(stats[2]) == found and int(stats[3]) == 7
+    assert int(stats[0]) == int(jr.iters)
+    assert (int(stats[1]) == 0) == bool(jr.all_found)
+    if max_iters == 0:
+        assert found == 0 and int(stats[1]) == w
+    if max_iters == 200:            # the off-box and NaN walkers are deleted
+        assert 0 < found <= w - 25 and (want[idx[:25]] == -1).all()
+
+
+def test_parent_rows_are_walk_geom_affine_rows(meshes):
+    """J's 2D table: (E, 8) f32, ``walk_geom[:, :6]`` bit for bit and two
+    zero pads; kept while ``walk_geom`` is unchanged, built again after an
+    in-place write and for another ``walk_geom`` tensor."""
+    import dataclasses
+
+    tm = meshes[2][1]
+    m = dataclasses.replace(tm, walk_geom=tm.walk_geom.clone())
+    rows = t_se.parent_rows(m)
+    assert rows.shape == (m.nelems, 8) and rows.dtype == torch.float32
+    assert rows.is_contiguous()
+    assert torch.equal(rows[:, :6].view(torch.int32), m.walk_geom[:, :6].view(torch.int32))
+    assert torch.equal(rows[:, 6:], torch.zeros(m.nelems, 2))
+    assert t_se.parent_rows(m) is rows
+    m.walk_geom[3, 4] = -2.5                     # written in place
+    again = t_se.parent_rows(m)
+    assert again is not rows and float(again[3, 4]) == -2.5
+    assert torch.equal(again[:, :6], m.walk_geom[:, :6])
+    other = dataclasses.replace(m, walk_geom=m.walk_geom.clone())   # another tensor
+    assert t_se.parent_rows(other) is not again
+    assert torch.equal(t_se.parent_rows(other), again)
