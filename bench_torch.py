@@ -26,7 +26,10 @@ round((BENCH_ELEMS / 6)^(1/3)) (16 for the default 24,000: 24,576 tets),
 10M particles, a periodic wall, 64 search iterations.  Each step is push +
 wrap + analytic Kuhn locate (kernel K) or, with ``BENCH_KUHN=off``, push +
 wrap + peel + BCC walk (kernel L3), then the structure's rebuild (DPS:
-kernel Q; a sorted layout: kernels C, H, S, G and Q); with
+kernel Q; a sorted layout: kernels C, H, S, G and Q, Sell-C-σ's row
+order kernel C over kernel Z's key; ``BENCH_REBUILD=auto`` on scs or
+cabm: kernel U1, then the reshuffle, kernels C, G and U2, where the
+movers fit the padding, else the sort rebuild); with
 ``BENCH_WALL=reflect`` push (K's push-only form) + peel + BCC walk with the
 reflecting wall (kernel M), then the rebuild.
 

@@ -7,7 +7,7 @@ sources in this checkout.  Phases, each raising on failure:
 
 (a) require a CUDA device; print its name and power limit (nvidia-smi) and
     the torch / CUDA versions;
-(b) build the kernels of the eighteen sources (P push and its table mode
+(b) build the kernels of the twenty sources (P push and its table mode
     ``push_table``, B band cell, A annulus locate, L locate, H histogram and
     its weighted mode W ``wall_tally``, D deposit, G row gather, S slot map,
     K Kuhn push + locate and its push-only form ``push_wrap``, L3 tet
@@ -16,7 +16,9 @@ sources in this checkout.  Phases, each raising on failure:
     weighted deposit, F ``gitr_update`` the GITR step's specular velocity
     and state update, Q ``rebuild_mask`` the rebuild's mask rewrite and
     count, C ``key_sort`` the rebuild's stable element sort, the
-    distributed step's X1 ``rank_in_key``, X2
+    reshuffle-or-rebuild's U1 ``reshuffle_count`` and U2
+    ``reshuffle_place`` and the Sell-C-σ row order's Z (``scs_row_keys``,
+    ``scs_row_maps``), the distributed step's X1 ``rank_in_key``, X2
     ``pack_send``, X3 ``place_arrivals`` and O ``owner_reduce``), one nvcc
     per source, all at once, and keep
     ptxas's registers, shared memory and spills of each source's entry
@@ -48,7 +50,10 @@ sources in this checkout.  Phases, each raising on failure:
     the rebuild's (elem, active, E) keeping the key and on the 0/1
     partition's mask; keys outside [0, K]: 100 among the app's, keys in
     [-K, K], every int32; each bit-equal to ``torch.sort(stable=True)``,
-    with its design floor beside its bound); B and L's
+    with its design floor beside its bound); Z's key and maps and the row
+    order they make with C (against the torch code Z replaced and one
+    ``torch.sort(-win, dim=1, stable=True)``) on the located particles'
+    counts (122,603 elements); B and L's
     given-cells mode on the flux-band grid; A on the 23,976-element annulus at 10M, in the
     generator's element order and through a random element permutation;
     P's table mode at 10M over the (122,603, 2) rotation table; on
@@ -61,7 +66,12 @@ sources in this checkout.  Phases, each raising on failure:
     counted for the id pair it reads and, beside it, for the 26-column
     rows the first L3 read; its resident blocks per SM), and the walk
     arm's ids held against the Kuhn arm's (ties on shared faces counted);
-    M's peel form (BCC core, reflecting wall) on the pps3d-dps-reflect
+    on the auto rebuild's Sell-C-σ and CabM structures of those particles
+    (extra padding 0.15), U1 after one push of the auto arms' 0.001 (2.7%
+    movers) and of the default 0.05 (the fallback), U2 after pushes of
+    0.002 and 0.004 (5.4%, 10.7%) in both layouts, each call's and the
+    whole reshuffle's device work counted from a captured CUDA graph, and
+    Z on the padded counts (24,576 tets); M's peel form (BCC core, reflecting wall) on the pps3d-dps-reflect
     arm's first-step targets.  On the GITR-style app's 32^3 box (196,608
     tets) at 10M particles: R on the seeded state, M on R's targets in each
     core with remove and reflect and record_exit, on far targets (random
@@ -109,10 +119,18 @@ sources in this checkout.  Phases, each raising on failure:
     particles on the Kuhn box: the Kuhn arm (``pps3d-dps``, K and Q and no
     L3 or P) and the walk arm (``pps3d-dps-walk``, K's push-only form, L3
     and Q, no K locate) with 1 + 20
-    steps, then ``pps3d-scs`` with 1 + 3 (C, Q, S and G on tets) and
-    ``pps3d-dps-reflect`` with 1 + 3 (K's push-only form, M and Q, no L3);
-    require ``num_ptcls`` equal to the active count, no overflow, and all
-    10M alive in the Kuhn arm.  Then the GITR-style app through
+    steps, then ``pps3d-scs`` with 1 + 3 (C, Q, Z, S and G on tets),
+    ``pps3d-dps-reflect`` with 1 + 3 (K's push-only form, M and Q, no L3)
+    and the reshuffle-or-rebuild (``rebuild="auto"``) with 1 + 3:
+    ``pps3d-scs-auto`` and ``pps3d-cabm-auto`` at a push of 0.001 (every
+    step a reshuffle: U1, C, G and U2 and no slot map) and
+    ``pps3d-scs-auto-fallback`` at the default push (every step U1, then
+    the sort rebuild, no U2), each step's rebuild checked on the device
+    (its launch set; num_ptcls the active count, no overflow; the pids'
+    count and sum kept; every stayer in its slot; every particle's element
+    its destination, matched by pid; every active slot in its element's
+    segment) and its mover share logged; require ``num_ptcls`` equal to
+    the active count, no overflow, and all 10M alive in the Kuhn arms.  Then the GITR-style app through
     ``bench_torch.main(mode="gitr")`` at 10M particles on the 196,608-tet
     box: ``gitr-reflect`` with 1 + 20 steps (all 10M alive throughout) and
     ``gitr-absorb`` with 1 + 3 (``wall_hits`` summing to the particles
@@ -121,7 +139,7 @@ sources in this checkout.  Phases, each raising on failure:
     grid, then ``run``) at 10M particles on the 120k mesh: Sell-C-σ with 1
     warm-up + 20 timed steps (ms per step from the port's timing registry),
     then CSR, CabM and DPS with 1 + 3; require each layout's launch set
-    (the sorted layouts C, Q and G, SCS and CabM S too; DPS steps Q alone
+    (the sorted layouts C, Q and G, SCS and CabM S too, SCS Z; DPS steps Q alone
     of them), ``num_ptcls`` equal to the active
     count, no overflow, every active element in range and the active pids
     equal to those the last search kept.  After the Sell-C-σ run, G's
@@ -244,6 +262,14 @@ KERNELS = {  # name -> (route, source, replaces)
                  "pumipic_tpu/particles/structure.py:557"),
     "check_parents": ("cuda", "pumipic_torch/kernels/csrc/parents.cu",
                       "pumipic_tpu/ops/search.py:1527"),
+    "reshuffle_count": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
+                        "pumipic_tpu/particles/structure.py:702"),
+    "reshuffle_place": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
+                        "pumipic_tpu/particles/structure.py:733"),
+    "scs_row_keys": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
+                     "pumipic_tpu/particles/structure.py:312"),
+    "scs_row_maps": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
+                     "pumipic_tpu/particles/structure.py:312"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -253,8 +279,9 @@ PEAK_F32_OPS_PER_S = 67e12
 
 # the app arms of phase d: structure -> kernels each run's steps must launch
 _SORTED = ("key_sort", "rebuild_mask", "row_gather")
+_SCS_ROWS = ("scs_row_keys", "scs_row_maps")
 APP_ARMS = {
-    "scs": ("push", "locate", "histogram", "deposit", "slot_map") + _SORTED,
+    "scs": ("push", "locate", "histogram", "deposit", "slot_map") + _SORTED + _SCS_ROWS,
     "csr": ("push", "locate", "histogram", "deposit") + _SORTED,
     "cabm": ("push", "locate", "histogram", "deposit", "slot_map") + _SORTED,
     "dps": ("push", "locate", "histogram", "deposit", "rebuild_mask"),
@@ -277,6 +304,11 @@ ARMS = {
 # pseudoPushAndSearch's arms of phase d: bench_torch.main keywords, steps,
 # the kernels each run must launch and those it must not
 PPS3D_ELEMS = 24_000              # box_tet_mesh(16, 16, 16): 24,576 tets
+# the auto arms' push: 2.7% of the particles change tet a step at 10M
+# (scripts/reshuffle_share.py), inside the reshuffle's padding for the
+# arms' 4 steps and more; phase c's U2 cases push 2 and 4 times as far
+# from the built structure (5.4%, 10.7% of the particles)
+AUTO_DIST = 0.001
 _PUSHES_2D = ("push", "push_table")
 PPS3D_ARMS = {
     "pps3d-dps": ({"kuhn": "auto"}, TIMED_STEPS, ("kuhn_locate", "rebuild_mask"),
@@ -285,8 +317,27 @@ PPS3D_ARMS = {
                        ("push_wrap", "locate3d", "rebuild_mask"),
                        ("kuhn_locate",) + _PUSHES_2D),
     "pps3d-scs": ({"kuhn": "auto", "structure": "scs"}, 3,
-                  ("kuhn_locate", "slot_map", "row_gather", "key_sort", "rebuild_mask"),
-                  ("locate3d", "push_wrap") + _PUSHES_2D),
+                  ("kuhn_locate", "slot_map", "row_gather", "key_sort", "rebuild_mask")
+                  + _SCS_ROWS, ("locate3d", "push_wrap") + _PUSHES_2D),
+    # the reshuffle-or-rebuild (rebuild="auto", extra padding 0.15): a short
+    # push takes the reshuffle every step (U1, C, G, U2; no slot map), the
+    # default push falls back to the sort every step (U1, then the sort
+    # rebuild; no U2); the set-up's sorted build launches S, H and Z, so
+    # each step's launches are checked with its rebuild (check_auto_step)
+    "pps3d-scs-auto": ({"kuhn": "auto", "structure": "scs", "rebuild": "auto",
+                        "distance": AUTO_DIST}, 3,
+                       ("kuhn_locate", "reshuffle_count", "key_sort", "row_gather",
+                        "reshuffle_place", "rebuild_mask"),
+                       ("locate3d", "push_wrap") + _PUSHES_2D),
+    "pps3d-cabm-auto": ({"kuhn": "auto", "structure": "cabm", "rebuild": "auto",
+                         "distance": AUTO_DIST}, 3,
+                        ("kuhn_locate", "reshuffle_count", "key_sort", "row_gather",
+                         "reshuffle_place", "rebuild_mask"),
+                        ("locate3d", "push_wrap") + _PUSHES_2D),
+    "pps3d-scs-auto-fallback": ({"kuhn": "auto", "structure": "scs", "rebuild": "auto"}, 3,
+                                ("kuhn_locate", "reshuffle_count", "key_sort", "slot_map",
+                                 "row_gather", "rebuild_mask", "histogram") + _SCS_ROWS,
+                                ("reshuffle_place", "locate3d", "push_wrap") + _PUSHES_2D),
     "pps3d-dps-reflect": ({"kuhn": "off", "wall": "reflect"}, 3,
                           ("push_wrap", "trace3d", "rebuild_mask"),
                           ("kuhn_locate", "locate3d") + _PUSHES_2D),
@@ -1752,6 +1803,226 @@ def check_columns(results: dict, what: str, cols, src) -> None:
                    lambda: [c[src.long()] for c in cols], results)
 
 
+# ---------------------------------------------------------------------------
+# U1, U2, Z: the reshuffle-or-rebuild and the Sell-C-σ row order
+# ---------------------------------------------------------------------------
+
+# a reshuffle's device work besides Q (before it): U1 (a memset, one
+# kernel); then C (a memset, the histogram and the passes), G, the fields'
+# clone (a copy a field: pps3d's x and pid) and U2 (four memsets, one
+# kernel)
+U1_NODES = {"memset": 1, "kernel": 1}
+RESHUFFLE_NODES = {"memset": 5, "kernel": 4, "memcpy": 2}
+U2_NODES = {"memset": 4, "kernel": 1, "memcpy": 2}
+
+
+def auto_structure(dev, layout: str, E: int, x, elem):
+    """pps3d's auto-rebuild structure (extra padding 0.15; Sell-C-σ chunks
+    of 8, one window, or CabM) of the particles at ``x`` in tets ``elem``
+    (element-sorted), pids in slot order."""
+    from pumipic_torch.particles import structure as st
+
+    fields = {"x": x, "pid": torch.arange(x.shape[0], dtype=torch.int32, device=dev)}
+    e = elem.cpu().numpy()
+    if layout == "scs":
+        return st.SellCSigma(E, e, fields=fields, device=dev, scs_input=st.SCSInput(
+            chunk_size=8, sigma=None, extra_padding=0.15))
+    return st.CabM(E, e, fields=fields, extra_padding=0.15, device=dev)
+
+
+def pushed_elem(kuhn, ps, direction, wrap, distance: float):
+    """Kernel Q's destinations for one Kuhn push of ``ps`` by ``distance``."""
+    from pumipic_torch.ops import locate as lo
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import rebuild as rb
+
+    _, tgt = lo.kuhn_push_locate(kuhn, ps.get("x"), ps.active,
+                                 push_ops.step_vector(direction, distance), wrap)
+    return rb.rebuild_mask_dps(tgt, ps.active, ps.num_elems)[0]
+
+
+def check_reshuffle_count(results: dict, ps, elem, what: str):
+    """U1 on a rebuild's destinations: equal to its plain version (the
+    movers' counts, first places and list where n_mov fits the budget),
+    timed beside it, its bound and its device work.  Returns its outputs
+    and the budget."""
+    from pumipic_torch.ops import rebuild as rb
+    from pumipic_torch.particles import structure as st
+
+    MB = st._reshuffle_mover_budget(ps.capacity)
+    args = (elem, ps.elem, ps.seg_cap, MB)
+    got, want = rb.reshuffle_count(*args), rb.reshuffle_count_plain(*args)
+    fits, n_mov = want.info.tolist()
+    k = min(n_mov, MB)
+    pairs = [(got.info, want.info), (got.num, want.num), (got.stay_cnt, want.stay_cnt),
+             (got.msrc[:k], want.msrc[:k]), (got.mkey[:k], want.mkey[:k])]
+    if n_mov <= MB:
+        pairs += [(got.mov_cnt, want.mov_cnt), (got.mov_start, want.mov_start)]
+    C, E = ps.capacity, ps.num_elems
+    log(f"[c] reshuffle_count {what}: {n_mov} movers ({n_mov / int(ps.num_ptcls):.4f} of "
+        f"the particles), budget {MB}, fits {bool(fits)}")
+    compare("reshuffle_count", f"{what} ({C} slots, {E} tets)",
+            tuple(a for a, _ in pairs), tuple(b for _, b in pairs), results)
+    time_pair("reshuffle_count", what, lambda: rb.reshuffle_count(*args),
+              lambda: rb.reshuffle_count_plain(*args), results)
+    record_bound("reshuffle_count", what, results,
+                 nbytes(elem, ps.elem, ps.seg_cap, got.mov_start, got.info)
+                 + 8 * E + 8 * k)
+    record_launches("reshuffle_count", what, lambda: rb.reshuffle_count(*args), results,
+                    U1_NODES)
+    return got, MB
+
+
+def check_reshuffle_place(results: dict, ps, elem, what: str) -> None:
+    """U2 at a reshuffle of ``ps`` into ``elem``, on its own inputs (U1's
+    counts, C's mover slots in destination order, G's staged rows): equal
+    to its plain version on every slot and field, timed beside it, its
+    bound (each slot's ids in the segments read, the fields cloned: read
+    and written, the staged rows read, each slot's id and mask written)
+    and its device work; and the whole reshuffle after the host's read."""
+    from pumipic_torch.ops import rebuild as rb
+    from pumipic_torch.particles import structure as st
+
+    counted = rb.reshuffle_count(elem, ps.elem, ps.seg_cap,
+                                 st._reshuffle_mover_budget(ps.capacity))
+    stride = ps.chunk_size if ps.layout == "scs" else 1
+    fits, n_mov = counted.info.tolist()
+    if not fits:
+        raise AssertionError(f"reshuffle_place {what}: the reshuffle does not fit")
+    take = rb.key_sort(counted.mkey[:n_mov], ps.num_elems - 1, values=counted.msrc[:n_mov])
+    staged, _ = st._gather_fields(ps.fields, take)
+    args = (elem, ps.elem, ps.elem_offsets, ps.seg_cap, counted.mov_cnt, counted.mov_start,
+            ps.fields, staged, stride, ps.overflowed, ps.row_to_elem)
+    got, want = rb.reshuffle_place(*args), rb.reshuffle_place_plain(*args)
+
+    def flat(out):
+        return (out[0], out[1], *(f.view(torch.int32) if f.dtype == torch.float32 else f
+                                  for f in out[2].values()), out[3], out[4])
+
+    C, E = ps.capacity, ps.num_elems
+    log(f"[c] reshuffle_place {what}: {n_mov} movers ({n_mov / int(ps.num_ptcls):.4f}), "
+        f"{int(got[3])} particles held")
+    compare("reshuffle_place", f"{what} ({C} slots, {E} tets, {ps.layout})", flat(got),
+            flat(want), results)
+    if int(got[3]) != int((elem >= 0).sum()) or bool(got[4]):
+        raise AssertionError(f"reshuffle_place {what}: a particle lost")
+    time_pair("reshuffle_place", what, lambda: rb.reshuffle_place(*args),
+              lambda: rb.reshuffle_place_plain(*args), results, plain_reps=2)
+    seg_slots = int(ps.seg_cap.sum())
+    field_bytes = sum(nbytes(f) for f in ps.fields.values())
+    record_bound("reshuffle_place", what, results,
+                 8 * seg_slots + 16 * E + sum(nbytes(f) for f in staged.values())
+                 + 2 * field_bytes + nbytes(got[0], got[1]))
+    record_launches("reshuffle_place", what, lambda: rb.reshuffle_place(*args), results,
+                    U2_NODES)
+    active = elem >= 0
+    record_launches("reshuffle_place", f"{what}, the reshuffle (C, G, the clone, U2)",
+                    lambda: st._reshuffle(ps, elem, active, counted, n_mov), results,
+                    RESHUFFLE_NODES)
+
+
+def scs_row_order_torch(counts, sigma: int, chunk: int, E: int):
+    """The row order as the port computed it before kernel Z: torch's
+    stable sort of the negated counts in σ windows, a scatter for the
+    element -> row map and an amax over each chunk (the yardstick of Z's
+    row order; the port never calls it)."""
+    R = -(-max(E, 1) // chunk) * chunk
+    sigma = min(sigma, R)
+    nwin = -(-R // sigma)
+    cpad = torch.full((nwin * sigma,), -1, dtype=counts.dtype, device=counts.device)
+    cpad[:E] = counts
+    order = torch.sort(-cpad.reshape(nwin, sigma), dim=1, stable=True).indices
+    base = (torch.arange(nwin, device=counts.device) * sigma)[:, None]
+    r2e = (order + base).reshape(-1)[:R].to(torch.int32)
+    e2r = torch.zeros(R, dtype=torch.int32, device=counts.device)
+    e2r[r2e.long()] = torch.arange(R, dtype=torch.int32, device=counts.device)
+    rc = cpad[r2e.long()]
+    return r2e, e2r[:E], torch.amax(torch.where(rc > 0, rc, 0).reshape(R // chunk, chunk),
+                                    dim=1)
+
+
+def check_scs_row_order(results: dict, counts, num_ptcls: int, what: str) -> None:
+    """Z (its key and its maps, C between them) on a rebuild's padded
+    counts: each equal to its plain version, the row order equal to the
+    torch row order Z replaced; each timed beside its plain version, the
+    row order beside that torch code and beside one ``torch.sort(-win,
+    dim=1, stable=True)``; bounds and device work."""
+    from pumipic_torch.ops import rebuild as rb
+    from pumipic_torch.particles import structure as st
+
+    E, chunk = counts.shape[0], 8
+    R = -(-E // chunk) * chunk
+    order, e2r, width = st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls)
+    bits = st._scs_key_bits(1, E, num_ptcls, 0.0)
+    kargs = (counts, R, R, bits)
+    key = rb.scs_row_keys(*kargs)
+    compare("scs_row_keys", f"{what} ({E} counts, {bits} bits)", key,
+            rb.scs_row_keys_plain(*kargs), results)
+    time_pair("scs_row_keys", what, lambda: rb.scs_row_keys(*kargs),
+              lambda: rb.scs_row_keys_plain(*kargs), results)
+    record_bound("scs_row_keys", what, results, nbytes(counts, key))
+    margs = (order, counts, chunk)
+    compare("scs_row_maps", f"{what} ({R} rows)", rb.scs_row_maps(*margs),
+            rb.scs_row_maps_plain(*margs), results)
+    compare("scs_row_maps", f"{what}, the row order against the torch code Z replaced",
+            (order, e2r, width), scs_row_order_torch(counts, 2**30, chunk, E), results)
+    time_pair("scs_row_maps", what, lambda: rb.scs_row_maps(*margs),
+              lambda: rb.scs_row_maps_plain(*margs), results)
+    record_bound("scs_row_maps", what, results, nbytes(order, counts, e2r, width))
+    win = torch.full((R,), -1, dtype=counts.dtype, device=counts.device)
+    win[:E] = counts
+    win = win.reshape(1, R)
+    record_library("scs_row_maps", what, "torch.sort(-win, dim=1, stable=True)",
+                   lambda: torch.sort(-win, dim=1, stable=True), results)
+    row = f"{what}, the row order (Z's key, C, Z's maps)"
+    time_pair("scs_row_maps", row,
+              lambda: st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls),
+              lambda: scs_row_order_torch(counts, 2**30, chunk, E), results, record=False)
+    record_launches("scs_row_maps", row,
+                    lambda: st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls),
+                    results, {"memset": 1, "kernel": 4})
+
+
+def check_reshuffle(results: dict, dev, mesh, seeded) -> None:
+    """U1, U2 and Z at pseudoPushAndSearch's shapes: the auto rebuild's
+    Sell-C-σ and CabM structures (extra padding 0.15) of phase c's 10M
+    seeded particles on the Kuhn box; U1 after one push of the auto arms'
+    distance (every mover fits) and of the default (the fallback); U2
+    after pushes of 2 and 4 times the arms' (5.4% and 10.7% of the
+    particles move), in both layouts; Z on the Sell-C-σ structure's padded
+    counts (24,576 tets)."""
+    import numpy as np
+
+    from pumipic_torch.mesh.locator import detect_box_kuhn
+    from pumipic_torch.models import pseudo_push_and_search as pps
+    from pumipic_torch.ops.scatter import histogram
+    from pumipic_torch.particles import structure as st
+
+    kuhn = detect_box_kuhn(mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(),
+                           device=dev)
+    d = np.asarray(pps.PushSearchConfig().push_dir, np.float64)
+    direction = (d / np.linalg.norm(d)).astype(np.float32)
+    coords = mesh.coords.cpu().numpy()
+    wrap = (coords.min(axis=0), coords.max(axis=0) - coords.min(axis=0))
+    x, elem0 = seeded
+    E = mesh.nelems
+    for layout in ("scs", "cabm"):
+        ps = auto_structure(dev, layout, E, x, elem0)
+        if layout == "scs":
+            for dist, what in ((AUTO_DIST, "pps3d-scs-auto"),
+                               (pps.PushSearchConfig().distance, "pps3d-scs-auto-fallback")):
+                check_reshuffle_count(results, ps, pushed_elem(kuhn, ps, direction, wrap, dist),
+                                      f"{what}, one push of {dist}")
+            counts = st._scs_pad_counts(histogram(ps.elem, ps.active, E), 0.15,
+                                        "proportionally")
+            check_scs_row_order(results, counts, ps.capacity, f"pps3d-scs-auto, {E} tets")
+        for dist in (2 * AUTO_DIST, 4 * AUTO_DIST):
+            check_reshuffle_place(results, ps, pushed_elem(kuhn, ps, direction, wrap, dist),
+                                  f"pps3d-{layout}-auto, one push of {dist}")
+        del ps
+        torch.cuda.empty_cache()
+
+
 def check_app_slices(dev) -> None:
     """The PseudoXGCm app in each layout at a small size, 3 steps on the
     card and on the CPU: every structure array and field, fwd, bwd and
@@ -2906,11 +3177,14 @@ def phase_c(results: dict, dev, smi: str):
     here (phase d reuses them), and the band grid's build seconds."""
     from pumipic_torch.mesh.core import Mesh2D
     from pumipic_torch.mesh.gmsh import read_msh
+    from pumipic_torch.ops.scatter import histogram
 
     mesh = Mesh2D.from_arrays(*read_msh(MESH), device=dev)
     s, model, elem, active, x = check_cartesian(results, dev, mesh)
     check_pprad(results, dev, mesh, elem, active)
     check_rows(results, dev, mesh, s, model, elem, active)
+    check_scs_row_order(results, histogram(elem, active, mesh.nelems), elem.shape[0],
+                        f"app scs, {mesh.nelems} triangles")
     grid = model.locator
     del s, model
     torch.cuda.empty_cache()
@@ -2925,6 +3199,8 @@ def phase_c(results: dict, dev, smi: str):
     check_annulus(results, dev)
     mesh3d, grid3d, seeded = check_pps3d(results, dev)
     check_parents_3d(results, dev, mesh3d, seeded)
+    torch.cuda.empty_cache()
+    check_reshuffle(results, dev, mesh3d, seeded)
     torch.cuda.empty_cache()
     gitr_mesh = check_gitr(results, dev)
     torch.cuda.empty_cache()
@@ -2995,6 +3271,79 @@ def phase_d(results: dict, dev, grid, band_grid, band_s: float, smi: str) -> Non
         del state, fields
 
 
+# the kernels an auto rebuild launches after Q: the reshuffle; the fallback
+# (U1, then the sort rebuild: C, H, Z's two kernels and C again for SCS, S,
+# G, Q's epilogue)
+AUTO_RESHUFFLE = {"reshuffle_count": 1, "key_sort": 1, "row_gather": 1, "reshuffle_place": 1}
+AUTO_FALLBACK = {
+    "scs": {"reshuffle_count": 1, "key_sort": 2, "histogram": 1, "scs_row_keys": 1,
+            "scs_row_maps": 1, "slot_map": 1, "row_gather": 1, "rebuild_mask": 1},
+    "cabm": {"reshuffle_count": 1, "key_sort": 1, "histogram": 1, "slot_map": 1,
+             "row_gather": 1, "rebuild_mask": 1}}
+
+
+def check_auto_step(ps, elem, out, grown: dict) -> dict:
+    """One auto rebuild of ``ps`` into ``elem`` (kernel Q's destinations)
+    giving ``out``, ``grown`` the launches it added: the branch's launch
+    set; num_ptcls equal to the active slots and no overflow; the pids kept
+    (count and sum); every stayer in its slot (a reshuffle); every active
+    particle's element its destination, matched by pid; every active slot
+    inside its element's segment.  Returns the step's mover share and
+    branch."""
+    reshuffled = grown.get("reshuffle_place", 0) > 0
+    want = AUTO_RESHUFFLE if reshuffled else AUTO_FALLBACK[ps.layout]
+    if grown != want:
+        raise AssertionError(f"auto rebuild launched {grown}, expected {want}")
+    stay = (elem >= 0) & (elem == ps.elem)
+    n_mov = int(((elem >= 0) & ~stay).sum())
+    act, keep = out.active, elem >= 0
+    n = int(out.num_ptcls)
+    if n != int(act.sum()) or n != int(keep.sum()) or bool(out.overflowed):
+        raise AssertionError(f"auto rebuild: num_ptcls {n}, active {int(act.sum())}, "
+                             f"destinations {int(keep.sum())}, overflowed "
+                             f"{bool(out.overflowed)}")
+    pid0, pid1 = ps.fields["pid"], out.fields["pid"]
+    if int(pid0[keep].sum(dtype=torch.int64)) != int(pid1[act].sum(dtype=torch.int64)):
+        raise AssertionError("auto rebuild: the pids' sum changed")
+    if reshuffled and not (torch.equal(pid1[stay], pid0[stay]) and bool(act[stay].all())):
+        raise AssertionError("auto rebuild: a stayer left its slot")
+    tgt = torch.full((ps.capacity,), -2, dtype=torch.int32, device=elem.device)
+    tgt[pid0[keep].long()] = elem[keep]
+    if not torch.equal(tgt[pid1[act].long()], out.elem[act]):
+        raise AssertionError("auto rebuild: a particle's element is not its destination")
+    slot = torch.nonzero(act).flatten()
+    e = out.elem[slot].long()
+    stride = out.chunk_size if out.layout == "scs" else 1
+    off = slot - out.elem_offsets[e]
+    if not bool(((off >= 0) & (off % stride == 0) & (off // stride < out.seg_cap[e])).all()):
+        raise AssertionError("auto rebuild: an active slot outside its element's segment")
+    return {"share": n_mov / int(ps.num_ptcls), "branch": "reshuffle" if reshuffled else "sort"}
+
+
+@contextlib.contextmanager
+def auto_steps():
+    """Inside the block, every ``rebuild(mode="auto")`` of a Sell-C-σ or
+    CabM structure is checked (:func:`check_auto_step`) and its record
+    appended to the list the block gets."""
+    from pumipic_torch import kernels
+    from pumipic_torch.particles import structure as st
+
+    real, steps = st._rebuild_auto, []
+
+    def checked(ps, elem, active):
+        before = dict(kernels.LAUNCHES)
+        out = real(ps, elem, active)
+        grown = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        steps.append(check_auto_step(ps, elem, out, grown))
+        return out
+
+    st._rebuild_auto = checked
+    try:
+        yield steps
+    finally:
+        st._rebuild_auto = real
+
+
 def run_pps3d(results: dict, dev, grid3d, smi: str) -> None:
     """pseudoPushAndSearch's arms through ``bench_torch.main(mode="pps3d")``
     at 10M particles on the Kuhn box, the counts reset just before each;
@@ -3006,16 +3355,30 @@ def run_pps3d(results: dict, dev, grid3d, smi: str) -> None:
         if kw["kuhn"] == "off":
             kw = dict(kw, locator=grid3d)
         reflect = kw.get("wall") == "reflect"
+        auto = kw.get("rebuild") == "auto"
         torch.cuda.empty_cache()
         kernels.reset_launches()
-        record, ps, fields = bench_torch.main(device=dev, num_ptcls=NUM_PTCLS, iters=steps,
-                                              mode="pps3d", mesh_elems=PPS3D_ELEMS, **kw)
+        with auto_steps() if auto else contextlib.nullcontext([]) as checked:
+            record, ps, fields = bench_torch.main(device=dev, num_ptcls=NUM_PTCLS,
+                                                  iters=steps, mode="pps3d",
+                                                  mesh_elems=PPS3D_ELEMS, **kw)
         counts = dict(kernels.LAUNCHES)
         det = record["detail"]
         log(f"[d] {name} (tag {det['tag']}, {det['mesh_elems']} tets): "
-            f"{det['ms_per_step']:.4f} ms/step over {steps} steps, {record['value']:.6g} "
+            f"{det['ms_per_step']:.4f} ms/step over {steps} steps"
+            f"{' (with the per-step checks)' if auto else ''}, {record['value']:.6g} "
             f"particle-steps/s, alive {det['alive']} of {det['num_ptcls']}, iters "
             f"{det['iters']} ({smi})")
+        if auto:
+            branch = "sort" if name.endswith("fallback") else "reshuffle"
+            log(f"[d] {name} each step's rebuild (mover share, branch): "
+                + ", ".join(f"{c['share']:.4f} {c['branch']}" for c in checked))
+            if len(checked) != 1 + steps or any(c["branch"] != branch for c in checked):
+                raise AssertionError(f"{name}: {len(checked)} auto rebuilds checked, "
+                                     f"branches {[c['branch'] for c in checked]}, every "
+                                     f"one of {1 + steps} should take the {branch}")
+            log(f"[d] {name}: every step's rebuild checked on the device (num_ptcls, "
+                f"overflow, pids kept, stayers in place, elements by pid, segments)")
         log(f"[d] {name} setup seconds: "
             + ", ".join(f"{k} {v:.2f}" for k, v in det["setup_s"].items()))
         log(f"[d] {name} kernel launches: {counts}")

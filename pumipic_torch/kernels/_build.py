@@ -159,8 +159,19 @@ SIGNATURES = {
     "pp_key_sort": [
         _P, _P, _P, _I, _L, _I,              # key elem active fill n bits
         _P, _P, _P,                          # key_out order scratch
-        _P, _P, _P, _P, _P, _P],             # ka ia kb ib spare stream
+        _P, _P, _P, _P, _P, _P, _P],         # ka ia kb ib spare values stream
     "pp_key_sort_scratch": [_L],
+    "pp_reshuffle_count_words": [_L, _I],    # C E
+    "pp_reshuffle_count": [
+        _P, _P, _P, _I, _L, _I,              # elem old_elem seg_cap E C MB
+        _P, _P, _P, _P, _P, _P, _P],         # cnt mov_start msrc mkey info num stream
+    "pp_reshuffle_place": [
+        _P, _P, _P, _P, _P, _P,              # elem old_elem offsets seg_cap mov_cnt mov_start
+        _P, _I, _I, _L, _I,                  # row_to_elem n_rows E C stride
+        _P, _I, _P, _P, _P,                  # ovf_in n_fields staged outs row_bytes
+        _P, _P, _P, _P, _P],                 # elem_out active_out num ovf stream
+    "pp_scs_row_keys": [_P, _I, _I, _I, _I, _P, _P],  # counts E R sigma b key stream
+    "pp_scs_row_maps": [_P, _P, _I, _I, _I, _P, _P, _P],  # order counts E R chunk e2r cw stream
     "pp_slot_map": [
         _I, _P, _P, _P, _I,                  # cabm order start offsets n_seg
         _P, _I, _I, _I, _L, _I,              # row_to_elem n_rows chunk E C M

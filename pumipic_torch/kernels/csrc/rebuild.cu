@@ -19,7 +19,9 @@
 //                  (jnp.where(active, elem, E)): the int32 order of int32
 //                  keys, equal to a stable argsort for every key.  That
 //                  permutation is unique, so the kernel and torch.sort
-//                  agree bit for bit.
+//                  agree bit for bit.  With a payload (values), the last
+//                  pass writes values[i] in place of index i: the
+//                  reshuffle's mover slots in destination order.
 //
 // The TPU ran both as XLA code (a sort, fused elementwise ops, a
 // reduction); no Pallas kernel.
@@ -224,6 +226,8 @@ struct KsPlan {
   int* key_out[KS_MAX_PASSES];
   int* idx_out[KS_MAX_PASSES];
   unsigned* status[KS_MAX_PASSES];
+  // where not null, the last pass writes values[i] in place of index i
+  const int* values;
 };
 
 __device__ __forceinline__ int ks_load(const KsSrc& s, long long i) {
@@ -499,10 +503,12 @@ __global__ void __launch_bounds__(KS_THREADS, KS_MIN_BLOCKS) ks_passes(
     // out in staged order: a digit's run to consecutive positions
     int* const iout = last ? order : pl.idx_out[p];
     int* const kout = mode == KS_LOW ? pl.key_out[p] : nullptr;
+    const int* const vals = last ? pl.values : nullptr;
     for (int s = threadIdx.x; s < tile_n; s += KS_THREADS) {
       const int key = sm.t.key[s];
       const int pos = gofs[ks_digit(key, shift, width)] + s;
-      iout[pos] = sm.t.idx[s];
+      const int i = sm.t.idx[s];
+      iout[pos] = vals != nullptr ? __ldg(vals + i) : i;
       if (kout != nullptr) kout[pos] = key;
     }
     __syncthreads();
@@ -541,8 +547,9 @@ extern "C" int pp_key_sort_scratch(long long n) {
   return (int)(KS_HEADER + 2LL * ((n + KS_TILE - 1) / KS_TILE) * KS_MAX_DIGITS);
 }
 
-// the stable order of n (< 2^30) int32 keys into ``order``, bits the bit
-// length of the caller's largest key (1..31).  The keys are key[i], or,
+// the stable order of n (< 2^30) int32 keys into ``order`` (or, where
+// ``values`` is not null, values[] in that order), bits the bit length of
+// the caller's largest key (1..31).  The keys are key[i], or,
 // where active is not null, active[i] ? (elem ? elem[i] : 0) : fill, then
 // written to key_out where it is not null.  Scratch: ``scratch``
 // (pp_key_sort_scratch words), a key and an index buffer of n (ka, ia)
@@ -551,11 +558,12 @@ extern "C" int pp_key_sort_scratch(long long n) {
 extern "C" int pp_key_sort(const int* key, const int* elem, const uint8_t* active, int fill,
                            long long n, int bits, int* key_out, int* order,
                            unsigned* scratch, int* ka, int* ia, int* kb, int* ib,
-                           int* spare, cudaStream_t stream) {
+                           int* spare, const int* values, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (n >= (1LL << 30) || bits < 1 || bits > 31) return (int)cudaErrorInvalidValue;
   KsPlan pl{};
   pl.bits = bits;
+  pl.values = values;
   pl.n_low = (bits + KS_MAX_BITS - 1) / KS_MAX_BITS;
   const int w_low = (bits + pl.n_low - 1) / pl.n_low;
   const int n_hi = (32 - bits + KS_MAX_BITS - 1) / KS_MAX_BITS;

@@ -1,5 +1,6 @@
 """The particle structures' rebuild around the slot map and the field
-gather: kernels Q and C (``kernels/csrc/rebuild.cu``).
+gather: kernels Q and C (``kernels/csrc/rebuild.cu``), U1, U2 and Z
+(``kernels/csrc/reshuffle.cu``).
 
 - :func:`rebuild_mask_dps`, :func:`rebuild_mask_epilogue` and
   :func:`rebuild_mask_prefix` are the three modes of kernel Q, one pass
@@ -9,19 +10,27 @@ gather: kernels Q and C (``kernels/csrc/rebuild.cu``).
   rebuilds' "first ``needed`` slots" form.
 - :func:`key_sort` is the wrapper of kernel C, the stable sort of the
   rebuilds' element keys: the int32 order that ``torch.sort(key,
-  stable=True)`` gives, for every int32 key; :func:`masked_key_sort` is its
-  fused mode, which forms the key ``where(active, elem, fill)`` itself.
+  stable=True)`` gives, for every int32 key (or a payload in that order);
+  :func:`masked_key_sort` is its fused mode, which forms the key
+  ``where(active, elem, fill)`` itself.
+- :func:`reshuffle_count` and :func:`reshuffle_place` are kernels U1 and
+  U2 (``kernels/csrc/reshuffle.cu``), the reshuffle of ``rebuild(mode=
+  "auto")``: the stayers' and movers' split, counts, fits check and mover
+  list; the movers' placement into their segments' holes.
+- :func:`scs_row_keys` and :func:`scs_row_maps` are kernel Z, the
+  Sell-C-σ row order's key (sorted by C) and its maps.
 
 Each runs its plain PyTorch version (``*_plain``: the JAX package's
 arithmetic, ``pumipic_tpu/particles/structure.py``) on CPU tensors and
-launches its kernel on CUDA tensors (one launch counted, under
-``rebuild_mask`` or ``key_sort``).  Every output is an integer or a mask,
-so the two are equal bit for bit.
+launches its kernel on CUDA tensors (one launch counted, under its
+name).  Every output is an integer, a mask or a moved row, so the two
+are equal bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,6 +45,9 @@ KS_MAX_BITS = 9
 
 # kernel Q's modes, as rebuild.cu numbers them
 Q_DPS, Q_EPILOGUE, Q_PREFIX = 0, 1, 2
+
+# fields one launch of kernel U2 moves, as reshuffle.cu defines it
+MAX_PLACE_FIELDS = 16
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -157,10 +169,13 @@ def key_sort_high_passes(max_key: int) -> List[Tuple[int, int]]:
     return [(s, min(width, 32 - s)) for s in range(bits, 32, width)]
 
 
-def key_sort_plain(key: torch.Tensor, max_key: int) -> torch.Tensor:
+def key_sort_plain(key: torch.Tensor, max_key: int,
+                   values: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of kernel C: torch's stable sort, its indices as
-    int32 (any int32 keys; ``max_key`` only picks the kernel's passes)."""
-    return torch.sort(key, stable=True).indices.to(I32)
+    int32 (any int32 keys; ``max_key`` only picks the kernel's passes), or
+    ``values`` in that order."""
+    order = torch.sort(key, stable=True).indices
+    return order.to(I32) if values is None else values[order]
 
 
 def masked_key_sort_plain(elem: Optional[torch.Tensor], active: torch.Tensor, fill: int
@@ -173,7 +188,7 @@ def masked_key_sort_plain(elem: Optional[torch.Tensor], active: torch.Tensor, fi
 
 
 def _key_sort(n: int, dev, max_key: int, key=None, elem=None, active=None, fill: int = 0,
-              keep_key: bool = False):
+              keep_key: bool = False, values=None):
     """Launch kernel C (the caller has checked the device): the order and,
     with ``keep_key``, the keys as the histogram read or formed them."""
     if not 0 <= max_key < 2**31:
@@ -193,27 +208,32 @@ def _key_sort(n: int, dev, max_key: int, key=None, elem=None, active=None, fill:
     bits = max(int(max_key).bit_length(), 1)
     err = lib.pp_key_sort(_ptr(key), _ptr(elem), _ptr(active), int(fill), n, bits,
                           _ptr(key_out), _ptr(order), _ptr(scratch),
-                          *(_ptr(b) for b in bufs), _ptr(spare),
+                          *(_ptr(b) for b in bufs), _ptr(spare), _ptr(values),
                           _P(kernels.stream_handle()))
     _build.check(err, "key_sort")
     kernels.LAUNCHES["key_sort"] += 1
     return order, key_out
 
 
-def key_sort(key: torch.Tensor, max_key: int) -> torch.Tensor:
+def key_sort(key: torch.Tensor, max_key: int,
+             values: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (N,) int32 order of (N,) int32 ``key`` that a stable argsort
     gives: ``key[order]`` ascending, equal keys in index order, for every
-    int32 key.  ``max_key`` is the largest key the caller expects: kernel C
-    (on CUDA tensors) sorts keys in [0, max_key] in its low passes and takes
-    passes over the high bits only when a key lies outside [0, 2^bits).
-    :func:`key_sort_plain` on CPU tensors."""
+    int32 key; with ``values`` ((N,) int32), ``values[order]`` in its place
+    (the sort's last pass writes it).  ``max_key`` is the largest key the
+    caller expects: kernel C (on CUDA tensors) sorts keys in [0, max_key]
+    in its low passes and takes passes over the high bits only when a key
+    lies outside [0, 2^bits).  :func:`key_sort_plain` on CPU tensors."""
     if key.dtype != I32 or key.dim() != 1:
         raise ValueError("key_sort: (N,) int32 keys expected")
+    if values is not None and (values.dtype != I32 or values.shape != key.shape):
+        raise ValueError("key_sort: (N,) int32 values expected")
     if not 0 <= max_key < 2**31:
         raise ValueError(f"key_sort: max_key {max_key} outside [0, 2^31)")
-    if not kernels.use_kernel("key_sort", key):
-        return key_sort_plain(key, max_key)
-    return _key_sort(key.shape[0], key.device, max_key, key=key)[0]
+    tensors = [key] if values is None else [key, values]
+    if not kernels.use_kernel("key_sort", *tensors):
+        return key_sort_plain(key, max_key, values)
+    return _key_sort(key.shape[0], key.device, max_key, key=key, values=values)[0]
 
 
 def masked_key_sort(elem: Optional[torch.Tensor], active: torch.Tensor, fill: int,
@@ -235,3 +255,262 @@ def masked_key_sort(elem: Optional[torch.Tensor], active: torch.Tensor, fill: in
         return order, key if keep_key else None
     return _key_sort(active.shape[0], active.device, fill, elem=elem, active=active,
                      fill=fill, keep_key=keep_key)
+
+
+# ---------------------------------------------------------------------------
+# U1, U2: the reshuffle; Z: the Sell-C-σ row maps (kernels/csrc/reshuffle.cu)
+# ---------------------------------------------------------------------------
+
+class ReshuffleCount(NamedTuple):
+    """Kernel U1's outputs over a rebuild's C slots and E elements."""
+
+    info: torch.Tensor        # (2,) i32: fits, n_mov (the host's one read)
+    stay_cnt: torch.Tensor    # (E,) i32 stayers per element
+    mov_cnt: torch.Tensor     # (E,) i32 movers per destination
+    mov_start: torch.Tensor   # (E,) i32 exclusive cumsum of mov_cnt
+    msrc: torch.Tensor        # (MB,) i32 the movers' slots in slot order
+    mkey: torch.Tensor        # (MB,) i32 their destinations
+    num: torch.Tensor         # () i32 stayers + movers
+
+
+def reshuffle_count_plain(elem: torch.Tensor, old_elem: torch.Tensor,
+                          seg_cap: torch.Tensor, mover_budget: int) -> ReshuffleCount:
+    """Plain version of kernel U1 (``_rebuild_auto``'s split, counts and
+    fits check; ``_reshuffle``'s mover list in slot order)."""
+    E, MB = seg_cap.shape[0], mover_budget
+    dev = elem.device
+    stay = (elem >= 0) & (elem == old_elem)
+    mover = (elem >= 0) & ~stay
+    stay_cnt = torch.bincount(elem[stay].long(), minlength=E).to(I32)
+    mov_cnt = torch.bincount(elem[mover].long(), minlength=E).to(I32)
+    n_mov = _count(mover)
+    fits = torch.all(mov_cnt <= seg_cap - stay_cnt) & (n_mov <= MB)
+    slots = torch.nonzero(mover).reshape(-1)[:MB].to(I32)
+    msrc = torch.zeros(MB, dtype=I32, device=dev)
+    mkey = torch.zeros(MB, dtype=I32, device=dev)
+    msrc[:slots.shape[0]] = slots
+    mkey[:slots.shape[0]] = elem[slots.long()]
+    mov_start = (torch.cumsum(mov_cnt, 0, dtype=I32) - mov_cnt).to(I32)
+    return ReshuffleCount(torch.stack([fits.to(I32), n_mov]), stay_cnt, mov_cnt,
+                          mov_start, msrc, mkey, _count(stay) + n_mov)
+
+
+def reshuffle_count(elem: torch.Tensor, old_elem: torch.Tensor, seg_cap: torch.Tensor,
+                    mover_budget: int) -> ReshuffleCount:
+    """Split a rebuild's destinations ``elem`` ((C,) i32, -1 where none:
+    kernel Q's DPS output) against the slots' current elements
+    ``old_elem``: stayers (same element) and movers; their counts per
+    element; n_mov; ``fits`` = every destination's movers fit the holes of
+    its segment (``seg_cap`` (E,)) and n_mov <= ``mover_budget`` (MB); the
+    first min(n_mov, MB) movers' slots in slot order and their
+    destinations; the movers' first places in the destination-sorted list.
+    Kernel U1 on CUDA tensors (a memset and one launch), where the movers'
+    counts and first places are computed only while n_mov <= MB (past it
+    the reshuffle does not run); :func:`reshuffle_count_plain` on CPU
+    tensors."""
+    if (elem.dtype != I32 or old_elem.dtype != I32 or seg_cap.dtype != I32
+            or elem.dim() != 1 or old_elem.shape != elem.shape or seg_cap.dim() != 1):
+        raise ValueError("reshuffle_count: (C,) i32 ids and (E,) i32 caps expected")
+    if not kernels.use_kernel("reshuffle_count", elem, old_elem, seg_cap):
+        return reshuffle_count_plain(elem, old_elem, seg_cap, mover_budget)
+    C, E, MB = elem.shape[0], seg_cap.shape[0], mover_budget
+    if C == 0 or E == 0 or C >= 1 << 30:
+        raise ValueError("reshuffle_count: the kernel takes 0 < C < 2^30 slots and "
+                         "E > 0 elements")
+    dev = elem.device
+    lib = _build.lib()
+    cnt = torch.empty(lib.pp_reshuffle_count_words(C, E), dtype=I32, device=dev)
+    mov_start = torch.empty(E, dtype=I32, device=dev)
+    msrc = torch.empty(MB, dtype=I32, device=dev)
+    mkey = torch.empty(MB, dtype=I32, device=dev)
+    info = torch.empty(2, dtype=I32, device=dev)
+    num = torch.empty((), dtype=I32, device=dev)
+    err = lib.pp_reshuffle_count(_ptr(elem), _ptr(old_elem), _ptr(seg_cap), E, C, MB,
+                                 _ptr(cnt), _ptr(mov_start), _ptr(msrc), _ptr(mkey),
+                                 _ptr(info), _ptr(num), _P(kernels.stream_handle()))
+    _build.check(err, "reshuffle_count")
+    kernels.LAUNCHES["reshuffle_count"] += 1
+    return ReshuffleCount(info, cnt[:E], cnt[E:2 * E], mov_start, msrc, mkey, num)
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return math.prod(t.shape[1:]) * t.element_size()
+
+
+def reshuffle_place_plain(elem: torch.Tensor, old_elem: torch.Tensor,
+                          elem_offsets: torch.Tensor, seg_cap: torch.Tensor,
+                          mov_cnt: torch.Tensor, mov_start: torch.Tensor,
+                          fields: Dict[str, torch.Tensor], staged: Dict[str, torch.Tensor],
+                          stride: int, overflowed: torch.Tensor,
+                          row_to_elem: Optional[torch.Tensor] = None):
+    """Plain version of kernel U2 (``_reshuffle``'s placement): every
+    segment's slots in q order, its holes ranked, the hole of rank r <
+    mov_cnt[e] given staged row mov_start[e] + r (``row_to_elem`` only
+    orders the kernel's warps)."""
+    C, E = elem.shape[0], seg_cap.shape[0]
+    dev = elem.device
+    cap = seg_cap.long()
+    seg = torch.repeat_interleave(torch.arange(E, device=dev), cap)
+    first = torch.cumsum(cap, 0) - cap
+    q = torch.arange(seg.shape[0], device=dev) - first[seg]
+    slot = elem_offsets[:E].long()[seg] + q * stride
+    inside = slot < C
+    sc = torch.where(inside, slot, 0)
+    stay = inside & (elem[sc] >= 0) & (elem[sc] == old_elem[sc])
+    hole = inside & ~stay
+    holes_e = torch.bincount(seg[hole], minlength=E)
+    hole_first = torch.cumsum(holes_e, 0) - holes_e
+    rank = torch.cumsum(hole.long(), 0) - hole.long() - hole_first[seg]
+    fill = hole & (rank < mov_cnt.long()[seg])
+    dst, src = slot[fill], mov_start.long()[seg[fill]] + rank[fill]
+    kept = slot[stay]
+    out_elem = torch.full((C,), -1, dtype=I32, device=dev)
+    out_active = torch.zeros(C, dtype=torch.bool, device=dev)
+    out_elem[kept] = elem[kept]
+    out_elem[dst] = seg[fill].to(I32)
+    out_active[kept] = True
+    out_active[dst] = True
+    out = {}
+    for k, v in fields.items():
+        out[k] = v.clone()
+        out[k][dst] = staged[k][src]
+    placed = torch.minimum(holes_e, mov_cnt.long())
+    num = (_count(stay) + torch.sum(placed)).to(I32)
+    return out_elem, out_active, out, num, overflowed | torch.any(holes_e < mov_cnt)
+
+
+def reshuffle_place(elem: torch.Tensor, old_elem: torch.Tensor, elem_offsets: torch.Tensor,
+                    seg_cap: torch.Tensor, mov_cnt: torch.Tensor, mov_start: torch.Tensor,
+                    fields: Dict[str, torch.Tensor], staged: Dict[str, torch.Tensor],
+                    stride: int, overflowed: torch.Tensor,
+                    row_to_elem: Optional[torch.Tensor] = None):
+    """The reshuffle's new slots, out of place: (elem, active, fields,
+    num_ptcls, overflowed).  Stayers (``elem`` == ``old_elem`` >= 0) keep
+    their slots; element e's holes (its segment's slots ``elem_offsets[e] +
+    q·stride``, q < ``seg_cap[e]``, below C, without a stayer) in q order
+    take the staged rows ``mov_start[e] + r`` (r < ``mov_cnt[e]``) of every
+    field (``staged``: the movers' rows in destination order, ``fields``
+    the structure's); every other slot is empty (-1, inactive) with its
+    fields as they were; num_ptcls counts the output mask; a segment short
+    of holes raises the sticky ``overflowed``.  ``row_to_elem`` (the
+    Sell-C-σ row order; None: elements in order) orders the kernel's
+    warps, not the result.  Kernel U2 on CUDA tensors (the fields cloned,
+    four memsets and one launch), :func:`reshuffle_place_plain` on CPU
+    tensors."""
+    names = list(fields)
+    if list(staged) != names:
+        raise ValueError("reshuffle_place: staged rows of every field expected")
+    ints = (elem, old_elem, elem_offsets, seg_cap, mov_cnt, mov_start)
+    if any(t.dtype != I32 or t.dim() != 1 for t in ints) or old_elem.shape != elem.shape \
+            or overflowed.dtype != torch.bool or overflowed.numel() != 1:
+        raise ValueError("reshuffle_place: (C,) and (E,) i32 arrays and a 0-d bool flag "
+                         "expected")
+    if row_to_elem is not None and (row_to_elem.dtype != I32 or row_to_elem.dim() != 1):
+        raise ValueError("reshuffle_place: (R,) i32 row order expected")
+    tensors = [*ints, overflowed, *fields.values(), *staged.values()]
+    tensors += [] if row_to_elem is None else [row_to_elem]
+    if not kernels.use_kernel("reshuffle_place", *tensors):
+        return reshuffle_place_plain(elem, old_elem, elem_offsets, seg_cap, mov_cnt,
+                                     mov_start, fields, staged, stride, overflowed,
+                                     row_to_elem)
+    C, E = elem.shape[0], seg_cap.shape[0]
+    if len(names) > MAX_PLACE_FIELDS:
+        raise ValueError(f"reshuffle_place: at most {MAX_PLACE_FIELDS} fields")
+    for k in names:
+        if fields[k].shape[1:] != staged[k].shape[1:] or fields[k].dtype != staged[k].dtype \
+                or fields[k].shape[0] != C:
+            raise ValueError(f"reshuffle_place: field {k!r} and its staged rows differ")
+    dev = elem.device
+    out = {k: fields[k].clone() for k in names}
+    out_elem = torch.empty(C, dtype=I32, device=dev)
+    out_active = torch.empty(C, dtype=torch.bool, device=dev)
+    num = torch.empty((), dtype=I32, device=dev)
+    ovf = torch.empty((), dtype=torch.bool, device=dev)
+    m = len(names)
+    err = _build.lib().pp_reshuffle_place(
+        _ptr(elem), _ptr(old_elem), _ptr(elem_offsets), _ptr(seg_cap), _ptr(mov_cnt),
+        _ptr(mov_start), _ptr(row_to_elem),
+        0 if row_to_elem is None else row_to_elem.shape[0], E, C, int(stride),
+        _ptr(overflowed), m,
+        (_P * m)(*(staged[k].data_ptr() for k in names)),
+        (_P * m)(*(out[k].data_ptr() for k in names)),
+        (ctypes.c_int * m)(*(_row_bytes(fields[k]) for k in names)),
+        _ptr(out_elem), _ptr(out_active), _ptr(num), _ptr(ovf),
+        _P(kernels.stream_handle()))
+    _build.check(err, "reshuffle_place")
+    kernels.LAUNCHES["reshuffle_place"] += 1
+    return out_elem, out_active, out, num, ovf
+
+
+def scs_row_keys_plain(counts: torch.Tensor, num_rows: int, sigma: int, bits: int
+                       ) -> torch.Tensor:
+    """Plain version of kernel Z's key: row i's (i // sigma)·2^(bits+1) +
+    (2^bits - 1 - count), the count -1 for the padding rows i >= E, as
+    int32 (wrapping where a count exceeds 2^bits - 1)."""
+    E, R = counts.shape[0], num_rows
+    c = torch.full((R,), -1, dtype=torch.int64, device=counts.device)
+    c[:E] = counts
+    i = torch.arange(R, dtype=torch.int64, device=counts.device)
+    key = (i // sigma) * (2 << bits) + ((1 << bits) - 1 - c)
+    return ((key + 2**31) % 2**32 - 2**31).to(I32)
+
+
+def scs_row_keys(counts: torch.Tensor, num_rows: int, sigma: int, bits: int
+                 ) -> torch.Tensor:
+    """The (R,) int32 sort key of the Sell-C-σ rows (``counts`` (E,) i32,
+    E <= R): kernel C's ascending stable sort of it is the descending
+    stable sort of the counts within windows of ``sigma`` rows, the
+    padding rows last, where every count is below 2^bits and the keys stay
+    below 2^31 (one window: any count; a larger one gives a negative key,
+    which sorts first).  Kernel Z's key launch on CUDA tensors,
+    :func:`scs_row_keys_plain` on CPU tensors."""
+    if counts.dtype != I32 or counts.dim() != 1 or counts.shape[0] > num_rows:
+        raise ValueError("scs_row_keys: (E,) i32 counts, E <= rows, expected")
+    if not 1 <= bits <= 30:
+        raise ValueError(f"scs_row_keys: bits {bits} outside [1, 30]")
+    if not kernels.use_kernel("scs_row_keys", counts):
+        return scs_row_keys_plain(counts, num_rows, sigma, bits)
+    key = torch.empty(num_rows, dtype=I32, device=counts.device)
+    err = _build.lib().pp_scs_row_keys(_ptr(counts), counts.shape[0], num_rows, sigma,
+                                       bits, _ptr(key), _P(kernels.stream_handle()))
+    _build.check(err, "scs_row_keys")
+    kernels.LAUNCHES["scs_row_keys"] += 1
+    return key
+
+
+def scs_row_maps_plain(order: torch.Tensor, counts: torch.Tensor, chunk: int):
+    """Plain version of kernel Z's maps: elem_to_row[order[r]] = r for the
+    real rows; chunk widths the largest count of each chunk's rows (0 for
+    the padding rows)."""
+    E, R = counts.shape[0], order.shape[0]
+    dev = order.device
+    o = order.long()
+    e2r = torch.zeros(R, dtype=I32, device=dev)
+    e2r[o] = torch.arange(R, dtype=I32, device=dev)
+    cpad = torch.zeros(R, dtype=I32, device=dev)
+    cpad[:E] = torch.clamp(counts, min=0)
+    width = torch.amax(cpad[o].reshape(R // chunk, chunk), dim=1)
+    return e2r[:E], width
+
+
+def scs_row_maps(order: torch.Tensor, counts: torch.Tensor, chunk: int):
+    """(elem_to_row (E,), chunk_width (R / chunk,)) of the Sell-C-σ row
+    order ``order`` ((R,) i32, a permutation of [0, R): row r holds element
+    order[r], a padding row where >= E) and the padded counts (E,).  Kernel
+    Z on CUDA tensors (one launch), :func:`scs_row_maps_plain` on CPU
+    tensors."""
+    R = order.shape[0]
+    if (order.dtype != I32 or counts.dtype != I32 or order.dim() != 1
+            or counts.dim() != 1 or counts.shape[0] > R or R % chunk):
+        raise ValueError("scs_row_maps: (R,) i32 order, (E,) i32 counts and R a "
+                         "multiple of the chunk expected")
+    if not kernels.use_kernel("scs_row_maps", order, counts):
+        return scs_row_maps_plain(order, counts, chunk)
+    E = counts.shape[0]
+    e2r = torch.empty(E, dtype=I32, device=order.device)
+    width = torch.empty(R // chunk, dtype=I32, device=order.device)
+    err = _build.lib().pp_scs_row_maps(_ptr(order), _ptr(counts), E, R, chunk, _ptr(e2r),
+                                       _ptr(width), _P(kernels.stream_handle()))
+    _build.check(err, "scs_row_maps")
+    kernels.LAUNCHES["scs_row_maps"] += 1
+    return e2r, width

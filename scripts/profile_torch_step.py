@@ -9,7 +9,12 @@ and ``pps3d-walk`` are bench_torch's pseudoPushAndSearch arms (the Kuhn
 box, DPS, kernel K or kernel L3), ``pps3d-reflect`` its reflecting-wall
 arm (K's push-only form and kernel M's peel form), ``pps3d-scs`` its Kuhn
 arm on a Sell-C-σ structure (the sorted rebuild on tets: kernels C, Q, S
-and G); ``gitr-reflect`` and
+and G), ``pps3d-cabm`` on CabM; ``pps3d-scs-auto`` and ``pps3d-cabm-auto``
+the reshuffle-or-rebuild (``rebuild="auto"``) at ``chip_smoke.py``'s short
+push (kernels U1, C, G and U2; the JSON line adds the auto rebuilds and
+the reshuffles among them), ``pps3d-scs-near`` and ``pps3d-cabm-near`` the
+sort rebuild at that push, ``pps3d-scs-auto-fallback`` the auto rebuild at
+the default push (U1, then the sort); ``gitr-reflect`` and
 ``gitr-absorb`` are bench_torch's GITR-style arms (kernels R, M and W on
 the 196,608-tet box); ``2d-path`` is ``chip_smoke.py``'s 2D path (one call
 of ``trace2d_path_call`` a step: kernels L, M2, V and H from the seeded
@@ -41,6 +46,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
 import bench_torch  # noqa: E402
+from pumipic_torch import kernels  # noqa: E402
+
+# chip_smoke.AUTO_DIST: the auto arms' push
+AUTO_DIST = 0.001
 
 ARMS = {  # arm -> bench_torch.setup keywords
     "cartesian": {},
@@ -54,6 +63,17 @@ PPS3D_ARMS = {  # arm -> bench_torch.setup_pps3d keywords
     "pps3d-walk": {"kuhn": "off"},
     "pps3d-reflect": {"kuhn": "off", "wall": "reflect"},
     "pps3d-scs": {"kuhn": "auto", "structure": "scs"},
+    "pps3d-cabm": {"kuhn": "auto", "structure": "cabm"},
+    # the reshuffle-or-rebuild at chip_smoke's short push (every step a
+    # reshuffle: kernels U1, C, G, U2), the sort rebuild at the same push,
+    # and the auto rebuild at the default push (every step U1 + the sort)
+    "pps3d-scs-auto": {"kuhn": "auto", "structure": "scs", "rebuild": "auto",
+                       "distance": AUTO_DIST},
+    "pps3d-cabm-auto": {"kuhn": "auto", "structure": "cabm", "rebuild": "auto",
+                        "distance": AUTO_DIST},
+    "pps3d-scs-near": {"kuhn": "auto", "structure": "scs", "distance": AUTO_DIST},
+    "pps3d-cabm-near": {"kuhn": "auto", "structure": "cabm", "distance": AUTO_DIST},
+    "pps3d-scs-auto-fallback": {"kuhn": "auto", "structure": "scs", "rebuild": "auto"},
 }
 GITR_ARMS = {  # arm -> bench_torch.setup_gitr keywords
     "gitr-reflect": {"wall": "reflect"},
@@ -178,6 +198,7 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
         _, state, step, info = bench_torch.setup(dev, n, **ARMS[arm])
     state, _ = step(state)
     torch.cuda.synchronize()
+    kernels.reset_launches()
 
     # wall time without the profiler (and the host's enqueue time: the
     # launches return before the device is done), then device time with it
@@ -214,6 +235,10 @@ def profile(arm: str, n: int, steps: int, smi: str) -> dict:
         "alive": int(alive.sum()),
         **({"ranges": range_device_ms(prof, ranges, steps)} if ranges else {}),
         **({"capacity": info["capacity"]} if "capacity" in info else {}),
+        # the auto rebuilds of the 2·steps steps, and how many reshuffled
+        **({"auto_rebuilds": kernels.LAUNCHES["reshuffle_count"],
+            "reshuffles": kernels.LAUNCHES["reshuffle_place"]}
+           if kernels.LAUNCHES["reshuffle_count"] else {}),
     }
 
 

@@ -1970,3 +1970,188 @@ def test_plain_walk_kernel_sparse_and_in_place_equal_plain(dev, mesh, n, share, 
     se.walk_locate_into_plain(mesh.walk_geom, dx, dy, start, walkers, max_iters, e_p, s_p)
     assert torch.equal(e_k, e_p) and torch.equal(s_k, s_p)
     assert torch.equal(e_k[~walkers], base[~walkers])
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_key_sort_kernel_values_equal_plain(dev, case):
+    """C with a payload: the last pass writes values[order] (the
+    reshuffle's mover slots in destination order)."""
+    key, K = _sort_case(case, dev)
+    g = torch.Generator(device=dev).manual_seed(key.numel())
+    values = torch.randint(-2**31, 2**31 - 1, key.shape, generator=g, device=dev,
+                           dtype=torch.int32)
+    got = rb.key_sort(key, K, values=values)
+    assert torch.equal(got, rb.key_sort_plain(key, K, values))
+    assert torch.equal(got, values[rb.key_sort(key, K).long()])
+
+
+def _reshuffle_case(dev, layout, kind, n=60_000, E=997, seed=0):
+    """A structure of ``layout`` (Sell-C-σ chunks of 8, or CabM) with
+    ``n`` particles over E elements, extra padding 0.3, three fields (f32
+    (N, 3), int32, bool), on the card, and a rebuild's destinations (Q's
+    DPS output): a swap churn (each mover's source another mover's hole),
+    a random churn with removals, or most particles moving (the fallback)."""
+    from pumipic_torch.particles import structure as st
+
+    rng = np.random.default_rng(seed)
+    elems = np.sort(rng.integers(0, E, n))
+    fields = {"x": torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32)),
+              "pid": torch.arange(n, dtype=torch.int32),
+              "flag": torch.as_tensor(rng.uniform(size=n) < 0.5)}
+    f = {k: v.to(dev) for k, v in fields.items()}
+    if layout == "scs":
+        ps = st.SellCSigma(E, elems, fields=f, device=dev, scs_input=st.SCSInput(
+            chunk_size=8, extra_padding=0.3))
+    else:
+        ps = st.CabM(E, elems, fields=f, soa_width=8, extra_padding=0.3, device=dev)
+    cur = np.where(ps.active.cpu().numpy(), ps.elem.cpu().numpy(), -1)
+    new = cur.copy()
+    live = np.flatnonzero(cur >= 0)
+    if kind == "swap":
+        sel = rng.choice(live, size=len(live) // 20 * 2, replace=False)
+        a, b = np.split(sel, 2)
+        new[a], new[b] = cur[b], cur[a]
+    elif kind == "random":
+        mv = rng.uniform(size=len(live)) < 0.05
+        new[live[mv]] = rng.integers(-1, E + 1, int(mv.sum()))
+    else:
+        new[live] = rng.integers(0, E, len(live))
+    elem, _, _ = rb.rebuild_mask_dps(torch.as_tensor(new, device=dev), ps.active, E)
+    return ps, elem
+
+
+@pytest.mark.parametrize("n", [60_000, 3_000])
+@pytest.mark.parametrize("mb", ["capacity", "small"])
+@pytest.mark.parametrize("kind", ["swap", "random", "most"])
+@pytest.mark.parametrize("layout", ["scs", "cabm"])
+def test_reshuffle_count_kernel_equals_plain(dev, layout, kind, mb, n):
+    """U1 against its plain version, over many tiles and one: fits,
+    n_mov, the count, the stayers' counts and the first min(n_mov, MB)
+    movers always; the movers' counts and first places where n_mov <= MB
+    (U1 counts movers only while the budget holds)."""
+    ps, elem = _reshuffle_case(dev, layout, kind, n=n)
+    MB = ps.capacity if mb == "capacity" else 1000
+    n0 = kernels.LAUNCHES["reshuffle_count"]
+    got = rb.reshuffle_count(elem, ps.elem, ps.seg_cap, MB)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["reshuffle_count"] == n0 + 1
+    want = rb.reshuffle_count_plain(elem, ps.elem, ps.seg_cap, MB)
+    assert got.info.tolist() == want.info.tolist() and int(got.num) == int(want.num)
+    assert torch.equal(got.stay_cnt, want.stay_cnt)
+    n_mov = int(want.info[1])
+    k = min(n_mov, MB)
+    assert torch.equal(got.msrc[:k], want.msrc[:k]) and torch.equal(got.mkey[:k], want.mkey[:k])
+    if n_mov <= MB:
+        assert torch.equal(got.mov_cnt, want.mov_cnt)
+        assert torch.equal(got.mov_start, want.mov_start)
+    if n == 60_000:                     # the churns fit this structure's padding
+        assert bool(want.info[0]) == (kind != "most" and mb == "capacity")
+
+
+@pytest.mark.parametrize("kind", ["swap", "random"])
+@pytest.mark.parametrize("layout", ["scs", "cabm"])
+def test_reshuffle_place_kernel_equals_plain(dev, layout, kind):
+    """U2 against its plain version on a rebuild's own inputs: every slot's
+    element and mask, every field (f32 (N, 3), int32, bool), the count and
+    the flag; its inputs untouched, so a second call gives the same."""
+    ps, elem = _reshuffle_case(dev, layout, kind, seed=3)
+    c = rb.reshuffle_count(elem, ps.elem, ps.seg_cap, ps.capacity)
+    fits, n_mov = c.info.tolist()
+    assert fits and n_mov > 0
+    take = rb.key_sort(c.mkey[:n_mov], ps.num_elems - 1, values=c.msrc[:n_mov])
+    staged = {k: v[take.long()] for k, v in ps.fields.items()}
+    stride = ps.chunk_size if layout == "scs" else 1
+    args = (elem, ps.elem, ps.elem_offsets, ps.seg_cap, c.mov_cnt, c.mov_start,
+            ps.fields, staged, stride, ps.overflowed, ps.row_to_elem)
+    before = {k: v.clone() for k, v in ps.fields.items()}
+    n0 = kernels.LAUNCHES["reshuffle_place"]
+    got = rb.reshuffle_place(*args)
+    again = rb.reshuffle_place(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["reshuffle_place"] == n0 + 2
+    want = rb.reshuffle_place_plain(*args)
+    by_elem = rb.reshuffle_place(*args[:-1])         # warps in element order
+    assert torch.equal(by_elem[0], want[0]) and torch.equal(by_elem[1], want[1])
+    for g, a, w in ((got, again, want),):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+        for k in w[2]:
+            assert torch.equal(g[2][k], w[2][k]) and torch.equal(a[2][k], w[2][k])
+        assert int(g[3]) == int(w[3]) == int(g[1].sum()) and not bool(g[4])
+        assert torch.equal(a[0], w[0]) and int(a[3]) == int(w[3])
+    for k, v in before.items():
+        assert torch.equal(ps.fields[k], v)
+    # a segment short of holes: the flag, and only the placed counted
+    short = c.mov_cnt.clone()
+    short[0] += int(ps.seg_cap[0]) + 1
+    sargs = args[:4] + (short,) + args[5:]
+    g, w = rb.reshuffle_place(*sargs), rb.reshuffle_place_plain(*sargs)
+    assert bool(g[4]) and bool(w[4]) and int(g[3]) == int(w[3])
+    assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+
+@pytest.mark.parametrize("layout", ["scs", "cabm"])
+@pytest.mark.parametrize("kind", ["swap", "random", "most"])
+def test_auto_rebuild_launches_and_equals_cpu(dev, layout, kind):
+    """rebuild(mode="auto") on the card equals the CPU's, member for member;
+    a reshuffle launches Q, U1, C, G and U2 once each, a fallback Q, U1
+    and the sort rebuild (C, H, S, G, Q; Z's two kernels for SCS), not U2."""
+    import dataclasses
+
+    ps, elem = _reshuffle_case(dev, layout, kind, seed=5)
+    new = torch.where(elem >= 0, elem, -1)
+    cpu = ps
+    cpu = dataclasses.replace(
+        ps, fields={k: v.cpu() for k, v in ps.fields.items()},
+        **{f.name: getattr(ps, f.name).cpu() for f in dataclasses.fields(ps)
+           if isinstance(getattr(ps, f.name), torch.Tensor)})
+    kernels.reset_launches()
+    got = ps.rebuild(new, mode="auto")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    want = cpu.rebuild(new.cpu(), mode="auto")
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "fields":
+            for k in a:
+                assert torch.equal(a[k].cpu(), b[k]), k
+        elif isinstance(a, torch.Tensor):
+            assert torch.equal(a.cpu(), b), f.name
+    if kind == "most":
+        sort = {"histogram": 1, "key_sort": 1, "slot_map": 1, "row_gather": 1}
+        if layout == "scs":
+            sort.update(key_sort=2, scs_row_keys=1, scs_row_maps=1)
+        assert counts == {"rebuild_mask": 2, "reshuffle_count": 1, **sort}, counts
+    else:
+        assert counts == {"rebuild_mask": 1, "reshuffle_count": 1, "key_sort": 1,
+                          "row_gather": 1, "reshuffle_place": 1}, counts
+
+
+@pytest.mark.parametrize("E,chunk,sigma", [(24_576, 8, 2**30), (122_603, 8, 2**30),
+                                           (997, 4, 16), (37, 3, 8), (1, 8, 2**30)])
+def test_scs_row_order_kernels_equal_plain(dev, E, chunk, sigma):
+    """Z's key and maps (with C between them) against the plain versions:
+    ties, zeros, a count above the one-window key's bits; every output."""
+    from pumipic_torch.particles import structure as st
+
+    g = torch.Generator(device=dev).manual_seed(E)
+    counts = torch.randint(0, 600, (E,), generator=g, device=dev, dtype=torch.int32)
+    counts[::7] = 0
+    counts[1::5] = 300
+    counts[E // 2] = 70_000
+    n0 = (kernels.LAUNCHES["scs_row_keys"], kernels.LAUNCHES["scs_row_maps"])
+    got = st._scs_row_order(counts, sigma, chunk, E, 0.15, "proportionally",
+                            num_ptcls=10_000_000)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["scs_row_keys"], kernels.LAUNCHES["scs_row_maps"]) == \
+        (n0[0] + 1, n0[1] + 1)
+    cpu = st._scs_row_order(counts.cpu(), sigma, chunk, E, 0.15, "proportionally",
+                            num_ptcls=10_000_000)
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.cpu(), b)
+    R = got[0].shape[0]
+    for bits in (2, 12, 24):
+        key = rb.scs_row_keys(counts, R, min(sigma, R), bits)
+        assert torch.equal(key, rb.scs_row_keys_plain(counts, R, min(sigma, R), bits))
+    order = got[0]
+    assert all(torch.equal(a, b) for a, b in zip(rb.scs_row_maps(order, counts, chunk),
+                                                 rb.scs_row_maps_plain(order, counts, chunk)))
