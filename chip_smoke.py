@@ -270,6 +270,16 @@ KERNELS = {  # name -> (route, source, replaces)
                      "pumipic_tpu/particles/structure.py:312"),
     "scs_row_maps": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
                      "pumipic_tpu/particles/structure.py:312"),
+    "route_packed": ("cuda", "pumipic_torch/kernels/csrc/route.cu",
+                     "pumipic_tpu/parallel/migrate.py:115"),
+    "route_g2l": ("cuda", "pumipic_torch/kernels/csrc/route.cu",
+                  "pumipic_tpu/parallel/migrate.py:132"),
+    "route_banded": ("cuda", "pumipic_torch/kernels/csrc/route.cu",
+                     "pumipic_tpu/parallel/banded_route.py:73"),
+    "balance_keys": ("cuda", "pumipic_torch/kernels/csrc/route.cu",
+                     "pumipic_tpu/parallel/balancer.py:334"),
+    "balance_select": ("cuda", "pumipic_torch/kernels/csrc/route.cu",
+                       "pumipic_tpu/parallel/balancer.py:283"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -1870,6 +1880,19 @@ def check_reshuffle_count(results: dict, ps, elem, what: str):
                  + 8 * E + 8 * k)
     record_launches("reshuffle_count", what, lambda: rb.reshuffle_count(*args), results,
                     U1_NODES)
+    if fits:
+        # C with a payload: the reshuffle's mover sort (the movers' slots in
+        # destination order), beside torch.sort of the same keys
+        key, vals = want.mkey[:n_mov], want.msrc[:n_mov]
+        c_what = f"with a payload, the movers of {what} ({n_mov} keys)"
+        compare("key_sort", c_what, rb.key_sort(key, E - 1, values=vals),
+                rb.key_sort_plain(key, E - 1, values=vals), results)
+        time_pair("key_sort", c_what, lambda: rb.key_sort(key, E - 1, values=vals),
+                  lambda: rb.key_sort_plain(key, E - 1, values=vals), results, record=False)
+        # the keys and the payload read, the payload in order written
+        record_bound("key_sort", c_what, results, 3 * nbytes(key))
+        record_library("key_sort", c_what, "torch.sort(key, stable=True)",
+                       lambda: torch.sort(key, stable=True), results, entry=False)
     return got, MB
 
 
@@ -1981,6 +2004,19 @@ def check_scs_row_order(results: dict, counts, num_ptcls: int, what: str) -> Non
     record_launches("scs_row_maps", row,
                     lambda: st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls),
                     results, {"memset": 1, "kernel": 4})
+
+    def row_order_plain():
+        k = rb.scs_row_keys_plain(*kargs)
+        o = rb.key_sort_plain(k, (1 << (bits + 1)) - 1)
+        return (o,) + tuple(rb.scs_row_maps_plain(o, counts, chunk))
+
+    plain_row = f"{what}, the row order against the plain versions (Z's key, C, Z's maps)"
+    compare("scs_row_maps", plain_row, (order, e2r, width), row_order_plain(), results)
+    time_pair("scs_row_maps", plain_row,
+              lambda: st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls),
+              row_order_plain, results, record=False)
+    # the row order's function: the counts read, the three maps written
+    record_bound("scs_row_maps", plain_row, results, nbytes(counts, order, e2r, width))
 
 
 def check_reshuffle(results: dict, dev, mesh, seeded) -> None:
@@ -3140,6 +3176,175 @@ def check_deposit_send_rows(results: dict, dev, gen, lpp) -> None:
     log(f"[c] deposit {what}: {n_rows} send rows written by D")
 
 
+Y_KERNELS = ("route_packed", "route_g2l", "route_banded", "balance_keys", "balance_select")
+
+
+def present(t) -> tuple:
+    """A kernel's outputs without the absent (None) ones."""
+    return tuple(x for x in t if x is not None)
+
+
+def route_case(results: dict, kernel: str, what: str, fn, plain, bytes_moved: int,
+               nodes: dict):
+    """One case of Y1-Y3 at rank 0's size: the kernel against its plain
+    version bit for bit, both timed, the captured call's launches and the
+    bound; returns the plain outputs."""
+    want = plain()
+    compare_bits(kernel, what, present(fn()), present(want), results)
+    time_pair(kernel, what, fn, plain, results)
+    record_launches(kernel, what, fn, results, nodes)
+    record_bound(kernel, what, results, bytes_moved)
+    return want
+
+
+def annulus_route_case(dev, n: int, gen):
+    """Rank 0 of the 4-rank annulus arm (bench_torch's 23,976-triangle
+    annulus, sector bands, the 12-layer buffer, the balancer): its banded
+    route's constants, and ``n`` slots whose first ``X_ACTIVE`` share hold
+    particles on the picpart's elements (uniform), the rest inactive with
+    no element, as the analytic locate leaves them."""
+    from pumipic_torch.mesh.generate import annulus_mesh
+    from pumipic_torch.mesh.locator import detect_annulus_structured
+    from pumipic_torch.parallel import balancer as lbm
+    from pumipic_torch.parallel import banded_route as brm
+    from pumipic_torch.parallel import picparts as ppm
+
+    n_rings = max(int((ANNULUS_ELEMS / 8) ** 0.5), 2)
+    Ns = ANNULUS_ELEMS // (2 * n_rings)
+    coords, tris, cls = annulus_mesh(n_rings, Ns, 0.3, 1.0)
+    owners = brm.sector_band_owners(n_rings, Ns, X_RANKS)
+    pp = ppm.build_picparts(coords, tris, owners, X_RANKS,
+                            ppm.PicPartsInput(buffer_layers=E_BUFFER), cls)
+    ann = detect_annulus_structured(coords, tris, cls=cls, device="cpu")
+    br = brm.derive_banded_route(pp, owners, ann, lbm.build_balancer(pp, X_RANKS), X_RANKS)
+    if br is None:
+        raise AssertionError("the annulus arm's partition is not banded")
+    eg = torch.as_tensor(pp.elem_gid[0], device=dev)
+    eg = eg[eg >= 0]
+    m = int(n * X_ACTIVE)
+    e_gl = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    e_gl[:m] = eg[torch.randint(0, eg.shape[0], (m,), generator=gen, device=dev)]
+    active = torch.zeros(n, dtype=torch.bool, device=dev)
+    active[:m] = True
+    return br, e_gl, active
+
+
+def check_route(results: dict, dev, mesh, lpp, step) -> None:
+    """Kernels Y1 (each form), Y2 and Y3 against their plain versions at
+    rank 0's size of the 4-rank arms (``X_SLOTS`` slots), bit for bit, then
+    timed on the device, each call's launches counted from a captured
+    graph.  Y1's packed form on the 120k arm's step layout
+    (:func:`x2_step_case`: the walk's elements, rank 0's packed route with
+    the balancer's sbars); its g2l form on the same particles through rank
+    0's [g2l | route] row of the global mesh; its banded form on the
+    annulus arm's rank 0 (:func:`annulus_route_case`); Y2 on the packed
+    form's outputs, with and without the non-core flag; Y3 on Y2's keys
+    and X1's ranks, the flows planned as if the other ranks held 0.6 of
+    rank 0's movable weight."""
+    import numpy as np
+
+    from pumipic_torch.ops import exchange as ex
+    from pumipic_torch.ops import route as rt
+    from pumipic_torch.parallel import balancer as lbm
+    from pumipic_torch.parallel import migrate as mig
+    from pumipic_torch.parallel import picparts as ppm
+
+    t0 = time.perf_counter()
+    coords, tris, cls, owners = mesh
+    pp = ppm.build_picparts(coords, tris, owners, X_RANKS,
+                            ppm.PicPartsInput(buffer_layers=E_BUFFER), cls)
+    bt = lbm.build_balancer(pp, X_RANKS)
+    R, S, me = X_RANKS, bt.num_sbars, 0
+    E = lpp.mesh.nelems
+    sbar_local = torch.as_tensor(bt.sbar_of_elem[me][:E], device=dev)
+    route = mig.pack_route(lpp.elem_safe, lpp.elem_owner, sbar_local, R)
+    new_elem, active = step[2], step[4]
+    n = new_elem.shape[0]
+    log(f"[c] route: rank 0's balancer tables ({S} sbars, "
+        f"{bt.my_edge_idx.shape[1]} edges of rank 0) in {time.perf_counter() - t0:.2f} s")
+    per_step = "1 a step on each rank of the picparts arms that take this form"
+    one = {"kernel": 1}
+
+    # Y1, packed: the 120k walk arms (and the one-rank arm)
+    what = "packed form, the 120k arm's step layout (main)"
+    got = route_case(results, "route_packed", what,
+                     lambda: rt.route_packed(route, new_elem, active, me, R),
+                     lambda: rt.route_packed_plain(route, new_elem, active, me, R),
+                     nbytes(new_elem, active, route) + n * (4 + 4 + 1 + 1), one)
+    dest, sbar, noncore, live = got[:4]
+    log(f"[c] route_packed: {int(live.sum())} live of {n} slots, "
+        f"{int((live & (dest != me)).sum())} leaving, {int(noncore.sum())} non-core")
+
+    # Y1, g2l: the same particles through rank 0's row of the global mesh
+    eg = lpp.elem_gid.long()
+    E_g = int(eg.max()) + 1
+    tbl = torch.zeros((E_g, 2), dtype=torch.int32, device=dev)
+    held = eg >= 0
+    tbl[:, 0] = -1
+    tbl[eg[held], 0] = torch.nonzero(held)[:, 0].to(torch.int32)
+    tbl[eg[held], 1] = route[held].to(torch.int32)
+    e_gl = torch.where(new_elem >= 0, lpp.elem_gid[torch.clamp(new_elem, min=0).long()],
+                       -1).to(torch.int32)
+    what = "g2l form, the 120k arm's particles by global element"
+    got = route_case(results, "route_g2l", what,
+                     lambda: rt.route_g2l(tbl, e_gl, active, me, R),
+                     lambda: rt.route_g2l_plain(tbl, e_gl, active, me, R),
+                     nbytes(e_gl, active, tbl) + n * (4 + 4 + 1 + 1 + 4 + 4), one)
+    if not (torch.equal(got.dest, dest) and torch.equal(got.sbar, sbar)
+            and torch.equal(got.live, live)):
+        raise AssertionError("route_g2l: the g2l row routes otherwise than the packed route")
+
+    # Y1, banded: the annulus arm's rank 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(X_SEED)
+    br, b_gl, b_act = annulus_route_case(dev, n, gen)
+    bp = br.params(me)
+    what = f"banded form, the annulus arm's rank 0 ({len(bp.sbar_runs)} sbar runs)"
+    route_case(results, "route_banded", what,
+               lambda: rt.route_banded(bp, b_gl, b_act),
+               lambda: rt.route_banded_plain(bp, b_gl, b_act),
+               nbytes(b_gl, b_act) + n * (4 + 4 + 1 + 1 + 4 + 4), one)
+    del b_gl, b_act
+
+    # Y2 on the packed form's outputs
+    y2_bytes = nbytes(dest, sbar, live, noncore) + 3 * 4 * n + 4
+    keys = route_case(results, "balance_keys", "with the non-core flag (main)",
+                      lambda: rt.balance_keys(dest, sbar, live, noncore, me, S, R),
+                      lambda: rt.balance_keys_plain(dest, sbar, live, noncore, me, S, R),
+                      y2_bytes, {"memset": 1, "kernel": 1})
+    keys_nc = route_case(results, "balance_keys", "without the non-core flag",
+                         lambda: rt.balance_keys(dest, sbar, live, None, me, S, R),
+                         lambda: rt.balance_keys_plain(dest, sbar, live, None, me, S, R),
+                         y2_bytes - nbytes(noncore), {"memset": 1, "kernel": 1})
+
+    # Y3 on Y2's keys, X1's ranks and a plan
+    w_local = ex.key_counts(keys.weights, S).to(torch.float32).cpu()
+    w_sr = torch.stack([w_local] + [torch.floor(w_local * 0.6)] * (R - 1))
+    w_fixed = torch.zeros(R, dtype=torch.float32)
+    flows = lbm.plan_flows(bt, w_sr, w_fixed)
+    tabs = lbm._edge_intervals(bt, flows, me, dev)
+    for what, k, nc_form in (("with the non-core flag (main)", keys, True),
+                             ("without the non-core flag", keys_nc, False)):
+        rank, counts = ex.rank_in_key(k.candidates, 2 * S if nc_form else S)
+        args = (k.candidates, rank, counts, dest, *tabs, S, nc_form)
+        n_cand = int((k.candidates < (2 * S if nc_form else S)).sum())
+        out = route_case(results, "balance_select", what,
+                         lambda: (rt.balance_select(*args),),
+                         lambda: (rt.balance_select_plain(*args),),
+                         nbytes(k.candidates, dest, *tabs) + 4 * n_cand + 4 * n, one)[0]
+        moved = int((out != dest).sum())
+        log(f"[c] balance_select {what}: {n_cand} candidates, {moved} relabelled "
+            f"(flows {flows.tolist()})")
+        if moved == 0:
+            raise AssertionError("balance_select: the plan moved no particle")
+    for name in Y_KERNELS:
+        results[name]["extra"].update(
+            library="none: no one PyTorch call computes the function",
+            per_step=per_step if name.startswith("route") else
+            "1 a step on each rank of every balancer arm (4 ranks)")
+    log(f"[c] route kernels checked in {time.perf_counter() - t0:.2f} s")
+
+
 def check_exchange(results: dict, dev) -> None:
     """X1, X2, X3 and O against their plain versions at the 4-rank 120k
     arm's per-rank size (3.75M slots, 2.5M particles, its leaver share; rank
@@ -3152,19 +3357,21 @@ def check_exchange(results: dict, dev) -> None:
     X3 writes the member fields in place: each case also checks that the
     state's own tensors hold the result and the staying slots their bits.
     O's fan-out in place against its plain version, its input untouched;
-    D's pass 2 with the send rows against D followed by O's gather."""
+    D's pass 2 with the send rows against D followed by O's gather.  Y1
+    (each form), Y2 and Y3 at the same size (:func:`check_route`)."""
     t0 = time.perf_counter()
     mesh = exchange_mesh()
     lpp = exchange_picpart(dev, mesh)
     gen = torch.Generator(device=dev)
     gen.manual_seed(X_SEED)
     D, cap = X_RANKS - 1, X_SLOTS // 8
-    for name in ("rank_in_key", "pack_send", "place_arrivals", "owner_reduce"):
+    for name in ("rank_in_key", "pack_send", "place_arrivals", "owner_reduce") + Y_KERNELS:
         results[name].setdefault("extra", {})
     check_rank_in_key(results, dev, gen, D)
     step = x2_step_case(dev, lpp, mesh, prev=True)
     check_lost_walk(results, dev, lpp, mesh, step)
     check_pack_send(results, dev, gen, lpp, D, cap, mesh, step)
+    check_route(results, dev, mesh, lpp, step)
     del step
     check_place_arrivals(results, dev, gen, lpp, D, cap)
     check_owner_reduce(results, dev, gen, lpp)
@@ -3573,13 +3780,18 @@ E_BUFFER = 12
 # kernels each rank of an arm launches (from its setup on), by name
 E_WALK = ("push", "locate", "histogram", "deposit")
 E_ANALYTIC = ("push", "annulus_locate", "locate", "histogram", "deposit")
-# launches a step of each rank, by name, of the exchange kernels: X1 for
-# the buckets, the balancer's two weight counts and its candidates; X2 and
-# X3 once; O's fan-in and fan-out (kernel D writes the fan-in's send rows:
-# O's gather is not launched).  One rank migrates nothing (the comm-size-1
-# path) and has no balancer.
-E_EXCHANGE = {"rank_in_key": 4, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 2}
-E_ONE_RANK = {"owner_reduce": 2}
+# launches a step of each rank, by name, of the route and exchange
+# kernels: Y1 once in the arm's form (E_PACKED: the walk arms; E_BANDED:
+# the annulus's analytic arms), Y2 and Y3 once (the balancer); X1 for the
+# buckets, the balancer's two weight counts and its candidates; X2 and X3
+# once; O's fan-in and fan-out (kernel D writes the fan-in's send rows: O's
+# gather is not launched).  One rank migrates nothing (the comm-size-1
+# path) and has no balancer: Y1 and O alone.
+E_EXCHANGE = {"rank_in_key": 4, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 2,
+              "balance_keys": 1, "balance_select": 1}
+E_PACKED = dict(E_EXCHANGE, route_packed=1)
+E_BANDED = dict(E_EXCHANGE, route_banded=1)
+E_ONE_RANK = {"owner_reduce": 2, "route_packed": 1}
 # rank 0 of the 4-rank 120k arm with the exchange and the reduction as
 # torch ops (PERF.md §5, 3-layer buffer): device busy and the stream's
 # split, ms a step
@@ -3600,13 +3812,14 @@ def e_launch(target: str, n: int, kwargs: dict, backend: str = "gloo",
 
 def e_tally(results: dict, name: str, ranks: list, expected, walk_steps: int,
             exchange=None, steps: int = 1 + E_STEPS) -> None:
-    """Require each rank's launch set to be ``expected`` and the exchange
-    kernels (``exchange``: launches a step, default :data:`E_EXCHANGE`),
+    """Require each rank's launch set to be ``expected`` and the route and
+    exchange kernels (``exchange``: launches a step, default
+    :data:`E_PACKED`),
     those to be launched ``steps`` times their count a step, and its L
     launches to be the setup's gyro-map walk plus, on a walk arm
     (``walk_steps`` > 0), at least one local search in each of
     ``walk_steps`` steps; add the counts to the kernels' launches."""
-    exchange = E_EXCHANGE if exchange is None else exchange
+    exchange = E_PACKED if exchange is None else exchange
     for r, out in enumerate(ranks):
         counts = out["launches"]
         launched = {k for k, v in counts.items() if v > 0}
@@ -3788,13 +4001,13 @@ def phase_e(results: dict, dev, grid, smi: str) -> None:
             dict(ann, slices=2)]
     out = e_launch("bench_torch:picparts_runs", E_RANKS, {"runs": runs})
     arms = {}
-    for i, (name, expected, walks) in enumerate((("neighbour", E_ANALYTIC, 0),
-                                                 ("world", E_ANALYTIC, 0),
-                                                 ("walk", E_WALK, 1 + E_STEPS),
-                                                 ("2 x 2 slices", E_ANALYTIC, 0))):
+    for i, (name, expected, walks, route) in enumerate((
+            ("neighbour", E_ANALYTIC, 0, E_BANDED), ("world", E_ANALYTIC, 0, E_BANDED),
+            ("walk", E_WALK, 1 + E_STEPS, E_PACKED),
+            ("2 x 2 slices", E_ANALYTIC, 0, E_BANDED))):
         ranks = [o[i] for o in out]
         arms[name] = ranks
-        e_tally(results, f"arm 3 (annulus, {name})", ranks, expected, walks)
+        e_tally(results, f"arm 3 (annulus, {name})", ranks, expected, walks, route)
         e_check_run(f"arm 3 (annulus, {name})", ranks, NUM_PTCLS)
         e_report(f"arm 3 (annulus, {name})", ranks, smi)
     for other in ("world", "2 x 2 slices"):
@@ -3854,10 +4067,22 @@ def phase_e(results: dict, dev, grid, smi: str) -> None:
 
     # 5: the dry run, 3D mode included
     counts = dryrun_multirank(E_RANKS, E_DEVICE, "gloo")
+    # each picparts mode's 3 steps: Y1 in the mode's form (the 3D mode's
+    # Kuhn arm: the g2l row), Y2 and Y3 once a step on every rank
+    dry_forms = {"picparts": "route_banded", "picparts-walk": "route_packed",
+                 "picparts-3d": "route_g2l"}
     for mode in ("picparts", "picparts-walk", "full-dp", "picparts-3d"):
         for r, out in enumerate(counts["ranks"]):
             got = {k: v for k, v in out[mode]["launches"].items() if v}
             log(f"[e] dryrun {mode} rank {r} kernel launches: {got}")
+            if mode in dry_forms and E_DEVICE == "cuda":
+                want = {dry_forms[mode]: 3, "balance_keys": 3, "balance_select": 3}
+                have = {k: got.get(k, 0) for k in Y_KERNELS if got.get(k, 0) or k in want}
+                if have != want:
+                    raise AssertionError(f"dryrun {mode} rank {r}: Y1-Y3 launched {have}, "
+                                         f"expected {want}")
+                for k, v in want.items():
+                    results[k]["launches"] = results[k].get("launches", 0) + v
             # the 3D picparts step rebuilds its CSR structure on arrival
             # (migrate_structure): kernels C and Q
             if mode == "picparts-3d" and E_DEVICE == "cuda" and not (

@@ -172,6 +172,16 @@ SIGNATURES = {
         _P, _P, _P, _P, _P],                 # elem_out active_out num ovf stream
     "pp_scs_row_keys": [_P, _I, _I, _I, _I, _P, _P],  # counts E R sigma b key stream
     "pp_scs_row_maps": [_P, _P, _I, _I, _I, _P, _P, _P],  # order counts E R chunk e2r cw stream
+    "pp_route_decode": [
+        _I, _P, _P, _P, _P, _L, _I, _I,      # form table params elem_in active n me R
+        _P, _P, _P, _P, _P, _P, _P],         # dest sbar noncore live elem_out gelem stream
+    "pp_route_params_bytes": [],
+    "pp_balance_keys": [
+        _P, _P, _P, _P, _L, _I, _I, _I,      # dest sbar live noncore n me S R
+        _P, _P, _P, _P, _P],                 # w_key f_key c_key immovable stream
+    "pp_balance_select": [
+        _P, _P, _P, _P, _L, _I, _I, _I,      # key rank counts dest n S noncore_form P
+        _P, _P, _P, _P, _P, _P],             # e_dst cumsum sbar_base sbar_total out stream
     "pp_slot_map": [
         _I, _P, _P, _P, _I,                  # cabm order start offsets n_seg
         _P, _I, _I, _I, _L, _I,              # row_to_elem n_rows chunk E C M

@@ -44,6 +44,7 @@ from pumipic_torch.mesh.locator import (
 )
 from pumipic_torch.ops import locate as locate_ops
 from pumipic_torch.ops import push as push_ops
+from pumipic_torch.ops import route as route_ops
 from pumipic_torch.ops import search as search_ops
 from pumipic_torch.particles import CSR, DPS, CabM, SCSInput, SellCSigma
 from pumipic_torch.utils.device import resolve_device
@@ -348,11 +349,15 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
     sbar_local = (None if bt is None else
                   torch.as_tensor(bt.sbar_of_elem[me][:E_r], device=device))
     g2l_tbl = None
+    # both arms route through kernel Y1: the Kuhn arm from the [g2l | route]
+    # row at the global element, the walk arm from the packed route at the
+    # local one (set_unsafe_procs' destinations, with the sbar and non-core
+    # flag the balancer would gather)
+    n_sbars = bt.num_sbars if bt is not None else 0
+    if not mig.route_pack_bound_ok(n_sbars, R):
+        raise ValueError(f"route pack exceeds f32 exactness: S={n_sbars} R={R}")
+    route = mig.pack_route(lpp.elem_safe, lpp.elem_owner, sbar_local, R)
     if kuhn is not None:
-        n_sbars = bt.num_sbars if bt is not None else 0
-        if not mig.route_pack_bound_ok(n_sbars, R):
-            raise ValueError(f"route pack exceeds f32 exactness: S={n_sbars} R={R}")
-        route = mig.pack_route(lpp.elem_safe, lpp.elem_owner, sbar_local, R)
         fused = np.zeros((gmesh.nelems, 2), np.int32)
         fused[:, 0] = g2l
         valid = g2l >= 0
@@ -367,7 +372,6 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
 
     def step(ps):
         x = ps.get("x")
-        sbar_p = noncore_p = None
         with group.split("compute"):
             if kuhn is not None:
                 dest_x, e_gl = locate_ops.kuhn_push_locate(kuhn, x, ps.active, svec,
@@ -385,22 +389,17 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
                     g_walk, dest_x, g_start, removed, gmesh.nelems)
                 lost = (g_ids >= 0).sum(dtype=torch.int32) + (~g_all).to(torch.int32)
         with group.split("glue"):
-            ok_in = None
             if kuhn is not None:
-                g_row = g2l_tbl[torch.clamp(e_gl, min=0).long()]
-                elem_ids = torch.where(e_gl >= 0, g_row[:, 0], -1)
-                ok_in = ps.active & (elem_ids >= 0)
-                dest, sbar_p, noncore_p = mig.route_decode(
-                    g_row[:, 1].to(torch.float32), ok_in, me, R)
+                routed = route_ops.route_g2l(g2l_tbl, e_gl, ps.active, me, R, gelem=False)
+                elem_ids = routed.elem
             else:
-                dest = mig.set_unsafe_procs(lpp.elem_safe, lpp.elem_owner, elem_ids,
-                                            ps.active, me)
+                routed = route_ops.route_packed(route, elem_ids, ps.active, me, R)
             ps1 = ps.set("x", dest_x)
-            ok = ps.active & (elem_ids >= 0)
+            dest = routed.dest
         if bt is not None:
-            dest = lbm.repartition(bt, sbar_local, elem_ids, ok, dest, me, lb_tol,
-                                   elem_owner=lpp.elem_owner, sbar_of_ptcl=sbar_p,
-                                   noncore=noncore_p, num_ranks=R)
+            dest = lbm.repartition(bt, sbar_local, elem_ids, routed.live, dest, me, lb_tol,
+                                   sbar_of_ptcl=routed.sbar, noncore=routed.noncore,
+                                   num_ranks=R)
         ps2, mres = mig.migrate_structure(ps1, elem_ids, dest, lpp.elem_gid,
                                           lpp.elem_gid_sorted, lpp.elem_gid_perm,
                                           me, R, migrate_cap, plan=nplan,

@@ -64,12 +64,13 @@ from pumipic_torch.mesh.locator import (
 )
 from pumipic_torch.ops import locate as locate_ops
 from pumipic_torch.ops import push as push_ops
+from pumipic_torch.ops import route as route_ops
 from pumipic_torch.ops import scatter as scatter_ops
 from pumipic_torch.ops import search as search_ops
 from pumipic_torch.parallel import full_mode
 from pumipic_torch.particles import CSR, DPS, CabM, SCSInput, SellCSigma
 from pumipic_torch.utils.device import resolve_device
-from pumipic_torch.utils.types import INVALID, LID_DTYPE
+from pumipic_torch.utils.types import LID_DTYPE
 
 ELEMENT_SEED = 1024 * 1024
 PARTICLE_SEED = 512 * 512
@@ -752,6 +753,10 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
     br = None
     if analytic is not None and banded_route == "auto" and analytic.perm is None:
         br = brm.derive_banded_route(pp, owners, analytic, bt, R)
+        # kernel Y1's banded form holds Y1_MAX_RUNS sbar runs; a map of
+        # more keeps the [g2l | route] row (the same routes)
+        if br is not None and len(br.sbar_runs) > route_ops.Y1_MAX_RUNS:
+            br = None
 
     sel = np.nonzero(own_of_ptcl == me)[0]
     n = len(sel)
@@ -832,10 +837,9 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
         valid = g2l >= 0
         fused[valid, 1] = route.cpu().numpy().astype(np.int64)[g2l[valid]]
         g2l_tbl = torch.as_tensor(fused, device=device)
-    br_scalars = br.scalars(me) if br is not None else None
+    br_params = br.params(me) if br is not None else None
     timings["locator"] = time.perf_counter() - t0
 
-    Ns = analytic.n_sectors if analytic is not None else 1
     R_g, P_g = gyro.num_rings, gyro.points_per_ring
     # the walk arm tells an exit from a particle lost off the picpart by a
     # plain walk on the global mesh (no walk this long is cut short unless
@@ -866,34 +870,27 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
                     g_walk, tx, ty, g_start, removed, g_walk_iters)
                 lost = found + (~g_all).to(torch.int32)
         with group.split("glue"):
-            route_v = None
+            # kernel Y1: the route, the live mask and, on the analytic arms,
+            # the local and global elements, in one pass
             if analytic is not None and br is not None:
-                e = torch.clamp(e_gl, min=0)
-                lid, dest, sbar_p, noncore_p = brm.banded_decode(
-                    br, (e // (2 * Ns)).to(torch.float32),
-                    ((e // 2) % Ns).to(torch.float32), (e % 2).to(torch.float32),
-                    e_gl >= 0, active, me, *br_scalars)
-                elem_ids = lid
+                routed = route_ops.route_banded(br_params, e_gl, active)
             elif analytic is not None:
-                g_row = g2l_tbl[torch.clamp(e_gl, min=0).long()]
-                elem_ids = torch.where(e_gl >= 0, g_row[:, 0], INVALID)
-                route_v = g_row[:, 1].to(torch.float32)
+                routed = route_ops.route_g2l(g2l_tbl, e_gl, active, me, R)
+            else:
+                routed = route_ops.route_packed(route, elem_ids, active, me, R)
+            if analytic is not None:
+                elem_ids = routed.elem
+            dest = routed.dest
             mid = {"x0": tx, "x1": ty, "cphi": cphi, "sphi": sphi, "b": s["b"],
-                   "pid": s["pid"], "elem": elem_ids,
-                   "active": active & (elem_ids >= 0)}
+                   "pid": s["pid"], "elem": elem_ids, "active": routed.live}
             if gyro.per_particle_radius:
                 mid["rg"] = s["rg"]
             if analytic is not None:
-                mid["gelem"] = torch.where(elem_ids >= 0, e_gl, INVALID)
-            if analytic is not None and br is None:
-                dest, sbar_p, noncore_p = mig.route_decode(route_v, mid["active"], me, R)
-            elif analytic is None:
-                dest, sbar_p, noncore_p = mig.route_particles(
-                    route, elem_ids, mid["active"], me, R)
+                mid["gelem"] = routed.gelem
         if bt is not None:
-            dest = lbm.repartition(bt, sbar_local, elem_ids, mid["active"], dest, me,
-                                   lb_tol, sbar_of_ptcl=sbar_p, noncore=noncore_p,
-                                   num_ranks=R)
+            dest = lbm.repartition(bt, sbar_local, elem_ids, routed.live, dest, me,
+                                   lb_tol, sbar_of_ptcl=routed.sbar,
+                                   noncore=routed.noncore, num_ranks=R)
         mres = mig.migrate(mid, elem_ids, dest, lpp.elem_gid, lpp.elem_gid_sorted,
                            lpp.elem_gid_perm, me, R, migrate_cap, plan=nplan,
                            hier=hier)

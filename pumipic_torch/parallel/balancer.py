@@ -10,7 +10,9 @@ lands travel in ONE ``all_gather``; every rank computes the same plan
 (:func:`plan_flows`, a Gauss-Seidel water-fill over the sbars to a
 tolerance, on the host in f32 as the JAX package computes it) and
 relabels its own candidates, non-core-bound first (``selectParticles``,
-lb.hpp:229-287), by an interval lookup at particle rate on the device.
+lb.hpp:229-287), by an interval lookup at particle rate on the device: the
+keys are kernel Y2's, their counts and ranks kernel X1's, the lookup
+kernel Y3's (``pumipic_torch.ops.route``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from pumipic_torch import native
 from pumipic_torch.parallel import group
 from pumipic_torch.ops import exchange as ex
+from pumipic_torch.ops import route as rt
 from pumipic_torch.ops.exchange import key_counts
 
 
@@ -164,30 +167,30 @@ def rank_within_key(key: torch.Tensor, num_keys: int) -> torch.Tensor:
     return ex.rank_in_key(key, num_keys)[0]
 
 
+def _select(bt: BalancerTables, flows: torch.Tensor, key, dest_rank, me: int,
+            noncore_form: bool) -> torch.Tensor:
+    """Kernel X1's ranks of the candidates' key (kernel Y2's, or
+    :func:`select_particles`'), then kernel Y3: the new dest_rank."""
+    S = bt.num_sbars
+    e_dst, cumsum, sbar_base, sbar_total = _edge_intervals(bt, flows, me, key.device)
+    rank, counts = ex.rank_in_key(key, 2 * S if noncore_form else S)
+    return rt.balance_select(key, rank, counts, dest_rank.to(torch.int32), e_dst, cumsum,
+                             sbar_base, sbar_total, S, noncore_form).to(dest_rank.dtype)
+
+
 def select_particles(bt: BalancerTables, flows: torch.Tensor, sbar, candidate,
                      dest_rank, me: int, noncore=None) -> torch.Tensor:
     """Relabel up to flow[e] candidates per outgoing edge, non-core-bound
     candidates first (selectParticles, lb.hpp:229-287); returns the new
-    dest_rank."""
+    dest_rank.  The candidates' key (sbar·2 + !noncore, or sbar) is formed
+    here; the step's :func:`repartition` takes kernel Y2's."""
     S = bt.num_sbars
-    e_dst, cumsum, sbar_base, sbar_total = _edge_intervals(bt, flows, me,
-                                                           sbar.device)
     is_cand = candidate & (sbar >= 0)
     if noncore is None:
-        rank_in_sbar = rank_within_key(torch.where(is_cand, sbar, S), S)
+        key = torch.where(is_cand, sbar, S)
     else:
-        key2 = torch.where(is_cand, sbar * 2 + (~noncore).to(sbar.dtype), 2 * S)
-        rank2, counts2 = ex.rank_in_key(key2, 2 * S)
-        n_noncore = counts2[0:2 * S:2]     # key 2s: sbar s's non-core-bound
-        sb_c = torch.clamp(sbar, min=0).long()
-        rank_in_sbar = torch.where(is_cand & ~noncore, rank2 + n_noncore[sb_c], rank2)
-    sb_c = torch.clamp(sbar, min=0).long()
-    in_plan = is_cand & (rank_in_sbar < sbar_total[sb_c])
-    gpos = sbar_base[sb_c] + rank_in_sbar
-    edge = torch.searchsorted(cumsum, gpos.to(torch.int32), right=True)
-    edge = torch.clamp(edge, max=e_dst.shape[0] - 1)
-    chosen = torch.where(in_plan, e_dst[edge], -1)
-    return torch.where(chosen >= 0, chosen, dest_rank).to(dest_rank.dtype)
+        key = torch.where(is_cand, sbar * 2 + (~noncore).to(sbar.dtype), 2 * S)
+    return _select(bt, flows, key.to(torch.int32), dest_rank, me, noncore is not None)
 
 
 def _gathered_weights(w_local, fixed_vec, R: int):
@@ -205,7 +208,9 @@ def repartition(bt: BalancerTables, sbar_of_elem_local, new_elem, active,
     forced migrations counted at their destination (addWeights), the
     plan, the selection.  Returns the new dest_rank; the identity on one
     rank.  ``sbar_of_ptcl``/``noncore``: per-particle values already
-    decoded from the routing gather (``migrate.route_particles``)."""
+    decoded from the routing gather (kernel Y1, ``migrate.route_particles``).
+    The keys are kernel Y2's (with the immovable count), X1 counts and
+    ranks them, Y3 selects."""
     R = group.num_ranks() if num_ranks is None else num_ranks
     if R == 1:
         return dest_rank
@@ -216,22 +221,20 @@ def repartition(bt: BalancerTables, sbar_of_elem_local, new_elem, active,
         if sbar is None:
             sbar = torch.where(active & (new_elem >= 0),
                                sbar_of_elem_local[torch.clamp(new_elem, min=0).long()], -1)
-        staying = active & (dest_rank == me)
-        leaving = active & (dest_rank != me)
-        # counts (exact in f32, as the JAX package's f32 segment sums)
-        w_local = key_counts(torch.where(staying & (sbar >= 0), sbar, S), S
-                             ).to(torch.float32)
-        forced = key_counts(torch.where(leaving, dest_rank, R).to(sbar.dtype), R
-                            ).to(torch.float32)
-        immovable = (staying & (sbar < 0)).sum(dtype=torch.float32)
-        fixed_vec = forced + immovable * (torch.arange(R, device=dev) == me).to(torch.float32)
-    w_sr, w_fixed = _gathered_weights(w_local, fixed_vec, R)
-    with group.split("glue"):
-        flows = plan_flows(bt, w_sr, w_fixed, tol)
         if noncore is None and elem_owner is not None:
             noncore = (active & (new_elem >= 0)
                        & (elem_owner[torch.clamp(new_elem, min=0).long()] != me))
-        return select_particles(bt, flows, sbar, staying, dest_rank, me, noncore)
+        keys = rt.balance_keys(dest_rank.to(torch.int32), sbar.to(torch.int32), active,
+                               noncore, me, S, R)
+        # counts (exact in f32, as the JAX package's f32 segment sums)
+        w_local = key_counts(keys.weights, S).to(torch.float32)
+        forced = key_counts(keys.forced, R).to(torch.float32)
+        fixed_vec = forced + keys.immovable.to(torch.float32) * (
+            torch.arange(R, device=dev) == me).to(torch.float32)
+    w_sr, w_fixed = _gathered_weights(w_local, fixed_vec, R)
+    with group.split("glue"):
+        flows = plan_flows(bt, w_sr, w_fixed, tol)
+        return _select(bt, flows, keys.candidates, dest_rank, me, noncore is not None)
 
 
 def partition(bt: BalancerTables, sbar_of_elem_local, ptcls_per_elem,

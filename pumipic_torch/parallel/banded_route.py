@@ -4,8 +4,9 @@ structured annulus (port of ``pumipic_tpu.parallel.banded_route``).
 Where the partition is a sector-band decomposition of a detection-proven
 annulus, each rank's local element id, destination, sbar and non-core
 flag are functions of the (ring, sector, triangle) indices of the global
-analytic locate, so the step computes them elementwise
-(:func:`banded_decode`) instead of gathering the [g2l | route] row.
+analytic locate, so the step computes them elementwise (kernel Y1's
+banded form, :func:`banded_decode`) instead of gathering the [g2l | route]
+row.
 :func:`derive_banded_route` checks every formula against the generic
 picparts and balancer tables over every element and returns None on any
 mismatch (callers then keep the gather).  Local ids follow from
@@ -20,6 +21,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from pumipic_torch.ops import route as rt
 
 INVALID = -1
 
@@ -46,34 +49,25 @@ class BandedRoute2D:
         return tuple(float(v[r]) for v in (self.win_a, self.win_w, self.win_w0,
                                              self.win_nsa, self.safe_a, self.safe_len))
 
+    def params(self, r: int) -> rt.BandedParams:
+        """Rank r's constants of kernel Y1's banded form."""
+        return rt.BandedParams(r, self.num_ranks, self.n_sectors, self.scalars(r),
+                               self.sbar_runs)
+
 
 def banded_decode(br: BandedRoute2D, ring_f, sec_f, tri_f, valid, active, me: int,
                   a: float, w: float, w0: float, nsa: float, sa: float, sl: float):
-    """(lid, dest, sbar, noncore) from the f32 (ring, sector, tri) indices,
-    in the JAX package's f32 arithmetic."""
-    Ns = float(br.n_sectors)
-    R = br.num_ranks
-    pos = sec_f - a
-    pos = torch.where(pos < 0, pos + Ns, pos)
-    in_win = pos < w
-    gidx = torch.where(pos >= nsa, pos + a - Ns, pos + w0)
-    lid_f = ring_f * (2.0 * w) + gidx * 2.0 + tri_f
-    ok = active & valid & in_win
-    lid = torch.where(ok, lid_f, float(INVALID)).to(torch.int32)
-    owner_f = torch.floor(sec_f * float(R) / sec_f.new_full((), Ns))
-    d = sec_f - sa
-    d = torch.where(d < 0, d + Ns, d)
-    safe = d < sl
-    me_f = float(me)
-    dest = torch.where(ok & ~safe, owner_f, sec_f.new_full((), me_f)).to(torch.int32)
-    noncore = ok & (owner_f != me_f)
-    sbar = torch.full(sec_f.shape, -1, dtype=torch.int32, device=sec_f.device)
-    for lo, hi, val in br.sbar_runs:
-        sbar = torch.where((sec_f >= float(lo)) & (sec_f < float(hi)),
-                           torch.full((), val, dtype=torch.int32, device=sec_f.device),
-                           sbar)
-    sbar = torch.where(ok, sbar, -1)
-    return lid, dest, sbar, noncore
+    """(lid, dest, sbar, noncore) from the f32 (ring, sector, tri) indices
+    of an element id (each in range), in the JAX package's f32 arithmetic:
+    kernel Y1's banded form on the element id they make
+    (:func:`pumipic_torch.ops.route.route_banded`)."""
+    Ns = br.n_sectors
+    e = (ring_f.to(torch.int32) * (2 * Ns) + sec_f.to(torch.int32) * 2
+         + tri_f.to(torch.int32))
+    e_gl = torch.where(valid, e, INVALID).to(torch.int32)
+    p = rt.BandedParams(me, br.num_ranks, Ns, (a, w, w0, nsa, sa, sl), br.sbar_runs)
+    r = rt.route_banded(p, e_gl, active, gelem=False)
+    return r.elem, r.dest, r.sbar, r.noncore
 
 
 def sector_band_owners(n_rings: int, n_sectors: int, num_ranks: int) -> np.ndarray:

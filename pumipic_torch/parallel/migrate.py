@@ -19,7 +19,9 @@ Arrivals translate global to local element ids by binary search over the
 picpart's sorted global ids (``num_recv_unresolved`` counts those the
 picpart lacks) and fill free slots in arrival order.  On the card the
 bookkeeping runs on kernels X1 (ranks within the buckets, the free slots),
-X2 (the send buffer) and X3 (the placement), ``pumipic_torch.ops.exchange``.
+X2 (the send buffer) and X3 (the placement), ``pumipic_torch.ops.exchange``;
+the route (destination, sbar, non-core flag) on kernel Y1,
+``pumipic_torch.ops.route``.
 
 With a neighbour plan (the ``Distributor``-scoped exchange,
 SCS_migrate.h:41-62) only the plan's peers are destinations: leavers bound
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from pumipic_torch.ops import exchange as ex
+from pumipic_torch.ops import route as rt
 from pumipic_torch.ops.exchange import gid_to_lid  # noqa: F401  (the JAX module's)
 from pumipic_torch.parallel import group
 
@@ -83,25 +86,19 @@ def route_pack_bound_ok(num_sbars: int, num_ranks: int) -> bool:
 
 def route_particles(route, new_elem, active, my_rank: int, num_ranks: int):
     """(dest, sbar, noncore) of every particle from its element's
-    :func:`pack_route` value."""
-    v = route[torch.clamp(new_elem, min=0).long()]
-    return route_decode(v, active & (new_elem >= 0), my_rank, num_ranks)
+    :func:`pack_route` value: kernel Y1's packed form
+    (:func:`pumipic_torch.ops.route.route_packed`), whose live mask the
+    steps take too."""
+    r = rt.route_packed(route, new_elem, active, my_rank, num_ranks)
+    return r.dest, r.sbar, r.noncore
 
 
 def route_decode(v, ok, my_rank: int, num_ranks: int):
     """Decode pre-gathered :func:`pack_route` values in the JAX package's
-    f32 arithmetic (divisions by 0-d tensors: IEEE on the card too)."""
-    Rf = v.new_full((), float(num_ranks))
-    t = torch.floor(v / Rf)
-    owner_f = v - t * Rf
-    half = torch.floor(t / v.new_full((), 2.0))
-    safe = (t - half * 2.0) > 0.5
-    sbar = half.to(torch.int32) - 2
-    me_f = float(my_rank)
-    dest = torch.where(ok & ~safe, owner_f, v.new_full((), me_f)).to(torch.int32)
-    sbar = torch.where(ok, sbar, -1)
-    noncore = ok & (owner_f != me_f)
-    return dest, sbar, noncore
+    f32 arithmetic (divisions by 0-d tensors: IEEE on the card too): the
+    plain versions' decode; on the steps' path kernel Y1 decodes as it
+    gathers (:mod:`pumipic_torch.ops.route`)."""
+    return rt.route_decode_plain(v, ok, my_rank, num_ranks)
 
 
 # ---------------------------------------------------------------------------

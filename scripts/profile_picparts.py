@@ -13,8 +13,14 @@ warm-up step, ``steps`` steps (default 5) for the wall time and rank
 ``steps`` more under torch.profiler with each part a ``pp:<label>``
 range.  Prints one JSON line per arm from rank 0: wall ms/step, device
 busy ms/step (kernels and copies), the device ms of each range and of
-each kernel, and host ms of each range; writes rank 0's Chrome trace of
-the profiled steps to ``chiprun_out/picparts_trace_<arm>.json.gz``.
+each kernel, host ms of each range, and the glue ranges' kernels split
+by the function they lie in (``glue_by_site``: ``repartition``,
+``migrate``, ``migrate_structure``, ``reduce_comm_array`` or the step's
+own ``step``) and by the
+outermost aten op that launched them (``glue_by_op``; a kernel launched
+outside an aten op, as the port's own through ctypes, under its own
+name), each as [device ms, launches] a step; writes rank 0's Chrome
+trace of the profiled steps to ``chiprun_out/picparts_trace_<arm>.json.gz``.
 ``--buffer`` sets the picparts' BFS buffer layers (default ``bench_torch``'s).
 
 ``--save-x2`` (the 120k arm) saves rank 0's kernel X2 inputs of step
@@ -75,6 +81,64 @@ def watch_x2(path: str, layouts: list, save_call: int = 1) -> None:
     ex.pack_send = pack_send
 
 
+# functions the steps call through their modules, each profiled as a
+# ``site:<name>`` range: a glue range inside none of them is the step's own
+SITES = (("pumipic_torch.parallel.balancer", "repartition"),
+         ("pumipic_torch.parallel.migrate", "migrate"),
+         ("pumipic_torch.parallel.migrate", "migrate_structure"),
+         ("pumipic_torch.parallel.reduce", "reduce_comm_array"))
+
+
+def mark_sites() -> None:
+    """Wrap each of :data:`SITES` in its ``site:`` range."""
+    import importlib
+
+    for mod, name in SITES:
+        m = importlib.import_module(mod)
+
+        def wrapped(*args, _fn=getattr(m, name), _label="site:" + name, **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kw)
+        setattr(m, name, wrapped)
+
+
+def glue_site(ev) -> str:
+    """The site of a ``pp:glue`` range: the innermost ``site:`` range
+    around it, else the step's own code."""
+    p = ev.cpu_parent
+    while p is not None:
+        if p.name.startswith("site:"):
+            return p.name[5:]
+        p = p.cpu_parent
+    return "step"
+
+
+def glue_split(prof, steps: int):
+    """({site: [ms, launches]}, {op: [ms, launches]}) a step of the kernels
+    launched inside the ``pp:glue`` ranges."""
+    sites, ops = {}, {}
+
+    def add(table, key, us):
+        row = table.setdefault(key, [0.0, 0])
+        row[0] += us / 1e3 / steps
+        row[1] += 1 / steps
+
+    def walk(ev, site, op):
+        for c in ev.cpu_children:
+            name = op or (c.name if c.name.startswith("aten::") else None)
+            for k in c.kernels:
+                add(ops, name or k.name.split("(")[0], k.duration)
+                add(sites, site, k.duration)
+            walk(c, site, name)
+
+    for ev in prof.events():
+        if ev.name == "pp:glue" and (ev.cpu_parent is None
+                                     or ev.cpu_parent.name != "pp:glue"):
+            walk(ev, glue_site(ev), None)
+    order = lambda t: dict(sorted(t.items(), key=lambda kv: -kv[1][0]))  # noqa: E731
+    return order(sites), order(ops)
+
+
 def rank(arm: str, n: int, steps: int, trace_dir: str, buffer: int = 0,
          save_x2: str = "", x2_step: int = 1) -> dict:
     import bench_torch
@@ -82,6 +146,7 @@ def rank(arm: str, n: int, steps: int, trace_dir: str, buffer: int = 0,
 
     dev = group.device()
     layouts = []
+    mark_sites()
     if save_x2 and group.rank() == 0:
         watch_x2(save_x2, layouts, x2_step)
     _, state, step, info = bench_torch.setup_picparts(
@@ -105,12 +170,13 @@ def rank(arm: str, n: int, steps: int, trace_dir: str, buffer: int = 0,
     group.set_split_timer(None)
     kernels, ranges, host = {}, {}, {}
     for ev in prof.key_averages():
-        if ev.key.startswith("pp:"):
+        if ev.key.startswith(("pp:", "site:")):
             ranges[ev.key] = ev.device_time_total / 1e3 / steps
             host[ev.key] = ev.cpu_time_total / 1e3 / steps
         elif ev.device_type == torch.autograd.DeviceType.CUDA:
             name = ev.key.split("(")[0]
             kernels[name] = kernels.get(name, 0.0) + ev.self_device_time_total / 1e3 / steps
+    glue_sites, glue_ops = glue_split(prof, steps)
     if group.rank() == 0:
         path = os.path.join(trace_dir, f"picparts_trace_{arm}.json")
         prof.export_chrome_trace(path)
@@ -120,6 +186,7 @@ def rank(arm: str, n: int, steps: int, trace_dir: str, buffer: int = 0,
             "device_busy_ms_per_step": sum(kernels.values()),
             "range_device_ms_per_step": ranges, "range_host_ms_per_step": host,
             "kernel_device_ms_per_step": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:40]),
+            "glue_by_site": glue_sites, "glue_by_op": glue_ops,
             "alive": int(f["stats"]["alive"]), "x2_layouts": layouts}
 
 

@@ -1,7 +1,8 @@
 """Card-only checks of the port's kernels: each kernel (P, B, A, L, H, D, G,
 S, K, L3, the GITR-style app's R, M, F and W, the 2D walk modes' M2 and the
 deposit V, with their modes, the rebuild's Q and C, and the distributed
-step's X1, X2, X3 and O on tests/torch_ranks.py's adversarial cases, the parent
+step's X1, X2, X3 and O on tests/torch_ranks.py's adversarial cases, its
+route and the balancer's selection (Y1 in each form, Y2, Y3), the parent
 check J and L's plain walk in place) against its plain PyTorch
 version on the same CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
 lengths and R's corner rows at their edges.
@@ -2155,3 +2156,161 @@ def test_scs_row_order_kernels_equal_plain(dev, E, chunk, sigma):
     order = got[0]
     assert all(torch.equal(a, b) for a, b in zip(rb.scs_row_maps(order, counts, chunk),
                                                  rb.scs_row_maps_plain(order, counts, chunk)))
+
+
+# ---------------------------------------------------------------------------
+# Y1, Y2, Y3: the picparts step's route and the balancer's selection
+# ---------------------------------------------------------------------------
+
+def _route_slots(rng, n, E, dev):
+    elem = np.where(rng.random(n) < 0.85, rng.integers(0, E, n), -1).astype(np.int32)
+    return (torch.as_tensor(elem, device=dev),
+            torch.as_tensor(rng.random(n) < 0.9, device=dev))
+
+
+def _route_words(rng, E, R, S):
+    safe = rng.random(E) < 0.6
+    owner = rng.integers(0, R, E)
+    sbar = np.where(rng.random(E) < 0.7, rng.integers(0, S, E), -1)
+    return (((sbar + 2) * 2 + safe) * R + owner).astype(np.int64)
+
+
+def _routed_equal(got, want):
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 300_000])
+@pytest.mark.parametrize("R", [1, 4, 7])
+def test_route_packed_kernel_equals_plain(dev, R, n):
+    from pumipic_torch.ops import route as rt
+
+    rng = np.random.default_rng(R * 7 + n)
+    E = 5000
+    route = torch.as_tensor(_route_words(rng, E, R, 40).astype(np.float32), device=dev)
+    elem, active = _route_slots(rng, n, E, dev)
+    for me in sorted({0, R - 1}):
+        n0 = kernels.LAUNCHES["route_packed"]
+        got = rt.route_packed(route, elem, active, me, R)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["route_packed"] == n0 + 1
+        _routed_equal(got, rt.route_packed_plain(route, elem, active, me, R))
+
+
+@pytest.mark.parametrize("above_bound", [False, True])
+@pytest.mark.parametrize("n", [4097, 300_000])
+@pytest.mark.parametrize("R", [2, 7])
+def test_route_g2l_kernel_equals_plain(dev, R, n, above_bound):
+    from pumipic_torch.ops import route as rt
+
+    rng = np.random.default_rng(R * 11 + n)
+    E_g, E = 20_000, 6000
+    words = _route_words(rng, E, R, 40)
+    if above_bound:           # route words f32 rounds: the f32 decode, not the integer one
+        words = rng.integers(2 ** 24, 2 ** 26, E)
+    g2l = np.full(E_g, -1, np.int64)
+    held = rng.choice(E_g, E, replace=False)
+    g2l[held] = np.arange(E)
+    tbl = np.zeros((E_g, 2), np.int32)
+    tbl[:, 0] = g2l
+    tbl[held, 1] = words[g2l[held]]
+    tbl = torch.as_tensor(tbl, device=dev)
+    e_gl, active = _route_slots(rng, n, E_g, dev)
+    for me in sorted({0, R - 1}):
+        for gelem in (True, False):
+            n0 = kernels.LAUNCHES["route_g2l"]
+            got = rt.route_g2l(tbl, e_gl, active, me, R, gelem)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["route_g2l"] == n0 + 1
+            _routed_equal(got, rt.route_g2l_plain(tbl, e_gl, active, me, R, gelem))
+
+
+@pytest.mark.parametrize("sbars", [True, False])
+@pytest.mark.parametrize("R", [2, 4, 8])
+def test_route_banded_kernel_equals_plain(dev, R, sbars):
+    from pumipic_torch.ops import route as rt
+    from pumipic_torch.parallel import balancer as lbm
+    from pumipic_torch.parallel import banded_route as brm
+    from pumipic_torch.parallel import picparts as ppm
+
+    Nr, Ns = 5, 8 * R
+    coords, tris, cls = annulus_mesh(Nr, Ns, 0.3, 1.0)
+    owners = brm.sector_band_owners(Nr, Ns, R)
+    pp = ppm.build_picparts(coords, tris, owners, R, ppm.PicPartsInput(), cls)
+    ann = detect_annulus_structured(coords, tris, cls=cls, device="cpu")
+    br = brm.derive_banded_route(pp, owners, ann, lbm.build_balancer(pp, R) if sbars else None,
+                                 R)
+    assert br is not None and bool(br.sbar_runs) == sbars
+    rng = np.random.default_rng(R)
+    e_gl, active = _route_slots(rng, 200_000, 2 * Nr * Ns, dev)
+    for me in range(R):
+        n0 = kernels.LAUNCHES["route_banded"]
+        got = rt.route_banded(br.params(me), e_gl, active)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["route_banded"] == n0 + 1
+        _routed_equal(got, rt.route_banded_plain(br.params(me), e_gl, active))
+
+
+def _balance_case(rng, n, R, S, me, dev):
+    dest = np.where(rng.random(n) < 0.7, me, rng.integers(0, R, n)).astype(np.int32)
+    live = rng.random(n) < 0.85
+    sbar = np.where(live & (rng.random(n) < 0.75), rng.integers(0, S, n), -1).astype(np.int32)
+    nc = live & (rng.random(n) < 0.3)
+    return tuple(torch.as_tensor(a, device=dev) for a in (dest, sbar, live, nc))
+
+
+@pytest.mark.parametrize("n", [1, 4097, 1_000_000])
+@pytest.mark.parametrize("noncore", [True, False])
+def test_balance_keys_kernel_equals_plain(dev, noncore, n):
+    from pumipic_torch.ops import route as rt
+
+    rng = np.random.default_rng(n)
+    R, S = 4, 9
+    for me in range(R):
+        dest, sbar, live, nc = _balance_case(rng, n, R, S, me, dev)
+        nc = nc if noncore else None
+        n0 = kernels.LAUNCHES["balance_keys"]
+        got = rt.balance_keys(dest, sbar, live, nc, me, S, R)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["balance_keys"] == n0 + 1
+        _routed_equal(got, rt.balance_keys_plain(dest, sbar, live, nc, me, S, R))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "zero", "large"])
+@pytest.mark.parametrize("noncore", [True, False])
+def test_balance_select_kernel_equals_plain(dev, noncore, kind):
+    from pumipic_torch.ops import route as rt
+    from pumipic_torch.parallel import balancer as lbm
+
+    members = ((0, 1, 2), (0, 3), (1, 2, 3), (0, 1, 2, 3))
+    R, S = 4, len(members)
+    edges = sorted([(s, a, b) for s, mem in enumerate(members) for a in mem for b in mem
+                    if a != b], key=lambda e: (e[1], e[0]))
+    per = [[i for i, e in enumerate(edges) if e[1] == r] for r in range(R)]
+    my = np.full((R, max(map(len, per))), -1, np.int32)
+    for r, idx in enumerate(per):
+        my[r, :len(idx)] = idx
+    e = np.asarray(edges, np.int32)
+    bt = lbm.BalancerTables(np.zeros((R, 4), np.int32), e[:, 0], e[:, 1], e[:, 2], my, S,
+                            len(edges))
+    rng = np.random.default_rng(3)
+    flows = {"zero": np.zeros(len(edges), np.int32),
+             "large": rng.integers(500_000, 2_000_000, len(edges)).astype(np.int32),
+             "mixed": np.where(rng.random(len(edges)) < 0.4, 0,
+                               rng.integers(0, 60_000, len(edges))).astype(np.int32)}[kind]
+    for me in range(R):
+        dest, sbar, live, nc = _balance_case(rng, 1_000_000, R, S, me, dev)
+        keys = rt.balance_keys(dest, sbar, live, nc if noncore else None, me, S, R)
+        tabs = lbm._edge_intervals(bt, torch.as_tensor(flows), me, dev)
+        rank, counts = ex.rank_in_key(keys.candidates, 2 * S if noncore else S)
+        args = (keys.candidates, rank, counts, dest, *tabs, S, noncore)
+        n0 = kernels.LAUNCHES["balance_select"]
+        got = rt.balance_select(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["balance_select"] == n0 + 1
+        want = rt.balance_select_plain(*args)
+        assert torch.equal(got, want)
+        if kind != "zero":
+            assert bool((got != dest).any())

@@ -256,8 +256,8 @@ def test_kernel_build_flags():
     assert sorted(p.name for p in _build.sources()) == [
         "annulus.cu", "band.cu", "boris.cu", "deposit.cu", "exchange.cu", "gather.cu",
         "gitr.cu", "histogram.cu", "kuhn.cu", "locate.cu", "locate3d.cu", "owner.cu",
-        "parents.cu", "push.cu", "rebuild.cu", "reshuffle.cu", "slotmap.cu", "trace2d.cu",
-        "trace3d.cu", "vdeposit.cu"]
+        "parents.cu", "push.cu", "rebuild.cu", "reshuffle.cu", "route.cu", "slotmap.cu",
+        "trace2d.cu", "trace3d.cu", "vdeposit.cu"]
     assert "-shared" not in _build.NVCC_FLAGS      # compile flags; the link adds it
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in p.read_text()

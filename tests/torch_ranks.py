@@ -548,6 +548,48 @@ def balancer_rank(coords, tris, cls, new_elem, dest, ppe, num_ptcls) -> dict:
     return out
 
 
+def route_spy_rank(steps: int = 2) -> dict:
+    """The picparts steps' calls of the route and balancer wrappers
+    (kernels Y1-Y3, ``pumipic_torch.ops.route``) on this rank: for each arm
+    (2D walk, 2D analytic with the banded route and with the [g2l | route]
+    row, 3D Kuhn, 3D walk), the calls of each wrapper in ``steps`` steps."""
+    import dataclasses
+
+    from pumipic_torch.models import pseudo_push_and_search as pps
+    from pumipic_torch.models import pseudo_xgcm as px
+    from pumipic_torch.ops import route as rt
+    from pumipic_torch.parallel import dryrun
+
+    names = ("route_packed", "route_g2l", "route_banded", "balance_keys", "balance_select")
+    calls = {k: 0 for k in names}
+    for name in names:
+        def spy(*args, _fn=getattr(rt, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        setattr(rt, name, spy)
+    _, R = _me()
+    (coords, tris, cls), cfg, (c3, t3), cfg3 = dryrun._configs(R)
+    arms = {"2d walk": lambda: px.make_picparts_setup(
+                coords, tris, cls, dataclasses.replace(cfg, analytic_locate="off"),
+                use_lb=True),
+            "2d banded": lambda: px.make_picparts_setup(coords, tris, cls, cfg, use_lb=True),
+            "2d g2l": lambda: px.make_picparts_setup(coords, tris, cls, cfg, use_lb=True,
+                                                     banded_route="off"),
+            "3d kuhn": lambda: pps.make_picparts_setup_3d(c3, t3, cfg3, use_lb=True),
+            "3d walk": lambda: pps.make_picparts_setup_3d(
+                c3, t3, dataclasses.replace(cfg3, kuhn="off"), use_lb=True)}
+    out = {}
+    for arm, setup in arms.items():
+        built = setup()
+        state, step = built[1], built[-1]
+        for k in calls:
+            calls[k] = 0
+        for _ in range(steps):
+            state = step(state)[0]
+        out[arm] = dict(calls)
+    return out
+
+
 def library_rank() -> dict:
     """A Library in a rank of a group it did not make: it joins it, refuses
     another size, and leaves the group to its owner at finalize."""
