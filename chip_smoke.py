@@ -69,7 +69,9 @@ sources in this checkout.  Phases, each raising on failure:
     on the auto rebuild's Sell-C-σ and CabM structures of those particles
     (extra padding 0.15), U1 after one push of the auto arms' 0.001 (2.7%
     movers) and of the default 0.05 (the fallback), U2 after pushes of
-    0.002 and 0.004 (5.4%, 10.7%) in both layouts, each call's and the
+    0.002, 0.004 and 0.001 (5.4%, 10.7%, 2.7%), each in both layouts (U2
+    writes the fields in place: it and its plain version each get their
+    own copy), each call's and the
     whole reshuffle's device work counted from a captured CUDA graph, and
     Z on the padded counts (24,576 tets); M's peel form (BCC core, reflecting wall) on the pps3d-dps-reflect
     arm's first-step targets.  On the GITR-style app's 32^3 box (196,608
@@ -1818,12 +1820,12 @@ def check_columns(results: dict, what: str, cols, src) -> None:
 # ---------------------------------------------------------------------------
 
 # a reshuffle's device work besides Q (before it): U1 (a memset, one
-# kernel); then C (a memset, the histogram and the passes), G, the fields'
-# clone (a copy a field: pps3d's x and pid) and U2 (four memsets, one
-# kernel)
+# kernel); then C (a memset, the histogram and the passes), G and U2 (a
+# memset of its count and flag, one kernel that writes every slot's
+# element and mask and the fields in place: no copy)
 U1_NODES = {"memset": 1, "kernel": 1}
-RESHUFFLE_NODES = {"memset": 5, "kernel": 4, "memcpy": 2}
-U2_NODES = {"memset": 4, "kernel": 1, "memcpy": 2}
+RESHUFFLE_NODES = {"memset": 2, "kernel": 4}
+U2_NODES = {"memset": 1, "kernel": 1}
 
 
 def auto_structure(dev, layout: str, E: int, x, elem):
@@ -1852,8 +1854,10 @@ def pushed_elem(kuhn, ps, direction, wrap, distance: float):
 
 
 def check_reshuffle_count(results: dict, ps, elem, what: str):
-    """U1 on a rebuild's destinations: equal to its plain version (the
-    movers' counts, first places and list where n_mov fits the budget),
+    """U1 on a rebuild's destinations: equal to its plain version (fits,
+    n_mov, the count and the list's first min(n_mov, MB) always; the
+    stayers' and movers' counts and first places where n_mov fits the
+    budget: past it U1 counts alone),
     timed beside it, its bound and its device work.  Returns its outputs
     and the budget."""
     from pumipic_torch.ops import rebuild as rb
@@ -1864,10 +1868,11 @@ def check_reshuffle_count(results: dict, ps, elem, what: str):
     got, want = rb.reshuffle_count(*args), rb.reshuffle_count_plain(*args)
     fits, n_mov = want.info.tolist()
     k = min(n_mov, MB)
-    pairs = [(got.info, want.info), (got.num, want.num), (got.stay_cnt, want.stay_cnt),
+    pairs = [(got.info, want.info), (got.num, want.num),
              (got.msrc[:k], want.msrc[:k]), (got.mkey[:k], want.mkey[:k])]
     if n_mov <= MB:
-        pairs += [(got.mov_cnt, want.mov_cnt), (got.mov_start, want.mov_start)]
+        pairs += [(got.stay_cnt, want.stay_cnt), (got.mov_cnt, want.mov_cnt),
+                  (got.mov_start, want.mov_start)]
     C, E = ps.capacity, ps.num_elems
     log(f"[c] reshuffle_count {what}: {n_mov} movers ({n_mov / int(ps.num_ptcls):.4f} of "
         f"the particles), budget {MB}, fits {bool(fits)}")
@@ -1898,11 +1903,17 @@ def check_reshuffle_count(results: dict, ps, elem, what: str):
 
 def check_reshuffle_place(results: dict, ps, elem, what: str) -> None:
     """U2 at a reshuffle of ``ps`` into ``elem``, on its own inputs (U1's
-    counts, C's mover slots in destination order, G's staged rows): equal
-    to its plain version on every slot and field, timed beside it, its
-    bound (each slot's ids in the segments read, the fields cloned: read
-    and written, the staged rows read, each slot's id and mask written)
-    and its device work; and the whole reshuffle after the host's read."""
+    counts, C's mover slots in destination order, G's staged rows), the
+    kernel and its plain version each writing into its own copy of the
+    fields (U2 writes them in place; the copies are made once, outside the
+    timing, and a repeated call writes the same rows): equal on every slot
+    and field, timed beside it, its bound (each segment slot's two ids
+    read, the per-element arrays and the row order read, the staged rows
+    read and written into their slots, each slot's id and mask written)
+    and its device work; and the whole reshuffle after the host's read, on
+    a structure with its own copy of the fields."""
+    import dataclasses
+
     from pumipic_torch.ops import rebuild as rb
     from pumipic_torch.particles import structure as st
 
@@ -1914,9 +1925,14 @@ def check_reshuffle_place(results: dict, ps, elem, what: str) -> None:
         raise AssertionError(f"reshuffle_place {what}: the reshuffle does not fit")
     take = rb.key_sort(counted.mkey[:n_mov], ps.num_elems - 1, values=counted.msrc[:n_mov])
     staged, _ = st._gather_fields(ps.fields, take)
-    args = (elem, ps.elem, ps.elem_offsets, ps.seg_cap, counted.mov_cnt, counted.mov_start,
-            ps.fields, staged, stride, ps.overflowed, ps.row_to_elem)
-    got, want = rb.reshuffle_place(*args), rb.reshuffle_place_plain(*args)
+
+    def args(fields):
+        return (elem, ps.elem, ps.elem_offsets, ps.seg_cap, counted.mov_cnt,
+                counted.mov_start, fields, staged, stride, ps.overflowed, ps.row_to_elem)
+
+    kargs = args({k: v.clone() for k, v in ps.fields.items()})
+    pargs = args({k: v.clone() for k, v in ps.fields.items()})
+    got, want = rb.reshuffle_place(*kargs), rb.reshuffle_place_plain(*pargs)
 
     def flat(out):
         return (out[0], out[1], *(f.view(torch.int32) if f.dtype == torch.float32 else f
@@ -1929,18 +1945,26 @@ def check_reshuffle_place(results: dict, ps, elem, what: str) -> None:
             flat(want), results)
     if int(got[3]) != int((elem >= 0).sum()) or bool(got[4]):
         raise AssertionError(f"reshuffle_place {what}: a particle lost")
-    time_pair("reshuffle_place", what, lambda: rb.reshuffle_place(*args),
-              lambda: rb.reshuffle_place_plain(*args), results, plain_reps=2)
+    if any(got[2][k] is not kargs[6][k] for k in got[2]):
+        raise AssertionError(f"reshuffle_place {what}: the fields were not written in place")
+    time_pair("reshuffle_place", what, lambda: rb.reshuffle_place(*kargs),
+              lambda: rb.reshuffle_place_plain(*pargs), results, plain_reps=2)
     seg_slots = int(ps.seg_cap.sum())
-    field_bytes = sum(nbytes(f) for f in ps.fields.values())
+    rows = nbytes(*staged.values())
     record_bound("reshuffle_place", what, results,
-                 8 * seg_slots + 16 * E + sum(nbytes(f) for f in staged.values())
-                 + 2 * field_bytes + nbytes(got[0], got[1]))
-    record_launches("reshuffle_place", what, lambda: rb.reshuffle_place(*args), results,
+                 8 * seg_slots + 16 * E + nbytes(ps.row_to_elem) + 2 * rows
+                 + nbytes(got[0], got[1]))
+    # the out-of-place function: + the fields cloned, read and written
+    field_bytes = sum(nbytes(f) for f in ps.fields.values())
+    case_of("reshuffle_place", what, results)["bound_out_of_place_ms"] = (
+        (8 * seg_slots + 16 * E + rows + 2 * field_bytes + nbytes(got[0], got[1]))
+        / PEAK_BYTES_PER_S * 1e3)
+    record_launches("reshuffle_place", what, lambda: rb.reshuffle_place(*kargs), results,
                     U2_NODES)
     active = elem >= 0
-    record_launches("reshuffle_place", f"{what}, the reshuffle (C, G, the clone, U2)",
-                    lambda: st._reshuffle(ps, elem, active, counted, n_mov), results,
+    own = dataclasses.replace(ps, fields={k: v.clone() for k, v in ps.fields.items()})
+    record_launches("reshuffle_place", f"{what}, the reshuffle (C, G, U2)",
+                    lambda: st._reshuffle(own, elem, active, counted, n_mov), results,
                     RESHUFFLE_NODES)
 
 
@@ -2024,9 +2048,9 @@ def check_reshuffle(results: dict, dev, mesh, seeded) -> None:
     Sell-C-σ and CabM structures (extra padding 0.15) of phase c's 10M
     seeded particles on the Kuhn box; U1 after one push of the auto arms'
     distance (every mover fits) and of the default (the fallback); U2
-    after pushes of 2 and 4 times the arms' (5.4% and 10.7% of the
-    particles move), in both layouts; Z on the Sell-C-σ structure's padded
-    counts (24,576 tets)."""
+    after pushes of 2, 4 and 1 times the arms' (5.4%, 10.7% and 2.7% of
+    the particles move); each in both layouts; Z on the Sell-C-σ
+    structure's padded counts (24,576 tets)."""
     import numpy as np
 
     from pumipic_torch.mesh.locator import detect_box_kuhn
@@ -2044,15 +2068,15 @@ def check_reshuffle(results: dict, dev, mesh, seeded) -> None:
     E = mesh.nelems
     for layout in ("scs", "cabm"):
         ps = auto_structure(dev, layout, E, x, elem0)
+        for dist, what in ((AUTO_DIST, f"pps3d-{layout}-auto"),
+                           (pps.PushSearchConfig().distance, f"pps3d-{layout}-auto-fallback")):
+            check_reshuffle_count(results, ps, pushed_elem(kuhn, ps, direction, wrap, dist),
+                                  f"{what}, one push of {dist}")
         if layout == "scs":
-            for dist, what in ((AUTO_DIST, "pps3d-scs-auto"),
-                               (pps.PushSearchConfig().distance, "pps3d-scs-auto-fallback")):
-                check_reshuffle_count(results, ps, pushed_elem(kuhn, ps, direction, wrap, dist),
-                                      f"{what}, one push of {dist}")
             counts = st._scs_pad_counts(histogram(ps.elem, ps.active, E), 0.15,
                                         "proportionally")
             check_scs_row_order(results, counts, ps.capacity, f"pps3d-scs-auto, {E} tets")
-        for dist in (2 * AUTO_DIST, 4 * AUTO_DIST):
+        for dist in (2 * AUTO_DIST, 4 * AUTO_DIST, AUTO_DIST):
             check_reshuffle_place(results, ps, pushed_elem(kuhn, ps, direction, wrap, dist),
                                   f"pps3d-{layout}-auto, one push of {dist}")
         del ps
@@ -3489,9 +3513,11 @@ AUTO_FALLBACK = {
              "row_gather": 1, "rebuild_mask": 1}}
 
 
-def check_auto_step(ps, elem, out, grown: dict) -> dict:
+def check_auto_step(ps, elem, out, grown: dict, pid0) -> dict:
     """One auto rebuild of ``ps`` into ``elem`` (kernel Q's destinations)
-    giving ``out``, ``grown`` the launches it added: the branch's launch
+    giving ``out``, ``grown`` the launches it added, ``pid0`` a copy of
+    ``ps``'s pids taken before it (a reshuffle writes the fields in
+    place): the branch's launch
     set; num_ptcls equal to the active slots and no overflow; the pids kept
     (count and sum); every stayer in its slot (a reshuffle); every active
     particle's element its destination, matched by pid; every active slot
@@ -3509,7 +3535,7 @@ def check_auto_step(ps, elem, out, grown: dict) -> dict:
         raise AssertionError(f"auto rebuild: num_ptcls {n}, active {int(act.sum())}, "
                              f"destinations {int(keep.sum())}, overflowed "
                              f"{bool(out.overflowed)}")
-    pid0, pid1 = ps.fields["pid"], out.fields["pid"]
+    pid1 = out.fields["pid"]
     if int(pid0[keep].sum(dtype=torch.int64)) != int(pid1[act].sum(dtype=torch.int64)):
         raise AssertionError("auto rebuild: the pids' sum changed")
     if reshuffled and not (torch.equal(pid1[stay], pid0[stay]) and bool(act[stay].all())):
@@ -3538,10 +3564,11 @@ def auto_steps():
     real, steps = st._rebuild_auto, []
 
     def checked(ps, elem, active):
+        pid0 = ps.fields["pid"].clone()
         before = dict(kernels.LAUNCHES)
         out = real(ps, elem, active)
         grown = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
-        steps.append(check_auto_step(ps, elem, out, grown))
+        steps.append(check_auto_step(ps, elem, out, grown, pid0))
         return out
 
     st._rebuild_auto = checked

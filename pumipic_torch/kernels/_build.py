@@ -167,9 +167,9 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P],         # cnt mov_start msrc mkey info num stream
     "pp_reshuffle_place": [
         _P, _P, _P, _P, _P, _P,              # elem old_elem offsets seg_cap mov_cnt mov_start
-        _P, _I, _I, _L, _I,                  # row_to_elem n_rows E C stride
-        _P, _I, _P, _P, _P,                  # ovf_in n_fields staged outs row_bytes
-        _P, _P, _P, _P, _P],                 # elem_out active_out num ovf stream
+        _P, _I, _I, _L, _I,                  # row_to_elem n_rows E C chunk
+        _P, _I, _P, _P, _P,                  # ovf_in n_fields staged fields row_bytes
+        _P, _P, _P, _P],                     # elem_out active_out num_ovf stream
     "pp_scs_row_keys": [_P, _I, _I, _I, _I, _P, _P],  # counts E R sigma b key stream
     "pp_scs_row_maps": [_P, _P, _I, _I, _I, _P, _P, _P],  # order counts E R chunk e2r cw stream
     "pp_route_decode": [

@@ -265,9 +265,9 @@ class ReshuffleCount(NamedTuple):
     """Kernel U1's outputs over a rebuild's C slots and E elements."""
 
     info: torch.Tensor        # (2,) i32: fits, n_mov (the host's one read)
-    stay_cnt: torch.Tensor    # (E,) i32 stayers per element
-    mov_cnt: torch.Tensor     # (E,) i32 movers per destination
-    mov_start: torch.Tensor   # (E,) i32 exclusive cumsum of mov_cnt
+    stay_cnt: torch.Tensor    # (E,) i32 stayers per element (where n_mov <= MB)
+    mov_cnt: torch.Tensor     # (E,) i32 movers per destination (where n_mov <= MB)
+    mov_start: torch.Tensor   # (E,) i32 exclusive cumsum of mov_cnt (where n_mov <= MB)
     msrc: torch.Tensor        # (MB,) i32 the movers' slots in slot order
     mkey: torch.Tensor        # (MB,) i32 their destinations
     num: torch.Tensor         # () i32 stayers + movers
@@ -304,9 +304,11 @@ def reshuffle_count(elem: torch.Tensor, old_elem: torch.Tensor, seg_cap: torch.T
     its segment (``seg_cap`` (E,)) and n_mov <= ``mover_budget`` (MB); the
     first min(n_mov, MB) movers' slots in slot order and their
     destinations; the movers' first places in the destination-sorted list.
-    Kernel U1 on CUDA tensors (a memset and one launch), where the movers'
-    counts and first places are computed only while n_mov <= MB (past it
-    the reshuffle does not run); :func:`reshuffle_count_plain` on CPU
+    Kernel U1 on CUDA tensors (a memset and one launch), where the
+    stayers' and movers' counts and the movers' first places are computed
+    only while n_mov <= MB (past it the reshuffle does not run: a tile that
+    starts after the movers passed MB counts its particles alone, and the
+    last block does not scan); :func:`reshuffle_count_plain` on CPU
     tensors."""
     if (elem.dtype != I32 or old_elem.dtype != I32 or seg_cap.dtype != I32
             or elem.dim() != 1 or old_elem.shape != elem.shape or seg_cap.dim() != 1):
@@ -345,8 +347,8 @@ def reshuffle_place_plain(elem: torch.Tensor, old_elem: torch.Tensor,
                           row_to_elem: Optional[torch.Tensor] = None):
     """Plain version of kernel U2 (``_reshuffle``'s placement): every
     segment's slots in q order, its holes ranked, the hole of rank r <
-    mov_cnt[e] given staged row mov_start[e] + r (``row_to_elem`` only
-    orders the kernel's warps)."""
+    mov_cnt[e] given staged row mov_start[e] + r, written into ``fields``
+    in place (``row_to_elem``, the kernel's chunk walk, is not read)."""
     C, E = elem.shape[0], seg_cap.shape[0]
     dev = elem.device
     cap = seg_cap.long()
@@ -370,13 +372,11 @@ def reshuffle_place_plain(elem: torch.Tensor, old_elem: torch.Tensor,
     out_elem[dst] = seg[fill].to(I32)
     out_active[kept] = True
     out_active[dst] = True
-    out = {}
     for k, v in fields.items():
-        out[k] = v.clone()
-        out[k][dst] = staged[k][src]
+        v[dst] = staged[k][src]
     placed = torch.minimum(holes_e, mov_cnt.long())
     num = (_count(stay) + torch.sum(placed)).to(I32)
-    return out_elem, out_active, out, num, overflowed | torch.any(holes_e < mov_cnt)
+    return out_elem, out_active, dict(fields), num, overflowed | torch.any(holes_e < mov_cnt)
 
 
 def reshuffle_place(elem: torch.Tensor, old_elem: torch.Tensor, elem_offsets: torch.Tensor,
@@ -384,19 +384,23 @@ def reshuffle_place(elem: torch.Tensor, old_elem: torch.Tensor, elem_offsets: to
                     fields: Dict[str, torch.Tensor], staged: Dict[str, torch.Tensor],
                     stride: int, overflowed: torch.Tensor,
                     row_to_elem: Optional[torch.Tensor] = None):
-    """The reshuffle's new slots, out of place: (elem, active, fields,
-    num_ptcls, overflowed).  Stayers (``elem`` == ``old_elem`` >= 0) keep
-    their slots; element e's holes (its segment's slots ``elem_offsets[e] +
-    q·stride``, q < ``seg_cap[e]``, below C, without a stayer) in q order
-    take the staged rows ``mov_start[e] + r`` (r < ``mov_cnt[e]``) of every
-    field (``staged``: the movers' rows in destination order, ``fields``
-    the structure's); every other slot is empty (-1, inactive) with its
-    fields as they were; num_ptcls counts the output mask; a segment short
-    of holes raises the sticky ``overflowed``.  ``row_to_elem`` (the
-    Sell-C-σ row order; None: elements in order) orders the kernel's
-    warps, not the result.  Kernel U2 on CUDA tensors (the fields cloned,
-    four memsets and one launch), :func:`reshuffle_place_plain` on CPU
-    tensors."""
+    """The reshuffle's new slots: (elem, active, fields, num_ptcls,
+    overflowed), the fields written IN PLACE.  Stayers (``elem`` ==
+    ``old_elem`` >= 0) keep their slots; element e's holes (its segment's
+    slots ``elem_offsets[e] + q·stride``, q < ``seg_cap[e]``, below C,
+    without a stayer) in q order take the staged rows ``mov_start[e] + r``
+    (r < ``mov_cnt[e]``) of every field (``staged``: the movers' rows in
+    destination order), written into the tensors of ``fields`` themselves,
+    which are returned (a new dict of the same tensors); every other slot
+    is empty (-1, inactive) with its fields as they were; num_ptcls counts
+    the output mask; a segment short of holes raises the sticky
+    ``overflowed``.  Element and mask are fresh tensors.  A repeated call
+    on the same arguments writes the same rows again, so it gives the same
+    result.  ``row_to_elem`` is the Sell-C-σ row order (``stride`` its
+    chunk), which the kernel walks chunk by chunk; None for CabM (stride
+    1, ``elem_offsets`` (E + 1,)).  Kernel U2 on CUDA tensors (a memset of
+    the count and the flag, one launch; contiguous fields), the plain
+    version on CPU tensors."""
     names = list(fields)
     if list(staged) != names:
         raise ValueError("reshuffle_place: staged rows of every field expected")
@@ -405,27 +409,31 @@ def reshuffle_place(elem: torch.Tensor, old_elem: torch.Tensor, elem_offsets: to
             or overflowed.dtype != torch.bool or overflowed.numel() != 1:
         raise ValueError("reshuffle_place: (C,) and (E,) i32 arrays and a 0-d bool flag "
                          "expected")
-    if row_to_elem is not None and (row_to_elem.dtype != I32 or row_to_elem.dim() != 1):
-        raise ValueError("reshuffle_place: (R,) i32 row order expected")
+    C, E = elem.shape[0], seg_cap.shape[0]
+    if row_to_elem is not None and (row_to_elem.dtype != I32 or row_to_elem.dim() != 1
+                                    or row_to_elem.shape[0] < E
+                                    or row_to_elem.shape[0] % stride):
+        raise ValueError("reshuffle_place: (R,) i32 row order, R >= E a multiple of the "
+                         "chunk, expected")
+    if row_to_elem is None and (stride != 1 or elem_offsets.shape[0] != E + 1):
+        raise ValueError("reshuffle_place: without a row order, stride 1 and (E + 1,) "
+                         "offsets (CabM) expected")
+    for k in names:
+        if fields[k].shape[1:] != staged[k].shape[1:] or fields[k].dtype != staged[k].dtype \
+                or fields[k].shape[0] != C:
+            raise ValueError(f"reshuffle_place: field {k!r} and its staged rows differ")
     tensors = [*ints, overflowed, *fields.values(), *staged.values()]
     tensors += [] if row_to_elem is None else [row_to_elem]
     if not kernels.use_kernel("reshuffle_place", *tensors):
         return reshuffle_place_plain(elem, old_elem, elem_offsets, seg_cap, mov_cnt,
                                      mov_start, fields, staged, stride, overflowed,
                                      row_to_elem)
-    C, E = elem.shape[0], seg_cap.shape[0]
     if len(names) > MAX_PLACE_FIELDS:
         raise ValueError(f"reshuffle_place: at most {MAX_PLACE_FIELDS} fields")
-    for k in names:
-        if fields[k].shape[1:] != staged[k].shape[1:] or fields[k].dtype != staged[k].dtype \
-                or fields[k].shape[0] != C:
-            raise ValueError(f"reshuffle_place: field {k!r} and its staged rows differ")
     dev = elem.device
-    out = {k: fields[k].clone() for k in names}
     out_elem = torch.empty(C, dtype=I32, device=dev)
     out_active = torch.empty(C, dtype=torch.bool, device=dev)
-    num = torch.empty((), dtype=I32, device=dev)
-    ovf = torch.empty((), dtype=torch.bool, device=dev)
+    num_ovf = torch.empty(2, dtype=I32, device=dev)    # the count; the flag word
     m = len(names)
     err = _build.lib().pp_reshuffle_place(
         _ptr(elem), _ptr(old_elem), _ptr(elem_offsets), _ptr(seg_cap), _ptr(mov_cnt),
@@ -433,13 +441,13 @@ def reshuffle_place(elem: torch.Tensor, old_elem: torch.Tensor, elem_offsets: to
         0 if row_to_elem is None else row_to_elem.shape[0], E, C, int(stride),
         _ptr(overflowed), m,
         (_P * m)(*(staged[k].data_ptr() for k in names)),
-        (_P * m)(*(out[k].data_ptr() for k in names)),
+        (_P * m)(*(fields[k].data_ptr() for k in names)),
         (ctypes.c_int * m)(*(_row_bytes(fields[k]) for k in names)),
-        _ptr(out_elem), _ptr(out_active), _ptr(num), _ptr(ovf),
-        _P(kernels.stream_handle()))
+        _ptr(out_elem), _ptr(out_active), _ptr(num_ovf), _P(kernels.stream_handle()))
     _build.check(err, "reshuffle_place")
     kernels.LAUNCHES["reshuffle_place"] += 1
-    return out_elem, out_active, out, num, ovf
+    ovf = num_ovf[1:].view(torch.uint8)[0].view(torch.bool)
+    return out_elem, out_active, dict(fields), num_ovf[0], ovf
 
 
 def scs_row_keys_plain(counts: torch.Tensor, num_rows: int, sigma: int, bits: int

@@ -14,7 +14,9 @@ a layout policy that decides which slot each particle takes at rebuild.  A
 frozen dataclass of tensors stands in for the pytree; every update returns a
 new structure.  ``num_ptcls`` and ``overflowed`` stay 0-d device tensors, so
 a ``rebuild`` never waits for the host (``mode="auto"`` does: it reads the
-fits check to pick reshuffle or sort).
+fits check to pick reshuffle or sort).  One update is in place, where that
+saves memory: the reshuffle of ``mode="auto"`` writes the movers' rows into
+the structure's own field tensors (see :meth:`ParticleStructure.rebuild`).
 
 Kernels on the card: the stable element sort of every sorted rebuild and
 of ``get_pids`` is kernel C, the destinations' check and count of every
@@ -191,7 +193,16 @@ class ParticleStructure:
         (active where ``new_ptcl_elems`` is in range).  ``mode="sort"`` is
         the full re-construction; ``mode="auto"`` first tries the in-place
         reshuffle (scs/cabm, no additions) and falls back to the sort when
-        the new counts do not fit the current layout."""
+        the new counts do not fit the current layout.
+
+        In place: where the reshuffle runs (it moves at least one
+        particle), the movers' rows are written into this structure's field
+        tensors themselves, which the new structure shares; its ``elem``,
+        ``active`` and counts are new tensors.  This structure's fields then
+        hold the new layout's rows in the filled slots, so a caller that
+        reads the old structure's fields after the rebuild (or shares a
+        field tensor with other code, e.g. through :meth:`set`) copies them
+        first.  The sort rebuild writes new tensors."""
         return _rebuild(self, new_elem, new_ptcl_elems, new_ptcl_fields,
                         mode=mode)
 
@@ -516,19 +527,23 @@ def _reshuffle(ps: ParticleStructure, elem, active, counted, n_mov: int
     in slot order) grouped by destination with kernel C's stable sort,
     which writes their slots in that order; their rows staged by kernel G
     (a mover's source slot can be another mover's destination); then
-    kernel U2 walks each segment's slots in q order (the transposed chunk
-    rows for SCS, in row order; the segment for CabM) and gives the r-th
-    hole of element e the r-th staged mover of e.  With no movers the destinations' check
-    (kernel Q) is the result: every kept particle stays."""
+    kernel U2 walks each segment's slots in q order (a Sell-C-σ chunk's
+    rows together, 32 consecutive slots a round; the segment for CabM),
+    gives the r-th hole of element e the r-th staged mover of e and writes
+    its rows into ``ps``'s field tensors IN PLACE (a field that is not
+    contiguous is replaced by a contiguous copy first); the new structure
+    shares them.  With no movers the destinations' check (kernel Q) is the
+    result: every kept particle stays."""
     if n_mov == 0:
         return dataclasses.replace(ps, elem=elem, active=active, num_ptcls=counted.num)
     E = ps.num_elems
     take = rebuild_ops.key_sort(counted.mkey[:n_mov], E - 1, values=counted.msrc[:n_mov])
-    staged, _ = _gather_fields(ps.fields, take)
+    fields = {k: v.contiguous() for k, v in ps.fields.items()}
+    staged, _ = _gather_fields(fields, take)
     stride = ps.chunk_size if ps.layout == "scs" else 1
     new_elem, new_active, new_fields, n, ovf = rebuild_ops.reshuffle_place(
         elem, ps.elem, ps.elem_offsets, ps.seg_cap, counted.mov_cnt, counted.mov_start,
-        ps.fields, staged, stride, ps.overflowed, ps.row_to_elem)
+        fields, staged, stride, ps.overflowed, ps.row_to_elem)
     return dataclasses.replace(ps, fields=new_fields, elem=new_elem,
                                active=new_active, num_ptcls=n, overflowed=ovf)
 

@@ -4,16 +4,23 @@ other versions', in turns.
 
     python3 scripts/ab_reshuffle.py OTHER[,OTHER...] [OUT_JSON]
         [--variants NAME=DEFINE:VALUE[,DEFINE:VALUE...][;NAME=...]]
+        [--timed-only NAME[,NAME...]]
 
 Each ``OTHER`` is a directory holding another version's ``reshuffle.cu``
-with this checkout's C interface (``pp_reshuffle_count`` and
-``pp_reshuffle_place``), written into a git-ignored directory such as
-``chip_tree/``; its name in the output is the directory's base name.  This
-checkout's is ``new``; ``--variants`` adds builds of this checkout's
-source with some of its ``#define`` constants set otherwise in the text
-written to the variant's build directory (``NAME=DEFINE:VALUE``, e.g.
-``j32=U_J:32`` or ``t512=U_THREADS:512``).  Each version is built alone
-into a library of its own with the package's nvcc flags.
+(``pp_reshuffle_count`` and ``pp_reshuffle_place``), written into a
+git-ignored directory such as ``chip_tree/``; its name in the output is
+the directory's base name.  A source whose U2 takes ``num_ovf`` writes the
+fields in place (each such version gets its own copy of the fields, made
+once, outside the timing); an earlier, out-of-place one writes into a clone of
+the fields, made in each timed call as its wrapper did, with its four
+memsets.  This checkout's is ``new``; ``--variants`` adds builds of this
+checkout's source with some of its ``#define`` constants set otherwise in
+the text written to the variant's build directory (``NAME=DEFINE:VALUE``,
+e.g. ``s1=U1_STAGE:1`` or ``t256=U2_THREADS:256``).  Each version is built
+alone into a library of its own with the package's nvcc flags.  Versions
+named in ``--timed-only`` (the stripped builds, ``U1_STAGE`` < 5 or
+``U2_STAGE`` < 2, which compute less than the kernels) are timed and
+never compared (an out-of-place one skips U2's cases).
 
 Inputs: pseudoPushAndSearch's auto-rebuild structures at 10M particles on
 the 16^3 Kuhn box (``bench_torch.setup_pps3d(..., rebuild="auto")``:
@@ -23,9 +30,10 @@ one push of ``chip_smoke.AUTO_DIST`` (2.7% movers), of 2 and 4 times it
 fallback).  U2's inputs are the
 rebuild's own (U1's counts, kernel C's mover slots, kernel G's staged
 rows, from the package's kernels).  Every version must equal the plain
-version.  Each is timed on the device alone (``chip_smoke.device_ms``, the
-mean of ``REPS`` calls, U2's with its fields' clone and memsets) in
-turns, in the order built and then reversed.  Prints the card, each
+version but the ``--timed-only`` ones.  Each is timed on the device alone
+(``chip_smoke.device_ms``, the mean of ``REPS`` calls with their memsets;
+an out-of-place U2 with its fields' clone) in turns, in the order built and then
+reversed.  Prints the card, each
 build's ptxas report and one JSON line per case; writes them to
 ``OUT_JSON`` where one is given.
 """
@@ -58,19 +66,24 @@ NAMES = ("pp_reshuffle_count_words", "pp_reshuffle_count", "pp_reshuffle_place")
 
 
 def build(name: str, src_dir: str, out_dir: str) -> tuple:
-    """One version's library and ptxas report."""
+    """One version's library, ptxas report and whether its U2 writes the
+    fields in place (the ``num_ovf`` interface)."""
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, f"libreshuffle_{name}.so")
+    src = os.path.join(src_dir, "reshuffle.cu")
     res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-                          "-o", lib, os.path.join(src_dir, "reshuffle.cu")],
-                         capture_output=True, text=True)
+                          "-o", lib, src], capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed:\n{res.stderr}")
+    in_place = "num_ovf" in open(src).read()
     handle = ctypes.CDLL(lib)
     for fn in NAMES:
-        getattr(handle, fn).argtypes = _build.SIGNATURES[fn]
+        argtypes = list(_build.SIGNATURES[fn])
+        if fn == "pp_reshuffle_place" and not in_place:
+            argtypes.insert(-1, P)                # num and ovf apart
+        getattr(handle, fn).argtypes = argtypes
         getattr(handle, fn).restype = ctypes.c_int
-    return handle, res.stderr
+    return handle, res.stderr, in_place
 
 
 def count_fn(lib, elem, ps, MB: int):
@@ -89,26 +102,36 @@ def count_fn(lib, elem, ps, MB: int):
     return run
 
 
-def place_fn(lib, args):
+def place_fn(lib, args, in_place: bool):
+    """One call of a version's U2: in place into its own copy of the fields
+    (``num_ovf`` interface), or into a clone made in the call (out of place)."""
     elem, old, offs, cap, mcnt, mstart, fields, staged, stride, ovf_in, r2e = args
     C, E = elem.shape[0], cap.shape[0]
     names = list(fields)
     m = len(names)
+    mine = {k: fields[k].clone() for k in names} if in_place else None
+    dev = elem.device
+    head = (*(P(t.data_ptr()) for t in (elem, old, offs, cap, mcnt, mstart)),
+            P(r2e.data_ptr() if r2e is not None else 0), 0 if r2e is None else r2e.shape[0],
+            E, C, stride, P(ovf_in.data_ptr()), m,
+            (P * m)(*(staged[k].data_ptr() for k in names)))
+    row_bytes = (ctypes.c_int * m)(*(rb._row_bytes(fields[k]) for k in names))
 
     def run():
-        out = {k: fields[k].clone() for k in names}
-        e_out = torch.empty(C, dtype=torch.int32, device=elem.device)
-        a_out = torch.empty(C, dtype=torch.bool, device=elem.device)
-        num = torch.empty((), dtype=torch.int32, device=elem.device)
-        ovf = torch.empty((), dtype=torch.bool, device=elem.device)
+        out = mine if in_place else {k: fields[k].clone() for k in names}
+        e_out = torch.empty(C, dtype=torch.int32, device=dev)
+        a_out = torch.empty(C, dtype=torch.bool, device=dev)
+        ptrs = (P * m)(*(out[k].data_ptr() for k in names))
+        if in_place:
+            num_ovf = torch.empty(2, dtype=torch.int32, device=dev)
+            tail = (P(num_ovf.data_ptr()),)
+            num, ovf = num_ovf[0], num_ovf[1:].view(torch.uint8)[0].view(torch.bool)
+        else:
+            num = torch.empty((), dtype=torch.int32, device=dev)
+            ovf = torch.empty((), dtype=torch.bool, device=dev)
+            tail = (P(num.data_ptr()), P(ovf.data_ptr()))
         _build.check(lib.pp_reshuffle_place(
-            *(P(t.data_ptr()) for t in (elem, old, offs, cap, mcnt, mstart)),
-            P(r2e.data_ptr() if r2e is not None else 0),
-            0 if r2e is None else r2e.shape[0], E, C, stride, P(ovf_in.data_ptr()), m,
-            (P * m)(*(staged[k].data_ptr() for k in names)),
-            (P * m)(*(out[k].data_ptr() for k in names)),
-            (ctypes.c_int * m)(*(rb._row_bytes(fields[k]) for k in names)),
-            P(e_out.data_ptr()), P(a_out.data_ptr()), P(num.data_ptr()), P(ovf.data_ptr()),
+            *head, ptrs, row_bytes, P(e_out.data_ptr()), P(a_out.data_ptr()), *tail,
             P(kernels.stream_handle())), "reshuffle_place")
         return e_out, a_out, out, num, ovf
     return run
@@ -118,10 +141,10 @@ def same_count(got, want, MB: int) -> bool:
     n_mov = int(want.info[1])
     k = min(n_mov, MB)
     ok = torch.equal(got.info, want.info) and torch.equal(got.num, want.num) and \
-        torch.equal(got.stay_cnt, want.stay_cnt) and \
         torch.equal(got.msrc[:k], want.msrc[:k]) and torch.equal(got.mkey[:k], want.mkey[:k])
-    if n_mov <= MB:
-        ok = ok and torch.equal(got.mov_cnt, want.mov_cnt) and \
+    if n_mov <= MB:                 # the counts U1 computes only within the budget
+        ok = ok and torch.equal(got.stay_cnt, want.stay_cnt) and \
+            torch.equal(got.mov_cnt, want.mov_cnt) and \
             torch.equal(got.mov_start, want.mov_start)
     return ok
 
@@ -169,7 +192,9 @@ def main() -> None:
     ap.add_argument("others", nargs="?", default="")
     ap.add_argument("out_json", nargs="?")
     ap.add_argument("--variants", default="")
+    ap.add_argument("--timed-only", default="")
     a = ap.parse_args()
+    timed_only = set(filter(None, a.timed_only.split(",")))
     smi = cs.smi_query("name,power.limit")
     print(f"card: {smi}", flush=True)
     out_dir = os.path.join(ROOT, "chip_tree", "ab_reshuffle")
@@ -177,8 +202,9 @@ def main() -> None:
     builds = [("new", str(_build.CSRC))]
     builds += [(os.path.basename(os.path.normpath(d)), d) for d in a.others.split(",") if d]
     builds += variant_sources(a.variants, out_dir)
+    in_place = {}
     for name, src in builds:
-        versions[name], report = build(name, src, out_dir)
+        versions[name], report, in_place[name] = build(name, src, out_dir)
         print(f"{name} ptxas:\n{report}", flush=True)
     out_json = a.out_json
     dev = torch.device("cuda")
@@ -196,7 +222,7 @@ def main() -> None:
             fits, n_mov = want.info.tolist()
             fns = {k: count_fn(lib, elem, ps, MB) for k, lib in versions.items()}
             for k, fn in fns.items():
-                if not same_count(fn(), want, MB):
+                if k not in timed_only and not same_count(fn(), want, MB):
                     raise AssertionError(f"U1 {k} differs from the plain version")
             extra = {"movers": n_mov, "share": n_mov / 10_000_000, "fits": bool(fits),
                      "card": smi}
@@ -207,10 +233,12 @@ def main() -> None:
             staged, _ = st._gather_fields(ps.fields, take)
             args = (elem, ps.elem, ps.elem_offsets, ps.seg_cap, want.mov_cnt, want.mov_start,
                     ps.fields, staged, stride, ps.overflowed, ps.row_to_elem)
-            ref = rb.reshuffle_place_plain(*args)
-            fns = {k: place_fn(lib, args) for k, lib in versions.items()}
+            ref = rb.reshuffle_place_plain(*args[:6], {k: v.clone() for k, v in
+                                                       ps.fields.items()}, *args[7:])
+            fns = {k: place_fn(lib, args, in_place[k]) for k, lib in versions.items()
+                   if in_place[k] or k not in timed_only}
             for k, fn in fns.items():
-                if not same_place(fn(), ref):
+                if k not in timed_only and not same_place(fn(), ref):
                     raise AssertionError(f"U2 {k} differs from the plain version")
             records.append(timed(f"U2 {layout}, push {dist}", fns, extra))
         del ps

@@ -2027,9 +2027,10 @@ def _reshuffle_case(dev, layout, kind, n=60_000, E=997, seed=0):
 @pytest.mark.parametrize("layout", ["scs", "cabm"])
 def test_reshuffle_count_kernel_equals_plain(dev, layout, kind, mb, n):
     """U1 against its plain version, over many tiles and one: fits,
-    n_mov, the count, the stayers' counts and the first min(n_mov, MB)
-    movers always; the movers' counts and first places where n_mov <= MB
-    (U1 counts movers only while the budget holds)."""
+    n_mov, the count and the first min(n_mov, MB) movers always; the
+    stayers' and movers' counts and the movers' first places where n_mov
+    <= MB (U1 counts movers only while the budget holds, and a tile that
+    starts after the budget was passed counts its particles alone)."""
     ps, elem = _reshuffle_case(dev, layout, kind, n=n)
     MB = ps.capacity if mb == "capacity" else 1000
     n0 = kernels.LAUNCHES["reshuffle_count"]
@@ -2038,56 +2039,171 @@ def test_reshuffle_count_kernel_equals_plain(dev, layout, kind, mb, n):
     assert kernels.LAUNCHES["reshuffle_count"] == n0 + 1
     want = rb.reshuffle_count_plain(elem, ps.elem, ps.seg_cap, MB)
     assert got.info.tolist() == want.info.tolist() and int(got.num) == int(want.num)
-    assert torch.equal(got.stay_cnt, want.stay_cnt)
     n_mov = int(want.info[1])
     k = min(n_mov, MB)
     assert torch.equal(got.msrc[:k], want.msrc[:k]) and torch.equal(got.mkey[:k], want.mkey[:k])
     if n_mov <= MB:
+        assert torch.equal(got.stay_cnt, want.stay_cnt)
         assert torch.equal(got.mov_cnt, want.mov_cnt)
         assert torch.equal(got.mov_start, want.mov_start)
     if n == 60_000:                     # the churns fit this structure's padding
         assert bool(want.info[0]) == (kind != "most" and mb == "capacity")
 
 
-@pytest.mark.parametrize("kind", ["swap", "random"])
-@pytest.mark.parametrize("layout", ["scs", "cabm"])
-def test_reshuffle_place_kernel_equals_plain(dev, layout, kind):
-    """U2 against its plain version on a rebuild's own inputs: every slot's
-    element and mask, every field (f32 (N, 3), int32, bool), the count and
-    the flag; its inputs untouched, so a second call gives the same."""
-    ps, elem = _reshuffle_case(dev, layout, kind, seed=3)
+@pytest.mark.parametrize("share", [0.027, 0.84])
+def test_reshuffle_count_kernel_skips_past_the_budget(dev, share):
+    """U1 at 8M slots (1,954 tiles, several waves) over 24,576 elements,
+    ids at random with ``share`` of the slots moving: with the budget the
+    capacity, every output equal to the plain version; with a budget of
+    1,000 (passed in the first tile) fits, n_mov, the count and the first
+    MB movers equal, and the tiles that start after the budget was passed
+    add no stayers (the fallback's skip: fewer stayers counted than
+    there are)."""
+    C, E = 8_000_000, 24_576
+    g = torch.Generator(device=dev).manual_seed(int(share * 1000))
+    old = torch.randint(-1, E, (C,), generator=g, device=dev, dtype=torch.int32)
+    move = torch.rand(C, generator=g, device=dev) < share
+    elem = torch.where(move, torch.randint(0, E, (C,), generator=g, device=dev,
+                                           dtype=torch.int32), old)
+    seg_cap = torch.full((E,), 2 * C // E, dtype=torch.int32, device=dev)
+    for MB in (C, 1000):
+        got = rb.reshuffle_count(elem, old, seg_cap, MB)
+        want = rb.reshuffle_count_plain(elem, old, seg_cap, MB)
+        torch.cuda.synchronize()
+        assert got.info.tolist() == want.info.tolist() and int(got.num) == int(want.num)
+        n_mov = int(want.info[1])
+        k = min(n_mov, MB)
+        assert torch.equal(got.msrc[:k], want.msrc[:k])
+        assert torch.equal(got.mkey[:k], want.mkey[:k])
+        if MB == C:
+            assert bool(want.info[0])
+            for a, b in ((got.stay_cnt, want.stay_cnt), (got.mov_cnt, want.mov_cnt),
+                         (got.mov_start, want.mov_start)):
+                assert torch.equal(a, b)
+        else:
+            assert int(got.stay_cnt.sum()) < int(want.stay_cnt.sum())
+
+
+def _place_args(ps, elem, fields=None):
+    """U2's arguments at a reshuffle of ``ps`` into ``elem`` (U1's counts,
+    C's order, the staged rows), the fields a copy of ``ps``'s (U2 writes
+    them in place) or ``fields``; and the counts."""
     c = rb.reshuffle_count(elem, ps.elem, ps.seg_cap, ps.capacity)
     fits, n_mov = c.info.tolist()
     assert fits and n_mov > 0
     take = rb.key_sort(c.mkey[:n_mov], ps.num_elems - 1, values=c.msrc[:n_mov])
     staged = {k: v[take.long()] for k, v in ps.fields.items()}
-    stride = ps.chunk_size if layout == "scs" else 1
-    args = (elem, ps.elem, ps.elem_offsets, ps.seg_cap, c.mov_cnt, c.mov_start,
-            ps.fields, staged, stride, ps.overflowed, ps.row_to_elem)
-    before = {k: v.clone() for k, v in ps.fields.items()}
+    stride = ps.chunk_size if ps.layout == "scs" else 1
+    f = fields if fields is not None else {k: v.clone() for k, v in ps.fields.items()}
+    return (elem, ps.elem, ps.elem_offsets, ps.seg_cap, c.mov_cnt, c.mov_start, f, staged,
+            stride, ps.overflowed, ps.row_to_elem), c
+
+
+def _with_fields(args, fields):
+    return args[:6] + (fields,) + args[7:]
+
+
+@pytest.mark.parametrize("kind", ["swap", "random"])
+@pytest.mark.parametrize("layout", ["scs", "cabm"])
+def test_reshuffle_place_kernel_equals_plain(dev, layout, kind):
+    """U2 against its plain version on a rebuild's own inputs, each writing
+    into its own copy of the fields: every slot's element and mask, every
+    field (f32 (N, 3), int32, bool), written in place into the tensors
+    given, the count and the flag; a second call gives the same; its other
+    inputs untouched; a Sell-C-σ call without the row order is refused."""
+    ps, elem = _reshuffle_case(dev, layout, kind, seed=3)
+    args, c = _place_args(ps, elem)
+    pargs = _with_fields(args, {k: v.clone() for k, v in ps.fields.items()})
+    before = [t.clone() for t in args[:6]] + [v.clone() for v in args[7].values()]
     n0 = kernels.LAUNCHES["reshuffle_place"]
     got = rb.reshuffle_place(*args)
+    got_fields = {k: v.clone() for k, v in got[2].items()}
     again = rb.reshuffle_place(*args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["reshuffle_place"] == n0 + 2
-    want = rb.reshuffle_place_plain(*args)
-    by_elem = rb.reshuffle_place(*args[:-1])         # warps in element order
-    assert torch.equal(by_elem[0], want[0]) and torch.equal(by_elem[1], want[1])
-    for g, a, w in ((got, again, want),):
-        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
-        for k in w[2]:
-            assert torch.equal(g[2][k], w[2][k]) and torch.equal(a[2][k], w[2][k])
-        assert int(g[3]) == int(w[3]) == int(g[1].sum()) and not bool(g[4])
-        assert torch.equal(a[0], w[0]) and int(a[3]) == int(w[3])
-    for k, v in before.items():
-        assert torch.equal(ps.fields[k], v)
+    want = rb.reshuffle_place_plain(*pargs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for k in want[2]:
+        assert got[2][k] is args[6][k] and again[2][k] is args[6][k]
+        assert torch.equal(got_fields[k], want[2][k]) and torch.equal(args[6][k], want[2][k])
+    assert int(got[3]) == int(want[3]) == int(got[1].sum()) and not bool(got[4])
+    assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
+    assert int(again[3]) == int(want[3]) and not bool(again[4])
+    for a, b in zip(before, list(args[:6]) + list(args[7].values())):
+        assert torch.equal(a, b)
+    if layout == "scs":
+        with pytest.raises(ValueError):
+            rb.reshuffle_place(*args[:-1])
     # a segment short of holes: the flag, and only the placed counted
     short = c.mov_cnt.clone()
     short[0] += int(ps.seg_cap[0]) + 1
     sargs = args[:4] + (short,) + args[5:]
-    g, w = rb.reshuffle_place(*sargs), rb.reshuffle_place_plain(*sargs)
+    g = rb.reshuffle_place(*_with_fields(sargs, {k: v.clone() for k, v in
+                                                  ps.fields.items()}))
+    w = rb.reshuffle_place_plain(*_with_fields(sargs, {k: v.clone() for k, v in
+                                                        ps.fields.items()}))
     assert bool(g[4]) and bool(w[4]) and int(g[3]) == int(w[3])
     assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    for k in w[2]:
+        assert torch.equal(g[2][k], w[2][k])
+
+
+@pytest.mark.parametrize("layout,chunk", [("scs", 8), ("scs", 3), ("scs", 32), ("scs", 40),
+                                          ("cabm", 1)])
+def test_reshuffle_place_kernel_writes_every_slot_once(dev, layout, chunk):
+    """U2 through its launcher on poisoned outputs: every slot's element
+    and mask written (a stayer, a filled hole, an empty hole, a padding
+    row's slot, the slots past the layout's end), equal to the plain
+    version, at chunks of 3, 8, 32 and 40 rows (a round of 30, 32, 32 and
+    32 slots) and for CabM; the count and the flag word in one memset."""
+    import ctypes
+
+    from pumipic_torch.kernels import _build
+    from pumipic_torch.particles import structure as st
+
+    rng = np.random.default_rng(chunk)
+    E, n = 501, 30_000
+    elems = np.sort(rng.integers(0, E, n))
+    f = {"x": torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32), device=dev),
+         "pid": torch.arange(n, dtype=torch.int32, device=dev)}
+    if layout == "scs":
+        ps = st.SellCSigma(E, elems, fields=f, device=dev, capacity=int(n * 1.7),
+                           scs_input=st.SCSInput(chunk_size=chunk, extra_padding=0.3))
+    else:
+        ps = st.CabM(E, elems, fields=f, soa_width=8, extra_padding=0.3, device=dev,
+                     capacity=int(n * 1.7))
+    cur = np.where(ps.active.cpu().numpy(), ps.elem.cpu().numpy(), -1)
+    live = np.flatnonzero(cur >= 0)
+    new = cur.copy()
+    mv = rng.uniform(size=len(live)) < 0.05
+    new[live[mv]] = rng.integers(-1, E, int(mv.sum()))
+    elem, _, _ = rb.rebuild_mask_dps(torch.as_tensor(new, device=dev), ps.active, E)
+    args, _ = _place_args(ps, elem)
+    want = rb.reshuffle_place_plain(*_with_fields(args, {k: v.clone() for k, v in
+                                                          ps.fields.items()}))
+    C = ps.capacity
+    e_out = torch.full((C,), 12345, dtype=torch.int32, device=dev)
+    a_out = torch.full((C,), 7, dtype=torch.uint8, device=dev)
+    num_ovf = torch.full((2,), 99, dtype=torch.int32, device=dev)
+    names = list(args[6])
+    m = len(names)
+    P = ctypes.c_void_p
+    r2e = ps.row_to_elem
+    err = _build.lib().pp_reshuffle_place(
+        *(P(t.data_ptr()) for t in args[:6]), P(r2e.data_ptr() if r2e is not None else 0),
+        0 if r2e is None else r2e.shape[0], E, C, args[8], P(ps.overflowed.data_ptr()), m,
+        (P * m)(*(args[7][k].data_ptr() for k in names)),
+        (P * m)(*(args[6][k].data_ptr() for k in names)),
+        (ctypes.c_int * m)(*(rb._row_bytes(args[6][k]) for k in names)),
+        P(e_out.data_ptr()), P(a_out.data_ptr()), P(num_ovf.data_ptr()),
+        P(kernels.stream_handle()))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert int((e_out == 12345).sum()) == 0 and int((a_out > 1).sum()) == 0
+    assert torch.equal(e_out, want[0]) and torch.equal(a_out.bool(), want[1])
+    assert num_ovf.tolist() == [int(want[3]), 0]
+    for k in names:
+        assert torch.equal(args[6][k], want[2][k])
 
 
 @pytest.mark.parametrize("layout", ["scs", "cabm"])

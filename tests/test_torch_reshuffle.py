@@ -12,9 +12,12 @@ CPU, where every wrapper runs its plain version.
 - ``_scs_row_order`` (Z's key, the plain sort, Z's maps) against the JAX
   ``_scs_row_order`` on counts with ties, zeros and counts above the key's
   bits, E not a multiple of the chunk.
-- CPU emulations of U1's and U2's schedules (tiles ranked in any order;
-  segments in any order, holes by q in 32-slot ballots) equal to their
-  plain versions.
+- CPU emulations of U1's and U2's schedules (U1: tiles in launch
+  order, the flag past the budget and the tiles that then count alone;
+  U2: units in any order, rounds of 32 consecutive slots, a row's holes
+  ranked by its lanes' ballot, every slot written once, the fields in
+  place) equal to their plain versions; ``rebuild(mode="auto")`` writes
+  the fields in place.
 
 Tolerance: none.  Structures are integer and bit moves."""
 import dataclasses
@@ -201,7 +204,7 @@ def test_count_bits_hold_every_padded_count():
 # the kernels' schedules, emulated on the CPU
 # ---------------------------------------------------------------------------
 
-U_THREADS, U_J = 512, 16
+U_THREADS, U_J = 1024, 16
 
 
 def _count_inputs(config, kind, seed):
@@ -212,123 +215,266 @@ def _count_inputs(config, kind, seed):
     return t, elem
 
 
-def emulate_reshuffle_count(elem, old_elem, seg_cap, mb, rng):
-    """U1's tile schedule: tiles of 8192 slots ranked in any order, thread
-    t taking slots tile + 16t .. tile + 16t + 15; a tile's movers placed
-    after the movers of the tiles before it (the look-back) in the threads'
-    order; stayers and, while the movers so far fit the budget, movers
-    counted; the last tile's checks."""
+def emulate_reshuffle_count(elem, old_elem, seg_cap, mb, wave, threads=U_THREADS):
+    """U1's schedule: a block a tile of ``threads`` · 16 slots (16,384), in
+    launch order, ``wave`` tiles in flight at once (a tile sees the flag
+    of the tiles that finished before it started: those ``wave`` or more
+    tiles earlier), thread t taking slots tile + 16t .. tile + 16t + 15.  A
+    tile that sees the flag (an earlier tile's movers passed MB) counts its
+    stayers and movers alone; any other adds its stayers, places its
+    movers after the movers of the tiles before it (the look-back, its sum
+    saturated at MB + 1) in the threads' order, writes those below MB,
+    adds its movers while the movers so far fit the budget and raises the
+    flag when they do not.  The last block scans the elements only while
+    n_mov <= MB.  Returns (fits, n_mov, num, stay_cnt, mov_cnt, mov_start,
+    msrc, mkey, the tiles that counted alone)."""
     C, En = elem.shape[0], seg_cap.shape[0]
     e, o = elem.numpy(), old_elem.numpy()
     stay = (e >= 0) & (e == o)
     mover = (e >= 0) & ~stay
-    tile = U_THREADS * U_J
+    tile = threads * U_J
     n_tiles = -(-C // tile)
+    cap = mb + 1
     cnt = np.zeros(2 * En, np.int64)
     msrc, mkey = np.full(mb, -7, np.int32), np.full(mb, -7, np.int32)
-    before = np.concatenate([[0], np.cumsum([mover[i * tile:(i + 1) * tile].sum()
-                                             for i in range(n_tiles)])])
-    for tl in rng.permutation(n_tiles):
-        s = tl * tile + np.arange(tile).reshape(U_THREADS, U_J)   # (thread, j)
+    prefix = 0                                     # saturated at cap
+    flag_at = n_tiles                              # the first tile to raise the flag
+    n_mov = n_stay = alone = 0
+    for tl in range(n_tiles):
+        s = tl * tile + np.arange(tile).reshape(threads, U_J)     # (thread, j)
         s = s[s < C]
-        np.add.at(cnt, e[s[stay[s]]], 1)
         moving = s[mover[s]]                                     # the threads' order
-        pos = before[tl] + np.arange(len(moving))
-        if before[tl + 1] <= mb:
-            np.add.at(cnt, En + e[moving], 1)
+        n_mov += len(moving)
+        n_stay += int(stay[s].sum())
+        if tl - flag_at >= wave:                   # the flag set before this tile started
+            prefix = cap
+            alone += 1
+            continue
+        np.add.at(cnt, e[s[stay[s]]], 1)
+        base = prefix
+        prefix = min(base + len(moving), cap)
+        if base + len(moving) > mb:
+            flag_at = min(flag_at, tl)
+        pos = base + np.arange(len(moving))
         ok = pos < mb
         msrc[pos[ok]], mkey[pos[ok]] = moving[ok], e[moving[ok]]
-    n_mov = int(mover.sum())
+        if base + len(moving) <= mb:
+            np.add.at(cnt, En + e[moving], 1)
     stay_cnt, mov_cnt = cnt[:En], cnt[En:]
-    fits = bool(np.all(mov_cnt <= seg_cap.numpy() - stay_cnt)) and n_mov <= mb
-    return fits, n_mov, stay_cnt, mov_cnt, np.cumsum(mov_cnt) - mov_cnt, msrc, mkey
+    fits = n_mov <= mb and bool(np.all(mov_cnt <= seg_cap.numpy() - stay_cnt))
+    start = np.cumsum(mov_cnt) - mov_cnt if n_mov <= mb else None
+    return fits, n_mov, n_stay + n_mov, stay_cnt, mov_cnt, start, msrc, mkey, alone
 
 
 @pytest.mark.parametrize("kind", ["swap", "random", "concentrated"])
 @pytest.mark.parametrize("config", ["scs-proportionally-8", "scs-evenly-all", "cabm"])
 def test_reshuffle_count_schedule_equals_plain(config, kind):
     """U1's schedule, emulated, equals ``reshuffle_count_plain``: fits,
-    n_mov and the stayers' counts always; the movers' counts, first places
-    and list where n_mov fits the budget (and the list's first MB where it
-    does not)."""
+    n_mov, the count and the list's first min(n_mov, MB) always; the
+    stayers' and movers' counts and first places where n_mov <= MB (past
+    it tiles that see the flag count alone, the fallback's skip).  With
+    MB = 64 and tiles of 1,024 slots in flight one at a time, every tile
+    after the first whose movers pass the budget counts alone."""
     t, elem = _count_inputs(config, kind, 3)
-    rng = np.random.default_rng(5)
-    for mb in (4096, 64):
+    for mb, threads, wave in ((4096, 1024, 1), (64, 1024, 1), (64, 64, 1), (64, 64, 3)):
         want = rb.reshuffle_count_plain(elem, t.elem, t.seg_cap, mb)
-        fits, n_mov, stay_cnt, mov_cnt, start, msrc, mkey = emulate_reshuffle_count(
-            elem, t.elem, t.seg_cap, mb, rng)
-        assert [fits, n_mov] == want.info.tolist()
-        assert int(want.num) == int(stay_cnt.sum()) + n_mov
-        np.testing.assert_array_equal(stay_cnt, want.stay_cnt.numpy())
+        (fits, n_mov, num, stay_cnt, mov_cnt, start, msrc, mkey,
+         alone) = emulate_reshuffle_count(elem, t.elem, t.seg_cap, mb, wave, threads)
+        assert [fits, n_mov] == want.info.tolist() and num == int(want.num)
         k = min(n_mov, mb)
         np.testing.assert_array_equal(msrc[:k], want.msrc[:k].numpy())
         np.testing.assert_array_equal(mkey[:k], want.mkey[:k].numpy())
         if n_mov <= mb:
+            assert alone == 0
+            np.testing.assert_array_equal(stay_cnt, want.stay_cnt.numpy())
             np.testing.assert_array_equal(mov_cnt, want.mov_cnt.numpy())
             np.testing.assert_array_equal(start, want.mov_start.numpy())
+        elif threads == 64 and wave == 1:          # the first tile passes MB
+            assert alone > 0 and stay_cnt.sum() < int(want.stay_cnt.sum())
+
+
+LANES = np.arange(32)
+
+
+def _unit_slots(row_to_elem, offsets, seg_cap, u, chunk, En):
+    """U2's unit layout: the first real row among the unit's first 32 gives
+    the chunk's first slot (its offset less its row) and width."""
+    rows = np.arange(min(chunk, 32))
+    e = row_to_elem[u * chunk + rows] if row_to_elem is not None else np.array([u])
+    real = np.flatnonzero((e >= 0) & (e < En))
+    if len(real) == 0:
+        return None
+    r = real[0]
+    return int(offsets[e[r]]) - int(r), int(seg_cap[e[r]])
 
 
 def emulate_reshuffle_place(elem, old_elem, offsets, seg_cap, mov_cnt, mov_start, fields,
-                            staged, stride, overflowed, rng):
-    """U2's schedule: a warp an element, elements in any order; 32 q's at
-    a time, the holes' ballot ranking them in q order; outputs fresh."""
+                            staged, chunk, overflowed, row_to_elem, rng):
+    """U2's schedule: a warp a unit (a Sell-C-σ chunk of the row order, or
+    a CabM segment: chunk 1, no row order), units in any order; a round is
+    RG·QR consecutive slots (RG = min(chunk, 32) rows, QR = 32 // RG q's),
+    lane l serving row g0 + l % RG of each group of 32 rows; a row's holes
+    ranked in q order by the round's ballot masked to the row's lanes, its
+    running hole count held by each of them; the tail blocks write the
+    slots from the last unit's end to C.  The fields are written in place
+    (``fields``' tensors); every slot's element and mask must be written
+    exactly once."""
     C, En = elem.shape[0], seg_cap.shape[0]
-    out_elem = np.full(C, -1, np.int32)
-    out_active = np.zeros(C, bool)
-    out = {k: v.numpy().copy() for k, v in fields.items()}
-    num, ovf = 0, bool(overflowed)
     e_, o_ = elem.numpy(), old_elem.numpy()
-    for e in rng.permutation(En):
-        base, cap = int(offsets[e]), int(seg_cap[e])
-        k, ms = int(mov_cnt[e]), int(mov_start[e])
-        holes = 0
-        for q0 in range(0, cap, 32):
-            q = q0 + np.arange(32)
-            s = base + q * stride
-            inside = (q < cap) & (s < C)
-            sc = np.where(inside, s, 0)
-            st = inside & (e_[sc] >= 0) & (e_[sc] == o_[sc])
-            hole = inside & ~st
-            r = holes + np.cumsum(hole) - hole
-            out_elem[s[st]] = e_[s[st]]
-            out_active[s[st]] = True
-            fill = hole & (r < k)
-            out_elem[s[fill]] = e
-            out_active[s[fill]] = True
-            for name in out:
-                out[name][s[fill]] = staged[name].numpy()[ms + r[fill]]
-            num += int(st.sum())
-            holes += int(hole.sum())
-        num += min(holes, k)
-        ovf |= holes < k
-    return out_elem, out_active, out, num, ovf
+    offs, cap = offsets.numpy(), seg_cap.numpy()
+    mc, mst = mov_cnt.numpy(), mov_start.numpy()
+    r2e = row_to_elem.numpy() if row_to_elem is not None else None
+    out = {k: v.numpy() for k, v in fields.items()}        # the tensors' memory
+    rows_of = {k: v.numpy() for k, v in staged.items()}
+    out_elem = np.full(C, -777, np.int32)
+    out_active = np.zeros(C, bool)
+    writes = np.zeros(C, np.int64)
+    num, ovf = 0, bool(overflowed)
+    RG = min(chunk, 32)
+    QR = 32 // RG
+    row_l, qoff, used = LANES % RG, LANES // RG, LANES < RG * QR
+    same = ((row_l[:, None] == row_l[None, :]) & used[:, None] & used[None, :]).astype(
+        np.int64)
+    before = same * (LANES[None, :] < LANES[:, None])      # lanes of the row below l
+    n_units = En if r2e is None else r2e.shape[0] // chunk
+    for u in rng.permutation(n_units):
+        lay = _unit_slots(r2e, offs, cap, u, chunk, En)
+        if lay is None:
+            continue
+        base, w = lay
+        for g0 in range(0, chunk, 32):
+            row = g0 + row_l
+            ok_row = used & (row < chunk)
+            e = np.where(ok_row, (r2e[u * chunk + np.minimum(row, chunk - 1)]
+                                  if r2e is not None else u), -1)
+            real = (e >= 0) & (e < En)
+            ec = np.where(real, e, 0)
+            k, ms = np.where(real, mc[ec], 0), np.where(real, mst[ec], 0)
+            holes = np.zeros(32, np.int64)
+            for q0 in range(0, w, QR):
+                q = q0 + qoff
+                slot = base + q * chunk + row
+                inn = ok_row & (q < w) & (slot < C)
+                rd = inn & real
+                sc = np.where(rd, slot, 0)
+                en, eo = np.where(rd, e_[sc], -1), np.where(rd, o_[sc], -1)
+                st = (en >= 0) & (en == eo)
+                hole = inn & real & ~st
+                r = holes + before @ hole
+                fill = hole & (r < k)
+                s_in = slot[inn]
+                writes[s_in] += 1
+                out_elem[s_in] = np.where(st, en, np.where(fill, e, -1))[inn]
+                out_active[s_in] = (st | fill)[inn]
+                for name in out:
+                    out[name][slot[fill]] = rows_of[name][(ms + r)[fill]]
+                num += int(st.sum())
+                holes += same @ hole
+            lead = ok_row & real & (qoff == 0)
+            num += int(np.minimum(holes, k)[lead].sum())
+            ovf |= bool((holes < k)[lead].any())
+    last = _unit_slots(r2e, offs, cap, n_units - 1, chunk, En)
+    end = last[0] + chunk * last[1] if last is not None else C
+    writes[end:] += 1
+    out_elem[end:], out_active[end:] = -1, False
+    assert (writes == 1).all(), np.flatnonzero(writes != 1)[:10]
+    return out_elem, out_active, num, ovf
 
 
-@pytest.mark.parametrize("kind", ["swap", "random"])
-@pytest.mark.parametrize("config", ["scs-inversely-16", "scs-proportionally-all", "cabm"])
+def _place_case(config, kind, seed, En=37):
+    """A structure of ``config`` over ``En`` elements (37: padding rows at
+    chunks of 8; ``scs-chunk-c``: chunks of c, extra padding 0.3) and the
+    rebuild's inputs for churn ``kind``: U1's counts (the budget the
+    capacity, so a concentrated churn overflows its segment), C's order and
+    G's staged rows."""
+    rng = np.random.default_rng(seed)
+    elems = np.sort(rng.integers(0, En, N))
+    f = {k: torch.as_tensor(v) for k, v in _fields(rng).items()}
+    if config == "cabm":
+        t = T.CabM(En, elems, fields=f, soa_width=8, extra_padding=0.3, device="cpu")
+    else:
+        _, a, b = config.split("-")
+        chunk = int(b) if a == "chunk" else 8
+        sigma = None if a == "chunk" or b == "all" else int(b)
+        t = T.SellCSigma(En, elems, fields=f, device="cpu", scs_input=T.SCSInput(
+            chunk_size=chunk, sigma=sigma, extra_padding=0.3,
+            pad_strategy="proportionally" if a == "chunk" else a))
+    cur = np.where(t.active.numpy(), t.elem.numpy(), -1).astype(np.int32)
+    new = cur.copy()
+    live = np.flatnonzero(cur >= 0)
+    if kind in ("swap", "budget", "budget+1"):
+        k = len(live) // 8 * 2
+        sel = rng.choice(live, size=k, replace=False)
+        a_, b_ = sel[:k // 2], sel[k // 2:]
+        new[a_], new[b_] = cur[b_], cur[a_]
+    elif kind == "random":
+        mv = rng.uniform(size=len(live)) < 0.04
+        new[live[mv]] = rng.integers(-1, En + 2, int(mv.sum()))
+    else:
+        mv = rng.uniform(size=len(live)) < 0.3
+        new[live[mv]] = 3
+    elem, _, _ = rb.rebuild_mask_dps(torch.as_tensor(new), t.active, En)
+    c = rb.reshuffle_count_plain(elem, t.elem, t.seg_cap, t.capacity)
+    n_mov = int(c.info[1])
+    take = rb.key_sort_plain(c.mkey[:n_mov], En - 1, c.msrc[:n_mov])
+    staged = {k: v[take.long()] for k, v in t.fields.items()}
+    return t, elem, c, staged
+
+
+PLACE_CONFIGS = CONFIGS + ["scs-chunk-3", "scs-chunk-40"]
+
+
+@pytest.mark.parametrize("kind", CHURNS)
+@pytest.mark.parametrize("config", PLACE_CONFIGS)
 def test_reshuffle_place_schedule_equals_plain(config, kind):
     """U2's schedule, emulated, equals ``reshuffle_place_plain`` on the
-    rebuild's own inputs (U1's counts, C's order, G's staged rows), and the
-    structure the port's auto rebuild returns."""
-    t, elem = _count_inputs(config, kind, 11)
-    c = rb.reshuffle_count_plain(elem, t.elem, t.seg_cap, t.capacity)
-    fits, n_mov = c.info.tolist()
-    assert fits and n_mov > 0
-    take = rb.key_sort_plain(c.mkey[:n_mov], E - 1, c.msrc[:n_mov])
-    staged = {k: v[take.long()] for k, v in t.fields.items()}
+    rebuild's own inputs (U1's counts, C's order, G's staged rows), each
+    writing into its own copy of the fields: every slot's element and mask
+    (padding rows, the slots past the layout's end), every field, the count
+    and the flag; every slot written once; a swap churn (each mover's
+    source slot another mover's destination), a random one with removals,
+    a concentrated one (a short segment: the flag set, only the placed
+    counted); chunks of 3, 8 and 40 rows (a round of 30, 32 and 32 slots,
+    40: two row groups), 37 elements (padding rows at chunks of 8 and 40)."""
+    t, elem, c, staged = _place_case(config, kind, PLACE_CONFIGS.index(config) * 10
+                                     + CHURNS.index(kind))
     stride = t.chunk_size if t.layout == "scs" else 1
+    fp = {k: v.clone() for k, v in t.fields.items()}
+    fe = {k: v.clone() for k, v in t.fields.items()}
     want = rb.reshuffle_place_plain(elem, t.elem, t.elem_offsets, t.seg_cap, c.mov_cnt,
-                                    c.mov_start, t.fields, staged, stride, t.overflowed,
+                                    c.mov_start, fp, staged, stride, t.overflowed,
                                     t.row_to_elem)
     got = emulate_reshuffle_place(elem, t.elem, t.elem_offsets, t.seg_cap, c.mov_cnt,
-                                  c.mov_start, t.fields, staged, stride, t.overflowed,
-                                  np.random.default_rng(2))
+                                  c.mov_start, fe, staged, stride, t.overflowed,
+                                  t.row_to_elem, np.random.default_rng(2))
     np.testing.assert_array_equal(got[0], want[0].numpy())
     np.testing.assert_array_equal(got[1], want[1].numpy())
     for k in want[2]:
-        np.testing.assert_array_equal(got[2][k], want[2][k].numpy())
-    assert got[3] == int(want[3])
-    assert got[4] is False and not bool(want[4])
+        assert want[2][k] is fp[k]
+        np.testing.assert_array_equal(fe[k].numpy(), fp[k].numpy())
+    assert got[2] == int(want[3]) and got[3] == bool(want[4])
+    assert got[3] == (kind == "concentrated")
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_auto_rebuild_writes_the_fields_in_place(config):
+    """A reshuffle (``rebuild(mode="auto")``) returns the input structure's
+    own field tensors (the same tensors, the same data_ptr), holding what
+    the JAX package's out-of-place ``_rebuild_auto`` computes; the input's
+    element ids and mask stay as they were (fresh outputs)."""
+    rng = np.random.default_rng(CONFIGS.index(config) + 50)
+    j, t = _pair(config)
+    new = _churn(j, "swap", rng)
+    fields, ptrs = dict(t.fields), {k: v.data_ptr() for k, v in t.fields.items()}
+    elem0, active0 = t.elem.clone(), t.active.clone()
+    out = t.rebuild(torch.as_tensor(new), mode="auto")
+    want = j.rebuild(jnp.asarray(new), mode="auto")
+    for k in fields:
+        assert out.fields[k] is fields[k] and out.fields[k].data_ptr() == ptrs[k]
+        np.testing.assert_array_equal(out.fields[k].numpy(), np.asarray(want.fields[k]))
+    assert torch.equal(t.elem, elem0) and torch.equal(t.active, active0)
+    assert out.elem is not t.elem and out.active is not t.active
+    assert_same(want, out, f"{config} in place")
 
 
 def test_reshuffle_place_short_segment_sets_overflow():
@@ -347,6 +493,9 @@ def test_reshuffle_place_short_segment_sets_overflow():
                                                mov_start, fields, staged, 1, ovf0)
     assert e.tolist() == [0, -1, 1, 1, 1, 1] and a.tolist() == [True, False] + [True] * 4
     assert f["v"].tolist() == [0.0, 1, 2, 10, 11, 12] and int(n) == 5 and bool(ovf)
-    got = emulate_reshuffle_place(elem, old, offsets, seg_cap, mov_cnt, mov_start, fields,
-                                  staged, 1, ovf0, np.random.default_rng(0))
-    assert got[0].tolist() == e.tolist() and got[3] == 5 and got[4]
+    assert f["v"] is fields["v"]                       # in place
+    fe = {"v": torch.arange(6, dtype=torch.float32)}
+    got = emulate_reshuffle_place(elem, old, offsets, seg_cap, mov_cnt, mov_start, fe,
+                                  staged, 1, ovf0, None, np.random.default_rng(0))
+    assert got[0].tolist() == e.tolist() and got[2] == 5 and got[3]
+    assert fe["v"].tolist() == f["v"].tolist()
