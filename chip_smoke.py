@@ -17,8 +17,9 @@ sources in this checkout.  Phases, each raising on failure:
     and state update, Q ``rebuild_mask`` the rebuild's mask rewrite and
     count, C ``key_sort`` the rebuild's stable element sort, the
     reshuffle-or-rebuild's U1 ``reshuffle_count`` and U2
-    ``reshuffle_place`` and the Sell-C-σ row order's Z (``scs_row_keys``,
-    ``scs_row_maps``), the distributed step's X1 ``rank_in_key``, X2
+    ``reshuffle_place`` and U3 ``reshuffle_order`` (the movers' order), the
+    Sell-C-σ row order's Z ``scs_row_order``, the distributed step's X1
+    ``rank_in_key``, X2
     ``pack_send``, X3 ``place_arrivals`` and O ``owner_reduce``), one nvcc
     per source, all at once, and keep
     ptxas's registers, shared memory and spills of each source's entry
@@ -50,8 +51,8 @@ sources in this checkout.  Phases, each raising on failure:
     the rebuild's (elem, active, E) keeping the key and on the 0/1
     partition's mask; keys outside [0, K]: 100 among the app's, keys in
     [-K, K], every int32; each bit-equal to ``torch.sort(stable=True)``,
-    with its design floor beside its bound); Z's key and maps and the row
-    order they make with C (against the torch code Z replaced and one
+    with its design floor beside its bound); Z, the row order in one
+    launch (against its plain version, the torch code it replaced and one
     ``torch.sort(-win, dim=1, stable=True)``) on the located particles'
     counts (122,603 elements); B and L's
     given-cells mode on the flux-band grid; A on the 23,976-element annulus at 10M, in the
@@ -71,7 +72,8 @@ sources in this checkout.  Phases, each raising on failure:
     movers) and of the default 0.05 (the fallback), U2 after pushes of
     0.002, 0.004 and 0.001 (5.4%, 10.7%, 2.7%), each in both layouts (U2
     writes the fields in place: it and its plain version each get their
-    own copy), each call's and the
+    own copy), U3 at 2.7%, 5.4% and 10.7% (beside kernel C's payload form,
+    which it replaced, at 2.7%, and ``torch.sort``), each call's and the
     whole reshuffle's device work counted from a captured CUDA graph, and
     Z on the padded counts (24,576 tets); M's peel form (BCC core, reflecting wall) on the pps3d-dps-reflect
     arm's first-step targets.  On the GITR-style app's 32^3 box (196,608
@@ -125,7 +127,7 @@ sources in this checkout.  Phases, each raising on failure:
     ``pps3d-dps-reflect`` with 1 + 3 (K's push-only form, M and Q, no L3)
     and the reshuffle-or-rebuild (``rebuild="auto"``) with 1 + 3:
     ``pps3d-scs-auto`` and ``pps3d-cabm-auto`` at a push of 0.001 (every
-    step a reshuffle: U1, C, G and U2 and no slot map) and
+    step a reshuffle: U1, U3, G and U2 and no slot map or C) and
     ``pps3d-scs-auto-fallback`` at the default push (every step U1, then
     the sort rebuild, no U2), each step's rebuild checked on the device
     (its launch set; num_ptcls the active count, no overflow; the pids'
@@ -268,10 +270,10 @@ KERNELS = {  # name -> (route, source, replaces)
                         "pumipic_tpu/particles/structure.py:702"),
     "reshuffle_place": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
                         "pumipic_tpu/particles/structure.py:733"),
-    "scs_row_keys": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
-                     "pumipic_tpu/particles/structure.py:312"),
-    "scs_row_maps": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
-                     "pumipic_tpu/particles/structure.py:312"),
+    "reshuffle_order": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
+                        "pumipic_tpu/particles/structure.py:765"),
+    "scs_row_order": ("cuda", "pumipic_torch/kernels/csrc/reshuffle.cu",
+                      "pumipic_tpu/particles/structure.py:312"),
     "route_packed": ("cuda", "pumipic_torch/kernels/csrc/route.cu",
                      "pumipic_tpu/parallel/migrate.py:115"),
     "route_g2l": ("cuda", "pumipic_torch/kernels/csrc/route.cu",
@@ -291,7 +293,7 @@ PEAK_F32_OPS_PER_S = 67e12
 
 # the app arms of phase d: structure -> kernels each run's steps must launch
 _SORTED = ("key_sort", "rebuild_mask", "row_gather")
-_SCS_ROWS = ("scs_row_keys", "scs_row_maps")
+_SCS_ROWS = ("scs_row_order",)
 APP_ARMS = {
     "scs": ("push", "locate", "histogram", "deposit", "slot_map") + _SORTED + _SCS_ROWS,
     "csr": ("push", "locate", "histogram", "deposit") + _SORTED,
@@ -332,24 +334,25 @@ PPS3D_ARMS = {
                   ("kuhn_locate", "slot_map", "row_gather", "key_sort", "rebuild_mask")
                   + _SCS_ROWS, ("locate3d", "push_wrap") + _PUSHES_2D),
     # the reshuffle-or-rebuild (rebuild="auto", extra padding 0.15): a short
-    # push takes the reshuffle every step (U1, C, G, U2; no slot map), the
+    # push takes the reshuffle every step (U1, U3, G, U2; no slot map), the
     # default push falls back to the sort every step (U1, then the sort
     # rebuild; no U2); the set-up's sorted build launches S, H and Z, so
     # each step's launches are checked with its rebuild (check_auto_step)
     "pps3d-scs-auto": ({"kuhn": "auto", "structure": "scs", "rebuild": "auto",
                         "distance": AUTO_DIST}, 3,
-                       ("kuhn_locate", "reshuffle_count", "key_sort", "row_gather",
+                       ("kuhn_locate", "reshuffle_count", "reshuffle_order", "row_gather",
                         "reshuffle_place", "rebuild_mask"),
                        ("locate3d", "push_wrap") + _PUSHES_2D),
     "pps3d-cabm-auto": ({"kuhn": "auto", "structure": "cabm", "rebuild": "auto",
                          "distance": AUTO_DIST}, 3,
-                        ("kuhn_locate", "reshuffle_count", "key_sort", "row_gather",
+                        ("kuhn_locate", "reshuffle_count", "reshuffle_order", "row_gather",
                          "reshuffle_place", "rebuild_mask"),
                         ("locate3d", "push_wrap") + _PUSHES_2D),
     "pps3d-scs-auto-fallback": ({"kuhn": "auto", "structure": "scs", "rebuild": "auto"}, 3,
                                 ("kuhn_locate", "reshuffle_count", "key_sort", "slot_map",
                                  "row_gather", "rebuild_mask", "histogram") + _SCS_ROWS,
-                                ("reshuffle_place", "locate3d", "push_wrap") + _PUSHES_2D),
+                                ("reshuffle_place", "reshuffle_order", "locate3d", "push_wrap")
+                                + _PUSHES_2D),
     "pps3d-dps-reflect": ({"kuhn": "off", "wall": "reflect"}, 3,
                           ("push_wrap", "trace3d", "rebuild_mask"),
                           ("kuhn_locate", "locate3d") + _PUSHES_2D),
@@ -1816,16 +1819,18 @@ def check_columns(results: dict, what: str, cols, src) -> None:
 
 
 # ---------------------------------------------------------------------------
-# U1, U2, Z: the reshuffle-or-rebuild and the Sell-C-σ row order
+# U1, U2, U3, Z: the reshuffle-or-rebuild and the Sell-C-σ row order
 # ---------------------------------------------------------------------------
 
 # a reshuffle's device work besides Q (before it): U1 (a memset, one
-# kernel); then C (a memset, the histogram and the passes), G and U2 (a
-# memset of its count and flag, one kernel that writes every slot's
-# element and mask and the fields in place: no copy)
+# kernel); then U3 (one kernel), G and U2 (a memset of its count and flag,
+# one kernel that writes every slot's element and mask and the fields in
+# place: no copy); Z is one kernel
 U1_NODES = {"memset": 1, "kernel": 1}
-RESHUFFLE_NODES = {"memset": 2, "kernel": 4}
+RESHUFFLE_NODES = {"memset": 1, "kernel": 3}
 U2_NODES = {"memset": 1, "kernel": 1}
+U3_NODES = {"kernel": 1}
+Z_NODES = {"kernel": 1}
 
 
 def auto_structure(dev, layout: str, E: int, x, elem):
@@ -1886,8 +1891,9 @@ def check_reshuffle_count(results: dict, ps, elem, what: str):
     record_launches("reshuffle_count", what, lambda: rb.reshuffle_count(*args), results,
                     U1_NODES)
     if fits:
-        # C with a payload: the reshuffle's mover sort (the movers' slots in
-        # destination order), beside torch.sort of the same keys
+        check_reshuffle_order(results, got, n_mov, E, what)
+        # C with a payload: the mover sort that U3 replaced (the movers'
+        # slots in destination order), beside torch.sort of the same keys
         key, vals = want.mkey[:n_mov], want.msrc[:n_mov]
         c_what = f"with a payload, the movers of {what} ({n_mov} keys)"
         compare("key_sort", c_what, rb.key_sort(key, E - 1, values=vals),
@@ -1901,9 +1907,34 @@ def check_reshuffle_count(results: dict, ps, elem, what: str):
     return got, MB
 
 
-def check_reshuffle_place(results: dict, ps, elem, what: str) -> None:
+def check_reshuffle_order(results: dict, counted, n_mov: int, E: int, what: str) -> None:
+    """U3 on U1's movers (their keys, slots and the destinations' first
+    places): equal to its plain version (kernel C's, the stable sort with a
+    payload), timed beside it and beside ``torch.sort(key, stable=True)``,
+    its bound (each mover's key and slot read, its slot written, the
+    starts read) and its device work (one kernel)."""
+    from pumipic_torch.kernels import _build
+    from pumipic_torch.ops import rebuild as rb
+
+    args = (counted.mkey[:n_mov], counted.msrc[:n_mov], counted.mov_start)
+    u_what = f"the movers of {what} ({n_mov} movers, {E} tets)"
+    compare("reshuffle_order", u_what, rb.reshuffle_order(*args),
+            rb.reshuffle_order_plain(*args), results)
+    time_pair("reshuffle_order", what, lambda: rb.reshuffle_order(*args),
+              lambda: rb.reshuffle_order_plain(*args), results)
+    record_bound("reshuffle_order", what, results, 3 * nbytes(args[0]) + nbytes(args[2]))
+    record_library("reshuffle_order", what, "torch.sort(key, stable=True)",
+                   lambda: torch.sort(args[0], stable=True), results)
+    record_launches("reshuffle_order", what, lambda: rb.reshuffle_order(*args), results,
+                    U3_NODES)
+    case_of("reshuffle_order", what, results)["grid_blocks"] = \
+        _build.lib().pp_reshuffle_order_grid(E)
+
+
+def check_reshuffle_place(results: dict, ps, elem, what: str, order: bool = False) -> None:
     """U2 at a reshuffle of ``ps`` into ``elem``, on its own inputs (U1's
-    counts, C's mover slots in destination order, G's staged rows), the
+    counts, U3's mover slots in destination order, G's staged rows), with
+    ``order`` U3 there too (:func:`check_reshuffle_order`), the
     kernel and its plain version each writing into its own copy of the
     fields (U2 writes them in place; the copies are made once, outside the
     timing, and a repeated call writes the same rows): equal on every slot
@@ -1923,7 +1954,9 @@ def check_reshuffle_place(results: dict, ps, elem, what: str) -> None:
     fits, n_mov = counted.info.tolist()
     if not fits:
         raise AssertionError(f"reshuffle_place {what}: the reshuffle does not fit")
-    take = rb.key_sort(counted.mkey[:n_mov], ps.num_elems - 1, values=counted.msrc[:n_mov])
+    if order:
+        check_reshuffle_order(results, counted, n_mov, ps.num_elems, what)
+    take = rb.reshuffle_order(counted.mkey[:n_mov], counted.msrc[:n_mov], counted.mov_start)
     staged, _ = st._gather_fields(ps.fields, take)
 
     def args(fields):
@@ -1963,7 +1996,7 @@ def check_reshuffle_place(results: dict, ps, elem, what: str) -> None:
                     U2_NODES)
     active = elem >= 0
     own = dataclasses.replace(ps, fields={k: v.clone() for k, v in ps.fields.items()})
-    record_launches("reshuffle_place", f"{what}, the reshuffle (C, G, U2)",
+    record_launches("reshuffle_place", f"{what}, the reshuffle (U3, G, U2)",
                     lambda: st._reshuffle(own, elem, active, counted, n_mov), results,
                     RESHUFFLE_NODES)
 
@@ -1989,67 +2022,51 @@ def scs_row_order_torch(counts, sigma: int, chunk: int, E: int):
 
 
 def check_scs_row_order(results: dict, counts, num_ptcls: int, what: str) -> None:
-    """Z (its key and its maps, C between them) on a rebuild's padded
-    counts: each equal to its plain version, the row order equal to the
-    torch row order Z replaced; each timed beside its plain version, the
-    row order beside that torch code and beside one ``torch.sort(-win,
-    dim=1, stable=True)``; bounds and device work."""
+    """Z on a rebuild's padded counts: equal to its plain version (the key,
+    the stable sort, the maps) and to the torch row order it replaced;
+    timed beside its plain version, that torch code and one
+    ``torch.sort(-win, dim=1, stable=True)`` (the sort alone); its bound
+    (the counts read, the three maps written) and its device work (one
+    kernel, no memset, through ``_scs_row_order``)."""
+    from pumipic_torch.kernels import _build
     from pumipic_torch.ops import rebuild as rb
     from pumipic_torch.particles import structure as st
 
     E, chunk = counts.shape[0], 8
     R = -(-E // chunk) * chunk
-    order, e2r, width = st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls)
     bits = st._scs_key_bits(1, E, num_ptcls, 0.0)
-    kargs = (counts, R, R, bits)
-    key = rb.scs_row_keys(*kargs)
-    compare("scs_row_keys", f"{what} ({E} counts, {bits} bits)", key,
-            rb.scs_row_keys_plain(*kargs), results)
-    time_pair("scs_row_keys", what, lambda: rb.scs_row_keys(*kargs),
-              lambda: rb.scs_row_keys_plain(*kargs), results)
-    record_bound("scs_row_keys", what, results, nbytes(counts, key))
-    margs = (order, counts, chunk)
-    compare("scs_row_maps", f"{what} ({R} rows)", rb.scs_row_maps(*margs),
-            rb.scs_row_maps_plain(*margs), results)
-    compare("scs_row_maps", f"{what}, the row order against the torch code Z replaced",
-            (order, e2r, width), scs_row_order_torch(counts, 2**30, chunk, E), results)
-    time_pair("scs_row_maps", what, lambda: rb.scs_row_maps(*margs),
-              lambda: rb.scs_row_maps_plain(*margs), results)
-    record_bound("scs_row_maps", what, results, nbytes(order, counts, e2r, width))
+    args = (counts, R, 2**30, chunk, bits)
+    got = rb.scs_row_order(*args)
+    compare("scs_row_order", f"{what} ({E} counts, {R} rows)", got,
+            rb.scs_row_order_plain(*args), results)
+    compare("scs_row_order", f"{what}, against the torch code Z replaced", got,
+            scs_row_order_torch(counts, 2**30, chunk, E), results)
+    time_pair("scs_row_order", what, lambda: rb.scs_row_order(*args),
+              lambda: rb.scs_row_order_plain(*args), results)
+    record_bound("scs_row_order", what, results, nbytes(counts, *got))
     win = torch.full((R,), -1, dtype=counts.dtype, device=counts.device)
     win[:E] = counts
     win = win.reshape(1, R)
-    record_library("scs_row_maps", what, "torch.sort(-win, dim=1, stable=True)",
+    record_library("scs_row_order", what, "torch.sort(-win, dim=1, stable=True)",
                    lambda: torch.sort(-win, dim=1, stable=True), results)
-    row = f"{what}, the row order (Z's key, C, Z's maps)"
-    time_pair("scs_row_maps", row,
-              lambda: st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls),
+    row = f"{what}, beside the torch code Z replaced"
+    time_pair("scs_row_order", row, lambda: rb.scs_row_order(*args),
               lambda: scs_row_order_torch(counts, 2**30, chunk, E), results, record=False)
-    record_launches("scs_row_maps", row,
+    record_launches("scs_row_order", what,
                     lambda: st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls),
-                    results, {"memset": 1, "kernel": 4})
-
-    def row_order_plain():
-        k = rb.scs_row_keys_plain(*kargs)
-        o = rb.key_sort_plain(k, (1 << (bits + 1)) - 1)
-        return (o,) + tuple(rb.scs_row_maps_plain(o, counts, chunk))
-
-    plain_row = f"{what}, the row order against the plain versions (Z's key, C, Z's maps)"
-    compare("scs_row_maps", plain_row, (order, e2r, width), row_order_plain(), results)
-    time_pair("scs_row_maps", plain_row,
-              lambda: st._scs_row_order(counts, 2**30, chunk, E, num_ptcls=num_ptcls),
-              row_order_plain, results, record=False)
-    # the row order's function: the counts read, the three maps written
-    record_bound("scs_row_maps", plain_row, results, nbytes(counts, order, e2r, width))
+                    results, Z_NODES)
+    case_of("scs_row_order", what, results)["cluster_blocks"] = \
+        _build.lib().pp_scs_row_order_cluster_blocks()
 
 
 def check_reshuffle(results: dict, dev, mesh, seeded) -> None:
-    """U1, U2 and Z at pseudoPushAndSearch's shapes: the auto rebuild's
+    """U1, U2, U3 and Z at pseudoPushAndSearch's shapes: the auto rebuild's
     Sell-C-σ and CabM structures (extra padding 0.15) of phase c's 10M
     seeded particles on the Kuhn box; U1 after one push of the auto arms'
     distance (every mover fits) and of the default (the fallback); U2
     after pushes of 2, 4 and 1 times the arms' (5.4%, 10.7% and 2.7% of
-    the particles move); each in both layouts; Z on the Sell-C-σ
+    the particles move), U3 at each of those pushes; each in both layouts;
+    Z on the Sell-C-σ
     structure's padded counts (24,576 tets)."""
     import numpy as np
 
@@ -2078,7 +2095,8 @@ def check_reshuffle(results: dict, dev, mesh, seeded) -> None:
             check_scs_row_order(results, counts, ps.capacity, f"pps3d-scs-auto, {E} tets")
         for dist in (2 * AUTO_DIST, 4 * AUTO_DIST, AUTO_DIST):
             check_reshuffle_place(results, ps, pushed_elem(kuhn, ps, direction, wrap, dist),
-                                  f"pps3d-{layout}-auto, one push of {dist}")
+                                  f"pps3d-{layout}-auto, one push of {dist}",
+                                  order=dist != AUTO_DIST)
         del ps
         torch.cuda.empty_cache()
 
@@ -3503,12 +3521,12 @@ def phase_d(results: dict, dev, grid, band_grid, band_s: float, smi: str) -> Non
 
 
 # the kernels an auto rebuild launches after Q: the reshuffle; the fallback
-# (U1, then the sort rebuild: C, H, Z's two kernels and C again for SCS, S,
-# G, Q's epilogue)
-AUTO_RESHUFFLE = {"reshuffle_count": 1, "key_sort": 1, "row_gather": 1, "reshuffle_place": 1}
+# (U1, then the sort rebuild: C, H, Z for SCS, S, G, Q's epilogue)
+AUTO_RESHUFFLE = {"reshuffle_count": 1, "reshuffle_order": 1, "row_gather": 1,
+                  "reshuffle_place": 1}
 AUTO_FALLBACK = {
-    "scs": {"reshuffle_count": 1, "key_sort": 2, "histogram": 1, "scs_row_keys": 1,
-            "scs_row_maps": 1, "slot_map": 1, "row_gather": 1, "rebuild_mask": 1},
+    "scs": {"reshuffle_count": 1, "key_sort": 1, "histogram": 1, "scs_row_order": 1,
+            "slot_map": 1, "row_gather": 1, "rebuild_mask": 1},
     "cabm": {"reshuffle_count": 1, "key_sort": 1, "histogram": 1, "slot_map": 1,
              "row_gather": 1, "rebuild_mask": 1}}
 

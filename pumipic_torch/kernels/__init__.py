@@ -17,8 +17,8 @@ LAUNCHES = {"push": 0, "push_table": 0, "band_cell": 0, "annulus_locate": 0,
             "vdeposit": 0, "rank_in_key": 0, "pack_send": 0,
             "place_arrivals": 0, "owner_reduce": 0, "gitr_update": 0,
             "rebuild_mask": 0, "key_sort": 0, "check_parents": 0,
-            "reshuffle_count": 0, "reshuffle_place": 0, "scs_row_keys": 0,
-            "scs_row_maps": 0, "route_packed": 0, "route_g2l": 0, "route_banded": 0,
+            "reshuffle_count": 0, "reshuffle_place": 0, "reshuffle_order": 0,
+            "scs_row_order": 0, "route_packed": 0, "route_g2l": 0, "route_banded": 0,
             "balance_keys": 0, "balance_select": 0}
 
 

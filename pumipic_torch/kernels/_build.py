@@ -170,8 +170,17 @@ SIGNATURES = {
         _P, _I, _I, _L, _I,                  # row_to_elem n_rows E C chunk
         _P, _I, _P, _P, _P,                  # ovf_in n_fields staged fields row_bytes
         _P, _P, _P, _P],                     # elem_out active_out num_ovf stream
-    "pp_scs_row_keys": [_P, _I, _I, _I, _I, _P, _P],  # counts E R sigma b key stream
-    "pp_scs_row_maps": [_P, _P, _I, _I, _I, _P, _P, _P],  # order counts E R chunk e2r cw stream
+    "pp_reshuffle_order": [
+        _P, _P, _P, _I, _I,                  # mkey msrc mov_start E n
+        _P, _P, _P],                         # take scratch stream
+    "pp_reshuffle_order_turns": [_I],        # E
+    "pp_reshuffle_order_grid": [_I],         # E
+    "pp_reshuffle_order_scratch": [_I, _I],  # E n
+    "pp_scs_row_order_cluster_blocks": [],
+    "pp_scs_row_order": [
+        _P, _I, _I, _I, _I,                  # counts E R sigma chunk
+        _P, _P, _P, _P, _P],                 # row_to_elem elem_to_row chunk_width scratch stream
+    "pp_scs_row_order_scratch_words": [],
     "pp_route_decode": [
         _I, _P, _P, _P, _P, _L, _I, _I,      # form table params elem_in active n me R
         _P, _P, _P, _P, _P, _P, _P],         # dest sbar noncore live elem_out gelem stream

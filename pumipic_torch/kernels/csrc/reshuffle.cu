@@ -1,5 +1,5 @@
-// Kernels U1, U2 and Z: the particle structures' reshuffle-or-rebuild and
-// the Sell-C-σ row order.
+// Kernels U1, U2, U3 and Z: the particle structures' reshuffle-or-rebuild
+// and the Sell-C-σ row order.
 //
 //  U1 reshuffle_count  Replaces (JAX reference) _rebuild_auto
 //                      (pumipic_tpu/particles/structure.py:702-730): stay =
@@ -19,15 +19,17 @@
 //                      its element and the mask; a slot whose particle left
 //                      and that no mover fills ends empty (-1, inactive);
 //                      num_ptcls is the count of the output mask.
-//  Z  scs_row_keys,    Replace _scs_row_order (:312-345) after the pad: the
-//     scs_row_maps     descending stable sort of the padded counts within σ
-//                      windows becomes kernel C's ascending stable sort of
-//                      one int32 key a row, window·2^(b+1) + (2^b - 1 -
-//                      count), the padding rows' count -1 (2^b: after every
-//                      real count) with 2^b above every count; then the
-//                      row -> element map is C's order, and scs_row_maps
-//                      writes the element -> row map and each chunk's width
-//                      (the largest count of its rows, 0 for padding).
+//  U3 reshuffle_order Replaces _reshuffle's stable sort of the movers by
+//                      destination (:765, argsort(dest, stable=True)): given
+//                      U1's movers in slot order (mkey, msrc) and the
+//                      destinations' first places mov_start, mover i goes to
+//                      mov_start[k_i] + r_i, r_i the movers before it with the
+//                      same destination: take = msrc in destination order.
+//  Z  scs_row_order    Replaces _scs_row_order (:312-345) after the pad: the
+//                      descending stable sort of the padded counts within σ
+//                      windows (the padding rows, count -1, last in theirs),
+//                      the element -> row map and each chunk's width (the
+//                      largest count of its rows, 0 for padding).
 //
 // The TPU ran all of it as XLA code (a one-hot matmul histogram, a slot-
 // rate argsort, cumsums, a searchsorted and scatters); no Pallas kernel.
@@ -35,7 +37,14 @@
 // What bounds them on an H100: device-memory bytes.  U1 reads two int32
 // ids a slot (8 bytes) and writes the movers' slots and keys; U2 reads the
 // same two ids over the segments, writes each slot's id and mask (5 bytes)
-// and reads and writes the movers' rows; Z is mesh-rate.
+// and reads and writes the movers' rows; U3 reads each mover's key and slot
+// and writes its slot once (12 bytes a mover); Z reads the counts and
+// writes the three maps (mesh-rate).  U3 and Z are small (~10^5 items):
+// what holds them back is launches and the waits between their steps, so
+// each is one launch whose steps wait at barriers instead of launches: U3
+// a cooperative launch over the whole card (every block resident at once,
+// ~1.1 us a grid barrier at 132 blocks), Z one thread block cluster (~0.7
+// us a cluster barrier).
 //
 // U1's counters.  2E int32 counters (stay keys e, mover keys E + e) are
 // 196 KB at the 16^3 box's 24,576 tets and 981 KB at a 122,603-element
@@ -94,8 +103,65 @@
 // kernel never reads a field.  A segment with fewer holes below the
 // capacity C than movers sets the sticky overflow flag and counts only the
 // placed particles.
+//
+// U3's design: one cooperative launch over the whole card (a block or two
+// an SM, all resident, three grid barriers), no memset and no histogram:
+// U1 counted the movers of each destination and scanned them into
+// mov_start, so a bucket of 2^bs consecutive destinations (at most 256
+// buckets: 192 of 128 tets at 24,576) starts at mov_start of its first.
+// (1) Each block takes a tile of consecutive movers (a warp a contiguous
+// part of it) and counts them by bucket in its warps' tables (shared
+// atomic adds, no __match_any_sync; aggregating the lanes of lane 0's
+// bucket, as Z does, was 5% slower here); it writes its count of each
+// bucket to a bucket-major scratch.  (2) Each bucket's column of tile
+// counts is scanned by one block into each tile's first place in the
+// bucket.  (3) Each warp places its part, in order, into a scratch copy
+// grouped by bucket (equal buckets ranked by __match_any_sync), keys and
+// slots.  (4) Each bucket is then one block's: its movers, in list order,
+// ranked by key in the warps' tables from mov_start of each key, written
+// to take.
+// A warp's table holds U3_TABLE_KEYS keys; a bucket of more keys (E >
+// 2^(U3_BUCKET_BITS + 11) = 524,288) takes them in turns (the turns form),
+// each turn reading the bucket again.  (A first design on one thread block
+// cluster, counters a destination in each block's shared memory and the
+// blocks' order from their fields, took 0.074 ms at 273,644 movers: the
+// cluster's 16 SMs, __match_any_sync's cost of ~36 cycles a distinct value,
+// and moving E counters a block.)
+//
+// Z's design: a radix sort of the rows in one launch of one thread block
+// cluster (16 blocks where the card schedules them, else 8) with no key
+// array and no memset: each block reads a contiguous slice of the rows (a
+// warp a contiguous part of it, Z_UNROLL rounds' loads at once) and the
+// counts; the cluster's min and max count (padding rows -1; distributed
+// shared memory) give the key max - count (ascending = descending count,
+// padding last) and its range.  One window takes one pass of at most
+// Z_DMAX bits: a key more than 2^Z_DMAX - 2 below the largest (a count far
+// above the rest: the app's few dense elements) goes to bin 0, which
+// comes first, and a second stage in the same launch ranks those rows (at
+// most Z_BIG) by descending count; more of them, or σ windows, take LSD
+// passes of equal digits over the key, then over the row's window, every
+// pass stable.  A pass: each warp counts its part's digits in a table of
+// its own in shared memory (the lanes equal to lane 0's digit added at
+// once, the others alone); each block scans them over its warps and writes
+// its counts to an L2 scratch row; after the cluster's barrier every block
+// reads all the rows (coalesced: one barrier a pass, where exchanging them
+// through distributed shared memory took three) and scans them into its
+// first place of each digit; then each warp places its part in order, a
+// digit's equal rows ranked by __match_any_sync, from its table.  A pass
+// before the last writes the rows to a scratch array in global memory (L2;
+// the next pass reads it past L1); the last writes row_to_elem and
+// elem_to_row.  A chunk's width is the count of its first row and of each
+// window's first row in it (the rows of a window descend).  The rows are
+// never held in shared memory, so any R sorts in the one launch; above
+// ~10^6 rows one cluster's 16 SMs take longer than a device-wide sort
+// would.  (The same design as one cooperative launch over the card took
+// 0.0298 ms at 122,608 rows and 0.0185 at 24,576: its grid barriers and
+// the tiles' digit columns cost more than the cluster's 16 SMs lose.)
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define U_THREADS 1024
 // blocks of U1 resident on an SM (the register cap)
@@ -122,7 +188,40 @@
 // the element and mask writes, no fills; 2 the kernel
 #define U2_STAGE 2
 #define U_MAX_FIELDS 16
-#define Z_THREADS 256
+// U3: a block's threads; the key buckets (at most 2^U3_BUCKET_BITS, of
+// 2^bs keys each); the keys a warp's table holds in the bucket pass (more
+// in turns); the blocks an SM takes at most; the rounds of 32 whose loads
+// a warp issues at once
+#define U3_THREADS 512
+#define U3_WARPS (U3_THREADS / 32)
+#define U3_BUCKET_BITS 8
+#define U3_TABLE_KEYS 2048
+#define U3_BLOCKS_PER_SM 2
+#define U3_UNROLL 4
+// Z: a block's warps (each with a digit table), the widest digit, the
+// rows of the clamped pass's big bin its second stage ranks at most, and
+// the rounds of 32 whose loads a warp issues at once
+#define Z_THREADS 512
+#define Z_WARPS (Z_THREADS / 32)
+#define Z_DMAX 11
+#define Z_BINS (1 << Z_DMAX)
+#define Z_BIG 1024
+#define Z_UNROLL 8
+// Z's shared words: the warps' tables, the block's digit counts, then 32
+// for the block scan and 96 for reductions
+#define Z_MISC 128
+#define Z_SMEM (((Z_WARPS + 1) * Z_BINS + Z_MISC) * 4)
+// the largest cluster tried (blocks of one cluster, on neighbouring SMs)
+#define ORDER_CLUSTER_MAX 16
+// stripped builds of U3 and Z (scripts/ab_reshuffle.py --variants, timed,
+// never compared): U3 1 the tiles' bucket counts, 2 + the columns' scans,
+// 3 + the tiles' placement by bucket, 4 (the kernel) + the buckets'
+// placement by key; Z 1 the min and max, 2 + each pass's zeroing and
+// count, 3 + the warps' prefix and the block's row, 4 + the rows' exchange
+// and the first places, 5 + the walks, 6 (the kernel) + the big rows'
+// stage and the widths
+#define U3_STAGE 4
+#define Z_STAGE 6
 // a tile's status word: its movers (flag 1) or the movers up to and with
 // it (flag 2), saturated at MB + 1, below a flag in the top two bits
 #define U_AGGREGATE (1u << 30)
@@ -584,39 +683,514 @@ __global__ void __launch_bounds__(U2_THREADS) reshuffle_place_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Z: scs_row_keys, scs_row_maps
+// U3 (one cooperative launch) and Z (one cluster launch)
 // ---------------------------------------------------------------------------
 
-// key of row i < R: (i / sigma)·2^(b+1) + (2^b - 1 - count), count = counts[i]
-// for i < E, -1 for the padding rows
-__global__ void __launch_bounds__(Z_THREADS) scs_row_keys_kernel(
-    const int* __restrict__ counts, int E, int R, int sigma, int b, int* __restrict__ key) {
-  const int i = blockIdx.x * Z_THREADS + threadIdx.x;
-  if (i >= R) return;
-  const int c = i < E ? __ldg(counts + i) : -1;
-  key[i] = (int)((unsigned)(i / sigma) * (2u << b) + ((1u << b) - 1u - (unsigned)c));
+// U3: a warp's part of a range [lo, hi) split over U3_WARPS warps, in
+// rounds of 32 (U3_UNROLL rounds' loads at once); f(u, in, key, slot) is
+// called for each round u (every lane) with whether the lane's position
+// lies in its part and, where it does, its key and slot
+template <bool SLOTS, typename F>
+__device__ __forceinline__ void u3_rounds(const int* __restrict__ mkey,
+                                          const int* __restrict__ msrc, int lo, int hi,
+                                          F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = ((hi - lo + U3_WARPS - 1) / U3_WARPS + 31) & ~31;
+  const int lo_w = min(lo + warp * per, hi), hi_w = min(lo_w + per, hi);
+  for (int j0 = lo_w; j0 < hi_w; j0 += 32 * U3_UNROLL) {
+    int k[U3_UNROLL], v[U3_UNROLL];
+#pragma unroll
+    for (int u = 0; u < U3_UNROLL; ++u) {
+      const int j = j0 + 32 * u + lane;
+      k[u] = j < hi_w ? __ldcg(mkey + j) : -1;
+      v[u] = SLOTS && j < hi_w ? __ldcg(msrc + j) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < U3_UNROLL; ++u) f(u, j0 + 32 * u + lane < hi_w, k[u], v[u]);
+  }
 }
 
-// row i's element is order[i]: elem_to_row[order[i]] = i for real rows;
-// chunk k's width is the largest count of its rows (padding rows 0)
-__global__ void __launch_bounds__(Z_THREADS) scs_row_maps_kernel(
-    const int* __restrict__ order, const int* __restrict__ counts, int E, int R, int chunk,
-    int* __restrict__ elem_to_row, int* __restrict__ chunk_width) {
-  const int i = blockIdx.x * Z_THREADS + threadIdx.x;
-  if (i < R) {
-    const int e = __ldg(order + i);
-    if (e < E) elem_to_row[e] = i;
-  }
-  if (i < R / chunk) {
-    int w = 0;
-    for (int r = i * chunk; r < (i + 1) * chunk; ++r) {
-      const int e = __ldg(order + r);
-      const int c = e < E ? __ldg(counts + e) : 0;
-      w = c > w ? c : w;
+// U3: reshuffle_order.  bs: a bucket's key bits; nbk buckets; kt: the keys
+// a warp's table holds; tcount: nbk rows of gridDim.x words (bucket-major);
+// tkey, tslot: n words each (the movers grouped by bucket)
+__global__ void __launch_bounds__(U3_THREADS) reshuffle_order_kernel(
+    const int* __restrict__ mkey, const int* __restrict__ msrc,
+    const int* __restrict__ mov_start, int E, int n, int bs, int nbk, int kt,
+    int* __restrict__ take, int* tcount, int* tkey, int* tslot) {
+  extern __shared__ __align__(16) int u3_tab[];   // [U3_WARPS][nbk], then [U3_WARPS][kt]
+  cg::grid_group grid = cg::this_grid();
+  const int G = (int)gridDim.x, t = (int)blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int T = (n + G - 1) / G;
+  const int lo = min(t * T, n), hi = min(lo + T, n);
+  int* wtab = u3_tab + warp * nbk;
+
+  // (1) the tile's movers by bucket, each warp in its table
+  for (int i = threadIdx.x; i < U3_WARPS * nbk; i += U3_THREADS) u3_tab[i] = 0;
+  __syncthreads();
+  u3_rounds<false>(mkey, msrc, lo, hi, [&](int, bool in, int k, int) {
+    if (in) atomicAdd(&wtab[k >> bs], 1);
+  });
+  __syncthreads();
+  for (int bk = threadIdx.x; bk < nbk; bk += U3_THREADS) {
+    int s = 0;
+    for (int w = 0; w < U3_WARPS; ++w) {
+      const int c = u3_tab[w * nbk + bk];
+      u3_tab[w * nbk + bk] = s;
+      s += c;
     }
-    chunk_width[i] = w;
+    tcount[(long long)bk * G + t] = s;
+  }
+  __threadfence();
+  grid.sync();
+  // (2) each bucket's column scanned: every tile's first place in it
+  if (U3_STAGE >= 2)
+    for (int bk = t; bk < nbk; bk += G) {
+      int* col = tcount + (long long)bk * G;
+      const int c = (int)threadIdx.x < G ? __ldcg(col + threadIdx.x) : 0;
+      int total;
+      const int incl = block_scan(c, u3_tab + U3_WARPS * nbk, &total);
+      if ((int)threadIdx.x < G) col[threadIdx.x] = __ldg(mov_start + (bk << bs)) + incl - c;
+    }
+  __threadfence();
+  grid.sync();
+  // (3) the tile's movers placed, in order, grouped by bucket
+  if (U3_STAGE >= 3) {
+    for (int bk = threadIdx.x; bk < nbk; bk += U3_THREADS) {
+      const int base = __ldcg(tcount + (long long)bk * G + t);
+      for (int w = 0; w < U3_WARPS; ++w) u3_tab[w * nbk + bk] += base;
+    }
+    __syncthreads();
+    u3_rounds<true>(mkey, msrc, lo, hi, [&](int, bool in, int k, int v) {
+      const int bk = in ? k >> bs : -1;
+      const unsigned m = __match_any_sync(0xffffffffu, bk);
+      const int lead = __ffs(m) - 1;
+      const bool leader = in && lane == lead;
+      int at = leader ? wtab[bk] : 0;
+      at = __shfl_sync(0xffffffffu, at, lead) + __popc(m & below);
+      if (leader) wtab[bk] = at + __popc(m);
+      if (in) {
+        tkey[at] = k;
+        tslot[at] = v;
+      }
+    });
+  }
+  __threadfence();
+  grid.sync();
+  // (4) each bucket's movers, in order, ranked by key from mov_start
+  if (U3_STAGE < 4) return;
+  int* ktab = u3_tab + warp * kt;
+  for (int bk = t; bk < nbk; bk += G) {
+    const int kb = bk << bs, ke = min(kb + (1 << bs), E);
+    const int s0 = __ldg(mov_start + kb), s1 = ke < E ? __ldg(mov_start + ke) : n;
+    for (int k0 = kb; k0 < ke; k0 += kt) {
+      const int nk = min(kt, ke - k0);
+      __syncthreads();
+      for (int i = threadIdx.x; i < U3_WARPS * kt; i += U3_THREADS) u3_tab[i] = 0;
+      __syncthreads();
+      u3_rounds<false>(tkey, tslot, s0, s1, [&](int, bool in, int k, int) {
+        if (in && (unsigned)(k - k0) < (unsigned)nk) atomicAdd(&ktab[k - k0], 1);
+      });
+      __syncthreads();
+      for (int i = threadIdx.x; i < nk; i += U3_THREADS) {
+        int s = __ldg(mov_start + k0 + i);
+        for (int w = 0; w < U3_WARPS; ++w) {
+          const int c = u3_tab[w * kt + i];
+          u3_tab[w * kt + i] = s;
+          s += c;
+        }
+      }
+      __syncthreads();
+      u3_rounds<true>(tkey, tslot, s0, s1, [&](int, bool in, int k, int v) {
+        const int kk = in && (unsigned)(k - k0) < (unsigned)nk ? k - k0 : -1;
+        const unsigned m = __match_any_sync(0xffffffffu, kk);
+        const int lead = __ffs(m) - 1;
+        const bool leader = kk >= 0 && lane == lead;
+        int at = leader ? ktab[kk] : 0;
+        at = __shfl_sync(0xffffffffu, at, lead) + __popc(m & below);
+        if (leader) ktab[kk] = at + __popc(m);
+        if (kk >= 0) take[at] = v;
+      });
+    }
   }
 }
+
+// Z: a row's count (-1 for a padding row)
+__device__ __forceinline__ int z_count(const int* __restrict__ counts, int E, int row) {
+  return row < E ? __ldg(counts + row) : -1;
+}
+
+// Z: a pass's digit: the clamped pass's (mode 0: key < k0 to bin 0, the
+// rest key - k0 + 1), a digit of the key max - count (1) or of the row's
+// window (2)
+struct ZPass {
+  int mode, shift, width;
+  unsigned k0;
+};
+
+__device__ __forceinline__ int z_digit(const ZPass& q, int row, int c, int maxc, int sigma) {
+  const unsigned key = (unsigned)maxc - (unsigned)c;
+  if (q.mode == 0) return key < q.k0 ? 0 : (int)(key - q.k0 + 1u);
+  const unsigned v = q.mode == 1 ? key : (unsigned)(row / sigma);
+  return (int)((v >> q.shift) & ((1u << q.width) - 1u));
+}
+
+// Z: Z_UNROLL rounds of a warp's part from position j0 (-1 past hi): each
+// lane's row (the position itself in the first pass, else src's) and count
+__device__ __forceinline__ void z_load(const int* src, const int* __restrict__ counts, int E,
+                                       int j0, int hi, int lane, int (&row)[Z_UNROLL],
+                                       int (&c)[Z_UNROLL]) {
+#pragma unroll
+  for (int u = 0; u < Z_UNROLL; ++u) {
+    const int j = j0 + 32 * u + lane;
+    row[u] = j < hi ? (src ? __ldcg(src + j) : j) : -1;
+  }
+#pragma unroll
+  for (int u = 0; u < Z_UNROLL; ++u) c[u] = row[u] >= 0 ? z_count(counts, E, row[u]) : -1;
+}
+
+// a warp's add of 1 to table[v] for each lane whose ``in``: the lanes equal
+// to the first such lane's v in one add, the others each alone (skewed
+// values meet few conflicts, distinct ones no __match_any_sync)
+__device__ __forceinline__ void warp_count(int* table, bool in, int v) {
+  const unsigned act = __ballot_sync(0xffffffffu, in);
+  if (act == 0u) return;                          // warp-uniform
+  const int lead = __ffs(act) - 1;
+  const int v0 = __shfl_sync(0xffffffffu, v, lead);
+  const unsigned same = __ballot_sync(0xffffffffu, in && v == v0);
+  const int lane = threadIdx.x & 31;
+  if (lane == lead) atomicAdd(&table[v0], __popc(same));
+  else if (in && v != v0) atomicAdd(&table[v], 1);
+}
+
+// Z: a pass's count: each warp's digits in its table, the block's counts
+// exchanged through gbins (a row of Z_BINS words a block), and each warp's
+// first place of each digit in its table; returns the cluster's count of
+// digit 0
+__device__ int z_count_pass(cg::cluster_group& cluster, const ZPass& q, const int* src,
+                            const int* __restrict__ counts, int E, int maxc, int sigma,
+                            int lo_w, int hi_w, int* tab, int* blk, int* misc, int* gbins) {
+  const int nb = (int)cluster.num_blocks(), b = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bins = 1 << q.width;
+  for (int i = threadIdx.x; i < Z_WARPS * bins; i += Z_THREADS)
+    tab[(i >> q.width) * Z_BINS + (i & (bins - 1))] = 0;
+  __syncthreads();
+  for (int j0 = lo_w; j0 < hi_w && Z_STAGE >= 2; j0 += 32 * Z_UNROLL) {
+    int row[Z_UNROLL], c[Z_UNROLL];
+    z_load(src, counts, E, j0, hi_w, lane, row, c);
+#pragma unroll
+    for (int u = 0; u < Z_UNROLL; ++u)
+      warp_count(tab + warp * Z_BINS, row[u] >= 0,
+                 row[u] >= 0 ? z_digit(q, row[u], c[u], maxc, sigma) : 0);
+  }
+  __syncthreads();
+  // the warps' exclusive prefix in the block; the block's counts to its row
+  for (int d = threadIdx.x; d < bins && Z_STAGE >= 3; d += Z_THREADS) {
+    int s = 0;
+    for (int w = 0; w < Z_WARPS; ++w) {
+      const int t = tab[w * Z_BINS + d];
+      tab[w * Z_BINS + d] = s;
+      s += t;
+    }
+    gbins[b * Z_BINS + d] = s;
+  }
+  __threadfence();
+  cluster.sync();
+  // every block's rows: each digit's total, the blocks' before this one,
+  // the totals scanned over the digits (a thread's 4 consecutive digits)
+  const int d0 = 4 * threadIdx.x;
+  int tot[4] = {0, 0, 0, 0}, pre[4] = {0, 0, 0, 0}, sum = 0;
+  if (d0 < bins && Z_STAGE >= 4) {
+#pragma unroll
+    for (int r = 0; r < ORDER_CLUSTER_MAX; ++r)
+      if (r < nb) {
+        const int4 v = __ldcg(reinterpret_cast<const int4*>(gbins + r * Z_BINS + d0));
+        const int vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tot[i] += vs[i];
+          pre[i] += r < b ? vs[i] : 0;
+        }
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (d0 + i >= bins) tot[i] = pre[i] = 0;   // past the pass's bins (fewer than 4)
+      sum += tot[i];
+    }
+  }
+  int total;
+  int start = block_scan(sum, misc, &total) - sum;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (d0 + i < bins) {
+      blk[d0 + i] = start + pre[i];
+      start += tot[i];
+    }
+  if (threadIdx.x == 0) misc[70] = tot[0];
+  __syncthreads();
+  for (int d = threadIdx.x; d < bins && Z_STAGE >= 4; d += Z_THREADS) {
+    const int base = blk[d];
+    for (int w = 0; w < Z_WARPS; ++w) tab[w * Z_BINS + d] += base;
+  }
+  __syncthreads();
+  return misc[70];
+}
+
+// Z: a pass's walk: each warp's rows in order, from its table, to dst (a
+// pass before the last) or to the maps (the last)
+__device__ void z_walk(const ZPass& q, const int* src, const int* __restrict__ counts, int E,
+                       int maxc, int sigma, int lo_w, int hi_w, int* tab, bool last,
+                       int* __restrict__ dst, int* __restrict__ row_to_elem,
+                       int* __restrict__ elem_to_row) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j0 = lo_w; j0 < hi_w; j0 += 32 * Z_UNROLL) {
+    int row[Z_UNROLL], c[Z_UNROLL];
+    z_load(src, counts, E, j0, hi_w, lane, row, c);
+#pragma unroll
+    for (int u = 0; u < Z_UNROLL; ++u) {
+      const int d = row[u] >= 0 ? z_digit(q, row[u], c[u], maxc, sigma) : -1;
+      const unsigned m = __match_any_sync(0xffffffffu, d);
+      const int lead = __ffs(m) - 1;
+      const bool leader = d >= 0 && lane == lead;
+      int at = leader ? tab[warp * Z_BINS + d] : 0;
+      at = __shfl_sync(0xffffffffu, at, lead) + __popc(m & ((1u << lane) - 1u));
+      if (leader) tab[warp * Z_BINS + d] = at + __popc(m);
+      if (d >= 0) {
+        if (last) {
+          row_to_elem[at] = row[u];
+          if (row[u] < E) elem_to_row[row[u]] = at;
+        } else {
+          dst[at] = row[u];
+        }
+      }
+    }
+  }
+}
+
+// Z: scs_row_order.  bw: the bits of the last window's index (0: one
+// window); buf0, buf1: R words each (the passes' rows); gbins:
+// ORDER_CLUSTER_MAX rows of Z_BINS words (16-byte aligned)
+__global__ void __launch_bounds__(Z_THREADS, 1) scs_row_order_kernel(
+    const int* __restrict__ counts, int E, int R, int sigma, int bw, int chunk,
+    int* __restrict__ row_to_elem, int* __restrict__ elem_to_row,
+    int* __restrict__ chunk_width, int* buf0, int* buf1, int* gbins) {
+  extern __shared__ __align__(16) int z_dyn[];
+  int* tab = z_dyn;                               // [Z_WARPS][Z_BINS]
+  int* blk = tab + Z_WARPS * Z_BINS;              // [Z_BINS]
+  int* misc = blk + Z_BINS;                       // [Z_MISC]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nb = (int)cluster.num_blocks(), b = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int S = ((R + nb - 1) / nb + 31) & ~31;
+  const int lo_b = min(b * S, R), hi_b = min(lo_b + S, R);
+  const int Sw = ((S + Z_WARPS - 1) / Z_WARPS + 31) & ~31;
+  const int lo_w = min(lo_b + warp * Sw, hi_b), hi_w = min(lo_w + Sw, hi_b);
+
+  // the cluster's min and max count (misc: 32..47 the warps', 64..67 the
+  // block's and the cluster's)
+  int mn = 0x7fffffff, mx = -0x7fffffff - 1;
+  for (int r = lo_b + (int)threadIdx.x; r < hi_b; r += Z_THREADS) {
+    const int c = z_count(counts, E, r);
+    mn = min(mn, c);
+    mx = max(mx, c);
+  }
+  mn = __reduce_min_sync(0xffffffffu, mn);
+  mx = __reduce_max_sync(0xffffffffu, mx);
+  if (lane == 0) {
+    misc[32 + warp] = mn;
+    misc[48 + warp] = mx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    mn = __reduce_min_sync(0xffffffffu, lane < Z_WARPS ? misc[32 + lane] : 0x7fffffff);
+    mx = __reduce_max_sync(0xffffffffu, lane < Z_WARPS ? misc[48 + lane] : -0x7fffffff - 1);
+    if (lane == 0) {
+      misc[64] = mn;
+      misc[65] = mx;
+    }
+  }
+  cluster.sync();
+  if (warp == 0) {
+    mn = __reduce_min_sync(0xffffffffu,
+                           lane < nb ? *cluster.map_shared_rank(misc + 64, lane) : 0x7fffffff);
+    mx = __reduce_max_sync(0xffffffffu, lane < nb ? *cluster.map_shared_rank(misc + 65, lane)
+                                                  : -0x7fffffff - 1);
+    if (lane == 0) {
+      misc[66] = mn;
+      misc[67] = mx;
+    }
+  }
+  cluster.sync();                       // no block leaves while another reads it
+  if (Z_STAGE < 2) return;
+  const int maxc = misc[67];
+  const unsigned range = (unsigned)maxc - (unsigned)misc[66];
+  bool done = false;
+  if (bw == 0) {
+    // one window: the clamped pass, and the big rows' stage
+    const int width = range + 1u == 0u ? Z_DMAX : min(Z_DMAX, 32 - __clz(range + 1u));
+    const unsigned top = (1u << width) - 2u;
+    const ZPass q = {0, 0, width, range > top ? range - top : 0u};
+    int n_big = z_count_pass(cluster, q, nullptr, counts, E, maxc, sigma, lo_w, hi_w, tab, blk,
+                             misc, gbins);
+    if (Z_STAGE < 4) n_big = 0;
+    if (n_big <= Z_BIG) {
+      if (Z_STAGE >= 5)
+        z_walk(q, nullptr, counts, E, maxc, sigma, lo_w, hi_w, tab, true, nullptr, row_to_elem,
+               elem_to_row);
+      if (n_big > 1) {
+        __threadfence();
+        cluster.sync();
+        if (b == 0 && Z_STAGE >= 6) {
+          // the big rows, at places [0, n_big) in row order: ranked by
+          // descending count, equal counts in row order
+          int* brow = tab;
+          int* bcnt = tab + Z_BIG;
+          for (int i = threadIdx.x; i < n_big; i += Z_THREADS) {
+            brow[i] = __ldcg(row_to_elem + i);
+            bcnt[i] = z_count(counts, E, brow[i]);
+          }
+          __syncthreads();
+          for (int i = threadIdx.x; i < n_big; i += Z_THREADS) {
+            const int ci = bcnt[i];
+            int r = 0;
+            for (int j = 0; j < n_big; ++j) {
+              const int cj = bcnt[j];
+              r += (cj > ci) | (cj == ci & j < i);
+            }
+            row_to_elem[r] = brow[i];
+            if (brow[i] < E) elem_to_row[brow[i]] = r;
+          }
+        }
+      }
+      done = true;
+    } else {
+      cluster.sync();                   // every block has read the rows of gbins
+    }
+  }
+  if (!done) {
+    // LSD passes over the key's bits, then over the window's
+    const int bk = range ? 32 - __clz(range) : 0;
+    const int pk = (bk + Z_DMAX - 1) / Z_DMAX, pw = (bw + Z_DMAX - 1) / Z_DMAX;
+    const int wk = pk ? (bk + pk - 1) / pk : 0, ww = pw ? (bw + pw - 1) / pw : 0;
+    const int passes = max(pk + pw, 1);
+    for (int p = 0; p < passes; ++p) {
+      const bool win = p >= pk && pw > 0;
+      const int shift = win ? (p - pk) * ww : p * wk;
+      const ZPass q = {win ? 2 : 1, shift,
+                       win ? min(ww, bw - shift) : pk ? min(wk, bk - shift) : 0, 0u};
+      const int* src = p == 0 ? nullptr : ((p - 1) & 1 ? buf1 : buf0);
+      z_count_pass(cluster, q, src, counts, E, maxc, sigma, lo_w, hi_w, tab, blk, misc, gbins);
+      if (Z_STAGE >= 5)
+        z_walk(q, src, counts, E, maxc, sigma, lo_w, hi_w, tab, p == passes - 1,
+               p & 1 ? buf1 : buf0, row_to_elem, elem_to_row);
+      if (p < passes - 1) {
+        __threadfence();
+        cluster.sync();
+      }
+    }
+  }
+  __threadfence();
+  cluster.sync();
+  // each chunk's width: the largest count of its rows, which is the count
+  // of its first row or of a window's first row in it
+  const int nch = R / chunk, cpb = (nch + nb - 1) / nb;
+  const int c0 = min(b * cpb, nch), c1 = min(c0 + cpb, nch);
+  for (int k = c0 + (int)threadIdx.x; k < c1 && Z_STAGE >= 6; k += Z_THREADS) {
+    int w = 0;
+    for (int r = k * chunk; r < (k + 1) * chunk; r = (r / sigma + 1) * sigma) {
+      const int row = __ldcg(row_to_elem + r);
+      w = max(w, row < E ? __ldg(counts + row) : 0);
+    }
+    chunk_width[k] = w;
+  }
+}
+
+// the blocks of one cluster of ``kernel`` (16 where the card schedules a
+// cluster of 16 blocks of ``threads`` threads and ``smem`` bytes of shared
+// memory, else 8), queried once (``cache``), its attributes set then
+template <typename K>
+cudaError_t order_cluster(K kernel, int threads, int smem, int* cache) {
+  if (*cache > 0) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  for (int nb = ORDER_CLUSTER_MAX; nb >= 8; nb /= 2) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nb;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(nb);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err == cudaSuccess && clusters >= 1) {
+      *cache = nb;
+      return cudaSuccess;
+    }
+    (void)cudaGetLastError();
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+// one cooperative launch of ``kernel`` over G blocks (all resident at once)
+template <typename K, typename... A>
+cudaError_t launch_cooperative(K kernel, int G, int threads, int smem, cudaStream_t stream,
+                               A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.gridDim = dim3(G);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// the SMs of the current device
+int order_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// the blocks of a cooperative grid of ``kernel`` with smem bytes each:
+// up to ``per_sm`` an SM where they are resident at once; its shared memory
+// attribute set to ``smem_max`` once (``ready``)
+template <typename K>
+cudaError_t order_grid(K kernel, int threads, int smem, int smem_max, int per_sm, bool* ready,
+                       int* grid) {
+  cudaError_t err;
+  if (!*ready) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    if (err != cudaSuccess) return err;
+    *ready = true;
+  }
+  int per = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per < 1) return cudaErrorInvalidConfiguration;
+  *grid = order_sms() * (per < per_sm ? per : per_sm);
+  return cudaSuccess;
+}
+
+bool u3_ready = false;
+int z_cluster = 0;
 
 }  // namespace
 
@@ -686,18 +1260,114 @@ extern "C" int pp_reshuffle_place(const int* elem, const int* old_elem,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pp_scs_row_keys(const int* counts, int E, int R, int sigma, int b, int* key,
-                               cudaStream_t stream) {
-  if (R <= 0 || sigma < 1 || b < 1 || b > 30) return (int)cudaErrorInvalidValue;
-  scs_row_keys_kernel<<<(R + Z_THREADS - 1) / Z_THREADS, Z_THREADS, 0, stream>>>(
-      counts, E, R, sigma, b, key);
+namespace {
+
+// U3's bucket bits over E destinations: at most 2^U3_BUCKET_BITS buckets
+int u3_bucket_bits(int E) {
+  int bits = 0;
+  while ((1LL << bits) < E) ++bits;              // the bits of E - 1
+  return bits > U3_BUCKET_BITS ? bits - U3_BUCKET_BITS : 0;
+}
+
+// U3's grid: U3_BLOCKS_PER_SM blocks an SM (fewer where not resident at
+// once with smem bytes each), at most U3_THREADS (a column is one block's
+// scan)
+cudaError_t u3_grid(int smem, int* grid) {
+  const cudaError_t err = order_grid(reshuffle_order_kernel, U3_THREADS, smem,
+                                     U3_WARPS * U3_TABLE_KEYS * 4 + 32 * 4, U3_BLOCKS_PER_SM,
+                                     &u3_ready, grid);
+  if (*grid > U3_THREADS) *grid = U3_THREADS;
+  return err;
+}
+
+}  // namespace
+
+// U3's key turns a bucket takes over E destinations (1 where E <= 524,288)
+extern "C" int pp_reshuffle_order_turns(int E) {
+  if (E <= 0) return 0;
+  const int keys = 1 << u3_bucket_bits(E);
+  return (keys + U3_TABLE_KEYS - 1) / U3_TABLE_KEYS;
+}
+
+// the blocks of U3's cooperative grid over E destinations
+extern "C" int pp_reshuffle_order_grid(int E) {
+  if (E <= 0) return 0;
+  const int bs = u3_bucket_bits(E), nbk = ((E - 1) >> bs) + 1;
+  const int kt = (1 << bs) < U3_TABLE_KEYS ? (1 << bs) : U3_TABLE_KEYS;
+  int G = 0;
+  if (u3_grid(U3_WARPS * (nbk > kt ? nbk : kt) * 4 + 32 * 4, &G) != cudaSuccess) return -1;
+  return G;
+}
+
+// int32 words of U3's scratch over E destinations and n (< 2^28) movers
+extern "C" int pp_reshuffle_order_scratch(int E, int n) {
+  const int nbk = E <= 0 ? 0 : ((E - 1) >> u3_bucket_bits(E)) + 1;
+  return nbk * U3_THREADS + 2 * n;
+}
+
+// U3: take[mov_start[mkey[i]] + (movers before i with mkey[i])] = msrc[i]
+// for the n (< 2^28) movers; mkey in [0, E); scratch:
+// pp_reshuffle_order_scratch(E, n) words
+extern "C" int pp_reshuffle_order(const int* mkey, const int* msrc, const int* mov_start, int E,
+                                  int n, int* take, int* scratch, cudaStream_t stream) {
+  if (E <= 0 || n < 0 || n >= (1 << 28)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const int bs = u3_bucket_bits(E), nbk = ((E - 1) >> bs) + 1;
+  const int kt = (1 << bs) < U3_TABLE_KEYS ? (1 << bs) : U3_TABLE_KEYS;
+  const int smem = U3_WARPS * (nbk > kt ? nbk : kt) * 4 + 32 * 4;   // + the block scan's
+  int G = 0;
+  cudaError_t err = u3_grid(smem, &G);
+  if (err != cudaSuccess) return (int)err;
+  int* tcount = scratch;
+  int* tkey = scratch + (long long)nbk * G;
+  int* tslot = tkey + n;
+  err = launch_cooperative(reshuffle_order_kernel, G, U3_THREADS, smem, stream, mkey, msrc,
+                           mov_start, E, n, bs, nbk, kt, take, tcount, tkey, tslot);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-extern "C" int pp_scs_row_maps(const int* order, const int* counts, int E, int R, int chunk,
-                               int* elem_to_row, int* chunk_width, cudaStream_t stream) {
-  if (R <= 0 || chunk < 1 || R % chunk) return (int)cudaErrorInvalidValue;
-  scs_row_maps_kernel<<<(R + Z_THREADS - 1) / Z_THREADS, Z_THREADS, 0, stream>>>(
-      order, counts, E, R, chunk, elem_to_row, chunk_width);
+// the blocks of Z's cluster (0 until its first launch)
+extern "C" int pp_scs_row_order_cluster_blocks() {
+  return z_cluster;
+}
+
+// int32 words of Z's scratch besides its 2R words of rows: the blocks'
+// rows of digit counts
+extern "C" int pp_scs_row_order_scratch_words() {
+  return ORDER_CLUSTER_MAX * Z_BINS;
+}
+
+// Z over R rows (E <= R of them elements, R a multiple of chunk < 2^30):
+// row_to_elem (R), elem_to_row (E), chunk_width (R / chunk); scratch:
+// pp_scs_row_order_scratch_words() + 2R words
+extern "C" int pp_scs_row_order(const int* counts, int E, int R, int sigma, int chunk,
+                                int* row_to_elem, int* elem_to_row, int* chunk_width,
+                                int* scratch, cudaStream_t stream) {
+  if (E < 0 || R <= 0 || E > R || R >= (1 << 30) || sigma < 1 || chunk < 1 || R % chunk)
+    return (int)cudaErrorInvalidValue;
+  sigma = sigma < R ? sigma : R;
+  const long long nwin = ((long long)R + sigma - 1) / sigma;
+  int bw = 0;
+  while ((1LL << bw) < nwin) ++bw;                 // the bits of nwin - 1
+  cudaError_t err = order_cluster(scs_row_order_kernel, Z_THREADS, Z_SMEM, &z_cluster);
+  if (err != cudaSuccess) return (int)err;
+  int* gbins = scratch;
+  int* buf0 = scratch + ORDER_CLUSTER_MAX * Z_BINS;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = z_cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(z_cluster);
+  cfg.blockDim = dim3(Z_THREADS);
+  cfg.dynamicSmemBytes = Z_SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, scs_row_order_kernel, counts, E, R, sigma, bw, chunk,
+                           row_to_elem, elem_to_row, chunk_width, buf0, buf0 + R, gbins);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

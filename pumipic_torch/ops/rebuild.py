@@ -1,5 +1,5 @@
 """The particle structures' rebuild around the slot map and the field
-gather: kernels Q and C (``kernels/csrc/rebuild.cu``), U1, U2 and Z
+gather: kernels Q and C (``kernels/csrc/rebuild.cu``), U1, U2, U3 and Z
 (``kernels/csrc/reshuffle.cu``).
 
 - :func:`rebuild_mask_dps`, :func:`rebuild_mask_epilogue` and
@@ -16,9 +16,9 @@ gather: kernels Q and C (``kernels/csrc/rebuild.cu``), U1, U2 and Z
 - :func:`reshuffle_count` and :func:`reshuffle_place` are kernels U1 and
   U2 (``kernels/csrc/reshuffle.cu``), the reshuffle of ``rebuild(mode=
   "auto")``: the stayers' and movers' split, counts, fits check and mover
-  list; the movers' placement into their segments' holes.
-- :func:`scs_row_keys` and :func:`scs_row_maps` are kernel Z, the
-  Sell-C-σ row order's key (sorted by C) and its maps.
+  list; the movers' placement into their segments' holes;
+  :func:`reshuffle_order` is kernel U3, the movers in destination order.
+- :func:`scs_row_order` is kernel Z, the Sell-C-σ row order and its maps.
 
 Each runs its plain PyTorch version (``*_plain``: the JAX package's
 arithmetic, ``pumipic_tpu/particles/structure.py``) on CPU tensors and
@@ -258,7 +258,7 @@ def masked_key_sort(elem: Optional[torch.Tensor], active: torch.Tensor, fill: in
 
 
 # ---------------------------------------------------------------------------
-# U1, U2: the reshuffle; Z: the Sell-C-σ row maps (kernels/csrc/reshuffle.cu)
+# U1, U2, U3: the reshuffle; Z: the Sell-C-σ row order (kernels/csrc/reshuffle.cu)
 # ---------------------------------------------------------------------------
 
 class ReshuffleCount(NamedTuple):
@@ -452,7 +452,7 @@ def reshuffle_place(elem: torch.Tensor, old_elem: torch.Tensor, elem_offsets: to
 
 def scs_row_keys_plain(counts: torch.Tensor, num_rows: int, sigma: int, bits: int
                        ) -> torch.Tensor:
-    """Plain version of kernel Z's key: row i's (i // sigma)·2^(bits+1) +
+    """The key of kernel Z's plain version: row i's (i // sigma)·2^(bits+1) +
     (2^bits - 1 - count), the count -1 for the padding rows i >= E, as
     int32 (wrapping where a count exceeds 2^bits - 1)."""
     E, R = counts.shape[0], num_rows
@@ -463,31 +463,8 @@ def scs_row_keys_plain(counts: torch.Tensor, num_rows: int, sigma: int, bits: in
     return ((key + 2**31) % 2**32 - 2**31).to(I32)
 
 
-def scs_row_keys(counts: torch.Tensor, num_rows: int, sigma: int, bits: int
-                 ) -> torch.Tensor:
-    """The (R,) int32 sort key of the Sell-C-σ rows (``counts`` (E,) i32,
-    E <= R): kernel C's ascending stable sort of it is the descending
-    stable sort of the counts within windows of ``sigma`` rows, the
-    padding rows last, where every count is below 2^bits and the keys stay
-    below 2^31 (one window: any count; a larger one gives a negative key,
-    which sorts first).  Kernel Z's key launch on CUDA tensors,
-    :func:`scs_row_keys_plain` on CPU tensors."""
-    if counts.dtype != I32 or counts.dim() != 1 or counts.shape[0] > num_rows:
-        raise ValueError("scs_row_keys: (E,) i32 counts, E <= rows, expected")
-    if not 1 <= bits <= 30:
-        raise ValueError(f"scs_row_keys: bits {bits} outside [1, 30]")
-    if not kernels.use_kernel("scs_row_keys", counts):
-        return scs_row_keys_plain(counts, num_rows, sigma, bits)
-    key = torch.empty(num_rows, dtype=I32, device=counts.device)
-    err = _build.lib().pp_scs_row_keys(_ptr(counts), counts.shape[0], num_rows, sigma,
-                                       bits, _ptr(key), _P(kernels.stream_handle()))
-    _build.check(err, "scs_row_keys")
-    kernels.LAUNCHES["scs_row_keys"] += 1
-    return key
-
-
 def scs_row_maps_plain(order: torch.Tensor, counts: torch.Tensor, chunk: int):
-    """Plain version of kernel Z's maps: elem_to_row[order[r]] = r for the
+    """The maps of kernel Z's plain version: elem_to_row[order[r]] = r for the
     real rows; chunk widths the largest count of each chunk's rows (0 for
     the padding rows)."""
     E, R = counts.shape[0], order.shape[0]
@@ -501,24 +478,109 @@ def scs_row_maps_plain(order: torch.Tensor, counts: torch.Tensor, chunk: int):
     return e2r[:E], width
 
 
-def scs_row_maps(order: torch.Tensor, counts: torch.Tensor, chunk: int):
-    """(elem_to_row (E,), chunk_width (R / chunk,)) of the Sell-C-σ row
-    order ``order`` ((R,) i32, a permutation of [0, R): row r holds element
-    order[r], a padding row where >= E) and the padded counts (E,).  Kernel
-    Z on CUDA tensors (one launch), :func:`scs_row_maps_plain` on CPU
-    tensors."""
-    R = order.shape[0]
-    if (order.dtype != I32 or counts.dtype != I32 or order.dim() != 1
-            or counts.dim() != 1 or counts.shape[0] > R or R % chunk):
-        raise ValueError("scs_row_maps: (R,) i32 order, (E,) i32 counts and R a "
-                         "multiple of the chunk expected")
-    if not kernels.use_kernel("scs_row_maps", order, counts):
-        return scs_row_maps_plain(order, counts, chunk)
-    E = counts.shape[0]
-    e2r = torch.empty(E, dtype=I32, device=order.device)
-    width = torch.empty(R // chunk, dtype=I32, device=order.device)
-    err = _build.lib().pp_scs_row_maps(_ptr(order), _ptr(counts), E, R, chunk, _ptr(e2r),
-                                       _ptr(width), _P(kernels.stream_handle()))
-    _build.check(err, "scs_row_maps")
-    kernels.LAUNCHES["scs_row_maps"] += 1
-    return e2r, width
+def scs_row_order_plain(counts: torch.Tensor, num_rows: int, sigma: int, chunk: int,
+                        bits: int):
+    """Plain version of kernel Z: Z's key (:func:`scs_row_keys_plain`), the
+    stable sort (:func:`key_sort_plain`) and Z's maps
+    (:func:`scs_row_maps_plain`); where the windows' keys would pass 2^31,
+    the counts' key sorts first and the windows' second."""
+    R = num_rows
+    sigma = min(sigma, R)
+    nwin = -(-R // sigma)
+    if nwin << (bits + 1) <= 2**31:
+        key = scs_row_keys_plain(counts, R, sigma, bits)
+        order = key_sort_plain(key, (nwin << (bits + 1)) - 1)
+    else:
+        by_count = key_sort_plain(scs_row_keys_plain(counts, R, R, bits), 1 << bits)
+        window = torch.div(by_count, sigma, rounding_mode="floor").to(I32)
+        order = key_sort_plain(window, nwin - 1, values=by_count)
+    return (order,) + tuple(scs_row_maps_plain(order, counts, chunk))
+
+
+def scs_row_order(counts: torch.Tensor, num_rows: int, sigma: int, chunk: int, bits: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Sell-C-σ row order of the padded counts (``counts`` (E,) i32, E
+    <= ``num_rows`` = R, a multiple of ``chunk``): (row_to_elem (R,) i32,
+    the rows sorted by descending count, stable, within windows of
+    ``sigma`` rows, the padding rows (>= E, count -1) last in theirs;
+    elem_to_row (E,); chunk_width (R / chunk,), the largest count of each
+    chunk's rows, 0 for padding).  Kernel Z on CUDA tensors: one launch of
+    one thread block cluster, no memset, for any counts and any R (one
+    window: one pass of at most 11-bit digits, counts far above the rest
+    ranked by a second stage in the launch; σ windows or many such counts:
+    more passes, their number set by the counts' min and max on the card;
+    the rows stream through the L2, so R has no shared-memory limit);
+    :func:`scs_row_order_plain` on CPU tensors, whose key holds counts
+    below 2^``bits`` (one window: any count)."""
+    R = num_rows
+    if (counts.dtype != I32 or counts.dim() != 1 or counts.shape[0] > R or chunk < 1
+            or R % chunk or sigma < 1):
+        raise ValueError("scs_row_order: (E,) i32 counts, E <= rows, rows a multiple of "
+                         "the chunk, expected")
+    if not 1 <= bits <= 30:
+        raise ValueError(f"scs_row_order: bits {bits} outside [1, 30]")
+    if not kernels.use_kernel("scs_row_order", counts):
+        return scs_row_order_plain(counts, R, sigma, chunk, bits)
+    if R >= 1 << 30:
+        raise ValueError("scs_row_order: the kernel takes fewer than 2^30 rows")
+    E, dev = counts.shape[0], counts.device
+    r2e = torch.empty(R, dtype=I32, device=dev)
+    e2r = torch.empty(E, dtype=I32, device=dev)
+    width = torch.empty(R // chunk, dtype=I32, device=dev)
+    lib = _build.lib()
+    scratch = torch.empty(lib.pp_scs_row_order_scratch_words() + 2 * R, dtype=I32, device=dev)
+    err = lib.pp_scs_row_order(_ptr(counts), E, R, min(sigma, R), chunk, _ptr(r2e), _ptr(e2r),
+                               _ptr(width), _ptr(scratch), _P(kernels.stream_handle()))
+    _build.check(err, "scs_row_order")
+    kernels.LAUNCHES["scs_row_order"] += 1
+    return r2e, e2r, width
+
+
+def reshuffle_order_plain(mkey: torch.Tensor, msrc: torch.Tensor,
+                          mov_start: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel U3: kernel C's plain version, the movers'
+    slots ``msrc`` in the stable order of their destinations ``mkey``."""
+    return key_sort_plain(mkey, max(mov_start.shape[0] - 1, 0), values=msrc)
+
+
+def reshuffle_order_turns(num_elems: int) -> int:
+    """The key turns each bucket of kernel U3 takes over ``num_elems``
+    destinations: 1 up to 524,288 (a bucket's keys fit its warps' tables),
+    more in the turns form."""
+    return _build.lib().pp_reshuffle_order_turns(num_elems)
+
+
+def reshuffle_order(mkey: torch.Tensor, msrc: torch.Tensor, mov_start: torch.Tensor
+                    ) -> torch.Tensor:
+    """The reshuffle's movers in destination order: ``take`` (n,) i32 with
+    take[mov_start[mkey[i]] + r_i] = msrc[i], r_i the movers before i with
+    destination mkey[i] (``mkey``, ``msrc``: kernel U1's first n movers, in
+    slot order; ``mov_start`` (E,): the exclusive cumsum of the movers'
+    counts, destinations in [0, E)): ``msrc`` in the stable order of
+    ``mkey``, as ``argsort(dest, stable=True)`` groups them.  Kernel U3 on
+    CUDA tensors: one cooperative launch over the card, no memset and no
+    histogram (U1 counted the movers: a bucket of consecutive destinations
+    starts at mov_start of its first): the movers grouped by bucket in
+    order, then each bucket ranked by key; a bucket of more keys than its
+    warps' tables hold takes them in turns (:func:`reshuffle_order_turns`).
+    :func:`reshuffle_order_plain` on CPU tensors."""
+    if (mkey.dtype != I32 or msrc.dtype != I32 or mov_start.dtype != I32 or mkey.dim() != 1
+            or msrc.shape != mkey.shape or mov_start.dim() != 1):
+        raise ValueError("reshuffle_order: (n,) i32 keys and slots and (E,) i32 starts "
+                         "expected")
+    if not kernels.use_kernel("reshuffle_order", mkey, msrc, mov_start):
+        return reshuffle_order_plain(mkey, msrc, mov_start)
+    n, E = mkey.shape[0], mov_start.shape[0]
+    if E == 0 or n >= 1 << 28:
+        raise ValueError("reshuffle_order: the kernel takes E > 0 destinations and fewer "
+                         "than 2^28 movers")
+    take = torch.empty(n, dtype=I32, device=mkey.device)
+    if n == 0:
+        return take
+    lib = _build.lib()
+    scratch = torch.empty(lib.pp_reshuffle_order_scratch(E, n), dtype=I32, device=mkey.device)
+    err = lib.pp_reshuffle_order(_ptr(mkey), _ptr(msrc), _ptr(mov_start), E, n, _ptr(take),
+                                 _ptr(scratch), _P(kernels.stream_handle()))
+    _build.check(err, "reshuffle_order")
+    kernels.LAUNCHES["reshuffle_order"] += 1
+    return take

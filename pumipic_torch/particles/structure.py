@@ -315,8 +315,9 @@ def _scs_key_bits(nwin: int, num_elems: int, num_ptcls: int,
                   extra_padding: float) -> int:
     """The count bits b of the Sell-C-σ row key: over windows, every
     padded count of ``num_ptcls`` particles; in one window, 8x the mean
-    count (C's passes then cover fewer bits; a larger count's key is
-    negative and still sorts first)."""
+    count (a larger count's key is negative and still sorts first).  Only
+    the plain version's key reads it: kernel Z takes its bits from the
+    counts."""
     if nwin == 1:
         return min(max((8 * -(-num_ptcls // max(num_elems, 1))).bit_length(), 1), 30)
     return min(_scs_count_bits(num_ptcls, extra_padding), 30)
@@ -330,12 +331,10 @@ def _scs_row_order(counts: torch.Tensor, sigma: int, chunk: int,
     to a chunk multiple.  Returns (row_to_elem (R,), elem_to_row (E,),
     chunk_width (R/chunk,)) (SCS_sort.h:3-49, SCS_buildFns.h:18-100).
 
-    The sort is kernel C's stable sort of one key a row (kernel Z's,
-    ``ops.rebuild.scs_row_keys``): window·2^(b+1) + (2^b - 1 - count), the
-    padding rows' count -1, b from :func:`_scs_key_bits` for ``num_ptcls``
-    particles (2^29 where None).  Where the windows' keys would pass 2^31,
-    the counts' key sorts first and the windows' second.  Kernel Z writes
-    the maps from C's order."""
+    Kernel Z on the card (``ops.rebuild.scs_row_order``: one launch);
+    its plain version on the CPU sorts one key a row, window·2^(b+1) +
+    (2^b - 1 - count), the padding rows' count -1, b from
+    :func:`_scs_key_bits` for ``num_ptcls`` particles (2^29 where None)."""
     counts = _scs_pad_counts(counts, extra_padding, pad_strategy).to(LID)
     E = num_elems
     R = round_up(max(E, 1), chunk)
@@ -343,16 +342,7 @@ def _scs_row_order(counts: torch.Tensor, sigma: int, chunk: int,
     nwin = -(-R // sigma)
     bound = num_ptcls if num_ptcls is not None else 2**29
     bits = _scs_key_bits(nwin, E, bound, extra_padding)
-    if nwin << (bits + 1) <= 2**31:
-        key = rebuild_ops.scs_row_keys(counts, R, sigma, bits)
-        order = rebuild_ops.key_sort(key, (nwin << (bits + 1)) - 1)
-    else:
-        by_count = rebuild_ops.key_sort(rebuild_ops.scs_row_keys(counts, R, R, bits),
-                                        1 << bits)
-        window = torch.div(by_count, sigma, rounding_mode="floor").to(LID)
-        order = rebuild_ops.key_sort(window, nwin - 1, values=by_count)
-    elem_to_row, chunk_width = rebuild_ops.scs_row_maps(order, counts, chunk)
-    return order, elem_to_row, chunk_width
+    return rebuild_ops.scs_row_order(counts, R, sigma, chunk, bits)
 
 
 # Accepted for API parity with the JAX package and mapped onto kernel G's
@@ -524,8 +514,8 @@ def _rebuild_auto(ps: ParticleStructure, elem: torch.Tensor,
 def _reshuffle(ps: ParticleStructure, elem, active, counted, n_mov: int
                ) -> ParticleStructure:
     """In-place reshuffle (fits already verified): the movers (U1's list,
-    in slot order) grouped by destination with kernel C's stable sort,
-    which writes their slots in that order; their rows staged by kernel G
+    in slot order) grouped by destination, stable, by kernel U3 on U1's
+    starts, which writes their slots in that order; their rows staged by kernel G
     (a mover's source slot can be another mover's destination); then
     kernel U2 walks each segment's slots in q order (a Sell-C-σ chunk's
     rows together, 32 consecutive slots a round; the segment for CabM),
@@ -536,8 +526,8 @@ def _reshuffle(ps: ParticleStructure, elem, active, counted, n_mov: int
     result: every kept particle stays."""
     if n_mov == 0:
         return dataclasses.replace(ps, elem=elem, active=active, num_ptcls=counted.num)
-    E = ps.num_elems
-    take = rebuild_ops.key_sort(counted.mkey[:n_mov], E - 1, values=counted.msrc[:n_mov])
+    take = rebuild_ops.reshuffle_order(counted.mkey[:n_mov], counted.msrc[:n_mov],
+                                       counted.mov_start)
     fields = {k: v.contiguous() for k, v in ps.fields.items()}
     staged, _ = _gather_fields(fields, take)
     stride = ps.chunk_size if ps.layout == "scs" else 1

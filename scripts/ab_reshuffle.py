@@ -1,10 +1,11 @@
-"""A/B of kernels U1 (the reshuffle's split, counts and mover list) and U2
-(its placement) on one CUDA GPU: this checkout's ``reshuffle.cu`` against
-other versions', in turns.
+"""A/B of kernels U1 (the reshuffle's split, counts and mover list), U2
+(its placement), U3 (the movers' destination order) and Z (the Sell-C-σ
+row order) on one CUDA GPU: this checkout's ``reshuffle.cu`` against other
+versions', in turns.
 
     python3 scripts/ab_reshuffle.py OTHER[,OTHER...] [OUT_JSON]
         [--variants NAME=DEFINE:VALUE[,DEFINE:VALUE...][;NAME=...]]
-        [--timed-only NAME[,NAME...]]
+        [--timed-only NAME[,NAME...]] [--cases u,order]
 
 Each ``OTHER`` is a directory holding another version's ``reshuffle.cu``
 (``pp_reshuffle_count`` and ``pp_reshuffle_place``), written into a
@@ -28,14 +29,27 @@ Sell-C-σ chunks of 8 and CabM, extra padding 0.15) and the destinations of
 one push of ``chip_smoke.AUTO_DIST`` (2.7% movers), of 2 and 4 times it
 (5.4%, 10.7%) and, for U1, of the default push (84% movers: the
 fallback).  U2's inputs are the
-rebuild's own (U1's counts, kernel C's mover slots, kernel G's staged
+rebuild's own (U1's counts, kernel U3's mover slots, kernel G's staged
 rows, from the package's kernels).  Every version must equal the plain
 version but the ``--timed-only`` ones.  Each is timed on the device alone
 (``chip_smoke.device_ms``, the mean of ``REPS`` calls with their memsets;
 an out-of-place U2 with its fields' clone) in turns, in the order built and then
-reversed.  Prints the card, each
-build's ptxas report and one JSON line per case; writes them to
-``OUT_JSON`` where one is given.
+reversed.
+
+The ``order`` cases (``--cases``; both kinds by default) time the movers'
+order and the row order of each ``OTHER`` against this checkout's U3 and Z,
+in turns: OTHER, new, new, OTHER.  An ``OTHER`` directory's
+``reshuffle.cu`` is built with its ``rebuild.cu`` (this checkout's where it
+has none) into one library; a version without U3 and Z (one whose Z is a
+key and maps kernel, ``pp_scs_row_keys``) orders the movers with kernel
+C's payload form and makes the row order from Z's key, C and Z's maps, as
+that tree's wrappers did.  Cases: the row order on PseudoXGCm's seeded counts on the 120k mesh
+(122,603 elements, ``seed_particles_per_element``) and on the
+pps3d-scs-auto structure's padded counts (24,576 tets); the movers' order
+on U1's movers after pushes of 1, 2 and 4 times ``chip_smoke.AUTO_DIST``
+(2.7%, 5.4% and 10.7% of the particles) in both layouts.  Every version
+must equal the plain version.  Prints the card, each build's ptxas report
+and one JSON line per case; writes them to ``OUT_JSON`` where one is given.
 """
 from __future__ import annotations
 
@@ -63,6 +77,16 @@ from pumipic_torch.particles import structure as st  # noqa: E402
 REPS = 20
 P = ctypes.c_void_p
 NAMES = ("pp_reshuffle_count_words", "pp_reshuffle_count", "pp_reshuffle_place")
+# the row order's and the movers' order's launchers of any version: an
+# earlier Z (key, maps) around C, or U3 and Z
+ORDER_SIGNATURES = {
+    "pp_scs_row_keys": [P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, P, P],
+    "pp_scs_row_maps": [P, P, ctypes.c_int, ctypes.c_int, ctypes.c_int, P, P, P],
+    **{k: _build.SIGNATURES[k] for k in (
+        "pp_key_sort", "pp_key_sort_scratch", "pp_scs_row_order",
+        "pp_scs_row_order_scratch_words",
+        "pp_reshuffle_order", "pp_reshuffle_order_scratch", "pp_reshuffle_order_turns",
+        "pp_reshuffle_order_grid")}}
 
 
 def build(name: str, src_dir: str, out_dir: str) -> tuple:
@@ -137,6 +161,162 @@ def place_fn(lib, args, in_place: bool):
     return run
 
 
+def build_order(name: str, src_dir: str, out_dir: str):
+    """One version's library of the row order and the movers' order: its
+    ``reshuffle.cu`` and its ``rebuild.cu`` (this checkout's where the
+    directory has none), and its ptxas report."""
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, f"liborder_{name}.so")
+    reb = os.path.join(src_dir, "rebuild.cu")
+    srcs = [os.path.join(src_dir, "reshuffle.cu"),
+            reb if os.path.exists(reb) else str(_build.CSRC / "rebuild.cu")]
+    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+                          "-o", lib, *srcs], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{name}: nvcc failed:\n{res.stderr}")
+    handle = ctypes.CDLL(lib)
+    for fn, argtypes in ORDER_SIGNATURES.items():
+        if hasattr(handle, fn):
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = ctypes.c_int
+    return handle, res.stderr
+
+
+class with_lib:
+    """The package's wrappers launch ``lib``'s kernels inside the block."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        self.saved, _build._LIB = _build.lib(), self.lib
+
+    def __exit__(self, *exc):
+        _build._LIB = self.saved
+
+
+def row_order_fn(lib, counts, R: int, chunk: int, bits: int):
+    """One call of a version's row order (one window): Z, or an earlier Z's
+    key, kernel C and Z's maps."""
+    E, dev = counts.shape[0], counts.device
+    if not hasattr(lib, "pp_scs_row_keys"):
+        def run():
+            with with_lib(lib):
+                return rb.scs_row_order(counts, R, 2**30, chunk, bits)
+        return run
+
+    def run():
+        key = torch.empty(R, dtype=torch.int32, device=dev)
+        _build.check(lib.pp_scs_row_keys(P(counts.data_ptr()), E, R, R, bits,
+                                         P(key.data_ptr()), P(kernels.stream_handle())),
+                     "scs_row_keys")
+        with with_lib(lib):
+            order = rb.key_sort(key, (1 << (bits + 1)) - 1)
+        e2r = torch.empty(E, dtype=torch.int32, device=dev)
+        width = torch.empty(R // chunk, dtype=torch.int32, device=dev)
+        _build.check(lib.pp_scs_row_maps(P(order.data_ptr()), P(counts.data_ptr()), E, R,
+                                         chunk, P(e2r.data_ptr()), P(width.data_ptr()),
+                                         P(kernels.stream_handle())), "scs_row_maps")
+        return order, e2r, width
+    return run
+
+
+def mover_order_fn(lib, mkey, msrc, mov_start):
+    """One call of a version's movers' order: U3, or kernel C's payload form."""
+    E = mov_start.shape[0]
+
+    def run():
+        with with_lib(lib):
+            if hasattr(lib, "pp_reshuffle_order"):
+                return rb.reshuffle_order(mkey, msrc, mov_start)
+            return rb.key_sort(mkey, E - 1, values=msrc)
+    return run
+
+
+def order_cases(others: list, variants: list, timed_only: set, out_dir: str,
+                smi: str) -> list:
+    """The row order and the movers' order of each other version against
+    this checkout's and its variants, in turns (OTHER, new, variants, then
+    back); versions in ``timed_only`` are not compared.  Also both at a
+    tiny size (8 rows; 192 movers): the launch's fixed cost."""
+    import numpy as np
+
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.mesh.gmsh import read_msh
+    from pumipic_torch.models import pseudo_xgcm as px
+    from pumipic_torch.ops.scatter import histogram
+
+    dev = torch.device("cuda")
+    libs = {}
+    for name, src in others:
+        libs[name], report = build_order(name, src, out_dir)
+        print(f"{name} (order) ptxas:\n{report}", flush=True)
+    libs["new"] = _build.lib()
+    for name, src in variants:
+        libs[name], report = build_order(name, src, out_dir)
+        print(f"{name} (order) ptxas:\n{report}", flush=True)
+    records = []
+
+    def row_case(what, counts, num_ptcls):
+        E, chunk = counts.shape[0], 8
+        R = -(-E // chunk) * chunk
+        bits = st._scs_key_bits(1, E, num_ptcls, 0.0)
+        want = rb.scs_row_order_plain(counts, R, 2**30, chunk, bits)
+        fns = {k: row_order_fn(lib, counts, R, chunk, bits) for k, lib in libs.items()}
+        differ = [k for k, fn in fns.items() if k not in timed_only
+                  and not all(torch.equal(a, b) for a, b in zip(fn(), want))]
+        check(differ, f"row order, {what}")
+        records.append(timed(f"row order, {what}", fns, {"rows": R, "card": smi,
+                                                          "differ": differ}))
+
+    def check(differ, what):
+        """A version that differs from the plain version: the parent and
+        this checkout's raise, a variant is recorded as differing."""
+        if set(differ) & (set(libs) - {name for name, _ in variants}):
+            raise AssertionError(f"{what}: {differ} differ from the plain version")
+
+    row_case("tiny (5 elements)", torch.tensor([3, 0, 9, 9, 1], dtype=torch.int32,
+                                                device=dev), 22)
+    tiny = torch.arange(192, dtype=torch.int32, device=dev)
+    starts = torch.zeros(24_576, dtype=torch.int32, device=dev)
+    starts[7:] = 192
+    fns = {k: mover_order_fn(lib, torch.full_like(tiny, 6), tiny, starts)
+           for k, lib in libs.items()}
+    records.append(timed("movers' order, tiny (192 movers, 24,576 keys)", fns, {"card": smi}))
+    mesh = Mesh2D.from_arrays(*read_msh(cs.MESH), device=dev)
+    ppe = px.seed_particles_per_element(mesh, cs._cfg(px, mesh),
+                                        np.random.default_rng(px.ELEMENT_SEED))
+    row_case(f"app scs's seeded counts ({mesh.nelems} elements)",
+             torch.as_tensor(np.asarray(ppe, np.int32), device=dev), int(np.sum(ppe)))
+    del mesh
+    for layout in ("scs", "cabm"):
+        _, ps, _, _ = bench_torch.setup_pps3d(dev, 10_000_000, structure=layout, kuhn="auto",
+                                              rebuild="auto", distance=cs.AUTO_DIST)
+        E = ps.num_elems
+        if layout == "scs":
+            counts = st._scs_pad_counts(histogram(ps.elem, ps.active, E), 0.15,
+                                        "proportionally").to(torch.int32)
+            row_case(f"pps3d-scs-auto's padded counts ({E} tets)", counts, ps.capacity)
+        kuhn, direction, wrap, _ = push_of(ps)
+        MB = st._reshuffle_mover_budget(ps.capacity)
+        for dist in (cs.AUTO_DIST, 2 * cs.AUTO_DIST, 4 * cs.AUTO_DIST):
+            elem = cs.pushed_elem(kuhn, ps, direction, wrap, dist)
+            c = rb.reshuffle_count(elem, ps.elem, ps.seg_cap, MB)
+            n_mov = int(c.info[1])
+            args = (c.mkey[:n_mov], c.msrc[:n_mov], c.mov_start)
+            want = rb.reshuffle_order_plain(*args)
+            fns = {k: mover_order_fn(lib, *args) for k, lib in libs.items()}
+            differ = [k for k, fn in fns.items()
+                      if k not in timed_only and not torch.equal(fn(), want)]
+            check(differ, f"movers' order, {layout}, push {dist}")
+            records.append(timed(f"movers' order, {layout}, push {dist}", fns,
+                                 {"movers": n_mov, "share": n_mov / 10_000_000,
+                                  "card": smi, "differ": differ}))
+        del ps
+        torch.cuda.empty_cache()
+    return records
+
+
 def same_count(got, want, MB: int) -> bool:
     n_mov = int(want.info[1])
     k = min(n_mov, MB)
@@ -193,23 +373,27 @@ def main() -> None:
     ap.add_argument("out_json", nargs="?")
     ap.add_argument("--variants", default="")
     ap.add_argument("--timed-only", default="")
+    ap.add_argument("--cases", default="u,order")
     a = ap.parse_args()
+    cases = set(a.cases.split(","))
     timed_only = set(filter(None, a.timed_only.split(",")))
     smi = cs.smi_query("name,power.limit")
     print(f"card: {smi}", flush=True)
     out_dir = os.path.join(ROOT, "chip_tree", "ab_reshuffle")
     versions = {}
-    builds = [("new", str(_build.CSRC))]
-    builds += [(os.path.basename(os.path.normpath(d)), d) for d in a.others.split(",") if d]
-    builds += variant_sources(a.variants, out_dir)
+    others = [(os.path.basename(os.path.normpath(d)), d) for d in a.others.split(",") if d]
+    builds = [("new", str(_build.CSRC))] + others
+    builds += variant_sources(a.variants, out_dir) if "u" in cases else []
     in_place = {}
-    for name, src in builds:
+    for name, src in builds if "u" in cases else []:
         versions[name], report, in_place[name] = build(name, src, out_dir)
         print(f"{name} ptxas:\n{report}", flush=True)
     out_json = a.out_json
     dev = torch.device("cuda")
-    records = []
-    for layout in ("scs", "cabm"):
+    variants = variant_sources(a.variants, out_dir) if "order" in cases else []
+    records = order_cases(others, variants, timed_only, out_dir, smi) \
+        if "order" in cases else []
+    for layout in ("scs", "cabm") if "u" in cases else ():
         _, ps, _, _ = bench_torch.setup_pps3d(dev, 10_000_000, structure=layout, kuhn="auto",
                                               rebuild="auto", distance=cs.AUTO_DIST)
         kuhn, direction, wrap, default = push_of(ps)
@@ -229,7 +413,7 @@ def main() -> None:
             records.append(timed(f"U1 {layout}, push {dist}", fns, extra))
             if not fits:
                 continue
-            take = rb.key_sort(want.mkey[:n_mov], ps.num_elems - 1, values=want.msrc[:n_mov])
+            take = rb.reshuffle_order(want.mkey[:n_mov], want.msrc[:n_mov], want.mov_start)
             staged, _ = st._gather_fields(ps.fields, take)
             args = (elem, ps.elem, ps.elem_offsets, ps.seg_cap, want.mov_cnt, want.mov_start,
                     ps.fields, staged, stride, ps.overflowed, ps.row_to_elem)

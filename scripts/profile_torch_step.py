@@ -8,10 +8,10 @@ bench_torch's configuration of that arm (default 10M particles); ``pps3d``
 and ``pps3d-walk`` are bench_torch's pseudoPushAndSearch arms (the Kuhn
 box, DPS, kernel K or kernel L3), ``pps3d-reflect`` its reflecting-wall
 arm (K's push-only form and kernel M's peel form), ``pps3d-scs`` its Kuhn
-arm on a Sell-C-σ structure (the sorted rebuild on tets: kernels C, Q, S
-and G), ``pps3d-cabm`` on CabM; ``pps3d-scs-auto`` and ``pps3d-cabm-auto``
+arm on a Sell-C-σ structure (the sorted rebuild on tets: kernels C, Z, Q,
+S and G), ``pps3d-cabm`` on CabM; ``pps3d-scs-auto`` and ``pps3d-cabm-auto``
 the reshuffle-or-rebuild (``rebuild="auto"``) at ``chip_smoke.py``'s short
-push (kernels U1, C, G and U2; the JSON line adds the auto rebuilds and
+push (kernels U1, U3, G and U2; the JSON line adds the auto rebuilds and
 the reshuffles among them), ``pps3d-scs-near`` and ``pps3d-cabm-near`` the
 sort rebuild at that push, ``pps3d-scs-auto-fallback`` the auto rebuild at
 the default push (U1, then the sort); ``gitr-reflect`` and
@@ -24,7 +24,7 @@ ms a step of each of ``chip_smoke.PATH_RANGES`` and of
 kernels each range launched by name); the ``app`` arm builds
 the single-device ``PseudoXGCm`` app on a Sell-C-σ structure with the same
 mesh and settings (its step adds the sorted rebuild: the stable sort,
-kernels H, S and G), ``app-<structure>`` on another structure (``csr``,
+kernels H, Z, S and G), ``app-<structure>`` on another structure (``csr``,
 ``cabm``, ``dps``).  Then it runs one warm-up step,
 then ``steps`` steps (default 10) untraced for the host wall and enqueue
 time per step, then ``steps`` more under torch.profiler for the device time

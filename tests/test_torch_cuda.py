@@ -3,7 +3,8 @@ S, K, L3, the GITR-style app's R, M, F and W, the 2D walk modes' M2 and the
 deposit V, with their modes, the rebuild's Q and C, and the distributed
 step's X1, X2, X3 and O on tests/torch_ranks.py's adversarial cases, its
 route and the balancer's selection (Y1 in each form, Y2, Y3), the parent
-check J and L's plain walk in place) against its plain PyTorch
+check J and L's plain walk in place, the reshuffle's U1, U2 and U3 and the
+Sell-C-σ row order Z) against its plain PyTorch
 version on the same CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
 lengths and R's corner rows at their edges.
 
@@ -2086,12 +2087,12 @@ def test_reshuffle_count_kernel_skips_past_the_budget(dev, share):
 
 def _place_args(ps, elem, fields=None):
     """U2's arguments at a reshuffle of ``ps`` into ``elem`` (U1's counts,
-    C's order, the staged rows), the fields a copy of ``ps``'s (U2 writes
+    U3's order, the staged rows), the fields a copy of ``ps``'s (U2 writes
     them in place) or ``fields``; and the counts."""
     c = rb.reshuffle_count(elem, ps.elem, ps.seg_cap, ps.capacity)
     fits, n_mov = c.info.tolist()
     assert fits and n_mov > 0
-    take = rb.key_sort(c.mkey[:n_mov], ps.num_elems - 1, values=c.msrc[:n_mov])
+    take = rb.reshuffle_order(c.mkey[:n_mov], c.msrc[:n_mov], c.mov_start)
     staged = {k: v[take.long()] for k, v in ps.fields.items()}
     stride = ps.chunk_size if ps.layout == "scs" else 1
     f = fields if fields is not None else {k: v.clone() for k, v in ps.fields.items()}
@@ -2210,8 +2211,8 @@ def test_reshuffle_place_kernel_writes_every_slot_once(dev, layout, chunk):
 @pytest.mark.parametrize("kind", ["swap", "random", "most"])
 def test_auto_rebuild_launches_and_equals_cpu(dev, layout, kind):
     """rebuild(mode="auto") on the card equals the CPU's, member for member;
-    a reshuffle launches Q, U1, C, G and U2 once each, a fallback Q, U1
-    and the sort rebuild (C, H, S, G, Q; Z's two kernels for SCS), not U2."""
+    a reshuffle launches Q, U1, U3, G and U2 once each (no C), a fallback
+    Q, U1 and the sort rebuild (C, H, S, G, Q; Z for SCS), not U2."""
     import dataclasses
 
     ps, elem = _reshuffle_case(dev, layout, kind, seed=5)
@@ -2236,42 +2237,145 @@ def test_auto_rebuild_launches_and_equals_cpu(dev, layout, kind):
     if kind == "most":
         sort = {"histogram": 1, "key_sort": 1, "slot_map": 1, "row_gather": 1}
         if layout == "scs":
-            sort.update(key_sort=2, scs_row_keys=1, scs_row_maps=1)
+            sort.update(scs_row_order=1)
         assert counts == {"rebuild_mask": 2, "reshuffle_count": 1, **sort}, counts
     else:
-        assert counts == {"rebuild_mask": 1, "reshuffle_count": 1, "key_sort": 1,
+        assert counts == {"rebuild_mask": 1, "reshuffle_count": 1, "reshuffle_order": 1,
                           "row_gather": 1, "reshuffle_place": 1}, counts
 
 
+def _row_order_ref(counts, R, sigma, chunk):
+    """The Sell-C-σ row order by torch's stable sort of the negated counts
+    in σ windows (int64: exact for every int32 count), its inverse and
+    the chunks' largest counts."""
+    E, dev = counts.shape[0], counts.device
+    sigma = min(sigma, R)
+    nwin = -(-R // sigma)
+    cpad = torch.full((nwin * sigma,), -1, dtype=torch.int64, device=dev)
+    cpad[:E] = counts
+    order = torch.sort(-cpad.reshape(nwin, sigma), dim=1, stable=True).indices
+    r2e = (order + torch.arange(nwin, device=dev)[:, None] * sigma).reshape(-1)[:R]
+    e2r = torch.zeros(R, dtype=torch.int64, device=dev)
+    e2r[r2e] = torch.arange(R, device=dev)
+    rc = torch.clamp(cpad[r2e], min=0).reshape(R // chunk, chunk)
+    return (r2e.to(torch.int32), e2r[:E].to(torch.int32),
+            torch.amax(rc, dim=1).to(torch.int32))
+
+
 @pytest.mark.parametrize("E,chunk,sigma", [(24_576, 8, 2**30), (122_603, 8, 2**30),
-                                           (997, 4, 16), (37, 3, 8), (1, 8, 2**30)])
-def test_scs_row_order_kernels_equal_plain(dev, E, chunk, sigma):
-    """Z's key and maps (with C between them) against the plain versions:
-    ties, zeros, a count above the one-window key's bits; every output."""
+                                           (997, 4, 16), (37, 3, 8), (1, 8, 2**30),
+                                           (24_576, 3, 16), (122_603, 4, 8),
+                                           (2_500_003, 8, 2**30), (2_500_003, 8, 4096)])
+@pytest.mark.parametrize("bound", ["tight", "none"])
+def test_scs_row_order_kernels_equal_plain(dev, E, chunk, sigma, bound):
+    """Z, one launch, against its plain version (the key, the stable sort,
+    the maps) on the card and on the CPU and against torch's sort of the
+    negated counts in σ windows: ties, zeros, a count above the one-window
+    key's bits (70,000), σ of 8, 16, 4096 and all rows, chunks of 3, 4 and
+    8, E = 1, the apps' 24,576 and 122,603, and 2.5M rows (beyond what one
+    cluster's shared memory would hold); the counts' bound given (tight)
+    or not."""
     from pumipic_torch.particles import structure as st
 
-    g = torch.Generator(device=dev).manual_seed(E)
+    g = torch.Generator(device=dev).manual_seed(E + chunk + sigma % 1000)
     counts = torch.randint(0, 600, (E,), generator=g, device=dev, dtype=torch.int32)
     counts[::7] = 0
     counts[1::5] = 300
     counts[E // 2] = 70_000
-    n0 = (kernels.LAUNCHES["scs_row_keys"], kernels.LAUNCHES["scs_row_maps"])
-    got = st._scs_row_order(counts, sigma, chunk, E, 0.15, "proportionally",
-                            num_ptcls=10_000_000)
+    padded = st._scs_pad_counts(counts, 0.15, "proportionally").to(torch.int32)
+    num = int(padded.sum()) if bound == "tight" else None
+    n0 = kernels.LAUNCHES["scs_row_order"]
+    got = st._scs_row_order(counts, sigma, chunk, E, 0.15, "proportionally", num_ptcls=num)
     torch.cuda.synchronize()
-    assert (kernels.LAUNCHES["scs_row_keys"], kernels.LAUNCHES["scs_row_maps"]) == \
-        (n0[0] + 1, n0[1] + 1)
-    cpu = st._scs_row_order(counts.cpu(), sigma, chunk, E, 0.15, "proportionally",
-                            num_ptcls=10_000_000)
-    for a, b in zip(got, cpu):
-        assert torch.equal(a.cpu(), b)
+    assert kernels.LAUNCHES["scs_row_order"] == n0 + 1
     R = got[0].shape[0]
-    for bits in (2, 12, 24):
-        key = rb.scs_row_keys(counts, R, min(sigma, R), bits)
-        assert torch.equal(key, rb.scs_row_keys_plain(counts, R, min(sigma, R), bits))
-    order = got[0]
-    assert all(torch.equal(a, b) for a, b in zip(rb.scs_row_maps(order, counts, chunk),
-                                                 rb.scs_row_maps_plain(order, counts, chunk)))
+    _equal(got, _row_order_ref(padded, R, sigma, chunk))
+    if E <= 200_000:
+        cpu = st._scs_row_order(counts.cpu(), sigma, chunk, E, 0.15, "proportionally",
+                                num_ptcls=num)
+        for a, b in zip(got, cpu):
+            assert torch.equal(a.cpu(), b)
+    nwin = -(-R // min(sigma, R))
+    bits = st._scs_key_bits(nwin, E, num if num is not None else 2**29, 0.15)
+    _equal(got, rb.scs_row_order_plain(padded, R, sigma, chunk, bits))
+
+
+@pytest.mark.parametrize("kind", ["equal", "zero", "wide", "above bits", "one"])
+@pytest.mark.parametrize("chunk,sigma", [(8, 2**30), (3, 8), (4, 16)])
+def test_scs_row_order_kernel_edge_counts(dev, kind, chunk, sigma):
+    """Z on the counts its passes turn on, against torch's sort of the
+    negated counts: all equal (no count bits: one pass of one bin), all
+    zero, counts over the whole int32 range (three count passes), the
+    one-window key's overflow (a few counts far above the mean), a single
+    element; each one launch."""
+    rng = np.random.default_rng(len(kind) * 10 + chunk)
+    E = 5000 if kind != "one" else 1
+    if kind == "equal":
+        c = np.full(E, 77, np.int64)
+    elif kind == "zero":
+        c = np.zeros(E, np.int64)
+    elif kind == "wide":
+        c = rng.integers(0, 2**31 - 1, E)
+    elif kind == "above bits":
+        c = rng.integers(0, 40, E)
+        c[rng.choice(E, 9, replace=False)] = rng.integers(5000, 9000, 9)
+    else:
+        c = np.array([12])
+    counts = torch.as_tensor(c.astype(np.int32), device=dev)
+    R = -(-E // chunk) * chunk
+    n0 = kernels.LAUNCHES["scs_row_order"]
+    got = rb.scs_row_order(counts, R, sigma, chunk, 30)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scs_row_order"] == n0 + 1
+    _equal(got, _row_order_ref(counts, R, sigma, chunk))
+
+
+def _movers(rng, n, E, kind, slots=12_660_000):
+    """U1's mover list: n movers' slots ascending in [0, slots) and their
+    destinations (at random, all one, runs of 40, or a slot's own element
+    of a sorted layout plus a step of up to 3); the destinations' first
+    places."""
+    src = np.sort(rng.choice(slots, n, replace=False)).astype(np.int32)
+    if kind == "one key":
+        key = np.full(n, E // 3, np.int64)
+    elif kind == "runs":
+        key = np.repeat(rng.integers(0, E, n // 40 + 1), 40)[:n]
+    elif kind == "near":
+        key = np.clip(src.astype(np.int64) * E // slots + rng.integers(-3, 4, n), 0, E - 1)
+    else:
+        key = rng.integers(0, E, n)
+    cnt = np.bincount(key, minlength=E)
+    return (torch.as_tensor(key.astype(np.int32)), torch.as_tensor(src),
+            torch.as_tensor((np.cumsum(cnt) - cnt).astype(np.int32)))
+
+
+@pytest.mark.parametrize("n,E,kind", [(1, 24_576, "random"), (2, 24_576, "one key"),
+                                      (341_820, 24_576, "near"), (341_820, 24_576, "random"),
+                                      (677_000, 24_576, "near"),
+                                      (1_354_620, 24_576, "near"), (1_582_500, 24_576, "random"),
+                                      (341_820, 24_576, "one key"), (341_820, 24_576, "runs"),
+                                      (341_820, 122_603, "near"), (341_820, 122_603, "random"),
+                                      (50_000, 400_000, "random"), (60_000, 1_500_000, "random"),
+                                      (5_000, 122_603, "one key")])
+def test_reshuffle_order_kernel_equals_plain(dev, n, E, kind):
+    """U3, one launch, against its plain version (kernel C's: the stable
+    sort of the destinations with the slots as payload) on the card: n of
+    1 and 2, 2.7%, 5.4% and 10.7% of pseudoPushAndSearch's 12.66M slots
+    and its budget MB (1,582,500); destinations near the slot's element,
+    at random, all one and in runs; the 16^3 box's 24,576 tets, 122,603,
+    400,000 and 1,500,000 destinations (buckets of 128, 512, 2,048 and
+    8,192 keys: the last beyond a warp's table, 4 key turns)."""
+    rng = np.random.default_rng(n + E)
+    key, src, starts = (t.to(dev) for t in _movers(rng, n, E, kind))
+    n0 = kernels.LAUNCHES["reshuffle_order"]
+    got = rb.reshuffle_order(key, src, starts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["reshuffle_order"] == n0 + 1
+    assert torch.equal(got, rb.reshuffle_order_plain(key, src, starts))
+    assert rb.reshuffle_order_turns(E) == -(-(1 << max((E - 1).bit_length() - 8, 0)) // 2048)
+    again = rb.reshuffle_order(key, src, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
 
 
 # ---------------------------------------------------------------------------

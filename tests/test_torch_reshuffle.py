@@ -1,7 +1,7 @@
 """Parity of the port's reshuffle-or-rebuild (``rebuild(mode="auto")``:
-kernels U1, C, G and U2 on the card) and of its Sell-C-σ row order (kernel
-C over kernel Z's row key, then Z's maps) with the JAX reference, on the
-CPU, where every wrapper runs its plain version.
+kernels U1, U3, G and U2 on the card) and of its Sell-C-σ row order (kernel
+Z) with the JAX reference, on the CPU, where every wrapper runs its plain
+version.
 
 - ``rebuild(mode="auto")`` of the port against the JAX package's, every
   member of the structure equal, for Sell-C-σ under the three pad
@@ -9,9 +9,21 @@ CPU, where every wrapper runs its plain version.
   int32 and bool fields: a swap churn (each mover's source slot is another
   mover's destination), a random churn, a concentrated churn that cannot
   fit, and n_mov equal to the mover budget and one above it.
-- ``_scs_row_order`` (Z's key, the plain sort, Z's maps) against the JAX
-  ``_scs_row_order`` on counts with ties, zeros and counts above the key's
-  bits, E not a multiple of the chunk.
+- ``_scs_row_order`` (kernel Z's wrapper, whose plain version chains the
+  key, the plain sort and the maps) against the JAX ``_scs_row_order`` on
+  counts with ties, zeros and counts above the key's bits, E not a
+  multiple of the chunk; the same through ``scs_row_order`` and its plain
+  version directly; Z's cluster design (the min and max, the clamped pass
+  and its big rows' stage, the LSD passes, each warp's digit table, the
+  blocks' counts exchanged, the widths from the rows that start a chunk or
+  a window) emulated in numpy against the reference, also where the counts
+  need several passes, all counts are equal or zero, E = 1.
+- ``reshuffle_order_plain`` (kernel U3's) on U1's plain outputs against a
+  stable argsort of the movers' keys and against where the JAX
+  ``_rebuild_auto`` puts the movers; U3's design (tiles counted by key
+  bucket, the buckets' columns scanned from U1's starts, the movers
+  grouped by bucket, each bucket ranked by key in turns of a warp table's
+  keys) emulated in numpy against the plain version.
 - CPU emulations of U1's and U2's schedules (U1: tiles in launch
   order, the flag past the budget and the tiles that then count alone;
   U2: units in any order, rounds of 32 consecutive slots, a row's holes
@@ -175,14 +187,14 @@ def test_scs_row_order_equals_reference(chunk, sigma, bound):
 
 
 def test_scs_row_keys_put_padding_last_and_windows_apart():
-    """Z's key: descending counts ascend, the padding rows' key 2^b follows
+    """The key of Z's plain version: descending counts ascend, the padding rows' key 2^b follows
     every count of their window, and each window's keys lie below the
     next's."""
     counts = torch.tensor([0, 5, 2, 5, 7, 1, 0], dtype=torch.int32)
-    key = rb.scs_row_keys(counts, 8, 4, 3)
+    key = rb.scs_row_keys_plain(counts, 8, 4, 3)
     assert key.tolist() == [7, 2, 5, 2, 16, 22, 23, 24]
     assert rb.key_sort(key, 31).tolist() == [1, 3, 2, 0, 4, 5, 6, 7]
-    one = rb.scs_row_keys(counts, 8, 8, 2)          # 5 and 7 exceed 2^2 - 1
+    one = rb.scs_row_keys_plain(counts, 8, 8, 2)    # 5 and 7 exceed 2^2 - 1
     assert one.tolist() == [3, -2, 1, -2, -4, 2, 3, 4]
 
 
@@ -198,6 +210,340 @@ def test_count_bits_hold_every_padded_count():
                 padded = TS._scs_pad_counts(torch.as_tensor(c, dtype=torch.int32), extra,
                                             strat)
                 assert int(padded.max()) < 2**bits, (n, extra, strat)
+
+
+def _row_counts(chunk, sigma, seed=0):
+    """test_scs_row_order_equals_reference's counts: ties, zeros, one count
+    (900) above the one-window key's bits, 37 elements."""
+    rng = np.random.default_rng(chunk * 100 + (sigma or 0) + seed)
+    En = 37
+    counts = rng.integers(0, 6, En).astype(np.int32)
+    counts[rng.choice(En, 5, replace=False)] = 0
+    counts[rng.choice(En, 4, replace=False)] = 3
+    counts[11] = 900
+    return counts
+
+
+@pytest.mark.parametrize("chunk", [3, 4, 8])
+@pytest.mark.parametrize("sigma", [8, 16, None])
+@pytest.mark.parametrize("bound", ["tight", "none"])
+def test_scs_row_order_wrapper_and_plain_equal_reference(chunk, sigma, bound):
+    """``scs_row_order`` (the wrapper: its plain version on the CPU) and
+    ``scs_row_order_plain`` on the padded counts, with the key bits the
+    structure gives them, equal the JAX ``_scs_row_order`` on the cases of
+    test_scs_row_order_equals_reference."""
+    counts = _row_counts(chunk, sigma)
+    En = counts.shape[0]
+    num = int(counts.sum()) if bound == "tight" else None
+    s = sigma or 2**30
+    R = -(-En // chunk) * chunk
+    nwin = -(-R // min(s, R))
+    for extra, strat in ((0.0, "proportionally"), (0.25, "inversely"), (0.5, "evenly")):
+        want = JS._scs_row_order(jnp.asarray(counts), s, chunk, En, extra, strat)
+        padded = TS._scs_pad_counts(torch.as_tensor(counts), extra, strat).to(torch.int32)
+        bits = TS._scs_key_bits(nwin, En, num if num is not None else 2**29, extra)
+        for got in (rb.scs_row_order(padded, R, s, chunk, bits),
+                    rb.scs_row_order_plain(padded, R, s, chunk, bits)):
+            for a, b in zip(want, got):
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+Z_DMAX, Z_BIG = 11, 1024
+
+
+def _z_bases(digit, units, nb, bins, rng):
+    """One pass of Z's tables: each unit's (block, warp, lo, hi) digit
+    counts; each digit's total scanned over the digits and the earlier
+    blocks' counts added: each unit's first place of each digit (the
+    block's plus its earlier warps').
+    Returns (those places, the cluster's count of digit 0)."""
+    tab = {u[:2]: np.bincount(digit[u[2]:u[3]], minlength=bins) for u in units}
+    warps = max(w for _, w, _, _ in units) + 1
+    blk = np.array([sum(tab[b, w] for w in range(warps)) for b in range(nb)])
+    tot = blk.sum(axis=0)
+    start = np.cumsum(tot) - tot
+    base = {}
+    for b in range(nb):
+        s = start + blk[:b].sum(axis=0)
+        for w in range(warps):
+            base[b, w] = s.copy()
+            s = s + tab[b, w]
+    return base, int(tot[0])
+
+
+def _z_walk(seq, digit, units, base, R, rng):
+    nxt = np.full(R, -1, np.int64)
+    for i in rng.permutation(len(units)):
+        b, w, lo, hi = units[i]
+        t = base[b, w].copy()
+        for j in range(lo, hi):
+            nxt[t[digit[j]]] = seq[j]
+            t[digit[j]] += 1
+    assert (nxt >= 0).all()
+    return nxt
+
+
+def emulate_scs_row_order(counts, R, sigma, chunk, nb, warps=16, dmax=Z_DMAX, big=Z_BIG,
+                          rng=None):
+    """Kernel Z's design: the cluster's min and max count (padding rows -1)
+    give the key max - count and its range.  One window: one clamped pass
+    of width = min(dmax, bits of range + 1) (keys more than 2^width - 2
+    below the largest to bin 0, the rest key - k0 + 1) and, where bin 0
+    holds at most ``big`` rows, a second stage that ranks those rows (at
+    places [0, n_big)) by descending count, equal counts in row order;
+    else (or with σ windows) LSD passes of equal digits of at most dmax
+    bits over the key, then over the row's window.  A pass: block b (of the
+    cluster's ``nb``) takes positions [b·S, b·S + S) of the current order
+    (S = ceil(R / nb) up to a multiple of 32), warp w of it Sw = ceil(S /
+    warps) (the same) from b·S + w·Sw; each warp counts its digits; the
+    blocks' counts are exchanged and scanned over the digits and the
+    blocks (:func:`_z_bases`); each warp (in any order, ``rng``) places
+    its positions in order.  A chunk's width is the count
+    of its first row and of each window's first row in it.  Returns
+    (row_to_elem, elem_to_row, chunk_width, passes, n_big or None)."""
+    rng = rng if rng is not None else np.random.default_rng(0)
+    E = counts.shape[0]
+    sigma = min(sigma, R)
+    nwin = -(-R // sigma)
+    bw = (nwin - 1).bit_length()
+    c_all = np.full(R, -1, np.int64)
+    c_all[:E] = counts
+    mn, mx = int(c_all.min()), int(c_all.max())
+    rng_ = (mx - mn) & 0xFFFFFFFF
+    S = (-(-R // nb) + 31) & ~31
+    Sw = (-(-S // warps) + 31) & ~31
+    units = []
+    for b in range(nb):
+        lo_b, hi_b = min(b * S, R), min(min(b * S, R) + S, R)
+        for w in range(warps):
+            lo = min(lo_b + w * Sw, hi_b)
+            units.append((b, w, lo, min(lo + Sw, hi_b)))
+    seq = np.arange(R)
+    key = (mx - c_all) & 0xFFFFFFFF
+    out, passes, n_big = None, 0, None
+    if bw == 0:
+        width = dmax if rng_ + 1 == 2**32 else min(dmax, (rng_ + 1).bit_length())
+        top = (1 << width) - 2
+        k0 = rng_ - top if rng_ > top else 0
+        digit = np.where(key < k0, 0, key - k0 + 1)
+        base, n_big = _z_bases(digit, units, nb, 1 << width, rng)
+        passes = 1
+        if n_big <= big:
+            out = _z_walk(seq, digit, units, base, R, rng)
+            head = out[:n_big].copy()
+            c = c_all[head]
+            out[:n_big] = head[np.lexsort((np.arange(n_big), -c))]
+    if out is None:
+        bk = rng_.bit_length()
+        pk, pw = -(-bk // dmax), -(-bw // dmax)
+        wk = -(-bk // pk) if pk else 0
+        ww = -(-bw // pw) if pw else 0
+        passes = max(pk + pw, 1)
+        for p in range(passes):
+            win = p >= pk and pw > 0
+            shift = (p - pk) * ww if win else p * wk
+            width = min(ww, bw - shift) if win else (min(wk, bk - shift) if pk else 0)
+            v = seq // sigma if win else (mx - c_all[seq]) & 0xFFFFFFFF
+            digit = (v >> shift) & ((1 << width) - 1)
+            base, _ = _z_bases(digit, units, nb, 1 << width, rng)
+            seq = _z_walk(seq, digit, units, base, R, rng)
+        out = seq
+    r2e = out.astype(np.int32)
+    e2r = np.zeros(R, np.int32)
+    e2r[r2e] = np.arange(R)
+    width = np.zeros(R // chunk, np.int64)
+    for k in range(R // chunk):
+        r = k * chunk
+        while r < (k + 1) * chunk:
+            width[k] = max(width[k], c_all[r2e[r]])
+            r = (r // sigma + 1) * sigma
+    return r2e, e2r[:E], width.astype(np.int32), passes, n_big
+
+
+@pytest.mark.parametrize("nb", [8, 16])
+@pytest.mark.parametrize("chunk", [3, 8])
+@pytest.mark.parametrize("sigma", [8, 16, None])
+def test_scs_row_order_design_equals_reference(sigma, chunk, nb):
+    """Kernel Z's design, emulated (clusters of 8 and 16 blocks), equals the
+    JAX ``_scs_row_order`` on the reference cases (a count of 900 among
+    counts below 6: in one window, the clamped pass with 3-bit digits puts
+    it in the big rows' bin, ranked by the second stage), on counts up to
+    2^31 - 1 (one window: most rows big, so more than ``big`` of them take
+    the LSD passes), all equal, all zero, E = 1 and 300 counts below 3;
+    with 11- and 3-bit digits, and a second stage of 1,024 rows and of 2
+    (its fallback to the passes)."""
+    rng = np.random.default_rng(nb + chunk + (sigma or 0))
+    s = sigma or 2**30
+    cases = [_row_counts(chunk, sigma), np.full(37, 4, np.int32), np.zeros(37, np.int32),
+             np.array([5], np.int32),
+             rng.integers(0, 2**31 - 1, 70, dtype=np.int64).astype(np.int32),
+             rng.integers(0, 3, 300).astype(np.int32)]
+    for i, counts in enumerate(cases):
+        En = counts.shape[0]
+        R = -(-En // chunk) * chunk
+        want = JS._scs_row_order(jnp.asarray(counts), s, chunk, En)
+        for dmax, big in ((Z_DMAX, Z_BIG), (3, Z_BIG), (3, 2)):
+            got = emulate_scs_row_order(counts, R, s, chunk, nb, dmax=dmax, big=big, rng=rng)
+            for a, b in zip(want, got[:3]):
+                np.testing.assert_array_equal(b, np.asarray(a),
+                                              err_msg=f"case {i} dmax {dmax} big {big}")
+            if i == 0 and sigma is None:          # 900 and counts below 6: one big row
+                assert got[4] == (1 if dmax == 3 else 0) and got[3] == 1
+
+
+def test_reshuffle_order_plain_is_the_stable_destination_order():
+    """``reshuffle_order_plain`` on U1's plain outputs (every reference
+    churn of a Sell-C-σ and a CabM structure) gives the movers' slots in
+    the order of a stable argsort of their destinations, and the wrapper
+    (its plain version on the CPU) the same."""
+    for config in ("scs-proportionally-8", "cabm"):
+        for kind in ("swap", "random", "concentrated"):
+            t, elem = _count_inputs(config, kind, 11)
+            c = rb.reshuffle_count_plain(elem, t.elem, t.seg_cap, t.capacity)
+            n_mov = int(c.info[1])
+            mkey, msrc = c.mkey[:n_mov], c.msrc[:n_mov]
+            want = msrc.numpy()[np.argsort(mkey.numpy(), kind="stable")]
+            for got in (rb.reshuffle_order_plain(mkey, msrc, c.mov_start),
+                        rb.reshuffle_order(mkey, msrc, c.mov_start)):
+                np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("config", ["scs-proportionally-8", "scs-evenly-all", "cabm"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_reshuffle_order_equals_the_reference_placement(config, seed):
+    """Where the JAX ``_rebuild_auto`` puts the movers (E = 40, 1,200
+    particles, a random churn from numpy): each element's movers, by source
+    slot, in the order of the holes they fill (their new slots ascend
+    within a segment: CabM's slots, a Sell-C-σ row's q order), are
+    ``reshuffle_order_plain``'s segment of that element, and U3's design
+    (emulated) gives the same."""
+    rng = np.random.default_rng(seed + 40)
+    j, t = _pair(config, seed + 3)
+    new = _churn(j, "random", rng)
+    want = j.rebuild(jnp.asarray(new), mode="auto")
+    elem, _, _ = rb.rebuild_mask_dps(torch.as_tensor(new), t.active, E)
+    c = rb.reshuffle_count_plain(elem, t.elem, t.seg_cap, t.capacity)
+    fits, n_mov = c.info.tolist()
+    assert fits and n_mov > 0
+    mkey, msrc = c.mkey[:n_mov], c.msrc[:n_mov]
+    take = rb.reshuffle_order_plain(mkey, msrc, c.mov_start).numpy()
+    # the reference: a mover's pid (its old slot's) and its new slot
+    pid_old = np.asarray(j.fields["pid"])
+    pid_new = np.asarray(want.fields["pid"])
+    act = np.asarray(want.active)
+    slot_of = np.full(N, -1)
+    slot_of[pid_new[act]] = np.flatnonzero(act)
+    src, key = msrc.numpy(), mkey.numpy()
+    placed = slot_of[pid_old[src]]
+    order = np.lexsort((placed, key))
+    np.testing.assert_array_equal(take, src[order])
+    starts = c.mov_start.numpy()
+    for G in (4, 132):
+        got = emulate_reshuffle_order(key, src, starts, E, G, rng)
+        np.testing.assert_array_equal(got, take)
+
+
+U3_WARPS, U3_BUCKET_BITS, U3_TABLE_KEYS = 16, 8, 2048
+
+
+def _u3_parts(lo, hi):
+    """A range's split over U3's warps: ceil(len / warps) up to a multiple
+    of 32 each."""
+    per = (-(-(hi - lo) // U3_WARPS) + 31) & ~31
+    out = []
+    for w in range(U3_WARPS):
+        a = min(lo + w * per, hi)
+        out.append((a, min(a + per, hi)))
+    return out
+
+
+def emulate_reshuffle_order(mkey, msrc, mov_start, En, G, rng, table_keys=U3_TABLE_KEYS):
+    """Kernel U3's design: buckets of 2^bs consecutive keys (at most 256);
+    G tiles of ceil(n / G) consecutive movers.  (1) Each tile's warps count
+    their parts by bucket; (2) each bucket's column of tile counts is
+    scanned into each tile's first place, from mov_start of the bucket's
+    first key; (3) each tile (in any order) places its warps' parts in
+    order into a copy grouped by bucket; (4) each bucket (in any order),
+    its keys in turns of ``table_keys``, is ranked by key: its movers'
+    counts per warp part, each key's first place mov_start[k] plus the
+    earlier warps', the warps (in any order) placing their parts in
+    order."""
+    n = mkey.shape[0]
+    bs = max((En - 1).bit_length() - U3_BUCKET_BITS, 0)
+    nbk = ((En - 1) >> bs) + 1
+    kt = min(1 << bs, table_keys)
+    T = -(-n // G)
+    key = mkey.astype(np.int64)
+    tcount = np.zeros((nbk, G), np.int64)
+    wpre = {}
+    for t in range(G):
+        lo, hi = min(t * T, n), min(min(t * T, n) + T, n)
+        s = np.zeros(nbk, np.int64)
+        for w, (a, b) in enumerate(_u3_parts(lo, hi)):
+            wpre[t, w] = s.copy()
+            s += np.bincount(key[a:b] >> bs, minlength=nbk)
+        tcount[:, t] = s
+    start = mov_start[np.arange(nbk) << bs][:, None] + np.cumsum(tcount, axis=1) - tcount
+    tkey = np.full(n, -1, np.int64)
+    tslot = np.full(n, -1, np.int64)
+    for t in rng.permutation(G):
+        lo, hi = min(t * T, n), min(min(t * T, n) + T, n)
+        for w, (a, b) in enumerate(_u3_parts(lo, hi)):
+            pos = start[:, t] + wpre[t, w]
+            for j in range(a, b):
+                bk = key[j] >> bs
+                tkey[pos[bk]], tslot[pos[bk]] = key[j], msrc[j]
+                pos[bk] += 1
+    assert (tkey >= 0).all()
+    take = np.full(n, -7, np.int64)
+    for bk in rng.permutation(nbk):
+        kb, ke = bk << bs, min((bk << bs) + (1 << bs), En)
+        s0, s1 = int(mov_start[kb]), int(mov_start[ke]) if ke < En else n
+        for k0 in range(kb, ke, kt):
+            nk = min(kt, ke - k0)
+            parts = _u3_parts(s0, s1)
+            pos = {}
+            s = mov_start[k0:k0 + nk].astype(np.int64).copy()
+            for w, (a, b) in enumerate(parts):
+                pos[w] = s.copy()
+                k = tkey[a:b] - k0
+                s += np.bincount(k[(k >= 0) & (k < nk)], minlength=nk)
+            for w in rng.permutation(U3_WARPS):
+                a, b = parts[w]
+                for j in range(a, b):
+                    k = tkey[j] - k0
+                    if 0 <= k < nk:
+                        take[pos[w][k]] = tslot[j]
+                        pos[w][k] += 1
+    return take
+
+
+@pytest.mark.parametrize("kind", ["random", "one key", "runs", "one mover"])
+def test_reshuffle_order_design_equals_plain(kind):
+    """U3's design, emulated, equals ``reshuffle_order_plain`` on movers in
+    slot order (ascending slots) with destinations at random, all to one
+    destination (a whole round of one key: fields of 32), in runs of equal
+    keys (a key in several warps of a round and across blocks) and one
+    mover; grids of 1, 13 and 132 tiles; buckets of 2 keys (E = 300) in
+    one turn and in turns of 1 key."""
+    rng = np.random.default_rng(["random", "one key", "runs", "one mover"].index(kind))
+    En = 300
+    n = {"random": 5000, "one key": 3000, "runs": 4000, "one mover": 1}[kind]
+    src = np.sort(rng.choice(10 * n + 10, n, replace=False)).astype(np.int32)
+    if kind == "one key":
+        key = np.full(n, 123, np.int32)
+    elif kind == "runs":
+        key = np.repeat(rng.integers(0, En, n // 40 + 1), 40)[:n].astype(np.int32)
+    else:
+        key = rng.integers(0, En, n).astype(np.int32)
+    cnt = np.bincount(key, minlength=En)
+    starts = (np.cumsum(cnt) - cnt).astype(np.int32)
+    want = rb.reshuffle_order_plain(torch.as_tensor(key), torch.as_tensor(src),
+                                    torch.as_tensor(starts)).numpy()
+    for G in (1, 13, 132):
+        for kt in (U3_TABLE_KEYS, 1, 3):
+            got = emulate_reshuffle_order(key, src, starts, En, G, rng, kt)
+            np.testing.assert_array_equal(got, want, err_msg=f"G {G} table {kt}")
 
 
 # ---------------------------------------------------------------------------
