@@ -60,6 +60,9 @@ which wins over the environment):
 - ``BENCH_GYRO_PPR=1``: per-particle gyro radius (kernel H's key mode);
 - ``BENCH_ROT_ANALYTIC=0`` (``rot_analytic``): the per-element rotation
   table push (kernel P's table mode) instead of the band classes;
+- ``BENCH_LOCATOR=off`` (``use_locator=False``): no locator grid, the
+  search is the plain walk from each particle's previous element (kernel
+  L's dense plain walk), as the reference PUMI-PIC's adjacency search;
 - pps3d: ``BENCH_ELEMS``, ``BENCH_STRUCT`` (``structure``, default
   ``dps``), ``BENCH_KUHN`` (``kuhn``, default ``auto``; ``off`` walks),
   ``BENCH_DIST`` (``distance``, default 0.05), ``BENCH_REBUILD``
@@ -70,7 +73,8 @@ which wins over the environment):
 
 Prints ONE JSON line with bench.py's keys plus ``"impl": "torch"``, the GPU's
 name and bench.py's row ``tag`` (e.g. ``dp-xgc_like_120k-bandloc``, ``dp``,
-``dp-xgc_like_120k-rotgather``, ``pps3d-dps``, ``pps3d-dps-walk``; the
+``dp-xgc_like_120k-rotgather``, the port's ``dp-xgc_like_120k-nolocator``,
+``pps3d-dps``, ``pps3d-dps-walk``; the
 port's own ``pps3d-dps-reflect``, ``gitr-reflect`` and ``gitr-absorb``) in
 ``detail``.  It writes no file.
 
@@ -101,11 +105,15 @@ def _sync(device: torch.device) -> None:
 
 
 def bench_tag(num_ptcls: int, mesh_path: str, analytic_locate: str,
-              band_locator: str, gyro_ppr: bool, rot_analytic: bool = True) -> str:
-    """``bench.py``'s row tag for its ``dp`` mode."""
+              band_locator: str, gyro_ppr: bool, rot_analytic: bool = True,
+              use_locator: bool = True) -> str:
+    """``bench.py``'s row tag for its ``dp`` mode (``-nolocator`` for the
+    plain walk without a locator grid is the port's own)."""
     tag = "dp"
     if mesh_path not in GENERATED_MESHES:
         tag += "-" + os.path.basename(mesh_path).split(".")[0]
+    if not use_locator:
+        tag += "-nolocator"
     if gyro_ppr:
         tag += "-pprad"
     if analytic_locate == "off":
@@ -230,7 +238,7 @@ def setup_gitr(device, num_ptcls=None, mesh_elems=None, wall=None, mesh=None):
 
 def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
           analytic_locate=None, band_locator=None, band_theta=None,
-          gyro_ppr=None, locator=None, rot_analytic=None):
+          gyro_ppr=None, locator=None, rot_analytic=None, use_locator=None):
     """Resolve the knobs (a keyword, else its environment variable, else
     ``bench.py``'s default) and build the run on ``device``.  Returns
     (mesh, state, step, info): ``info`` holds ``num_ptcls``, the row
@@ -254,6 +262,8 @@ def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
         gyro_ppr = bool(int(env("BENCH_GYRO_PPR", "0")))
     if rot_analytic is None:
         rot_analytic = bool(int(env("BENCH_ROT_ANALYTIC", "1")))
+    if use_locator is None:
+        use_locator = env("BENCH_LOCATOR", "on") != "off"
 
     seconds = {}
     t0 = time.perf_counter()
@@ -273,12 +283,13 @@ def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
         band_locator=band_locator,
         band_theta=band_theta,
         rot_analytic=rot_analytic,
+        use_locator=use_locator,
     )
     state, step = make_dp_setup(mesh, cfg, device, timings=seconds,
                                 locator=locator)
     info = {"num_ptcls": num_ptcls, "setup_s": seconds,
             "tag": bench_tag(num_ptcls, mesh_path, analytic_locate,
-                             band_locator, gyro_ppr, rot_analytic)}
+                             band_locator, gyro_ppr, rot_analytic, use_locator)}
     return mesh, state, step, info
 
 

@@ -7,7 +7,7 @@ sources in this checkout.  Phases, each raising on failure:
 
 (a) require a CUDA device; print its name and power limit (nvidia-smi) and
     the torch / CUDA versions;
-(b) build the kernels of the twenty sources (P push and its table mode
+(b) build the kernels of the twenty-two sources (P push and its table mode
     ``push_table``, B band cell, A annulus locate, L locate, H histogram and
     its weighted mode W ``wall_tally``, D deposit, G row gather, S slot map,
     K Kuhn push + locate and its push-only form ``push_wrap``, L3 tet
@@ -20,8 +20,9 @@ sources in this checkout.  Phases, each raising on failure:
     ``reshuffle_place`` and U3 ``reshuffle_order`` (the movers' order), the
     Sell-C-σ row order's Z ``scs_row_order``, the distributed step's X1
     ``rank_in_key``, X2
-    ``pack_send``, X3 ``place_arrivals`` and O ``owner_reduce``), one nvcc
-    per source, all at once, and keep
+    ``pack_send``, X3 ``place_arrivals`` and O ``owner_reduce``, the
+    Y1-Y3 route and balancer kernels and N ``slot_counts``, the picparts
+    step's counts), one nvcc per source, all at once, and keep
     ptxas's registers, shared memory and spills of each source's entry
     functions for the kernels' JSON line;
 (c) run each kernel and its plain PyTorch version on the card on the same
@@ -38,8 +39,10 @@ sources in this checkout.  Phases, each raising on failure:
     for D: the composite gyro map for both passes, the ring incidence for
     pass 1 from (E, R); ``torch.sort(key, stable=True)`` for C).  On the
     120k-element gmsh mesh at 10M particles: P, L (peel + walk), H in the
-    main path's order and in a random order of the same keys, D, L's plain
-    walk over the 1.48M gyro ring points, H's (element, ring) key mode and
+    main path's order and in a random order of the same keys, D, L's dense
+    plain walk over the 1.48M gyro ring points and at the locator-less
+    step (the 10M particles pushed once, each walked from its element;
+    every walker found), H's (element, ring) key mode and
     D's pass 1 from (E, R) counts; G's rows form at the TPU row gather
     probe's shape (24,576 x 14 f32 table, 10M indices); on a Sell-C-σ
     structure of the 10M located particles, P's phi mode (band and class
@@ -107,15 +110,21 @@ sources in this checkout.  Phases, each raising on failure:
     mesh), of the PseudoXGCm app in each layout (scs, csr, cabm, dps) and
     of pseudoPushAndSearch (Kuhn, walk and reflect arms) and of the
     GITR-style app (absorb and reflect) on the card and on the CPU for 3
-    steps and require equal states, structures and fields;
-(d) run the five FULL-mode arms through their entry point,
+    steps and require equal states, structures and fields.  Last, at one
+    rank's size of the 4-rank 120k picparts arm (3.75M slots), X1-X3, O,
+    Y1-Y3 and N (``check_exchange``; N at the picparts step's own inputs,
+    with the kernels a step's counts launch from captured CUDA graphs, the
+    torch code's against N's);
+(d) run the six FULL-mode arms through their entry point,
     ``bench_torch.main()``, at 10M particles, 1 warm-up + 20 timed steps
     each, with the launch counters reset just before each: the cartesian
     main path, the flux-band arm (``band_locator="force"``, reusing phase
     c's band grid), the annulus arm, the per-particle gyro radius arm and
     the rotation-table arm (``rot_analytic=False``, P's table mode and
-    not its band mode); the cartesian, pprad and rotation-table arms reuse
-    phase c's cartesian grid.
+    not its band mode) and the locator-less arm (``use_locator=False``:
+    L's dense plain walk from each particle's element, every particle
+    found in every step); the cartesian, pprad and rotation-table arms
+    reuse phase c's cartesian grid.
     Require each arm's kernels launched (and the annulus arm's steps
     launching no L: its only L launch is the setup's gyro-map walk), finite
     positive fields and > 90% of the particles alive.  Then
@@ -173,7 +182,9 @@ sources in this checkout.  Phases, each raising on failure:
     (checked by name, and L's count: on a walk arm each rank launches L in
     every step, on an analytic arm only in the setup's gyro-map walk; X1 4
     times a step, X2 and X3 once, O twice (fan-in, fan-out: D writes the
-    fan-in's send rows) on every rank of a 4-rank arm, O alone on the
+    fan-in's send rows) and N 4 times (migrate's free slots, its sent,
+    kept-home and illegal counts, the step's alive and exits, step_stats'
+    reduction) on every rank of a 4-rank arm, O and N's last two on the
     1-rank arm), every step's stats, reduced field and
     deposit: on every step no overflow, unresolved arrival, illegal
     destination or particle lost off its picpart (stats ``lost``), alive =
@@ -284,6 +295,8 @@ KERNELS = {  # name -> (route, source, replaces)
                      "pumipic_tpu/parallel/balancer.py:334"),
     "balance_select": ("cuda", "pumipic_torch/kernels/csrc/route.cu",
                        "pumipic_tpu/parallel/balancer.py:283"),
+    "slot_counts": ("cuda", "pumipic_torch/kernels/csrc/counts.cu",
+                    "pumipic_tpu/models/pseudo_xgcm.py:1202"),
 }
 
 # the card's peaks for the bound of each kernel (H100 SXM data sheet):
@@ -302,7 +315,7 @@ APP_ARMS = {
 }
 APP_STEPS = {"scs": TIMED_STEPS, "csr": 3, "cabm": 3, "dps": 3}
 
-# the four arms of phase d: bench_torch.main keywords, and the kernels each
+# the arms of phase d: bench_torch.main keywords, and the kernels each
 # arm's run must launch (every other kernel must stay at 0)
 ARMS = {
     "cartesian": ({}, ("push", "locate", "histogram", "deposit")),
@@ -313,6 +326,9 @@ ARMS = {
     "pprad": ({"gyro_ppr": True}, ("push", "locate", "histogram", "deposit")),
     "rotgather": ({"rot_analytic": False},
                   ("push_table", "locate", "histogram", "deposit")),
+    # no locator grid: the search is L's dense plain walk from each
+    # particle's previous element; every step must find every particle
+    "nolocator": ({"use_locator": False}, ("push", "locate", "histogram", "deposit")),
 }
 
 # pseudoPushAndSearch's arms of phase d: bench_torch.main keywords, steps,
@@ -809,6 +825,23 @@ def check_cartesian(results: dict, dev, mesh):
     # the ring points, the outputs and the rows the walk reads
     record_bound("locate", "plain walk", results,
                  nbytes(*gargs[1:5], *got[:2]) + walk_rows("plain walk", gargs, results))
+    del gpx, gpy, gstart, gact, gargs
+
+    # L: dense plain walk at the locator-less step (use_locator=False: the
+    # same seeded particles, pushed once, each walked from its element)
+    what = "plain walk, the locator-less step"
+    dargs = (mesh.walk_geom, tx, ty, s["elem"], s["active"], cfg.max_search_iters)
+    got = se.walk_locate(*dargs)
+    compare("locate", f"{what} ({n} particles)", got, se.walk_locate_plain(*dargs), results)
+    log(f"[c] locator-less walk: iters={int(got[2])} all_found={bool(got[3])} "
+        f"alive={int(got[1].sum())}")
+    if not bool(got[3]):
+        raise AssertionError("the locator-less step's walk deleted a walker at the limit")
+    time_pair("locate", what, lambda: se.walk_locate(*dargs),
+              lambda: se.walk_locate_plain(*dargs), results, plain_reps=2, record=False)
+    record_bound("locate", what, results,
+                 nbytes(*dargs[1:5], *got[:2]) + walk_rows(what, dargs, results))
+    del dargs
 
     # H: histogram of 10M keys into E bins, in the main path's order (the
     # particles' own, seeded element by element) and in a random order
@@ -3387,6 +3420,124 @@ def check_route(results: dict, dev, mesh, lpp, step) -> None:
     log(f"[c] route kernels checked in {time.perf_counter() - t0:.2f} s")
 
 
+def former_step_counts(leaving, kept, wants, bucket, active_mid, s2_active, prev_active,
+                       new_elem, lost, g):
+    """The picparts step's counts as torch ops (the code kernel N replaced,
+    rank 0 of a 4-rank walk arm): migrate's free slots, illegal, sent and
+    kept home, the step's alive and exits, and step_stats' reduction over
+    the ranks; returns the migrate part's and the rest's outputs."""
+    n_free = active_mid.shape[0] - active_mid.sum(dtype=torch.int32)
+    illegal = wants & (bucket < 0)
+    mig = (n_free, leaving.sum(dtype=torch.int32), illegal.sum(dtype=torch.int32),
+           kept.sum(dtype=torch.int32))
+    return mig, former_end_counts(s2_active, prev_active, new_elem, lost, g)
+
+
+def former_end_counts(s2_active, prev_active, new_elem, lost, g):
+    """The step's end-of-step counts and step_stats' reduction as torch ops
+    (the one-rank arm's part of :func:`former_step_counts`)."""
+    nloc = s2_active.sum(dtype=torch.int32)
+    exits = (prev_active & (new_elem < 0)).sum(dtype=torch.int32) - lost
+    stats = [g[:, i].sum(dtype=torch.int32) for i in range(g.shape[1])]
+    stats[3] = g[:, 3].max()
+    n = g[:, 0].to(torch.float32)
+    mx, total = n.max(), n.sum()
+    avg = total / total.new_full((), float(g.shape[0]))
+    return nloc, exits, stats, torch.where(avg > 0, mx / avg, total.new_full((), 1.0))
+
+
+def check_slot_counts(results: dict, dev, lpp, step, D: int, cap: int) -> None:
+    """Kernel N at the picparts step's own inputs (rank 0 of the 4-rank 120k
+    arm after one push and the local walk, :func:`x2_step_case`; X1 and X2
+    on its leavers): migrate's free-slot count, its sent, kept-home and
+    illegal counts, the step's alive and exits less the lost, and
+    step_stats' reduction of 4 ranks' counts, each against its plain
+    version, timed beside the torch sums it replaced, with one launch a
+    call; then the kernels a step's counts launch, from captured CUDA
+    graphs: the former torch code's against N's, on a rank of a 4-rank arm
+    and on the one-rank arm."""
+    from pumipic_torch.ops import counts as cn
+    from pumipic_torch.ops import exchange as ex
+
+    state, key, new_elem, _, prev_active = step
+    results["slot_counts"].setdefault("extra", {})
+    rank, counts = ex.rank_in_key(key, D)
+    quota = torch.clamp(counts[:D], max=cap)
+    _, kept, leaving, _, _ = ex.pack_send(state, key, rank, counts, quota, quota.tolist(),
+                                          cap, new_elem, lpp.elem_gid)
+    wants = key < D
+    bucket = torch.where(wants, key, -1).to(torch.int32)
+    active = state["active"]
+    lost = torch.zeros((), dtype=torch.int32, device=dev)
+    n = active.shape[0]
+    mine = cn.slot_counts([[("set", active)], [("set", prev_active), ("neg", new_elem)]],
+                          [None, lost])
+    row = torch.stack([mine[0], leaving.sum(dtype=torch.int32), kept.sum(dtype=torch.int32),
+                       lost, lost, lost, mine[1], lost])
+    g = (row[None, :] + torch.arange(X_RANKS, device=dev, dtype=torch.int32)[:, None]
+         * torch.tensor([1, 1, 1, 0, 0, 0, 1, 0], dtype=torch.int32, device=dev))
+    g[1, 3] = 1                                  # one rank overflowed
+    cases = (
+        (f"the step's end: alive, exits less the lost ({n} slots)",
+         [[("set", active)], [("set", prev_active), ("neg", new_elem)]], [None, lost],
+         lambda: (active.sum(dtype=torch.int32),
+                  (prev_active & (new_elem < 0)).sum(dtype=torch.int32) - lost)),
+        (f"migrate's free slots ({n} slots)", [[("clear", active)]], [None],
+         lambda: active.shape[0] - active.sum(dtype=torch.int32)),
+        (f"migrate's sent, kept home, illegal ({n} slots)",
+         [[("set", leaving)], [("set", kept)], [("set", wants), ("neg", bucket)]],
+         [None] * 3,
+         lambda: (leaving.sum(dtype=torch.int32), kept.sum(dtype=torch.int32),
+                  (wants & (bucket < 0)).sum(dtype=torch.int32))),
+    )
+    for what, cnts, subs, former in cases:
+        got = cn.slot_counts(cnts, subs)
+        compare("slot_counts", what, got, cn.slot_counts_plain(cnts, subs), results)
+        log(f"[c] slot_counts {what}: {got.tolist()}")
+        time_pair("slot_counts", what, lambda: cn.slot_counts(cnts, subs),
+                  lambda: cn.slot_counts_plain(cnts, subs), results)
+        read = {id(t): t for terms in cnts for _, t in terms}
+        record_bound("slot_counts", what, results, nbytes(*read.values()) + 4 * len(cnts))
+        record_library("slot_counts", what, "the torch sums it replaced", former, results)
+        record_launches("slot_counts", what, lambda: cn.slot_counts(cnts, subs), results,
+                        {"kernel": 1})
+    what = f"step_stats' reduction ({X_RANKS} ranks)"
+    got = cn.rank_stats(g, 3)
+    compare("slot_counts", what, got, cn.rank_stats_plain(g, 3), results)
+    time_pair("slot_counts", what, lambda: cn.rank_stats(g, 3),
+              lambda: cn.rank_stats_plain(g, 3), results)
+    record_bound("slot_counts", what, results, nbytes(g, got))
+    record_library("slot_counts", what, "the torch reduction it replaced",
+                   lambda: former_end_counts(active, prev_active, new_elem, lost, g)[2:],
+                   results)
+    record_launches("slot_counts", what, lambda: cn.rank_stats(g, 3), results, {"kernel": 1})
+
+    # the kernels of a step's counts, the former torch code's against N's
+    def n_step():
+        cn.slot_counts([[("clear", active)]])
+        cn.slot_counts(cases[2][1])
+        return n_end()
+
+    def n_end():
+        cn.slot_counts(cases[0][1], cases[0][2])
+        return cn.rank_stats(g, 3)
+
+    arms = {   # arm: (the former code, N's, N's launches a step there)
+        f"a rank of a {X_RANKS}-rank arm": (
+            lambda: former_step_counts(leaving, kept, wants, bucket, active, active,
+                                       prev_active, new_elem, lost, g), n_step, 4),
+        "the one-rank arm": (
+            lambda: former_end_counts(active, prev_active, new_elem, lost, g), n_end, 2)}
+    for arm, (old, new, launches) in arms.items():
+        k_old, k_new = graph_nodes(old), graph_nodes(new)
+        log(f"[c] slot_counts, the counts of a step on {arm}: the torch code {k_old}, "
+            f"kernel N {k_new} (captured CUDA graphs)")
+        results["slot_counts"]["extra"][f"step launches, {arm}"] = {
+            "torch": k_old, "kernel_n": k_new}
+        if k_new != {"kernel": launches}:
+            raise AssertionError(f"slot_counts: a step's counts on {arm} launched {k_new}")
+
+
 def check_exchange(results: dict, dev) -> None:
     """X1, X2, X3 and O against their plain versions at the 4-rank 120k
     arm's per-rank size (3.75M slots, 2.5M particles, its leaver share; rank
@@ -3414,6 +3565,7 @@ def check_exchange(results: dict, dev) -> None:
     check_lost_walk(results, dev, lpp, mesh, step)
     check_pack_send(results, dev, gen, lpp, D, cap, mesh, step)
     check_route(results, dev, mesh, lpp, step)
+    check_slot_counts(results, dev, lpp, step, D, cap)
     del step
     check_place_arrivals(results, dev, gen, lpp, D, cap)
     check_owner_reduce(results, dev, gen, lpp)
@@ -3517,6 +3669,8 @@ def phase_d(results: dict, dev, grid, band_grid, band_s: float, smi: str) -> Non
         if not det["alive"] > 0.9 * NUM_PTCLS:
             raise AssertionError(f"{name}: only {det['alive']} of {NUM_PTCLS} "
                                  f"particles alive")
+        if name == "nolocator" and not det["all_found"]:
+            raise AssertionError("nolocator arm: a walker was deleted at the loop limit")
         del state, fields
 
 
@@ -3830,13 +3984,15 @@ E_ANALYTIC = ("push", "annulus_locate", "locate", "histogram", "deposit")
 # the annulus's analytic arms), Y2 and Y3 once (the balancer); X1 for the
 # buckets, the balancer's two weight counts and its candidates; X2 and X3
 # once; O's fan-in and fan-out (kernel D writes the fan-in's send rows: O's
-# gather is not launched).  One rank migrates nothing (the comm-size-1
-# path) and has no balancer: Y1 and O alone.
+# gather is not launched); N for migrate's free slots, for its sent,
+# kept-home and illegal counts, for the step's alive and exits and for
+# step_stats' reduction.  One rank migrates nothing (the comm-size-1 path)
+# and has no balancer: Y1, O and N's last two.
 E_EXCHANGE = {"rank_in_key": 4, "pack_send": 1, "place_arrivals": 1, "owner_reduce": 2,
-              "balance_keys": 1, "balance_select": 1}
+              "balance_keys": 1, "balance_select": 1, "slot_counts": 4}
 E_PACKED = dict(E_EXCHANGE, route_packed=1)
 E_BANDED = dict(E_EXCHANGE, route_banded=1)
-E_ONE_RANK = {"owner_reduce": 2, "route_packed": 1}
+E_ONE_RANK = {"owner_reduce": 2, "route_packed": 1, "slot_counts": 2}
 # rank 0 of the 4-rank 120k arm with the exchange and the reduction as
 # torch ops (PERF.md §5, 3-layer buffer): device busy and the stream's
 # split, ms a step

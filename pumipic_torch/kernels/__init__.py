@@ -19,7 +19,7 @@ LAUNCHES = {"push": 0, "push_table": 0, "band_cell": 0, "annulus_locate": 0,
             "rebuild_mask": 0, "key_sort": 0, "check_parents": 0,
             "reshuffle_count": 0, "reshuffle_place": 0, "reshuffle_order": 0,
             "scs_row_order": 0, "route_packed": 0, "route_g2l": 0, "route_banded": 0,
-            "balance_keys": 0, "balance_select": 0}
+            "balance_keys": 0, "balance_select": 0, "slot_counts": 0}
 
 
 def reset_launches() -> None:

@@ -66,6 +66,14 @@ SIGNATURES = {
         _I, _I,                              # max_iters it0
         _P, _P, _P,                          # elem_out active_out stats
         _L, _P],                             # n stream
+    "pp_walk_dense": [
+        _P, _P, _P, _P,                      # dest_x dest_y elem_start active
+        _P, _I, _I,                          # walk_geom n_elems max_iters
+        _P, _P, _P, _L, _P],                 # elem_out active_out stats n stream
+    "pp_slot_counts": [
+        _P, _P, _P, _P, _P,                  # terms kinds n_slots outs subs (host arrays)
+        _I, _P, _P],                         # n_counts acc stream
+    "pp_rank_stats": [_P, _I, _I, _I, _P, _P],   # g R W max_col out stream
     "pp_walk_plain": [
         _P, _L, _P, _L,                      # dest_x stride_x dest_y stride_y
         _P, _P, _P, _I, _I,                  # elem_start walkers walk_geom n_elems max_iters

@@ -13,11 +13,12 @@
 // array instead of computing the cartesian one: the flux-band grid's ids,
 // which kernel B computes (BandGrid2D.cell_of,
 // pumipic_tpu/mesh/locator.py:747-755); the band table is the same (K·T, 14)
-// row layout, 27.5 MB on the 120k mesh.  With rows == nullptr, and on
-// walk_plain.cuh's sparse schedule, it is the plain walk search_mesh_2d (:967-1000): the
-// setup's gyro ring points, the parent repair of check_initial_parents
+// row layout, 27.5 MB on the 120k mesh.  Its dense walk and, on
+// walk_plain.cuh's sparse schedule, its sparse walk are the plain walk
+// search_mesh_2d (:967-1000): the setup's gyro ring points and the
+// locator-less step (dense), the parent repair of check_initial_parents
 // (:1527-1595, in place behind kernel J) and the picparts step's
-// lost-particle check.
+// lost-particle check (sparse).
 // The TPU Pallas probes of the walk step (perf/archive/walk_opt.py:219,
 // walk_opt2.py:92, walk_opt4.py:101) compute the same step.
 //
@@ -39,22 +40,21 @@
 // one atomicAdd per block.
 //
 // The plain walk has two kernels.  Where every slot is written (the
-// setup's ring points, search_mesh_2d, the locator-less app's step), the
-// first version's: rows == nullptr in walk_locate_kernel.  Where few slots
-// walk and the caller wants no output for the rest (the parent repair
-// over kernel J's bad parents, in place into J's output; the picparts
-// step's lost check, its counts alone), the sparse schedule of
-// walk_plain.cuh with this file's step (PlainStep2D).  What held the
-// first version there was the sweep, not the walk: every slot read its
-// destination and wrote 5 bytes, the wrapper copied the destination's
-// columns first, and a warp waited for its longest walk.  The budget, the
-// deletion at the limit, iters and all_found are the first version's.
-// Measured (PERF.md §6): on the dense ring points the sparse schedule
-// lost to the first version's lockstep tiles at every round length, start
-// rule and occupancy tried (0.100 against 0.096 ms at best): 32
-// neighbouring ring points walk the same rows in step, and a refilled
-// warp's lanes read 32 different rows a step; so the dense walk keeps the
-// first version.
+// setup's ring points, search_mesh_2d, the locator-less step), the dense
+// walk (walk_dense_kernel; the first version's plain walk was the peel
+// kernel with no cell rows).  Where few slots walk and the caller wants no
+// output for the rest (the parent repair over kernel J's bad parents, in
+// place into J's output; the picparts step's lost check, its counts
+// alone), the sparse schedule of walk_plain.cuh with this file's step
+// (PlainStep2D).  What held the first version there was the sweep, not the
+// walk: every slot read its destination and wrote 5 bytes, the wrapper
+// copied the destination's columns first, and a warp waited for its
+// longest walk.  The budget, the deletion at the limit, iters and
+// all_found are the first version's in both.  Measured (PERF.md §6): on the dense
+// inputs the sparse schedule loses to lockstep tiles (the ring points
+// 0.097 against 0.086 ms, the locator-less step's walk at 10M 0.150-0.166
+// against 0.104-0.107): 32 neighbouring slots walk the same rows in step,
+// and a refilled warp's lanes read 32 different rows a step.
 // Built with -fmad=false so the containment tests round exactly as the
 // plain PyTorch version's separate ops do.
 #include <cuda_runtime.h>
@@ -66,6 +66,9 @@
 #define BCC_REL_TOL 4.76837158203125e-07f  // 8 * 2^-24
 #define BCC_ABS_TOL 1e-7f
 #define WALK_THREADS 256
+// the dense plain walk's block size (512 beat 256 and 1024 at the
+// locator-less step, PERF.md §6)
+#define WD_THREADS 512
 
 struct Bary {
   float l1, l2, w0;
@@ -108,38 +111,33 @@ __global__ void __launch_bounds__(WALK_THREADS) walk_locate_kernel(
     bool done = true;
     if (active[i]) {
       const int start = min(max(elem_start[i], 0), n_elems - 1);
-      if (rows != nullptr) {
-        int c;
-        if (cells != nullptr) {
-          c = cells[i];            // given cells (kernel B's band ids)
-        } else {
-          // cell id in f32 index arithmetic (LocatorGrid2D.cell_of)
-          const float rx = (dx - ox) * ihx;
-          const float ry = (dy - oy) * ihy;
-          const float fx = fminf(fmaxf(floorf(rx), 0.0f), (float)(nx - 1));
-          const float fy = fminf(fmaxf(floorf(ry), 0.0f), (float)(ny - 1));
-          c = min(max((int)(fx * (float)ny + fy), 0), nx * ny - 1);
-        }
-        // 56-byte row, 8-byte aligned: seven float2 loads
-        const float2* r2 = reinterpret_cast<const float2*>(rows + (size_t)c * 14);
-        float r[14];
-#pragma unroll
-        for (int j = 0; j < 7; ++j) {
-          const float2 v = __ldg(r2 + j);
-          r[2 * j] = v.x;
-          r[2 * j + 1] = v.y;
-        }
-        const bool in_a = bary(r[0], r[1], r[2], r[3], r[4], r[5], dx, dy).inside;
-        const bool in_b = bary(r[7], r[8], r[9], r[10], r[11], r[12], dx, dy).inside;
-        if (in_a || in_b) {
-          elem = in_a ? (int)r[6] : (int)r[13];
-        } else {
-          elem = (int)r[6];
-          fbg = start;
-          done = false;
-        }
+      int c;
+      if (cells != nullptr) {
+        c = cells[i];            // given cells (kernel B's band ids)
       } else {
-        elem = start;
+        // cell id in f32 index arithmetic (LocatorGrid2D.cell_of)
+        const float rx = (dx - ox) * ihx;
+        const float ry = (dy - oy) * ihy;
+        const float fx = fminf(fmaxf(floorf(rx), 0.0f), (float)(nx - 1));
+        const float fy = fminf(fmaxf(floorf(ry), 0.0f), (float)(ny - 1));
+        c = min(max((int)(fx * (float)ny + fy), 0), nx * ny - 1);
+      }
+      // 56-byte row, 8-byte aligned: seven float2 loads
+      const float2* r2 = reinterpret_cast<const float2*>(rows + (size_t)c * 14);
+      float r[14];
+#pragma unroll
+      for (int j = 0; j < 7; ++j) {
+        const float2 v = __ldg(r2 + j);
+        r[2 * j] = v.x;
+        r[2 * j + 1] = v.y;
+      }
+      const bool in_a = bary(r[0], r[1], r[2], r[3], r[4], r[5], dx, dy).inside;
+      const bool in_b = bary(r[7], r[8], r[9], r[10], r[11], r[12], dx, dy).inside;
+      if (in_a || in_b) {
+        elem = in_a ? (int)r[6] : (int)r[13];
+      } else {
+        elem = (int)r[6];
+        fbg = start;
         done = false;
       }
     }
@@ -202,6 +200,95 @@ __global__ void __launch_bounds__(WALK_THREADS) walk_locate_kernel(
   }
 }
 
+// The dense plain walk: every slot written, each active slot a walker
+// from its clamped start (the setup's ring points, search_mesh_2d, the
+// locator-less step).  A warp walks tiles of 32 consecutive slots, a lane
+// a slot, in lockstep (neighbouring slots walk the same rows at first); a
+// resident grid of WD_THREADS-thread blocks strides over the tiles.  The
+// slots' destination, start and mask are read, and their outputs written,
+// with streaming cache hints (each is touched once), so they do not evict
+// the rows from L1; a step reads its row's first 32 bytes (the affine
+// part and the first two exits) and the third exit only where the walker
+// leaves across it.  Measured against the first version (PERF.md §6):
+// two or four walkers a lane with their loads in flight together, loading
+// the next tile during the walk, the containment's tolerances computed
+// only where a weight is negative, a block walking a contiguous range of
+// tiles, and walk_plain.cuh's refilling pool each lost at both inputs.
+__global__ void __launch_bounds__(WD_THREADS) walk_dense_kernel(
+    const float* __restrict__ dest_x, const float* __restrict__ dest_y,
+    const int* __restrict__ elem_start, const uint8_t* __restrict__ active,
+    const float* __restrict__ geom, int n_elems, int budget,
+    int* __restrict__ elem_out, uint8_t* __restrict__ active_out,
+    int* __restrict__ stats, long long n) {
+  const int lane = threadIdx.x & 31;
+  const long long n_tiles = (n + 31) / 32;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  int my_max = 0, my_unfinished = 0;
+  for (long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; t < n_tiles;
+       t += n_warps) {
+    const long long i = t * 32 + lane;
+    float x = 0.0f, y = 0.0f;
+    int elem = -1;
+    bool done = true;
+    if (i < n) {
+      x = __ldcs(dest_x + i);
+      y = __ldcs(dest_y + i);
+      const int start = __ldcs(elem_start + i);
+      if (__ldcs(reinterpret_cast<const signed char*>(active) + i) != 0) {
+        elem = min(max(start, 0), n_elems - 1);
+        done = false;
+      }
+    }
+    int steps = 0;
+    while (!done && steps < budget) {
+      ++steps;
+      const float* row = geom + (size_t)elem * 12;
+      const float4 ga = __ldg(reinterpret_cast<const float4*>(row));
+      const float4 gb = __ldg(reinterpret_cast<const float4*>(row) + 1);
+      const Bary w = bary(ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, x, y);
+      if (w.inside) {
+        done = true;
+        break;
+      }
+      // most negative weight -> exit across the pre-permuted column 6+k
+      int kmin = (w.w0 <= w.l1) ? 0 : 1;
+      const float wmin = (isnan(w.w0) || isnan(w.l1)) ? NAN : fminf(w.w0, w.l1);
+      if (w.l2 < wmin) kmin = 2;
+      elem = (int)(kmin == 0 ? gb.z : (kmin == 1 ? gb.w : __ldg(row + 8)));
+      if (elem == -1) done = true;     // an exposed side: removed
+    }
+    if (i < n) {
+      if (!done) {                     // loop limit: delete the walker
+        elem = -1;
+        ++my_unfinished;
+      }
+      __stcs(elem_out + i, elem);
+      __stcs(reinterpret_cast<signed char*>(active_out) + i, (signed char)(elem >= 0));
+      my_max = max(my_max, steps);
+    }
+  }
+  // block reduction, then one atomic per block
+  my_max = __reduce_max_sync(0xffffffffu, my_max);
+  my_unfinished = __reduce_add_sync(0xffffffffu, my_unfinished);
+  __shared__ int s_max[WD_THREADS / 32];
+  __shared__ int s_unf[WD_THREADS / 32];
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_max[warp] = my_max;
+    s_unf[warp] = my_unfinished;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int bm = 0, bu = 0;
+    for (int w = 0; w < WD_THREADS / 32; ++w) {
+      bm = max(bm, s_max[w]);
+      bu += s_unf[w];
+    }
+    if (bm > 0) atomicMax(&stats[0], bm);
+    if (bu > 0) atomicAdd(&stats[1], bu);
+  }
+}
+
 // one step of the plain walk from w_elem toward (x, y): true when the
 // walker stops (inside: w_elem kept; an exposed side: w_elem = -1)
 __device__ __forceinline__ bool plain_step(const float* __restrict__ geom, int& w_elem,
@@ -237,16 +324,18 @@ static int num_sms() {
   return sms;
 }
 
-// stats[0] <- max steps over walkers (atomicMax), stats[1] <- unfinished
-// walkers (atomicAdd); the caller zeroes both before the launch.  cells:
-// per-particle cell ids in [0, rows' row count), or nullptr for the
-// cartesian cell of (ox, oy, ihx, ihy, nx, ny).
+// The peel + walk.  stats[0] <- max steps over walkers (atomicMax),
+// stats[1] <- unfinished walkers (atomicAdd); the caller zeroes both
+// before the launch.  rows: the grid's cell rows (required; the plain walk
+// is pp_walk_dense).  cells: per-particle cell ids in [0, rows' row
+// count), or nullptr for the cartesian cell of (ox, oy, ihx, ihy, nx, ny).
 extern "C" int pp_walk_locate(
     const float* dest_x, const float* dest_y, const int* elem_start,
     const uint8_t* active, const float* geom, int n_elems,
     const float* rows, const int* cells, float ox, float oy, float ihx,
     float ihy, int nx, int ny, int max_iters, int it0, int* elem_out,
     uint8_t* active_out, int* stats, long long n, cudaStream_t stream) {
+  if (rows == nullptr) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   long long blocks = (n + WALK_THREADS - 1) / WALK_THREADS;
   const long long cap = (long long)num_sms() * 8;
@@ -254,6 +343,30 @@ extern "C" int pp_walk_locate(
   walk_locate_kernel<<<(unsigned)blocks, WALK_THREADS, 0, stream>>>(
       dest_x, dest_y, elem_start, active, geom, n_elems, rows, cells, ox, oy,
       ihx, ihy, nx, ny, max_iters, it0, elem_out, active_out, stats, n);
+  return (int)cudaGetLastError();
+}
+
+// The dense plain walk (walk_dense_kernel) on a resident grid: elem_out
+// and active_out for every slot; stats[0] <- max steps (atomicMax),
+// stats[1] <- walkers deleted at the limit (atomicAdd), zeroed by the
+// caller.
+extern "C" int pp_walk_dense(
+    const float* dest_x, const float* dest_y, const int* elem_start,
+    const uint8_t* active, const float* geom, int n_elems, int max_iters,
+    int* elem_out, uint8_t* active_out, int* stats, long long n, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  static int resident = 0;
+  if (resident == 0) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk_dense_kernel, WD_THREADS, 0);
+    resident = num_sms() * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long tiles = (n + 31) / 32;
+  long long blocks = (tiles + WD_THREADS / 32 - 1) / (WD_THREADS / 32);
+  if (blocks > resident) blocks = resident;
+  walk_dense_kernel<<<(unsigned)blocks, WD_THREADS, 0, stream>>>(
+      dest_x, dest_y, elem_start, active, geom, n_elems, max(max_iters, 0), elem_out,
+      active_out, stats, n);
   return (int)cudaGetLastError();
 }
 

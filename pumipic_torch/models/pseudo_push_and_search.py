@@ -42,6 +42,7 @@ from pumipic_torch.mesh.locator import (
     build_locator_grid_3d,
     detect_box_kuhn,
 )
+from pumipic_torch.ops import counts as count_ops
 from pumipic_torch.ops import locate as locate_ops
 from pumipic_torch.ops import push as push_ops
 from pumipic_torch.ops import route as route_ops
@@ -387,7 +388,6 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
                 g_start = lpp.elem_gid[torch.clamp(ps.elem, min=0).long()]
                 g_ids, _, _, g_all, _ = search_ops.walk_locate_3d(
                     g_walk, dest_x, g_start, removed, gmesh.nelems)
-                lost = (g_ids >= 0).sum(dtype=torch.int32) + (~g_all).to(torch.int32)
         with group.split("glue"):
             if kuhn is not None:
                 routed = route_ops.route_g2l(g2l_tbl, e_gl, ps.active, me, R, gelem=False)
@@ -405,10 +405,19 @@ def make_picparts_setup_3d(coords: np.ndarray, tets: np.ndarray,
                                           me, R, migrate_cap, plan=nplan,
                                           hier=hier)
         with group.split("glue"):
-            nloc = ps2.active.sum(dtype=torch.int32)
+            # kernel N: the alive count, the search's exits and the lost in
+            # one launch (the walk arm's lost: the removed particles found
+            # on the global mesh, and one more where that walk hit its limit)
+            alive = [("set", ps2.active)]
+            removed = [("set", ps.active), ("neg", elem_ids)]
             if kuhn is not None:
-                lost = (ps.active & (e_gl >= 0) & (elem_ids < 0)).sum(dtype=torch.int32)
-            exits = (ps.active & (elem_ids < 0)).sum(dtype=torch.int32) - lost
+                nloc, lost, exits = count_ops.slot_counts(
+                    [alive, removed + [("nonneg", e_gl)], removed + [("neg", e_gl)]])
+            else:
+                nloc, found, removed_n = count_ops.slot_counts(
+                    [alive, [("nonneg", g_ids)], removed])
+                lost = found + (~g_all).to(torch.int32)
+                exits = removed_n - lost
         mres = mres._replace(overflow=mres.overflow | ps2.overflowed)
         return ps2, step_stats(nloc, mres, exits, lost)
 

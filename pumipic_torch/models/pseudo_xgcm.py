@@ -62,6 +62,7 @@ from pumipic_torch.mesh.locator import (
     detect_annulus_structured,
     detect_banded_locator,
 )
+from pumipic_torch.ops import counts as count_ops
 from pumipic_torch.ops import locate as locate_ops
 from pumipic_torch.ops import push as push_ops
 from pumipic_torch.ops import route as route_ops
@@ -620,7 +621,8 @@ def step_stats(nloc, mres, exits, lost) -> Dict[str, torch.Tensor]:
     """The step's ``stats`` from one ``all_gather`` of this rank's
     [alive, sent, kept home, overflow, unresolved, illegal, exits, lost]
     counts: sums (overflow: the max) over ranks, the imbalance max/avg of
-    the alive counts (f32), and the per-rank alive and sent counts.  The
+    the alive counts (f32; the total summed exactly, then rounded), and the
+    per-rank alive and sent counts (kernel N's reduction on the card).  The
     port's own keys: ``exits``, particles the search removed whose
     destination lies outside the domain (they crossed a model-boundary
     face), and ``lost``, particles it removed whose destination lies in the
@@ -633,12 +635,11 @@ def step_stats(nloc, mres, exits, lost) -> Dict[str, torch.Tensor]:
                         mres.num_illegal_dest, exits, lost]).to(torch.int32)
     g = group.all_gather(mine)
     with group.split("glue"):
-        stats = {k: g[:, i].sum(dtype=torch.int32) for i, k in enumerate(STAT_KEYS)}
-        stats["overflow"] = g[:, 3].max()
-        n = g[:, 0].to(torch.float32)
-        mx, total = n.max(), n.sum()
-        avg = total / total.new_full((), float(g.shape[0]))
-        stats["imbalance"] = torch.where(avg > 0, mx / avg, total.new_full((), 1.0))
+        # kernel N: the sums over the ranks (overflow: the max) and the
+        # imbalance, its total exact and rounded to f32 once
+        red = count_ops.rank_stats(g, STAT_KEYS.index("overflow"))
+        stats = {k: red[i] for i, k in enumerate(STAT_KEYS)}
+        stats["imbalance"] = red[len(STAT_KEYS):].view(torch.float32)[0]
         stats["alive_per_rank"] = g[:, 0]
         stats["sent_per_rank"] = g[:, 1]
     return stats
@@ -909,10 +910,15 @@ def make_picparts_setup(coords: np.ndarray, elem2verts: np.ndarray,
         fwd = red.reduce_comm_array(lpp.vert_send_ids, lpp.vert_recv_ids, fwd,
                                     red.Op.SUM, hier=hier, send_vals=send_rows[1])
         with group.split("glue"):
-            nloc = s2["active"].sum(dtype=torch.int32)
+            # kernel N: the alive count and the search's exits (and lost,
+            # on the analytic arms) in one launch
+            alive = [("set", s2["active"])]
+            removed = [("set", active), ("neg", elem_ids)]
             if analytic is not None:
-                lost = (active & (e_gl >= 0) & (elem_ids < 0)).sum(dtype=torch.int32)
-            exits = (active & (elem_ids < 0)).sum(dtype=torch.int32) - lost
+                nloc, lost, exits = count_ops.slot_counts(
+                    [alive, removed + [("nonneg", e_gl)], removed + [("neg", e_gl)]])
+            else:
+                nloc, exits = count_ops.slot_counts([alive, removed], [None, lost])
         return s2, fwd, step_stats(nloc, mres, exits, lost)
 
     step.last_deposit = None    # the last step's field before the reduction

@@ -447,10 +447,10 @@ def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
     no walker is left, and ``all_found`` says no walker was deleted at the
     limit.  Inactive particles get INVALID.
 
-    Kernel L on CUDA tensors (its first version, one thread a particle, for
-    the plain walk too: its lockstep tiles suit a dense walk, see
-    :func:`walk_locate_into` for the sparse ones), :func:`walk_locate_plain`
-    on CPU tensors."""
+    Kernel L on CUDA tensors (the peel form one thread a particle; without
+    a grid its dense plain walk, lockstep tiles of 32 slots, every slot
+    written: see :func:`walk_locate_into` for the sparse walks),
+    :func:`walk_locate_plain` on CPU tensors."""
     tensors = [walk_geom, dest_x, dest_y, elem_start, active]
     if grid is not None:
         if grid.cell_rows is None:
@@ -473,26 +473,30 @@ def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
     elem = torch.empty(n, dtype=torch.int32, device=dev)
     act = torch.empty(n, dtype=torch.bool, device=dev)
     stats = torch.zeros(2, dtype=torch.int32, device=dev)
-    it0 = 0 if grid is None else 1
     P = ctypes.c_void_p
-    rows = cells = None
-    ox, oy, ihx, ihy, nx, ny = 0.0, 0.0, 0.0, 0.0, 1, 1
-    if isinstance(grid, BandGrid2D):
-        cells = band_cell_of(grid, dest_x, dest_y)          # kernel B
-        rows = grid.cell_rows.data_ptr()
-    elif grid is not None:
-        rows = grid.cell_rows.data_ptr()
-        (ox, oy), (ihx, ihy), nx, ny = grid.origin, grid.inv_h, grid.nx, grid.ny
-    err = _build.lib().pp_walk_locate(
-        P(dest_x.data_ptr()), P(dest_y.data_ptr()), P(elem_start.data_ptr()),
-        P(active.data_ptr()), P(walk_geom.data_ptr()), walk_geom.shape[0],
-        P(rows), P(None if cells is None else cells.data_ptr()),
-        ox, oy, ihx, ihy, nx, ny, max_iters, it0,
-        P(elem.data_ptr()), P(act.data_ptr()), P(stats.data_ptr()), n,
-        P(kernels.stream_handle()))
+    if grid is None:                                       # the dense plain walk
+        err = _build.lib().pp_walk_dense(
+            P(dest_x.data_ptr()), P(dest_y.data_ptr()), P(elem_start.data_ptr()),
+            P(active.data_ptr()), P(walk_geom.data_ptr()), walk_geom.shape[0],
+            max_iters, P(elem.data_ptr()), P(act.data_ptr()), P(stats.data_ptr()), n,
+            P(kernels.stream_handle()))
+    else:                                                  # the peel (iteration 1) + walk
+        cells = None
+        ox, oy, ihx, ihy, nx, ny = 0.0, 0.0, 0.0, 0.0, 1, 1
+        if isinstance(grid, BandGrid2D):
+            cells = band_cell_of(grid, dest_x, dest_y)      # kernel B
+        else:
+            (ox, oy), (ihx, ihy), nx, ny = grid.origin, grid.inv_h, grid.nx, grid.ny
+        err = _build.lib().pp_walk_locate(
+            P(dest_x.data_ptr()), P(dest_y.data_ptr()), P(elem_start.data_ptr()),
+            P(active.data_ptr()), P(walk_geom.data_ptr()), walk_geom.shape[0],
+            P(grid.cell_rows.data_ptr()), P(None if cells is None else cells.data_ptr()),
+            ox, oy, ihx, ihy, nx, ny, max_iters, 1,
+            P(elem.data_ptr()), P(act.data_ptr()), P(stats.data_ptr()), n,
+            P(kernels.stream_handle()))
     _build.check(err, "locate")
     kernels.LAUNCHES["locate"] += 1
-    return elem, act, stats[0] + it0, stats[1] == 0
+    return elem, act, stats[0] if grid is None else stats[0] + 1, stats[1] == 0
 
 
 def walk_locate_count(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, walkers,

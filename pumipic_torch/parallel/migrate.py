@@ -41,6 +41,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pumipic_torch.ops import counts as cnt
 from pumipic_torch.ops import exchange as ex
 from pumipic_torch.ops import route as rt
 from pumipic_torch.ops.exchange import gid_to_lid  # noqa: F401  (the JAX module's)
@@ -219,9 +220,8 @@ def migrate(state: Dict[str, torch.Tensor], new_elem, dest_rank, elem_gid,
         peer_ids = torch.as_tensor(peers, dtype=torch.int64, device=dev)
         bucket_of[peer_ids] = torch.arange(D, dtype=torch.int32, device=dev)
         bucket = bucket_of[torch.clamp(dest_rank, 0, R - 1).long()]
-        illegal = wants_leave & (bucket < 0)
         routed = wants_leave & (bucket >= 0)
-        n_free_min = state["active"].shape[0] - state["active"].sum(dtype=torch.int32)
+        n_free_min = cnt.slot_counts([[("clear", state["active"])]])[0]     # kernel N
         # bucket ids in [0, D), D for every item that stays (X1)
         key = torch.where(routed, bucket, D).to(torch.int32)
         rank, counts = ex.rank_in_key(key, D)
@@ -242,10 +242,14 @@ def migrate(state: Dict[str, torch.Tensor], new_elem, dest_rank, elem_gid,
         # the arrivals into the free slots, in place (X3)
         new_state, num_recv, num_unres, recv_over = ex.place_arrivals(
             state, staying, new_elem, recv, field_slices, gid_sorted, gid_perm)
-    return MigrateResult(new_state, leaving.sum(dtype=torch.int32), num_recv,
-                         overflow | recv_over, num_unres,
-                         illegal.sum(dtype=torch.int32) if neighbour else z,
-                         kept.sum(dtype=torch.int32))
+        # kernel N: the sent, kept-home and illegal counts in one launch
+        # (illegal: wanting to leave for a rank outside the plan)
+        counts = [[("set", leaving)], [("set", kept)]]
+        if neighbour:
+            counts.append([("set", wants_leave), ("neg", bucket)])
+        c = cnt.slot_counts(counts)
+    return MigrateResult(new_state, c[0], num_recv, overflow | recv_over, num_unres,
+                         c[2] if neighbour else z, c[1])
 
 
 def migrate_structure(ps, new_elem, dest_rank, elem_gid, gid_sorted, gid_perm,

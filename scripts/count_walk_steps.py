@@ -37,14 +37,20 @@ the bad parents of phase c's located particles, 0% and 1% bad
 (``chip_smoke.parent_claims``), budget 32; (b) the picparts lost check
 (rank 0 of the 4-rank 120k arm after one push and the local walk,
 ``chip_smoke.x2_step_case``, at 3/8 of the particles' slots), budget the
-global mesh's element count; (c) the gyro map's ring points, budget 100.
-Each case's walkers, the rows they read (``chip_smoke.plain_walk_rows``,
-a 48-byte row a step) and the distinct rows among them (the table's part
-of ``chip_smoke.py``'s bound) give L's L2-row estimate, the rows' bytes
-over ``L2_BYTES_PER_S``: an estimate, not a floor, since a warp's lanes
-that read one row share its L1 line; ``warp_steps_first`` is the first
-plain walk's schedule (one thread a slot, a warp waiting for its longest
-walk).
+global mesh's element count; (c) the gyro map's ring points, budget 100;
+(d) the locator-less step's walk (``bench_torch.setup(use_locator=False)``:
+the seeded particles pushed once by kernel P, each walked from its
+element, budget 64).  Each case's walkers, the rows they read
+(``chip_smoke.plain_walk_rows``, a 48-byte row a step; the lane steps) and
+the distinct rows among them (the table's part of ``chip_smoke.py``'s
+bound) give L's L2-row estimate, the rows' bytes over ``L2_BYTES_PER_S``:
+an estimate, not a floor, since a warp's lanes that read one row share
+its L1 line; ``warp_steps_first`` is the first plain walk's schedule (one
+thread a slot, a warp waiting for its longest walk); for the dense cases
+(c) and (d), ``warp_steps_dense`` is the dense walk's (the same lockstep
+tiles of 32 slots, so the same count) and ``warp_steps_two_a_lane`` that
+of two walkers a lane on tiles of 64 (a design that was tried and
+withdrawn: each tile's longest walk, its rounds).
 
 A count, not a time: the default device is the CPU.  Prints one JSON line
 per case.
@@ -212,6 +218,12 @@ def main_l(n: int, dev: str) -> None:
     gpx, gpy, gstart = (t.to(dev) for t in px.gyro_ring_points(mesh, cfg.gyro))
     cases.append(("(c) ring points", mesh.walk_geom, gpx, gpy, gstart.to(torch.int32),
                   torch.ones(gpx.shape[0], dtype=torch.bool, device=dev), 100))
+    _, st, step, _ = bench_torch.setup(dev, num_ptcls=n, mesh_path=cs.MESH, use_locator=False)
+    tx, ty = push_ops.push_banded(st["x0"], st["x1"], st["cphi"], st["sphi"], st["b"],
+                                  st["elem"], st["active"], step.model.rot, 0.0, 0.0, 0.9)[:2]
+    cases.append(("(d) the locator-less step", mesh.walk_geom, tx, ty, st["elem"],
+                  st["active"], 64))
+    del st, step
     cs.NUM_PTCLS, cs.X_SLOTS = n, n * 3 // 8
     gm = cs.exchange_mesh()
     lpp = cs.exchange_picpart(dev, gm)
@@ -226,7 +238,13 @@ def main_l(n: int, dev: str) -> None:
         s = steps.to(torch.int64).cpu().numpy()
         tiles = np.pad(s, (0, -s.size % 32)).reshape(-1, 32)
         first = int(tiles.max(1).sum())
+        dense = {}
+        if name[:3] in ("(c)", "(d)"):
+            two = np.pad(s, (0, -s.size % 64)).reshape(-1, 64)
+            dense = {"warp_steps_dense": first,
+                     "warp_steps_two_a_lane": int(two.max(1).sum())}
         print(json.dumps({"case": name, "slots": s.size, "walkers": w, "rows": rows,
+                          "lane_steps": rows, **dense,
                           "distinct_rows": distinct,
                           "rows_per_walker": rows / max(w, 1), "max_steps": int(s.max(initial=0)),
                           "walks_of_at_most": {k: int(((s > 0) & (s <= k)).sum())

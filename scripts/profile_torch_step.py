@@ -3,7 +3,9 @@
     python3 scripts/profile_torch_step.py [num_ptcls] [steps] [arm ...]
 
 For each arm (default: ``cartesian``; also ``band``, ``annulus``,
-``pprad``, ``rotgather``, the arms of ``chip_smoke.py``), sets up
+``pprad``, ``rotgather``, ``nolocator`` (no locator grid: kernel L's dense
+plain walk from each particle's element), the arms of ``chip_smoke.py``),
+sets up
 bench_torch's configuration of that arm (default 10M particles); ``pps3d``
 and ``pps3d-walk`` are bench_torch's pseudoPushAndSearch arms (the Kuhn
 box, DPS, kernel K or kernel L3), ``pps3d-reflect`` its reflecting-wall
@@ -57,6 +59,7 @@ ARMS = {  # arm -> bench_torch.setup keywords
     "annulus": {"mesh_path": "annulus"},
     "pprad": {"gyro_ppr": True},
     "rotgather": {"rot_analytic": False},
+    "nolocator": {"use_locator": False},
 }
 PPS3D_ARMS = {  # arm -> bench_torch.setup_pps3d keywords
     "pps3d": {"kuhn": "auto"},

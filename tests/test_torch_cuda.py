@@ -3,8 +3,9 @@ S, K, L3, the GITR-style app's R, M, F and W, the 2D walk modes' M2 and the
 deposit V, with their modes, the rebuild's Q and C, and the distributed
 step's X1, X2, X3 and O on tests/torch_ranks.py's adversarial cases, its
 route and the balancer's selection (Y1 in each form, Y2, Y3), the parent
-check J and L's plain walk in place, the reshuffle's U1, U2 and U3 and the
-Sell-C-σ row order Z) against its plain PyTorch
+check J and L's plain walk in place and dense, the reshuffle's U1, U2 and
+U3, the Sell-C-σ row order Z and the picparts step's counts N) against its
+plain PyTorch
 version on the same CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
 lengths and R's corner rows at their edges.
 
@@ -2534,3 +2535,97 @@ def test_balance_select_kernel_equals_plain(dev, noncore, kind):
         assert torch.equal(got, want)
         if kind != "zero":
             assert bool((got != dest).any())
+
+
+@pytest.mark.parametrize("max_iters", [100, 1, 0])
+@pytest.mark.parametrize("n", [0, 1, 31, 65, 200_003])
+def test_dense_walk_kernel_equals_plain(dev, mesh, n, max_iters):
+    """Kernel L's dense plain walk (every slot written) on ring points
+    around the vertices, far targets, NaN targets and starts out of range,
+    with inactive slots, at sizes that leave partial tiles: equal to the
+    plain version, one launch."""
+    g = torch.Generator(device=dev).manual_seed(n + max_iters)
+    px_, py_, start = (t.to(dev) for t in px.gyro_ring_points(mesh, px.GyroConfig()))
+    reps = -(-n // px_.shape[0]) if n else 0
+    dx, dy = px_.repeat(reps)[:n].clone(), py_.repeat(reps)[:n].clone()
+    start = start.to(torch.int32).repeat(reps)[:n].clone()
+    lo_, hi = mesh.coords.amin(0), mesh.coords.amax(0)
+    far = torch.rand(n, 2, generator=g, device=dev) < 0.05
+    rnd = lo_ + (hi - lo_) * torch.rand(n, 2, generator=g, device=dev)
+    dx, dy = torch.where(far[:, 0], rnd[:, 0], dx), torch.where(far[:, 0], rnd[:, 1], dy)
+    dx[3:9] = float("nan")
+    bad = torch.rand(n, generator=g, device=dev) < 0.02
+    start = torch.where(bad, torch.randint(-5, mesh.nelems + 5, (n,), generator=g, device=dev,
+                                           dtype=torch.int32), start)
+    active = torch.rand(n, generator=g, device=dev) < 0.9
+    args = (mesh.walk_geom, dx, dy, start, active, max_iters)
+    n0 = kernels.LAUNCHES["locate"]
+    got = se.walk_locate(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["locate"] == n0 + 1
+    _equal(got, se.walk_locate_plain(*args))
+
+
+def _count_case(dev, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand(n, generator=g, device=dev) < 0.7
+    b = torch.rand(n, generator=g, device=dev) < 0.2
+    e = torch.randint(-3, 50, (n,), generator=g, device=dev, dtype=torch.int32)
+    f = torch.randint(-1, 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    return a, b, e, f
+
+
+@pytest.mark.parametrize("n", [0, 1, 257, 1_000_003])
+def test_slot_counts_kernel_equals_plain(dev, n):
+    """Kernel N: up to four counts of up to three terms each, of their own
+    lengths, less a device count where given; called again (its
+    accumulators set back to 0) and replayed from a CUDA graph."""
+    from pumipic_torch.ops import counts as cn
+
+    a, b, e, f = _count_case(dev, n, n)
+    m = n // 2
+    a2, _, e2, _ = _count_case(dev, m, n + 1)
+    sub = torch.tensor(7, dtype=torch.int32, device=dev)
+    cases = [
+        ([[("set", a)]], None),
+        ([[("clear", a)], [("set", a), ("neg", e)]], None),
+        ([[("set", a), ("neg", e), ("nonneg", f)], [("set", a), ("neg", e), ("neg", f)],
+          [("set", b)], [("set", a2), ("nonneg", e2)]], [None, sub, None, sub]),
+        # terms not 16-byte aligned: the slots one by one
+        ([[("set", a[1:]), ("neg", e[1:])], [("clear", b[3:])]], None),
+    ]
+    for counts, subs in cases:
+        want = cn.slot_counts_plain(counts, subs or [None] * len(counts))
+        for _ in range(2):
+            n0 = kernels.LAUNCHES["slot_counts"]
+            got = cn.slot_counts(counts, subs)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["slot_counts"] == n0 + 1
+            assert torch.equal(got, want)
+    counts, subs = cases[2]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cn.slot_counts(counts, subs)
+    for _ in range(3):
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, cn.slot_counts_plain(counts, subs))
+
+
+@pytest.mark.parametrize("R", [1, 2, 4, 7])
+def test_rank_stats_kernel_equals_plain(dev, R):
+    """Kernel N's reduction over the ranks: the int32 column sums, the
+    max of one column and the f32 imbalance (totals below and above 2^24,
+    and no particle at all)."""
+    from pumipic_torch.ops import counts as cn
+
+    g = torch.Generator(device=dev).manual_seed(R)
+    for hi in (0, 1, 1000, 9_000_000, 2**30):
+        gat = torch.randint(0, hi + 1, (R, 8), generator=g, device=dev, dtype=torch.int32)
+        gat[:, 3] = torch.randint(0, 2, (R,), generator=g, device=dev, dtype=torch.int32)
+        n0 = kernels.LAUNCHES["slot_counts"]
+        got = cn.rank_stats(gat, 3)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["slot_counts"] == n0 + 1
+        assert torch.equal(got, cn.rank_stats_plain(gat, 3))

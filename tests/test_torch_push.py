@@ -254,7 +254,8 @@ def test_kernel_build_flags():
     assert "-fmad=false" in flags and "-ftz=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert sorted(p.name for p in _build.sources()) == [
-        "annulus.cu", "band.cu", "boris.cu", "deposit.cu", "exchange.cu", "gather.cu",
+        "annulus.cu", "band.cu", "boris.cu", "counts.cu", "deposit.cu", "exchange.cu",
+        "gather.cu",
         "gitr.cu", "histogram.cu", "kuhn.cu", "locate.cu", "locate3d.cu", "owner.cu",
         "parents.cu", "push.cu", "rebuild.cu", "reshuffle.cu", "route.cu", "slotmap.cu",
         "trace2d.cu", "trace3d.cu", "vdeposit.cu"]
