@@ -52,6 +52,8 @@ which wins over the environment):
 - ``BENCH_MESH``: a .msh or .msh.gz path, or ``annulus`` for the generated
   structured annulus of ``BENCH_ELEMS`` elements (default 24,000; 23,976
   triangles), whose proven analytic locate is kernel A;
+  ``chip_tree/xgc_like_1M.msh.gz`` is the production-class mesh (981,178
+  triangles, :func:`production_mesh`), generated there at first use;
 - ``BENCH_ANALYTIC`` (``analytic_locate``, default ``auto``; ``off`` walks
   even on the annulus);
 - ``BENCH_BANDLOC`` (``band_locator``, default ``auto``; ``force`` takes
@@ -89,14 +91,39 @@ from __future__ import annotations
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 PROXY_BASELINE_PTCLS_PER_SEC = 2.0e7
-DEFAULT_MESH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "data", "xgc_like_120k.msh.gz")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEFAULT_MESH = os.path.join(ROOT, "data", "xgc_like_120k.msh.gz")
 GENERATED_MESHES = ("annulus", "gen", "none")
+# the production-class tokamak mesh: scripts/make_xgc_mesh.py's 120k
+# generator arguments (120, 620) scaled by ~sqrt(8), 981,178 triangles;
+# written at first use into the git-ignored chip_tree/, never committed
+PRODUCTION_MESH = os.path.join(ROOT, "chip_tree", "xgc_like_1M.msh.gz")
+PRODUCTION_SHAPE = (340, 1750)
+
+
+def production_mesh(path: Optional[str] = None) -> str:
+    """The path of the ~1M-element tokamak mesh (``path``, by default
+    :data:`PRODUCTION_MESH`), a gzip'd gmsh file written with the port's
+    ``tokamak_mesh(*PRODUCTION_SHAPE)`` and ``write_msh2`` when it does not
+    exist yet (into a temporary name first, so an
+    interrupted write leaves no partial file); an existing file is reused.
+    Readers take it through ``read_msh`` like any imported mesh."""
+    path = path or PRODUCTION_MESH
+    if not os.path.exists(path):
+        from pumipic_torch.mesh.generate import tokamak_mesh
+        from pumipic_torch.mesh.gmsh import write_msh2
+
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp.gz"
+        write_msh2(tmp, *tokamak_mesh(*PRODUCTION_SHAPE))
+        os.replace(tmp, path)
+    return path
 
 
 def _sync(device: torch.device) -> None:
@@ -238,13 +265,17 @@ def setup_gitr(device, num_ptcls=None, mesh_elems=None, wall=None, mesh=None):
 
 def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
           analytic_locate=None, band_locator=None, band_theta=None,
-          gyro_ppr=None, locator=None, rot_analytic=None, use_locator=None):
+          gyro_ppr=None, locator=None, rot_analytic=None, use_locator=None,
+          mesh=None):
     """Resolve the knobs (a keyword, else its environment variable, else
     ``bench.py``'s default) and build the run on ``device``.  Returns
     (mesh, state, step, info): ``info`` holds ``num_ptcls``, the row
     ``tag`` and the setup seconds by phase (``setup_s``).  ``locator``: a
     grid already built for this mesh and configuration, passed on to
-    ``make_dp_setup`` (it skips the build)."""
+    ``make_dp_setup`` (it skips the build); ``mesh``: the ``Mesh2D`` of
+    ``mesh_path`` already read onto ``device`` (the read is skipped).  The
+    production mesh's path (:data:`PRODUCTION_MESH`) is generated at first
+    use."""
     from pumipic_torch.mesh.core import Mesh2D
     from pumipic_torch.mesh.gmsh import read_msh
     from pumipic_torch.models.pseudo_xgcm import (
@@ -267,9 +298,13 @@ def setup(device, num_ptcls=None, mesh_path=None, mesh_elems=None,
 
     seconds = {}
     t0 = time.perf_counter()
-    if mesh_path in GENERATED_MESHES:
+    if mesh is None and mesh_path in GENERATED_MESHES:
         mesh = make_default_mesh(mesh_elems, device=device)
-    else:
+    elif mesh is None:
+        if os.path.abspath(mesh_path) == PRODUCTION_MESH:
+            production_mesh()
+            seconds["mesh file"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
         coords, tris, cls = read_msh(mesh_path)
         mesh = Mesh2D.from_arrays(coords, tris, cls, device=device)
     seconds["mesh"] = time.perf_counter() - t0
@@ -450,7 +485,8 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
     fields.  ``knobs`` are :func:`setup`'s (dp), :func:`setup_pps3d`'s
     (pps3d) or :func:`setup_gitr`'s (gitr) keywords.  ``detail`` also holds
     the setup seconds by phase, the last step's ``iters`` (and, in dp mode,
-    ``all_found``), and the row ``tag``."""
+    ``all_found`` and ``deleted_per_step``: the walkers the warm-up and
+    each timed step deleted at the walk limit), and the row ``tag``."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("bench_torch measures on a CUDA device and "
@@ -476,6 +512,9 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
         info["setup_s"]["first step"] = time.perf_counter() - t0
 
     history, timer, marks = [], None, []
+    # dp: the walkers each step's search deleted at the walk limit, kept on
+    # the device until the timed steps are done
+    deleted = [fields["deleted"]] if mode == "dp" else []
     if picparts:
         history.append((fields["stats"], fields["fwd"], info["step"].last_deposit))
     if picparts and device.type == "cuda":
@@ -491,6 +530,8 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
         if picparts:
             history.append((fields["stats"], fields["fwd"],
                             info["step"].last_deposit))
+        if deleted:
+            deleted.append(fields["deleted"])
         if marks:
             marks[i + 1].record()
     _sync(device)
@@ -532,6 +573,7 @@ def main(device=None, num_ptcls=None, iters=None, verbose: bool = True,
         fields["picpart"] = info["picpart"]
     if mode == "dp":
         detail["all_found"] = bool(fields["all_found"])
+        detail["deleted_per_step"] = [int(d) for d in deleted]
     if mode == "gitr":
         detail["wall_hits_total"] = float(fields["wall_hits"].sum())
     metrics = {

@@ -114,7 +114,20 @@ sources in this checkout.  Phases, each raising on failure:
     rank's size of the 4-rank 120k picparts arm (3.75M slots), X1-X3, O,
     Y1-Y3 and N (``check_exchange``; N at the picparts step's own inputs,
     with the kernels a step's counts launch from captured CUDA graphs, the
-    torch code's against N's);
+    torch code's against N's).  Then, on the ~1M-element production mesh
+    (``bench_torch.production_mesh``: ``tokamak_mesh(340, 1750)``, 981,178
+    triangles, written at first use into the git-ignored ``chip_tree/``
+    and read through ``read_msh``) with its cartesian cpe-4 grid (3.9M
+    cells, ~220 MB of cell rows) and 10M seeded particles: L's peel + walk,
+    L's dense plain walk at the locator-less step (its longest walk and
+    the walkers deleted at the limit counted), H into 981,178 counters, D
+    over its gyro map, Z on the located particles' 981,178 counts, and on
+    their Sell-C-σ
+    structure C on the rebuild's 20-bit keys, S and G's columns form, each
+    with its working set against the L2 (``check_production``).  Every
+    cartesian grid is built on the card (its cells' flood fill and its cell
+    rows' calibration walk as torch ops there); at 120k it is held against
+    the host build, bit for bit (``check_calibration``);
 (d) run the six FULL-mode arms through their entry point,
     ``bench_torch.main()``, at 10M particles, 1 warm-up + 20 timed steps
     each, with the launch counters reset just before each: the cartesian
@@ -124,10 +137,13 @@ sources in this checkout.  Phases, each raising on failure:
     not its band mode) and the locator-less arm (``use_locator=False``:
     L's dense plain walk from each particle's element, every particle
     found in every step); the cartesian, pprad and rotation-table arms
-    reuse phase c's cartesian grid.
+    reuse phase c's cartesian grid; then the cartesian and locator-less
+    arms on the 1M mesh, reusing phase c's read of it and its grid.
     Require each arm's kernels launched (and the annulus arm's steps
     launching no L: its only L launch is the setup's gyro-map walk), finite
-    positive fields and > 90% of the particles alive.  Then
+    positive fields and > 90% of the particles alive, the walkers each
+    step deleted at the walk limit counted and logged (no particle both
+    alive and counted).  Then
     pseudoPushAndSearch through ``bench_torch.main(mode="pps3d")`` at 10M
     particles on the Kuhn box: the Kuhn arm (``pps3d-dps``, K and Q and no
     L3 or P) and the walk arm (``pps3d-dps-walk``, K's push-only form, L3
@@ -151,7 +167,8 @@ sources in this checkout.  Phases, each raising on failure:
     app through its entry points (construction with phase c's cartesian
     grid, then ``run``) at 10M particles on the 120k mesh: Sell-C-σ with 1
     warm-up + 20 timed steps (ms per step from the port's timing registry),
-    then CSR, CabM and DPS with 1 + 3; require each layout's launch set
+    then CSR, CabM and DPS with 1 + 3, then Sell-C-σ on the 1M mesh with
+    phase c's grid and 1 + 20; require each layout's launch set
     (the sorted layouts C, Q and G, SCS and CabM S too, SCS Z; DPS steps Q alone
     of them), ``num_ptcls`` equal to the active
     count, no overflow, every active element in range and the active pids
@@ -330,6 +347,11 @@ ARMS = {
     # particle's previous element; every step must find every particle
     "nolocator": ({"use_locator": False}, ("push", "locate", "histogram", "deposit")),
 }
+
+# the arms of phase d on the ~1M-element production mesh (phase c's mesh
+# read and grid), and the Sell-C-σ app's timed steps there
+PRODUCTION_ARMS = ("cartesian", "nolocator")
+PRODUCTION_APP_STEPS = TIMED_STEPS
 
 # pseudoPushAndSearch's arms of phase d: bench_torch.main keywords, steps,
 # the kernels each run must launch and those it must not
@@ -757,12 +779,14 @@ def check_cartesian(results: dict, dev, mesh):
     from pumipic_torch.ops import search as se
 
     cfg = _cfg(px, mesh)
-    s, step = px.make_dp_setup(mesh, cfg, dev)
+    timings = {}
+    s, step = px.make_dp_setup(mesh, cfg, dev, timings=timings)
     model = step.model
     n = s["x0"].shape[0]
     R, P = cfg.gyro.num_rings, cfg.gyro.points_per_ring
     log(f"[c] 120k mesh: E={mesh.nelems} V={mesh.nverts}, N={n}, "
         f"cells={model.locator.nx * model.locator.ny}, bands={model.rot.cd.shape[0]}")
+    check_calibration(model.locator, mesh, timings["locator"])
 
     # P: push at 10M
     pargs = (s["x0"], s["x1"], s["cphi"], s["sphi"], s["b"], s["elem"],
@@ -863,45 +887,79 @@ def check_cartesian(results: dict, dev, mesh):
     del perm, key, e, a
 
     # D: ring expansion + mapped scatter at V, R, P
+    check_deposit(results, "both passes", dev, mesh, model.gyro_fwd, counts, R, P)
+    return s, model, elem, active, torch.stack([tx, ty], 1)
+
+
+def check_deposit(results: dict, what: str, dev, mesh, gyro, counts, R: int, P: int):
+    """D's two passes (the ring expansion of ``counts`` and the mapped
+    scatter over ``gyro``): equal to their plain versions, timed beside
+    them, their bound (each table read once) and the composite CSR map's
+    ``torch.mv``.  Returns the bytes of the tables its gathers read."""
+    from pumipic_torch.ops import scatter as sc
+
     got_r = sc.deposit_rings(counts, mesh, R)
     want_r = sc.ring_accum_plain(counts, mesh, R)
-    got_f = sc.scatter_to_mapped_verts(got_r, model.gyro_fwd, mesh.nverts, R, P)
-    want_f = sc.mapped_plain(want_r, model.gyro_fwd, mesh.nverts, R, P)
-    compare("deposit", f"(V={mesh.nverts}, R={R}, P={P})", (got_r, got_f),
+    got_f = sc.scatter_to_mapped_verts(got_r, gyro, mesh.nverts, R, P)
+    want_f = sc.mapped_plain(want_r, gyro, mesh.nverts, R, P)
+    compare("deposit", f"{what} (V={mesh.nverts}, R={R}, P={P})", (got_r, got_f),
             (want_r, want_f), results)
 
     def dep():
         r = sc.deposit_rings(counts, mesh, R)
-        return sc.scatter_to_mapped_verts(r, model.gyro_fwd, mesh.nverts, R, P)
+        return sc.scatter_to_mapped_verts(r, gyro, mesh.nverts, R, P)
 
     def dep_plain():
         r = sc.ring_accum_plain(counts, mesh, R)
-        return sc.mapped_plain(r, model.gyro_fwd, mesh.nverts, R, P)
+        return sc.mapped_plain(r, gyro, mesh.nverts, R, P)
 
-    time_pair("deposit", "both passes", dep, dep_plain, results, plain_reps=20)
-    record_bound("deposit", "both passes", results, nbytes(
-        counts, mesh.vert2elem_offsets, mesh.vert2elem_vals, model.gyro_fwd.offsets,
-        model.gyro_fwd.src, got_r, got_f))
-    m = gyro_composite(mesh, model.gyro_fwd, R, P, dev)
+    time_pair("deposit", what, dep, dep_plain, results, plain_reps=20)
+    tables = nbytes(counts, mesh.vert2elem_offsets, mesh.vert2elem_vals, gyro.offsets,
+                    gyro.src, got_r)
+    record_bound("deposit", what, results, tables + nbytes(got_f))
+    m = gyro_composite(mesh, gyro, R, P, dev)
     cf = counts.to(torch.float32)
-    log(f"[c] deposit yardstick: composite map {tuple(m.shape)}, {m.values().numel()} "
-        f"entries; max |mv - kernel| = {max_err(torch.mv(m, cf), got_f)}")
-    record_library("deposit", "both passes", "torch.mv of the composite CSR map M2·M1/P",
+    log(f"[c] deposit {what} yardstick: composite map {tuple(m.shape)}, "
+        f"{m.values().numel()} entries; max |mv - kernel| = {max_err(torch.mv(m, cf), got_f)}")
+    record_library("deposit", what, "torch.mv of the composite CSR map M2·M1/P",
                    lambda: torch.mv(m, cf), results)
-    del m, cf
-    return s, model, elem, active, torch.stack([tx, ty], 1)
+    return tables
+
+
+def check_calibration(grid, mesh, device_s: float) -> None:
+    """The cartesian grid built on the card (the cells' flood fill and the
+    cell rows' calibration walk as torch ops there: the setup's search
+    build, ``device_s`` seconds) equals the host build's (the flood fill
+    on the CPU, the numpy calibration walk) bit for bit: ``cell_elem`` and
+    ``cell_rows``."""
+    from pumipic_torch.mesh import locator as loc
+    from pumipic_torch.models import pseudo_xgcm as px
+
+    cpe = px.resolve_locator_policy(px.XGCmConfig(), mesh.nelems, NUM_PTCLS)[0]
+    t0 = time.perf_counter()
+    host = loc.build_locator_grid(mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(),
+                                  cells_per_elem=cpe, walk_geom=mesh.walk_geom.cpu(),
+                                  device="cpu")
+    host_s = time.perf_counter() - t0
+    if not (torch.equal(host.cell_elem, grid.cell_elem.cpu())
+            and torch.equal(host.cell_rows, grid.cell_rows.cpu())):
+        raise AssertionError("the grid built on the card differs from the host build's")
+    log(f"[c] cartesian grid ({grid.nx} x {grid.ny} cells, cpe {cpe}) built on the card "
+        f"equals the host build bit for bit (the search build on the card {device_s:.2f} s, "
+        f"the host build {host_s:.2f} s)")
 
 
 def plain_walk_rows(walk_geom, dest_x, dest_y, start, walkers,
-                    max_iters: int):
-    """Each slot's steps in kernel L's plain walk, the walk_geom rows it
-    reads (0 where no walker), and the number of distinct rows the walk
-    reads, counted on the plain version's batch walk."""
+                    max_iters: int, grid=None):
+    """Each slot's steps in kernel L's plain walk (with ``grid``: its walk
+    after the peel), the walk_geom rows it reads (0 where no walker), and
+    the number of distinct rows the walk reads, counted on the plain
+    version's batch walk."""
     from pumipic_torch.ops import search as se
 
     steps = torch.zeros(walkers.shape[0], dtype=torch.int64, device=walkers.device)
     read = torch.zeros(walk_geom.shape[0], dtype=torch.bool, device=walkers.device)
-    se._walk_batch(walk_geom, dest_x, dest_y, start, walkers, max_iters,
+    se._walk_batch(walk_geom, dest_x, dest_y, start, walkers, max_iters, grid,
                    steps_of=steps, rows_read=read)
     return steps, int(read.sum())
 
@@ -3573,6 +3631,152 @@ def check_exchange(results: dict, dev) -> None:
     torch.cuda.empty_cache()
 
 
+L2_BYTES = 50 * 2**20              # the H100 SXM's L2 cache
+
+
+def l2_fit(kernel: str, what: str, results: dict, working_set: int) -> None:
+    """Whether case ``what``'s working set (the tables its gathers read,
+    counted by the rows this data touches) fits the card's L2."""
+    fits = working_set <= L2_BYTES
+    log(f"[c] {kernel} {what}: working set {working_set / 1e6:.1f} MB, "
+        f"{'fits' if fits else 'exceeds'} the {L2_BYTES / 2**20:.0f} MiB L2")
+    case_of(kernel, what, results).update(working_set_mb=working_set / 1e6, fits_l2=fits)
+
+
+def check_production(results: dict, dev):
+    """The kernels at the production mesh's shapes: the ~1M-element tokamak
+    mesh (``bench_torch.production_mesh``, written at first use and read
+    through ``read_msh``), its cartesian cpe-4 grid calibrated on the card
+    and the seeded 10M particles: L's peel + walk over the ~220 MB cell-row
+    table, L's dense plain walk at the locator-less step, H into 981,178
+    counters, D over the mesh's gyro map (491,770 vertices), Z's row order
+    on the located particles' 981,178 counts, then on a Sell-C-σ structure
+    of them (the app's layout) C on the rebuild's
+    20-bit keys, S and G at the sorted rebuild's shapes.  Each case equal to
+    its plain version, timed beside its bound (bytes: the rows this data
+    reads) and the library call; its working set against the L2.  Returns
+    the mesh and the grid (phase d's 1M arms reuse them) and the setup's
+    seconds by phase."""
+    import bench_torch
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.mesh.gmsh import read_msh
+    from pumipic_torch.models import pseudo_xgcm as px
+    from pumipic_torch.ops import push as push_ops
+    from pumipic_torch.ops import scatter as sc
+    from pumipic_torch.ops import search as se
+
+    seconds = {}
+    t0 = time.perf_counter()
+    path = bench_torch.production_mesh()
+    seconds["mesh file"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = Mesh2D.from_arrays(*read_msh(path), device=dev)
+    seconds["mesh"] = time.perf_counter() - t0
+    cfg = _cfg(px, mesh)
+    s, step = px.make_dp_setup(mesh, cfg, dev, timings=seconds)
+    torch.cuda.synchronize()
+    model = step.model
+    grid = model.locator
+    E, n = mesh.nelems, s["x0"].shape[0]
+    log(f"[c] 1M mesh: E={E} V={mesh.nverts}, N={n}, cells={grid.nx * grid.ny} "
+        f"({nbytes(grid.cell_rows) / 1e6:.1f} MB of cell rows, walk_geom "
+        f"{nbytes(mesh.walk_geom) / 1e6:.1f} MB); setup seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+
+    tx, ty = _push(push_ops, s, model, cfg)[:2]
+    # L: peel + guess walk over the 1M grid's table
+    what = "peel+walk, 1M mesh"
+    largs = (mesh.walk_geom, tx, ty, s["elem"], s["active"], cfg.max_search_iters)
+    got = se.walk_locate(*largs, grid=grid)
+    compare("locate", f"{what} ({n} particles, {grid.nx * grid.ny} cells)", got,
+            se.walk_locate_plain(*largs, grid=grid), results)
+    log(f"[c] locate {what}: iters={int(got[2])} all_found={bool(got[3])} "
+        f"alive={int(got[1].sum())}")
+    time_pair("locate", what, lambda: se.walk_locate(*largs, grid=grid),
+              lambda: se.walk_locate_plain(*largs, grid=grid), results, plain_reps=3,
+              record=False)
+    cells = int(torch.unique(grid.cell_of(tx, ty)[s["active"]]).numel())
+    steps, distinct = plain_walk_rows(*largs, grid=grid)
+    rows = nbytes(grid.cell_rows) // grid.cell_rows.shape[0] * cells
+    walk_rows_b = distinct * mesh.walk_geom.shape[1] * mesh.walk_geom.element_size()
+    log(f"[c] locate {what}: {cells} distinct cells read ({rows / 1e6:.1f} MB of "
+        f"{nbytes(grid.cell_rows) / 1e6:.1f}), {int((steps > 0).sum())} walkers past the "
+        f"peel, {int(steps.sum())} walk rows, {distinct} distinct")
+    case_of("locate", what, results).update(cells_read=cells, walk_rows=int(steps.sum()),
+                                             distinct_rows=distinct)
+    record_bound("locate", what, results, nbytes(*largs[1:5], *got[:2]) + rows + walk_rows_b,
+                 40.0 * n)
+    l2_fit("locate", what, results, rows + walk_rows_b)
+    elem, active = got[0], got[1]
+
+    # L: the dense plain walk at the locator-less step (the same particles,
+    # each walked from its element)
+    what = "plain walk, the locator-less step, 1M mesh"
+    got = se.walk_locate_counted(*largs)
+    e, iters, unfinished = se._walk_batch(*largs)
+    compare("locate", f"{what} ({n} particles)", got,
+            (e, e >= 0, torch.tensor(iters, dtype=torch.int32, device=dev),
+             torch.tensor(unfinished, dtype=torch.int32, device=dev)), results)
+    del e
+    longest = int(got[2])
+    log(f"[c] locate {what}: longest walk {longest}, {int(got[3])} deleted at the limit "
+        f"{cfg.max_search_iters}, alive={int(got[1].sum())}")
+    time_pair("locate", what, lambda: se.walk_locate(*largs),
+              lambda: se.walk_locate_plain(*largs), results, plain_reps=2, record=False)
+    walk_b = walk_rows(what, largs, results)
+    case_of("locate", what, results).update(longest_walk=longest, deleted=int(got[3]))
+    record_bound("locate", what, results, nbytes(*largs[1:5], *got[:2]) + walk_b)
+    l2_fit("locate", what, results, walk_b)
+    del got, steps
+
+    # H: 10M keys into the 1M mesh's counters
+    what = "main-path order, 1M mesh"
+    counts = sc.histogram(elem, active, E)
+    compare("histogram", f"{what} ({n} keys, {E} bins)", counts,
+            sc.histogram_plain(elem, active, E), results)
+    time_pair("histogram", what, lambda: sc.histogram(elem, active, E),
+              lambda: sc.histogram_plain(elem, active, E), results, record=False)
+    record_bound("histogram", what, results, nbytes(elem, active, counts))
+    key = torch.where(active, elem, E)
+    record_library("histogram", what, "torch.bincount",
+                   lambda: torch.bincount(key, minlength=E + 1), results, entry=False)
+    l2_fit("histogram", what, results, nbytes(counts))
+    del key
+
+    # D: the ring expansion and the mapped scatter over the 1M mesh's map
+    what = "both passes, 1M mesh"
+    R, P = cfg.gyro.num_rings, cfg.gyro.points_per_ring
+    l2_fit("deposit", what, results,
+           check_deposit(results, what, dev, mesh, model.gyro_fwd, counts, R, P))
+
+    # Z: the app's row order on the located particles' counts
+    what = f"app scs, {E} triangles"
+    check_scs_row_order(results, counts, n, what)
+    l2_fit("scs_row_order", what, results, nbytes(counts) * 4)
+
+    # C, S, G on a Sell-C-σ structure of the located particles
+    ps = scs_of_located(dev, E, s, elem, active)
+    torch.cuda.synchronize()
+    del s
+    bands = push_ops.BandClasses.build(
+        push_ops.detect_banded_class(mesh.class_id.cpu().numpy()), dev)
+    new_elem = located_after_push(mesh, ps, cfg, grid, bands)
+    modes, key = slot_map_inputs(ps, new_elem, E)
+    what = "app step-1 order, 1M mesh"
+    check_key_sort(results, what, key, E)
+    l2_fit("key_sort", what, results, 4 * nbytes(key))     # a pass's keys and order in and out
+    what = "scs, 1M mesh"
+    got = check_slot_map(results, what, modes["scs"])
+    l2_fit("slot_map", what, results, nbytes(*modes["scs"][2:5]))
+    what = "columns form, step-1 locality, 1M mesh"
+    cols = [ps.fields[k] for k in ("x", "xtgt", "pid", "b", "phi")] + [key]
+    check_columns(results, what, cols, got[0])
+    l2_fit("row_gather", what, results, nbytes(*cols))
+    del ps, new_elem, modes, key, got, cols, counts
+    torch.cuda.empty_cache()
+    return mesh, grid, seconds
+
+
 def phase_c(results: dict, dev, smi: str):
     """Returns the 120k mesh, its cartesian grid and the band grid built
     here (phase d reuses them), and the band grid's build seconds."""
@@ -3614,64 +3818,104 @@ def phase_c(results: dict, dev, smi: str):
     check_gitr_slices(dev)
     torch.cuda.empty_cache()
     check_exchange(results, dev)
-    return mesh, grid, band_grid, band_s, grid3d, gitr_mesh
+    production = check_production(results, dev)
+    return mesh, grid, band_grid, band_s, grid3d, gitr_mesh, production
 
 
 def phase_d(results: dict, dev, grid, band_grid, band_s: float, smi: str) -> None:
-    import bench_torch
-    from pumipic_torch import kernels
-
     alive = {}
     for name, (kw, expected) in ARMS.items():
         kw = dict({"mesh_path": MESH}, **kw)
+        extra = {}
         if name == "band":
             kw["locator"] = band_grid
+            extra["band grid build (phase c)"] = band_s
         if name in ("cartesian", "pprad", "rotgather"):
             kw["locator"] = grid          # phase c's cartesian grid of this mesh
-        torch.cuda.empty_cache()
-        kernels.reset_launches()
-        record, state, fields = bench_torch.main(
-            device=dev, num_ptcls=NUM_PTCLS, iters=TIMED_STEPS, **kw)
-        counts = dict(kernels.LAUNCHES)
-        det = record["detail"]
-        setup = dict(det["setup_s"])
-        if name == "band":
-            setup["band grid build (phase c)"] = band_s
-        log(f"[d] {name} arm, tag {det['tag']}, E={det['mesh_elems']}")
-        log(f"[d] {name} setup seconds: "
-            + ", ".join(f"{k} {v:.2f}" for k, v in setup.items()))
-        log(f"[d] {name}: {det['ms_per_step']:.4f} ms/step, {record['value']:.6g} "
-            f"particle-steps/s, alive {det['alive']} of {det['num_ptcls']}, "
-            f"iters {det['iters']}, all_found {det['all_found']} ({smi})")
+        det, counts = dp_arm(results, dev, name, kw, expected, smi, extra)
         alive[name] = det["alive"]
         if name == "rotgather":
             log(f"[d] rotgather arm: alive "
                 f"{det['alive']} against the cartesian arm's {alive['cartesian']} "
                 f"(difference {det['alive'] - alive['cartesian']}: the table's f64-rounded "
                 f"cos/sin against the band rotation's f32 ones move positions by an ulp)")
-        log(f"[d] {name} kernel launches: {counts}")
-        launched = {k for k, v in counts.items() if v > 0}
-        if launched != set(expected):
-            raise AssertionError(f"{name} arm launched {sorted(launched)}, "
-                                 f"expected {sorted(expected)}")
         if name == "annulus" and counts["locate"] != 1:
-            raise AssertionError(f"annulus arm: {counts['locate']} L launches; "
-                                 f"only the setup's gyro-map walk may launch L")
-        for k, v in counts.items():
-            results[k]["launches"] = results[k].get("launches", 0) + v
-        for key in ("fwd", "bwd"):
-            f = fields[key]
-            if f.shape != (det["mesh_verts"],) or not bool(torch.isfinite(f).all()) \
-                    or not float(f.sum()) > 0:
-                raise AssertionError(f"{name} field {key}: shape {tuple(f.shape)}, "
-                                     f"want ({det['mesh_verts']},), finite and "
-                                     f"positive")
-        if not det["alive"] > 0.9 * NUM_PTCLS:
-            raise AssertionError(f"{name}: only {det['alive']} of {NUM_PTCLS} "
-                                 f"particles alive")
+            raise AssertionError(f"annulus arm: {counts['locate']} L launches; only the "
+                                 f"setup's gyro-map walk may launch L")
         if name == "nolocator" and not det["all_found"]:
             raise AssertionError("nolocator arm: a walker was deleted at the loop limit")
-        del state, fields
+
+
+def dp_arm(results: dict, dev, name: str, kw: dict, expected, smi: str,
+           extra_setup: Optional[dict] = None) -> dict:
+    """One FULL-mode arm through ``bench_torch.main`` at 10M particles, 1
+    warm-up + TIMED_STEPS steps, with the launch counts reset just before:
+    its setup seconds, ms/step and the walkers each step deleted at the
+    walk limit logged, its launch set required to be ``expected`` (every
+    other kernel at 0), finite positive fields and > 90% of the particles
+    alive, no particle both alive and counted deleted.  Returns the
+    record's ``detail`` and the launch counts."""
+    import bench_torch
+    from pumipic_torch import kernels
+
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    record, state, fields = bench_torch.main(
+        device=dev, num_ptcls=NUM_PTCLS, iters=TIMED_STEPS, **kw)
+    counts = dict(kernels.LAUNCHES)
+    det = record["detail"]
+    setup = dict(det["setup_s"], **(extra_setup or {}))
+    deleted = det["deleted_per_step"]
+    log(f"[d] {name} arm, tag {det['tag']}, E={det['mesh_elems']}")
+    log(f"[d] {name} setup seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in setup.items()))
+    log(f"[d] {name}: {det['ms_per_step']:.4f} ms/step, {record['value']:.6g} "
+        f"particle-steps/s, alive {det['alive']} of {det['num_ptcls']}, "
+        f"iters {det['iters']}, all_found {det['all_found']} ({smi})")
+    log(f"[d] {name}: walkers deleted at the walk limit, the warm-up and each timed "
+        f"step: {deleted} (total {sum(deleted)}); boundary exits "
+        f"{det['num_ptcls'] - det['alive'] - sum(deleted)}")
+    log(f"[d] {name} kernel launches: {counts}")
+    launched = {k for k, v in counts.items() if v > 0}
+    if launched != set(expected):
+        raise AssertionError(f"{name} arm launched {sorted(launched)}, "
+                             f"expected {sorted(expected)}")
+    for k, v in counts.items():
+        results[k]["launches"] = results[k].get("launches", 0) + v
+    for key in ("fwd", "bwd"):
+        f = fields[key]
+        if f.shape != (det["mesh_verts"],) or not bool(torch.isfinite(f).all()) \
+                or not float(f.sum()) > 0:
+            raise AssertionError(f"{name} field {key}: shape {tuple(f.shape)}, "
+                                 f"want ({det['mesh_verts']},), finite and "
+                                 f"positive")
+    if not det["alive"] > 0.9 * NUM_PTCLS:
+        raise AssertionError(f"{name}: only {det['alive']} of {NUM_PTCLS} "
+                             f"particles alive")
+    if det["alive"] + sum(deleted) > det["num_ptcls"]:
+        raise AssertionError(f"{name}: {det['alive']} alive and {sum(deleted)} deleted "
+                             f"of {det['num_ptcls']} particles")
+    del state, fields
+    return det, counts
+
+
+def phase_d_production(results: dict, dev, mesh, grid, seconds: dict, smi: str) -> None:
+    """The 1M mesh's arms at 10M particles, on phase c's read of the mesh
+    and its grid: the cartesian main path and the locator-less arm through
+    ``bench_torch.main`` (:func:`dp_arm`; every particle found or counted
+    deleted at the walk limit), then the Sell-C-σ app through its entry
+    points (:func:`run_app`)."""
+    import bench_torch
+
+    built = {"mesh file (phase c)": seconds["mesh file"], "mesh (phase c)": seconds["mesh"]}
+    for name in PRODUCTION_ARMS:
+        kw, expected = ARMS[name]
+        kw = dict(kw, mesh_path=bench_torch.PRODUCTION_MESH, mesh=mesh)
+        extra = dict(built)
+        if name == "cartesian":
+            kw["locator"] = grid
+            extra["grid build (phase c's search build)"] = seconds["locator"]
+        dp_arm(results, dev, f"{name} 1M", kw, expected, smi, extra)
+    run_app(results, dev, mesh, grid, "scs", steps=PRODUCTION_APP_STEPS, label="scs 1M")
 
 
 # the kernels an auto rebuild launches after Q: the reshuffle; the fallback
@@ -3866,12 +4110,16 @@ def run_gitr(results: dict, dev, mesh, smi: str) -> None:
         del state, fields
 
 
-def run_app(results: dict, dev, mesh, grid, structure: str):
-    """The PseudoXGCm app at 10M particles on the 120k mesh through its
-    entry points (construction, then ``run``), with the counts reset just
-    before; ``grid`` is phase c's cartesian grid for this mesh.  The SCS
-    arm is the timed one; the others run 3 steps, with the counts reset
-    after construction so that they show what a step launches.  Returns
+def run_app(results: dict, dev, mesh, grid, structure: str, steps: Optional[int] = None,
+            label: Optional[str] = None):
+    """The PseudoXGCm app at 10M particles on ``mesh`` (the 120k mesh, or
+    the 1M one) through its entry points (construction, then ``run``), with
+    the counts reset just before; ``grid`` is phase c's cartesian grid for
+    this mesh.  The SCS arm is the timed one; the others run 3 steps
+    (``steps``: another count), with the counts reset after construction
+    so that they show what a step launches; ``label`` names the arm in
+    the log (default: the structure).  The last timed step's search is
+    run again with its count of the walkers deleted at the walk limit.  Returns
     what the last timed step's rebuild moved, read without launching
     anything and held only after the timed steps: the columns and source
     rows of its gather (``"gather"``, SCS only), the arguments of its
@@ -3882,7 +4130,8 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     from pumipic_torch.utils import timing
 
     cfg = _cfg(px, mesh, structure=structure)
-    steps = APP_STEPS[structure]
+    steps = APP_STEPS[structure] if steps is None else steps
+    label = label or structure
     torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -3913,20 +4162,20 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     ms = st.total / st.count * 1e3
     ps = app.ptcls
     m = {k: (float(v) if "fraction" in k else int(v)) for k, v in ps.metrics().items()}
-    log(f"[d] app {structure}: setup {setup_s:.2f} s, {n0} particles, capacity {cap}")
-    log(f"[d] app {structure}: {ms:.4f} ms/step over {st.count} steps (timing "
+    log(f"[d] app {label}: setup {setup_s:.2f} s, {n0} particles, capacity {cap}")
+    log(f"[d] app {label}: {ms:.4f} ms/step over {st.count} steps (timing "
         f"registry; min {st.tmin * 1e3:.4f}, max {st.tmax * 1e3:.4f}), "
         f"{n0 / (ms / 1e3):.6g} particle-steps/s, num_ptcls {int(ps.num_ptcls)}, "
         f"metrics {m}")
-    log(f"[d] app {structure}: step ms {[round(t * 1e3, 4) for t in step_s]}, median "
+    log(f"[d] app {label}: step ms {[round(t * 1e3, 4) for t in step_s]}, median "
         f"{sorted(step_s)[len(step_s) // 2] * 1e3:.4f}; the allocator in the timed steps: "
         + ", ".join(f"{k} {mem1.get(k, 0) - mem0.get(k, 0)}" for k in (
             "num_device_alloc", "num_device_free", "num_alloc_retries"))
         + f", reserved {mem1.get('reserved_bytes.all.current', 0) / 2**30:.2f} GiB")
-    log(f"[d] app {structure} kernel launches: {counts}")
+    log(f"[d] app {label} kernel launches: {counts}")
     launched = {k for k, v in counts.items() if v > 0}
     if launched != set(APP_ARMS[structure]):
-        raise AssertionError(f"app {structure} launched {sorted(launched)}, "
+        raise AssertionError(f"app {label} launched {sorted(launched)}, "
                              f"expected {sorted(APP_ARMS[structure])}")
     for k, v in counts.items():
         results[k]["launches"] = results[k].get("launches", 0) + v
@@ -3935,11 +4184,11 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     E = mesh.nelems
     act = ps.active
     if int(ps.num_ptcls) != int(act.sum()) or bool(ps.overflowed):
-        raise AssertionError(f"app {structure}: num_ptcls {int(ps.num_ptcls)}, "
+        raise AssertionError(f"app {label}: num_ptcls {int(ps.num_ptcls)}, "
                              f"active {int(act.sum())}, overflowed {bool(ps.overflowed)}")
     e = ps.elem[act]
     if not bool(((e >= 0) & (e < E)).all()):
-        raise AssertionError(f"app {structure}: an active element id out of range")
+        raise AssertionError(f"app {label}: an active element id out of range")
     # conservation: the active pids are exactly those the last search kept
     from pumipic_torch.ops import push as push_ops
     from pumipic_torch.ops import search as se
@@ -3949,16 +4198,19 @@ def run_app(results: dict, dev, mesh, grid, structure: str):
     tx, ty, _, _ = push_ops.push_phi(prev.get("x"), prev.get("phi"), prev.get("b"),
                                      prev.active, cls, cfg.deg_per_push, cfg.h, cfg.k,
                                      cfg.d, bands=app.bands)
-    kept = se.walk_locate(mesh.walk_geom, tx, ty, prev.elem, prev.active,
-                          cfg.max_search_iters, grid=app.locator)[1]
+    _, kept, iters, deleted = se.walk_locate_counted(
+        mesh.walk_geom, tx, ty, prev.elem, prev.active, cfg.max_search_iters,
+        grid=app.locator)
+    log(f"[d] app {label}: the last step's search: iters {int(iters)}, "
+        f"{int(deleted)} walkers deleted at the walk limit")
     want = torch.sort(prev.get("pid")[kept]).values
     got = torch.sort(ps.get("pid")[act]).values
     if not torch.equal(want, got):
-        raise AssertionError(f"app {structure}: active pids differ from the "
+        raise AssertionError(f"app {label}: active pids differ from the "
                              f"last search's survivors")
     if not int(act.sum()) > 0.9 * NUM_PTCLS:
-        raise AssertionError(f"app {structure}: only {int(act.sum())} alive")
-    log(f"[d] app {structure}: invariants hold (num_ptcls == active, no overflow, "
+        raise AssertionError(f"app {label}: only {int(act.sum())} alive")
+    log(f"[d] app {label}: invariants hold (num_ptcls == active, no overflow, "
         f"ids in range, {got.shape[0]} active pids == the last search's survivors)")
     return {k: c["last"] for k, c in (("gather", gathers), ("slot_map", maps),
                                        ("key_sort", sorts)) if c}
@@ -4297,6 +4549,7 @@ def phase_e(results: dict, dev, grid, smi: str) -> None:
 def main() -> int:
     import pumipic_torch
 
+    t_run = time.perf_counter()
     pkg = os.path.dirname(os.path.abspath(pumipic_torch.__file__))
     if os.path.dirname(pkg) != HERE:
         raise RuntimeError(f"pumipic_torch was imported from {pkg}, not from "
@@ -4305,8 +4558,11 @@ def main() -> int:
     results = {name: {} for name in KERNELS}
     phase_b(results)
     dev = torch.device("cuda")
-    mesh, grid, band_grid, band_s, grid3d, gitr_mesh = phase_c(results, dev, smi)
+    mesh, grid, band_grid, band_s, grid3d, gitr_mesh, production = phase_c(results, dev, smi)
     phase_d(results, dev, grid, band_grid, band_s, smi)
+    phase_d_production(results, dev, *production, smi)
+    del production
+    torch.cuda.empty_cache()
     run_pps3d(results, dev, grid3d, smi)
     del grid3d
     run_gitr(results, dev, gitr_mesh, smi)
@@ -4339,6 +4595,7 @@ def main() -> int:
          "cases": [{"case": what, **rec}
                    for what, rec in results[name].get("cases", {}).items()]}
         for name, (route, src, rep) in KERNELS.items()]}
+    log(f"[f] the whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -191,7 +191,9 @@ def write_msh2(path: str, coords: np.ndarray, elem2verts: np.ndarray,
     if str(path).endswith(".gz"):
         import gzip
 
-        opener = lambda: gzip.open(path, "wt")  # noqa: E731
+        # the fastest level: the 1M-element mesh's 62 MB of text in
+        # seconds, where level 9 (gzip.open's default) takes ~half a minute
+        opener = lambda: gzip.open(path, "wt", compresslevel=1)  # noqa: E731
     else:
         opener = lambda: open(path, "w")  # noqa: E731
     with opener() as f:

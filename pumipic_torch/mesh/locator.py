@@ -147,15 +147,51 @@ def _host_walk(geom: np.ndarray, e0: np.ndarray, px: np.ndarray,
     return np.where(ok, e, -1)
 
 
+def _device_walk(geom: torch.Tensor, e0: torch.Tensor, px: torch.Tensor,
+                 py: torch.Tensor, iters: int = 24) -> torch.Tensor:
+    """:func:`_host_walk` as torch ops on the tensors' device: the same
+    gathers, the same f64 products and sums in the same order (f32 rows
+    widened exactly, one op a kernel, so nothing is fused into an FMA) and
+    the same ``-1e-6`` test, so its (N,) int64 ids equal the host walk's
+    bit for bit.  ``geom`` is the (E, 12) f32 walk table, ``px``/``py``
+    f64."""
+    e = e0.to(torch.int64).clone()
+    done = e < 0
+    rows = geom[:, :9]
+
+    def weights(g):
+        l1 = g[:, 0] * px + g[:, 1] * py + g[:, 2]
+        l2 = g[:, 3] * px + g[:, 4] * py + g[:, 5]
+        return l1, l2, 1.0 - l1 - l2
+
+    for _ in range(iters):
+        g = rows[e.clamp(min=0)]
+        l1, l2, w0 = weights(g)
+        done_new = done | (torch.minimum(torch.minimum(l1, l2), w0) >= -1e-6)
+        kmin = torch.where(w0 <= l1, 0, 1)
+        kmin = torch.where(l2 < torch.minimum(w0, l1), 2, kmin)
+        nxt = torch.gather(g[:, 6:9], 1, kmin[:, None])[:, 0].to(torch.int64)
+        e = torch.where(done_new, e, nxt)
+        done = done_new | (e < 0)
+        if bool(done.all()):
+            break
+    l1, l2, w0 = weights(rows[e.clamp(min=0)])
+    ok = (e >= 0) & (torch.minimum(torch.minimum(l1, l2), w0) >= -1e-6)
+    return torch.where(ok, e, -1)
+
+
 def attach_cell_rows(grid: LocatorGrid2D, walk_geom,
                      samples_per_cell: int = 8,
                      seed: int = 1729) -> LocatorGrid2D:
     """Return a copy of ``grid`` whose cells carry TWO candidate walk rows.
 
     Candidates are calibrated by stratified random samples per cell located
-    exactly on the host: A = the element covering the most samples, B = the
-    second (B = A when one element covers the whole cell).  Same seed and
-    draws as the JAX package, so the table is bit-equal.
+    exactly: A = the element covering the most samples, B = the second (B =
+    A when one element covers the whole cell).  Same seed and draws as the
+    JAX package, so the table is bit-equal.  On a CUDA grid the samples
+    are walked on the card (:func:`_device_walk`), on the CPU by numpy
+    (:func:`_host_walk`); the draws and the candidates' choice stay on the
+    host either way.
     """
     geom = (walk_geom.cpu().numpy() if isinstance(walk_geom, torch.Tensor)
             else np.asarray(walk_geom))
@@ -174,7 +210,13 @@ def attach_cell_rows(grid: LocatorGrid2D, walk_geom,
     hy = 1.0 / grid.inv_h[1]
     px = ox + (cell // ny + u) * hx      # cell id = ix*ny + iy
     py = oy + (cell % ny + v) * hy
-    found = _host_walk(geom, ce[cell], px, py)
+    dev = grid.cell_elem.device
+    if dev.type == "cuda":
+        def put(a):
+            return torch.as_tensor(a, device=dev)
+        found = _device_walk(put(geom), put(ce[cell]), put(px), put(py)).cpu().numpy()
+    else:
+        found = _host_walk(geom, ce[cell], px, py)
     a, b = _top2_per_cell(cell, found, ce)
 
     rows = np.concatenate(
@@ -185,15 +227,42 @@ def attach_cell_rows(grid: LocatorGrid2D, walk_geom,
                          torch.as_tensor(rows, device=grid.cell_elem.device))
 
 
+def _flood_fill(grid: torch.Tensor) -> torch.Tensor:
+    """Fill the empty (-1) cells of an (nx, ny) int64 grid by repeated
+    4-neighbour dilation without wrap-around, as the JAX package does: each
+    round takes the shifts +x, -x, +y, -y in turn, each filling the cells
+    empty at the round's start and still empty from the grid as it then
+    stands.  Torch ops on the grid's device (a round a few launches on the
+    card, where numpy's rounds took most of the 1M mesh's grid build)."""
+    while bool((grid < 0).any()):
+        empty = grid < 0
+        for sx, sy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+            shifted = torch.roll(grid, (sx, sy), dims=(0, 1))
+            if sx == 1:
+                shifted[0, :] = -1
+            if sx == -1:
+                shifted[-1, :] = -1
+            if sy == 1:
+                shifted[:, 0] = -1
+            if sy == -1:
+                shifted[:, -1] = -1
+            grid = torch.where(empty & (grid < 0), shifted, grid)
+        if bool((grid < 0).all()):
+            raise ValueError("locator grid flood fill failed")
+    return grid
+
+
 def build_locator_grid(coords: np.ndarray, elem2verts: np.ndarray,
                        cells_per_elem: float = 16.0,
                        walk_geom=None, aux=None,
                        peel: str = "auto",
                        polar: object = "auto",
                        device=None) -> LocatorGrid2D:
-    """Host build: bucket element centroids into ~cells_per_elem*E cells and
-    flood-fill empty cells from their neighbours; with ``walk_geom``, attach
-    the 2-candidate cell rows.
+    """Bucket element centroids into ~cells_per_elem*E cells on the host and
+    flood-fill empty cells from their neighbours on ``device``
+    (:func:`_flood_fill`); with ``walk_geom``, attach the 2-candidate cell
+    rows (:func:`attach_cell_rows`: on a CUDA device calibrated by the
+    device walk).
 
     ``polar``: "auto" and False give cartesian cells (the JAX package's
     polar cells only change walk start elements, never results); True
@@ -231,31 +300,14 @@ def build_locator_grid(coords: np.ndarray, elem2verts: np.ndarray,
     iy = np.clip(((cent[:, 1] - lo[1]) / h[1]).astype(np.int64), 0, ny - 1)
     grid = np.full((nx, ny), -1, np.int64)
     grid[ix, iy] = np.arange(E)  # last write wins; any nearby elem is fine
-
-    # flood-fill empties by repeated 4-neighbour dilation (no wrap-around)
-    while (grid < 0).any():
-        empty = grid < 0
-        for sx, sy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
-            shifted = np.roll(grid, (sx, sy), axis=(0, 1))
-            if sx == 1:
-                shifted[0, :] = -1
-            if sx == -1:
-                shifted[-1, :] = -1
-            if sy == 1:
-                shifted[:, 0] = -1
-            if sy == -1:
-                shifted[:, -1] = -1
-            grid = np.where(empty & (grid < 0), shifted, grid)
-        if (grid < 0).all():
-            raise ValueError("locator grid flood fill failed")
+    cells = _flood_fill(torch.as_tensor(grid, device=device))
 
     lo32 = lo.astype(np.float32)
     ih32 = (1.0 / h).astype(np.float32)
     out = LocatorGrid2D(
         origin=(float(lo32[0]), float(lo32[1])),
         inv_h=(float(ih32[0]), float(ih32[1])),
-        cell_elem=torch.as_tensor(grid.reshape(-1).astype(np.int32),
-                                  dtype=LID_DTYPE, device=device),
+        cell_elem=cells.reshape(-1).to(LID_DTYPE),
         nx=int(nx), ny=int(ny),
     )
     if walk_geom is not None:

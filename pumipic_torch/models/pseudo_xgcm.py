@@ -320,13 +320,13 @@ def gyro_maps(mesh: Mesh2D, gyro: GyroConfig):
 def make_dp_step(model: DPModel, cfg: XGCmConfig):
     """The step ``state -> (state, fields)``; fields hold the summed
     ``fwd``/``bwd`` vertex fields and the search's ``iters``/``all_found``
-    as device scalars (no host synchronization; 0 and True on the annulus
-    arm, as the JAX package's analytic search reports).  ``step.model`` is
+    and the walkers it deleted at the limit, ``deleted``, as device scalars
+    (no host synchronization; 0, True and 0 on the annulus arm, as the JAX
+    package's analytic search reports).  ``step.model`` is
     ``model``."""
     mesh, gyro = model.mesh, cfg.gyro
     R, P = gyro.num_rings, gyro.points_per_ring
     no_iters = torch.zeros((), dtype=torch.int32, device=mesh.device)
-    found = torch.ones((), dtype=torch.bool, device=mesh.device)
     push = (push_ops.push_table if isinstance(model.rot, push_ops.RotTable)
             else push_ops.push_banded)
 
@@ -337,9 +337,9 @@ def make_dp_step(model: DPModel, cfg: XGCmConfig):
         if model.analytic is not None:
             elem, active = locate_ops.annulus_locate(
                 model.analytic, tx, ty, s["active"])
-            iters, all_found = no_iters, found
+            iters, deleted = no_iters, no_iters
         else:
-            elem, active, iters, all_found = search_ops.walk_locate(
+            elem, active, iters, deleted = search_ops.walk_locate_counted(
                 mesh.walk_geom, tx, ty, s["elem"], s["active"],
                 cfg.max_search_iters, grid=model.locator)
         new_state = {"x0": tx, "x1": ty, "cphi": cphi, "sphi": sphi,
@@ -355,9 +355,9 @@ def make_dp_step(model: DPModel, cfg: XGCmConfig):
             scatter_ops.scatter_to_mapped_verts(
                 ring_accum, model.gyro_bwd, mesh.nverts, R, P)
         return new_state, {"fwd": fwd, "bwd": bwd, "iters": iters,
-                           "all_found": all_found}
+                           "all_found": deleted == 0, "deleted": deleted}
 
-    step = full_mode.make_dp_step(rank_step, keep=("iters", "all_found"))
+    step = full_mode.make_dp_step(rank_step, keep=("iters", "all_found", "deleted"))
     step.model = model
     return step
 

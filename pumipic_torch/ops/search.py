@@ -435,7 +435,18 @@ def _walk_plain(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, walkers,
 def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
                 max_iters: int, grid: Optional[Grid] = None):
     """Locate every active particle's destination; returns (elem, active,
-    iters, all_found).
+    iters, all_found): :func:`walk_locate_counted` with ``all_found`` in
+    place of its count."""
+    elem, act, iters, deleted = walk_locate_counted(
+        walk_geom, dest_x, dest_y, elem_start, active, max_iters, grid)
+    return elem, act, iters, deleted == 0
+
+
+def walk_locate_counted(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
+                        max_iters: int, grid: Optional[Grid] = None):
+    """Locate every active particle's destination; returns (elem, active,
+    iters, deleted), ``deleted`` the walkers deleted at the limit (0-d
+    i32).
 
     With ``grid`` (cell rows attached): the peel tests the destination
     cell's two candidates (iteration 1; a :class:`BandGrid2D`'s cells come
@@ -444,21 +455,23 @@ def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
     clamped ``elem_start``.  Without ``grid``: the plain walk from the
     clamped ``elem_start``.  Walkers left after ``max_iters`` iterations are
     deleted; ``iters`` is the iteration count of a batch walk that stops when
-    no walker is left, and ``all_found`` says no walker was deleted at the
-    limit.  Inactive particles get INVALID.
+    no walker is left.  Inactive particles get INVALID.
 
     Kernel L on CUDA tensors (the peel form one thread a particle; without
     a grid its dense plain walk, lockstep tiles of 32 slots, every slot
     written: see :func:`walk_locate_into` for the sparse walks),
-    :func:`walk_locate_plain` on CPU tensors."""
+    :func:`walk_locate_plain`'s batch walk on CPU tensors."""
     tensors = [walk_geom, dest_x, dest_y, elem_start, active]
     if grid is not None:
         if grid.cell_rows is None:
             raise ValueError("walk_locate: the locator grid has no cell rows")
         tensors.append(grid.cell_rows)
     if not kernels.use_kernel("locate", *tensors):
-        return walk_locate_plain(walk_geom, dest_x, dest_y, elem_start, active,
-                                 max_iters, grid)
+        elem, iters, unfinished = _walk_batch(walk_geom, dest_x, dest_y, elem_start,
+                                              active, max_iters, grid)
+        dev = elem.device
+        return (elem, elem >= 0, torch.tensor(iters, dtype=torch.int32, device=dev),
+                torch.tensor(unfinished, dtype=torch.int32, device=dev))
     n = dest_x.shape[0]
     if (dest_x.dtype != torch.float32 or dest_y.dtype != torch.float32
             or walk_geom.dtype != torch.float32
@@ -496,7 +509,7 @@ def walk_locate(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, active,
             P(kernels.stream_handle()))
     _build.check(err, "locate")
     kernels.LAUNCHES["locate"] += 1
-    return elem, act, stats[0] if grid is None else stats[0] + 1, stats[1] == 0
+    return elem, act, stats[0] if grid is None else stats[0] + 1, stats[1]
 
 
 def walk_locate_count(walk_geom: torch.Tensor, dest_x, dest_y, elem_start, walkers,

@@ -23,7 +23,11 @@ of ``trace2d_path_call`` a step: kernels L, M2, V and H from the seeded
 particles of bench_torch's mesh; its JSON line adds ``ranges``: the device
 ms a step of each of ``chip_smoke.PATH_RANGES`` and of
 ``port:check_initial_parents`` inside the first entry point, with the
-kernels each range launched by name); the ``app`` arm builds
+kernels each range launched by name); an arm's name with ``-1M``
+(``cartesian-1M``, ``nolocator-1M``, ``band-1M``, ``app-1M``, ...) runs it
+on the ~1M-element production mesh (``bench_torch.production_mesh``,
+written at first use), whose arms share one read of the mesh and one
+cartesian grid (their seconds in each arm's ``setup_s``); the ``app`` arm builds
 the single-device ``PseudoXGCm`` app on a Sell-C-σ structure with the same
 mesh and settings (its step adds the sorted rebuild: the stable sort,
 kernels H, Z, S and G), ``app-<structure>`` on another structure (``csr``,
@@ -78,31 +82,69 @@ PPS3D_ARMS = {  # arm -> bench_torch.setup_pps3d keywords
     "pps3d-cabm-near": {"kuhn": "auto", "structure": "cabm", "distance": AUTO_DIST},
     "pps3d-scs-auto-fallback": {"kuhn": "auto", "structure": "scs", "rebuild": "auto"},
 }
+# the production mesh's arms: an arm's name + "-1M" runs it on
+# bench_torch.PRODUCTION_MESH (written at first use); the arms on that mesh
+# share one read of it and one cartesian grid
+PRODUCTION = "-1M"
+_PRODUCTION_CACHE = {}
 GITR_ARMS = {  # arm -> bench_torch.setup_gitr keywords
     "gitr-reflect": {"wall": "reflect"},
     "gitr-absorb": {"wall": "absorb"},
 }
 
 
-def app_setup(dev, n: int, structure: str = "scs"):
-    """(state, step, info) of the PseudoXGCm arm: bench_torch's mesh and
-    settings on ``structure``; the state is the particle structure."""
+def production_parts(dev, n: int, grid: bool = True):
+    """(mesh, grid, seconds) of the production mesh, read once and its
+    cartesian grid built once for every arm on it (``grid=False``: no grid
+    needed yet); ``seconds``: the file, the read and the grid build."""
+    from pumipic_torch.mesh.core import Mesh2D
+    from pumipic_torch.mesh.gmsh import read_msh
+    from pumipic_torch.models import pseudo_xgcm as px
+
+    c = _PRODUCTION_CACHE
+    if "mesh" not in c:
+        t0 = time.perf_counter()
+        path = bench_torch.production_mesh()
+        c["seconds"] = {"mesh file": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        c["mesh"] = Mesh2D.from_arrays(*read_msh(path), device=dev)
+        c["seconds"]["mesh"] = time.perf_counter() - t0
+    if grid and "grid" not in c:
+        mesh = c["mesh"]
+        cfg = px.XGCmConfig(num_ptcls=n, mdl_face=max(int(mesh.class_id.max()) // 2, 2))
+        t0 = time.perf_counter()
+        c["grid"] = px.build_search(mesh, cfg, n)[1]
+        torch.cuda.synchronize()
+        c["seconds"]["grid build"] = time.perf_counter() - t0
+    return c["mesh"], c.get("grid"), dict(c["seconds"])
+
+
+def app_setup(dev, n: int, structure: str = "scs", production: bool = False):
+    """(state, step, info) of the PseudoXGCm arm: bench_torch's mesh (or the
+    production mesh and its shared grid) and settings on ``structure``; the
+    state is the particle structure."""
     from pumipic_torch.mesh.core import Mesh2D
     from pumipic_torch.mesh.gmsh import read_msh
     from pumipic_torch.models import pseudo_xgcm as px
 
     t0 = time.perf_counter()
-    mesh = Mesh2D.from_arrays(*read_msh(bench_torch.DEFAULT_MESH), device=dev)
+    grid, seconds = None, {}
+    if production:
+        mesh, grid, seconds = production_parts(dev, n)
+        t0 = time.perf_counter()
+    else:
+        mesh = Mesh2D.from_arrays(*read_msh(bench_torch.DEFAULT_MESH), device=dev)
     cfg = px.XGCmConfig(num_ptcls=n, mdl_face=max(int(mesh.class_id.max()) // 2, 2),
                         deg_per_push=15.0, max_search_iters=64, structure=structure)
-    app = px.PseudoXGCm(mesh, cfg, device=dev)
+    app = px.PseudoXGCm(mesh, cfg, device=dev, locator=grid)
 
     def step(ptcls):
         ptcls, fwd, bwd, iters = app.step_fn(ptcls)
         return ptcls, {"fwd": fwd, "bwd": bwd, "iters": iters}
 
-    info = {"tag": f"app-{structure}-xgc_like_120k",
-            "setup_s": {"app": time.perf_counter() - t0},
+    name = "xgc_like_1M" if production else "xgc_like_120k"
+    info = {"tag": f"app-{structure}-{name}",
+            "setup_s": dict(seconds, app=time.perf_counter() - t0),
             "capacity": app.ptcls.capacity}
     return app.ptcls, step, info
 
@@ -184,7 +226,16 @@ def range_device_ms(prof, names, steps: int) -> dict:
 def profile(arm: str, n: int, steps: int, smi: str) -> dict:
     dev = torch.device("cuda")
     ranges = ()
-    if arm == "2d-path":
+    production = arm.endswith(PRODUCTION)
+    base = arm[:-len(PRODUCTION)] if production else arm
+    if production and base.startswith("app"):
+        state, step, info = app_setup(dev, n, base[4:] or "scs", production=True)
+    elif production:
+        kw = dict(ARMS[base], mesh_path=bench_torch.PRODUCTION_MESH)
+        mesh, grid, seconds = production_parts(dev, n, grid=base not in ("band", "nolocator"))
+        _, state, step, info = bench_torch.setup(dev, n, mesh=mesh, locator=grid, **kw)
+        info["setup_s"] = dict(seconds, **info["setup_s"])
+    elif arm == "2d-path":
         import chip_smoke
         from pumipic_torch.ops import search as se
 
@@ -253,6 +304,7 @@ def main() -> None:
     arms = sys.argv[3:] or ["cartesian"]
     apps = ["app"] + [f"app-{s}" for s in ("csr", "cabm", "dps")]
     known = sorted(ARMS) + sorted(PPS3D_ARMS) + sorted(GITR_ARMS) + apps + ["2d-path"]
+    known += [a + PRODUCTION for a in sorted(ARMS) + apps if a != "annulus"]
     unknown = set(arms) - set(known)
     if unknown:
         raise ValueError(f"unknown arms {sorted(unknown)}; known: {known}")

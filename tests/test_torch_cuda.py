@@ -7,7 +7,8 @@ check J and L's plain walk in place and dense, the reshuffle's U1, U2 and
 U3, the Sell-C-σ row order Z and the picparts step's counts N) against its
 plain PyTorch
 version on the same CUDA tensors (exact), and its launch counter; M's and M2's mixed walk
-lengths and R's corner rows at their edges.
+lengths and R's corner rows at their edges; L's count of the walkers deleted at
+the limit; the locator grid built on the card against the host build.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports no JAX, so it also runs where JAX is not installed, without the
@@ -2629,3 +2630,42 @@ def test_rank_stats_kernel_equals_plain(dev, R):
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["slot_counts"] == n0 + 1
         assert torch.equal(got, cn.rank_stats_plain(gat, 3))
+
+
+@pytest.mark.parametrize("cpe", [16.0, 4.0])
+def test_locator_grid_built_on_the_card_equals_host_build(dev, mesh, cpe):
+    """The cartesian grid built on the card (its flood fill and its cell
+    rows' calibration walk as torch ops there) equals the host build (the
+    flood fill on the CPU, the numpy walk) bit for bit."""
+    args = (mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy())
+    got = build_locator_grid(*args, cells_per_elem=cpe, walk_geom=mesh.walk_geom, device=dev)
+    want = build_locator_grid(*args, cells_per_elem=cpe, walk_geom=mesh.walk_geom.cpu(),
+                              device="cpu")
+    assert got.cell_elem.device.type == "cuda"
+    assert torch.equal(got.cell_elem.cpu(), want.cell_elem)
+    assert torch.equal(got.cell_rows.cpu(), want.cell_rows)
+
+
+@pytest.mark.parametrize("peel", [False, True])
+@pytest.mark.parametrize("max_iters", [64, 2, 0])
+def test_walk_locate_counted_counts_the_limit(dev, mesh, peel, max_iters):
+    """Kernel L's count of the walkers deleted at the limit (the dense walk
+    and the peel form) equals the plain batch walk's, its other outputs
+    equal ``walk_locate``'s, and ``walk_locate``'s all_found is the count's
+    zero test."""
+    g = torch.Generator(device=dev).manual_seed(max_iters)
+    px_, py_, start = (t.to(dev) for t in px.gyro_ring_points(mesh, px.GyroConfig()))
+    lo_, hi = mesh.coords.amin(0), mesh.coords.amax(0)
+    far = lo_ + (hi - lo_) * torch.rand(px_.shape[0], 2, generator=g, device=dev)
+    dx, dy = far[:, 0].contiguous(), far[:, 1].contiguous()
+    active = torch.rand(px_.shape[0], generator=g, device=dev) < 0.9
+    grid = (build_locator_grid(mesh.coords.cpu().numpy(), mesh.elem2verts.cpu().numpy(),
+                               walk_geom=mesh.walk_geom, device=dev) if peel else None)
+    args = (mesh.walk_geom, dx, dy, start.to(torch.int32), active, max_iters)
+    got = se.walk_locate_counted(*args, grid=grid)
+    elem, iters, unfinished = se._walk_batch(*args, grid)
+    assert torch.equal(got[0], elem) and int(got[2]) == iters
+    assert int(got[3]) == unfinished
+    assert bool(se.walk_locate(*args, grid=grid)[3]) == (unfinished == 0)
+    if max_iters == 2:
+        assert unfinished > 0
